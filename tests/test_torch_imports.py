@@ -1,0 +1,81 @@
+"""The port stands alone: importing every module of `ullava_tpu_torch` and
+`chip_smoke` pulls in neither `jax` nor the JAX package, entry points
+called without a device refuse to run on a machine without CUDA, and
+`chip_smoke.py` fails without a card."""
+
+import json
+import pkgutil
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import ullava_tpu_torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, json, sys
+import torch
+mods = sorted(m for m in json.loads(sys.argv[1]))
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke  # noqa: F401
+leaked = sorted(m for m in sys.modules
+                if m in ("jax", "ullava_tpu") or m.startswith(("jax.", "ullava_tpu.")))
+raised = {}
+if not torch.cuda.is_available():
+    from ullava_tpu_torch.models import llama, ullava
+    from ullava_tpu_torch.serve import serve
+    cfg = ullava.UllavaConfig.tiny()
+    for name, call in (
+        ("ullava.init_params", lambda: ullava.init_params(cfg)),
+        ("llama.init_kv_cache", lambda: llama.init_kv_cache(cfg.core.llm, 1, 4)),
+        ("serve", lambda: serve((cfg, None), [])),
+    ):
+        try:
+            call()
+            raised[name] = None
+        except RuntimeError as e:
+            raised[name] = str(e)
+print(json.dumps({"modules": len(mods), "leaked": leaked, "raised": raised}))
+"""
+
+
+def _modules():
+    names = [ullava_tpu_torch.__name__]
+    for info in pkgutil.walk_packages(ullava_tpu_torch.__path__, "ullava_tpu_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_port_imports_no_jax_and_entry_points_need_cuda():
+    mods = _modules()
+    assert "ullava_tpu_torch.models.sam.image_encoder" in mods
+    res = subprocess.run(
+        [sys.executable, "-c", _PROBE, json.dumps(mods)],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO), "CUDA_VISIBLE_DEVICES": ""},
+    )
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["modules"] == len(mods)
+    assert out["leaked"] == []
+    for name, msg in out["raised"].items():
+        assert msg and "CUDA" in msg, (name, msg)
+    assert set(out["raised"]) == {"ullava.init_params", "llama.init_kv_cache", "serve"}
+
+
+def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
+    env = {"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""}
+    res = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True, text=True,
+        timeout=120, env={**env, "PYTHONPATH": str(REPO)},
+    )
+    assert res.returncode != 0 and '"ok"' not in res.stdout
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    res = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True, text=True,
+        timeout=120, env=env,
+    )
+    assert res.returncode != 0 and '"ok"' not in res.stdout

@@ -1,0 +1,119 @@
+"""Parity of the port's LLaMA prefill/decode and greedy generation with the
+JAX package, at tiny fp32 sizes from one seed (weights copied through
+`bridge.params_from_jax`, inputs drawn with numpy).
+
+The port's prefill runs its serving path (fused rotary + the flash
+wrapper, plain versions on the CPU); the JAX side runs its reference path.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from ullava_tpu.models import generate as jgen
+from ullava_tpu.models import llama as jllama
+from ullava_tpu.models import ullava_core as jcore
+from torch_port_helpers import random_params
+from ullava_tpu_torch.bridge import params_from_jax
+from ullava_tpu_torch.models import generate, llama, ullava_core
+
+# fp32 on both sides through a few layers; sums run in different orders.
+ATOL = RTOL = 1e-4
+
+
+def setup_module():
+    torch.set_num_threads(1)
+
+
+def _close(got, ref, atol=ATOL, rtol=RTOL):
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=atol, rtol=rtol)
+
+
+def test_prefill_and_decode_steps_match_jax():
+    jcfg = jllama.LlamaConfig.tiny()
+    cfg = llama.LlamaConfig.tiny()
+    jparams = random_params(jllama.init_params, jcfg, seed=0)
+    params = params_from_jax(jparams, device="cpu")
+
+    rng = np.random.default_rng(0)
+    B, S, total = 2, 7, 11
+    ids = rng.integers(0, jcfg.vocab_size, size=(B, S))
+    lens = np.array([7, 4], np.int32)
+
+    jcache = jllama.init_kv_cache(jcfg, B, total)
+    cache = llama.init_kv_cache(cfg, B, total, device="cpu")
+    jout = jllama.forward(jparams, jcfg, input_ids=jnp.asarray(ids),
+                          kv_lens=jnp.asarray(lens), kv_cache=jcache)
+    out = llama.forward(params, cfg, input_ids=torch.as_tensor(ids),
+                        kv_lens=torch.as_tensor(lens), kv_cache=cache)
+    for b, n in enumerate(lens):  # rows past the prompt are padding
+        _close(out["hidden_states"][b, :n], np.asarray(jout["hidden_states"])[b, :n])
+        _close(out["logits"][b, :n], np.asarray(jout["logits"])[b, :n])
+    jcache = jout["kv_cache"]
+
+    pos = lens.copy()
+    for step in range(3):
+        tok = rng.integers(0, jcfg.vocab_size, size=(B, 1))
+        jout = jllama.forward(
+            jparams, jcfg, input_ids=jnp.asarray(tok), positions=jnp.asarray(pos[:, None]),
+            kv_lens=jnp.asarray(pos + 1), kv_cache=jcache, write_pos=jnp.asarray(pos),
+        )
+        out = llama.forward(
+            params, cfg, input_ids=torch.as_tensor(tok), positions=torch.as_tensor(pos[:, None]),
+            kv_lens=torch.as_tensor(pos + 1), kv_cache=cache, write_pos=torch.as_tensor(pos),
+        )
+        _close(out["hidden_states"], jout["hidden_states"])
+        _close(out["logits"], jout["logits"])
+        jcache = jout["kv_cache"]
+        pos = pos + 1
+    for name in ("k", "v"):
+        for b in range(B):
+            _close(cache[name][:, b, : pos[b]], np.asarray(jcache[name])[:, b, : pos[b]])
+
+
+def _prompts(cfg, rng, lens):
+    P = 4  # tiny CLIP: (28 / 14)^2 patches
+    ids = rng.integers(5, 140, size=(len(lens), max(lens)))
+    for b, n in enumerate(lens):
+        ids[b, 1] = cfg.img_start_id
+        ids[b, 2:2 + P] = 3
+        ids[b, 2 + P] = cfg.img_end_id
+        ids[b, n:] = 0
+    return ids
+
+
+def test_generate_matches_jax_greedy():
+    jcfg = jcore.UllavaCoreConfig.tiny()
+    cfg = ullava_core.UllavaCoreConfig.tiny()
+    jparams = random_params(jcore.init_params, jcfg, seed=1)
+    params = params_from_jax(jparams, device="cpu")
+
+    rng = np.random.default_rng(1)
+    lens = np.array([12, 9], np.int32)
+    ids = _prompts(cfg, rng, lens)
+    images = rng.standard_normal((2, 28, 28, 3)).astype(np.float32)
+
+    tids, tlens, timgs = (torch.as_tensor(a) for a in (ids, lens, images))
+    first = generate.generate(params, cfg, generate.GenerateConfig(max_new_tokens=8),
+                              input_ids=tids, prompt_lens=tlens, images=timgs)
+    # Stop sample 0 at its third generated token (a per-sample stop).
+    stop = int(first["sequences"][0, lens[0] + 2])
+    jgc = jgen.GenerateConfig(max_new_tokens=8, temperature=0.0, stop_token_ids=(stop,))
+    gc = generate.GenerateConfig(max_new_tokens=8, stop_token_ids=(stop,))
+    jout = jgen.generate(
+        jparams, jcfg, jgc,
+        input_ids=jnp.asarray(ids), prompt_lens=jnp.asarray(lens), images=jnp.asarray(images),
+    )
+    out = generate.generate(params, cfg, gc, input_ids=tids, prompt_lens=tlens, images=timgs)
+    np.testing.assert_array_equal(out["sequences"].numpy(), np.asarray(jout["sequences"]))
+    np.testing.assert_array_equal(out["lengths"].numpy(), np.asarray(jout["lengths"]))
+    _close(out["hidden_last"], jout["hidden_last"])
+
+    seqs = np.asarray(jout["sequences"])
+    token = int(seqs[1, lens[1] + 1])
+    jh, jv = jgen.readout_token_hidden(jout["sequences"], jout["hidden_last"],
+                                       jout["lengths"], token, 2)
+    h, v = generate.readout_token_hidden(out["sequences"], out["hidden_last"],
+                                         out["lengths"], token, 2)
+    np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+    _close(h, jh)

@@ -1,0 +1,214 @@
+"""Parity of the port's kernel-bearing ops with the JAX package.
+
+Each function of `ullava_tpu_torch.ops` that holds a kernel takes its plain
+version for CPU tensors; here it runs against the JAX function with the
+Pallas kernel in interpret mode, on the same inputs drawn from a numpy
+seed, in fp32. The kernels themselves run on the card in the `cuda`-marked
+tests at the end (skipped without a card) and in `chip_smoke.py`.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ullava_tpu.ops.attention import attention_xla as j_attention_xla
+from ullava_tpu.ops.attention import flash_attention_fwd_bsh as j_flash_bsh
+from ullava_tpu.ops import norms as jnorms
+from ullava_tpu.ops import rope as jrope
+from ullava_tpu.ops import sam_attention as jsam
+from ullava_tpu_torch.ops import attention, norms, rope, sam_attention
+
+# fp32 on both sides; the two frameworks sum in different orders.
+ATOL = RTOL = 2e-5
+
+
+def setup_module():
+    torch.set_num_threads(1)
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))
+
+
+def _close(got, ref, atol=ATOL, rtol=RTOL):
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=atol, rtol=rtol)
+
+
+def test_rms_norm_and_layer_norm_match_jax():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((3, 7, 64)).astype(np.float32) * 3 + 1
+    w = rng.standard_normal(64).astype(np.float32)
+    b = rng.standard_normal(64).astype(np.float32)
+    _close(norms.rms_norm(_t(x), _t(w), 1e-6), jnorms.rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-6))
+    _close(
+        norms.layer_norm(_t(x), _t(w), _t(b), 1e-5),
+        jnorms.layer_norm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), 1e-5),
+    )
+
+
+def test_rope_tables_and_apply_rotary_match_jax():
+    rng = np.random.default_rng(1)
+    pos = rng.integers(0, 300, size=(2, 9))
+    cos, sin = rope.rope_cos_sin(_t(pos), 32)
+    jcos, jsin = jrope.rope_cos_sin(jnp.asarray(pos), 32)
+    _close(cos, jcos, atol=1e-5)
+    _close(sin, jsin, atol=1e-5)
+    q = rng.standard_normal((2, 9, 4, 32)).astype(np.float32)
+    k = rng.standard_normal((2, 9, 2, 32)).astype(np.float32)
+    got = rope.apply_rotary(_t(q), _t(k), _t(jcos), _t(jsin))
+    ref = jrope.apply_rotary(jnp.asarray(q), jnp.asarray(k), jcos, jsin)
+    _close(got[0], ref[0])
+    _close(got[1], ref[1])
+
+
+def test_fused_rotary_matches_jax_interpret():
+    rng = np.random.default_rng(2)
+    R, hd, H = 16, 32, 4
+    x = rng.standard_normal((R, H * hd)).astype(np.float32)
+    cos, sin = jrope.rope_cos_sin(jnp.arange(R) % 5, hd)
+    ref = jrope.fused_rotary(jnp.asarray(x), cos, sin, hd, interpret=True)
+    _close(rope.fused_rotary(_t(x), _t(cos), _t(sin), hd), ref)
+
+
+@pytest.mark.parametrize("causal,q_offset", [(True, 0), (False, 0), (True, 5)])
+def test_flash_attention_fwd_bsh_matches_jax_interpret(causal, q_offset):
+    rng = np.random.default_rng(3)
+    B, S, H, hd = 2, 128, 2, 128
+    q, k, v = (rng.standard_normal((B, S, H, hd)).astype(np.float32) for _ in range(3))
+    lens = np.array([S, 77], np.int32)
+    kw = dict(causal=causal, scale=hd**-0.5, q_offset=q_offset)
+    ref = j_flash_bsh(
+        *(jnp.asarray(a) for a in (q, k, v, lens)), block_q=64, block_k=64,
+        interpret=True, **kw,
+    )
+    got = attention.flash_attention_fwd_bsh(*(_t(a) for a in (q, k, v, lens)), **kw)
+    for b, n in enumerate(lens):  # rows past kv_len are invalid by contract
+        _close(got[b, :n], np.asarray(ref)[b, :n])
+
+
+def test_attention_xla_matches_jax():
+    rng = np.random.default_rng(4)
+    B, Sq, Sk, H, Hkv, hd = 2, 5, 11, 4, 2, 16
+    q = rng.standard_normal((B, Sq, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, Sk, Hkv, hd)).astype(np.float32)
+    v = rng.standard_normal((B, Sk, Hkv, hd)).astype(np.float32)
+    bias = rng.standard_normal((B, 1, Sq, Sk)).astype(np.float32)
+    lens = np.array([11, 7], np.int32)
+    for kw in (dict(causal=True, q_offset=6), dict(bias="b"), dict(kv_lens="l")):
+        jkw = {k_: (jnp.asarray(bias) if v_ == "b" else jnp.asarray(lens) if v_ == "l" else v_)
+               for k_, v_ in kw.items()}
+        tkw = {k_: (_t(bias) if v_ == "b" else _t(lens) if v_ == "l" else v_)
+               for k_, v_ in kw.items()}
+        ref = j_attention_xla(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **jkw)
+        _close(attention.attention_xla(_t(q), _t(k), _t(v), **tkw), ref)
+
+
+def test_window_attention_grid_matches_jax_interpret():
+    rng = np.random.default_rng(5)
+    N, H, hd, W = 2, 2, 80, 14
+    S = W * W
+    y = rng.standard_normal((N, S, 3 * H * hd)).astype(np.float32)
+    a = rng.standard_normal((N, S, H * W)).astype(np.float32)
+    b = rng.standard_normal((N, S, H * W)).astype(np.float32)
+    kw = dict(num_heads=H, head_dim=hd, window=W, scale=hd**-0.5)
+    ref = jsam.fused_window_attention_grid(
+        jnp.asarray(y), jnp.asarray(a), jnp.asarray(b), interpret=True, **kw
+    )
+    _close(sam_attention.fused_window_attention_grid(_t(y), _t(a), _t(b), **kw), ref)
+
+
+def test_global_attention_and_bias_terms_match_jax_interpret():
+    rng = np.random.default_rng(6)
+    B, H, W, hd = 1, 2, 16, 80
+    S = W * W
+    qg = rng.standard_normal((B, H, W, W, hd)).astype(np.float32)
+    rh = 0.1 * rng.standard_normal((2 * W - 1, hd)).astype(np.float32)
+    rw = 0.1 * rng.standard_normal((2 * W - 1, hd)).astype(np.float32)
+    A, Bb = sam_attention.decomposed_bias_terms(_t(qg), _t(rh), _t(rw), W)
+    jA, jB = jsam.decomposed_bias_terms(jnp.asarray(qg), jnp.asarray(rh), jnp.asarray(rw), W)
+    _close(A, jA)
+    _close(Bb, jB)
+
+    N = B * H
+    q = qg.reshape(N, S, hd)
+    k, v = (rng.standard_normal((N, S, hd)).astype(np.float32) for _ in range(2))
+    jA, jB = (np.asarray(t).reshape(N, S, W) for t in (jA, jB))
+    ref = jsam.fused_global_attention(
+        *(jnp.asarray(t) for t in (q, k, v, jA, jB)), window=W, scale=hd**-0.5,
+        block_q=128, block_k=128, interpret=True,
+    )
+    got = sam_attention.fused_global_attention(
+        *(_t(t) for t in (q, k, v, jA, jB)), window=W, scale=hd**-0.5
+    )
+    _close(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# On the card: each CUDA kernel against its plain version (bf16).
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _rand(gen, *shape, scale=1.0):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+
+def _row_rel_err(got, ref):
+    """max over rows of max|got - ref| / max|ref| on that row."""
+    got, ref = got.float().flatten(0, -2), ref.float().flatten(0, -2)
+    return ((got - ref).abs().amax(-1) / ref.abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+# Tolerance for all four: 1e-2 of each output row's largest value, which
+# admits one bf16 ulp there (at most 2^-7 of it) and not two.
+_TOL = 1e-2
+
+
+@pytest.mark.cuda
+def test_cuda_fused_rotary_matches_plain(cuda):
+    x = _rand(cuda, 96, 4 * 128)
+    cos, sin = rope.rope_cos_sin(torch.arange(96, device="cuda"), 128)
+    got = rope.fused_rotary(x, cos, sin, 128)
+    ref = rope.fused_rotary_plain(x, cos, sin, 128)
+    assert _row_rel_err(got, ref) <= _TOL
+    assert _row_rel_err(rope.fused_rotary(x, cos, -sin, 128), ref) > _TOL
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_matches_plain(cuda):
+    q, k, v = (_rand(cuda, 2, 150, 4, 128) for _ in range(3))
+    lens = torch.tensor([150, 61], dtype=torch.int32, device="cuda")
+    got = attention.flash_attention_fwd_bsh(q, k, v, lens, causal=True, scale=128**-0.5)
+    ref = attention.flash_attention_fwd_bsh_plain(q, k, v, lens, causal=True, scale=128**-0.5)
+    assert _row_rel_err(got, ref) <= _TOL
+    bad = attention.flash_attention_fwd_bsh(q, k, v, lens, causal=False, scale=128**-0.5)
+    assert _row_rel_err(bad, ref) > _TOL
+
+
+@pytest.mark.cuda
+def test_cuda_sam_attention_matches_plain(cuda):
+    # Bias terms at the encoder's size: q.rel_pos with an unscaled q, std
+    # about 2 (K3 takes them pre-scaled by 1/scale).
+    sc = 80**-0.5
+    y = _rand(cuda, 3, 196, 3 * 16 * 80)
+    a, b = (_rand(cuda, 3, 196, 16 * 14, scale=2.0 / sc) for _ in range(2))
+    args = (16, 80, 14, sc)
+    got = sam_attention.fused_window_attention_grid(y, a, b, *args)
+    ref = sam_attention.fused_window_attention_grid_plain(y, a, b, *args)
+    assert _row_rel_err(got, ref) <= _TOL
+    assert _row_rel_err(sam_attention.fused_window_attention_grid(y, b, a, *args), ref) > _TOL
+    q, k, v = (_rand(cuda, 2, 4096, 80) for _ in range(3))
+    rel_h, rel_w = (_rand(cuda, 127, 80, scale=0.25) for _ in range(2))
+    a, b = (t.reshape(2, 4096, 64).to(torch.bfloat16) for t in sam_attention.decomposed_bias_terms(
+        q.reshape(1, 2, 64, 64, 80), rel_h, rel_w, 64))
+    got = sam_attention.fused_global_attention(q, k, v, a, b, 64, sc)
+    ref = sam_attention.fused_global_attention_plain(q, k, v, a, b, 64, sc)
+    assert _row_rel_err(got, ref) <= _TOL
+    assert _row_rel_err(sam_attention.fused_global_attention(q, k, v, b, a, 64, sc), ref) > _TOL

@@ -1,0 +1,85 @@
+"""End-to-end parity of the port's RES `evaluate` (CLIP -> LLaMA prefill and
+greedy decode -> [SEG]/[LOC] readout -> SAM encode -> mask decode) with
+the JAX package at tiny fp32 sizes, weights copied through
+`bridge.params_from_jax`, and of `serve.serve` with `evaluate`."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from torch_port_helpers import random_params
+from ullava_tpu.models import generate as jgen
+from ullava_tpu.models import ullava as jullava
+from ullava_tpu_torch.bridge import params_from_jax
+from ullava_tpu_torch.models import generate, ullava
+from ullava_tpu_torch.serve import serve
+
+# fp32 through the whole stack; sums run in different orders.
+ATOL = RTOL = 2e-4
+
+
+def setup_module():
+    torch.set_num_threads(1)
+
+
+def _close(got, ref, atol=ATOL, rtol=RTOL):
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=atol, rtol=rtol)
+
+
+def _batch(cfg, rng, lens):
+    P = cfg.core.vision.num_patches
+    ids = rng.integers(5, 140, size=(len(lens), max(lens)))
+    for b, n in enumerate(lens):
+        ids[b, 1] = cfg.core.img_start_id
+        ids[b, 2:2 + P] = 3
+        ids[b, 2 + P] = cfg.core.img_end_id
+        ids[b, n:] = 0
+    return dict(
+        input_ids=ids,
+        prompt_lens=np.asarray(lens, np.int32),
+        images=rng.standard_normal((len(lens), 28, 28, 3)).astype(np.float32),
+        images_sam=rng.standard_normal((len(lens), 64, 64, 3)).astype(np.float32),
+    )
+
+
+def test_evaluate_matches_jax_and_serve():
+    jcfg = jullava.UllavaConfig.tiny()
+    jcfg = dataclasses.replace(jcfg, sam=dataclasses.replace(jcfg.sam, vision=dataclasses.replace(
+        jcfg.sam.vision, attn_kernel="pallas_interpret", window_layout="block")))
+    cfg = ullava.UllavaConfig.tiny()
+    jparams = random_params(jullava.init_params, jcfg, seed=0)
+    params = params_from_jax(jparams, device="cpu")
+    batch = _batch(cfg, np.random.default_rng(0), [12, 10])
+    tbatch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    gc = generate.GenerateConfig(max_new_tokens=6)
+
+    # Read out a token the model does generate, so the [SEG] path is live.
+    first = ullava.evaluate(params, cfg, gc, **tbatch)
+    seg = int(first["sequences"][0, 14])
+    cfg = dataclasses.replace(cfg, seg_token_idx=seg)
+    jcfg = dataclasses.replace(jcfg, seg_token_idx=seg)
+
+    jgc = jgen.GenerateConfig(max_new_tokens=6, temperature=0.0)
+    ref = jax.jit(jullava.evaluate, static_argnums=(1, 2))(
+        jparams, jcfg, jgc, **{k: jnp.asarray(v) for k, v in batch.items()}
+    )
+    out = ullava.evaluate(params, cfg, gc, **tbatch)
+    for key in ("sequences", "lengths", "seg_valid", "loc_valid"):
+        np.testing.assert_array_equal(out[key].numpy(), np.asarray(ref[key]))
+    assert bool(out["seg_valid"][0, 0])
+    for key in ("low_res_masks", "pred_boxes", "iou_pred"):
+        _close(out[key], ref[key])
+
+    requests = [
+        dict(input_ids=batch["input_ids"][b, :n], image=batch["images"][b],
+             image_sam=batch["images_sam"][b])
+        for b, n in enumerate(batch["prompt_lens"])
+    ]
+    served = serve((cfg, params), requests, device="cpu", gen=gc)
+    lens = out["lengths"].tolist()
+    assert served["sequences"] == [out["sequences"][b, :n].tolist() for b, n in enumerate(lens)]
+    _close(served["low_res_masks"], out["low_res_masks"].numpy(), atol=0, rtol=0)
+    assert served["launches"] == dict.fromkeys(served["launches"], 0)  # CPU: plain versions

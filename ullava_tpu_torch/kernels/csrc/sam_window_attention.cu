@@ -1,0 +1,79 @@
+// fused_window_attention_grid: SAM ViT window attention (14 x 14 windows,
+// hd 80) read straight from the raw qkv projection output, with the
+// decomposed rel-pos bias, writing the head-merged output.
+//
+// Replaces: ullava_tpu/ops/sam_attention.py:181 fused_window_attention_grid
+// (Pallas; bias folded into the qk dot as one-hot-augmented q/k).
+//
+// Bound on the card: at ViT-H B=4 (N = 100 windows, S = 196, H = 16) a
+// layer reads y (150 MB) and the two bias-term tensors (18 MB) and
+// writes 50 MB: ~218 MB, ~65 us of HBM time; the products are
+// 100*16*196*196*80*4 = 19.7 GFLOP, ~20 us of bf16 tensor-core time, so
+// bytes bound it.
+//
+// Design: the shared online-softmax core (flash_core.cuh), one block per
+// (window, head, 64-row q tile); 196 keys take four 64-key tiles, the
+// last one masked past key 196. q/k/v of head h are 80-element slices of
+// a y row at offsets h*80, C + h*80, 2C + h*80; the output lands at
+// h*80 of the merged [N, S, C] row, so no head split/merge copy exists.
+// The bias terms arrive as on the TPU: [N, S, H*W], pre-scaled by
+// 1/scale, columns reversed (column a' is key row W-1-a'); the block
+// un-reverses them into its [64, W] tables once, and adds
+// A[s][t / W] + Bb[s][t % W] to q.k before the scale.
+#include "flash_core.cuh"
+
+namespace ullava {
+
+constexpr int kWinHD = 80;
+constexpr int kWin = 14;
+
+struct WindowGrid {
+  const bf16* y;   // [N, S, 3C]
+  const bf16* a;   // [N, S, H*W]
+  const bf16* bb;  // [N, S, H*W]
+  bf16* o;         // [N, S, C]
+  int Sq, Sk, H;
+  int q_offset;
+  bool causal;
+  float scale;
+
+  __device__ size_t row(int inst, int s) const {
+    return static_cast<size_t>(inst / H) * Sq + s;
+  }
+  __device__ const bf16* q_row(int inst, int s) const {
+    return y + row(inst, s) * (3 * H * kWinHD) + (inst % H) * kWinHD;
+  }
+  __device__ const bf16* k_row(int inst, int t) const {
+    return q_row(inst, t) + H * kWinHD;
+  }
+  __device__ const bf16* v_row(int inst, int t) const {
+    return q_row(inst, t) + 2 * H * kWinHD;
+  }
+  __device__ bf16* o_row(int inst, int s) const {
+    return o + row(inst, s) * (H * kWinHD) + (inst % H) * kWinHD;
+  }
+  __device__ int key_limit(int) const { return Sk; }
+  __device__ float bias_a(int inst, int s, int j) const {
+    return __bfloat162float(a[row(inst, s) * (H * kWin) + (inst % H) * kWin + kWin - 1 - j]);
+  }
+  __device__ float bias_b(int inst, int s, int j) const {
+    return __bfloat162float(bb[row(inst, s) * (H * kWin) + (inst % H) * kWin + kWin - 1 - j]);
+  }
+};
+
+}  // namespace ullava
+
+// y: [N, 196, 3*H*80] bf16; a, b: [N, 196, H*14] bf16; o: [N, 196, H*80] bf16.
+ULLAVA_EXPORT int ullava_fused_window_attention_grid(const void* y, const void* a,
+                                                     const void* b, void* o, int N,
+                                                     int H, float scale,
+                                                     void* stream) {
+  constexpr int S = ullava::kWin * ullava::kWin;
+  ullava::WindowGrid p{static_cast<const ullava::bf16*>(y),
+                       static_cast<const ullava::bf16*>(a),
+                       static_cast<const ullava::bf16*>(b),
+                       static_cast<ullava::bf16*>(o),
+                       S, S, H, 0, false, scale};
+  return ullava::launch_flash<ullava::kWinHD, ullava::kWin>(
+      p, N * H, static_cast<cudaStream_t>(stream));
+}

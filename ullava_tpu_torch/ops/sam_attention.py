@@ -1,0 +1,137 @@
+"""SAM windowed and global attention with the decomposed relative
+position bias (counterpart of `ullava_tpu/ops/sam_attention.py:181-258,
+490-549,759-775`).
+
+bias[(i,j),(a,b)] = q[(i,j)].Rh[i-a+W-1] + q[(i,j)].Rw[j-b+W-1] is never
+materialised by the kernels: they take the compact terms A[(i,j), a] and
+Bb[(i,j), b] and add A[s][t // W] + Bb[s][t % W] to q.k before the scale.
+The two kernels keep the TPU functions' bias conventions, which differ:
+the window kernel takes A/Bb pre-scaled by 1/scale with reversed columns
+(as `_bias_terms_grid` emits them), the global kernel takes them raw in
+natural column order and pre-scales them itself.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ullava_tpu_torch import kernels
+
+
+def fused_window_attention_grid_plain(
+    y, bias_a, bias_b, num_heads: int, head_dim: int, window: int, scale: float
+) -> torch.Tensor:
+    N, S, _ = y.shape
+    H, hd, W = num_heads, head_dim, window
+    y5 = y.reshape(N, S, 3, H, hd)
+    q, k, v = y5[:, :, 0], y5[:, :, 1], y5[:, :, 2]
+    # Reversed columns: column a' holds the bias for key row W-1-a'.
+    A = bias_a.reshape(N, S, H, W).flip(-1).float().permute(0, 2, 1, 3)
+    Bb = bias_b.reshape(N, S, H, W).flip(-1).float().permute(0, 2, 1, 3)
+    bias = (A[..., :, None] + Bb[..., None, :]).reshape(N, H, S, W * W)
+    s = (torch.einsum("nshd,nthd->nhst", q.float(), k.float()) + bias) * scale
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    o = torch.einsum("nhst,nthd->nshd", p.float(), v.float())
+    return o.to(y.dtype).reshape(N, S, H * hd)
+
+
+def fused_window_attention_grid(
+    y: torch.Tensor,  # [N, S, 3*H*hd] qkv projection output (bias included)
+    bias_a: torch.Tensor,  # [N, S, H*W] col a' = bias for key row W-1-a'
+    bias_b: torch.Tensor,  # [N, S, H*W] col b' = bias for key col W-1-b'
+    num_heads: int,
+    head_dim: int,
+    window: int,
+    scale: float,
+) -> torch.Tensor:
+    """Window attention straight from the raw qkv output; returns the
+    head-merged [N, S, H*hd] pre-projection activations. Bias terms are
+    pre-scaled by 1/scale. CUDA kernel `kernels/csrc/sam_window_attention.cu`
+    (W 14, hd 80, bf16) for CUDA tensors, the plain version for CPU ones."""
+    N, S, width = y.shape
+    H, hd, W = num_heads, head_dim, window
+    if S != W * W or width != 3 * H * hd:
+        raise ValueError(f"y {tuple(y.shape)} does not match H={H} hd={hd} W={W}")
+    if bias_a.shape != (N, S, H * W) or bias_b.shape != (N, S, H * W):
+        raise ValueError(f"bias terms must be [{N}, {S}, {H * W}]")
+    if y.device.type == "cpu":
+        return fused_window_attention_grid_plain(y, bias_a, bias_b, H, hd, W, scale)
+    if (hd, W) != (80, 14):
+        raise ValueError(f"the CUDA window kernel is built for hd 80, W 14; got {hd}, {W}")
+    kernels.check_cuda_tensor("window y", y, torch.bfloat16)
+    kernels.check_cuda_tensor("window bias_a", bias_a, torch.bfloat16)
+    kernels.check_cuda_tensor("window bias_b", bias_b, torch.bfloat16)
+    out = torch.empty((N, S, H * hd), dtype=y.dtype, device=y.device)
+    kernels.launch(
+        "fused_window_attention_grid", y.data_ptr(), bias_a.data_ptr(),
+        bias_b.data_ptr(), out.data_ptr(), N, H, float(scale),
+    )
+    return out
+
+
+def fused_global_attention_plain(q, k, v, bias_a, bias_b, window: int, scale: float):
+    N, S, hd = q.shape
+    inv = 1.0 / scale
+    a_s = (bias_a.float() * inv).to(q.dtype).float()
+    b_s = (bias_b.float() * inv).to(q.dtype).float()
+    out = torch.empty_like(q)
+    chunk = max(1, (1 << 28) // (S * S))  # bound the [n, S, S] fp32 scores
+    for n0 in range(0, N, chunk):
+        sl = slice(n0, n0 + chunk)
+        bias = (a_s[sl, :, :, None] + b_s[sl, :, None, :]).reshape(-1, S, S)
+        s = (torch.einsum("nsd,ntd->nst", q[sl].float(), k[sl].float()) + bias) * scale
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        o = torch.einsum("nst,ntd->nsd", p.to(v.dtype).float(), v[sl].float())
+        out[sl] = (o / p.sum(-1, keepdim=True)).to(q.dtype)
+    return out
+
+
+def fused_global_attention(
+    q: torch.Tensor,  # [N, S, hd], S = window^2
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias_a: torch.Tensor,  # [N, S, W] raw, natural column order
+    bias_b: torch.Tensor,
+    window: int,
+    scale: float,
+) -> torch.Tensor:
+    """Online-softmax global attention with the decomposed bias. CUDA
+    kernel `kernels/csrc/sam_global_attention.cu` (W 64, hd 80, bf16) for
+    CUDA tensors, the plain version for CPU ones."""
+    N, S, hd = q.shape
+    W = window
+    if S != W * W or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q/k/v {tuple(q.shape)} do not match window {W}")
+    if bias_a.shape != (N, S, W) or bias_b.shape != (N, S, W):
+        raise ValueError(f"bias terms must be [{N}, {S}, {W}]")
+    if q.device.type == "cpu":
+        return fused_global_attention_plain(q, k, v, bias_a, bias_b, W, scale)
+    if (hd, W) != (80, 64):
+        raise ValueError(f"the CUDA global kernel is built for hd 80, W 64; got {hd}, {W}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("bias_a", bias_a), ("bias_b", bias_b)):
+        kernels.check_cuda_tensor(f"global {name}", t, torch.bfloat16)
+    out = torch.empty_like(q)
+    kernels.launch(
+        "fused_global_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        bias_a.data_ptr(), bias_b.data_ptr(), out.data_ptr(), N, float(scale),
+    )
+    return out
+
+
+def decomposed_bias_terms(
+    q_grid: torch.Tensor,  # [B, H, W, W, hd] query positions on the grid
+    rel_pos_h: torch.Tensor,  # [2W-1, hd]
+    rel_pos_w: torch.Tensor,
+    window: int,
+):
+    """Compact bias terms A[b,h,(i,j),a] and Bb[b,h,(i,j),b], fp32."""
+    coords = torch.arange(window, device=q_grid.device)
+    rel = coords[:, None] - coords[None, :] + (window - 1)
+    RhG = rel_pos_h[rel].float()  # [i, a, hd]
+    RwG = rel_pos_w[rel].float()  # [j, b, hd]
+    qf = q_grid.float()
+    A = torch.einsum("nhijc,iac->nhija", qf, RhG)
+    Bb = torch.einsum("nhijc,jbc->nhijb", qf, RwG)
+    B, H = q_grid.shape[:2]
+    S = window * window
+    return A.reshape(B, H, S, window), Bb.reshape(B, H, S, window)
