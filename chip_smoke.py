@@ -7,8 +7,9 @@ Phases, each fatal on any error:
   1. build   - compiles every CUDA kernel of the port from `kernels/csrc`
                (one nvcc per source, in parallel) and prints the build time;
   2. kernels - runs each kernel and its plain PyTorch version on the same
-               inputs at the serving shapes (bf16, B=4), holds the kernel to
-               the plain version within a stated tolerance, and times the
+               inputs at the serving shapes (the bf16 path's four at B=4,
+               the int8 path's five at B=16), holds the kernel to the
+               plain version within a stated tolerance, and times the
                kernel, the plain version and, where one exists, a single
                PyTorch library call computing the same function (L2
                flushed before each timed call); a mutated run of each
@@ -17,14 +18,20 @@ Phases, each fatal on any error:
                ViT-L/14, SAM ViT-H) from a seeded generator on the card,
                serves B=4 requests (320-token prompts: 256 image tokens + 64
                text, 32 greedy new tokens, one mask each) through
-               `serve.serve`, checks shapes, finiteness and that every
-               kernel was launched, then times three more serves
+               `serve.serve`, checks shapes, finiteness and that the bf16
+               path's kernels were launched exactly as often as its layers
+               and steps say, then times three more serves
                (median), each phase alone, and one serve under the
                profiler;
-  4. check   - runs a small model on the card and on the CPU (plain
-               versions, fp32) from the same weights and holds the card's
-               masks and readout to the CPU reference;
-  5. summary - prints the serve numbers again, the card's name and power
+  4. int8_serve - quantizes the same model's LLM to int8 (`quantize_llm`)
+               and serves B=16 such requests with W8A8 prefill, the fused
+               norm + quantize and the int8 KV cache, with the same checks
+               and timings; every kernel of the int8 LLM path must be
+               launched exactly as often as its layers and steps say;
+  5. check   - runs small models (bf16, then int8) on the card and on the
+               CPU (plain versions, fp32) from the same weights and holds
+               the card's outputs to the CPU reference;
+  6. summary - prints the serve numbers again, the card's name and power
                limit, one JSON line with every kernel's numbers, and last
                the device line.
 
@@ -41,8 +48,10 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 
-B = 4  # requests per batch
+B = 4  # requests per batch of the bf16 serve
+B_INT8 = 16  # requests per batch of the int8 serve
 PROMPT = 320  # 256 image tokens + 64 text tokens
 NEW_TOKENS = 32
 
@@ -79,14 +88,39 @@ def row_rel_err(got, ref) -> float:
     return (err / ref.abs().amax(-1).clamp_min(1e-30)).max().item()
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def kernel_line(name, max_abs_err, gate, kern, plain, library, in_out, flops, iters=20,
+                flops_per_s=BF16_FLOPS_PER_S) -> dict:
+    """Time a checked kernel, its plain version and its library call, and
+    put the numbers beside its bound and what its gate measured."""
+    from ullava_tpu_torch import kernels
+
+    b_ms, b_by = bound_ms(in_out, flops, flops_per_s)
+    spec = kernels.KERNELS[name]
+    line = {
+        "name": name,
+        "route": "cuda",
+        "source": f"ullava_tpu_torch/kernels/csrc/{spec.source}",
+        "replaces": spec.replaces,
+        "max_abs_err": max_abs_err,
+        **gate,
+        "ms": time_ms(kern, iters),
+        "plain_ms": time_ms(plain, max(3, iters // 4), warmup=1),
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None if library is None else time_ms(library, iters),
+    }
+    log(f"[kernel] {json.dumps(line)}")
+    return line
 
 
 def kernel_phases(gen) -> dict:
@@ -102,7 +136,6 @@ def kernel_phases(gen) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from ullava_tpu_torch import kernels
     from ullava_tpu_torch.ops import attention, rope, sam_attention
 
     dev = "cuda"
@@ -121,24 +154,10 @@ def kernel_phases(gen) -> dict:
         missed = {m: e for m, e in caught.items() if not e > tol}
         if missed:
             raise AssertionError(f"{name}: the gate does not catch {missed}")
-        b_ms, b_by = bound_ms(in_out, flops)
-        spec = kernels.KERNELS[name]
-        results[name] = {
-            "name": name,
-            "route": "cuda",
-            "source": f"ullava_tpu_torch/kernels/csrc/{spec.source}",
-            "replaces": spec.replaces,
-            "max_abs_err": (got.float() - ref.float()).abs().max().item(),
-            "row_rel_err": err,
-            "tol": tol,
-            "mutant_row_rel_err": caught,
-            "ms": time_ms(kern, iters),
-            "plain_ms": time_ms(plain, max(3, iters // 4), warmup=1),
-            "bound_ms": b_ms,
-            "bound_by": b_by,
-            "library_ms": None if library is None else time_ms(library, iters),
-        }
-        log(f"[kernel] {json.dumps(results[name])}")
+        results[name] = kernel_line(
+            name, (got.float() - ref.float()).abs().max().item(),
+            {"row_rel_err": err, "tol": tol, "mutant_row_rel_err": caught},
+            kern, plain, library, in_out, flops, iters)
 
     # K1: rotary on the q (or k) rows of one 7B prefill layer. Both round
     # one fp32 result to bf16: one ulp is 2^-8 of the value.
@@ -222,6 +241,231 @@ def kernel_phases(gen) -> dict:
     return results
 
 
+def int8_gate(got, ref):
+    """(passes, share of int8 values that agree exactly, largest
+    difference): at least 99.9% exact and the rest within 1."""
+    diff = (got.int() - ref.int()).abs()
+    exact, worst = (diff == 0).float().mean().item(), int(diff.max())
+    return worst <= 1 and exact >= 0.999, exact, worst
+
+
+def max_rel_err(got, ref) -> float:
+    return ((got - ref).abs() / ref.abs().clamp_min(1e-30)).max().item()
+
+
+def int8_kernel_phases(gen) -> dict:
+    """The five kernels of the int8 LLM path against their plain versions
+    at the shapes of a B=16 serve (5120 prefill rows; a [32, 16, 352,
+    4096] int8 cache).
+
+    Gates: int8 outputs at least 99.9% exact and the rest within 1 (a
+    value within fp32 summation-order noise of .5 may round the other
+    way); abs-max and scales within rtol 1e-6; the residual stream `h`
+    bit-exact; bf16 outputs by `row_rel_err` within 1e-2 (the decode
+    kernel's two limits are stated where it is checked); for the two
+    cache kernels every byte outside the rows they write unchanged. Each
+    gate must reject a mutated run that stands for a typical bug."""
+    import torch
+    import torch.nn.functional as F
+
+    from ullava_tpu_torch.ops import decode_attention, mlp_kernel, norms
+
+    dev = "cuda"
+    bf = torch.bfloat16
+    tol = 1e-2
+    rows, D, Fw = B_INT8 * PROMPT, 4096, 11008
+    results = {}
+
+    def randn(*shape, dtype=bf, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def must(name, ok, info):
+        if not ok:
+            raise AssertionError(f"{name}: gate failed: {info}")
+
+    def must_not(name, mutant, ok, info):
+        if ok:
+            raise AssertionError(f"{name}: the gate does not catch {mutant}: {info}")
+        return info
+
+    # K5: residual add + RMSNorm + per-row int8 quantize of one norm site.
+    x, res = randn(rows, D), randn(rows, D)
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(bf)
+    h_ref, q_ref, a_ref = norms.rms_norm_residual_quant_plain(x, res, w, 1e-6)
+
+    def judge_rows(out, q_ref, a_ref, h_ref=None):
+        h, q, a = out
+        ok, exact, worst = int8_gate(q, q_ref)
+        a_err = max_rel_err(a, a_ref)
+        info = {"int8_exact_share": exact, "int8_max_diff": worst, "amax_rel_err": a_err}
+        if h_ref is not None:
+            info["h_exact"] = torch.equal(h, h_ref)
+            ok = ok and info["h_exact"]
+        return ok and a_err <= 1e-6, info
+
+    ok, info = judge_rows(norms.rms_norm_residual_quant(x, res, w, 1e-6), q_ref, a_ref, h_ref)
+    must("rms_norm_residual_quant", ok, info)
+    _, q0_ref, a0_ref = norms.rms_norm_residual_quant_plain(x, None, w, 1e-6)
+    ok0, info0 = judge_rows((None,) + norms.rms_norm_quant(x, w, 1e-6), q0_ref, a0_ref)
+    must("rms_norm_quant", ok0, info0)
+    bad = judge_rows(norms.rms_norm_residual_quant(x, torch.zeros_like(res), w, 1e-6), q_ref, a_ref, h_ref)
+    info["no_residual_form"] = info0
+    info["mutants"] = {"residual_dropped": must_not("rms_norm_residual_quant", "residual_dropped", *bad)}
+    results["rms_norm_residual_quant"] = kernel_line(
+        "rms_norm_residual_quant", float(info["int8_max_diff"]), info,
+        lambda: norms.rms_norm_residual_quant(x, res, w, 1e-6),
+        lambda: norms.rms_norm_residual_quant_plain(x, res, w, 1e-6), None,
+        nbytes(x, res, w, h_ref, q_ref, a_ref), 10.0 * x.numel(), flops_per_s=FP32_FLOPS_PER_S)
+
+    # K9: the RMSNorm forward at the 5120 rows of a prefill's norms, and
+    # at the 16 rows of a decode step's (checked and timed the same way).
+    x9, x9d = randn(rows, D, scale=2.0), randn(B_INT8, 1, D, scale=2.0)
+    y_ref, yd_ref = norms.rms_norm_plain(x9, w, 1e-6), norms.rms_norm_plain(x9d, w, 1e-6)
+    y = norms.rms_norm(x9, w, 1e-6)
+    err, err_d = row_rel_err(y, y_ref), row_rel_err(norms.rms_norm(x9d, w, 1e-6), yd_ref)
+    must("rms_norm_fwd", err <= tol and err_d <= tol, (err, err_d))
+    bad = row_rel_err(norms.rms_norm(x9, torch.ones_like(w), 1e-6), y_ref)
+    bad_d = row_rel_err(norms.rms_norm(x9d, torch.ones_like(w), 1e-6), yd_ref)
+    must_not("rms_norm_fwd", "weight_dropped", bad <= tol or bad_d <= tol, (bad, bad_d))
+    decode_rows = {
+        "rows": B_INT8, "row_rel_err": err_d, "mutant_row_rel_err": {"weight_dropped": bad_d},
+        "ms": time_ms(lambda: norms.rms_norm(x9d, w, 1e-6), 20),
+        "plain_ms": time_ms(lambda: norms.rms_norm_plain(x9d, w, 1e-6), 20),
+        "library_ms": time_ms(lambda: F.rms_norm(x9d, (D,), w, 1e-6), 20),
+        "bound_ms": bound_ms(nbytes(x9d, w, yd_ref), 6.0 * x9d.numel(), FP32_FLOPS_PER_S)[0],
+    }
+    results["rms_norm_fwd"] = kernel_line(
+        "rms_norm_fwd", (y.float() - y_ref.float()).abs().max().item(),
+        {"row_rel_err": err, "tol": tol, "mutant_row_rel_err": {"weight_dropped": bad},
+         "decode_rows": decode_rows},
+        lambda: norms.rms_norm(x9, w, 1e-6), lambda: norms.rms_norm_plain(x9, w, 1e-6),
+        lambda: F.rms_norm(x9, (D,), w, 1e-6),
+        nbytes(x9, w, y), 6.0 * x9.numel(), flops_per_s=FP32_FLOPS_PER_S)
+    del x, res, h_ref, q_ref, a_ref, q0_ref, a0_ref, x9, y, y_ref
+
+    # K6: silu(gate) * up + per-row int8 quantize of one layer's MLP.
+    g, u = randn(rows, Fw, scale=2.0), randn(rows, Fw)
+    q_ref, a_ref = mlp_kernel.silu_mul_quant_plain(g, u)
+    ok, info = judge_rows((None,) + mlp_kernel.silu_mul_quant(g, u), q_ref, a_ref)
+    must("silu_mul_quant", ok, info)
+    bad = judge_rows((None,) + mlp_kernel.silu_mul_quant(g, torch.ones_like(u)), q_ref, a_ref)
+    info["mutants"] = {"up_dropped": must_not("silu_mul_quant", "up_dropped", *bad)}
+    results["silu_mul_quant"] = kernel_line(
+        "silu_mul_quant", float(info["int8_max_diff"]), info,
+        lambda: mlp_kernel.silu_mul_quant(g, u), lambda: mlp_kernel.silu_mul_quant_plain(g, u),
+        None, nbytes(g, u, q_ref, a_ref), 8.0 * g.numel(), flops_per_s=FP32_FLOPS_PER_S)
+    del g, u, q_ref, a_ref
+
+    # K7: quantize one layer's prefill K/V into the stacked cache. The
+    # cache starts as noise, so a byte written out of place shows.
+    L, H, hd, maxS, layer = 32, 32, 128, PROMPT + NEW_TOKENS, 17
+    cache = [torch.randint(-127, 128, (L, B_INT8, maxS, H * hd), generator=gen, device=dev,
+                           dtype=torch.int8) for _ in range(2)]
+    cache += [torch.rand((L, B_INT8, maxS, H), generator=gen, device=dev) * 0.02 + 1e-3
+              for _ in range(2)]
+    k, v = randn(B_INT8, PROMPT, H, hd), randn(B_INT8, PROMPT, H, hd, scale=3.0)
+    expect = decode_attention.prefill_quantize_write_plain(
+        k, v, *(c.clone() for c in cache), layer)
+
+    def judge_cache(got):
+        info, ok = {}, True
+        for name, g_, e_ in zip(("k", "v", "k_scale", "v_scale"), got, expect):
+            new_g, new_e = g_[layer, :, :PROMPT], e_[layer, :, :PROMPT]
+            if g_.dtype == torch.int8:
+                good, exact, worst = int8_gate(new_g, new_e)
+                info[name] = {"int8_exact_share": exact, "int8_max_diff": worst}
+            else:
+                rel = max_rel_err(new_g, new_e)
+                good = rel <= 1e-6
+                info[name] = {"scale_rel_err": rel}
+            rest = g_.clone()
+            rest[layer, :, :PROMPT] = new_e
+            info[name]["rest_untouched"] = torch.equal(rest, e_)
+            ok = ok and good and info[name]["rest_untouched"]
+        return ok, info
+
+    ok, info = judge_cache(decode_attention.prefill_quantize_write(k, v, *cache, layer))
+    must("prefill_quantize_write", ok, info)
+    # Mutant: one scale per row in place of one per (row, head).
+    qrow, srow = decode_attention.quantize_kv_rows(k.reshape(B_INT8, PROMPT, 1, H * hd))
+    mutant = [expect[0].clone(), expect[1], expect[2].clone(), expect[3]]
+    mutant[0][layer, :, :PROMPT] = qrow.reshape(B_INT8, PROMPT, H * hd)
+    mutant[2][layer, :, :PROMPT] = srow.expand(B_INT8, PROMPT, H)
+    info["mutants"] = {"one_scale_per_row": must_not(
+        "prefill_quantize_write", "one_scale_per_row", *judge_cache(mutant))["k"]}
+    del mutant, qrow, srow
+    results["prefill_quantize_write"] = kernel_line(
+        "prefill_quantize_write", float(max(info["k"]["int8_max_diff"], info["v"]["int8_max_diff"])),
+        info, lambda: decode_attention.prefill_quantize_write(k, v, *cache, layer),
+        lambda: decode_attention.prefill_quantize_write_plain(k, v, *cache, layer), None,
+        nbytes(k, v) + k.numel() * 2 + 2 * 4 * B_INT8 * PROMPT * H, 6.0 * k.numel(),
+        flops_per_s=FP32_FLOPS_PER_S)
+
+    # K8: one decode step of that layer over the cache K7 filled, ragged
+    # write positions past the prompt. Rows at and after write_pos hold
+    # noise that the kernel must not attend to.
+    q = randn(B_INT8, 1, H, hd)
+    kq, ks = decode_attention.quantize_kv_rows(randn(B_INT8, H, hd).float() + 0.25 * q[:, 0].float())
+    vq, vs = decode_attention.quantize_kv_rows(randn(B_INT8, H, hd, scale=3.0))
+    kq, vq = kq.reshape(B_INT8, H * hd), vq.reshape(B_INT8, H * hd)
+    wp = PROMPT + (torch.arange(B_INT8, device=dev) * 5) % NEW_TOKENS
+    sc = hd**-0.5
+    expect = decode_attention.decode_attention_int8_fused_write_plain(
+        q, kq, ks, vq, vs, *(c.clone() for c in cache), wp, layer, scale=sc)
+    run = lambda: decode_attention.decode_attention_int8_fused_write(  # noqa: E731
+        q, kq, ks, vq, vs, *cache, wp, layer, scale=sc)
+    got = run()
+    torch.cuda.synchronize()
+    # Two gates, both of which must hold. The kernel keeps its
+    # probabilities, their value scales and the dequantized rows in fp32;
+    # the plain version in bf16 (what a CPU tensor takes) rounds each of
+    # them to bf16, which moves an output by up to two bf16 ulps: the
+    # kernel is held to it within two ulps of a row's largest value,
+    # 2^-6. Fed the same q as fp32 and rounded to bf16 once, as the
+    # kernel's result is, the plain version and a correct kernel round two
+    # nearly equal fp32 values, which can land one ulp apart and no more:
+    # 2^-7.
+    tol_bf16, tol_f32 = 2.0**-6, 2.0**-7
+    ref = decode_attention.decode_attention_int8_fused_write_plain(
+        q.float(), kq, ks, vq, vs, *expect[1:], wp, layer, scale=sc)[0].to(bf)
+    err, err_bf16 = row_rel_err(got[0], ref), row_rel_err(got[0], expect[0])
+    untouched = all(torch.equal(g_, e_) for g_, e_ in zip(got[1:], expect[1:]))
+    info = {"row_rel_err": err, "tol": tol_f32, "row_rel_err_to_bf16_plain": err_bf16,
+            "tol_to_bf16_plain": tol_bf16, "cache_equals_scatter": untouched}
+    must("decode_attention_int8_fused_write",
+         err <= tol_f32 and err_bf16 <= tol_bf16 and untouched, info)
+    hist = float(wp.sum())
+    step_bytes = (hist * (2 * H * hd + 2 * 4 * H) + 2 * nbytes(q) + 2 * nbytes(kq, ks, vq, vs)
+                  + nbytes(wp.int()))
+    results["decode_attention_int8_fused_write"] = kernel_line(
+        "decode_attention_int8_fused_write", (got[0].float() - ref.float()).abs().max().item(),
+        info, run,
+        lambda: decode_attention.decode_attention_int8_fused_write_plain(
+            q, kq, ks, vq, vs, *cache, wp, layer, scale=sc),
+        None, step_bytes, 4.0 * hist * H * hd, flops_per_s=FP32_FLOPS_PER_S)
+    # Mutants, run through the kernel on the same (now disposable) cache.
+    # New row left out of the softmax: write_pos - 1 with the cached row
+    # write_pos - 1 as "new" row attends rows [0, write_pos) only.
+    b_idx = torch.arange(B_INT8, device=dev)
+    prev = [c[layer, b_idx, wp - 1] for c in cache]
+    left_out = decode_attention.decode_attention_int8_fused_write(
+        q, prev[0], prev[2], prev[1], prev[3], *cache, wp - 1, layer, scale=sc)[0]
+    # Staleness mask off: write_pos at the cache's last row attends the
+    # noise rows between the true position and the end as well.
+    unmasked = decode_attention.decode_attention_int8_fused_write(
+        q, kq, ks, vq, vs, *cache, torch.full_like(wp, maxS - 1), layer, scale=sc)[0]
+    # Each mutant must fail both gates (tol_bf16 is the looser one).
+    caught = {"new_row_left_out": min(row_rel_err(left_out, ref), row_rel_err(left_out, expect[0])),
+              "staleness_mask_off": min(row_rel_err(unmasked, ref), row_rel_err(unmasked, expect[0]))}
+    for m, e in caught.items():
+        must_not("decode_attention_int8_fused_write", m, e <= tol_bf16, e)
+    results["decode_attention_int8_fused_write"]["mutant_row_rel_err"] = caught
+    log(f"[kernel] decode_attention_int8_fused_write mutants {json.dumps(caught)}")
+    del cache, expect, got, ref
+    torch.cuda.empty_cache()
+    return results
+
+
 def full_config():
     """LLaMA-7B + CLIP ViT-L/14 + SAM ViT-H in bf16 at full width; the
     vocabulary is LLaMA's 32000 + [PAD] + 6 multimodal + 4 stage-2 tokens."""
@@ -261,10 +505,29 @@ def requests(cfg, n: int, prompt: int, rng):
     return out
 
 
-def serve_phase(gen) -> dict:
-    """The main path: B full-width RES requests through `serve.serve`.
-    Returns the serve line, which holds the launch count of every kernel
-    during the first call, and the profile line."""
+# Launches of one serve: 32 LLM layers (rotary on q and k, one flash
+# prefill), 28 window and 4 global SAM blocks, and 65 RMSNorms (two per
+# layer and the final one) in the prefill and in each decode step. On the
+# int8 path the prefill's 64 layer norms are the fused norm + quantize
+# instead, with one gate and one cache write per layer, and each decode
+# step runs one write-and-attend per layer.
+SAM_LAUNCHES = {"fused_window_attention_grid": 28, "fused_global_attention": 4}
+BF16_LAUNCHES = {"fused_rotary": 64, "flash_attention_fwd_bsh": 32, **SAM_LAUNCHES,
+                 "rms_norm_fwd": 65 * (1 + NEW_TOKENS),
+                 "rms_norm_residual_quant": 0, "silu_mul_quant": 0,
+                 "prefill_quantize_write": 0, "decode_attention_int8_fused_write": 0}
+INT8_LAUNCHES = {"fused_rotary": 64, "flash_attention_fwd_bsh": 32, **SAM_LAUNCHES,
+                 "rms_norm_residual_quant": 64, "silu_mul_quant": 32,
+                 "prefill_quantize_write": 32, "rms_norm_fwd": 1 + 65 * NEW_TOKENS,
+                 "decode_attention_int8_fused_write": 32 * NEW_TOKENS}
+
+
+def serve_phase(phase: str, cfg, params, n_req: int, expect: dict):
+    """One main path: `n_req` full-width RES requests through
+    `serve.serve`. The launch counts are set to 0 just before the first
+    serve and read just after it; every kernel in `expect` must have been
+    launched exactly that often. Returns the serve line (which holds those
+    counts) and the profile line."""
     import numpy as np
     import torch
 
@@ -273,13 +536,9 @@ def serve_phase(gen) -> dict:
     from ullava_tpu_torch.models.sam import build as sam_build
     from ullava_tpu_torch.serve import collate, serve
 
-    cfg = full_config()
-    t0 = time.perf_counter()
-    params = ullava.init_params(cfg, gen, "cuda")
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    reqs = requests(cfg, B, PROMPT, np.random.default_rng(0))
+    reqs = requests(cfg, n_req, PROMPT, np.random.default_rng(0))
     gc = generate.GenerateConfig(max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     kernels.reset_launch_counts()
@@ -289,20 +548,22 @@ def serve_phase(gen) -> dict:
     launches = kernels.launch_counts()
 
     seqs, masks, boxes = out["sequences"], out["low_res_masks"], out["pred_boxes"]
-    if len(seqs) != B or any(not PROMPT < len(s) <= PROMPT + NEW_TOKENS for s in seqs):
+    if len(seqs) != n_req or any(not PROMPT < len(s) <= PROMPT + NEW_TOKENS for s in seqs):
         raise AssertionError(f"bad sequence lengths {[len(s) for s in seqs]}")
     if any(not 0 <= t < cfg.core.llm.vocab_size for s in seqs for t in s):
         raise AssertionError("token id out of the vocabulary")
     for s, r in zip(seqs, reqs):
         if s[:PROMPT] != r["input_ids"].tolist():
             raise AssertionError("the prompt is not the prefix of its sequence")
-    if tuple(masks.shape) != (B, 1, 256, 256) or tuple(boxes.shape) != (B, 3, 4):
+    if tuple(masks.shape) != (n_req, 1, 256, 256) or tuple(boxes.shape) != (n_req, 3, 4):
         raise AssertionError(f"bad shapes {tuple(masks.shape)} {tuple(boxes.shape)}")
     if not (torch.isfinite(masks).all() and torch.isfinite(boxes).all()):
         raise AssertionError("non-finite masks or boxes")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    if out["launches"] != launches:
+        raise AssertionError(f"serve reports {out['launches']}, the counters {launches}")
+    wrong = {k: (launches[k], n) for k, n in expect.items() if launches[k] != n}
+    if wrong or set(expect) != set(launches):
+        raise AssertionError(f"{phase}: launches (got, expected) {wrong}")
 
     # Steady-state serve, then each phase alone (host clock, synchronized).
     def timed(fn):
@@ -316,33 +577,50 @@ def serve_phase(gen) -> dict:
     serve_s = sorted(serve_runs)[1]
     batch = collate(reqs, "cuda")
     core = params["core"]
+    lens = batch["prompt_lens"]
+    tok = torch.full((n_req, 1), 5, device="cuda")
+    steps = 4
+
     with torch.no_grad():
         _, gen_s = timed(lambda: generate.generate(
             core, cfg.core, gc, input_ids=batch["input_ids"],
-            prompt_lens=batch["prompt_lens"], images=batch["images"]))
+            prompt_lens=lens, images=batch["images"]))
         embeds, embed_s = timed(lambda: ullava_core.embed_multimodal(
             core, cfg.core, batch["input_ids"], batch["images"]))
-        cache = llama.init_kv_cache(cfg.core.llm, B, PROMPT + NEW_TOKENS, device="cuda")
+        cache = llama.init_kv_cache(cfg.core.llm, n_req, PROMPT + NEW_TOKENS, device="cuda")
         _, prefill_s = timed(lambda: llama.forward(
-            core["llm"], cfg.core.llm, inputs_embeds=embeds, kv_lens=batch["prompt_lens"],
+            core["llm"], cfg.core.llm, inputs_embeds=embeds, kv_lens=lens,
             kv_cache=cache, compute_logits=False))
+
+        def decode_steps():  # a few decode steps on the cache the prefill filled
+            for i in range(steps):
+                llama.forward(core["llm"], cfg.core.llm, input_ids=tok,
+                              positions=(lens + i)[:, None], kv_lens=lens + i + 1,
+                              kv_cache=cache, write_pos=(lens + i).long())
+
+        step_profile = profile_serve(lambda: timed(decode_steps))
+        _, steps_s = timed(decode_steps)
         emb, sam_s = timed(lambda: ullava.get_visual_embs(params, cfg, batch["images_sam"]))
-        seg = torch.zeros((B, 1, 256), device="cuda")
+        seg = torch.zeros((n_req, 1, 256), device="cuda")
         _, dec_s = timed(lambda: sam_build.forward_masks(params["sam"], cfg.sam, emb, seg))
-    profile_line = profile_serve(lambda: timed(lambda: serve((cfg, params), reqs, "cuda", gc)))
+    profile_line = {**profile_serve(lambda: timed(lambda: serve((cfg, params), reqs, "cuda", gc))),
+                    "phase": f"{phase}_profile"}
+    busy = step_profile["device_busy_s"]
     line = {
-        "phase": "serve", "batch": B, "prompt_tokens": PROMPT, "new_tokens": NEW_TOKENS,
-        "init_s": init_s, "first_serve_s": first_s, "serve_s": serve_s,
-        "serve_runs_s": serve_runs,
-        "images_per_s": B / serve_s, "clip_embed_s": embed_s, "prefill_s": prefill_s,
+        "phase": phase, "batch": n_req, "prompt_tokens": PROMPT, "new_tokens": NEW_TOKENS,
+        "first_serve_s": first_s, "serve_s": serve_s, "serve_runs_s": serve_runs,
+        "images_per_s": n_req / serve_s, "clip_embed_s": embed_s, "prefill_s": prefill_s,
         "decode_s": gen_s - embed_s - prefill_s, "sam_encode_s": sam_s,
-        "mask_decode_s": dec_s, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "mask_decode_s": dec_s,
+        "decode_step_wall_ms": steps_s / steps * 1e3,
+        "decode_step_device_ms": busy / steps * 1e3 if isinstance(busy, float) else busy,
+        "decode_step_top_device_ms": {k: v / steps for k, v in
+                                      list(step_profile["top_device_ms"].items())[:6]},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "generated": [len(s) - PROMPT for s in seqs], "launches": launches,
     }
     print(json.dumps(line), flush=True)
     print(json.dumps(profile_line), flush=True)
-    del params, cache, emb, embeds, batch, out
-    torch.cuda.empty_cache()
     return line, profile_line
 
 
@@ -363,34 +641,43 @@ def profile_serve(run) -> dict:
     events = [e for e in prof.key_averages()
               if "CUDA" in str(getattr(e, "device_type", "")) and dev_us(e) > 0]
     busy_s = sum(dev_us(e) for e in events) / 1e6
-    top = sorted(events, key=dev_us, reverse=True)[:12]
+    # Names are cut to 80 characters; kernels that then share a name
+    # (elementwise kernels of different functors) are summed.
+    ms, calls = {}, {}
+    for e in events:
+        ms[e.key[:80]] = ms.get(e.key[:80], 0.0) + dev_us(e) / 1e3
+        calls[e.key[:80]] = calls.get(e.key[:80], 0) + e.count
+    top = sorted(ms, key=ms.get, reverse=True)[:12]
     return {
         "phase": "profile", "wall_s": wall_s,
         "device_busy_s": busy_s if events else "not measured",
         "device_idle_share": 1 - busy_s / wall_s if events else "not measured",
-        "top_device_ms": {e.key[:80]: dev_us(e) / 1e3 for e in top},
-        "top_device_calls": {e.key[:80]: e.count for e in top},
+        "top_device_ms": {k: ms[k] for k in top},
+        "top_device_calls": {k: calls[k] for k in top},
     }
 
 
 def check_phase(gen) -> None:
-    """A small model through the kernels on the card against the plain
-    versions on the CPU in fp32, from the same bf16 weights: LLaMA prefill
-    (rotary + flash), the SAM encoder at W 14 / global 64 (window + global
-    kernels), and the masks decoded from both embeddings."""
+    """Small models through the kernels on the card against the plain
+    versions on the CPU in fp32, from the same weights: LLaMA prefill in
+    bf16 (rotary + flash) and in int8 with two decode steps (the five
+    int8-path kernels), the SAM encoder at W 14 / global 64 (window +
+    global kernels), and the masks decoded from both embeddings."""
     import numpy as np
     import torch
 
     from ullava_tpu_torch.models import llama
     from ullava_tpu_torch.models.sam import build as sam_build
     from ullava_tpu_torch.models.sam import image_encoder
+    from ullava_tpu_torch.ops import quant
 
     def to_cpu32(tree):
         if isinstance(tree, dict):
             return {k: to_cpu32(v) for k, v in tree.items()}
         if isinstance(tree, list):
             return [to_cpu32(v) for v in tree]
-        return tree.detach().float().cpu()
+        t = tree.detach().cpu()
+        return t.float() if t.is_floating_point() else t  # int8 weights stay int8
 
     def rel_err(got, ref):
         return ((got.float().cpu() - ref).abs().max() / ref.abs().max()).item()
@@ -412,6 +699,33 @@ def check_phase(gen) -> None:
         rel_err(got["hidden_states"][b, :n], ref["hidden_states"][b, :n])
         for b, n in enumerate(lens.tolist()))
 
+    # The int8 LLM: W8A8 prefill through the fused norm, gate and cache
+    # kernels, then two teacher-forced decode steps through the
+    # write-and-attend kernel, against fp32 activations on the CPU from
+    # the same int8 weights. Sample 1's prompt is shorter than the batch's,
+    # so its cache holds stale rows past its length.
+    qcfg = dataclasses.replace(lcfg, a8_prefill=True, kv_quant=True)
+    q32 = dataclasses.replace(qcfg, dtype=torch.float32)
+    qp = quant.quantize_tree(lp, quant.LLAMA_QUANT_KEYS)
+    qp32 = to_cpu32(qp)
+    toks = torch.as_tensor(rng.integers(0, 512, size=(2, 2, 1)))
+    with torch.no_grad():
+        cache = llama.init_kv_cache(qcfg, 2, 202, device="cuda")
+        cache32 = llama.init_kv_cache(q32, 2, 202, device="cpu")
+        got = llama.forward(qp, qcfg, input_ids=ids.cuda(), kv_lens=lens.cuda(), kv_cache=cache)
+        ref = llama.forward(qp32, q32, input_ids=ids, kv_lens=lens, kv_cache=cache32)
+        errs["int8_llama_prefill_hidden"] = max(
+            rel_err(got["hidden_states"][b, :n], ref["hidden_states"][b, :n])
+            for b, n in enumerate(lens.tolist()))
+        for i in range(2):
+            pos = lens + i
+            got = llama.forward(qp, qcfg, input_ids=toks[i].cuda(), positions=pos[:, None].cuda(),
+                                kv_lens=(pos + 1).cuda(), kv_cache=cache, write_pos=pos.cuda())
+            ref = llama.forward(qp32, q32, input_ids=toks[i], positions=pos[:, None],
+                                kv_lens=pos + 1, kv_cache=cache32, write_pos=pos)
+            errs[f"int8_llama_decode_{i}_logits"] = rel_err(got["logits"], ref["logits"])
+    torch.cuda.synchronize()
+
     scfg = sam_build.SamConfig(vision=image_encoder.SamVisionConfig(
         embed_dim=160, depth=2, num_heads=2, global_attn_indexes=(1,), out_chans=256))
     sp = sam_build.init_sam_params(scfg, gen, "cuda")
@@ -429,7 +743,9 @@ def check_phase(gen) -> None:
         masks_ref, _ = sam_build.forward_masks(sp32, s32, emb_ref, text)
     errs["sam_image_embeddings"] = rel_err(emb, emb_ref)
     errs["sam_low_res_masks"] = rel_err(masks, masks_ref)
-    tol = 5e-2  # bf16 weights/activations on the card against fp32 on the CPU
+    # bf16 activations on the card against fp32 on the CPU; on the int8
+    # path they also quantize to neighbouring int8 steps here and there.
+    tol = 5e-2
     print(json.dumps({"phase": "check", "rel_err": errs, "tol": tol}), flush=True)
     bad = {k: v for k, v in errs.items() if not v <= tol}
     if bad:
@@ -453,24 +769,52 @@ def main() -> int:
                       "sources": sorted(built)}), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results = kernel_phases(gen)
-    serve_line, profile_line = serve_phase(gen)
-    for name, n in serve_line["launches"].items():
-        results[name]["launches"] = n
+    bf16_results = kernel_phases(gen)
+    results = {**bf16_results, **int8_kernel_phases(gen)}
+
+    from ullava_tpu_torch.models import ullava
+
+    cfg = full_config()
+    t0 = time.perf_counter()
+    params = ullava.init_params(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    serve_line, profile_line = serve_phase("serve", cfg, params, B, BF16_LAUNCHES)
+
+    # The int8 LLM of the same model: int8 weights, W8A8 prefill with the
+    # fused norm + quantize, int8 KV cache. CLIP and SAM stay bf16.
+    t0 = time.perf_counter()
+    ullava.quantize_llm(params)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    quantize_s = time.perf_counter() - t0
+    llm8 = dataclasses.replace(cfg.core.llm, a8_prefill=True, kv_quant=True, fused_norm_quant=True)
+    cfg8 = dataclasses.replace(cfg, core=dataclasses.replace(cfg.core, llm=llm8))
+    int8_line, int8_profile = serve_phase("int8_serve", cfg8, params, B_INT8, INT8_LAUNCHES)
+    del params
+    torch.cuda.empty_cache()
+
+    # Each kernel's count on the main path that it was written for: the
+    # bf16 serve for the bf16 path's four, the int8 serve for the rest.
+    for name, r in results.items():
+        r["launches"] = (serve_line if name in bf16_results else int8_line)["launches"][name]
+        r["launches_bf16_serve"] = serve_line["launches"][name]
+        r["launches_int8_serve"] = int8_line["launches"][name]
     for r in results.values():
-        print(json.dumps({"phase": "kernel", "name": r["name"], "max_abs_err": r["max_abs_err"],
-                          "row_rel_err": r["row_rel_err"], "tol": r["tol"],
-                          "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
-                          "library_ms": r["library_ms"], "launches": r["launches"]}), flush=True)
+        print(json.dumps({"phase": "kernel", **{k: v for k, v in r.items()
+                                                if k not in ("route", "source", "replaces")}}),
+              flush=True)
     check_phase(gen)
     # The serve and profile numbers again, short, next to the result.
-    serve_line.pop("launches")
-    top = sorted(profile_line["top_device_ms"].items(), key=lambda kv: -kv[1])[:8]
-    print(json.dumps({**serve_line, "phase": "serve_summary",
-                      "device_busy_s": profile_line["device_busy_s"],
-                      "profiled_wall_s": profile_line["wall_s"],
-                      "top_device_ms_calls": [[name[:60], ms, profile_line["top_device_calls"][name]]
-                                              for name, ms in top]}), flush=True)
+    for line, prof in ((serve_line, profile_line), (int8_line, int8_profile)):
+        line = {k: v for k, v in line.items() if k != "launches"}
+        top = sorted(prof["top_device_ms"].items(), key=lambda kv: -kv[1])[:8]
+        print(json.dumps({**line, "phase": line["phase"] + "_summary",
+                          "init_s": init_s, "quantize_s": quantize_s,
+                          "device_busy_s": prof["device_busy_s"],
+                          "profiled_wall_s": prof["wall_s"],
+                          "top_device_ms_calls": [[name[:60], ms, prof["top_device_calls"][name]]
+                                                  for name, ms in top]}), flush=True)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

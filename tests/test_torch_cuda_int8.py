@@ -1,0 +1,138 @@
+"""On the card: each CUDA kernel of the int8 serving path against its plain
+PyTorch version, in bf16. Every test here needs an NVIDIA GPU and skips
+without one. The file imports torch only, so it runs on a machine that has
+no JAX:
+
+    python -m pytest tests/test_torch_cuda_int8.py -q
+
+Gates: int8 outputs at least 99.9% exact and the rest within 1 (an fp32
+value within summation-order noise of .5 may round the other way);
+abs-max and scales rtol 1e-6; the residual stream `h` exact; bf16 outputs
+within 1e-2 of each row's largest value (one bf16 ulp there); cache bytes
+outside the written rows unchanged.
+"""
+
+import pytest
+import torch
+
+from ullava_tpu_torch.ops import decode_attention, mlp_kernel, norms
+
+_TOL = 1e-2
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _rand(gen, *shape, scale=1.0):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+
+def _row_rel_err(got, ref):
+    got, ref = got.float().flatten(0, -2), ref.float().flatten(0, -2)
+    return ((got - ref).abs().amax(-1) / ref.abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def _int8_ok(got, ref):
+    diff = (got.int() - ref.int()).abs()
+    return bool((diff <= 1).all()) and (diff == 0).float().mean().item() >= 0.999
+
+
+def _noise_cache(gen, L, B, maxS, Hkv, hd):
+    ck, cv = (torch.randint(-127, 128, (L, B, maxS, Hkv * hd), generator=gen, device="cuda",
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((L, B, maxS, Hkv), generator=gen, device="cuda") * 0.02 + 1e-3
+              for _ in range(2))
+    return [ck, cv, ks, vs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [True, False])
+def test_cuda_rms_norm_quant_matches_plain(cuda, residual):
+    x, res = _rand(cuda, 64, 4096), _rand(cuda, 64, 4096)
+    w = (1 + 0.1 * torch.randn(4096, generator=cuda, device="cuda")).to(torch.bfloat16)
+    r = res if residual else None
+    h_ref, q_ref, s_ref = norms.rms_norm_residual_quant_plain(x, r, w, 1e-6)
+    if residual:
+        h, q, s = norms.rms_norm_residual_quant(x, res, w, 1e-6)
+        assert torch.equal(h, h_ref)
+        # Dropping the residual must break the gate.
+        _, q_bad, _ = norms.rms_norm_residual_quant(x, torch.zeros_like(res), w, 1e-6)
+        assert not _int8_ok(q_bad, q_ref)
+    else:
+        q, s = norms.rms_norm_quant(x, w, 1e-6)
+    assert _int8_ok(q, q_ref)
+    torch.testing.assert_close(s, s_ref, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_silu_mul_quant_matches_plain(cuda):
+    g, u = _rand(cuda, 48, 11008, scale=2.0), _rand(cuda, 48, 11008)
+    q, s = mlp_kernel.silu_mul_quant(g, u)
+    q_ref, s_ref = mlp_kernel.silu_mul_quant_plain(g, u)
+    assert _int8_ok(q, q_ref)
+    torch.testing.assert_close(s, s_ref, rtol=1e-6, atol=0)
+    assert not _int8_ok(mlp_kernel.silu_mul_quant(g, torch.ones_like(u))[0], q_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hkv,hd", [(4, 128), (3, 64), (2, 200)])
+def test_cuda_prefill_quantize_write_matches_plain(cuda, Hkv, hd):
+    L, B, S, maxS, layer = 3, 2, 37, 48, 1
+    k, v = _rand(cuda, B, S, Hkv, hd), _rand(cuda, B, S, Hkv, hd, scale=3.0)
+    cache = _noise_cache(cuda, L, B, maxS, Hkv, hd)
+    expect = decode_attention.prefill_quantize_write_plain(k, v, *(c.clone() for c in cache), layer)
+    got = decode_attention.prefill_quantize_write(k, v, *cache, layer)
+    for g, c, e in zip(got, cache, expect):
+        assert g is c
+        if g.dtype == torch.int8:
+            assert _int8_ok(g[layer, :, :S], e[layer, :, :S])
+            g = g.clone()
+            g[layer, :, :S] = e[layer, :, :S]
+            assert torch.equal(g, e)  # every other byte unchanged
+        else:
+            torch.testing.assert_close(g, e, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv,hd", [(8, 8, 128), (8, 2, 64), (4, 4, 16)])
+def test_cuda_decode_attention_fused_write_matches_plain(cuda, H, Hkv, hd):
+    L, B, maxS, layer = 2, 4, 352, 1
+    q = _rand(cuda, B, 1, H, hd)
+    cache = _noise_cache(cuda, L, B, maxS, Hkv, hd)
+    kq, vq = (torch.randint(-127, 128, (B, Hkv * hd), generator=cuda, device="cuda",
+                            dtype=torch.int8) for _ in range(2))
+    ksn, vsn = (torch.rand((B, Hkv), generator=cuda, device="cuda") * 0.02 + 1e-3 for _ in range(2))
+    wp = torch.tensor([320, 0, 351, 77], device="cuda")
+    sc = hd**-0.5
+    expect = decode_attention.decode_attention_int8_fused_write_plain(
+        q, kq, ksn, vq, vsn, *(c.clone() for c in cache), wp, layer, scale=sc)
+    got = decode_attention.decode_attention_int8_fused_write(
+        q, kq, ksn, vq, vsn, *cache, wp, layer, scale=sc)
+    torch.cuda.synchronize()
+    # Held to the plain version fed the same q as fp32 and rounded to bf16
+    # once, as the kernel's fp32 result is, within one bf16 ulp of a row's
+    # largest value (2^-7); and to the bf16 plain version, which rounds
+    # its probabilities and dequantized rows as well, within two (2^-6).
+    ref = decode_attention.decode_attention_int8_fused_write_plain(
+        q.float(), kq, ksn, vq, vsn, *expect[1:], wp, layer, scale=sc)[0].to(torch.bfloat16)
+    assert _row_rel_err(got[0], ref) <= 2.0**-7
+    assert _row_rel_err(got[0], expect[0]) <= 2.0**-6
+    for g, c, e in zip(got[1:], cache, expect[1:]):
+        assert g is c and torch.equal(g, e)  # new rows in place, the rest untouched
+    # Attending one row short (the new row left out) must break the gate.
+    stale = decode_attention.decode_attention_int8_xla(q, *cache, wp.clamp_min(1), layer, scale=sc)
+    assert min(_row_rel_err(stale, ref), _row_rel_err(stale, expect[0])) > 2.0**-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [2048, 8, 1])  # a prefill's rows, a decode step's
+def test_cuda_rms_norm_matches_plain(cuda, rows):
+    x = _rand(cuda, 2, rows, 4096, scale=2.0)
+    w = (1 + 0.1 * torch.randn(4096, generator=cuda, device="cuda")).to(torch.bfloat16)
+    ref = norms.rms_norm_plain(x, w, 1e-6)
+    assert _row_rel_err(norms.rms_norm(x, w, 1e-6), ref) <= _TOL
+    assert _row_rel_err(norms.rms_norm(x, torch.ones_like(w), 1e-6), ref) > _TOL

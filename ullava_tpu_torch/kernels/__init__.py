@@ -69,6 +69,29 @@ KERNELS: Dict[str, KernelSpec] = {
             "ullava_fused_global_attention", (P, P, P, P, P, P, I, F, P),
             "ullava_tpu/ops/sam_attention.py:490",
         ),
+        KernelSpec(
+            "rms_norm_residual_quant", "rms_quant.cu", "ullava_rms_norm_residual_quant",
+            (P, P, P, P, P, P, I, I, F, P), "ullava_tpu/ops/norms.py:139",
+        ),
+        KernelSpec(
+            "silu_mul_quant", "silu_mul_quant.cu", "ullava_silu_mul_quant",
+            (P, P, P, P, I, I, P), "ullava_tpu/ops/mlp_kernel.py:390",
+        ),
+        KernelSpec(
+            "prefill_quantize_write", "kv_quant_write.cu", "ullava_prefill_quantize_write",
+            (P, P, P, P, P, P, I, I, I, I, I, I, P),
+            "ullava_tpu/ops/decode_attention.py:508",
+        ),
+        KernelSpec(
+            "decode_attention_int8_fused_write", "decode_attention_int8.cu",
+            "ullava_decode_attention_int8_fused_write",
+            (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P),
+            "ullava_tpu/ops/decode_attention.py:345",
+        ),
+        KernelSpec(
+            "rms_norm_fwd", "rms_quant.cu", "ullava_rms_norm_fwd",
+            (P, P, P, I, I, F, P), "ullava_tpu/ops/norms.py:77",
+        ),
     )
 }
 

@@ -20,6 +20,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ullava_tpu_torch.models import llama, ullava_core
+from ullava_tpu_torch.ops.quant import apply_linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,7 +67,9 @@ def generate(
     lens = prompt_lens.to(torch.int32)
     # Logits only at each sample's last prompt position.
     h_last = pre["hidden_states"][b_idx, lens.long() - 1]
-    tok = sample_token((h_last.to(cfg.llm.dtype) @ params["llm"]["lm_head"]).float(), gen)
+    tok = sample_token(
+        apply_linear(h_last.to(cfg.llm.dtype), params["llm"]["lm_head"]).float(), gen
+    )
 
     seq = torch.zeros((B, total), dtype=torch.int32, device=dev)
     seq[:, :S] = input_ids.to(torch.int32)

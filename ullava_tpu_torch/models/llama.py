@@ -1,23 +1,34 @@
 """LLaMA decoder, serving path (counterpart of `ullava_tpu/models/llama.py`:
 `LlamaConfig`, `init_params`, `init_kv_cache`, `_layer` and `forward` on the
-bf16, non-LoRA path).
+non-LoRA path, in bf16 or with int8 weights, W8A8 prefill and an int8 KV
+cache).
 
 Pre-norm RMSNorm -> rotary MHA -> RMSNorm -> SwiGLU with fp32 norm
 statistics. Parameters are a dict whose `layers` entry is a list of
 per-layer dicts (the JAX tree stacks them on a leading axis); linear
-weights are `[in, out]`. The KV cache is a stacked `[L, B, maxS, Hkv, hd]`
-pair updated IN PLACE (the JAX version threads it functionally).
+weights are `[in, out]` tensors or `{"q", "scale"}` int8 leaves
+(`ops/quant.py`). The KV cache is stacked over layers and updated IN PLACE
+(the JAX version threads it functionally): `[L, B, maxS, Hkv, hd]` in the
+compute dtype, or with `kv_quant` `[L, B, maxS, Hkv*hd]` int8 plus
+`[L, B, maxS, Hkv]` f32 scales.
 
-Prefill (S > 1 with a cache) runs the two serving kernels: `fused_rotary`
-on q and k, and the flash forward through `attention(impl=cfg.attn_impl)`.
-A decode step scatters one row per sample at `write_pos` and attends over
-the whole cache with the plain path, masked by `kv_lens`.
+Prefill (S > 1 with a cache) runs `fused_rotary` on q and k and the flash
+forward through `attention(impl=cfg.attn_impl)`. With `a8_prefill` its
+linears are W8A8, and with `fused_norm_quant` both norm sites are the
+fused add + RMSNorm + quantize kernel, the MLP residual deferred one layer
+(`pending`), and the MLP gate is `silu_mul_quant`; `kv_quant` writes the
+cache through `prefill_quantize_write`. A decode step (S == 1) keeps
+weight-only linears; it scatters one row per sample at `write_pos` and
+attends with the plain path, or with `kv_quant` runs the write-and-attend
+kernel. The JAX package gates these routes on the TPU and on tile
+alignment; here the config alone chooses, and a shape a kernel cannot
+take raises in its wrapper.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,7 +36,19 @@ import torch.nn.functional as F
 from ullava_tpu_torch import resolve_device
 from ullava_tpu_torch.models import normal
 from ullava_tpu_torch.ops.attention import attention
-from ullava_tpu_torch.ops.norms import rms_norm
+from ullava_tpu_torch.ops.decode_attention import (
+    decode_attention_int8_fused_write,
+    prefill_quantize_write,
+    quantize_kv_rows,
+)
+from ullava_tpu_torch.ops.mlp_kernel import silu_mul_quant
+from ullava_tpu_torch.ops.norms import rms_norm, rms_norm_residual_quant
+from ullava_tpu_torch.ops.quant import (
+    apply_linear,
+    apply_linear_a8,
+    apply_linear_a8_prequant,
+    is_quantized,
+)
 from ullava_tpu_torch.ops.rope import apply_rotary, fused_rotary, rope_cos_sin
 
 Params = Dict[str, Any]
@@ -44,6 +67,14 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
     # Prefill attention: 'flash' (the kernel) or 'xla' (the plain path).
     attn_impl: str = "flash"
+    # Run the prefill's linears (S > 1) W8A8 where the weight is int8. A
+    # decode step stays weight-only.
+    a8_prefill: bool = False
+    # Store the KV cache int8 with per-(position, head) scales.
+    kv_quant: bool = False
+    # With a8_prefill: fuse the residual add, RMSNorm and per-row int8
+    # quantize at both norm sites, deferring the MLP residual one layer.
+    fused_norm_quant: bool = True
 
     @property
     def head_dim(self) -> int:
@@ -95,8 +126,20 @@ def init_params(
 def init_kv_cache(
     cfg: LlamaConfig, batch: int, max_len: int, device=None
 ) -> Dict[str, torch.Tensor]:
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     device = resolve_device(device)
+    if cfg.kv_quant:
+        # Heads merged on the minor dim, the layout both cache kernels
+        # address; the length rounds up to a multiple of 8 as the JAX
+        # cache's does, so the two have the same shape.
+        rows = (cfg.num_layers, batch, (max_len + 7) // 8 * 8)
+        merged = rows + (cfg.num_kv_heads * cfg.head_dim,)
+        return {
+            "k": torch.zeros(merged, dtype=torch.int8, device=device),
+            "v": torch.zeros(merged, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(rows + (cfg.num_kv_heads,), dtype=torch.float32, device=device),
+            "v_scale": torch.zeros(rows + (cfg.num_kv_heads,), dtype=torch.float32, device=device),
+        }
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
         "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -114,14 +157,34 @@ def _layer(
     layer_idx: int,
     write_pos: Optional[torch.Tensor],  # [B] per-sample write index (S == 1)
     causal: bool,
-) -> torch.Tensor:
+    pending: Optional[torch.Tensor] = None,  # deferred MLP residual (fused-norm prefill)
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One decoder layer. Returns (h, pending): with `pending` given, the
+    MLP output comes back as the next `pending` and is not yet added."""
     B, S, D = h.shape
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    fused = pending is not None
 
-    x = rms_norm(h, p["input_norm"], cfg.rms_norm_eps)
-    q = (x @ p["q_proj"]).reshape(B, S, H, hd)
-    k = (x @ p["k_proj"]).reshape(B, S, Hkv, hd)
-    v = (x @ p["v_proj"]).reshape(B, S, Hkv, hd)
+    def lin(xin, w):
+        if cfg.a8_prefill and S > 1 and is_quantized(w):
+            return apply_linear_a8(xin, w)
+        return apply_linear(xin, w)
+
+    if fused:
+        # The previous layer's MLP residual add, the norm and the int8
+        # activation quantize in one pass; q/k/v share the int8 rows.
+        h, xq, xs = rms_norm_residual_quant(h, pending, p["input_norm"], cfg.rms_norm_eps)
+        xq = xq.reshape(B * S, D)
+
+        def proj(name, heads):
+            return apply_linear_a8_prequant(xq, xs, p[name], cfg.dtype).reshape(B, S, heads, hd)
+    else:
+        x = rms_norm(h, p["input_norm"], cfg.rms_norm_eps)
+
+        def proj(name, heads):
+            return lin(x, p[name]).reshape(B, S, heads, hd)
+
+    q, k, v = proj("q_proj", H), proj("k_proj", Hkv), proj("v_proj", Hkv)
     if cache is not None and S > 1:
         # Serving prefill: one-pass rotary kernel over the flat rows.
         cos_r = cos.expand(B, S, hd).reshape(B * S, hd)
@@ -133,6 +196,17 @@ def _layer(
 
     if cache is None:
         attn = attention(q, k, v, causal=causal, kv_lens=kv_lens, impl=cfg.attn_impl)
+    elif S == 1 and "k_scale" in cache:
+        # Write-and-attend over the int8 cache: the kernel masks rows at
+        # and after write_pos and scores the current token from its new
+        # row, so `kv_lens` is not consulted.
+        kq, ks = quantize_kv_rows(k[:, 0])  # [B, Hkv, hd] rows
+        vq, vs = quantize_kv_rows(v[:, 0])
+        attn = decode_attention_int8_fused_write(
+            q, kq.reshape(B, Hkv * hd), ks, vq.reshape(B, Hkv * hd), vs,
+            cache["k"], cache["v"], cache["k_scale"], cache["v_scale"],
+            write_pos, layer_idx, scale=hd**-0.5,
+        )[0]
     elif S == 1:
         b_idx = torch.arange(B, device=h.device)
         cache["k"][layer_idx, b_idx, write_pos] = k[:, 0]
@@ -143,14 +217,45 @@ def _layer(
         )
     else:
         # Prefill: bulk-write positions [0, S), attend over the local k/v.
-        cache["k"][layer_idx, :, :S] = k
-        cache["v"][layer_idx, :, :S] = v
+        if "k_scale" in cache:
+            prefill_quantize_write(
+                k, v, cache["k"], cache["v"], cache["k_scale"], cache["v_scale"], layer_idx
+            )
+        else:
+            cache["k"][layer_idx, :, :S] = k
+            cache["v"][layer_idx, :, :S] = v
         attn = attention(q, k, v, causal=causal, kv_lens=kv_lens, impl=cfg.attn_impl)
 
-    h = h + attn.reshape(B, S, H * hd) @ p["o_proj"]
-    x = rms_norm(h, p["post_norm"], cfg.rms_norm_eps)
-    gated = F.silu(x @ p["gate_proj"]) * (x @ p["up_proj"])
-    return h + gated @ p["down_proj"]
+    o = lin(attn.reshape(B, S, H * hd), p["o_proj"])
+    if fused:
+        h, xq, xs = rms_norm_residual_quant(h, o, p["post_norm"], cfg.rms_norm_eps)
+        xq = xq.reshape(B * S, D)
+        g = apply_linear_a8_prequant(xq, xs, p["gate_proj"], cfg.dtype)
+        u = apply_linear_a8_prequant(xq, xs, p["up_proj"], cfg.dtype)
+    else:
+        h = h + o
+        x = rms_norm(h, p["post_norm"], cfg.rms_norm_eps)
+        g, u = lin(x, p["gate_proj"]), lin(x, p["up_proj"])
+    if cfg.a8_prefill and S > 1 and cache is not None and is_quantized(p["down_proj"]):
+        # Fused silu * up + per-row int8 quantize feeding the W8A8 down
+        # projection (serving only, as in the JAX package).
+        F_ = g.shape[-1]
+        gq, gs = silu_mul_quant(g.reshape(B * S, F_), u.reshape(B * S, F_))
+        y = apply_linear_a8_prequant(gq, gs, p["down_proj"], cfg.dtype).reshape(B, S, D)
+    else:
+        y = lin(F.silu(g) * u, p["down_proj"]).reshape(B, S, D)
+    if fused:
+        return h, y  # the next layer's fused norm adds y
+    return h + y, None
+
+
+def _use_fused_norm_quant(cfg: LlamaConfig, layer: Params, S: int) -> bool:
+    """The fused add + RMSNorm + quantize prefill: W8A8 prefill with int8
+    q/gate/up weights (the JAX gate without its TPU and tile conditions)."""
+    return (
+        cfg.fused_norm_quant and cfg.a8_prefill and S > 1
+        and all(is_quantized(layer.get(k)) for k in ("q_proj", "gate_proj", "up_proj"))
+    )
 
 
 def embed(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
@@ -180,8 +285,16 @@ def forward(
     if positions is None:
         positions = torch.arange(S, device=h.device).expand(B, S)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-    for i, lp in enumerate(params["layers"]):
-        h = _layer(cfg, h, lp, cos, sin, kv_lens, kv_cache, i, write_pos, causal)
+    layers = params["layers"]
+    # Fused-norm W8A8 prefill: the MLP residual is carried to the next
+    # layer's fused norm; layer 0 adds zeros and the last one is added here.
+    pend = None
+    if kv_cache is not None and _use_fused_norm_quant(cfg, layers[0], S):
+        pend = torch.zeros_like(h)
+    for i, lp in enumerate(layers):
+        h, pend = _layer(cfg, h, lp, cos, sin, kv_lens, kv_cache, i, write_pos, causal, pend)
+    if pend is not None:
+        h = h + pend
     h = rms_norm(h, params["norm"], cfg.rms_norm_eps)
-    logits = (h @ params["lm_head"]).float() if compute_logits else None
+    logits = apply_linear(h, params["lm_head"]).float() if compute_logits else None
     return {"hidden_states": h, "logits": logits, "kv_cache": kv_cache}

@@ -21,6 +21,7 @@ from ullava_tpu_torch.models import generate as gen_mod
 from ullava_tpu_torch.models import projector, ullava_core
 from ullava_tpu_torch.models.sam import build as sam_build
 from ullava_tpu_torch.models.sam import image_encoder as sam_image_encoder
+from ullava_tpu_torch.ops import quant
 
 Params = Dict[str, Any]
 
@@ -63,6 +64,15 @@ def init_params(
         "det_projector": projector.init_text_head(gen, D, cfg.out_dim, device=device),
         "det_decoder": projector.init_box_decoder(gen, cfg.out_dim, device=device),
     }
+
+
+def quantize_llm(params: Params) -> Params:
+    """Replace the LLM's linear weights (`LLAMA_QUANT_KEYS`) by int8
+    leaves, in `params` itself, so that the full-precision copies can be
+    freed. Serve the result with `LlamaConfig(a8_prefill=True,
+    kv_quant=True)`; CLIP and SAM keep their weights."""
+    params["core"]["llm"] = quant.quantize_tree(params["core"]["llm"], quant.LLAMA_QUANT_KEYS)
+    return params
 
 
 def get_visual_embs(params: Params, cfg: UllavaConfig, images_sam: torch.Tensor) -> torch.Tensor:

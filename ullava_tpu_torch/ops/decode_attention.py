@@ -1,0 +1,193 @@
+"""The int8 KV cache: row quantization, the prefill's quantize-and-write,
+and the decode step's write-and-attend (counterpart of
+`ullava_tpu/ops/decode_attention.py:37-43,345-458,508-611`).
+
+The cache is a stacked `[L, B, maxS, Hkv*hd]` int8 pair (heads merged on
+the minor dim) with `[L, B, maxS, Hkv]` f32 scales, one per (position,
+kv head). Both kernels take the whole stacked cache and a layer index
+and update it IN PLACE (the JAX versions alias their outputs onto the
+donated cache); the wrappers return the same tensors.
+
+Exactness: a key row's scale is constant over the contraction, so it
+folds into the score after the dot, and a value row's scale folds into
+its probability; attention over the int8 cache equals attention over the
+dequantized cache up to fp32 summation order.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ullava_tpu_torch import kernels
+from ullava_tpu_torch.ops.attention import attention_xla
+
+
+def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., hd] -> (int8 [..., hd], f32 scale [...]), per-row symmetric:
+    scale = max(amax, 1e-12) / 127, rows divided, rounded half to even and
+    clipped to +-127."""
+    xf = x.float()
+    scale = xf.abs().amax(-1).clamp_min(1e-12) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def _check_cache(name, cache_k, cache_v, k_scale, v_scale, B, Hkv, hd):
+    L, Bc, maxS, Ckv = cache_k.shape
+    if Bc != B or Ckv != Hkv * hd:
+        raise ValueError(f"{name}: cache {tuple(cache_k.shape)} does not fit B={B}, Hkv*hd={Hkv * hd}")
+    for label, t, dtype, shape in (
+        ("cache_k", cache_k, torch.int8, (L, B, maxS, Ckv)),
+        ("cache_v", cache_v, torch.int8, (L, B, maxS, Ckv)),
+        ("k_scale", k_scale, torch.float32, (L, B, maxS, Hkv)),
+        ("v_scale", v_scale, torch.float32, (L, B, maxS, Hkv)),
+    ):
+        kernels.check_cuda_tensor(f"{name} {label}", t, dtype, shape)
+    return L, maxS
+
+
+def prefill_quantize_write_plain(k, v, cache_k, cache_v, k_scale, v_scale, layer_idx: int):
+    """Plain version of `prefill_quantize_write`: `quantize_kv_rows`, then
+    a slice assignment into positions [0, S) of layer `layer_idx`."""
+    B, S, Hkv, hd = k.shape
+    for x, cache, scales in ((k, cache_k, k_scale), (v, cache_v, v_scale)):
+        q, s = quantize_kv_rows(x)
+        cache[layer_idx, :, :S] = q.reshape(B, S, Hkv * hd)
+        scales[layer_idx, :, :S] = s
+    return cache_k, cache_v, k_scale, v_scale
+
+
+def prefill_quantize_write(
+    k: torch.Tensor,  # [B, S, Hkv, hd] post-rope keys (compute dtype)
+    v: torch.Tensor,  # [B, S, Hkv, hd]
+    cache_k: torch.Tensor,  # [L, B, maxS, Hkv*hd] int8, updated in place
+    cache_v: torch.Tensor,
+    k_scale: torch.Tensor,  # [L, B, maxS, Hkv] f32, updated in place
+    v_scale: torch.Tensor,
+    layer_idx: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Quantize a prefill's K/V rows (the `quantize_kv_rows` recipe) and
+    write positions [0, S) of one layer of the stacked cache in one pass;
+    rows [S, maxS) and the other layers are not touched. CUDA kernel
+    `kernels/csrc/kv_quant_write.cu` (bf16 rows) for CUDA tensors, the
+    plain version for CPU tensors."""
+    B, S, Hkv, hd = k.shape
+    if v.shape != k.shape or S > cache_k.shape[2] or not 0 <= layer_idx < cache_k.shape[0]:
+        raise ValueError(
+            f"bad shapes k {tuple(k.shape)} v {tuple(v.shape)} cache {tuple(cache_k.shape)} "
+            f"layer {layer_idx}"
+        )
+    if k.device.type == "cpu":
+        return prefill_quantize_write_plain(k, v, cache_k, cache_v, k_scale, v_scale, layer_idx)
+    if hd % 4 or hd > 256:
+        raise ValueError(f"prefill_quantize_write: head_dim {hd} must be a multiple of 4, at most 256")
+    kernels.check_cuda_tensor("prefill_quantize_write k", k, torch.bfloat16)
+    kernels.check_cuda_tensor("prefill_quantize_write v", v, torch.bfloat16)
+    _, maxS = _check_cache("prefill_quantize_write", cache_k, cache_v, k_scale, v_scale, B, Hkv, hd)
+    kernels.launch(
+        "prefill_quantize_write", k.data_ptr(), v.data_ptr(), cache_k.data_ptr(),
+        cache_v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), B, S, Hkv, hd, maxS,
+        int(layer_idx),
+    )
+    return cache_k, cache_v, k_scale, v_scale
+
+
+def decode_attention_int8_xla(
+    q: torch.Tensor,  # [B, 1, H, hd]
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_scale: torch.Tensor,
+    kv_lens: torch.Tensor,  # [B]
+    layer_idx: int,
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """Dequantize one layer of the cache into q's dtype and run the plain
+    attention over it: the yardstick of the fused kernel."""
+    B, _, _, hd = q.shape
+    maxS, Hkv = cache_k.shape[2], k_scale.shape[-1]
+    k = (cache_k[layer_idx].reshape(B, maxS, Hkv, hd).float() * k_scale[layer_idx][..., None]).to(q.dtype)
+    v = (cache_v[layer_idx].reshape(B, maxS, Hkv, hd).float() * v_scale[layer_idx][..., None]).to(q.dtype)
+    return attention_xla(q, k, v, causal=False, kv_lens=kv_lens, scale=scale)
+
+
+def decode_attention_int8_fused_write_plain(
+    q, kq_new, ks_new, vq_new, vs_new, cache_k, cache_v, k_scale, v_scale, write_pos,
+    layer_idx: int, *, scale: float,
+):
+    """Plain version of the write-and-attend kernel: scatter the new rows
+    at `write_pos`, then `decode_attention_int8_xla` over `write_pos + 1`
+    rows."""
+    b_idx = torch.arange(q.shape[0], device=q.device)
+    wp = write_pos.long()
+    cache_k[layer_idx, b_idx, wp] = kq_new
+    cache_v[layer_idx, b_idx, wp] = vq_new
+    k_scale[layer_idx, b_idx, wp] = ks_new
+    v_scale[layer_idx, b_idx, wp] = vs_new
+    attn = decode_attention_int8_xla(
+        q, cache_k, cache_v, k_scale, v_scale, wp + 1, layer_idx, scale=scale
+    )
+    return attn, cache_k, cache_v, k_scale, v_scale
+
+
+def decode_attention_int8_fused_write(
+    q: torch.Tensor,  # [B, 1, H, hd]
+    kq_new: torch.Tensor,  # [B, Hkv*hd] int8 quantized new key rows
+    ks_new: torch.Tensor,  # [B, Hkv] f32
+    vq_new: torch.Tensor,  # [B, Hkv*hd] int8
+    vs_new: torch.Tensor,  # [B, Hkv] f32
+    cache_k: torch.Tensor,  # [L, B, maxS, Hkv*hd] int8, updated in place
+    cache_v: torch.Tensor,
+    k_scale: torch.Tensor,  # [L, B, maxS, Hkv] f32, updated in place
+    v_scale: torch.Tensor,
+    write_pos: torch.Tensor,  # [B] the current token's cache position
+    layer_idx: int,
+    *,
+    scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token attention over rows [0, write_pos[b]) of the int8 cache
+    plus the current token (scored from its quantized new row), with the
+    new row and its scales written at `write_pos[b]` in the same pass.
+    Rows at and after `write_pos[b]` are stale and masked. GQA: kv head g
+    serves q heads [g*rep, (g+1)*rep). `write_pos` is read on the device.
+    Returns (attn [B, 1, H, hd], cache_k, cache_v, k_scale, v_scale).
+    CUDA kernel `kernels/csrc/decode_attention_int8.cu` (bf16 q) for CUDA
+    tensors, the plain version for CPU tensors."""
+    B, S1, H, hd = q.shape
+    Hkv = ks_new.shape[-1]
+    if S1 != 1 or H % Hkv or kq_new.shape != (B, Hkv * hd) or vq_new.shape != kq_new.shape:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} new rows {tuple(kq_new.shape)}")
+    if not 0 <= layer_idx < cache_k.shape[0]:
+        raise ValueError(f"layer {layer_idx} outside the cache's {cache_k.shape[0]} layers")
+    if q.device.type == "cpu":
+        return decode_attention_int8_fused_write_plain(
+            q, kq_new, ks_new, vq_new, vs_new, cache_k, cache_v, k_scale, v_scale,
+            write_pos, layer_idx, scale=scale,
+        )
+    lanes = hd // 16  # lanes of a warp that share one cache row
+    if hd % 16 or lanes & (lanes - 1) or lanes > 32:
+        raise ValueError(f"decode_attention_int8_fused_write: head_dim {hd} must be 16 * 2^n, at most 512")
+    _, maxS = _check_cache(
+        "decode_attention_int8_fused_write", cache_k, cache_v, k_scale, v_scale, B, Hkv, hd
+    )
+    if (maxS + 1 + 4 * hd + 32) * 4 > 48 * 1024:
+        raise ValueError(f"decode_attention_int8_fused_write: cache length {maxS} exceeds shared memory")
+    name = "decode_attention_int8_fused_write"
+    kernels.check_cuda_tensor(f"{name} q", q, torch.bfloat16)
+    kernels.check_cuda_tensor(f"{name} kq_new", kq_new, torch.int8)
+    kernels.check_cuda_tensor(f"{name} vq_new", vq_new, torch.int8)
+    kernels.check_cuda_tensor(f"{name} ks_new", ks_new, torch.float32, (B, Hkv))
+    kernels.check_cuda_tensor(f"{name} vs_new", vs_new, torch.float32, (B, Hkv))
+    wp = write_pos.to(torch.int32).contiguous()
+    kernels.check_cuda_tensor(f"{name} write_pos", wp, torch.int32, (B,))
+    out = torch.empty_like(q)
+    kernels.launch(
+        name, q.data_ptr(), kq_new.data_ptr(), ks_new.data_ptr(), vq_new.data_ptr(),
+        vs_new.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), k_scale.data_ptr(),
+        v_scale.data_ptr(), wp.data_ptr(), out.data_ptr(), B, H, Hkv, hd, maxS,
+        int(layer_idx), float(scale),
+    )
+    return out, cache_k, cache_v, k_scale, v_scale
