@@ -8,7 +8,8 @@ Phases, each fatal on any error:
                (one nvcc per source, in parallel) and prints the build time;
   2. kernels - runs each kernel and its plain PyTorch version on the same
                inputs at the serving shapes (the bf16 path's four at B=4,
-               the int8 path's five at B=16), holds the kernel to the
+               the int8 LLM path's five and the int8 SAM encoder's three
+               at B=16), holds the kernel to the
                plain version within a stated tolerance, and times the
                kernel, the plain version and, where one exists, a single
                PyTorch library call computing the same function (L2
@@ -28,10 +29,18 @@ Phases, each fatal on any error:
                norm + quantize and the int8 KV cache, with the same checks
                and timings; every kernel of the int8 LLM path must be
                launched exactly as often as its layers and steps say;
-  5. check   - runs small models (bf16, then int8) on the card and on the
-               CPU (plain versions, fp32) from the same weights and holds
-               the card's outputs to the CPU reference;
-  6. summary - prints the serve numbers again, the card's name and power
+  5. sam_int8_serve - quantizes the SAM image encoder and CLIP as well
+               (`quantize_towers`) and serves B=16 requests with the int8
+               SAM encoder in the block window layout (`mlp_w8a8`): every
+               block's MLP through the fused int8 MLP kernel, the global
+               blocks through fused LN+qkv, lane-sliced global attention
+               and fused proj+residual; same checks and timings, every
+               kernel launched exactly as often as its layers say;
+  6. check   - runs small models (bf16, then int8 LLM, then an int8 SAM
+               encoder) on the card and on the CPU (plain versions, fp32)
+               from the same weights and holds the card's outputs to the
+               CPU reference;
+  7. summary - prints the serve numbers again, the card's name and power
                limit, one JSON line with every kernel's numbers, and last
                the device line.
 
@@ -48,6 +57,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 
 B = 4  # requests per batch of the bf16 serve
@@ -237,6 +247,18 @@ def kernel_phases(gen) -> dict:
            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=gmask, scale=sc),
            nbytes(q, k, v, a, bb) + nbytes(q), 4.0 * N * S * S * hds, iters=5)
     del gmask
+    # K4's serving form (bf16 exponentials), which a global block outside
+    # the lane-sliced route takes under `mlp_w8a8`: its rounding depends on
+    # the running maximum, so on the key tiling, hence the 2e-2.
+    run16 = lambda a_=a, b_=bb: sam_attention.fused_global_attention(  # noqa: E731
+        q, k, v, a_, b_, W, sc, exp_bf16=True)
+    ref16 = sam_attention.fused_global_attention_plain(q, k, v, a, bb, W, sc, exp_bf16=True)
+    err16, bad16 = row_rel_err(run16(), ref16), row_rel_err(run16(bb, a), ref16)
+    if not err16 <= 2e-2 or not bad16 > 2e-2:
+        raise AssertionError(f"fused_global_attention exp_bf16: {err16}, bias swapped {bad16}")
+    results["fused_global_attention"]["exp_bf16_form"] = {
+        "row_rel_err": err16, "tol": 2e-2, "mutant_row_rel_err": {"bias_swapped": bad16},
+        "ms": time_ms(run16, 5)}
     torch.cuda.empty_cache()
     return results
 
@@ -251,6 +273,17 @@ def int8_gate(got, ref):
 
 def max_rel_err(got, ref) -> float:
     return ((got - ref).abs() / ref.abs().clamp_min(1e-30)).max().item()
+
+
+def must(name, ok, info):
+    if not ok:
+        raise AssertionError(f"{name}: gate failed: {info}")
+
+
+def must_not(name, mutant, ok, info):
+    if ok:
+        raise AssertionError(f"{name}: the gate does not catch {mutant}: {info}")
+    return info
 
 
 def int8_kernel_phases(gen) -> dict:
@@ -278,15 +311,6 @@ def int8_kernel_phases(gen) -> dict:
 
     def randn(*shape, dtype=bf, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
-
-    def must(name, ok, info):
-        if not ok:
-            raise AssertionError(f"{name}: gate failed: {info}")
-
-    def must_not(name, mutant, ok, info):
-        if ok:
-            raise AssertionError(f"{name}: the gate does not catch {mutant}: {info}")
-        return info
 
     # K5: residual add + RMSNorm + per-row int8 quantize of one norm site.
     x, res = randn(rows, D), randn(rows, D)
@@ -466,6 +490,234 @@ def int8_kernel_phases(gen) -> dict:
     return results
 
 
+def sam_int8_kernel_phases(gen) -> dict:
+    """The three kernels of the int8 SAM encoder path against their plain
+    versions at the shapes of one B=16 ViT-H encode: 65536 token rows, C
+    1280, F 5120, 256 (image, head) pairs over 4096 keys.
+
+    Gates: bf16 outputs by `row_rel_err` within 1e-2 (one bf16 ulp of a
+    row's largest value, plus what a flipped int8 step moves); the
+    attention with bf16 exponentials within 2e-2, because its rounding
+    depends on the running maximum and so on the key tiling; int8
+    intermediates (the LN'd rows, the re-quantized GELU output) at least
+    99.9% exact and the rest within 1, their scales within rtol 1e-3 (a
+    chunk's abs-max comes through the polynomial GELU of an fp32 product).
+    Each gate must reject mutated runs that stand for typical bugs."""
+    import torch
+    import torch.nn.functional as F
+
+    from ullava_tpu_torch.ops import mlp_kernel, quant, sam_attention
+
+    dev, bf = "cuda", torch.bfloat16
+    tol = 1e-2
+    T, C, Fw, H, hd, W = B_INT8 * 4096, 1280, 5120, 16, 80, 64
+    eps = 1e-6
+    results = {}
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(bf)
+
+    def weight(K, N, col_gain=None):
+        w = torch.randn((K, N), generator=gen, device=dev) * 0.05
+        if col_gain is not None:
+            w = w * col_gain
+        leaf = quant.quantize_int8(w)
+        return leaf["q"], leaf["scale"]
+
+    def stage_ms(run, bits, iters=10):
+        return {name: time_ms(lambda b=b: run(b), iters) for name, b in bits.items()}
+
+    # The shared int8 GEMM core at shapes that are no multiple of its
+    # 128 x 128 x 64 tile (ragged rows, columns and depth), through
+    # `fused_linear`, against an integer product spelled out on the CPU.
+    # Without a LayerNorm the int8 rows must be bit-equal.
+    odd = {}
+    for rows, K, N in ((200, 96, 72), (129, 1280, 136), (1, 16, 8)):
+        xo, (wq, ws), bias = randn(rows, K), weight(K, N), randn(N)
+        got, xq, xs = mlp_kernel._ln_linear_cuda(xo, None, None, wq, ws, bias, 0.0, None)
+        xq_ref, xs_ref = mlp_kernel._row_quant(xo)
+        acc = (xq_ref.cpu().int() @ wq.cpu().int()).to(dev).float()
+        ref = (acc * (xs_ref * ws) + bias.float()).to(bf)
+        err = row_rel_err(got, ref)
+        must(f"int8 GEMM core at {rows}x{K}x{N}", torch.equal(xq, xq_ref) and err <= tol, err)
+        odd[f"{rows}x{K}x{N}"] = err
+    log(f"[kernel] int8_gemm_core odd shapes row_rel_err {json.dumps(odd)}")
+
+    x = randn(T, C, scale=2.0, shift=0.3)
+    g, b = randn(C, scale=0.1, shift=1.0), randn(C, scale=0.1)
+
+    # K10, both forms: LN1 + qkv, and proj + residual.
+    forms = {}
+    for form, N, ln in (("ln_qkv", 3 * C, True), ("proj_residual", C, False)):
+        wq, ws = weight(C, N)
+        bias = randn(N, scale=0.5)
+        res = None if ln else randn(T, N)
+        lg, lb = (g, b) if ln else (None, None)
+        args = (x, lg, lb, wq, ws, bias, eps)
+        ref, xq_ref, xs_ref = mlp_kernel._ln_linear_parts_plain(*args, True, res)
+        got, xq, xs = mlp_kernel._ln_linear_cuda(*args, res)
+        torch.cuda.synchronize()
+        ok, exact, worst = int8_gate(xq, xq_ref)
+        err, s_err = row_rel_err(got, ref), max_rel_err(xs, xs_ref)
+        info = {"row_rel_err": err, "tol": tol, "int8_exact_share": exact, "int8_max_diff": worst,
+                "scale_rel_err": s_err}
+        must(f"fused_ln_linear {form}", ok and err <= tol and s_err <= 1e-5, info)
+        mutants = {"per_tensor_scale": mlp_kernel._ln_linear_cuda(
+            x, lg, lb, wq, ws.mean().expand_as(ws).contiguous(), bias, eps, res)[0]}
+        if ln:
+            mutants["ln_bias_dropped"] = mlp_kernel._ln_linear_cuda(
+                x, lg, torch.zeros_like(lb), wq, ws, bias, eps, res)[0]
+        else:
+            mutants["residual_dropped"] = mlp_kernel._ln_linear_cuda(*args, None)[0]
+        info["mutant_row_rel_err"] = {
+            m: must_not(f"fused_ln_linear {form}", m, row_rel_err(out, ref) <= tol,
+                        row_rel_err(out, ref)) for m, out in mutants.items()}
+        del mutants
+
+        def library(x=x, lg=lg, lb=lb, wq=wq, ws=ws, bias=bias, res=res):
+            xf = (F.layer_norm(x, (C,), lg, lb, eps) if lg is not None else x).float()
+            amax = xf.abs().amax(-1, keepdim=True).clamp_min(1e-12)
+            xq_ = torch.round(xf * (127.0 / amax)).to(torch.int8)
+            y = torch._int_mm(xq_, wq).float() * (amax * (1.0 / 127.0) * ws) + bias.float()
+            return (y if res is None else y + res.float()).to(bf)
+
+        in_out = nbytes(x, wq, ws, bias, got) + (nbytes(g, b) if ln else nbytes(res))
+        line = kernel_line(
+            "fused_ln_linear", (got.float() - ref.float()).abs().max().item(), info,
+            lambda a=args, r=res: mlp_kernel._ln_linear_cuda(*a, r),
+            lambda a=args, r=res: mlp_kernel._ln_linear_parts_plain(*a, True, r),
+            library, in_out, 2.0 * T * C * N, iters=10, flops_per_s=INT8_OPS_PER_S)
+        line["stage_ms"] = stage_ms(
+            lambda bits, a=args, r=res, sc=(xq, xs): mlp_kernel._ln_linear_cuda(
+                *a, r, stages=bits, scratch=sc), {"row_pass": 1, "gemm": 2})
+        forms[form] = line
+        del ref, got, xq, xs, xq_ref, xs_ref, res
+    # The kernels line carries the LN+qkv form; the proj form rides in it.
+    results["fused_ln_linear"] = {**forms["ln_qkv"], "shape": [T, C, 3 * C],
+                                  "gemm_core_odd_shapes_row_rel_err": odd, "proj_residual_form": {
+        k: v for k, v in forms["proj_residual"].items()
+        if k not in ("name", "route", "source", "replaces")}}
+    log(f"[kernel] fused_ln_linear stages {json.dumps({k: v['stage_ms'] for k, v in forms.items()})}")
+
+    # K12: one block's MLP. The columns of fc1 grow by chunk, so the five
+    # 1024-wide chunks of a row have abs-maxima that differ severalfold.
+    gain = (1 + torch.arange(Fw, device=dev) // 1024).float()
+    w1, s1 = weight(C, Fw, col_gain=gain)
+    w2, s2 = weight(Fw, C)
+    b1, b2 = randn(Fw, scale=0.5), randn(C, scale=0.5)
+    args = (x, g, b, w1, s1, b1, w2, s2, b2, eps)
+    ref, xq_ref, xs_ref, hq_ref, hs_ref = mlp_kernel._mlp_block_parts_plain(*args, 1024, True)
+    got, xq, xs, hq, hs = mlp_kernel._mlp_block_cuda(*args, 1024)
+    torch.cuda.synchronize()
+
+    def judge_mlp(out, hq_, hs_):
+        ok_h, exact_h, worst_h = int8_gate(hq_, hq_ref)
+        err, hs_err = row_rel_err(out, ref), max_rel_err(hs_, hs_ref)
+        info = {"row_rel_err": err, "tol": tol, "h_int8_exact_share": exact_h,
+                "h_int8_max_diff": worst_h, "h_scale_rel_err": hs_err}
+        return ok_h and err <= tol and hs_err <= 1e-3, info
+
+    ok, info = judge_mlp(got, hq, hs)
+    ok_x, exact_x, worst_x = int8_gate(xq, xq_ref)
+    info.update({"x_int8_exact_share": exact_x, "x_int8_max_diff": worst_x,
+                 "chunk_amax_spread": (hs_ref.amax(1) / hs_ref.amin(1)).median().item()})
+    must("fused_mlp_block", ok and ok_x, info)
+    # Mutants. One scale per whole row in place of one per chunk (through
+    # the plain version: the kernel cannot be told to), and fc1's bias
+    # dropped (through the kernel).
+    one = mlp_kernel._mlp_block_parts_plain(*args, Fw, True)
+    nob = mlp_kernel._mlp_block_cuda(x, g, b, w1, s1, torch.zeros_like(b1), w2, s2, b2, eps, 1024)
+    info["mutants"] = {
+        "one_scale_per_row": must_not("fused_mlp_block", "one_scale_per_row", *judge_mlp(
+            one[0], one[3], one[4].expand(-1, Fw // 1024))),
+        "fc1_bias_dropped": must_not("fused_mlp_block", "fc1_bias_dropped",
+                                     *judge_mlp(nob[0], nob[3], nob[4])),
+    }
+    del one, nob
+
+    def library_mlp():
+        xf = F.layer_norm(x, (C,), g, b, eps).float()
+        amax = xf.abs().amax(-1, keepdim=True).clamp_min(1e-12)
+        xq_ = torch.round(xf * (127.0 / amax)).to(torch.int8)
+        h = F.gelu(torch._int_mm(xq_, w1).float() * (amax * (1.0 / 127.0) * s1) + b1.float())
+        h = h.reshape(T, Fw // 1024, 1024)
+        hmax = h.abs().amax(-1, keepdim=True).clamp_min(1e-12)
+        hq_ = torch.round(h * (127.0 / hmax)).to(torch.int8)
+        acc = torch.zeros((T, C), dtype=torch.float32, device=dev)
+        for k in range(Fw // 1024):
+            acc += torch._int_mm(hq_[:, k].contiguous(), w2[k * 1024:(k + 1) * 1024]).float() * (
+                hmax[:, k] * (1.0 / 127.0) * s2)
+        return (acc + b2.float() + x.float()).to(bf)
+
+    results["fused_mlp_block"] = kernel_line(
+        "fused_mlp_block", (got.float() - ref.float()).abs().max().item(), info,
+        lambda: mlp_kernel._mlp_block_cuda(*args, 1024),
+        lambda: mlp_kernel._mlp_block_parts_plain(*args, 1024, True), library_mlp,
+        nbytes(x, g, b, w1, s1, b1, w2, s2, b2, got), 4.0 * T * C * Fw, iters=10,
+        flops_per_s=INT8_OPS_PER_S)
+    results["fused_mlp_block"]["stage_ms"] = stage_ms(
+        lambda bits: mlp_kernel._mlp_block_cuda(*args, 1024, stages=bits, scratch=(xq, xs, hq, hs)),
+        {"row_pass": 1, "fc1": 2, "fc2": 4})
+    results["fused_mlp_block"]["shape"] = [T, C, Fw]
+    log(f"[kernel] fused_mlp_block stages {json.dumps(results['fused_mlp_block']['stage_ms'])}")
+    del ref, got, xq, xs, hq, hs, xq_ref, xs_ref, hq_ref, hs_ref, x, w1, w2
+    torch.cuda.empty_cache()
+
+    # K11: one global block's attention, both exponential forms. The bias
+    # terms are a few units (std 2), handed over pre-scaled by 1/scale in
+    # natural column order, [B, S, H, W].
+    S, sc = W * W, hd**-0.5
+    y = randn(B_INT8, S, 3 * H * hd)
+    a = randn(B_INT8, S, H, W, scale=2.0 / sc)
+    bb = randn(B_INT8, S, H, W, scale=2.0 / sc)
+    zero = torch.zeros_like(a)
+    kw = dict(num_heads=H, head_dim=hd, window=W, scale=sc)
+    att = {}
+    for exp_bf16 in (True, False):
+        lim = 2e-2 if exp_bf16 else tol
+        name = "exp_bf16" if exp_bf16 else "exp_fp32"
+        run = lambda e=exp_bf16: sam_attention.fused_global_attention_y(y, a, bb, **kw, exp_bf16=e)  # noqa: E731
+        got = run()
+        ref = sam_attention.fused_global_attention_y_plain(y, a, bb, **kw, exp_bf16=exp_bf16)
+        torch.cuda.synchronize()
+        err = row_rel_err(got, ref)
+        must(f"fused_global_attention_y {name}", err <= lim, err)
+        caught = {
+            "bias_dropped": row_rel_err(sam_attention.fused_global_attention_y(
+                y, zero, zero, **kw, exp_bf16=exp_bf16), ref),
+            "bias_swapped": row_rel_err(sam_attention.fused_global_attention_y(
+                y, bb, a, **kw, exp_bf16=exp_bf16), ref),
+        }
+        for m, e in caught.items():
+            must_not(f"fused_global_attention_y {name}", m, e <= lim, e)
+        att[name] = {"row_rel_err": err, "tol": lim, "mutant_row_rel_err": caught,
+                     "max_abs_err": (got.float() - ref.float()).abs().max().item(),
+                     "ms": time_ms(run, 5)}
+        del got, ref
+    del zero
+    # The library yardstick: SDPA on head-major copies with the bias
+    # materialised as a [B*H, S, S] bf16 mask (8.6 GB), built per image.
+    y5 = y.reshape(B_INT8, S, 3, H, hd).permute(2, 0, 3, 1, 4).contiguous()
+    mask = torch.empty((B_INT8, H, S, S), dtype=bf, device=dev)
+    for i in range(B_INT8):
+        am, bm = a[i].float().permute(1, 0, 2), bb[i].float().permute(1, 0, 2)  # [H, S, W]
+        mask[i] = ((am[:, :, :, None] + bm[:, :, None, :]).reshape(H, S, S) * sc).to(bf)
+    line = kernel_line(
+        "fused_global_attention_y", att["exp_bf16"]["max_abs_err"],
+        {k: v for k, v in att["exp_bf16"].items() if k not in ("ms", "max_abs_err")},
+        lambda: sam_attention.fused_global_attention_y(y, a, bb, **kw, exp_bf16=True),
+        lambda: sam_attention.fused_global_attention_y_plain(y, a, bb, **kw, exp_bf16=True),
+        lambda: F.scaled_dot_product_attention(y5[0], y5[1], y5[2], attn_mask=mask, scale=sc),
+        nbytes(y, a, bb) + nbytes(y) // 3, 4.0 * B_INT8 * H * S * S * hd, iters=5)
+    line["exp_fp32_form"] = att["exp_fp32"]
+    line["shape"] = [B_INT8, S, 3 * H * hd]
+    results["fused_global_attention_y"] = line
+    log(f"[kernel] fused_global_attention_y exp_fp32 {json.dumps(att['exp_fp32'])}")
+    del y5, mask, y, a, bb
+    torch.cuda.empty_cache()
+    return results
+
+
 def full_config():
     """LLaMA-7B + CLIP ViT-L/14 + SAM ViT-H in bf16 at full width; the
     vocabulary is LLaMA's 32000 + [PAD] + 6 multimodal + 4 stage-2 tokens."""
@@ -511,7 +763,8 @@ def requests(cfg, n: int, prompt: int, rng):
 # int8 path the prefill's 64 layer norms are the fused norm + quantize
 # instead, with one gate and one cache write per layer, and each decode
 # step runs one write-and-attend per layer.
-SAM_LAUNCHES = {"fused_window_attention_grid": 28, "fused_global_attention": 4}
+SAM_LAUNCHES = {"fused_window_attention_grid": 28, "fused_global_attention": 4,
+                "fused_ln_linear": 0, "fused_global_attention_y": 0, "fused_mlp_block": 0}
 BF16_LAUNCHES = {"fused_rotary": 64, "flash_attention_fwd_bsh": 32, **SAM_LAUNCHES,
                  "rms_norm_fwd": 65 * (1 + NEW_TOKENS),
                  "rms_norm_residual_quant": 0, "silu_mul_quant": 0,
@@ -520,6 +773,12 @@ INT8_LAUNCHES = {"fused_rotary": 64, "flash_attention_fwd_bsh": 32, **SAM_LAUNCH
                  "rms_norm_residual_quant": 64, "silu_mul_quant": 32,
                  "prefill_quantize_write": 32, "rms_norm_fwd": 1 + 65 * NEW_TOKENS,
                  "decode_attention_int8_fused_write": 32 * NEW_TOKENS}
+# The int8 SAM encoder in the block layout: the fused MLP in all 32 blocks;
+# in each of the 4 global blocks LN1+qkv and proj+residual (one fused
+# linear each) around the lane-sliced attention; the window kernel in the
+# 28 window blocks; the transpose-staged global kernel never.
+SAM_INT8_LAUNCHES = {**INT8_LAUNCHES, "fused_global_attention": 0, "fused_ln_linear": 8,
+                     "fused_global_attention_y": 4, "fused_mlp_block": 32}
 
 
 def serve_phase(phase: str, cfg, params, n_req: int, expect: dict):
@@ -662,10 +921,13 @@ def check_phase(gen) -> None:
     versions on the CPU in fp32, from the same weights: LLaMA prefill in
     bf16 (rotary + flash) and in int8 with two decode steps (the five
     int8-path kernels), the SAM encoder at W 14 / global 64 (window +
-    global kernels), and the masks decoded from both embeddings."""
+    global kernels), the masks decoded from both embeddings, and an int8
+    SAM encoder (the fused int8 linear, MLP and lane-sliced attention
+    kernels)."""
     import numpy as np
     import torch
 
+    from ullava_tpu_torch import kernels
     from ullava_tpu_torch.models import llama
     from ullava_tpu_torch.models.sam import build as sam_build
     from ullava_tpu_torch.models.sam import image_encoder
@@ -743,6 +1005,33 @@ def check_phase(gen) -> None:
         masks_ref, _ = sam_build.forward_masks(sp32, s32, emb_ref, text)
     errs["sam_image_embeddings"] = rel_err(emb, emb_ref)
     errs["sam_low_res_masks"] = rel_err(masks, masks_ref)
+    del sp, sp32, emb, emb_ref
+
+    # The int8 SAM encoder at the widths its kernels are built for (hd 80,
+    # W 14, grid 64; 8 heads so that a head slab is 128-aligned; F 2560,
+    # so the MLP's chunks are 512 wide): one window and one global block
+    # through the fused int8 kernels on the card, against their plain
+    # versions in fp32 on the CPU from the same int8 weights.
+    v8 = image_encoder.SamVisionConfig(embed_dim=640, depth=2, num_heads=8, global_attn_indexes=(1,),
+                                       out_chans=256, mlp_w8a8=True)
+    ep = image_encoder.init_params(v8, gen, "cuda")
+    for blk in ep["window_blocks"] + ep["global_blocks"]:
+        for key in ("rel_pos_h", "rel_pos_w"):
+            blk[key].normal_(0, 0.5, generator=gen)
+        for key in ("qkv_bias", "proj_bias", "fc1_bias", "fc2_bias", "ln1_bias", "ln2_bias"):
+            blk[key].normal_(0, 0.1, generator=gen)
+    ep = quant.quantize_tree(ep, quant.SAM_ENCODER_QUANT_KEYS)
+    before = kernels.launch_counts()
+    with torch.no_grad():
+        emb = image_encoder.encode(ep, v8, img.cuda())
+        emb_ref = image_encoder.encode(
+            to_cpu32(ep), dataclasses.replace(v8, dtype=torch.float32), img)
+    torch.cuda.synchronize()
+    ran = {k: n - before[k] for k, n in kernels.launch_counts().items() if n != before[k]}
+    if ran != {"fused_window_attention_grid": 1, "fused_ln_linear": 2,
+               "fused_global_attention_y": 1, "fused_mlp_block": 2}:
+        raise AssertionError(f"the small int8 SAM encoder launched {ran}")
+    errs["int8_sam_image_embeddings"] = rel_err(emb, emb_ref)
     # bf16 activations on the card against fp32 on the CPU; on the int8
     # path they also quantize to neighbouring int8 steps here and there.
     tol = 5e-2
@@ -770,7 +1059,9 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16_results = kernel_phases(gen)
-    results = {**bf16_results, **int8_kernel_phases(gen)}
+    int8_results = int8_kernel_phases(gen)
+    sam_int8_results = sam_int8_kernel_phases(gen)
+    results = {**bf16_results, **int8_results, **sam_int8_results}
 
     from ullava_tpu_torch.models import ullava
 
@@ -791,26 +1082,44 @@ def main() -> int:
     llm8 = dataclasses.replace(cfg.core.llm, a8_prefill=True, kv_quant=True, fused_norm_quant=True)
     cfg8 = dataclasses.replace(cfg, core=dataclasses.replace(cfg.core, llm=llm8))
     int8_line, int8_profile = serve_phase("int8_serve", cfg8, params, B_INT8, INT8_LAUNCHES)
+
+    # The fully int8 model: the SAM image encoder and CLIP quantized as
+    # well, the encoder served with int8 activations in its fused kernels.
+    t0 = time.perf_counter()
+    ullava.quantize_towers(params)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    quantize_towers_s = time.perf_counter() - t0
+    sam8 = dataclasses.replace(cfg8.sam, vision=dataclasses.replace(cfg8.sam.vision, mlp_w8a8=True))
+    cfg88 = dataclasses.replace(cfg8, sam=sam8)
+    sam_int8_line, sam_int8_profile = serve_phase(
+        "sam_int8_serve", cfg88, params, B_INT8, SAM_INT8_LAUNCHES)
     del params
     torch.cuda.empty_cache()
 
     # Each kernel's count on the main path that it was written for: the
-    # bf16 serve for the bf16 path's four, the int8 serve for the rest.
+    # bf16 serve for the bf16 path's four, the int8 serve for the int8
+    # LLM's five, the fully int8 serve for the int8 SAM encoder's three.
     for name, r in results.items():
-        r["launches"] = (serve_line if name in bf16_results else int8_line)["launches"][name]
+        own = (serve_line if name in bf16_results else
+               int8_line if name in int8_results else sam_int8_line)
+        r["launches"] = own["launches"][name]
         r["launches_bf16_serve"] = serve_line["launches"][name]
         r["launches_int8_serve"] = int8_line["launches"][name]
+        r["launches_sam_int8_serve"] = sam_int8_line["launches"][name]
     for r in results.values():
         print(json.dumps({"phase": "kernel", **{k: v for k, v in r.items()
                                                 if k not in ("route", "source", "replaces")}}),
               flush=True)
     check_phase(gen)
     # The serve and profile numbers again, short, next to the result.
-    for line, prof in ((serve_line, profile_line), (int8_line, int8_profile)):
+    for line, prof in ((serve_line, profile_line), (int8_line, int8_profile),
+                       (sam_int8_line, sam_int8_profile)):
         line = {k: v for k, v in line.items() if k != "launches"}
         top = sorted(prof["top_device_ms"].items(), key=lambda kv: -kv[1])[:8]
         print(json.dumps({**line, "phase": line["phase"] + "_summary",
                           "init_s": init_s, "quantize_s": quantize_s,
+                          "quantize_towers_s": quantize_towers_s,
                           "device_busy_s": prof["device_busy_s"],
                           "profiled_wall_s": prof["wall_s"],
                           "top_device_ms_calls": [[name[:60], ms, prof["top_device_calls"][name]]

@@ -1,0 +1,78 @@
+"""On the card: the four CUDA kernels of the bf16 serving path (rotary,
+causal flash prefill, SAM window and global attention) against their plain
+PyTorch versions, in bf16. Every test here needs an NVIDIA GPU and skips
+without one. The file imports torch only, so it runs on a machine that has
+no JAX:
+
+    python -m pytest tests/test_torch_cuda_bf16.py -q
+"""
+
+import pytest
+import torch
+
+from ullava_tpu_torch.ops import attention, rope, sam_attention
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _rand(gen, *shape, scale=1.0):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+
+def _row_rel_err(got, ref):
+    """max over rows of max|got - ref| / max|ref| on that row."""
+    got, ref = got.float().flatten(0, -2), ref.float().flatten(0, -2)
+    return ((got - ref).abs().amax(-1) / ref.abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+# Tolerance for all four: 1e-2 of each output row's largest value, which
+# admits one bf16 ulp there (at most 2^-7 of it) and not two.
+_TOL = 1e-2
+
+
+@pytest.mark.cuda
+def test_cuda_fused_rotary_matches_plain(cuda):
+    x = _rand(cuda, 96, 4 * 128)
+    cos, sin = rope.rope_cos_sin(torch.arange(96, device="cuda"), 128)
+    got = rope.fused_rotary(x, cos, sin, 128)
+    ref = rope.fused_rotary_plain(x, cos, sin, 128)
+    assert _row_rel_err(got, ref) <= _TOL
+    assert _row_rel_err(rope.fused_rotary(x, cos, -sin, 128), ref) > _TOL
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_matches_plain(cuda):
+    q, k, v = (_rand(cuda, 2, 150, 4, 128) for _ in range(3))
+    lens = torch.tensor([150, 61], dtype=torch.int32, device="cuda")
+    got = attention.flash_attention_fwd_bsh(q, k, v, lens, causal=True, scale=128**-0.5)
+    ref = attention.flash_attention_fwd_bsh_plain(q, k, v, lens, causal=True, scale=128**-0.5)
+    assert _row_rel_err(got, ref) <= _TOL
+    bad = attention.flash_attention_fwd_bsh(q, k, v, lens, causal=False, scale=128**-0.5)
+    assert _row_rel_err(bad, ref) > _TOL
+
+
+@pytest.mark.cuda
+def test_cuda_sam_attention_matches_plain(cuda):
+    # Bias terms at the encoder's size: q.rel_pos with an unscaled q, std
+    # about 2 (K3 takes them pre-scaled by 1/scale).
+    sc = 80**-0.5
+    y = _rand(cuda, 3, 196, 3 * 16 * 80)
+    a, b = (_rand(cuda, 3, 196, 16 * 14, scale=2.0 / sc) for _ in range(2))
+    args = (16, 80, 14, sc)
+    got = sam_attention.fused_window_attention_grid(y, a, b, *args)
+    ref = sam_attention.fused_window_attention_grid_plain(y, a, b, *args)
+    assert _row_rel_err(got, ref) <= _TOL
+    assert _row_rel_err(sam_attention.fused_window_attention_grid(y, b, a, *args), ref) > _TOL
+    q, k, v = (_rand(cuda, 2, 4096, 80) for _ in range(3))
+    rel_h, rel_w = (_rand(cuda, 127, 80, scale=0.25) for _ in range(2))
+    a, b = (t.reshape(2, 4096, 64).to(torch.bfloat16) for t in sam_attention.decomposed_bias_terms(
+        q.reshape(1, 2, 64, 64, 80), rel_h, rel_w, 64))
+    got = sam_attention.fused_global_attention(q, k, v, a, b, 64, sc)
+    ref = sam_attention.fused_global_attention_plain(q, k, v, a, b, 64, sc)
+    assert _row_rel_err(got, ref) <= _TOL
+    assert _row_rel_err(sam_attention.fused_global_attention(q, k, v, b, a, 64, sc), ref) > _TOL

@@ -26,11 +26,14 @@ leaked = sorted(m for m in sys.modules
 raised = {}
 if not torch.cuda.is_available():
     from ullava_tpu_torch.models import llama, ullava
+    from ullava_tpu_torch.models.sam import image_encoder
     from ullava_tpu_torch.serve import serve
     cfg = ullava.UllavaConfig.tiny()
     int8 = llama.LlamaConfig.tiny(a8_prefill=True, kv_quant=True)
+    sam8 = image_encoder.SamVisionConfig.tiny(mlp_w8a8=True)
     for name, call in (
         ("ullava.init_params", lambda: ullava.init_params(cfg)),
+        ("image_encoder.init_params int8", lambda: image_encoder.init_params(sam8)),
         ("llama.init_kv_cache", lambda: llama.init_kv_cache(cfg.core.llm, 1, 4)),
         ("llama.init_kv_cache int8", lambda: llama.init_kv_cache(int8, 1, 4)),
         ("serve", lambda: serve((cfg, None), [])),
@@ -54,7 +57,8 @@ def _modules():
 def test_port_imports_no_jax_and_entry_points_need_cuda():
     mods = _modules()
     assert "ullava_tpu_torch.models.sam.image_encoder" in mods
-    for new in ("ops.quant", "ops.mlp_kernel", "ops.decode_attention"):
+    for new in ("ops.quant", "ops.mlp_kernel", "ops.decode_attention", "ops.sam_attention",
+                "models.clip_vit", "kernels"):
         assert f"ullava_tpu_torch.{new}" in mods
     res = subprocess.run(
         [sys.executable, "-c", _PROBE, json.dumps(mods)],
@@ -68,7 +72,8 @@ def test_port_imports_no_jax_and_entry_points_need_cuda():
     for name, msg in out["raised"].items():
         assert msg and "CUDA" in msg, (name, msg)
     assert set(out["raised"]) == {
-        "ullava.init_params", "llama.init_kv_cache", "llama.init_kv_cache int8", "serve"}
+        "ullava.init_params", "image_encoder.init_params int8", "llama.init_kv_cache",
+        "llama.init_kv_cache int8", "serve"}
 
 
 def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from torch_port_helpers import random_params
+from torch_port_helpers import res_batch as _batch
 from ullava_tpu.models import generate as jgen
 from ullava_tpu.models import ullava as jullava
 from ullava_tpu_torch.bridge import params_from_jax
@@ -27,22 +28,6 @@ def setup_module():
 
 def _close(got, ref, atol=ATOL, rtol=RTOL):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=atol, rtol=rtol)
-
-
-def _batch(cfg, rng, lens):
-    P = cfg.core.vision.num_patches
-    ids = rng.integers(5, 140, size=(len(lens), max(lens)))
-    for b, n in enumerate(lens):
-        ids[b, 1] = cfg.core.img_start_id
-        ids[b, 2:2 + P] = 3
-        ids[b, 2 + P] = cfg.core.img_end_id
-        ids[b, n:] = 0
-    return dict(
-        input_ids=ids,
-        prompt_lens=np.asarray(lens, np.int32),
-        images=rng.standard_normal((len(lens), 28, 28, 3)).astype(np.float32),
-        images_sam=rng.standard_normal((len(lens), 64, 64, 3)).astype(np.float32),
-    )
 
 
 def test_evaluate_matches_jax_and_serve():

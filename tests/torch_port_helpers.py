@@ -19,6 +19,24 @@ def random_params(init, cfg, seed: int, std: float = 0.1):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
+def res_batch(cfg, rng, lens):
+    """A right-padded batch of tiny RES requests (numpy): prompts with the
+    image span after `<img_beg>`, CLIP images and SAM images."""
+    P = cfg.core.vision.num_patches
+    ids = rng.integers(5, 140, size=(len(lens), max(lens)))
+    for b, n in enumerate(lens):
+        ids[b, 1] = cfg.core.img_start_id
+        ids[b, 2:2 + P] = 3
+        ids[b, 2 + P] = cfg.core.img_end_id
+        ids[b, n:] = 0
+    return dict(
+        input_ids=ids,
+        prompt_lens=np.asarray(lens, np.int32),
+        images=rng.standard_normal((len(lens), 28, 28, 3)).astype(np.float32),
+        images_sam=rng.standard_normal((len(lens), 64, 64, 3)).astype(np.float32),
+    )
+
+
 def assert_int8_close(got, ref):
     """Int8 arrays rounded from fp32 values that the two frameworks sum in
     different orders: a value within that noise of .5 may round the other

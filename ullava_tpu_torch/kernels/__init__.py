@@ -66,7 +66,7 @@ KERNELS: Dict[str, KernelSpec] = {
         ),
         KernelSpec(
             "fused_global_attention", "sam_global_attention.cu",
-            "ullava_fused_global_attention", (P, P, P, P, P, P, I, F, P),
+            "ullava_fused_global_attention", (P, P, P, P, P, P, I, F, I, P),
             "ullava_tpu/ops/sam_attention.py:490",
         ),
         KernelSpec(
@@ -91,6 +91,21 @@ KERNELS: Dict[str, KernelSpec] = {
         KernelSpec(
             "rms_norm_fwd", "rms_quant.cu", "ullava_rms_norm_fwd",
             (P, P, P, I, I, F, P), "ullava_tpu/ops/norms.py:77",
+        ),
+        KernelSpec(
+            "fused_ln_linear", "ln_linear_int8.cu", "ullava_fused_ln_linear_int8",
+            (P, P, P, P, P, P, P, P, P, P, I, I, I, F, I, P),
+            "ullava_tpu/ops/mlp_kernel.py:491",
+        ),
+        KernelSpec(
+            "fused_global_attention_y", "sam_global_attention_y.cu",
+            "ullava_fused_global_attention_y", (P, P, P, P, I, I, F, I, P),
+            "ullava_tpu/ops/sam_attention.py:652",
+        ),
+        KernelSpec(
+            "fused_mlp_block", "mlp_block_int8.cu", "ullava_fused_mlp_block_int8",
+            (P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, I, P),
+            "ullava_tpu/ops/mlp_kernel.py:157",
         ),
     )
 }

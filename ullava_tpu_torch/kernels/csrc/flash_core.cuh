@@ -23,6 +23,11 @@
 //      the tensor cores (ldmatrix.trans for the V fragments).
 // A row whose l stays 0 (every key masked) writes zeros.
 //
+// With EXPBF16 (the serving form of the SAM global kernel) the softmax
+// works in natural units and follows the TPU kernel's rounding: s - m is
+// rounded to bf16 before the exponential, the probability is rounded to
+// bf16, and that rounded value is what l sums (in fp32) and P V uses.
+//
 // The problem type P supplies the layout: row pointers for q/k/v/o of an
 // instance, the key limit, causal masking, and the per-row bias terms.
 // The bias for key t = (a, b) = (t / WB, t % WB) of row s is
@@ -117,7 +122,11 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-template <int HD, int WB, class P>
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+template <int HD, int WB, class P, bool EXPBF16 = false>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const P p) {
   static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
   constexpr int LD = HD + 8;  // shared-memory row stride (bf16)
@@ -165,7 +174,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const P p) {
   const int key_limit = p.key_limit(inst);  // keys >= this are masked
   int kv_end = key_limit;
   if (p.causal) kv_end = min(kv_end, min(q0 + kBQ, Sq) - 1 + p.q_offset + 1);
-  const float sl2 = p.scale * 1.4426950408889634f;  // scale * log2(e)
+  constexpr float kLog2e = 1.4426950408889634f;
+  // Scores are kept in base-2 units (scale * log2(e) folded in) so that an
+  // exponential is one exp2f; with EXPBF16 they stay in natural units,
+  // where the TPU kernel rounds them, and `ex` converts.
+  const float sl2 = EXPBF16 ? p.scale : p.scale * kLog2e;
+  auto ex = [](float d) { return exp2f(EXPBF16 ? d * kLog2e : d); };
 
   float o[ND][4];
 #pragma unroll
@@ -244,7 +258,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const P p) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
-        alpha[r] = m_new == -INFINITY ? 1.f : exp2f(m_run[r] - m_new);
+        alpha[r] = m_new == -INFINITY ? 1.f : ex(m_run[r] - m_new);
         m_run[r] = m_new;
         l_run[r] *= alpha[r];
       }
@@ -254,7 +268,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const P p) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = e >> 1;
-          const float pv = m_run[r] == -INFINITY ? 0.f : exp2f(s[j][e] - m_run[r]);
+          float d = s[j][e] - m_run[r];
+          if constexpr (EXPBF16) d = round_bf16(d);
+          float pv = m_run[r] == -INFINITY ? 0.f : ex(d);
+          if constexpr (EXPBF16) pv = round_bf16(pv);
           l_run[r] += pv;
           s[j][e] = pv;
         }
@@ -308,20 +325,20 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const P p) {
 }
 
 // Launches one block per (instance, 64-row query tile) on `stream`.
-template <int HD, int WB, class P>
+template <int HD, int WB, class P, bool EXPBF16 = false>
 int launch_flash(const P& p, int num_inst, cudaStream_t stream) {
   constexpr size_t smem = flash_smem_bytes<HD, WB>();
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<HD, WB, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<HD, WB, P, EXPBF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   if (num_inst == 0 || p.Sq == 0) return 0;
   dim3 grid(num_inst, (p.Sq + kBQ - 1) / kBQ);
-  flash_fwd_kernel<HD, WB, P><<<grid, kThreads, smem, stream>>>(p);
+  flash_fwd_kernel<HD, WB, P, EXPBF16><<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

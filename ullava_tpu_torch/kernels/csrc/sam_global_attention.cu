@@ -13,7 +13,9 @@
 // raw in natural column order, [N, S, W]; as in the TPU wrapper they are
 // pre-scaled by 1/scale and rounded to bf16 before use (here when the
 // block stages its [64, W] tables), then A[s][t / W] + Bb[s][t % W] is
-// added to q.k before the scale.
+// added to q.k before the scale. With `exp_bf16` the exponent argument
+// and the probabilities are rounded to bf16, as in the TPU kernel's
+// serving form.
 #include "flash_core.cuh"
 
 namespace ullava {
@@ -54,7 +56,7 @@ struct GlobalAttn {
 ULLAVA_EXPORT int ullava_fused_global_attention(const void* q, const void* k,
                                                 const void* v, const void* a,
                                                 const void* b, void* o, int N,
-                                                float scale, void* stream) {
+                                                float scale, int exp_bf16, void* stream) {
   constexpr int S = ullava::kGlobW * ullava::kGlobW;
   ullava::GlobalAttn p{static_cast<const ullava::bf16*>(q),
                        static_cast<const ullava::bf16*>(k),
@@ -63,6 +65,9 @@ ULLAVA_EXPORT int ullava_fused_global_attention(const void* q, const void* k,
                        static_cast<const ullava::bf16*>(b),
                        static_cast<ullava::bf16*>(o),
                        S, S, 0, false, scale, 1.0f / scale};
-  return ullava::launch_flash<ullava::kGlobHD, ullava::kGlobW>(
-      p, N, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (exp_bf16)
+    return ullava::launch_flash<ullava::kGlobHD, ullava::kGlobW, ullava::GlobalAttn, true>(p, N,
+                                                                                           st);
+  return ullava::launch_flash<ullava::kGlobHD, ullava::kGlobW, ullava::GlobalAttn, false>(p, N, st);
 }

@@ -1,5 +1,6 @@
 """CLIP ViT vision tower (counterpart of `ullava_tpu/models/clip_vit.py`,
-serving defaults: plain attention, bf16 weights).
+serving defaults: plain attention; weights in bf16 or as weight-only int8
+leaves, `quant.CLIP_QUANT_KEYS`).
 
 Patch embedding as patchify + matmul, class token + learned positions,
 pre-LN transformer with quick-GELU MLPs. The intermediate-layer readout
@@ -18,6 +19,7 @@ from ullava_tpu_torch import resolve_device
 from ullava_tpu_torch.models import normal
 from ullava_tpu_torch.ops.attention import attention_xla
 from ullava_tpu_torch.ops.norms import layer_norm
+from ullava_tpu_torch.ops.quant import apply_linear
 
 Params = Dict[str, Any]
 
@@ -115,7 +117,7 @@ def forward(
     B = pixel_values.shape[0]
     D, L, H, hd = cfg.hidden_size, cfg.num_layers, cfg.num_heads, cfg.head_dim
 
-    x = patchify(pixel_values.to(cfg.dtype), cfg.patch_size) @ params["patch_proj"]
+    x = apply_linear(patchify(pixel_values.to(cfg.dtype), cfg.patch_size), params["patch_proj"])
     cls = params["class_embedding"].to(x.dtype).expand(B, 1, D)
     x = torch.cat([cls, x], dim=1) + params["position_embedding"][None]
     x = layer_norm(x, params["pre_ln"]["scale"], params["pre_ln"]["bias"], cfg.layer_norm_eps)
@@ -127,12 +129,12 @@ def forward(
     S = x.shape[1]
     for p in params["layers"][:n_layers]:
         y = layer_norm(x, p["ln1_scale"], p["ln1_bias"], cfg.layer_norm_eps)
-        q = (y @ p["q_proj"] + p["q_bias"]).reshape(B, S, H, hd)
-        k = (y @ p["k_proj"] + p["k_bias"]).reshape(B, S, H, hd)
-        v = (y @ p["v_proj"] + p["v_bias"]).reshape(B, S, H, hd)
+        q = (apply_linear(y, p["q_proj"]) + p["q_bias"]).reshape(B, S, H, hd)
+        k = (apply_linear(y, p["k_proj"]) + p["k_bias"]).reshape(B, S, H, hd)
+        v = (apply_linear(y, p["v_proj"]) + p["v_bias"]).reshape(B, S, H, hd)
         a = attention_xla(q, k, v, causal=False)
-        x = x + (a.reshape(B, S, D) @ p["out_proj"]) + p["out_bias"]
+        x = x + apply_linear(a.reshape(B, S, D), p["out_proj"]) + p["out_bias"]
         y = layer_norm(x, p["ln2_scale"], p["ln2_bias"], cfg.layer_norm_eps)
-        h = _quick_gelu(y @ p["fc1"] + p["fc1_bias"])
-        x = x + (h @ p["fc2"]) + p["fc2_bias"]
+        h = _quick_gelu(apply_linear(y, p["fc1"]) + p["fc1_bias"])
+        x = x + apply_linear(h, p["fc2"]) + p["fc2_bias"]
     return {"hidden_states": x, "patch_features": x[:, 1:]}

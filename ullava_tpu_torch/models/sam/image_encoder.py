@@ -1,5 +1,5 @@
 """SAM ViTDet image encoder, block window layout (counterpart of
-`ullava_tpu/models/sam/image_encoder.py:39-254,328-383,454-524,635-700,
+`ullava_tpu/models/sam/image_encoder.py:39-254,328-383,454-700,
 1054-1113`).
 
 ViT backbone with 14x14 window attention and global blocks closing each
@@ -10,6 +10,21 @@ the reference's zero pad), partitions into windows, attends, merges and
 crops. Attention always goes through the ported kernels' wrappers:
 `fused_window_attention_grid` for sizes up to 16 and
 `fused_global_attention` above (the JAX dispatch at `_attn`).
+
+Weights may be int8 leaves (`quant.SAM_ENCODER_QUANT_KEYS`). Then the
+JAX package's shape gates choose the function, as they choose it there
+(the two sides of a gate differ in value: polynomial erf and int8
+activations against exact erf and weight-only int8): every block's MLP
+goes to `fused_mlp_block` when fc1 and fc2 are int8, F % 512 == 0 and
+the token count % 512 == 0, and a global block goes to `fused_ln_linear`
+(LN1+qkv) -> `fused_global_attention_y` -> `fused_linear` (proj +
+residual) when qkv and proj are int8, the grid is above 16 and
+S % 1024 == 0 (with head-major copies and `fused_global_attention` in the
+middle when no head slab of the qkv output is 128-aligned, as the JAX
+package chooses). The window blocks keep plain LN and weight-only
+`apply_linear` around the window kernel. There is no device gate: on
+CUDA tensors the wrappers launch their kernels, on CPU tensors they take
+their plain versions.
 
 Parameters: `window_blocks` (list of G*(P-1) per-block dicts, group-major)
 and `global_blocks` (list of G), where the depth factors into G groups of
@@ -26,10 +41,13 @@ import torch.nn.functional as F
 
 from ullava_tpu_torch import resolve_device
 from ullava_tpu_torch.models import normal
+from ullava_tpu_torch.ops.mlp_kernel import fused_linear, fused_ln_linear, fused_mlp_block
 from ullava_tpu_torch.ops.norms import layer_norm
+from ullava_tpu_torch.ops.quant import apply_linear, apply_linear_a8, is_quantized
 from ullava_tpu_torch.ops.sam_attention import (
     decomposed_bias_terms,
     fused_global_attention,
+    fused_global_attention_y,
     fused_window_attention_grid,
 )
 
@@ -49,6 +67,34 @@ class SamVisionConfig:
     global_attn_indexes: Tuple[int, ...] = (7, 15, 23, 31)
     layer_norm_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16
+    # Run the fused kernels' products int8 x int8 with per-row dynamic
+    # activation quantization (the MLP's, and the global blocks' LN1+qkv
+    # and proj). Off: weight-only int8 (plain versions only on the card).
+    mlp_w8a8: bool = False
+    # The same int8 activations for the unfused qkv/proj projections of
+    # `_attn` (`apply_linear_a8` in place of `apply_linear`).
+    attn_w8a8: bool = False
+    # int8 x int8 attention score products inside the kernels: not ported.
+    attn_dots_i8: bool = False
+    # Window-block token layout. Only "block" (pad, partition, attend,
+    # merge, crop in every window block) is ported, and it is the default
+    # until the resident layout lands; the JAX default "auto" means
+    # "resident" on the TPU. "resident" and "auto" raise.
+    window_layout: str = "block"
+
+    def __post_init__(self) -> None:
+        if self.window_layout in ("resident", "auto"):
+            raise NotImplementedError(
+                f"window_layout={self.window_layout!r}: the resident window layout is the "
+                "next part of the encoder to be ported; use 'block'"
+            )
+        if self.window_layout != "block":
+            raise ValueError(f"unknown window_layout {self.window_layout!r}")
+        if self.attn_dots_i8:
+            raise NotImplementedError(
+                "attn_dots_i8: the int8 score-dot forms of the attention kernels are not "
+                "ported yet (queued with the resident layout)"
+            )
 
     @property
     def head_dim(self) -> int:
@@ -180,43 +226,145 @@ def _bias_terms_grid(y, rel_pos_h, rel_pos_w, cfg: SamVisionConfig, size: int):
     return A.reshape(N, T, H * W), Bb.reshape(N, T, H * W)
 
 
+def _lin(cfg: SamVisionConfig, x: torch.Tensor, w) -> torch.Tensor:
+    if cfg.attn_w8a8 and is_quantized(w):
+        return apply_linear_a8(x, w)
+    return apply_linear(x, w)
+
+
 def _attn(x: torch.Tensor, p: Params, cfg: SamVisionConfig, size: int) -> torch.Tensor:
     """Self-attention over an NHWC token grid [B, size, size, C]."""
     B = x.shape[0]
     C, H, hd = cfg.embed_dim, cfg.num_heads, cfg.head_dim
     S = size * size
-    y = x.reshape(B, S, C) @ p["qkv"] + p["qkv_bias"]  # [B, S, 3C]
+    y = _lin(cfg, x.reshape(B, S, C), p["qkv"]) + p["qkv_bias"]  # [B, S, 3C]
     if size <= 16:
         A, Bb = _bias_terms_grid(y, p["rel_pos_h"], p["rel_pos_w"], cfg, size)
         out = fused_window_attention_grid(
             y, A, Bb, num_heads=H, head_dim=hd, window=size, scale=hd**-0.5
         )
     else:
-        # The bias uses the UNSCALED q; only q.k is scaled.
-        qkv = y.reshape(B, S, 3, H, hd).permute(2, 0, 3, 1, 4)  # [3, B, H, S, hd]
-        q, k, v = (t.reshape(B * H, S, hd).contiguous() for t in qkv)
-        A, Bb = decomposed_bias_terms(
-            qkv[0].reshape(B, H, size, size, hd), p["rel_pos_h"], p["rel_pos_w"], size
-        )
-        out = fused_global_attention(
-            q, k, v, A.reshape(B * H, S, size).to(y.dtype),
-            Bb.reshape(B * H, S, size).to(y.dtype), window=size, scale=hd**-0.5,
-        )
-        out = out.reshape(B, H, S, hd).transpose(1, 2).reshape(B, S, C)
-    out = out @ p["proj"] + p["proj_bias"]
+        out = _global_attention_staged(y, p, cfg, size)
+    out = _lin(cfg, out, p["proj"]) + p["proj_bias"]
     return out.reshape(B, size, size, C)
 
 
+def _global_attention_staged(y: torch.Tensor, p: Params, cfg: SamVisionConfig, size: int):
+    """Global attention from the qkv output y [B, S, 3C] through head-major
+    copies of q, k and v and `fused_global_attention`; [B, S, C]. The bias
+    uses the UNSCALED q; only q.k is scaled. The serving mode (`mlp_w8a8`)
+    takes the exponentials in bf16."""
+    B, S, _ = y.shape
+    C, H, hd = cfg.embed_dim, cfg.num_heads, cfg.head_dim
+    qkv = y.reshape(B, S, 3, H, hd).permute(2, 0, 3, 1, 4)  # [3, B, H, S, hd]
+    q, k, v = (t.reshape(B * H, S, hd).contiguous() for t in qkv)
+    A, Bb = decomposed_bias_terms(
+        qkv[0].reshape(B, H, size, size, hd), p["rel_pos_h"], p["rel_pos_w"], size
+    )
+    out = fused_global_attention(
+        q, k, v, A.reshape(B * H, S, size).to(y.dtype), Bb.reshape(B * H, S, size).to(y.dtype),
+        window=size, scale=hd**-0.5, exp_bf16=cfg.mlp_w8a8,
+    )
+    return out.reshape(B, H, S, hd).transpose(1, 2).reshape(B, S, C)
+
+
+def _use_global_fused(p: Params, cfg: SamVisionConfig, size: int) -> bool:
+    """The fused int8 route of a global block: LN1+qkv and proj+residual
+    through `fused_ln_linear` / `fused_linear`."""
+    return (
+        size > 16  # global grid only; window sizes use the grid kernel
+        and is_quantized(p["qkv"])
+        and is_quantized(p["proj"])
+        and (size * size) % 1024 == 0
+    )
+
+
+def _global_head_group(cfg: SamVisionConfig) -> int:
+    """Largest head slab whose lanes form 128-aligned blocks of the raw
+    qkv output, 0 when none exists: the TPU kernel's requirement, kept
+    because it chooses between `fused_global_attention_y` and the
+    transpose-staged `fused_global_attention`."""
+    for hg in (16, 8, 4, 2, 1):
+        if cfg.num_heads % hg == 0 and (hg * cfg.head_dim) % 128 == 0:
+            return hg
+    return 0
+
+
+def _bias_terms_global_natural(y: torch.Tensor, p: Params, cfg: SamVisionConfig, g: int):
+    """Bias terms for `fused_global_attention_y` from the raw qkv output's
+    q columns in their natural [B, i, j, H, hd] order, with the 1/scale
+    prefold riding the rel-pos tables. Returns (A, Bb), each [B, S, H, g]
+    in y.dtype."""
+    B, S, _ = y.shape
+    H, hd, C = cfg.num_heads, cfg.head_dim, cfg.embed_dim
+    inv = float(hd**0.5)
+    coords = torch.arange(g, device=y.device)
+    rel = coords[:, None] - coords[None, :] + (g - 1)  # [g, g]
+    RhG = p["rel_pos_h"][rel].float() * inv  # [i, a, hd]
+    RwG = p["rel_pos_w"][rel].float() * inv
+    q5 = y[:, :, :C].reshape(B, g, g, H, hd).float()
+    A = torch.einsum("nijhc,iac->nijha", q5, RhG)
+    Bb = torch.einsum("nijhc,jbc->nijhb", q5, RwG)
+    return A.reshape(B, S, H, g).to(y.dtype), Bb.reshape(B, S, H, g).to(y.dtype)
+
+
+def _attn_global_fused(x: torch.Tensor, p: Params, cfg: SamVisionConfig) -> torch.Tensor:
+    """Global block body on [B, g, g, C] without the outer LN1 applied:
+    x + proj(attn(LN1(x))) with LN1+qkv and proj+residual fused (int8 x
+    int8 products when `mlp_w8a8`)."""
+    B, g, _, C = x.shape
+    H, hd = cfg.num_heads, cfg.head_dim
+    S = g * g
+    xt = x.reshape(B * S, C)
+    y = fused_ln_linear(
+        xt, p["ln1_scale"], p["ln1_bias"], p["qkv"]["q"], p["qkv"]["scale"], p["qkv_bias"],
+        cfg.layer_norm_eps, w8a8=cfg.mlp_w8a8,
+    ).reshape(B, S, 3 * C)
+    hg = _global_head_group(cfg)
+    if hg:
+        A, Bb = _bias_terms_global_natural(y, p, cfg, g)
+        out = fused_global_attention_y(
+            y, A, Bb, num_heads=H, head_dim=hd, window=g, scale=hd**-0.5,
+            head_group=hg, exp_bf16=cfg.mlp_w8a8, dots_i8=cfg.attn_dots_i8,
+        )  # [B, S, C]
+    else:
+        out = _global_attention_staged(y, p, cfg, g)
+    out = fused_linear(
+        out.reshape(B * S, C), p["proj"]["q"], p["proj"]["scale"], p["proj_bias"],
+        residual=xt, w8a8=cfg.mlp_w8a8,
+    )
+    return out.reshape(B, g, g, C)
+
+
 def _mlp_tail(x: torch.Tensor, p: Params, cfg: SamVisionConfig) -> torch.Tensor:
-    """x + MLP(LN2(x)), exact-erf GELU."""
+    """x + MLP(LN2(x)) over [..., C] tokens: `fused_mlp_block` (polynomial
+    erf, int8 activations when `mlp_w8a8`) for int8 weights at tile-aligned
+    sizes, else the plain chain with the exact-erf GELU."""
+    C = x.shape[-1]
+    T = x.numel() // C
+    if (
+        is_quantized(p["fc1"])
+        and is_quantized(p["fc2"])
+        and p["fc1"]["q"].shape[1] % 512 == 0
+        and T % 512 == 0
+    ):
+        out = fused_mlp_block(
+            x.reshape(T, C), p["ln2_scale"], p["ln2_bias"],
+            p["fc1"]["q"], p["fc1"]["scale"], p["fc1_bias"],
+            p["fc2"]["q"], p["fc2"]["scale"], p["fc2_bias"],
+            cfg.layer_norm_eps, w8a8=cfg.mlp_w8a8,
+        )
+        return out.reshape(x.shape)
     y = layer_norm(x, p["ln2_scale"], p["ln2_bias"], cfg.layer_norm_eps)
-    y = F.gelu(y @ p["fc1"] + p["fc1_bias"])
-    return x + (y @ p["fc2"] + p["fc2_bias"])
+    y = F.gelu(apply_linear(y, p["fc1"]) + p["fc1_bias"])
+    return x + (apply_linear(y, p["fc2"]) + p["fc2_bias"])
 
 
 def _block(x: torch.Tensor, p: Params, cfg: SamVisionConfig, window: bool) -> torch.Tensor:
     """One transformer block on [B, gh, gw, C]."""
     B, gh, gw, C = x.shape
+    if not window and _use_global_fused(p, cfg, gh):
+        return _mlp_tail(_attn_global_fused(x, p, cfg), p, cfg)
     shortcut = x
     x = layer_norm(x, p["ln1_scale"], p["ln1_bias"], cfg.layer_norm_eps)
     if window:
@@ -243,7 +391,7 @@ def encode(params: Params, cfg: SamVisionConfig, pixel_values: torch.Tensor) -> 
 
     x = pixel_values.to(cfg.dtype)
     x = x.reshape(B, g, P, g, P, 3).permute(0, 1, 3, 5, 2, 4).reshape(B, g * g, 3 * P * P)
-    x = (x @ params["patch_proj"] + params["patch_bias"]).reshape(B, g, g, C)
+    x = (apply_linear(x, params["patch_proj"]) + params["patch_bias"]).reshape(B, g, g, C)
     x = x + params["pos_embed"][None]
 
     per = cfg.group_period - 1

@@ -70,8 +70,22 @@ def quantize_llm(params: Params) -> Params:
     """Replace the LLM's linear weights (`LLAMA_QUANT_KEYS`) by int8
     leaves, in `params` itself, so that the full-precision copies can be
     freed. Serve the result with `LlamaConfig(a8_prefill=True,
-    kv_quant=True)`; CLIP and SAM keep their weights."""
+    kv_quant=True)`; CLIP and SAM keep their weights (`quantize_towers`
+    does theirs)."""
     params["core"]["llm"] = quant.quantize_tree(params["core"]["llm"], quant.LLAMA_QUANT_KEYS)
+    return params
+
+
+def quantize_towers(params: Params) -> Params:
+    """Replace the linear weights of the SAM image encoder
+    (`SAM_ENCODER_QUANT_KEYS`) and of the CLIP tower (`CLIP_QUANT_KEYS`)
+    by int8 leaves, in `params` itself. CLIP then runs weight-only int8.
+    Serve the SAM encoder with `SamVisionConfig(mlp_w8a8=True)`: its MLPs
+    and its global blocks' projections take the fused int8 kernels. The
+    prompt encoder and the mask decoder keep their weights."""
+    sam = params["sam"]
+    sam["image_encoder"] = quant.quantize_tree(sam["image_encoder"], quant.SAM_ENCODER_QUANT_KEYS)
+    params["core"]["vision"] = quant.quantize_tree(params["core"]["vision"], quant.CLIP_QUANT_KEYS)
     return params
 
 

@@ -1,5 +1,5 @@
 """Int8 weights and W8A8 linears (counterpart of
-`ullava_tpu/ops/quant.py:27-147`).
+`ullava_tpu/ops/quant.py:27-150`).
 
 A quantized weight is a `{"q": int8 [in, out], "scale": f32 [1, out]}`
 leaf; `apply_linear(x, w)` takes either that or a plain tensor, so model
@@ -26,6 +26,8 @@ LLAMA_QUANT_KEYS = (
     "q_proj", "k_proj", "v_proj", "o_proj",
     "gate_proj", "up_proj", "down_proj", "lm_head",
 )
+SAM_ENCODER_QUANT_KEYS = ("qkv", "proj", "fc1", "fc2", "patch_proj")
+CLIP_QUANT_KEYS = ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2", "patch_proj")
 
 
 def column_major(q: torch.Tensor) -> torch.Tensor:

@@ -1,14 +1,16 @@
 """SAM windowed and global attention with the decomposed relative
 position bias (counterpart of `ullava_tpu/ops/sam_attention.py:181-258,
-490-549,759-775`).
+490-549,552-756,759-775`).
 
 bias[(i,j),(a,b)] = q[(i,j)].Rh[i-a+W-1] + q[(i,j)].Rw[j-b+W-1] is never
 materialised by the kernels: they take the compact terms A[(i,j), a] and
 Bb[(i,j), b] and add A[s][t // W] + Bb[s][t % W] to q.k before the scale.
-The two kernels keep the TPU functions' bias conventions, which differ:
+The three kernels keep the TPU functions' bias conventions, which differ:
 the window kernel takes A/Bb pre-scaled by 1/scale with reversed columns
 (as `_bias_terms_grid` emits them), the global kernel takes them raw in
-natural column order and pre-scales them itself.
+natural column order and pre-scales them itself, and the lane-sliced
+global kernel (`fused_global_attention_y`) takes them pre-scaled in
+natural column order, laid out [B, S, H, W].
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ullava_tpu_torch import kernels
+from ullava_tpu_torch.ops.mlp_kernel import _row_quant
 
 
 def fused_window_attention_grid_plain(
@@ -69,7 +72,24 @@ def fused_window_attention_grid(
     return out
 
 
-def fused_global_attention_plain(q, k, v, bias_a, bias_b, window: int, scale: float):
+def _softmax_weights(s: torch.Tensor, exp_bf16: bool, dtype: torch.dtype):
+    """(p, l) of one softmax over the last axis against the row's global
+    maximum: the weights as they enter the product with v (rounded to
+    `dtype`) and the fp32 denominator. With `exp_bf16` the exponent
+    argument `s - m` and the weights are rounded to bf16 and the rounded
+    weights are summed; the kernels round against a running maximum, so
+    they agree with this to bf16 probability precision, not bit for bit."""
+    d = s - s.amax(-1, keepdim=True)
+    if exp_bf16:
+        p = torch.exp(d.to(torch.bfloat16)).float()
+        return p.to(dtype).float(), p.sum(-1, keepdim=True)
+    p = torch.exp(d)
+    return p.to(dtype).float(), p.sum(-1, keepdim=True)
+
+
+def fused_global_attention_plain(
+    q, k, v, bias_a, bias_b, window: int, scale: float, exp_bf16: bool = False
+):
     N, S, hd = q.shape
     inv = 1.0 / scale
     a_s = (bias_a.float() * inv).to(q.dtype).float()
@@ -80,9 +100,8 @@ def fused_global_attention_plain(q, k, v, bias_a, bias_b, window: int, scale: fl
         sl = slice(n0, n0 + chunk)
         bias = (a_s[sl, :, :, None] + b_s[sl, :, None, :]).reshape(-1, S, S)
         s = (torch.einsum("nsd,ntd->nst", q[sl].float(), k[sl].float()) + bias) * scale
-        p = torch.exp(s - s.amax(-1, keepdim=True))
-        o = torch.einsum("nst,ntd->nsd", p.to(v.dtype).float(), v[sl].float())
-        out[sl] = (o / p.sum(-1, keepdim=True)).to(q.dtype)
+        p, l = _softmax_weights(s, exp_bf16, v.dtype)
+        out[sl] = (torch.einsum("nst,ntd->nsd", p, v[sl].float()) / l).to(q.dtype)
     return out
 
 
@@ -94,8 +113,10 @@ def fused_global_attention(
     bias_b: torch.Tensor,
     window: int,
     scale: float,
+    exp_bf16: bool = False,
 ) -> torch.Tensor:
-    """Online-softmax global attention with the decomposed bias. CUDA
+    """Online-softmax global attention with the decomposed bias;
+    `exp_bf16` takes the exponentials in bf16 (the serving form). CUDA
     kernel `kernels/csrc/sam_global_attention.cu` (W 64, hd 80, bf16) for
     CUDA tensors, the plain version for CPU ones."""
     N, S, hd = q.shape
@@ -105,7 +126,7 @@ def fused_global_attention(
     if bias_a.shape != (N, S, W) or bias_b.shape != (N, S, W):
         raise ValueError(f"bias terms must be [{N}, {S}, {W}]")
     if q.device.type == "cpu":
-        return fused_global_attention_plain(q, k, v, bias_a, bias_b, W, scale)
+        return fused_global_attention_plain(q, k, v, bias_a, bias_b, W, scale, exp_bf16)
     if (hd, W) != (80, 64):
         raise ValueError(f"the CUDA global kernel is built for hd 80, W 64; got {hd}, {W}")
     for name, t in (("q", q), ("k", k), ("v", v), ("bias_a", bias_a), ("bias_b", bias_b)):
@@ -113,7 +134,83 @@ def fused_global_attention(
     out = torch.empty_like(q)
     kernels.launch(
         "fused_global_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        bias_a.data_ptr(), bias_b.data_ptr(), out.data_ptr(), N, float(scale),
+        bias_a.data_ptr(), bias_b.data_ptr(), out.data_ptr(), N, float(scale), int(exp_bf16),
+    )
+    return out
+
+
+def fused_global_attention_y_plain(
+    y, bias_a, bias_b, num_heads: int, head_dim: int, window: int, scale: float,
+    exp_bf16: bool = False, dots_i8: bool = False,
+) -> torch.Tensor:
+    """Plain version of `fused_global_attention_y`, one softmax over all
+    S keys (`_softmax_weights`). With `dots_i8` q and k rows and the
+    concatenated bias-term rows are quantized to int8 per row before the
+    score."""
+    B, S, _ = y.shape
+    H, hd, W = num_heads, head_dim, window
+    C = H * hd
+    out = torch.empty((B, S, C), dtype=y.dtype, device=y.device)
+    a_col = torch.arange(S, device=y.device) // W  # key t -> its grid row
+    b_col = torch.arange(S, device=y.device) % W
+    for b in range(B):
+        for h in range(H):
+            q, k, v = (y[b, :, sec * C + h * hd:sec * C + (h + 1) * hd] for sec in range(3))
+            A, Bb = bias_a[b, :, h].float(), bias_b[b, :, h].float()
+            if dots_i8:
+                qq, qs = _row_quant(q)
+                kq, ks = _row_quant(k)
+                abq, abss = _row_quant(torch.cat([A, Bb], dim=-1))
+                s_qk = (qq.int() @ kq.int().T).float() * (qs * ks.T)
+                ab = abq.float()
+                s_b = (ab[:, :W][:, a_col] + ab[:, W:][:, b_col]) * abss
+                s = (s_qk + s_b) * scale
+            else:
+                s = (q.float() @ k.float().T + A[:, a_col] + Bb[:, b_col]) * scale
+            p, l = _softmax_weights(s, exp_bf16, v.dtype)
+            out[b, :, h * hd:(h + 1) * hd] = ((p @ v.float()) / l).to(y.dtype)
+    return out
+
+
+def fused_global_attention_y(
+    y: torch.Tensor,  # [B, S, 3C] raw qkv projection output (bias included)
+    bias_a: torch.Tensor,  # [B, S, H, W] pre-scaled by 1/scale, y.dtype
+    bias_b: torch.Tensor,  # [B, S, H, W]
+    num_heads: int,
+    head_dim: int,
+    window: int,
+    scale: float,
+    head_group: int = 0,
+    exp_bf16: bool = False,
+    dots_i8: bool = False,
+) -> torch.Tensor:
+    """Global-block attention that reads q, k and v in place from the
+    fused LN+qkv output (head h of a section at columns `h * head_dim`)
+    and returns the head-merged [B, S, C] pre-projection activations.
+    `head_group` is a lane-alignment matter of the TPU kernel: accepted
+    and ignored. CUDA kernel `kernels/csrc/sam_global_attention_y.cu`
+    (W 64, hd 80, bf16, `dots_i8` off) for CUDA tensors, the plain version
+    for CPU ones."""
+    B, S, width = y.shape
+    H, hd, W = num_heads, head_dim, window
+    if S != W * W or width != 3 * H * hd:
+        raise ValueError(f"y {tuple(y.shape)} does not match H={H} hd={hd} W={W}")
+    if bias_a.shape != (B, S, H, W) or bias_b.shape != (B, S, H, W):
+        raise ValueError(f"bias terms must be [{B}, {S}, {H}, {W}]")
+    if y.device.type == "cpu":
+        return fused_global_attention_y_plain(
+            y, bias_a, bias_b, H, hd, W, scale, exp_bf16=exp_bf16, dots_i8=dots_i8
+        )
+    if dots_i8:
+        raise NotImplementedError("the CUDA lane-sliced global kernel has no dots_i8 form yet")
+    if (hd, W) != (80, 64):
+        raise ValueError(f"the CUDA global kernel is built for hd 80, W 64; got {hd}, {W}")
+    for name, t in (("y", y), ("bias_a", bias_a), ("bias_b", bias_b)):
+        kernels.check_cuda_tensor(f"global_y {name}", t, torch.bfloat16)
+    out = torch.empty((B, S, H * hd), dtype=y.dtype, device=y.device)
+    kernels.launch(
+        "fused_global_attention_y", y.data_ptr(), bias_a.data_ptr(), bias_b.data_ptr(),
+        out.data_ptr(), B, H, float(scale), int(exp_bf16),
     )
     return out
 
