@@ -8,8 +8,9 @@ Phases, each fatal on any error:
                (one nvcc per source, in parallel) and prints the build time;
   2. kernels - runs each kernel and its plain PyTorch version on the same
                inputs at the serving shapes (the bf16 path's four at B=4,
-               the int8 LLM path's five and the int8 SAM encoder's three
-               at B=16), holds the kernel to the
+               the int8 LLM path's five, the int8 SAM encoder's three and
+               the resident window layout's three at B=16), holds the
+               kernel to the
                plain version within a stated tolerance, and times the
                kernel, the plain version and, where one exists, a single
                PyTorch library call computing the same function (L2
@@ -36,11 +37,20 @@ Phases, each fatal on any error:
                blocks through fused LN+qkv, lane-sliced global attention
                and fused proj+residual; same checks and timings, every
                kernel launched exactly as often as its layers say;
-  6. check   - runs small models (bf16, then int8 LLM, then an int8 SAM
-               encoder) on the card and on the CPU (plain versions, fp32)
-               from the same weights and holds the card's outputs to the
-               CPU reference;
-  7. summary - prints the serve numbers again, the card's name and power
+  6. sam_resident_serve - gives the window blocks their composite rel-pos
+               bias weights (`precompute_window_bias_weights`) and serves
+               B=16 requests with the default window layout, which is the
+               resident one: per window block the dual LN1+qkv, the window
+               kernel on full windows stored as 200 rows, the boundary
+               kernel on the merged right and bottom classes and on the
+               corner, fused proj+residual and the fused MLP on each class;
+               same checks and timings, exact launch counts;
+  7. check   - runs small models (bf16, then int8 LLM, then an int8 SAM
+               encoder in the block and in the resident layout) on the
+               card and on the CPU (plain versions, fp32) from the same
+               weights and holds the card's outputs to the CPU reference,
+               and the resident encoder's to the block layout's;
+  8. summary - prints the serve numbers again, the card's name and power
                limit, one JSON line with every kernel's numbers, and last
                the device line.
 
@@ -718,9 +728,231 @@ def sam_int8_kernel_phases(gen) -> dict:
     return results
 
 
+def resident_kernel_phases(gen, results: dict) -> None:
+    """The kernels of the SAM encoder's resident window layout against
+    their plain versions at the shapes of one B=16 ViT-H window block: 256
+    full windows stored as 200 rows, 64 right and 64 bottom windows of 112
+    tokens as one stream, 16 corner windows of 64. Adds K13's and K14's
+    lines to `results` and K3's serving form to K3's line.
+
+    Gates: bf16 outputs by `row_rel_err` within 1e-2 (the attention
+    kernels over real query rows; K3's pad rows must be finite), K13's
+    int8 rows at least 99.9% exact and the rest within 1. Each gate must
+    reject mutated runs that stand for typical bugs."""
+    import torch
+    import torch.nn.functional as F
+
+    from ullava_tpu_torch.models.sam import image_encoder
+    from ullava_tpu_torch.ops import mlp_kernel, quant, sam_attention
+
+    dev, bf = "cuda", torch.bfloat16
+    tol, eps = 1e-2, 1e-6
+    Bn, C, H, hd, W = B_INT8, 1280, 16, 80, 14
+    R = 2 * W - 1
+    F1, F2 = 3 * C, 2 * H * R
+    sc = hd**-0.5
+    kw = dict(num_heads=H, head_dim=hd, window=W, scale=sc)
+
+    def randn(*shape, scale=1.0, shift=0.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
+
+    def weight(K, N):
+        leaf = quant.quantize_int8(torch.randn((K, N), generator=gen, device=dev) * 0.05)
+        return leaf["q"], leaf["scale"]
+
+    # K13: LN1 + qkv + the composite bias columns of each class tensor.
+    g, b = randn(C, scale=0.1, shift=1.0), randn(C, scale=0.1)
+    (wq, ws), (w2, s2) = weight(C, F1), weight(C, F2)
+    bias, bias2 = randn(F1, scale=0.5), randn(F2, scale=0.5, dtype=torch.float32)
+    wargs = (g, b, wq, ws, bias, w2, s2, bias2, eps)
+    forms = {}
+    for form, N, T, rows2 in (("full", Bn * 16, 200, 196), ("edge_pair", Bn * 8, 112, 112),
+                              ("corner", Bn, 64, 64)):
+        x = randn(N, T, C, scale=2.0, shift=0.3)
+        ry, rp, rxq, rxs = mlp_kernel._ln_linear_dual_parts_plain(x, *wargs, True, rows2)
+        y, p, xq, xs = mlp_kernel._ln_linear_dual_cuda(x, *wargs, rows2)
+        torch.cuda.synchronize()
+        ok, exact, worst = int8_gate(xq, rxq)
+        info = {"row_rel_err": row_rel_err(y, ry), "row_rel_err_bias_terms": row_rel_err(p, rp),
+                "tol": tol, "int8_exact_share": exact, "int8_max_diff": worst,
+                "scale_rel_err": max_rel_err(xs, rxs)}
+        must(f"fused_ln_linear_dual {form}", ok and info["row_rel_err"] <= tol
+             and info["row_rel_err_bias_terms"] <= tol and info["scale_rel_err"] <= 1e-5, info)
+        # Mutants. The second bias dropped; and, where rows are trimmed,
+        # `rows2` ignored: the rows of all T, read as if they were packed.
+        mutants = {"bias2_dropped": mlp_kernel._ln_linear_dual_cuda(
+            x, *wargs[:7], torch.zeros_like(bias2), eps, rows2)[1]}
+        if rows2 != T:
+            untrimmed = mlp_kernel._ln_linear_dual_cuda(x, *wargs, T)[1]
+            mutants["rows2_ignored"] = untrimmed.reshape(-1, F2)[:N * rows2].reshape(N, rows2, F2)
+        info["mutant_row_rel_err"] = {
+            m: must_not(f"fused_ln_linear_dual {form}", m, row_rel_err(out, rp) <= tol,
+                        row_rel_err(out, rp)) for m, out in mutants.items()}
+        del mutants
+
+        def library(x=x, rows2=rows2):
+            xf = F.layer_norm(x, (C,), g, b, eps).float().reshape(-1, C)
+            amax = xf.abs().amax(-1, keepdim=True).clamp_min(1e-12)
+            xq_ = torch.round(xf * (127.0 / amax)).to(torch.int8)
+            xs_ = amax * (1.0 / 127.0)
+            y_ = (torch._int_mm(xq_, wq).float() * (xs_ * ws) + bias.float()).to(bf)
+            p_ = (torch._int_mm(xq_, w2).float() * (xs_ * s2) + bias2).to(bf)
+            return y_.reshape(*x.shape[:2], F1), p_.reshape(*x.shape[:2], F2)[:, :rows2]
+
+        line = kernel_line(
+            "fused_ln_linear_dual",
+            max((y.float() - ry.float()).abs().max().item(), (p.float() - rp.float()).abs().max().item()),
+            info, lambda x=x, r=rows2: mlp_kernel._ln_linear_dual_cuda(x, *wargs, r),
+            lambda x=x, r=rows2: mlp_kernel._ln_linear_dual_parts_plain(x, *wargs, True, r),
+            library, nbytes(x, g, b, wq, ws, bias, w2, s2, bias2, y, p),
+            2.0 * C * (N * T * F1 + N * rows2 * F2), iters=10, flops_per_s=INT8_OPS_PER_S)
+        line["stage_ms"] = {
+            name: time_ms(lambda bits=bits, x=x, r=rows2, scr=(xq, xs): mlp_kernel._ln_linear_dual_cuda(
+                x, *wargs, r, stages=bits, scratch=scr), 10)
+            for name, bits in (("row_pass", 1), ("gemm_qkv", 2), ("gemm_bias_terms", 4))}
+        line["shape"] = [N, T, C, F1, F2, rows2]
+        forms[form] = line
+        del x, y, p, xq, xs, ry, rp, rxq, rxs
+    # The kernels line carries the full class; the other two ride in it.
+    results["fused_ln_linear_dual"] = {**forms["full"], **{
+        f"{name}_form": {k: v for k, v in forms[name].items()
+                         if k not in ("name", "route", "source", "replaces")}
+        for name in ("edge_pair", "corner")}}
+    log(f"[kernel] fused_ln_linear_dual stages "
+        f"{json.dumps({k: v['stage_ms'] for k, v in forms.items()})}")
+    torch.cuda.empty_cache()
+
+    def sdpa_inputs(y, a, bb, keys, key_ok):
+        """Head-major q and the k, v of `keys` [N, Sk, 3C] with the bias
+        terms materialised as a [N, H, Sq, Sk] bf16 mask over the W x W
+        logical key positions (-inf where `key_ok` [Sk] is False)."""
+        N, Sq, _ = y.shape
+        q = y[:, :, :C].reshape(N, Sq, H, hd).transpose(1, 2).contiguous()
+        k, v = (keys[:, :, i * C:(i + 1) * C].reshape(N, -1, H, hd).transpose(1, 2).contiguous()
+                for i in (1, 2))
+        A = a.reshape(N, Sq, H, W).flip(-1).permute(0, 2, 1, 3).float()
+        Bm = bb.reshape(N, Sq, H, W).flip(-1).permute(0, 2, 1, 3).float()
+        mask = (A[..., :, None] + Bm[..., None, :]).reshape(N, H, Sq, W * W) * sc
+        mask = F.pad(mask, (0, keys.shape[1] - W * W)).masked_fill(~key_ok, float("-inf"))
+        return q, k, v, mask.to(bf)
+
+    def sdpa(q, k, v, mask):
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=sc)
+        return o.transpose(1, 2).reshape(q.shape[0], q.shape[2], C)
+
+    # K3's serving form: 256 windows stored as 200 rows, the last four of
+    # each left out as keys. The pad rows of the bias terms are zero, as
+    # `_assemble_bias_terms` makes them.
+    N, S, real = Bn * 16, 200, W * W
+    y = randn(N, S, F1)
+    a, bb = (randn(N, S, H * W, scale=2.0 / sc) for _ in range(2))
+    a[:, real:], bb[:, real:] = 0, 0
+    run = lambda: sam_attention.fused_window_attention_grid(y, a, bb, **kw, total_rows=S)  # noqa: E731
+    got = run()
+    ref = sam_attention.fused_window_attention_grid_plain(y, a, bb, H, hd, W, sc)
+    torch.cuda.synchronize()
+    err = row_rel_err(got[:, :real], ref[:, :real])
+    finite = bool(torch.isfinite(got[:, real:]).all())
+    must("fused_window_attention_grid total_rows", err <= tol and finite, (err, finite))
+    is_real = torch.arange(S, device=dev) < real
+    lib = sdpa_inputs(y, a, bb, y, is_real)
+    # Mutants: the pad keys attended (the library chain with no key left
+    # out), and the two bias terms swapped (through the kernel).
+    caught = {
+        "pad_key_mask_off": row_rel_err(
+            sdpa(*lib[:3], lib[3].masked_fill(~is_real, 0.0))[:, :real], ref[:, :real]),
+        "bias_swapped": row_rel_err(sam_attention.fused_window_attention_grid(
+            y, bb, a, **kw, total_rows=S)[:, :real], ref[:, :real]),
+    }
+    for m, e in caught.items():
+        must_not("fused_window_attention_grid total_rows", m, e <= tol, e)
+    b_ms, b_by = bound_ms(nbytes(y, a, bb, got), 4.0 * N * H * S * real * hd)
+    results["fused_window_attention_grid"]["total_rows_form"] = {
+        "shape": [N, S, F1], "row_rel_err": err, "tol": tol, "pad_rows_finite": finite,
+        "mutant_row_rel_err": caught,
+        "max_abs_err": (got[:, :real].float() - ref[:, :real].float()).abs().max().item(),
+        "ms": time_ms(run, 20),
+        "plain_ms": time_ms(lambda: sam_attention.fused_window_attention_grid_plain(
+            y, a, bb, H, hd, W, sc), 3, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(lambda: sdpa(*lib), 20)}
+    log(f"[kernel] fused_window_attention_grid total_rows "
+        f"{json.dumps(results['fused_window_attention_grid']['total_rows_form'])}")
+    del y, a, bb, got, ref, lib
+    torch.cuda.empty_cache()
+
+    # K14: the right and bottom classes in one dual-geometry launch, and
+    # the corner class; tables from the encoder's own helpers.
+    qkv_bias = randn(F1, scale=0.5)
+
+    def rect_case(geoms, per):
+        rows, cols = geoms[0]
+        N, T = per * len(geoms), rows * cols
+        y = randn(N, T, F1)
+        a, bb = (randn(N, T, H * W, scale=2.0 / sc) for _ in range(2))
+        ohs = [image_encoder._rect_onehot(r, c, W, bf, dev) for r, c in geoms]
+        pads = [image_encoder._pad_tables(qkv_bias, r, c, W, H, hd, bf) for r, c in geoms]
+        tables = ((ohs[0], *pads[0]) if len(geoms) == 1 else
+                  (torch.stack(ohs), torch.stack([k for k, _ in pads]),
+                   torch.stack([v for _, v in pads])))
+        # The zero-padded windows the tables stand for: qkv = qkv_bias at
+        # every pad position, the real tokens scattered into their places.
+        padded = qkv_bias.expand(N, W, W, F1).clone()
+        is_real = torch.zeros((len(geoms), W, W), dtype=torch.bool, device=dev)
+        for i, (r, c) in enumerate(geoms):
+            padded[i * per:(i + 1) * per, :r, :c] = y[i * per:(i + 1) * per].reshape(per, r, c, F1)
+            is_real[i, :r, :c] = True
+        return y, a, bb, tables, padded.reshape(N, W * W, F1), is_real.reshape(len(geoms), W * W)
+
+    rect_forms = {}
+    for form, geoms, per in (("edge_pair", [(14, 8), (8, 14)], Bn * 4), ("corner", [(8, 8)], Bn)):
+        y, a, bb, tables, padded, is_real = rect_case(geoms, per)
+        geometry = tuple(geoms) if len(geoms) == 2 else geoms[0]
+        run = lambda t=tables, g_=geometry: sam_attention.fused_window_attention_rect(  # noqa: E731
+            y, a, bb, *t, **kw, geometry=g_)
+        got = run()
+        ref = sam_attention.fused_window_attention_rect_plain(y, a, bb, *tables, H, hd, W, sc)
+        torch.cuda.synchronize()
+        err = row_rel_err(got, ref)
+        must(f"fused_window_attention_rect {form}", err <= tol, err)
+        every = torch.ones(W * W, dtype=torch.bool, device=dev)
+        lib = sdpa_inputs(y, a, bb, padded, every)
+        # Recorded, not gated: the library chain rounds each bias sum to
+        # bf16 in its mask, which moves a logit of about 10 by up to 0.03.
+        lib_err = row_rel_err(sdpa(*lib), ref)
+        # Mutants: the pad keys dropped (a softmax over the real keys only,
+        # through the library chain), the pad value dropped, and the two
+        # halves' geometries swapped (both through the kernel).
+        real_only = torch.cat([lib[3][i * per:(i + 1) * per].masked_fill(~is_real[i], float("-inf"))
+                               for i in range(len(geoms))])
+        caught = {
+            "pad_keys_dropped": row_rel_err(sdpa(*lib[:3], real_only), ref),
+            "pad_v_dropped": row_rel_err(run((*tables[:2], torch.zeros_like(tables[2]))), ref),
+        }
+        if len(geoms) == 2:
+            caught["halves_swapped"] = row_rel_err(run(g_=(geoms[1], geoms[0])), ref)
+        for m, e in caught.items():
+            must_not(f"fused_window_attention_rect {form}", m, e <= tol, e)
+        N, T = y.shape[:2]
+        line = kernel_line(
+            "fused_window_attention_rect", (got.float() - ref.float()).abs().max().item(),
+            {"row_rel_err": err, "tol": tol, "padded_window_sdpa_row_rel_err": lib_err,
+             "mutant_row_rel_err": caught},
+            run, lambda t=tables: sam_attention.fused_window_attention_rect_plain(
+                y, a, bb, *t, H, hd, W, sc),
+            lambda l=lib: sdpa(*l), nbytes(y, a, bb, *tables, got), 4.0 * N * H * T * W * W * hd)
+        line["shape"] = [N, T, F1]
+        rect_forms[form] = line
+        del y, a, bb, tables, padded, got, ref, lib, real_only
+    results["fused_window_attention_rect"] = {**rect_forms["edge_pair"], "corner_form": {
+        k: v for k, v in rect_forms["corner"].items()
+        if k not in ("name", "route", "source", "replaces")}}
+    torch.cuda.empty_cache()
+
+
 def full_config():
     """LLaMA-7B + CLIP ViT-L/14 + SAM ViT-H in bf16 at full width; the
-    vocabulary is LLaMA's 32000 + [PAD] + 6 multimodal + 4 stage-2 tokens."""
+    vocabulary is LLaMA's 32000 + [PAD] + 6 multimodal + 4 stage-2 tokens.
+    The SAM encoder's window layout is the default one (resident)."""
     import torch
 
     from ullava_tpu_torch.models import clip_vit, llama, ullava, ullava_core
@@ -764,7 +996,8 @@ def requests(cfg, n: int, prompt: int, rng):
 # instead, with one gate and one cache write per layer, and each decode
 # step runs one write-and-attend per layer.
 SAM_LAUNCHES = {"fused_window_attention_grid": 28, "fused_global_attention": 4,
-                "fused_ln_linear": 0, "fused_global_attention_y": 0, "fused_mlp_block": 0}
+                "fused_ln_linear": 0, "fused_global_attention_y": 0, "fused_mlp_block": 0,
+                "fused_ln_linear_dual": 0, "fused_window_attention_rect": 0}
 BF16_LAUNCHES = {"fused_rotary": 64, "flash_attention_fwd_bsh": 32, **SAM_LAUNCHES,
                  "rms_norm_fwd": 65 * (1 + NEW_TOKENS),
                  "rms_norm_residual_quant": 0, "silu_mul_quant": 0,
@@ -779,6 +1012,15 @@ INT8_LAUNCHES = {"fused_rotary": 64, "flash_attention_fwd_bsh": 32, **SAM_LAUNCH
 # 28 window blocks; the transpose-staged global kernel never.
 SAM_INT8_LAUNCHES = {**INT8_LAUNCHES, "fused_global_attention": 0, "fused_ln_linear": 8,
                      "fused_global_attention_y": 4, "fused_mlp_block": 32}
+# The same encoder in the resident layout with composite bias weights. Each
+# of the 28 window blocks runs three class tensors (full, the merged right
+# and bottom, corner): the dual LN1+qkv, proj+residual and the fused MLP
+# on each (at B=16 all three clear the MLP's 512-row gate), the window
+# kernel on the full class, the boundary kernel on the other two. The 4
+# global blocks are as in the block layout.
+SAM_RESIDENT_LAUNCHES = {**SAM_INT8_LAUNCHES, "fused_ln_linear_dual": 28 * 3,
+                         "fused_window_attention_rect": 28 * 2, "fused_ln_linear": 28 * 3 + 8,
+                         "fused_mlp_block": 28 * 3 + 4}
 
 
 def serve_phase(phase: str, cfg, params, n_req: int, expect: dict):
@@ -922,8 +1164,9 @@ def check_phase(gen) -> None:
     bf16 (rotary + flash) and in int8 with two decode steps (the five
     int8-path kernels), the SAM encoder at W 14 / global 64 (window +
     global kernels), the masks decoded from both embeddings, and an int8
-    SAM encoder (the fused int8 linear, MLP and lane-sliced attention
-    kernels)."""
+    SAM encoder in the block layout (the fused int8 linear, MLP and
+    lane-sliced attention kernels) and in the resident layout (the dual
+    LN1+qkv, the padded-window and boundary-window kernels)."""
     import numpy as np
     import torch
 
@@ -1013,7 +1256,7 @@ def check_phase(gen) -> None:
     # through the fused int8 kernels on the card, against their plain
     # versions in fp32 on the CPU from the same int8 weights.
     v8 = image_encoder.SamVisionConfig(embed_dim=640, depth=2, num_heads=8, global_attn_indexes=(1,),
-                                       out_chans=256, mlp_w8a8=True)
+                                       out_chans=256, mlp_w8a8=True, window_layout="block")
     ep = image_encoder.init_params(v8, gen, "cuda")
     for blk in ep["window_blocks"] + ep["global_blocks"]:
         for key in ("rel_pos_h", "rel_pos_w"):
@@ -1032,6 +1275,32 @@ def check_phase(gen) -> None:
                "fused_global_attention_y": 1, "fused_mlp_block": 2}:
         raise AssertionError(f"the small int8 SAM encoder launched {ran}")
     errs["int8_sam_image_embeddings"] = rel_err(emb, emb_ref)
+
+    # The same encoder in the resident layout with composite bias weights,
+    # at B=4: the full class (12800 rows) and the merged right and bottom
+    # classes (3584) clear the fused MLP's 512-row gate, the corner class
+    # (256) takes the plain chain. Against fp32 on the CPU, and against
+    # the block layout of the same weights on the card: the same function
+    # up to rounding (bf16 activations into weight-only projections there,
+    # int8 activations and int8 composite weights here), held to the same
+    # 5e-2 of the largest value.
+    vres = dataclasses.replace(v8, window_layout="auto")
+    rp = image_encoder.precompute_window_bias_weights(ep, vres)
+    img4 = torch.as_tensor(rng.standard_normal((4, 1024, 1024, 3)).astype(np.float32))
+    before = kernels.launch_counts()
+    with torch.no_grad():
+        emb = image_encoder.encode(rp, vres, img4.cuda())
+        torch.cuda.synchronize()
+        ran = {k: n - before[k] for k, n in kernels.launch_counts().items() if n != before[k]}
+        emb_block = image_encoder.encode(rp, v8, img4.cuda())
+        emb_ref = image_encoder.encode(
+            to_cpu32(rp), dataclasses.replace(vres, dtype=torch.float32), img4)
+    if ran != {"fused_ln_linear_dual": 3, "fused_window_attention_grid": 1,
+               "fused_window_attention_rect": 2, "fused_ln_linear": 5,
+               "fused_global_attention_y": 1, "fused_mlp_block": 3}:
+        raise AssertionError(f"the small resident int8 SAM encoder launched {ran}")
+    errs["resident_int8_sam_image_embeddings"] = rel_err(emb, emb_ref)
+    errs["resident_vs_block_int8_sam_image_embeddings"] = rel_err(emb, emb_block.float().cpu())
     # bf16 activations on the card against fp32 on the CPU; on the int8
     # path they also quantize to neighbouring int8 steps here and there.
     tol = 5e-2
@@ -1062,10 +1331,17 @@ def main() -> int:
     int8_results = int8_kernel_phases(gen)
     sam_int8_results = sam_int8_kernel_phases(gen)
     results = {**bf16_results, **int8_results, **sam_int8_results}
+    resident_kernel_phases(gen, results)
+    resident_names = ("fused_ln_linear_dual", "fused_window_attention_rect")
 
     from ullava_tpu_torch.models import ullava
 
-    cfg = full_config()
+    # The first three serves hold the block window layout, as they did
+    # before the resident one became the default; the fourth serves it.
+    resident_cfg = full_config()
+    cfg = dataclasses.replace(resident_cfg, sam=dataclasses.replace(
+        resident_cfg.sam, vision=dataclasses.replace(
+            resident_cfg.sam.vision, window_layout="block")))
     t0 = time.perf_counter()
     params = ullava.init_params(cfg, gen, "cuda")
     torch.cuda.synchronize()
@@ -1094,19 +1370,34 @@ def main() -> int:
     cfg88 = dataclasses.replace(cfg8, sam=sam8)
     sam_int8_line, sam_int8_profile = serve_phase(
         "sam_int8_serve", cfg88, params, B_INT8, SAM_INT8_LAUNCHES)
+
+    # What is served by default: the same fully int8 model with the
+    # composite bias weights and the default (resident) window layout.
+    t0 = time.perf_counter()
+    ullava.precompute_window_bias_weights(params, cfg88)
+    torch.cuda.synchronize()
+    bias_weights_s = time.perf_counter() - t0
+    cfg_res = dataclasses.replace(cfg88, sam=dataclasses.replace(
+        sam8, vision=dataclasses.replace(
+            sam8.vision, window_layout=resident_cfg.sam.vision.window_layout)))
+    resident_line, resident_profile = serve_phase(
+        "sam_resident_serve", cfg_res, params, B_INT8, SAM_RESIDENT_LAUNCHES)
     del params
     torch.cuda.empty_cache()
 
     # Each kernel's count on the main path that it was written for: the
     # bf16 serve for the bf16 path's four, the int8 serve for the int8
-    # LLM's five, the fully int8 serve for the int8 SAM encoder's three.
+    # LLM's five, the fully int8 serve for the int8 SAM encoder's three,
+    # the resident serve for the resident layout's two.
     for name, r in results.items():
         own = (serve_line if name in bf16_results else
-               int8_line if name in int8_results else sam_int8_line)
+               int8_line if name in int8_results else
+               resident_line if name in resident_names else sam_int8_line)
         r["launches"] = own["launches"][name]
         r["launches_bf16_serve"] = serve_line["launches"][name]
         r["launches_int8_serve"] = int8_line["launches"][name]
         r["launches_sam_int8_serve"] = sam_int8_line["launches"][name]
+        r["launches_sam_resident_serve"] = resident_line["launches"][name]
     for r in results.values():
         print(json.dumps({"phase": "kernel", **{k: v for k, v in r.items()
                                                 if k not in ("route", "source", "replaces")}}),
@@ -1114,12 +1405,13 @@ def main() -> int:
     check_phase(gen)
     # The serve and profile numbers again, short, next to the result.
     for line, prof in ((serve_line, profile_line), (int8_line, int8_profile),
-                       (sam_int8_line, sam_int8_profile)):
+                       (sam_int8_line, sam_int8_profile), (resident_line, resident_profile)):
         line = {k: v for k, v in line.items() if k != "launches"}
         top = sorted(prof["top_device_ms"].items(), key=lambda kv: -kv[1])[:8]
         print(json.dumps({**line, "phase": line["phase"] + "_summary",
                           "init_s": init_s, "quantize_s": quantize_s,
                           "quantize_towers_s": quantize_towers_s,
+                          "bias_weights_s": bias_weights_s,
                           "device_busy_s": prof["device_busy_s"],
                           "profiled_wall_s": prof["wall_s"],
                           "top_device_ms_calls": [[name[:60], ms, prof["top_device_calls"][name]]

@@ -3,12 +3,15 @@
 called without a device refuse to run on a machine without CUDA, and
 `chip_smoke.py` fails without a card."""
 
+import ast
 import json
 import pkgutil
 import shutil
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 import ullava_tpu_torch
 
@@ -74,6 +77,20 @@ def test_port_imports_no_jax_and_entry_points_need_cuda():
     assert set(out["raised"]) == {
         "ullava.init_params", "image_encoder.init_params int8", "llama.init_kv_cache",
         "llama.init_kv_cache int8", "serve"}
+
+
+@pytest.mark.parametrize("name", ["test_torch_cuda_bf16.py", "test_torch_cuda_int8.py",
+                                  "test_torch_cuda_sam_int8.py", "test_torch_cuda_sam_resident.py"])
+def test_card_test_files_import_torch_only(name):
+    """The tests that run on the card must run on a machine without JAX."""
+    tree = ast.parse((REPO / "tests" / name).read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            roots.add((node.module or "").split(".")[0])
+    assert roots <= {"pytest", "torch", "ullava_tpu_torch", "dataclasses", "math"}, roots
 
 
 def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):

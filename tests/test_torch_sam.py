@@ -37,7 +37,7 @@ def test_encode_block_layout_matches_jax_pallas_interpret():
     )
     cfg = image_encoder.SamVisionConfig(
         img_size=68, patch_size=4, embed_dim=32, depth=4, num_heads=2, out_chans=16,
-        window_size=3, global_attn_indexes=(1, 3), dtype=torch.float32,
+        window_size=3, global_attn_indexes=(1, 3), dtype=torch.float32, window_layout="block",
     )
     # Random rel-pos tables, positions and biases too (init leaves them 0).
     jparams = random_params(jie.init_params, jcfg, seed=0, std=0.2)

@@ -199,7 +199,8 @@ def _encoder_cfgs(**kw):
     base.update(kw)
     jcfg = jie.SamVisionConfig(**base, dtype=jnp.float32, mlp_w8a8=True,
                                attn_kernel="pallas_interpret", window_layout="block")
-    cfg = image_encoder.SamVisionConfig(**base, dtype=torch.float32, mlp_w8a8=True)
+    cfg = image_encoder.SamVisionConfig(**base, dtype=torch.float32, mlp_w8a8=True,
+                                        window_layout="block")
     return jcfg, cfg
 
 
@@ -319,7 +320,8 @@ def test_evaluate_with_three_int8_towers_matches_jax():
     cfg = dataclasses.replace(
         cfg,
         core=dataclasses.replace(cfg.core, llm=llama.LlamaConfig.tiny(**kw)),
-        sam=dataclasses.replace(cfg.sam, vision=dataclasses.replace(cfg.sam.vision, mlp_w8a8=True)),
+        sam=dataclasses.replace(cfg.sam, vision=dataclasses.replace(
+            cfg.sam.vision, mlp_w8a8=True, window_layout="block")),
     )
     raw = random_params(jullava.init_params, jcfg, seed=9)
     jparams = jax.tree_util.tree_map(jnp.asarray, raw)
@@ -360,11 +362,10 @@ def test_evaluate_with_three_int8_towers_matches_jax():
 
 
 def test_unported_layouts_and_forms_raise():
-    for layout in ("resident", "auto"):
-        with pytest.raises(NotImplementedError, match="resident"):
-            image_encoder.SamVisionConfig(window_layout=layout)
+    for layout in ("resident", "auto", "block"):
+        assert image_encoder.SamVisionConfig(window_layout=layout).window_layout == layout
     with pytest.raises(ValueError):
         image_encoder.SamVisionConfig(window_layout="packed")
     with pytest.raises(NotImplementedError, match="attn_dots_i8"):
         image_encoder.SamVisionConfig(attn_dots_i8=True)
-    assert image_encoder.SamVisionConfig().window_layout == "block"
+    assert image_encoder.SamVisionConfig().window_layout == "auto"

@@ -35,6 +35,8 @@ def test_evaluate_matches_jax_and_serve():
     jcfg = dataclasses.replace(jcfg, sam=dataclasses.replace(jcfg.sam, vision=dataclasses.replace(
         jcfg.sam.vision, attn_kernel="pallas_interpret", window_layout="block")))
     cfg = ullava.UllavaConfig.tiny()
+    cfg = dataclasses.replace(cfg, sam=dataclasses.replace(cfg.sam, vision=dataclasses.replace(
+        cfg.sam.vision, window_layout="block")))
     jparams = random_params(jullava.init_params, jcfg, seed=0)
     params = params_from_jax(jparams, device="cpu")
     batch = _batch(cfg, np.random.default_rng(0), [12, 10])
@@ -92,7 +94,9 @@ def test_int8_llm_evaluate_matches_jax():
     )
     cfg = ullava.UllavaConfig.tiny()
     cfg = dataclasses.replace(
-        cfg, core=dataclasses.replace(cfg.core, llm=llama.LlamaConfig.tiny(**kw)))
+        cfg, core=dataclasses.replace(cfg.core, llm=llama.LlamaConfig.tiny(**kw)),
+        sam=dataclasses.replace(cfg.sam, vision=dataclasses.replace(
+            cfg.sam.vision, window_layout="block")))
     jparams = jax.tree_util.tree_map(jnp.asarray, random_params(jullava.init_params, jcfg, seed=4))
     jparams["core"]["llm"] = jquant.quantize_tree(jparams["core"]["llm"], jquant.LLAMA_QUANT_KEYS)
     params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")

@@ -61,7 +61,7 @@ KERNELS: Dict[str, KernelSpec] = {
         ),
         KernelSpec(
             "fused_window_attention_grid", "sam_window_attention.cu",
-            "ullava_fused_window_attention_grid", (P, P, P, P, I, I, F, P),
+            "ullava_fused_window_attention_grid", (P, P, P, P, I, I, I, F, P),
             "ullava_tpu/ops/sam_attention.py:181",
         ),
         KernelSpec(
@@ -106,6 +106,17 @@ KERNELS: Dict[str, KernelSpec] = {
             "fused_mlp_block", "mlp_block_int8.cu", "ullava_fused_mlp_block_int8",
             (P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, I, P),
             "ullava_tpu/ops/mlp_kernel.py:157",
+        ),
+        KernelSpec(
+            "fused_ln_linear_dual", "ln_linear_int8.cu", "ullava_fused_ln_linear_dual_int8",
+            (P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P),
+            "ullava_tpu/ops/mlp_kernel.py:622",
+        ),
+        KernelSpec(
+            "fused_window_attention_rect", "sam_rect_attention.cu",
+            "ullava_fused_window_attention_rect",
+            (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P),
+            "ullava_tpu/ops/sam_attention.py:354",
         ),
     )
 }

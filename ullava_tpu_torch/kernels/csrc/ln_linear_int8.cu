@@ -19,6 +19,27 @@
 // kernel's own traffic. (2) The shared int8 GEMM core (int8_gemm_core.cuh)
 // with an epilogue that multiplies the two scales first, as the TPU
 // kernel does, adds the bias and the residual in fp32 and stores bf16.
+//
+// fused_ln_linear_dual (w8a8): the same with a second int8 weight on the
+// same int8 rows, P = acc2 * (xs * w2_scale) + bias2 (an f32 bias), of
+// which only the leading `rows2` rows of every T are kept.
+//
+// Replaces: ullava_tpu/ops/mlp_kernel.py:622 fused_ln_linear_dual (one
+// Pallas kernel: both products of a block of windows in its body).
+//
+// Bound on the card: LN1 + qkv + the 864 composite bias columns of the
+// full windows of a ViT-H layer at B=16 is 51200 x 1280 x 4704 x 2 =
+// 6.2e11 int8 operations (0.31 ms) against 0.62 GB (0.18 ms): operations
+// bound it.
+//
+// Design: the row pass once, then the GEMM core twice on the shared int8
+// rows, once per weight. One launch over the 3840 + 864 columns would
+// read the int8 rows once, not twice (66 MB of 0.62 GB), but the two
+// weights are two allocations with two epilogues (bf16 or f32 bias, all
+// rows or the leading rows2 of every T), and the core walks one B matrix;
+// so two launches, and `LinearEpi` stays as it is. The second epilogue
+// maps GEMM row r to output row (r / T) * rows2 + r % T and skips rows
+// with r % T >= rows2.
 #include "int8_gemm_core.cuh"
 
 namespace ullava {
@@ -63,6 +84,42 @@ struct LinearEpi {
   __device__ __forceinline__ void finish(const Tile&, State&) const {}
 };
 
+// The second product of fused_ln_linear_dual: an f32 bias, and of every
+// T rows only the leading rows2 are stored, packed to [M / T, rows2, N].
+struct TrimmedLinearEpi {
+  using State = NoState;
+  static constexpr int kMinBlocks = 2;
+  const float* xs;    // [M] per-row activation scale
+  const float* ws;    // [N] per-output-channel weight scale
+  const float* bias;  // [N]
+  bf16* out;          // [M / T, rows2, N]
+  int T, rows2;
+
+  __device__ __forceinline__ void chunk(Acc& acc, int, const Tile& t, State&) const {
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = t.row(mi, half);
+        if (row >= t.M || row % T >= rows2) continue;
+        const float s = xs[row];
+        bf16* orow = out + (static_cast<size_t>(row / T) * rows2 + row % T) * t.N;
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) {
+          const int col = t.col(ni);
+          if (col >= t.N) continue;
+          const float2 w = *reinterpret_cast<const float2*>(ws + col);
+          const float2 b = *reinterpret_cast<const float2*>(bias + col);
+          store_bf16x2(orow + col,
+                       static_cast<float>(acc[mi][ni][half * 2]) * (s * w.x) + b.x,
+                       static_cast<float>(acc[mi][ni][half * 2 + 1]) * (s * w.y) + b.y);
+        }
+      }
+    }
+  }
+  __device__ __forceinline__ void finish(const Tile&, State&) const {}
+};
+
 }  // namespace i8
 }  // namespace ullava
 
@@ -93,6 +150,43 @@ ULLAVA_EXPORT int ullava_fused_ln_linear_int8(const void* x, const void* ln_s, c
     const int KT = (K + i8::BK - 1) / i8::BK;
     return i8::launch_gemm(static_cast<const int8_t*>(xq), K, rows,
                            static_cast<const int8_t*>(wq), K, N, K, KT, epi, 1, st);
+  }
+  return 0;
+}
+
+// fused_ln_linear_dual. x [rows, K] bf16 with rows = windows * T; ln_s,
+// ln_b [K] bf16; wq [N][K] and w2q [N2][K] int8; w_scale [N], w2_scale
+// [N2] f32; bias [N] bf16; bias2 [N2] f32; out [rows, N] bf16; out2
+// [rows / T, rows2, N2] bf16; scratch xq [rows, K] int8 and xs [rows] f32.
+// `stages`: bit 0 runs the row pass, bit 1 the first product, bit 2 the
+// second (7 = the function).
+ULLAVA_EXPORT int ullava_fused_ln_linear_dual_int8(
+    const void* x, const void* ln_s, const void* ln_b, const void* wq, const void* w_scale,
+    const void* bias, const void* w2q, const void* w2_scale, const void* bias2, void* out,
+    void* out2, void* xq, void* xs, int rows, int K, int N, int N2, int T, int rows2, float eps,
+    int stages, void* stream) {
+  using namespace ullava;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int KT = (K + i8::BK - 1) / i8::BK;
+  if (stages & 1) {
+    const int err = i8::launch_ln_quant_rows(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(ln_s),
+        static_cast<const bf16*>(ln_b), static_cast<int8_t*>(xq), static_cast<float*>(xs), rows,
+        K, eps, st);
+    if (err != 0) return err;
+  }
+  if (stages & 2) {
+    i8::LinearEpi epi{static_cast<const float*>(xs), static_cast<const float*>(w_scale),
+                      static_cast<const bf16*>(bias), nullptr, static_cast<bf16*>(out)};
+    const int err = i8::launch_gemm(static_cast<const int8_t*>(xq), K, rows,
+                                    static_cast<const int8_t*>(wq), K, N, K, KT, epi, 1, st);
+    if (err != 0) return err;
+  }
+  if (stages & 4) {
+    i8::TrimmedLinearEpi epi{static_cast<const float*>(xs), static_cast<const float*>(w2_scale),
+                             static_cast<const float*>(bias2), static_cast<bf16*>(out2), T, rows2};
+    return i8::launch_gemm(static_cast<const int8_t*>(xq), K, rows,
+                           static_cast<const int8_t*>(w2q), K, N2, K, KT, epi, 1, st);
   }
   return 0;
 }

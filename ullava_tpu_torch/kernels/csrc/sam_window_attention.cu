@@ -20,6 +20,13 @@
 // 1/scale, columns reversed (column a' is key row W-1-a'); the block
 // un-reverses them into its [64, W] tables once, and adds
 // A[s][t / W] + Bb[s][t % W] to q.k before the scale.
+//
+// The padded layout of the resident encoder stores a window as
+// `total_rows` >= 196 rows (200 for ViT-H, so that the token axis is a
+// multiple of 8): Sq and the row stride are total_rows while Sk stays
+// 196, so the tail rows are never loaded as keys. As queries they are
+// computed and written like any row (finite, dropped by the caller), so
+// no later kernel reads memory that was never written.
 #include "flash_core.cuh"
 
 namespace ullava {
@@ -63,17 +70,17 @@ struct WindowGrid {
 
 }  // namespace ullava
 
-// y: [N, 196, 3*H*80] bf16; a, b: [N, 196, H*14] bf16; o: [N, 196, H*80] bf16.
+// y: [N, S, 3*H*80] bf16; a, b: [N, S, H*14] bf16; o: [N, S, H*80] bf16,
+// S = total_rows >= 196.
 ULLAVA_EXPORT int ullava_fused_window_attention_grid(const void* y, const void* a,
                                                      const void* b, void* o, int N,
-                                                     int H, float scale,
+                                                     int H, int total_rows, float scale,
                                                      void* stream) {
-  constexpr int S = ullava::kWin * ullava::kWin;
   ullava::WindowGrid p{static_cast<const ullava::bf16*>(y),
                        static_cast<const ullava::bf16*>(a),
                        static_cast<const ullava::bf16*>(b),
                        static_cast<ullava::bf16*>(o),
-                       S, S, H, 0, false, scale};
+                       total_rows, ullava::kWin * ullava::kWin, H, 0, false, scale};
   return ullava::launch_flash<ullava::kWinHD, ullava::kWin>(
       p, N * H, static_cast<cudaStream_t>(stream));
 }

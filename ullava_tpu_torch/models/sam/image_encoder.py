@@ -1,15 +1,23 @@
-"""SAM ViTDet image encoder, block window layout (counterpart of
-`ullava_tpu/models/sam/image_encoder.py:39-254,328-383,454-700,
-1054-1113`).
+"""SAM ViTDet image encoder, block and resident window layouts
+(counterpart of `ullava_tpu/models/sam/image_encoder.py:39-254,328-700,
+717-1113`; the packed layout waits).
 
 ViT backbone with 14x14 window attention and global blocks closing each
 group, decomposed relative position bias, conv neck to 256 channels; NHWC
-throughout. Each window block pads the grid after LN1 (64 -> 70 for
-ViT-H: pad tokens carry qkv = qkv_bias and take part as keys, exactly as
-the reference's zero pad), partitions into windows, attends, merges and
-crops. Attention always goes through the ported kernels' wrappers:
+throughout. Attention always goes through the ported kernels' wrappers:
 `fused_window_attention_grid` for sizes up to 16 and
 `fused_global_attention` above (the JAX dispatch at `_attn`).
+
+In the block layout each window block pads the grid after LN1 (64 -> 70
+for ViT-H: pad tokens carry qkv = qkv_bias and take part as keys, exactly
+as the reference's zero pad), partitions into windows, attends, merges
+and crops. In the resident layout (the default wherever the grid holds a
+whole window) the grid is partitioned once per group into compact
+window-major class tensors: full windows, and the right, bottom and
+corner boundary windows as their real rectangles with no pad token
+anywhere. The group's window blocks run on those; `fused_window_attention_rect`
+rebuilds the boundary windows' pad keys from the qkv bias; grid order
+returns for the group's closing global block.
 
 Weights may be int8 leaves (`quant.SAM_ENCODER_QUANT_KEYS`). Then the
 JAX package's shape gates choose the function, as they choose it there
@@ -21,10 +29,15 @@ the token count % 512 == 0, and a global block goes to `fused_ln_linear`
 residual) when qkv and proj are int8, the grid is above 16 and
 S % 1024 == 0 (with head-major copies and `fused_global_attention` in the
 middle when no head slab of the qkv output is 128-aligned, as the JAX
-package chooses). The window blocks keep plain LN and weight-only
-`apply_linear` around the window kernel. There is no device gate: on
-CUDA tensors the wrappers launch their kernels, on CPU tensors they take
-their plain versions.
+package chooses). The block layout's window blocks keep plain LN and
+weight-only `apply_linear` around the window kernel. The resident
+layout's take `fused_ln_linear` (LN1+qkv) and `fused_linear` (proj +
+residual) when qkv and proj are int8, the right and bottom classes as one
+token stream; with the composite bias weights of
+`precompute_window_bias_weights`, `fused_ln_linear_dual` emits the bias
+terms beside qkv and the full windows are stored as 200 rows. There is no
+device gate: on CUDA tensors the wrappers launch their kernels, on CPU
+tensors they take their plain versions.
 
 Parameters: `window_blocks` (list of G*(P-1) per-block dicts, group-major)
 and `global_blocks` (list of G), where the depth factors into G groups of
@@ -34,6 +47,7 @@ P layers with a global block closing each group.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -41,14 +55,26 @@ import torch.nn.functional as F
 
 from ullava_tpu_torch import resolve_device
 from ullava_tpu_torch.models import normal
-from ullava_tpu_torch.ops.mlp_kernel import fused_linear, fused_ln_linear, fused_mlp_block
+from ullava_tpu_torch.ops.mlp_kernel import (
+    fused_linear,
+    fused_ln_linear,
+    fused_ln_linear_dual,
+    fused_mlp_block,
+)
 from ullava_tpu_torch.ops.norms import layer_norm
-from ullava_tpu_torch.ops.quant import apply_linear, apply_linear_a8, is_quantized
+from ullava_tpu_torch.ops.quant import (
+    apply_linear,
+    apply_linear_a8,
+    dequantize,
+    is_quantized,
+    quantize_int8,
+)
 from ullava_tpu_torch.ops.sam_attention import (
     decomposed_bias_terms,
     fused_global_attention,
     fused_global_attention_y,
     fused_window_attention_grid,
+    fused_window_attention_rect,
 )
 
 Params = Dict[str, Any]
@@ -76,24 +102,19 @@ class SamVisionConfig:
     attn_w8a8: bool = False
     # int8 x int8 attention score products inside the kernels: not ported.
     attn_dots_i8: bool = False
-    # Window-block token layout. Only "block" (pad, partition, attend,
-    # merge, crop in every window block) is ported, and it is the default
-    # until the resident layout lands; the JAX default "auto" means
-    # "resident" on the TPU. "resident" and "auto" raise.
-    window_layout: str = "block"
+    # Window-block token layout: "block" (pad, partition, attend, merge,
+    # crop in every window block), "resident" (one partition per group
+    # into compact window-major class tensors), or "auto": resident
+    # wherever the grid holds a whole window.
+    window_layout: str = "auto"
 
     def __post_init__(self) -> None:
-        if self.window_layout in ("resident", "auto"):
-            raise NotImplementedError(
-                f"window_layout={self.window_layout!r}: the resident window layout is the "
-                "next part of the encoder to be ported; use 'block'"
-            )
-        if self.window_layout != "block":
+        if self.window_layout not in ("auto", "block", "resident"):
             raise ValueError(f"unknown window_layout {self.window_layout!r}")
         if self.attn_dots_i8:
             raise NotImplementedError(
                 "attn_dots_i8: the int8 score-dot forms of the attention kernels are not "
-                "ported yet (queued with the resident layout)"
+                "ported yet"
             )
 
     @property
@@ -205,11 +226,19 @@ def rel_pos_bias(
 
 def _bias_terms_grid(y, rel_pos_h, rel_pos_w, cfg: SamVisionConfig, size: int):
     """Bias terms for `fused_window_attention_grid` from the qkv output
-    y [N, S, 3C]: P = q @ blockdiag(rel_pos * sqrt(hd)) over r = 0..2W-2,
-    then A[s, h, a'] = P[s, h, i(s) + a'] (the reversed-column order the
-    kernel takes). Returns (A, Bb), each [N, S, H*W] in y.dtype."""
+    y [N, S, 3C]: (A, Bb), each [N, S, H*W] in y.dtype."""
+    return _bias_terms_rect(y, rel_pos_h, rel_pos_w, cfg, size, size, size)
+
+
+def _bias_terms_rect(y, rel_pos_h, rel_pos_w, cfg: SamVisionConfig, rows: int, cols: int, W: int):
+    """Bias terms of the rows x cols real rectangle of a logical W x W
+    window (the whole window when rows = cols = W) from the qkv output
+    y [N, rows*cols, 3C]: P = q @ blockdiag(rel_pos * sqrt(hd)) over
+    r = 0..2W-2, then A[s, h, a'] = P[s, h, i(s) + a'] (the reversed-column
+    order the kernels take). Queries exist at real positions only, but
+    each is biased against all W key rows and columns of the logical
+    window. Returns (A, Bb), each [N, rows*cols, H*W] in y.dtype."""
     H, hd, C = cfg.num_heads, cfg.head_dim, cfg.embed_dim
-    W = size
     R = 2 * W - 1
     N, T, _ = y.shape
     inv = float(hd**0.5)  # 1/scale, folded into the weights
@@ -219,11 +248,56 @@ def _bias_terms_grid(y, rel_pos_h, rel_pos_w, cfg: SamVisionConfig, size: int):
         return torch.block_diag(*([blk] * H))
 
     q = y[:, :, :C]
-    Ph = (q @ block_diag(rel_pos_h)).reshape(N, W, W, H, R)
-    Pw = (q @ block_diag(rel_pos_w)).reshape(N, W, W, H, R)
-    A = torch.cat([Ph[:, i:i + 1, :, :, i:i + W] for i in range(W)], dim=1)
-    Bb = torch.cat([Pw[:, :, j:j + 1, :, j:j + W] for j in range(W)], dim=2)
+    Ph = (q @ block_diag(rel_pos_h)).reshape(N, rows, cols, H, R)
+    Pw = (q @ block_diag(rel_pos_w)).reshape(N, rows, cols, H, R)
+    A = torch.cat([Ph[:, i:i + 1, :, :, i:i + W] for i in range(rows)], dim=1)
+    Bb = torch.cat([Pw[:, :, j:j + 1, :, j:j + W] for j in range(cols)], dim=2)
     return A.reshape(N, T, H * W), Bb.reshape(N, T, H * W)
+
+
+def precompute_window_bias_weights(enc: Params, cfg: SamVisionConfig) -> Params:
+    """Serving-time weight preparation: fold the window blocks' rel-pos
+    bias products into the LN1+qkv projection. The bias terms are linear
+    in the q columns of the qkv output, A = (LN(x) @ Wq + bq) @
+    BD(rel_pos_h * sqrt(hd)), so the composite weight Wq @ BD and the
+    constant bq @ BD depend on frozen parameters only, and
+    `fused_ln_linear_dual` emits the bias-term matrix beside y.
+
+    Returns a copy of `enc` whose window blocks each gain `biasw` (an int8
+    leaf [C, 2*H*R], R = 2W-1, columns ordered [2, H, R]: h-terms, then
+    w-terms) and `biasw_bias` ([2*H*R], f32). The composite is computed in
+    f32 from the dequantized qkv weight."""
+    C, H, hd = cfg.embed_dim, cfg.num_heads, cfg.head_dim
+    R = 2 * cfg.window_size - 1
+    inv = float(hd**0.5)  # the 1/scale prefold of `_bias_terms_rect`
+    blocks = []
+    for p in enc["window_blocks"]:
+        wq = dequantize(p["qkv"], torch.float32)[:, :C].float().reshape(C, H, hd)
+        bq = p["qkv_bias"][:C].float().reshape(H, hd)
+        rels = [p[k].float() * inv for k in ("rel_pos_h", "rel_pos_w")]  # [R, hd] each
+        comp = torch.stack([torch.einsum("chd,rd->chr", wq, rel) for rel in rels], dim=1)
+        bconst = torch.stack([torch.einsum("hd,rd->hr", bq, rel) for rel in rels], dim=0)
+        blocks.append({**p, "biasw": quantize_int8(comp.reshape(C, 2 * H * R)),
+                       "biasw_bias": bconst.reshape(2 * H * R)})
+    return {**enc, "window_blocks": blocks}
+
+
+def _assemble_bias_terms(P: torch.Tensor, rows: int, cols: int, W: int, H: int, pad_rows: int = 0):
+    """[N, rows*cols, 2*H*R] bias-term output of `fused_ln_linear_dual`
+    -> (A, Bb), each [N, rows*cols + pad_rows, H*W] in the reversed column
+    order the window kernels take (the slice assembly of
+    `_bias_terms_rect` on a precomputed P). `pad_rows` appends zero rows
+    for the padded full-window layout: those rows are left out as keys, so
+    only their finiteness matters."""
+    N, T, _ = P.shape
+    R = 2 * W - 1
+    P6 = P.reshape(N, rows, cols, 2, H, R)
+    A = torch.cat([P6[:, i:i + 1, :, 0, :, i:i + W] for i in range(rows)], dim=1)
+    Bb = torch.cat([P6[:, :, j:j + 1, 1, :, j:j + W] for j in range(cols)], dim=2)
+    A, Bb = A.reshape(N, T, H * W), Bb.reshape(N, T, H * W)
+    if pad_rows:
+        A, Bb = F.pad(A, (0, 0, 0, pad_rows)), F.pad(Bb, (0, 0, 0, pad_rows))
+    return A, Bb
 
 
 def _lin(cfg: SamVisionConfig, x: torch.Tensor, w) -> torch.Tensor:
@@ -382,6 +456,206 @@ def _block(x: torch.Tensor, p: Params, cfg: SamVisionConfig, window: bool) -> to
     return _mlp_tail(shortcut + x, p, cfg)
 
 
+# ---------------------------------------------------------------------------
+# Resident window-major layout: partition once per group into compact
+# per-class tensors (full / right / bottom / corner windows, no pad token
+# anywhere), run the group's window blocks on them, and restore grid order
+# only for the group's closing global block. The block layout's zero-pad
+# keys are exact constants (a pad token's qkv input is 0, so its k and v
+# are the qkv bias) that `fused_window_attention_rect` takes as per-layer
+# tables.
+# ---------------------------------------------------------------------------
+
+
+def _class_geometry(name: str, cfg: SamVisionConfig) -> Tuple[int, int]:
+    ws, rem = cfg.window_size, cfg.grid % cfg.window_size
+    return {"full": (ws, ws), "right": (ws, rem), "bottom": (rem, ws), "corner": (rem, rem)}[name]
+
+
+def _partition_resident(x: torch.Tensor, ws: int, pad_full_to: int = 0) -> Dict[str, torch.Tensor]:
+    """[B, g, g, C] -> compact window-major class tensors [N, T, C].
+    `pad_full_to` zero-pads the full class's token axis to that many rows
+    (196 -> 200 for ViT-H): the pad rows are left out as attention keys
+    and dropped at `_unpartition_resident`."""
+    B, g, _, C = x.shape
+    f, rem = divmod(g, ws)
+    e = f * ws
+    full = x[:, :e, :e].reshape(B, f, ws, f, ws, C).permute(0, 1, 3, 2, 4, 5)
+    full = full.reshape(B * f * f, ws * ws, C)
+    if pad_full_to > ws * ws:
+        full = F.pad(full, (0, 0, 0, pad_full_to - ws * ws))
+    out = {"full": full}
+    if rem:
+        out["right"] = x[:, :e, e:].reshape(B * f, ws * rem, C)
+        out["bottom"] = (
+            x[:, e:, :e].reshape(B, rem, f, ws, C).permute(0, 2, 1, 3, 4).reshape(B * f, rem * ws, C)
+        )
+        out["corner"] = x[:, e:, e:].reshape(B, rem * rem, C)
+    return out
+
+
+def _unpartition_resident(cls: Dict[str, torch.Tensor], B: int, g: int, ws: int) -> torch.Tensor:
+    """Inverse of `_partition_resident` (drops the full class's pad rows)."""
+    C = cls["full"].shape[-1]
+    f, rem = divmod(g, ws)
+    e = f * ws
+    full = cls["full"][:, : ws * ws].reshape(B, f, f, ws, ws, C).permute(0, 1, 3, 2, 4, 5)
+    full = full.reshape(B, e, e, C)
+    if not rem:
+        return full
+    top = torch.cat([full, cls["right"].reshape(B, e, rem, C)], dim=2)  # [B, e, g, C]
+    bottom = cls["bottom"].reshape(B, f, rem, ws, C).permute(0, 2, 1, 3, 4).reshape(B, rem, e, C)
+    bot = torch.cat([bottom, cls["corner"].reshape(B, rem, rem, C)], dim=2)  # [B, rem, g, C]
+    return torch.cat([top, bot], dim=1)
+
+
+def _reversed_onehots(idx: torch.Tensor, W: int) -> torch.Tensor:
+    """[n, 2] (row, col) positions -> [n, 2W] one-hots in the reversed
+    column order of the bias terms: column a' marks row W-1-a'."""
+    rev = W - 1 - torch.arange(W)
+    return torch.cat([idx[:, 0:1] == rev, idx[:, 1:2] == rev], dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _rect_tables(rows: int, cols: int, W: int, dtype: torch.dtype, device: torch.device):
+    """The tables of a rows x cols rectangle that depend on its geometry
+    only: the real tokens' one-hots [T, 2W] and the pad positions'
+    [P, 2W], in `dtype` on `device`."""
+    pos = torch.cartesian_prod(torch.arange(W), torch.arange(W))
+    real = (pos[:, 0] < rows) & (pos[:, 1] < cols)
+    t = torch.arange(rows * cols)
+    oh = _reversed_onehots(torch.stack([t // cols, t % cols], dim=1), W)
+    return (oh.to(device=device, dtype=dtype),
+            _reversed_onehots(pos[~real], W).to(device=device, dtype=dtype))
+
+
+def _rect_onehot(rows: int, cols: int, W: int, dtype, device) -> torch.Tensor:
+    """[T, 2W] reversed-column one-hots of the real tokens."""
+    return _rect_tables(rows, cols, W, dtype, torch.device(device))[0]
+
+
+def _pad_tables(qkv_bias, rows: int, cols: int, W: int, H: int, hd: int, dtype):
+    """The pad keys' tables: the block layout pads with zeros after LN1,
+    so a pad token's key and value are the qkv bias slices, and only the
+    rel-pos one-hots differ between pad positions. Returns
+    ([H, P, hd+2W], [H, hd])."""
+    bias = qkv_bias.reshape(3, H, hd).to(dtype)
+    oh = _rect_tables(rows, cols, W, dtype, qkv_bias.device)[1]
+    P = oh.shape[0]
+    pad_k = torch.cat([bias[1][:, None, :].expand(H, P, hd), oh[None].expand(H, P, 2 * W)], dim=-1)
+    return pad_k, bias[2].contiguous()
+
+
+def _ln_qkv_bias_terms(x, p: Params, cfg: SamVisionConfig, geoms):
+    """LN1 + qkv of class tensor x [N, T, C] and the bias terms of its
+    windows: (y, A, Bb). `geoms` lists the (rows, cols) of equal slices of
+    N (one entry, or two for the merged right and bottom classes)."""
+    W, H = cfg.window_size, cfg.num_heads
+    per = x.shape[0] // len(geoms)
+    P = None
+    if is_quantized(p["qkv"]):
+        ln_qkv = (x, p["ln1_scale"], p["ln1_bias"], p["qkv"]["q"], p["qkv"]["scale"], p["qkv_bias"])
+        if "biasw" in p:
+            # In the padded layout y keeps the pad rows, the bias terms do not.
+            real = geoms[0][0] * geoms[0][1]
+            y, P = fused_ln_linear_dual(
+                *ln_qkv, p["biasw"]["q"], p["biasw"]["scale"], p["biasw_bias"],
+                cfg.layer_norm_eps, w8a8=cfg.mlp_w8a8, rows2=real if x.shape[1] != real else 0,
+            )
+        else:
+            y = fused_ln_linear(*ln_qkv, cfg.layer_norm_eps, w8a8=cfg.mlp_w8a8)
+    else:
+        h = layer_norm(x, p["ln1_scale"], p["ln1_bias"], cfg.layer_norm_eps)
+        y = _lin(cfg, h, p["qkv"]) + p["qkv_bias"]
+    terms = []
+    for i, (rows, cols) in enumerate(geoms):
+        sl = slice(i * per, (i + 1) * per)
+        if P is not None:
+            terms.append(_assemble_bias_terms(
+                P[sl], rows, cols, W, H, pad_rows=x.shape[1] - rows * cols))
+        else:
+            terms.append(_bias_terms_rect(y[sl], p["rel_pos_h"], p["rel_pos_w"], cfg, rows, cols, W))
+    if len(terms) == 1:
+        return (y, *terms[0])
+    return y, torch.cat([t[0] for t in terms]), torch.cat([t[1] for t in terms])
+
+
+def _window_attention(y, A, Bb, p: Params, cfg: SamVisionConfig, geoms) -> torch.Tensor:
+    """Attention of class windows from their qkv output and bias terms:
+    the grid kernel for whole windows, the boundary kernel for real
+    rectangles (two geometries in one launch for the merged classes)."""
+    W, H, hd = cfg.window_size, cfg.num_heads, cfg.head_dim
+    kw = dict(num_heads=H, head_dim=hd, window=W, scale=hd**-0.5)
+    if geoms == [(W, W)]:
+        return fused_window_attention_grid(
+            y, A, Bb, **kw, total_rows=y.shape[1] if y.shape[1] != W * W else 0
+        )
+    ohs = [_rect_onehot(rows, cols, W, y.dtype, y.device) for rows, cols in geoms]
+    pads = [_pad_tables(p["qkv_bias"], rows, cols, W, H, hd, y.dtype) for rows, cols in geoms]
+    if len(geoms) == 1:
+        return fused_window_attention_rect(
+            y, A, Bb, ohs[0], *pads[0], **kw, dots_i8=cfg.attn_dots_i8, geometry=geoms[0]
+        )
+    return fused_window_attention_rect(
+        y, A, Bb, torch.stack(ohs), torch.stack([k for k, _ in pads]),
+        torch.stack([v for _, v in pads]), **kw, dots_i8=cfg.attn_dots_i8, geometry=tuple(geoms),
+    )
+
+
+def _attn_resident(x: torch.Tensor, p: Params, cfg: SamVisionConfig, geoms) -> torch.Tensor:
+    """x + proj(attn(LN1(x))) on a compact class tensor [N, T, C] whose
+    windows have the geometries `geoms` (see `_ln_qkv_bias_terms`). With
+    int8 weights LN1+qkv and proj+residual are the fused int8 functions."""
+    y, A, Bb = _ln_qkv_bias_terms(x, p, cfg, geoms)
+    out = _window_attention(y, A, Bb, p, cfg, geoms)
+    if is_quantized(p["proj"]):
+        return fused_linear(
+            out, p["proj"]["q"], p["proj"]["scale"], p["proj_bias"], residual=x, w8a8=cfg.mlp_w8a8
+        )
+    return x + (_lin(cfg, out, p["proj"]) + p["proj_bias"])
+
+
+def _attn_resident_cls(x, p: Params, cfg: SamVisionConfig, rows: int, cols: int) -> torch.Tensor:
+    """Windowed attention and residual on one class tensor [N, T, C]."""
+    return _attn_resident(x, p, cfg, [(rows, cols)])
+
+
+def _merge_edge_classes(xs: Dict[str, torch.Tensor], p: Params) -> bool:
+    """Whether the right and bottom classes (both [B*f, ws*rem, C]) go
+    through qkv, proj and the MLP as one token stream: with int8 qkv and
+    proj, where that halves the launches of the three fused functions."""
+    return "right" in xs and is_quantized(p["qkv"]) and is_quantized(p["proj"])
+
+
+def _attn_resident_edge_pair(xr, xb, p: Params, cfg: SamVisionConfig) -> torch.Tensor:
+    """The right and bottom classes merged: one LN1+qkv, one dual-geometry
+    attention launch and one proj+residual over [2*N, T, C]; the caller
+    splits after the shared MLP."""
+    geoms = [_class_geometry("right", cfg), _class_geometry("bottom", cfg)]
+    return _attn_resident(torch.cat([xr, xb]), p, cfg, geoms)
+
+
+def _block_resident(xs: Dict[str, torch.Tensor], p: Params, cfg: SamVisionConfig):
+    """One window block on the resident class dict."""
+    merged = _merge_edge_classes(xs, p)
+    out = {}
+    for name, x in xs.items():
+        if merged and name in ("right", "bottom"):
+            continue
+        out[name] = _mlp_tail(_attn_resident_cls(x, p, cfg, *_class_geometry(name, cfg)), p, cfg)
+    if merged:
+        hm = _mlp_tail(_attn_resident_edge_pair(xs["right"], xs["bottom"], p, cfg), p, cfg)
+        Nr = xs["right"].shape[0]
+        out["right"], out["bottom"] = hm[:Nr], hm[Nr:]
+    return out
+
+
+def _use_resident(cfg: SamVisionConfig) -> bool:
+    """"auto" and "resident" both mean resident wherever the grid holds at
+    least one whole window."""
+    return cfg.window_layout != "block" and cfg.grid // cfg.window_size > 0
+
+
 @torch.no_grad()
 def encode(params: Params, cfg: SamVisionConfig, pixel_values: torch.Tensor) -> torch.Tensor:
     """[B, img, img, 3] (SAM-normalized, padded) -> [B, grid, grid, out_chans]."""
@@ -395,9 +669,25 @@ def encode(params: Params, cfg: SamVisionConfig, pixel_values: torch.Tensor) -> 
     x = x + params["pos_embed"][None]
 
     per = cfg.group_period - 1
+    ws = cfg.window_size
+    resident = per > 0 and _use_resident(cfg)
+    # The padded full-window layout (rows a multiple of 8) goes with the
+    # composite bias weights: the dual LN+qkv emits the bias terms at the
+    # real row count and the grid kernel leaves the pad rows out as keys.
+    pad_full_to = (
+        -(-ws * ws // 8) * 8
+        if resident and (ws * ws) % 8 and "biasw" in params["window_blocks"][0] else 0
+    )
     for gi, gp in enumerate(params["global_blocks"]):
-        for wp in params["window_blocks"][gi * per:(gi + 1) * per]:
-            x = _block(x, wp, cfg, window=True)
+        wps = params["window_blocks"][gi * per:(gi + 1) * per]
+        if resident:
+            cls = _partition_resident(x, ws, pad_full_to)
+            for wp in wps:
+                cls = _block_resident(cls, wp, cfg)
+            x = _unpartition_resident(cls, B, g, ws)
+        else:
+            for wp in wps:
+                x = _block(x, wp, cfg, window=True)
         x = _block(x, gp, cfg, window=False)
 
     # Neck: 1x1 conv (matmul) -> LN -> 3x3 conv -> LN, fp32 statistics.

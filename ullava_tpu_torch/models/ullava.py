@@ -81,11 +81,24 @@ def quantize_towers(params: Params) -> Params:
     (`SAM_ENCODER_QUANT_KEYS`) and of the CLIP tower (`CLIP_QUANT_KEYS`)
     by int8 leaves, in `params` itself. CLIP then runs weight-only int8.
     Serve the SAM encoder with `SamVisionConfig(mlp_w8a8=True)`: its MLPs
-    and its global blocks' projections take the fused int8 kernels. The
-    prompt encoder and the mask decoder keep their weights."""
+    and its projections take the fused int8 kernels (the window blocks'
+    in the resident layout). The prompt encoder and the mask decoder keep
+    their weights."""
     sam = params["sam"]
     sam["image_encoder"] = quant.quantize_tree(sam["image_encoder"], quant.SAM_ENCODER_QUANT_KEYS)
     params["core"]["vision"] = quant.quantize_tree(params["core"]["vision"], quant.CLIP_QUANT_KEYS)
+    return params
+
+
+def precompute_window_bias_weights(params: Params, cfg: UllavaConfig) -> Params:
+    """Give the SAM encoder's window blocks their composite rel-pos bias
+    weights (`sam/image_encoder.precompute_window_bias_weights`), in
+    `params` itself. Call it after `quantize_towers`: the resident window
+    layout then emits the bias terms from its fused LN1+qkv."""
+    sam = params["sam"]
+    sam["image_encoder"] = sam_image_encoder.precompute_window_bias_weights(
+        sam["image_encoder"], cfg.sam.vision
+    )
     return params
 
 

@@ -1,5 +1,5 @@
 """Fused int8 kernels of the MLP and projection sites (counterpart of
-`ullava_tpu/ops/mlp_kernel.py:37-254,381-573,704-720`).
+`ullava_tpu/ops/mlp_kernel.py:37-254,381-720`).
 
 - `silu_mul_quant`: SwiGLU gate + per-row int8 quantize of the W8A8 LLM
   prefill MLP.
@@ -240,6 +240,126 @@ def fused_linear(
     """x @ W + b (+ residual): `fused_ln_linear` without the LayerNorm
     (the post-attention projection)."""
     return fused_ln_linear(x, None, None, w_q, w_scale, bias, 0.0, w8a8=w8a8, residual=residual)
+
+
+# ---------------------------------------------------------------------------
+# fused_ln_linear_dual
+# ---------------------------------------------------------------------------
+
+
+def _ln_linear_dual_parts_plain(x3, ln_scale, ln_bias, w_q, w_scale, bias, w2_q, w2_scale, bias2,
+                                eps, w8a8, rows2):
+    """Plain `fused_ln_linear_dual` on [N, T, C]: (y [N, T, F], P [N, rows2,
+    F2], int8 rows or None, row scales or None)."""
+    N, T, C = x3.shape
+    x2 = x3.reshape(N * T, C)
+    s1, s2 = w_scale.reshape(1, -1).float(), w2_scale.reshape(1, -1).float()
+    ys, ps, xqs, xss = [], [], [], []
+    for r0 in range(0, N * T, _PLAIN_ROWS):
+        xf = _ln_f32(x2[r0:r0 + _PLAIN_ROWS].float(), ln_scale, ln_bias, eps)
+        if w8a8:
+            xq, xs = _row_quant(xf)
+            y = int8_matmul(xq, w_q).float() * (xs * s1) + bias.float()
+            p = int8_matmul(xq, w2_q).float() * (xs * s2) + bias2.float()
+            xqs.append(xq)
+            xss.append(xs)
+        else:
+            xh = xf.to(x3.dtype).float()
+            y = (xh @ w_q.float()) * s1 + bias.float()
+            p = (xh @ w2_q.float()) * s2 + bias2.float()
+        ys.append(y.to(x3.dtype))
+        ps.append(p.to(x3.dtype))
+    y3 = torch.cat(ys).reshape(N, T, -1)
+    p3 = torch.cat(ps).reshape(N, T, -1)[:, :rows2]  # the leading rows2 rows of every T
+    if not w8a8:
+        return y3, p3, None, None
+    return y3, p3, torch.cat(xqs), torch.cat(xss)
+
+
+def fused_ln_linear_dual_plain(
+    x, ln_scale, ln_bias, w_q, w_scale, bias, w2_q, w2_scale, bias2, eps: float,
+    w8a8: bool = True, rows2: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    x3 = x[None] if x.ndim == 2 else x
+    y, p, _, _ = _ln_linear_dual_parts_plain(
+        x3, ln_scale, ln_bias, w_q, w_scale, bias, w2_q, w2_scale, bias2, eps, w8a8,
+        rows2 or x3.shape[1],
+    )
+    return (y[0], p[0]) if x.ndim == 2 else (y, p)
+
+
+def _ln_linear_dual_cuda(x3, ln_scale, ln_bias, w_q, w_scale, bias, w2_q, w2_scale, bias2, eps,
+                         rows2, stages=7, scratch=None):
+    """The CUDA `fused_ln_linear_dual` on [N, T, C]: (y, P, int8 rows, row
+    scales). `stages` selects the row pass (1), the first product (2) and
+    the second (4) so that each can be timed alone on the `scratch` of an
+    earlier full call."""
+    N, T, C = x3.shape
+    rows = N * T
+    F = _check_weight("fused_ln_linear_dual w", w_q, C)
+    F2 = _check_weight("fused_ln_linear_dual w2", w2_q, C)
+    if C % 16 or F % 8 or F2 % 8 or C > _MAX_LN_WIDTH:
+        raise ValueError(
+            f"fused_ln_linear_dual: C {C} must be a multiple of 16 up to {_MAX_LN_WIDTH}, "
+            f"F {F} and F2 {F2} of 8"
+        )
+    if not 0 < rows2 <= T:
+        raise ValueError(f"fused_ln_linear_dual: rows2 {rows2} must lie in 1..{T}")
+    dev, bf = x3.device, torch.bfloat16
+    kernels.check_cuda_tensor("fused_ln_linear_dual x", x3, bf)
+    kernels.check_cuda_tensor("fused_ln_linear_dual ln_scale", ln_scale, bf, (C,))
+    kernels.check_cuda_tensor("fused_ln_linear_dual ln_bias", ln_bias, bf, (C,))
+    kernels.check_cuda_tensor("fused_ln_linear_dual bias", bias, bf, (F,))
+    kernels.check_cuda_tensor("fused_ln_linear_dual bias2", bias2, torch.float32, (F2,))
+    for name, t, n in (("w_scale", w_scale, F), ("w2_scale", w2_scale, F2)):
+        kernels.check_cuda_tensor(f"fused_ln_linear_dual {name}", t, torch.float32)
+        if t.numel() != n:
+            raise ValueError(f"fused_ln_linear_dual: {name} must hold {n} values")
+    y = torch.empty((N, T, F), dtype=bf, device=dev)
+    p = torch.empty((N, rows2, F2), dtype=bf, device=dev)
+    xq, xs = scratch or (
+        torch.empty((rows, C), dtype=torch.int8, device=dev),
+        torch.empty((rows, 1), dtype=torch.float32, device=dev),
+    )
+    kernels.launch(
+        "fused_ln_linear_dual", x3.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+        w_q.data_ptr(), w_scale.data_ptr(), bias.data_ptr(),
+        w2_q.data_ptr(), w2_scale.data_ptr(), bias2.data_ptr(),
+        y.data_ptr(), p.data_ptr(), xq.data_ptr(), xs.data_ptr(),
+        rows, C, F, F2, T, rows2, float(eps), stages,
+    )
+    return y, p, xq, xs
+
+
+def fused_ln_linear_dual(
+    x: torch.Tensor,  # [N, T, C] (window-major classes) or [T, C]
+    ln_scale: torch.Tensor,  # [C]
+    ln_bias: torch.Tensor,  # [C]
+    w_q: torch.Tensor,  # [C, F] int8, column-major
+    w_scale: torch.Tensor,  # [1, F] f32
+    bias: torch.Tensor,  # [F]
+    w2_q: torch.Tensor,  # [C, F2] int8, column-major (the composite rel-pos bias weights)
+    w2_scale: torch.Tensor,  # [1, F2] f32
+    bias2: torch.Tensor,  # [F2] f32
+    eps: float,
+    w8a8: bool = True,
+    rows2: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`fused_ln_linear` with a second weight on the same LN'd (and
+    quantized) rows: (LN(x) @ W + b, LN(x) @ W2 + b2), each rounded once
+    to x's dtype. `rows2` (0: T) keeps only the leading `rows2` rows of
+    every T in the second output: the padded window layout carries pad
+    rows in y but not in the bias-term matrix. CUDA kernel
+    `kernels/csrc/ln_linear_int8.cu` (bf16, w8a8) for CUDA tensors, the
+    plain version for CPU tensors."""
+    args = (ln_scale, ln_bias, w_q, w_scale, bias, w2_q, w2_scale, bias2, eps)
+    if x.device.type == "cpu":
+        return fused_ln_linear_dual_plain(x, *args, w8a8, rows2)
+    if not w8a8:
+        raise NotImplementedError("fused_ln_linear_dual on the card is built for w8a8=True only")
+    x3 = x[None] if x.ndim == 2 else x
+    y, p, _, _ = _ln_linear_dual_cuda(x3, *args, rows2 or x3.shape[1])
+    return (y[0], p[0]) if x.ndim == 2 else (y, p)
 
 
 # ---------------------------------------------------------------------------

@@ -1,19 +1,22 @@
 """SAM windowed and global attention with the decomposed relative
-position bias (counterpart of `ullava_tpu/ops/sam_attention.py:181-258,
+position bias (counterpart of `ullava_tpu/ops/sam_attention.py:181-425,
 490-549,552-756,759-775`).
 
 bias[(i,j),(a,b)] = q[(i,j)].Rh[i-a+W-1] + q[(i,j)].Rw[j-b+W-1] is never
 materialised by the kernels: they take the compact terms A[(i,j), a] and
 Bb[(i,j), b] and add A[s][t // W] + Bb[s][t % W] to q.k before the scale.
-The three kernels keep the TPU functions' bias conventions, which differ:
-the window kernel takes A/Bb pre-scaled by 1/scale with reversed columns
-(as `_bias_terms_grid` emits them), the global kernel takes them raw in
+The kernels keep the TPU functions' bias conventions, which differ:
+the window kernels (whole windows, and the boundary windows' real
+rectangles) take A/Bb pre-scaled by 1/scale with reversed columns (as
+`_bias_terms_rect` emits them), the global kernel takes them raw in
 natural column order and pre-scales them itself, and the lane-sliced
 global kernel (`fused_global_attention_y`) takes them pre-scaled in
 natural column order, laid out [B, S, H, W].
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -24,10 +27,12 @@ from ullava_tpu_torch.ops.mlp_kernel import _row_quant
 def fused_window_attention_grid_plain(
     y, bias_a, bias_b, num_heads: int, head_dim: int, window: int, scale: float
 ) -> torch.Tensor:
+    """Rows of y past window^2 (the padded layout) attend as queries and
+    are left out as keys."""
     N, S, _ = y.shape
     H, hd, W = num_heads, head_dim, window
     y5 = y.reshape(N, S, 3, H, hd)
-    q, k, v = y5[:, :, 0], y5[:, :, 1], y5[:, :, 2]
+    q, k, v = y5[:, :, 0], y5[:, : W * W, 1], y5[:, : W * W, 2]
     # Reversed columns: column a' holds the bias for key row W-1-a'.
     A = bias_a.reshape(N, S, H, W).flip(-1).float().permute(0, 2, 1, 3)
     Bb = bias_b.reshape(N, S, H, W).flip(-1).float().permute(0, 2, 1, 3)
@@ -38,6 +43,11 @@ def fused_window_attention_grid_plain(
     return o.to(y.dtype).reshape(N, S, H * hd)
 
 
+def _check_window_kernel_shape(hd: int, W: int) -> None:
+    if (hd, W) != (80, 14):
+        raise ValueError(f"the CUDA window kernels are built for hd 80, W 14; got {hd}, {W}")
+
+
 def fused_window_attention_grid(
     y: torch.Tensor,  # [N, S, 3*H*hd] qkv projection output (bias included)
     bias_a: torch.Tensor,  # [N, S, H*W] col a' = bias for key row W-1-a'
@@ -46,28 +56,167 @@ def fused_window_attention_grid(
     head_dim: int,
     window: int,
     scale: float,
+    total_rows: int = 0,
 ) -> torch.Tensor:
     """Window attention straight from the raw qkv output; returns the
     head-merged [N, S, H*hd] pre-projection activations. Bias terms are
-    pre-scaled by 1/scale. CUDA kernel `kernels/csrc/sam_window_attention.cu`
+    pre-scaled by 1/scale. With `total_rows` > window^2 (the padded
+    layout) every window is stored as S = `total_rows` rows: the tail rows
+    are left out as keys, and as queries they give finite rows that the
+    caller drops. CUDA kernel `kernels/csrc/sam_window_attention.cu`
     (W 14, hd 80, bf16) for CUDA tensors, the plain version for CPU ones."""
     N, S, width = y.shape
     H, hd, W = num_heads, head_dim, window
-    if S != W * W or width != 3 * H * hd:
-        raise ValueError(f"y {tuple(y.shape)} does not match H={H} hd={hd} W={W}")
+    if S != (total_rows or W * W) or S < W * W or width != 3 * H * hd:
+        raise ValueError(
+            f"y {tuple(y.shape)} does not match H={H} hd={hd} W={W} total_rows={total_rows}"
+        )
     if bias_a.shape != (N, S, H * W) or bias_b.shape != (N, S, H * W):
         raise ValueError(f"bias terms must be [{N}, {S}, {H * W}]")
     if y.device.type == "cpu":
         return fused_window_attention_grid_plain(y, bias_a, bias_b, H, hd, W, scale)
-    if (hd, W) != (80, 14):
-        raise ValueError(f"the CUDA window kernel is built for hd 80, W 14; got {hd}, {W}")
+    _check_window_kernel_shape(hd, W)
     kernels.check_cuda_tensor("window y", y, torch.bfloat16)
     kernels.check_cuda_tensor("window bias_a", bias_a, torch.bfloat16)
     kernels.check_cuda_tensor("window bias_b", bias_b, torch.bfloat16)
     out = torch.empty((N, S, H * hd), dtype=y.dtype, device=y.device)
     kernels.launch(
         "fused_window_attention_grid", y.data_ptr(), bias_a.data_ptr(),
-        bias_b.data_ptr(), out.data_ptr(), N, H, float(scale),
+        bias_b.data_ptr(), out.data_ptr(), N, H, S, float(scale),
+    )
+    return out
+
+
+def _rect_plain_one(y, bias_a, bias_b, oh, pad_k, pad_v, H, hd, W, scale, dots_i8):
+    """One geometry of `fused_window_attention_rect_plain`, in the TPU
+    kernel's own arithmetic: the T real keys, then the P pad keys from the
+    table, one softmax over both, the real keys' weights rounded to v's
+    dtype for the value product and the pad keys' summed unrounded into a
+    rank-1 `pad_mass * pad_v` term."""
+    N, T, _ = y.shape
+    y5 = y.reshape(N, T, 3, H, hd)
+    q, k, v = y5[:, :, 0], y5[:, :, 1], y5[:, :, 2]
+    A, Bb = bias_a.reshape(N, T, H, W), bias_b.reshape(N, T, H, W)
+    ab = torch.cat([A, Bb], dim=-1)  # [N, T, H, 2W]
+    qa = torch.cat([q, ab], dim=-1).float()
+    s_pad = torch.einsum("nshd,hpd->nhsp", qa, pad_k.float())
+    if dots_i8:
+        # int8 scores over the real keys only; the pad table stays as it is.
+        qq, qs = _row_quant(q)
+        kq, ks = _row_quant(k)
+        abq, abss = _row_quant(ab)
+        s_real = torch.einsum("nshd,nthd->nhst", qq.float(), kq.float()) * (
+            qs.permute(0, 2, 1, 3) * ks.permute(0, 2, 3, 1))
+        s_real = s_real + torch.einsum("nshw,tw->nhst", abq.float(), oh.float()) * abss.permute(
+            0, 2, 1, 3)
+    else:
+        ka = torch.cat([k, oh[None, :, None, :].expand(N, T, H, 2 * W)], dim=-1).float()
+        s_real = torch.einsum("nshd,nthd->nhst", qa, ka)
+    p = torch.softmax(torch.cat([s_real, s_pad], dim=-1) * scale, dim=-1)
+    o = torch.einsum("nhst,nthd->nshd", p[..., :T].to(v.dtype).float(), v.float())
+    pad_mass = p[..., T:].sum(-1).permute(0, 2, 1)  # [N, T, H]
+    o = o + pad_mass[..., None] * pad_v.float()[None, None]
+    return o.to(y.dtype).reshape(N, T, H * hd)
+
+
+def fused_window_attention_rect_plain(
+    y, bias_a, bias_b, oh, pad_k, pad_v, num_heads: int, head_dim: int, window: int,
+    scale: float, dots_i8: bool = False,
+) -> torch.Tensor:
+    args = (num_heads, head_dim, window, scale, dots_i8)
+    if oh.ndim == 2:
+        return _rect_plain_one(y, bias_a, bias_b, oh, pad_k, pad_v, *args)
+    per = y.shape[0] // oh.shape[0]
+    return torch.cat([
+        _rect_plain_one(y[i * per:(i + 1) * per], bias_a[i * per:(i + 1) * per],
+                        bias_b[i * per:(i + 1) * per], oh[i], pad_k[i], pad_v[i], *args)
+        for i in range(oh.shape[0])
+    ])
+
+
+def _geometry_of_onehot(oh: torch.Tensor, W: int) -> Tuple[int, int]:
+    """(rows, cols) of the real rectangle a [T, 2W] reversed-column one-hot
+    table describes (row-major tokens)."""
+    T = oh.shape[0]
+    cols = int(W - 1 - oh[T - 1, W:].argmax()) + 1
+    return T // cols, cols
+
+
+def fused_window_attention_rect(
+    y: torch.Tensor,  # [N, T, 3*H*hd] qkv output of the T = rows*cols real tokens
+    bias_a: torch.Tensor,  # [N, T, H*W] pre-scaled by 1/scale, reversed columns
+    bias_b: torch.Tensor,
+    oh: torch.Tensor,  # [T, 2W] the real tokens' one-hots (reversed columns)
+    pad_k: torch.Tensor,  # [H, P, hd+2W] pad keys: [qkv_bias k-section | one-hots]
+    pad_v: torch.Tensor,  # [H, hd] the pad value (qkv_bias v-section)
+    num_heads: int,
+    head_dim: int,
+    window: int,
+    scale: float,
+    dots_i8: bool = False,
+    geometry: Optional[Tuple] = None,
+) -> torch.Tensor:
+    """Attention of boundary windows stored as their real rows x cols
+    rectangle (row-major tokens), over all W x W key positions of the
+    logical window: a pad position's key and value are the constants of
+    the tables (the reference pads with zeros after LN1, so they are the
+    qkv bias). Returns the head-merged [N, T, H*hd]. In dual-geometry mode
+    `oh`, `pad_k` and `pad_v` carry a leading halves axis and window n
+    takes the tables of half `n // (N / halves)`.
+
+    `geometry` is (rows, cols), or one such pair per half: what the
+    tables say, handed over so that the card's wrapper need not read it
+    back from device memory. CUDA kernel `kernels/csrc/sam_rect_attention.cu`
+    (W 14, hd 80, bf16, `dots_i8` off) for CUDA tensors, which needs
+    `geometry`; the plain version for CPU ones, which checks it against
+    `oh`."""
+    N, T, width = y.shape
+    H, hd, W = num_heads, head_dim, window
+    halves = oh.shape[0] if oh.ndim == 3 else 0
+    if width != 3 * H * hd or bias_a.shape != (N, T, H * W) or bias_b.shape != (N, T, H * W):
+        raise ValueError(
+            f"y {tuple(y.shape)} / bias {tuple(bias_a.shape)} do not match H={H} hd={hd} W={W}"
+        )
+    lead = (halves,) if halves else ()
+    P = pad_k.shape[-2]
+    if (oh.shape != (*lead, T, 2 * W) or pad_k.shape != (*lead, H, P, hd + 2 * W)
+            or pad_v.shape != (*lead, H, hd) or T + P != W * W or (halves and N % halves)):
+        raise ValueError(
+            f"tables oh {tuple(oh.shape)}, pad_k {tuple(pad_k.shape)}, pad_v {tuple(pad_v.shape)} "
+            f"do not match N={N} T={T} W={W}"
+        )
+    if geometry is not None:
+        geoms = tuple(geometry) if halves else (tuple(geometry),)
+        if len(geoms) != max(halves, 1) or any(
+            len(g) != 2 or g[0] * g[1] != T or not (0 < g[0] <= W and 0 < g[1] <= W) for g in geoms
+        ):
+            raise ValueError(f"geometry {geometry} does not match T={T}, W={W}, halves={halves}")
+    if y.device.type == "cpu":
+        if geometry is not None:
+            seen = tuple(_geometry_of_onehot(t, W) for t in (oh if halves else oh[None]))
+            if seen != geoms:
+                raise ValueError(f"geometry {geoms} differs from the one-hot tables' {seen}")
+        return fused_window_attention_rect_plain(
+            y, bias_a, bias_b, oh, pad_k, pad_v, H, hd, W, scale, dots_i8
+        )
+    if dots_i8:
+        raise NotImplementedError("the CUDA boundary-window kernel has no dots_i8 form yet")
+    if geometry is None:
+        raise ValueError("fused_window_attention_rect on the card needs `geometry`")
+    _check_window_kernel_shape(hd, W)
+    if halves not in (0, 2):
+        raise ValueError(f"the CUDA boundary-window kernel takes one or two geometries, got {halves}")
+    if (P * (hd + 2 * W)) % 8:
+        raise ValueError(f"pad_k: a head's {P} x {hd + 2 * W} table must be a multiple of 16 bytes")
+    for name, t in (("y", y), ("bias_a", bias_a), ("bias_b", bias_b), ("pad_k", pad_k),
+                    ("pad_v", pad_v)):
+        kernels.check_cuda_tensor(f"rect {name}", t, torch.bfloat16)
+    first, second = geoms[0], geoms[-1]
+    out = torch.empty((N, T, H * hd), dtype=y.dtype, device=y.device)
+    kernels.launch(
+        "fused_window_attention_rect", y.data_ptr(), bias_a.data_ptr(), bias_b.data_ptr(),
+        pad_k.data_ptr(), pad_v.data_ptr(), out.data_ptr(), N, H, T, P,
+        N // halves if halves else N, first[0], first[1], second[0], second[1], float(scale),
     )
     return out
 
