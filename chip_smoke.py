@@ -9,13 +9,16 @@ Phases, each fatal on any error:
   2. kernels - runs each kernel and its plain PyTorch version on the same
                inputs at the serving shapes (the bf16 path's four at B=4,
                the int8 LLM path's five, the int8 SAM encoder's three and
-               the resident window layout's three at B=16), holds the
-               kernel to the
+               the resident window layout's three at B=16) and at the
+               stage-1 step's shapes (the training path's four: flash
+               forward with lse, flash backward dkv and dq, RMSNorm
+               backward), holds the kernel to the
                plain version within a stated tolerance, and times the
                kernel, the plain version and, where one exists, a single
                PyTorch library call computing the same function (L2
                flushed before each timed call); a mutated run of each
-               kernel must fail the same gate;
+               kernel must fail the same gate (for the training path's
+               four, a copy of the source rebuilt with a deliberate bug);
   3. serve   - builds the full-width bf16 RES model (LLaMA-7B, CLIP
                ViT-L/14, SAM ViT-H) from a seeded generator on the card,
                serves B=4 requests (320-token prompts: 256 image tokens + 64
@@ -45,14 +48,23 @@ Phases, each fatal on any error:
                kernel on the merged right and bottom classes and on the
                corner, fused proj+residual and the fused MLP on each class;
                same checks and timings, exact launch counts;
-  7. check   - runs small models (bf16, then int8 LLM, then an int8 SAM
-               encoder in the block and in the resident layout) on the
+  7. stage1_train - frees the serving model, builds the full-width bf16
+               stage-1 model (CLIP ViT-L/14 frozen, projector, LLaMA-7B
+               with remat) from the seeded generator and trains it with
+               `train.build_stage1` (pretraining policy, AdamW, clip 1.0)
+               on one B=4, S=1024 batch: one warm step with exact launch
+               counts, five timed steps (falling loss, frozen weights
+               bit-unchanged, every trainable leaf moved), one profiled;
+  8. check   - runs small models (bf16, then int8 LLM, then an int8 SAM
+               encoder in the block and in the resident layout, then
+               three stage-1 steps under each freeze policy) on the
                card and on the CPU (plain versions, fp32) from the same
                weights and holds the card's outputs to the CPU reference,
-               and the resident encoder's to the block layout's;
-  8. summary - prints the serve numbers again, the card's name and power
-               limit, one JSON line with every kernel's numbers, and last
-               the device line.
+               and the resident encoder's to the block layout's; then
+               `train.train_stage1` end to end with checkpoints and resume;
+  9. summary - prints the serve and training numbers again, the card's
+               name and power limit, one JSON line with every kernel's
+               numbers, and last the device line.
 
 Exits non-zero with no result when CUDA is unavailable.
 """
@@ -106,6 +118,16 @@ def row_rel_err(got, ref) -> float:
     got, ref = got.float().flatten(0, -2), ref.float().flatten(0, -2)
     err = (got - ref).abs().amax(-1)
     return (err / ref.abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def grad_rel_err(got, ref) -> float:
+    """`row_rel_err` with each row's scale floored at 2^-8 of the tensor's
+    largest value: a gradient row can be zero by cancellation (dq of the
+    first query: one live key, dP = delta), where fp32 sums in another
+    order leave noise of 1e-7 that its own scale would blow up."""
+    got, ref = got.float().flatten(0, -2), ref.float().flatten(0, -2)
+    scale = ref.abs().amax(-1).clamp_min(ref.abs().max().item() * 2.0**-8 + 1e-30)
+    return ((got - ref).abs().amax(-1) / scale).max().item()
 
 
 def bound_ms(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS_PER_S):
@@ -949,6 +971,153 @@ def resident_kernel_phases(gen, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# The training shapes: B=4 sequences of 1024 tokens, LLaMA-7B's 32 heads
+# of 128; ragged kv_lens for the kernel phase.
+B_TRAIN, S_TRAIN = 4, 1024
+TRAIN_LENS = (1024, 1000, 777, 513)
+# The deliberate bugs that the K15-K18 gates must catch: each is a copy of
+# a kernel source compiled with the define (see `kernels.mutant`).
+TRAIN_MUTANTS = {
+    "flash_attention_fwd_lse": ("flash_attention.cu", "ULLAVA_MUTANT_LSE_NO_LOG"),
+    "flash_attention_bwd_dkv": ("flash_attention_bwd.cu", "ULLAVA_MUTANT_NO_DELTA"),
+    "flash_attention_bwd_dq": ("flash_attention_bwd.cu", "ULLAVA_MUTANT_DQ_NO_SCALE"),
+    "rms_norm_bwd": ("rms_norm_bwd.cu", "ULLAVA_MUTANT_NO_C"),
+}
+
+
+def train_kernel_phases(gen, results: dict) -> None:
+    """K15-K18 against their plain versions at the shapes of the stage-1
+    step: attention [4, 1024, 32, 128], causal, kv_lens 1024/1000/777/513;
+    RMSNorm backward over [4096, 4096] without and with dw.
+
+    Gates: bf16 outputs by `row_rel_err` and gradients by `grad_rel_err`
+    within 1e-2 (one ulp of a row's largest value); lse within 1e-4
+    absolute (fp32, a few
+    units; sums in another order); dw within 1e-2 of its largest value.
+    Each gate must reject the kernel rebuilt with a deliberate bug
+    (`TRAIN_MUTANTS`): lse without log l, delta dropped from dS in the dkv
+    kernel, scale dropped from dS in the dq kernel, the c term dropped
+    from dx. The library yardsticks: SDPA with is_causal (no kv_lens mask)
+    forward, and its backward under autograd (dq, dk and dv in one call),
+    and the backward of `F.rms_norm` under autograd."""
+    import torch
+    import torch.nn.functional as F
+
+    from ullava_tpu_torch import kernels
+    from ullava_tpu_torch.ops import attention, norms
+
+    dev, bf, tol = "cuda", torch.bfloat16, 1e-2
+    H, hd = 32, 128
+    sc = hd**-0.5
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    q, k, v, do = (randn(B_TRAIN, S_TRAIN, H, hd) for _ in range(4))
+    lens = torch.tensor(TRAIN_LENS, device=dev, dtype=torch.int32)
+    live = sum(min(i + 1, n) for n in TRAIN_LENS for i in range(S_TRAIN)) * H
+    kw = dict(causal=True, scale=sc)
+
+    # K15: o and lse.
+    o, lse = attention.flash_attention_fwd(q, k, v, lens, **kw)
+    o_ref, lse_ref = attention.flash_attention_fwd_plain(q, k, v, lens, **kw)
+    src, define = TRAIN_MUTANTS["flash_attention_fwd_lse"]
+    with kernels.mutant(src, define):
+        lse_bad = attention.flash_attention_fwd(q, k, v, lens, **kw)[1]
+    err_o = row_rel_err(o, o_ref)
+    err_lse = (lse - lse_ref).abs().max().item()
+    bad_lse = (lse_bad - lse_ref).abs().max().item()
+    must("flash_attention_fwd_lse", err_o <= tol and err_lse <= 1e-4, (err_o, err_lse))
+    must_not("flash_attention_fwd_lse", "lse_without_log_l", bad_lse <= 1e-4, bad_lse)
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    results["flash_attention_fwd_lse"] = kernel_line(
+        "flash_attention_fwd_lse", (o.float() - o_ref.float()).abs().max().item(),
+        {"row_rel_err": err_o, "tol": tol, "lse_max_abs_err": err_lse, "lse_tol": 1e-4,
+         "mutant_lse_max_abs_err": {"lse_without_log_l": bad_lse}},
+        lambda: attention.flash_attention_fwd(q, k, v, lens, **kw),
+        lambda: attention.flash_attention_fwd_plain(q, k, v, lens, **kw),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=sc),
+        nbytes(q, k, v, lens, o, lse), 4.0 * hd * live)
+    del o_ref, lse_ref, lse_bad
+
+    # K16 + K17 on the forward's own o and lse.
+    dq, dk, dv = attention.flash_attention_bwd(q, k, v, o, lse, do, lens, **kw)
+    ref = attention.flash_attention_bwd_plain(q, k, v, o, lse, do, lens, **kw)
+    errs = {n: grad_rel_err(g, r) for n, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
+    zero_pad = all(not t[b, n:].any() for t in (dk, dv) for b, n in enumerate(TRAIN_LENS))
+    must("flash_attention_bwd", max(errs.values()) <= tol and zero_pad, (errs, zero_pad))
+    caught = {}
+    for name, grad in (("flash_attention_bwd_dkv", 1), ("flash_attention_bwd_dq", 0)):
+        src, define = TRAIN_MUTANTS[name]
+        with kernels.mutant(src, define):
+            bad = attention.flash_attention_bwd(q, k, v, o, lse, do, lens, **kw)[grad]
+        caught[name] = grad_rel_err(bad, ref[grad])
+        must_not(name, define, caught[name] <= tol, caught[name])
+    delta = torch.einsum("bqhd,bqhd->bhq", do.float(), o.float()).contiguous()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), lens.data_ptr())
+    rest = (B_TRAIN, S_TRAIN, S_TRAIN, H, 1, 0, float(sc))
+    qr, kr, vr = (t.detach().clone().requires_grad_(True) for t in (qt, kt, vt))
+    sdpa = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True, scale=sc)
+    library = lambda: torch.autograd.grad(sdpa, (qr, kr, vr), dot, retain_graph=True)  # noqa: E731
+    plain = lambda: attention.flash_attention_bwd_plain(q, k, v, o, lse, do, lens, **kw)  # noqa: E731
+    results["flash_attention_bwd_dkv"] = kernel_line(
+        "flash_attention_bwd_dkv",
+        max((dk.float() - ref[1].float()).abs().max().item(),
+            (dv.float() - ref[2].float()).abs().max().item()),
+        {"grad_rel_err": {"dk": errs["dk"], "dv": errs["dv"]}, "tol": tol,
+         "pad_keys_zero": zero_pad,
+         "mutant_grad_rel_err": {"delta_dropped": caught["flash_attention_bwd_dkv"]},
+         "plain_and_library_cover": "dq, dk and dv"},
+        lambda: kernels.launch("flash_attention_bwd_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(),
+                               *rest),
+        plain, library, nbytes(q, k, v, do, lse, delta, lens, dk, dv), 8.0 * hd * live)
+    results["flash_attention_bwd_dq"] = kernel_line(
+        "flash_attention_bwd_dq", (dq.float() - ref[0].float()).abs().max().item(),
+        {"grad_rel_err": errs["dq"], "tol": tol,
+         "mutant_grad_rel_err": {"scale_dropped": caught["flash_attention_bwd_dq"]},
+         "plain_and_library_cover": "dq, dk and dv"},
+        lambda: kernels.launch("flash_attention_bwd_dq", *ptrs, dq.data_ptr(), *rest),
+        plain, library, nbytes(q, k, v, do, lse, delta, lens, dq), 6.0 * hd * live)
+    del ref, sdpa, qr, kr, vr, qt, kt, vt, dot, q, k, v, do, o, lse, dq, dk, dv, delta
+    torch.cuda.empty_cache()
+
+    # K18: dy correlated with x (as the gradient of a norm's output is), so
+    # the c term carries weight and its mutant shows.
+    rows, D = B_TRAIN * S_TRAIN, 4096
+    x = randn(rows, D, scale=2.0)
+    dy = (0.5 * x.float() + torch.randn(rows, D, generator=gen, device=dev)).to(bf)
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(bf)
+    dx_ref, dw_ref = norms.rms_norm_bwd_plain(x, w, dy, 1e-6)
+    dx = norms.rms_norm_bwd(x, w, dy, 1e-6, need_dw=False)[0]
+    dx2, dw = norms.rms_norm_bwd(x, w, dy, 1e-6, need_dw=True)
+    err, err_dw = row_rel_err(dx, dx_ref), row_rel_err(dw[None], dw_ref[None])
+    must("rms_norm_bwd", err <= tol and err_dw <= tol and torch.equal(dx, dx2), (err, err_dw))
+    src, define = TRAIN_MUTANTS["rms_norm_bwd"]
+    with kernels.mutant(src, define):
+        bad = row_rel_err(norms.rms_norm_bwd(x, w, dy, 1e-6, need_dw=False)[0], dx_ref)
+    must_not("rms_norm_bwd", define, bad <= tol, bad)
+    xr, wr = x.detach().clone().requires_grad_(True), w.detach().clone().requires_grad_(True)
+    y = F.rms_norm(xr, (D,), wr, 1e-6)
+    dw_form = {
+        "row_rel_err_dw": err_dw, "dx_equal_to_dx_form": True,
+        "ms": time_ms(lambda: norms.rms_norm_bwd(x, w, dy, 1e-6, need_dw=True), 20),
+        "plain_ms": time_ms(lambda: norms.rms_norm_bwd_plain(x, w, dy, 1e-6), 5, warmup=1),
+        "library_ms": time_ms(lambda: torch.autograd.grad(y, (xr, wr), dy, retain_graph=True), 20),
+        "bound_ms": bound_ms(nbytes(x, w, dy, dx, dw), 13.0 * x.numel(), FP32_FLOPS_PER_S)[0],
+    }
+    results["rms_norm_bwd"] = kernel_line(
+        "rms_norm_bwd", (dx.float() - dx_ref.float()).abs().max().item(),
+        {"row_rel_err": err, "tol": tol, "mutant_row_rel_err": {"c_term_dropped": bad},
+         "dw_form": dw_form},
+        lambda: norms.rms_norm_bwd(x, w, dy, 1e-6, need_dw=False),
+        lambda: norms.rms_norm_bwd_plain(x, w, dy, 1e-6, need_dw=False),
+        lambda: torch.autograd.grad(y, xr, dy, retain_graph=True),
+        nbytes(x, w, dy, dx), 10.0 * x.numel(), flops_per_s=FP32_FLOPS_PER_S)
+    del x, dy, dx, dx2, dx_ref, y, xr, wr
+    torch.cuda.empty_cache()
+
+
 def full_config():
     """LLaMA-7B + CLIP ViT-L/14 + SAM ViT-H in bf16 at full width; the
     vocabulary is LLaMA's 32000 + [PAD] + 6 multimodal + 4 stage-2 tokens.
@@ -998,11 +1167,16 @@ def requests(cfg, n: int, prompt: int, rng):
 SAM_LAUNCHES = {"fused_window_attention_grid": 28, "fused_global_attention": 4,
                 "fused_ln_linear": 0, "fused_global_attention_y": 0, "fused_mlp_block": 0,
                 "fused_ln_linear_dual": 0, "fused_window_attention_rect": 0}
+# The training path's kernels launch in no serve.
+IDLE_IN_SERVING = {"flash_attention_fwd_lse": 0, "flash_attention_bwd_dkv": 0,
+                   "flash_attention_bwd_dq": 0, "rms_norm_bwd": 0}
 BF16_LAUNCHES = {"fused_rotary": 64, "flash_attention_fwd_bsh": 32, **SAM_LAUNCHES,
                  "rms_norm_fwd": 65 * (1 + NEW_TOKENS),
                  "rms_norm_residual_quant": 0, "silu_mul_quant": 0,
-                 "prefill_quantize_write": 0, "decode_attention_int8_fused_write": 0}
+                 "prefill_quantize_write": 0, "decode_attention_int8_fused_write": 0,
+                 **IDLE_IN_SERVING}
 INT8_LAUNCHES = {"fused_rotary": 64, "flash_attention_fwd_bsh": 32, **SAM_LAUNCHES,
+                 **IDLE_IN_SERVING,
                  "rms_norm_residual_quant": 64, "silu_mul_quant": 32,
                  "prefill_quantize_write": 32, "rms_norm_fwd": 1 + 65 * NEW_TOKENS,
                  "decode_attention_int8_fused_write": 32 * NEW_TOKENS}
@@ -1123,6 +1297,122 @@ def serve_phase(phase: str, cfg, params, n_req: int, expect: dict):
     print(json.dumps(line), flush=True)
     print(json.dumps(profile_line), flush=True)
     return line, profile_line
+
+
+def stage1_config(**llm):
+    """The stage-1 model at full width: CLIP ViT-L/14 (224, read out at
+    layer -2, frozen), the MLP projector, LLaMA-7B in bf16 with remat per
+    layer and the streamed CE; pretraining (`projector_from_scratch`)."""
+    from ullava_tpu_torch.models import clip_vit, llama, ullava_core
+
+    return ullava_core.UllavaCoreConfig(
+        llm=llama.LlamaConfig(vocab_size=32011, remat=True, **llm),
+        vision=clip_vit.CLIPVisionConfig(), vision_hidden_layer=-2,
+        img_start_id=32001, img_end_id=32002, vid_start_id=32004, vid_end_id=32005,
+        projector_from_scratch=True, fused_ce=True,
+    )
+
+
+# Launches of one stage-1 step with remat: every layer's forward runs twice
+# (the step and the backward's recompute): K15 and two K9 per layer each
+# time, the final norm's K9 once; the backward runs K16, K17 and two K18
+# per layer and one K18 for the final norm. Nothing else launches a kernel
+# (CLIP is plain ops under no_grad; K2 and K1 are serving routes).
+TRAIN_LAUNCHES = {**{k: 0 for k in BF16_LAUNCHES}, "flash_attention_fwd_lse": 64, "flash_attention_bwd_dkv": 32,
+                  "flash_attention_bwd_dq": 32, "rms_norm_bwd": 65, "rms_norm_fwd": 129}
+
+
+def _fingerprint(t):
+    """An exact checksum of a tensor's bits (any one changed value moves it)."""
+    import torch
+
+    bits = t.detach().view(torch.int16 if t.element_size() == 2 else torch.int32)
+    return int(bits.sum(dtype=torch.int64)), int((bits.long() * bits.long()).sum())
+
+
+def stage1_train_phase(gen) -> dict:
+    """The training path: fresh bf16 stage-1 weights from the seeded
+    generator, one B=4, S=1024 batch (256 image tokens), the pretraining
+    policy, lr 2e-3 (constant after the schedule's one warmup step at 0),
+    clip 1.0, remat on, built by `train.build_stage1`. One warm step with
+    the launch counts set to 0 just before it and read just after (every
+    kernel in `TRAIN_LAUNCHES` exactly that often), five timed steps, one
+    profiled step. Checks: finite losses, the last below the first; the
+    gradient norm finite and nonzero and every trainable leaf moved; every
+    frozen leaf bit-unchanged."""
+    import math
+
+    import torch
+
+    from ullava_tpu_torch import kernels, train
+    from ullava_tpu_torch.models import ullava_core
+    from ullava_tpu_torch.training import optim
+
+    cfg = stage1_config()
+    t0 = time.perf_counter()
+    params = ullava_core.init_params(cfg, gen, "cuda")
+    batch = train.make_batch(cfg, B_TRAIN, S_TRAIN, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    training_cfg = {"learning_rate": 2e-3, "lr_scheduler_type": "constant"}
+    state, step, _ = train.build_stage1(cfg, params, training_cfg, total_steps=7)
+    leaves = list(optim.named_leaves(state.params))  # the freeze policy set requires_grad
+    trained = [t for _, t in leaves if t.requires_grad]
+    frozen = [(n, t) for n, t in leaves if not t.requires_grad]
+    frozen_before = [(n, _fingerprint(t)) for n, t in frozen]
+    train_before = [t.detach().clone() for t in trained]
+
+    def timed_step():
+        nonlocal state
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        loss, gnorm = m["loss"].item(), m["grad_norm"].float().item()
+        return (loss, gnorm), time.perf_counter() - t
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    (loss0, gnorm0), first_s = timed_step()
+    launches = kernels.launch_counts()
+    wrong = {k: (launches[k], n) for k, n in TRAIN_LAUNCHES.items() if launches[k] != n}
+    if wrong or set(TRAIN_LAUNCHES) != set(launches):
+        raise AssertionError(f"stage1_train: launches (got, expected) {wrong}")
+    runs = [timed_step() for _ in range(5)]
+    losses = [loss0] + [r[0][0] for r in runs]
+    gnorms = [gnorm0] + [r[0][1] for r in runs]
+    step_s = sorted(r[1] for r in runs)[2]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile = profile_serve(lambda: (None, timed_step()[1]))
+    if not all(math.isfinite(x) for x in losses + gnorms) or min(gnorms) <= 0:
+        raise AssertionError(f"stage1_train: losses {losses}, grad norms {gnorms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"stage1_train: the loss did not fall: {losses}")
+    moved = [not torch.equal(a, t) for a, t in zip(train_before, trained)]
+    frozen_after = [(n, _fingerprint(t)) for n, t in frozen]
+    if not all(moved) or frozen_after != frozen_before:
+        changed = [n for (n, a), (_, b) in zip(frozen_before, frozen_after) if a != b]
+        raise AssertionError(f"stage1_train: trainable moved {moved}, frozen changed {changed}")
+    tokens = B_TRAIN * S_TRAIN
+    busy = profile["device_busy_s"]
+    line = {
+        "phase": "stage1_train", "batch": B_TRAIN, "seq": S_TRAIN,
+        "image_tokens": cfg.vision.num_patches, "policy": "pretrain", "lr": 2e-3, "clip": 1.0,
+        "remat": True, "init_s": init_s, "first_step_s": first_s, "step_s": step_s,
+        "step_runs_s": [r[1] for r in runs], "images_per_s": B_TRAIN / step_s,
+        "tokens_per_s": tokens / step_s, "losses": losses, "grad_norms": gnorms,
+        "peak_mem_gb": peak_gb, "trainable_leaves": len(train_before),
+        "frozen_leaves_unchanged": len(frozen_before),
+        "profiled_step_wall_s": profile["wall_s"], "device_busy_s": busy,
+        "device_idle_share": profile["device_idle_share"],
+        "top_device_ms": dict(list(profile["top_device_ms"].items())[:8]),
+        "top_device_calls": dict(list(profile["top_device_calls"].items())[:8]),
+        "launches": launches,
+    }
+    print(json.dumps(line), flush=True)
+    del state, step, params, batch, leaves, trained, frozen, train_before
+    torch.cuda.empty_cache()
+    return line
 
 
 def profile_serve(run) -> dict:
@@ -1301,6 +1591,8 @@ def check_phase(gen) -> None:
         raise AssertionError(f"the small resident int8 SAM encoder launched {ran}")
     errs["resident_int8_sam_image_embeddings"] = rel_err(emb, emb_ref)
     errs["resident_vs_block_int8_sam_image_embeddings"] = rel_err(emb, emb_block.float().cpu())
+    del rp, ep, emb, emb_block, emb_ref
+    check_stage1(gen, to_cpu32, errs)
     # bf16 activations on the card against fp32 on the CPU; on the int8
     # path they also quantize to neighbouring int8 steps here and there.
     tol = 5e-2
@@ -1308,6 +1600,64 @@ def check_phase(gen) -> None:
     bad = {k: v for k, v in errs.items() if not v <= tol}
     if bad:
         raise AssertionError(f"card disagrees with the CPU reference: {bad}")
+
+
+def check_stage1(gen, to_cpu32, errs: dict) -> None:
+    """Stage 1 at hd 128 (LLaMA 2 x 256 wide, 2 heads; tiny CLIP): three
+    steps on the card (bf16, through K15-K18 and K9) against the same
+    steps in fp32 on the CPU (plain versions) from the same weights, under
+    the pretraining and the finetuning policy (which trains the norm
+    weights, so K18's dw form runs): the loss and the gradient norm of
+    each step into `errs`. Then `train.train_stage1` end to end on the
+    card: two epochs of two batches, checkpoints every two steps, and a
+    resume that has nothing left to do."""
+    import tempfile
+
+    import torch
+
+    from ullava_tpu_torch import kernels, train
+    from ullava_tpu_torch.models import clip_vit, llama, ullava_core
+    from ullava_tpu_torch.training import checkpoint
+
+    cfg = ullava_core.UllavaCoreConfig(
+        llm=llama.LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                              num_layers=2, num_heads=2, num_kv_heads=2, remat=True),
+        vision=clip_vit.CLIPVisionConfig.tiny(dtype=torch.bfloat16),
+        img_start_id=500, img_end_id=501, vid_start_id=502, vid_end_id=503,
+    )
+    batch = train.make_batch(cfg, 2, 200, seed=1, device="cuda")
+    batch["attn_lens"] = torch.tensor([200, 131], dtype=torch.int32, device="cuda")
+    batch32 = {k: v.cpu() for k, v in batch.items()}
+    tcfg = {"learning_rate": 1e-3, "lr_scheduler_type": "constant"}
+    for policy, from_scratch in (("pretrain", True), ("finetune", False)):
+        c = dataclasses.replace(cfg, projector_from_scratch=from_scratch)
+        c32 = dataclasses.replace(
+            c, llm=dataclasses.replace(c.llm, dtype=torch.float32),
+            vision=dataclasses.replace(c.vision, dtype=torch.float32))
+        params = ullava_core.init_params(c, gen, "cuda")
+        state, step, _ = train.build_stage1(c, params, tcfg, 4)
+        state32, step32, _ = train.build_stage1(c32, to_cpu32(params), tcfg, 4)
+        before = kernels.launch_counts()
+        for i in range(3):
+            state, m = step(state, batch)
+            state32, m32 = step32(state32, batch32)
+            for key in ("loss", "grad_norm"):
+                ref = m32[key].item()
+                errs[f"stage1_{policy}_{key}_{i}"] = abs(m[key].float().item() - ref) / abs(ref)
+        torch.cuda.synchronize()
+        ran = {k: n - before[k] for k, n in kernels.launch_counts().items() if n != before[k]}
+        if ran != {"flash_attention_fwd_lse": 12, "flash_attention_bwd_dkv": 6,
+                   "flash_attention_bwd_dq": 6, "rms_norm_fwd": 27, "rms_norm_bwd": 15}:
+            raise AssertionError(f"the small stage-1 step ({policy}) launched {ran}")
+    with tempfile.TemporaryDirectory() as out:
+        tcfg = {**tcfg, "num_train_epochs": 2, "save_steps": 2, "save_total_limit": 2,
+                "output_dir": out}
+        loader = train.SyntheticLoader([batch, batch32])
+        final = train.train_stage1(cfg, ullava_core.init_params(cfg, gen, "cuda"), loader, tcfg)
+        ckpts = checkpoint.list_checkpoints(out)
+        resumed = train.train_stage1(cfg, ullava_core.init_params(cfg, gen, "cuda"), loader, tcfg)
+        if final.step != 4 or ckpts != [2, 4] or resumed.step != 4:
+            raise AssertionError(f"train_stage1: steps {final.step}, {resumed.step}; {ckpts}")
 
 
 def main() -> int:
@@ -1322,7 +1672,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    built = kernels.build_all(verbose=True)
+    built = kernels.build_all(verbose=True, mutants=TRAIN_MUTANTS.values())
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "sources": sorted(built)}), flush=True)
 
@@ -1333,6 +1683,7 @@ def main() -> int:
     results = {**bf16_results, **int8_results, **sam_int8_results}
     resident_kernel_phases(gen, results)
     resident_names = ("fused_ln_linear_dual", "fused_window_attention_rect")
+    train_kernel_phases(gen, results)
 
     from ullava_tpu_torch.models import ullava
 
@@ -1385,19 +1736,26 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    # The training path, on fresh stage-1 weights once the serving model
+    # is freed.
+    train_line = stage1_train_phase(gen)
+
     # Each kernel's count on the main path that it was written for: the
     # bf16 serve for the bf16 path's four, the int8 serve for the int8
     # LLM's five, the fully int8 serve for the int8 SAM encoder's three,
-    # the resident serve for the resident layout's two.
+    # the resident serve for the resident layout's two, one stage-1 step
+    # for the training path's four.
     for name, r in results.items():
         own = (serve_line if name in bf16_results else
                int8_line if name in int8_results else
-               resident_line if name in resident_names else sam_int8_line)
+               resident_line if name in resident_names else
+               train_line if name in TRAIN_MUTANTS else sam_int8_line)
         r["launches"] = own["launches"][name]
         r["launches_bf16_serve"] = serve_line["launches"][name]
         r["launches_int8_serve"] = int8_line["launches"][name]
         r["launches_sam_int8_serve"] = sam_int8_line["launches"][name]
         r["launches_sam_resident_serve"] = resident_line["launches"][name]
+        r["launches_stage1_step"] = train_line["launches"][name]
     for r in results.values():
         print(json.dumps({"phase": "kernel", **{k: v for k, v in r.items()
                                                 if k not in ("route", "source", "replaces")}}),
@@ -1416,6 +1774,9 @@ def main() -> int:
                           "profiled_wall_s": prof["wall_s"],
                           "top_device_ms_calls": [[name[:60], ms, prof["top_device_calls"][name]]
                                                   for name, ms in top]}), flush=True)
+    print(json.dumps({**{k: v for k, v in train_line.items()
+                         if k not in ("launches", "top_device_calls")},
+                      "phase": "stage1_train_summary"}), flush=True)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -28,7 +28,8 @@ leaked = sorted(m for m in sys.modules
                 if m in ("jax", "ullava_tpu") or m.startswith(("jax.", "ullava_tpu.")))
 raised = {}
 if not torch.cuda.is_available():
-    from ullava_tpu_torch.models import llama, ullava
+    from ullava_tpu_torch import train
+    from ullava_tpu_torch.models import llama, ullava, ullava_core
     from ullava_tpu_torch.models.sam import image_encoder
     from ullava_tpu_torch.serve import serve
     cfg = ullava.UllavaConfig.tiny()
@@ -40,6 +41,8 @@ if not torch.cuda.is_available():
         ("llama.init_kv_cache", lambda: llama.init_kv_cache(cfg.core.llm, 1, 4)),
         ("llama.init_kv_cache int8", lambda: llama.init_kv_cache(int8, 1, 4)),
         ("serve", lambda: serve((cfg, None), [])),
+        ("train.make_batch", lambda: train.make_batch(ullava_core.UllavaCoreConfig.tiny(), 1, 8)),
+        ("train.train_stage1", lambda: train.train_stage1(cfg.core, None, [], {})),
     ):
         try:
             call()
@@ -61,7 +64,8 @@ def test_port_imports_no_jax_and_entry_points_need_cuda():
     mods = _modules()
     assert "ullava_tpu_torch.models.sam.image_encoder" in mods
     for new in ("ops.quant", "ops.mlp_kernel", "ops.decode_attention", "ops.sam_attention",
-                "models.clip_vit", "kernels"):
+                "models.clip_vit", "kernels", "train", "training.optim", "training.train_step",
+                "training.checkpoint", "training.trainer"):
         assert f"ullava_tpu_torch.{new}" in mods
     res = subprocess.run(
         [sys.executable, "-c", _PROBE, json.dumps(mods)],
@@ -76,11 +80,12 @@ def test_port_imports_no_jax_and_entry_points_need_cuda():
         assert msg and "CUDA" in msg, (name, msg)
     assert set(out["raised"]) == {
         "ullava.init_params", "image_encoder.init_params int8", "llama.init_kv_cache",
-        "llama.init_kv_cache int8", "serve"}
+        "llama.init_kv_cache int8", "serve", "train.make_batch", "train.train_stage1"}
 
 
 @pytest.mark.parametrize("name", ["test_torch_cuda_bf16.py", "test_torch_cuda_int8.py",
-                                  "test_torch_cuda_sam_int8.py", "test_torch_cuda_sam_resident.py"])
+                                  "test_torch_cuda_sam_int8.py", "test_torch_cuda_sam_resident.py",
+                                  "test_torch_cuda_train.py"])
 def test_card_test_files_import_torch_only(name):
     """The tests that run on the card must run on a machine without JAX."""
     tree = ast.parse((REPO / "tests" / name).read_text())

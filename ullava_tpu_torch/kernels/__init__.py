@@ -9,10 +9,17 @@ sources and flags so a stale library is never loaded.
 `launch(name, *args)` is the one place a kernel is launched: it calls the
 C entry on the current stream, raises on a non-zero `cudaGetLastError`,
 and only then adds one to that kernel's launch count.
+
+`mutant(source, define)` routes the launches of one source's kernels, for
+the duration of a `with` block, to a copy compiled with `-D<define>`: a
+deliberate bug written into the source under that name, which a kernel's
+correctness gate must catch (`chip_smoke.py`). Those launches are not
+counted. Nothing else builds or loads such a copy.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -21,15 +28,20 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
+# -fno-gnu-unique: a static local of an inline or template function (the
+# "attribute set" flag of `launch_flash`) is otherwise an STB_GNU_UNIQUE
+# symbol, which the dynamic linker shares between every library that
+# defines it, even with RTLD_LOCAL; a mutant copy of a source would then
+# skip its own cudaFuncSetAttribute.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC,-fno-gnu-unique",
     "-Xptxas", "-v",
 )
 
@@ -118,10 +130,30 @@ KERNELS: Dict[str, KernelSpec] = {
             (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P),
             "ullava_tpu/ops/sam_attention.py:354",
         ),
+        KernelSpec(
+            "flash_attention_fwd_lse", "flash_attention.cu", "ullava_flash_attention_fwd_lse",
+            (P, P, P, P, P, P, I, I, I, I, I, I, I, F, P),
+            "ullava_tpu/ops/attention.py:173",
+        ),
+        KernelSpec(
+            "flash_attention_bwd_dkv", "flash_attention_bwd.cu", "ullava_flash_attention_bwd_dkv",
+            (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P),
+            "ullava_tpu/ops/attention.py:473",
+        ),
+        KernelSpec(
+            "flash_attention_bwd_dq", "flash_attention_bwd.cu", "ullava_flash_attention_bwd_dq",
+            (P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P),
+            "ullava_tpu/ops/attention.py:529",
+        ),
+        KernelSpec(
+            "rms_norm_bwd", "rms_norm_bwd.cu", "ullava_rms_norm_bwd",
+            (P, P, P, P, P, P, I, I, I, F, P), "ullava_tpu/ops/norms.py:85",
+        ),
     )
 }
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[str, ctypes.CDLL] = {}  # "source" or "source:define" -> library
+_MUTANTS: Dict[str, str] = {}  # source -> define of the copy its launches go to
 
 
 def nvcc() -> str:
@@ -132,37 +164,45 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot build")
 
 
-def _lib_path(source: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _lib_path(source: str, define: Optional[str] = None) -> Path:
+    flags = NVCC_FLAGS + ((f"-D{define}",) if define else ())
+    h = hashlib.sha256(" ".join(flags).encode())
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / source]:
         h.update(f.read_bytes())
-    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:12]}.so"
+    stem = Path(source).stem + (f"-{define}" if define else "")
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:12]}.so"
 
 
-def build_all(verbose: bool = False) -> Dict[str, float]:
-    """Compile every source that has no current library, all in parallel.
-    Returns {source: seconds} for the sources compiled by this call."""
+def build_all(verbose: bool = False, mutants=()) -> Dict[str, float]:
+    """Compile every source that has no current library, and each
+    (source, define) copy in `mutants`, all in parallel. Returns
+    {source or "source:define": seconds} for what this call compiled."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = sorted({s.source for s in KERNELS.values() if not _lib_path(s.source).exists()})
+    wanted = sorted({(s.source, None) for s in KERNELS.values()} | set(mutants),
+                    key=lambda sd: (sd[0], sd[1] or ""))
     procs = []
     t0 = time.perf_counter()
-    for src in todo:
-        out = _lib_path(src)
+    for src, define in wanted:
+        out = _lib_path(src, define)
+        if out.exists():
+            continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
-        procs.append((src, out, tmp, subprocess.Popen(
+        cmd = [nvcc(), *NVCC_FLAGS, *((f"-D{define}",) if define else ()),
+               "-o", str(tmp), str(CSRC / src)]
+        key = src if define is None else f"{src}:{define}"
+        procs.append((key, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )))
     times = {}
     failed = []
-    for src, out, tmp, proc in procs:
+    for key, out, tmp, proc in procs:
         log, _ = proc.communicate()
-        times[src] = time.perf_counter() - t0
+        times[key] = time.perf_counter() - t0
         if proc.returncode != 0:
-            failed.append(f"{src}:\n{log}")
+            failed.append(f"{key}:\n{log}")
             continue
         if verbose:
-            print(f"[nvcc {src}] {times[src]:.1f}s\n{log.strip()}", flush=True)
+            print(f"[nvcc {key}] {times[key]:.1f}s\n{log.strip()}", flush=True)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
@@ -170,15 +210,17 @@ def build_all(verbose: bool = False) -> Dict[str, float]:
 
 
 def _function(spec: KernelSpec):
-    lib = _LIBS.get(spec.source)
+    define = _MUTANTS.get(spec.source)
+    key = spec.source if define is None else f"{spec.source}:{define}"
+    lib = _LIBS.get(key)
     if lib is None:
-        path = _lib_path(spec.source)
+        path = _lib_path(spec.source, define)
         if not path.exists():
-            build_all()
+            build_all(mutants=[(spec.source, define)] if define else ())
         lib = ctypes.CDLL(str(path))
         lib.ullava_error_string.argtypes = (I,)
         lib.ullava_error_string.restype = ctypes.c_char_p
-        _LIBS[spec.source] = lib
+        _LIBS[key] = lib
     fn = getattr(lib, spec.symbol)
     fn.argtypes = spec.argtypes
     fn.restype = I
@@ -194,7 +236,21 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(
             f"{name}: CUDA error {err}: {lib.ullava_error_string(err).decode()}"
         )
-    spec.launches += 1
+    if spec.source not in _MUTANTS:
+        spec.launches += 1
+
+
+@contextlib.contextmanager
+def mutant(source: str, define: str):
+    """Within the block, launches of `source`'s kernels run the copy built
+    with `-D<define>` (a deliberate bug) and are not counted."""
+    if source in _MUTANTS:
+        raise RuntimeError(f"{source} already runs the mutant {_MUTANTS[source]}")
+    _MUTANTS[source] = define
+    try:
+        yield
+    finally:
+        del _MUTANTS[source]
 
 
 def reset_launch_counts() -> None:

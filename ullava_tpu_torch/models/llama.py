@@ -1,7 +1,7 @@
-"""LLaMA decoder, serving path (counterpart of `ullava_tpu/models/llama.py`:
+"""LLaMA decoder (counterpart of `ullava_tpu/models/llama.py`:
 `LlamaConfig`, `init_params`, `init_kv_cache`, `_layer` and `forward` on the
 non-LoRA path, in bf16 or with int8 weights, W8A8 prefill and an int8 KV
-cache).
+cache, and the training forward).
 
 Pre-norm RMSNorm -> rotary MHA -> RMSNorm -> SwiGLU with fp32 norm
 statistics. Parameters are a dict whose `layers` entry is a list of
@@ -23,6 +23,13 @@ attends with the plain path, or with `kv_quant` runs the write-and-attend
 kernel. The JAX package gates these routes on the TPU and on tile
 alignment; here the config alone chooses, and a shape a kernel cannot
 take raises in its wrapper.
+
+Training is the no-cache path under autograd: rotary in fp32
+(`apply_rotary`, the JAX default `rope_f32=True`), attention through the
+flash Function (K15 forward, K16 + K17 backward) and both norms through
+the RMSNorm Function (K9 forward, K18 backward); with `remat` each layer
+runs under `torch.utils.checkpoint`, so the backward recomputes it from
+its input (the JAX `jax.checkpoint` of the layer scan body).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ullava_tpu_torch import resolve_device
 from ullava_tpu_torch.models import normal
@@ -65,6 +73,11 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
+    # Training: recompute each layer in the backward from its input. Only
+    # 'full' (save nothing inside the layer) is ported; 'dots' (keep the
+    # matmul outputs) raises.
+    remat: bool = True
+    remat_policy: str = "full"
     # Prefill attention: 'flash' (the kernel) or 'xla' (the plain path).
     attn_impl: str = "flash"
     # Run the prefill's linears (S > 1) W8A8 where the weight is int8. A
@@ -85,7 +98,7 @@ class LlamaConfig:
         defaults = dict(
             vocab_size=512, hidden_size=64, intermediate_size=128, num_layers=2,
             num_heads=4, num_kv_heads=4,
-            dtype=torch.float32,
+            dtype=torch.float32, remat=False,
         )
         defaults.update(kw)
         return cls(**defaults)
@@ -258,6 +271,10 @@ def _use_fused_norm_quant(cfg: LlamaConfig, layer: Params, S: int) -> bool:
     )
 
 
+def _remat_layer(cfg, h, lp, cos, sin, kv_lens, causal):
+    return _layer(cfg, h, lp, cos, sin, kv_lens, None, 0, None, causal)[0]
+
+
 def embed(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
     return params["embed_tokens"][input_ids]
 
@@ -291,7 +308,14 @@ def forward(
     pend = None
     if kv_cache is not None and _use_fused_norm_quant(cfg, layers[0], S):
         pend = torch.zeros_like(h)
+    remat = kv_cache is None and cfg.remat and torch.is_grad_enabled()
+    if remat and cfg.remat_policy != "full":
+        raise NotImplementedError(f"remat_policy {cfg.remat_policy!r}: only 'full' is ported")
     for i, lp in enumerate(layers):
+        if remat:
+            h = torch.utils.checkpoint.checkpoint(
+                _remat_layer, cfg, h, lp, cos, sin, kv_lens, causal, use_reentrant=False)
+            continue
         h, pend = _layer(cfg, h, lp, cos, sin, kv_lens, kv_cache, i, write_pos, causal, pend)
     if pend is not None:
         h = h + pend

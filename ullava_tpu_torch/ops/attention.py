@@ -1,6 +1,14 @@
-"""Attention: the plain reference path, the flash forward kernel, and the
-dispatcher (counterpart of `ullava_tpu/ops/attention.py:38-76,354-449,
-704-757`)."""
+"""Attention: the plain reference path, the flash kernels and the
+dispatcher (counterpart of `ullava_tpu/ops/attention.py`).
+
+Serving runs the flash forward K2 (`flash_attention_fwd_bsh`). Under
+autograd `attention(impl="flash")` is the Function `_FlashAttention`, the
+counterpart of the JAX custom VJP `_flash_attention`: its forward is K15
+(`flash_attention_fwd`, which also returns each row's logsumexp) and its
+backward K16 and K17 (`flash_attention_bwd`). All of them read q, k, v in
+the port's [B, S, H, hd] layout; the JAX training rules transpose to
+[B, H, S, hd] first, a TPU layout matter that changes no value.
+"""
 
 from __future__ import annotations
 
@@ -63,14 +71,15 @@ def attention_xla(
     return torch.einsum("bhqk,bkhd->bqhd", probs, _repeat_kv(v, q.shape[2] // v.shape[2]))
 
 
-def flash_attention_fwd_bsh_plain(
+def flash_attention_fwd_plain(
     q, k, v, kv_lens, *, causal: bool, scale: float, q_offset: int = 0
-) -> torch.Tensor:
-    """Plain version of the flash kernel. It differs from `attention_xla`
-    where the kernel does, to match it to a few ulps: the unnormalised
+):
+    """Plain version of the flash kernels' forward: (o [B, Sq, H, hd],
+    lse [B, H, Sq] fp32). It differs from `attention_xla` where the
+    kernels do, to match them to a few ulps: the unnormalised
     probabilities are rounded to v.dtype for the value product and
     normalised after it, and a row with no live key gives zeros (not the
-    mean of v)."""
+    mean of v) and lse = 1e30 (`ullava_tpu/ops/attention.py:162-170`)."""
     s, mask = _scores(q, k, causal=causal, kv_lens=kv_lens, bias=None,
                       q_offset=q_offset, scale=scale)
     s = s.masked_fill(~mask, float("-inf"))
@@ -80,8 +89,23 @@ def flash_attention_fwd_bsh_plain(
     l = p.sum(-1, keepdim=True)
     v = _repeat_kv(v, q.shape[2] // v.shape[2])
     o = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), v.float())
-    o = o / torch.where(l == 0, torch.ones_like(l), l)
-    return o.transpose(1, 2).to(q.dtype)
+    safe_l = torch.where(l == 0, torch.ones_like(l), l)
+    lse = torch.where(l == 0, torch.full_like(l, 1e30), m + torch.log(safe_l))
+    return (o / safe_l).transpose(1, 2).to(q.dtype), lse[..., 0]
+
+
+def flash_attention_fwd_bsh_plain(
+    q, k, v, kv_lens, *, causal: bool, scale: float, q_offset: int = 0
+) -> torch.Tensor:
+    """Plain version of K2: the output of `flash_attention_fwd_plain`."""
+    return flash_attention_fwd_plain(
+        q, k, v, kv_lens, causal=causal, scale=scale, q_offset=q_offset)[0]
+
+
+def _check_flash_shapes(q, k, v) -> None:
+    B, Sq, H, hd = q.shape
+    if k.shape[2] == 0 or H % k.shape[2] or v.shape != k.shape or k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
 
 
 def flash_attention_fwd_bsh(
@@ -100,17 +124,12 @@ def flash_attention_fwd_bsh(
     bf16) for CUDA tensors, the plain version for CPU tensors."""
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    if H % Hkv or v.shape != k.shape or k.shape[0] != B or k.shape[3] != hd:
-        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    _check_flash_shapes(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_fwd_bsh_plain(
             q, k, v, kv_lens, causal=causal, scale=scale, q_offset=q_offset
         )
-    if hd != 128:
-        raise ValueError(f"the CUDA flash kernel is built for head_dim 128, got {hd}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        kernels.check_cuda_tensor(f"flash_attention_fwd_bsh {name}", t, torch.bfloat16)
-    kernels.check_cuda_tensor("flash_attention_fwd_bsh kv_lens", kv_lens, torch.int32, (B,))
+    _check_cuda_operands("flash_attention_fwd_bsh", B, hd, q=q, k=k, v=v, kv_lens=kv_lens)
     out = torch.empty_like(q)
     kernels.launch(
         "flash_attention_fwd_bsh", q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -118,6 +137,129 @@ def flash_attention_fwd_bsh(
         int(q_offset), float(scale),
     )
     return out
+
+
+def _check_cuda_operands(name: str, B: int, hd: int, **tensors) -> None:
+    if hd != 128:
+        raise ValueError(f"{name}: the CUDA flash kernels are built for head_dim 128, got {hd}")
+    for key, t in tensors.items():
+        if key == "kv_lens":
+            kernels.check_cuda_tensor(f"{name} kv_lens", t, torch.int32, (B,))
+        elif key in ("lse", "delta"):
+            kernels.check_cuda_tensor(f"{name} {key}", t, torch.float32)
+        else:
+            kernels.check_cuda_tensor(f"{name} {key}", t, torch.bfloat16)
+
+
+def flash_attention_fwd(
+    q: torch.Tensor,  # [B, Sq, H, hd]
+    k: torch.Tensor,  # [B, Sk, Hkv, hd]
+    v: torch.Tensor,
+    kv_lens: torch.Tensor,  # [B] int32
+    *,
+    causal: bool,
+    scale: float,
+    q_offset: int = 0,
+):
+    """The training forward: (o [B, Sq, H, hd], lse [B, H, Sq] fp32), lse
+    the logsumexp of each row's scaled, masked scores (1e30 where no key
+    is live). CUDA kernel K15 (`kernels/csrc/flash_attention.cu`, hd 128,
+    bf16) for CUDA tensors, the plain version for CPU tensors."""
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    _check_flash_shapes(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(
+            q, k, v, kv_lens, causal=causal, scale=scale, q_offset=q_offset)
+    _check_cuda_operands("flash_attention_fwd", B, hd, q=q, k=k, v=v, kv_lens=kv_lens)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    kernels.launch(
+        "flash_attention_fwd_lse", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        kv_lens.data_ptr(), out.data_ptr(), lse.data_ptr(), B, Sq, Sk, H, Hkv,
+        int(causal), int(q_offset), float(scale),
+    )
+    return out, lse
+
+
+def flash_attention_bwd_plain(
+    q, k, v, out, lse, do, kv_lens, *, causal: bool, scale: float, q_offset: int = 0
+):
+    """Plain version of `flash_attention_bwd`, in the arithmetic of the TPU
+    kernels (`ullava_tpu/ops/attention.py:457-573`): p = exp(s*scale - lse)
+    recomputed under the forward's exact mask; dv = p^T dO with p rounded
+    to dO's dtype; ds = p * (dO v^T - delta) * scale rounded to the input
+    dtype before its products; dk = ds^T q, dq = ds k."""
+    dt = q.dtype
+    s, mask = _scores(q, k, causal=causal, kv_lens=kv_lens, bias=None,
+                      q_offset=q_offset, scale=scale)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)  # [B, H, Sq]
+    p = torch.exp(s.masked_fill(~mask, _NEG_INF) - lse[..., None]).masked_fill(~mask, 0.0)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = (p * (dp - delta[..., None]) * scale).to(dt).float()
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def flash_attention_bwd(
+    q, k, v, out, lse, do, kv_lens, *, causal: bool, scale: float, q_offset: int = 0
+):
+    """(dq, dk, dv) of the flash forward for the output gradient `do`, all
+    [B, S, H, hd]; `out` and `lse` are what `flash_attention_fwd` returned.
+    delta = rowsum(do * out) in fp32 from the rounded output (the JAX
+    package leaves it to XLA), then K16 (dk, dv) and K17 (dq) from
+    `kernels/csrc/flash_attention_bwd.cu` (hd 128, bf16, H == Hkv) for CUDA
+    tensors; the plain version for CPU tensors."""
+    B, Sq, H, hd = q.shape
+    _check_flash_shapes(q, k, v)
+    if k.shape[2] != H:
+        raise ValueError("the flash backward takes no GQA repeat (H == Hkv)")
+    if out.shape != q.shape or do.shape != q.shape or tuple(lse.shape) != (B, H, Sq):
+        raise ValueError(f"bad shapes out {tuple(out.shape)} do {tuple(do.shape)} "
+                         f"lse {tuple(lse.shape)} for q {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(
+            q, k, v, out, lse, do, kv_lens, causal=causal, scale=scale, q_offset=q_offset)
+    delta = torch.einsum("bqhd,bqhd->bhq", do.float(), out.float()).contiguous()
+    return _flash_bwd_cuda(q, k, v, do, lse, delta, kv_lens, causal, scale, q_offset)
+
+
+def _flash_bwd_cuda(q, k, v, do, lse, delta, kv_lens, causal, scale, q_offset):
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    _check_cuda_operands("flash_attention_bwd", B, hd, q=q, k=k, v=v, do=do, lse=lse,
+                         delta=delta, kv_lens=kv_lens)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+              delta.data_ptr(), kv_lens.data_ptr())
+    rest = (B, Sq, Sk, H, int(causal), int(q_offset), float(scale))
+    kernels.launch("flash_attention_bwd_dkv", *common, dk.data_ptr(), dv.data_ptr(), *rest)
+    kernels.launch("flash_attention_bwd_dq", *common, dq.data_ptr(), *rest)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention under autograd (the JAX custom VJP
+    `_flash_attention`, `ullava_tpu/ops/attention.py:658-694`): K15
+    forward, K16 + K17 backward. Saves q, k, v, the output and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, causal, scale, q_offset):
+        out, lse = flash_attention_fwd(q, k, v, kv_lens, causal=causal, scale=scale,
+                                       q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out, lse, kv_lens)
+        ctx.args = (causal, scale, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, kv_lens = ctx.saved_tensors
+        causal, scale, q_offset = ctx.args
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(), kv_lens,
+                                         causal=causal, scale=scale, q_offset=q_offset)
+        return dq, dk, dv, None, None, None, None
 
 
 def attention(
@@ -133,7 +275,9 @@ def attention(
     impl: str = "flash",
 ) -> torch.Tensor:
     """Dispatching entry: 'xla' is the plain reference path, 'flash' the
-    flash kernel (no additive bias, static q_offset)."""
+    flash kernels (no additive bias, static q_offset): K2 where autograd
+    does not record the call, else `_FlashAttention` (K15 forward, K16 and
+    K17 backward; no GQA repeat)."""
     b, sq, h, d = q.shape
     if scale is None:
         scale = d**-0.5
@@ -147,6 +291,11 @@ def attention(
             raise ValueError("flash attention takes no bias and a static q_offset")
         if kv_lens is None:
             kv_lens = torch.full((b,), k.shape[1], dtype=torch.int32, device=q.device)
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            if k.shape[2] != h:
+                raise ValueError("flash attention under autograd takes no GQA repeat")
+            return _FlashAttention.apply(q, k, v, kv_lens.to(torch.int32), causal, scale,
+                                         q_offset)
         return flash_attention_fwd_bsh(
             q, k, v, kv_lens.to(torch.int32), causal=causal, scale=scale,
             q_offset=q_offset,

@@ -1,14 +1,18 @@
-"""RMSNorm and LayerNorm with fp32 statistics, and the fused
-RMSNorm + per-row int8 quantize of the W8A8 prefill (counterpart of
-`ullava_tpu/ops/norms.py:60-78,116-263`).
+"""RMSNorm and LayerNorm with fp32 statistics, the RMSNorm backward, and
+the fused RMSNorm + per-row int8 quantize of the W8A8 prefill
+(counterpart of `ullava_tpu/ops/norms.py:21-263`).
 
 Two CUDA kernels live in `kernels/csrc/rms_quant.cu`, both one block per
 row: `rms_norm_residual_quant` (also the no-residual `rms_norm_quant`)
 and the RMSNorm forward, which `rms_norm` launches for every input on
 the card: a prefill's thousands of rows and a decode step's handful
 alike (the JAX package gates its kernel at 4096 rows for the sake of its
-compiler's fusion in training; nothing of that holds here). Each wrapper
-runs its plain version only for CPU tensors."""
+compiler's fusion in training; nothing of that holds here). Under
+autograd `rms_norm` is the Function `_RMSNorm` (the JAX package's
+custom VJP `_rms_norm_pallas`): its forward is the same kernel, its
+backward `rms_norm_bwd` (`kernels/csrc/rms_norm_bwd.cu`), with the
+weight's gradient only where the weight needs one. Each wrapper runs its
+plain version only for CPU tensors."""
 
 from __future__ import annotations
 
@@ -39,9 +43,7 @@ def _check_row_kernel(name: str, x: torch.Tensor, weight: torch.Tensor) -> Tuple
     return x.numel() // D, D
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """LLaMA RMSNorm. CUDA inputs go through the row kernel (bf16 only),
-    CPU tensors take the plain version."""
+def _rms_norm_fwd(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return rms_norm_plain(x, weight, eps)
     rows, D = _check_row_kernel("rms_norm", x, weight)
@@ -50,6 +52,88 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
         "rms_norm_fwd", x.data_ptr(), weight.data_ptr(), out.data_ptr(), rows, D, float(eps)
     )
     return out
+
+
+def rms_norm_bwd_plain(
+    x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor, eps: float = 1e-6,
+    need_dw: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain version of `rms_norm_bwd`, in the arithmetic of the TPU kernel
+    (`ullava_tpu/ops/norms.py:28-44`): r recomputed from x in fp32,
+    c = sum(dy*w*x)/D, dx = (dy*w - x*r^2*c)*r in x's dtype, dw the fp32
+    sum over rows of dy*x*r in w's dtype (None unless `need_dw`)."""
+    D = x.shape[-1]
+    xf, dyf = x.float().reshape(-1, D), dy.float().reshape(-1, D)
+    r = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    dyw = dyf * weight.float()
+    c = (dyw * xf).sum(-1, keepdim=True) * (1.0 / D)
+    dx = ((dyw - xf * (r * r) * c) * r).to(x.dtype).reshape(x.shape)
+    dw = (dyf * xf * r).sum(0).to(weight.dtype) if need_dw else None
+    return dx, dw
+
+
+# The backward kernel stages x and dy of a row as fp32 in 48 KB.
+MAX_BWD_ROW_WIDTH = (48 * 1024 - 128) // 8
+# Rows per block of the backward kernel when it also forms dw: each block
+# writes one fp32 partial row, which a second pass sums in a fixed order.
+BWD_DW_ROWS_PER_BLOCK = 8
+
+
+def rms_norm_bwd(
+    x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor, eps: float = 1e-6,
+    need_dw: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(dx, dw) of `rms_norm(x, weight)` for the output gradient `dy`; dw
+    is None unless `need_dw`. CUDA kernel `kernels/csrc/rms_norm_bwd.cu`
+    (bf16) for CUDA tensors, the plain version for CPU tensors."""
+    if dy.shape != x.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} must match x {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return rms_norm_bwd_plain(x, weight, dy, eps, need_dw)
+    rows, D = _check_row_kernel("rms_norm_bwd", x, weight)
+    if D > MAX_BWD_ROW_WIDTH:
+        raise ValueError(f"rms_norm_bwd: row width {D} exceeds {MAX_BWD_ROW_WIDTH}")
+    kernels.check_cuda_tensor("rms_norm_bwd dy", dy, torch.bfloat16, x.shape)
+    dx = torch.empty_like(x)
+    dw = partial = None
+    rpb = 1
+    if need_dw:
+        rpb = BWD_DW_ROWS_PER_BLOCK
+        dw = torch.empty_like(weight)
+        partial = torch.empty(((rows + rpb - 1) // rpb, D), dtype=torch.float32, device=x.device)
+    kernels.launch(
+        "rms_norm_bwd", x.data_ptr(), weight.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+        None if partial is None else partial.data_ptr(), None if dw is None else dw.data_ptr(),
+        rows, D, rpb, float(eps),
+    )
+    return dx, dw
+
+
+class _RMSNorm(torch.autograd.Function):
+    """`rms_norm` under autograd (the JAX custom VJP `_rms_norm_pallas`):
+    saves x and w, and its backward is `rms_norm_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return _rms_norm_fwd(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        dx, dw = rms_norm_bwd(x, weight, dy.contiguous(), ctx.eps, ctx.needs_input_grad[1])
+        return dx, dw, None
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """LLaMA RMSNorm. CUDA inputs go through the row kernel (bf16 only),
+    CPU tensors take the plain version; where autograd records the call,
+    through `_RMSNorm`, whose backward is the backward kernel or its
+    plain version."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        return _RMSNorm.apply(x, weight, eps)
+    return _rms_norm_fwd(x, weight, eps)
 
 
 def rms_norm_residual_quant_plain(

@@ -1,0 +1,110 @@
+"""Checkpoint save and resume (counterpart of
+`ullava_tpu/training/checkpoint.py`, with `torch.save` in place of orbax).
+
+The same layout: `checkpoint-{step}` directories under the output
+directory, `save_total_limit` rotation, and resume from the latest one. A
+checkpoint holds one file, `state.pt`: the tree of a `TrainState` (step,
+params, optimizer state) or of bare params, with tensors moved to the
+CPU. `restore_checkpoint` copies the saved values into the tensors of a
+target of the same structure, so they keep their device, dtype and
+`requires_grad`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import re
+import shutil
+from typing import Any, List, Optional
+
+import torch
+
+from ullava_tpu_torch.training.train_step import TrainState
+
+_FILE = "state.pt"
+
+
+def _ckpt_path(output_dir: str, step: int) -> str:
+    return os.path.join(os.path.abspath(output_dir), f"checkpoint-{step}")
+
+
+def _fields(state: TrainState) -> dict:
+    # Not dataclasses.asdict, which deep-copies every tensor.
+    return {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
+
+
+def _to_cpu(tree: Any) -> Any:
+    if isinstance(tree, TrainState):
+        return {"train_state": _to_cpu(_fields(tree))}
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_cpu(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    return tree
+
+
+def save_checkpoint(
+    output_dir: str, step: int, state: Any, save_total_limit: Optional[int] = None
+) -> str:
+    """Save a TrainState or a params tree to checkpoint-{step}."""
+    path = _ckpt_path(output_dir, step)
+    if os.path.exists(path):
+        shutil.rmtree(path)
+    os.makedirs(path)
+    torch.save(_to_cpu(state), os.path.join(path, _FILE))
+    if save_total_limit:
+        rotate_checkpoints(output_dir, save_total_limit)
+    return path
+
+
+def rotate_checkpoints(output_dir: str, limit: int) -> None:
+    for step in list_checkpoints(output_dir)[:-limit]:
+        shutil.rmtree(_ckpt_path(output_dir, step), ignore_errors=True)
+
+
+def list_checkpoints(output_dir: str) -> List[int]:
+    if not os.path.isdir(output_dir):
+        return []
+    steps = []
+    for name in os.listdir(output_dir):
+        m = re.fullmatch(r"checkpoint-(\d+)", name)
+        if m and os.path.isdir(os.path.join(output_dir, name)):
+            steps.append(int(m.group(1)))
+    return sorted(steps)
+
+
+def latest_checkpoint(output_dir: str) -> Optional[str]:
+    steps = list_checkpoints(output_dir)
+    return _ckpt_path(output_dir, steps[-1]) if steps else None
+
+
+@torch.no_grad()
+def _copy_into(target: Any, saved: Any) -> Any:
+    if isinstance(target, dict):
+        if set(target) != set(saved):
+            raise ValueError(f"checkpoint keys {sorted(saved)} != {sorted(target)}")
+        return {k: _copy_into(target[k], saved[k]) for k in target}
+    if isinstance(target, (list, tuple)):
+        if len(target) != len(saved):
+            raise ValueError(f"checkpoint list of {len(saved)} != {len(target)}")
+        return [_copy_into(t, s) for t, s in zip(target, saved)]
+    if isinstance(target, torch.Tensor):
+        if target.shape != saved.shape or target.dtype != saved.dtype:
+            raise ValueError(f"checkpoint leaf {saved.dtype} {tuple(saved.shape)} != "
+                             f"{target.dtype} {tuple(target.shape)}")
+        return target.copy_(saved)
+    return saved
+
+
+def restore_checkpoint(path: str, target: Any) -> Any:
+    """Restore into the structure of `target` (a TrainState or a params
+    tree): its tensors are overwritten in place and returned."""
+    saved = torch.load(os.path.join(os.path.abspath(path), _FILE), map_location="cpu",
+                       weights_only=True)
+    if isinstance(target, TrainState):
+        tree = _copy_into(_fields(target), saved["train_state"])
+        return TrainState(**tree)
+    return _copy_into(target, saved)

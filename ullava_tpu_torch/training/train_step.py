@@ -1,0 +1,78 @@
+"""The stage-1 train step (counterpart of `ullava_tpu/training/train_step.py`
+without the mesh: `shard_train_state` and `jit_step` wait for the
+parallelism slice).
+
+Freeze policy = `requires_grad` from the label tree: gradients are taken
+with respect to the trainable leaves only, so the frozen 7B and ViT
+towers never get weight gradients or Adam moments. The step updates the
+parameters in place and returns the state with the new step count.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Sequence, Tuple
+
+import torch
+
+from ullava_tpu_torch.models import ullava_core
+from ullava_tpu_torch.training.optim import (
+    AdamW,
+    global_norm,
+    partition_params,
+    trainable_labels,
+)
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    params: Any  # full model params
+    opt_state: Any  # optimizer state over the trainable leaves only
+
+
+def make_train_state(
+    params: Any, tx: AdamW, trainable_patterns: Sequence[str]
+) -> Tuple[TrainState, Any]:
+    """Returns (state, labels); the optimizer state covers only the
+    trainable leaves."""
+    labels = trainable_labels(params, trainable_patterns)
+    return TrainState(step=0, params=params, opt_state=tx.init(partition_params(params, labels))), labels
+
+
+def _make_step(loss_fn: Callable, tx: AdamW, labels: Any) -> Callable:
+    """Generic step: loss -> gradients of the trainable leaves -> clip and
+    AdamW in place. Metrics: the loss and the global norm of the gradients
+    before the clip."""
+
+    def step(state: TrainState, batch: Dict[str, Any]):
+        train = partition_params(state.params, labels)
+        loss = loss_fn(state.params, batch)
+        grads = torch.autograd.grad(loss, train, allow_unused=True)
+        # A leaf the batch does not reach (the projector on text-only
+        # batches) has a zero gradient, as under jax.grad.
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(train, grads)]
+        metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads)}
+        opt_state = tx.update(grads, state.opt_state, train)
+        return TrainState(step=state.step + 1, params=state.params, opt_state=opt_state), metrics
+
+    return step
+
+
+def make_stage1_step(cfg: ullava_core.UllavaCoreConfig, tx: AdamW, labels: Any) -> Callable:
+    """Batch keys: input_ids, labels, attn_lens, optionally images/videos.
+    Stage-1 params live under a 'core' key, so the freeze patterns are
+    shared between stages."""
+
+    def loss_fn(params, batch):
+        out = ullava_core.forward(
+            params["core"], cfg,
+            input_ids=batch["input_ids"],
+            labels=batch["labels"],
+            attn_lens=batch.get("attn_lens"),
+            images=batch.get("images"),
+            videos=batch.get("videos"),
+        )
+        return out["loss"]
+
+    return _make_step(loss_fn, tx, labels)
