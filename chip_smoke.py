@@ -12,13 +12,15 @@ Phases, each fatal on any error:
                the resident window layout's three at B=16) and at the
                stage-1 step's shapes (the training path's four: flash
                forward with lse, flash backward dkv and dq, RMSNorm
-               backward), holds the kernel to the
+               backward) and at a B=4 ViT-H encode's shapes (the
+               weight-only forms of K10, K13 and K12), holds the kernel to the
                plain version within a stated tolerance, and times the
                kernel, the plain version and, where one exists, a single
                PyTorch library call computing the same function (L2
                flushed before each timed call); a mutated run of each
                kernel must fail the same gate (for the training path's
-               four, a copy of the source rebuilt with a deliberate bug);
+               four and the weight-only forms, also a copy of the source
+               rebuilt with a deliberate bug);
   3. serve   - builds the full-width bf16 RES model (LLaMA-7B, CLIP
                ViT-L/14, SAM ViT-H) from a seeded generator on the card,
                serves B=4 requests (320-token prompts: 256 image tokens + 64
@@ -55,14 +57,27 @@ Phases, each fatal on any error:
                on one B=4, S=1024 batch: one warm step with exact launch
                counts, five timed steps (falling loss, frozen weights
                bit-unchanged, every trainable leaf moved), one profiled;
-  8. check   - runs small models (bf16, then int8 LLM, then an int8 SAM
+  8. stage2_train - frees that model, builds the full-width stage-2 model
+               (`train.build_stage2`: CLIP and the SAM image encoder int8
+               weight-only and frozen, LLaMA-7B in bf16 with LoRA r=8 on
+               q_proj and v_proj and remat, the SAM mask decoder and the
+               [SEG]/[LOC] heads trained) and trains it under `STAGE2_LORA`
+               on one B=4, S=512 batch of `train.make_stage2_batch`: one warm
+               step with exact launch counts (the weight-only K10 and K12
+               on every SAM encode, no int8-activation kernel), three timed,
+               one profiled (falling loss, frozen weights bit-unchanged,
+               adapters and heads moved); then one resident encode of its
+               SAM encoder with composite bias weights and `mlp_w8a8` off,
+               the path of K13's weight-only form, with exact counts;
+  9. check   - runs small models (bf16, then int8 LLM, then an int8 SAM
                encoder in the block and in the resident layout, then
-               three stage-1 steps under each freeze policy) on the
-               card and on the CPU (plain versions, fp32) from the same
-               weights and holds the card's outputs to the CPU reference,
-               and the resident encoder's to the block layout's; then
+               three stage-1 steps under each freeze policy, then three
+               stage-2 steps over int8 towers with LoRA) on the card and on
+               the CPU (plain versions, fp32) from the same weights and
+               holds the card's outputs to the CPU reference, and the
+               resident encoder's to the block layout's; then
                `train.train_stage1` end to end with checkpoints and resume;
-  9. summary - prints the serve and training numbers again, the card's
+ 10. summary - prints the serve and training numbers again, the card's
                name and power limit, one JSON line with every kernel's
                numbers, and last the device line.
 
@@ -110,6 +125,12 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
         end.record()
     torch.cuda.synchronize()
     return sum(start.elapsed_time(end) for start, end in ev) / iters
+
+
+def stage_ms(run, bits: dict, iters: int = 10) -> dict:
+    """{stage: ms} of `run(bits)` for each stage's bit mask of a kernel
+    entry that runs its stages alone on an earlier call's scratch."""
+    return {name: time_ms(lambda b=b: run(b), iters) for name, b in bits.items()}
 
 
 def row_rel_err(got, ref) -> float:
@@ -556,9 +577,6 @@ def sam_int8_kernel_phases(gen) -> dict:
         leaf = quant.quantize_int8(w)
         return leaf["q"], leaf["scale"]
 
-    def stage_ms(run, bits, iters=10):
-        return {name: time_ms(lambda b=b: run(b), iters) for name, b in bits.items()}
-
     # The shared int8 GEMM core at shapes that are no multiple of its
     # 128 x 128 x 64 tile (ragged rows, columns and depth), through
     # `fused_linear`, against an integer product spelled out on the CPU.
@@ -971,6 +989,198 @@ def resident_kernel_phases(gen, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# The stage-2 batch: B=4 images, so the SAM encode of one stage-2 step has
+# 16384 global-block tokens and 64 full, 32 edge and 4 corner windows.
+B_STAGE2, S_STAGE2 = 4, 512
+# The deliberate bug that the weight-only gates must catch: each source
+# that holds the shared GEMM core rebuilt with the int8 weight widened as
+# unsigned bytes.
+WQ_MUTANTS = {src: (src, "ULLAVA_MUTANT_WQ_UNSIGNED") for src in ("ln_linear_wq.cu", "mlp_block_wq.cu")}
+WQ_NAMES = ("fused_ln_linear_wq", "fused_ln_linear_dual_wq", "fused_mlp_block_wq")
+
+
+def weight_only_kernel_phases(gen, results: dict) -> None:
+    """The weight-only (`w8a8=False`) forms of K10, K13 and K12 against
+    their plain versions at the shapes of one B=4 ViT-H encode: 16384
+    global-block rows, C 1280, F 5120; K13 on the full (64 windows stored
+    as 200 rows, 196 with bias terms), edge-pair (32 x 112) and corner (4 x
+    64) classes.
+
+    Gate: bf16 outputs (and the LN'd bf16 rows, and K12's bf16 GELU
+    output) by `row_rel_err` within 1e-2, one bf16 ulp of a row's largest
+    value: both sides take the same bf16 operands and fp32 sums in other
+    orders. Each gate must reject mutated runs: the weight scale applied
+    per tensor, the LN bias, the residual, fc1's bias or the second bias
+    dropped, `rows2` ignored, and the kernel source rebuilt with the int8
+    weight widened as unsigned bytes (`WQ_MUTANTS`). Bounds: the bf16 peak
+    for the products, HBM for the int8 weights and the activations. The
+    library chain: `F.layer_norm`, `w_q.to(bf16)`, `torch.matmul`, then
+    scale and bias."""
+    import torch
+    import torch.nn.functional as F
+
+    from ullava_tpu_torch import kernels
+    from ullava_tpu_torch.ops import mlp_kernel, quant
+
+    dev, bf = "cuda", torch.bfloat16
+    tol, eps = 1e-2, 1e-6
+    T, C, Fw, H, W = B_STAGE2 * 4096, 1280, 5120, 16, 14
+    F1, F2 = 3 * C, 2 * H * (2 * W - 1)
+
+    def randn(*shape, scale=1.0, shift=0.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
+
+    def weight(K, N):
+        leaf = quant.quantize_int8(torch.randn((K, N), generator=gen, device=dev) * 0.05)
+        return leaf["q"], leaf["scale"]
+
+    def gate(name, info, mutants, ref):
+        must(name, all(v <= tol for k, v in info.items() if k.endswith("row_rel_err")), info)
+        info["mutant_row_rel_err"] = {
+            m: must_not(name, m, row_rel_err(out, ref) <= tol, row_rel_err(out, ref))
+            for m, out in mutants.items()}
+        info["tol"] = tol
+
+    def lin_chain(xn, wq, ws, bias):  # the library yardstick's product, scale and bias
+        return torch.matmul(xn, wq.to(bf)).float() * ws + bias.float()
+
+    x = randn(T, C, scale=2.0, shift=0.3)
+    g, b = randn(C, scale=0.1, shift=1.0), randn(C, scale=0.1)
+
+    # K10: LN1 + qkv, and proj + residual, of the global blocks.
+    forms = {}
+    for form, N, ln in (("ln_qkv", F1, True), ("proj_residual", C, False)):
+        wq, ws = weight(C, N)
+        bias = randn(N, scale=0.5)
+        res = None if ln else randn(T, N)
+        lg, lb = (g, b) if ln else (None, None)
+        args = (x, lg, lb, wq, ws, bias, eps)
+        ref = mlp_kernel._ln_linear_parts_plain(*args, False, res)[0]
+        got, xn = mlp_kernel._ln_linear_wq_cuda(*args, res)
+        torch.cuda.synchronize()
+        info = {"row_rel_err": row_rel_err(got, ref)}
+        if ln:
+            info["ln_rows_row_rel_err"] = row_rel_err(xn, mlp_kernel._ln_f32(x.float(), g, b, eps).to(bf))
+        mutants = {"per_tensor_scale": mlp_kernel._ln_linear_wq_cuda(
+            x, lg, lb, wq, ws.mean().expand_as(ws).contiguous(), bias, eps, res)[0]}
+        if ln:
+            mutants["ln_bias_dropped"] = mlp_kernel._ln_linear_wq_cuda(
+                x, lg, torch.zeros_like(lb), wq, ws, bias, eps, res)[0]
+        else:
+            mutants["residual_dropped"] = mlp_kernel._ln_linear_wq_cuda(*args, None)[0]
+        with kernels.mutant(*WQ_MUTANTS["ln_linear_wq.cu"]):
+            mutants["weight_widened_unsigned"] = mlp_kernel._ln_linear_wq_cuda(*args, res)[0]
+        gate(f"fused_ln_linear_wq {form}", info, mutants, ref)
+        del mutants
+
+        def library(lg=lg, lb=lb, wq=wq, ws=ws, bias=bias, res=res):
+            xn_ = F.layer_norm(x, (C,), lg, lb, eps) if lg is not None else x
+            y = lin_chain(xn_, wq, ws, bias)
+            return (y if res is None else y + res.float()).to(bf)
+
+        in_out = nbytes(x, wq, ws, bias, got) + (nbytes(g, b) if ln else nbytes(res))
+        line = kernel_line(
+            "fused_ln_linear_wq", (got.float() - ref.float()).abs().max().item(), info,
+            lambda a=args, r=res: mlp_kernel._ln_linear_wq_cuda(*a, r),
+            lambda a=args, r=res: mlp_kernel._ln_linear_parts_plain(*a, False, r),
+            library, in_out, 2.0 * T * C * N, iters=10)
+        if ln:
+            line["stage_ms"] = stage_ms(lambda bits, a=args, sc=xn: mlp_kernel._ln_linear_wq_cuda(
+                *a, None, stages=bits, scratch=sc), {"row_pass": 1, "gemm": 2})
+        line["shape"] = [T, C, N]
+        forms[form] = line
+        del ref, got, xn, res
+    results["fused_ln_linear_wq"] = {**forms["ln_qkv"], "proj_residual_form": {
+        k: v for k, v in forms["proj_residual"].items()
+        if k not in ("name", "route", "source", "replaces")}}
+    torch.cuda.empty_cache()
+
+    # K13: LN1 + qkv + the composite bias columns of each class tensor.
+    (wq, ws), (w2, s2) = weight(C, F1), weight(C, F2)
+    bias, bias2 = randn(F1, scale=0.5), randn(F2, scale=0.5, dtype=torch.float32)
+    wargs = (g, b, wq, ws, bias, w2, s2, bias2, eps)
+    forms = {}
+    for form, N, Tw, rows2 in (("full", B_STAGE2 * 16, 200, 196), ("edge_pair", B_STAGE2 * 8, 112, 112),
+                               ("corner", B_STAGE2, 64, 64)):
+        xw = randn(N, Tw, C, scale=2.0, shift=0.3)
+        ry, rp = mlp_kernel._ln_linear_dual_parts_plain(xw, *wargs, False, rows2)[:2]
+        y, p, xn = mlp_kernel._ln_linear_dual_wq_cuda(xw, *wargs, rows2)
+        torch.cuda.synchronize()
+        info = {"row_rel_err": row_rel_err(y, ry), "bias_terms_row_rel_err": row_rel_err(p, rp)}
+        mutants = {"bias2_dropped": mlp_kernel._ln_linear_dual_wq_cuda(
+            xw, *wargs[:7], torch.zeros_like(bias2), eps, rows2)[1]}
+        if rows2 != Tw:
+            untrimmed = mlp_kernel._ln_linear_dual_wq_cuda(xw, *wargs, Tw)[1]
+            mutants["rows2_ignored"] = untrimmed.reshape(-1, F2)[:N * rows2].reshape(N, rows2, F2)
+        with kernels.mutant(*WQ_MUTANTS["ln_linear_wq.cu"]):
+            mutants["weight_widened_unsigned"] = mlp_kernel._ln_linear_dual_wq_cuda(xw, *wargs, rows2)[1]
+        gate(f"fused_ln_linear_dual_wq {form}", info, mutants, rp)
+        del mutants
+
+        def library(xw=xw, rows2=rows2):
+            xn_ = F.layer_norm(xw, (C,), g, b, eps)
+            return (lin_chain(xn_, wq, ws, bias).to(bf),
+                    (torch.matmul(xn_, w2.to(bf)).float() * s2 + bias2).to(bf)[:, :rows2])
+
+        line = kernel_line(
+            "fused_ln_linear_dual_wq",
+            max((y.float() - ry.float()).abs().max().item(), (p.float() - rp.float()).abs().max().item()),
+            info, lambda xw=xw, r=rows2: mlp_kernel._ln_linear_dual_wq_cuda(xw, *wargs, r),
+            lambda xw=xw, r=rows2: mlp_kernel._ln_linear_dual_parts_plain(xw, *wargs, False, r),
+            library, nbytes(xw, g, b, wq, ws, bias, w2, s2, bias2, y, p),
+            2.0 * C * (N * Tw * F1 + N * rows2 * F2), iters=10)
+        line["stage_ms"] = stage_ms(
+            lambda bits, xw=xw, r=rows2, sc=xn: mlp_kernel._ln_linear_dual_wq_cuda(
+                xw, *wargs, r, stages=bits, scratch=sc),
+            {"row_pass": 1, "gemm_qkv": 2, "gemm_bias_terms": 4})
+        line["shape"] = [N, Tw, C, F1, F2, rows2]
+        forms[form] = line
+        del xw, y, p, xn, ry, rp
+    results["fused_ln_linear_dual_wq"] = {**forms["full"], **{
+        f"{name}_form": {k: v for k, v in forms[name].items()
+                         if k not in ("name", "route", "source", "replaces")}
+        for name in ("edge_pair", "corner")}}
+    torch.cuda.empty_cache()
+
+    # K12: one global block's MLP.
+    (w1, s1), (w2, s2) = weight(C, Fw), weight(Fw, C)
+    b1, b2 = randn(Fw, scale=0.5), randn(C, scale=0.5)
+    args = (x, g, b, w1, s1, b1, w2, s2, b2, eps)
+    ref = mlp_kernel._mlp_block_parts_plain(*args, 1024, False)[0]
+    got, xn, h = mlp_kernel._mlp_block_wq_cuda(*args)
+    torch.cuda.synchronize()
+    xn_ref = mlp_kernel._ln_f32(x.float(), g, b, eps).to(bf)
+    h_ref = mlp_kernel._gelu_exact(xn_ref.float() @ w1.float() * s1 + b1.float()).to(bf)
+    info = {"row_rel_err": row_rel_err(got, ref), "h_row_rel_err": row_rel_err(h, h_ref)}
+    mutants = {
+        "per_tensor_fc1_scale": mlp_kernel._mlp_block_wq_cuda(
+            x, g, b, w1, s1.mean().expand_as(s1).contiguous(), b1, w2, s2, b2, eps)[0],
+        "fc1_bias_dropped": mlp_kernel._mlp_block_wq_cuda(
+            x, g, b, w1, s1, torch.zeros_like(b1), w2, s2, b2, eps)[0],
+    }
+    with kernels.mutant(*WQ_MUTANTS["mlp_block_wq.cu"]):
+        mutants["weight_widened_unsigned"] = mlp_kernel._mlp_block_wq_cuda(*args)[0]
+    gate("fused_mlp_block_wq", info, mutants, ref)
+    del mutants, xn_ref, h_ref
+
+    def library_mlp():
+        xn_ = F.layer_norm(x, (C,), g, b, eps)
+        h_ = F.gelu(lin_chain(xn_, w1, s1, b1)).to(bf)
+        return (lin_chain(h_, w2, s2, b2) + x.float()).to(bf)
+
+    results["fused_mlp_block_wq"] = kernel_line(
+        "fused_mlp_block_wq", (got.float() - ref.float()).abs().max().item(), info,
+        lambda: mlp_kernel._mlp_block_wq_cuda(*args),
+        lambda: mlp_kernel._mlp_block_parts_plain(*args, 1024, False), library_mlp,
+        nbytes(x, g, b, w1, s1, b1, w2, s2, b2, got), 4.0 * T * C * Fw, iters=10)
+    results["fused_mlp_block_wq"]["stage_ms"] = stage_ms(
+        lambda bits: mlp_kernel._mlp_block_wq_cuda(*args, stages=bits, scratch=(xn, h)),
+        {"row_pass": 1, "fc1": 2, "fc2": 4})
+    results["fused_mlp_block_wq"]["shape"] = [T, C, Fw]
+    del ref, got, xn, h, x, w1, w2
+    torch.cuda.empty_cache()
+
+
 # The training shapes: B=4 sequences of 1024 tokens, LLaMA-7B's 32 heads
 # of 128; ragged kv_lens for the kernel phase.
 B_TRAIN, S_TRAIN = 4, 1024
@@ -1169,7 +1379,7 @@ SAM_LAUNCHES = {"fused_window_attention_grid": 28, "fused_global_attention": 4,
                 "fused_ln_linear_dual": 0, "fused_window_attention_rect": 0}
 # The training path's kernels launch in no serve.
 IDLE_IN_SERVING = {"flash_attention_fwd_lse": 0, "flash_attention_bwd_dkv": 0,
-                   "flash_attention_bwd_dq": 0, "rms_norm_bwd": 0}
+                   "flash_attention_bwd_dq": 0, "rms_norm_bwd": 0, **{k: 0 for k in WQ_NAMES}}
 BF16_LAUNCHES = {"fused_rotary": 64, "flash_attention_fwd_bsh": 32, **SAM_LAUNCHES,
                  "rms_norm_fwd": 65 * (1 + NEW_TOKENS),
                  "rms_norm_residual_quant": 0, "silu_mul_quant": 0,
@@ -1326,7 +1536,7 @@ def _fingerprint(t):
     """An exact checksum of a tensor's bits (any one changed value moves it)."""
     import torch
 
-    bits = t.detach().view(torch.int16 if t.element_size() == 2 else torch.int32)
+    bits = t.detach().view({1: torch.int8, 2: torch.int16, 4: torch.int32}[t.element_size()])
     return int(bits.sum(dtype=torch.int64)), int((bits.long() * bits.long()).sum())
 
 
@@ -1415,6 +1625,212 @@ def stage1_train_phase(gen) -> dict:
     return line
 
 
+def stage2_config():
+    """The stage-2 model as `models/build.py` makes it from
+    `configs/train/ullava_lora.yaml` with `quantize: 'int8_towers'`, at full
+    width: CLIP ViT-L/14 (frozen), the MLP projector (frozen), LLaMA-7B in
+    bf16 with remat per layer and the streamed CE (finetuning: no detach),
+    SAM ViT-H (the image encoder's window layout the default, resident; the
+    prompt encoder and mask decoder in fp32, as `sam_vit_h` leaves them),
+    three mask and box slots, masks scored at the 1024 frame."""
+    import torch
+
+    from ullava_tpu_torch.models import clip_vit, llama, ullava, ullava_core
+    from ullava_tpu_torch.models.sam import build as sam_build
+
+    core = ullava_core.UllavaCoreConfig(
+        llm=llama.LlamaConfig(vocab_size=32011, remat=True),
+        vision=clip_vit.CLIPVisionConfig(), vision_hidden_layer=-2,
+        img_start_id=32001, img_end_id=32002, vid_start_id=32004, vid_end_id=32005,
+        projector_from_scratch=False, fused_ce=True,
+    )
+    return ullava.UllavaConfig(core=core, sam=sam_build.sam_vit_h(torch.bfloat16),
+                               seg_token_idx=32007, loc_token_idx=32008,
+                               max_masks=3, max_boxes=3, mask_loss_frame=1024)
+
+
+# Launches of one stage-2 step at B=4: the LLM as in stage 1 (32 layers
+# under remat); one weight-only SAM encode under no_grad in the resident
+# layout without composite weights. Each of the 28 window blocks runs
+# three class tensors (full 64 x 196, the merged right and bottom 32 x
+# 112, corner 4 x 64): LN1+qkv and proj+residual on each (K10 weight-only
+# 6 times), the window kernel on the full class, the boundary kernel on
+# the other two; of their MLPs only the merged pair's 3584 rows clear the
+# fused MLP's 512-row gate (12544 and 256 take the plain chain). The 4
+# global blocks: LN1+qkv, proj+residual, lane-sliced attention (fp32
+# exponentials) and the fused MLP. No int8-activation and no serving
+# kernel launches.
+STAGE2_LAUNCHES = {**{k: 0 for k in BF16_LAUNCHES}, "flash_attention_fwd_lse": 64,
+                   "flash_attention_bwd_dkv": 32, "flash_attention_bwd_dq": 32,
+                   "rms_norm_bwd": 65, "rms_norm_fwd": 129,
+                   "fused_window_attention_grid": 28, "fused_window_attention_rect": 28 * 2,
+                   "fused_global_attention_y": 4, "fused_ln_linear_wq": 28 * 6 + 4 * 2,
+                   "fused_mlp_block_wq": 28 + 4}
+# The same encode with composite bias weights: the dual LN1+qkv on the
+# three classes, the full class stored as 200 rows, so its 12800 rows
+# clear the MLP's gate too.
+WQ_ENCODE_LAUNCHES = {**{k: 0 for k in BF16_LAUNCHES}, "fused_window_attention_grid": 28,
+                      "fused_window_attention_rect": 28 * 2, "fused_global_attention_y": 4,
+                      "fused_ln_linear_dual_wq": 28 * 3, "fused_ln_linear_wq": 28 * 3 + 4 * 2,
+                      "fused_mlp_block_wq": 28 * 2 + 4}
+
+
+def _check_launches(phase, launches, expect):
+    wrong = {k: (launches[k], n) for k, n in expect.items() if launches[k] != n}
+    if wrong or set(expect) != set(launches):
+        raise AssertionError(f"{phase}: launches (got, expected) {wrong}; all {launches}")
+
+
+def stage2_train_phase(gen) -> tuple:
+    """The stage-2 path: fresh full-width weights from the seeded
+    generator, `train.build_stage2` (int8 towers, LoRA r=8 alpha 16 on
+    q_proj and v_proj), one B=4, S=512 batch of `train.make_stage2_batch`
+    (bench.py's layout: [SEG] and [LOC] after the image span, one valid
+    mask and box slot of three), the `STAGE2_LORA` policy, AdamW lr 2e-4
+    (constant after the schedule's one warmup step at 0), clip 1.0. One
+    warm step with the launch counts set to 0 just before it and read just
+    after (`STAGE2_LAUNCHES`), three timed steps, one profiled. Checks:
+    finite losses, the last below the first; every frozen leaf
+    bit-unchanged (int64 checksums of its bits); every adapter, the
+    embeddings, lm_head and the three heads moved (the mask decoder's
+    moved leaves are counted). Then
+    `weight_only_encode_phase` on the same encoder. Returns both lines."""
+    import math
+
+    import torch
+
+    from ullava_tpu_torch import kernels, train
+    from ullava_tpu_torch.models import ullava
+    from ullava_tpu_torch.training import optim
+    from ullava_tpu_torch.training.train_step import STAGE2_AUX
+
+    cfg = stage2_config()
+    t0 = time.perf_counter()
+    params = ullava.init_params(cfg, gen, "cuda")
+    cfg, params = train.build_stage2(cfg, params, quantize="int8_towers", lora_r=8, lora_alpha=16)
+    batch = train.make_stage2_batch(cfg, B_STAGE2, S_STAGE2, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    state, step, _ = train.build_stage2_step(
+        cfg, params, {"learning_rate": 2e-4, "lr_scheduler_type": "constant"}, total_steps=5)
+    leaves = list(optim.named_leaves(state.params))
+    trained = [(n, t) for n, t in leaves if t.requires_grad]
+    frozen = [(n, t) for n, t in leaves if not t.requires_grad]
+    frozen_before = [_fingerprint(t) for _, t in frozen]
+    train_before = [t.detach().clone() for _, t in trained]
+
+    def timed_step():
+        nonlocal state
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        vals = {k: m[k].float().item() for k in ("loss", "grad_norm", *STAGE2_AUX)}
+        return vals, time.perf_counter() - t
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    first, first_s = timed_step()
+    launches = kernels.launch_counts()
+    log(f"[stage2_train] launches of one step {json.dumps(launches)}")
+    _check_launches("stage2_train", launches, STAGE2_LAUNCHES)
+    runs = [timed_step() for _ in range(3)]
+    metrics = [first] + [r[0] for r in runs]
+    step_s = sorted(r[1] for r in runs)[1]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile = profile_serve(lambda: (None, timed_step()[1]))
+    losses = [m["loss"] for m in metrics]
+    if not all(math.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"stage2_train: non-finite metrics {metrics}")
+    if not losses[-1] < losses[0] or min(m["grad_norm"] for m in metrics) <= 0:
+        raise AssertionError(f"stage2_train: the loss did not fall: {metrics}")
+    # (path, moved) of every trainable leaf; paths repeat across layers.
+    moved = [(n, not torch.equal(a, t)) for a, (n, t) in zip(train_before, trained)]
+    stuck = [n for n, m in moved if not m and not n.startswith("sam/mask_decoder")]
+    if stuck or frozen_before != [_fingerprint(t) for _, t in frozen]:
+        changed = [n for (n, t), fp in zip(frozen, frozen_before) if _fingerprint(t) != fp]
+        raise AssertionError(f"stage2_train: not moved {stuck}, frozen changed {changed}")
+    # The mask decoder's unused mask tokens and hypernetworks (one mask
+    # output a prompt) and its attention key biases get no gradient.
+    decoder = [m for n, m in moved if n.startswith("sam/mask_decoder")]
+    busy = profile["device_busy_s"]
+    line = {
+        "phase": "stage2_train", "batch": B_STAGE2, "seq": S_STAGE2,
+        "image_tokens": cfg.core.vision.num_patches, "mask_loss_frame": cfg.mask_loss_frame,
+        "policy": "STAGE2_LORA", "lora_r": 8, "lora_scale": cfg.core.llm.lora_scale,
+        "towers": "int8 weight-only", "lr": 2e-4, "clip": 1.0, "remat": True, "init_s": init_s,
+        "first_step_s": first_s, "step_s": step_s, "step_runs_s": [r[1] for r in runs],
+        "images_per_s": B_STAGE2 / step_s, "tokens_per_s": B_STAGE2 * S_STAGE2 / step_s,
+        "losses": losses, "grad_norms": [m["grad_norm"] for m in metrics],
+        **{k: [m[k] for m in metrics] for k in STAGE2_AUX},
+        "peak_mem_gb": peak_gb, "trainable_leaves": len(trained),
+        "trainable_leaves_moved": sum(m for _, m in moved),
+        "mask_decoder_leaves_moved": [sum(decoder), len(decoder)],
+        "frozen_leaves_unchanged": len(frozen),
+        "profiled_step_wall_s": profile["wall_s"], "device_busy_s": busy,
+        "device_idle_share": profile["device_idle_share"],
+        "top_device_ms": dict(list(profile["top_device_ms"].items())[:8]),
+        "top_device_calls": dict(list(profile["top_device_calls"].items())[:8]),
+        "launches": launches,
+    }
+    print(json.dumps(line), flush=True)
+    del state, step, leaves, trained, frozen, train_before
+    torch.cuda.empty_cache()
+    encode_line = weight_only_encode_phase(cfg, params, batch["images_sam"])
+    del params, batch
+    torch.cuda.empty_cache()
+    return line, encode_line
+
+
+def weight_only_encode_phase(cfg, params, images_sam) -> dict:
+    """One resident SAM encode with the int8 towers' weights, `mlp_w8a8`
+    off and the composite bias weights (`precompute_window_bias_weights`):
+    the path on which K13's weight-only form runs (`bench.py`'s serve with
+    `BENCH_W8A8=0`). Launch counts set to 0 just before it and read just
+    after (`WQ_ENCODE_LAUNCHES`); the embeddings finite, of their shape, and
+    within 5e-2 of their largest value of the stage-2 step's encode (no
+    composite weights: the standalone bias terms, in bf16). Three timed
+    encodes of each."""
+    import torch
+
+    from ullava_tpu_torch import kernels
+    from ullava_tpu_torch.models.sam import image_encoder
+
+    enc = params["sam"]["image_encoder"]
+    vcfg = cfg.sam.vision
+    t0 = time.perf_counter()
+    with_bw = image_encoder.precompute_window_bias_weights(enc, vcfg)
+    torch.cuda.synchronize()
+    bias_weights_s = time.perf_counter() - t0
+
+    def timed(p):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = image_encoder.encode(p, vcfg, images_sam)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    kernels.reset_launch_counts()
+    emb, first_s = timed(with_bw)
+    launches = kernels.launch_counts()
+    _check_launches("weight_only_encode", launches, WQ_ENCODE_LAUNCHES)
+    ref = image_encoder.encode(enc, vcfg, images_sam)
+    err = ((emb.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+    if tuple(emb.shape) != (B_STAGE2, 64, 64, 256) or not torch.isfinite(emb).all() or err > 5e-2:
+        raise AssertionError(f"weight_only_encode: shape {tuple(emb.shape)}, rel err {err}")
+    runs = [timed(with_bw)[1] for _ in range(3)]
+    runs_plain = [timed(enc)[1] for _ in range(3)]
+    line = {"phase": "weight_only_encode", "batch": B_STAGE2, "mlp_w8a8": False,
+            "composite_bias_weights": True, "bias_weights_s": bias_weights_s,
+            "first_encode_s": first_s, "encode_s": sorted(runs)[1], "encode_runs_s": runs,
+            "encode_without_composite_s": sorted(runs_plain)[1],
+            "rel_err_vs_without_composite": err, "launches": launches}
+    print(json.dumps(line), flush=True)
+    del with_bw, emb, ref
+    return line
+
+
 def profile_serve(run) -> dict:
     """One serve under torch.profiler: device kernel time by name and the
     device's busy share of the wall time (the profiler's own overhead
@@ -1448,6 +1864,16 @@ def profile_serve(run) -> dict:
     }
 
 
+def _to_cpu32(tree):
+    """A CPU fp32 copy of a parameter tree; int8 weights stay int8."""
+    if isinstance(tree, dict):
+        return {k: _to_cpu32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu32(v) for v in tree]
+    t = tree.detach().cpu()
+    return t.float() if t.is_floating_point() else t
+
+
 def check_phase(gen) -> None:
     """Small models through the kernels on the card against the plain
     versions on the CPU in fp32, from the same weights: LLaMA prefill in
@@ -1466,14 +1892,6 @@ def check_phase(gen) -> None:
     from ullava_tpu_torch.models.sam import image_encoder
     from ullava_tpu_torch.ops import quant
 
-    def to_cpu32(tree):
-        if isinstance(tree, dict):
-            return {k: to_cpu32(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to_cpu32(v) for v in tree]
-        t = tree.detach().cpu()
-        return t.float() if t.is_floating_point() else t  # int8 weights stay int8
-
     def rel_err(got, ref):
         return ((got.float().cpu() - ref).abs().max() / ref.abs().max()).item()
 
@@ -1488,7 +1906,7 @@ def check_phase(gen) -> None:
     with torch.no_grad():
         got = llama.forward(lp, lcfg, input_ids=ids.cuda(), kv_lens=lens.cuda(),
                             kv_cache=llama.init_kv_cache(lcfg, 2, 200, device="cuda"))
-        ref = llama.forward(to_cpu32(lp), c32, input_ids=ids, kv_lens=lens,
+        ref = llama.forward(_to_cpu32(lp), c32, input_ids=ids, kv_lens=lens,
                             kv_cache=llama.init_kv_cache(c32, 2, 200, device="cpu"))
     errs["llama_prefill_hidden"] = max(
         rel_err(got["hidden_states"][b, :n], ref["hidden_states"][b, :n])
@@ -1502,7 +1920,7 @@ def check_phase(gen) -> None:
     qcfg = dataclasses.replace(lcfg, a8_prefill=True, kv_quant=True)
     q32 = dataclasses.replace(qcfg, dtype=torch.float32)
     qp = quant.quantize_tree(lp, quant.LLAMA_QUANT_KEYS)
-    qp32 = to_cpu32(qp)
+    qp32 = _to_cpu32(qp)
     toks = torch.as_tensor(rng.integers(0, 512, size=(2, 2, 1)))
     with torch.no_grad():
         cache = llama.init_kv_cache(qcfg, 2, 202, device="cuda")
@@ -1532,7 +1950,7 @@ def check_phase(gen) -> None:
     text = torch.as_tensor(rng.standard_normal((1, 1, 256)).astype(np.float32))
     with torch.no_grad():
         emb = image_encoder.encode(sp["image_encoder"], scfg.vision, img.cuda())
-        sp32 = to_cpu32(sp)
+        sp32 = _to_cpu32(sp)
         emb_ref = image_encoder.encode(sp32["image_encoder"], s32.vision, img)
         masks, _ = sam_build.forward_masks(sp, scfg, emb, text.cuda())
         masks_ref, _ = sam_build.forward_masks(sp32, s32, emb_ref, text)
@@ -1558,7 +1976,7 @@ def check_phase(gen) -> None:
     with torch.no_grad():
         emb = image_encoder.encode(ep, v8, img.cuda())
         emb_ref = image_encoder.encode(
-            to_cpu32(ep), dataclasses.replace(v8, dtype=torch.float32), img)
+            _to_cpu32(ep), dataclasses.replace(v8, dtype=torch.float32), img)
     torch.cuda.synchronize()
     ran = {k: n - before[k] for k, n in kernels.launch_counts().items() if n != before[k]}
     if ran != {"fused_window_attention_grid": 1, "fused_ln_linear": 2,
@@ -1584,7 +2002,7 @@ def check_phase(gen) -> None:
         ran = {k: n - before[k] for k, n in kernels.launch_counts().items() if n != before[k]}
         emb_block = image_encoder.encode(rp, v8, img4.cuda())
         emb_ref = image_encoder.encode(
-            to_cpu32(rp), dataclasses.replace(vres, dtype=torch.float32), img4)
+            _to_cpu32(rp), dataclasses.replace(vres, dtype=torch.float32), img4)
     if ran != {"fused_ln_linear_dual": 3, "fused_window_attention_grid": 1,
                "fused_window_attention_rect": 2, "fused_ln_linear": 5,
                "fused_global_attention_y": 1, "fused_mlp_block": 3}:
@@ -1592,7 +2010,8 @@ def check_phase(gen) -> None:
     errs["resident_int8_sam_image_embeddings"] = rel_err(emb, emb_ref)
     errs["resident_vs_block_int8_sam_image_embeddings"] = rel_err(emb, emb_block.float().cpu())
     del rp, ep, emb, emb_block, emb_ref
-    check_stage1(gen, to_cpu32, errs)
+    check_stage1(gen, errs)
+    check_stage2(gen, errs)
     # bf16 activations on the card against fp32 on the CPU; on the int8
     # path they also quantize to neighbouring int8 steps here and there.
     tol = 5e-2
@@ -1602,7 +2021,7 @@ def check_phase(gen) -> None:
         raise AssertionError(f"card disagrees with the CPU reference: {bad}")
 
 
-def check_stage1(gen, to_cpu32, errs: dict) -> None:
+def check_stage1(gen, errs: dict) -> None:
     """Stage 1 at hd 128 (LLaMA 2 x 256 wide, 2 heads; tiny CLIP): three
     steps on the card (bf16, through K15-K18 and K9) against the same
     steps in fp32 on the CPU (plain versions) from the same weights, under
@@ -1636,7 +2055,7 @@ def check_stage1(gen, to_cpu32, errs: dict) -> None:
             vision=dataclasses.replace(c.vision, dtype=torch.float32))
         params = ullava_core.init_params(c, gen, "cuda")
         state, step, _ = train.build_stage1(c, params, tcfg, 4)
-        state32, step32, _ = train.build_stage1(c32, to_cpu32(params), tcfg, 4)
+        state32, step32, _ = train.build_stage1(c32, _to_cpu32(params), tcfg, 4)
         before = kernels.launch_counts()
         for i in range(3):
             state, m = step(state, batch)
@@ -1660,6 +2079,72 @@ def check_stage1(gen, to_cpu32, errs: dict) -> None:
             raise AssertionError(f"train_stage1: steps {final.step}, {resumed.step}; {ckpts}")
 
 
+def check_stage2(gen, errs: dict) -> None:
+    """Stage 2 at a small depth that keeps the widths the SAM kernels are
+    built for (img 1024, grid 64, window 14, 8 heads of 80 so that a head
+    slab is 128-aligned, F 2560; one window and one global block) and
+    LLaMA at hd 128 (2 x 256 wide, 2 heads; tiny CLIP), built by
+    `train.build_stage2` (int8 towers, LoRA r=8) with random rel-pos
+    tables: three steps on the card (bf16, through the weight-only K10 and
+    K12, K3, K14, K11, K15-K18, K9) against the same steps in fp32 on the
+    CPU (plain versions) from the same weights, B=2, S=200 with a short
+    second row, masks scored at the 256 frame: the loss and the gradient
+    norm of each step into `errs`, exact launch counts."""
+    import torch
+
+    from ullava_tpu_torch import kernels, train
+    from ullava_tpu_torch.models import clip_vit, llama, ullava, ullava_core
+    from ullava_tpu_torch.models.sam import build as sam_build
+    from ullava_tpu_torch.models.sam import image_encoder
+
+    cfg = ullava.UllavaConfig(
+        core=ullava_core.UllavaCoreConfig(
+            llm=llama.LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                                  num_layers=2, num_heads=2, num_kv_heads=2, remat=True),
+            vision=clip_vit.CLIPVisionConfig.tiny(dtype=torch.bfloat16),
+            img_start_id=500, img_end_id=501, vid_start_id=502, vid_end_id=503,
+            projector_from_scratch=False),
+        sam=sam_build.SamConfig(vision=image_encoder.SamVisionConfig(
+            embed_dim=640, depth=2, num_heads=8, global_attn_indexes=(1,), out_chans=256)),
+        seg_token_idx=504, loc_token_idx=505, mask_loss_frame=256,
+    )
+    params = ullava.init_params(cfg, gen, "cuda")
+    enc = params["sam"]["image_encoder"]
+    for blk in enc["window_blocks"] + enc["global_blocks"]:
+        for key in ("rel_pos_h", "rel_pos_w"):
+            blk[key].normal_(0, 0.5, generator=gen)
+    cfg, params = train.build_stage2(cfg, params)
+    f32 = torch.float32
+    cfg32 = dataclasses.replace(
+        cfg, core=dataclasses.replace(
+            cfg.core, llm=dataclasses.replace(cfg.core.llm, dtype=f32),
+            vision=dataclasses.replace(cfg.core.vision, dtype=f32)),
+        sam=dataclasses.replace(cfg.sam, vision=dataclasses.replace(cfg.sam.vision, dtype=f32)))
+    batch = train.make_stage2_batch(cfg, 2, 200, seed=2, device="cuda")
+    batch["attn_lens"] = torch.tensor([200, 131], dtype=torch.int32, device="cuda")
+    batch32 = {k: v.cpu() for k, v in batch.items()}
+    tcfg = {"learning_rate": 1e-3, "lr_scheduler_type": "constant"}
+    state32, step32, _ = train.build_stage2_step(cfg32, _to_cpu32(params), tcfg, 4)
+    state, step, _ = train.build_stage2_step(cfg, params, tcfg, 4)
+    before = kernels.launch_counts()
+    for i in range(3):
+        state, m = step(state, batch)
+        state32, m32 = step32(state32, batch32)
+        for key in ("loss", "grad_norm"):
+            ref = m32[key].item()
+            errs[f"stage2_{key}_{i}"] = abs(m[key].float().item() - ref) / abs(ref)
+    torch.cuda.synchronize()
+    ran = {k: n - before[k] for k, n in kernels.launch_counts().items() if n != before[k]}
+    # Per step: the window block's three classes (LN1+qkv, proj) and the
+    # global block's two linears; only the global block's 8192 rows clear
+    # the MLP's gate.
+    if ran != {"fused_ln_linear_wq": 3 * 8, "fused_mlp_block_wq": 3, "fused_window_attention_grid": 3,
+               "fused_window_attention_rect": 3 * 2, "fused_global_attention_y": 3,
+               "flash_attention_fwd_lse": 12, "flash_attention_bwd_dkv": 6,
+               "flash_attention_bwd_dq": 6, "rms_norm_fwd": 27, "rms_norm_bwd": 15}:
+        raise AssertionError(f"the small stage-2 step launched {ran}")
+
+
 def main() -> int:
     import torch
 
@@ -1672,7 +2157,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    built = kernels.build_all(verbose=True, mutants=TRAIN_MUTANTS.values())
+    built = kernels.build_all(verbose=True, mutants=[*TRAIN_MUTANTS.values(), *WQ_MUTANTS.values()])
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "sources": sorted(built)}), flush=True)
 
@@ -1684,6 +2169,7 @@ def main() -> int:
     resident_kernel_phases(gen, results)
     resident_names = ("fused_ln_linear_dual", "fused_window_attention_rect")
     train_kernel_phases(gen, results)
+    weight_only_kernel_phases(gen, results)
 
     from ullava_tpu_torch.models import ullava
 
@@ -1739,23 +2225,31 @@ def main() -> int:
     # The training path, on fresh stage-1 weights once the serving model
     # is freed.
     train_line = stage1_train_phase(gen)
+    # Stage 2 on fresh weights, then the weight-only encode with composite
+    # bias weights on its encoder.
+    stage2_line, wq_encode_line = stage2_train_phase(gen)
 
     # Each kernel's count on the main path that it was written for: the
     # bf16 serve for the bf16 path's four, the int8 serve for the int8
     # LLM's five, the fully int8 serve for the int8 SAM encoder's three,
     # the resident serve for the resident layout's two, one stage-1 step
-    # for the training path's four.
+    # for the training path's four, one stage-2 step for the weight-only
+    # K10 and K12, the weight-only encode with composite weights for K13's.
     for name, r in results.items():
         own = (serve_line if name in bf16_results else
                int8_line if name in int8_results else
                resident_line if name in resident_names else
-               train_line if name in TRAIN_MUTANTS else sam_int8_line)
+               train_line if name in TRAIN_MUTANTS else
+               wq_encode_line if name == "fused_ln_linear_dual_wq" else
+               stage2_line if name in WQ_NAMES else sam_int8_line)
         r["launches"] = own["launches"][name]
         r["launches_bf16_serve"] = serve_line["launches"][name]
         r["launches_int8_serve"] = int8_line["launches"][name]
         r["launches_sam_int8_serve"] = sam_int8_line["launches"][name]
         r["launches_sam_resident_serve"] = resident_line["launches"][name]
         r["launches_stage1_step"] = train_line["launches"][name]
+        r["launches_stage2_step"] = stage2_line["launches"][name]
+        r["launches_weight_only_encode"] = wq_encode_line["launches"][name]
     for r in results.values():
         print(json.dumps({"phase": "kernel", **{k: v for k, v in r.items()
                                                 if k not in ("route", "source", "replaces")}}),
@@ -1774,9 +2268,10 @@ def main() -> int:
                           "profiled_wall_s": prof["wall_s"],
                           "top_device_ms_calls": [[name[:60], ms, prof["top_device_calls"][name]]
                                                   for name, ms in top]}), flush=True)
-    print(json.dumps({**{k: v for k, v in train_line.items()
-                         if k not in ("launches", "top_device_calls")},
-                      "phase": "stage1_train_summary"}), flush=True)
+    for line in (train_line, stage2_line, wq_encode_line):
+        print(json.dumps({**{k: v for k, v in line.items()
+                             if k not in ("launches", "top_device_calls")},
+                          "phase": line["phase"] + "_summary"}), flush=True)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -142,14 +142,15 @@ def test_cuda_fused_global_attention_exp_bf16_matches_plain(cuda):
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x = _rand(cuda, 64, 128)
     wq, ws = _weight(cuda, 128, 512)
-    w2, s2 = _weight(cuda, 512, 128)
     v, bias = _rand(cuda, 128), _rand(cuda, 512)
-    with pytest.raises(NotImplementedError):
-        mlp_kernel.fused_ln_linear(x, v, v, wq, ws, bias, 1e-6, w8a8=False)
-    with pytest.raises(NotImplementedError):
-        mlp_kernel.fused_mlp_block(x, v, v, wq, ws, bias, w2, s2, v, 1e-6, w8a8=False)
-    with pytest.raises(ValueError):  # a row-major weight is refused, not copied
-        mlp_kernel.fused_ln_linear(x, v, v, wq.contiguous(), ws, bias, 1e-6)
+    # Both forms refuse a row-major weight (not copied) and a fc2 of the
+    # wrong shape; the weight-only forms have kernels of their own now
+    # (`tests/test_torch_cuda_weight_only.py`).
+    for w8a8 in (True, False):
+        with pytest.raises(ValueError, match="column-major"):
+            mlp_kernel.fused_ln_linear(x, v, v, wq.contiguous(), ws, bias, 1e-6, w8a8=w8a8)
+        with pytest.raises(ValueError, match="fc2"):
+            mlp_kernel.fused_mlp_block(x, v, v, wq, ws, bias, wq, ws, v, 1e-6, w8a8=w8a8)
     y = _rand(cuda, 1, 4096, 3 * 80)
     t = _rand(cuda, 1, 4096, 1, 64)
     with pytest.raises(NotImplementedError):

@@ -155,10 +155,15 @@ def test_cuda_rect_attention_matches_plain(cuda, geoms):
 def test_cuda_resident_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x = _rand(cuda, 2, 64, 128)
     args = _dual_args(cuda, C=128, F=256, F2=64)
-    with pytest.raises(NotImplementedError):
-        mlp_kernel.fused_ln_linear_dual(x, *args, w8a8=False)
-    with pytest.raises(ValueError):  # the second bias is f32
-        mlp_kernel.fused_ln_linear_dual(x, *args[:7], args[7].to(torch.bfloat16), 1e-6)
+    # Both forms (the weight-only one has its own kernel now,
+    # `tests/test_torch_cuda_weight_only.py`) refuse a bf16 second bias
+    # (it is f32) and a `rows2` past T.
+    for w8a8 in (True, False):
+        with pytest.raises(ValueError, match="bias2"):
+            mlp_kernel.fused_ln_linear_dual(x, *args[:7], args[7].to(torch.bfloat16), 1e-6,
+                                            w8a8=w8a8)
+        with pytest.raises(ValueError, match="rows2"):
+            mlp_kernel.fused_ln_linear_dual(x, *args, w8a8=w8a8, rows2=65)
     rect = _rect_inputs(cuda, [(14, 8)], per=2)
     with pytest.raises(ValueError, match="geometry"):
         sam_attention.fused_window_attention_rect(*rect, **_KW)

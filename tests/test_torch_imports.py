@@ -43,6 +43,9 @@ if not torch.cuda.is_available():
         ("serve", lambda: serve((cfg, None), [])),
         ("train.make_batch", lambda: train.make_batch(ullava_core.UllavaCoreConfig.tiny(), 1, 8)),
         ("train.train_stage1", lambda: train.train_stage1(cfg.core, None, [], {})),
+        ("train.make_stage2_batch", lambda: train.make_stage2_batch(cfg, 1, 8)),
+        ("train.build_stage2", lambda: train.build_stage2(cfg, None)),
+        ("train.train_stage2", lambda: train.train_stage2(cfg, None, [], {})),
     ):
         try:
             call()
@@ -65,7 +68,7 @@ def test_port_imports_no_jax_and_entry_points_need_cuda():
     assert "ullava_tpu_torch.models.sam.image_encoder" in mods
     for new in ("ops.quant", "ops.mlp_kernel", "ops.decode_attention", "ops.sam_attention",
                 "models.clip_vit", "kernels", "train", "training.optim", "training.train_step",
-                "training.checkpoint", "training.trainer"):
+                "training.checkpoint", "training.trainer", "models.loss"):
         assert f"ullava_tpu_torch.{new}" in mods
     res = subprocess.run(
         [sys.executable, "-c", _PROBE, json.dumps(mods)],
@@ -80,12 +83,13 @@ def test_port_imports_no_jax_and_entry_points_need_cuda():
         assert msg and "CUDA" in msg, (name, msg)
     assert set(out["raised"]) == {
         "ullava.init_params", "image_encoder.init_params int8", "llama.init_kv_cache",
-        "llama.init_kv_cache int8", "serve", "train.make_batch", "train.train_stage1"}
+        "llama.init_kv_cache int8", "serve", "train.make_batch", "train.train_stage1",
+        "train.make_stage2_batch", "train.build_stage2", "train.train_stage2"}
 
 
 @pytest.mark.parametrize("name", ["test_torch_cuda_bf16.py", "test_torch_cuda_int8.py",
                                   "test_torch_cuda_sam_int8.py", "test_torch_cuda_sam_resident.py",
-                                  "test_torch_cuda_train.py"])
+                                  "test_torch_cuda_train.py", "test_torch_cuda_weight_only.py"])
 def test_card_test_files_import_torch_only(name):
     """The tests that run on the card must run on a machine without JAX."""
     tree = ast.parse((REPO / "tests" / name).read_text())

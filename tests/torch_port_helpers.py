@@ -1,7 +1,14 @@
 """Shared helpers of the port's parity tests (`test_torch_*.py`)."""
 
+import dataclasses
+
 import jax
+import jax.numpy as jnp
 import numpy as np
+import torch
+
+from ullava_tpu.models import ullava as jullava
+from ullava_tpu_torch.models import ullava
 
 
 def random_params(init, cfg, seed: int, std: float = 0.1):
@@ -44,3 +51,51 @@ def assert_int8_close(got, ref):
     exactly and the rest within 1."""
     diff = np.abs(np.asarray(got, np.int32) - np.asarray(ref, np.int32))
     assert (diff <= 1).all() and (diff == 0).mean() >= 0.999, (diff.max(), (diff == 0).mean())
+
+
+# `bench.py:855-859`: the adapters as `add_lora` names them, the heads and
+# the mask decoder but its IoU head. Both packages get this tuple.
+BENCH_LORA = (
+    r"^core/llm/layers/(q|v)_proj_lora_(a|b)$",
+    r"^seg_projector/", r"^det_projector/", r"^det_decoder/",
+    r"^sam/mask_decoder/(?!iou_head)",
+)
+
+
+def stage2_cfgs(**kw):
+    """The tiny stage-2 configs of both packages (finetuning: no detach of
+    the text embeddings, as `configs/train/ullava_lora.yaml`)."""
+    jcfg = jullava.UllavaConfig.tiny(**kw)
+    jcfg = dataclasses.replace(jcfg, core=dataclasses.replace(jcfg.core, projector_from_scratch=False))
+    cfg = ullava.UllavaConfig.tiny(**kw)
+    cfg = dataclasses.replace(cfg, core=dataclasses.replace(cfg.core, projector_from_scratch=False))
+    return jcfg, cfg
+
+
+def stage2_batch(cfg, rng, B=2, S=20):
+    """`tests/test_ullava_stage2.py:125-148`'s batch: two [SEG] and one
+    [LOC] in sample 0, one of each in sample 1, a shorter second sample,
+    partly valid slots and padded SAM frames."""
+    ids = rng.integers(5, 100, size=(B, S)).astype(np.int64)
+    ids[0, 5] = ids[0, 8] = cfg.seg_token_idx
+    ids[0, 11] = cfg.loc_token_idx
+    ids[1, 4], ids[1, 7] = cfg.seg_token_idx, cfg.loc_token_idx
+    F = cfg.mask_loss_frame
+    return dict(
+        input_ids=ids, labels=ids.copy(), attn_lens=np.array([S, S - 4], np.int32),
+        images=rng.standard_normal((B, 28, 28, 3)).astype(np.float32),
+        images_sam=rng.standard_normal((B, 64, 64, 3)).astype(np.float32),
+        gt_masks=(rng.random((B, cfg.max_masks, F, F)) > 0.5).astype(np.float32),
+        mask_valid=np.array([[True, True, False], [True, False, False]]),
+        gt_boxes=rng.random((B, cfg.max_boxes, 4)).astype(np.float32),
+        box_valid=np.array([[True, False, False], [True, False, False]]),
+        input_hw=np.array([[64, 48], [32, 64]], np.int32),
+    )
+
+
+def jax_batch(batch):
+    return {k: jnp.asarray(v.astype(np.int32) if k == "input_ids" else v) for k, v in batch.items()}
+
+
+def torch_batch(batch):
+    return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}

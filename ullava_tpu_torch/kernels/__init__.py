@@ -149,6 +149,22 @@ KERNELS: Dict[str, KernelSpec] = {
             "rms_norm_bwd", "rms_norm_bwd.cu", "ullava_rms_norm_bwd",
             (P, P, P, P, P, P, I, I, I, F, P), "ullava_tpu/ops/norms.py:85",
         ),
+        # The weight-only (w8a8=False) forms of K10, K13 and K12.
+        KernelSpec(
+            "fused_ln_linear_wq", "ln_linear_wq.cu", "ullava_fused_ln_linear_wq",
+            (P, P, P, P, P, P, P, P, P, I, I, I, F, I, P),
+            "ullava_tpu/ops/mlp_kernel.py:491",
+        ),
+        KernelSpec(
+            "fused_ln_linear_dual_wq", "ln_linear_wq.cu", "ullava_fused_ln_linear_dual_wq",
+            (P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P),
+            "ullava_tpu/ops/mlp_kernel.py:622",
+        ),
+        KernelSpec(
+            "fused_mlp_block_wq", "mlp_block_wq.cu", "ullava_fused_mlp_block_wq",
+            (P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, F, I, P),
+            "ullava_tpu/ops/mlp_kernel.py:157",
+        ),
     )
 }
 

@@ -241,17 +241,14 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Loads row `xr` into a lane's registers (vectors lane, lane + 32, ...
+// of the row's C / 8) and, with LN, replaces it by its LayerNorm in fp32.
 template <bool LN>
-__global__ void __launch_bounds__(kRowWarps * 32)
-    ln_quant_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
-                         const bf16* __restrict__ beta, int8_t* __restrict__ xq,
-                         float* __restrict__ xs, int rows, int C, float eps) {
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kRowWarps + threadIdx.x / 32;
-  if (row >= rows) return;
+__device__ __forceinline__ void load_row(float (&v)[kRowMaxVec][8], const bf16* __restrict__ xr,
+                                         const bf16* __restrict__ gamma,
+                                         const bf16* __restrict__ beta, int lane, int C,
+                                         float eps) {
   const int nv = C / 8;
-  const bf16* xr = x + static_cast<size_t>(row) * C;
-  float v[kRowMaxVec][8];
   float sum = 0.f;
 #pragma unroll
   for (int i = 0; i < kRowMaxVec; ++i) {
@@ -262,33 +259,45 @@ __global__ void __launch_bounds__(kRowWarps * 32)
       for (int j = 0; j < 8; ++j) sum += v[i][j];
     }
   }
-  if (LN) {
-    const float mean = warp_sum(sum) / static_cast<float>(C);
-    float sq = 0.f;
+  if (!LN) return;
+  const float mean = warp_sum(sum) / static_cast<float>(C);
+  float sq = 0.f;
 #pragma unroll
-    for (int i = 0; i < kRowMaxVec; ++i) {
-      if (lane + i * 32 < nv) {
+  for (int i = 0; i < kRowMaxVec; ++i) {
+    if (lane + i * 32 < nv) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          v[i][j] -= mean;
-          sq += v[i][j] * v[i][j];
-        }
-      }
-    }
-    const float rstd = rsqrtf(warp_sum(sq) / static_cast<float>(C) + eps);
-#pragma unroll
-    for (int i = 0; i < kRowMaxVec; ++i) {
-      const int vec = lane + i * 32;
-      if (vec < nv) {
-        float gm[8], bt[8];
-        load_bf16x8(gamma + vec * 8, gm);
-        load_bf16x8(beta + vec * 8, bt);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          v[i][j] = __fadd_rn(__fmul_rn(__fmul_rn(v[i][j], rstd), gm[j]), bt[j]);
+      for (int j = 0; j < 8; ++j) {
+        v[i][j] -= mean;
+        sq += v[i][j] * v[i][j];
       }
     }
   }
+  const float rstd = rsqrtf(warp_sum(sq) / static_cast<float>(C) + eps);
+#pragma unroll
+  for (int i = 0; i < kRowMaxVec; ++i) {
+    const int vec = lane + i * 32;
+    if (vec < nv) {
+      float gm[8], bt[8];
+      load_bf16x8(gamma + vec * 8, gm);
+      load_bf16x8(beta + vec * 8, bt);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        v[i][j] = __fadd_rn(__fmul_rn(__fmul_rn(v[i][j], rstd), gm[j]), bt[j]);
+    }
+  }
+}
+
+template <bool LN>
+__global__ void __launch_bounds__(kRowWarps * 32)
+    ln_quant_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
+                         const bf16* __restrict__ beta, int8_t* __restrict__ xq,
+                         float* __restrict__ xs, int rows, int C, float eps) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kRowWarps + threadIdx.x / 32;
+  if (row >= rows) return;
+  const int nv = C / 8;
+  float v[kRowMaxVec][8];
+  load_row<LN>(v, x + static_cast<size_t>(row) * C, gamma, beta, lane, C, eps);
   float amax = 0.f;
 #pragma unroll
   for (int i = 0; i < kRowMaxVec; ++i) {

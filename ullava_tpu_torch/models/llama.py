@@ -1,7 +1,7 @@
 """LLaMA decoder (counterpart of `ullava_tpu/models/llama.py`:
-`LlamaConfig`, `init_params`, `init_kv_cache`, `_layer` and `forward` on the
-non-LoRA path, in bf16 or with int8 weights, W8A8 prefill and an int8 KV
-cache, and the training forward).
+`LlamaConfig`, `init_params`, `init_kv_cache`, `_layer` and `forward`, in
+bf16 or with int8 weights, W8A8 prefill and an int8 KV cache, the
+training forward, and LoRA adapters with `add_lora` / `merge_lora`).
 
 Pre-norm RMSNorm -> rotary MHA -> RMSNorm -> SwiGLU with fp32 norm
 statistics. Parameters are a dict whose `layers` entry is a list of
@@ -30,6 +30,19 @@ flash Function (K15 forward, K16 + K17 backward) and both norms through
 the RMSNorm Function (K9 forward, K18 backward); with `remat` each layer
 runs under `torch.utils.checkpoint`, so the backward recomputes it from
 its input (the JAX `jax.checkpoint` of the layer scan body).
+
+LoRA: a layer holding `{name}_lora_a` [in, r] and `{name}_lora_b` [r, out]
+adds `lora_scale * (x @ A) @ B` to that projection; such a layer never
+takes the fused norm + quantize prefill, whose int8 rows the adapters
+cannot read.
+
+One departure from the JAX package, on purpose: under autograd (grad mode
+on and the linear's input requiring grad) an int8 weight takes the
+weight-only `apply_linear`, never the W8A8 `apply_linear_a8`, whatever
+`a8_prefill` says. The per-row int8 rounding of the activations passes
+no gradient but through the abs-max (cosine about 5e-4 to the weight-only
+gradient), so a W8A8 linear would all but stop the gradient to every
+adapter and every embedding below it. Serving is unchanged.
 """
 
 from __future__ import annotations
@@ -88,6 +101,8 @@ class LlamaConfig:
     # With a8_prefill: fuse the residual add, RMSNorm and per-row int8
     # quantize at both norm sites, deferring the MLP residual one layer.
     fused_norm_quant: bool = True
+    # LoRA scaling (alpha / r); active only where *_lora_a/b leaves exist.
+    lora_scale: float = 2.0
 
     @property
     def head_dim(self) -> int:
@@ -179,7 +194,10 @@ def _layer(
     fused = pending is not None
 
     def lin(xin, w):
-        if cfg.a8_prefill and S > 1 and is_quantized(w):
+        # W8A8 for serving only: under autograd its int8 rounding would
+        # cut the gradient to the input (the module docstring).
+        grad = torch.is_grad_enabled() and xin.requires_grad
+        if cfg.a8_prefill and S > 1 and is_quantized(w) and not grad:
             return apply_linear_a8(xin, w)
         return apply_linear(xin, w)
 
@@ -195,7 +213,10 @@ def _layer(
         x = rms_norm(h, p["input_norm"], cfg.rms_norm_eps)
 
         def proj(name, heads):
-            return lin(x, p[name]).reshape(B, S, heads, hd)
+            y = lin(x, p[name])
+            if f"{name}_lora_a" in p:
+                y = y + cfg.lora_scale * ((x @ p[f"{name}_lora_a"]) @ p[f"{name}_lora_b"])
+            return y.reshape(B, S, heads, hd)
 
     q, k, v = proj("q_proj", H), proj("k_proj", Hkv), proj("v_proj", Hkv)
     if cache is not None and S > 1:
@@ -264,10 +285,12 @@ def _layer(
 
 def _use_fused_norm_quant(cfg: LlamaConfig, layer: Params, S: int) -> bool:
     """The fused add + RMSNorm + quantize prefill: W8A8 prefill with int8
-    q/gate/up weights (the JAX gate without its TPU and tile conditions)."""
+    q/gate/up weights and no LoRA adapters, which need the normed rows in
+    the compute dtype (the JAX gate without its TPU and tile conditions)."""
     return (
         cfg.fused_norm_quant and cfg.a8_prefill and S > 1
         and all(is_quantized(layer.get(k)) for k in ("q_proj", "gate_proj", "up_proj"))
+        and "q_proj_lora_a" not in layer and "v_proj_lora_a" not in layer
     )
 
 
@@ -322,3 +345,57 @@ def forward(
     h = rms_norm(h, params["norm"], cfg.rms_norm_eps)
     logits = apply_linear(h, params["lm_head"]).float() if compute_logits else None
     return {"hidden_states": h, "logits": logits, "kv_cache": kv_cache}
+
+
+# ---------------------------------------------------------------------------
+# LoRA (the reference's peft r=8, alpha=16 on q_proj and v_proj)
+# ---------------------------------------------------------------------------
+
+
+def add_lora(
+    params: Params,
+    cfg: LlamaConfig,
+    generator: Optional[torch.Generator] = None,
+    r: int = 8,
+    targets: Tuple[str, ...] = ("q_proj", "v_proj"),
+) -> Params:
+    """Attach adapters to every layer's `targets`: A gaussian / sqrt(in),
+    B zeros, so the model computes what it did. They take the weight's
+    dtype (`cfg.dtype` for an int8 base). Returns a new tree sharing the
+    base leaves."""
+    gen = generator or torch.Generator(device=params["embed_tokens"].device).manual_seed(0)
+    layers = []
+    for lp in params["layers"]:
+        lp = dict(lp)
+        for name in targets:
+            w = lp[name]
+            wt = w["q"] if is_quantized(w) else w
+            din, dout = wt.shape
+            dtype, dev = (cfg.dtype if is_quantized(w) else w.dtype), wt.device
+            lp[f"{name}_lora_a"] = normal(gen, (din, r), dtype, dev, std=din**-0.5)
+            lp[f"{name}_lora_b"] = torch.zeros((r, dout), dtype=dtype, device=dev)
+        layers.append(lp)
+    return {**params, "layers": layers}
+
+
+def merge_lora(params: Params, cfg: LlamaConfig) -> Params:
+    """Fold the adapters into the base weights (`W + lora_scale * A @ B`,
+    in fp32) and drop them. An int8 base is dequantized, folded and
+    requantized, so quantize -> add_lora -> train -> merge serves without
+    the bf16 stack."""
+    from ullava_tpu_torch.ops.quant import dequantize, quantize_int8
+
+    layers = []
+    for lp in params["layers"]:
+        lp = dict(lp)
+        for key in [k for k in lp if k.endswith("_lora_a")]:
+            base = key[: -len("_lora_a")]
+            a, b = lp.pop(key), lp.pop(base + "_lora_b")
+            delta = cfg.lora_scale * (a.float() @ b.float())
+            w = lp[base]
+            if is_quantized(w):
+                lp[base] = quantize_int8(dequantize(w, torch.float32) + delta)
+            else:
+                lp[base] = (w.float() + delta).to(w.dtype)
+        layers.append(lp)
+    return {**params, "layers": layers}

@@ -10,12 +10,15 @@
   products in int8, the polynomial-erf GELU and the GELU output
   re-quantized per row and per `f_chunk` columns.
 
-Each has its plain PyTorch version beside it, taken for CPU tensors. A
-weight `q` is `[in, out]` stored column-major (`quant.column_major`), as
-every int8 leaf of the port is; the CUDA wrappers check that and raise,
-they do not copy. The 3-D (whole windows per program) form of
-`fused_mlp_block` has no caller and is not carried over; `block_t` moves
-no value and is dropped.
+Each has its plain PyTorch version beside it, taken for CPU tensors. With
+`w8a8=False` (weight-only) the three SAM functions keep the LN'd row in
+bf16 and widen the int8 weight to bf16 inside the kernel
+(`kernels/csrc/ln_linear_wq.cu`, `mlp_block_wq.cu` on
+`bf16_wq_gemm_core.cuh`). A weight `q` is `[in, out]` stored column-major
+(`quant.column_major`), as every int8 leaf of the port is; the CUDA
+wrappers check that and raise, they do not copy. The 3-D (whole windows
+per program) form of `fused_mlp_block` has no caller and is not carried
+over; `block_t` moves no value and is dropped.
 """
 
 from __future__ import annotations
@@ -162,17 +165,18 @@ def fused_ln_linear_plain(
     return y.reshape(*x.shape[:-1], N)
 
 
-def _ln_linear_cuda(x2, ln_scale, ln_bias, w_q, w_scale, bias, eps, res2, stages=3, scratch=None):
-    """The CUDA `fused_ln_linear` on [rows, C]: (y, int8 rows, row scales).
-    `stages` selects the row pass (1) and the product (2) so that each
-    can be timed alone on the `scratch` of an earlier full call."""
+def _check_ln_linear(x2, ln_scale, ln_bias, w_q, w_scale, bias, res2, row_pass: bool) -> int:
+    """Validate the operands of a CUDA `fused_ln_linear` on [rows, C];
+    returns N. A row pass (the int8 form's quantization, or a LayerNorm)
+    holds a row in one warp's registers, so C is at most 2048 there."""
     rows, C = x2.shape
     N = _check_weight("fused_ln_linear", w_q, C)
-    if C % 16 or N % 8 or C > _MAX_LN_WIDTH:
+    if C % 16 or N % 8 or (row_pass and C > _MAX_LN_WIDTH):
         raise ValueError(
-            f"fused_ln_linear: C {C} must be a multiple of 16 up to {_MAX_LN_WIDTH}, N {N} of 8"
+            f"fused_ln_linear: C {C} must be a multiple of 16"
+            f"{f' up to {_MAX_LN_WIDTH}' if row_pass else ''}, N {N} of 8"
         )
-    dev, bf = x2.device, torch.bfloat16
+    bf = torch.bfloat16
     kernels.check_cuda_tensor("fused_ln_linear x", x2, bf)
     kernels.check_cuda_tensor("fused_ln_linear w_scale", w_scale, torch.float32)
     kernels.check_cuda_tensor("fused_ln_linear bias", bias, bf, (N,))
@@ -183,6 +187,16 @@ def _ln_linear_cuda(x2, ln_scale, ln_bias, w_q, w_scale, bias, eps, res2, stages
         kernels.check_cuda_tensor("fused_ln_linear ln_bias", ln_bias, bf, (C,))
     if res2 is not None:
         kernels.check_cuda_tensor("fused_ln_linear residual", res2, bf, (rows, N))
+    return N
+
+
+def _ln_linear_cuda(x2, ln_scale, ln_bias, w_q, w_scale, bias, eps, res2, stages=3, scratch=None):
+    """The CUDA `fused_ln_linear` on [rows, C]: (y, int8 rows, row scales).
+    `stages` selects the row pass (1) and the product (2) so that each
+    can be timed alone on the `scratch` of an earlier full call."""
+    rows, C = x2.shape
+    N = _check_ln_linear(x2, ln_scale, ln_bias, w_q, w_scale, bias, res2, row_pass=True)
+    dev, bf = x2.device, torch.bfloat16
     out = torch.empty((rows, N), dtype=bf, device=dev)
     xq, xs = scratch or (
         torch.empty((rows, C), dtype=torch.int8, device=dev),
@@ -197,6 +211,29 @@ def _ln_linear_cuda(x2, ln_scale, ln_bias, w_q, w_scale, bias, eps, res2, stages
         xq.data_ptr(), xs.data_ptr(), rows, C, N, float(eps), stages,
     )
     return out, xq, xs
+
+
+def _ln_linear_wq_cuda(x2, ln_scale, ln_bias, w_q, w_scale, bias, eps, res2, stages=3,
+                       scratch=None):
+    """The weight-only CUDA `fused_ln_linear` on [rows, C]: (y, the LN'd
+    bf16 rows or None without a LayerNorm). `stages` selects the row pass
+    (1) and the product (2) so that each can be timed alone on the
+    `scratch` of an earlier full call."""
+    rows, C = x2.shape
+    ln = ln_scale is not None
+    N = _check_ln_linear(x2, ln_scale, ln_bias, w_q, w_scale, bias, res2, row_pass=ln)
+    out = torch.empty((rows, N), dtype=torch.bfloat16, device=x2.device)
+    xn = None  # without a LayerNorm the product reads x itself
+    if ln:
+        xn = scratch if scratch is not None else torch.empty_like(x2)
+    kernels.launch(
+        "fused_ln_linear_wq", x2.data_ptr(),
+        ln_scale.data_ptr() if ln else None, ln_bias.data_ptr() if ln else None,
+        w_q.data_ptr(), w_scale.data_ptr(), bias.data_ptr(),
+        None if res2 is None else res2.data_ptr(), out.data_ptr(),
+        None if xn is None else xn.data_ptr(), rows, C, N, float(eps), stages,
+    )
+    return out, xn
 
 
 def fused_ln_linear(
@@ -214,18 +251,18 @@ def fused_ln_linear(
     fp32, the LN'd row quantized to int8 per row, an int8 x int8 product,
     `acc * (row_scale * w_scale) + bias` and one rounding to x's dtype.
     With `w8a8=False` the LN'd row goes to x's dtype instead and meets the
-    int8 weight converted to that dtype (plain version only). CUDA kernel
-    `kernels/csrc/ln_linear_int8.cu` (bf16) for CUDA tensors, the plain
-    version for CPU tensors."""
+    int8 weight converted to that dtype, the scale after the product. CUDA
+    kernels `kernels/csrc/ln_linear_int8.cu` (w8a8) and `ln_linear_wq.cu`
+    (weight-only), bf16, for CUDA tensors; the plain version for CPU
+    tensors."""
     C, N = x.shape[-1], w_q.shape[1]
     if residual is not None and residual.shape != (*x.shape[:-1], N):
         raise ValueError(f"residual {tuple(residual.shape)} does not match the output")
     if x.device.type == "cpu":
         return fused_ln_linear_plain(x, ln_scale, ln_bias, w_q, w_scale, bias, eps, w8a8, residual)
-    if not w8a8:
-        raise NotImplementedError("fused_ln_linear on the card is built for w8a8=True only")
     res2 = None if residual is None else residual.reshape(-1, N)
-    y, _, _ = _ln_linear_cuda(x.reshape(-1, C), ln_scale, ln_bias, w_q, w_scale, bias, eps, res2)
+    args = (x.reshape(-1, C), ln_scale, ln_bias, w_q, w_scale, bias, eps, res2)
+    y = (_ln_linear_cuda if w8a8 else _ln_linear_wq_cuda)(*args)[0]
     return y.reshape(*x.shape[:-1], N)
 
 
@@ -288,14 +325,11 @@ def fused_ln_linear_dual_plain(
     return (y[0], p[0]) if x.ndim == 2 else (y, p)
 
 
-def _ln_linear_dual_cuda(x3, ln_scale, ln_bias, w_q, w_scale, bias, w2_q, w2_scale, bias2, eps,
-                         rows2, stages=7, scratch=None):
-    """The CUDA `fused_ln_linear_dual` on [N, T, C]: (y, P, int8 rows, row
-    scales). `stages` selects the row pass (1), the first product (2) and
-    the second (4) so that each can be timed alone on the `scratch` of an
-    earlier full call."""
+def _check_ln_linear_dual(x3, ln_scale, ln_bias, w_q, w_scale, bias, w2_q, w2_scale, bias2,
+                         rows2) -> Tuple[int, int]:
+    """Validate the operands of a CUDA `fused_ln_linear_dual` on [N, T, C];
+    returns (F, F2)."""
     N, T, C = x3.shape
-    rows = N * T
     F = _check_weight("fused_ln_linear_dual w", w_q, C)
     F2 = _check_weight("fused_ln_linear_dual w2", w2_q, C)
     if C % 16 or F % 8 or F2 % 8 or C > _MAX_LN_WIDTH:
@@ -305,7 +339,7 @@ def _ln_linear_dual_cuda(x3, ln_scale, ln_bias, w_q, w_scale, bias, w2_q, w2_sca
         )
     if not 0 < rows2 <= T:
         raise ValueError(f"fused_ln_linear_dual: rows2 {rows2} must lie in 1..{T}")
-    dev, bf = x3.device, torch.bfloat16
+    bf = torch.bfloat16
     kernels.check_cuda_tensor("fused_ln_linear_dual x", x3, bf)
     kernels.check_cuda_tensor("fused_ln_linear_dual ln_scale", ln_scale, bf, (C,))
     kernels.check_cuda_tensor("fused_ln_linear_dual ln_bias", ln_bias, bf, (C,))
@@ -315,6 +349,20 @@ def _ln_linear_dual_cuda(x3, ln_scale, ln_bias, w_q, w_scale, bias, w2_q, w2_sca
         kernels.check_cuda_tensor(f"fused_ln_linear_dual {name}", t, torch.float32)
         if t.numel() != n:
             raise ValueError(f"fused_ln_linear_dual: {name} must hold {n} values")
+    return F, F2
+
+
+def _ln_linear_dual_cuda(x3, ln_scale, ln_bias, w_q, w_scale, bias, w2_q, w2_scale, bias2, eps,
+                         rows2, stages=7, scratch=None):
+    """The CUDA `fused_ln_linear_dual` on [N, T, C]: (y, P, int8 rows, row
+    scales). `stages` selects the row pass (1), the first product (2) and
+    the second (4) so that each can be timed alone on the `scratch` of an
+    earlier full call."""
+    N, T, C = x3.shape
+    rows = N * T
+    F, F2 = _check_ln_linear_dual(x3, ln_scale, ln_bias, w_q, w_scale, bias, w2_q, w2_scale,
+                                  bias2, rows2)
+    dev, bf = x3.device, torch.bfloat16
     y = torch.empty((N, T, F), dtype=bf, device=dev)
     p = torch.empty((N, rows2, F2), dtype=bf, device=dev)
     xq, xs = scratch or (
@@ -329,6 +377,28 @@ def _ln_linear_dual_cuda(x3, ln_scale, ln_bias, w_q, w_scale, bias, w2_q, w2_sca
         rows, C, F, F2, T, rows2, float(eps), stages,
     )
     return y, p, xq, xs
+
+
+def _ln_linear_dual_wq_cuda(x3, ln_scale, ln_bias, w_q, w_scale, bias, w2_q, w2_scale, bias2,
+                            eps, rows2, stages=7, scratch=None):
+    """The weight-only CUDA `fused_ln_linear_dual` on [N, T, C]: (y, P,
+    the LN'd bf16 rows). `stages` selects the row pass (1), the first
+    product (2) and the second (4) so that each can be timed alone on the
+    `scratch` of an earlier full call."""
+    N, T, C = x3.shape
+    F, F2 = _check_ln_linear_dual(x3, ln_scale, ln_bias, w_q, w_scale, bias, w2_q, w2_scale,
+                                  bias2, rows2)
+    dev, bf = x3.device, torch.bfloat16
+    y = torch.empty((N, T, F), dtype=bf, device=dev)
+    p = torch.empty((N, rows2, F2), dtype=bf, device=dev)
+    xn = scratch if scratch is not None else torch.empty_like(x3)
+    kernels.launch(
+        "fused_ln_linear_dual_wq", x3.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+        w_q.data_ptr(), w_scale.data_ptr(), bias.data_ptr(),
+        w2_q.data_ptr(), w2_scale.data_ptr(), bias2.data_ptr(),
+        y.data_ptr(), p.data_ptr(), xn.data_ptr(), N * T, C, F, F2, T, rows2, float(eps), stages,
+    )
+    return y, p, xn
 
 
 def fused_ln_linear_dual(
@@ -349,16 +419,16 @@ def fused_ln_linear_dual(
     quantized) rows: (LN(x) @ W + b, LN(x) @ W2 + b2), each rounded once
     to x's dtype. `rows2` (0: T) keeps only the leading `rows2` rows of
     every T in the second output: the padded window layout carries pad
-    rows in y but not in the bias-term matrix. CUDA kernel
-    `kernels/csrc/ln_linear_int8.cu` (bf16, w8a8) for CUDA tensors, the
-    plain version for CPU tensors."""
+    rows in y but not in the bias-term matrix. CUDA kernels
+    `kernels/csrc/ln_linear_int8.cu` (w8a8) and `ln_linear_wq.cu`
+    (weight-only), bf16, for CUDA tensors; the plain version for CPU
+    tensors."""
     args = (ln_scale, ln_bias, w_q, w_scale, bias, w2_q, w2_scale, bias2, eps)
     if x.device.type == "cpu":
         return fused_ln_linear_dual_plain(x, *args, w8a8, rows2)
-    if not w8a8:
-        raise NotImplementedError("fused_ln_linear_dual on the card is built for w8a8=True only")
     x3 = x[None] if x.ndim == 2 else x
-    y, p, _, _ = _ln_linear_dual_cuda(x3, *args, rows2 or x3.shape[1])
+    y, p = (_ln_linear_dual_cuda if w8a8 else _ln_linear_dual_wq_cuda)(
+        x3, *args, rows2 or x3.shape[1])[:2]
     return (y[0], p[0]) if x.ndim == 2 else (y, p)
 
 
@@ -418,21 +488,18 @@ def fused_mlp_block_plain(
     )[0]
 
 
-def _mlp_block_cuda(x, ln_scale, ln_bias, w1_q, w1_scale, b1, w2_q, w2_scale, b2, eps, f_chunk,
-                    stages=7, scratch=None):
-    """The CUDA `fused_mlp_block`: (out, xq, xs, hq, hs). `stages` selects
-    the row pass (1), fc1 (2) and fc2 (4) so that each can be timed alone
-    on the `scratch` of an earlier full call."""
+def _check_mlp_block(x, ln_scale, ln_bias, w1_q, w1_scale, b1, w2_q, w2_scale, b2) -> int:
+    """Validate the operands of a CUDA `fused_mlp_block` on [T, C];
+    returns F."""
     T, C = x.shape
     F = _check_weight("fused_mlp_block fc1", w1_q, C)
     if _check_weight("fused_mlp_block fc2", w2_q, F) != C:
         raise ValueError(f"fused_mlp_block: fc2 must be [{F}, {C}]")
-    if C % 16 or C > _MAX_LN_WIDTH or f_chunk % 128 or not 128 <= f_chunk <= 1024:
+    if C % 16 or C > _MAX_LN_WIDTH or F % 16:
         raise ValueError(
-            f"fused_mlp_block: C {C} must be a multiple of 16 up to {_MAX_LN_WIDTH} and "
-            f"f_chunk {f_chunk} a multiple of 128 up to 1024"
+            f"fused_mlp_block: C {C} must be a multiple of 16 up to {_MAX_LN_WIDTH}, F {F} of 16"
         )
-    dev, bf = x.device, torch.bfloat16
+    bf = torch.bfloat16
     kernels.check_cuda_tensor("fused_mlp_block x", x, bf)
     for name, t, n in (("ln_scale", ln_scale, C), ("ln_bias", ln_bias, C), ("b1", b1, F),
                        ("b2", b2, C)):
@@ -441,6 +508,19 @@ def _mlp_block_cuda(x, ln_scale, ln_bias, w1_q, w1_scale, b1, w2_q, w2_scale, b2
         kernels.check_cuda_tensor(f"fused_mlp_block {name}", t, torch.float32)
         if t.numel() != n:
             raise ValueError(f"fused_mlp_block: {name} must hold {n} values")
+    return F
+
+
+def _mlp_block_cuda(x, ln_scale, ln_bias, w1_q, w1_scale, b1, w2_q, w2_scale, b2, eps, f_chunk,
+                    stages=7, scratch=None):
+    """The CUDA `fused_mlp_block`: (out, xq, xs, hq, hs). `stages` selects
+    the row pass (1), fc1 (2) and fc2 (4) so that each can be timed alone
+    on the `scratch` of an earlier full call."""
+    T, C = x.shape
+    F = _check_mlp_block(x, ln_scale, ln_bias, w1_q, w1_scale, b1, w2_q, w2_scale, b2)
+    if f_chunk % 128 or not 128 <= f_chunk <= 1024:
+        raise ValueError(f"fused_mlp_block: f_chunk {f_chunk} must be a multiple of 128 up to 1024")
+    dev = x.device
     out = torch.empty_like(x)
     xq, xs, hq, hs = scratch or (
         torch.empty((T, C), dtype=torch.int8, device=dev),
@@ -456,6 +536,28 @@ def _mlp_block_cuda(x, ln_scale, ln_bias, w1_q, w1_scale, b1, w2_q, w2_scale, b2
         T, C, F, f_chunk, float(eps), stages,
     )
     return out, xq, xs, hq, hs
+
+
+def _mlp_block_wq_cuda(x, ln_scale, ln_bias, w1_q, w1_scale, b1, w2_q, w2_scale, b2, eps,
+                       stages=7, scratch=None):
+    """The weight-only CUDA `fused_mlp_block`: (out, the LN'd bf16 rows,
+    the bf16 GELU output [T, F]). The kernel's fc2 runs over all of F at
+    once (the per-column scale comes after the sum, so `f_chunk` changes
+    only fp32 rounding). `stages` selects the row pass (1), fc1 (2) and
+    fc2 (4) so that each can be timed alone on the `scratch` of an earlier
+    full call."""
+    T, C = x.shape
+    F = _check_mlp_block(x, ln_scale, ln_bias, w1_q, w1_scale, b1, w2_q, w2_scale, b2)
+    out = torch.empty_like(x)
+    xn, h = scratch or (torch.empty_like(x),
+                        torch.empty((T, F), dtype=torch.bfloat16, device=x.device))
+    kernels.launch(
+        "fused_mlp_block_wq", x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+        w1_q.data_ptr(), w1_scale.data_ptr(), b1.data_ptr(),
+        w2_q.data_ptr(), w2_scale.data_ptr(), b2.data_ptr(), out.data_ptr(),
+        xn.data_ptr(), h.data_ptr(), T, C, F, float(eps), stages,
+    )
+    return out, xn, h
 
 
 def fused_mlp_block(
@@ -478,9 +580,10 @@ def fused_mlp_block(
     `f_chunk` columns (0: 1024 when it divides F, else 512), each chunk's
     int32 partial sums rescaled by its own scale into an fp32 sum; then
     `+ b2 + x` and one rounding. Without it the products take the int8
-    weights converted to x's dtype (plain version only). CUDA kernel
-    `kernels/csrc/mlp_block_int8.cu` (bf16) for CUDA tensors, the plain
-    version for CPU tensors."""
+    weights converted to x's dtype and the GELU output rounded to it. CUDA
+    kernels `kernels/csrc/mlp_block_int8.cu` (w8a8) and `mlp_block_wq.cu`
+    (weight-only), bf16, for CUDA tensors; the plain version for CPU
+    tensors."""
     if x.ndim != 2:
         raise ValueError(f"fused_mlp_block takes [T, C] tokens, got {tuple(x.shape)}")
     F = w1_q.shape[1]
@@ -491,5 +594,5 @@ def fused_mlp_block(
     if x.device.type == "cpu":
         return fused_mlp_block_plain(*args, w8a8)
     if not w8a8:
-        raise NotImplementedError("fused_mlp_block on the card is built for w8a8=True only")
+        return _mlp_block_wq_cuda(*args[:-1])[0]
     return _mlp_block_cuda(*args)[0]

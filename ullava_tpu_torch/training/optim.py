@@ -15,8 +15,9 @@ trainable subtree alone).
 `make_optimizer` is optax's `chain(clip_by_global_norm, adamw)` written
 out: the same clip (by `g * max / |g|` once `|g| >= max`), the same Adam
 moments in the parameter's dtype and bias corrections, the same schedule
-step (the update count before this update). It updates the parameters IN
-PLACE (the JAX version returns new arrays).
+step (the update count before this update), every op in the leaf's dtype
+with the constants rounded to it (bit for bit with optax on bf16 leaves).
+It updates the parameters IN PLACE (the JAX version returns new arrays).
 """
 
 from __future__ import annotations
@@ -43,8 +44,11 @@ STAGE2 = (
     r"^det_decoder/",
     r"^sam/mask_decoder/(?!iou_head)",  # iou head frozen (reference quirk)
 )
+# The adapters as `llama.add_lora` names them. (The JAX package's pattern,
+# `(q|v)_lora_(a|b)`, names no leaf, so there no adapter trains: a
+# departure on purpose.)
 STAGE2_LORA = (
-    r"^core/llm/layers/(q|v)_lora_(a|b)$",
+    r"^core/llm/layers/(q|v)_proj_lora_(a|b)$",
     r"^core/llm/embed_tokens$",
     r"^core/llm/lm_head$",
     r"^seg_projector/",
@@ -190,13 +194,21 @@ class AdamW:
         bc1 = 1 - torch.tensor(self.b1, dtype=f32) ** count
         bc2 = 1 - torch.tensor(self.b2, dtype=f32) ** count
         step = torch.tensor(-self.lr(state["count"]), dtype=f32)
+        consts = {}
         for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
-            gf = g.float()
-            mu.copy_((1 - self.b1) * gf + self.b1 * mu.float())
-            nu.copy_((1 - self.b2) * (gf * gf) + self.b2 * nu.float())
+            # Every op in the leaf's dtype, each constant a tensor of that
+            # dtype, as JAX rounds optax's Python scalars to the leaf's
+            # dtype (in bf16, b2 = 0.999 is 1.0 and b1 is 0.8984375).
             dt = p.dtype
-            u = (mu / bc1.to(dt)) / (torch.sqrt(nu / bc2.to(dt)) + self.eps)
-            u = u + self.weight_decay * p
+            if (dt, p.device) not in consts:
+                consts[dt, p.device] = torch.tensor(
+                    [1 - self.b1, self.b1, 1 - self.b2, self.b2, self.eps, self.weight_decay],
+                    dtype=dt).to(p.device).unbind()
+            c1, b1, c2, b2, eps, wd = consts[dt, p.device]
+            mu.copy_(c1 * g + b1 * mu)
+            nu.copy_(c2 * (g * g) + b2 * nu)
+            u = (mu / bc1.to(dt)) / (torch.sqrt(nu / bc2.to(dt)) + eps)
+            u = u + wd * p
             p.copy_(p + u * step.to(dt))
         return {"count": count, "mu": state["mu"], "nu": state["nu"]}
 

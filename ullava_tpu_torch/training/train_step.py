@@ -1,6 +1,6 @@
-"""The stage-1 train step (counterpart of `ullava_tpu/training/train_step.py`
-without the mesh: `shard_train_state` and `jit_step` wait for the
-parallelism slice).
+"""The stage-1 and stage-2 train steps (counterpart of
+`ullava_tpu/training/train_step.py` without the mesh: `shard_train_state`
+and `jit_step` wait for the parallelism slice).
 
 Freeze policy = `requires_grad` from the label tree: gradients are taken
 with respect to the trainable leaves only, so the frozen 7B and ViT
@@ -15,7 +15,7 @@ from typing import Any, Callable, Dict, Sequence, Tuple
 
 import torch
 
-from ullava_tpu_torch.models import ullava_core
+from ullava_tpu_torch.models import ullava, ullava_core
 from ullava_tpu_torch.training.optim import (
     AdamW,
     global_norm,
@@ -41,18 +41,19 @@ def make_train_state(
 
 
 def _make_step(loss_fn: Callable, tx: AdamW, labels: Any) -> Callable:
-    """Generic step: loss -> gradients of the trainable leaves -> clip and
-    AdamW in place. Metrics: the loss and the global norm of the gradients
-    before the clip."""
+    """Generic step: (loss, aux metrics) -> gradients of the trainable
+    leaves -> clip and AdamW in place. Metrics: the loss, the global norm
+    of the gradients before the clip, and the aux metrics."""
 
     def step(state: TrainState, batch: Dict[str, Any]):
         train = partition_params(state.params, labels)
-        loss = loss_fn(state.params, batch)
+        loss, aux = loss_fn(state.params, batch)
         grads = torch.autograd.grad(loss, train, allow_unused=True)
         # A leaf the batch does not reach (the projector on text-only
         # batches) has a zero gradient, as under jax.grad.
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(train, grads)]
-        metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads)}
+        metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads),
+                   **{k: v.detach() for k, v in aux.items()}}
         opt_state = tx.update(grads, state.opt_state, train)
         return TrainState(step=state.step + 1, params=state.params, opt_state=opt_state), metrics
 
@@ -73,6 +74,24 @@ def make_stage1_step(cfg: ullava_core.UllavaCoreConfig, tx: AdamW, labels: Any) 
             images=batch.get("images"),
             videos=batch.get("videos"),
         )
-        return out["loss"]
+        return out["loss"], {}
+
+    return _make_step(loss_fn, tx, labels)
+
+
+_STAGE2_KEYS = (
+    "input_ids", "labels", "attn_lens", "images", "images_sam",
+    "gt_masks", "mask_valid", "gt_boxes", "box_valid", "input_hw",
+)
+STAGE2_AUX = ("ce_loss", "mask_bce_loss", "mask_dice_loss", "bbox_loss")
+
+
+def make_stage2_step(cfg: ullava.UllavaConfig, tx: AdamW, labels: Any) -> Callable:
+    """Batch keys: `_STAGE2_KEYS` (missing ones are left out). Metrics add
+    the weighted CE, mask BCE, mask dice and box losses."""
+
+    def loss_fn(params, batch):
+        out = ullava.forward(params, cfg, **{k: batch[k] for k in _STAGE2_KEYS if k in batch})
+        return out["loss"], {k: out[k] for k in STAGE2_AUX}
 
     return _make_step(loss_fn, tx, labels)
