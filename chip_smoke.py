@@ -12,15 +12,17 @@ Phases, each fatal on any error:
                the resident window layout's three at B=16) and at the
                stage-1 step's shapes (the training path's four: flash
                forward with lse, flash backward dkv and dq, RMSNorm
-               backward) and at a B=4 ViT-H encode's shapes (the
-               weight-only forms of K10, K13 and K12), holds the kernel to the
+               backward), at a B=4 ViT-H encode's shapes (the
+               weight-only forms of K10, K13 and K12) and at the all-int8
+               serve's (the int8 score forms of K3, K11 and K14, K2 at
+               CLIP's head_dim 64), holds the kernel to the
                plain version within a stated tolerance, and times the
                kernel, the plain version and, where one exists, a single
                PyTorch library call computing the same function (L2
                flushed before each timed call); a mutated run of each
                kernel must fail the same gate (for the training path's
-               four and the weight-only forms, also a copy of the source
-               rebuilt with a deliberate bug);
+               four, the weight-only and the int8 score forms, also a
+               copy of the source rebuilt with a deliberate bug);
   3. serve   - builds the full-width bf16 RES model (LLaMA-7B, CLIP
                ViT-L/14, SAM ViT-H) from a seeded generator on the card,
                serves B=4 requests (320-token prompts: 256 image tokens + 64
@@ -50,14 +52,21 @@ Phases, each fatal on any error:
                kernel on the merged right and bottom classes and on the
                corner, fused proj+residual and the fused MLP on each class;
                same checks and timings, exact launch counts;
-  7. stage1_train - frees the serving model, builds the full-width bf16
+  7. all_int8_serve - on the same weights, serves B=16 requests with the
+               three knobs of `bench.py`'s all-int8 serve: int8 scores in
+               the SAM attention kernels (`attn_dots_i8`), CLIP's linears
+               W8A8 (`a8`) and its attention through the flash kernel at
+               head_dim 64 (`attn_impl="flash"`); same checks and timings,
+               exact launch counts, and CLIP's time under each combination
+               of its two knobs;
+  8. stage1_train - frees the serving model, builds the full-width bf16
                stage-1 model (CLIP ViT-L/14 frozen, projector, LLaMA-7B
                with remat) from the seeded generator and trains it with
                `train.build_stage1` (pretraining policy, AdamW, clip 1.0)
                on one B=4, S=1024 batch: one warm step with exact launch
                counts, five timed steps (falling loss, frozen weights
                bit-unchanged, every trainable leaf moved), one profiled;
-  8. stage2_train - frees that model, builds the full-width stage-2 model
+  9. stage2_train - frees that model, builds the full-width stage-2 model
                (`train.build_stage2`: CLIP and the SAM image encoder int8
                weight-only and frozen, LLaMA-7B in bf16 with LoRA r=8 on
                q_proj and v_proj and remat, the SAM mask decoder and the
@@ -69,15 +78,16 @@ Phases, each fatal on any error:
                adapters and heads moved); then one resident encode of its
                SAM encoder with composite bias weights and `mlp_w8a8` off,
                the path of K13's weight-only form, with exact counts;
-  9. check   - runs small models (bf16, then int8 LLM, then an int8 SAM
-               encoder in the block and in the resident layout, then
+ 10. check   - runs small models (bf16, then int8 LLM, then an int8 SAM
+               encoder in the block and in the resident layout, the latter
+               also with int8 scores beside a W8A8 flash CLIP tower, then
                three stage-1 steps under each freeze policy, then three
                stage-2 steps over int8 towers with LoRA) on the card and on
                the CPU (plain versions, fp32) from the same weights and
                holds the card's outputs to the CPU reference, and the
                resident encoder's to the block layout's; then
                `train.train_stage1` end to end with checkpoints and resume;
- 10. summary - prints the serve and training numbers again, the card's
+ 11. summary - prints the serve and training numbers again, the card's
                name and power limit, one JSON line with every kernel's
                numbers, and last the device line.
 
@@ -161,13 +171,23 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def bound_i8_ms(nbytes: float, flops: float):
+    """The bound of an int8-score attention: its `flops` (4 a score and
+    head element) half in the qk product at the int8 peak and half in P V
+    at the bf16 peak, against the bytes."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (flops / 2 / INT8_OPS_PER_S + flops / 2 / BF16_FLOPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def kernel_line(name, max_abs_err, gate, kern, plain, library, in_out, flops, iters=20,
-                flops_per_s=BF16_FLOPS_PER_S) -> dict:
+                flops_per_s=BF16_FLOPS_PER_S, bound=None) -> dict:
     """Time a checked kernel, its plain version and its library call, and
-    put the numbers beside its bound and what its gate measured."""
+    put the numbers beside its bound (`bound` = (ms, by), or from the
+    bytes and `flops` at `flops_per_s`) and what its gate measured."""
     from ullava_tpu_torch import kernels
 
-    b_ms, b_by = bound_ms(in_out, flops, flops_per_s)
+    b_ms, b_by = bound or bound_ms(in_out, flops, flops_per_s)
     spec = kernels.KERNELS[name]
     line = {
         "name": name,
@@ -314,6 +334,26 @@ def kernel_phases(gen) -> dict:
         "ms": time_ms(run16, 5)}
     torch.cuda.empty_cache()
     return results
+
+
+def global_sdpa_inputs(y, a, bb):
+    """The library yardstick of the lane-sliced global kernel (K11):
+    head-major q, k, v copies of y [B, S, 3C] ([3, B, H, S, hd]) and the
+    bias terms [B, S, H, W] (natural column order, pre-scaled by 1/scale)
+    materialised as a [B, H, S, S] bf16 mask (8.6 GB at B=16), built per
+    image."""
+    import torch
+
+    B, S, _ = y.shape
+    H, W = a.shape[2:]
+    hd = y.shape[-1] // (3 * H)
+    y5 = y.reshape(B, S, 3, H, hd).permute(2, 0, 3, 1, 4).contiguous()
+    mask = torch.empty((B, H, S, S), dtype=torch.bfloat16, device=y.device)
+    for i in range(B):
+        am, bm = a[i].float().permute(1, 0, 2), bb[i].float().permute(1, 0, 2)  # [H, S, W]
+        mask[i] = ((am[:, :, :, None] + bm[:, :, None, :]).reshape(H, S, S) * hd**-0.5).to(
+            torch.bfloat16)
+    return y5, mask
 
 
 def int8_gate(got, ref):
@@ -745,13 +785,7 @@ def sam_int8_kernel_phases(gen) -> dict:
                      "ms": time_ms(run, 5)}
         del got, ref
     del zero
-    # The library yardstick: SDPA on head-major copies with the bias
-    # materialised as a [B*H, S, S] bf16 mask (8.6 GB), built per image.
-    y5 = y.reshape(B_INT8, S, 3, H, hd).permute(2, 0, 3, 1, 4).contiguous()
-    mask = torch.empty((B_INT8, H, S, S), dtype=bf, device=dev)
-    for i in range(B_INT8):
-        am, bm = a[i].float().permute(1, 0, 2), bb[i].float().permute(1, 0, 2)  # [H, S, W]
-        mask[i] = ((am[:, :, :, None] + bm[:, :, None, :]).reshape(H, S, S) * sc).to(bf)
+    y5, mask = global_sdpa_inputs(y, a, bb)
     line = kernel_line(
         "fused_global_attention_y", att["exp_bf16"]["max_abs_err"],
         {k: v for k, v in att["exp_bf16"].items() if k not in ("ms", "max_abs_err")},
@@ -768,6 +802,74 @@ def sam_int8_kernel_phases(gen) -> dict:
     return results
 
 
+# ViT-H's attention widths: C 1280, 16 heads of 80, 14 x 14 windows.
+SAM_C, SAM_H, SAM_HD, SAM_W = 1280, 16, 80, 14
+# The boundary classes of one B=16 window block: the right and bottom
+# windows (14 x 8 and 8 x 14 tokens, 64 of each) in one dual-geometry
+# launch, and the 16 corner windows of 8 x 8.
+RECT_FORMS = (("edge_pair", [(14, 8), (8, 14)], B_INT8 * 4), ("corner", [(8, 8)], B_INT8))
+
+
+def window_sdpa_inputs(y, a, bb, keys, key_ok):
+    """The library yardstick of the ViT-H window kernels: head-major q of y
+    [N, Sq, 3C] and the k, v of `keys` [N, Sk, 3C] with the reversed-column
+    bias terms materialised as a [N, H, Sq, Sk] bf16 mask over the W x W
+    logical key positions (-inf where `key_ok` [Sk] is False)."""
+    import torch
+    import torch.nn.functional as F
+
+    C, H, hd, W = SAM_C, SAM_H, SAM_HD, SAM_W
+    N, Sq, _ = y.shape
+    q = y[:, :, :C].reshape(N, Sq, H, hd).transpose(1, 2).contiguous()
+    k, v = (keys[:, :, i * C:(i + 1) * C].reshape(N, -1, H, hd).transpose(1, 2).contiguous()
+            for i in (1, 2))
+    A = a.reshape(N, Sq, H, W).flip(-1).permute(0, 2, 1, 3).float()
+    Bm = bb.reshape(N, Sq, H, W).flip(-1).permute(0, 2, 1, 3).float()
+    mask = (A[..., :, None] + Bm[..., None, :]).reshape(N, H, Sq, W * W) * hd**-0.5
+    mask = F.pad(mask, (0, keys.shape[1] - W * W)).masked_fill(~key_ok, float("-inf"))
+    return q, k, v, mask.to(torch.bfloat16)
+
+
+def window_sdpa(q, k, v, mask):
+    import torch.nn.functional as F
+
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=SAM_HD**-0.5)
+    return o.transpose(1, 2).reshape(q.shape[0], q.shape[2], SAM_C)
+
+
+def rect_case(gen, geoms, per, qkv_bias):
+    """`per` boundary windows of each geometry of `geoms` (ViT-H widths):
+    y, the bias terms, the encoder's own tables, the zero-padded windows
+    the tables stand for ([N, W*W, 3C]) and which logical keys are real."""
+    import torch
+
+    from ullava_tpu_torch.models.sam import image_encoder
+
+    C, H, hd, W = SAM_C, SAM_H, SAM_HD, SAM_W
+    F1, bf = 3 * C, torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(bf)
+
+    rows, cols = geoms[0]
+    N, T = per * len(geoms), rows * cols
+    y = randn(N, T, F1)
+    a, bb = (randn(N, T, H * W, scale=2.0 * hd**0.5) for _ in range(2))
+    ohs = [image_encoder._rect_onehot(r, c, W, bf, "cuda") for r, c in geoms]
+    pads = [image_encoder._pad_tables(qkv_bias, r, c, W, H, hd, bf) for r, c in geoms]
+    tables = ((ohs[0], *pads[0]) if len(geoms) == 1 else
+              (torch.stack(ohs), torch.stack([k for k, _ in pads]),
+               torch.stack([v for _, v in pads])))
+    # The zero-padded windows the tables stand for: qkv = qkv_bias at
+    # every pad position, the real tokens scattered into their places.
+    padded = qkv_bias.expand(N, W, W, F1).clone()
+    is_real = torch.zeros((len(geoms), W, W), dtype=torch.bool, device="cuda")
+    for i, (r, c) in enumerate(geoms):
+        padded[i * per:(i + 1) * per, :r, :c] = y[i * per:(i + 1) * per].reshape(per, r, c, F1)
+        is_real[i, :r, :c] = True
+    return y, a, bb, tables, padded.reshape(N, W * W, F1), is_real.reshape(len(geoms), W * W)
+
+
 def resident_kernel_phases(gen, results: dict) -> None:
     """The kernels of the SAM encoder's resident window layout against
     their plain versions at the shapes of one B=16 ViT-H window block: 256
@@ -782,12 +884,11 @@ def resident_kernel_phases(gen, results: dict) -> None:
     import torch
     import torch.nn.functional as F
 
-    from ullava_tpu_torch.models.sam import image_encoder
     from ullava_tpu_torch.ops import mlp_kernel, quant, sam_attention
 
     dev, bf = "cuda", torch.bfloat16
     tol, eps = 1e-2, 1e-6
-    Bn, C, H, hd, W = B_INT8, 1280, 16, 80, 14
+    Bn, C, H, hd, W = B_INT8, SAM_C, SAM_H, SAM_HD, SAM_W
     R = 2 * W - 1
     F1, F2 = 3 * C, 2 * H * R
     sc = hd**-0.5
@@ -862,24 +963,6 @@ def resident_kernel_phases(gen, results: dict) -> None:
         f"{json.dumps({k: v['stage_ms'] for k, v in forms.items()})}")
     torch.cuda.empty_cache()
 
-    def sdpa_inputs(y, a, bb, keys, key_ok):
-        """Head-major q and the k, v of `keys` [N, Sk, 3C] with the bias
-        terms materialised as a [N, H, Sq, Sk] bf16 mask over the W x W
-        logical key positions (-inf where `key_ok` [Sk] is False)."""
-        N, Sq, _ = y.shape
-        q = y[:, :, :C].reshape(N, Sq, H, hd).transpose(1, 2).contiguous()
-        k, v = (keys[:, :, i * C:(i + 1) * C].reshape(N, -1, H, hd).transpose(1, 2).contiguous()
-                for i in (1, 2))
-        A = a.reshape(N, Sq, H, W).flip(-1).permute(0, 2, 1, 3).float()
-        Bm = bb.reshape(N, Sq, H, W).flip(-1).permute(0, 2, 1, 3).float()
-        mask = (A[..., :, None] + Bm[..., None, :]).reshape(N, H, Sq, W * W) * sc
-        mask = F.pad(mask, (0, keys.shape[1] - W * W)).masked_fill(~key_ok, float("-inf"))
-        return q, k, v, mask.to(bf)
-
-    def sdpa(q, k, v, mask):
-        o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=sc)
-        return o.transpose(1, 2).reshape(q.shape[0], q.shape[2], C)
-
     # K3's serving form: 256 windows stored as 200 rows, the last four of
     # each left out as keys. The pad rows of the bias terms are zero, as
     # `_assemble_bias_terms` makes them.
@@ -895,12 +978,12 @@ def resident_kernel_phases(gen, results: dict) -> None:
     finite = bool(torch.isfinite(got[:, real:]).all())
     must("fused_window_attention_grid total_rows", err <= tol and finite, (err, finite))
     is_real = torch.arange(S, device=dev) < real
-    lib = sdpa_inputs(y, a, bb, y, is_real)
+    lib = window_sdpa_inputs(y, a, bb, y, is_real)
     # Mutants: the pad keys attended (the library chain with no key left
     # out), and the two bias terms swapped (through the kernel).
     caught = {
         "pad_key_mask_off": row_rel_err(
-            sdpa(*lib[:3], lib[3].masked_fill(~is_real, 0.0))[:, :real], ref[:, :real]),
+            window_sdpa(*lib[:3], lib[3].masked_fill(~is_real, 0.0))[:, :real], ref[:, :real]),
         "bias_swapped": row_rel_err(sam_attention.fused_window_attention_grid(
             y, bb, a, **kw, total_rows=S)[:, :real], ref[:, :real]),
     }
@@ -914,7 +997,7 @@ def resident_kernel_phases(gen, results: dict) -> None:
         "ms": time_ms(run, 20),
         "plain_ms": time_ms(lambda: sam_attention.fused_window_attention_grid_plain(
             y, a, bb, H, hd, W, sc), 3, warmup=1),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(lambda: sdpa(*lib), 20)}
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(lambda: window_sdpa(*lib), 20)}
     log(f"[kernel] fused_window_attention_grid total_rows "
         f"{json.dumps(results['fused_window_attention_grid']['total_rows_form'])}")
     del y, a, bb, got, ref, lib
@@ -923,29 +1006,9 @@ def resident_kernel_phases(gen, results: dict) -> None:
     # K14: the right and bottom classes in one dual-geometry launch, and
     # the corner class; tables from the encoder's own helpers.
     qkv_bias = randn(F1, scale=0.5)
-
-    def rect_case(geoms, per):
-        rows, cols = geoms[0]
-        N, T = per * len(geoms), rows * cols
-        y = randn(N, T, F1)
-        a, bb = (randn(N, T, H * W, scale=2.0 / sc) for _ in range(2))
-        ohs = [image_encoder._rect_onehot(r, c, W, bf, dev) for r, c in geoms]
-        pads = [image_encoder._pad_tables(qkv_bias, r, c, W, H, hd, bf) for r, c in geoms]
-        tables = ((ohs[0], *pads[0]) if len(geoms) == 1 else
-                  (torch.stack(ohs), torch.stack([k for k, _ in pads]),
-                   torch.stack([v for _, v in pads])))
-        # The zero-padded windows the tables stand for: qkv = qkv_bias at
-        # every pad position, the real tokens scattered into their places.
-        padded = qkv_bias.expand(N, W, W, F1).clone()
-        is_real = torch.zeros((len(geoms), W, W), dtype=torch.bool, device=dev)
-        for i, (r, c) in enumerate(geoms):
-            padded[i * per:(i + 1) * per, :r, :c] = y[i * per:(i + 1) * per].reshape(per, r, c, F1)
-            is_real[i, :r, :c] = True
-        return y, a, bb, tables, padded.reshape(N, W * W, F1), is_real.reshape(len(geoms), W * W)
-
     rect_forms = {}
-    for form, geoms, per in (("edge_pair", [(14, 8), (8, 14)], Bn * 4), ("corner", [(8, 8)], Bn)):
-        y, a, bb, tables, padded, is_real = rect_case(geoms, per)
+    for form, geoms, per in RECT_FORMS:
+        y, a, bb, tables, padded, is_real = rect_case(gen, geoms, per, qkv_bias)
         geometry = tuple(geoms) if len(geoms) == 2 else geoms[0]
         run = lambda t=tables, g_=geometry: sam_attention.fused_window_attention_rect(  # noqa: E731
             y, a, bb, *t, **kw, geometry=g_)
@@ -955,17 +1018,17 @@ def resident_kernel_phases(gen, results: dict) -> None:
         err = row_rel_err(got, ref)
         must(f"fused_window_attention_rect {form}", err <= tol, err)
         every = torch.ones(W * W, dtype=torch.bool, device=dev)
-        lib = sdpa_inputs(y, a, bb, padded, every)
+        lib = window_sdpa_inputs(y, a, bb, padded, every)
         # Recorded, not gated: the library chain rounds each bias sum to
         # bf16 in its mask, which moves a logit of about 10 by up to 0.03.
-        lib_err = row_rel_err(sdpa(*lib), ref)
+        lib_err = row_rel_err(window_sdpa(*lib), ref)
         # Mutants: the pad keys dropped (a softmax over the real keys only,
         # through the library chain), the pad value dropped, and the two
         # halves' geometries swapped (both through the kernel).
         real_only = torch.cat([lib[3][i * per:(i + 1) * per].masked_fill(~is_real[i], float("-inf"))
                                for i in range(len(geoms))])
         caught = {
-            "pad_keys_dropped": row_rel_err(sdpa(*lib[:3], real_only), ref),
+            "pad_keys_dropped": row_rel_err(window_sdpa(*lib[:3], real_only), ref),
             "pad_v_dropped": row_rel_err(run((*tables[:2], torch.zeros_like(tables[2]))), ref),
         }
         if len(geoms) == 2:
@@ -979,13 +1042,195 @@ def resident_kernel_phases(gen, results: dict) -> None:
              "mutant_row_rel_err": caught},
             run, lambda t=tables: sam_attention.fused_window_attention_rect_plain(
                 y, a, bb, *t, H, hd, W, sc),
-            lambda l=lib: sdpa(*l), nbytes(y, a, bb, *tables, got), 4.0 * N * H * T * W * W * hd)
+            lambda l=lib: window_sdpa(*l), nbytes(y, a, bb, *tables, got), 4.0 * N * H * T * W * W * hd)
         line["shape"] = [N, T, F1]
         rect_forms[form] = line
         del y, a, bb, tables, padded, got, ref, lib, real_only
     results["fused_window_attention_rect"] = {**rect_forms["edge_pair"], "corner_form": {
         k: v for k, v in rect_forms["corner"].items()
         if k not in ("name", "route", "source", "replaces")}}
+    torch.cuda.empty_cache()
+
+
+# The deliberate bug that the int8 score forms' gates must catch: each
+# source that instantiates the shared core's DOTS_I8 rebuilt so that every
+# key of a K tile is dequantized with the tile's first key's scale.
+I8_MUTANTS = {src: (src, "ULLAVA_MUTANT_I8_TILE_SCALE") for src in (
+    "sam_window_attention.cu", "sam_global_attention_y.cu", "sam_rect_attention.cu")}
+# The kernel forms the all-int8 serve adds.
+I8_NAMES = ("fused_window_attention_grid_i8", "fused_global_attention_y_i8",
+            "fused_window_attention_rect_i8", "flash_attention_fwd_bsh_hd64")
+CLIP_TOKENS, CLIP_PADDED = 257, 264  # CLIP ViT-L/14's sequence, padded to a multiple of 8
+
+
+def all_int8_kernel_phases(gen, results: dict) -> None:
+    """The four kernel forms of the all-int8 serve against their plain
+    versions at its shapes (B=16): the int8 score form (`dots_i8`) of the
+    window kernel at one block-layout window block ([400, 196, 3840]) and
+    in the resident layout's padded form ([256, 200, 3840], four rows a
+    window left out as keys), of the lane-sliced global kernel at one
+    global block ([16, 4096, 3840], both exponential forms), of the
+    boundary kernel on the edge-pair and corner classes, and the flash
+    forward at CLIP's head_dim 64 ([16, 264, 16, 64], kv_lens 257, not
+    causal).
+
+    Gates as for the bf16 forms: `row_rel_err` within 1e-2 over the real
+    query rows (both sides quantize with the same arithmetic; only the
+    order of fp32 operations differs), 2e-2 for the bf16 exponentials.
+    Each gate must reject mutated runs: the kernel source rebuilt to use
+    one key scale for a whole K tile (`I8_MUTANTS`), the bias terms
+    swapped, the pad value dropped, K2's kv_lens ignored. Bounds: qk at
+    the int8 peak and P V at the bf16 peak, or the bytes. The library
+    yardsticks: SDPA with the bias materialised as a mask (bf16 scores),
+    and for K2 SDPA with a key-padding mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from ullava_tpu_torch import kernels
+    from ullava_tpu_torch.ops import attention, sam_attention
+
+    dev, bf, tol = "cuda", torch.bfloat16, 1e-2
+    C, H, hd, W = SAM_C, SAM_H, SAM_HD, SAM_W
+    F1, sc, real = 3 * C, hd**-0.5, W * W
+    kw = dict(num_heads=H, head_dim=hd, window=W, scale=sc)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    def gate(name, got, ref, mutants, lim=tol, rows=slice(None)):
+        err = row_rel_err(got[:, rows], ref[:, rows])
+        must(name, err <= lim, err)
+        caught = {m: row_rel_err(out[:, rows], ref[:, rows]) for m, out in mutants.items()}
+        for m, e in caught.items():
+            must_not(name, m, e <= lim, e)
+        return {"row_rel_err": err, "tol": lim, "mutant_row_rel_err": caught}
+
+    def max_abs(got, ref, rows=slice(None)):
+        return (got[:, rows].float() - ref[:, rows].float()).abs().max().item()
+
+    # K3: one window block in the block layout (400 windows of 196) and in
+    # the resident layout (256 windows stored as 200 rows, the pad rows of
+    # the bias terms zero as `_assemble_bias_terms` makes them).
+    name, src = "fused_window_attention_grid_i8", "sam_window_attention.cu"
+    forms = {}
+    for form, N, S in (("block", B_INT8 * 25, real), ("total_rows", B_INT8 * 16, 200)):
+        y = randn(N, S, F1)
+        a, bb = (randn(N, S, H * W, scale=2.0 / sc) for _ in range(2))
+        a[:, real:], bb[:, real:] = 0, 0
+        tr = S if S != real else 0
+        run = lambda a_=a, b_=bb, y=y, tr=tr: sam_attention.fused_window_attention_grid(  # noqa: E731
+            y, a_, b_, **kw, total_rows=tr, dots_i8=True)
+        plain = lambda y=y, a=a, bb=bb: sam_attention.fused_window_attention_grid_plain(  # noqa: E731
+            y, a, bb, H, hd, W, sc, dots_i8=True)
+        got, ref = run(), plain()
+        with kernels.mutant(*I8_MUTANTS[src]):
+            tile_scale = run()
+        torch.cuda.synchronize()
+        info = gate(f"{name} {form}", got, ref, {"one_key_scale_a_tile": tile_scale,
+                                                 "bias_swapped": run(bb, a)}, rows=slice(0, real))
+        info["pad_rows_finite"] = bool(torch.isfinite(got).all())
+        must(f"{name} {form}", info["pad_rows_finite"], "non-finite rows")
+        lib = window_sdpa_inputs(y, a, bb, y, torch.arange(S, device=dev) < real)
+        forms[form] = kernel_line(
+            name, max_abs(got, ref, slice(0, real)), info, run, plain,
+            lambda l=lib: window_sdpa(*l), nbytes(y, a, bb, got), 4.0 * N * H * S * real * hd,
+            bound=bound_i8_ms(nbytes(y, a, bb, got), 4.0 * N * H * S * real * hd))
+        forms[form]["shape"] = [N, S, F1]
+        del y, a, bb, got, ref, tile_scale, lib
+        torch.cuda.empty_cache()
+    results[name] = {**forms["block"], "total_rows_form": {
+        k: v for k, v in forms["total_rows"].items() if k not in ("name", "route", "source", "replaces")}}
+
+    # K11: one global block, both exponential forms; the kernels line
+    # carries the serving form (bf16 exponentials, `mlp_w8a8`).
+    name, src, Wg = "fused_global_attention_y_i8", "sam_global_attention_y.cu", 64
+    S = Wg * Wg
+    y = randn(B_INT8, S, F1)
+    a, bb = (randn(B_INT8, S, H, Wg, scale=2.0 / sc) for _ in range(2))
+    gkw = dict(num_heads=H, head_dim=hd, window=Wg, scale=sc, dots_i8=True)
+    att = {}
+    for exp_bf16 in (True, False):
+        run = lambda a_=a, b_=bb, e=exp_bf16: sam_attention.fused_global_attention_y(  # noqa: E731
+            y, a_, b_, **gkw, exp_bf16=e)
+        got = run()
+        ref = sam_attention.fused_global_attention_y_plain(y, a, bb, **gkw, exp_bf16=exp_bf16)
+        with kernels.mutant(*I8_MUTANTS[src]):
+            tile_scale = run()
+        torch.cuda.synchronize()
+        form = "exp_bf16" if exp_bf16 else "exp_fp32"
+        att[form] = gate(f"{name} {form}", got, ref,
+                         {"one_key_scale_a_tile": tile_scale, "bias_swapped": run(bb, a)},
+                         lim=2e-2 if exp_bf16 else tol)
+        att[form]["max_abs_err"] = max_abs(got, ref)
+        att[form]["ms"] = time_ms(run, 5)
+        del got, ref, tile_scale
+    y5, mask = global_sdpa_inputs(y, a, bb)
+    flops = 4.0 * B_INT8 * H * S * S * hd
+    line = kernel_line(
+        name, att["exp_bf16"].pop("max_abs_err"),
+        {k: v for k, v in att["exp_bf16"].items() if k != "ms"},
+        lambda: sam_attention.fused_global_attention_y(y, a, bb, **gkw, exp_bf16=True),
+        lambda: sam_attention.fused_global_attention_y_plain(y, a, bb, **gkw, exp_bf16=True),
+        lambda: F.scaled_dot_product_attention(y5[0], y5[1], y5[2], attn_mask=mask, scale=sc),
+        nbytes(y, a, bb) + nbytes(y) // 3, flops, iters=5,
+        bound=bound_i8_ms(nbytes(y, a, bb) + nbytes(y) // 3, flops))
+    line["exp_fp32_form"] = att["exp_fp32"]
+    line["shape"] = [B_INT8, S, F1]
+    results[name] = line
+    del y5, mask, y, a, bb
+    torch.cuda.empty_cache()
+
+    # K14: the right and bottom classes in one dual-geometry launch, and
+    # the corner class.
+    name, src = "fused_window_attention_rect_i8", "sam_rect_attention.cu"
+    qkv_bias = randn(F1, scale=0.5)
+    rect_forms = {}
+    for form, geoms, per in RECT_FORMS:
+        y, a, bb, tables, padded, _ = rect_case(gen, geoms, per, qkv_bias)
+        geometry = tuple(geoms) if len(geoms) == 2 else geoms[0]
+        run = lambda t=tables, g_=geometry, y=y, a=a, bb=bb: (  # noqa: E731
+            sam_attention.fused_window_attention_rect(y, a, bb, *t, **kw, dots_i8=True, geometry=g_))
+        plain = lambda t=tables, y=y, a=a, bb=bb: sam_attention.fused_window_attention_rect_plain(  # noqa: E731
+            y, a, bb, *t, H, hd, W, sc, dots_i8=True)
+        got, ref = run(), plain()
+        with kernels.mutant(*I8_MUTANTS[src]):
+            tile_scale = run()
+        torch.cuda.synchronize()
+        info = gate(f"{name} {form}", got, ref, {
+            "one_key_scale_a_tile": tile_scale,
+            "pad_v_dropped": run((*tables[:2], torch.zeros_like(tables[2])))})
+        lib = window_sdpa_inputs(y, a, bb, padded, torch.ones(real, dtype=torch.bool, device=dev))
+        N, T = y.shape[:2]
+        io, flops = nbytes(y, a, bb, *tables, got), 4.0 * N * H * T * real * hd
+        rect_forms[form] = kernel_line(name, max_abs(got, ref), info, run, plain,
+                                       lambda l=lib: window_sdpa(*l), io, flops,
+                                       bound=bound_i8_ms(io, flops))
+        rect_forms[form]["shape"] = [N, T, F1]
+        del y, a, bb, tables, padded, got, ref, tile_scale, lib
+    results[name] = {**rect_forms["edge_pair"], "corner_form": {
+        k: v for k, v in rect_forms["corner"].items()
+        if k not in ("name", "route", "source", "replaces")}}
+    torch.cuda.empty_cache()
+
+    # K2 at head_dim 64: one CLIP ViT-L/14 layer, 257 tokens padded to 264.
+    name, Hc, hdc = "flash_attention_fwd_bsh_hd64", 16, 64
+    q, k, v = (randn(B_INT8, CLIP_PADDED, Hc, hdc) for _ in range(3))
+    lens = torch.full((B_INT8,), CLIP_TOKENS, dtype=torch.int32, device=dev)
+    run = lambda l=lens: attention.flash_attention_fwd_bsh(  # noqa: E731
+        q, k, v, l, causal=False, scale=hdc**-0.5)
+    got = run()
+    ref = attention.flash_attention_fwd_bsh_plain(q, k, v, lens, causal=False, scale=hdc**-0.5)
+    info = gate(name, got, ref, {"kv_lens_ignored": run(torch.full_like(lens, CLIP_PADDED))})
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    key_ok = (torch.arange(CLIP_PADDED, device=dev) < CLIP_TOKENS)[None, None, None, :]
+    results[name] = kernel_line(
+        name, max_abs(got, ref), info, run,
+        lambda: attention.flash_attention_fwd_bsh_plain(q, k, v, lens, causal=False,
+                                                        scale=hdc**-0.5),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=key_ok, scale=hdc**-0.5),
+        nbytes(q, k, v, lens, got), 4.0 * B_INT8 * Hc * CLIP_PADDED * CLIP_TOKENS * hdc)
+    results[name]["shape"] = [B_INT8, CLIP_PADDED, Hc, hdc]
+    del q, k, v, qt, kt, vt, got, ref
     torch.cuda.empty_cache()
 
 
@@ -1377,9 +1622,11 @@ def requests(cfg, n: int, prompt: int, rng):
 SAM_LAUNCHES = {"fused_window_attention_grid": 28, "fused_global_attention": 4,
                 "fused_ln_linear": 0, "fused_global_attention_y": 0, "fused_mlp_block": 0,
                 "fused_ln_linear_dual": 0, "fused_window_attention_rect": 0}
-# The training path's kernels launch in no serve.
+# The training path's kernels launch in no serve, the all-int8 serve's
+# forms in no other serve.
 IDLE_IN_SERVING = {"flash_attention_fwd_lse": 0, "flash_attention_bwd_dkv": 0,
-                   "flash_attention_bwd_dq": 0, "rms_norm_bwd": 0, **{k: 0 for k in WQ_NAMES}}
+                   "flash_attention_bwd_dq": 0, "rms_norm_bwd": 0, **{k: 0 for k in WQ_NAMES},
+                   **{k: 0 for k in I8_NAMES}}
 BF16_LAUNCHES = {"fused_rotary": 64, "flash_attention_fwd_bsh": 32, **SAM_LAUNCHES,
                  "rms_norm_fwd": 65 * (1 + NEW_TOKENS),
                  "rms_norm_residual_quant": 0, "silu_mul_quant": 0,
@@ -1405,6 +1652,13 @@ SAM_INT8_LAUNCHES = {**INT8_LAUNCHES, "fused_global_attention": 0, "fused_ln_lin
 SAM_RESIDENT_LAUNCHES = {**SAM_INT8_LAUNCHES, "fused_ln_linear_dual": 28 * 3,
                          "fused_window_attention_rect": 28 * 2, "fused_ln_linear": 28 * 3 + 8,
                          "fused_mlp_block": 28 * 3 + 4}
+# The all-int8 serve: the resident serve with the SAM attention kernels'
+# int8 score forms in place of their bf16 forms, and CLIP's 23 layers (up
+# to the readout at -2) through the flash forward at head_dim 64.
+ALL_INT8_LAUNCHES = {**SAM_RESIDENT_LAUNCHES, "fused_window_attention_grid": 0,
+                     "fused_window_attention_rect": 0, "fused_global_attention_y": 0,
+                     "fused_window_attention_grid_i8": 28, "fused_window_attention_rect_i8": 28 * 2,
+                     "fused_global_attention_y_i8": 4, "flash_attention_fwd_bsh_hd64": 23}
 
 
 def serve_phase(phase: str, cfg, params, n_req: int, expect: dict):
@@ -1507,6 +1761,36 @@ def serve_phase(phase: str, cfg, params, n_req: int, expect: dict):
     print(json.dumps(line), flush=True)
     print(json.dumps(profile_line), flush=True)
     return line, profile_line
+
+
+def clip_knob_split(cfg, params) -> dict:
+    """CLIP + projector + splice of one B=16 batch (host clock around a
+    synchronized call, median of three after a warm one) under each
+    combination of CLIP's `a8` and `attn_impl`, on the same weights: what
+    each knob costs or saves alone."""
+    import numpy as np
+    import torch
+
+    from ullava_tpu_torch.models import ullava_core
+    from ullava_tpu_torch.serve import collate
+
+    batch = collate(requests(cfg, B_INT8, PROMPT, np.random.default_rng(0)), "cuda")
+    out = {}
+    for impl in ("xla", "flash"):
+        for a8 in (False, True):
+            core = dataclasses.replace(cfg.core, vision=dataclasses.replace(
+                cfg.core.vision, a8=a8, attn_impl=impl))
+            runs = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                with torch.no_grad():
+                    ullava_core.embed_multimodal(params["core"], core, batch["input_ids"],
+                                                 batch["images"])
+                torch.cuda.synchronize()
+                runs.append(time.perf_counter() - t)
+            out[f"{impl}_{'a8' if a8 else 'weight_only'}"] = sorted(runs[1:])[1]
+    return out
 
 
 def stage1_config(**llm):
@@ -1882,12 +2166,14 @@ def check_phase(gen) -> None:
     global kernels), the masks decoded from both embeddings, and an int8
     SAM encoder in the block layout (the fused int8 linear, MLP and
     lane-sliced attention kernels) and in the resident layout (the dual
-    LN1+qkv, the padded-window and boundary-window kernels)."""
+    LN1+qkv, the padded-window and boundary-window kernels), the latter
+    also with int8 scores, beside a CLIP tower with W8A8 linears and flash
+    attention at head_dim 64 (the all-int8 serve's forms)."""
     import numpy as np
     import torch
 
     from ullava_tpu_torch import kernels
-    from ullava_tpu_torch.models import llama
+    from ullava_tpu_torch.models import clip_vit, llama
     from ullava_tpu_torch.models.sam import build as sam_build
     from ullava_tpu_torch.models.sam import image_encoder
     from ullava_tpu_torch.ops import quant
@@ -2009,7 +2295,36 @@ def check_phase(gen) -> None:
         raise AssertionError(f"the small resident int8 SAM encoder launched {ran}")
     errs["resident_int8_sam_image_embeddings"] = rel_err(emb, emb_ref)
     errs["resident_vs_block_int8_sam_image_embeddings"] = rel_err(emb, emb_block.float().cpu())
-    del rp, ep, emb, emb_block, emb_ref
+    del emb, emb_block, emb_ref
+
+    # The all-int8 serve's towers. The same resident encoder with int8
+    # scores in its attention kernels (`attn_dots_i8`), and a CLIP tower at
+    # ViT-L/14's head width and sequence (2 heads of 64, 257 tokens padded
+    # to 264; two layers) with int8 weights, `a8` and flash attention, B=2;
+    # each against fp32 on the CPU from the same weights.
+    vi8 = dataclasses.replace(vres, attn_dots_i8=True)
+    ccfg = clip_vit.CLIPVisionConfig(hidden_size=128, intermediate_size=512, num_layers=2,
+                                     num_heads=2, a8=True, attn_impl="flash")
+    cp = quant.quantize_tree(clip_vit.init_params(ccfg, gen, "cuda"), quant.CLIP_QUANT_KEYS)
+    cimg = torch.as_tensor(rng.standard_normal((2, 224, 224, 3)).astype(np.float32))
+    before = kernels.launch_counts()
+    with torch.no_grad():
+        emb = image_encoder.encode(rp, vi8, img4.cuda())
+        hid = clip_vit.forward(cp, ccfg, cimg.cuda())["hidden_states"]
+        torch.cuda.synchronize()
+        ran = {k: n - before[k] for k, n in kernels.launch_counts().items() if n != before[k]}
+        emb_ref = image_encoder.encode(
+            _to_cpu32(rp), dataclasses.replace(vi8, dtype=torch.float32), img4)
+        hid_ref = clip_vit.forward(
+            _to_cpu32(cp), dataclasses.replace(ccfg, dtype=torch.float32), cimg)["hidden_states"]
+    if ran != {"fused_ln_linear_dual": 3, "fused_window_attention_grid_i8": 1,
+               "fused_window_attention_rect_i8": 2, "fused_ln_linear": 5,
+               "fused_global_attention_y_i8": 1, "fused_mlp_block": 3,
+               "flash_attention_fwd_bsh_hd64": 2}:
+        raise AssertionError(f"the small all-int8 towers launched {ran}")
+    errs["all_int8_sam_image_embeddings"] = rel_err(emb, emb_ref)
+    errs["all_int8_clip_hidden_states"] = rel_err(hid, hid_ref)
+    del rp, ep, emb, emb_ref, cp, hid, hid_ref
     check_stage1(gen, errs)
     check_stage2(gen, errs)
     # bf16 activations on the card against fp32 on the CPU; on the int8
@@ -2157,7 +2472,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    built = kernels.build_all(verbose=True, mutants=[*TRAIN_MUTANTS.values(), *WQ_MUTANTS.values()])
+    built = kernels.build_all(verbose=True, mutants=[
+        *TRAIN_MUTANTS.values(), *WQ_MUTANTS.values(), *I8_MUTANTS.values()])
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "sources": sorted(built)}), flush=True)
 
@@ -2170,6 +2486,7 @@ def main() -> int:
     resident_names = ("fused_ln_linear_dual", "fused_window_attention_rect")
     train_kernel_phases(gen, results)
     weight_only_kernel_phases(gen, results)
+    all_int8_kernel_phases(gen, results)
 
     from ullava_tpu_torch.models import ullava
 
@@ -2219,6 +2536,20 @@ def main() -> int:
             sam8.vision, window_layout=resident_cfg.sam.vision.window_layout)))
     resident_line, resident_profile = serve_phase(
         "sam_resident_serve", cfg_res, params, B_INT8, SAM_RESIDENT_LAUNCHES)
+
+    # The all-int8 serve on the same parameters: int8 scores in the SAM
+    # attention kernels (`attn_dots_i8`), CLIP's linears W8A8 and its
+    # attention through the flash kernel (`bench.py`'s BENCH_ATTN_I8=1
+    # BENCH_CLIP_A8=1 BENCH_CLIP_ATTN=flash).
+    cfg_i8 = dataclasses.replace(
+        cfg_res,
+        core=dataclasses.replace(cfg_res.core, vision=dataclasses.replace(
+            cfg_res.core.vision, a8=True, attn_impl="flash")),
+        sam=dataclasses.replace(cfg_res.sam, vision=dataclasses.replace(
+            cfg_res.sam.vision, attn_dots_i8=True)))
+    all_int8_line, all_int8_profile = serve_phase(
+        "all_int8_serve", cfg_i8, params, B_INT8, ALL_INT8_LAUNCHES)
+    all_int8_line["clip_knobs_s"] = clip_knob_split(cfg_i8, params)
     del params
     torch.cuda.empty_cache()
 
@@ -2234,11 +2565,13 @@ def main() -> int:
     # LLM's five, the fully int8 serve for the int8 SAM encoder's three,
     # the resident serve for the resident layout's two, one stage-1 step
     # for the training path's four, one stage-2 step for the weight-only
-    # K10 and K12, the weight-only encode with composite weights for K13's.
+    # K10 and K12, the weight-only encode with composite weights for K13's,
+    # the all-int8 serve for its four forms.
     for name, r in results.items():
         own = (serve_line if name in bf16_results else
                int8_line if name in int8_results else
                resident_line if name in resident_names else
+               all_int8_line if name in I8_NAMES else
                train_line if name in TRAIN_MUTANTS else
                wq_encode_line if name == "fused_ln_linear_dual_wq" else
                stage2_line if name in WQ_NAMES else sam_int8_line)
@@ -2247,6 +2580,7 @@ def main() -> int:
         r["launches_int8_serve"] = int8_line["launches"][name]
         r["launches_sam_int8_serve"] = sam_int8_line["launches"][name]
         r["launches_sam_resident_serve"] = resident_line["launches"][name]
+        r["launches_all_int8_serve"] = all_int8_line["launches"][name]
         r["launches_stage1_step"] = train_line["launches"][name]
         r["launches_stage2_step"] = stage2_line["launches"][name]
         r["launches_weight_only_encode"] = wq_encode_line["launches"][name]
@@ -2257,7 +2591,8 @@ def main() -> int:
     check_phase(gen)
     # The serve and profile numbers again, short, next to the result.
     for line, prof in ((serve_line, profile_line), (int8_line, int8_profile),
-                       (sam_int8_line, sam_int8_profile), (resident_line, resident_profile)):
+                       (sam_int8_line, sam_int8_profile), (resident_line, resident_profile),
+                       (all_int8_line, all_int8_profile)):
         line = {k: v for k, v in line.items() if k != "launches"}
         top = sorted(prof["top_device_ms"].items(), key=lambda kv: -kv[1])[:8]
         print(json.dumps({**line, "phase": line["phase"] + "_summary",

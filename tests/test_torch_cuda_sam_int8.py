@@ -151,7 +151,9 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
             mlp_kernel.fused_ln_linear(x, v, v, wq.contiguous(), ws, bias, 1e-6, w8a8=w8a8)
         with pytest.raises(ValueError, match="fc2"):
             mlp_kernel.fused_mlp_block(x, v, v, wq, ws, bias, wq, ws, v, 1e-6, w8a8=w8a8)
+    # The int8 score form has its kernel now (`tests/test_torch_cuda_dots_i8.py`).
     y = _rand(cuda, 1, 4096, 3 * 80)
     t = _rand(cuda, 1, 4096, 1, 64)
-    with pytest.raises(NotImplementedError):
-        sam_attention.fused_global_attention_y(y, t, t, 1, 80, 64, 0.1, dots_i8=True)
+    got = sam_attention.fused_global_attention_y(y, t, t, 1, 80, 64, 0.1, dots_i8=True)
+    ref = sam_attention.fused_global_attention_y_plain(y, t, t, 1, 80, 64, 0.1, dots_i8=True)
+    assert _row_rel_err(got, ref) <= 1e-2

@@ -167,8 +167,10 @@ def test_cuda_resident_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     rect = _rect_inputs(cuda, [(14, 8)], per=2)
     with pytest.raises(ValueError, match="geometry"):
         sam_attention.fused_window_attention_rect(*rect, **_KW)
-    with pytest.raises(NotImplementedError):
-        sam_attention.fused_window_attention_rect(*rect, **_KW, dots_i8=True, geometry=(14, 8))
+    # The int8 score form has its kernel now (`tests/test_torch_cuda_dots_i8.py`).
+    got = sam_attention.fused_window_attention_rect(*rect, **_KW, dots_i8=True, geometry=(14, 8))
+    ref = sam_attention.fused_window_attention_rect_plain(*rect, *_KW.values(), dots_i8=True)
+    assert _row_rel_err(got, ref) <= _TOL
     y = _rand(cuda, 2, 196, 3 * _H * _HD)
     t = _rand(cuda, 2, 196, _H * _W)
     with pytest.raises(ValueError):

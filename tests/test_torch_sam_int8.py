@@ -361,11 +361,34 @@ def test_evaluate_with_three_int8_towers_matches_jax():
         np.testing.assert_allclose(out[key].numpy(), np.asarray(ref[key]), atol=2e-3, rtol=2e-3)
 
 
-def test_unported_layouts_and_forms_raise():
+def test_unported_layouts_and_forms_raise(monkeypatch):
     for layout in ("resident", "auto", "block"):
         assert image_encoder.SamVisionConfig(window_layout=layout).window_layout == layout
     with pytest.raises(ValueError):
         image_encoder.SamVisionConfig(window_layout="packed")
-    with pytest.raises(NotImplementedError, match="attn_dots_i8"):
-        image_encoder.SamVisionConfig(attn_dots_i8=True)
     assert image_encoder.SamVisionConfig().window_layout == "auto"
+    # `attn_dots_i8` is ported: the config builds, and the encoder hands
+    # the flag to the window, boundary and lane-sliced global attention.
+    seen = []
+
+    def spy(name):
+        real = getattr(sam_attention, name)
+
+        def call(*args, **kw):
+            seen.append((name, kw.get("dots_i8")))
+            return real(*args, **kw)
+        return call
+
+    for name in ("fused_window_attention_grid", "fused_window_attention_rect",
+                 "fused_global_attention_y"):
+        monkeypatch.setattr(image_encoder, name, spy(name))
+    jcfg, cfg = _encoder_cfgs(window_size=3, attn_dots_i8=True)
+    assert cfg.attn_dots_i8
+    _, params = _quantized_encoder(jcfg, seed=13)
+    img = _t(np.random.default_rng(13).standard_normal((1, 512, 512, 3)).astype(np.float32))
+    for layout in ("block", "resident"):
+        seen.clear()
+        image_encoder.encode(params, dataclasses.replace(cfg, window_layout=layout), img)
+        names = {"fused_window_attention_grid", "fused_global_attention_y"} | (
+            {"fused_window_attention_rect"} if layout == "resident" else set())
+        assert {n for n, _ in seen} == names and all(flag is True for _, flag in seen), seen

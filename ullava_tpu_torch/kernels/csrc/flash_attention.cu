@@ -16,6 +16,13 @@
 // (B=4, S=1024) moves 134 MB and does 3.4e10 causal FLOP: 40 us against
 // 35 us, bytes again by a little.
 //
+// K2 also runs at head_dim 64 (`ullava_flash_attention_fwd_bsh_hd64`): the
+// CLIP ViT-L/14 tower's attention under `attn_impl="flash"` (16 heads of
+// 64 over the 257 tokens padded to 264, kv_lens 257, not causal; the TPU
+// kernel's own function at that width). At B=16 a layer moves ~35 MB and
+// does ~4.4 GFLOP: 10 us of HBM time against 4.5 us of bf16 tensor-core
+// time, so bytes bound it.
+//
 // Design: the shared online-softmax core (flash_core.cuh), one block per
 // (b, h, 64-row q tile). q/k/v rows are read in place with the head
 // stride, so no [B,H,S,hd] staging copy exists (the same point as the
@@ -28,6 +35,7 @@
 
 namespace ullava {
 
+template <int HD_>
 struct AttnBSH {
   const bf16* q;
   const bf16* k;
@@ -38,7 +46,7 @@ struct AttnBSH {
   int Sq, Sk, H, Hkv, q_offset;
   bool causal;
   float scale;
-  static constexpr int HD = 128;
+  static constexpr int HD = HD_;
 
   __device__ const bf16* q_row(int inst, int s) const {
     const int b = inst / H, h = inst % H;
@@ -71,14 +79,29 @@ ULLAVA_EXPORT int ullava_flash_attention_fwd_bsh(
     const void* q, const void* k, const void* v, const void* kv_lens, void* o,
     int B, int Sq, int Sk, int H, int Hkv, int causal, int q_offset, float scale,
     void* stream) {
-  ullava::AttnBSH p{static_cast<const ullava::bf16*>(q),
-                    static_cast<const ullava::bf16*>(k),
-                    static_cast<const ullava::bf16*>(v),
-                    static_cast<ullava::bf16*>(o),
-                    static_cast<const int*>(kv_lens),
-                    nullptr,
-                    Sq, Sk, H, Hkv, q_offset, causal != 0, scale};
+  ullava::AttnBSH<128> p{static_cast<const ullava::bf16*>(q),
+                         static_cast<const ullava::bf16*>(k),
+                         static_cast<const ullava::bf16*>(v),
+                         static_cast<ullava::bf16*>(o),
+                         static_cast<const int*>(kv_lens),
+                         nullptr,
+                         Sq, Sk, H, Hkv, q_offset, causal != 0, scale};
   return ullava::launch_flash<128, 0>(p, B * H, static_cast<cudaStream_t>(stream));
+}
+
+// As above at head_dim 64: q, o [B, Sq, H, 64], k, v [B, Sk, Hkv, 64].
+ULLAVA_EXPORT int ullava_flash_attention_fwd_bsh_hd64(
+    const void* q, const void* k, const void* v, const void* kv_lens, void* o,
+    int B, int Sq, int Sk, int H, int Hkv, int causal, int q_offset, float scale,
+    void* stream) {
+  ullava::AttnBSH<64> p{static_cast<const ullava::bf16*>(q),
+                        static_cast<const ullava::bf16*>(k),
+                        static_cast<const ullava::bf16*>(v),
+                        static_cast<ullava::bf16*>(o),
+                        static_cast<const int*>(kv_lens),
+                        nullptr,
+                        Sq, Sk, H, Hkv, q_offset, causal != 0, scale};
+  return ullava::launch_flash<64, 0>(p, B * H, static_cast<cudaStream_t>(stream));
 }
 
 // As above, and lse: [B, H, Sq] f32, m + log l of each row (1e30 where no
@@ -87,13 +110,13 @@ ULLAVA_EXPORT int ullava_flash_attention_fwd_lse(
     const void* q, const void* k, const void* v, const void* kv_lens, void* o, void* lse,
     int B, int Sq, int Sk, int H, int Hkv, int causal, int q_offset, float scale,
     void* stream) {
-  ullava::AttnBSH p{static_cast<const ullava::bf16*>(q),
-                    static_cast<const ullava::bf16*>(k),
-                    static_cast<const ullava::bf16*>(v),
-                    static_cast<ullava::bf16*>(o),
-                    static_cast<const int*>(kv_lens),
-                    static_cast<float*>(lse),
-                    Sq, Sk, H, Hkv, q_offset, causal != 0, scale};
-  return ullava::launch_flash<128, 0, ullava::AttnBSH, false, true>(
+  ullava::AttnBSH<128> p{static_cast<const ullava::bf16*>(q),
+                         static_cast<const ullava::bf16*>(k),
+                         static_cast<const ullava::bf16*>(v),
+                         static_cast<ullava::bf16*>(o),
+                         static_cast<const int*>(kv_lens),
+                         static_cast<float*>(lse),
+                         Sq, Sk, H, Hkv, q_offset, causal != 0, scale};
+  return ullava::launch_flash<128, 0, ullava::AttnBSH<128>, false, true>(
       p, B * H, static_cast<cudaStream_t>(stream));
 }

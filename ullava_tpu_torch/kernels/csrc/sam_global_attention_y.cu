@@ -6,7 +6,9 @@
 //
 // Replaces: ullava_tpu/ops/sam_attention.py:652 fused_global_attention_y
 // (Pallas; a program handles a slab of heads whose lanes form 128-aligned
-// blocks of y). The int8 score-dot form (`dots_i8`) is not built here.
+// blocks of y), in both of its forms: bf16 scores
+// (`ullava_fused_global_attention_y`) and the int8 score form `dots_i8`
+// (`ullava_fused_global_attention_y_i8`, kernel branch :596-617).
 //
 // Bound on the card: at ViT-H B=16 (256 (image, head) pairs) a layer does
 // 256 * 4096 * 4096 * 80 * 4 = 1.37e12 flops of products, 1.39 ms at
@@ -21,6 +23,12 @@
 // the encoder's einsum leaves them; A[s][t / W] + Bb[s][t % W] is added to
 // q.k before the scale. With `exp_bf16` the exponent argument and the
 // probabilities are rounded to bf16 as in the TPU kernel's serving form.
+//
+// The dots_i8 form is the core's DOTS_I8 (flash_core.cuh): q, each K
+// tile and the 128 bias terms [A | B] of a row quantized per row inside
+// the block, qk on the int8 tensor cores (hd 80 padded to 96), P V in
+// bf16. Bound at B=16: 0.35 ms of int8 qk plus 0.69 ms of bf16 P V, still
+// operations.
 #include "flash_core.cuh"
 
 namespace ullava {
@@ -57,6 +65,7 @@ struct GlobalAttnY {
   }
   __device__ float bias_a(int inst, int s, int j) const { return term(a, inst, s, j); }
   __device__ float bias_b(int inst, int s, int j) const { return term(bb, inst, s, j); }
+  static constexpr bool kPadKeys = false;
 };
 
 }  // namespace ullava
@@ -77,4 +86,20 @@ ULLAVA_EXPORT int ullava_fused_global_attention_y(const void* y, const void* a, 
         p, B * H, st);
   return ullava::launch_flash<ullava::kGlobYHD, ullava::kGlobYW, ullava::GlobalAttnY, false>(
       p, B * H, st);
+}
+
+// The dots_i8 form: int8 scores (q, k and the bias terms quantized per
+// row), bf16 P V, either exponential form. Arguments as above.
+ULLAVA_EXPORT int ullava_fused_global_attention_y_i8(const void* y, const void* a,
+                                                     const void* b, void* o, int B, int H,
+                                                     float scale, int exp_bf16, void* stream) {
+  using namespace ullava;
+  constexpr int S = kGlobYW * kGlobYW;
+  GlobalAttnY p{static_cast<const bf16*>(y), static_cast<const bf16*>(a),
+                static_cast<const bf16*>(b),  static_cast<bf16*>(o),
+                S, S, 0, false, scale, H};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (exp_bf16)
+    return launch_flash<kGlobYHD, kGlobYW, GlobalAttnY, true, false, true>(p, B * H, st);
+  return launch_flash<kGlobYHD, kGlobYW, GlobalAttnY, false, false, true>(p, B * H, st);
 }

@@ -9,7 +9,10 @@
 // Replaces: ullava_tpu/ops/sam_attention.py:354 fused_window_attention_rect
 // (Pallas; the P pad keys are appended after the T real ones as rows of a
 // per-layer table [bias_k | one-hots], and the pad keys' probability mass
-// times bias_v is added as a rank-1 term).
+// times bias_v is added as a rank-1 term), in both of its forms: bf16
+// scores (`ullava_fused_window_attention_rect`) and the int8 score form
+// `dots_i8` (`ullava_fused_window_attention_rect_i8`, kernel branch
+// :313-332).
 //
 // Bound on the card: the merged right and bottom classes of a ViT-H layer
 // at B=16 (N = 128 windows, T = 112, H = 16) read y (110 MB) and the two
@@ -30,6 +33,15 @@
 // difference in rounding follows: the TPU kernel sums the pad keys'
 // probabilities in fp32 unrounded, here they are rounded to bf16 like
 // every other key's before the value product.
+//
+// The dots_i8 form is the core's DOTS_I8 (flash_core.cuh) with pad keys:
+// the real keys' scores are int8 (q, k and the bias row [A | B] quantized
+// per row inside the block), the pad keys keep the TPU kernel's score
+// against the constant table, from the unquantized q and bias terms:
+// q . pad_k (one value a query row, computed when Q is staged) + A + B.
+// The pad keys' value is still read as a row, so the pad mass times pad_v
+// is the rank-1 term of the TPU kernel, summed with the real keys.
+// Bound as the bf16 form: bytes.
 //
 // Dual geometry: the right and bottom classes share one launch; windows
 // [0, n_first) take (rows0, cols0) and half 0 of the stacked tables, the
@@ -83,6 +95,13 @@ struct WindowRect {
   __device__ bf16* o_row(int inst, int s) const {
     return o + row(inst, s) * (H * kRectHD) + (inst % H) * kRectHD;
   }
+  // DOTS_I8: whether logical key t is a pad position, and the k row every
+  // pad key of the instance shares.
+  static constexpr bool kPadKeys = true;
+  __device__ bool pad_key(int inst, int t) const { return token(inst, t) < 0; }
+  __device__ const bf16* pad_k_row(int inst) const {
+    return pad_k + static_cast<size_t>(half(inst) * H + inst % H) * pad_k_head;
+  }
   __device__ int key_limit(int) const { return Sk; }
   __device__ float bias_a(int inst, int s, int j) const {
     return __bfloat162float(
@@ -115,4 +134,25 @@ ULLAVA_EXPORT int ullava_fused_window_attention_rect(const void* y, const void* 
                T, kRectWin * kRectWin, H, 0, false, scale,
                n_first, rows0, cols0, rows1, cols1, P * (kRectHD + 2 * kRectWin)};
   return launch_flash<kRectHD, kRectWin>(p, N * H, static_cast<cudaStream_t>(stream));
+}
+
+// The dots_i8 form: int8 scores over the real keys, the pad keys' scores
+// unquantized, bf16 P V. Arguments as above.
+ULLAVA_EXPORT int ullava_fused_window_attention_rect_i8(const void* y, const void* a,
+                                                        const void* b, const void* pad_k,
+                                                        const void* pad_v, void* o, int N, int H,
+                                                        int T, int P, int n_first, int rows0,
+                                                        int cols0, int rows1, int cols1,
+                                                        float scale, void* stream) {
+  using namespace ullava;
+  WindowRect p{static_cast<const bf16*>(y),
+               static_cast<const bf16*>(a),
+               static_cast<const bf16*>(b),
+               static_cast<const bf16*>(pad_k),
+               static_cast<const bf16*>(pad_v),
+               static_cast<bf16*>(o),
+               T, kRectWin * kRectWin, H, 0, false, scale,
+               n_first, rows0, cols0, rows1, cols1, P * (kRectHD + 2 * kRectWin)};
+  return launch_flash<kRectHD, kRectWin, WindowRect, false, false, true>(
+      p, N * H, static_cast<cudaStream_t>(stream));
 }

@@ -3,7 +3,10 @@
 // decomposed rel-pos bias, writing the head-merged output.
 //
 // Replaces: ullava_tpu/ops/sam_attention.py:181 fused_window_attention_grid
-// (Pallas; bias folded into the qk dot as one-hot-augmented q/k).
+// (Pallas; bias folded into the qk dot as one-hot-augmented q/k), in both
+// of its forms: bf16 scores (`ullava_fused_window_attention_grid`) and the
+// int8 score form `dots_i8` (`ullava_fused_window_attention_grid_i8`,
+// kernel branch :146-161).
 //
 // Bound on the card: at ViT-H B=4 (N = 100 windows, S = 196, H = 16) a
 // layer reads y (150 MB) and the two bias-term tensors (18 MB) and
@@ -27,6 +30,14 @@
 // 196, so the tail rows are never loaded as keys. As queries they are
 // computed and written like any row (finite, dropped by the caller), so
 // no later kernel reads memory that was never written.
+//
+// The dots_i8 form is the core's DOTS_I8 (flash_core.cuh): q, each K
+// tile and the bias-term row [A | B] quantized per row to int8 inside the
+// block, qk on the int8 tensor cores (hd 80 zero-padded to 96: three
+// m16n8k32 steps), the one-hot expansion of the TPU kernel as the sum of
+// two codes, P V in bf16. Bound at one ViT-H B=16 block in the padded
+// layout (N = 256, S = 200): bytes again, ~570 MB (~170 us of HBM time)
+// against ~13 us of int8 qk and ~26 us of bf16 P V.
 #include "flash_core.cuh"
 
 namespace ullava {
@@ -66,6 +77,7 @@ struct WindowGrid {
   __device__ float bias_b(int inst, int s, int j) const {
     return __bfloat162float(bb[row(inst, s) * (H * kWin) + (inst % H) * kWin + kWin - 1 - j]);
   }
+  static constexpr bool kPadKeys = false;
 };
 
 }  // namespace ullava
@@ -82,5 +94,19 @@ ULLAVA_EXPORT int ullava_fused_window_attention_grid(const void* y, const void* 
                        static_cast<ullava::bf16*>(o),
                        total_rows, ullava::kWin * ullava::kWin, H, 0, false, scale};
   return ullava::launch_flash<ullava::kWinHD, ullava::kWin>(
+      p, N * H, static_cast<cudaStream_t>(stream));
+}
+
+// The dots_i8 form: int8 scores (q, k and the bias terms quantized per
+// row), bf16 P V. Arguments as above.
+ULLAVA_EXPORT int ullava_fused_window_attention_grid_i8(const void* y, const void* a,
+                                                        const void* b, void* o, int N, int H,
+                                                        int total_rows, float scale,
+                                                        void* stream) {
+  using namespace ullava;
+  WindowGrid p{static_cast<const bf16*>(y), static_cast<const bf16*>(a),
+               static_cast<const bf16*>(b),  static_cast<bf16*>(o),
+               total_rows, kWin * kWin, H, 0, false, scale};
+  return launch_flash<kWinHD, kWin, WindowGrid, false, false, true>(
       p, N * H, static_cast<cudaStream_t>(stream));
 }

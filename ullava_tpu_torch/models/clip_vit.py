@@ -1,11 +1,20 @@
-"""CLIP ViT vision tower (counterpart of `ullava_tpu/models/clip_vit.py`,
-serving defaults: plain attention; weights in bf16 or as weight-only int8
-leaves, `quant.CLIP_QUANT_KEYS`).
+"""CLIP ViT vision tower (counterpart of `ullava_tpu/models/clip_vit.py`;
+weights in bf16 or as int8 leaves, `quant.CLIP_QUANT_KEYS`).
 
 Patch embedding as patchify + matmul, class token + learned positions,
 pre-LN transformer with quick-GELU MLPs. The intermediate-layer readout
 (`hidden_layer`, -2 in the reference configs) runs only the first
 `L + 1 + hidden_layer` layers.
+
+Two serving knobs, with the JAX names and defaults. `attn_impl="flash"`
+pads the token sequence with zero rows to a multiple of 8 (257 -> 264),
+masks the pad keys through `kv_lens` and runs the flash kernel K2
+(`flash_attention_fwd_bsh`; head_dim 64 for ViT-L/14), then drops the pad
+rows; as in the JAX package only when the width H * hd is a multiple of
+128. `a8` runs a layer linear with an int8 weight W8A8 (`apply_linear_a8`)
+when its row count is a multiple of 8, weight-only otherwise. The JAX
+package takes both knobs only on a TPU (`_on_tpu()`); the port computes
+on the CPU and on the card alike what the JAX package computes on the TPU.
 """
 
 from __future__ import annotations
@@ -14,12 +23,13 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ullava_tpu_torch import resolve_device
 from ullava_tpu_torch.models import normal
-from ullava_tpu_torch.ops.attention import attention_xla
+from ullava_tpu_torch.ops.attention import attention_xla, flash_attention_fwd_bsh
 from ullava_tpu_torch.ops.norms import layer_norm
-from ullava_tpu_torch.ops.quant import apply_linear
+from ullava_tpu_torch.ops.quant import apply_linear, apply_linear_a8, is_quantized
 
 Params = Dict[str, Any]
 
@@ -34,6 +44,14 @@ class CLIPVisionConfig:
     patch_size: int = 14
     layer_norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    # Serving knobs (see the module docstring): W8A8 layer linears, and
+    # "flash" attention over the sequence padded to a multiple of 8.
+    a8: bool = False
+    attn_impl: str = "xla"
+
+    def __post_init__(self) -> None:
+        if self.attn_impl not in ("xla", "flash"):
+            raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
 
     @property
     def head_dim(self) -> int:
@@ -126,15 +144,32 @@ def forward(
     if not 0 <= n_layers <= L:
         raise ValueError(f"hidden_layer {hidden_layer} out of range for {L} layers")
 
+    S_real = x.shape[1]
+    use_flash = cfg.attn_impl == "flash" and D % 128 == 0
+    if use_flash:
+        # Zero pad rows after the pre-LN; their keys are masked, their
+        # outputs dropped at the end.
+        x = F.pad(x, (0, 0, 0, (-S_real) % 8))
+        kv_lens = torch.full((B,), S_real, dtype=torch.int32, device=x.device)
     S = x.shape[1]
+
+    def lin(t, w):
+        if cfg.a8 and is_quantized(w) and (t.numel() // t.shape[-1]) % 8 == 0:
+            return apply_linear_a8(t, w)
+        return apply_linear(t, w)
+
     for p in params["layers"][:n_layers]:
         y = layer_norm(x, p["ln1_scale"], p["ln1_bias"], cfg.layer_norm_eps)
-        q = (apply_linear(y, p["q_proj"]) + p["q_bias"]).reshape(B, S, H, hd)
-        k = (apply_linear(y, p["k_proj"]) + p["k_bias"]).reshape(B, S, H, hd)
-        v = (apply_linear(y, p["v_proj"]) + p["v_bias"]).reshape(B, S, H, hd)
-        a = attention_xla(q, k, v, causal=False)
-        x = x + apply_linear(a.reshape(B, S, D), p["out_proj"]) + p["out_bias"]
+        q = (lin(y, p["q_proj"]) + p["q_bias"]).reshape(B, S, H, hd)
+        k = (lin(y, p["k_proj"]) + p["k_bias"]).reshape(B, S, H, hd)
+        v = (lin(y, p["v_proj"]) + p["v_bias"]).reshape(B, S, H, hd)
+        if use_flash:
+            a = flash_attention_fwd_bsh(q, k, v, kv_lens, causal=False, scale=hd**-0.5)
+        else:
+            a = attention_xla(q, k, v, causal=False)
+        x = x + lin(a.reshape(B, S, D), p["out_proj"]) + p["out_bias"]
         y = layer_norm(x, p["ln2_scale"], p["ln2_bias"], cfg.layer_norm_eps)
-        h = _quick_gelu(apply_linear(y, p["fc1"]) + p["fc1_bias"])
-        x = x + apply_linear(h, p["fc2"]) + p["fc2_bias"]
+        h = _quick_gelu(lin(y, p["fc1"]) + p["fc1_bias"])
+        x = x + lin(h, p["fc2"]) + p["fc2_bias"]
+    x = x[:, :S_real]
     return {"hidden_states": x, "patch_features": x[:, 1:]}

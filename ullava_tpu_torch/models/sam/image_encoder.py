@@ -100,7 +100,9 @@ class SamVisionConfig:
     # The same int8 activations for the unfused qkv/proj projections of
     # `_attn` (`apply_linear_a8` in place of `apply_linear`).
     attn_w8a8: bool = False
-    # int8 x int8 attention score products inside the kernels: not ported.
+    # int8 x int8 attention score products inside the window, boundary and
+    # lane-sliced global kernels (q, k and the bias terms quantized per row;
+    # P V stays bf16). The transpose-staged global kernel has no such form.
     attn_dots_i8: bool = False
     # Window-block token layout: "block" (pad, partition, attend, merge,
     # crop in every window block), "resident" (one partition per group
@@ -111,11 +113,6 @@ class SamVisionConfig:
     def __post_init__(self) -> None:
         if self.window_layout not in ("auto", "block", "resident"):
             raise ValueError(f"unknown window_layout {self.window_layout!r}")
-        if self.attn_dots_i8:
-            raise NotImplementedError(
-                "attn_dots_i8: the int8 score-dot forms of the attention kernels are not "
-                "ported yet"
-            )
 
     @property
     def head_dim(self) -> int:
@@ -315,7 +312,8 @@ def _attn(x: torch.Tensor, p: Params, cfg: SamVisionConfig, size: int) -> torch.
     if size <= 16:
         A, Bb = _bias_terms_grid(y, p["rel_pos_h"], p["rel_pos_w"], cfg, size)
         out = fused_window_attention_grid(
-            y, A, Bb, num_heads=H, head_dim=hd, window=size, scale=hd**-0.5
+            y, A, Bb, num_heads=H, head_dim=hd, window=size, scale=hd**-0.5,
+            dots_i8=cfg.attn_dots_i8,
         )
     else:
         out = _global_attention_staged(y, p, cfg, size)
@@ -588,7 +586,8 @@ def _window_attention(y, A, Bb, p: Params, cfg: SamVisionConfig, geoms) -> torch
     kw = dict(num_heads=H, head_dim=hd, window=W, scale=hd**-0.5)
     if geoms == [(W, W)]:
         return fused_window_attention_grid(
-            y, A, Bb, **kw, total_rows=y.shape[1] if y.shape[1] != W * W else 0
+            y, A, Bb, **kw, total_rows=y.shape[1] if y.shape[1] != W * W else 0,
+            dots_i8=cfg.attn_dots_i8,
         )
     ohs = [_rect_onehot(rows, cols, W, y.dtype, y.device) for rows, cols in geoms]
     pads = [_pad_tables(p["qkv_bias"], rows, cols, W, H, hd, y.dtype) for rows, cols in geoms]

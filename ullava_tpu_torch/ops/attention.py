@@ -121,7 +121,8 @@ def flash_attention_fwd_bsh(
     """Flash attention forward over row-major [B, S, H, hd] layouts with
     causal, `q_offset` and per-batch `kv_lens` masking and GQA; returns
     [B, Sq, H, hd]. CUDA kernel `kernels/csrc/flash_attention.cu` (hd 128,
-    bf16) for CUDA tensors, the plain version for CPU tensors."""
+    and hd 64 through its own entry; bf16) for CUDA tensors, the plain
+    version for CPU tensors."""
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     _check_flash_shapes(q, k, v)
@@ -129,19 +130,21 @@ def flash_attention_fwd_bsh(
         return flash_attention_fwd_bsh_plain(
             q, k, v, kv_lens, causal=causal, scale=scale, q_offset=q_offset
         )
-    _check_cuda_operands("flash_attention_fwd_bsh", B, hd, q=q, k=k, v=v, kv_lens=kv_lens)
+    _check_cuda_operands("flash_attention_fwd_bsh", B, hd, (64, 128), q=q, k=k, v=v,
+                         kv_lens=kv_lens)
     out = torch.empty_like(q)
     kernels.launch(
-        "flash_attention_fwd_bsh", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        "flash_attention_fwd_bsh_hd64" if hd == 64 else "flash_attention_fwd_bsh",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
         kv_lens.data_ptr(), out.data_ptr(), B, Sq, Sk, H, Hkv, int(causal),
         int(q_offset), float(scale),
     )
     return out
 
 
-def _check_cuda_operands(name: str, B: int, hd: int, **tensors) -> None:
-    if hd != 128:
-        raise ValueError(f"{name}: the CUDA flash kernels are built for head_dim 128, got {hd}")
+def _check_cuda_operands(name: str, B: int, hd: int, head_dims=(128,), **tensors) -> None:
+    if hd not in head_dims:
+        raise ValueError(f"{name}: the CUDA kernel is built for head_dim {head_dims}, got {hd}")
     for key, t in tensors.items():
         if key == "kv_lens":
             kernels.check_cuda_tensor(f"{name} kv_lens", t, torch.int32, (B,))

@@ -25,10 +25,15 @@ from ullava_tpu_torch.ops.mlp_kernel import _row_quant
 
 
 def fused_window_attention_grid_plain(
-    y, bias_a, bias_b, num_heads: int, head_dim: int, window: int, scale: float
+    y, bias_a, bias_b, num_heads: int, head_dim: int, window: int, scale: float,
+    dots_i8: bool = False,
 ) -> torch.Tensor:
     """Rows of y past window^2 (the padded layout) attend as queries and
-    are left out as keys."""
+    are left out as keys. With `dots_i8` the scores are those of the TPU
+    kernel's int8 form (`ullava_tpu/ops/sam_attention.py:146-161`): q, k
+    and each row's bias terms [A | B] quantized per row (`_row_quant`),
+    s = (float(qk codes) * (qs * ks) + float(ca + cb) * abss) * scale,
+    where the one-hot product of the TPU kernel is the sum of two codes."""
     N, S, _ = y.shape
     H, hd, W = num_heads, head_dim, window
     y5 = y.reshape(N, S, 3, H, hd)
@@ -36,8 +41,19 @@ def fused_window_attention_grid_plain(
     # Reversed columns: column a' holds the bias for key row W-1-a'.
     A = bias_a.reshape(N, S, H, W).flip(-1).float().permute(0, 2, 1, 3)
     Bb = bias_b.reshape(N, S, H, W).flip(-1).float().permute(0, 2, 1, 3)
-    bias = (A[..., :, None] + Bb[..., None, :]).reshape(N, H, S, W * W)
-    s = (torch.einsum("nshd,nthd->nhst", q.float(), k.float()) + bias) * scale
+    if dots_i8:
+        qq, qs = _row_quant(q)  # [N, S, H, hd], [N, S, H, 1]
+        kq, ks = _row_quant(k)
+        abq, abss = _row_quant(torch.cat([A, Bb], dim=-1))  # [N, H, S, 2W], [N, H, S, 1]
+        # Integer sums of at most 127 * 127 * hd: exact in fp32.
+        s_qk = torch.einsum("nshd,nthd->nhst", qq.float(), kq.float()) * (
+            qs.permute(0, 2, 1, 3) * ks.permute(0, 2, 3, 1))
+        codes = abq.float()
+        s_b = (codes[..., :W, None] + codes[..., None, W:]).reshape(N, H, S, W * W) * abss
+        s = (s_qk + s_b) * scale
+    else:
+        bias = (A[..., :, None] + Bb[..., None, :]).reshape(N, H, S, W * W)
+        s = (torch.einsum("nshd,nthd->nhst", q.float(), k.float()) + bias) * scale
     p = torch.softmax(s, dim=-1).to(v.dtype)
     o = torch.einsum("nhst,nthd->nshd", p.float(), v.float())
     return o.to(y.dtype).reshape(N, S, H * hd)
@@ -57,14 +73,16 @@ def fused_window_attention_grid(
     window: int,
     scale: float,
     total_rows: int = 0,
+    dots_i8: bool = False,
 ) -> torch.Tensor:
     """Window attention straight from the raw qkv output; returns the
     head-merged [N, S, H*hd] pre-projection activations. Bias terms are
     pre-scaled by 1/scale. With `total_rows` > window^2 (the padded
     layout) every window is stored as S = `total_rows` rows: the tail rows
     are left out as keys, and as queries they give finite rows that the
-    caller drops. CUDA kernel `kernels/csrc/sam_window_attention.cu`
-    (W 14, hd 80, bf16) for CUDA tensors, the plain version for CPU ones."""
+    caller drops. `dots_i8` takes the int8 score form. CUDA kernel
+    `kernels/csrc/sam_window_attention.cu` (W 14, hd 80, bf16; its `_i8`
+    entry for `dots_i8`) for CUDA tensors, the plain version for CPU ones."""
     N, S, width = y.shape
     H, hd, W = num_heads, head_dim, window
     if S != (total_rows or W * W) or S < W * W or width != 3 * H * hd:
@@ -74,14 +92,15 @@ def fused_window_attention_grid(
     if bias_a.shape != (N, S, H * W) or bias_b.shape != (N, S, H * W):
         raise ValueError(f"bias terms must be [{N}, {S}, {H * W}]")
     if y.device.type == "cpu":
-        return fused_window_attention_grid_plain(y, bias_a, bias_b, H, hd, W, scale)
+        return fused_window_attention_grid_plain(y, bias_a, bias_b, H, hd, W, scale, dots_i8)
     _check_window_kernel_shape(hd, W)
     kernels.check_cuda_tensor("window y", y, torch.bfloat16)
     kernels.check_cuda_tensor("window bias_a", bias_a, torch.bfloat16)
     kernels.check_cuda_tensor("window bias_b", bias_b, torch.bfloat16)
     out = torch.empty((N, S, H * hd), dtype=y.dtype, device=y.device)
     kernels.launch(
-        "fused_window_attention_grid", y.data_ptr(), bias_a.data_ptr(),
+        "fused_window_attention_grid_i8" if dots_i8 else "fused_window_attention_grid",
+        y.data_ptr(), bias_a.data_ptr(),
         bias_b.data_ptr(), out.data_ptr(), N, H, S, float(scale),
     )
     return out
@@ -167,9 +186,9 @@ def fused_window_attention_rect(
     `geometry` is (rows, cols), or one such pair per half: what the
     tables say, handed over so that the card's wrapper need not read it
     back from device memory. CUDA kernel `kernels/csrc/sam_rect_attention.cu`
-    (W 14, hd 80, bf16, `dots_i8` off) for CUDA tensors, which needs
-    `geometry`; the plain version for CPU ones, which checks it against
-    `oh`."""
+    (W 14, hd 80, bf16; its `_i8` entry for `dots_i8`) for CUDA tensors,
+    which needs `geometry`; the plain version for CPU ones, which checks it
+    against `oh`."""
     N, T, width = y.shape
     H, hd, W = num_heads, head_dim, window
     halves = oh.shape[0] if oh.ndim == 3 else 0
@@ -199,8 +218,6 @@ def fused_window_attention_rect(
         return fused_window_attention_rect_plain(
             y, bias_a, bias_b, oh, pad_k, pad_v, H, hd, W, scale, dots_i8
         )
-    if dots_i8:
-        raise NotImplementedError("the CUDA boundary-window kernel has no dots_i8 form yet")
     if geometry is None:
         raise ValueError("fused_window_attention_rect on the card needs `geometry`")
     _check_window_kernel_shape(hd, W)
@@ -214,7 +231,8 @@ def fused_window_attention_rect(
     first, second = geoms[0], geoms[-1]
     out = torch.empty((N, T, H * hd), dtype=y.dtype, device=y.device)
     kernels.launch(
-        "fused_window_attention_rect", y.data_ptr(), bias_a.data_ptr(), bias_b.data_ptr(),
+        "fused_window_attention_rect_i8" if dots_i8 else "fused_window_attention_rect",
+        y.data_ptr(), bias_a.data_ptr(), bias_b.data_ptr(),
         pad_k.data_ptr(), pad_v.data_ptr(), out.data_ptr(), N, H, T, P,
         N // halves if halves else N, first[0], first[1], second[0], second[1], float(scale),
     )
@@ -310,7 +328,8 @@ def fused_global_attention_y_plain(
                 qq, qs = _row_quant(q)
                 kq, ks = _row_quant(k)
                 abq, abss = _row_quant(torch.cat([A, Bb], dim=-1))
-                s_qk = (qq.int() @ kq.int().T).float() * (qs * ks.T)
+                # Integer sums of at most 127 * 127 * hd: exact in fp32.
+                s_qk = (qq.float() @ kq.float().T) * (qs * ks.T)
                 ab = abq.float()
                 s_b = (ab[:, :W][:, a_col] + ab[:, W:][:, b_col]) * abss
                 s = (s_qk + s_b) * scale
@@ -338,8 +357,8 @@ def fused_global_attention_y(
     and returns the head-merged [B, S, C] pre-projection activations.
     `head_group` is a lane-alignment matter of the TPU kernel: accepted
     and ignored. CUDA kernel `kernels/csrc/sam_global_attention_y.cu`
-    (W 64, hd 80, bf16, `dots_i8` off) for CUDA tensors, the plain version
-    for CPU ones."""
+    (W 64, hd 80, bf16; its `_i8` entry for `dots_i8`) for CUDA tensors,
+    the plain version for CPU ones."""
     B, S, width = y.shape
     H, hd, W = num_heads, head_dim, window
     if S != W * W or width != 3 * H * hd:
@@ -350,15 +369,14 @@ def fused_global_attention_y(
         return fused_global_attention_y_plain(
             y, bias_a, bias_b, H, hd, W, scale, exp_bf16=exp_bf16, dots_i8=dots_i8
         )
-    if dots_i8:
-        raise NotImplementedError("the CUDA lane-sliced global kernel has no dots_i8 form yet")
     if (hd, W) != (80, 64):
         raise ValueError(f"the CUDA global kernel is built for hd 80, W 64; got {hd}, {W}")
     for name, t in (("y", y), ("bias_a", bias_a), ("bias_b", bias_b)):
         kernels.check_cuda_tensor(f"global_y {name}", t, torch.bfloat16)
     out = torch.empty((B, S, H * hd), dtype=y.dtype, device=y.device)
     kernels.launch(
-        "fused_global_attention_y", y.data_ptr(), bias_a.data_ptr(), bias_b.data_ptr(),
+        "fused_global_attention_y_i8" if dots_i8 else "fused_global_attention_y",
+        y.data_ptr(), bias_a.data_ptr(), bias_b.data_ptr(),
         out.data_ptr(), B, H, float(scale), int(exp_bf16),
     )
     return out
