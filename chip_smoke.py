@@ -13,16 +13,20 @@ Phases, each fatal on any error:
                stage-1 step's shapes (the training path's four: flash
                forward with lse, flash backward dkv and dq, RMSNorm
                backward), at a B=4 ViT-H encode's shapes (the
-               weight-only forms of K10, K13 and K12) and at the all-int8
+               weight-only forms of K10, K13 and K12), at the all-int8
                serve's (the int8 score forms of K3, K11 and K14, K2 at
-               CLIP's head_dim 64), holds the kernel to the
+               CLIP's head_dim 64) and at a B=4 packed encode's (the
+               packed window and global kernels; the per-(window, head)
+               window kernel and the decode attention that does not
+               write, which no path calls), holds the kernel to the
                plain version within a stated tolerance, and times the
                kernel, the plain version and, where one exists, a single
                PyTorch library call computing the same function (L2
                flushed before each timed call); a mutated run of each
                kernel must fail the same gate (for the training path's
-               four, the weight-only and the int8 score forms, also a
-               copy of the source rebuilt with a deliberate bug);
+               four, the weight-only, the int8 score forms, the packed
+               and the two uncalled kernels, also a copy of the source rebuilt with a
+               deliberate bug);
   3. serve   - builds the full-width bf16 RES model (LLaMA-7B, CLIP
                ViT-L/14, SAM ViT-H) from a seeded generator on the card,
                serves B=4 requests (320-token prompts: 256 image tokens + 64
@@ -32,6 +36,11 @@ Phases, each fatal on any error:
                and steps say, then times three more serves
                (median), each phase alone, and one serve under the
                profiler;
+     packed_serve - the same, on the same weights with the SAM image
+               encoder packed head-major (`pack_sam_attention`, 128 lanes
+               a head): the packed window kernel in the 28 window blocks,
+               the packed global kernel in the 4 global blocks, exact
+               launch counts, its SAM encode beside the bf16 serve's;
   4. int8_serve - quantizes the same model's LLM to int8 (`quantize_llm`)
                and serves B=16 such requests with W8A8 prefill, the fused
                norm + quantize and the int8 KV cache, with the same checks
@@ -78,7 +87,8 @@ Phases, each fatal on any error:
                adapters and heads moved); then one resident encode of its
                SAM encoder with composite bias weights and `mlp_w8a8` off,
                the path of K13's weight-only form, with exact counts;
- 10. check   - runs small models (bf16, then int8 LLM, then an int8 SAM
+ 10. check   - runs small models (bf16, its SAM encoder also packed, then
+               int8 LLM, then an int8 SAM
                encoder in the block and in the resident layout, the latter
                also with int8 scores beside a W8A8 flash CLIP tower, then
                three stage-1 steps under each freeze policy, then three
@@ -1573,6 +1583,178 @@ def train_kernel_phases(gen, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# The deliberate bugs that the gates of the packed kernels, the per-(window,
+# head) window kernel and the non-writing decode kernel must catch: each
+# source rebuilt with the bug under `-D<define>`; the two packed forms share
+# a source and face both of its bugs.
+PACKED_MUTANTS = {
+    "bias_read_prescaled": ("sam_packed_attention.cu", "ULLAVA_MUTANT_PACKED_BIAS_PRESCALED"),
+    "k_one_head_over": ("sam_packed_attention.cu", "ULLAVA_MUTANT_PACKED_HEAD_OFFSET"),
+    "bias_not_prescaled": ("sam_global_attention.cu", "ULLAVA_MUTANT_WINDOW_BIAS_RAW"),
+    "kv_lens_ignored": ("decode_attention_int8.cu", "ULLAVA_MUTANT_DECODE_NO_KV_LENS"),
+}
+PACKED_NAMES = ("fused_window_attention_packed", "fused_global_attention_packed")
+# Kernels that no path of either package calls: each line reports its
+# launches in every serve (all 0) and says so.
+UNCALLED_NAMES = ("fused_window_attention", "decode_attention_int8")
+SAM_HP = 128  # the packed layout's lanes a head
+
+
+def packed_sdpa_inputs(y, a, bb, H, hp):
+    """The library yardstick of the packed kernels: head-major q, k, v over
+    the same padded lanes and the raw bias terms materialised as a
+    [N, H, S, S] bf16 mask, added after the scale as the kernels do."""
+    import torch
+
+    N, S, _ = y.shape
+    W = a.shape[-1]
+    y5 = y.reshape(N, S, 3, H, hp).permute(2, 0, 3, 1, 4).contiguous()
+    t = torch.arange(S, device=y.device)
+    mask = (a.float()[..., t // W] + bb.float()[..., t % W]).to(torch.bfloat16)
+    return y5, mask
+
+
+def packed_kernel_phases(gen, results: dict) -> None:
+    """The packed kernels and the two uncalled ones against their plain
+    versions: the packed window kernel at one window block of a B=4
+    packed serve ([100, 196, 6144]: 16 heads of 80 lanes padded to 128, pad lanes zero
+    as the packed weights make them), the packed global kernel at one
+    global block ([4, 4096, 6144]), the per-(window, head) window kernel at
+    the same windows in the head-major layout ([1600, 196, 80]), and the
+    decode attention that does not write at K8's cache ([32, 16, 352,
+    4096] int8, ragged kv_lens, rep 1), with GQA (rep 4) at a small shape.
+
+    Gates: `row_rel_err` within 1e-2 (one bf16 ulp of a row's largest
+    value); the two window forms normalize P before its bf16 rounding, as
+    their TPU kernels and the plain versions do (`window_norm_first.cuh`).
+    Each gate must reject the source rebuilt with a
+    deliberate bug (`PACKED_MUTANTS`) and a mutated input (bias terms
+    swapped; for the decode kernel the key and value scales swapped).
+    Bounds: the packed kernels' products over all 128 lanes (the function
+    contracts them; the 80 real lanes' bound is reported beside), the
+    window kernel's and the decode kernel's bytes (the decode kernel's
+    over the kv_lens[b] rows this run reads, at the fp32 rate). The
+    library yardsticks: SDPA with the bias as a materialised bf16 mask;
+    the decode kernel has none."""
+    import torch
+    import torch.nn.functional as F
+
+    from ullava_tpu_torch import kernels
+    from ullava_tpu_torch.ops import decode_attention, sam_attention
+
+    dev, bf, tol = "cuda", torch.bfloat16, 1e-2
+    H, hd, hp, W = SAM_H, SAM_HD, SAM_HP, SAM_W
+    sc = hd**-0.5
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    def gate(name, got, ref, mutants):
+        err = row_rel_err(got, ref)
+        must(name, err <= tol, err)
+        caught = {m: row_rel_err(out, ref) for m, out in mutants.items()}
+        for m, e in caught.items():
+            must_not(name, m, e <= tol, e)
+        return {"row_rel_err": err, "tol": tol, "mutant_row_rel_err": caught}
+
+    def mutated(run, *bugs):
+        out = {}
+        for bug in bugs:
+            with kernels.mutant(*PACKED_MUTANTS[bug]):
+                out[bug] = run()
+        torch.cuda.synchronize()
+        return out
+
+    # K19 and K20: a packed y with zero pad lanes, raw bias terms of the
+    # encoder's size (q . rel_pos with an unscaled q: a few units).
+    for name, N, Wn, iters in (("fused_window_attention_packed", B * 25, W, 20),
+                               ("fused_global_attention_packed", B, 64, 5)):
+        S = Wn * Wn
+        y = torch.zeros((N, S, 3, H, hp), dtype=bf, device=dev)
+        y[..., :hd] = randn(N, S, 3, H, hd)
+        y = y.reshape(N, S, 3 * H * hp)
+        a, bb = (randn(N, H, S, Wn, scale=2.0) for _ in range(2))
+        fn = getattr(sam_attention, name)
+        plain_fn = getattr(sam_attention, f"{name}_plain")
+        run = lambda a_=a, b_=bb, y=y, fn=fn, Wn=Wn: fn(y, a_, b_, H, hp, Wn, sc)  # noqa: E731
+        plain = lambda y=y, a=a, bb=bb, f=plain_fn, Wn=Wn: f(y, a, bb, H, hp, Wn, sc)  # noqa: E731
+        got, ref = run(), plain()
+        info = gate(name, got, ref, {**mutated(run, "bias_read_prescaled", "k_one_head_over"),
+                                     "bias_swapped": run(bb, a)})
+        info["pad_lanes_zero"] = bool(torch.all(got.reshape(N, S, H, hp)[..., hd:] == 0))
+        must(name, info["pad_lanes_zero"], "pad lanes of the output are not zero")
+        y5, mask = packed_sdpa_inputs(y, a, bb, H, hp)
+        flops = 4.0 * N * H * S * S * hp
+        io = nbytes(y, a, bb, got)
+        line = kernel_line(
+            name, (got.float() - ref.float()).abs().max().item(), info, run, plain,
+            lambda y5=y5, m=mask: F.scaled_dot_product_attention(y5[0], y5[1], y5[2],
+                                                                 attn_mask=m, scale=sc),
+            io, flops, iters=iters)
+        line["bound_ms_real_lanes"] = bound_ms(io, flops * hd / hp)[0]
+        line["shape"] = [N, S, 3 * H * hp]
+        results[name] = line
+        del y, a, bb, got, ref, y5, mask
+        torch.cuda.empty_cache()
+
+    # K21: the block layout's windows of one B=4 window block, head-major.
+    name, N, S = "fused_window_attention", B * 25 * H, W * W
+    q, k, v = (randn(N, S, hd) for _ in range(3))
+    a, bb = (randn(N, S, W, scale=2.0) for _ in range(2))
+    run = lambda a_=a, b_=bb: sam_attention.fused_window_attention(q, k, v, a_, b_, W, sc)  # noqa: E731
+    plain = lambda: sam_attention.fused_window_attention_plain(q, k, v, a, bb, W, sc)  # noqa: E731
+    got, ref = run(), plain()
+    info = gate(name, got, ref, {**mutated(run, "bias_not_prescaled"), "bias_swapped": run(bb, a)})
+    inv = 1.0 / sc
+    a_s, b_s = ((t.float() * inv).to(bf).float() for t in (a, bb))
+    mask = ((a_s[:, :, :, None] + b_s[:, :, None, :]).reshape(N, S, S) * sc).to(bf)
+    results[name] = kernel_line(
+        name, (got.float() - ref.float()).abs().max().item(), info, run, plain,
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=sc),
+        nbytes(q, k, v, a, bb, got), 4.0 * N * S * S * hd)
+    results[name]["shape"] = [N, S, hd]
+    del q, k, v, a, bb, got, ref, a_s, b_s, mask
+    torch.cuda.empty_cache()
+
+    # K22: one layer of K8's stacked cache, rows past kv_lens filled with
+    # data the mask must hide; then GQA (32 heads on 8 kv heads) small.
+    name, L, maxS, Hl, hdl, layer = "decode_attention_int8", 32, PROMPT + NEW_TOKENS, 32, 128, 5
+    cases = {}
+    for form, Bd, Hq, Hkv, S_, lens in (
+            ("rep1", B_INT8, Hl, Hl, maxS, [maxS - (7 * i) % 64 for i in range(B_INT8)]),
+            ("gqa_rep4", 4, Hl, 8, 64, [64, 9, 1, 40])):
+        Ld = L if form == "rep1" else 2
+        cache_k, cache_v = (torch.randint(-127, 128, (Ld, Bd, S_, Hkv * hdl), generator=gen,
+                                          device=dev, dtype=torch.int8) for _ in range(2))
+        k_scale, v_scale = (torch.rand((Ld, Bd, S_, Hkv), generator=gen, device=dev) * 0.02 + 1e-3
+                            for _ in range(2))
+        q = randn(Bd, 1, Hq, hdl)
+        kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        lay = layer if form == "rep1" else 1
+        run = lambda ks=k_scale, vs=v_scale, q=q, c=(cache_k, cache_v), kl=kv_lens, l_=lay: (  # noqa: E731
+            decode_attention.decode_attention_int8(q, *c, ks, vs, kl, l_, scale=hdl**-0.5))
+        plain = lambda q=q, c=(cache_k, cache_v, k_scale, v_scale), kl=kv_lens, l_=lay: (  # noqa: E731
+            decode_attention.decode_attention_int8_plain(q, *c, kl, l_, scale=hdl**-0.5))
+        before = [t.clone() for t in (cache_k, cache_v, k_scale, v_scale)]
+        got, ref = run(), plain()
+        info = gate(f"{name} {form}", got, ref, {**mutated(run, "kv_lens_ignored"),
+                                                 "scales_swapped": run(v_scale, k_scale)})
+        info["cache_untouched"] = all(torch.equal(x, y_) for x, y_ in zip(
+            before, (cache_k, cache_v, k_scale, v_scale)))
+        must(name, info["cache_untouched"], "the cache changed")
+        cases[form] = (info, got, ref, run, plain, q, kv_lens, Hkv)
+    info, got, ref, run, plain, q, kv_lens, Hkv = cases["rep1"]
+    rows = float(kv_lens.sum())  # the rows this run's kv_lens make the kernel read
+    io = rows * (2 * Hkv * hdl + 2 * 4 * Hkv) + 2 * nbytes(q) + nbytes(kv_lens)
+    line = kernel_line(name, (got.float() - ref.float()).abs().max().item(), info, run, plain,
+                       None, io, 4.0 * rows * Hl * hdl, flops_per_s=FP32_FLOPS_PER_S)
+    line["gqa_rep4_form"] = cases["gqa_rep4"][0]
+    line["shape"] = [L, B_INT8, maxS, Hl * hdl]
+    results[name] = line
+    del cases, info, got, ref, run, plain, cache_k, cache_v, k_scale, v_scale, before
+    torch.cuda.empty_cache()
+
+
 def full_config():
     """LLaMA-7B + CLIP ViT-L/14 + SAM ViT-H in bf16 at full width; the
     vocabulary is LLaMA's 32000 + [PAD] + 6 multimodal + 4 stage-2 tokens.
@@ -1623,10 +1805,11 @@ SAM_LAUNCHES = {"fused_window_attention_grid": 28, "fused_global_attention": 4,
                 "fused_ln_linear": 0, "fused_global_attention_y": 0, "fused_mlp_block": 0,
                 "fused_ln_linear_dual": 0, "fused_window_attention_rect": 0}
 # The training path's kernels launch in no serve, the all-int8 serve's
-# forms in no other serve.
+# forms and the packed kernels in no other serve, the two uncalled kernels
+# in none.
 IDLE_IN_SERVING = {"flash_attention_fwd_lse": 0, "flash_attention_bwd_dkv": 0,
                    "flash_attention_bwd_dq": 0, "rms_norm_bwd": 0, **{k: 0 for k in WQ_NAMES},
-                   **{k: 0 for k in I8_NAMES}}
+                   **{k: 0 for k in I8_NAMES}, **{k: 0 for k in PACKED_NAMES + UNCALLED_NAMES}}
 BF16_LAUNCHES = {"fused_rotary": 64, "flash_attention_fwd_bsh": 32, **SAM_LAUNCHES,
                  "rms_norm_fwd": 65 * (1 + NEW_TOKENS),
                  "rms_norm_residual_quant": 0, "silu_mul_quant": 0,
@@ -1659,6 +1842,11 @@ ALL_INT8_LAUNCHES = {**SAM_RESIDENT_LAUNCHES, "fused_window_attention_grid": 0,
                      "fused_window_attention_rect": 0, "fused_global_attention_y": 0,
                      "fused_window_attention_grid_i8": 28, "fused_window_attention_rect_i8": 28 * 2,
                      "fused_global_attention_y_i8": 4, "flash_attention_fwd_bsh_hd64": 23}
+# The bf16 serve with its SAM image encoder packed (`pack_sam_attention`):
+# the packed window kernel in the 28 window blocks (block layout), the
+# packed global kernel in the 4 global blocks, the unpacked forms never.
+PACKED_LAUNCHES = {**BF16_LAUNCHES, "fused_window_attention_grid": 0, "fused_global_attention": 0,
+                   "fused_window_attention_packed": 28, "fused_global_attention_packed": 4}
 
 
 def serve_phase(phase: str, cfg, params, n_req: int, expect: dict):
@@ -2163,7 +2351,9 @@ def check_phase(gen) -> None:
     versions on the CPU in fp32, from the same weights: LLaMA prefill in
     bf16 (rotary + flash) and in int8 with two decode steps (the five
     int8-path kernels), the SAM encoder at W 14 / global 64 (window +
-    global kernels), the masks decoded from both embeddings, and an int8
+    global kernels), the masks decoded from both embeddings, the same
+    encoder packed (the two packed kernels; also against the unpacked
+    encode on the card), and an int8
     SAM encoder in the block layout (the fused int8 linear, MLP and
     lane-sliced attention kernels) and in the resident layout (the dual
     LN1+qkv, the padded-window and boundary-window kernels), the latter
@@ -2242,7 +2432,24 @@ def check_phase(gen) -> None:
         masks_ref, _ = sam_build.forward_masks(sp32, s32, emb_ref, text)
     errs["sam_image_embeddings"] = rel_err(emb, emb_ref)
     errs["sam_low_res_masks"] = rel_err(masks, masks_ref)
-    del sp, sp32, emb, emb_ref
+
+    # The same encoder packed head-major (hp 128; block layout): its window
+    # block through the packed window kernel, its global block through the
+    # packed global kernel, against fp32 on the CPU from the same packed
+    # weights, and against the unpacked encode on the card (the packing is
+    # a relayout: the same function up to bf16 rounding).
+    pp = image_encoder.pack_sam_attention(sp["image_encoder"], scfg.vision)
+    before = kernels.launch_counts()
+    with torch.no_grad():
+        emb_p = image_encoder.encode(pp, scfg.vision, img.cuda())
+        torch.cuda.synchronize()
+        ran = {k: n - before[k] for k, n in kernels.launch_counts().items() if n != before[k]}
+        emb_p_ref = image_encoder.encode(_to_cpu32(pp), s32.vision, img)
+    if ran != {"fused_window_attention_packed": 1, "fused_global_attention_packed": 1}:
+        raise AssertionError(f"the small packed SAM encoder launched {ran}")
+    errs["packed_sam_image_embeddings"] = rel_err(emb_p, emb_p_ref)
+    errs["packed_vs_unpacked_sam_image_embeddings"] = rel_err(emb_p, emb.float().cpu())
+    del sp, sp32, emb, emb_ref, pp, emb_p, emb_p_ref
 
     # The int8 SAM encoder at the widths its kernels are built for (hd 80,
     # W 14, grid 64; 8 heads so that a head slab is 128-aligned; F 2560,
@@ -2473,7 +2680,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = kernels.build_all(verbose=True, mutants=[
-        *TRAIN_MUTANTS.values(), *WQ_MUTANTS.values(), *I8_MUTANTS.values()])
+        *TRAIN_MUTANTS.values(), *WQ_MUTANTS.values(), *I8_MUTANTS.values(),
+        *PACKED_MUTANTS.values()])
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "sources": sorted(built)}), flush=True)
 
@@ -2487,8 +2695,10 @@ def main() -> int:
     train_kernel_phases(gen, results)
     weight_only_kernel_phases(gen, results)
     all_int8_kernel_phases(gen, results)
+    packed_kernel_phases(gen, results)
 
     from ullava_tpu_torch.models import ullava
+    from ullava_tpu_torch.models.sam import image_encoder
 
     # The first three serves hold the block window layout, as they did
     # before the resident one became the default; the fourth serves it.
@@ -2501,6 +2711,20 @@ def main() -> int:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     serve_line, profile_line = serve_phase("serve", cfg, params, B, BF16_LAUNCHES)
+
+    # The same bf16 weights with the SAM image encoder packed head-major
+    # (`bench.py`'s BENCH_QUANT=0 BENCH_PACKED=1); the packed copy is freed
+    # before the next serve.
+    t0 = time.perf_counter()
+    packed = {**params, "sam": {**params["sam"], "image_encoder": image_encoder.pack_sam_attention(
+        params["sam"]["image_encoder"], cfg.sam.vision)}}
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    packed_line, packed_profile = serve_phase("packed_serve", cfg, packed, B, PACKED_LAUNCHES)
+    packed_line["pack_s"] = pack_s
+    packed_line["block_serve_sam_encode_s"] = serve_line["sam_encode_s"]
+    del packed
+    torch.cuda.empty_cache()
 
     # The int8 LLM of the same model: int8 weights, W8A8 prefill with the
     # fused norm + quantize, int8 KV cache. CLIP and SAM stay bf16.
@@ -2566,9 +2790,12 @@ def main() -> int:
     # the resident serve for the resident layout's two, one stage-1 step
     # for the training path's four, one stage-2 step for the weight-only
     # K10 and K12, the weight-only encode with composite weights for K13's,
-    # the all-int8 serve for its four forms.
+    # the all-int8 serve for its four forms, the packed serve for the two
+    # packed kernels; the two kernels that no path calls report the bf16
+    # serve's count, 0, as they do every serve's.
     for name, r in results.items():
-        own = (serve_line if name in bf16_results else
+        own = (serve_line if name in bf16_results or name in UNCALLED_NAMES else
+               packed_line if name in PACKED_NAMES else
                int8_line if name in int8_results else
                resident_line if name in resident_names else
                all_int8_line if name in I8_NAMES else
@@ -2576,7 +2803,10 @@ def main() -> int:
                wq_encode_line if name == "fused_ln_linear_dual_wq" else
                stage2_line if name in WQ_NAMES else sam_int8_line)
         r["launches"] = own["launches"][name]
+        if name in UNCALLED_NAMES:
+            r["launches_note"] = "no path of either package calls this kernel: 0 in every serve"
         r["launches_bf16_serve"] = serve_line["launches"][name]
+        r["launches_packed_serve"] = packed_line["launches"][name]
         r["launches_int8_serve"] = int8_line["launches"][name]
         r["launches_sam_int8_serve"] = sam_int8_line["launches"][name]
         r["launches_sam_resident_serve"] = resident_line["launches"][name]
@@ -2590,7 +2820,8 @@ def main() -> int:
               flush=True)
     check_phase(gen)
     # The serve and profile numbers again, short, next to the result.
-    for line, prof in ((serve_line, profile_line), (int8_line, int8_profile),
+    for line, prof in ((serve_line, profile_line), (packed_line, packed_profile),
+                       (int8_line, int8_profile),
                        (sam_int8_line, sam_int8_profile), (resident_line, resident_profile),
                        (all_int8_line, all_int8_profile)):
         line = {k: v for k, v in line.items() if k != "launches"}

@@ -89,7 +89,8 @@ def test_port_imports_no_jax_and_entry_points_need_cuda():
 
 @pytest.mark.parametrize("name", ["test_torch_cuda_bf16.py", "test_torch_cuda_int8.py",
                                   "test_torch_cuda_sam_int8.py", "test_torch_cuda_sam_resident.py",
-                                  "test_torch_cuda_train.py", "test_torch_cuda_weight_only.py"])
+                                  "test_torch_cuda_train.py", "test_torch_cuda_weight_only.py",
+                                  "test_torch_cuda_dots_i8.py", "test_torch_cuda_packed.py"])
 def test_card_test_files_import_torch_only(name):
     """The tests that run on the card must run on a machine without JAX."""
     tree = ast.parse((REPO / "tests" / name).read_text())

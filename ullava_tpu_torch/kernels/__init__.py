@@ -102,7 +102,7 @@ KERNELS: Dict[str, KernelSpec] = {
         ),
         KernelSpec(
             "rms_norm_fwd", "rms_quant.cu", "ullava_rms_norm_fwd",
-            (P, P, P, I, I, F, P), "ullava_tpu/ops/norms.py:77",
+            (P, P, P, I, I, F, P), "ullava_tpu/ops/norms.py:57",
         ),
         KernelSpec(
             "fused_ln_linear", "ln_linear_int8.cu", "ullava_fused_ln_linear_int8",
@@ -189,6 +189,29 @@ KERNELS: Dict[str, KernelSpec] = {
             "ullava_flash_attention_fwd_bsh_hd64",
             (P, P, P, P, P, I, I, I, I, I, I, I, F, P),
             "ullava_tpu/ops/attention.py:354",
+        ),
+        # The packed head-major layout (`pack_sam_attention`), and the two
+        # kernels no path of either package calls: the per-(window, head)
+        # window kernel and the decode attention that does not write.
+        KernelSpec(
+            "fused_window_attention_packed", "sam_packed_attention.cu",
+            "ullava_fused_window_attention_packed", (P, P, P, P, I, I, F, P),
+            "ullava_tpu/ops/sam_attention.py:826",
+        ),
+        KernelSpec(
+            "fused_global_attention_packed", "sam_packed_attention.cu",
+            "ullava_fused_global_attention_packed", (P, P, P, P, I, I, F, P),
+            "ullava_tpu/ops/sam_attention.py:920",
+        ),
+        KernelSpec(
+            "fused_window_attention", "sam_global_attention.cu",
+            "ullava_fused_window_attention", (P, P, P, P, P, P, I, F, P),
+            "ullava_tpu/ops/sam_attention.py:70",
+        ),
+        KernelSpec(
+            "decode_attention_int8", "decode_attention_int8.cu", "ullava_decode_attention_int8",
+            (P, P, P, P, P, P, P, I, I, I, I, I, I, F, P),
+            "ullava_tpu/ops/decode_attention.py:143",
         ),
     )
 }

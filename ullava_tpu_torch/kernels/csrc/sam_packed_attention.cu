@@ -1,0 +1,114 @@
+// fused_window_attention_packed / fused_global_attention_packed: SAM ViT
+// attention on the packed head-major layout. `pack_sam_attention` pads
+// each head's q/k/v columns of the qkv projection to hp = 128 lanes, so
+// the projection output y [N, S, 3*H*hp] holds head h's q, k and v as the
+// 128-lane blocks (part*H + h)*hp, part 0/1/2; the attention output is
+// [N, S, H*hp] with head h at h*hp, and the packed proj weight has zero
+// rows under the pad lanes.
+//
+// Replaces: ullava_tpu/ops/sam_attention.py:826 fused_window_attention_packed
+// (Pallas, kernel _packed_window_kernel :791) and :920
+// fused_global_attention_packed (kernel _packed_global_kernel :867).
+//
+// Bound on the card, at a ViT-H encode at B=4 (H = 16, hp = 128):
+//   - a window block (N = 100 windows, S = 196) reads y (241 MB) and the
+//     two bias tensors (17.6 MB) and writes 80 MB: ~0.10 ms of HBM time,
+//     against 31.5 GFLOP of products over the 128 lanes (~0.03 ms): bytes
+//     bound it;
+//   - a global block (B = 4, S = 4096) does 550 GFLOP of products over the
+//     128 lanes (~0.56 ms; 0.35 ms over the 80 real lanes) against ~0.3 GB
+//     of traffic (~0.09 ms): operations bound it. The kernel contracts all
+//     128 lanes; the pad lanes are zero only by the weights' construction.
+//
+// Design: one accessor over the layout, at HD = 128, one block per
+// (instance = image or window, head, 64-row q tile), keys in tiles of 64.
+// It reads q/k/v rows in place at stride 3*H*hp and writes the output at
+// stride H*hp, so no head split or merge copy exists. The bias terms
+// arrive raw, [N, H, S, W] (head-second, as the packed kernels block on
+// them), and are added after the scale (kBiasAfterScale): s = q.k * scale
+// + A[s][t / W] + Bb[s][t % W], fp32 exponentials, as in both TPU kernels.
+// Each form rounds P where its TPU kernel does: the window form
+// normalizes P before rounding it to bf16 for P V (:818-822) and runs on
+// window_norm_first.cuh (196 keys: four tiles, the last masked past 196);
+// the global form is online (m, l, acc; acc / l at the end) and runs on
+// the shared online-softmax core (flash_core.cuh).
+//
+// Compiled with ULLAVA_MUTANT_PACKED_BIAS_PRESCALED the core adds the bias
+// before the scale (as if it arrived pre-scaled by 1/scale), and with
+// ULLAVA_MUTANT_PACKED_HEAD_OFFSET k is read one head over: deliberate
+// bugs that only `chip_smoke.py` builds, to show that the gates catch them.
+#include "window_norm_first.cuh"
+
+namespace ullava {
+
+constexpr int kPackHP = 128;
+
+template <int W>
+struct PackedAttn {
+  const bf16* y;   // [N, S, 3*H*hp]
+  const bf16* a;   // [N, H, S, W] raw
+  const bf16* bb;  // [N, H, S, W] raw
+  bf16* o;         // [N, S, H*hp]
+  int Sq, Sk, H;
+  int q_offset;
+  bool causal;
+  float scale;
+
+  // inst = n * H + h
+  __device__ size_t row(int inst, int s) const {
+    return static_cast<size_t>(inst / H) * Sq + s;
+  }
+  __device__ const bf16* q_row(int inst, int s) const {
+    return y + row(inst, s) * (3 * H * kPackHP) + (inst % H) * kPackHP;
+  }
+  __device__ const bf16* k_row(int inst, int t) const {
+#ifdef ULLAVA_MUTANT_PACKED_HEAD_OFFSET
+    return y + row(inst, t) * (3 * H * kPackHP) + (H + (inst + 1) % H) * kPackHP;
+#else
+    return q_row(inst, t) + H * kPackHP;
+#endif
+  }
+  __device__ const bf16* v_row(int inst, int t) const {
+    return q_row(inst, t) + 2 * H * kPackHP;
+  }
+  __device__ bf16* o_row(int inst, int s) const {
+    return o + row(inst, s) * (H * kPackHP) + (inst % H) * kPackHP;
+  }
+  __device__ int key_limit(int) const { return Sk; }
+  __device__ float bias_a(int inst, int s, int j) const {
+    return __bfloat162float(a[(static_cast<size_t>(inst) * Sq + s) * W + j]);
+  }
+  __device__ float bias_b(int inst, int s, int j) const {
+    return __bfloat162float(bb[(static_cast<size_t>(inst) * Sq + s) * W + j]);
+  }
+  static constexpr bool kBiasAfterScale = true;
+};
+
+template <int W>
+int launch_packed(const void* y, const void* a, const void* b, void* o, int N, int H,
+                  float scale, void* stream) {
+  PackedAttn<W> p{static_cast<const bf16*>(y), static_cast<const bf16*>(a),
+                  static_cast<const bf16*>(b), static_cast<bf16*>(o),
+                  W * W, W * W, H, 0, false, scale};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (W <= 16)
+    return launch_flash_norm_first<kPackHP, W>(p, N * H, st);
+  else
+    return launch_flash<kPackHP, W>(p, N * H, st);
+}
+
+}  // namespace ullava
+
+// y: [N, 196, 3*H*128] bf16; a, b: [N, H, 196, 14] bf16; o: [N, 196, H*128].
+ULLAVA_EXPORT int ullava_fused_window_attention_packed(const void* y, const void* a,
+                                                       const void* b, void* o, int N, int H,
+                                                       float scale, void* stream) {
+  return ullava::launch_packed<14>(y, a, b, o, N, H, scale, stream);
+}
+
+// y: [B, 4096, 3*H*128] bf16; a, b: [B, H, 4096, 64] bf16; o: [B, 4096, H*128].
+ULLAVA_EXPORT int ullava_fused_global_attention_packed(const void* y, const void* a,
+                                                       const void* b, void* o, int B, int H,
+                                                       float scale, void* stream) {
+  return ullava::launch_packed<64>(y, a, b, o, B, H, scale, stream);
+}

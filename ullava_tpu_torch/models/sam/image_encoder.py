@@ -1,6 +1,6 @@
-"""SAM ViTDet image encoder, block and resident window layouts
-(counterpart of `ullava_tpu/models/sam/image_encoder.py:39-254,328-700,
-717-1113`; the packed layout waits).
+"""SAM ViTDet image encoder, block and resident window layouts and the
+packed attention layout (counterpart of
+`ullava_tpu/models/sam/image_encoder.py`).
 
 ViT backbone with 14x14 window attention and global blocks closing each
 group, decomposed relative position bias, conv neck to 256 channels; NHWC
@@ -39,6 +39,14 @@ terms beside qkv and the full windows are stored as 200 rows. There is no
 device gate: on CUDA tensors the wrappers launch their kernels, on CPU
 tensors they take their plain versions.
 
+`pack_sam_attention` repacks qkv/proj head-major with each head padded to
+`head_pad` lanes (128 on the card); such weights are detected by shape
+(`_is_packed`) and take `_attn_packed` in every block, through
+`fused_window_attention_packed` (windows) and
+`fused_global_attention_packed` (the global grid), always in the block
+layout. Packed int8 qkv/proj at a global block that the fused int8 route
+would take are refused (ValueError): the JAX package fails there too.
+
 Parameters: `window_blocks` (list of G*(P-1) per-block dicts, group-major)
 and `global_blocks` (list of G), where the depth factors into G groups of
 P layers with a global block closing each group.
@@ -65,6 +73,7 @@ from ullava_tpu_torch.ops.norms import layer_norm
 from ullava_tpu_torch.ops.quant import (
     apply_linear,
     apply_linear_a8,
+    column_major,
     dequantize,
     is_quantized,
     quantize_int8,
@@ -72,8 +81,10 @@ from ullava_tpu_torch.ops.quant import (
 from ullava_tpu_torch.ops.sam_attention import (
     decomposed_bias_terms,
     fused_global_attention,
+    fused_global_attention_packed,
     fused_global_attention_y,
     fused_window_attention_grid,
+    fused_window_attention_packed,
     fused_window_attention_rect,
 )
 
@@ -203,6 +214,89 @@ def init_params(
     }
 
 
+def pack_sam_attention(enc: Params, cfg: SamVisionConfig, head_pad: int = 128) -> Params:
+    """Serving-time weight repack: qkv/proj reordered so that each head's
+    slice is a zero-padded `head_pad`-lane block ([C, 3, H, hp] column
+    order, [H, hp, C] row order). The packed kernels then read a head's q,
+    k and v as one lane block of the projection output, with no head split
+    or transpose copy. Zero pads are exact: pad lanes of q and k add
+    nothing to q.k, and pad lanes of the attention output meet zero rows
+    of proj. On int8 leaves `q` pads with 0 and its `scale` with 1.0, and
+    `q` stays column-major. rel_pos lanes pad with zeros. Returns `enc`
+    itself when head_dim >= head_pad; otherwise a copy (other leaves
+    shared)."""
+    H, hd, hp = cfg.num_heads, cfg.head_dim, head_pad
+    if hd >= hp:
+        return enc
+
+    def pad_cols(w, fill=0.0):  # [..., 3*H*hd] -> [..., 3*H*hp]
+        lead = w.shape[:-1]
+        w = F.pad(w.reshape(*lead, 3, H, hd), (0, hp - hd), value=fill)
+        return w.reshape(*lead, 3 * H * hp)
+
+    def pad_rows(w):  # [H*hd, C] -> [H*hp, C]
+        C = w.shape[-1]
+        return F.pad(w.reshape(H, hd, C), (0, 0, 0, hp - hd)).reshape(H * hp, C)
+
+    def pack_block(blk):
+        blk = dict(blk)
+        if is_quantized(blk["qkv"]):
+            blk["qkv"] = {"q": column_major(pad_cols(blk["qkv"]["q"])),
+                          "scale": pad_cols(blk["qkv"]["scale"], fill=1.0)}
+        else:
+            blk["qkv"] = pad_cols(blk["qkv"])
+        blk["qkv_bias"] = pad_cols(blk["qkv_bias"])
+        if is_quantized(blk["proj"]):
+            blk["proj"] = {"q": column_major(pad_rows(blk["proj"]["q"])),
+                           "scale": blk["proj"]["scale"]}
+        else:
+            blk["proj"] = pad_rows(blk["proj"])
+        for k in ("rel_pos_h", "rel_pos_w"):
+            blk[k] = F.pad(blk[k], (0, hp - hd))
+        return blk
+
+    return {**enc, "window_blocks": [pack_block(b) for b in enc["window_blocks"]],
+            "global_blocks": [pack_block(b) for b in enc["global_blocks"]]}
+
+
+def _is_packed(p: Params, cfg: SamVisionConfig) -> bool:
+    """Packed weights (`pack_sam_attention`): the qkv output is not 3*C wide."""
+    w = p["qkv"]["q"] if is_quantized(p["qkv"]) else p["qkv"]
+    return w.shape[-1] != 3 * cfg.embed_dim
+
+
+def _bias_terms_packed(q_grid, rel_pos_h, rel_pos_w, size: int):
+    """[B, i, j, H, hp] queries (unscaled) -> (A, Bb), each [B, H, S, W]
+    in fp32, head-second: the order the packed kernels read."""
+    coords = torch.arange(size, device=q_grid.device)
+    rel = coords[:, None] - coords[None, :] + (size - 1)
+    RhG, RwG = rel_pos_h[rel].float(), rel_pos_w[rel].float()  # [i, a, hp]
+    qf = q_grid.float()
+    A = torch.einsum("nijhc,iac->nhija", qf, RhG)
+    Bb = torch.einsum("nijhc,jbc->nhijb", qf, RwG)
+    B, H = A.shape[:2]
+    return A.reshape(B, H, size * size, size), Bb.reshape(B, H, size * size, size)
+
+
+def _attn_packed(x: torch.Tensor, p: Params, cfg: SamVisionConfig, size: int) -> torch.Tensor:
+    """Attention with packed qkv/proj weights over [B, size, size, C]: the
+    projection output y [B, S, 3*H*hp] goes to the packed window kernel
+    (sizes up to 16) or the packed global kernel whole."""
+    B = x.shape[0]
+    C, H, hd = cfg.embed_dim, cfg.num_heads, cfg.head_dim
+    S = size * size
+    w = p["qkv"]["q"] if is_quantized(p["qkv"]) else p["qkv"]
+    hp = w.shape[-1] // (3 * H)
+    y = _lin(cfg, x.reshape(B, S, C), p["qkv"]) + p["qkv_bias"]  # [B, S, 3*H*hp]
+    q_grid = y.reshape(B, size, size, 3, H, hp)[:, :, :, 0]
+    A, Bb = _bias_terms_packed(q_grid, p["rel_pos_h"], p["rel_pos_w"], size)
+    fused = fused_window_attention_packed if size <= 16 else fused_global_attention_packed
+    out = fused(y, A.to(y.dtype).contiguous(), Bb.to(y.dtype).contiguous(), num_heads=H,
+                head_pad=hp, window=size, scale=hd**-0.5)  # [B, S, H*hp]
+    out = _lin(cfg, out, p["proj"]) + p["proj_bias"]
+    return out.reshape(B, size, size, C)
+
+
 def rel_pos_bias(
     q: torch.Tensor,  # [B, H, qh, qw, hd]
     rel_pos_h: torch.Tensor,  # [2*size-1, hd]
@@ -305,6 +399,8 @@ def _lin(cfg: SamVisionConfig, x: torch.Tensor, w) -> torch.Tensor:
 
 def _attn(x: torch.Tensor, p: Params, cfg: SamVisionConfig, size: int) -> torch.Tensor:
     """Self-attention over an NHWC token grid [B, size, size, C]."""
+    if _is_packed(p, cfg):
+        return _attn_packed(x, p, cfg, size)
     B = x.shape[0]
     C, H, hd = cfg.embed_dim, cfg.num_heads, cfg.head_dim
     S = size * size
@@ -436,6 +532,12 @@ def _block(x: torch.Tensor, p: Params, cfg: SamVisionConfig, window: bool) -> to
     """One transformer block on [B, gh, gw, C]."""
     B, gh, gw, C = x.shape
     if not window and _use_global_fused(p, cfg, gh):
+        if _is_packed(p, cfg):
+            raise ValueError(
+                "packed int8 qkv/proj weights at a global block of the fused int8 route "
+                f"(grid {gh}, S % 1024 == 0): the JAX package fails here too, reshaping the "
+                "packed qkv output to 3*C (`ullava_tpu/models/sam/image_encoder.py:603`); "
+                "pack bf16 weights, or keep int8 weights unpacked")
         return _mlp_tail(_attn_global_fused(x, p, cfg), p, cfg)
     shortcut = x
     x = layer_norm(x, p["ln1_scale"], p["ln1_bias"], cfg.layer_norm_eps)
@@ -649,10 +751,13 @@ def _block_resident(xs: Dict[str, torch.Tensor], p: Params, cfg: SamVisionConfig
     return out
 
 
-def _use_resident(cfg: SamVisionConfig) -> bool:
+def _use_resident(cfg: SamVisionConfig, wparams: Optional[Params] = None) -> bool:
     """"auto" and "resident" both mean resident wherever the grid holds at
-    least one whole window."""
-    return cfg.window_layout != "block" and cfg.grid // cfg.window_size > 0
+    least one whole window; packed weights (`wparams`, a window block's)
+    always take the block layout."""
+    if cfg.window_layout == "block" or (wparams is not None and _is_packed(wparams, cfg)):
+        return False
+    return cfg.grid // cfg.window_size > 0
 
 
 @torch.no_grad()
@@ -669,7 +774,7 @@ def encode(params: Params, cfg: SamVisionConfig, pixel_values: torch.Tensor) -> 
 
     per = cfg.group_period - 1
     ws = cfg.window_size
-    resident = per > 0 and _use_resident(cfg)
+    resident = per > 0 and _use_resident(cfg, params["window_blocks"][0])
     # The padded full-window layout (rows a multiple of 8) goes with the
     # composite bias weights: the dual LN+qkv emits the bias terms at the
     # real row count and the grid kernel leaves the pad rows out as keys.

@@ -1,12 +1,13 @@
 """The int8 KV cache: row quantization, the prefill's quantize-and-write,
-and the decode step's write-and-attend (counterpart of
-`ullava_tpu/ops/decode_attention.py:37-43,345-458,508-611`).
+the decode step's write-and-attend, and decode attention over the cache
+that writes nothing (counterpart of `ullava_tpu/ops/decode_attention.py`).
 
 The cache is a stacked `[L, B, maxS, Hkv*hd]` int8 pair (heads merged on
 the minor dim) with `[L, B, maxS, Hkv]` f32 scales, one per (position,
 kv head). Both kernels take the whole stacked cache and a layer index
 and update it IN PLACE (the JAX versions alias their outputs onto the
-donated cache); the wrappers return the same tensors.
+donated cache); the wrappers return the same tensors. `decode_attention_int8`
+only reads it.
 
 Exactness: a key row's scale is constant over the contraction, so it
 folds into the score after the dot, and a value row's scale folds into
@@ -112,6 +113,84 @@ def decode_attention_int8_xla(
     k = (cache_k[layer_idx].reshape(B, maxS, Hkv, hd).float() * k_scale[layer_idx][..., None]).to(q.dtype)
     v = (cache_v[layer_idx].reshape(B, maxS, Hkv, hd).float() * v_scale[layer_idx][..., None]).to(q.dtype)
     return attention_xla(q, k, v, causal=False, kv_lens=kv_lens, scale=scale)
+
+
+# The masked score of the TPU kernel (-0.7 * the largest fp32).
+_NEG_INF = -0.7 * torch.finfo(torch.float32).max
+
+
+def decode_attention_int8_plain(
+    q, cache_k, cache_v, k_scale, v_scale, kv_lens, layer_idx: int, *, scale: float
+) -> torch.Tensor:
+    """Plain version of `decode_attention_int8`, in the TPU kernel's
+    arithmetic (`ullava_tpu/ops/decode_attention.py:46-140`): fp32 dots of
+    q with the int8 key rows, times `k_scale * scale`; positions at or past
+    `kv_lens[b]` score -0.7 * the fp32 maximum; an exact softmax over all
+    maxS positions, normalized before the product with the value scale is
+    rounded to q's dtype; the fp32 sum over the int8 value rows, rounded
+    to q's dtype. GQA: kv head g serves q heads [g*rep, (g+1)*rep)."""
+    B, _, H, hd = q.shape
+    maxS, Hkv = cache_k.shape[2], k_scale.shape[-1]
+    rep = H // Hkv
+    k = cache_k[layer_idx].reshape(B, maxS, Hkv, hd).float()
+    v = cache_v[layer_idx].reshape(B, maxS, Hkv, hd).float()
+    ks, vs = k_scale[layer_idx].float(), v_scale[layer_idx].float()  # [B, maxS, Hkv]
+    qf = q[:, 0].float().reshape(B, Hkv, rep, hd)
+    sc = torch.einsum("bgrd,bsgd->bsgr", qf, k) * (ks * scale)[..., None]
+    live = torch.arange(maxS, device=q.device)[None, :] < kv_lens.to(q.device)[:, None]
+    sc = torch.where(live[:, :, None, None], sc, torch.full_like(sc, _NEG_INF))
+    p = torch.exp(sc - sc.amax(1, keepdim=True))
+    p = p / p.sum(1, keepdim=True)
+    pv = (p * vs[..., None]).to(q.dtype).float()
+    o = torch.einsum("bsgr,bsgd->bgrd", pv, v)
+    return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def decode_attention_int8(
+    q: torch.Tensor,  # [B, 1, H, hd]
+    cache_k: torch.Tensor,  # [L, B, maxS, Hkv*hd] int8
+    cache_v: torch.Tensor,
+    k_scale: torch.Tensor,  # [L, B, maxS, Hkv] f32
+    v_scale: torch.Tensor,
+    kv_lens: torch.Tensor,  # [B] int32
+    layer_idx: int,
+    *,
+    scale: float,
+    block_b: int = 2,
+) -> torch.Tensor:
+    """Single-token decode attention over rows [0, kv_lens[b]) of one layer
+    of the stacked int8 cache, which it only reads; returns [B, 1, H, hd]
+    in q's dtype. `block_b` is TPU tiling: accepted and ignored. `kv_lens`
+    is read on the device. CUDA kernel `kernels/csrc/decode_attention_int8.cu`
+    (its read-only entry; bf16 q) for CUDA tensors, the plain version for
+    CPU ones."""
+    B, S1, H, hd = q.shape
+    Hkv = k_scale.shape[-1]
+    if S1 != 1 or H % Hkv or cache_k.shape[-1] != Hkv * hd or kv_lens.shape != (B,):
+        raise ValueError(f"bad shapes q {tuple(q.shape)} cache {tuple(cache_k.shape)} "
+                         f"scales {tuple(k_scale.shape)} kv_lens {tuple(kv_lens.shape)}")
+    if not 0 <= layer_idx < cache_k.shape[0]:
+        raise ValueError(f"layer {layer_idx} outside the cache's {cache_k.shape[0]} layers")
+    if q.device.type == "cpu":
+        return decode_attention_int8_plain(
+            q, cache_k, cache_v, k_scale, v_scale, kv_lens, layer_idx, scale=scale)
+    name = "decode_attention_int8"
+    lanes = hd // 16  # lanes of a warp that share one cache row
+    if hd % 16 or lanes & (lanes - 1) or lanes > 32:
+        raise ValueError(f"{name}: head_dim {hd} must be 16 * 2^n, at most 512")
+    _, maxS = _check_cache(name, cache_k, cache_v, k_scale, v_scale, B, Hkv, hd)
+    if (maxS + 4 * hd + 32) * 4 > 48 * 1024:
+        raise ValueError(f"{name}: cache length {maxS} exceeds shared memory")
+    kernels.check_cuda_tensor(f"{name} q", q, torch.bfloat16)
+    lens = kv_lens.to(torch.int32).contiguous()
+    kernels.check_cuda_tensor(f"{name} kv_lens", lens, torch.int32, (B,))
+    out = torch.empty_like(q)
+    kernels.launch(
+        name, q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), k_scale.data_ptr(),
+        v_scale.data_ptr(), lens.data_ptr(), out.data_ptr(), B, H, Hkv, hd, maxS,
+        int(layer_idx), float(scale),
+    )
+    return out
 
 
 def decode_attention_int8_fused_write_plain(

@@ -1,6 +1,5 @@
 """SAM windowed and global attention with the decomposed relative
-position bias (counterpart of `ullava_tpu/ops/sam_attention.py:181-425,
-490-549,552-756,759-775`).
+position bias (counterpart of `ullava_tpu/ops/sam_attention.py`).
 
 bias[(i,j),(a,b)] = q[(i,j)].Rh[i-a+W-1] + q[(i,j)].Rw[j-b+W-1] is never
 materialised by the kernels: they take the compact terms A[(i,j), a] and
@@ -11,7 +10,12 @@ rectangles) take A/Bb pre-scaled by 1/scale with reversed columns (as
 `_bias_terms_rect` emits them), the global kernel takes them raw in
 natural column order and pre-scales them itself, and the lane-sliced
 global kernel (`fused_global_attention_y`) takes them pre-scaled in
-natural column order, laid out [B, S, H, W].
+natural column order, laid out [B, S, H, W]. The per-(window, head)
+window kernel (`fused_window_attention`) takes them raw like the global
+kernel. The packed kernels (`fused_window_attention_packed`,
+`fused_global_attention_packed`) read q/k/v as the 128-lane blocks of a
+head-major padded projection output and take the terms raw, [N, H, S, W],
+added after the scale: s = q.k * scale + A + Bb.
 """
 
 from __future__ import annotations
@@ -399,3 +403,165 @@ def decomposed_bias_terms(
     B, H = q_grid.shape[:2]
     S = window * window
     return A.reshape(B, H, S, window), Bb.reshape(B, H, S, window)
+
+
+def fused_window_attention_plain(q, k, v, bias_a, bias_b, window: int, scale: float):
+    """Plain version of `fused_window_attention`, in the TPU kernel's
+    arithmetic: the bias terms pre-scaled by 1/scale and rounded to q's
+    dtype, s = (q.k + A + Bb) * scale, an exact softmax whose weights are
+    normalized before they are rounded to v's dtype for the value product."""
+    N, S, _ = q.shape
+    inv = 1.0 / scale
+    a_s = (bias_a.float() * inv).to(q.dtype).float()
+    b_s = (bias_b.float() * inv).to(q.dtype).float()
+    bias = (a_s[:, :, :, None] + b_s[:, :, None, :]).reshape(N, S, S)
+    s = (torch.einsum("nsd,ntd->nst", q.float(), k.float()) + bias) * scale
+    p = torch.softmax(s, dim=-1).to(v.dtype).float()
+    return torch.einsum("nst,ntd->nsd", p, v.float()).to(q.dtype)
+
+
+def fused_window_attention(
+    q: torch.Tensor,  # [N, S, hd] (N = windows x heads), S = window^2
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias_a: torch.Tensor,  # [N, S, W] raw, natural column order
+    bias_b: torch.Tensor,
+    window: int,
+    scale: float,
+    n_block: int = 8,
+) -> torch.Tensor:
+    """Window attention per (window, head) pair in the head-major layout,
+    with the decomposed bias. `n_block` is the TPU kernel's pairs a
+    program: accepted and ignored. CUDA kernel
+    `kernels/csrc/sam_global_attention.cu` (its window entry: W 14, hd 80,
+    bf16) for CUDA tensors, the plain version for CPU ones."""
+    N, S, hd = q.shape
+    W = window
+    if S != W * W or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q/k/v {tuple(q.shape)} do not match window {W}")
+    if bias_a.shape != (N, S, W) or bias_b.shape != (N, S, W):
+        raise ValueError(f"bias terms must be [{N}, {S}, {W}]")
+    if q.device.type == "cpu":
+        return fused_window_attention_plain(q, k, v, bias_a, bias_b, W, scale)
+    _check_window_kernel_shape(hd, W)
+    for name, t in (("q", q), ("k", k), ("v", v), ("bias_a", bias_a), ("bias_b", bias_b)):
+        kernels.check_cuda_tensor(f"window {name}", t, torch.bfloat16)
+    out = torch.empty_like(q)
+    kernels.launch(
+        "fused_window_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        bias_a.data_ptr(), bias_b.data_ptr(), out.data_ptr(), N, float(scale),
+    )
+    return out
+
+
+def _packed_qkv(y, num_heads: int, head_pad: int, c0: int, c1: int):
+    """q, k, v of instances y[c0:c1] of a packed projection output, each
+    [n, H, S, hp] in fp32."""
+    S = y.shape[1]
+    y5 = y[c0:c1].reshape(c1 - c0, S, 3, num_heads, head_pad).float()
+    return tuple(y5[:, :, i].transpose(1, 2) for i in range(3))
+
+
+def fused_window_attention_packed_plain(
+    y, bias_a, bias_b, num_heads: int, head_pad: int, window: int, scale: float
+) -> torch.Tensor:
+    """Plain version of `fused_window_attention_packed`, in the TPU
+    kernel's arithmetic: s = q.k * scale + A[t // W] + Bb[t % W] in fp32,
+    an exact softmax whose weights are normalized before they are rounded
+    to y's dtype for the value product."""
+    N, S, _ = y.shape
+    H, hp, W = num_heads, head_pad, window
+    t = torch.arange(S, device=y.device)
+    out = torch.empty((N, S, H * hp), dtype=y.dtype, device=y.device)
+    chunk = max(1, (1 << 26) // (H * S * S))  # bound the [n, H, S, S] fp32 scores
+    for c0 in range(0, N, chunk):
+        c1 = min(N, c0 + chunk)
+        q, k, v = _packed_qkv(y, H, hp, c0, c1)
+        A, Bb = bias_a[c0:c1].float(), bias_b[c0:c1].float()
+        s = torch.einsum("nhsd,nhtd->nhst", q, k) * scale + A[..., t // W] + Bb[..., t % W]
+        p = torch.softmax(s, dim=-1).to(y.dtype).float()
+        o = torch.einsum("nhst,nhtd->nshd", p, v)
+        out[c0:c1] = o.reshape(c1 - c0, S, H * hp).to(y.dtype)
+    return out
+
+
+def fused_global_attention_packed_plain(
+    y, bias_a, bias_b, num_heads: int, head_pad: int, window: int, scale: float
+) -> torch.Tensor:
+    """Plain version of `fused_global_attention_packed`: the scores of the
+    window form, one softmax over all S keys with fp32 exponentials, the
+    unnormalized weights rounded to y's dtype for the value product and
+    the fp32 sum dividing after it (`_softmax_weights`), as the TPU
+    kernel's online softmax ends."""
+    B, S, _ = y.shape
+    H, hp, W = num_heads, head_pad, window
+    t = torch.arange(S, device=y.device)
+    out = torch.empty((B, S, H * hp), dtype=y.dtype, device=y.device)
+    for b in range(B):
+        q, k, v = (x[0] for x in _packed_qkv(y, H, hp, b, b + 1))
+        for h in range(H):
+            A, Bb = bias_a[b, h].float(), bias_b[b, h].float()
+            s = (q[h] @ k[h].T) * scale + A[:, t // W] + Bb[:, t % W]
+            p, l = _softmax_weights(s, False, y.dtype)
+            out[b, :, h * hp:(h + 1) * hp] = ((p @ v[h]) / l).to(y.dtype)
+    return out
+
+
+def _packed_attention(name, y, bias_a, bias_b, num_heads, head_pad, window, scale, plain,
+                      cuda_window):
+    N, S, width = y.shape
+    H, hp, W = num_heads, head_pad, window
+    if S != W * W or width != 3 * H * hp:
+        raise ValueError(f"y {tuple(y.shape)} does not match H={H} hp={hp} W={W}")
+    if bias_a.shape != (N, H, S, W) or bias_b.shape != (N, H, S, W):
+        raise ValueError(f"bias terms must be [{N}, {H}, {S}, {W}]")
+    if y.device.type == "cpu":
+        return plain(y, bias_a, bias_b, H, hp, W, scale)
+    if (hp, W) != (128, cuda_window):
+        raise ValueError(f"the CUDA {name} kernel is built for hp 128, W {cuda_window}; "
+                         f"got {hp}, {W}")
+    for label, t in (("y", y), ("bias_a", bias_a), ("bias_b", bias_b)):
+        kernels.check_cuda_tensor(f"{name} {label}", t, torch.bfloat16)
+    out = torch.empty((N, S, H * hp), dtype=y.dtype, device=y.device)
+    kernels.launch(name, y.data_ptr(), bias_a.data_ptr(), bias_b.data_ptr(), out.data_ptr(),
+                   N, H, float(scale))
+    return out
+
+
+def fused_window_attention_packed(
+    y: torch.Tensor,  # [N, S, 3*H*hp] packed qkv projection output
+    bias_a: torch.Tensor,  # [N, H, S, W] raw
+    bias_b: torch.Tensor,  # [N, H, S, W]
+    num_heads: int,
+    head_pad: int,
+    window: int,
+    scale: float,
+    n_block: int = 8,
+) -> torch.Tensor:
+    """Window attention on the packed head-major layout; returns the
+    [N, S, H*hp] head-major output, pad lanes included. `n_block` is TPU
+    tiling: accepted and ignored. CUDA kernel
+    `kernels/csrc/sam_packed_attention.cu` (hp 128, W 14, bf16) for CUDA
+    tensors, the plain version for CPU ones."""
+    return _packed_attention("fused_window_attention_packed", y, bias_a, bias_b, num_heads,
+                             head_pad, window, scale, fused_window_attention_packed_plain, 14)
+
+
+def fused_global_attention_packed(
+    y: torch.Tensor,  # [B, S, 3*H*hp]
+    bias_a: torch.Tensor,  # [B, H, S, W] raw
+    bias_b: torch.Tensor,  # [B, H, S, W]
+    num_heads: int,
+    head_pad: int,
+    window: int,
+    scale: float,
+    block_q: int = 1024,
+    block_k: int = 1024,
+) -> torch.Tensor:
+    """Global attention on the packed head-major layout, online softmax
+    with fp32 exponentials; returns [B, S, H*hp]. `block_q` and `block_k`
+    are TPU tiling: accepted and ignored. CUDA kernel
+    `kernels/csrc/sam_packed_attention.cu` (hp 128, W 64, bf16) for CUDA
+    tensors, the plain version for CPU ones."""
+    return _packed_attention("fused_global_attention_packed", y, bias_a, bias_b, num_heads,
+                             head_pad, window, scale, fused_global_attention_packed_plain, 64)
