@@ -27,6 +27,13 @@ Phases, each fatal on any error:
                four, the weight-only, the int8 score forms, the packed
                and the two uncalled kernels, also a copy of the source rebuilt with a
                deliberate bug);
+     mlp_v2  - the chunk-pipelined W8A8 MLP (`fused_mlp_block_v2`)
+               against its plain version at the int8 SAM encoder's shape,
+               at 1000 rows and at the MLP microbenchmark's shape, its
+               share of bf16 outputs bit-equal to `fused_mlp_block`'s,
+               three mutant copies of its source that must fail the gate,
+               then its main path: `microbench.mlp_variants.main()` once,
+               with exact launch counts per variant;
   3. serve   - builds the full-width bf16 RES model (LLaMA-7B, CLIP
                ViT-L/14, SAM ViT-H) from a seeded generator on the card,
                serves B=4 requests (320-token prompts: 256 image tokens + 64
@@ -735,24 +742,11 @@ def sam_int8_kernel_phases(gen) -> dict:
     }
     del one, nob
 
-    def library_mlp():
-        xf = F.layer_norm(x, (C,), g, b, eps).float()
-        amax = xf.abs().amax(-1, keepdim=True).clamp_min(1e-12)
-        xq_ = torch.round(xf * (127.0 / amax)).to(torch.int8)
-        h = F.gelu(torch._int_mm(xq_, w1).float() * (amax * (1.0 / 127.0) * s1) + b1.float())
-        h = h.reshape(T, Fw // 1024, 1024)
-        hmax = h.abs().amax(-1, keepdim=True).clamp_min(1e-12)
-        hq_ = torch.round(h * (127.0 / hmax)).to(torch.int8)
-        acc = torch.zeros((T, C), dtype=torch.float32, device=dev)
-        for k in range(Fw // 1024):
-            acc += torch._int_mm(hq_[:, k].contiguous(), w2[k * 1024:(k + 1) * 1024]).float() * (
-                hmax[:, k] * (1.0 / 127.0) * s2)
-        return (acc + b2.float() + x.float()).to(bf)
-
     results["fused_mlp_block"] = kernel_line(
         "fused_mlp_block", (got.float() - ref.float()).abs().max().item(), info,
         lambda: mlp_kernel._mlp_block_cuda(*args, 1024),
-        lambda: mlp_kernel._mlp_block_parts_plain(*args, 1024, True), library_mlp,
+        lambda: mlp_kernel._mlp_block_parts_plain(*args, 1024, True),
+        lambda: library_mlp(*args, 1024),
         nbytes(x, g, b, w1, s1, b1, w2, s2, b2, got), 4.0 * T * C * Fw, iters=10,
         flops_per_s=INT8_OPS_PER_S)
     results["fused_mlp_block"]["stage_ms"] = stage_ms(
@@ -810,6 +804,180 @@ def sam_int8_kernel_phases(gen) -> dict:
     del y5, mask, y, a, bb
     torch.cuda.empty_cache()
     return results
+
+
+def library_mlp(x, g, b, w1, s1, b1, w2, s2, b2, eps, f_chunk):
+    """The W8A8 MLP block as a chain of library calls (K12's and K23's
+    yardstick): `F.layer_norm`, the row quantization, `torch._int_mm`,
+    `F.gelu`, the per-chunk re-quantization and a `torch._int_mm` a chunk."""
+    import torch
+    import torch.nn.functional as F
+
+    (T, C), Fw = x.shape, w1.shape[1]
+    xf = F.layer_norm(x, (C,), g, b, eps).float()
+    amax = xf.abs().amax(-1, keepdim=True).clamp_min(1e-12)
+    xq_ = torch.round(xf * (127.0 / amax)).to(torch.int8)
+    h = F.gelu(torch._int_mm(xq_, w1).float() * (amax * (1.0 / 127.0) * s1) + b1.float())
+    h = h.reshape(T, Fw // f_chunk, f_chunk)
+    hmax = h.abs().amax(-1, keepdim=True).clamp_min(1e-12)
+    hq_ = torch.round(h * (127.0 / hmax)).to(torch.int8)
+    acc = torch.zeros((T, C), dtype=torch.float32, device=x.device)
+    for k in range(Fw // f_chunk):
+        acc += torch._int_mm(hq_[:, k].contiguous(), w2[k * f_chunk:(k + 1) * f_chunk]).float() * (
+            hmax[:, k] * (1.0 / 127.0) * s2)
+    return (acc + b2.float() + x.float()).to(x.dtype)
+
+
+# The deliberate bugs the gate of the chunk-pipelined MLP (K23) must catch,
+# each built into a copy of its source under the define.
+V2_MUTANTS = {
+    "one_amax_per_row": ("mlp_block_v2_int8.cu", "ULLAVA_MUTANT_V2_ROW_AMAX"),
+    "fc2_reads_next_buffer": ("mlp_block_v2_int8.cu", "ULLAVA_MUTANT_V2_WRONG_BUFFER"),
+    "fc1_bias_dropped": ("mlp_block_v2_int8.cu", "ULLAVA_MUTANT_V2_NO_FC1_BIAS"),
+}
+MICROBENCH_T = 150528  # `tools/microbench/mlp_variants.py`'s rows: half a B=48 interior tile
+
+
+def bit_equal_share(a, b) -> float:
+    """Share of the bf16 values of `a` and `b` whose bits agree."""
+    import torch
+
+    return (a.view(torch.int16) == b.view(torch.int16)).float().mean().item()
+
+
+def mlp_v2_phase(gen, results: dict) -> dict:
+    """The chunk-pipelined W8A8 MLP (`fused_mlp_block_v2`, K23), whose one
+    caller is the MLP microbenchmark.
+
+    1. At K12's phase shape and inputs (one B=16 ViT-H encode's 65536 rows,
+       fc1's columns growing by chunk) and at 1000 rows (the last 64-row
+       tile ragged): K23 against its plain version with K12's gate,
+       `row_rel_err` within 1e-2, at f_chunk 1024 and 512, and the share of
+       its bf16 outputs bit-equal to K12's at the same f_chunk (expected
+       1.0: the same roundings in the same order; reported, not gated). The
+       three mutants (`V2_MUTANTS`) must fail the gate. K23's time and
+       K12's, and K23's stages alone.
+    2. At the microbenchmark's shape and inputs ([150528, 1280] x 5120):
+       the same gate and bit-equal share, and the `kernels` line row: ms
+       (after the L2-evicting write), the bound at the int8 peak, the plain
+       version's ms, the library chain's (`library_mlp`), K12's ms.
+    3. The main path: the launch counts set to 0, the microbenchmark run
+       once (`microbench.mlp_variants.main`, which prints its lines), the
+       counts read: each variant launched only its own kernel, 2 + iters
+       times, and the counts add up.
+    Returns the microbenchmark's line (its counts and variant lines)."""
+    import torch
+
+    from ullava_tpu_torch import kernels
+    from ullava_tpu_torch.microbench import mlp_variants
+    from ullava_tpu_torch.ops import mlp_kernel, quant
+
+    dev, bf = "cuda", torch.bfloat16
+    tol, eps = 1e-2, 1e-6
+    T, C, Fw = B_INT8 * 4096, 1280, 5120
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(bf)
+
+    def weight(K, N, col_gain=None):
+        w = torch.randn((K, N), generator=gen, device=dev) * 0.05
+        leaf = quant.quantize_int8(w if col_gain is None else w * col_gain)
+        return leaf["q"], leaf["scale"]
+
+    def hold(where, args, f_chunk):
+        """K23 against its plain version and K12: (info, out, plain out)."""
+        got = mlp_kernel._mlp_block_v2_cuda(*args, f_chunk)[0]
+        ref = mlp_kernel.fused_mlp_block_v2_plain(*args, f_chunk)
+        k12 = mlp_kernel._mlp_block_cuda(*args, f_chunk)[0]
+        torch.cuda.synchronize()
+        err = row_rel_err(got, ref)
+        info = {"row_rel_err": err, "tol": tol,
+                "max_abs_err": (got.float() - ref.float()).abs().max().item(),
+                "bit_equal_share_vs_k12": bit_equal_share(got, k12),
+                "k12_row_rel_err": row_rel_err(k12, ref)}
+        must(f"fused_mlp_block_v2 {where} f_chunk {f_chunk}",
+             err <= tol and bool(torch.isfinite(got.float()).all()), info)
+        return info, got, ref
+
+    gain = (1 + torch.arange(Fw, device=dev) // 1024).float()
+    w1, s1 = weight(C, Fw, col_gain=gain)
+    w2, s2 = weight(Fw, C)
+    x = randn(T, C, scale=2.0, shift=0.3)
+    g, b = randn(C, scale=0.1, shift=1.0), randn(C, scale=0.1)
+    b1, b2 = randn(Fw, scale=0.5), randn(C, scale=0.5)
+    args = (x, g, b, w1, s1, b1, w2, s2, b2, eps)
+    phase = {"f512": hold("K12 shape", args, 512)[0],
+             "ragged_1000_rows": hold("1000 rows", (x[:1000].contiguous(), *args[1:]), 1024)[0]}
+    info, got, ref = hold("K12 shape", args, 1024)
+    phase["f1024"] = info
+    mutants = {}
+    for m, (src, define) in V2_MUTANTS.items():
+        with kernels.mutant(src, define):
+            out = mlp_kernel._mlp_block_v2_cuda(*args, 1024)[0]
+        torch.cuda.synchronize()
+        mutants[m] = must_not("fused_mlp_block_v2", m, row_rel_err(out, ref) <= tol,
+                              row_rel_err(out, ref))
+    xq, xs = mlp_kernel._mlp_block_v2_cuda(*args, 1024)[1:]
+    phase["ms"] = time_ms(lambda: mlp_kernel._mlp_block_v2_cuda(*args, 1024), 10)
+    phase["k12_ms"] = time_ms(lambda: mlp_kernel._mlp_block_cuda(*args, 1024), 10)
+    phase["stage_ms"] = stage_ms(
+        lambda bits: mlp_kernel._mlp_block_v2_cuda(*args, 1024, stages=bits, scratch=(xq, xs)),
+        {"row_pass": 1, "fc1": 2, "fc2": 4, "fc1_fc2": 6})
+    phase["shape"] = [T, C, Fw]
+    log(f"[kernel] fused_mlp_block_v2 at K12's shape {json.dumps(phase)}")
+    del x, w1, w2, args, got, ref, out, xq, xs
+    torch.cuda.empty_cache()
+
+    # The microbenchmark's shape and inputs.
+    Tm = MICROBENCH_T
+    margs = (*mlp_variants.inputs(Tm, C, Fw, dev), mlp_variants.EPS)
+    minfo, got, ref = hold("microbenchmark shape", margs, 1024)
+    minfo["f512"] = hold("microbenchmark shape", margs, 512)[0]
+    xq, xs = mlp_kernel._mlp_block_v2_cuda(*margs, 1024)[1:]
+    minfo["stage_ms"] = stage_ms(
+        lambda bits: mlp_kernel._mlp_block_v2_cuda(*margs, 1024, stages=bits, scratch=(xq, xs)),
+        {"row_pass": 1, "fc1": 2, "fc2": 4, "fc1_fc2": 6})
+    k12_scratch = mlp_kernel._mlp_block_cuda(*margs, 1024)[1:]
+    minfo["k12_stage_ms"] = stage_ms(
+        lambda bits: mlp_kernel._mlp_block_cuda(*margs, 1024, stages=bits, scratch=k12_scratch),
+        {"row_pass": 1, "fc1": 2, "fc2": 4})
+    minfo["k12_ms"] = time_ms(lambda: mlp_kernel._mlp_block_cuda(*margs, 1024), 10)
+    minfo["mutant_row_rel_err"] = mutants
+    minfo["k12_shape"] = phase
+    max_abs = minfo.pop("max_abs_err")
+    line = kernel_line(
+        "fused_mlp_block_v2", max_abs, minfo,
+        lambda: mlp_kernel._mlp_block_v2_cuda(*margs, 1024),
+        lambda: mlp_kernel.fused_mlp_block_v2_plain(*margs, 1024),
+        lambda: library_mlp(*margs, 1024),
+        nbytes(*margs[:-1], got), 4.0 * Tm * C * Fw, iters=10, flops_per_s=INT8_OPS_PER_S)
+    line["shape"] = [Tm, C, Fw]
+    results["fused_mlp_block_v2"] = line
+    log(f"[kernel] fused_mlp_block_v2 stages {json.dumps(minfo['stage_ms'])}; "
+        f"K12 {json.dumps(minfo['k12_stage_ms'])}")
+    del margs, got, ref, xq, xs, k12_scratch
+    torch.cuda.empty_cache()
+
+    # The main path: the microbenchmark, with the counts set to 0 before.
+    kernels.reset_launch_counts()
+    iters = 20
+    variants = mlp_variants.main(iters=iters)
+    launches = kernels.launch_counts()
+    own = {"k12": "fused_mlp_block", "base": "fused_mlp_block", "v2": "fused_mlp_block_v2"}
+    expect = {k: 0 for k in launches}
+    skipped = []
+    for v in variants:
+        if "skipped" in v:
+            skipped.append(v["variant"])
+            continue
+        name = own[v["variant"].split("_")[0]]
+        must(f"microbenchmark {v['variant']} launches", v["launches"] == {name: iters + 2}, v)
+        expect[name] += iters + 2
+    must("microbenchmark launches", launches == expect and expect["fused_mlp_block_v2"] > 0,
+         {"got": launches, "expected": expect})
+    must("microbenchmark skips", skipped == ["k12_f2560", "k12_f5120", "v2_f2560", "v2_f5120"],
+         skipped)
+    return {"phase": "mlp_microbench", "launches": launches, "variants": variants}
 
 
 # ViT-H's attention widths: C 1280, 16 heads of 80, 14 x 14 windows.
@@ -1806,10 +1974,11 @@ SAM_LAUNCHES = {"fused_window_attention_grid": 28, "fused_global_attention": 4,
                 "fused_ln_linear_dual": 0, "fused_window_attention_rect": 0}
 # The training path's kernels launch in no serve, the all-int8 serve's
 # forms and the packed kernels in no other serve, the two uncalled kernels
-# in none.
+# and the chunk-pipelined MLP (whose path is the microbenchmark) in none.
 IDLE_IN_SERVING = {"flash_attention_fwd_lse": 0, "flash_attention_bwd_dkv": 0,
                    "flash_attention_bwd_dq": 0, "rms_norm_bwd": 0, **{k: 0 for k in WQ_NAMES},
-                   **{k: 0 for k in I8_NAMES}, **{k: 0 for k in PACKED_NAMES + UNCALLED_NAMES}}
+                   **{k: 0 for k in I8_NAMES}, **{k: 0 for k in PACKED_NAMES + UNCALLED_NAMES},
+                   "fused_mlp_block_v2": 0}
 BF16_LAUNCHES = {"fused_rotary": 64, "flash_attention_fwd_bsh": 32, **SAM_LAUNCHES,
                  "rms_norm_fwd": 65 * (1 + NEW_TOKENS),
                  "rms_norm_residual_quant": 0, "silu_mul_quant": 0,
@@ -2681,7 +2850,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = kernels.build_all(verbose=True, mutants=[
         *TRAIN_MUTANTS.values(), *WQ_MUTANTS.values(), *I8_MUTANTS.values(),
-        *PACKED_MUTANTS.values()])
+        *PACKED_MUTANTS.values(), *V2_MUTANTS.values()])
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "sources": sorted(built)}), flush=True)
 
@@ -2690,6 +2859,10 @@ def main() -> int:
     int8_results = int8_kernel_phases(gen)
     sam_int8_results = sam_int8_kernel_phases(gen)
     results = {**bf16_results, **int8_results, **sam_int8_results}
+    # Its own generator: the phases after it draw the inputs they drew
+    # before it existed (the check phase's small stage-2 model is
+    # sensitive to its draw, PERF.md section 7).
+    mlp_microbench = mlp_v2_phase(torch.Generator(device="cuda").manual_seed(9), results)
     resident_kernel_phases(gen, results)
     resident_names = ("fused_ln_linear_dual", "fused_window_attention_rect")
     train_kernel_phases(gen, results)
@@ -2791,10 +2964,12 @@ def main() -> int:
     # for the training path's four, one stage-2 step for the weight-only
     # K10 and K12, the weight-only encode with composite weights for K13's,
     # the all-int8 serve for its four forms, the packed serve for the two
-    # packed kernels; the two kernels that no path calls report the bf16
-    # serve's count, 0, as they do every serve's.
+    # packed kernels, the MLP microbenchmark for the chunk-pipelined MLP;
+    # the two kernels that no path calls report the bf16 serve's count, 0,
+    # as they do every serve's.
     for name, r in results.items():
-        own = (serve_line if name in bf16_results or name in UNCALLED_NAMES else
+        own = (mlp_microbench if name == "fused_mlp_block_v2" else
+               serve_line if name in bf16_results or name in UNCALLED_NAMES else
                packed_line if name in PACKED_NAMES else
                int8_line if name in int8_results else
                resident_line if name in resident_names else
@@ -2814,6 +2989,7 @@ def main() -> int:
         r["launches_stage1_step"] = train_line["launches"][name]
         r["launches_stage2_step"] = stage2_line["launches"][name]
         r["launches_weight_only_encode"] = wq_encode_line["launches"][name]
+        r["launches_mlp_microbench"] = mlp_microbench["launches"][name]
     for r in results.values():
         print(json.dumps({"phase": "kernel", **{k: v for k, v in r.items()
                                                 if k not in ("route", "source", "replaces")}}),

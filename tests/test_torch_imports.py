@@ -29,6 +29,7 @@ leaked = sorted(m for m in sys.modules
 raised = {}
 if not torch.cuda.is_available():
     from ullava_tpu_torch import train
+    from ullava_tpu_torch.microbench import mlp_variants
     from ullava_tpu_torch.models import llama, ullava, ullava_core
     from ullava_tpu_torch.models.sam import image_encoder
     from ullava_tpu_torch.serve import serve
@@ -46,6 +47,7 @@ if not torch.cuda.is_available():
         ("train.make_stage2_batch", lambda: train.make_stage2_batch(cfg, 1, 8)),
         ("train.build_stage2", lambda: train.build_stage2(cfg, None)),
         ("train.train_stage2", lambda: train.train_stage2(cfg, None, [], {})),
+        ("mlp_variants.main", lambda: mlp_variants.main()),
     ):
         try:
             call()
@@ -68,7 +70,8 @@ def test_port_imports_no_jax_and_entry_points_need_cuda():
     assert "ullava_tpu_torch.models.sam.image_encoder" in mods
     for new in ("ops.quant", "ops.mlp_kernel", "ops.decode_attention", "ops.sam_attention",
                 "models.clip_vit", "kernels", "train", "training.optim", "training.train_step",
-                "training.checkpoint", "training.trainer", "models.loss"):
+                "training.checkpoint", "training.trainer", "models.loss",
+                "microbench.mlp_variants"):
         assert f"ullava_tpu_torch.{new}" in mods
     res = subprocess.run(
         [sys.executable, "-c", _PROBE, json.dumps(mods)],
@@ -84,13 +87,15 @@ def test_port_imports_no_jax_and_entry_points_need_cuda():
     assert set(out["raised"]) == {
         "ullava.init_params", "image_encoder.init_params int8", "llama.init_kv_cache",
         "llama.init_kv_cache int8", "serve", "train.make_batch", "train.train_stage1",
-        "train.make_stage2_batch", "train.build_stage2", "train.train_stage2"}
+        "train.make_stage2_batch", "train.build_stage2", "train.train_stage2",
+        "mlp_variants.main"}
 
 
 @pytest.mark.parametrize("name", ["test_torch_cuda_bf16.py", "test_torch_cuda_int8.py",
                                   "test_torch_cuda_sam_int8.py", "test_torch_cuda_sam_resident.py",
                                   "test_torch_cuda_train.py", "test_torch_cuda_weight_only.py",
-                                  "test_torch_cuda_dots_i8.py", "test_torch_cuda_packed.py"])
+                                  "test_torch_cuda_dots_i8.py", "test_torch_cuda_packed.py",
+                                  "test_torch_cuda_mlp_v2.py"])
 def test_card_test_files_import_torch_only(name):
     """The tests that run on the card must run on a machine without JAX."""
     tree = ast.parse((REPO / "tests" / name).read_text())

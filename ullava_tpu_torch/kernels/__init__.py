@@ -213,6 +213,13 @@ KERNELS: Dict[str, KernelSpec] = {
             (P, P, P, P, P, P, P, I, I, I, I, I, I, F, P),
             "ullava_tpu/ops/decode_attention.py:143",
         ),
+        # The chunk-pipelined W8A8 MLP, whose only caller is the MLP
+        # microbenchmark (`microbench/mlp_variants.py`).
+        KernelSpec(
+            "fused_mlp_block_v2", "mlp_block_v2_int8.cu", "ullava_fused_mlp_block_v2_int8",
+            (P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, I, P),
+            "ullava_tpu/ops/mlp_kernel.py:314",
+        ),
     )
 }
 

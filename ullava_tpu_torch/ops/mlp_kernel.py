@@ -1,5 +1,5 @@
 """Fused int8 kernels of the MLP and projection sites (counterpart of
-`ullava_tpu/ops/mlp_kernel.py:37-254,381-720`).
+`ullava_tpu/ops/mlp_kernel.py:37-720`).
 
 - `silu_mul_quant`: SwiGLU gate + per-row int8 quantize of the W8A8 LLM
   prefill MLP.
@@ -9,6 +9,10 @@
 - `fused_mlp_block`: `x + fc2(gelu(fc1(LN(x))))` of a SAM block with both
   products in int8, the polynomial-erf GELU and the GELU output
   re-quantized per row and per `f_chunk` columns.
+- `fused_mlp_block_v2`: the same function (W8A8 only) as one kernel that
+  issues fc1 of chunk k before the re-quantization and fc2 of chunk k - 1
+  and keeps each chunk's int8 GELU output on chip; its one caller is the
+  MLP microbenchmark (`microbench/mlp_variants.py`).
 
 Each has its plain PyTorch version beside it, taken for CPU tensors. With
 `w8a8=False` (weight-only) the three SAM functions keep the LN'd row in
@@ -596,3 +600,78 @@ def fused_mlp_block(
     if not w8a8:
         return _mlp_block_wq_cuda(*args[:-1])[0]
     return _mlp_block_cuda(*args)[0]
+
+
+# ---------------------------------------------------------------------------
+# fused_mlp_block_v2
+# ---------------------------------------------------------------------------
+
+V2_F_CHUNKS = (512, 1024)  # f_chunk / 8 fc1 columns a block of the kernel's 8-block cluster
+V2_WIDTH = 1280  # C: SAM ViT-H, the encoder the port builds; C / 8 fc2 columns a block
+
+
+def fused_mlp_block_v2_plain(
+    x, ln_scale, ln_bias, w1_q, w1_scale, b1, w2_q, w2_scale, b2, eps: float, f_chunk: int = 0,
+) -> torch.Tensor:
+    """Plain `fused_mlp_block_v2`: the function of `fused_mlp_block(w8a8=True)`,
+    whose plain version it is."""
+    return fused_mlp_block_plain(
+        x, ln_scale, ln_bias, w1_q, w1_scale, b1, w2_q, w2_scale, b2, eps, f_chunk, w8a8=True)
+
+
+def _mlp_block_v2_cuda(x, ln_scale, ln_bias, w1_q, w1_scale, b1, w2_q, w2_scale, b2, eps, f_chunk,
+                       stages=7, scratch=None):
+    """The CUDA `fused_mlp_block_v2`: (out, xq, xs). `stages` selects the
+    row pass (1), fc1 with the GELU and its re-quantization (2) and fc2
+    with the output (4) so that each can be timed alone on the `scratch`
+    of an earlier full call; the GELU output is never stored."""
+    T, C = x.shape
+    F = _check_mlp_block(x, ln_scale, ln_bias, w1_q, w1_scale, b1, w2_q, w2_scale, b2)
+    if f_chunk not in V2_F_CHUNKS or C != V2_WIDTH:
+        raise ValueError(
+            f"fused_mlp_block_v2: f_chunk {f_chunk} must be one of {V2_F_CHUNKS} and C {C} must "
+            f"be {V2_WIDTH}: a cluster of 8 blocks (the portable limit) splits both 8 ways"
+        )
+    out = torch.empty_like(x)
+    xq, xs = scratch or (
+        torch.empty((T, C), dtype=torch.int8, device=x.device),
+        torch.empty((T, 1), dtype=torch.float32, device=x.device),
+    )
+    kernels.launch(
+        "fused_mlp_block_v2", x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+        w1_q.data_ptr(), w1_scale.data_ptr(), b1.data_ptr(),
+        w2_q.data_ptr(), w2_scale.data_ptr(), b2.data_ptr(), out.data_ptr(),
+        xq.data_ptr(), xs.data_ptr(), T, C, F, f_chunk, float(eps), stages,
+    )
+    return out, xq, xs
+
+
+def fused_mlp_block_v2(
+    x: torch.Tensor,  # [T, C] residual-stream input
+    ln_scale: torch.Tensor,  # [C]
+    ln_bias: torch.Tensor,  # [C]
+    w1_q: torch.Tensor,  # [C, F] int8, column-major
+    w1_scale: torch.Tensor,  # [1, F] f32
+    b1: torch.Tensor,  # [F]
+    w2_q: torch.Tensor,  # [F, C] int8, column-major
+    w2_scale: torch.Tensor,  # [1, C] f32
+    b2: torch.Tensor,  # [C]
+    eps: float,
+    f_chunk: int = 0,
+) -> torch.Tensor:
+    """`fused_mlp_block(w8a8=True)` with fc1 of chunk k issued before the
+    re-quantization and fc2 of chunk k - 1, the int8 GELU output of a
+    chunk kept on chip: the same function and, at the same `f_chunk` (0:
+    1024 when it divides F, else 512), the same bf16 output. CUDA kernel
+    `kernels/csrc/mlp_block_v2_int8.cu` (bf16; f_chunk 512 or 1024, C 1280)
+    for CUDA tensors; the plain version for CPU tensors."""
+    if x.ndim != 2:
+        raise ValueError(f"fused_mlp_block_v2 takes [T, C] tokens, got {tuple(x.shape)}")
+    F = w1_q.shape[1]
+    f_chunk = f_chunk or default_f_chunk(F)
+    if F % f_chunk:
+        raise ValueError(f"fused_mlp_block_v2: F {F} is not a multiple of f_chunk {f_chunk}")
+    args = (x, ln_scale, ln_bias, w1_q, w1_scale, b1, w2_q, w2_scale, b2, eps, f_chunk)
+    if x.device.type == "cpu":
+        return fused_mlp_block_v2_plain(*args)
+    return _mlp_block_v2_cuda(*args)[0]
