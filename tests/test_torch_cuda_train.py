@@ -68,6 +68,36 @@ def test_cuda_flash_fwd_lse_matches_plain(cuda, causal, lens):
     assert (lse[~dead] - lse_ref[~dead]).abs().max().item() <= 1e-4
 
 
+# The edges of K15's 128-row query tiles and heavy-first block order:
+# name: (B, Sq, Sk, H, Hkv, kv_lens, causal, q_offset).
+_EDGES = {
+    "sq_200": (2, 200, 200, 4, 4, (200, 131), True, 0),
+    "q_offset_128": (2, 128, 256, 4, 4, (256, 200), True, 128),
+    "kv_len_0": (2, 128, 128, 4, 4, (128, 0), True, 0),
+    "non_causal_ragged": (2, 128, 192, 4, 4, (150, 37), False, 0),
+    "gqa_rep_2": (2, 256, 256, 4, 2, (256, 190), True, 0),
+    "stage1": (4, 1024, 1024, 32, 32, (1024, 1000, 777, 513), True, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_EDGES))
+def test_cuda_flash_fwd_lse_edges(cuda, name):
+    B, Sq, Sk, H, Hkv, lens, causal, q_offset = _EDGES[name]
+    q = _rand(cuda, B, Sq, H, 128)
+    k, v = (_rand(cuda, B, Sk, Hkv, 128) for _ in range(2))
+    kv = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    kw = dict(causal=causal, scale=128**-0.5, q_offset=q_offset)
+    o, lse = attention.flash_attention_fwd(q, k, v, kv, **kw)
+    o_ref, lse_ref = attention.flash_attention_fwd_plain(q, k, v, kv, **kw)
+    torch.cuda.synchronize()
+    assert _row_rel_err(o, o_ref) <= _TOL
+    dead = lse_ref >= 1e29
+    assert torch.equal(lse >= 1e29, dead) and bool((lse[dead] == 1e30).all())
+    assert not o.transpose(1, 2)[dead].any()
+    assert (lse[~dead] - lse_ref[~dead]).abs().max().item() <= 1e-4
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal,lens", _CASES)
 def test_cuda_flash_bwd_matches_plain(cuda, causal, lens):

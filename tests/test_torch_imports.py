@@ -71,7 +71,7 @@ def test_port_imports_no_jax_and_entry_points_need_cuda():
     for new in ("ops.quant", "ops.mlp_kernel", "ops.decode_attention", "ops.sam_attention",
                 "models.clip_vit", "kernels", "train", "training.optim", "training.train_step",
                 "training.checkpoint", "training.trainer", "models.loss",
-                "microbench.mlp_variants"):
+                "microbench.mlp_variants", "microbench.stage2_grads"):
         assert f"ullava_tpu_torch.{new}" in mods
     res = subprocess.run(
         [sys.executable, "-c", _PROBE, json.dumps(mods)],

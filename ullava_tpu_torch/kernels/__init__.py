@@ -131,7 +131,7 @@ KERNELS: Dict[str, KernelSpec] = {
             "ullava_tpu/ops/sam_attention.py:354",
         ),
         KernelSpec(
-            "flash_attention_fwd_lse", "flash_attention.cu", "ullava_flash_attention_fwd_lse",
+            "flash_attention_fwd_lse", "flash_fwd_sm90.cu", "ullava_flash_attention_fwd_lse",
             (P, P, P, P, P, P, I, I, I, I, I, I, I, F, P),
             "ullava_tpu/ops/attention.py:173",
         ),
@@ -235,7 +235,8 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot build")
 
 
-def _lib_path(source: str, define: Optional[str] = None) -> Path:
+def lib_path(source: str, define: Optional[str] = None) -> Path:
+    """Where the library of `source` (built with `-D<define>`) is, built or not."""
     flags = NVCC_FLAGS + ((f"-D{define}",) if define else ())
     h = hashlib.sha256(" ".join(flags).encode())
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / source]:
@@ -254,7 +255,7 @@ def build_all(verbose: bool = False, mutants=()) -> Dict[str, float]:
     procs = []
     t0 = time.perf_counter()
     for src, define in wanted:
-        out = _lib_path(src, define)
+        out = lib_path(src, define)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -285,7 +286,7 @@ def _function(spec: KernelSpec):
     key = spec.source if define is None else f"{spec.source}:{define}"
     lib = _LIBS.get(key)
     if lib is None:
-        path = _lib_path(spec.source, define)
+        path = lib_path(spec.source, define)
         if not path.exists():
             build_all(mutants=[(spec.source, define)] if define else ())
         lib = ctypes.CDLL(str(path))

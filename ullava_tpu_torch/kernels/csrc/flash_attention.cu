@@ -1,20 +1,15 @@
-// flash_attention_fwd_bsh (K2) and flash_attention_fwd_lse (K15): causal
-// flash attention forward over row-major [B, S, H, hd] q/k/v with
-// per-batch kv_lens and a static q_offset; K15 also writes each row's
-// logsumexp for the backward (K16, K17 in flash_attention_bwd.cu).
+// flash_attention_fwd_bsh (K2): causal flash attention forward over
+// row-major [B, S, H, hd] q/k/v with per-batch kv_lens and a static
+// q_offset (the training forward with lse, K15, is flash_fwd_sm90.cu).
 //
 // Replaces: ullava_tpu/ops/attention.py:354 flash_attention_fwd_bsh
 // (Pallas, lane-sliced head groups over the native layout; the serving
-// primal) and ullava_tpu/ops/attention.py:173 flash_attention_fwd (kernel
-// _flash_kernel, :93; the training forward rule, which transposes q/k/v
-// to [B, H, S, hd] first and returns lse as [B, H, Sq, 8]).
+// primal).
 //
 // Bound on the card: at the serving prefill shape (B=4, S=320, H=32,
 // hd=128) a layer moves ~42 MB (q, k, v read once, o written once) and
 // does ~3.4 GFLOP of causal products: 13 us of HBM time against 3.4 us
-// of bf16 tensor-core time, so bytes bound K2. K15 at the training shape
-// (B=4, S=1024) moves 134 MB and does 3.4e10 causal FLOP: 40 us against
-// 35 us, bytes again by a little.
+// of bf16 tensor-core time, so bytes bound K2.
 //
 // K2 also runs at head_dim 64 (`ullava_flash_attention_fwd_bsh_hd64`): the
 // CLIP ViT-L/14 tower's attention under `attn_impl="flash"` (16 heads of
@@ -26,11 +21,9 @@
 // Design: the shared online-softmax core (flash_core.cuh), one block per
 // (b, h, 64-row q tile). q/k/v rows are read in place with the head
 // stride, so no [B,H,S,hd] staging copy exists (the same point as the
-// TPU kernel's lane slices; K15 computes the TPU training kernel's
-// function without its transposes). The key loop stops at min(kv_len[b],
-// causal bound), which is the causal block skip. GQA reads k/v head
-// h / (H / Hkv). K15 is the same kernel with the core's LSE epilogue: one
-// fp32 [B, H, Sq] store per row.
+// TPU kernel's lane slices). The key loop stops at min(kv_len[b], causal
+// bound), which is the causal block skip. GQA reads k/v head
+// h / (H / Hkv).
 #include "flash_core.cuh"
 
 namespace ullava {
@@ -42,7 +35,6 @@ struct AttnBSH {
   const bf16* v;
   bf16* o;
   const int* kv_lens;
-  float* lse;  // [B, H, Sq]; K15 only
   int Sq, Sk, H, Hkv, q_offset;
   bool causal;
   float scale;
@@ -65,9 +57,6 @@ struct AttnBSH {
     return o + ((static_cast<size_t>(b) * Sq + s) * H + h) * HD;
   }
   __device__ int key_limit(int inst) const { return min(Sk, kv_lens[inst / H]); }
-  __device__ void lse_out(int inst, int s, float value) const {
-    lse[static_cast<size_t>(inst) * Sq + s] = value;  // inst = b * H + h
-  }
   __device__ float bias_a(int, int, int) const { return 0.f; }
   __device__ float bias_b(int, int, int) const { return 0.f; }
 };
@@ -84,7 +73,6 @@ ULLAVA_EXPORT int ullava_flash_attention_fwd_bsh(
                          static_cast<const ullava::bf16*>(v),
                          static_cast<ullava::bf16*>(o),
                          static_cast<const int*>(kv_lens),
-                         nullptr,
                          Sq, Sk, H, Hkv, q_offset, causal != 0, scale};
   return ullava::launch_flash<128, 0>(p, B * H, static_cast<cudaStream_t>(stream));
 }
@@ -99,24 +87,6 @@ ULLAVA_EXPORT int ullava_flash_attention_fwd_bsh_hd64(
                         static_cast<const ullava::bf16*>(v),
                         static_cast<ullava::bf16*>(o),
                         static_cast<const int*>(kv_lens),
-                        nullptr,
                         Sq, Sk, H, Hkv, q_offset, causal != 0, scale};
   return ullava::launch_flash<64, 0>(p, B * H, static_cast<cudaStream_t>(stream));
-}
-
-// As above, and lse: [B, H, Sq] f32, m + log l of each row (1e30 where no
-// key is live).
-ULLAVA_EXPORT int ullava_flash_attention_fwd_lse(
-    const void* q, const void* k, const void* v, const void* kv_lens, void* o, void* lse,
-    int B, int Sq, int Sk, int H, int Hkv, int causal, int q_offset, float scale,
-    void* stream) {
-  ullava::AttnBSH<128> p{static_cast<const ullava::bf16*>(q),
-                         static_cast<const ullava::bf16*>(k),
-                         static_cast<const ullava::bf16*>(v),
-                         static_cast<ullava::bf16*>(o),
-                         static_cast<const int*>(kv_lens),
-                         static_cast<float*>(lse),
-                         Sq, Sk, H, Hkv, q_offset, causal != 0, scale};
-  return ullava::launch_flash<128, 0, ullava::AttnBSH<128>, false, true>(
-      p, B * H, static_cast<cudaStream_t>(stream));
 }

@@ -23,13 +23,6 @@
 //      the tensor cores (ldmatrix.trans for the V fragments).
 // A row whose l stays 0 (every key masked) writes zeros.
 //
-// With LSE (the training forward, K15) each row's natural-unit logsumexp
-// m + log l (fp32; 1e30 for a row with no live key, so that the backward's
-// recomputed probabilities exp(s - lse) are exactly 0) goes to
-// p.lse_out(inst, row, value) beside the output. Compiled with
-// ULLAVA_MUTANT_LSE_NO_LOG it writes m alone: a deliberate bug that only
-// `chip_smoke.py` builds, to show that K15's gate catches it.
-//
 // With EXPBF16 (the serving form of the SAM global kernel) the softmax
 // works in natural units and follows the TPU kernel's rounding: s - m is
 // rounded to bf16 before the exponential, the probability is rounded to
@@ -244,7 +237,7 @@ __device__ __forceinline__ void quantize_rows_i8(const bf16* src, int8_t* dst, f
   if (hf == 0) scale[r] = __fmul_rn(amax, 1.f / 127.f);
 }
 
-template <int HD, int WB, class P, bool EXPBF16 = false, bool LSE = false, bool DOTS_I8 = false>
+template <int HD, int WB, class P, bool EXPBF16 = false, bool DOTS_I8 = false>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const P p) {
   static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
   static_assert(!DOTS_I8 || (WB > 0 && kThreads == 2 * kBQ), "DOTS_I8 is the SAM kernels' form");
@@ -556,17 +549,6 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const P p) {
   for (int r = 0; r < 2; ++r) {
     const float l = quad_sum(l_run[r]);
     inv[r] = l == 0.f ? 0.f : 1.f / l;
-    if constexpr (LSE) {
-      // m_run is in base-2 units (scale * log2(e) folded in).
-      constexpr float kLn2 = 0.6931471805599453f;
-#ifdef ULLAVA_MUTANT_LSE_NO_LOG
-      const float lse = m_run[r] * kLn2;
-#else
-      const float lse = m_run[r] * kLn2 + logf(l);
-#endif
-      const int row = r ? row1 : row0;
-      if (tq == 0 && row < Sq) p.lse_out(inst, row, l == 0.f ? 1e30f : lse);
-    }
   }
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
@@ -581,20 +563,20 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const P p) {
 }
 
 // Launches one block per (instance, 64-row query tile) on `stream`.
-template <int HD, int WB, class P, bool EXPBF16 = false, bool LSE = false, bool DOTS_I8 = false>
+template <int HD, int WB, class P, bool EXPBF16 = false, bool DOTS_I8 = false>
 int launch_flash(const P& p, int num_inst, cudaStream_t stream) {
   constexpr size_t smem = flash_total_smem_bytes<HD, WB, P, DOTS_I8>();
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<HD, WB, P, EXPBF16, LSE, DOTS_I8>,
+        flash_fwd_kernel<HD, WB, P, EXPBF16, DOTS_I8>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   if (num_inst == 0 || p.Sq == 0) return 0;
   dim3 grid(num_inst, (p.Sq + kBQ - 1) / kBQ);
-  flash_fwd_kernel<HD, WB, P, EXPBF16, LSE, DOTS_I8><<<grid, kThreads, smem, stream>>>(p);
+  flash_fwd_kernel<HD, WB, P, EXPBF16, DOTS_I8><<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

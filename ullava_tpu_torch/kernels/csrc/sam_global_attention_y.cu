@@ -100,6 +100,6 @@ ULLAVA_EXPORT int ullava_fused_global_attention_y_i8(const void* y, const void* 
                 S, S, 0, false, scale, H};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (exp_bf16)
-    return launch_flash<kGlobYHD, kGlobYW, GlobalAttnY, true, false, true>(p, B * H, st);
-  return launch_flash<kGlobYHD, kGlobYW, GlobalAttnY, false, false, true>(p, B * H, st);
+    return launch_flash<kGlobYHD, kGlobYW, GlobalAttnY, true, true>(p, B * H, st);
+  return launch_flash<kGlobYHD, kGlobYW, GlobalAttnY, false, true>(p, B * H, st);
 }

@@ -20,24 +20,26 @@
 //     of traffic (~0.09 ms): operations bound it. The kernel contracts all
 //     128 lanes; the pad lanes are zero only by the weights' construction.
 //
-// Design: one accessor over the layout, at HD = 128, one block per
-// (instance = image or window, head, 64-row q tile), keys in tiles of 64.
-// It reads q/k/v rows in place at stride 3*H*hp and writes the output at
-// stride H*hp, so no head split or merge copy exists. The bias terms
+// Design: one accessor over the layout, at HD = 128 (instance = image or
+// window, times head). It reads q/k/v rows in place at stride 3*H*hp and
+// writes the output at stride H*hp, so no head split or merge copy exists. The bias terms
 // arrive raw, [N, H, S, W] (head-second, as the packed kernels block on
 // them), and are added after the scale (kBiasAfterScale): s = q.k * scale
 // + A[s][t / W] + Bb[s][t % W], fp32 exponentials, as in both TPU kernels.
 // Each form rounds P where its TPU kernel does: the window form
 // normalizes P before rounding it to bf16 for P V (:818-822) and runs on
-// window_norm_first.cuh (196 keys: four tiles, the last masked past 196);
-// the global form is online (m, l, acc; acc / l at the end) and runs on
-// the shared online-softmax core (flash_core.cuh).
+// window_whole.cuh (one block per (window, head) over all 196 query rows,
+// every score row whole in registers, K and V loaded once); the global
+// form is online (m, l, acc; acc / l at the end) and runs on the shared
+// online-softmax core (flash_core.cuh), one block per (image, head,
+// 64-row q tile).
 //
 // Compiled with ULLAVA_MUTANT_PACKED_BIAS_PRESCALED the core adds the bias
 // before the scale (as if it arrived pre-scaled by 1/scale), and with
 // ULLAVA_MUTANT_PACKED_HEAD_OFFSET k is read one head over: deliberate
-// bugs that only `chip_smoke.py` builds, to show that the gates catch them.
-#include "window_norm_first.cuh"
+// bugs that only `chip_smoke.py` builds, to show that the gates catch them
+// (window_whole.cuh holds the window form's own third one).
+#include "window_whole.cuh"
 
 namespace ullava {
 
@@ -92,7 +94,7 @@ int launch_packed(const void* y, const void* a, const void* b, void* o, int N, i
                   W * W, W * W, H, 0, false, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if constexpr (W <= 16)
-    return launch_flash_norm_first<kPackHP, W>(p, N * H, st);
+    return launch_window_whole<kPackHP, W>(p, N * H, st);
   else
     return launch_flash<kPackHP, W>(p, N * H, st);
 }

@@ -153,6 +153,6 @@ ULLAVA_EXPORT int ullava_fused_window_attention_rect_i8(const void* y, const voi
                static_cast<bf16*>(o),
                T, kRectWin * kRectWin, H, 0, false, scale,
                n_first, rows0, cols0, rows1, cols1, P * (kRectHD + 2 * kRectWin)};
-  return launch_flash<kRectHD, kRectWin, WindowRect, false, false, true>(
+  return launch_flash<kRectHD, kRectWin, WindowRect, false, true>(
       p, N * H, static_cast<cudaStream_t>(stream));
 }

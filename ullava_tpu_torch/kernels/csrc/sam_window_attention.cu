@@ -107,6 +107,6 @@ ULLAVA_EXPORT int ullava_fused_window_attention_grid_i8(const void* y, const voi
   WindowGrid p{static_cast<const bf16*>(y), static_cast<const bf16*>(a),
                static_cast<const bf16*>(b),  static_cast<bf16*>(o),
                total_rows, kWin * kWin, H, 0, false, scale};
-  return launch_flash<kWinHD, kWin, WindowGrid, false, false, true>(
+  return launch_flash<kWinHD, kWin, WindowGrid, false, true>(
       p, N * H, static_cast<cudaStream_t>(stream));
 }

@@ -1,8 +1,8 @@
 // Window attention that normalizes P before rounding it to bf16, as the
 // TPU's window kernels do (`p = exp(s - m); p = p / sum(p)`, then
 // `p.astype(bf16)` for P V): the per-(window, head) kernel
-// (`ullava_tpu/ops/sam_attention.py:63-65`) and the packed window kernel
-// (:818-822). The online core (flash_core.cuh) rounds the unnormalized P
+// (`ullava_tpu/ops/sam_attention.py:63-65`; the packed window kernel has
+// its own, window_whole.cuh). The online core (flash_core.cuh) rounds the unnormalized P
 // against a running maximum instead, which can put an output two bf16
 // steps away from the TPU order's; here the rounding points are the TPU
 // kernel's, so only fp32 summation order differs.
@@ -22,8 +22,7 @@
 //      is, with no final division.
 // Loads and products are those of the online core; the price is one more
 // pass of barriers and 64 KB of shared memory (two blocks an SM at
-// hd 128 or 80). The bias is added before the scale, or after it where
-// the problem type declares kBiasAfterScale (the packed form).
+// hd 128 or 80). The bias is added before the scale.
 #pragma once
 
 #include "flash_core.cuh"
@@ -44,7 +43,7 @@ __global__ void __launch_bounds__(kThreads) flash_nf_kernel(const P p) {
   constexpr int LD = HD + 8;   // shared-memory row stride (bf16)
   constexpr int KD = HD / 16;  // k-steps of Q K^T
   constexpr int ND = HD / 8;   // 8-wide column tiles of O
-  constexpr bool AFTER = bias_after_scale<P>::value;
+  static_assert(!bias_after_scale<P>::value, "the bias goes in before the scale here");
   constexpr float kLog2e = 1.4426950408889634f;
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -135,16 +134,7 @@ __global__ void __launch_bounds__(kThreads) flash_nf_kernel(const P p) {
           const int tb = ok ? t : 0;  // keep masked keys' table reads in bounds
           const float bias = __bfloat162float(sBA[lr * WB + tb / WB]) +
                              __bfloat162float(sBB[lr * WB + tb % WB]);
-          float x;
-          if constexpr (AFTER) {
-#ifdef ULLAVA_MUTANT_PACKED_BIAS_PRESCALED
-            x = (s[j][e] + bias) * sl2;  // the bias read as if pre-scaled by 1/scale
-#else
-            x = s[j][e] * sl2 + bias * kLog2e;
-#endif
-          } else {
-            x = (s[j][e] + bias) * sl2;
-          }
+          const float x = (s[j][e] + bias) * sl2;
           s[j][e] = ok ? x : -INFINITY;
           mx[r] = fmaxf(mx[r], s[j][e]);
         }

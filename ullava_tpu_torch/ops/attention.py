@@ -166,8 +166,9 @@ def flash_attention_fwd(
 ):
     """The training forward: (o [B, Sq, H, hd], lse [B, H, Sq] fp32), lse
     the logsumexp of each row's scaled, masked scores (1e30 where no key
-    is live). CUDA kernel K15 (`kernels/csrc/flash_attention.cu`, hd 128,
-    bf16) for CUDA tensors, the plain version for CPU tensors."""
+    is live). CUDA kernel K15 (`kernels/csrc/flash_fwd_sm90.cu`: wgmma and
+    TMA, hd 128, bf16) for CUDA tensors, the plain version for CPU
+    tensors."""
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     _check_flash_shapes(q, k, v)

@@ -40,21 +40,27 @@ def make_train_state(
     return TrainState(step=0, params=params, opt_state=tx.init(partition_params(params, labels))), labels
 
 
+def trainable_grads(loss_fn: Callable, params: Any, labels: Any, batch: Dict[str, Any]):
+    """(loss, aux metrics, gradients): `loss_fn` at `params` and the
+    gradients of the leaves `labels` trains, in tree order. A leaf the
+    batch does not reach (the projector on text-only batches) has a zero
+    gradient, as under jax.grad."""
+    train = partition_params(params, labels)
+    loss, aux = loss_fn(params, batch)
+    grads = torch.autograd.grad(loss, train, allow_unused=True)
+    return loss, aux, [torch.zeros_like(p) if g is None else g for p, g in zip(train, grads)]
+
+
 def _make_step(loss_fn: Callable, tx: AdamW, labels: Any) -> Callable:
     """Generic step: (loss, aux metrics) -> gradients of the trainable
     leaves -> clip and AdamW in place. Metrics: the loss, the global norm
     of the gradients before the clip, and the aux metrics."""
 
     def step(state: TrainState, batch: Dict[str, Any]):
-        train = partition_params(state.params, labels)
-        loss, aux = loss_fn(state.params, batch)
-        grads = torch.autograd.grad(loss, train, allow_unused=True)
-        # A leaf the batch does not reach (the projector on text-only
-        # batches) has a zero gradient, as under jax.grad.
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(train, grads)]
+        loss, aux, grads = trainable_grads(loss_fn, state.params, labels, batch)
         metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads),
                    **{k: v.detach() for k, v in aux.items()}}
-        opt_state = tx.update(grads, state.opt_state, train)
+        opt_state = tx.update(grads, state.opt_state, partition_params(state.params, labels))
         return TrainState(step=state.step + 1, params=state.params, opt_state=opt_state), metrics
 
     return step
@@ -86,12 +92,18 @@ _STAGE2_KEYS = (
 STAGE2_AUX = ("ce_loss", "mask_bce_loss", "mask_dice_loss", "bbox_loss")
 
 
-def make_stage2_step(cfg: ullava.UllavaConfig, tx: AdamW, labels: Any) -> Callable:
-    """Batch keys: `_STAGE2_KEYS` (missing ones are left out). Metrics add
+def stage2_loss(cfg: ullava.UllavaConfig) -> Callable:
+    """The stage-2 loss (params, batch) -> (loss, aux metrics). Batch
+    keys: `_STAGE2_KEYS` (missing ones are left out); the aux metrics are
     the weighted CE, mask BCE, mask dice and box losses."""
 
     def loss_fn(params, batch):
         out = ullava.forward(params, cfg, **{k: batch[k] for k in _STAGE2_KEYS if k in batch})
         return out["loss"], {k: out[k] for k in STAGE2_AUX}
 
-    return _make_step(loss_fn, tx, labels)
+    return loss_fn
+
+
+def make_stage2_step(cfg: ullava.UllavaConfig, tx: AdamW, labels: Any) -> Callable:
+    """The step over `stage2_loss`: its metrics add the aux losses."""
+    return _make_step(stage2_loss(cfg), tx, labels)
