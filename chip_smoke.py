@@ -24,8 +24,11 @@ Phases, each fatal on any error:
                PyTorch library call computing the same function (L2
                flushed before each timed call); a mutated run of each
                kernel must fail the same gate (for the training path's
-               four, the weight-only, the int8 score forms, the packed
-               and the two uncalled kernels, also a copy of the source rebuilt with a
+               four, the weight-only, the int8 score forms, the two
+               global attention kernels on the wgmma + TMA core (K11 in
+               its four forms, K20, each beside K4 on the old core and
+               with its SASS counts), the packed and the two uncalled
+               kernels, also a copy of the source rebuilt with a
                deliberate bug);
      mlp_v2  - the chunk-pipelined W8A8 MLP (`fused_mlp_block_v2`)
                against its plain version at the int8 SAM encoder's shape,
@@ -413,6 +416,26 @@ def global_sdpa_inputs(y, a, bb):
     return y5, mask
 
 
+def k4_witness_ms(qkv, a, bb, W, scale, exp_bf16, iters=5) -> float:
+    """K4 (`fused_global_attention`, on the `mma.sync` core of
+    `flash_core.cuh`) on q, k, v [3, N, S, hd] and raw bias terms
+    [N, S, W]: the old core's time in the same run, beside the global
+    core's (K11 and K20 ran on that core before they moved to the global one)."""
+    from ullava_tpu_torch.ops import sam_attention
+
+    return time_ms(lambda: sam_attention.fused_global_attention(
+        qkv[0], qkv[1], qkv[2], a, bb, W, scale, exp_bf16=exp_bf16), iters)
+
+
+def global_core_sass(source) -> dict:
+    """The SASS counts of the global core's kernels in `source`'s library;
+    each entry must hold wgmma (`HGMMA`) and TMA loads (`UTMALDG`)."""
+    counts = sass_counts(source, "global_sm90_kernel")
+    if counts != "not measured":
+        must(f"{source} global core SASS", counts["HGMMA"] > 0 and counts["UTMALDG"] > 0, counts)
+    return counts
+
+
 def int8_gate(got, ref):
     """(passes, share of int8 values that agree exactly, largest
     difference): at least 99.9% exact and the rest within 1."""
@@ -656,6 +679,7 @@ def sam_int8_kernel_phases(gen) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from ullava_tpu_torch import kernels
     from ullava_tpu_torch.ops import mlp_kernel, quant, sam_attention
 
     dev, bf = "cuda", torch.bfloat16
@@ -822,26 +846,40 @@ def sam_int8_kernel_phases(gen) -> dict:
             "bias_swapped": row_rel_err(sam_attention.fused_global_attention_y(
                 y, bb, a, **kw, exp_bf16=exp_bf16), ref),
         }
+        for bug, src_define in GLOBAL_Y_MUTANTS.items():
+            with kernels.mutant(*src_define):
+                caught[bug] = row_rel_err(run(), ref)
         for m, e in caught.items():
             must_not(f"fused_global_attention_y {name}", m, e <= lim, e)
+        flops = 4.0 * B_INT8 * H * S * S * hd
+        ms = time_ms(run, 5)
         att[name] = {"row_rel_err": err, "tol": lim, "mutant_row_rel_err": caught,
                      "max_abs_err": (got.float() - ref.float()).abs().max().item(),
-                     "ms": time_ms(run, 5)}
+                     "ms": ms, "tflops": flops / ms / 1e9}
         del got, ref
     del zero
     y5, mask = global_sdpa_inputs(y, a, bb)
     line = kernel_line(
         "fused_global_attention_y", att["exp_bf16"]["max_abs_err"],
-        {k: v for k, v in att["exp_bf16"].items() if k not in ("ms", "max_abs_err")},
+        {k: v for k, v in att["exp_bf16"].items() if k not in ("ms", "max_abs_err", "tflops")},
         lambda: sam_attention.fused_global_attention_y(y, a, bb, **kw, exp_bf16=True),
         lambda: sam_attention.fused_global_attention_y_plain(y, a, bb, **kw, exp_bf16=True),
         lambda: F.scaled_dot_product_attention(y5[0], y5[1], y5[2], attn_mask=mask, scale=sc),
-        nbytes(y, a, bb) + nbytes(y) // 3, 4.0 * B_INT8 * H * S * S * hd, iters=5)
+        nbytes(y, a, bb) + nbytes(y) // 3, flops, iters=5)
+    line["tflops"] = flops / line["ms"] / 1e9
     line["exp_fp32_form"] = att["exp_fp32"]
     line["shape"] = [B_INT8, S, 3 * H * hd]
+    line["sass"] = global_core_sass("sam_global_attention_y.cu")
+    # The old core on the same q, k, v, its raw terms the pre-scaled ones
+    # times the scale (the same function).
+    qkv = y5.reshape(3, B_INT8 * H, S, hd)
+    a4, b4 = ((t.float() * sc).to(bf).permute(0, 2, 1, 3).reshape(B_INT8 * H, S, W).contiguous()
+              for t in (a, bb))
+    line["old_core_k4_ms"] = k4_witness_ms(qkv, a4, b4, W, sc, True)
+    line["exp_fp32_form"]["old_core_k4_ms"] = k4_witness_ms(qkv, a4, b4, W, sc, False)
     results["fused_global_attention_y"] = line
     log(f"[kernel] fused_global_attention_y exp_fp32 {json.dumps(att['exp_fp32'])}")
-    del y5, mask, y, a, bb
+    del y5, mask, y, a, bb, qkv, a4, b4
     torch.cuda.empty_cache()
     return results
 
@@ -1275,10 +1313,19 @@ def resident_kernel_phases(gen, results: dict) -> None:
 # key of a K tile is dequantized with the tile's first key's scale.
 I8_MUTANTS = {src: (src, "ULLAVA_MUTANT_I8_TILE_SCALE") for src in (
     "sam_window_attention.cu", "sam_global_attention_y.cu", "sam_rect_attention.cu")}
-# The kernel forms the all-int8 serve adds.
-I8_NAMES = ("fused_window_attention_grid_i8", "fused_global_attention_y_i8",
-            "fused_window_attention_rect_i8", "flash_attention_fwd_bsh_hd64")
+# The kernel forms the all-int8 serve adds (K11's int8 form as its
+# pre-pass and its core).
+I8_NAMES = ("fused_window_attention_grid_i8", "global_attention_y_quant_i8",
+            "fused_global_attention_y_i8", "fused_window_attention_rect_i8",
+            "flash_attention_fwd_bsh_hd64")
 CLIP_TOKENS, CLIP_PADDED = 257, 264  # CLIP ViT-L/14's sequence, padded to a multiple of 8
+
+
+# The deliberate bug of the global core (`global_sm90.cuh`) that only its
+# 128-key tiles can hide: a tile spans two rows of the 64 x 64 key grid,
+# and the copy takes the first row's A term for both.
+GLOBAL_Y_MUTANTS = {
+    "a_term_one_grid_row": ("sam_global_attention_y.cu", "ULLAVA_MUTANT_GLOBAL_A_ONE_ROW")}
 
 
 def all_int8_kernel_phases(gen, results: dict) -> None:
@@ -1296,8 +1343,11 @@ def all_int8_kernel_phases(gen, results: dict) -> None:
     query rows (both sides quantize with the same arithmetic; only the
     order of fp32 operations differs), 2e-2 for the bf16 exponentials.
     Each gate must reject mutated runs: the kernel source rebuilt to use
-    one key scale for a whole K tile (`I8_MUTANTS`), the bias terms
-    swapped, the pad value dropped, K2's kv_lens ignored. Bounds: qk at
+    one key scale for a whole K tile (`I8_MUTANTS`), K11's also with the
+    A term of a 128-key tile's first grid row used for both halves
+    (`GLOBAL_Y_MUTANTS`), the bias terms swapped, the pad value dropped,
+    K2's kv_lens ignored. K11's pre-pass is held bit for bit and must see
+    the bias terms swapped. Bounds: qk at
     the int8 peak and P V at the bf16 peak, or the bytes. The library
     yardsticks: SDPA with the bias materialised as a mask (bf16 scores),
     and for K2 SDPA with a key-padding mask."""
@@ -1360,42 +1410,70 @@ def all_int8_kernel_phases(gen, results: dict) -> None:
         k: v for k, v in forms["total_rows"].items() if k not in ("name", "route", "source", "replaces")}}
 
     # K11: one global block, both exponential forms; the kernels line
-    # carries the serving form (bf16 exponentials, `mlp_w8a8`).
+    # carries the serving form (bf16 exponentials, `mlp_w8a8`). Its time is
+    # the pre-pass's and the core's; the pre-pass has a line of its own.
     name, src, Wg = "fused_global_attention_y_i8", "sam_global_attention_y.cu", 64
     S = Wg * Wg
     y = randn(B_INT8, S, F1)
     a, bb = (randn(B_INT8, S, H, Wg, scale=2.0 / sc) for _ in range(2))
     gkw = dict(num_heads=H, head_dim=hd, window=Wg, scale=sc, dots_i8=True)
+    flops = 4.0 * B_INT8 * H * S * S * hd
     att = {}
     for exp_bf16 in (True, False):
         run = lambda a_=a, b_=bb, e=exp_bf16: sam_attention.fused_global_attention_y(  # noqa: E731
             y, a_, b_, **gkw, exp_bf16=e)
         got = run()
         ref = sam_attention.fused_global_attention_y_plain(y, a, bb, **gkw, exp_bf16=exp_bf16)
-        with kernels.mutant(*I8_MUTANTS[src]):
-            tile_scale = run()
+        bugs = {}
+        for bug, src_define in (("one_key_scale_a_tile", I8_MUTANTS[src]),
+                                *GLOBAL_Y_MUTANTS.items()):
+            with kernels.mutant(*src_define):
+                bugs[bug] = run()
         torch.cuda.synchronize()
         form = "exp_bf16" if exp_bf16 else "exp_fp32"
-        att[form] = gate(f"{name} {form}", got, ref,
-                         {"one_key_scale_a_tile": tile_scale, "bias_swapped": run(bb, a)},
+        att[form] = gate(f"{name} {form}", got, ref, {**bugs, "bias_swapped": run(bb, a)},
                          lim=2e-2 if exp_bf16 else tol)
         att[form]["max_abs_err"] = max_abs(got, ref)
         att[form]["ms"] = time_ms(run, 5)
-        del got, ref, tile_scale
+        att[form]["tflops"] = flops / att[form]["ms"] / 1e9
+        del got, ref, bugs
+    # The pre-pass alone: codes, scales and the [A | B] codes bit for bit.
+    pre, pre_name = sam_attention.global_y_quant_i8(y, a, bb, H, hd), "global_attention_y_quant_i8"
+    pre_ref = sam_attention.global_y_quant_i8_plain(y, a, bb, H, hd)
+    exact = [bool(torch.equal(g, r)) for g, r in zip(pre, pre_ref)]
+    must(pre_name, all(exact), exact)
+    swapped = sam_attention.global_y_quant_i8(y, bb, a, H, hd)
+    caught = not (torch.equal(swapped[2], pre_ref[2]) and torch.equal(swapped[3], pre_ref[3]))
+    must_not(pre_name, "bias_swapped", not caught, caught)
+    pre_io = nbytes(y) * 2 // 3 + nbytes(a, bb, *pre)
+    results[pre_name] = kernel_line(
+        pre_name, max(float((g.float() - r.float()).abs().max()) for g, r in zip(pre, pre_ref)),
+        {"bit_equal": exact, "mutant_bit_equal": {"bias_swapped": not caught}},
+        lambda: sam_attention.global_y_quant_i8(y, a, bb, H, hd),
+        lambda: sam_attention.global_y_quant_i8_plain(y, a, bb, H, hd), None, pre_io, 0.0,
+        iters=10)
+    results[pre_name]["shape"] = [B_INT8, S, F1]
+    del pre, pre_ref, swapped
     y5, mask = global_sdpa_inputs(y, a, bb)
-    flops = 4.0 * B_INT8 * H * S * S * hd
     line = kernel_line(
         name, att["exp_bf16"].pop("max_abs_err"),
-        {k: v for k, v in att["exp_bf16"].items() if k != "ms"},
+        {k: v for k, v in att["exp_bf16"].items() if k not in ("ms", "tflops")},
         lambda: sam_attention.fused_global_attention_y(y, a, bb, **gkw, exp_bf16=True),
         lambda: sam_attention.fused_global_attention_y_plain(y, a, bb, **gkw, exp_bf16=True),
         lambda: F.scaled_dot_product_attention(y5[0], y5[1], y5[2], attn_mask=mask, scale=sc),
         nbytes(y, a, bb) + nbytes(y) // 3, flops, iters=5,
         bound=bound_i8_ms(nbytes(y, a, bb) + nbytes(y) // 3, flops))
+    line["tflops"] = flops / line["ms"] / 1e9
+    line["pre_pass_ms"] = results[pre_name]["ms"]
     line["exp_fp32_form"] = att["exp_fp32"]
     line["shape"] = [B_INT8, S, F1]
+    line["sass"] = global_core_sass(src)
+    qkv = y5.reshape(3, B_INT8 * H, S, hd)
+    a4, b4 = ((t.float() * sc).to(bf).permute(0, 2, 1, 3).reshape(B_INT8 * H, S, Wg).contiguous()
+              for t in (a, bb))
+    line["old_core_k4_ms"] = k4_witness_ms(qkv, a4, b4, Wg, sc, True)
     results[name] = line
-    del y5, mask, y, a, bb
+    del y5, mask, y, a, bb, qkv, a4, b4
     torch.cuda.empty_cache()
 
     # K14: the right and bottom classes in one dual-geometry launch, and
@@ -1821,6 +1899,7 @@ def train_kernel_phases(gen, results: dict) -> None:
 PACKED_MUTANTS = {
     "bias_read_prescaled": ("sam_packed_attention.cu", "ULLAVA_MUTANT_PACKED_BIAS_PRESCALED"),
     "k_one_head_over": ("sam_packed_attention.cu", "ULLAVA_MUTANT_PACKED_HEAD_OFFSET"),
+    "a_term_one_grid_row": ("sam_packed_attention.cu", "ULLAVA_MUTANT_GLOBAL_A_ONE_ROW"),
     "quad_max_dropped": ("sam_packed_attention.cu", "ULLAVA_MUTANT_WINDOW_NO_QUAD_MAX"),
     "bias_not_prescaled": ("sam_global_attention.cu", "ULLAVA_MUTANT_WINDOW_BIAS_RAW"),
     "kv_lens_ignored": ("decode_attention_int8.cu", "ULLAVA_MUTANT_DECODE_NO_KV_LENS"),
@@ -1861,8 +1940,11 @@ def packed_kernel_phases(gen, results: dict) -> None:
     their TPU kernels and the plain versions do (K19 in `window_whole.cuh`,
     the per-(window, head) kernel in `window_norm_first.cuh`).
     Each gate must reject the source rebuilt with a
-    deliberate bug (`PACKED_MUTANTS`) and a mutated input (bias terms
-    swapped; for the decode kernel the key and value scales swapped).
+    deliberate bug (`PACKED_MUTANTS`; the global form's A term of a
+    128-key tile's first grid row for both halves too) and a mutated
+    input (bias terms swapped; for the decode kernel the key and value
+    scales swapped). The packed global kernel's line gives K4's time on
+    the same q, k, v (the old core) and the global core's SASS counts.
     Bounds: the packed kernels' products over all 128 lanes (the function
     contracts them; the 80 real lanes' bound is reported beside), the
     window kernel's and the decode kernel's bytes (the decode kernel's
@@ -1913,7 +1995,8 @@ def packed_kernel_phases(gen, results: dict) -> None:
         plain = lambda y=y, a=a, bb=bb, f=plain_fn, Wn=Wn: f(y, a, bb, H, hp, Wn, sc)  # noqa: E731
         got, ref = run(), plain()
         bugs = ("bias_read_prescaled", "k_one_head_over") + (
-            ("quad_max_dropped",) if name == "fused_window_attention_packed" else ())
+            ("quad_max_dropped",) if name == "fused_window_attention_packed" else
+            ("a_term_one_grid_row",))
         info = gate(name, got, ref, {**mutated(run, *bugs), "bias_swapped": run(bb, a)})
         info["pad_lanes_zero"] = bool(torch.all(got.reshape(N, S, H, hp)[..., hd:] == 0))
         must(name, info["pad_lanes_zero"], "pad lanes of the output are not zero")
@@ -1930,6 +2013,13 @@ def packed_kernel_phases(gen, results: dict) -> None:
         line["tflops_128_lanes"] = flops / line["ms"] / 1e9
         if name == "fused_window_attention_packed":
             line["sass"] = sass_counts("sam_packed_attention.cu", "window_whole_kernel")
+        else:
+            line["sass"] = global_core_sass("sam_packed_attention.cu")
+            # The old core on the 80 real lanes of the same q, k, v.
+            qkv = y5[..., :hd].reshape(3, N * H, S, hd).contiguous()
+            line["old_core_k4_ms"] = k4_witness_ms(
+                qkv, a.reshape(N * H, S, Wn), bb.reshape(N * H, S, Wn), Wn, sc, False)
+            del qkv
         results[name] = line
         del y, a, bb, got, ref, y5, mask
         torch.cuda.empty_cache()
@@ -1995,14 +2085,15 @@ def packed_kernel_phases(gen, results: dict) -> None:
 def full_config():
     """LLaMA-7B + CLIP ViT-L/14 + SAM ViT-H in bf16 at full width; the
     vocabulary is LLaMA's 32000 + [PAD] + 6 multimodal + 4 stage-2 tokens.
-    The SAM encoder's window layout is the default one (resident)."""
+    The SAM encoder's window layout is the default one (resident), and the
+    LLM's attention the default "auto" (flash on the card)."""
     import torch
 
     from ullava_tpu_torch.models import clip_vit, llama, ullava, ullava_core
     from ullava_tpu_torch.models.sam import build as sam_build
 
     core = ullava_core.UllavaCoreConfig(
-        llm=llama.LlamaConfig(vocab_size=32011, attn_impl="flash"),
+        llm=llama.LlamaConfig(vocab_size=32011),
         vision=clip_vit.CLIPVisionConfig(),
         vision_hidden_layer=-2, img_start_id=32001, img_end_id=32002,
     )
@@ -2079,7 +2170,8 @@ SAM_RESIDENT_LAUNCHES = {**SAM_INT8_LAUNCHES, "fused_ln_linear_dual": 28 * 3,
 ALL_INT8_LAUNCHES = {**SAM_RESIDENT_LAUNCHES, "fused_window_attention_grid": 0,
                      "fused_window_attention_rect": 0, "fused_global_attention_y": 0,
                      "fused_window_attention_grid_i8": 28, "fused_window_attention_rect_i8": 28 * 2,
-                     "fused_global_attention_y_i8": 4, "flash_attention_fwd_bsh_hd64": 23}
+                     "global_attention_y_quant_i8": 4, "fused_global_attention_y_i8": 4,
+                     "flash_attention_fwd_bsh_hd64": 23}
 # The bf16 serve with its SAM image encoder packed (`pack_sam_attention`):
 # the packed window kernel in the 28 window blocks (block layout), the
 # packed global kernel in the 4 global blocks, the unpacked forms never.
@@ -2603,7 +2695,7 @@ def check_phase(gen) -> None:
     rng = np.random.default_rng(1)
     errs = {}
     lcfg = llama.LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
-                             num_layers=2, num_heads=2, num_kv_heads=2)
+                             num_layers=2, num_heads=2, num_kv_heads=2, attn_impl="flash")
     lp = llama.init_params(lcfg, gen, "cuda")
     ids = torch.as_tensor(rng.integers(0, 512, size=(2, 200)))
     lens = torch.tensor([200, 131], dtype=torch.int32)
@@ -2755,7 +2847,8 @@ def check_phase(gen) -> None:
             cpu_copy(cp), dataclasses.replace(ccfg, dtype=torch.float32), cimg)["hidden_states"]
     if ran != {"fused_ln_linear_dual": 3, "fused_window_attention_grid_i8": 1,
                "fused_window_attention_rect_i8": 2, "fused_ln_linear": 5,
-               "fused_global_attention_y_i8": 1, "fused_mlp_block": 3,
+               "global_attention_y_quant_i8": 1, "fused_global_attention_y_i8": 1,
+               "fused_mlp_block": 3,
                "flash_attention_fwd_bsh_hd64": 2}:
         raise AssertionError(f"the small all-int8 towers launched {ran}")
     errs["all_int8_sam_image_embeddings"] = rel_err(emb, emb_ref)
@@ -2792,7 +2885,8 @@ def check_stage1(gen, errs: dict) -> None:
 
     cfg = ullava_core.UllavaCoreConfig(
         llm=llama.LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
-                              num_layers=2, num_heads=2, num_kv_heads=2, remat=True),
+                              num_layers=2, num_heads=2, num_kv_heads=2, remat=True,
+                              attn_impl="flash"),
         vision=clip_vit.CLIPVisionConfig.tiny(dtype=torch.bfloat16),
         img_start_id=500, img_end_id=501, vid_start_id=502, vid_end_id=503,
     )
@@ -2947,7 +3041,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = kernels.build_all(verbose=True, mutants=[
         *TRAIN_MUTANTS.values(), K15_MASK_MUTANT, *WQ_MUTANTS.values(), *I8_MUTANTS.values(),
-        *PACKED_MUTANTS.values(), *V2_MUTANTS.values()])
+        *PACKED_MUTANTS.values(), *V2_MUTANTS.values(), *GLOBAL_Y_MUTANTS.values()])
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "sources": sorted(built)}), flush=True)
 

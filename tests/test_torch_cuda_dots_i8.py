@@ -69,18 +69,36 @@ def test_cuda_window_attention_dots_i8_matches_plain(cuda, S):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("exp_bf16", [True, False], ids=["exp_bf16", "exp_fp32"])
-def test_cuda_global_attention_y_dots_i8_matches_plain(cuda, exp_bf16):
-    B, H, W = 1, 2, 64
+@pytest.mark.parametrize("B,H", [(1, 2), (1, 16), (3, 6)], ids=["b1", "b1_h16", "b3_h6_group_tail"])
+def test_cuda_global_attention_y_dots_i8_matches_plain(cuda, exp_bf16, B, H):
+    W = 64
     y = _rand(cuda, B, W * W, 3 * H * _HD)
     a, bb = (_rand(cuda, B, W * W, H, W, scale=2.0 / _KW["scale"]) for _ in range(2))
     kw = dict(num_heads=H, head_dim=_HD, window=W, scale=_KW["scale"], exp_bf16=exp_bf16,
               dots_i8=True)
+    pre = kernels.launch_counts()["global_attention_y_quant_i8"]
     got = _launches("fused_global_attention_y_i8",
                     lambda: sam_attention.fused_global_attention_y(y, a, bb, **kw))
+    assert kernels.launch_counts()["global_attention_y_quant_i8"] == pre + 1
     ref = sam_attention.fused_global_attention_y_plain(y, a, bb, **kw)
     tol = 2e-2 if exp_bf16 else _TOL
     assert _row_rel_err(got, ref) <= tol
     assert _row_rel_err(sam_attention.fused_global_attention_y(y, bb, a, **kw), ref) > tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H", [(1, 16), (3, 6)], ids=["b1", "b3_h6"])
+def test_cuda_global_y_quant_i8_matches_plain(cuda, B, H):
+    """The pre-pass of the global int8 form, bit for bit: codes, scales and
+    the [A | B] codes as the plain `_row_quant` arithmetic gives them."""
+    W = 64
+    y = _rand(cuda, B, W * W, 3 * H * _HD)
+    a, bb = (_rand(cuda, B, W * W, H, W, scale=2.0 / _KW["scale"]) for _ in range(2))
+    got = _launches("global_attention_y_quant_i8",
+                    lambda: sam_attention.global_y_quant_i8(y, a, bb, H, _HD))
+    ref = sam_attention.global_y_quant_i8_plain(y, a, bb, H, _HD)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
 
 
 @pytest.mark.cuda

@@ -55,8 +55,8 @@ def _packed_y(gen, N, W):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("W,N", [(14, 12), (14, 100), (64, 1)],
-                         ids=["window", "window_n100", "global"])
+@pytest.mark.parametrize("W,N", [(14, 12), (14, 100), (64, 1), (64, 3)],
+                         ids=["window", "window_n100", "global", "global_b3"])
 def test_cuda_packed_attention_matches_plain(cuda, W, N):
     y = _packed_y(cuda, N, W)
     a, b = (_rand(cuda, N, _H, W * W, W, scale=2.0) for _ in range(2))

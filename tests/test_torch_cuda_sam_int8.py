@@ -112,8 +112,9 @@ def test_cuda_fused_mlp_block_matches_plain(cuda, f_chunk):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("exp_bf16", [False, True])
-def test_cuda_fused_global_attention_y_matches_plain(cuda, exp_bf16):
-    B, H, hd, W = 1, 16, 80, 64
+@pytest.mark.parametrize("B,H", [(1, 16), (3, 16), (3, 6)], ids=["b1", "b3", "b3_h6_group_tail"])
+def test_cuda_fused_global_attention_y_matches_plain(cuda, exp_bf16, B, H):
+    hd, W = 80, 64
     S, sc = W * W, 80**-0.5
     y = _rand(cuda, B, S, 3 * H * hd)
     a = _rand(cuda, B, S, H, W, scale=2.0 / sc)

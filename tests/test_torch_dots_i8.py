@@ -1,5 +1,6 @@
 """Parity of the port's all-int8 serving configuration with the JAX package
-on the CPU: the int8 score form (`dots_i8`) of the window kernel, the flash
+on the CPU: the int8 score form (`dots_i8`) of the window kernel and the
+pre-pass of the global one (bit for bit against `_rq_rows`), the flash
 forward at head_dim 64 (the CLIP tower's), the SAM encoder with
 `attn_dots_i8` in both window layouts, and `evaluate` with every int8 knob
 on (`attn_dots_i8`, CLIP `a8` and `attn_impl="flash"`). The same numpy
@@ -50,6 +51,34 @@ def _close_i8(got, ref, rows=slice(None)):
     err, top = np.abs(got - ref), np.abs(ref).max()
     assert err.max() <= I8 * top, (err.max(), top)
     return err.max() / top
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+def test_global_y_quant_i8_plain_matches_jax_rq_rows_bit_for_bit(dtype):
+    """The pre-pass of K11's int8 form (`global_y_quant_i8_plain`, every
+    row quantized once) against the TPU kernel's `_rq_rows` on each
+    head's q and k rows and each row's [A | B] (`ullava_tpu/ops/
+    sam_attention.py:596-604`): codes, scales and the code pads, exact."""
+    rng = np.random.default_rng(7)
+    B, S, H, hd, W = 2, 64, 3, 80, 8
+    y = rng.standard_normal((B, S, 3 * H * hd)).astype(np.float32)
+    a, b = (20.0 * rng.standard_normal((B, S, H, W)).astype(np.float32) for _ in range(2))
+    a[0, 0] = 0.0  # an all-zero row: the 1e-12 floor
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bf16" else (jnp.float32, torch.float32)
+    jy, ja, jb = (jnp.asarray(t, jdt) for t in (y, a, b))
+    ty, ta, tb = (torch.from_numpy(np.array(t.astype(jnp.float32))).to(tdt) for t in (jy, ja, jb))
+    codes, scales, ac, bc, abss = sam_attention.global_y_quant_i8_plain(ty, ta, tb, H, hd)
+    for sec in range(2):
+        for h in range(H):
+            q, s = jsam._rq_rows(jy[:, :, (sec * H + h) * hd:(sec * H + h + 1) * hd])
+            np.testing.assert_array_equal(codes[sec, :, h, :, :hd].numpy(), np.asarray(q))
+            np.testing.assert_array_equal(scales[sec, :, h].numpy(), np.asarray(s)[..., 0])
+    assert not codes[..., hd:].any()
+    q, s = jsam._rq_rows(jnp.concatenate([ja, jb], axis=-1))
+    np.testing.assert_array_equal(ac.float().numpy(), np.asarray(q[..., :W], np.float32))
+    np.testing.assert_array_equal(bc.float().numpy(), np.asarray(q[..., W:], np.float32))
+    np.testing.assert_array_equal(abss.numpy(), np.asarray(s)[..., 0].transpose(0, 2, 1))
+    assert ac.dtype == tdt
 
 
 @pytest.mark.parametrize("total_rows", [0, 200], ids=["block_196", "padded_200"])

@@ -3,10 +3,14 @@ JAX package, at tiny fp32 sizes from one seed (weights copied through
 `bridge.params_from_jax`, inputs drawn with numpy).
 
 The port's prefill runs its serving path (fused rotary + the flash
-wrapper, plain versions on the CPU); the JAX side runs its reference path.
+wrapper, plain versions on the CPU; the tiny config's `attn_impl="flash"`),
+and again with the default "auto" (the plain path on the CPU); the JAX
+side runs its reference path.
 The second half holds the int8 serving path (int8 weights, W8A8 prefill,
 int8 KV cache) to the JAX package on the same quantized tree.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -35,8 +39,17 @@ def _close(got, ref, atol=ATOL, rtol=RTOL):
 
 
 def test_prefill_and_decode_steps_match_jax():
+    _prefill_and_decode_steps("flash")
+
+
+def test_prefill_and_decode_steps_match_jax_auto():
+    """The default `attn_impl="auto"`: the plain path on the CPU."""
+    _prefill_and_decode_steps("auto")
+
+
+def _prefill_and_decode_steps(attn_impl):
     jcfg = jllama.LlamaConfig.tiny()
-    cfg = llama.LlamaConfig.tiny()
+    cfg = llama.LlamaConfig.tiny(attn_impl=attn_impl)
     jparams = random_params(jllama.init_params, jcfg, seed=0)
     params = params_from_jax(jparams, device="cpu")
 
@@ -88,8 +101,17 @@ def _prompts(cfg, rng, lens):
 
 
 def test_generate_matches_jax_greedy():
+    _generate_greedy("flash")
+
+
+def test_generate_matches_jax_greedy_auto():
+    _generate_greedy("auto")
+
+
+def _generate_greedy(attn_impl):
     jcfg = jcore.UllavaCoreConfig.tiny()
     cfg = ullava_core.UllavaCoreConfig.tiny()
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, attn_impl=attn_impl))
     jparams = random_params(jcore.init_params, jcfg, seed=1)
     params = params_from_jax(jparams, device="cpu")
 

@@ -31,12 +31,22 @@ def _close(got, ref, atol=ATOL, rtol=RTOL):
 
 
 def test_evaluate_matches_jax_and_serve():
+    _evaluate_and_serve("flash")
+
+
+def test_evaluate_matches_jax_and_serve_auto():
+    """The LLM at the default `attn_impl="auto"`: the plain path on the CPU."""
+    _evaluate_and_serve("auto")
+
+
+def _evaluate_and_serve(attn_impl):
     jcfg = jullava.UllavaConfig.tiny()
     jcfg = dataclasses.replace(jcfg, sam=dataclasses.replace(jcfg.sam, vision=dataclasses.replace(
         jcfg.sam.vision, attn_kernel="pallas_interpret", window_layout="block")))
     cfg = ullava.UllavaConfig.tiny()
     cfg = dataclasses.replace(cfg, sam=dataclasses.replace(cfg.sam, vision=dataclasses.replace(
-        cfg.sam.vision, window_layout="block")))
+        cfg.sam.vision, window_layout="block")), core=dataclasses.replace(
+        cfg.core, llm=dataclasses.replace(cfg.core.llm, attn_impl=attn_impl)))
     jparams = random_params(jullava.init_params, jcfg, seed=0)
     params = params_from_jax(jparams, device="cpu")
     batch = _batch(cfg, np.random.default_rng(0), [12, 10])

@@ -165,17 +165,23 @@ KERNELS: Dict[str, KernelSpec] = {
             (P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, F, I, P),
             "ullava_tpu/ops/mlp_kernel.py:157",
         ),
-        # The int8 score forms (`dots_i8`) of K3, K11 and K14: the shared
-        # core's DOTS_I8 (int8 qk and bias codes, bf16 P V; bound and
-        # design in each source's header), and K2 at head_dim 64 (CLIP).
+        # The int8 score forms (`dots_i8`) of K3, K11 and K14: int8 qk and
+        # bias codes, bf16 P V (bound and design in each source's header);
+        # K11's runs on the global core after a pre-pass that quantizes
+        # each row once (`_rq_rows`). And K2 at head_dim 64 (CLIP).
         KernelSpec(
             "fused_window_attention_grid_i8", "sam_window_attention.cu",
             "ullava_fused_window_attention_grid_i8", (P, P, P, P, I, I, I, F, P),
             "ullava_tpu/ops/sam_attention.py:181",
         ),
         KernelSpec(
+            "global_attention_y_quant_i8", "sam_global_attention_y.cu",
+            "ullava_global_attention_y_quant_i8", (P, P, P, P, P, P, P, P, I, I, P),
+            "ullava_tpu/ops/sam_attention.py:552",
+        ),
+        KernelSpec(
             "fused_global_attention_y_i8", "sam_global_attention_y.cu",
-            "ullava_fused_global_attention_y_i8", (P, P, P, P, I, I, F, I, P),
+            "ullava_fused_global_attention_y_i8", (P, P, P, P, P, P, P, I, I, F, I, P),
             "ullava_tpu/ops/sam_attention.py:652",
         ),
         KernelSpec(

@@ -66,30 +66,13 @@
 // `chip_smoke.py` builds, to show that the int8 forms' gate catches it.
 // With DOTS_I8 off the kernel is the bf16 form, unchanged.
 //
-// A problem type that declares `static constexpr bool kBiasAfterScale =
-// true` (the packed SAM kernels) takes its bias terms raw and adds them
-// AFTER the scale, s = q.k * scale + A + B, as the TPU's packed kernels
-// do (`_packed_window_kernel`); the tables are staged as read (bf16
-// values, so without rounding). Problem types that do not declare it add
-// the bias before the scale as above, and compile to the same code as
-// before the trait existed.
-//
 // Not yet: TMA, wgmma, warp specialisation, or packing the 4-row tail of
 // a 196-row window with other windows' rows.
 #pragma once
 
-#include <type_traits>
-
 #include "common.cuh"
 
 namespace ullava {
-
-// P::kBiasAfterScale where P declares it, else false.
-template <class P, class = void>
-struct bias_after_scale : std::false_type {};
-template <class P>
-struct bias_after_scale<P, std::void_t<decltype(P::kBiasAfterScale)>>
-    : std::bool_constant<P::kBiasAfterScale> {};
 
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
@@ -241,8 +224,6 @@ template <int HD, int WB, class P, bool EXPBF16 = false, bool DOTS_I8 = false>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const P p) {
   static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
   static_assert(!DOTS_I8 || (WB > 0 && kThreads == 2 * kBQ), "DOTS_I8 is the SAM kernels' form");
-  constexpr bool AFTER = bias_after_scale<P>::value;  // s = q.k * scale + A + B
-  static_assert(!AFTER || (WB > 0 && !DOTS_I8), "bias after the scale: bf16 SAM forms only");
   constexpr int LD = HD + 8;  // shared-memory row stride (bf16)
   constexpr int KD = HD / 16;  // k-steps of Q K^T
   constexpr int KD8 = i8_depth<HD>() / 32;  // k-steps of the int8 Q K^T
@@ -469,16 +450,6 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const P p) {
                 x = __fadd_rn(__fadd_rn(sPqk[lr], __bfloat162float(sRA[lr * WBS + t / WBS])),
                               __bfloat162float(sRB[lr * WBS + t % WBS]));
             }
-          } else if constexpr (AFTER) {  // q.k * scale + A + B, in base-2 units
-            const int lr = lrow0 + r * 8;
-            const int tb = ok ? t : 0;  // keep masked keys' table reads in bounds
-            const float ta = WB == kBK ? a_tile[r] : __bfloat162float(sBA[lr * WBS + tb / WBS]);
-            const float bias = ta + __bfloat162float(sBB[lr * WBS + tb % WBS]);
-#ifdef ULLAVA_MUTANT_PACKED_BIAS_PRESCALED
-            x = (x + bias) * sl2;  // the bias read as if pre-scaled by 1/scale
-#else
-            x = x * sl2 + bias * (EXPBF16 ? 1.f : kLog2e);  // the bias in the scores' units
-#endif
           } else if constexpr (WB == kBK) {  // the tile is one key row a = k0 / W
             x += a_tile[r] + __bfloat162float(sBB[(lrow0 + r * 8) * WB + (t - k0)]);
           } else if constexpr (WB > 0) {
@@ -487,7 +458,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const P p) {
             x += __bfloat162float(sBA[lr * WBS + tb / WBS]) +
                  __bfloat162float(sBB[lr * WBS + tb % WBS]);
           }
-          if constexpr (!AFTER) x *= sl2;
+          x *= sl2;
           s[j][e] = ok ? x : -INFINITY;
           mx[r] = fmaxf(mx[r], s[j][e]);
         }

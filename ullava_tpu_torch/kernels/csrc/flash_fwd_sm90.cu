@@ -39,7 +39,8 @@
 //     memory: Q and a ring of three K/V stages, one block an SM.
 //   - TMA: the tensor maps are built on the host (cuTensorMapEncodeTiled,
 //     reached through cudaGetDriverEntryPoint, so the library needs no
-//     -lcuda) over the 4-D view {d, head, row, batch}, passed as
+//     -lcuda; the encoder, the mbarrier, TMA and wgmma helpers are
+//     sm90.cuh's) over the 4-D view {d, head, row, batch}, passed as
 //     __grid_constant__ parameters. A 128-row tile is two 64-column boxes
 //     with the 128-byte swizzle that wgmma reads; rows past S come in as
 //     zeros. K and V tiles of 128 keys have full barriers of their own (Q
@@ -64,9 +65,7 @@
 // with ULLAVA_MUTANT_CAUSAL_SHIFT the causal mask of a masked tile lets
 // each row see one key past its own: deliberate bugs that only
 // `chip_smoke.py` builds, to show that K15's gate catches them.
-#include <cuda.h>  // CUtensorMap and the driver's enums (types only)
-
-#include "common.cuh"
+#include "sm90.cuh"
 
 namespace ullava {
 namespace sm90 {
@@ -95,140 +94,6 @@ struct Params {
   int B, Sq, Sk, H, Hkv, q_offset, causal, n_mt;
   float sl2;  // scale * log2(e)
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Waits until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// One 4-D box {64 columns, 1 head, 128 rows, 1 batch} into shared memory,
-// completing on `bar`'s transaction count.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled tile whose 8-row
-// groups lie 1024 bytes apart (K-major operands: 8 rows of 64 bf16; the
-// transposed V operand: 8 keys of 64 bf16), starting at `addr`.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Waits until at most N committed groups of products are in flight.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous products.
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-#define ULLAVA_F8(d, i)                                                              \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),        \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d[64] (+)= A (64 x 16, shared) * B (16 x 128, shared, K-major); the sum
-// is overwritten when `accumulate` is 0.
-__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t db,
-                                         int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : ULLAVA_F8(d, 0), ULLAVA_F8(d, 8), ULLAVA_F8(d, 16), ULLAVA_F8(d, 24),
-        ULLAVA_F8(d, 32), ULLAVA_F8(d, 40), ULLAVA_F8(d, 48), ULLAVA_F8(d, 56)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[32] += A (64 x 16 from registers, bf16 pairs) * B (16 x 64, shared,
-// stored N-major: the transpose flag).
-__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : ULLAVA_F8(d, 0), ULLAVA_F8(d, 8), ULLAVA_F8(d, 16), ULLAVA_F8(d, 24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef ULLAVA_F8
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // One work item: a 128-row query tile of one (b, h), with its key limit
 // and the number of 128-key tiles it visits.
@@ -484,30 +349,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(ptr)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // The 4-D view {d, head, row, batch} of a [batch, rows, heads, 128] bf16
 // tensor, read in boxes of {64, 1, 128, 1} with the 128-byte swizzle.
 inline bool make_map(CUtensorMap* map, const void* ptr, int batch, int rows, int heads) {
@@ -516,11 +357,8 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int batch, int rows, int
   const cuuint64_t row_bytes = static_cast<cuuint64_t>(heads) * kHD * sizeof(bf16);
   const cuuint64_t strides[3] = {kHD * sizeof(bf16), row_bytes, row_bytes * rows};
   const cuuint32_t box[4] = {64, 1, 128, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace sm90

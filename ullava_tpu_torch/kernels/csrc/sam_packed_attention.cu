@@ -20,25 +20,29 @@
 //     of traffic (~0.09 ms): operations bound it. The kernel contracts all
 //     128 lanes; the pad lanes are zero only by the weights' construction.
 //
-// Design: one accessor over the layout, at HD = 128 (instance = image or
-// window, times head). It reads q/k/v rows in place at stride 3*H*hp and
-// writes the output at stride H*hp, so no head split or merge copy exists. The bias terms
-// arrive raw, [N, H, S, W] (head-second, as the packed kernels block on
-// them), and are added after the scale (kBiasAfterScale): s = q.k * scale
-// + A[s][t / W] + Bb[s][t % W], fp32 exponentials, as in both TPU kernels.
-// Each form rounds P where its TPU kernel does: the window form
-// normalizes P before rounding it to bf16 for P V (:818-822) and runs on
-// window_whole.cuh (one block per (window, head) over all 196 query rows,
-// every score row whole in registers, K and V loaded once); the global
-// form is online (m, l, acc; acc / l at the end) and runs on the shared
-// online-softmax core (flash_core.cuh), one block per (image, head,
-// 64-row q tile).
+// Design: K19 (the window form) reads q/k/v rows in place at stride
+// 3*H*hp through one accessor over the layout, at HD = 128 (instance =
+// window times head), and writes the output at stride H*hp, so no head
+// split or merge copy exists. The bias terms arrive raw, [N, H, S, W]
+// (head-second, as the packed kernels block on them), and are added after
+// the scale: s = q.k * scale + A[s][t / W] + Bb[s][t % W], fp32
+// exponentials, as in both TPU kernels. Each form rounds P where its TPU
+// kernel does: the window form normalizes P before rounding it to bf16 for
+// P V (:818-822) and runs on window_whole.cuh (one block per (window,
+// head) over all 196 query rows, every score row whole in registers, K
+// and V loaded once); the global form (K20) is online (m, l, acc; acc / l
+// at the end) and runs on the wgmma + TMA global core (global_sm90.cuh),
+// one block per (image, head, 128-row q tile), its q/k/v the 128-lane
+// blocks of the view {d, part * H + h, row, image} and its bias rows the
+// view {j, s, h, image}.
 //
-// Compiled with ULLAVA_MUTANT_PACKED_BIAS_PRESCALED the core adds the bias
-// before the scale (as if it arrived pre-scaled by 1/scale), and with
-// ULLAVA_MUTANT_PACKED_HEAD_OFFSET k is read one head over: deliberate
+// Compiled with ULLAVA_MUTANT_PACKED_BIAS_PRESCALED both forms add the
+// bias before the scale (as if it arrived pre-scaled by 1/scale), and with
+// ULLAVA_MUTANT_PACKED_HEAD_OFFSET both read k one head over: deliberate
 // bugs that only `chip_smoke.py` builds, to show that the gates catch them
-// (window_whole.cuh holds the window form's own third one).
+// (window_whole.cuh holds the window form's own third one, the global
+// core the A-term one).
+#include "global_sm90.cuh"
 #include "window_whole.cuh"
 
 namespace ullava {
@@ -86,18 +90,42 @@ struct PackedAttn {
   static constexpr bool kBiasAfterScale = true;
 };
 
-template <int W>
-int launch_packed(const void* y, const void* a, const void* b, void* o, int N, int H,
-                  float scale, void* stream) {
+int launch_window_packed(const void* y, const void* a, const void* b, void* o, int N, int H,
+                         float scale, void* stream) {
+  constexpr int W = 14;
   PackedAttn<W> p{static_cast<const bf16*>(y), static_cast<const bf16*>(a),
                   static_cast<const bf16*>(b), static_cast<bf16*>(o),
                   W * W, W * W, H, 0, false, scale};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if constexpr (W <= 16)
-    return launch_window_whole<kPackHP, W>(p, N * H, st);
-  else
-    return launch_flash<kPackHP, W>(p, N * H, st);
+  return launch_window_whole<kPackHP, W>(p, N * H, static_cast<cudaStream_t>(stream));
 }
+
+// K20's layout for the global core: the raw bias terms [B, H, S, 64] as the
+// view {j, s, h, b}, added after the scale.
+struct PackedGlobal {
+  static constexpr int kHD = kPackHP;
+  static constexpr bool kBiasAfterScale = true;
+  __device__ static void bias_coord(int b, int h, int q0, int (&c)[4]) {
+    c[0] = 0;
+    c[1] = q0;
+    c[2] = h;
+    c[3] = b;
+  }
+  __device__ static int k_head(int h, int H) {
+#ifdef ULLAVA_MUTANT_PACKED_HEAD_OFFSET
+    return H + (h + 1) % H;
+#else
+    return H + h;
+#endif
+  }
+  static bool make_bias_map(CUtensorMap* map, const void* t, int B, int H) {
+    const cuuint64_t dims[4] = {glob::kW, glob::kS, static_cast<cuuint64_t>(H),
+                                static_cast<cuuint64_t>(B)};
+    const cuuint64_t strides[3] = {128, 128ull * glob::kS, 128ull * glob::kS * H};
+    const cuuint32_t box[4] = {64, 128, 1, 1};
+    return sm90::encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, t, dims, strides, box,
+                            CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+};
 
 }  // namespace ullava
 
@@ -105,12 +133,15 @@ int launch_packed(const void* y, const void* a, const void* b, void* o, int N, i
 ULLAVA_EXPORT int ullava_fused_window_attention_packed(const void* y, const void* a,
                                                        const void* b, void* o, int N, int H,
                                                        float scale, void* stream) {
-  return ullava::launch_packed<14>(y, a, b, o, N, H, scale, stream);
+  return ullava::launch_window_packed(y, a, b, o, N, H, scale, stream);
 }
 
 // y: [B, 4096, 3*H*128] bf16; a, b: [B, H, 4096, 64] bf16; o: [B, 4096, H*128].
 ULLAVA_EXPORT int ullava_fused_global_attention_packed(const void* y, const void* a,
                                                        const void* b, void* o, int B, int H,
                                                        float scale, void* stream) {
-  return ullava::launch_packed<64>(y, a, b, o, B, H, scale, stream);
+  using namespace ullava;
+  const glob::Params p{static_cast<bf16*>(o), nullptr, nullptr, B, H, scale * glob::kLog2e};
+  return glob::launch_global<PackedGlobal, false, false>(y, a, b, nullptr, nullptr, p,
+                                                         static_cast<cudaStream_t>(stream));
 }

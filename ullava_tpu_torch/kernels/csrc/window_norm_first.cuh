@@ -43,7 +43,6 @@ __global__ void __launch_bounds__(kThreads) flash_nf_kernel(const P p) {
   constexpr int LD = HD + 8;   // shared-memory row stride (bf16)
   constexpr int KD = HD / 16;  // k-steps of Q K^T
   constexpr int ND = HD / 8;   // 8-wide column tiles of O
-  static_assert(!bias_after_scale<P>::value, "the bias goes in before the scale here");
   constexpr float kLog2e = 1.4426950408889634f;
 
   extern __shared__ __align__(128) unsigned char smem_raw[];

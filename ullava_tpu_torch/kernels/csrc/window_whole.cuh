@@ -71,7 +71,7 @@ __global__ void __launch_bounds__(kWwThreads, 2) window_whole_kernel(const P p) 
   constexpr int CPR = HD / 8;     // 16-byte chunks a row
   constexpr int kKeys = WB * WB;  // a whole window: every query row sees every key
   constexpr int kPer = WB / gcd_int(8, WB);  // (8 j) % WB repeats with j % kPer
-  static_assert(bias_after_scale<P>::value, "the packed form: the bias goes in after the scale");
+  static_assert(P::kBiasAfterScale, "the packed form: the bias goes in after the scale");
   constexpr float kLog2e = 1.4426950408889634f;
 
   extern __shared__ __align__(128) unsigned char smem_raw[];

@@ -51,7 +51,8 @@ def build(gen: torch.Generator):
     cfg = ullava.UllavaConfig(
         core=ullava_core.UllavaCoreConfig(
             llm=llama.LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
-                                  num_layers=2, num_heads=2, num_kv_heads=2, remat=True),
+                                  num_layers=2, num_heads=2, num_kv_heads=2, remat=True,
+                                  attn_impl="flash"),
             vision=clip_vit.CLIPVisionConfig.tiny(dtype=torch.bfloat16),
             img_start_id=500, img_end_id=501, vid_start_id=502, vid_end_id=503,
             projector_from_scratch=False),

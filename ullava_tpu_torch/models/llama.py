@@ -25,7 +25,8 @@ alignment; here the config alone chooses, and a shape a kernel cannot
 take raises in its wrapper.
 
 Training is the no-cache path under autograd: rotary in fp32
-(`apply_rotary`, the JAX default `rope_f32=True`), attention through the
+(`apply_rotary`; in `dtype` with `rope_f32=False`, as every `bench.py`
+preset sets it, and so in decode steps), attention through the
 flash Function (K15 forward, K16 + K17 backward) and both norms through
 the RMSNorm Function (K9 forward, K18 backward); with `remat` each layer
 runs under `torch.utils.checkpoint`, so the backward recomputes it from
@@ -83,6 +84,7 @@ class LlamaConfig:
     num_layers: int = 32
     num_heads: int = 32
     num_kv_heads: int = 32
+    max_position_embeddings: int = 2048
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
@@ -91,8 +93,10 @@ class LlamaConfig:
     # matmul outputs) raises.
     remat: bool = True
     remat_policy: str = "full"
-    # Prefill attention: 'flash' (the kernel) or 'xla' (the plain path).
-    attn_impl: str = "flash"
+    # Attention of prefill and training: 'flash' (the kernels), 'xla' (the
+    # plain path) or 'auto' (`ops.attention.attention`: flash on the card,
+    # the plain path on the CPU).
+    attn_impl: str = "auto"
     # Run the prefill's linears (S > 1) W8A8 where the weight is int8. A
     # decode step stays weight-only.
     a8_prefill: bool = False
@@ -103,6 +107,10 @@ class LlamaConfig:
     fused_norm_quant: bool = True
     # LoRA scaling (alpha / r); active only where *_lora_a/b leaves exist.
     lora_scale: float = 2.0
+    # Rotate q and k in fp32 (True) or in `dtype` (decode steps and
+    # training; the serving prefill's fused rotary stays fp32 inside the
+    # kernel, as the JAX package's does).
+    rope_f32: bool = True
 
     @property
     def head_dim(self) -> int:
@@ -110,9 +118,11 @@ class LlamaConfig:
 
     @classmethod
     def tiny(cls, **kw) -> "LlamaConfig":
-        defaults = dict(
+        # The test configuration holds the kernels' route: 'flash' runs
+        # their plain versions on the CPU, where 'auto' takes the plain path.
+        defaults = dict(attn_impl="flash",
             vocab_size=512, hidden_size=64, intermediate_size=128, num_layers=2,
-            num_heads=4, num_kv_heads=4,
+            num_heads=4, num_kv_heads=4, max_position_embeddings=256,
             dtype=torch.float32, remat=False,
         )
         defaults.update(kw)
@@ -154,6 +164,11 @@ def init_params(
 def init_kv_cache(
     cfg: LlamaConfig, batch: int, max_len: int, device=None
 ) -> Dict[str, torch.Tensor]:
+    # The cache holds every position a sequence reaches; rotary past the
+    # model's trained positions is refused here, before any work.
+    if max_len > cfg.max_position_embeddings:
+        raise ValueError(f"a cache of {max_len} positions exceeds "
+                         f"max_position_embeddings={cfg.max_position_embeddings}")
     device = resolve_device(device)
     if cfg.kv_quant:
         # Heads merged on the minor dim, the layout both cache kernels
@@ -226,7 +241,7 @@ def _layer(
         q = fused_rotary(q.reshape(B * S, H * hd), cos_r, sin_r, hd).reshape(B, S, H, hd)
         k = fused_rotary(k.reshape(B * S, Hkv * hd), cos_r, sin_r, hd).reshape(B, S, Hkv, hd)
     else:
-        q, k = apply_rotary(q, k, cos, sin)
+        q, k = apply_rotary(q, k, cos, sin, compute_dtype=None if cfg.rope_f32 else cfg.dtype)
 
     if cache is None:
         attn = attention(q, k, v, causal=causal, kv_lens=kv_lens, impl=cfg.attn_impl)

@@ -4,7 +4,7 @@ packed attention layout (counterpart of
 
 ViT backbone with 14x14 window attention and global blocks closing each
 group, decomposed relative position bias, conv neck to 256 channels; NHWC
-throughout. Attention always goes through the ported kernels' wrappers:
+throughout. Attention goes through the ported kernels' wrappers:
 `fused_window_attention_grid` for sizes up to 16 and
 `fused_global_attention` above (the JAX dispatch at `_attn`).
 
@@ -37,7 +37,12 @@ token stream; with the composite bias weights of
 `precompute_window_bias_weights`, `fused_ln_linear_dual` emits the bias
 terms beside qkv and the full windows are stored as 200 rows. There is no
 device gate: on CUDA tensors the wrappers launch their kernels, on CPU
-tensors they take their plain versions.
+tensors they take their plain versions. `attn_kernel` is the JAX knob:
+"auto" takes every route above; "xla", for CPU tensors only (on the card
+there is no plain route), takes the routes the JAX package takes off the
+TPU (`_use_pallas` false): no fused int8 global route and no fused MLP,
+whose arithmetic differs, and the block window layout; the attention
+wrappers' plain versions are the JAX XLA attention's function.
 
 `pack_sam_attention` repacks qkv/proj head-major with each head padded to
 `head_pad` lanes (128 on the card); such weights are detected by shape
@@ -118,12 +123,19 @@ class SamVisionConfig:
     # Window-block token layout: "block" (pad, partition, attend, merge,
     # crop in every window block), "resident" (one partition per group
     # into compact window-major class tensors), or "auto": resident
-    # wherever the grid holds a whole window.
+    # wherever the grid holds a whole window and the fused routes run.
     window_layout: str = "auto"
+    # JAX `attn_kernel`: "auto" (the fused routes) or "xla" (CPU tensors
+    # only: the JAX package's routes off the TPU, see the module doc).
+    attn_kernel: str = "auto"
 
     def __post_init__(self) -> None:
         if self.window_layout not in ("auto", "block", "resident"):
             raise ValueError(f"unknown window_layout {self.window_layout!r}")
+        if self.attn_kernel not in ("auto", "xla"):
+            raise ValueError(f"unknown attn_kernel {self.attn_kernel!r}")
+        if self.attn_kernel == "xla" and self.window_layout == "resident":
+            raise ValueError('attn_kernel="xla" takes the block layout')
 
     @property
     def head_dim(self) -> int:
@@ -257,6 +269,12 @@ def pack_sam_attention(enc: Params, cfg: SamVisionConfig, head_pad: int = 128) -
 
     return {**enc, "window_blocks": [pack_block(b) for b in enc["window_blocks"]],
             "global_blocks": [pack_block(b) for b in enc["global_blocks"]]}
+
+
+def _fused_routes(cfg: SamVisionConfig) -> bool:
+    """The JAX `_use_pallas`: the fused int8 global route, the fused MLP
+    and the resident layout, unless `attn_kernel="xla"`."""
+    return cfg.attn_kernel != "xla"
 
 
 def _is_packed(p: Params, cfg: SamVisionConfig) -> bool:
@@ -440,7 +458,8 @@ def _use_global_fused(p: Params, cfg: SamVisionConfig, size: int) -> bool:
     """The fused int8 route of a global block: LN1+qkv and proj+residual
     through `fused_ln_linear` / `fused_linear`."""
     return (
-        size > 16  # global grid only; window sizes use the grid kernel
+        _fused_routes(cfg)
+        and size > 16  # global grid only; window sizes use the grid kernel
         and is_quantized(p["qkv"])
         and is_quantized(p["proj"])
         and (size * size) % 1024 == 0
@@ -511,7 +530,8 @@ def _mlp_tail(x: torch.Tensor, p: Params, cfg: SamVisionConfig) -> torch.Tensor:
     C = x.shape[-1]
     T = x.numel() // C
     if (
-        is_quantized(p["fc1"])
+        _fused_routes(cfg)
+        and is_quantized(p["fc1"])
         and is_quantized(p["fc2"])
         and p["fc1"]["q"].shape[1] % 512 == 0
         and T % 512 == 0
@@ -754,8 +774,9 @@ def _block_resident(xs: Dict[str, torch.Tensor], p: Params, cfg: SamVisionConfig
 def _use_resident(cfg: SamVisionConfig, wparams: Optional[Params] = None) -> bool:
     """"auto" and "resident" both mean resident wherever the grid holds at
     least one whole window; packed weights (`wparams`, a window block's)
-    always take the block layout."""
-    if cfg.window_layout == "block" or (wparams is not None and _is_packed(wparams, cfg)):
+    and `attn_kernel="xla"` always take the block layout."""
+    if (cfg.window_layout == "block" or not _fused_routes(cfg)
+            or (wparams is not None and _is_packed(wparams, cfg))):
         return False
     return cfg.grid // cfg.window_size > 0
 
@@ -764,6 +785,8 @@ def _use_resident(cfg: SamVisionConfig, wparams: Optional[Params] = None) -> boo
 def encode(params: Params, cfg: SamVisionConfig, pixel_values: torch.Tensor) -> torch.Tensor:
     """[B, img, img, 3] (SAM-normalized, padded) -> [B, grid, grid, out_chans]."""
     cfg.validate_grouping()
+    if cfg.attn_kernel == "xla" and pixel_values.device.type != "cpu":
+        raise ValueError('attn_kernel="xla" takes CPU tensors: the card runs the kernels')
     B = pixel_values.shape[0]
     g, C, P = cfg.grid, cfg.embed_dim, cfg.patch_size
 

@@ -281,10 +281,18 @@ def attention(
     """Dispatching entry: 'xla' is the plain reference path, 'flash' the
     flash kernels (no additive bias, static q_offset): K2 where autograd
     does not record the call, else `_FlashAttention` (K15 forward, K16 and
-    K17 backward; no GQA repeat)."""
+    K17 backward; no GQA repeat). 'auto' (the JAX default) is 'flash' on
+    CUDA tensors, where the flash entry raises what it cannot take, and the
+    plain path on CPU tensors, as the JAX package off the TPU. The JAX
+    package's further flash conditions (Sq >= 128, head_dim % 128 == 0, no
+    GQA repeat, and Sq >= 512 as a TPU v5e crossover) are its kernel's and
+    its chip's; on the H100 flash is the faster route at every
+    length measured (`microbench/attention_crossover.py`)."""
     b, sq, h, d = q.shape
     if scale is None:
         scale = d**-0.5
+    if impl == "auto":
+        impl = "flash" if q.device.type == "cuda" else "xla"
     if impl == "xla":
         return attention_xla(
             q, k, v, causal=causal, kv_lens=kv_lens, bias=bias,

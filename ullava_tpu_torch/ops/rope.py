@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -35,11 +35,16 @@ def apply_rotary(
     k: torch.Tensor,  # [B, S, Hkv, D]
     cos: torch.Tensor,  # [B, S, D] or [S, D]
     sin: torch.Tensor,
+    compute_dtype: Optional[torch.dtype] = None,  # None: fp32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Rotary embedding on q and k in fp32, broadcast over the head axis."""
-    c = cos.unsqueeze(-2).float()
-    s = sin.unsqueeze(-2).float()
-    qf, kf = q.float(), k.float()
+    """Rotary embedding on q and k, broadcast over the head axis, computed
+    in `compute_dtype` (fp32 by default; the weights' dtype where the
+    config sets `rope_f32=False`, with the tables and every product and
+    sum rounded to it, as the JAX `apply_rotary` does)."""
+    cd = compute_dtype or torch.float32
+    c = cos.unsqueeze(-2).to(cd)
+    s = sin.unsqueeze(-2).to(cd)
+    qf, kf = q.to(cd), k.to(cd)
     q_out = qf * c + _rotate_half(qf) * s
     k_out = kf * c + _rotate_half(kf) * s
     return q_out.to(q.dtype), k_out.to(k.dtype)

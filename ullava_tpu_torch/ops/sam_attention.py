@@ -344,6 +344,58 @@ def fused_global_attention_y_plain(
     return out
 
 
+def global_y_quant_i8_plain(y, bias_a, bias_b, num_heads: int, head_dim: int):
+    """Plain version of the `dots_i8` pre-pass of `fused_global_attention_y`:
+    every q row, k row and row of bias terms [A | B] quantized to int8 once
+    (`_row_quant`, the TPU kernel's `_rq_rows`). Returns the q and k codes
+    in 128-byte rows, zero past head_dim, [2, B, H, S, 128] int8 (q's then
+    k's); their scales [2, B, H, S] fp32; the [A | B] codes as y.dtype
+    (small integers, exact), A's and B's each [B, S, H, W] like the terms;
+    and the [A | B] rows' scales [B, H, S] fp32."""
+    B, S, _ = y.shape
+    H, hd = num_heads, head_dim
+    W = bias_a.shape[-1]
+    y5 = y.reshape(B, S, 3, H, hd)
+    codes = torch.zeros((2, B, H, S, 128), dtype=torch.int8, device=y.device)
+    scales = torch.empty((2, B, H, S), dtype=torch.float32, device=y.device)
+    for sec in range(2):
+        c, sc = _row_quant(y5[:, :, sec].transpose(1, 2))  # [B, H, S, hd], [B, H, S, 1]
+        codes[sec, ..., :hd] = c
+        scales[sec] = sc[..., 0]
+    abq, abss = _row_quant(torch.cat([bias_a, bias_b], dim=-1))  # [B, S, H, 2W], [B, S, H, 1]
+    ab = abq.to(y.dtype)
+    return (codes, scales, ab[..., :W].contiguous(), ab[..., W:].contiguous(),
+            abss[..., 0].transpose(1, 2).contiguous())
+
+
+def global_y_quant_i8(y, bias_a, bias_b, num_heads: int, head_dim: int):
+    """The `dots_i8` pre-pass of `fused_global_attention_y` (arguments as
+    there; outputs as `global_y_quant_i8_plain`'s): every row quantized
+    once per layer. CUDA kernel `kernels/csrc/sam_global_attention_y.cu`
+    (its pre-pass entry: W 64, hd 80, bf16) for CUDA tensors, the plain
+    version for CPU ones."""
+    B, S, width = y.shape
+    H, hd = num_heads, head_dim
+    if width != 3 * H * hd or bias_a.shape != (B, S, H, bias_a.shape[-1]) or (
+            bias_b.shape != bias_a.shape):
+        raise ValueError(f"y {tuple(y.shape)} / bias {tuple(bias_a.shape)} do not match H={H}")
+    if y.device.type == "cpu":
+        return global_y_quant_i8_plain(y, bias_a, bias_b, H, hd)
+    if (hd, S, bias_a.shape[-1]) != (80, 4096, 64):
+        raise ValueError(f"the CUDA global kernel is built for hd 80, W 64; got {hd}, S {S}")
+    for name, t in (("y", y), ("bias_a", bias_a), ("bias_b", bias_b)):
+        kernels.check_cuda_tensor(f"global_y {name}", t, torch.bfloat16)
+    codes = torch.empty((2, B, H, S, 128), dtype=torch.int8, device=y.device)
+    scales = torch.empty((2, B, H, S), dtype=torch.float32, device=y.device)
+    ac, bc = torch.empty_like(bias_a), torch.empty_like(bias_b)
+    abss = torch.empty((B, H, S), dtype=torch.float32, device=y.device)
+    kernels.launch(
+        "global_attention_y_quant_i8", y.data_ptr(), bias_a.data_ptr(), bias_b.data_ptr(),
+        codes.data_ptr(), scales.data_ptr(), ac.data_ptr(), bc.data_ptr(), abss.data_ptr(), B, H,
+    )
+    return codes, scales, ac, bc, abss
+
+
 def fused_global_attention_y(
     y: torch.Tensor,  # [B, S, 3C] raw qkv projection output (bias included)
     bias_a: torch.Tensor,  # [B, S, H, W] pre-scaled by 1/scale, y.dtype
@@ -361,8 +413,9 @@ def fused_global_attention_y(
     and returns the head-merged [B, S, C] pre-projection activations.
     `head_group` is a lane-alignment matter of the TPU kernel: accepted
     and ignored. CUDA kernel `kernels/csrc/sam_global_attention_y.cu`
-    (W 64, hd 80, bf16; its `_i8` entry for `dots_i8`) for CUDA tensors,
-    the plain version for CPU ones."""
+    (W 64, hd 80, bf16, on the wgmma + TMA core `global_sm90.cuh`; for
+    `dots_i8` its pre-pass, which quantizes every row once, then its `_i8`
+    entry) for CUDA tensors, the plain version for CPU ones."""
     B, S, width = y.shape
     H, hd, W = num_heads, head_dim, window
     if S != W * W or width != 3 * H * hd:
@@ -378,10 +431,17 @@ def fused_global_attention_y(
     for name, t in (("y", y), ("bias_a", bias_a), ("bias_b", bias_b)):
         kernels.check_cuda_tensor(f"global_y {name}", t, torch.bfloat16)
     out = torch.empty((B, S, H * hd), dtype=y.dtype, device=y.device)
+    if not dots_i8:
+        kernels.launch(
+            "fused_global_attention_y", y.data_ptr(), bias_a.data_ptr(), bias_b.data_ptr(),
+            out.data_ptr(), B, H, float(scale), int(exp_bf16),
+        )
+        return out
+    codes, scales, ac, bc, abss = global_y_quant_i8(y, bias_a, bias_b, H, hd)
     kernels.launch(
-        "fused_global_attention_y_i8" if dots_i8 else "fused_global_attention_y",
-        y.data_ptr(), bias_a.data_ptr(), bias_b.data_ptr(),
-        out.data_ptr(), B, H, float(scale), int(exp_bf16),
+        "fused_global_attention_y_i8", y.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+        ac.data_ptr(), bc.data_ptr(), abss.data_ptr(), out.data_ptr(), B, H, float(scale),
+        int(exp_bf16),
     )
     return out
 
@@ -561,7 +621,8 @@ def fused_global_attention_packed(
     """Global attention on the packed head-major layout, online softmax
     with fp32 exponentials; returns [B, S, H*hp]. `block_q` and `block_k`
     are TPU tiling: accepted and ignored. CUDA kernel
-    `kernels/csrc/sam_packed_attention.cu` (hp 128, W 64, bf16) for CUDA
-    tensors, the plain version for CPU ones."""
+    `kernels/csrc/sam_packed_attention.cu` (hp 128, W 64, bf16, on the
+    wgmma + TMA core `global_sm90.cuh`) for CUDA tensors, the plain
+    version for CPU ones."""
     return _packed_attention("fused_global_attention_packed", y, bias_a, bias_b, num_heads,
                              head_pad, window, scale, fused_global_attention_packed_plain, 64)
