@@ -24,7 +24,9 @@ Phases, each fatal on any error:
                PyTorch library call computing the same function (L2
                flushed before each timed call); a mutated run of each
                kernel must fail the same gate (for the training path's
-               four, the weight-only, the int8 score forms, the two
+               four, the weight-only, the int8 score forms, K3 and K14 on
+               the whole-window core (each also with its registers,
+               shared bytes and blocks an SM), the two
                global attention kernels on the wgmma + TMA core (K11 in
                its four forms, K20, each beside K4 on the old core and
                with its SASS counts), the packed and the two uncalled
@@ -274,11 +276,13 @@ def kernel_phases(gen) -> dict:
     one ulp of disagreement there and not two. It must also reject a wrong
     kernel: each kernel is run once more on a mutated input that stands
     for a typical bug (rotation sign, causal mask, bias dropped or its two
-    terms swapped), and that output, held to the same reference, must
+    terms swapped; K3 also a copy of its source built with
+    `QUAD_MAX_MUTANTS`), and that output, held to the same reference, must
     fail the gate."""
     import torch
     import torch.nn.functional as F
 
+    from ullava_tpu_torch import kernels
     from ullava_tpu_torch.ops import attention, rope, sam_attention
 
     dev = "cuda"
@@ -350,15 +354,19 @@ def kernel_phases(gen) -> dict:
     A = a.reshape(N, S, Hs, W).flip(-1).permute(0, 2, 1, 3).float()
     Bm = bb.reshape(N, S, Hs, W).flip(-1).permute(0, 2, 1, 3).float()
     wmask = ((A[..., :, None] + Bm[..., None, :]).reshape(N, Hs, S, S) * sc).to(bf)
+    with kernels.mutant(*QUAD_MAX_MUTANTS["sam_window_attention.cu"]):
+        quad_max_dropped = run()
     record("fused_window_attention_grid", run(),
            sam_attention.fused_window_attention_grid_plain(y, a, bb, Hs, hds, W, sc),
            {"bias_dropped": sam_attention.fused_window_attention_grid(y, zero, zero, Hs, hds, W, sc),
-            "bias_swapped": sam_attention.fused_window_attention_grid(y, bb, a, Hs, hds, W, sc)},
+            "bias_swapped": sam_attention.fused_window_attention_grid(y, bb, a, Hs, hds, W, sc),
+            "quad_max_dropped": quad_max_dropped},
            1e-2, run,
            lambda: sam_attention.fused_window_attention_grid_plain(y, a, bb, Hs, hds, W, sc),
            lambda: F.scaled_dot_product_attention(y5[0], y5[1], y5[2], attn_mask=wmask, scale=sc),
            nbytes(y, a, bb) + nbytes(y) // 3, 4.0 * N * Hs * S * S * hds)
-    del y5, A, Bm, wmask, y, zero
+    results["fused_window_attention_grid"]["kernel"] = kernels.kernel_attrs(*WINDOW_ATTRS["grid"], 0)
+    del y5, A, Bm, wmask, y, zero, quad_max_dropped
 
     # K4: one ViT-H global block at B=4: 64 (image, head) pairs over 4096.
     # The bias terms come from `decomposed_bias_terms` as in the encoder:
@@ -1064,6 +1072,26 @@ SAM_C, SAM_H, SAM_HD, SAM_W = 1280, 16, 80, 14
 # windows (14 x 8 and 8 x 14 tokens, 64 of each) in one dual-geometry
 # launch, and the 16 corner windows of 8 x 8.
 RECT_FORMS = (("edge_pair", [(14, 8), (8, 14)], B_INT8 * 4), ("corner", [(8, 8)], B_INT8))
+# The deliberate bugs of the whole-window core (`window_whole.cuh`) that
+# K3's and K14's gates must catch, beside the int8 forms' `I8_MUTANTS`:
+# each thread's own partial row max in place of its quad's (K19's copy is
+# in `PACKED_MUTANTS`), and K14's pad scores left out of the row sum.
+QUAD_MAX_MUTANTS = {src: (src, "ULLAVA_MUTANT_WINDOW_NO_QUAD_MAX")
+                    for src in ("sam_window_attention.cu", "sam_rect_attention.cu")}
+RECT_PAD_MUTANT = ("sam_rect_attention.cu", "ULLAVA_MUTANT_RECT_PAD_OUT_OF_SUM")
+# The C entries that read the whole-window kernels' registers, shared
+# bytes, spills and blocks an SM (`kernels.kernel_attrs`).
+WINDOW_ATTRS = {"grid": ("sam_window_attention.cu", "ullava_window_attention_grid_attrs"),
+                "rect": ("sam_rect_attention.cu", "ullava_window_attention_rect_attrs"),
+                "packed": ("sam_packed_attention.cu", "ullava_window_attention_packed_attrs")}
+
+
+def rect_attrs(dots_i8: bool, geoms) -> dict:
+    """The boundary-window kernel's attributes for one form and geometry."""
+    from ullava_tpu_torch import kernels
+
+    first, second = geoms[0], geoms[-1]
+    return kernels.kernel_attrs(*WINDOW_ATTRS["rect"], int(dots_i8), *first, *second)
 
 
 def window_sdpa_inputs(y, a, bb, keys, key_ok):
@@ -1136,10 +1164,12 @@ def resident_kernel_phases(gen, results: dict) -> None:
     Gates: bf16 outputs by `row_rel_err` within 1e-2 (the attention
     kernels over real query rows; K3's pad rows must be finite), K13's
     int8 rows at least 99.9% exact and the rest within 1. Each gate must
-    reject mutated runs that stand for typical bugs."""
+    reject mutated runs that stand for typical bugs (K14 also copies of its
+    source built with `QUAD_MAX_MUTANTS` and `RECT_PAD_MUTANT`)."""
     import torch
     import torch.nn.functional as F
 
+    from ullava_tpu_torch import kernels
     from ullava_tpu_torch.ops import mlp_kernel, quant, sam_attention
 
     dev, bf = "cuda", torch.bfloat16
@@ -1287,6 +1317,10 @@ def resident_kernel_phases(gen, results: dict) -> None:
             "pad_keys_dropped": row_rel_err(window_sdpa(*lib[:3], real_only), ref),
             "pad_v_dropped": row_rel_err(run((*tables[:2], torch.zeros_like(tables[2]))), ref),
         }
+        for bug, src_define in (("pad_out_of_sum", RECT_PAD_MUTANT),
+                                ("quad_max_dropped", QUAD_MAX_MUTANTS["sam_rect_attention.cu"])):
+            with kernels.mutant(*src_define):
+                caught[bug] = row_rel_err(run(), ref)
         if len(geoms) == 2:
             caught["halves_swapped"] = row_rel_err(run(g_=(geoms[1], geoms[0])), ref)
         for m, e in caught.items():
@@ -1300,6 +1334,7 @@ def resident_kernel_phases(gen, results: dict) -> None:
                 y, a, bb, *t, H, hd, W, sc),
             lambda l=lib: window_sdpa(*l), nbytes(y, a, bb, *tables, got), 4.0 * N * H * T * W * W * hd)
         line["shape"] = [N, T, F1]
+        line["kernel"] = rect_attrs(False, geoms)
         rect_forms[form] = line
         del y, a, bb, tables, padded, got, ref, lib, real_only
     results["fused_window_attention_rect"] = {**rect_forms["edge_pair"], "corner_form": {
@@ -1309,8 +1344,10 @@ def resident_kernel_phases(gen, results: dict) -> None:
 
 
 # The deliberate bug that the int8 score forms' gates must catch: each
-# source that instantiates the shared core's DOTS_I8 rebuilt so that every
-# key of a K tile is dequantized with the tile's first key's scale.
+# source with an int8 score form (K3's and K14's on the whole-window core,
+# K11's on the global core) rebuilt so that every key of a K tile (a
+# 16-key chunk on the whole-window core) is dequantized with its first
+# key's scale.
 I8_MUTANTS = {src: (src, "ULLAVA_MUTANT_I8_TILE_SCALE") for src in (
     "sam_window_attention.cu", "sam_global_attention_y.cu", "sam_rect_attention.cu")}
 # The kernel forms the all-int8 serve adds (K11's int8 form as its
@@ -1345,7 +1382,8 @@ def all_int8_kernel_phases(gen, results: dict) -> None:
     Each gate must reject mutated runs: the kernel source rebuilt to use
     one key scale for a whole K tile (`I8_MUTANTS`), K11's also with the
     A term of a 128-key tile's first grid row used for both halves
-    (`GLOBAL_Y_MUTANTS`), the bias terms swapped, the pad value dropped,
+    (`GLOBAL_Y_MUTANTS`), K14's with its pad scores out of the row sum
+    (`RECT_PAD_MUTANT`), the bias terms swapped, the pad value dropped,
     K2's kv_lens ignored. K11's pre-pass is held bit for bit and must see
     the bias terms swapped. Bounds: qk at
     the int8 peak and P V at the bf16 peak, or the bytes. The library
@@ -1404,6 +1442,7 @@ def all_int8_kernel_phases(gen, results: dict) -> None:
             lambda l=lib: window_sdpa(*l), nbytes(y, a, bb, got), 4.0 * N * H * S * real * hd,
             bound=bound_i8_ms(nbytes(y, a, bb, got), 4.0 * N * H * S * real * hd))
         forms[form]["shape"] = [N, S, F1]
+        forms[form]["kernel"] = kernels.kernel_attrs(*WINDOW_ATTRS["grid"], 1)
         del y, a, bb, got, ref, tile_scale, lib
         torch.cuda.empty_cache()
     results[name] = {**forms["block"], "total_rows_form": {
@@ -1491,9 +1530,11 @@ def all_int8_kernel_phases(gen, results: dict) -> None:
         got, ref = run(), plain()
         with kernels.mutant(*I8_MUTANTS[src]):
             tile_scale = run()
+        with kernels.mutant(*RECT_PAD_MUTANT):
+            pad_out_of_sum = run()
         torch.cuda.synchronize()
         info = gate(f"{name} {form}", got, ref, {
-            "one_key_scale_a_tile": tile_scale,
+            "one_key_scale_a_tile": tile_scale, "pad_out_of_sum": pad_out_of_sum,
             "pad_v_dropped": run((*tables[:2], torch.zeros_like(tables[2])))})
         lib = window_sdpa_inputs(y, a, bb, padded, torch.ones(real, dtype=torch.bool, device=dev))
         N, T = y.shape[:2]
@@ -1502,7 +1543,8 @@ def all_int8_kernel_phases(gen, results: dict) -> None:
                                        lambda l=lib: window_sdpa(*l), io, flops,
                                        bound=bound_i8_ms(io, flops))
         rect_forms[form]["shape"] = [N, T, F1]
-        del y, a, bb, tables, padded, got, ref, tile_scale, lib
+        rect_forms[form]["kernel"] = rect_attrs(True, geoms)
+        del y, a, bb, tables, padded, got, ref, tile_scale, pad_out_of_sum, lib
     results[name] = {**rect_forms["edge_pair"], "corner_form": {
         k: v for k, v in rect_forms["corner"].items()
         if k not in ("name", "route", "source", "replaces")}}
@@ -2013,6 +2055,7 @@ def packed_kernel_phases(gen, results: dict) -> None:
         line["tflops_128_lanes"] = flops / line["ms"] / 1e9
         if name == "fused_window_attention_packed":
             line["sass"] = sass_counts("sam_packed_attention.cu", "window_whole_kernel")
+            line["kernel"] = kernels.kernel_attrs(*WINDOW_ATTRS["packed"])
         else:
             line["sass"] = global_core_sass("sam_packed_attention.cu")
             # The old core on the 80 real lanes of the same q, k, v.
@@ -3041,7 +3084,8 @@ def main() -> int:
     t0 = time.perf_counter()
     built = kernels.build_all(verbose=True, mutants=[
         *TRAIN_MUTANTS.values(), K15_MASK_MUTANT, *WQ_MUTANTS.values(), *I8_MUTANTS.values(),
-        *PACKED_MUTANTS.values(), *V2_MUTANTS.values(), *GLOBAL_Y_MUTANTS.values()])
+        *PACKED_MUTANTS.values(), *V2_MUTANTS.values(), *GLOBAL_Y_MUTANTS.values(),
+        *QUAD_MAX_MUTANTS.values(), RECT_PAD_MUTANT])
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "sources": sorted(built)}), flush=True)
 

@@ -76,3 +76,25 @@ def test_cuda_sam_attention_matches_plain(cuda):
     ref = sam_attention.fused_global_attention_plain(q, k, v, a, b, 64, sc)
     assert _row_rel_err(got, ref) <= _TOL
     assert _row_rel_err(sam_attention.fused_global_attention(q, k, v, b, a, 64, sc), ref) > _TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("total_rows", [0, 200], ids=["block_196", "padded_200"])
+def test_cuda_window_attention_one_window_six_heads(cuda, total_rows):
+    """K3 at its edges: one window of 6 heads; in the padded form, tail rows
+    of magnitude 1e3 (q, k, v and bias terms) that reach no real row: the
+    real rows are the compact window's bit for bit, the tail rows finite."""
+    sc, H, S = 80**-0.5, 6, total_rows or 196
+    y = _rand(cuda, 1, S, 3 * H * 80)
+    a, b = (_rand(cuda, 1, S, H * 14, scale=2.0 / sc) for _ in range(2))
+    if total_rows:
+        y[:, 196:] = _rand(cuda, 1, S - 196, 3 * H * 80, scale=1e3)
+        a[:, 196:], b[:, 196:] = (_rand(cuda, 1, S - 196, H * 14, scale=1e3) for _ in range(2))
+    args = (H, 80, 14, sc)
+    got = sam_attention.fused_window_attention_grid(y, a, b, *args, total_rows=total_rows)
+    ref = sam_attention.fused_window_attention_grid_plain(y, a, b, *args)
+    assert got.shape == (1, S, H * 80) and bool(torch.isfinite(got).all())
+    assert _row_rel_err(got[:, :196], ref[:, :196]) <= _TOL
+    compact = sam_attention.fused_window_attention_grid(
+        y[:, :196].contiguous(), a[:, :196].contiguous(), b[:, :196].contiguous(), *args)
+    assert torch.equal(compact, got[:, :196])

@@ -155,3 +155,27 @@ def test_cuda_flash_wrappers_refuse_other_head_dims(cuda):
     lse = torch.zeros((1, 2, 64), dtype=torch.float32, device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         attention.flash_attention_bwd(q, q, q, q, lse, q, lens, causal=True, scale=0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [196, 200], ids=["block_196", "padded_200"])
+def test_cuda_window_attention_dots_i8_one_window_six_heads(cuda, S):
+    """One window of 6 heads; in the padded form tail rows of magnitude 1e3
+    that reach no real row (the compact window's rows bit for bit)."""
+    H, real = 6, _W * _W
+    kw = dict(_KW, num_heads=H)
+    y = _rand(cuda, 1, S, 3 * H * _HD)
+    a, bb = (_rand(cuda, 1, S, H * _W, scale=2.0 / _KW["scale"]) for _ in range(2))
+    if S > real:
+        y[:, real:] = _rand(cuda, 1, S - real, 3 * H * _HD, scale=1e3)
+        a[:, real:], bb[:, real:] = (_rand(cuda, 1, S - real, H * _W, scale=1e3) for _ in range(2))
+    tr = S if S != real else 0
+    got = sam_attention.fused_window_attention_grid(y, a, bb, **kw, total_rows=tr, dots_i8=True)
+    ref = sam_attention.fused_window_attention_grid_plain(y, a, bb, *kw.values(), dots_i8=True)
+    assert bool(torch.isfinite(got).all())
+    assert _row_rel_err(got[:, :real], ref[:, :real]) <= _TOL
+    compact = sam_attention.fused_window_attention_grid(
+        y[:, :real].contiguous(), a[:, :real].contiguous(), bb[:, :real].contiguous(), **kw,
+        dots_i8=True)
+    assert torch.equal(compact, got[:, :real])
+

@@ -17,6 +17,7 @@ attention kernels over the real query rows; the pad rows finite.
 import pytest
 import torch
 
+from ullava_tpu_torch import kernels
 from ullava_tpu_torch.models.sam import image_encoder
 from ullava_tpu_torch.ops import mlp_kernel, quant, sam_attention
 
@@ -114,17 +115,17 @@ def test_cuda_window_attention_total_rows_matches_plain(cuda):
     assert torch.equal(again[:, :196], got[:, :196])
 
 
-def _rect_inputs(gen, geoms, per):
+def _rect_inputs(gen, geoms, per, H=_H):
     """`per` windows of each geometry with the encoder's own tables."""
     rows, cols = geoms[0]
     N, T = per * len(geoms), rows * cols
     sc = _KW["scale"]
-    y = _rand(gen, N, T, 3 * _H * _HD)
-    a = _rand(gen, N, T, _H * _W, scale=2.0 / sc)
-    bb = _rand(gen, N, T, _H * _W, scale=2.0 / sc)
-    qkv_bias = _rand(gen, 3 * _H * _HD, scale=0.5)
+    y = _rand(gen, N, T, 3 * H * _HD)
+    a = _rand(gen, N, T, H * _W, scale=2.0 / sc)
+    bb = _rand(gen, N, T, H * _W, scale=2.0 / sc)
+    qkv_bias = _rand(gen, 3 * H * _HD, scale=0.5)
     ohs = [image_encoder._rect_onehot(r, c, _W, y.dtype, y.device) for r, c in geoms]
-    pads = [image_encoder._pad_tables(qkv_bias, r, c, _W, _H, _HD, y.dtype) for r, c in geoms]
+    pads = [image_encoder._pad_tables(qkv_bias, r, c, _W, H, _HD, y.dtype) for r, c in geoms]
     if len(geoms) == 1:
         return y, a, bb, ohs[0], pads[0][0], pads[0][1]
     return (y, a, bb, torch.stack(ohs), torch.stack([k for k, _ in pads]),
@@ -167,6 +168,14 @@ def test_cuda_resident_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     rect = _rect_inputs(cuda, [(14, 8)], per=2)
     with pytest.raises(ValueError, match="geometry"):
         sam_attention.fused_window_attention_rect(*rect, **_KW)
+    # A rectangle, or a pair, the kernel is not built for.
+    for geoms in ([(4, 14)], [(8, 8), (8, 8)]):
+        other = _rect_inputs(cuda, geoms, per=2)
+        geometry = tuple(geoms) if len(geoms) == 2 else geoms[0]
+        for dots_i8 in (False, True):
+            with pytest.raises(ValueError, match="not built for geometry"):
+                sam_attention.fused_window_attention_rect(*other, **_KW, dots_i8=dots_i8,
+                                                          geometry=geometry)
     # The int8 score form has its kernel now (`tests/test_torch_cuda_dots_i8.py`).
     got = sam_attention.fused_window_attention_rect(*rect, **_KW, dots_i8=True, geometry=(14, 8))
     ref = sam_attention.fused_window_attention_rect_plain(*rect, *_KW.values(), dots_i8=True)
@@ -175,3 +184,69 @@ def test_cuda_resident_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     t = _rand(cuda, 2, 196, _H * _W)
     with pytest.raises(ValueError):
         sam_attention.fused_window_attention_grid(y, t, t, **_KW, total_rows=200)
+    # More rows a window than the kernel's 13 tiles of 16 hold.
+    y = _rand(cuda, 1, 224, 3 * _H * _HD)
+    t = _rand(cuda, 1, 224, _H * _W)
+    with pytest.raises(ValueError, match="at most 208 rows"):
+        sam_attention.fused_window_attention_grid(y, t, t, **_KW, total_rows=224)
+
+
+# Which bias term reaches only the pad positions of each single geometry,
+# and its reversed columns there: the columns b >= 8 of the right edge and
+# the corner (term Bb), the rows a >= 8 of the bottom edge (term A).
+_PAD_ONLY_TERM = {(14, 8): 2, (8, 8): 2, (8, 14): 1}
+_FORMS = pytest.mark.parametrize("dots_i8", [False, True], ids=["bf16_scores", "dots_i8"])
+
+
+@pytest.mark.cuda
+@_FORMS
+@pytest.mark.parametrize("geom", list(_PAD_ONLY_TERM), ids=["right", "corner", "bottom"])
+def test_cuda_rect_attention_pad_key_row_max(cuda, geom, dots_i8):
+    """Every row's largest score is a pad key's (unquantized in both forms):
+    the term that reaches only pad positions raised by 8 / scale (8 in
+    score units) on their columns."""
+    args = list(_rect_inputs(cuda, [geom], per=3))
+    t = args[_PAD_ONLY_TERM[geom]].reshape(*args[0].shape[:2], _H, _W)
+    t[..., : _W - 8] += 8.0 / _KW["scale"]
+    got = sam_attention.fused_window_attention_rect(*args, **_KW, dots_i8=dots_i8, geometry=geom)
+    ref = sam_attention.fused_window_attention_rect_plain(*args, *_KW.values(), dots_i8=dots_i8)
+    assert _row_rel_err(got, ref) <= _TOL
+
+
+@pytest.mark.cuda
+@_FORMS
+@pytest.mark.parametrize("geoms", [[(14, 8)], [(8, 8)], [(14, 8), (8, 14)]],
+                         ids=["right", "corner", "dual"])
+def test_cuda_rect_attention_one_window_six_heads(cuda, geoms, dots_i8):
+    H = 6
+    args = _rect_inputs(cuda, geoms, per=1, H=H)
+    kw = dict(_KW, num_heads=H)
+    geometry = tuple(geoms) if len(geoms) == 2 else geoms[0]
+    got = sam_attention.fused_window_attention_rect(*args, **kw, dots_i8=dots_i8,
+                                                    geometry=geometry)
+    ref = sam_attention.fused_window_attention_rect_plain(*args, *kw.values(), dots_i8=dots_i8)
+    assert got.shape == (len(geoms), geoms[0][0] * geoms[0][1], H * _HD)
+    assert _row_rel_err(got, ref) <= _TOL
+
+
+@pytest.mark.cuda
+@_FORMS
+@pytest.mark.parametrize("n_first", [0, 1, 5, 6], ids=["none_first", "one_first", "five_first",
+                                                       "all_first"])
+def test_cuda_rect_attention_dual_split_off_half(cuda, n_first, dots_i8):
+    """The dual-geometry kernel launched directly with `n_first` of its 6
+    windows in the first geometry, against the plain version of each part
+    with its half's tables."""
+    geoms = [(14, 8), (8, 14)]
+    y, a, bb, oh, pad_k, pad_v = _rect_inputs(cuda, geoms, per=3)
+    N, T = y.shape[:2]
+    out = torch.empty((N, T, _H * _HD), dtype=y.dtype, device=y.device)
+    kernels.launch(
+        "fused_window_attention_rect_i8" if dots_i8 else "fused_window_attention_rect",
+        y.data_ptr(), a.data_ptr(), bb.data_ptr(), pad_k.data_ptr(), pad_v.data_ptr(),
+        out.data_ptr(), N, _H, T, pad_k.shape[-2], n_first, *geoms[0], *geoms[1], _KW["scale"])
+    parts = [(slice(0, n_first), 0), (slice(n_first, N), 1)]
+    ref = torch.cat([sam_attention.fused_window_attention_rect_plain(
+        y[sl], a[sl], bb[sl], oh[i], pad_k[i], pad_v[i], *_KW.values(), dots_i8=dots_i8)
+        for sl, i in parts if sl.start < sl.stop])
+    assert _row_rel_err(out, ref) <= _TOL

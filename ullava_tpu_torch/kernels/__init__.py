@@ -287,18 +287,22 @@ def build_all(verbose: bool = False, mutants=()) -> Dict[str, float]:
     return times
 
 
-def _function(spec: KernelSpec):
-    define = _MUTANTS.get(spec.source)
-    key = spec.source if define is None else f"{spec.source}:{define}"
+def _library(source: str, define: Optional[str]) -> ctypes.CDLL:
+    key = source if define is None else f"{source}:{define}"
     lib = _LIBS.get(key)
     if lib is None:
-        path = lib_path(spec.source, define)
+        path = lib_path(source, define)
         if not path.exists():
-            build_all(mutants=[(spec.source, define)] if define else ())
+            build_all(mutants=[(source, define)] if define else ())
         lib = ctypes.CDLL(str(path))
         lib.ullava_error_string.argtypes = (I,)
         lib.ullava_error_string.restype = ctypes.c_char_p
         _LIBS[key] = lib
+    return lib
+
+
+def _function(spec: KernelSpec):
+    lib = _library(spec.source, _MUTANTS.get(spec.source))
     fn = getattr(lib, spec.symbol)
     fn.argtypes = spec.argtypes
     fn.restype = I
@@ -316,6 +320,22 @@ def launch(name: str, *args) -> None:
         )
     if spec.source not in _MUTANTS:
         spec.launches += 1
+
+
+def kernel_attrs(source: str, symbol: str, *form: int) -> Dict[str, int]:
+    """Registers a thread, shared bytes a block, spilled (local) bytes a
+    thread and blocks an SM of one kernel of `source`, read on the card by
+    its C entry `symbol` (cudaFuncGetAttributes and the occupancy
+    calculator); `form` selects the kernel among the source's."""
+    lib = _library(source, None)
+    fn = getattr(lib, symbol)
+    fn.argtypes = (I,) * len(form) + (P,)
+    fn.restype = I
+    out = (ctypes.c_int * 4)()
+    err = fn(*form, out)
+    if err != 0:
+        raise RuntimeError(f"{symbol}: CUDA error {err}: {lib.ullava_error_string(err).decode()}")
+    return dict(zip(("registers", "smem_bytes", "spill_bytes", "blocks_per_sm"), out))
 
 
 @contextlib.contextmanager

@@ -145,3 +145,9 @@ ULLAVA_EXPORT int ullava_fused_global_attention_packed(const void* y, const void
   return glob::launch_global<PackedGlobal, false, false>(y, a, b, nullptr, nullptr, p,
                                                          static_cast<cudaStream_t>(stream));
 }
+
+// {registers a thread, shared bytes a block, spilled bytes a thread,
+// blocks an SM} of the window form's kernel (K19).
+ULLAVA_EXPORT int ullava_window_attention_packed_attrs(int* out) {
+  return ullava::window_whole_attrs<ullava::kPackHP, 14, ullava::PackedAttn<14>>(out);
+}

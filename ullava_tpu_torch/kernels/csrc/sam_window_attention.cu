@@ -3,57 +3,60 @@
 // decomposed rel-pos bias, writing the head-merged output.
 //
 // Replaces: ullava_tpu/ops/sam_attention.py:181 fused_window_attention_grid
-// (Pallas; bias folded into the qk dot as one-hot-augmented q/k), in both
-// of its forms: bf16 scores (`ullava_fused_window_attention_grid`) and the
-// int8 score form `dots_i8` (`ullava_fused_window_attention_grid_i8`,
-// kernel branch :146-161).
+// (Pallas, kernel _grid_kernel :113; bias folded into the qk dot as
+// one-hot-augmented q/k), in both of its forms: bf16 scores
+// (`ullava_fused_window_attention_grid`) and the int8 score form `dots_i8`
+// (`ullava_fused_window_attention_grid_i8`, kernel branch :146-161).
 //
 // Bound on the card: at ViT-H B=4 (N = 100 windows, S = 196, H = 16) a
 // layer reads y (150 MB) and the two bias-term tensors (18 MB) and
 // writes 50 MB: ~218 MB, ~65 us of HBM time; the products are
 // 100*16*196*196*80*4 = 19.7 GFLOP, ~20 us of bf16 tensor-core time, so
-// bytes bound it.
+// bytes bound it. The dots_i8 form at one ViT-H B=16 block in the padded
+// layout (N = 256, S = 200): bytes again, ~570 MB (~170 us of HBM time)
+// against ~13 us of int8 qk and ~26 us of bf16 P V.
 //
-// Design: the shared online-softmax core (flash_core.cuh), one block per
-// (window, head, 64-row q tile); 196 keys take four 64-key tiles, the
-// last one masked past key 196. q/k/v of head h are 80-element slices of
-// a y row at offsets h*80, C + h*80, 2C + h*80; the output lands at
-// h*80 of the merged [N, S, C] row, so no head split/merge copy exists.
-// The bias terms arrive as on the TPU: [N, S, H*W], pre-scaled by
-// 1/scale, columns reversed (column a' is key row W-1-a'); the block
-// un-reverses them into its [64, W] tables once, and adds
-// A[s][t / W] + Bb[s][t % W] to q.k before the scale.
+// Design: the whole-window core (window_whole.cuh), one block per (window,
+// head) over every query row of the window: K and V (the window's 196 key
+// rows, hd 80 in 176-byte rows) copied into shared memory once, each
+// warp's score row whole in registers, P normalized before it is rounded
+// to bf16, as the TPU kernel rounds it (:173-175). q/k/v of head h are
+// 80-element slices of a y row at offsets h*80, C + h*80, 2C + h*80; the
+// output lands at h*80 of the merged [N, S, C] row, so no head split/merge
+// copy exists. The bias terms arrive as on the TPU: [N, S, H*W],
+// pre-scaled by 1/scale, columns reversed (column a' is key row W-1-a');
+// a warp prefetches its next tile's 14 + 14 terms a row with its q rows,
+// and s = (q.k + A[s][t / W] + Bb[s][t % W]) * scale.
 //
 // The padded layout of the resident encoder stores a window as
 // `total_rows` >= 196 rows (200 for ViT-H, so that the token axis is a
-// multiple of 8): Sq and the row stride are total_rows while Sk stays
-// 196, so the tail rows are never loaded as keys. As queries they are
-// computed and written like any row (finite, dropped by the caller), so
-// no later kernel reads memory that was never written.
+// multiple of 8; the core holds up to 208): Sq and the row stride are
+// total_rows while the keys stay the first 196 rows, so the tail rows are
+// never loaded as keys. As queries they are computed and written like any
+// row (finite, dropped by the caller), so no later kernel reads memory
+// that was never written.
 //
-// The dots_i8 form is the core's DOTS_I8 (flash_core.cuh): q, each K
-// tile and the bias-term row [A | B] quantized per row to int8 inside the
-// block, qk on the int8 tensor cores (hd 80 zero-padded to 96: three
-// m16n8k32 steps), the one-hot expansion of the TPU kernel as the sum of
-// two codes, P V in bf16. Bound at one ViT-H B=16 block in the padded
-// layout (N = 256, S = 200): bytes again, ~570 MB (~170 us of HBM time)
-// against ~13 us of int8 qk and ~26 us of bf16 P V.
-#include "flash_core.cuh"
+// The dots_i8 form: K quantized per row to int8 once per (window, head),
+// q and the bias-term row [A | B] per row by each warp, qk on the int8
+// tensor cores (hd 80 zero-padded to 96: three m16n8k32 steps), the
+// one-hot expansion of the TPU kernel as the sum of two codes, P V in bf16.
+#include "window_whole.cuh"
 
 namespace ullava {
 
 constexpr int kWinHD = 80;
 constexpr int kWin = 14;
+using WholeWindow = WwRect<kWin, kWin>;
 
 struct WindowGrid {
   const bf16* y;   // [N, S, 3C]
   const bf16* a;   // [N, S, H*W]
   const bf16* bb;  // [N, S, H*W]
   bf16* o;         // [N, S, C]
-  int Sq, Sk, H;
-  int q_offset;
-  bool causal;
+  int Sq, H;
   float scale;
+  static constexpr bool kBiasAfterScale = false;
+  static constexpr bool kPadKeys = false;
 
   __device__ size_t row(int inst, int s) const {
     return static_cast<size_t>(inst / H) * Sq + s;
@@ -70,31 +73,30 @@ struct WindowGrid {
   __device__ bf16* o_row(int inst, int s) const {
     return o + row(inst, s) * (H * kWinHD) + (inst % H) * kWinHD;
   }
-  __device__ int key_limit(int) const { return Sk; }
-  __device__ float bias_a(int inst, int s, int j) const {
-    return __bfloat162float(a[row(inst, s) * (H * kWin) + (inst % H) * kWin + kWin - 1 - j]);
+  // The W terms of row s (term 0: A, 1: Bb), reversed columns.
+  __device__ const bf16* bias_row(int inst, int s, int term) const {
+    return (term ? bb : a) + row(inst, s) * (H * kWin) + (inst % H) * kWin;
   }
-  __device__ float bias_b(int inst, int s, int j) const {
-    return __bfloat162float(bb[row(inst, s) * (H * kWin) + (inst % H) * kWin + kWin - 1 - j]);
-  }
-  static constexpr bool kPadKeys = false;
 };
+
+template <bool I8>
+int launch_grid(const void* y, const void* a, const void* b, void* o, int N, int H,
+                int total_rows, float scale, void* stream) {
+  WindowGrid p{static_cast<const bf16*>(y), static_cast<const bf16*>(a),
+               static_cast<const bf16*>(b), static_cast<bf16*>(o), total_rows, H, scale};
+  return launch_window_whole<kWinHD, kWin, WindowGrid, WholeWindow, WholeWindow, I8>(
+      p, N * H, static_cast<cudaStream_t>(stream));
+}
 
 }  // namespace ullava
 
 // y: [N, S, 3*H*80] bf16; a, b: [N, S, H*14] bf16; o: [N, S, H*80] bf16,
-// S = total_rows >= 196.
+// S = total_rows in [196, 208].
 ULLAVA_EXPORT int ullava_fused_window_attention_grid(const void* y, const void* a,
                                                      const void* b, void* o, int N,
                                                      int H, int total_rows, float scale,
                                                      void* stream) {
-  ullava::WindowGrid p{static_cast<const ullava::bf16*>(y),
-                       static_cast<const ullava::bf16*>(a),
-                       static_cast<const ullava::bf16*>(b),
-                       static_cast<ullava::bf16*>(o),
-                       total_rows, ullava::kWin * ullava::kWin, H, 0, false, scale};
-  return ullava::launch_flash<ullava::kWinHD, ullava::kWin>(
-      p, N * H, static_cast<cudaStream_t>(stream));
+  return ullava::launch_grid<false>(y, a, b, o, N, H, total_rows, scale, stream);
 }
 
 // The dots_i8 form: int8 scores (q, k and the bias terms quantized per
@@ -103,10 +105,13 @@ ULLAVA_EXPORT int ullava_fused_window_attention_grid_i8(const void* y, const voi
                                                         const void* b, void* o, int N, int H,
                                                         int total_rows, float scale,
                                                         void* stream) {
+  return ullava::launch_grid<true>(y, a, b, o, N, H, total_rows, scale, stream);
+}
+
+// {registers a thread, shared bytes a block, spilled bytes a thread,
+// blocks an SM} of the bf16 (i8 = 0) or int8 score form's kernel.
+ULLAVA_EXPORT int ullava_window_attention_grid_attrs(int i8, int* out) {
   using namespace ullava;
-  WindowGrid p{static_cast<const bf16*>(y), static_cast<const bf16*>(a),
-               static_cast<const bf16*>(b),  static_cast<bf16*>(o),
-               total_rows, kWin * kWin, H, 0, false, scale};
-  return launch_flash<kWinHD, kWin, WindowGrid, false, true>(
-      p, N * H, static_cast<cudaStream_t>(stream));
+  return i8 ? window_whole_attrs<kWinHD, kWin, WindowGrid, WholeWindow, WholeWindow, true>(out)
+            : window_whole_attrs<kWinHD, kWin, WindowGrid, WholeWindow, WholeWindow, false>(out);
 }

@@ -68,6 +68,15 @@ def _check_window_kernel_shape(hd: int, W: int) -> None:
         raise ValueError(f"the CUDA window kernels are built for hd 80, W 14; got {hd}, {W}")
 
 
+# The most rows a window can have in the CUDA window kernel (13 tiles of 16).
+_WINDOW_MAX_ROWS = 208
+# The (rows, cols) rectangles the CUDA boundary-window kernel is built for
+# (ViT-H's right, bottom and corner classes), and the pairs it takes in one
+# dual-geometry launch.
+_RECT_GEOMETRIES = ((14, 8), (8, 14), (8, 8))
+_RECT_DUAL_GEOMETRIES = (((14, 8), (8, 14)), ((8, 14), (14, 8)))
+
+
 def fused_window_attention_grid(
     y: torch.Tensor,  # [N, S, 3*H*hd] qkv projection output (bias included)
     bias_a: torch.Tensor,  # [N, S, H*W] col a' = bias for key row W-1-a'
@@ -85,8 +94,9 @@ def fused_window_attention_grid(
     layout) every window is stored as S = `total_rows` rows: the tail rows
     are left out as keys, and as queries they give finite rows that the
     caller drops. `dots_i8` takes the int8 score form. CUDA kernel
-    `kernels/csrc/sam_window_attention.cu` (W 14, hd 80, bf16; its `_i8`
-    entry for `dots_i8`) for CUDA tensors, the plain version for CPU ones."""
+    `kernels/csrc/sam_window_attention.cu` (W 14, hd 80, at most 208 rows a
+    window, bf16; its `_i8` entry for `dots_i8`) for CUDA tensors, the plain
+    version for CPU ones."""
     N, S, width = y.shape
     H, hd, W = num_heads, head_dim, window
     if S != (total_rows or W * W) or S < W * W or width != 3 * H * hd:
@@ -98,6 +108,8 @@ def fused_window_attention_grid(
     if y.device.type == "cpu":
         return fused_window_attention_grid_plain(y, bias_a, bias_b, H, hd, W, scale, dots_i8)
     _check_window_kernel_shape(hd, W)
+    if S > _WINDOW_MAX_ROWS:
+        raise ValueError(f"the CUDA window kernel holds at most {_WINDOW_MAX_ROWS} rows, got {S}")
     kernels.check_cuda_tensor("window y", y, torch.bfloat16)
     kernels.check_cuda_tensor("window bias_a", bias_a, torch.bfloat16)
     kernels.check_cuda_tensor("window bias_b", bias_b, torch.bfloat16)
@@ -191,8 +203,9 @@ def fused_window_attention_rect(
     tables say, handed over so that the card's wrapper need not read it
     back from device memory. CUDA kernel `kernels/csrc/sam_rect_attention.cu`
     (W 14, hd 80, bf16; its `_i8` entry for `dots_i8`) for CUDA tensors,
-    which needs `geometry`; the plain version for CPU ones, which checks it
-    against `oh`."""
+    which needs `geometry`, one of ViT-H's boundary classes (14 x 8, 8 x 14,
+    8 x 8) or the two edges as a pair; the plain version for CPU ones, which
+    checks it against `oh`."""
     N, T, width = y.shape
     H, hd, W = num_heads, head_dim, window
     halves = oh.shape[0] if oh.ndim == 3 else 0
@@ -209,7 +222,7 @@ def fused_window_attention_rect(
             f"do not match N={N} T={T} W={W}"
         )
     if geometry is not None:
-        geoms = tuple(geometry) if halves else (tuple(geometry),)
+        geoms = tuple(tuple(g) for g in geometry) if halves else (tuple(geometry),)
         if len(geoms) != max(halves, 1) or any(
             len(g) != 2 or g[0] * g[1] != T or not (0 < g[0] <= W and 0 < g[1] <= W) for g in geoms
         ):
@@ -227,6 +240,9 @@ def fused_window_attention_rect(
     _check_window_kernel_shape(hd, W)
     if halves not in (0, 2):
         raise ValueError(f"the CUDA boundary-window kernel takes one or two geometries, got {halves}")
+    built = _RECT_DUAL_GEOMETRIES if halves else tuple((g,) for g in _RECT_GEOMETRIES)
+    if geoms not in built:
+        raise ValueError(f"the CUDA boundary-window kernel is not built for geometry {geoms}")
     if (P * (hd + 2 * W)) % 8:
         raise ValueError(f"pad_k: a head's {P} x {hd + 2 * W} table must be a multiple of 16 bytes")
     for name, t in (("y", y), ("bias_a", bias_a), ("bias_b", bias_b), ("pad_k", pad_k),
