@@ -29,9 +29,12 @@ Phases, each fatal on any error:
                shared bytes and blocks an SM), the two
                global attention kernels on the wgmma + TMA core (K11 in
                its four forms, K20, each beside K4 on the old core and
-               with its SASS counts), the packed and the two uncalled
-               kernels, also a copy of the source rebuilt with a
-               deliberate bug);
+               with its SASS counts), K2 on the wgmma + TMA flash forward
+               at both head dims and K12 on the wgmma + TMA int8 GEMM core
+               (each with its SASS counts and registers; K2 also at B=16,
+               K12 also per stage and beside `torch._int_mm` per product),
+               the packed and the two uncalled kernels, also a copy of
+               the source rebuilt with a deliberate bug);
      mlp_v2  - the chunk-pipelined W8A8 MLP (`fused_mlp_block_v2`)
                against its plain version at the int8 SAM encoder's shape,
                at 1000 rows and at the MLP microbenchmark's shape, its
@@ -268,6 +271,55 @@ def kernel_line(name, max_abs_err, gate, kern, plain, library, in_out, flops, it
     return line
 
 
+# The deliberate bugs of K2's wgmma + TMA forward (`flash_fwd_sm90.cuh`,
+# which K15 shares) that its gates must catch, each built into a copy of
+# K2's source: a kv_len-edge tile masked at the tile's end instead of at
+# kv_len (both head dims), and K15's causal bound one key late (the causal
+# hd 128 gate).
+K2_MUTANTS = {
+    "kv_edge_at_tile_end": ("flash_attention.cu", "ULLAVA_MUTANT_KV_EDGE_TILE_END"),
+    "causal_mask_shifted": ("flash_attention.cu", "ULLAVA_MUTANT_CAUSAL_SHIFT"),
+}
+K2_ATTRS = ("flash_attention.cu", "ullava_flash_attention_fwd_bsh_attrs")
+
+
+def k2_sass() -> dict:
+    """K2's `HGMMA` / `UTMALDG` / `HMMA` counts in the built library's SASS,
+    for each head dim's kernel (the template's mangled name holds it)."""
+    return {f"hd{hd}": sass_counts("flash_attention.cu", f"flash_fwd_sm90_kernelILi{hd}E")
+            for hd in (128, 64)}
+
+
+def k2_b16_line(gen, H, hd) -> dict:
+    """K2 at the int8 serves' prefill, [16, 320, 32, 128], causal, kv_lens
+    320 down to 257: its gate, time, bound and SDPA + mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from ullava_tpu_torch.ops import attention
+
+    q, k, v = ((torch.randn((B_INT8, PROMPT, H, hd), generator=gen, device="cuda")).to(
+        torch.bfloat16) for _ in range(3))
+    lens = torch.tensor([PROMPT - (i * 63) // (B_INT8 - 1) for i in range(B_INT8)],
+                        device="cuda", dtype=torch.int32)
+    sc = hd**-0.5
+    run = lambda: attention.flash_attention_fwd_bsh(q, k, v, lens, causal=True, scale=sc)  # noqa: E731
+    got = run()
+    ref = attention.flash_attention_fwd_bsh_plain(q, k, v, lens, causal=True, scale=sc)
+    err = row_rel_err(got, ref)
+    must("flash_attention_fwd_bsh B=16", err <= 1e-2, err)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kp = torch.arange(PROMPT, device="cuda")
+    mask = (kp[None, :] <= kp[:, None])[None, None] & (kp[None, :] < lens[:, None])[:, None, None, :]
+    live = sum(min(i + 1, int(n)) for n in lens.tolist() for i in range(PROMPT)) * H
+    b_ms, b_by = bound_ms(2 * nbytes(q) + nbytes(lens) + live_bytes(lens.tolist(), k, v),
+                          4.0 * hd * live)
+    return {"shape": [B_INT8, PROMPT, H, hd], "row_rel_err": err, "tol": 1e-2,
+            "ms": time_ms(run, 20), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=sc), 20)}
+
+
 def kernel_phases(gen) -> dict:
     """Each kernel against its plain version at the serving shapes.
 
@@ -277,8 +329,8 @@ def kernel_phases(gen) -> dict:
     kernel: each kernel is run once more on a mutated input that stands
     for a typical bug (rotation sign, causal mask, bias dropped or its two
     terms swapped; K3 also a copy of its source built with
-    `QUAD_MAX_MUTANTS`), and that output, held to the same reference, must
-    fail the gate."""
+    `QUAD_MAX_MUTANTS`, K2 copies built with `K2_MUTANTS`), and that
+    output, held to the same reference, must fail the gate."""
     import torch
     import torch.nn.functional as F
 
@@ -331,14 +383,22 @@ def kernel_phases(gen) -> dict:
     kp = torch.arange(PROMPT, device=dev)
     mask = (kp[None, :] <= kp[:, None])[None, None] & (kp[None, :] < lens[:, None])[:, None, None, :]
     live = sum(min(i + 1, int(n)) for n in lens.tolist() for i in range(PROMPT)) * H
+    k2_mutants = {"not_causal": attention.flash_attention_fwd_bsh(q, k, v, lens, causal=False, scale=sc)}
+    for bug, src_define in K2_MUTANTS.items():
+        with kernels.mutant(*src_define):
+            k2_mutants[bug] = run()
     record("flash_attention_fwd_bsh", run(),
            attention.flash_attention_fwd_bsh_plain(q, k, v, lens, causal=True, scale=sc),
-           {"not_causal": attention.flash_attention_fwd_bsh(q, k, v, lens, causal=False, scale=sc)},
-           1e-2, run,
+           k2_mutants, 1e-2, run,
            lambda: attention.flash_attention_fwd_bsh_plain(q, k, v, lens, causal=True, scale=sc),
            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=sc),
            2 * nbytes(q) + nbytes(lens) + live_bytes(lens.tolist(), k, v), 4.0 * hd * live)
-    del qt, kt, vt, mask
+    results["flash_attention_fwd_bsh"].update(
+        shape=[B, PROMPT, H, hd], sass=k2_sass(),
+        # Its own generator: the phases after it draw what they drew before.
+        b16=k2_b16_line(torch.Generator(device=dev).manual_seed(13), H, hd),
+        kernel=kernels.kernel_attrs(*K2_ATTRS, hd))
+    del qt, kt, vt, mask, k2_mutants
 
     # K3: one ViT-H window block at B=4: 100 windows of 14x14, 16 heads.
     # The encoder's bias terms are q.rel_pos with an unscaled q: a few
@@ -671,6 +731,19 @@ def int8_kernel_phases(gen) -> dict:
     return results
 
 
+# The deliberate bugs of K12 on the wgmma + TMA int8 core
+# (`int8_gemm_sm90.cuh`): fc1 quantizing by its own tile's row abs-max
+# without the cluster's, and fc2 scaling a chunk by the next chunk's hs.
+K12_MUTANTS = {
+    "fc1_tile_amax": ("mlp_block_int8.cu", "ULLAVA_MUTANT_MLP_TILE_AMAX"),
+    "fc2_next_chunk_scale": ("mlp_block_int8.cu", "ULLAVA_MUTANT_MLP_NEXT_CHUNK_SCALE"),
+}
+K12_ATTRS = ("mlp_block_int8.cu", "ullava_fused_mlp_block_int8_attrs")
+# The rows of K12's three window-class launches a resident window block at
+# B=16: 256 full windows of 200 rows, the edge pair, the corners.
+RESIDENT_MLP_ROWS = (51200, 14336, 1024)
+
+
 def sam_int8_kernel_phases(gen) -> dict:
     """The three kernels of the int8 SAM encoder path against their plain
     versions at the shapes of one B=16 ViT-H encode: 65536 token rows, C
@@ -813,6 +886,14 @@ def sam_int8_kernel_phases(gen) -> dict:
                                      *judge_mlp(nob[0], nob[3], nob[4])),
     }
     del one, nob
+    # The new core's two riskiest places, each a copy of the source built
+    # with the bug (`K12_MUTANTS`).
+    for bug, src_define in K12_MUTANTS.items():
+        with kernels.mutant(*src_define):
+            bad = mlp_kernel._mlp_block_cuda(*args, 1024)
+        torch.cuda.synchronize()
+        info["mutants"][bug] = must_not("fused_mlp_block", bug, *judge_mlp(bad[0], bad[3], bad[4]))
+        del bad
 
     results["fused_mlp_block"] = kernel_line(
         "fused_mlp_block", (got.float() - ref.float()).abs().max().item(), info,
@@ -824,8 +905,20 @@ def sam_int8_kernel_phases(gen) -> dict:
     results["fused_mlp_block"]["stage_ms"] = stage_ms(
         lambda bits: mlp_kernel._mlp_block_cuda(*args, 1024, stages=bits, scratch=(xq, xs, hq, hs)),
         {"row_pass": 1, "fc1": 2, "fc2": 4})
-    results["fused_mlp_block"]["shape"] = [T, C, Fw]
-    log(f"[kernel] fused_mlp_block stages {json.dumps(results['fused_mlp_block']['stage_ms'])}")
+    results["fused_mlp_block"].update(
+        shape=[T, C, Fw], sass=sass_counts("mlp_block_int8.cu", "gemm_sm90_kernel",
+                                           ("IGMMA", "UTMALDG", "IMMA")),
+        kernel={fc: kernels.kernel_attrs(*K12_ATTRS, i) for i, fc in ((1, "fc1"), (2, "fc2"))},
+        # cuBLASLt's int8 GEMM alone on each product's operands (int32 out,
+        # no epilogue): a yardstick of the products, not of the function.
+        int_mm_ms={"fc1": time_ms(lambda: torch._int_mm(xq, w1), 10),
+                   "fc2": time_ms(lambda: torch._int_mm(hq, w2), 10)},
+        # The resident serve's window classes (a block's full windows, edge
+        # pair and corners at B=16): the serve's K12 time by the kernel lines.
+        resident_class_ms={str(n): time_ms(lambda n=n: mlp_kernel._mlp_block_cuda(
+            x[:n], *args[1:], 1024), 10) for n in RESIDENT_MLP_ROWS})
+    log(f"[kernel] fused_mlp_block stages {json.dumps(results['fused_mlp_block']['stage_ms'])} "
+        f"int_mm {json.dumps(results['fused_mlp_block']['int_mm_ms'])}")
     del ref, got, xq, xs, hq, hs, xq_ref, xs_ref, hq_ref, hs_ref, x, w1, w2
     torch.cuda.empty_cache()
 
@@ -1558,7 +1651,10 @@ def all_int8_kernel_phases(gen, results: dict) -> None:
         q, k, v, l, causal=False, scale=hdc**-0.5)
     got = run()
     ref = attention.flash_attention_fwd_bsh_plain(q, k, v, lens, causal=False, scale=hdc**-0.5)
-    info = gate(name, got, ref, {"kv_lens_ignored": run(torch.full_like(lens, CLIP_PADDED))})
+    with kernels.mutant(*K2_MUTANTS["kv_edge_at_tile_end"]):
+        kv_edge = run()
+    info = gate(name, got, ref, {"kv_lens_ignored": run(torch.full_like(lens, CLIP_PADDED)),
+                                 "kv_edge_at_tile_end": kv_edge})
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     key_ok = (torch.arange(CLIP_PADDED, device=dev) < CLIP_TOKENS)[None, None, None, :]
     results[name] = kernel_line(
@@ -1568,8 +1664,9 @@ def all_int8_kernel_phases(gen, results: dict) -> None:
         lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=key_ok, scale=hdc**-0.5),
         nbytes(q, lens, got) + live_bytes(lens.tolist(), k, v),
         4.0 * B_INT8 * Hc * CLIP_PADDED * CLIP_TOKENS * hdc)
-    results[name]["shape"] = [B_INT8, CLIP_PADDED, Hc, hdc]
-    del q, k, v, qt, kt, vt, got, ref
+    results[name].update(shape=[B_INT8, CLIP_PADDED, Hc, hdc], sass=k2_sass(),
+                         kernel=kernels.kernel_attrs(*K2_ATTRS, hdc))
+    del q, k, v, qt, kt, vt, got, ref, kv_edge
     torch.cuda.empty_cache()
 
 
@@ -1796,10 +1893,10 @@ def train_kernel_phases(gen, results: dict) -> None:
     dkv kernel, scale dropped from dS in the dq kernel, the c term dropped
     from dx. The library yardsticks: SDPA with is_causal (no kv_lens mask)
     forward, and its backward under autograd (dq, dk and dv in one call),
-    and the backward of `F.rms_norm` under autograd. K15's line adds the
-    same products on the shared mma.sync core (K2 on the same inputs,
-    `old_core_ms`), its rate over the live causal products and its
-    `HGMMA` / `UTMALDG` counts in the built library's SASS."""
+    and the backward of `F.rms_norm` under autograd; SDPA's backward is
+    timed once and stands in both K16's and K17's line. K15's line adds
+    its rate over the live causal products and its `HGMMA` / `UTMALDG`
+    counts in the built library's SASS."""
     import torch
     import torch.nn.functional as F
 
@@ -1843,15 +1940,10 @@ def train_kernel_phases(gen, results: dict) -> None:
         lambda: attention.flash_attention_fwd_plain(q, k, v, lens, **kw),
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=sc),
         nbytes(q, lens, o, lse) + live_bytes(TRAIN_LENS, k, v), flops)
-    # The same products on the shared mma.sync core, without the lse store.
-    line["old_core_ms"] = time_ms(
-        lambda: attention.flash_attention_fwd_bsh(q, k, v, lens, **kw), 20)
-    line["old_core"] = "K2 flash_attention_fwd_bsh (flash_core.cuh) on the same inputs"
     line["tflops_live"] = flops / line["ms"] / 1e9
     line["sass"] = sass_counts("flash_fwd_sm90.cu", "flash_fwd_sm90_kernel")
     results["flash_attention_fwd_lse"] = line
-    log(f"[kernel] K15 old_core_ms {line['old_core_ms']} tflops_live {line['tflops_live']} "
-        f"sass {line['sass']}")
+    log(f"[kernel] K15 tflops_live {line['tflops_live']} sass {line['sass']}")
     del o_ref, lse_ref, lse_bad, o_bad
 
     # K16 + K17 on the forward's own o and lse.
@@ -1873,7 +1965,9 @@ def train_kernel_phases(gen, results: dict) -> None:
     rest = (B_TRAIN, S_TRAIN, S_TRAIN, H, 1, 0, float(sc))
     qr, kr, vr = (t.detach().clone().requires_grad_(True) for t in (qt, kt, vt))
     sdpa = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True, scale=sc)
-    library = lambda: torch.autograd.grad(sdpa, (qr, kr, vr), dot, retain_graph=True)  # noqa: E731
+    # One timing of SDPA's backward (dq, dk and dv in one call) for both lines.
+    library_ms = time_ms(
+        lambda: torch.autograd.grad(sdpa, (qr, kr, vr), dot, retain_graph=True), 20)
     plain = lambda: attention.flash_attention_bwd_plain(q, k, v, o, lse, do, lens, **kw)  # noqa: E731
     results["flash_attention_bwd_dkv"] = kernel_line(
         "flash_attention_bwd_dkv",
@@ -1885,7 +1979,7 @@ def train_kernel_phases(gen, results: dict) -> None:
          "plain_and_library_cover": "dq, dk and dv"},
         lambda: kernels.launch("flash_attention_bwd_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(),
                                *rest),
-        plain, library, nbytes(q, do, lse, delta, lens, dk, dv) + live_bytes(TRAIN_LENS, k, v),
+        plain, None, nbytes(q, do, lse, delta, lens, dk, dv) + live_bytes(TRAIN_LENS, k, v),
         8.0 * hd * live)
     results["flash_attention_bwd_dq"] = kernel_line(
         "flash_attention_bwd_dq", (dq.float() - ref[0].float()).abs().max().item(),
@@ -1893,8 +1987,10 @@ def train_kernel_phases(gen, results: dict) -> None:
          "mutant_grad_rel_err": {"scale_dropped": caught["flash_attention_bwd_dq"]},
          "plain_and_library_cover": "dq, dk and dv"},
         lambda: kernels.launch("flash_attention_bwd_dq", *ptrs, dq.data_ptr(), *rest),
-        plain, library, nbytes(q, do, lse, delta, lens, dq) + live_bytes(TRAIN_LENS, k, v),
+        plain, None, nbytes(q, do, lse, delta, lens, dq) + live_bytes(TRAIN_LENS, k, v),
         6.0 * hd * live)
+    for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        results[name]["library_ms"] = library_ms
     del ref, sdpa, qr, kr, vr, qt, kt, vt, dot, q, k, v, do, o, lse, dq, dk, dv, delta
     torch.cuda.empty_cache()
 
@@ -3085,7 +3181,8 @@ def main() -> int:
     built = kernels.build_all(verbose=True, mutants=[
         *TRAIN_MUTANTS.values(), K15_MASK_MUTANT, *WQ_MUTANTS.values(), *I8_MUTANTS.values(),
         *PACKED_MUTANTS.values(), *V2_MUTANTS.values(), *GLOBAL_Y_MUTANTS.values(),
-        *QUAD_MAX_MUTANTS.values(), RECT_PAD_MUTANT])
+        *QUAD_MAX_MUTANTS.values(), RECT_PAD_MUTANT, *K2_MUTANTS.values(),
+        *K12_MUTANTS.values()])
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "sources": sorted(built)}), flush=True)
 

@@ -57,6 +57,41 @@ def test_cuda_flash_attention_matches_plain(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd", [128, 64])
+@pytest.mark.parametrize("Sq,Sk,causal,q_offset", [
+    (1, 40, True, 39),      # one decode-like query row at the end of its keys
+    (16, 16, True, 0),      # the crossover microbenchmark's shortest prefill
+    (100, 130, True, 30),   # a static offset; Sq no multiple of 64
+    (264, 264, False, 0),   # CLIP's padded sequence, not causal
+    (320, 320, True, 0),    # the serving prefill
+])
+def test_cuda_flash_attention_edges_match_plain(cuda, hd, Sq, Sk, causal, q_offset):
+    """K2 at both head dims on the wgmma + TMA forward: GQA (8 heads over
+    2 kv heads), a kv_len of 0 (zeros out), one inside a key tile, one at
+    Sk, and every sequence length the serving paths and the crossover
+    microbenchmark give it; kv_lens ignored fails the gate."""
+    from ullava_tpu_torch import kernels
+
+    B, H, Hkv = 3, 8, 2
+    q = _rand(cuda, B, Sq, H, hd)
+    k, v = (_rand(cuda, B, Sk, Hkv, hd) for _ in range(2))
+    lens = torch.tensor([Sk, 0, max(1, Sk - 7)], dtype=torch.int32, device="cuda")
+    kw = dict(causal=causal, scale=hd**-0.5, q_offset=q_offset)
+    name = "flash_attention_fwd_bsh_hd64" if hd == 64 else "flash_attention_fwd_bsh"
+    before = kernels.launch_counts()[name]
+    got = attention.flash_attention_fwd_bsh(q, k, v, lens, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 1
+    ref = attention.flash_attention_fwd_bsh_plain(q, k, v, lens, **kw)
+    assert _row_rel_err(got, ref) <= _TOL
+    assert not got[1].any()
+    assert bool(torch.isfinite(got.float()).all())
+    if Sk > 8:
+        bad = attention.flash_attention_fwd_bsh(q, k, v, torch.full_like(lens, Sk), **kw)
+        assert _row_rel_err(bad[2:], ref[2:]) > _TOL
+
+
+@pytest.mark.cuda
 def test_cuda_sam_attention_matches_plain(cuda):
     # Bias terms at the encoder's size: q.rel_pos with an unscaled q, std
     # about 2 (K3 takes them pre-scaled by 1/scale).

@@ -111,6 +111,35 @@ def test_cuda_fused_mlp_block_matches_plain(cuda, f_chunk):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("f_chunk", [512, 1024])
+@pytest.mark.parametrize("T", [512, 1000, 1024])
+def test_cuda_fused_mlp_block_row_counts_match_plain(cuda, T, f_chunk):
+    """K12 on the wgmma + TMA int8 core at row counts of one 128-row tile's
+    multiples (512, the corner class's 1024) and not (1000: the last tile
+    ragged), with fc1's columns growing by chunk so that each chunk's
+    abs-max of a row is its own: the cluster reduction of fc1 and the
+    per-chunk scales of fc2 both show in the gates."""
+    C, F = 1280, 5120
+    x = _rand(cuda, T, C, scale=2.0, shift=0.3)
+    gain = (1 + torch.arange(F, device="cuda") // 1024).float()
+    leaf = quant.quantize_int8(torch.randn((C, F), generator=cuda, device="cuda") * 0.05 * gain)
+    w1, s1 = leaf["q"], leaf["scale"]
+    w2, s2 = _weight(cuda, F, C)
+    g, b = _rand(cuda, C, scale=0.1, shift=1.0), _rand(cuda, C, scale=0.1)
+    b1, b2 = _rand(cuda, F, scale=0.5), _rand(cuda, C, scale=0.5)
+    args = (x, g, b, w1, s1, b1, w2, s2, b2, 1e-6, f_chunk)
+    got, xq, xs, hq, hs = mlp_kernel._mlp_block_cuda(*args)
+    ref, xq_ref, xs_ref, hq_ref, hs_ref = mlp_kernel._mlp_block_parts_plain(*args, True)
+    assert _int8_ok(xq, xq_ref)
+    assert _int8_ok(hq, hq_ref)
+    torch.testing.assert_close(hs, hs_ref, rtol=1e-3, atol=0)
+    assert _row_rel_err(got, ref) <= _TOL
+    # The chunk scales differ severalfold, so one for the whole row fails.
+    one = mlp_kernel._mlp_block_parts_plain(*args[:-1], F, True)[0]
+    assert _row_rel_err(one, ref) > _TOL
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("exp_bf16", [False, True])
 @pytest.mark.parametrize("B,H", [(1, 16), (3, 16), (3, 6)], ids=["b1", "b3", "b3_h6_group_tail"])
 def test_cuda_fused_global_attention_y_matches_plain(cuda, exp_bf16, B, H):

@@ -72,12 +72,19 @@ def test_fused_rotary_matches_jax_interpret():
     _close(rope.fused_rotary(_t(x), _t(cos), _t(sin), hd), ref)
 
 
-@pytest.mark.parametrize("causal,q_offset", [(True, 0), (False, 0), (True, 5)])
-def test_flash_attention_fwd_bsh_matches_jax_interpret(causal, q_offset):
+@pytest.mark.parametrize("causal,q_offset,hd,S,len1", [
+    pytest.param(True, 0, 128, 128, 77, id="True-0"),
+    pytest.param(False, 0, 128, 128, 77, id="False-0"),
+    pytest.param(True, 5, 128, 128, 77, id="True-5"),
+    # CLIP's form: hd 64, not causal, kv_lens below S, S no multiple of
+    # the 64-row blocks (the JAX grid is pl.cdiv over them).
+    pytest.param(False, 0, 64, 100, 61, id="hd64-not_causal-S100"),
+])
+def test_flash_attention_fwd_bsh_matches_jax_interpret(causal, q_offset, hd, S, len1):
     rng = np.random.default_rng(3)
-    B, S, H, hd = 2, 128, 2, 128
+    B, H = 2, 2
     q, k, v = (rng.standard_normal((B, S, H, hd)).astype(np.float32) for _ in range(3))
-    lens = np.array([S, 77], np.int32)
+    lens = np.array([S - 3 if hd == 64 else S, len1], np.int32)
     kw = dict(causal=causal, scale=hd**-0.5, q_offset=q_offset)
     ref = j_flash_bsh(
         *(jnp.asarray(a) for a in (q, k, v, lens)), block_q=64, block_k=64,

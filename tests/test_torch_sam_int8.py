@@ -143,6 +143,32 @@ def test_fused_mlp_block_matches_jax(w8a8, f_chunk):
         mlp_kernel.fused_mlp_block(*targs, 1e-6, f_chunk=384, w8a8=w8a8)
 
 
+def test_fused_mlp_block_chunk_spread_matches_jax():
+    """Four chunks of 128 whose fc1 columns grow 1x, 3x, 9x and 27x, so a
+    row's chunk abs-maxima differ severalfold: each chunk's int8 codes and
+    scale are its own (one scale for two chunks, or the next chunk's, is
+    a different result)."""
+    rng = np.random.default_rng(7)
+    T, C, F, fc = 48, 64, 512, 128
+    d1, d2 = _linear_inputs(rng, (T,), C, F), _linear_inputs(rng, (T,), F, C)
+    gain = (3.0 ** (np.arange(F) // fc)).astype(np.float32)
+    w1 = jquant.quantize_int8(jnp.asarray(0.1 * rng.standard_normal((C, F)) * gain, jnp.float32))
+    d1["wq"], d1["ws"] = np.asarray(w1["q"]), np.asarray(w1["scale"])
+    jargs = [jnp.asarray(a) for a in (
+        d1["x"], d1["g"], d1["b"], d1["wq"], d1["ws"], d1["bias"], d2["wq"], d2["ws"], d2["bias"])]
+    ref = jmlp.fused_mlp_block(*jargs, 1e-6, block_t=16, f_chunk=fc, w8a8=True, interpret=True)
+    targs = [_t(d1["x"]), _t(d1["g"]), _t(d1["b"]), quant.column_major(_t(d1["wq"])), _t(d1["ws"]),
+             _t(d1["bias"]), quant.column_major(_t(d2["wq"])), _t(d2["ws"]), _t(d2["bias"])]
+    got = mlp_kernel.fused_mlp_block(*targs, 1e-6, f_chunk=fc, w8a8=True)
+    _close_w8a8(got, ref)
+    hs = mlp_kernel._mlp_block_parts_plain(*targs, 1e-6, fc, True)[4]
+    spread = (hs.amax(1) / hs.amin(1)).median().item()
+    assert hs.shape == (T, 4) and spread > 5, spread
+    # One scale for the whole row is a different result at this spread.
+    one = mlp_kernel.fused_mlp_block(*targs, 1e-6, f_chunk=F, w8a8=True)
+    assert (one.float() - got.float()).abs().max() > 2 * FLIP * got.abs().max()
+
+
 def _attention_inputs(rng, B=1, H=4, W=16, hd=32):
     S, C = W * W, H * hd
     y = rng.standard_normal((B, S, 3 * C)).astype(np.float32)

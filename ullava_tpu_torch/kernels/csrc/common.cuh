@@ -19,4 +19,24 @@ ULLAVA_EXPORT const char* ullava_error_string(int code) {
 
 namespace ullava {
 using bf16 = __nv_bfloat16;
+
+// {registers a thread, shared bytes a block (dynamic + static), local
+// (spilled) bytes a thread, blocks an SM} of `kernel` launched with
+// `threads` threads and `smem` dynamic shared bytes (its attribute set
+// first), from cudaFuncGetAttributes and the occupancy calculator: what
+// the `*_attrs` entries report.
+template <class Kernel>
+inline int func_attrs(Kernel* kernel, int threads, size_t smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(smem + a.sharedSizeBytes);
+  out[2] = static_cast<int>(a.localSizeBytes);
+  out[3] = blocks;
+  return 0;
+}
 }  // namespace ullava

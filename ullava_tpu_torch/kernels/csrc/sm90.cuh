@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the wgmma + TMA kernels: the
-// flash forward with lse (K15, flash_fwd_sm90.cu) and the SAM global
-// attention core (K11, K20, global_sm90.cuh).
+// flash forward (K15 and K2, flash_fwd_sm90.cuh), the SAM global attention
+// core (K11, K20, global_sm90.cuh) and the int8 GEMM core (K12,
+// int8_gemm_sm90.cuh).
 //
 //   - mbarrier helpers (init, expect-tx, arrive, parity wait);
 //   - a 4-D TMA tile load completing on an mbarrier's transaction count;
@@ -165,6 +166,22 @@ __device__ __forceinline__ void wgmma_qk_s8_first(uint32_t (&d)[64], uint64_t da
         ULLAVA_R8(d, 32), ULLAVA_R8(d, 40), ULLAVA_R8(d, 48), ULLAVA_R8(d, 56)
       : "l"(da), "l"(db), "r"(0));
 }
+// d[64] = A * B, or d[64] += A * B where `accumulate` is not 0: one
+// product whose first step of a sum is chosen at run time, with no branch
+// between two forms for the compiler to merge registers across.
+__device__ __forceinline__ void wgmma_s8(uint32_t (&d)[64], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " ULLAVA_D64 ", %64, %65, p;\n"
+      "}\n"
+      : ULLAVA_RR8(d, 0), ULLAVA_RR8(d, 8), ULLAVA_RR8(d, 16), ULLAVA_RR8(d, 24),
+        ULLAVA_RR8(d, 32), ULLAVA_RR8(d, 40), ULLAVA_RR8(d, 48), ULLAVA_RR8(d, 56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // ... and d[64] += A * B for the further 32-deep steps.
 __device__ __forceinline__ void wgmma_qk_s8(uint32_t (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(

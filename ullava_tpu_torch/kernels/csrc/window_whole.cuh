@@ -833,19 +833,8 @@ int launch_window_whole(const P& p, int num_inst, cudaStream_t stream) {
 template <int HD, int WB, class P, class G0 = WwRect<WB, WB>, class G1 = G0, bool I8 = false>
 int window_whole_attrs(int* out) {
   if (const int err = window_whole_configure<HD, WB, P, G0, G1, I8>()) return err;
-  constexpr size_t smem = window_whole_total_smem<HD, WB, P, G0, G1, I8>();
-  cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, window_whole_kernel<HD, WB, P, G0, G1, I8>);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, window_whole_kernel<HD, WB, P, G0, G1, I8>, kWwThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = a.numRegs;
-  out[1] = static_cast<int>(smem + a.sharedSizeBytes);
-  out[2] = static_cast<int>(a.localSizeBytes);
-  out[3] = blocks;
-  return 0;
+  return func_attrs(window_whole_kernel<HD, WB, P, G0, G1, I8>, kWwThreads,
+                    window_whole_total_smem<HD, WB, P, G0, G1, I8>(), out);
 }
 
 }  // namespace ullava

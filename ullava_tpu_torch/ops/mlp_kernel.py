@@ -522,8 +522,8 @@ def _mlp_block_cuda(x, ln_scale, ln_bias, w1_q, w1_scale, b1, w2_q, w2_scale, b2
     on the `scratch` of an earlier full call."""
     T, C = x.shape
     F = _check_mlp_block(x, ln_scale, ln_bias, w1_q, w1_scale, b1, w2_q, w2_scale, b2)
-    if f_chunk % 128 or not 128 <= f_chunk <= 1024:
-        raise ValueError(f"fused_mlp_block: f_chunk {f_chunk} must be a multiple of 128 up to 1024")
+    if f_chunk % 256 or not 256 <= f_chunk <= 1024:
+        raise ValueError(f"fused_mlp_block: f_chunk {f_chunk} must be a multiple of 256 up to 1024")
     dev = x.device
     out = torch.empty_like(x)
     xq, xs, hq, hs = scratch or (
