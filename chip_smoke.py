@@ -30,11 +30,16 @@ Phases, each fatal on any error:
                global attention kernels on the wgmma + TMA core (K11 in
                its four forms, K20, each beside K4 on the old core and
                with its SASS counts), K2 on the wgmma + TMA flash forward
-               at both head dims and K12 on the wgmma + TMA int8 GEMM core
-               (each with its SASS counts and registers; K2 also at B=16,
-               K12 also per stage and beside `torch._int_mm` per product),
-               the packed and the two uncalled kernels, also a copy of
-               the source rebuilt with a deliberate bug);
+               at both head dims, K12 and K13 (both products in one
+               launch) on the wgmma + TMA int8 GEMM core (each with its
+               SASS counts and registers; K2 also at B=16, K12 and K13
+               also per stage and beside `torch._int_mm` per product, K13
+               also with the core's persistent tile loop), K8 (the median
+               and spread of five batches beside K22's old design, also
+               over a 2048-row cache at B=16 and at B=4, where it splits a
+               sample's rows over blocks), the packed and the two
+               uncalled kernels, also a copy of the source rebuilt with a
+               deliberate bug);
      mlp_v2  - the chunk-pipelined W8A8 MLP (`fused_mlp_block_v2`)
                against its plain version at the int8 SAM encoder's shape,
                at 1000 rows and at the MLP microbenchmark's shape, its
@@ -149,19 +154,25 @@ def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
+def time_ms(fn, iters: int, warmup: int = 2, read_flush: bool = False) -> float:
     """Mean device time of `fn` over `iters` calls, each timed alone with
     CUDA events after a 256 MB write that evicts the 50 MB L2, so that
-    its inputs come from HBM as on the main path."""
+    its inputs come from HBM as on the main path. The write leaves the L2
+    full of dirty lines, whose write-back then shares HBM with the timed
+    call; `read_flush` evicts by a 256 MB read instead, which leaves clean
+    lines (what a decode step's kernels find after its weight reads)."""
     import torch
 
     for _ in range(warmup):
         fn()
-    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    flush = torch.zeros(64 << 20, dtype=torch.int32, device="cuda")
     ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
           for _ in range(iters)]
     for start, end in ev:
-        flush.zero_()
+        if read_flush:
+            flush.amax()
+        else:
+            flush.zero_()
         start.record()
         fn()
         end.record()
@@ -527,10 +538,140 @@ def must_not(name, mutant, ok, info):
     return info
 
 
+# The deliberate bugs of K8's redesign (`decode_attention_int8.cu`) that
+# its gates must catch, each built into a copy of the source: the splits'
+# partials merged without rescaling to their common max, and the last row
+# tile of a split left out.
+K8_MUTANTS = {
+    "merge_without_rescale": ("decode_attention_int8.cu", "ULLAVA_MUTANT_DECODE_MERGE_NO_RESCALE"),
+    "split_last_tile_left_out": ("decode_attention_int8.cu", "ULLAVA_MUTANT_DECODE_SPLIT_LAST_TILE"),
+}
+K8_ATTRS = ("decode_attention_int8.cu", "ullava_decode_attention_int8_fused_write_attrs")
+
+
+def spread_ms(fn, batches: int = 5, iters: int = 20) -> dict:
+    """`ms` the median of `batches` batches of `time_ms(fn, iters)`, with
+    their least and largest: one number cannot show a change where runs
+    of one code spread; and `ms_read_flush` the median of as many batches
+    timed after an L2 eviction that leaves no dirty lines."""
+    runs = sorted(time_ms(fn, iters) for _ in range(batches))
+    clean = sorted(time_ms(fn, iters, read_flush=True) for _ in range(batches))
+    return {"ms": runs[len(runs) // 2], "ms_min": runs[0], "ms_max": runs[-1], "batches": batches,
+            "ms_read_flush": clean[len(clean) // 2]}
+
+
+class K8Case:
+    """One decode step's inputs over an int8 cache, the plain versions'
+    answers on a copy, and K8's gates against them: 2^-7 of a row's
+    largest value against the plain version fed q in fp32, 2^-6 against
+    the bf16 plain version, every cache byte but the new rows untouched."""
+
+    def __init__(self, q, kq, ks, vq, vs, cache, wp, layer, scale):
+        from ullava_tpu_torch.ops import decode_attention
+
+        self.args, self.cache = (q, kq, ks, vq, vs), cache
+        self.wp, self.layer, self.scale = wp, layer, scale
+        self.expect = decode_attention.decode_attention_int8_fused_write_plain(
+            *self.args, *(c.clone() for c in cache), wp, layer, scale=scale)
+        self.ref = decode_attention.decode_attention_int8_fused_write_plain(
+            q.float(), *self.args[1:], *(c.clone() for c in self.expect[1:]), wp, layer,
+            scale=scale)[0].to(q.dtype)
+
+    def run(self, splits=None):
+        """The public entry, or its CUDA form with `splits` blocks a
+        (sample, head) forced; (attn, the four cache tensors)."""
+        from ullava_tpu_torch.ops import decode_attention
+
+        if splits is None:
+            return decode_attention.decode_attention_int8_fused_write(
+                *self.args, *self.cache, self.wp, self.layer, scale=self.scale)
+        return (decode_attention._fused_write_cuda(
+            *self.args, *self.cache, self.wp, self.layer, self.scale, splits), *self.cache)
+
+    def err(self, got) -> float:
+        """The smaller of the two gates' errors (a mutant must fail both)."""
+        return min(row_rel_err(got, self.ref), row_rel_err(got, self.expect[0]))
+
+    def gate(self, name, got) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        err, err_bf16 = row_rel_err(got[0], self.ref), row_rel_err(got[0], self.expect[0])
+        untouched = all(torch.equal(g_, e_) for g_, e_ in zip(got[1:], self.expect[1:]))
+        info = {"row_rel_err": err, "tol": 2.0**-7, "row_rel_err_to_bf16_plain": err_bf16,
+                "tol_to_bf16_plain": 2.0**-6, "cache_equals_scatter": untouched,
+                "max_abs_err": (got[0].float() - self.ref.float()).abs().max().item()}
+        must(name, err <= 2.0**-7 and err_bf16 <= 2.0**-6 and untouched, info)
+        return info
+
+    def bytes(self) -> float:
+        """What the step must move: the write_pos rows of K and V a sample
+        and their scales, q and out, the new rows, write_pos."""
+        q, kq, ks = self.args[:3]
+        Hkv = ks.shape[-1]
+        hist = float(self.wp.clamp(0, self.cache[0].shape[2]).sum())
+        return (hist * (2 * kq.shape[-1] + 2 * 4 * Hkv) + 2 * nbytes(q)
+                + 2 * nbytes(*self.args[1:]) + nbytes(self.wp.int()))
+
+    def spread(self, splits=None) -> dict:
+        return spread_ms(lambda: self.run(splits))
+
+    def k22_spread(self) -> dict:
+        """K22 over rows [0, write_pos] of the cache K8 has written."""
+        from ullava_tpu_torch.ops import decode_attention
+
+        kl = (self.wp + 1).int()
+        return spread_ms(lambda: decode_attention.decode_attention_int8(
+            self.args[0], *self.cache, kl, self.layer, scale=self.scale))
+
+
+def k8_long_cache_line(gen, Bk: int, label: str) -> dict:
+    """K8 over one layer of a [1, Bk, 2048, 4096] int8 cache (a 268 MB
+    slice at Bk=16), write positions 1900-2047: its gates, its time (the
+    chosen split and one block a (sample, head)) beside its bound, and
+    K22's on the same rows."""
+    import torch
+
+    from ullava_tpu_torch import kernels
+    from ullava_tpu_torch.ops import decode_attention
+
+    dev, H, hd, S = "cuda", 32, 128, 2048
+    cache = [torch.randint(-127, 128, (1, Bk, S, H * hd), generator=gen, device=dev,
+                           dtype=torch.int8) for _ in range(2)]
+    cache += [torch.rand((1, Bk, S, H), generator=gen, device=dev) * 0.02 + 1e-3
+              for _ in range(2)]
+    q = (torch.randn((Bk, 1, H, hd), generator=gen, device=dev)).to(torch.bfloat16)
+    kq, ks = decode_attention.quantize_kv_rows(
+        torch.randn((Bk, H, hd), generator=gen, device=dev) + 0.25 * q[:, 0].float())
+    vq, vs = decode_attention.quantize_kv_rows(torch.randn((Bk, H, hd), generator=gen, device=dev) * 3)
+    wp = 1900 + (torch.arange(Bk, device=dev) * 37) % 148
+    k8 = K8Case(q, kq.reshape(Bk, H * hd), ks, vq.reshape(Bk, H * hd), vs, cache, wp, 0, hd**-0.5)
+    splits = decode_attention.fused_write_splits(
+        Bk, H, S, torch.cuda.get_device_properties(0).multi_processor_count)
+    info = k8.gate(f"decode_attention_int8_fused_write {label}", k8.run())
+    caught = {}
+    for bug, src_define in K8_MUTANTS.items():
+        with kernels.mutant(*src_define):
+            caught[bug] = k8.err(k8.run(splits=max(splits, 2) if bug == "merge_without_rescale"
+                                        else None)[0])
+        must_not(f"decode_attention_int8_fused_write {label}", bug, caught[bug] <= 2.0**-6,
+                 caught[bug])
+    hist = float(wp.sum())
+    b_ms, b_by = bound_ms(k8.bytes(), 4.0 * hist * H * hd, FP32_FLOPS_PER_S)
+    line = {"shape": [1, Bk, S, H * hd], "write_pos": [int(wp.min()), int(wp.max())],
+            "slice_bytes": nbytes(*cache), **info, "mutant_row_rel_err": caught,
+            "splits": splits, **k8.spread(), "bound_ms": b_ms, "bound_by": b_by,
+            "old_design_k22": k8.k22_spread()}
+    line["other_splits_ms"] = {str(n): k8.spread(n)["ms"] for n in (1, 2, 4) if n != splits}
+    del k8, cache
+    torch.cuda.empty_cache()
+    return line
+
+
 def int8_kernel_phases(gen) -> dict:
     """The five kernels of the int8 LLM path against their plain versions
     at the shapes of a B=16 serve (5120 prefill rows; a [32, 16, 352,
-    4096] int8 cache).
+    4096] int8 cache; K8 also over a 2048-row cache at B=16 and B=4).
 
     Gates: int8 outputs at least 99.9% exact and the rest within 1 (a
     value within fp32 summation-order noise of .5 may round the other
@@ -542,6 +683,7 @@ def int8_kernel_phases(gen) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from ullava_tpu_torch import kernels
     from ullava_tpu_torch.ops import decode_attention, mlp_kernel, norms
 
     dev = "cuda"
@@ -675,12 +817,6 @@ def int8_kernel_phases(gen) -> dict:
     kq, vq = kq.reshape(B_INT8, H * hd), vq.reshape(B_INT8, H * hd)
     wp = PROMPT + (torch.arange(B_INT8, device=dev) * 5) % NEW_TOKENS
     sc = hd**-0.5
-    expect = decode_attention.decode_attention_int8_fused_write_plain(
-        q, kq, ks, vq, vs, *(c.clone() for c in cache), wp, layer, scale=sc)
-    run = lambda: decode_attention.decode_attention_int8_fused_write(  # noqa: E731
-        q, kq, ks, vq, vs, *cache, wp, layer, scale=sc)
-    got = run()
-    torch.cuda.synchronize()
     # Two gates, both of which must hold. The kernel keeps its
     # probabilities, their value scales and the dequantized rows in fp32;
     # the plain version in bf16 (what a CPU tensor takes) rounds each of
@@ -689,25 +825,27 @@ def int8_kernel_phases(gen) -> dict:
     # 2^-6. Fed the same q as fp32 and rounded to bf16 once, as the
     # kernel's result is, the plain version and a correct kernel round two
     # nearly equal fp32 values, which can land one ulp apart and no more:
-    # 2^-7.
-    tol_bf16, tol_f32 = 2.0**-6, 2.0**-7
-    ref = decode_attention.decode_attention_int8_fused_write_plain(
-        q.float(), kq, ks, vq, vs, *expect[1:], wp, layer, scale=sc)[0].to(bf)
-    err, err_bf16 = row_rel_err(got[0], ref), row_rel_err(got[0], expect[0])
-    untouched = all(torch.equal(g_, e_) for g_, e_ in zip(got[1:], expect[1:]))
-    info = {"row_rel_err": err, "tol": tol_f32, "row_rel_err_to_bf16_plain": err_bf16,
-            "tol_to_bf16_plain": tol_bf16, "cache_equals_scatter": untouched}
-    must("decode_attention_int8_fused_write",
-         err <= tol_f32 and err_bf16 <= tol_bf16 and untouched, info)
+    # 2^-7 (`K8Case`).
+    tol_bf16 = 2.0**-6
+    k8 = K8Case(q, kq, ks, vq, vs, cache, wp, layer, sc)
+    info = k8.gate("decode_attention_int8_fused_write", k8.run())
+    # The split form (the last block of a (sample, head) merges the
+    # others' partials) at the same shape, forced: its gates and its time.
+    info["splits_2"] = k8.gate("decode_attention_int8_fused_write splits 2", k8.run(splits=2))
     hist = float(wp.sum())
-    step_bytes = (hist * (2 * H * hd + 2 * 4 * H) + 2 * nbytes(q) + 2 * nbytes(kq, ks, vq, vs)
-                  + nbytes(wp.int()))
-    results["decode_attention_int8_fused_write"] = kernel_line(
-        "decode_attention_int8_fused_write", (got[0].float() - ref.float()).abs().max().item(),
-        info, run,
+    results["decode_attention_int8_fused_write"] = line = kernel_line(
+        "decode_attention_int8_fused_write", info.pop("max_abs_err"), info, k8.run,
         lambda: decode_attention.decode_attention_int8_fused_write_plain(
             q, kq, ks, vq, vs, *cache, wp, layer, scale=sc),
-        None, step_bytes, 4.0 * hist * H * hd, flops_per_s=FP32_FLOPS_PER_S)
+        None, k8.bytes(), 4.0 * hist * H * hd, flops_per_s=FP32_FLOPS_PER_S)
+    # The median and spread of five batches of timed launches, K8 and the
+    # old design (K22's read kernel, which attends the same rows once K8
+    # has written row write_pos) in turns on the same cache.
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    line.update(k8.spread(), splits=decode_attention.fused_write_splits(B_INT8, H, maxS, sms),
+                splits_2_ms=k8.spread(splits=2)["ms"],
+                old_design_k22=k8.k22_spread(), shape=[L, B_INT8, maxS, H * hd],
+                kernel=kernels.kernel_attrs(*K8_ATTRS, 0))
     # Mutants, run through the kernel on the same (now disposable) cache.
     # New row left out of the softmax: write_pos - 1 with the cached row
     # write_pos - 1 as "new" row attends rows [0, write_pos) only.
@@ -719,15 +857,33 @@ def int8_kernel_phases(gen) -> dict:
     # noise rows between the true position and the end as well.
     unmasked = decode_attention.decode_attention_int8_fused_write(
         q, kq, ks, vq, vs, *cache, torch.full_like(wp, maxS - 1), layer, scale=sc)[0]
+    # And the redesign's two riskiest places, each a copy of the source
+    # built with the bug (`K8_MUTANTS`): the merge at two splits, the last
+    # tile at the chosen one.
+    caught = {"new_row_left_out": k8.err(left_out), "staleness_mask_off": k8.err(unmasked)}
+    for bug, src_define in K8_MUTANTS.items():
+        with kernels.mutant(*src_define):
+            caught[bug] = k8.err(k8.run(splits=2 if bug == "merge_without_rescale" else None)[0])
     # Each mutant must fail both gates (tol_bf16 is the looser one).
-    caught = {"new_row_left_out": min(row_rel_err(left_out, ref), row_rel_err(left_out, expect[0])),
-              "staleness_mask_off": min(row_rel_err(unmasked, ref), row_rel_err(unmasked, expect[0]))}
     for m, e in caught.items():
         must_not("decode_attention_int8_fused_write", m, e <= tol_bf16, e)
-    results["decode_attention_int8_fused_write"]["mutant_row_rel_err"] = caught
+    line["mutant_row_rel_err"] = caught
     log(f"[kernel] decode_attention_int8_fused_write mutants {json.dumps(caught)}")
-    del cache, expect, got, ref
+    # The launch's fixed cost: the same grid with every write position 0,
+    # one row (the new one) a sample.
+    one_row = K8Case(q, kq, ks, vq, vs, cache, torch.zeros_like(wp), layer, sc)
+    one_row.gate("decode_attention_int8_fused_write one row", one_row.run())
+    line["one_row_a_sample"] = one_row.spread()
+    del k8, one_row, cache, left_out, unmasked, prev
     torch.cuda.empty_cache()
+    # The long caches draw from their own generator, so that the phases
+    # after this one draw what they drew before these lines existed (K12's
+    # chunk-scale gate is sensitive to its draw, PERF.md section 7).
+    lgen = torch.Generator(device="cuda").manual_seed(14)
+    line["maxS_2048"] = k8_long_cache_line(lgen, B_INT8, "maxS_2048")
+    # A small batch over the same long cache, where the split fills the card.
+    line["maxS_2048_b4"] = k8_long_cache_line(lgen, 4, "maxS_2048_b4")
+    log(f"[kernel] decode_attention_int8_fused_write {json.dumps(line)}")
     return results
 
 
@@ -1247,6 +1403,17 @@ def rect_case(gen, geoms, per, qkv_bias):
     return y, a, bb, tables, padded.reshape(N, W * W, F1), is_real.reshape(len(geoms), W * W)
 
 
+# The deliberate bugs of K13's one launch on the wgmma + TMA int8 core
+# (`int8_gemm_sm90.cuh`), each built into a copy of its source: the
+# bias-term tiles reading W2 one tile over, and the bias-term columns
+# scaled by W's scale.
+K13_MUTANTS = {
+    "bias_term_tiles_one_over": ("ln_linear_int8.cu", "ULLAVA_MUTANT_DUAL_TILE_OFFSET"),
+    "bias_terms_by_w_scale": ("ln_linear_int8.cu", "ULLAVA_MUTANT_DUAL_W_SCALE"),
+}
+K13_ATTRS = ("ln_linear_int8.cu", "ullava_fused_ln_linear_dual_int8_attrs")
+
+
 def resident_kernel_phases(gen, results: dict) -> None:
     """The kernels of the SAM encoder's resident window layout against
     their plain versions at the shapes of one B=16 ViT-H window block: 256
@@ -1257,8 +1424,9 @@ def resident_kernel_phases(gen, results: dict) -> None:
     Gates: bf16 outputs by `row_rel_err` within 1e-2 (the attention
     kernels over real query rows; K3's pad rows must be finite), K13's
     int8 rows at least 99.9% exact and the rest within 1. Each gate must
-    reject mutated runs that stand for typical bugs (K14 also copies of its
-    source built with `QUAD_MAX_MUTANTS` and `RECT_PAD_MUTANT`)."""
+    reject mutated runs that stand for typical bugs (K13 also copies of its
+    source built with `K13_MUTANTS`, K14 with `QUAD_MAX_MUTANTS` and
+    `RECT_PAD_MUTANT`)."""
     import torch
     import torch.nn.functional as F
 
@@ -1298,13 +1466,23 @@ def resident_kernel_phases(gen, results: dict) -> None:
                 "scale_rel_err": max_rel_err(xs, rxs)}
         must(f"fused_ln_linear_dual {form}", ok and info["row_rel_err"] <= tol
              and info["row_rel_err_bias_terms"] <= tol and info["scale_rel_err"] <= 1e-5, info)
+        # The persistent tile loop (stages bit 3) computes the same bits.
+        yp, pp = mlp_kernel._ln_linear_dual_cuda(x, *wargs, rows2, stages=15)[:2]
+        info["persistent_equal"] = torch.equal(yp, y) and torch.equal(pp, p)
+        must(f"fused_ln_linear_dual {form} persistent", info["persistent_equal"], info)
+        del yp, pp
         # Mutants. The second bias dropped; and, where rows are trimmed,
-        # `rows2` ignored: the rows of all T, read as if they were packed.
+        # `rows2` ignored: the rows of all T, read as if they were packed;
+        # and the one launch's two riskiest places, each a copy of the
+        # source built with the bug (`K13_MUTANTS`).
         mutants = {"bias2_dropped": mlp_kernel._ln_linear_dual_cuda(
             x, *wargs[:7], torch.zeros_like(bias2), eps, rows2)[1]}
         if rows2 != T:
             untrimmed = mlp_kernel._ln_linear_dual_cuda(x, *wargs, T)[1]
             mutants["rows2_ignored"] = untrimmed.reshape(-1, F2)[:N * rows2].reshape(N, rows2, F2)
+        for bug, src_define in K13_MUTANTS.items():
+            with kernels.mutant(*src_define):
+                mutants[bug] = mlp_kernel._ln_linear_dual_cuda(x, *wargs, rows2)[1]
         info["mutant_row_rel_err"] = {
             m: must_not(f"fused_ln_linear_dual {form}", m, row_rel_err(out, rp) <= tol,
                         row_rel_err(out, rp)) for m, out in mutants.items()}
@@ -1326,20 +1504,38 @@ def resident_kernel_phases(gen, results: dict) -> None:
             lambda x=x, r=rows2: mlp_kernel._ln_linear_dual_parts_plain(x, *wargs, True, r),
             library, nbytes(x, g, b, wq, ws, bias, w2, s2, bias2, y, p),
             2.0 * C * (N * T * F1 + N * rows2 * F2), iters=10, flops_per_s=INT8_OPS_PER_S)
+        # Each stage alone on this call's scratch: the row pass, each column
+        # range, both in the one launch, and the same with the persistent
+        # tile loop (`persistent` the whole function so).
         line["stage_ms"] = {
             name: time_ms(lambda bits=bits, x=x, r=rows2, scr=(xq, xs): mlp_kernel._ln_linear_dual_cuda(
                 x, *wargs, r, stages=bits, scratch=scr), 10)
-            for name, bits in (("row_pass", 1), ("gemm_qkv", 2), ("gemm_bias_terms", 4))}
+            for name, bits in (("row_pass", 1), ("gemm_qkv", 2), ("gemm_bias_terms", 4), ("gemm", 6),
+                               ("gemm_persistent", 14), ("persistent", 15))}
+        # cuBLASLt's int8 GEMM alone on each product's operands (int32 out,
+        # no epilogue): a yardstick of the products, not of the function.
+        xq2 = xq.reshape(-1, C)
+        line["int_mm_ms"] = {"qkv": time_ms(lambda xq2=xq2: torch._int_mm(xq2, wq), 10),
+                             "bias_terms": time_ms(lambda xq2=xq2: torch._int_mm(xq2, w2), 10)}
         line["shape"] = [N, T, C, F1, F2, rows2]
+        # The median and spread of five batches (the corner's launches are
+        # short enough for a stall of the host to move a mean of ten).
+        line.update(spread_ms(lambda x=x, r=rows2: mlp_kernel._ln_linear_dual_cuda(x, *wargs, r),
+                              iters=10))
         forms[form] = line
-        del x, y, p, xq, xs, ry, rp, rxq, rxs
+        del x, y, p, xq, xq2, xs, ry, rp, rxq, rxs
     # The kernels line carries the full class; the other two ride in it.
     results["fused_ln_linear_dual"] = {**forms["full"], **{
         f"{name}_form": {k: v for k, v in forms[name].items()
                          if k not in ("name", "route", "source", "replaces")}
         for name in ("edge_pair", "corner")}}
+    results["fused_ln_linear_dual"].update(
+        sass=sass_counts("ln_linear_int8.cu", "gemm_sm90_kernel", ("IGMMA", "UTMALDG", "IMMA")),
+        kernel={form: kernels.kernel_attrs(*K13_ATTRS, i)
+                for i, form in ((0, "one_block_a_tile"), (1, "persistent"))})
     log(f"[kernel] fused_ln_linear_dual stages "
-        f"{json.dumps({k: v['stage_ms'] for k, v in forms.items()})}")
+        f"{json.dumps({k: v['stage_ms'] for k, v in forms.items()})} int_mm "
+        f"{json.dumps({k: v['int_mm_ms'] for k, v in forms.items()})}")
     torch.cuda.empty_cache()
 
     # K3's serving form: 256 windows stored as 200 rows, the last four of
@@ -2214,6 +2410,7 @@ def packed_kernel_phases(gen, results: dict) -> None:
     io = rows * (2 * Hkv * hdl + 2 * 4 * Hkv) + 2 * nbytes(q) + nbytes(kv_lens)
     line = kernel_line(name, (got.float() - ref.float()).abs().max().item(), info, run, plain,
                        None, io, 4.0 * rows * Hl * hdl, flops_per_s=FP32_FLOPS_PER_S)
+    line.update(spread_ms(run))  # the median of five batches, as K8's line
     line["gqa_rep4_form"] = cases["gqa_rep4"][0]
     line["shape"] = [L, B_INT8, maxS, Hl * hdl]
     results[name] = line
@@ -2772,6 +2969,13 @@ def weight_only_encode_phase(cfg, params, images_sam) -> dict:
     return line
 
 
+# Kernels whose device time a profiled serve reports whether or not they
+# are among its top kernels: [ms, calls] of the kernels whose name holds
+# the string (K8's kernel; K13's GEMM, whose row pass K10 and K12 share).
+PROFILE_WATCH = {"decode_attention_int8_fused_write": "fused_write_kernel",
+                 "fused_ln_linear_dual_gemm": "DualLinearEpi"}
+
+
 def profile_serve(run) -> dict:
     """One serve under torch.profiler: device kernel time by name and the
     device's busy share of the wall time (the profiler's own overhead
@@ -2796,8 +3000,11 @@ def profile_serve(run) -> dict:
         ms[e.key[:80]] = ms.get(e.key[:80], 0.0) + dev_us(e) / 1e3
         calls[e.key[:80]] = calls.get(e.key[:80], 0) + e.count
     top = sorted(ms, key=ms.get, reverse=True)[:12]
+    watched = {label: [sum(dev_us(e) for e in events if part in e.key) / 1e3,
+                       sum(e.count for e in events if part in e.key)]
+               for label, part in PROFILE_WATCH.items()}
     return {
-        "phase": "profile", "wall_s": wall_s,
+        "phase": "profile", "wall_s": wall_s, "watched_device_ms_calls": watched,
         "device_busy_s": busy_s if events else "not measured",
         "device_idle_share": 1 - busy_s / wall_s if events else "not measured",
         "top_device_ms": {k: ms[k] for k in top},
@@ -3182,7 +3389,7 @@ def main() -> int:
         *TRAIN_MUTANTS.values(), K15_MASK_MUTANT, *WQ_MUTANTS.values(), *I8_MUTANTS.values(),
         *PACKED_MUTANTS.values(), *V2_MUTANTS.values(), *GLOBAL_Y_MUTANTS.values(),
         *QUAD_MAX_MUTANTS.values(), RECT_PAD_MUTANT, *K2_MUTANTS.values(),
-        *K12_MUTANTS.values()])
+        *K12_MUTANTS.values(), *K13_MUTANTS.values(), *K8_MUTANTS.values()])
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "sources": sorted(built)}), flush=True)
 
@@ -3340,6 +3547,7 @@ def main() -> int:
                           "bias_weights_s": bias_weights_s,
                           "device_busy_s": prof["device_busy_s"],
                           "profiled_wall_s": prof["wall_s"],
+                          "watched_device_ms_calls": prof["watched_device_ms_calls"],
                           "top_device_ms_calls": [[name[:60], ms, prof["top_device_calls"][name]]
                                                   for name, ms in top]}), flush=True)
     for line in (train_line, stage2_line, wq_encode_line):

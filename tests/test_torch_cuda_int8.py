@@ -128,6 +128,75 @@ def test_cuda_decode_attention_fused_write_matches_plain(cuda, H, Hkv, hd):
     assert min(_row_rel_err(stale, ref), _row_rel_err(stale, expect[0])) > 2.0**-6
 
 
+def _check_fused_write(gen, L, B, maxS, H, Hkv, hd, wp, splits):
+    """K8 against both plain versions (module docstring's limits) and the
+    cache against the scatter, at each split count in `splits`."""
+    q = _rand(gen, B, 1, H, hd)
+    cache = _noise_cache(gen, L, B, maxS, Hkv, hd)
+    kq, vq = (torch.randint(-127, 128, (B, Hkv * hd), generator=gen, device="cuda",
+                            dtype=torch.int8) for _ in range(2))
+    ksn, vsn = (torch.rand((B, Hkv), generator=gen, device="cuda") * 0.02 + 1e-3 for _ in range(2))
+    wp = torch.tensor(wp, device="cuda")
+    layer, sc = L - 1, hd**-0.5
+    expect = decode_attention.decode_attention_int8_fused_write_plain(
+        q, kq, ksn, vq, vsn, *(c.clone() for c in cache), wp, layer, scale=sc)
+    ref = decode_attention.decode_attention_int8_fused_write_plain(
+        q.float(), kq, ksn, vq, vsn, *(c.clone() for c in expect[1:]), wp, layer,
+        scale=sc)[0].to(torch.bfloat16)
+    for n in splits:
+        fresh = [c.clone() for c in cache]
+        if n is None:  # the public entry: the wrapper's own split
+            got = decode_attention.decode_attention_int8_fused_write(
+                q, kq, ksn, vq, vsn, *fresh, wp, layer, scale=sc)
+        else:
+            got = (decode_attention._fused_write_cuda(
+                q, kq, ksn, vq, vsn, *fresh, wp, layer, sc, n), *fresh)
+        torch.cuda.synchronize()
+        assert _row_rel_err(got[0], ref) <= 2.0**-7, n
+        assert _row_rel_err(got[0], expect[0]) <= 2.0**-6, n
+        for g, e in zip(got[1:], expect[1:]):
+            assert torch.equal(g, e), n
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_fused_write_tile_and_split_edges(cuda):
+    """Write positions at the kernel's edges: the first row, a warp tile's
+    (16 rows at head_dim 128) and a block round's (64) edges +-1, the edges
+    of two splits of the longest sample +-1, the last row; GQA rep 4; one
+    block a (sample, head) and 2, 3 and 5 splits (the last block to finish
+    merges), and the wrapper's own choice."""
+    wp = [0, 15, 16, 17, 63, 64, 65, 79, 80, 81, 159]
+    _check_fused_write(cuda, 2, len(wp), 160, 8, 2, 128, wp, [None, 1, 2, 3, 5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [16, 4])
+def test_cuda_decode_attention_fused_write_long_cache(cuda, B):
+    """A 2048-row cache, write positions 1900-2047: at B=16 one block a
+    (sample, head), at B=4 the wrapper splits the rows."""
+    wp = [1900 + (37 * i) % 148 for i in range(B)]
+    _check_fused_write(cuda, 1, B, 2048, 32, 32, 128, wp, [None, 1, 4])
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_fused_write_limits(cuda):
+    """No score row in shared memory: a 16384-row cache (refused before
+    the redesign, at 48 KB of shared memory) is taken. What stays refused:
+    a head_dim that is not 16 * 2^n up to 512, a split count below 1."""
+    _check_fused_write(cuda, 1, 2, 16384, 4, 4, 128, [16383, 9000], [None, 8])
+    q = _rand(cuda, 1, 1, 2, 48)
+    cache = _noise_cache(cuda, 1, 1, 16, 2, 48)
+    new = torch.zeros((1, 96), dtype=torch.int8, device="cuda")
+    s = torch.ones((1, 2), device="cuda")
+    wp = torch.tensor([3], device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        decode_attention.decode_attention_int8_fused_write(q, new, s, new, s, *cache, wp, 0, scale=1.0)
+    q, cache = _rand(cuda, 1, 1, 2, 64), _noise_cache(cuda, 1, 1, 16, 2, 64)
+    new = torch.zeros((1, 128), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="splits"):
+        decode_attention._fused_write_cuda(q, new, s, new, s, *cache, wp, 0, 1.0, 0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", [2048, 8, 1])  # a prefill's rows, a decode step's
 def test_cuda_rms_norm_matches_plain(cuda, rows):

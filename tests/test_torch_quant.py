@@ -243,6 +243,57 @@ def test_decode_attention_fused_write_matches_jax_interpret(H, Hkv):
     _close(again, ref_xla, atol=3e-5)
 
 
+# Write positions at the edges of the card kernel's row tiles (16 rows a
+# warp at head_dim 128, 128 at 16), its first row and its last: the plain
+# version the kernel is held to on the card, held here to the JAX kernel.
+_WRITE_EDGES = {
+    128: (160, [0, 15, 16, 17, 63, 64, 65, 159]),
+    16: (264, [0, 127, 128, 129, 255, 256, 257, 263]),
+}
+
+
+@pytest.mark.parametrize("hd", list(_WRITE_EDGES))
+def test_decode_attention_fused_write_tile_edges_match_jax_interpret(hd):
+    """GQA rep 4 (8 q heads on 2 kv heads), one sample a write position."""
+    rng = np.random.default_rng(11)
+    maxS, positions = _WRITE_EDGES[hd]
+    L, B, H, Hkv, layer = 2, len(positions), 8, 2, 0
+    q = rng.standard_normal((B, 1, H, hd)).astype(np.float32)
+    cache = _empty_cache(rng, L, B, maxS, Hkv, hd)
+    cache[2][...] *= 0.02
+    cache[3][...] *= 0.02
+    kq, vq = (rng.integers(-127, 128, size=(B, Hkv * hd)).astype(np.int8) for _ in range(2))
+    ksn, vsn = (np.abs(rng.standard_normal((B, Hkv))).astype(np.float32) * 0.02 for _ in range(2))
+    wp = np.array(positions, np.int32)
+    scale = hd**-0.5
+    ref = jdec.decode_attention_int8_fused_write(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(ksn), jnp.asarray(vq), jnp.asarray(vsn),
+        *(jnp.asarray(c) for c in cache), jnp.asarray(wp), jnp.asarray(layer, jnp.int32),
+        scale=scale, interpret=True,
+    )
+    tc = [_t(c) for c in cache]
+    got = decode_attention.decode_attention_int8_fused_write(
+        _t(q), _t(kq), _t(ksn), _t(vq), _t(vsn), *tc, _t(wp), layer, scale=scale
+    )
+    _close(got[0], ref[0], atol=3e-5)
+    for g, r, before in zip(got[1:], ref[1:], cache):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+        # Only row write_pos[b] of the layer changed.
+        changed = np.argwhere((g.numpy() != before).reshape(L, B, maxS, -1).any(-1))
+        assert all(l_ == layer and s_ == wp[b_] for l_, b_, s_ in changed), changed
+
+
+def test_fused_write_splits_fill_the_card_only_where_blocks_are_few():
+    """The card kernel's split of a sample's rows: none at the int8
+    serve's B=16 x 32 heads on 132 SMs (at any cache length), more blocks
+    a (sample, head) for small batches over long caches, none for caches
+    under 512 rows, at most 32."""
+    splits = decode_attention.fused_write_splits
+    assert splits(16, 32, 352, 132) == 1 and splits(16, 32, 2048, 132) == 1
+    assert splits(4, 32, 2048, 132) == 4 and splits(1, 32, 2048, 132) == 8
+    assert splits(1, 32, 352, 132) == 1 and splits(1, 1, 1 << 20, 132) == 32
+
+
 def test_rms_norm_large_input_matches_jax_interpret():
     """The plain version of `rms_norm` (what a CPU tensor takes), held to
     the JAX forward kernel at the 4096 rows from which the JAX package

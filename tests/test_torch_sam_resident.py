@@ -150,6 +150,38 @@ def test_fused_ln_linear_dual_matches_jax(w8a8, rows2):
     assert torch.equal(y2, y[0]) and torch.equal(p2, p[0])
 
 
+@pytest.mark.parametrize("w8a8", [True, False], ids=["w8a8", "weight_only"])
+def test_fused_ln_linear_dual_ragged_tiles_match_jax(w8a8):
+    """Widths that leave both products a ragged last 128-column tile of
+    the card kernel (F 136, F2 200), and rows2 < T with T not a multiple
+    of its 128-row tile: the plain version the kernel is held to, held to
+    the JAX kernel."""
+    rng = np.random.default_rng(3)
+    N, T, C, F, F2, rows2 = 3, 24, 64, 136, 200, 17
+    x = (2.0 * rng.standard_normal((N, T, C)) + 0.3).astype(np.float32)
+    g = (1 + 0.1 * rng.standard_normal(C)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(C)).astype(np.float32)
+    w1, w2 = (jquant.quantize_int8(jnp.asarray(0.1 * rng.standard_normal((C, n)), jnp.float32))
+              for n in (F, F2))
+    b1, b2 = ((0.5 * rng.standard_normal(n)).astype(np.float32) for n in (F, F2))
+    ref_y, ref_p = jmlp.fused_ln_linear_dual(
+        jnp.asarray(x), jnp.asarray(g), jnp.asarray(b), w1["q"], w1["scale"], jnp.asarray(b1),
+        w2["q"], w2["scale"], jnp.asarray(b2), 1e-6, w8a8=w8a8, rows2=rows2, interpret=True)
+    args = (_t(g), _t(b), quant.column_major(_t(w1["q"])), _t(w1["scale"]), _t(b1),
+            quant.column_major(_t(w2["q"])), _t(w2["scale"]), _t(b2), 1e-6)
+    y, p = mlp_kernel.fused_ln_linear_dual(_t(x), *args, w8a8=w8a8, rows2=rows2)
+    assert y.shape == (N, T, F) and p.shape == (N, rows2, F2)
+    if w8a8:
+        _close_w8a8(y, ref_y)
+        _close_w8a8(p, ref_p)
+    else:
+        np.testing.assert_allclose(y.numpy(), np.asarray(ref_y), atol=2e-5, rtol=2e-5)
+        np.testing.assert_allclose(p.numpy(), np.asarray(ref_p), atol=2e-5, rtol=2e-5)
+    # The kept rows are the leading rows2 of every T of the untrimmed product.
+    _, p_all = mlp_kernel.fused_ln_linear_dual(_t(x), *args, w8a8=w8a8, rows2=T)
+    assert torch.equal(p, p_all[:, :rows2])
+
+
 def _window_inputs(rng, N, T, H, hd, W):
     y = rng.standard_normal((N, T, 3 * H * hd)).astype(np.float32)
     inv = hd**0.5

@@ -97,7 +97,7 @@ KERNELS: Dict[str, KernelSpec] = {
         KernelSpec(
             "decode_attention_int8_fused_write", "decode_attention_int8.cu",
             "ullava_decode_attention_int8_fused_write",
-            (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P),
+            (P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P),
             "ullava_tpu/ops/decode_attention.py:345",
         ),
         KernelSpec(

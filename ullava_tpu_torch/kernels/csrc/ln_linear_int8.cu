@@ -32,15 +32,32 @@
 // 6.2e11 int8 operations (0.31 ms) against 0.62 GB (0.18 ms): operations
 // bound it.
 //
-// Design: the row pass once, then the GEMM core twice on the shared int8
-// rows, once per weight. One launch over the 3840 + 864 columns would
-// read the int8 rows once, not twice (66 MB of 0.62 GB), but the two
-// weights are two allocations with two epilogues (bf16 or f32 bias, all
-// rows or the leading rows2 of every T), and the core walks one B matrix;
-// so two launches, and `LinearEpi` stays as it is. The second epilogue
-// maps GEMM row r to output row (r / T) * rows2 + r % T and skips rows
-// with r % T >= rows2.
+// Design: the row pass, then ONE launch of the wgmma + TMA int8 core
+// (int8_gemm_sm90.cuh) over both weights: column tiles [0, ceil(F/128))
+// read W and store y = acc * (xs * w_scale) + bf16 bias, all rows; the
+// ceil(F2/128) after them read W2 (its tensor map zero-fills rows past F2,
+// the epilogue masks those columns) and store P = acc * (xs * w2_scale) +
+// f32 bias2 for the leading rows2 rows of every T only, GEMM row r at
+// output row (r / T) * rows2 + r % T. So the int8 rows are read once, not
+// twice, and a class costs two launches, not three (the corner's second
+// product was pure launch latency). The epilogue's scales and biases
+// load before the tile's products, not after.
+// K = 1280 is only five 256-byte k-blocks, so the core's persistent tile
+// loop (one block an SM, the producer loading the next tile while the
+// consumers store this one) was tried: on an H100 it ran 12-16% slower
+// than one block a tile in every class (a tile's time goes to its
+// products and its store, which it does not overlap). The GEMM runs one
+// block a tile; `stages` bit 3 runs the persistent loop instead, so that
+// chip_smoke.py times both.
+//
+// Deliberate bugs for the correctness gate (chip_smoke.py), each built
+// only into a copy of this source under its define:
+//   ULLAVA_MUTANT_DUAL_TILE_OFFSET  the bias-term tiles read W2 one tile
+//                                   over (int8_gemm_sm90.cuh);
+//   ULLAVA_MUTANT_DUAL_W_SCALE      the bias-term columns scaled by W's
+//                                   scale, not W2's.
 #include "int8_gemm_core.cuh"
+#include "int8_gemm_sm90.cuh"
 
 namespace ullava {
 namespace i8 {
@@ -84,43 +101,81 @@ struct LinearEpi {
   __device__ __forceinline__ void finish(const Tile&, State&) const {}
 };
 
-// The second product of fused_ln_linear_dual: an f32 bias, and of every
-// T rows only the leading rows2 are stored, packed to [M / T, rows2, N].
-struct TrimmedLinearEpi {
-  using State = NoState;
-  static constexpr int kMinBlocks = 2;
-  const float* xs;    // [M] per-row activation scale
-  const float* ws;    // [N] per-output-channel weight scale
-  const float* bias;  // [N]
-  bf16* out;          // [M / T, rows2, N]
+}  // namespace i8
+
+namespace i8_sm90 {
+
+// Both products of fused_ln_linear_dual on the wgmma core, by the tile's
+// part: 0 the qkv columns (bf16 bias, every row), 1 the bias-term columns
+// (f32 bias, of every T rows the leading rows2, packed to [M / T, rows2,
+// N2]). The arithmetic is LinearEpi's: acc * (xs * w) + b, one rounding.
+struct DualLinearEpi {
+  // The thread's operands, loaded before the tile's products: its two
+  // rows' scales and its 16 column pairs' weight scales and biases.
+  struct State {
+    float xr[2];
+    float2 w[16], b[16];
+  };
+  static constexpr int kClusterSyncs = 0;
+  static constexpr int kScratchBytes = 0;
+  const float* xs;     // [M] per-row activation scale
+  const float* ws;     // [N] W's per-column scale
+  const bf16* bias;    // [N]
+  bf16* out;           // [M, N]
+  const float* ws2;    // [N2] W2's per-column scale
+  const float* bias2;  // [N2]
+  bf16* out2;          // [M / T, rows2, N2]
   int T, rows2;
 
-  __device__ __forceinline__ void chunk(Acc& acc, int, const Tile& t, State&) const {
+  // Whether GEMM row `row` is stored, and where its output row starts.
+  __device__ __forceinline__ bf16* out_row(const Tile& t, int row) const {
+    if (row >= t.M) return nullptr;
+    if (t.part == 0) return out + static_cast<size_t>(row) * t.N;
+    if (row % T >= rows2) return nullptr;
+    return out2 + (static_cast<size_t>(row / T) * rows2 + row % T) * t.N;
+  }
+
+  __device__ __forceinline__ void begin(const Tile& t, State& st) const {
+#ifdef ULLAVA_MUTANT_DUAL_W_SCALE
+    const float* wsp = ws;
+#else
+    const float* wsp = t.part == 0 ? ws : ws2;
+#endif
 #pragma unroll
-    for (int mi = 0; mi < MI; ++mi) {
+    for (int r = 0; r < 2; ++r) st.xr[r] = t.row(r) < t.M ? xs[t.row(r)] : 0.f;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = t.row(mi, half);
-        if (row >= t.M || row % T >= rows2) continue;
-        const float s = xs[row];
-        bf16* orow = out + (static_cast<size_t>(row / T) * rows2 + row % T) * t.N;
+    for (int j = 0; j < 16; ++j) {
+      const int col = t.col(j);
+      st.w[j] = st.b[j] = make_float2(0.f, 0.f);
+      if (col >= t.N) continue;
+      st.w[j] = *reinterpret_cast<const float2*>(wsp + col);
+      st.b[j] = t.part == 0 ? load_bf16x2(bias + col)
+                            : *reinterpret_cast<const float2*>(bias2 + col);
+    }
+  }
+
+  __device__ __forceinline__ void chunk(uint32_t (&acc)[64], int, const Tile& t,
+                                        State& st) const {
 #pragma unroll
-        for (int ni = 0; ni < NI; ++ni) {
-          const int col = t.col(ni);
-          if (col >= t.N) continue;
-          const float2 w = *reinterpret_cast<const float2*>(ws + col);
-          const float2 b = *reinterpret_cast<const float2*>(bias + col);
-          store_bf16x2(orow + col,
-                       static_cast<float>(acc[mi][ni][half * 2]) * (s * w.x) + b.x,
-                       static_cast<float>(acc[mi][ni][half * 2 + 1]) * (s * w.y) + b.y);
-        }
+    for (int r = 0; r < 2; ++r) {
+      bf16* orow = out_row(t, t.row(r));
+      if (orow == nullptr) continue;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = t.col(j);
+        if (col >= t.N) continue;
+        store_bf16x2(orow + col,
+                     static_cast<float>(static_cast<int>(acc[4 * j + 2 * r])) *
+                             (st.xr[r] * st.w[j].x) + st.b[j].x,
+                     static_cast<float>(static_cast<int>(acc[4 * j + 2 * r + 1])) *
+                             (st.xr[r] * st.w[j].y) + st.b[j].y);
       }
     }
   }
   __device__ __forceinline__ void finish(const Tile&, State&) const {}
 };
 
-}  // namespace i8
+}  // namespace i8_sm90
 }  // namespace ullava
 
 // x [rows, K] bf16; ln_s, ln_b [K] bf16 or both null (no LayerNorm);
@@ -154,12 +209,13 @@ ULLAVA_EXPORT int ullava_fused_ln_linear_int8(const void* x, const void* ln_s, c
   return 0;
 }
 
-// fused_ln_linear_dual. x [rows, K] bf16 with rows = windows * T; ln_s,
-// ln_b [K] bf16; wq [N][K] and w2q [N2][K] int8; w_scale [N], w2_scale
-// [N2] f32; bias [N] bf16; bias2 [N2] f32; out [rows, N] bf16; out2
-// [rows / T, rows2, N2] bf16; scratch xq [rows, K] int8 and xs [rows] f32.
-// `stages`: bit 0 runs the row pass, bit 1 the first product, bit 2 the
-// second (7 = the function).
+// fused_ln_linear_dual. x [rows, K] bf16 with rows = windows * T;
+// ln_s, ln_b [K] bf16; wq [N][K] and w2q [N2][K] int8; w_scale [N],
+// w2_scale [N2] f32; bias [N] bf16; bias2 [N2] f32; out [rows, N] bf16;
+// out2 [rows / T, rows2, N2] bf16; scratch xq [rows, K] int8 and xs [rows]
+// f32. `stages`: bit 0 runs the row pass, bit 1 the qkv columns, bit 2 the
+// bias-term columns (7 = the function: both column ranges in one launch),
+// bit 3 the GEMM as the persistent tile loop instead of one block a tile.
 ULLAVA_EXPORT int ullava_fused_ln_linear_dual_int8(
     const void* x, const void* ln_s, const void* ln_b, const void* wq, const void* w_scale,
     const void* bias, const void* w2q, const void* w2_scale, const void* bias2, void* out,
@@ -167,7 +223,6 @@ ULLAVA_EXPORT int ullava_fused_ln_linear_dual_int8(
     int stages, void* stream) {
   using namespace ullava;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int KT = (K + i8::BK - 1) / i8::BK;
   if (stages & 1) {
     const int err = i8::launch_ln_quant_rows(
         static_cast<const bf16*>(x), static_cast<const bf16*>(ln_s),
@@ -175,18 +230,29 @@ ULLAVA_EXPORT int ullava_fused_ln_linear_dual_int8(
         K, eps, st);
     if (err != 0) return err;
   }
-  if (stages & 2) {
-    i8::LinearEpi epi{static_cast<const float*>(xs), static_cast<const float*>(w_scale),
-                      static_cast<const bf16*>(bias), nullptr, static_cast<bf16*>(out)};
-    const int err = i8::launch_gemm(static_cast<const int8_t*>(xq), K, rows,
-                                    static_cast<const int8_t*>(wq), K, N, K, KT, epi, 1, st);
-    if (err != 0) return err;
-  }
-  if (stages & 4) {
-    i8::TrimmedLinearEpi epi{static_cast<const float*>(xs), static_cast<const float*>(w2_scale),
-                             static_cast<const float*>(bias2), static_cast<bf16*>(out2), T, rows2};
-    return i8::launch_gemm(static_cast<const int8_t*>(xq), K, rows,
-                           static_cast<const int8_t*>(w2q), K, N2, K, KT, epi, 1, st);
+  if (stages & 6) {
+    const i8_sm90::DualLinearEpi epi{
+        static_cast<const float*>(xs), static_cast<const float*>(w_scale),
+        static_cast<const bf16*>(bias), static_cast<bf16*>(out),
+        static_cast<const float*>(w2_scale), static_cast<const float*>(bias2),
+        static_cast<bf16*>(out2), T, rows2};
+    const int KT = (K + i8_sm90::BK - 1) / i8_sm90::BK;
+    const int n = (stages & 2) ? N : 0, n2 = (stages & 4) ? N2 : 0;
+    const auto* a = static_cast<const int8_t*>(xq);
+    const auto* w = static_cast<const int8_t*>(wq);
+    const auto* w2 = static_cast<const int8_t*>(w2q);
+    return (stages & 8)
+               ? i8_sm90::launch_gemm2<i8_sm90::DualLinearEpi, true>(a, K, rows, w, K, n, w2, K,
+                                                                      n2, K, KT, epi, 1, st)
+               : i8_sm90::launch_gemm2<i8_sm90::DualLinearEpi, false>(a, K, rows, w, K, n, w2, K,
+                                                                       n2, K, KT, epi, 1, st);
   }
   return 0;
+}
+
+// {registers, shared bytes, spilled bytes, blocks an SM} of the dual
+// GEMM's kernel: `form` 0 one block a tile, 1 the persistent loop.
+ULLAVA_EXPORT int ullava_fused_ln_linear_dual_int8_attrs(int form, int* out) {
+  using namespace ullava::i8_sm90;
+  return form == 0 ? attrs<DualLinearEpi, false>(out) : attrs<DualLinearEpi, true>(out);
 }

@@ -17,7 +17,7 @@ dequantized cache up to fp32 summation order.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -212,6 +212,70 @@ def decode_attention_int8_fused_write_plain(
     return attn, cache_k, cache_v, k_scale, v_scale
 
 
+# The write-and-attend kernel's split of a sample's rows over blocks: at
+# most four blocks an SM in all (its launch bound), at least 256 rows of a
+# full cache a split, at most 32 splits.
+_BLOCKS_PER_SM, _MIN_SPLIT_ROWS, _MAX_SPLITS = 4, 256, 32
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}  # device -> zero int32 counters
+
+
+def fused_write_splits(B: int, H: int, maxS: int, sms: int) -> int:
+    """How many blocks share one (sample, head)'s cache rows: 1 where the
+    B * H blocks fill the card's `sms` SMs four times over, more for small
+    batches over long caches."""
+    return max(1, min((_BLOCKS_PER_SM * sms) // max(B * H, 1), maxS // _MIN_SPLIT_ROWS,
+                      _MAX_SPLITS))
+
+
+def _split_counters(device: torch.device, n: int) -> torch.Tensor:
+    """n zero int32 counters on `device`, kept between calls: the kernel
+    leaves every counter it uses at zero again (one stream at a time)."""
+    c = _COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        c = _COUNTERS[device] = torch.zeros(n, dtype=torch.int32, device=device)
+    return c
+
+
+def _fused_write_cuda(q, kq_new, ks_new, vq_new, vs_new, cache_k, cache_v, k_scale, v_scale,
+                      write_pos, layer_idx: int, scale: float, splits: Optional[int] = None):
+    """The CUDA `decode_attention_int8_fused_write`: its attention output.
+    `splits` sets how many blocks share a (sample, head)'s rows (None:
+    `fused_write_splits`; the function does not depend on it), so that a
+    test or a measurement can run each form."""
+    B, _, H, hd = q.shape
+    Hkv = ks_new.shape[-1]
+    name = "decode_attention_int8_fused_write"
+    lanes = hd // 16  # lanes of a warp that share one cache row
+    if hd % 16 or lanes & (lanes - 1) or lanes > 32:
+        raise ValueError(f"{name}: head_dim {hd} must be 16 * 2^n, at most 512")
+    _, maxS = _check_cache(name, cache_k, cache_v, k_scale, v_scale, B, Hkv, hd)
+    if splits is None:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        splits = fused_write_splits(B, H, maxS, sms)
+    if not 1 <= splits <= 65535:
+        raise ValueError(f"{name}: splits {splits} must lie in 1..65535")
+    kernels.check_cuda_tensor(f"{name} q", q, torch.bfloat16)
+    kernels.check_cuda_tensor(f"{name} kq_new", kq_new, torch.int8)
+    kernels.check_cuda_tensor(f"{name} vq_new", vq_new, torch.int8)
+    kernels.check_cuda_tensor(f"{name} ks_new", ks_new, torch.float32, (B, Hkv))
+    kernels.check_cuda_tensor(f"{name} vs_new", vs_new, torch.float32, (B, Hkv))
+    wp = write_pos.to(torch.int32).contiguous()
+    kernels.check_cuda_tensor(f"{name} write_pos", wp, torch.int32, (B,))
+    out = torch.empty_like(q)
+    part = counter = None
+    if splits > 1:
+        part = torch.empty((B, H, splits, 2 + hd), dtype=torch.float32, device=q.device)
+        counter = _split_counters(q.device, B * H)
+    kernels.launch(
+        name, q.data_ptr(), kq_new.data_ptr(), ks_new.data_ptr(), vq_new.data_ptr(),
+        vs_new.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), k_scale.data_ptr(),
+        v_scale.data_ptr(), wp.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), None if counter is None else counter.data_ptr(),
+        B, H, Hkv, hd, maxS, int(layer_idx), float(scale), int(splits),
+    )
+    return out
+
+
 def decode_attention_int8_fused_write(
     q: torch.Tensor,  # [B, 1, H, hd]
     kq_new: torch.Tensor,  # [B, Hkv*hd] int8 quantized new key rows
@@ -233,8 +297,8 @@ def decode_attention_int8_fused_write(
     Rows at and after `write_pos[b]` are stale and masked. GQA: kv head g
     serves q heads [g*rep, (g+1)*rep). `write_pos` is read on the device.
     Returns (attn [B, 1, H, hd], cache_k, cache_v, k_scale, v_scale).
-    CUDA kernel `kernels/csrc/decode_attention_int8.cu` (bf16 q) for CUDA
-    tensors, the plain version for CPU tensors."""
+    CUDA kernel `kernels/csrc/decode_attention_int8.cu` (bf16 q; any cache
+    length) for CUDA tensors, the plain version for CPU tensors."""
     B, S1, H, hd = q.shape
     Hkv = ks_new.shape[-1]
     if S1 != 1 or H % Hkv or kq_new.shape != (B, Hkv * hd) or vq_new.shape != kq_new.shape:
@@ -246,27 +310,6 @@ def decode_attention_int8_fused_write(
             q, kq_new, ks_new, vq_new, vs_new, cache_k, cache_v, k_scale, v_scale,
             write_pos, layer_idx, scale=scale,
         )
-    lanes = hd // 16  # lanes of a warp that share one cache row
-    if hd % 16 or lanes & (lanes - 1) or lanes > 32:
-        raise ValueError(f"decode_attention_int8_fused_write: head_dim {hd} must be 16 * 2^n, at most 512")
-    _, maxS = _check_cache(
-        "decode_attention_int8_fused_write", cache_k, cache_v, k_scale, v_scale, B, Hkv, hd
-    )
-    if (maxS + 1 + 4 * hd + 32) * 4 > 48 * 1024:
-        raise ValueError(f"decode_attention_int8_fused_write: cache length {maxS} exceeds shared memory")
-    name = "decode_attention_int8_fused_write"
-    kernels.check_cuda_tensor(f"{name} q", q, torch.bfloat16)
-    kernels.check_cuda_tensor(f"{name} kq_new", kq_new, torch.int8)
-    kernels.check_cuda_tensor(f"{name} vq_new", vq_new, torch.int8)
-    kernels.check_cuda_tensor(f"{name} ks_new", ks_new, torch.float32, (B, Hkv))
-    kernels.check_cuda_tensor(f"{name} vs_new", vs_new, torch.float32, (B, Hkv))
-    wp = write_pos.to(torch.int32).contiguous()
-    kernels.check_cuda_tensor(f"{name} write_pos", wp, torch.int32, (B,))
-    out = torch.empty_like(q)
-    kernels.launch(
-        name, q.data_ptr(), kq_new.data_ptr(), ks_new.data_ptr(), vq_new.data_ptr(),
-        vs_new.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), k_scale.data_ptr(),
-        v_scale.data_ptr(), wp.data_ptr(), out.data_ptr(), B, H, Hkv, hd, maxS,
-        int(layer_idx), float(scale),
-    )
+    out = _fused_write_cuda(q, kq_new, ks_new, vq_new, vs_new, cache_k, cache_v, k_scale, v_scale,
+                            write_pos, layer_idx, scale)
     return out, cache_k, cache_v, k_scale, v_scale
