@@ -33,8 +33,8 @@ Phases, each fatal on any error:
                at both head dims, K12 and K13 (both products in one
                launch) on the wgmma + TMA int8 GEMM core (each with its
                SASS counts and registers; K2 also at B=16, K12 and K13
-               also per stage and beside `torch._int_mm` per product, K13
-               also with the core's persistent tile loop), K8 (the median
+               also per stage and beside `torch._int_mm` per product), K8
+               (the median
                and spread of five batches beside K22's old design, also
                over a 2048-row cache at B=16 and at B=4, where it splits a
                sample's rows over blocks), the packed and the two
@@ -1466,11 +1466,6 @@ def resident_kernel_phases(gen, results: dict) -> None:
                 "scale_rel_err": max_rel_err(xs, rxs)}
         must(f"fused_ln_linear_dual {form}", ok and info["row_rel_err"] <= tol
              and info["row_rel_err_bias_terms"] <= tol and info["scale_rel_err"] <= 1e-5, info)
-        # The persistent tile loop (stages bit 3) computes the same bits.
-        yp, pp = mlp_kernel._ln_linear_dual_cuda(x, *wargs, rows2, stages=15)[:2]
-        info["persistent_equal"] = torch.equal(yp, y) and torch.equal(pp, p)
-        must(f"fused_ln_linear_dual {form} persistent", info["persistent_equal"], info)
-        del yp, pp
         # Mutants. The second bias dropped; and, where rows are trimmed,
         # `rows2` ignored: the rows of all T, read as if they were packed;
         # and the one launch's two riskiest places, each a copy of the
@@ -1505,13 +1500,11 @@ def resident_kernel_phases(gen, results: dict) -> None:
             library, nbytes(x, g, b, wq, ws, bias, w2, s2, bias2, y, p),
             2.0 * C * (N * T * F1 + N * rows2 * F2), iters=10, flops_per_s=INT8_OPS_PER_S)
         # Each stage alone on this call's scratch: the row pass, each column
-        # range, both in the one launch, and the same with the persistent
-        # tile loop (`persistent` the whole function so).
+        # range, and both in the one launch.
         line["stage_ms"] = {
             name: time_ms(lambda bits=bits, x=x, r=rows2, scr=(xq, xs): mlp_kernel._ln_linear_dual_cuda(
                 x, *wargs, r, stages=bits, scratch=scr), 10)
-            for name, bits in (("row_pass", 1), ("gemm_qkv", 2), ("gemm_bias_terms", 4), ("gemm", 6),
-                               ("gemm_persistent", 14), ("persistent", 15))}
+            for name, bits in (("row_pass", 1), ("gemm_qkv", 2), ("gemm_bias_terms", 4), ("gemm", 6))}
         # cuBLASLt's int8 GEMM alone on each product's operands (int32 out,
         # no epilogue): a yardstick of the products, not of the function.
         xq2 = xq.reshape(-1, C)
@@ -1531,8 +1524,7 @@ def resident_kernel_phases(gen, results: dict) -> None:
         for name in ("edge_pair", "corner")}}
     results["fused_ln_linear_dual"].update(
         sass=sass_counts("ln_linear_int8.cu", "gemm_sm90_kernel", ("IGMMA", "UTMALDG", "IMMA")),
-        kernel={form: kernels.kernel_attrs(*K13_ATTRS, i)
-                for i, form in ((0, "one_block_a_tile"), (1, "persistent"))})
+        kernel=kernels.kernel_attrs(*K13_ATTRS))
     log(f"[kernel] fused_ln_linear_dual stages "
         f"{json.dumps({k: v['stage_ms'] for k, v in forms.items()})} int_mm "
         f"{json.dumps({k: v['int_mm_ms'] for k, v in forms.items()})}")

@@ -45,9 +45,9 @@
 // Where B x H blocks are too few to fill the card, the wrapper splits a
 // sample's rows over `splits` blocks, each a range of whole warp tiles;
 // each writes its (m, l, o) to a scratch row, and the last of the (b, h)
-// blocks to arrive at its counter (an atomic add after a fence) merges
-// them in fp32, rescaled to the common max, writes out and resets the
-// counter to 0: one launch. "Position" write_pos[b] is the current token:
+// blocks to arrive at its counter (an atomic add after a fence; the
+// wrapper zeroes the counters for each call) merges them in fp32, rescaled
+// to the common max, and writes out: one launch. "Position" write_pos[b] is the current token:
 // its data comes from the quantized new row instead of the cache, so the
 // cache rows at and after write_pos[b] are never read (the staleness
 // mask) and the current token is scored with the same arithmetic as a
@@ -310,7 +310,6 @@ fused_write_kernel(
         }
         out[bh * hd + d] = __float2bfloat16_rn(od / gl);
       }
-      if (tid == 0) counter[bh] = 0;  // ready for the next launch
     }
   }
 
@@ -445,7 +444,7 @@ decode_attention_int8_read_kernel(
 // vs_new: [B, Hkv] f32; cache_k, cache_v: [L, B, maxS, Hkv*hd] int8;
 // k_scale, v_scale: [L, B, maxS, Hkv] f32; write_pos: [B] int32. Where
 // splits > 1: part [B, H, splits, 2 + hd] f32 scratch and counter [B, H]
-// int32, zero (each launch leaves it zero again); both unused otherwise.
+// int32, zero; both unused otherwise.
 // hd = 16 * 2^n <= 512, H % Hkv == 0, 0 <= layer < L, 1 <= splits
 // (checked by the wrapper).
 ULLAVA_EXPORT int ullava_decode_attention_int8_fused_write(

@@ -49,21 +49,15 @@
 //     width, tile.col0 counted from its first column), and the epilogue
 //     picks its form by part. The A rows are read once for both (the
 //     dual LN1 + qkv + bias-term product of K13, ln_linear_int8.cu).
-//   - Persistent tile loop (the kPersistent template flag): one block an
-//     SM walks the tiles, row tile by row tile (so a row tile's A stays
-//     in L2 across its column tiles); the producer's ring runs on across
-//     tiles, so it loads the next tile's first k-blocks while the
-//     consumers run the epilogue. The ring is then never free, and a tile
-//     takes no cluster: an epilogue with kClusterSyncs or that reuses the
-//     ring (K12's fc1) runs one tile a block. K13 measured it 12-16%
-//     slower than one tile a block, so no kernel runs it by default.
 //   - Compiled with ULLAVA_MUTANT_DUAL_TILE_OFFSET (a deliberate bug that
 //     only chip_smoke.py builds, into a copy of ln_linear_int8.cu) Bt2's
 //     tiles read their weight one tile over.
 // Not yet: 128 x 256 tiles (the fc2 epilogue's fp32 sums would not fit
 // the registers beside its int32 ones), a TMA store of the output,
 // consumer warpgroups that alternate tiles (an epilogue still stalls the
-// tensor cores). TMA multicast of the A tile across fc1's cluster (each
+// tensor cores). A persistent tile loop (one block an SM walking the
+// tiles, the producer loading the next tile's k-blocks during the
+// epilogue) ran K13 12-16% slower than one block a tile. TMA multicast of the A tile across fc1's cluster (each
 // block loading 128 / cluster_x of its rows into all) was tried and ran
 // slower: every block then waits for the slowest of its cluster.
 #pragma once
@@ -141,33 +135,15 @@ __device__ __forceinline__ void store_bf16x2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// The tiles of one launch: row tiles of BM rows, each cut into n1 column
-// tiles of Bt and then n2 of Bt2; tile `id` counts column tiles fastest
-// (the one-tile-a-block grid is (n1 + n2, row tiles)).
-struct Tiles {
-  int n1, n2, total;
-
-  __device__ __forceinline__ void at(int id, int& row0, int& col0, int& part) const {
-    const int nc = n1 + n2;
-    const int rt = id / nc;
-    place(rt, id - rt * nc, row0, col0, part);
-  }
-  __device__ __forceinline__ void place(int rt, int ct, int& row0, int& col0, int& part) const {
-    row0 = rt * BM;
-    part = ct >= n1;
-    col0 = (part ? ct - n1 : ct) * BN;
-  }
-};
-
-template <class Epi, bool kPersistent>
+// The grid is (n1 + n2 column tiles, row tiles): the first n1 column
+// tiles read Bt, the rest Bt2.
+template <class Epi>
 __global__ void __launch_bounds__(kThreads, 1)
     gemm_sm90_kernel(const __grid_constant__ CUtensorMap tm_a,
                      const __grid_constant__ CUtensorMap tm_b,
                      const __grid_constant__ CUtensorMap tm_b2, int M, int N, int N2, int K,
-                     int kt_per_chunk, Tiles tiles, const Epi epi) {
+                     int kt_per_chunk, int n1, const Epi epi) {
   using namespace sm90;
-  static_assert(!kPersistent || Epi::kClusterSyncs == 0,
-                "a persistent block runs no cluster epilogue");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // 1024-aligned for the swizzle
@@ -176,6 +152,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto full = [&](int s) { return base + kBarOff + 8 * s; };
   auto empty = [&](int s) { return base + kBarOff + 8 * (kStages + s); };
   const int KT = (K + BK - 1) / BK;
+  const int part = blockIdx.x >= n1;
+  const int row0 = blockIdx.y * BM, col0 = (blockIdx.x - (part ? n1 : 0)) * BN;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -186,45 +164,28 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  // Runs `tile(row0, col0, part, g0)` for each tile of the block, g0 the
-  // block's count of k-blocks before it (stage g % kStages holds its
-  // k-block g): the one tile of the 2-D grid, or every gridDim.x-th.
-  auto each_tile = [&](auto&& tile) {
-    int row0, col0, part;
-    if constexpr (kPersistent) {
-      int g0 = 0;
-      for (int id = blockIdx.x; id < tiles.total; id += gridDim.x, g0 += KT) {
-        tiles.at(id, row0, col0, part);
-        tile(row0, col0, part, g0);
-      }
-    } else {
-      tiles.place(blockIdx.y, blockIdx.x, row0, col0, part);
-      tile(row0, col0, part, 0);
-    }
-  };
-
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     // Producer: one thread issues every copy; the warpgroup then takes
     // part in the epilogue's cluster barriers and ends.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 0) {
-      each_tile([&](int row0, int col0, int part, int g0) {
-        const CUtensorMap* tb = part ? &tm_b2 : &tm_b;
+      const CUtensorMap* tb = part ? &tm_b2 : &tm_b;
 #ifdef ULLAVA_MUTANT_DUAL_TILE_OFFSET
-        if (part) col0 += BN;  // Bt2's tiles read one tile over
+      const int bcol = part ? col0 + BN : col0;  // Bt2's tiles read one tile over
+#else
+      const int bcol = col0;
 #endif
-        for (int kt = 0; kt < KT; ++kt) {
-          const int g = g0 + kt, s = g % kStages;
-          if (g >= kStages) mbar_wait(empty(s), ((g / kStages) - 1) & 1);
-          mbar_expect_tx(full(s), kStage);
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % kStages;
+        if (kt >= kStages) mbar_wait(empty(s), ((kt / kStages) - 1) & 1);
+        mbar_expect_tx(full(s), kStage);
 #pragma unroll
-          for (int bx = 0; bx < kBoxes; ++bx) {
-            tma_load(sA(s) + bx * BM * kBox, &tm_a, full(s), kt * BK + bx * kBox, row0, 0, 0);
-            tma_load(sB(s) + bx * BN * kBox, tb, full(s), kt * BK + bx * kBox, col0, 0, 0);
-          }
+        for (int bx = 0; bx < kBoxes; ++bx) {
+          tma_load(sA(s) + bx * BM * kBox, &tm_a, full(s), kt * BK + bx * kBox, row0, 0, 0);
+          tma_load(sB(s) + bx * BN * kBox, tb, full(s), kt * BK + bx * kBox, bcol, 0, 0);
         }
-      });
+      }
     }
     for (int i = 0; i < Epi::kClusterSyncs; ++i) cluster_sync();
     return;
@@ -233,7 +194,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
   const int lane = threadIdx.x % 32;
   Tile t;
+  t.row0 = row0;
+  t.col0 = col0;
   t.M = M;
+  t.N = part ? N2 : N;
+  t.part = part;
   t.cw = wg - 1;
   t.warp = (threadIdx.x / 32) % 4;
   t.g = lane / 4;
@@ -243,45 +208,39 @@ __global__ void __launch_bounds__(kThreads, 1)
   t.scratch = t.ring + kScratchOff;
   const uint32_t a_wg = t.cw * 64 * kBox;  // this warpgroup's 64 rows of an A box
 
+  typename Epi::State state{};
+  epi.begin(t, state);
   uint32_t acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0;  // defined before its first (overwriting) product
-  each_tile([&](int row0, int col0, int part, int g0) {
-    t.row0 = row0;
-    t.col0 = col0;
-    t.part = part;
-    t.N = part ? N2 : N;
-    typename Epi::State state{};
-    epi.begin(t, state);
-    int pending = -1;  // the stage whose products are still in flight
-    for (int kt = 0; kt < KT; ++kt) {
-      const int g = g0 + kt, s = g % kStages;
-      mbar_wait(full(s), (g / kStages) & 1);
-      wgmma_fence();
-      // A chunk's first product overwrites the sums.
-      wgmma_s8(acc, desc_sw128(sA(s) + a_wg), desc_sw128(sB(s)), kt % kt_per_chunk != 0);
+  int pending = -1;  // the stage whose products are still in flight
+  for (int kt = 0; kt < KT; ++kt) {
+    const int s = kt % kStages;
+    mbar_wait(full(s), (kt / kStages) & 1);
+    wgmma_fence();
+    // A chunk's first product overwrites the sums.
+    wgmma_s8(acc, desc_sw128(sA(s) + a_wg), desc_sw128(sB(s)), kt % kt_per_chunk != 0);
 #pragma unroll
-      for (int kk = 1; kk < BK / 32; ++kk)
-        wgmma_qk_s8(acc, desc_sw128(sA(s) + (kk / 4) * BM * kBox + a_wg + 32 * (kk % 4)),
-                    desc_sw128(sB(s) + (kk / 4) * BN * kBox + 32 * (kk % 4)));
-      wgmma_commit();
-      if ((kt + 1) % kt_per_chunk == 0 || kt + 1 == KT) {
-        wgmma_wait<0>();
-        reg_fence(acc);
-        if (lane == 0) {
-          if (pending >= 0) mbar_arrive(empty(pending));
-          mbar_arrive(empty(s));
-        }
-        pending = -1;
-        epi.chunk(acc, kt / kt_per_chunk, t, state);
-      } else {
-        wgmma_wait<1>();  // the products of k-block kt - 1 are done
-        if (lane == 0 && pending >= 0) mbar_arrive(empty(pending));
-        pending = s;
+    for (int kk = 1; kk < BK / 32; ++kk)
+      wgmma_qk_s8(acc, desc_sw128(sA(s) + (kk / 4) * BM * kBox + a_wg + 32 * (kk % 4)),
+                  desc_sw128(sB(s) + (kk / 4) * BN * kBox + 32 * (kk % 4)));
+    wgmma_commit();
+    if ((kt + 1) % kt_per_chunk == 0 || kt + 1 == KT) {
+      wgmma_wait<0>();
+      reg_fence(acc);
+      if (lane == 0) {
+        if (pending >= 0) mbar_arrive(empty(pending));
+        mbar_arrive(empty(s));
       }
+      pending = -1;
+      epi.chunk(acc, kt / kt_per_chunk, t, state);
+    } else {
+      wgmma_wait<1>();  // the products of k-block kt - 1 are done
+      if (lane == 0 && pending >= 0) mbar_arrive(empty(pending));
+      pending = s;
     }
-    epi.finish(t, state);
-  });
+  }
+  epi.finish(t, state);
 }
 
 // The 2-D view of a row-major int8 [rows, K] matrix (row stride `ld`
@@ -295,14 +254,14 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int rows, int K, int ld)
                           CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-template <class Epi, bool kPersistent = false>
+template <class Epi>
 int configure() {
   static bool configured = false;
   if (!configured) {
     if (sm90::encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
-    const cudaError_t err = cudaFuncSetAttribute(gemm_sm90_kernel<Epi, kPersistent>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(kSmemBytes<Epi>));
+    const cudaError_t err =
+        cudaFuncSetAttribute(gemm_sm90_kernel<Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmemBytes<Epi>));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
@@ -310,44 +269,30 @@ int configure() {
 }
 
 // The kernel's registers, shared bytes, spills and blocks an SM.
-template <class Epi, bool kPersistent = false>
+template <class Epi>
 int attrs(int* out) {
-  if (const int err = configure<Epi, kPersistent>()) return err;
-  return func_attrs(gemm_sm90_kernel<Epi, kPersistent>, kThreads, kSmemBytes<Epi>, out);
+  if (const int err = configure<Epi>()) return err;
+  return func_attrs(gemm_sm90_kernel<Epi>, kThreads, kSmemBytes<Epi>, out);
 }
 
 // Launches the GEMM of A with Bt (N columns) and Bt2 (N2 columns, or none
-// where N2 is 0) with `epi` on `stream`. Persistent: one block an SM
-// (fewer where there are fewer tiles), each walking tiles; otherwise one
-// block a tile, and `cluster_x` > 1 groups that many neighbouring column
-// tiles into one thread block cluster (N / BN must then be a multiple of
-// it, and N2 0). Returns a CUDA error code.
-template <class Epi, bool kPersistent>
+// where N2 is 0) with `epi` on `stream`, one block a tile; `cluster_x` > 1
+// groups that many neighbouring column tiles into one thread block cluster
+// (N / BN must then be a multiple of it, and N2 0). Returns a CUDA error
+// code.
+template <class Epi>
 int launch_gemm2(const int8_t* A, int lda, int M, const int8_t* Bt, int ldb, int N,
                  const int8_t* Bt2, int ldb2, int N2, int K, int kt_per_chunk, const Epi& epi,
                  int cluster_x, cudaStream_t stream) {
-  if (const int err = configure<Epi, kPersistent>()) return err;
-  Tiles tiles{(N + BN - 1) / BN, (N2 + BN - 1) / BN, 0};
-  const int row_tiles = (M + BM - 1) / BM;
-  tiles.total = row_tiles * (tiles.n1 + tiles.n2);
-  if (tiles.total == 0) return 0;
+  if (const int err = configure<Epi>()) return err;
+  const int n1 = (N + BN - 1) / BN, n2 = (N2 + BN - 1) / BN;
+  if (M == 0 || n1 + n2 == 0) return 0;
   CUtensorMap tm_a{}, tm_b{}, tm_b2{};
   if (!make_map(&tm_a, A, M, K, lda) || (N > 0 && !make_map(&tm_b, Bt, N, K, ldb)) ||
       (N2 > 0 && !make_map(&tm_b2, Bt2, N2, K, ldb2)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg = {};
-  if (kPersistent) {
-    static int sms = 0;
-    if (sms == 0) {
-      int dev = 0;
-      cudaError_t err = cudaGetDevice(&dev);
-      if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    cfg.gridDim = dim3(tiles.total < sms ? tiles.total : sms);
-  } else {
-    cfg.gridDim = dim3(tiles.n1 + tiles.n2, row_tiles);
-  }
+  cfg.gridDim = dim3(n1 + n2, (M + BM - 1) / BM);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = kSmemBytes<Epi>;
   cfg.stream = stream;
@@ -357,9 +302,9 @@ int launch_gemm2(const int8_t* A, int lda, int M, const int8_t* Bt, int ldb, int
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = !kPersistent && cluster_x > 1 ? 1 : 0;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, gemm_sm90_kernel<Epi, kPersistent>, tm_a,
-                                             tm_b, tm_b2, M, N, N2, K, kt_per_chunk, tiles, epi);
+  cfg.numAttrs = cluster_x > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, gemm_sm90_kernel<Epi>, tm_a, tm_b, tm_b2, M,
+                                             N, N2, K, kt_per_chunk, n1, epi);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -368,8 +313,8 @@ int launch_gemm2(const int8_t* A, int lda, int M, const int8_t* Bt, int ldb, int
 template <class Epi>
 int launch_gemm(const int8_t* A, int lda, int M, const int8_t* Bt, int ldb, int N, int K,
                 int kt_per_chunk, const Epi& epi, int cluster_x, cudaStream_t stream) {
-  return launch_gemm2<Epi, false>(A, lda, M, Bt, ldb, N, nullptr, 0, 0, K, kt_per_chunk, epi,
-                                  cluster_x, stream);
+  return launch_gemm2<Epi>(A, lda, M, Bt, ldb, N, nullptr, 0, 0, K, kt_per_chunk, epi,
+                           cluster_x, stream);
 }
 
 }  // namespace i8_sm90

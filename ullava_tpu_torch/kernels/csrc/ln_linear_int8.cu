@@ -42,13 +42,11 @@
 // twice, and a class costs two launches, not three (the corner's second
 // product was pure launch latency). The epilogue's scales and biases
 // load before the tile's products, not after.
-// K = 1280 is only five 256-byte k-blocks, so the core's persistent tile
-// loop (one block an SM, the producer loading the next tile while the
-// consumers store this one) was tried: on an H100 it ran 12-16% slower
-// than one block a tile in every class (a tile's time goes to its
-// products and its store, which it does not overlap). The GEMM runs one
-// block a tile; `stages` bit 3 runs the persistent loop instead, so that
-// chip_smoke.py times both.
+// K = 1280 is only five 256-byte k-blocks, so a persistent tile loop (one
+// block an SM, the producer loading the next tile while the consumers
+// store this one) was tried: on an H100 it ran 12-16% slower than one
+// block a tile in every class (a tile's time goes to its products and its
+// store, which it does not overlap), and was taken out again.
 //
 // Deliberate bugs for the correctness gate (chip_smoke.py), each built
 // only into a copy of this source under its define:
@@ -214,8 +212,7 @@ ULLAVA_EXPORT int ullava_fused_ln_linear_int8(const void* x, const void* ln_s, c
 // w2_scale [N2] f32; bias [N] bf16; bias2 [N2] f32; out [rows, N] bf16;
 // out2 [rows / T, rows2, N2] bf16; scratch xq [rows, K] int8 and xs [rows]
 // f32. `stages`: bit 0 runs the row pass, bit 1 the qkv columns, bit 2 the
-// bias-term columns (7 = the function: both column ranges in one launch),
-// bit 3 the GEMM as the persistent tile loop instead of one block a tile.
+// bias-term columns (7 = the function: both column ranges in one launch).
 ULLAVA_EXPORT int ullava_fused_ln_linear_dual_int8(
     const void* x, const void* ln_s, const void* ln_b, const void* wq, const void* w_scale,
     const void* bias, const void* w2q, const void* w2_scale, const void* bias2, void* out,
@@ -241,18 +238,14 @@ ULLAVA_EXPORT int ullava_fused_ln_linear_dual_int8(
     const auto* a = static_cast<const int8_t*>(xq);
     const auto* w = static_cast<const int8_t*>(wq);
     const auto* w2 = static_cast<const int8_t*>(w2q);
-    return (stages & 8)
-               ? i8_sm90::launch_gemm2<i8_sm90::DualLinearEpi, true>(a, K, rows, w, K, n, w2, K,
-                                                                      n2, K, KT, epi, 1, st)
-               : i8_sm90::launch_gemm2<i8_sm90::DualLinearEpi, false>(a, K, rows, w, K, n, w2, K,
-                                                                       n2, K, KT, epi, 1, st);
+    return i8_sm90::launch_gemm2(a, K, rows, w, K, n, w2, K, n2, K, KT, epi, 1, st);
   }
   return 0;
 }
 
 // {registers, shared bytes, spilled bytes, blocks an SM} of the dual
-// GEMM's kernel: `form` 0 one block a tile, 1 the persistent loop.
-ULLAVA_EXPORT int ullava_fused_ln_linear_dual_int8_attrs(int form, int* out) {
+// GEMM's kernel.
+ULLAVA_EXPORT int ullava_fused_ln_linear_dual_int8_attrs(int* out) {
   using namespace ullava::i8_sm90;
-  return form == 0 ? attrs<DualLinearEpi, false>(out) : attrs<DualLinearEpi, true>(out);
+  return attrs<DualLinearEpi>(out);
 }

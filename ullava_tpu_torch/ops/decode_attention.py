@@ -17,7 +17,7 @@ dequantized cache up to fp32 summation order.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -216,7 +216,6 @@ def decode_attention_int8_fused_write_plain(
 # most four blocks an SM in all (its launch bound), at least 256 rows of a
 # full cache a split, at most 32 splits.
 _BLOCKS_PER_SM, _MIN_SPLIT_ROWS, _MAX_SPLITS = 4, 256, 32
-_COUNTERS: Dict[torch.device, torch.Tensor] = {}  # device -> zero int32 counters
 
 
 def fused_write_splits(B: int, H: int, maxS: int, sms: int) -> int:
@@ -225,15 +224,6 @@ def fused_write_splits(B: int, H: int, maxS: int, sms: int) -> int:
     batches over long caches."""
     return max(1, min((_BLOCKS_PER_SM * sms) // max(B * H, 1), maxS // _MIN_SPLIT_ROWS,
                       _MAX_SPLITS))
-
-
-def _split_counters(device: torch.device, n: int) -> torch.Tensor:
-    """n zero int32 counters on `device`, kept between calls: the kernel
-    leaves every counter it uses at zero again (one stream at a time)."""
-    c = _COUNTERS.get(device)
-    if c is None or c.numel() < n:
-        c = _COUNTERS[device] = torch.zeros(n, dtype=torch.int32, device=device)
-    return c
 
 
 def _fused_write_cuda(q, kq_new, ks_new, vq_new, vs_new, cache_k, cache_v, k_scale, v_scale,
@@ -264,8 +254,10 @@ def _fused_write_cuda(q, kq_new, ks_new, vq_new, vs_new, cache_k, cache_v, k_sca
     out = torch.empty_like(q)
     part = counter = None
     if splits > 1:
+        # Scratch of this call's own, on its stream: the partials, and the
+        # counters by which the last block of a (sample, head) finds it is last.
         part = torch.empty((B, H, splits, 2 + hd), dtype=torch.float32, device=q.device)
-        counter = _split_counters(q.device, B * H)
+        counter = torch.zeros((B, H), dtype=torch.int32, device=q.device)
     kernels.launch(
         name, q.data_ptr(), kq_new.data_ptr(), ks_new.data_ptr(), vq_new.data_ptr(),
         vs_new.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), k_scale.data_ptr(),

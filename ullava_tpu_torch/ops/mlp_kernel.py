@@ -361,8 +361,7 @@ def _ln_linear_dual_cuda(x3, ln_scale, ln_bias, w_q, w_scale, bias, w2_q, w2_sca
     """The CUDA `fused_ln_linear_dual` on [N, T, C]: (y, P, int8 rows, row
     scales). `stages` selects the row pass (1), the first product's columns
     (2) and the second's (4), both in one launch, so that each can be timed
-    alone on the `scratch` of an earlier full call; 8 runs the products as
-    one block a tile instead of the persistent tile loop."""
+    alone on the `scratch` of an earlier full call."""
     N, T, C = x3.shape
     rows = N * T
     F, F2 = _check_ln_linear_dual(x3, ln_scale, ln_bias, w_q, w_scale, bias, w2_q, w2_scale,
