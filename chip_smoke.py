@@ -2064,6 +2064,44 @@ TRAIN_MUTANTS = {
 }
 # K15's second bug, in its masking: a masked tile's causal bound one key late.
 K15_MASK_MUTANT = ("flash_fwd_sm90.cu", "ULLAVA_MUTANT_CAUSAL_SHIFT")
+# The fused backward's own hazards (besides delta and scale dropped, in
+# `TRAIN_MUTANTS`): a masked tile's causal bound one key late, and only the
+# first consumer warpgroup's 64 keys of a tile reaching dQ.
+BWD_MUTANTS = {
+    "causal_mask_shifted": ("flash_attention_bwd.cu", "ULLAVA_MUTANT_BWD_CAUSAL_SHIFT"),
+    "dq_one_warpgroup": ("flash_attention_bwd.cu", "ULLAVA_MUTANT_DQ_ONE_WARPGROUP"),
+}
+BWD_ATTRS = ("flash_attention_bwd.cu", "ullava_flash_attention_bwd_attrs")
+# Small edges of the fused backward's key tiles on the card:
+# (B, Sq, Sk, kv_lens, causal): a batch row with kv_len 0, and Sq 200
+# (a ragged last query tile) with ragged kv_lens.
+BWD_EDGES = {"kv_len_0": (2, 128, 128, (128, 0), True),
+             "sq_200_ragged": (2, 200, 200, (200, 131), True)}
+
+
+def flash_bwd_edges(gen) -> dict:
+    """The backward against its plain version at `BWD_EDGES`, dk and dv
+    exact zeros past kv_len; {case: {grad: grad_rel_err}}."""
+    import torch
+
+    from ullava_tpu_torch.ops import attention
+
+    out = {}
+    for name, (Bn, Sq, Sk, lens, causal) in BWD_EDGES.items():
+        q, do = ((torch.randn((Bn, Sq, 4, 128), generator=gen, device="cuda")).to(
+            torch.bfloat16) for _ in range(2))
+        k, v = ((torch.randn((Bn, Sk, 4, 128), generator=gen, device="cuda")).to(
+            torch.bfloat16) for _ in range(2))
+        kv = torch.tensor(lens, device="cuda", dtype=torch.int32)
+        kw = dict(causal=causal, scale=128**-0.5)
+        o, lse = attention.flash_attention_fwd(q, k, v, kv, **kw)
+        got = attention.flash_attention_bwd(q, k, v, o, lse, do, kv, **kw)
+        ref = attention.flash_attention_bwd_plain(q, k, v, o, lse, do, kv, **kw)
+        errs = {n: grad_rel_err(g, r) for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
+        zero = all(not t[b, n:].any() for t in got[1:] for b, n in enumerate(lens))
+        must(f"flash_attention_bwd edge {name}", max(errs.values()) <= 1e-2 and zero, (errs, zero))
+        out[name] = errs
+    return out
 
 
 def train_kernel_phases(gen, results: dict) -> None:
@@ -2076,15 +2114,25 @@ def train_kernel_phases(gen, results: dict) -> None:
     absolute (fp32, a few
     units; sums in another order); dw within 1e-2 of its largest value.
     Each gate must reject the kernel rebuilt with a deliberate bug
-    (`TRAIN_MUTANTS`, `K15_MASK_MUTANT`): lse without log l and a masked
-    tile's causal bound one key late in K15, delta dropped from dS in the
-    dkv kernel, scale dropped from dS in the dq kernel, the c term dropped
-    from dx. The library yardsticks: SDPA with is_causal (no kv_lens mask)
-    forward, and its backward under autograd (dq, dk and dv in one call),
-    and the backward of `F.rms_norm` under autograd; SDPA's backward is
-    timed once and stands in both K16's and K17's line. K15's line adds
-    its rate over the live causal products and its `HGMMA` / `UTMALDG`
-    counts in the built library's SASS."""
+    (`TRAIN_MUTANTS`, `K15_MASK_MUTANT`, `BWD_MUTANTS`): lse without log l
+    and a masked tile's causal bound one key late in K15; in the fused
+    backward delta dropped from dS (dk's gate), the dS that feeds dQ
+    unscaled, only one consumer warpgroup's keys reaching dQ (dq's gate),
+    a masked tile's causal bound one key late (all three); the c term
+    dropped from dx. dk and dv must be bit-equal over two calls (dq's
+    largest difference between them is recorded: its fp32 sums arrive by
+    reduce-adds in no fixed order), and the backward must hold its gate at
+    `BWD_EDGES`. The library yardsticks: SDPA with is_causal (no kv_lens
+    mask) forward, and its backward under autograd (dq, dk and dv in one
+    call) for K16's line and for the whole backward (its three launches,
+    as the step runs it); the bf16 cast for K17's line (the dq finish);
+    none for the pre-pass (delta and the zeroed accumulator; its line adds
+    the einsum that computed delta before); the backward of `F.rms_norm`
+    under autograd.
+    K15's and K16's lines add their rate over the live products and their
+    `HGMMA` / `UTMALDG` (K16 also `UTMAREDG`, the TMA reduce-add) / `HMMA`
+    counts in the built library's SASS; K16's and K17's their registers,
+    shared bytes and blocks an SM."""
     import torch
     import torch.nn.functional as F
 
@@ -2134,52 +2182,109 @@ def train_kernel_phases(gen, results: dict) -> None:
     log(f"[kernel] K15 tflops_live {line['tflops_live']} sass {line['sass']}")
     del o_ref, lse_ref, lse_bad, o_bad
 
-    # K16 + K17 on the forward's own o and lse.
+    # K16 + K17 on the forward's own o and lse: the gate, the determinism
+    # of dk and dv, each mutant against the gate of what it breaks.
     dq, dk, dv = attention.flash_attention_bwd(q, k, v, o, lse, do, lens, **kw)
     ref = attention.flash_attention_bwd_plain(q, k, v, o, lse, do, lens, **kw)
-    errs = {n: grad_rel_err(g, r) for n, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
+    grads = ("dq", "dk", "dv")
+    errs = {n: grad_rel_err(g, r) for n, g, r in zip(grads, (dq, dk, dv), ref)}
     zero_pad = all(not t[b, n:].any() for t in (dk, dv) for b, n in enumerate(TRAIN_LENS))
     must("flash_attention_bwd", max(errs.values()) <= tol and zero_pad, (errs, zero_pad))
+    dq2, dk2, dv2 = attention.flash_attention_bwd(q, k, v, o, lse, do, lens, **kw)
+    determinism = {"dk_dv_bit_equal": torch.equal(dk, dk2) and torch.equal(dv, dv2),
+                   "dq_max_abs_diff": (dq.float() - dq2.float()).abs().max().item(),
+                   "dq_grad_rel_diff": grad_rel_err(dq2, dq)}
+    must("flash_attention_bwd determinism", determinism["dk_dv_bit_equal"], determinism)
+    del dq2, dk2, dv2
     caught = {}
-    for name, grad in (("flash_attention_bwd_dkv", 1), ("flash_attention_bwd_dq", 0)):
-        src, define = TRAIN_MUTANTS[name]
+    for label, (src, define), checked in (
+            ("delta_dropped", TRAIN_MUTANTS["flash_attention_bwd_dkv"], ("dk",)),
+            ("scale_dropped", TRAIN_MUTANTS["flash_attention_bwd_dq"], ("dq",)),
+            ("causal_mask_shifted", BWD_MUTANTS["causal_mask_shifted"], grads),
+            ("dq_one_warpgroup", BWD_MUTANTS["dq_one_warpgroup"], ("dq",))):
         with kernels.mutant(src, define):
-            bad = attention.flash_attention_bwd(q, k, v, o, lse, do, lens, **kw)[grad]
-        caught[name] = grad_rel_err(bad, ref[grad])
-        must_not(name, define, caught[name] <= tol, caught[name])
-    delta = torch.einsum("bqhd,bqhd->bhq", do.float(), o.float()).contiguous()
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), lens.data_ptr())
-    rest = (B_TRAIN, S_TRAIN, S_TRAIN, H, 1, 0, float(sc))
+            bad = attention.flash_attention_bwd(q, k, v, o, lse, do, lens, **kw)
+        caught[label] = max(grad_rel_err(bad[grads.index(n)], ref[grads.index(n)])
+                            for n in checked)
+        must_not("flash_attention_bwd", define, caught[label] <= tol, caught[label])
+        del bad
+    # Their own generator: the phases after this one draw what they drew before.
+    edges = flash_bwd_edges(torch.Generator(device=dev).manual_seed(15))
+    # The pre-pass: delta within 1e-5 of its largest value (fp32 sums of
+    # 128 products in another order), the accumulator all zeros.
+    delta = attention.flash_bwd_delta_plain(o, do).contiguous()
+    dq_acc = torch.full(q.shape, 1.0, dtype=torch.float32, device=dev)
+    got_delta = torch.empty_like(delta)
+    prepass = (do.data_ptr(), o.data_ptr(), got_delta.data_ptr(), dq_acc.data_ptr(), S_TRAIN, H,
+               B_TRAIN * S_TRAIN * H)
+    kernels.launch("flash_attention_bwd_delta", *prepass)
+    err_delta = (got_delta - delta).abs().max().item()
+    rel_delta = err_delta / delta.abs().max().item()
+    acc_zero = not dq_acc.any()
+    must("flash_attention_bwd_delta", rel_delta <= 1e-5 and acc_zero, (rel_delta, acc_zero))
+    line = kernel_line(
+        "flash_attention_bwd_delta", err_delta,
+        {"rel_err": rel_delta, "tol": 1e-5, "accumulator_zeroed": acc_zero,
+         "plain_covers": "delta and the zeroed accumulator",
+         "einsum_ms": time_ms(lambda: attention.flash_bwd_delta_plain(o, do), 20)},
+        lambda: kernels.launch("flash_attention_bwd_delta", *prepass),
+        lambda: (attention.flash_bwd_delta_plain(o, do), torch.zeros_like(dq_acc)), None,
+        nbytes(do, o, delta, dq_acc), 2.0 * hd * B_TRAIN * S_TRAIN * H,
+        flops_per_s=FP32_FLOPS_PER_S)
+    line["kernel"] = kernels.kernel_attrs(*BWD_ATTRS, 2)
+    results["flash_attention_bwd_delta"] = line
+    fused = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+             delta.data_ptr(), lens.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             B_TRAIN, S_TRAIN, S_TRAIN, H, 1, 0, float(sc))
     qr, kr, vr = (t.detach().clone().requires_grad_(True) for t in (qt, kt, vt))
     sdpa = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True, scale=sc)
-    # One timing of SDPA's backward (dq, dk and dv in one call) for both lines.
+    # SDPA's backward under autograd: dq, dk and dv in one call.
     library_ms = time_ms(
         lambda: torch.autograd.grad(sdpa, (qr, kr, vr), dot, retain_graph=True), 20)
     plain = lambda: attention.flash_attention_bwd_plain(q, k, v, o, lse, do, lens, **kw)  # noqa: E731
-    results["flash_attention_bwd_dkv"] = kernel_line(
+    sass = sass_counts("flash_attention_bwd.cu", "flash_bwd_kernel",
+                       ("HGMMA", "UTMALDG", "UTMAREDG", "HMMA"))
+    flops5 = 10.0 * hd * live  # S, dP, dV, dK, dQ over the live scores
+    line = kernel_line(
         "flash_attention_bwd_dkv",
         max((dk.float() - ref[1].float()).abs().max().item(),
             (dv.float() - ref[2].float()).abs().max().item()),
-        {"grad_rel_err": {"dk": errs["dk"], "dv": errs["dv"]}, "tol": tol,
-         "pad_keys_zero": zero_pad,
-         "mutant_grad_rel_err": {"delta_dropped": caught["flash_attention_bwd_dkv"]},
-         "plain_and_library_cover": "dq, dk and dv"},
-        lambda: kernels.launch("flash_attention_bwd_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(),
-                               *rest),
-        plain, None, nbytes(q, do, lse, delta, lens, dk, dv) + live_bytes(TRAIN_LENS, k, v),
-        8.0 * hd * live)
-    results["flash_attention_bwd_dq"] = kernel_line(
+        {"grad_rel_err": errs, "tol": tol, "pad_keys_zero": zero_pad,
+         "determinism": determinism, "edges_grad_rel_err": edges,
+         "mutant_grad_rel_err": caught,
+         "plain_covers": "dq, dk and dv", "library_covers": "dq, dk and dv (SDPA backward)"},
+        lambda: kernels.launch("flash_attention_bwd_dkv", *fused), plain, None,
+        nbytes(q, do, lse, delta, lens, dk, dv, dq_acc) + live_bytes(TRAIN_LENS, k, v), flops5)
+    line["library_ms"] = library_ms
+    line["tflops_live"] = flops5 / line["ms"] / 1e9
+    line["sass"] = sass
+    line["kernel"] = kernels.kernel_attrs(*BWD_ATTRS, 0)
+    results["flash_attention_bwd_dkv"] = line
+    n8 = dq.numel() // 8
+    line = kernel_line(
         "flash_attention_bwd_dq", (dq.float() - ref[0].float()).abs().max().item(),
-        {"grad_rel_err": errs["dq"], "tol": tol,
-         "mutant_grad_rel_err": {"scale_dropped": caught["flash_attention_bwd_dq"]},
-         "plain_and_library_cover": "dq, dk and dv"},
-        lambda: kernels.launch("flash_attention_bwd_dq", *ptrs, dq.data_ptr(), *rest),
-        plain, None, nbytes(q, do, lse, delta, lens, dq) + live_bytes(TRAIN_LENS, k, v),
-        6.0 * hd * live)
-    for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
-        results[name]["library_ms"] = library_ms
-    del ref, sdpa, qr, kr, vr, qt, kt, vt, dot, q, k, v, do, o, lse, dq, dk, dv, delta
+        {"grad_rel_err": errs["dq"], "tol": tol, "plain_covers": "dq, dk and dv",
+         "library_covers": "the dq finish alone (`Tensor.to(torch.bfloat16)`)"},
+        lambda: kernels.launch("flash_attention_bwd_dq", dq_acc.data_ptr(), dq.data_ptr(), n8),
+        plain, lambda: dq_acc.to(torch.bfloat16), nbytes(dq_acc, dq), 0.0)
+    line["sass"] = sass_counts("flash_attention_bwd.cu", "dq_finish_kernel",
+                               ("HGMMA", "UTMALDG", "HMMA"))
+    line["kernel"] = kernels.kernel_attrs(*BWD_ATTRS, 1)
+    results["flash_attention_bwd_dq"] = line
+    # The whole backward as the training step calls it (its three
+    # launches and their allocations) beside SDPA's backward.
+    whole = lambda: attention.flash_attention_bwd(q, k, v, o, lse, do, lens, **kw)  # noqa: E731
+    b_ms, b_by = bound_ms(nbytes(q, o, do, lse, lens, dq, dk, dv) + live_bytes(TRAIN_LENS, k, v),
+                          flops5)
+    whole_line = {"ms": time_ms(whole, 20), "library_ms": library_ms, "bound_ms": b_ms,
+                  "bound_by": b_by}
+    whole_line["vs_library"] = whole_line["ms"] / whole_line["library_ms"]
+    whole_line["tflops_live"] = flops5 / whole_line["ms"] / 1e9
+    results["flash_attention_bwd_dkv"]["whole_backward"] = whole_line
+    log(f"[kernel] flash backward: fused {results['flash_attention_bwd_dkv']['tflops_live']} "
+        f"TFLOP/s sass {sass}; whole {json.dumps(whole_line)}")
+    del ref, sdpa, qr, kr, vr, qt, kt, vt, dot, q, k, v, do, o, lse, dq, dk, dv, delta, dq_acc
+    del got_delta
     torch.cuda.empty_cache()
 
     # K18: dy correlated with x (as the gradient of a norm's output is), so
@@ -2463,8 +2568,8 @@ SAM_LAUNCHES = {"fused_window_attention_grid": 28, "fused_global_attention": 4,
 # The training path's kernels launch in no serve, the all-int8 serve's
 # forms and the packed kernels in no other serve, the two uncalled kernels
 # and the chunk-pipelined MLP (whose path is the microbenchmark) in none.
-IDLE_IN_SERVING = {"flash_attention_fwd_lse": 0, "flash_attention_bwd_dkv": 0,
-                   "flash_attention_bwd_dq": 0, "rms_norm_bwd": 0, **{k: 0 for k in WQ_NAMES},
+IDLE_IN_SERVING = {"flash_attention_fwd_lse": 0, "flash_attention_bwd_delta": 0,
+                   "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0, "rms_norm_bwd": 0, **{k: 0 for k in WQ_NAMES},
                    **{k: 0 for k in I8_NAMES}, **{k: 0 for k in PACKED_NAMES + UNCALLED_NAMES},
                    "fused_mlp_block_v2": 0}
 BF16_LAUNCHES = {"fused_rotary": 64, "flash_attention_fwd_bsh": 32, **SAM_LAUNCHES,
@@ -2655,11 +2760,14 @@ def stage1_config(**llm):
 
 # Launches of one stage-1 step with remat: every layer's forward runs twice
 # (the step and the backward's recompute): K15 and two K9 per layer each
-# time, the final norm's K9 once; the backward runs K16, K17 and two K18
-# per layer and one K18 for the final norm. Nothing else launches a kernel
-# (CLIP is plain ops under no_grad; K2 and K1 are serving routes).
-TRAIN_LAUNCHES = {**{k: 0 for k in BF16_LAUNCHES}, "flash_attention_fwd_lse": 64, "flash_attention_bwd_dkv": 32,
-                  "flash_attention_bwd_dq": 32, "rms_norm_bwd": 65, "rms_norm_fwd": 129}
+# time, the final norm's K9 once; the backward runs the flash backward's
+# pre-pass, K16, K17 and two K18 per layer and one K18 for the final norm.
+# Nothing else launches a kernel (CLIP is plain ops under no_grad; K2 and
+# K1 are serving routes).
+FLASH_BWD_NAMES = ("flash_attention_bwd_delta", "flash_attention_bwd_dkv",
+                   "flash_attention_bwd_dq")
+TRAIN_LAUNCHES = {**{k: 0 for k in BF16_LAUNCHES}, "flash_attention_fwd_lse": 64,
+                  **{k: 32 for k in FLASH_BWD_NAMES}, "rms_norm_bwd": 65, "rms_norm_fwd": 129}
 
 
 def _fingerprint(t):
@@ -2745,6 +2853,7 @@ def stage1_train_phase(gen) -> dict:
         "frozen_leaves_unchanged": len(frozen_before),
         "profiled_step_wall_s": profile["wall_s"], "device_busy_s": busy,
         "device_idle_share": profile["device_idle_share"],
+        "watched_device_ms_calls": profile["watched_device_ms_calls"],
         "top_device_ms": dict(list(profile["top_device_ms"].items())[:8]),
         "top_device_calls": dict(list(profile["top_device_calls"].items())[:8]),
         "launches": launches,
@@ -2791,7 +2900,7 @@ def stage2_config():
 # exponentials) and the fused MLP. No int8-activation and no serving
 # kernel launches.
 STAGE2_LAUNCHES = {**{k: 0 for k in BF16_LAUNCHES}, "flash_attention_fwd_lse": 64,
-                   "flash_attention_bwd_dkv": 32, "flash_attention_bwd_dq": 32,
+                   **{k: 32 for k in FLASH_BWD_NAMES},
                    "rms_norm_bwd": 65, "rms_norm_fwd": 129,
                    "fused_window_attention_grid": 28, "fused_window_attention_rect": 28 * 2,
                    "fused_global_attention_y": 4, "fused_ln_linear_wq": 28 * 6 + 4 * 2,
@@ -2900,6 +3009,7 @@ def stage2_train_phase(gen) -> tuple:
         "frozen_leaves_unchanged": len(frozen),
         "profiled_step_wall_s": profile["wall_s"], "device_busy_s": busy,
         "device_idle_share": profile["device_idle_share"],
+        "watched_device_ms_calls": profile["watched_device_ms_calls"],
         "top_device_ms": dict(list(profile["top_device_ms"].items())[:8]),
         "top_device_calls": dict(list(profile["top_device_calls"].items())[:8]),
         "launches": launches,
@@ -2961,11 +3071,17 @@ def weight_only_encode_phase(cfg, params, images_sam) -> dict:
     return line
 
 
-# Kernels whose device time a profiled serve reports whether or not they
-# are among its top kernels: [ms, calls] of the kernels whose name holds
-# the string (K8's kernel; K13's GEMM, whose row pass K10 and K12 share).
+# Kernels whose device time a profiled serve or training step reports
+# whether or not they are among its top kernels: [ms, calls] of the kernels
+# whose name holds the string (K8's kernel; K13's GEMM, whose row pass K10
+# and K12 share; the flash forward, K15 in training and K2 in serving; the
+# flash backward's pre-pass, fused pass (K16) and dq finish (K17)).
 PROFILE_WATCH = {"decode_attention_int8_fused_write": "fused_write_kernel",
-                 "fused_ln_linear_dual_gemm": "DualLinearEpi"}
+                 "fused_ln_linear_dual_gemm": "DualLinearEpi",
+                 "flash_fwd_sm90_kernel": "flash_fwd_sm90_kernel",
+                 "flash_attention_bwd_delta": "bwd::delta_kernel",
+                 "flash_attention_bwd_dkv": "bwd::flash_bwd_kernel",
+                 "flash_attention_bwd_dq": "bwd::dq_finish_kernel"}
 
 
 def profile_serve(run) -> dict:
@@ -3249,8 +3365,8 @@ def check_stage1(gen, errs: dict) -> None:
                 errs[f"stage1_{policy}_{key}_{i}"] = abs(m[key].float().item() - ref) / abs(ref)
         torch.cuda.synchronize()
         ran = {k: n - before[k] for k, n in kernels.launch_counts().items() if n != before[k]}
-        if ran != {"flash_attention_fwd_lse": 12, "flash_attention_bwd_dkv": 6,
-                   "flash_attention_bwd_dq": 6, "rms_norm_fwd": 27, "rms_norm_bwd": 15}:
+        if ran != {"flash_attention_fwd_lse": 12, **{k: 6 for k in FLASH_BWD_NAMES},
+                   "rms_norm_fwd": 27, "rms_norm_bwd": 15}:
             raise AssertionError(f"the small stage-1 step ({policy}) launched {ran}")
     with tempfile.TemporaryDirectory() as out:
         tcfg = {**tcfg, "num_train_epochs": 2, "save_steps": 2, "save_total_limit": 2,
@@ -3329,8 +3445,8 @@ def check_stage2(gen, errs: dict) -> None:
     # the MLP's gate.
     if ran != {"fused_ln_linear_wq": 3 * 8, "fused_mlp_block_wq": 3, "fused_window_attention_grid": 3,
                "fused_window_attention_rect": 3 * 2, "fused_global_attention_y": 3,
-               "flash_attention_fwd_lse": 12, "flash_attention_bwd_dkv": 6,
-               "flash_attention_bwd_dq": 6, "rms_norm_fwd": 27, "rms_norm_bwd": 15}:
+               "flash_attention_fwd_lse": 12, **{k: 6 for k in FLASH_BWD_NAMES},
+               "rms_norm_fwd": 27, "rms_norm_bwd": 15}:
         raise AssertionError(f"the small stage-2 step launched {ran}")
 
 
@@ -3381,7 +3497,8 @@ def main() -> int:
         *TRAIN_MUTANTS.values(), K15_MASK_MUTANT, *WQ_MUTANTS.values(), *I8_MUTANTS.values(),
         *PACKED_MUTANTS.values(), *V2_MUTANTS.values(), *GLOBAL_Y_MUTANTS.values(),
         *QUAD_MAX_MUTANTS.values(), RECT_PAD_MUTANT, *K2_MUTANTS.values(),
-        *K12_MUTANTS.values(), *K13_MUTANTS.values(), *K8_MUTANTS.values()])
+        *K12_MUTANTS.values(), *K13_MUTANTS.values(), *K8_MUTANTS.values(),
+        *BWD_MUTANTS.values()])
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "sources": sorted(built)}), flush=True)
 
@@ -3505,7 +3622,7 @@ def main() -> int:
                int8_line if name in int8_results else
                resident_line if name in resident_names else
                all_int8_line if name in I8_NAMES else
-               train_line if name in TRAIN_MUTANTS else
+               train_line if name in TRAIN_MUTANTS or name in FLASH_BWD_NAMES else
                wq_encode_line if name == "fused_ln_linear_dual_wq" else
                stage2_line if name in WQ_NAMES else sam_int8_line)
         r["launches"] = own["launches"][name]

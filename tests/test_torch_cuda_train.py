@@ -1,5 +1,6 @@
 """On the card: the four CUDA kernels of the training path (flash forward
-with logsumexp, flash backward dkv and dq, RMSNorm backward) against their
+with logsumexp, the flash backward's fused pass and dq finish, RMSNorm
+backward) against their
 plain PyTorch versions in bf16, and the routing of the training forward
 through them under autograd. Every test here needs an NVIDIA GPU and skips
 without one. The file imports torch only, so it runs on a machine that has
@@ -98,6 +99,69 @@ def test_cuda_flash_fwd_lse_edges(cuda, name):
     assert (lse[~dead] - lse_ref[~dead]).abs().max().item() <= 1e-4
 
 
+def _bwd_inputs(gen, name):
+    B, Sq, Sk, H, Hkv, lens, causal, q_offset = _EDGES[name]
+    q, do = (_rand(gen, B, Sq, H, 128) for _ in range(2))
+    k, v = (_rand(gen, B, Sk, Hkv, 128) for _ in range(2))
+    kv = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return q, k, v, do, kv, dict(causal=causal, scale=128**-0.5, q_offset=q_offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [n for n in _EDGES if n != "gqa_rep_2"])
+def test_cuda_flash_bwd_edges(cuda, name):
+    """The fused backward's key tiles at the forward's edges: a ragged last
+    query tile, a query offset past the first key tile, a batch row with no
+    live key, ragged kv_lens without the causal mask, the stage-1 shape."""
+    q, k, v, do, kv, kw = _bwd_inputs(cuda, name)
+    o, lse = attention.flash_attention_fwd(q, k, v, kv, **kw)
+    got = attention.flash_attention_bwd(q, k, v, o, lse, do, kv, **kw)
+    ref = attention.flash_attention_bwd_plain(q, k, v, o, lse, do, kv, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert _grad_rel_err(g, r) <= _TOL
+    for b, n in enumerate(kv.tolist()):  # key rows at or past kv_len: exact zeros
+        assert not got[1][b, n:].any() and not got[2][b, n:].any()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bwd_delta_prepass(cuda):
+    """The pre-pass: delta within 1e-5 of its largest value (fp32 sums in
+    another order), the accumulator zeroed whatever it held."""
+    q, k, v, do, kv, kw = _bwd_inputs(cuda, "sq_200")
+    o = _rand(cuda, *q.shape)
+    B, Sq, H, _ = q.shape
+    delta = torch.empty(B, H, Sq, device="cuda")
+    acc = torch.full(q.shape, 7.0, device="cuda")
+    kernels.launch("flash_attention_bwd_delta", do.data_ptr(), o.data_ptr(), delta.data_ptr(),
+                   acc.data_ptr(), Sq, H, B * Sq * H)
+    ref = attention.flash_bwd_delta_plain(o, do)
+    assert (delta - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    assert not acc.any()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bwd_refuses_gqa(cuda):
+    q, k, v, do, kv, kw = _bwd_inputs(cuda, "gqa_rep_2")
+    o = torch.zeros_like(q)
+    lse = torch.zeros(q.shape[0], q.shape[2], q.shape[1], device="cuda")
+    with pytest.raises(ValueError, match="GQA"):
+        attention.flash_attention_bwd(q, k, v, o, lse, do, kv, **kw)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bwd_dk_dv_deterministic(cuda):
+    """dk and dv have one owner a row: bit-equal over two calls. dq's fp32
+    sums arrive by reduce-adds in no fixed order: within one bf16 ulp of
+    a row's largest value between the calls."""
+    q, k, v, do, kv, kw = _bwd_inputs(cuda, "stage1")
+    o, lse = attention.flash_attention_fwd(q, k, v, kv, **kw)
+    dq, dk, dv = attention.flash_attention_bwd(q, k, v, o, lse, do, kv, **kw)
+    dq2, dk2, dv2 = attention.flash_attention_bwd(q, k, v, o, lse, do, kv, **kw)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert _grad_rel_err(dq2, dq) <= _TOL
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal,lens", _CASES)
 def test_cuda_flash_bwd_matches_plain(cuda, causal, lens):
@@ -134,7 +198,7 @@ def test_cuda_rms_norm_bwd_matches_plain(cuda, rows, D):
 @pytest.mark.cuda
 def test_cuda_training_forward_routes_through_the_kernels(cuda):
     """One remat'd layer under autograd: the flash Function (K15 twice with
-    the recompute, K16, K17), the norms (K9, K18; dw where the norm weight
+    the recompute, the backward's pre-pass, K16, K17), the norms (K9, K18; dw where the norm weight
     trains), no K2; without autograd the serving route (K2) as before.
     Gradients against the same layer in fp32 through the plain versions."""
     cfg = llama.LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
@@ -153,8 +217,9 @@ def test_cuda_training_forward_routes_through_the_kernels(cuda):
     grads = torch.autograd.grad((h.float() * proj).sum(), leaves)
     torch.cuda.synchronize()
     counts = {k: n for k, n in kernels.launch_counts().items() if n}
-    assert counts == {"flash_attention_fwd_lse": 2, "flash_attention_bwd_dkv": 1,
-                      "flash_attention_bwd_dq": 1, "rms_norm_fwd": 5, "rms_norm_bwd": 3}
+    assert counts == {"flash_attention_fwd_lse": 2, "flash_attention_bwd_delta": 1,
+                      "flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq": 1,
+                      "rms_norm_fwd": 5, "rms_norm_bwd": 3}
     assert all(torch.isfinite(g).all() and g.abs().max() > 0 for g in grads)
 
     c32 = dataclasses.replace(cfg, dtype=torch.float32, remat=False)

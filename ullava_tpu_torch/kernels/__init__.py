@@ -135,15 +135,23 @@ KERNELS: Dict[str, KernelSpec] = {
             (P, P, P, P, P, P, I, I, I, I, I, I, I, F, P),
             "ullava_tpu/ops/attention.py:173",
         ),
+        # The flash backward: its pre-pass (delta, which the JAX package
+        # leaves to XLA, and the dq accumulator zeroed), the fused pass (dk,
+        # dv and dq's parts into the accumulator) in K16's slot, the dq
+        # finish in K17's.
+        KernelSpec(
+            "flash_attention_bwd_delta", "flash_attention_bwd.cu",
+            "ullava_flash_attention_bwd_delta", (P, P, P, P, I, I, I, P),
+            "ullava_tpu/ops/attention.py:590",
+        ),
         KernelSpec(
             "flash_attention_bwd_dkv", "flash_attention_bwd.cu", "ullava_flash_attention_bwd_dkv",
-            (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P),
+            (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P),
             "ullava_tpu/ops/attention.py:473",
         ),
         KernelSpec(
             "flash_attention_bwd_dq", "flash_attention_bwd.cu", "ullava_flash_attention_bwd_dq",
-            (P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P),
-            "ullava_tpu/ops/attention.py:529",
+            (P, P, I, P), "ullava_tpu/ops/attention.py:529",
         ),
         KernelSpec(
             "rms_norm_bwd", "rms_norm_bwd.cu", "ullava_rms_norm_bwd",

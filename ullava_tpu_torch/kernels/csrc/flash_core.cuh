@@ -1,8 +1,8 @@
 // The mma.sync online-softmax attention core of the SAM global kernel (K4,
 // sam_global_attention.cu); its loads and tensor-core products are also the
-// building blocks of flash_attention_bwd.cu, window_norm_first.cuh and
-// window_whole.cuh. (The LLaMA prefill and CLIP forward, K2, runs on the
-// wgmma + TMA forward of flash_fwd_sm90.cuh.)
+// building blocks of window_norm_first.cuh and window_whole.cuh. (The LLaMA
+// prefill and CLIP forward, K2, runs on the wgmma + TMA forward of
+// flash_fwd_sm90.cuh, and the flash backward on wgmma + TMA too.)
 //
 // A block owns kBQ = 64 query rows of one attention instance (one
 // (batch, head) or (image, head) pair): four warps, 16 rows each. Each

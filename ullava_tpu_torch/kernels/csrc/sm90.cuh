@@ -1,10 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the wgmma + TMA kernels: the
-// flash forward (K15 and K2, flash_fwd_sm90.cuh), the SAM global attention
-// core (K11, K20, global_sm90.cuh) and the int8 GEMM core (K12,
-// int8_gemm_sm90.cuh).
+// flash forward (K15 and K2, flash_fwd_sm90.cuh), the flash backward (K16,
+// flash_attention_bwd.cu), the SAM global attention core (K11, K20,
+// global_sm90.cuh) and the int8 GEMM core (K12, int8_gemm_sm90.cuh).
 //
 //   - mbarrier helpers (init, expect-tx, arrive, parity wait);
-//   - a 4-D TMA tile load completing on an mbarrier's transaction count;
+//   - a 4-D TMA tile load completing on an mbarrier's transaction count,
+//     and a 4-D TMA reduce-add from shared memory into global memory
+//     (bulk groups, with the proxy fence that orders the threads' shared
+//     stores before it);
 //   - the wgmma descriptor of a 128-byte-swizzled tile whose 8-row groups
 //     lie 1024 bytes apart (K-major operands of 128-byte rows: 64 bf16 or
 //     128 int8 codes; the transposed V operand: 8 keys of 64 bf16);
@@ -12,7 +15,9 @@
 //     (m64n128k16; its first step with write-only registers) and in int8
 //     (m64n128k32, s32 sums), O += P V with P
 //     from registers (m64n64k16 and m64n16k16, V through the transpose
-//     flag), with fence, commit and wait;
+//     flag), with fence, commit and wait; the m64n64k16 products of the
+//     flash backward with both operands in shared memory, either one
+//     through its transpose flag;
 //   - quad reductions of the accumulator layout and bf16 packing;
 //   - the host's tensor-map encoder: cuTensorMapEncodeTiled, reached
 //     through cudaGetDriverEntryPoint, so no library links -lcuda.
@@ -67,6 +72,36 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Adds the 4-D box of fp32 at shared address `src` into `map`'s tensor at
+// coordinates (c0, c1, c2, c3), elementwise; parts of the box outside the
+// tensor are dropped. Completes as a bulk group (bulk_commit, bulk_wait*).
+__device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map, uint32_t src, int c0,
+                                               int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until at most N bulk groups still read their shared source ...
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// ... or are still in flight at all.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Orders this thread's shared-memory stores before later reads of the
+// async proxy (a TMA store or reduce, a wgmma operand).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled tile whose 8-row
@@ -225,6 +260,42 @@ __device__ __forceinline__ void wgmma_pv16(float (&d)[8], const uint32_t* a, uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+#define ULLAVA_D32                                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d[32] += A (64 x 16, shared) * B (16 x 64, shared); TA, TB the transpose
+// flags (0: K-major, as Q and K are in S = Q K^T; 1: stored MN-major, as V
+// is in O += P V).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ULLAVA_D32 ", "
+      "%32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : ULLAVA_F8(d, 0), ULLAVA_F8(d, 8), ULLAVA_F8(d, 16), ULLAVA_F8(d, 24)
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// The first 16-deep step of such a sum, overwriting d through write-only
+// registers (as wgmma_qk_first).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss64_first(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ULLAVA_D32 ", "
+      "%32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : ULLAVA_FO8(d, 0), ULLAVA_FO8(d, 8), ULLAVA_FO8(d, 16), ULLAVA_FO8(d, 24)
+      : "l"(da), "l"(db), "r"(0), "n"(TA), "n"(TB));
+}
+
+#undef ULLAVA_D32
 #undef ULLAVA_F8
 #undef ULLAVA_FO8
 #undef ULLAVA_R8

@@ -188,8 +188,8 @@ def plain_on_card(scope: str):
 # What each scope's witness must not launch (`all`: nothing at all).
 _SCOPE_KERNELS = {
     "k15": {"flash_attention_fwd_lse"},
-    "llm": {"flash_attention_fwd_lse", "flash_attention_fwd_bsh", "flash_attention_bwd_dkv",
-            "flash_attention_bwd_dq", "rms_norm_fwd", "rms_norm_bwd"},
+    "llm": {"flash_attention_fwd_lse", "flash_attention_fwd_bsh", "flash_attention_bwd_delta",
+            "flash_attention_bwd_dkv", "flash_attention_bwd_dq", "rms_norm_fwd", "rms_norm_bwd"},
 }
 
 

@@ -5,7 +5,9 @@ Serving runs the flash forward K2 (`flash_attention_fwd_bsh`). Under
 autograd `attention(impl="flash")` is the Function `_FlashAttention`, the
 counterpart of the JAX custom VJP `_flash_attention`: its forward is K15
 (`flash_attention_fwd`, which also returns each row's logsumexp) and its
-backward K16 and K17 (`flash_attention_bwd`). All of them read q, k, v in
+backward (`flash_attention_bwd`): a pre-pass (delta, the fp32 dq
+accumulator zeroed), K16 (one fused pass: dk, dv, dq's parts into the
+accumulator) and K17 (dq from it). All of them read q, k, v in
 the port's [B, S, H, hd] layout; the JAX training rules transpose to
 [B, H, S, hd] first, a TPU layout matter that changes no value.
 """
@@ -148,7 +150,7 @@ def _check_cuda_operands(name: str, B: int, hd: int, head_dims=(128,), **tensors
     for key, t in tensors.items():
         if key == "kv_lens":
             kernels.check_cuda_tensor(f"{name} kv_lens", t, torch.int32, (B,))
-        elif key in ("lse", "delta"):
+        elif key == "lse":
             kernels.check_cuda_tensor(f"{name} {key}", t, torch.float32)
         else:
             kernels.check_cuda_tensor(f"{name} {key}", t, torch.bfloat16)
@@ -186,6 +188,12 @@ def flash_attention_fwd(
     return out, lse
 
 
+def flash_bwd_delta_plain(out, do):
+    """Plain version of the backward's pre-pass: delta = rowsum(do * out)
+    in fp32, [B, H, Sq] (the kernel also zeroes the dq accumulator)."""
+    return torch.einsum("bqhd,bqhd->bhq", do.float(), out.float())
+
+
 def flash_attention_bwd_plain(
     q, k, v, out, lse, do, kv_lens, *, causal: bool, scale: float, q_offset: int = 0
 ):
@@ -197,7 +205,7 @@ def flash_attention_bwd_plain(
     dt = q.dtype
     s, mask = _scores(q, k, causal=causal, kv_lens=kv_lens, bias=None,
                       q_offset=q_offset, scale=scale)
-    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)  # [B, H, Sq]
+    delta = flash_bwd_delta_plain(out, do)
     p = torch.exp(s.masked_fill(~mask, _NEG_INF) - lse[..., None]).masked_fill(~mask, 0.0)
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
@@ -212,10 +220,16 @@ def flash_attention_bwd(
 ):
     """(dq, dk, dv) of the flash forward for the output gradient `do`, all
     [B, S, H, hd]; `out` and `lse` are what `flash_attention_fwd` returned.
-    delta = rowsum(do * out) in fp32 from the rounded output (the JAX
-    package leaves it to XLA), then K16 (dk, dv) and K17 (dq) from
-    `kernels/csrc/flash_attention_bwd.cu` (hd 128, bf16, H == Hkv) for CUDA
-    tensors; the plain version for CPU tensors."""
+    For CUDA tensors the three launches of
+    `kernels/csrc/flash_attention_bwd.cu` (hd 128, bf16, H == Hkv): a
+    pre-pass, delta = rowsum(do * out) in fp32 from the rounded output (the
+    JAX package leaves it to XLA) with an fp32 dq accumulator zeroed; K16,
+    one `wgmma` + TMA pass over 128-key tiles that writes dk and dv and
+    adds each tile's dS K into the accumulator by TMA reduce-adds; K17,
+    dq = bf16(accumulator). dk and dv are bit-identical between calls on
+    the same inputs; dq's fp32 sums arrive in an order that changes from
+    call to call, so dq may move by about one bf16 ulp. The plain version
+    for CPU tensors."""
     B, Sq, H, hd = q.shape
     _check_flash_shapes(q, k, v)
     if k.shape[2] != H:
@@ -226,28 +240,33 @@ def flash_attention_bwd(
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(
             q, k, v, out, lse, do, kv_lens, causal=causal, scale=scale, q_offset=q_offset)
-    delta = torch.einsum("bqhd,bqhd->bhq", do.float(), out.float()).contiguous()
-    return _flash_bwd_cuda(q, k, v, do, lse, delta, kv_lens, causal, scale, q_offset)
+    return _flash_bwd_cuda(q, k, v, out, do, lse, kv_lens, causal, scale, q_offset)
 
 
-def _flash_bwd_cuda(q, k, v, do, lse, delta, kv_lens, causal, scale, q_offset):
+def _flash_bwd_cuda(q, k, v, out, do, lse, kv_lens, causal, scale, q_offset):
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
-    _check_cuda_operands("flash_attention_bwd", B, hd, q=q, k=k, v=v, do=do, lse=lse,
-                         delta=delta, kv_lens=kv_lens)
+    _check_cuda_operands("flash_attention_bwd", B, hd, q=q, k=k, v=v, out=out, do=do, lse=lse,
+                         kv_lens=kv_lens)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-              delta.data_ptr(), kv_lens.data_ptr())
-    rest = (B, Sq, Sk, H, int(causal), int(q_offset), float(scale))
-    kernels.launch("flash_attention_bwd_dkv", *common, dk.data_ptr(), dv.data_ptr(), *rest)
-    kernels.launch("flash_attention_bwd_dq", *common, dq.data_ptr(), *rest)
+    dq_acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    kernels.launch("flash_attention_bwd_delta", do.data_ptr(), out.data_ptr(), delta.data_ptr(),
+                   dq_acc.data_ptr(), Sq, H, B * Sq * H)
+    kernels.launch("flash_attention_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   do.data_ptr(), lse.data_ptr(), delta.data_ptr(), kv_lens.data_ptr(),
+                   dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H,
+                   int(causal), int(q_offset), float(scale))
+    kernels.launch("flash_attention_bwd_dq", dq_acc.data_ptr(), dq.data_ptr(), dq.numel() // 8)
     return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
     """Flash attention under autograd (the JAX custom VJP
     `_flash_attention`, `ullava_tpu/ops/attention.py:658-694`): K15
-    forward, K16 + K17 backward. Saves q, k, v, the output and lse."""
+    forward; the backward `flash_attention_bwd`: its pre-pass (delta),
+    K16 (the fused pass over key tiles), then K17 (dq from its fp32
+    accumulator). Saves q, k, v, the output and lse."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_lens, causal, scale, q_offset):
