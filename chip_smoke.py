@@ -547,6 +547,9 @@ K8_MUTANTS = {
     "split_last_tile_left_out": ("decode_attention_int8.cu", "ULLAVA_MUTANT_DECODE_SPLIT_LAST_TILE"),
 }
 K8_ATTRS = ("decode_attention_int8.cu", "ullava_decode_attention_int8_fused_write_attrs")
+# The deliberate bug of K9's cluster form (`rms_quant.cu`): the last CTA's
+# partial left out of the cluster's sum of squares.
+K9_MUTANTS = {"cluster_partial_left_out": ("rms_quant.cu", "ULLAVA_MUTANT_RMS_CLUSTER_PARTIAL")}
 
 
 def spread_ms(fn, batches: int = 5, iters: int = 20) -> dict:
@@ -725,7 +728,8 @@ def int8_kernel_phases(gen) -> dict:
         nbytes(x, res, w, h_ref, q_ref, a_ref), 10.0 * x.numel(), flops_per_s=FP32_FLOPS_PER_S)
 
     # K9: the RMSNorm forward at the 5120 rows of a prefill's norms, and
-    # at the 16 rows of a decode step's (checked and timed the same way).
+    # at the 16 rows of a decode step's (checked and timed the same way),
+    # which take its cluster form (a row a cluster of 8 CTAs).
     x9, x9d = randn(rows, D, scale=2.0), randn(B_INT8, 1, D, scale=2.0)
     y_ref, yd_ref = norms.rms_norm_plain(x9, w, 1e-6), norms.rms_norm_plain(x9d, w, 1e-6)
     y = norms.rms_norm(x9, w, 1e-6)
@@ -734,13 +738,52 @@ def int8_kernel_phases(gen) -> dict:
     bad = row_rel_err(norms.rms_norm(x9, torch.ones_like(w), 1e-6), y_ref)
     bad_d = row_rel_err(norms.rms_norm(x9d, torch.ones_like(w), 1e-6), yd_ref)
     must_not("rms_norm_fwd", "weight_dropped", bad <= tol or bad_d <= tol, (bad, bad_d))
+    # The cluster form at every row count the wrapper gives it up to its
+    # crossover and one past it (the other form), and at widths that are
+    # no multiple of its 4096-element span (with their own weights), each
+    # gated, and the copy that leaves one CTA's partial out of the sum.
+    cgen = torch.Generator(device=dev).manual_seed(16)  # the phases after draw as before
+    cut = norms.RMS_CLUSTER_MAX_ROWS
+    edges = {}
+    for r_, d_ in ((1, D), (B_INT8, D), (cut, D), (cut + 1, D), (B_INT8, D + 8), (3, 12256)):
+        xe = (torch.randn((r_, d_), generator=cgen, device=dev) * 2.0).to(bf)
+        we = (1 + 0.1 * torch.randn(d_, generator=cgen, device=dev)).to(bf)
+        ref_e = norms.rms_norm_plain(xe, we, 1e-6)
+        e_ = row_rel_err(norms.rms_norm(xe, we, 1e-6), ref_e)
+        must(f"rms_norm_fwd {r_}x{d_}", e_ <= tol, e_)
+        edges[f"{r_}x{d_}"] = {"form": "cluster" if r_ <= cut else "block_a_row",
+                               "row_rel_err": e_}
+        if r_ <= cut:
+            with kernels.mutant(*K9_MUTANTS["cluster_partial_left_out"]):
+                m_ = row_rel_err(norms.rms_norm(xe, we, 1e-6), ref_e)
+            edges[f"{r_}x{d_}"]["mutant_row_rel_err"] = {"cluster_partial_left_out": must_not(
+                f"rms_norm_fwd {r_}x{d_}", "cluster_partial_left_out", m_ <= tol, m_)}
+    # Both forms by row count at D 4096, by events around a launch and by
+    # the profiler's kernel time: where the cluster form stops paying.
+    crossover = {}
+    for r_ in (1, 16, 32, 48, 64, 80, 96, 128, 192, 256, 512, 1024):
+        xe = (torch.randn((r_, D), generator=cgen, device=dev) * 2.0).to(bf)
+        crossover[str(r_)] = {}
+        for name, c in (("cluster", True), ("block_a_row", False)):
+            run = lambda c=c, xe=xe: norms._rms_norm_fwd_cuda(xe, w, 1e-6, c)  # noqa: E731
+            crossover[str(r_)].update({f"{name}_ms": time_ms(run, 20),
+                                       f"{name}_device_ms": device_ms_a_call(run)})
     decode_rows = {
-        "rows": B_INT8, "row_rel_err": err_d, "mutant_row_rel_err": {"weight_dropped": bad_d},
+        "rows": B_INT8, "form": "cluster", "row_rel_err": err_d,
+        "mutant_row_rel_err": {"weight_dropped": bad_d},
         "ms": time_ms(lambda: norms.rms_norm(x9d, w, 1e-6), 20),
+        # The one-block-a-row form on the same inputs, and the same timer
+        # around a launch that does nothing: what a launch costs at least.
+        "block_a_row_ms": time_ms(lambda: norms._rms_norm_fwd_cuda(x9d, w, 1e-6, False), 20),
+        "timer_floor_ms": time_ms(lambda: torch.cuda._sleep(0), 20),
         "plain_ms": time_ms(lambda: norms.rms_norm_plain(x9d, w, 1e-6), 20),
         "library_ms": time_ms(lambda: F.rms_norm(x9d, (D,), w, 1e-6), 20),
         "bound_ms": bound_ms(nbytes(x9d, w, yd_ref), 6.0 * x9d.numel(), FP32_FLOPS_PER_S)[0],
+        "device_ms": crossover[str(B_INT8)]["cluster_device_ms"],
+        "block_a_row_device_ms": crossover[str(B_INT8)]["block_a_row_device_ms"],
+        "cluster_max_rows": cut, "edges": edges, "crossover_ms": crossover,
     }
+    log(f"[kernel] rms_norm_fwd decode_rows {json.dumps(decode_rows)}")
     results["rms_norm_fwd"] = kernel_line(
         "rms_norm_fwd", (y.float() - y_ref.float()).abs().max().item(),
         {"row_rel_err": err, "tol": tol, "mutant_row_rel_err": {"weight_dropped": bad},
@@ -895,6 +938,13 @@ K12_MUTANTS = {
     "fc2_next_chunk_scale": ("mlp_block_int8.cu", "ULLAVA_MUTANT_MLP_NEXT_CHUNK_SCALE"),
 }
 K12_ATTRS = ("mlp_block_int8.cu", "ullava_fused_mlp_block_int8_attrs")
+# The deliberate bug of K10 on the wgmma + TMA int8 core: the residual pairs
+# that a thread loads before its products taken from its other row.
+K10_MUTANTS = {"residual_from_other_row": ("ln_linear_int8.cu", "ULLAVA_MUTANT_LINEAR_RESIDUAL_ROW")}
+K10_ATTRS = ("ln_linear_int8.cu", "ullava_fused_ln_linear_int8_attrs")
+# The GEMM kernels of `ln_linear_int8.cu` by the epilogue in their mangled
+# names (K10's `LinearEpi`, K13's `DualLinearEpi`).
+K10_GEMM, K13_GEMM = "9LinearEpi", "13DualLinearEpi"
 # The rows of K12's three window-class launches a resident window block at
 # B=16: 256 full windows of 200 rows, the edge pair, the corners.
 RESIDENT_MLP_ROWS = (51200, 14336, 1024)
@@ -910,9 +960,11 @@ def sam_int8_kernel_phases(gen) -> dict:
     attention with bf16 exponentials within 2e-2, because its rounding
     depends on the running maximum and so on the key tiling; int8
     intermediates (the LN'd rows, the re-quantized GELU output) at least
-    99.9% exact and the rest within 1, their scales within rtol 1e-3 (a
-    chunk's abs-max comes through the polynomial GELU of an fp32 product).
-    Each gate must reject mutated runs that stand for typical bugs."""
+    99.9% exact and the rest within 1; the LN'd rows' scales within rtol
+    1e-5, the GELU output's chunk scales within rtol 1e-3 of those formed
+    from the kernel's own int8 rows (a chunk's abs-max comes through the
+    polynomial GELU of an fp32 product). Each gate must reject mutated runs
+    that stand for typical bugs."""
     import torch
     import torch.nn.functional as F
 
@@ -935,17 +987,20 @@ def sam_int8_kernel_phases(gen) -> dict:
         leaf = quant.quantize_int8(w)
         return leaf["q"], leaf["scale"]
 
-    # The shared int8 GEMM core at shapes that are no multiple of its
-    # 128 x 128 x 64 tile (ragged rows, columns and depth), through
-    # `fused_linear`, against an integer product spelled out on the CPU.
-    # Without a LayerNorm the int8 rows must be bit-equal.
+    # K10's GEMM on the wgmma + TMA int8 core at shapes that are no
+    # multiple of its 128 x 128 x 256 tile (ragged rows, columns and depth),
+    # through `fused_linear` with a residual (the proj form's edge loads),
+    # against an integer product spelled out on the CPU. Without a
+    # LayerNorm the int8 rows must be bit-equal.
     odd = {}
+    rgen = torch.Generator(device=dev).manual_seed(10)  # the draws after it stay as they were
     for rows, K, N in ((200, 96, 72), (129, 1280, 136), (1, 16, 8)):
         xo, (wq, ws), bias = randn(rows, K), weight(K, N), randn(N)
-        got, xq, xs = mlp_kernel._ln_linear_cuda(xo, None, None, wq, ws, bias, 0.0, None)
+        res = torch.randn((rows, N), generator=rgen, device=dev).to(bf)
+        got, xq, xs = mlp_kernel._ln_linear_cuda(xo, None, None, wq, ws, bias, 0.0, res)
         xq_ref, xs_ref = mlp_kernel._row_quant(xo)
         acc = (xq_ref.cpu().int() @ wq.cpu().int()).to(dev).float()
-        ref = (acc * (xs_ref * ws) + bias.float()).to(bf)
+        ref = (acc * (xs_ref * ws) + bias.float() + res.float()).to(bf)
         err = row_rel_err(got, ref)
         must(f"int8 GEMM core at {rows}x{K}x{N}", torch.equal(xq, xq_ref) and err <= tol, err)
         odd[f"{rows}x{K}x{N}"] = err
@@ -977,6 +1032,9 @@ def sam_int8_kernel_phases(gen) -> dict:
                 x, lg, torch.zeros_like(lb), wq, ws, bias, eps, res)[0]
         else:
             mutants["residual_dropped"] = mlp_kernel._ln_linear_cuda(*args, None)[0]
+            for bug, src_define in K10_MUTANTS.items():
+                with kernels.mutant(*src_define):
+                    mutants[bug] = mlp_kernel._ln_linear_cuda(*args, res)[0]
         info["mutant_row_rel_err"] = {
             m: must_not(f"fused_ln_linear {form}", m, row_rel_err(out, ref) <= tol,
                         row_rel_err(out, ref)) for m, out in mutants.items()}
@@ -998,14 +1056,28 @@ def sam_int8_kernel_phases(gen) -> dict:
         line["stage_ms"] = stage_ms(
             lambda bits, a=args, r=res, sc=(xq, xs): mlp_kernel._ln_linear_cuda(
                 *a, r, stages=bits, scratch=sc), {"row_pass": 1, "gemm": 2})
+        ops = 2.0 * T * C * N
+        line.update(
+            shape=[T, C, N], tops=ops / line["ms"] / 1e9,
+            int8_peak_share=ops / line["ms"] / 1e9 / (INT8_OPS_PER_S / 1e12),
+            gemm_int8_peak_share=ops / line["stage_ms"]["gemm"] / 1e9 / (INT8_OPS_PER_S / 1e12),
+            # cuBLASLt's int8 GEMM alone on the product's operands (int32
+            # out, no epilogue): a yardstick of the product, not of the function.
+            int_mm_ms=time_ms(lambda xq=xq, wq=wq: torch._int_mm(xq, wq), 10))
         forms[form] = line
         del ref, got, xq, xs, xq_ref, xs_ref, res
     # The kernels line carries the LN+qkv form; the proj form rides in it.
-    results["fused_ln_linear"] = {**forms["ln_qkv"], "shape": [T, C, 3 * C],
+    results["fused_ln_linear"] = {**forms["ln_qkv"],
                                   "gemm_core_odd_shapes_row_rel_err": odd, "proj_residual_form": {
         k: v for k, v in forms["proj_residual"].items()
         if k not in ("name", "route", "source", "replaces")}}
-    log(f"[kernel] fused_ln_linear stages {json.dumps({k: v['stage_ms'] for k, v in forms.items()})}")
+    results["fused_ln_linear"].update(
+        sass=sass_counts("ln_linear_int8.cu", K10_GEMM, ("IGMMA", "UTMALDG", "IMMA")),
+        kernel=kernels.kernel_attrs(*K10_ATTRS))
+    log(f"[kernel] fused_ln_linear stages {json.dumps({k: v['stage_ms'] for k, v in forms.items()})} "
+        f"int_mm {json.dumps({k: v['int_mm_ms'] for k, v in forms.items()})} "
+        f"sass {json.dumps(results['fused_ln_linear']['sass'])} "
+        f"kernel {json.dumps(results['fused_ln_linear']['kernel'])}")
 
     # K12: one block's MLP. The columns of fc1 grow by chunk, so the five
     # 1024-wide chunks of a row have abs-maxima that differ severalfold.
@@ -1018,9 +1090,15 @@ def sam_int8_kernel_phases(gen) -> dict:
     got, xq, xs, hq, hs = mlp_kernel._mlp_block_cuda(*args, 1024)
     torch.cuda.synchronize()
 
+    # The chunk scales' reference comes from the kernel's own int8 rows and
+    # row scales, so that their 1e-3 limit measures the fc1 stage alone: an
+    # xq code one step off (which the int8 gate allows) moves a chunk's
+    # abs-max by up to about 2e-3.
+    hs_own = fc1_chunk_scales(xq, xs, w1, s1, b1, 1024)
+
     def judge_mlp(out, hq_, hs_):
         ok_h, exact_h, worst_h = int8_gate(hq_, hq_ref)
-        err, hs_err = row_rel_err(out, ref), max_rel_err(hs_, hs_ref)
+        err, hs_err = row_rel_err(out, ref), max_rel_err(hs_, hs_own)
         info = {"row_rel_err": err, "tol": tol, "h_int8_exact_share": exact_h,
                 "h_int8_max_diff": worst_h, "h_scale_rel_err": hs_err}
         return ok_h and err <= tol and hs_err <= 1e-3, info
@@ -1075,7 +1153,7 @@ def sam_int8_kernel_phases(gen) -> dict:
             x[:n], *args[1:], 1024), 10) for n in RESIDENT_MLP_ROWS})
     log(f"[kernel] fused_mlp_block stages {json.dumps(results['fused_mlp_block']['stage_ms'])} "
         f"int_mm {json.dumps(results['fused_mlp_block']['int_mm_ms'])}")
-    del ref, got, xq, xs, hq, hs, xq_ref, xs_ref, hq_ref, hs_ref, x, w1, w2
+    del ref, got, xq, xs, hq, hs, xq_ref, xs_ref, hq_ref, hs_ref, hs_own, x, w1, w2
     torch.cuda.empty_cache()
 
     # K11: one global block's attention, both exponential forms. The bias
@@ -1139,6 +1217,24 @@ def sam_int8_kernel_phases(gen) -> dict:
     del y5, mask, y, a, bb, qkv, a4, b4
     torch.cuda.empty_cache()
     return results
+
+
+def fc1_chunk_scales(xq, xs, w1, s1, b1, f_chunk):
+    """[rows, F / f_chunk] scales of fc1's GELU output by chunk, as
+    `_mlp_block_parts_plain` forms them, but from the int8 rows `xq` and
+    row scales `xs` given (a kernel's own), 8192 rows at a time."""
+    import torch
+
+    from ullava_tpu_torch.ops import mlp_kernel
+
+    F = w1.shape[1]
+    s1f = s1.reshape(1, F).float()
+    out = []
+    for r0 in range(0, xq.shape[0], 8192):
+        h = mlp_kernel._fc1_gelu_plain(xq[r0:r0 + 8192], xs[r0:r0 + 8192], w1, s1f, b1)
+        out.append(mlp_kernel._row_quant(h.reshape(-1, F // f_chunk, f_chunk))[1].reshape(
+            -1, F // f_chunk))
+    return torch.cat(out)
 
 
 def library_mlp(x, g, b, w1, s1, b1, w2, s2, b2, eps, f_chunk):
@@ -1523,7 +1619,7 @@ def resident_kernel_phases(gen, results: dict) -> None:
                          if k not in ("name", "route", "source", "replaces")}
         for name in ("edge_pair", "corner")}}
     results["fused_ln_linear_dual"].update(
-        sass=sass_counts("ln_linear_int8.cu", "gemm_sm90_kernel", ("IGMMA", "UTMALDG", "IMMA")),
+        sass=sass_counts("ln_linear_int8.cu", K13_GEMM, ("IGMMA", "UTMALDG", "IMMA")),
         kernel=kernels.kernel_attrs(*K13_ATTRS))
     log(f"[kernel] fused_ln_linear_dual stages "
         f"{json.dumps({k: v['stage_ms'] for k, v in forms.items()})} int_mm "
@@ -3074,14 +3170,45 @@ def weight_only_encode_phase(cfg, params, images_sam) -> dict:
 # Kernels whose device time a profiled serve or training step reports
 # whether or not they are among its top kernels: [ms, calls] of the kernels
 # whose name holds the string (K8's kernel; K13's GEMM, whose row pass K10
-# and K12 share; the flash forward, K15 in training and K2 in serving; the
-# flash backward's pre-pass, fused pass (K16) and dq finish (K17)).
+# and K12 share; K10's GEMM (`::LinearEpi>`: no other epilogue's name ends
+# so, `DualLinearEpi` has no `::` before `LinearEpi`) and its row pass
+# without a LayerNorm (the proj form's; no other kernel takes it); K9 in
+# both of its forms, one block a row and a row a cluster; the flash
+# forward, K15 in training and K2 in serving; the flash backward's
+# pre-pass, fused pass (K16) and dq finish (K17)).
 PROFILE_WATCH = {"decode_attention_int8_fused_write": "fused_write_kernel",
                  "fused_ln_linear_dual_gemm": "DualLinearEpi",
+                 "fused_ln_linear_gemm": "::LinearEpi>",
+                 "fused_ln_linear_proj_row_pass": "ln_quant_rows_kernel<false>",
+                 "rms_norm_fwd_block_a_row": "rms_row_kernel<false, false>",
+                 "rms_norm_fwd_cluster": "rms_fwd_cluster_kernel",
                  "flash_fwd_sm90_kernel": "flash_fwd_sm90_kernel",
                  "flash_attention_bwd_delta": "bwd::delta_kernel",
                  "flash_attention_bwd_dkv": "bwd::flash_bwd_kernel",
                  "flash_attention_bwd_dq": "bwd::dq_finish_kernel"}
+
+
+def _dev_us(e):
+    """A profiler entry's own device time, in microseconds."""
+    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_ms_a_call(fn, calls: int = 50) -> float:
+    """Device time of one call of `fn` by the profiler: the summed time of
+    the kernels that `calls` back-to-back calls ran, over `calls` (the
+    launch's latency and the timer's own cost left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_dev_us(e) for e in prof.key_averages()
+             if "CUDA" in str(getattr(e, "device_type", "")))
+    return us / 1e3 / calls
 
 
 def profile_serve(run) -> dict:
@@ -3093,22 +3220,19 @@ def profile_serve(run) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall_s = run()
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-
     # Device-side entries only (kernels, copies): an aten op's entry
     # repeats the time of the kernels it launched.
     events = [e for e in prof.key_averages()
-              if "CUDA" in str(getattr(e, "device_type", "")) and dev_us(e) > 0]
-    busy_s = sum(dev_us(e) for e in events) / 1e6
+              if "CUDA" in str(getattr(e, "device_type", "")) and _dev_us(e) > 0]
+    busy_s = sum(_dev_us(e) for e in events) / 1e6
     # Names are cut to 80 characters; kernels that then share a name
     # (elementwise kernels of different functors) are summed.
     ms, calls = {}, {}
     for e in events:
-        ms[e.key[:80]] = ms.get(e.key[:80], 0.0) + dev_us(e) / 1e3
+        ms[e.key[:80]] = ms.get(e.key[:80], 0.0) + _dev_us(e) / 1e3
         calls[e.key[:80]] = calls.get(e.key[:80], 0) + e.count
     top = sorted(ms, key=ms.get, reverse=True)[:12]
-    watched = {label: [sum(dev_us(e) for e in events if part in e.key) / 1e3,
+    watched = {label: [sum(_dev_us(e) for e in events if part in e.key) / 1e3,
                        sum(e.count for e in events if part in e.key)]
                for label, part in PROFILE_WATCH.items()}
     return {
@@ -3188,6 +3312,26 @@ def check_phase(gen) -> None:
             ref = llama.forward(qp32, q32, input_ids=toks[i], positions=pos[:, None],
                                 kv_lens=pos + 1, kv_cache=cache32, write_pos=pos)
             errs[f"int8_llama_decode_{i}_logits"] = rel_err(got["logits"], ref["logits"])
+        # A one-sample prompt of 12 tokens: its W8A8 products have 12 rows,
+        # fewer than the library int8 product takes on the card, so
+        # `quant.int8_matmul` pads them; then two decode steps.
+        lens1 = torch.tensor([12], dtype=torch.int32)
+        cache = llama.init_kv_cache(qcfg, 1, 14, device="cuda")
+        cache32 = llama.init_kv_cache(q32, 1, 14, device="cpu")
+        got = llama.forward(qp, qcfg, input_ids=ids[:1, :12].cuda(), kv_lens=lens1.cuda(),
+                            kv_cache=cache)
+        ref = llama.forward(qp32, q32, input_ids=ids[:1, :12], kv_lens=lens1, kv_cache=cache32)
+        errs["int8_llama_12_token_prompt_hidden"] = rel_err(got["hidden_states"][0],
+                                                            ref["hidden_states"][0])
+        for i in range(2):
+            pos = lens1 + i
+            got = llama.forward(qp, qcfg, input_ids=toks[i, :1].cuda(),
+                                positions=pos[:, None].cuda(), kv_lens=(pos + 1).cuda(),
+                                kv_cache=cache, write_pos=pos.cuda())
+            ref = llama.forward(qp32, q32, input_ids=toks[i, :1], positions=pos[:, None],
+                                kv_lens=pos + 1, kv_cache=cache32, write_pos=pos)
+            errs[f"int8_llama_12_token_prompt_decode_{i}_logits"] = rel_err(got["logits"],
+                                                                            ref["logits"])
     torch.cuda.synchronize()
 
     scfg = sam_build.SamConfig(vision=image_encoder.SamVisionConfig(
@@ -3498,7 +3642,7 @@ def main() -> int:
         *PACKED_MUTANTS.values(), *V2_MUTANTS.values(), *GLOBAL_Y_MUTANTS.values(),
         *QUAD_MAX_MUTANTS.values(), RECT_PAD_MUTANT, *K2_MUTANTS.values(),
         *K12_MUTANTS.values(), *K13_MUTANTS.values(), *K8_MUTANTS.values(),
-        *BWD_MUTANTS.values()])
+        *BWD_MUTANTS.values(), *K9_MUTANTS.values(), *K10_MUTANTS.values()])
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "sources": sorted(built)}), flush=True)
 

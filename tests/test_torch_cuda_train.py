@@ -163,6 +163,31 @@ def test_cuda_flash_bwd_dk_dv_deterministic(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("warn_only", [False, True])
+def test_cuda_flash_bwd_follows_deterministic_mode(cuda, warn_only):
+    """dq's order-dependent sums make the backward nondeterministic: under
+    torch's deterministic mode it raises before it launches, with
+    `warn_only` it warns and runs, as torch's own such kernels do."""
+    q, k, v, do, kv, kw = _bwd_inputs(cuda, "stage1")
+    o, lse = attention.flash_attention_fwd(q, k, v, kv, **kw)
+    ref = attention.flash_attention_bwd(q, k, v, o, lse, do, kv, **kw)
+    before = dict(kernels.launch_counts())
+    torch.use_deterministic_algorithms(True, warn_only=warn_only)
+    try:
+        if warn_only:
+            with pytest.warns(UserWarning, match="flash_attention_bwd"):
+                got = attention.flash_attention_bwd(q, k, v, o, lse, do, kv, **kw)
+            assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+        else:
+            with pytest.raises(RuntimeError, match="flash_attention_bwd"):
+                attention.flash_attention_bwd(q, k, v, o, lse, do, kv, **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ran = kernels.launch_counts()["flash_attention_bwd_dkv"] - before["flash_attention_bwd_dkv"]
+    assert ran == (1 if warn_only else 0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("causal,lens", _CASES)
 def test_cuda_flash_bwd_matches_plain(cuda, causal, lens):
     q, k, v = (_rand(cuda, 2, 200, 4, 128) for _ in range(3))

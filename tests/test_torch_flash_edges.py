@@ -11,6 +11,8 @@ package's tolerances (2e-4 for o and lse, `tests/test_ops.py:113`; rtol
 them).
 """
 
+import warnings
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -79,3 +81,66 @@ def test_flash_bwd_edges_match_jax(name):
                                    atol=1e-3)
     for b, n in enumerate(lens):
         assert not grads[1][b, n:].any() and not grads[2][b, n:].any()
+
+
+_MODES = {"default": (False, False), "deterministic": (True, False), "warn_only": (True, True)}
+
+
+def _set_mode(mode):
+    on, warn_only = _MODES[mode]
+    torch.use_deterministic_algorithms(on, warn_only=warn_only)
+
+
+@pytest.mark.parametrize("mode", list(_MODES))
+def test_flash_bwd_cpu_route_is_deterministic_in_every_mode(mode):
+    """The CPU route (the plain version) takes torch's deterministic mode,
+    with or without `warn_only`, without a warning, and gives the same bits
+    in it as outside it, call after call."""
+    Sq, Sk, lens, causal, q_offset = _CASES["sq_200"]
+    rng = np.random.default_rng(13)
+    B, H, D = 2, 2, 128
+    q, do = (torch.from_numpy(rng.standard_normal((B, Sq, H, D)).astype(np.float32))
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((B, Sk, H, D)).astype(np.float32))
+            for _ in range(2))
+    kv = torch.tensor(lens, dtype=torch.int32)
+    kw = dict(causal=causal, scale=D**-0.5, q_offset=q_offset)
+    o, lse = attention.flash_attention_fwd(q, k, v, kv, **kw)
+    ref = attention.flash_attention_bwd(q, k, v, o, lse, do, kv, **kw)
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    try:
+        _set_mode(mode)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            runs = [attention.flash_attention_bwd(q, k, v, o, lse, do, kv, **kw)
+                    for _ in range(2)]
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+    for grads in runs:
+        for g, r in zip(grads, ref):
+            assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("mode", list(_MODES))
+def test_nondeterministic_alert_follows_torch_mode(mode):
+    """What the card's flash backward does before it launches (its dq
+    parts arrive in no fixed order): raise under deterministic mode, warn
+    under `warn_only`, nothing outside it, as torch's own nondeterministic
+    CUDA kernels do."""
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    try:
+        _set_mode(mode)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if mode == "deterministic":
+                with pytest.raises(RuntimeError, match="flash_attention_bwd"):
+                    attention.alert_nondeterministic("flash_attention_bwd")
+            else:
+                attention.alert_nondeterministic("flash_attention_bwd")
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+    warned = [w for w in caught if issubclass(w.category, UserWarning)
+              and "flash_attention_bwd" in str(w.message)]
+    assert len(warned) == (1 if mode == "warn_only" else 0)

@@ -172,6 +172,21 @@ def _int8_pair(init, jcfg, seed, llm_of=lambda p: p):
 
 @pytest.mark.parametrize("kv_heads,fused", [(4, True), (2, True), (4, False)])
 def test_int8_prefill_and_decode_steps_match_jax(kv_heads, fused):
+    _int8_prefill_and_decode(kv_heads, fused, np.array([8, 5], np.int32), total=11)
+
+
+@pytest.mark.parametrize("S", [16, 12])
+@pytest.mark.parametrize("fused", [True, False])
+def test_int8_one_sample_short_prompt_matches_jax(S, fused):
+    """One sample of 16 tokens or fewer under W8A8 prefill: every int8
+    product has 16 rows or fewer, which the card's library product refuses
+    and `quant.int8_matmul` pads there; on the CPU the same function."""
+    _int8_prefill_and_decode(4, fused, np.array([S], np.int32), total=S + 2)
+
+
+def _int8_prefill_and_decode(kv_heads, fused, lens, total):
+    """W8A8 prefill of prompts of `lens` tokens (padded to the longest),
+    then two teacher-forced decode steps, against the JAX package."""
     kw = dict(num_kv_heads=kv_heads, a8_prefill=True, kv_quant=True, fused_norm_quant=fused)
     jcfg, cfg = jllama.LlamaConfig.tiny(**kw), llama.LlamaConfig.tiny(**kw)
     jparams, params = _int8_pair(jllama.init_params, jcfg, seed=2)
@@ -179,13 +194,12 @@ def test_int8_prefill_and_decode_steps_match_jax(kv_heads, fused):
     assert tuple(params["layers"][1]["down_proj"]["scale"].shape) == (1, cfg.hidden_size)
 
     rng = np.random.default_rng(2)
-    B, S, total = 2, 8, 11
+    B, S = len(lens), int(lens.max())
     ids = rng.integers(0, jcfg.vocab_size, size=(B, S))
-    lens = np.array([8, 5], np.int32)
     jcache = jllama.init_kv_cache(jcfg, B, total)
     cache = llama.init_kv_cache(cfg, B, total, device="cpu")
     assert {k: tuple(v.shape) for k, v in cache.items()} == {k: v.shape for k, v in jcache.items()}
-    assert cache["k"].dtype == torch.int8 and cache["k"].shape[2] == 16  # 11 rounded up to 8s
+    assert cache["k"].dtype == torch.int8 and cache["k"].shape[2] == -(-total // 8) * 8  # in 8s
 
     jout = jllama.forward(jparams, jcfg, input_ids=jnp.asarray(ids),
                           kv_lens=jnp.asarray(lens), kv_cache=jcache)

@@ -85,6 +85,23 @@ def test_apply_linear_a8_and_prequant_match_jax():
     _close(quant.apply_linear_a8_prequant(_t(xq), _t(amax), tw, torch.float32), ref, atol=1e-4)
 
 
+@pytest.mark.parametrize("M", [1, 16, 17])
+def test_int8_matmul_padded_is_bit_equal(M):
+    """The card's library int8 product refuses 16 rows or fewer, so
+    `int8_matmul` pads them with zero rows to 32 there and slices after:
+    bit-equal to the product of the unpadded rows, since every output row
+    depends on its own input row only."""
+    rng = np.random.default_rng(12)
+    xq = _t(rng.integers(-127, 128, size=(M, 64)).astype(np.int8))
+    wq = quant.column_major(_t(rng.integers(-127, 128, size=(64, 24)).astype(np.int8)))
+    got = quant.int8_matmul_padded(xq, wq)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (M, 24)
+    np.testing.assert_array_equal(got.numpy(), torch._int_mm(xq, wq).numpy())
+    np.testing.assert_array_equal(got.numpy(), quant.int8_matmul(xq, wq).numpy())
+    np.testing.assert_array_equal(
+        got.numpy(), xq.numpy().astype(np.int64) @ wq.numpy().astype(np.int64))
+
+
 def test_int8_weights_are_stored_column_major():
     """`quantize_int8` and the bridge lay `q` out with stride 1 along its
     `in` axis (shape and values unchanged), stacked or not."""

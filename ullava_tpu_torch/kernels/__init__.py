@@ -102,7 +102,7 @@ KERNELS: Dict[str, KernelSpec] = {
         ),
         KernelSpec(
             "rms_norm_fwd", "rms_quant.cu", "ullava_rms_norm_fwd",
-            (P, P, P, I, I, F, P), "ullava_tpu/ops/norms.py:57",
+            (P, P, P, I, I, F, I, P), "ullava_tpu/ops/norms.py:57",
         ),
         KernelSpec(
             "fused_ln_linear", "ln_linear_int8.cu", "ullava_fused_ln_linear_int8",

@@ -131,6 +131,11 @@ __device__ __forceinline__ float2 load_bf16x2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
+// Two bf16 values as loaded in one 32-bit word, as floats.
+__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
 __device__ __forceinline__ void store_bf16x2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }

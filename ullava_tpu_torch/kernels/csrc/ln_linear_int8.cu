@@ -13,12 +13,18 @@
 // proj form (N = 1280, plus a residual read) is bound by its 0.50 GB.
 //
 // Design: two launches, because a 1024-row tile with its accumulator does
-// not fit an SM's shared memory. (1) A row pass (one warp per row) does
-// the LayerNorm in fp32 and writes int8 rows and one fp32 scale per row
-// to scratch: 1 byte per element leaves and re-enters HBM, a sixth of the
-// kernel's own traffic. (2) The shared int8 GEMM core (int8_gemm_core.cuh)
-// with an epilogue that multiplies the two scales first, as the TPU
-// kernel does, adds the bias and the residual in fp32 and stores bf16.
+// not fit an SM's shared memory. (1) A row pass (one warp per row,
+// int8_gemm_core.cuh, shared with K12 and K13) does the LayerNorm in fp32
+// and writes int8 rows and one fp32 scale per row to scratch: 1 byte per
+// element leaves and re-enters HBM, a sixth of the kernel's own traffic.
+// (2) One launch of the wgmma + TMA int8 core (int8_gemm_sm90.cuh), one
+// block a 128 x 128 tile, with LinearEpi: before the tile's products each
+// consumer thread loads its two rows' scales, its 16 column pairs' weight
+// scales and biases and, in the proj form, its 2 x 16 residual pairs, so
+// that those reads run in the products' shadow; after them it forms
+// acc * (xs * w_scale) + bias (+ residual) in fp32 and stores bf16. (On
+// the mma.sync core, which this replaces, the residual and the scales were
+// read after the products.)
 //
 // fused_ln_linear_dual (w8a8): the same with a second int8 weight on the
 // same int8 rows, P = acc2 * (xs * w2_scale) + bias2 (an f32 bias), of
@@ -32,8 +38,8 @@
 // 6.2e11 int8 operations (0.31 ms) against 0.62 GB (0.18 ms): operations
 // bound it.
 //
-// Design: the row pass, then ONE launch of the wgmma + TMA int8 core
-// (int8_gemm_sm90.cuh) over both weights: column tiles [0, ceil(F/128))
+// Design: the row pass, then ONE launch of the same core over both
+// weights: column tiles [0, ceil(F/128))
 // read W and store y = acc * (xs * w_scale) + bf16 bias, all rows; the
 // ceil(F2/128) after them read W2 (its tensor map zero-fills rows past F2,
 // the epilogue masks those columns) and store P = acc * (xs * w2_scale) +
@@ -50,58 +56,96 @@
 //
 // Deliberate bugs for the correctness gate (chip_smoke.py), each built
 // only into a copy of this source under its define:
-//   ULLAVA_MUTANT_DUAL_TILE_OFFSET  the bias-term tiles read W2 one tile
-//                                   over (int8_gemm_sm90.cuh);
-//   ULLAVA_MUTANT_DUAL_W_SCALE      the bias-term columns scaled by W's
-//                                   scale, not W2's.
+//   ULLAVA_MUTANT_DUAL_TILE_OFFSET     the bias-term tiles read W2 one tile
+//                                      over (int8_gemm_sm90.cuh);
+//   ULLAVA_MUTANT_DUAL_W_SCALE         the bias-term columns scaled by W's
+//                                      scale, not W2's;
+//   ULLAVA_MUTANT_LINEAR_RESIDUAL_ROW  fused_linear's prefetched residual
+//                                      taken from the thread's other row.
 #include "int8_gemm_core.cuh"
 #include "int8_gemm_sm90.cuh"
 
 namespace ullava {
-namespace i8 {
+namespace i8_sm90 {
 
+// fused_ln_linear's product: y = acc * (xs * w) + bias (+ residual), one
+// rounding to bf16.
 struct LinearEpi {
-  using State = NoState;
-  static constexpr int kMinBlocks = 2;
-  const float* xs;      // [M] per-row activation scale
-  const float* ws;      // [N] per-output-channel weight scale
-  const bf16* bias;     // [N]
-  const bf16* residual; // [M, N] or nullptr
-  bf16* out;            // [M, N]
+  // The thread's operands, loaded before the tile's products: its two
+  // rows' scales, its 16 column pairs' weight scales and biases and, with
+  // a residual, its two rows' 16 residual pairs (bf16 pairs as loaded).
+  struct State {
+    float xr[2];
+    float2 w[16];
+    uint32_t b[16];
+    uint32_t res[2][16];
+  };
+  static constexpr int kClusterSyncs = 0;
+  static constexpr int kScratchBytes = 0;
+  const float* xs;       // [M] per-row activation scale
+  const float* ws;       // [N] per-column weight scale
+  const bf16* bias;      // [N]
+  const bf16* residual;  // [M, N] or nullptr
+  bf16* out;             // [M, N]
 
-  __device__ __forceinline__ void chunk(Acc& acc, int, const Tile& t, State&) const {
+  __device__ __forceinline__ void begin(const Tile& t, State& st) const {
 #pragma unroll
-    for (int ni = 0; ni < NI; ++ni) {
-      const int col = t.col(ni);
+    for (int r = 0; r < 2; ++r) st.xr[r] = t.row(r) < t.M ? xs[t.row(r)] : 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = t.col(j);
+      st.w[j] = make_float2(0.f, 0.f);
+      st.b[j] = 0u;
       if (col >= t.N) continue;
-      const float2 w = *reinterpret_cast<const float2*>(ws + col);
-      const float2 b = load_bf16x2(bias + col);
+      st.w[j] = *reinterpret_cast<const float2*>(ws + col);
+      st.b[j] = *reinterpret_cast<const uint32_t*>(bias + col);
+    }
+    if (residual == nullptr) return;
 #pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
+    for (int r = 0; r < 2; ++r) {
+#ifdef ULLAVA_MUTANT_LINEAR_RESIDUAL_ROW
+      const int row = t.row(1 - r);  // the thread's other row
+#else
+      const int row = t.row(r);
+#endif
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int row = t.row(mi, half);
-          if (row >= t.M) continue;
-          const float s = xs[row];
-          float y0 = static_cast<float>(acc[mi][ni][half * 2]) * (s * w.x) + b.x;
-          float y1 = static_cast<float>(acc[mi][ni][half * 2 + 1]) * (s * w.y) + b.y;
-          const size_t at = static_cast<size_t>(row) * t.N + col;
-          if (residual != nullptr) {
-            const float2 r = load_bf16x2(residual + at);
-            y0 += r.x;
-            y1 += r.y;
-          }
-          store_bf16x2(out + at, y0, y1);
+      for (int j = 0; j < 16; ++j) {
+        const int col = t.col(j);
+        st.res[r][j] = row < t.M && col < t.N
+                           ? *reinterpret_cast<const uint32_t*>(
+                                 residual + static_cast<size_t>(row) * t.N + col)
+                           : 0u;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void chunk(uint32_t (&acc)[64], int, const Tile& t,
+                                        State& st) const {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = t.row(r);
+      if (row >= t.M) continue;
+      bf16* orow = out + static_cast<size_t>(row) * t.N;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = t.col(j);
+        if (col >= t.N) continue;
+        const float2 b = bf16x2_to_float2(st.b[j]);
+        float y0 = static_cast<float>(static_cast<int>(acc[4 * j + 2 * r])) *
+                       (st.xr[r] * st.w[j].x) + b.x;
+        float y1 = static_cast<float>(static_cast<int>(acc[4 * j + 2 * r + 1])) *
+                       (st.xr[r] * st.w[j].y) + b.y;
+        if (residual != nullptr) {
+          const float2 res = bf16x2_to_float2(st.res[r][j]);
+          y0 += res.x;
+          y1 += res.y;
         }
+        store_bf16x2(orow + col, y0, y1);
       }
     }
   }
   __device__ __forceinline__ void finish(const Tile&, State&) const {}
 };
-
-}  // namespace i8
-
-namespace i8_sm90 {
 
 // Both products of fused_ln_linear_dual on the wgmma core, by the tile's
 // part: 0 the qkv columns (bf16 bias, every row), 1 the bias-term columns
@@ -197,12 +241,13 @@ ULLAVA_EXPORT int ullava_fused_ln_linear_int8(const void* x, const void* ln_s, c
     if (err != 0) return err;
   }
   if (stages & 2) {
-    i8::LinearEpi epi{static_cast<const float*>(xs), static_cast<const float*>(w_scale),
-                      static_cast<const bf16*>(bias), static_cast<const bf16*>(residual),
-                      static_cast<bf16*>(out)};
-    const int KT = (K + i8::BK - 1) / i8::BK;
-    return i8::launch_gemm(static_cast<const int8_t*>(xq), K, rows,
-                           static_cast<const int8_t*>(wq), K, N, K, KT, epi, 1, st);
+    const i8_sm90::LinearEpi epi{static_cast<const float*>(xs),
+                                 static_cast<const float*>(w_scale),
+                                 static_cast<const bf16*>(bias),
+                                 static_cast<const bf16*>(residual), static_cast<bf16*>(out)};
+    const int KT = (K + i8_sm90::BK - 1) / i8_sm90::BK;
+    return i8_sm90::launch_gemm(static_cast<const int8_t*>(xq), K, rows,
+                                static_cast<const int8_t*>(wq), K, N, K, KT, epi, 1, st);
   }
   return 0;
 }
@@ -248,4 +293,11 @@ ULLAVA_EXPORT int ullava_fused_ln_linear_dual_int8(
 ULLAVA_EXPORT int ullava_fused_ln_linear_dual_int8_attrs(int* out) {
   using namespace ullava::i8_sm90;
   return attrs<DualLinearEpi>(out);
+}
+
+// {registers, shared bytes, spilled bytes, blocks an SM} of the single
+// GEMM's kernel (fused_ln_linear's).
+ULLAVA_EXPORT int ullava_fused_ln_linear_int8_attrs(int* out) {
+  using namespace ullava::i8_sm90;
+  return attrs<LinearEpi>(out);
 }

@@ -14,6 +14,7 @@ the port's [B, S, H, hd] layout; the JAX training rules transpose to
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import torch
@@ -228,8 +229,11 @@ def flash_attention_bwd(
     adds each tile's dS K into the accumulator by TMA reduce-adds; K17,
     dq = bf16(accumulator). dk and dv are bit-identical between calls on
     the same inputs; dq's fp32 sums arrive in an order that changes from
-    call to call, so dq may move by about one bf16 ulp. The plain version
-    for CPU tensors."""
+    call to call, so dq may move by about one bf16 ulp. So on the card it
+    behaves as torch's own nondeterministic CUDA kernels do: under
+    `torch.use_deterministic_algorithms(True)` it raises RuntimeError, and
+    with `warn_only=True` it warns (UserWarning) and runs. The plain
+    version for CPU tensors, which is deterministic and takes either mode."""
     B, Sq, H, hd = q.shape
     _check_flash_shapes(q, k, v)
     if k.shape[2] != H:
@@ -243,7 +247,22 @@ def flash_attention_bwd(
     return _flash_bwd_cuda(q, k, v, out, do, lse, kv_lens, causal, scale, q_offset)
 
 
+def alert_nondeterministic(name: str) -> None:
+    """What torch's nondeterministic CUDA kernels do before they run: raise
+    RuntimeError under `torch.use_deterministic_algorithms(True)`, warn
+    (UserWarning) under it with `warn_only=True`, nothing otherwise."""
+    if not torch.are_deterministic_algorithms_enabled():
+        return
+    msg = (f"{name} does not have a deterministic implementation, but you set "
+           "'torch.use_deterministic_algorithms(True)'")
+    if torch.is_deterministic_algorithms_warn_only_enabled():
+        warnings.warn(msg, UserWarning, stacklevel=3)
+        return
+    raise RuntimeError(msg)
+
+
 def _flash_bwd_cuda(q, k, v, out, do, lse, kv_lens, causal, scale, q_offset):
+    alert_nondeterministic("flash_attention_bwd")
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
     _check_cuda_operands("flash_attention_bwd", B, hd, q=q, k=k, v=v, out=out, do=do, lse=lse,

@@ -445,6 +445,13 @@ def default_f_chunk(F: int) -> int:
     return 1024 if F % 1024 == 0 else 512
 
 
+def _fc1_gelu_plain(xq, xs, w1_q, s1, b1):
+    """fc1 of the W8A8 `fused_mlp_block` from its int8 rows and their
+    [rows, 1] scales (`s1` the [1, F] fp32 weight scales): the GELU output
+    in fp32, before its per-chunk re-quantization."""
+    return _gelu_exact(int8_matmul(xq, w1_q).float() * (xs * s1) + b1.float())
+
+
 def _mlp_block_parts_plain(x, ln_scale, ln_bias, w1_q, w1_scale, b1, w2_q, w2_scale, b2, eps,
                            f_chunk, w8a8):
     """Plain `fused_mlp_block` on [T, C]: (out, xq, xs, hq [T, F],
@@ -458,10 +465,9 @@ def _mlp_block_parts_plain(x, ln_scale, ln_bias, w1_q, w1_scale, b1, w2_q, w2_sc
         normed = _ln_f32(xr.float(), ln_scale, ln_bias, eps)
         if w8a8:
             xq, xs = _row_quant(normed)
-            h = int8_matmul(xq, w1_q).float() * (xs * s1) + b1.float()
+            h = _fc1_gelu_plain(xq, xs, w1_q, s1, b1)
         else:
-            h = (normed.to(x.dtype).float() @ w1_q.float()) * s1 + b1.float()
-        h = _gelu_exact(h)
+            h = _gelu_exact((normed.to(x.dtype).float() @ w1_q.float()) * s1 + b1.float())
         acc = torch.zeros((xr.shape[0], w2_q.shape[1]), dtype=torch.float32, device=x.device)
         if w8a8:
             # One abs-max and scale per row and per chunk of f_chunk columns.

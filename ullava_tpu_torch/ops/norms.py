@@ -2,12 +2,15 @@
 the fused RMSNorm + per-row int8 quantize of the W8A8 prefill
 (counterpart of `ullava_tpu/ops/norms.py:21-263`).
 
-Two CUDA kernels live in `kernels/csrc/rms_quant.cu`, both one block per
-row: `rms_norm_residual_quant` (also the no-residual `rms_norm_quant`)
-and the RMSNorm forward, which `rms_norm` launches for every input on
-the card: a prefill's thousands of rows and a decode step's handful
-alike (the JAX package gates its kernel at 4096 rows for the sake of its
-compiler's fusion in training; nothing of that holds here). Under
+Two CUDA kernels live in `kernels/csrc/rms_quant.cu`:
+`rms_norm_residual_quant` (also the no-residual `rms_norm_quant`), one
+block per row, and the RMSNorm forward, which `rms_norm` launches for
+every input on the card: a prefill's thousands of rows and a decode
+step's handful alike (the JAX package gates its kernel at 4096 rows for
+the sake of its compiler's fusion in training; nothing of that holds
+here). The forward has two forms: up to `RMS_CLUSTER_MAX_ROWS` rows a
+row is spread over a thread block cluster of 8 CTAs (a decode step's 16
+rows fill 128 SMs), above it one block a row. Under
 autograd `rms_norm` is the Function `_RMSNorm` (the JAX package's
 custom VJP `_rms_norm_pallas`): its forward is the same kernel, its
 backward `rms_norm_bwd` (`kernels/csrc/rms_norm_bwd.cu`), with the
@@ -25,6 +28,10 @@ from ullava_tpu_torch import kernels
 # The row kernels stage one fp32 row in the 48 KB of shared memory a block
 # gets without asking for more (less 128 bytes of reduction scratch).
 MAX_ROW_WIDTH = (48 * 1024 - 128) // 4
+# The most rows for which the RMSNorm forward takes its cluster form: the
+# crossover with the one-block-a-row form at D 4096 on an H100 (PERF.md,
+# K9; `chip_smoke.py`'s `rms_norm_fwd` line times both forms by row count).
+RMS_CLUSTER_MAX_ROWS = 64
 
 
 def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -43,15 +50,23 @@ def _check_row_kernel(name: str, x: torch.Tensor, weight: torch.Tensor) -> Tuple
     return x.numel() // D, D
 
 
-def _rms_norm_fwd(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return rms_norm_plain(x, weight, eps)
+def _rms_norm_fwd_cuda(x: torch.Tensor, weight: torch.Tensor, eps: float,
+                       cluster: bool) -> torch.Tensor:
+    """The CUDA RMSNorm forward in the form `cluster` names (a row a
+    cluster of 8 CTAs, or one block a row)."""
     rows, D = _check_row_kernel("rms_norm", x, weight)
     out = torch.empty_like(x)
     kernels.launch(
-        "rms_norm_fwd", x.data_ptr(), weight.data_ptr(), out.data_ptr(), rows, D, float(eps)
+        "rms_norm_fwd", x.data_ptr(), weight.data_ptr(), out.data_ptr(), rows, D, float(eps),
+        int(cluster),
     )
     return out
+
+
+def _rms_norm_fwd(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return rms_norm_plain(x, weight, eps)
+    return _rms_norm_fwd_cuda(x, weight, eps, x.numel() // x.shape[-1] <= RMS_CLUSTER_MAX_ROWS)
 
 
 def rms_norm_bwd_plain(

@@ -64,18 +64,36 @@ def apply_linear(x: torch.Tensor, w: MaybeQuant) -> torch.Tensor:
     return (y.float() * w["scale"].reshape(-1)).to(x.dtype)
 
 
+# Rows the card's library int8 product is handed at least: it refuses 16
+# rows or fewer, so fewer rows are padded with zero rows to this count.
+INT8_MM_MIN_ROWS = 32
+
+
+def int8_matmul_padded(xq: torch.Tensor, wq: torch.Tensor, rows: int = INT8_MM_MIN_ROWS):
+    """`torch._int_mm(xq, wq)` of `xq` padded with zero rows to `rows`
+    (when it has fewer), sliced back to xq's rows: the same int32 sums,
+    since every output row depends on its own input row only."""
+    M = xq.shape[0]
+    if M >= rows:
+        return torch._int_mm(xq, wq)
+    pad = torch.zeros((rows - M, xq.shape[1]), dtype=xq.dtype, device=xq.device)
+    return torch._int_mm(torch.cat([xq, pad]), wq)[:M]
+
+
 def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
-    """[M, K] int8 @ [K, N] int8 -> [M, N] int32. On the card the library
-    product takes M > 16 and K, N multiples of 8; other shapes raise. It
-    is several times faster there on a column-major second operand, which
-    is how `quantize_int8` and the bridge store `q`."""
+    """[M, K] int8 @ [K, N] int8 -> [M, N] int32, any M. On the card the
+    library product takes K, N multiples of 8 (other shapes raise) and M >
+    16, so 16 rows or fewer (a one-sample prompt of a few tokens under W8A8
+    prefill) go through `int8_matmul_padded`. It is several times faster
+    there on a column-major second operand, which is how `quantize_int8`
+    and the bridge store `q`."""
     if xq.device.type == "cuda":
         M, K = xq.shape
         N = wq.shape[1]
-        if M <= 16 or K % 8 or N % 8:
-            raise ValueError(
-                f"int8 product on CUDA needs M > 16 and K, N multiples of 8, got {M}x{K}x{N}"
-            )
+        if K % 8 or N % 8:
+            raise ValueError(f"int8 product on CUDA needs K, N multiples of 8, got {M}x{K}x{N}")
+        if M <= 16:
+            return int8_matmul_padded(xq, wq)
     return torch._int_mm(xq, wq)
 
 
