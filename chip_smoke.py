@@ -30,10 +30,12 @@ Phases, each fatal on any error:
                global attention kernels on the wgmma + TMA core (K11 in
                its four forms, K20, each beside K4 on the old core and
                with its SASS counts), K2 on the wgmma + TMA flash forward
-               at both head dims, K12 and K13 (both products in one
+               at both head dims, K10, K12 and K13 (both products in one
                launch) on the wgmma + TMA int8 GEMM core (each with its
-               SASS counts and registers; K2 also at B=16, K12 and K13
-               also per stage and beside `torch._int_mm` per product), K8
+               SASS counts and registers; K2 also at B=16, K10, K12 and
+               K13 also per stage and beside `torch._int_mm` per
+               product), K9 in both of its forms by row count (with the
+               timer's floor), K8
                (the median
                and spread of five batches beside K22's old design, also
                over a 2048-row cache at B=16 and at B=4, where it splits a
@@ -108,7 +110,7 @@ Phases, each fatal on any error:
                SAM encoder with composite bias weights and `mlp_w8a8` off,
                the path of K13's weight-only form, with exact counts;
  10. check   - runs small models (bf16, its SAM encoder also packed, then
-               int8 LLM, then an int8 SAM
+               int8 LLM, also on a one-sample 12-token prompt, then an int8 SAM
                encoder in the block and in the resident layout, the latter
                also with int8 scores beside a W8A8 flash CLIP tower, then
                three stage-1 steps under each freeze policy, then three
@@ -547,9 +549,9 @@ K8_MUTANTS = {
     "split_last_tile_left_out": ("decode_attention_int8.cu", "ULLAVA_MUTANT_DECODE_SPLIT_LAST_TILE"),
 }
 K8_ATTRS = ("decode_attention_int8.cu", "ullava_decode_attention_int8_fused_write_attrs")
-# The deliberate bug of K9's cluster form (`rms_quant.cu`): the last CTA's
-# partial left out of the cluster's sum of squares.
-K9_MUTANTS = {"cluster_partial_left_out": ("rms_quant.cu", "ULLAVA_MUTANT_RMS_CLUSTER_PARTIAL")}
+# The deliberate bug of K9's few-row form (`rms_quant.cu`): the last warp's
+# partial left out of the row's sum of squares.
+K9_MUTANTS = {"warp_partial_left_out": ("rms_quant.cu", "ULLAVA_MUTANT_RMS_ROWS_PARTIAL")}
 
 
 def spread_ms(fn, batches: int = 5, iters: int = 20) -> dict:
@@ -729,7 +731,7 @@ def int8_kernel_phases(gen) -> dict:
 
     # K9: the RMSNorm forward at the 5120 rows of a prefill's norms, and
     # at the 16 rows of a decode step's (checked and timed the same way),
-    # which take its cluster form (a row a cluster of 8 CTAs).
+    # which take its few-row form (x and w held in registers).
     x9, x9d = randn(rows, D, scale=2.0), randn(B_INT8, 1, D, scale=2.0)
     y_ref, yd_ref = norms.rms_norm_plain(x9, w, 1e-6), norms.rms_norm_plain(x9d, w, 1e-6)
     y = norms.rms_norm(x9, w, 1e-6)
@@ -738,12 +740,13 @@ def int8_kernel_phases(gen) -> dict:
     bad = row_rel_err(norms.rms_norm(x9, torch.ones_like(w), 1e-6), y_ref)
     bad_d = row_rel_err(norms.rms_norm(x9d, torch.ones_like(w), 1e-6), yd_ref)
     must_not("rms_norm_fwd", "weight_dropped", bad <= tol or bad_d <= tol, (bad, bad_d))
-    # The cluster form at every row count the wrapper gives it up to its
-    # crossover and one past it (the other form), and at widths that are
-    # no multiple of its 4096-element span (with their own weights), each
-    # gated, and the copy that leaves one CTA's partial out of the sum.
+    # The few-row form at 1 and 16 rows and at its crossover, the staged
+    # form one row past it, and the few-row form at widths that are no
+    # multiple of its 2048-element pass, up to the widest (with their own
+    # weights), each gated, and the copy that leaves one warp's partial out
+    # of the sum.
     cgen = torch.Generator(device=dev).manual_seed(16)  # the phases after draw as before
-    cut = norms.RMS_CLUSTER_MAX_ROWS
+    cut = norms.RMS_FEW_ROWS
     edges = {}
     for r_, d_ in ((1, D), (B_INT8, D), (cut, D), (cut + 1, D), (B_INT8, D + 8), (3, 12256)):
         xe = (torch.randn((r_, d_), generator=cgen, device=dev) * 2.0).to(bf)
@@ -751,37 +754,38 @@ def int8_kernel_phases(gen) -> dict:
         ref_e = norms.rms_norm_plain(xe, we, 1e-6)
         e_ = row_rel_err(norms.rms_norm(xe, we, 1e-6), ref_e)
         must(f"rms_norm_fwd {r_}x{d_}", e_ <= tol, e_)
-        edges[f"{r_}x{d_}"] = {"form": "cluster" if r_ <= cut else "block_a_row",
+        edges[f"{r_}x{d_}"] = {"form": "few_rows" if r_ <= cut else "staged",
                                "row_rel_err": e_}
         if r_ <= cut:
-            with kernels.mutant(*K9_MUTANTS["cluster_partial_left_out"]):
+            with kernels.mutant(*K9_MUTANTS["warp_partial_left_out"]):
                 m_ = row_rel_err(norms.rms_norm(xe, we, 1e-6), ref_e)
-            edges[f"{r_}x{d_}"]["mutant_row_rel_err"] = {"cluster_partial_left_out": must_not(
-                f"rms_norm_fwd {r_}x{d_}", "cluster_partial_left_out", m_ <= tol, m_)}
-    # Both forms by row count at D 4096, by events around a launch and by
-    # the profiler's kernel time: where the cluster form stops paying.
+            edges[f"{r_}x{d_}"]["mutant_row_rel_err"] = {"warp_partial_left_out": must_not(
+                f"rms_norm_fwd {r_}x{d_}", "warp_partial_left_out", m_ <= tol, m_)}
+    # Both forms' kernel time by the profiler, by row count at D 4096:
+    # where the few-row form stops paying.
     crossover = {}
-    for r_ in (1, 16, 32, 48, 64, 80, 96, 128, 192, 256, 512, 1024):
+    for r_ in (1, 16, 256, 512, 1024, 2048, 5120):
         xe = (torch.randn((r_, D), generator=cgen, device=dev) * 2.0).to(bf)
-        crossover[str(r_)] = {}
-        for name, c in (("cluster", True), ("block_a_row", False)):
-            run = lambda c=c, xe=xe: norms._rms_norm_fwd_cuda(xe, w, 1e-6, c)  # noqa: E731
-            crossover[str(r_)].update({f"{name}_ms": time_ms(run, 20),
-                                       f"{name}_device_ms": device_ms_a_call(run)})
+        crossover[str(r_)] = {
+            f"{name}_device_ms": device_ms_a_call(
+                lambda c=c, xe=xe: norms._rms_norm_fwd_cuda(xe, w, 1e-6, c), kern)
+            for name, c, kern in (("few_rows", True, "rms_fwd_rows_kernel"),
+                                  ("staged", False, "rms_row_kernel"))}
     decode_rows = {
-        "rows": B_INT8, "form": "cluster", "row_rel_err": err_d,
+        "rows": B_INT8, "form": "few_rows", "row_rel_err": err_d,
         "mutant_row_rel_err": {"weight_dropped": bad_d},
         "ms": time_ms(lambda: norms.rms_norm(x9d, w, 1e-6), 20),
-        # The one-block-a-row form on the same inputs, and the same timer
-        # around a launch that does nothing: what a launch costs at least.
-        "block_a_row_ms": time_ms(lambda: norms._rms_norm_fwd_cuda(x9d, w, 1e-6, False), 20),
+        # The staged form on the same inputs, and the same timers around a
+        # launch that does nothing: what a launch costs at least.
+        "staged_ms": time_ms(lambda: norms._rms_norm_fwd_cuda(x9d, w, 1e-6, False), 20),
         "timer_floor_ms": time_ms(lambda: torch.cuda._sleep(0), 20),
         "plain_ms": time_ms(lambda: norms.rms_norm_plain(x9d, w, 1e-6), 20),
         "library_ms": time_ms(lambda: F.rms_norm(x9d, (D,), w, 1e-6), 20),
         "bound_ms": bound_ms(nbytes(x9d, w, yd_ref), 6.0 * x9d.numel(), FP32_FLOPS_PER_S)[0],
-        "device_ms": crossover[str(B_INT8)]["cluster_device_ms"],
-        "block_a_row_device_ms": crossover[str(B_INT8)]["block_a_row_device_ms"],
-        "cluster_max_rows": cut, "edges": edges, "crossover_ms": crossover,
+        "device_ms": crossover[str(B_INT8)]["few_rows_device_ms"],
+        "staged_device_ms": crossover[str(B_INT8)]["staged_device_ms"],
+        "timer_floor_device_ms": device_ms_a_call(lambda: torch.cuda._sleep(0), "spin"),
+        "few_rows_max": cut, "edges": edges, "crossover_ms": crossover,
     }
     log(f"[kernel] rms_norm_fwd decode_rows {json.dumps(decode_rows)}")
     results["rms_norm_fwd"] = kernel_line(
@@ -3173,15 +3177,15 @@ def weight_only_encode_phase(cfg, params, images_sam) -> dict:
 # and K12 share; K10's GEMM (`::LinearEpi>`: no other epilogue's name ends
 # so, `DualLinearEpi` has no `::` before `LinearEpi`) and its row pass
 # without a LayerNorm (the proj form's; no other kernel takes it); K9 in
-# both of its forms, one block a row and a row a cluster; the flash
-# forward, K15 in training and K2 in serving; the flash backward's
-# pre-pass, fused pass (K16) and dq finish (K17)).
+# both of its forms, the row staged in shared memory and the few-row one;
+# the flash forward, K15 in training and K2 in serving; the flash
+# backward's pre-pass, fused pass (K16) and dq finish (K17)).
 PROFILE_WATCH = {"decode_attention_int8_fused_write": "fused_write_kernel",
                  "fused_ln_linear_dual_gemm": "DualLinearEpi",
                  "fused_ln_linear_gemm": "::LinearEpi>",
                  "fused_ln_linear_proj_row_pass": "ln_quant_rows_kernel<false>",
-                 "rms_norm_fwd_block_a_row": "rms_row_kernel<false, false>",
-                 "rms_norm_fwd_cluster": "rms_fwd_cluster_kernel",
+                 "rms_norm_fwd_staged": "rms_row_kernel<false, false>",
+                 "rms_norm_fwd_few_rows": "rms_fwd_rows_kernel",
                  "flash_fwd_sm90_kernel": "flash_fwd_sm90_kernel",
                  "flash_attention_bwd_delta": "bwd::delta_kernel",
                  "flash_attention_bwd_dkv": "bwd::flash_bwd_kernel",
@@ -3193,10 +3197,10 @@ def _dev_us(e):
     return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
 
 
-def device_ms_a_call(fn, calls: int = 50) -> float:
-    """Device time of one call of `fn` by the profiler: the summed time of
-    the kernels that `calls` back-to-back calls ran, over `calls` (the
-    launch's latency and the timer's own cost left out)."""
+def device_ms_a_call(fn, part: str, calls: int = 50) -> float:
+    """Device time of one launch of the kernel whose name holds `part`, by
+    the profiler over `calls` back-to-back calls of `fn` (the launch's
+    latency and the timer's own cost left out)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3206,9 +3210,9 @@ def device_ms_a_call(fn, calls: int = 50) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = sum(_dev_us(e) for e in prof.key_averages()
-             if "CUDA" in str(getattr(e, "device_type", "")))
-    return us / 1e3 / calls
+    events = [e for e in prof.key_averages() if part in e.key]
+    n = sum(e.count for e in events)
+    return sum(_dev_us(e) for e in events) / 1e3 / n if n else "not measured"
 
 
 def profile_serve(run) -> dict:

@@ -207,25 +207,25 @@ def test_cuda_rms_norm_matches_plain(cuda, rows):
     assert _row_rel_err(norms.rms_norm(x, torch.ones_like(w), 1e-6), ref) > _TOL
 
 
-# (rows, D): the cluster form's row counts (1, a decode step's 16, the
+# (rows, D): the few-row form's row counts (1, a decode step's 16, the
 # crossover) and the first past it, and widths that are no multiple of its
-# 4096-element span, up to the widest row the wrapper takes.
-_RMS_FORMS = [(1, 4096), (16, 4096), (norms.RMS_CLUSTER_MAX_ROWS, 4096),
-              (norms.RMS_CLUSTER_MAX_ROWS + 1, 4096), (16, 4104), (3, 12256), (5, 8)]
+# 2048-element pass, up to the widest row the wrapper takes.
+_RMS_FORMS = [(1, 4096), (16, 4096), (norms.RMS_FEW_ROWS, 4096),
+              (norms.RMS_FEW_ROWS + 1, 4096), (16, 4104), (3, 12256), (5, 8)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,D", _RMS_FORMS)
 def test_cuda_rms_norm_both_forms_match_plain(cuda, rows, D):
-    """`rms_norm` takes the cluster form up to `RMS_CLUSTER_MAX_ROWS` rows
-    and one block a row past it; each form, forced, agrees with the plain
-    version at every shape, and dropping the weight breaks the gate."""
+    """`rms_norm` takes the few-row form up to `RMS_FEW_ROWS` rows and the
+    staged one past it; each form, forced, agrees with the plain version at
+    every shape, and dropping the weight breaks the gate."""
     x = _rand(cuda, rows, D, scale=2.0)
     w = (1 + 0.1 * torch.randn(D, generator=cuda, device="cuda")).to(torch.bfloat16)
     ref = norms.rms_norm_plain(x, w, 1e-6)
     assert _row_rel_err(norms.rms_norm(x, w, 1e-6), ref) <= _TOL
-    for cluster in (True, False):
-        assert _row_rel_err(norms._rms_norm_fwd_cuda(x, w, 1e-6, cluster), ref) <= _TOL
+    for few_rows in (True, False):
+        assert _row_rel_err(norms._rms_norm_fwd_cuda(x, w, 1e-6, few_rows), ref) <= _TOL
     assert _row_rel_err(norms.rms_norm(x, torch.ones_like(w), 1e-6), ref) > _TOL
 
 

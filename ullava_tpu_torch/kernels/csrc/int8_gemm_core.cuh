@@ -1,6 +1,8 @@
-// One int8 x int8 -> int32 tensor-core GEMM core shared by the fused
-// int8 kernels of the SAM encoder (ln_linear_int8.cu, mlp_block_int8.cu),
-// as flash_core.cuh is shared by the attention kernels.
+// An int8 x int8 -> int32 tensor-core GEMM core on mma.sync, which the
+// chunk-pipelined MLP (K23, mlp_block_v2_int8.cu) runs on, and the row
+// pass (LayerNorm + per-row int8 quantization, `launch_ln_quant_rows`)
+// that K10, K12 and K13 run before their products on the wgmma + TMA core
+// (int8_gemm_sm90.cuh).
 //
 //   acc[m, n] = sum_k A[m, k] * B[k, n]
 // A is row-major int8 [M, K] (row stride lda). B is handed over as the

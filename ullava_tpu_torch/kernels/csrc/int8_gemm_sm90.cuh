@@ -1,9 +1,10 @@
 // An int8 x int8 -> int32 GEMM core for Hopper (sm_90a) on wgmma and TMA,
 // with its epilogue a functor, as int8_gemm_core.cuh (the mma.sync core)
-// is for the SAM encoder's other fused int8 kernels. The fused W8A8 MLP
-// (K12, mlp_block_int8.cu) runs both of its products on it, and the dual
-// LN1 + qkv of the resident window blocks (K13, ln_linear_int8.cu) its two
-// in one launch.
+// is for the chunk-pipelined MLP (K23). The fused W8A8 MLP (K12,
+// mlp_block_int8.cu) runs both of its products on it, the dual LN1 + qkv
+// of the resident window blocks (K13, ln_linear_int8.cu) its two in one
+// launch, and the fused LN + linear and proj + residual (K10,
+// ln_linear_int8.cu) its one.
 //
 //   acc[m, n] = sum_k A[m, k] * Bt[n, k]
 // A is row-major int8 [M, K] (row stride lda); Bt is the port's int8

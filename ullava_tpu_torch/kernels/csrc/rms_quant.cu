@@ -21,25 +21,24 @@
 // element in each direction.
 //
 // The RMSNorm forward has a second form for a decode step's few rows (16
-// at the int8 serve's B=16), where one block a row leaves 116 of 132 SMs
-// idle and each block runs a serial chain: load x, stage it, reduce, only
-// then load w (a second dependent memory round trip), normalize, store.
-// There the time is latency, not bytes (16 x 4096 bf16 in and out is 0.08
-// us at HBM rate). `rms_fwd_cluster_kernel` spreads a row over a thread
-// block cluster of 8 CTAs of 64 threads (16 rows: 128 CTAs): every thread
-// loads its 16-byte vectors of x AND w at entry and keeps them in
-// registers (no shared-memory staging); the sum of squares goes through
-// warp shuffles, one partial a CTA in shared memory, and one exchange of
-// the 8 partials through distributed shared memory between two cluster
-// barriers. Each CTA sums the partials in rank order, so all 8 get the same
-// mean square. A second cluster barrier keeps every CTA's shared memory
-// alive until the last remote read; the normalize and store run between
-// its arrive and its wait. The wrapper (ops/norms.py) takes this form up
-// to a row count measured on the card, the one-block-a-row form above it.
+// at the int8 serve's B=16), where the time is latency, not bytes (16 x
+// 4096 bf16 in and out is 0.08 us at HBM rate): the staged kernel above
+// runs a serial chain (load x, stage it, reduce, only then load w, a second
+// dependent memory round trip, normalize, store) with two barriers.
+// `rms_fwd_rows_kernel` keeps one block of 256 threads a row, but every
+// thread loads its 16-byte vectors of x AND w at entry into registers (no
+// shared-memory staging), the sum of squares goes through warp shuffles and
+// one barrier, and the row is normalized from registers: one memory round
+// trip. (A row spread over a thread block cluster of 8 CTAs, partials
+// exchanged through distributed shared memory, was tried first: its
+// cluster launch and barriers cost more than the 128 CTAs' parallelism
+// gained, and it ran slower than the staged kernel; PERF.md.) The wrapper
+// (ops/norms.py) takes this form up to a row count measured on the card,
+// the staged one above it.
 //
 // Deliberate bug for the correctness gate (chip_smoke.py), built only into
-// a copy of this source: ULLAVA_MUTANT_RMS_CLUSTER_PARTIAL leaves the last
-// CTA's partial out of the cluster's sum.
+// a copy of this source: ULLAVA_MUTANT_RMS_ROWS_PARTIAL leaves the last
+// warp's partial out of the row's sum of squares.
 #include "row_quant.cuh"
 
 namespace ullava {
@@ -101,71 +100,34 @@ rms_row_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
   if (threadIdx.x == 0) amax_out[blockIdx.x] = amax;
 }
 
-constexpr int kClusterCtas = 8, kClusterThreads = 64;
-// Elements a pass over the row covers (every thread one 16-byte vector),
-// and the passes that cover the widest row the wrapper takes (12256).
-constexpr int kClusterSpan = kClusterCtas * kClusterThreads * 8;
-constexpr int kClusterPasses = 3;
+constexpr int kRowsThreads = 256;
+// Vectors a thread holds: enough for the widest row the wrapper takes
+// (12256 = (48 KB - 128) / 4, the staged kernel's limit).
+constexpr int kRowsPasses = 6;
+constexpr int kRowsMaxWidth = kRowsThreads * 8 * kRowsPasses;
 
-__device__ __forceinline__ uint32_t cluster_ctarank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// The float at `p` (this CTA's shared memory) in the CTA of `rank`.
-__device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
-  uint32_t local = static_cast<uint32_t>(__cvta_generic_to_shared(p)), remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(rank));
-  float v;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void unpack_bf16x8(const uint4& raw, float (&f)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 v = __bfloat1622float2(h[i]);
-    f[2 * i] = v.x;
-    f[2 * i + 1] = v.y;
-  }
-}
-
-// y = x * rsqrt(mean(x^2) + eps) * w for row blockIdx.x / 8 by the 8 CTAs
-// of its cluster; CTA `rank` holds vectors p * 512 + rank * 64 + thread.
-__global__ void __cluster_dims__(kClusterCtas, 1, 1) __launch_bounds__(kClusterThreads)
-rms_fwd_cluster_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                       bf16* __restrict__ y, int D, float eps) {
-  __shared__ float warp_part[kClusterThreads / 32];
-  __shared__ float cta_part;
-  const uint32_t rank = cluster_ctarank();
-  const long long base = static_cast<long long>(blockIdx.x / kClusterCtas) * D;
+// y = x * rsqrt(mean(x^2) + eps) * w for row blockIdx.x; the thread holds
+// vectors p * 256 + thread of x and w in registers.
+__global__ void __launch_bounds__(kRowsThreads)
+rms_fwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                    bf16* __restrict__ y, int D, float eps) {
+  constexpr int kWarps = kRowsThreads / 32;
+  __shared__ float part[kWarps];
+  const long long base = static_cast<long long>(blockIdx.x) * D;
   const int vecs = D / 8;
-  const int lane = threadIdx.x & 31;
-
-  uint4 xv[kClusterPasses], wv[kClusterPasses];
-  float ss = 0.f;
+  uint4 xv[kRowsPasses], wv[kRowsPasses];
 #pragma unroll
-  for (int p = 0; p < kClusterPasses; ++p) {
-    const int v = p * (kClusterSpan / 8) + rank * kClusterThreads + threadIdx.x;
+  for (int p = 0; p < kRowsPasses; ++p) {
+    const int v = p * kRowsThreads + threadIdx.x;
     if (v < vecs) {
       xv[p] = *reinterpret_cast<const uint4*>(x + base + v * 8);
       wv[p] = *reinterpret_cast<const uint4*>(w + v * 8);
     }
   }
+  float ss = 0.f;
 #pragma unroll
-  for (int p = 0; p < kClusterPasses; ++p) {
-    const int v = p * (kClusterSpan / 8) + rank * kClusterThreads + threadIdx.x;
-    if (v < vecs) {
+  for (int p = 0; p < kRowsPasses; ++p) {
+    if (p * kRowsThreads + static_cast<int>(threadIdx.x) < vecs) {
       float f[8];
       unpack_bf16x8(xv[p], f);
 #pragma unroll
@@ -174,25 +136,21 @@ rms_fwd_cluster_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-  if (lane == 0) warp_part[threadIdx.x / 32] = ss;
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x / 32] = ss;
   __syncthreads();
-  if (threadIdx.x == 0) cta_part = warp_part[0] + warp_part[1];
-  cluster_arrive();  // every CTA's partial is in its shared memory
-  cluster_wait();
-  // Lane q reads CTA q's partial; the butterfly gives every lane of every
-  // CTA the same sum (each step adds the same two values, in either order).
-#ifdef ULLAVA_MUTANT_RMS_CLUSTER_PARTIAL
-  float tot = lane < kClusterCtas - 1 ? ld_cluster(&cta_part, lane) : 0.f;
-#else
-  float tot = lane < kClusterCtas ? ld_cluster(&cta_part, lane) : 0.f;
-#endif
+  // Every thread sums the warps' partials in the same order.
+  float tot = 0.f;
+#ifdef ULLAVA_MUTANT_RMS_ROWS_PARTIAL
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) tot += __shfl_xor_sync(0xffffffffu, tot, o);
-  cluster_arrive();  // this CTA's remote reads are done
+  for (int i = 0; i < kWarps - 1; ++i) tot += part[i];
+#else
+#pragma unroll
+  for (int i = 0; i < kWarps; ++i) tot += part[i];
+#endif
   const float r = rsqrtf(tot / static_cast<float>(D) + eps);
 #pragma unroll
-  for (int p = 0; p < kClusterPasses; ++p) {
-    const int v = p * (kClusterSpan / 8) + rank * kClusterThreads + threadIdx.x;
+  for (int p = 0; p < kRowsPasses; ++p) {
+    const int v = p * kRowsThreads + threadIdx.x;
     if (v < vecs) {
       float f[8], wf[8];
       unpack_bf16x8(xv[p], f);
@@ -202,7 +160,6 @@ rms_fwd_cluster_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       store_bf16x8(y + base + v * 8, f);
     }
   }
-  cluster_wait();  // no CTA leaves while another may still read its partial
 }
 
 template <bool kResidual, bool kQuant>
@@ -236,19 +193,17 @@ ULLAVA_EXPORT int ullava_rms_norm_residual_quant(const void* x, const void* res,
                                              q_out, amax_out, rows, D, eps, stream);
 }
 
-// x, out: [rows, D] bf16; w: [D] bf16. `cluster` 1 takes the few-row form
-// (a row a cluster of 8 CTAs; D % 8 == 0 and D <= 3 * 4096), 0 one block
-// a row.
+// x, out: [rows, D] bf16; w: [D] bf16. `few_rows` 1 takes the few-row
+// form (x and w in registers; D % 8 == 0 and D <= 12288), 0 the staged one.
 ULLAVA_EXPORT int ullava_rms_norm_fwd(const void* x, const void* w, void* out,
-                                      int rows, int D, float eps, int cluster, void* stream) {
+                                      int rows, int D, float eps, int few_rows, void* stream) {
   using namespace ullava;
-  if (!cluster)
+  if (!few_rows)
     return launch_rms_row<false, false>(x, nullptr, w, nullptr, out, nullptr, nullptr, rows, D,
                                         eps, stream);
-  if (D > kClusterSpan * kClusterPasses) return static_cast<int>(cudaErrorInvalidValue);
+  if (D > kRowsMaxWidth) return static_cast<int>(cudaErrorInvalidValue);
   if (rows > 0)
-    rms_fwd_cluster_kernel<<<rows * kClusterCtas, kClusterThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
+    rms_fwd_rows_kernel<<<rows, kRowsThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<bf16*>(out), D,
         eps);
   return static_cast<int>(cudaGetLastError());

@@ -17,9 +17,8 @@ constexpr int kRowThreads = 256;
 
 inline size_t row_smem_bytes(int n) { return (static_cast<size_t>(n) + 32) * sizeof(float); }
 
-// 8 contiguous bf16 values (16 bytes) -> 8 floats.
-__device__ inline void load_bf16x8(const bf16* p, float (&f)[8]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+// 8 bf16 values as loaded in one 16-byte word -> 8 floats.
+__device__ inline void unpack_bf16x8(const uint4& raw, float (&f)[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -27,6 +26,11 @@ __device__ inline void load_bf16x8(const bf16* p, float (&f)[8]) {
     f[2 * i] = v.x;
     f[2 * i + 1] = v.y;
   }
+}
+
+// 8 contiguous bf16 values (16 bytes) -> 8 floats.
+__device__ inline void load_bf16x8(const bf16* p, float (&f)[8]) {
+  unpack_bf16x8(*reinterpret_cast<const uint4*>(p), f);
 }
 
 // 8 floats -> 8 contiguous bf16 values, round to nearest even.

@@ -8,9 +8,10 @@ block per row, and the RMSNorm forward, which `rms_norm` launches for
 every input on the card: a prefill's thousands of rows and a decode
 step's handful alike (the JAX package gates its kernel at 4096 rows for
 the sake of its compiler's fusion in training; nothing of that holds
-here). The forward has two forms: up to `RMS_CLUSTER_MAX_ROWS` rows a
-row is spread over a thread block cluster of 8 CTAs (a decode step's 16
-rows fill 128 SMs), above it one block a row. Under
+here). The forward has two forms, both one block a row: up to
+`RMS_FEW_ROWS` rows (a decode step's) every thread holds its vectors of
+x and w in registers, loaded together at entry (one memory round trip,
+one barrier); above it the row is staged in shared memory. Under
 autograd `rms_norm` is the Function `_RMSNorm` (the JAX package's
 custom VJP `_rms_norm_pallas`): its forward is the same kernel, its
 backward `rms_norm_bwd` (`kernels/csrc/rms_norm_bwd.cu`), with the
@@ -28,10 +29,10 @@ from ullava_tpu_torch import kernels
 # The row kernels stage one fp32 row in the 48 KB of shared memory a block
 # gets without asking for more (less 128 bytes of reduction scratch).
 MAX_ROW_WIDTH = (48 * 1024 - 128) // 4
-# The most rows for which the RMSNorm forward takes its cluster form: the
-# crossover with the one-block-a-row form at D 4096 on an H100 (PERF.md,
-# K9; `chip_smoke.py`'s `rms_norm_fwd` line times both forms by row count).
-RMS_CLUSTER_MAX_ROWS = 64
+# The most rows for which the RMSNorm forward takes its few-row form: the
+# crossover with the staged form at D 4096 on an H100 (PERF.md, K9;
+# `chip_smoke.py`'s `rms_norm_fwd` line times both forms by row count).
+RMS_FEW_ROWS = 1024
 
 
 def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -51,14 +52,14 @@ def _check_row_kernel(name: str, x: torch.Tensor, weight: torch.Tensor) -> Tuple
 
 
 def _rms_norm_fwd_cuda(x: torch.Tensor, weight: torch.Tensor, eps: float,
-                       cluster: bool) -> torch.Tensor:
-    """The CUDA RMSNorm forward in the form `cluster` names (a row a
-    cluster of 8 CTAs, or one block a row)."""
+                       few_rows: bool) -> torch.Tensor:
+    """The CUDA RMSNorm forward in the form `few_rows` names (x and w in
+    registers, or the row staged in shared memory)."""
     rows, D = _check_row_kernel("rms_norm", x, weight)
     out = torch.empty_like(x)
     kernels.launch(
         "rms_norm_fwd", x.data_ptr(), weight.data_ptr(), out.data_ptr(), rows, D, float(eps),
-        int(cluster),
+        int(few_rows),
     )
     return out
 
@@ -66,7 +67,7 @@ def _rms_norm_fwd_cuda(x: torch.Tensor, weight: torch.Tensor, eps: float,
 def _rms_norm_fwd(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return rms_norm_plain(x, weight, eps)
-    return _rms_norm_fwd_cuda(x, weight, eps, x.numel() // x.shape[-1] <= RMS_CLUSTER_MAX_ROWS)
+    return _rms_norm_fwd_cuda(x, weight, eps, x.numel() // x.shape[-1] <= RMS_FEW_ROWS)
 
 
 def rms_norm_bwd_plain(

@@ -69,14 +69,15 @@ def apply_linear(x: torch.Tensor, w: MaybeQuant) -> torch.Tensor:
 INT8_MM_MIN_ROWS = 32
 
 
-def int8_matmul_padded(xq: torch.Tensor, wq: torch.Tensor, rows: int = INT8_MM_MIN_ROWS):
-    """`torch._int_mm(xq, wq)` of `xq` padded with zero rows to `rows`
-    (when it has fewer), sliced back to xq's rows: the same int32 sums,
-    since every output row depends on its own input row only."""
+def int8_matmul_padded(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """`torch._int_mm(xq, wq)` of `xq` padded with zero rows to
+    `INT8_MM_MIN_ROWS` (when it has fewer), sliced back to xq's rows: the
+    same int32 sums, since every output row depends on its own input row
+    only."""
     M = xq.shape[0]
-    if M >= rows:
+    if M >= INT8_MM_MIN_ROWS:
         return torch._int_mm(xq, wq)
-    pad = torch.zeros((rows - M, xq.shape[1]), dtype=xq.dtype, device=xq.device)
+    pad = xq.new_zeros((INT8_MM_MIN_ROWS - M, xq.shape[1]))
     return torch._int_mm(torch.cat([xq, pad]), wq)[:M]
 
 
