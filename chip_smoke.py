@@ -40,8 +40,10 @@ Phases, each fatal on any error:
                and spread of five batches beside K22's old design, also
                over a 2048-row cache at B=16 and at B=4, where it splits a
                sample's rows over blocks), the packed and the two
-               uncalled kernels, also a copy of the source rebuilt with a
-               deliberate bug);
+               uncalled kernels, K1 (also at the int8 serves' 5120 rows)
+               and K7 (also against its plain version run on the CPU, and
+               its division against IEEE division over every bf16 pair),
+               also a copy of the source rebuilt with a deliberate bug);
      mlp_v2  - the chunk-pipelined W8A8 MLP (`fused_mlp_block_v2`)
                against its plain version at the int8 SAM encoder's shape,
                at 1000 rows and at the MLP microbenchmark's shape, its
@@ -333,6 +335,44 @@ def k2_b16_line(gen, H, hd) -> dict:
                 lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=sc), 20)}
 
 
+# The deliberate bugs of K1's redesign (`rope.cu`), each built into a copy
+# of the source: the block's first row's table used for every row the
+# block walks, and the rotation partner taken with the wrong sign.
+K1_MUTANTS = {
+    "first_row_table": ("rope.cu", "ULLAVA_MUTANT_ROPE_FIRST_ROW_TABLE"),
+    "partner_sign": ("rope.cu", "ULLAVA_MUTANT_ROPE_PARTNER_SIGN"),
+}
+K1_ATTRS = ("rope.cu", "ullava_fused_rotary_attrs")
+
+
+def k1_rows_line(gen, R, width, hd) -> dict:
+    """K1 at the int8 serves' prefill, R = 5120 rows of [R, width]: its
+    gate, both source mutants (a block walks several rows here, so the
+    first-row-table copy shows), time, plain time and bound."""
+    import torch
+
+    from ullava_tpu_torch import kernels
+    from ullava_tpu_torch.ops import rope
+
+    x = torch.randn((R, width), generator=gen, device="cuda").to(torch.bfloat16)
+    cos, sin = rope.rope_cos_sin(torch.arange(PROMPT, device="cuda").repeat(R // PROMPT), hd)
+    run = lambda: rope.fused_rotary(x, cos, sin, hd)  # noqa: E731
+    ref = rope.fused_rotary_plain(x, cos, sin, hd)
+    err = row_rel_err(run(), ref)
+    must(f"fused_rotary {R} rows", err <= 1e-2, err)
+    caught = {}
+    for bug, src_define in K1_MUTANTS.items():
+        with kernels.mutant(*src_define):
+            e = row_rel_err(run(), ref)
+        caught[bug] = must_not(f"fused_rotary {R} rows", bug, e <= 1e-2, e)
+    b_ms, b_by = bound_ms(2 * nbytes(x) + nbytes(cos, sin), 6.0 * x.numel(), FP32_FLOPS_PER_S)
+    return {"shape": [R, width], "row_rel_err": err, "tol": 1e-2, "mutant_row_rel_err": caught,
+            "ms": time_ms(run, 20), "plain_ms": time_ms(lambda: rope.fused_rotary_plain(
+                x, cos, sin, hd), 5, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "device_ms": device_ms_a_call(run, "rope_kernel")}
+
+
 def kernel_phases(gen) -> dict:
     """Each kernel against its plain version at the serving shapes.
 
@@ -372,17 +412,26 @@ def kernel_phases(gen) -> dict:
             kern, plain, library, in_out, flops, iters)
 
     # K1: rotary on the q (or k) rows of one 7B prefill layer. Both round
-    # one fp32 result to bf16: one ulp is 2^-8 of the value.
+    # one fp32 result to bf16: one ulp is 2^-8 of the value. At the bf16
+    # serve's 1280 rows, and at the int8 serves' 5120 (`k1_rows_line`).
     R, hd, width = B * PROMPT, 128, 4096
     x = randn(R, width)
     pos = torch.arange(PROMPT, device=dev).repeat(B)
     cos, sin = rope.rope_cos_sin(pos, hd)
+    with kernels.mutant(*K1_MUTANTS["partner_sign"]):
+        partner_sign = rope.fused_rotary(x, cos, sin, hd)
     record("fused_rotary", rope.fused_rotary(x, cos, sin, hd),
            rope.fused_rotary_plain(x, cos, sin, hd),
-           {"sin_negated": rope.fused_rotary(x, cos, -sin, hd)}, 1e-2,
+           {"sin_negated": rope.fused_rotary(x, cos, -sin, hd), "partner_sign": partner_sign}, 1e-2,
            lambda: rope.fused_rotary(x, cos, sin, hd),
            lambda: rope.fused_rotary_plain(x, cos, sin, hd), None,
            2 * nbytes(x) + nbytes(cos, sin), 6.0 * x.numel())
+    results["fused_rotary"].update(
+        shape=[R, width], kernel=kernels.kernel_attrs(*K1_ATTRS, width, hd),
+        # Its own generator: the phases after it draw what they drew before.
+        rows_5120=k1_rows_line(torch.Generator(device=dev).manual_seed(17), B_INT8 * PROMPT,
+                               width, hd))
+    del x, partner_sign
 
     # K2: causal prefill attention of one 7B layer, ragged kv_lens. p is
     # rounded to bf16 against a running (kernel) or global (plain) max,
@@ -552,6 +601,39 @@ K8_ATTRS = ("decode_attention_int8.cu", "ullava_decode_attention_int8_fused_writ
 # The deliberate bug of K9's few-row form (`rms_quant.cu`): the last warp's
 # partial left out of the row's sum of squares.
 K9_MUTANTS = {"warp_partial_left_out": ("rms_quant.cu", "ULLAVA_MUTANT_RMS_ROWS_PARTIAL")}
+
+
+# The deliberate bugs of K7's redesign (`kv_quant_write.cu`), each built
+# into a copy of the source: a head's abs-max taken over half its lanes,
+# and the scales written one cache row late.
+K7_MUTANTS = {
+    "half_lanes_amax": ("kv_quant_write.cu", "ULLAVA_MUTANT_KV_HALF_LANES_AMAX"),
+    "scales_one_row_late": ("kv_quant_write.cu", "ULLAVA_MUTANT_KV_SCALE_ROW_LATE"),
+}
+K7_ATTRS = ("kv_quant_write.cu", "ullava_prefill_quantize_write_attrs")
+
+
+def k7_cpu_exact(k, v, cache, expect, layer) -> dict:
+    """The share of K7's int8 values and scales equal to the plain version
+    run on the CPU (fp32 there: every division IEEE), beside the same share
+    of the plain version run on the card, and which of the two departs."""
+    from ullava_tpu_torch.ops import decode_attention
+
+    B_, S_, H_, hd_ = k.shape
+    out, departs = {}, set()
+    for i, (name, x) in enumerate((("k", k), ("v", v))):
+        q_cpu, s_cpu = decode_attention.quantize_kv_rows(x.cpu())
+        for side, got in (("kernel", cache), ("card_plain", expect)):
+            q = got[i][layer, :, :S_].cpu().reshape(B_, S_, H_, hd_)
+            s_ = got[i + 2][layer, :, :S_].cpu()
+            share = {f"{name}_int8": (q == q_cpu).float().mean().item(),
+                     f"{name}_scale": (s_ == s_cpu).float().mean().item()}
+            out.setdefault(side, {}).update(share)
+            if min(share.values()) < 1.0:
+                departs.add(side)
+    out["departs"] = sorted(departs) or "neither"
+    log(f"[kernel] prefill_quantize_write exact_vs_cpu_plain {json.dumps(out)}")
+    return out
 
 
 def spread_ms(fn, batches: int = 5, iters: int = 20) -> dict:
@@ -848,12 +930,32 @@ def int8_kernel_phases(gen) -> dict:
     info["mutants"] = {"one_scale_per_row": must_not(
         "prefill_quantize_write", "one_scale_per_row", *judge_cache(mutant))["k"]}
     del mutant, qrow, srow
+    # The source's own bugs (`K7_MUTANTS`), each run on a copy of the
+    # written cache.
+    for bug, src_define in K7_MUTANTS.items():
+        copy = [c.clone() for c in cache]
+        with kernels.mutant(*src_define):
+            decode_attention.prefill_quantize_write(k, v, *copy, layer)
+        bad = judge_cache(copy)
+        info["mutants"][bug] = must_not("prefill_quantize_write", bug, *bad)
+        del copy
+    info["exact_vs_cpu_plain"] = k7_cpu_exact(k, v, cache, expect, layer)
+    # Its division (one reciprocal a head, one fma correction) against
+    # IEEE division over every bf16 pair |x| <= amax: no code may differ.
+    codes, quotients, pairs = decode_attention.kv_quant_division_check()
+    info["division_check"] = {"codes_differ": codes, "quotients_differ": quotients, "pairs": pairs}
+    must("prefill_quantize_write division", codes == 0, info["division_check"])
     results["prefill_quantize_write"] = kernel_line(
         "prefill_quantize_write", float(max(info["k"]["int8_max_diff"], info["v"]["int8_max_diff"])),
         info, lambda: decode_attention.prefill_quantize_write(k, v, *cache, layer),
         lambda: decode_attention.prefill_quantize_write_plain(k, v, *cache, layer), None,
         nbytes(k, v) + k.numel() * 2 + 2 * 4 * B_INT8 * PROMPT * H, 6.0 * k.numel(),
         flops_per_s=FP32_FLOPS_PER_S)
+    results["prefill_quantize_write"].update(
+        shape=[B_INT8, PROMPT, H, hd], kernel=kernels.kernel_attrs(*K7_ATTRS, 0),
+        device_ms=device_ms_a_call(
+            lambda: decode_attention.prefill_quantize_write(k, v, *cache, layer),
+            "kv_quant_write_kernel"))
 
     # K8: one decode step of that layer over the cache K7 filled, ragged
     # write positions past the prompt. Rows at and after write_pos hold
@@ -3173,14 +3275,16 @@ def weight_only_encode_phase(cfg, params, images_sam) -> dict:
 
 # Kernels whose device time a profiled serve or training step reports
 # whether or not they are among its top kernels: [ms, calls] of the kernels
-# whose name holds the string (K8's kernel; K13's GEMM, whose row pass K10
+# whose name holds the string (K1's and K7's kernels, old design and new;
+# K8's kernel; K13's GEMM, whose row pass K10
 # and K12 share; K10's GEMM (`::LinearEpi>`: no other epilogue's name ends
 # so, `DualLinearEpi` has no `::` before `LinearEpi`) and its row pass
 # without a LayerNorm (the proj form's; no other kernel takes it); K9 in
 # both of its forms, the row staged in shared memory and the few-row one;
 # the flash forward, K15 in training and K2 in serving; the flash
 # backward's pre-pass, fused pass (K16) and dq finish (K17)).
-PROFILE_WATCH = {"decode_attention_int8_fused_write": "fused_write_kernel",
+PROFILE_WATCH = {"rope": "rope_kernel", "kv_quant_write": "kv_quant_write_kernel",
+                 "decode_attention_int8_fused_write": "fused_write_kernel",
                  "fused_ln_linear_dual_gemm": "DualLinearEpi",
                  "fused_ln_linear_gemm": "::LinearEpi>",
                  "fused_ln_linear_proj_row_pass": "ln_quant_rows_kernel<false>",
@@ -3646,7 +3750,8 @@ def main() -> int:
         *PACKED_MUTANTS.values(), *V2_MUTANTS.values(), *GLOBAL_Y_MUTANTS.values(),
         *QUAD_MAX_MUTANTS.values(), RECT_PAD_MUTANT, *K2_MUTANTS.values(),
         *K12_MUTANTS.values(), *K13_MUTANTS.values(), *K8_MUTANTS.values(),
-        *BWD_MUTANTS.values(), *K9_MUTANTS.values(), *K10_MUTANTS.values()])
+        *BWD_MUTANTS.values(), *K9_MUTANTS.values(), *K10_MUTANTS.values(),
+        *K1_MUTANTS.values(), *K7_MUTANTS.values()])
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "sources": sorted(built)}), flush=True)
 

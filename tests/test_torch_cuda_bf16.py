@@ -36,13 +36,21 @@ _TOL = 1e-2
 
 
 @pytest.mark.cuda
-def test_cuda_fused_rotary_matches_plain(cuda):
-    x = _rand(cuda, 96, 4 * 128)
-    cos, sin = rope.rope_cos_sin(torch.arange(96, device="cuda"), 128)
-    got = rope.fused_rotary(x, cos, sin, 128)
-    ref = rope.fused_rotary_plain(x, cos, sin, 128)
+@pytest.mark.parametrize("rows,hd,heads", [
+    (96, 128, 4),
+    (97, 128, 32),  # rows no multiple of anything the launch takes
+    (97, 64, 4),
+    (2500, 128, 32),  # more rows than the grid's blocks: blocks walk rows
+    (33, 40, 3),  # hd % 16 != 0: 8-byte accesses
+    (33, 36, 5),  # hd % 8 != 0: 4-byte accesses
+])
+def test_cuda_fused_rotary_matches_plain(cuda, rows, hd, heads):
+    x = _rand(cuda, rows, heads * hd)
+    cos, sin = rope.rope_cos_sin(torch.arange(rows, device="cuda") % 301, hd)
+    got = rope.fused_rotary(x, cos, sin, hd)
+    ref = rope.fused_rotary_plain(x, cos, sin, hd)
     assert _row_rel_err(got, ref) <= _TOL
-    assert _row_rel_err(rope.fused_rotary(x, cos, -sin, 128), ref) > _TOL
+    assert _row_rel_err(rope.fused_rotary(x, cos, -sin, hd), ref) > _TOL
 
 
 @pytest.mark.cuda

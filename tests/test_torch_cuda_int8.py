@@ -79,9 +79,13 @@ def test_cuda_silu_mul_quant_matches_plain(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Hkv,hd", [(4, 128), (3, 64), (2, 200)])
-def test_cuda_prefill_quantize_write_matches_plain(cuda, Hkv, hd):
-    L, B, S, maxS, layer = 3, 2, 37, 48, 1
+@pytest.mark.parametrize("S,Hkv,hd", [
+    (37, 4, 128), (37, 3, 64), (37, 2, 200),
+    (37, 3, 36), (5, 1, 4),  # hd % 8 != 0: the 8-byte instance
+    (1, 4, 128), (1, 2, 36),  # one cache row
+])
+def test_cuda_prefill_quantize_write_matches_plain(cuda, S, Hkv, hd):
+    L, B, maxS, layer = 3, 2, S + 11, 1
     k, v = _rand(cuda, B, S, Hkv, hd), _rand(cuda, B, S, Hkv, hd, scale=3.0)
     cache = _noise_cache(cuda, L, B, maxS, Hkv, hd)
     expect = decode_attention.prefill_quantize_write_plain(k, v, *(c.clone() for c in cache), layer)
@@ -95,6 +99,54 @@ def test_cuda_prefill_quantize_write_matches_plain(cuda, Hkv, hd):
             assert torch.equal(g, e)  # every other byte unchanged
         else:
             torch.testing.assert_close(g, e, rtol=1e-6, atol=0)
+
+
+def _tie_rows(gen, B, S, Hkv, hd):
+    """Rows on which x / scale falls exactly on k + 0.5: one +-amax of
+    127 * 2^-4 a (row, head), so the scale is 2^-4 exactly, the rest
+    (k + 0.5) * 2^-4, exact in bf16."""
+    x = (torch.randint(-127, 127, (B, S, Hkv, hd), generator=gen, device="cuda").float() + 0.5) / 16
+    peak = torch.randint(0, hd, (B, S, Hkv, 1), generator=gen, device="cuda")
+    sign = torch.randint(0, 2, (B, S, Hkv, 1), generator=gen, device="cuda").float() * 2 - 1
+    return x.scatter_(-1, peak, sign * 127 / 16).to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [128, 36])
+def test_cuda_prefill_quantize_write_rounds_ties_to_even(cuda, hd):
+    L, B, S, maxS, Hkv, layer = 2, 2, 11, 16, 4, 0
+    k, v = _tie_rows(cuda, B, S, Hkv, hd), _tie_rows(cuda, B, S, Hkv, hd)
+    cache = _noise_cache(cuda, L, B, maxS, Hkv, hd)
+    decode_attention.prefill_quantize_write(k, v, *cache, layer)
+    for x, q, s in ((k, cache[0], cache[2]), (v, cache[1], cache[3])):
+        assert torch.equal(s[layer, :, :S], torch.full((B, S, Hkv), 1 / 16, device="cuda"))
+        even = torch.round(x.float() * 16)  # half to even
+        assert torch.equal(q[layer, :, :S].reshape(B, S, Hkv, hd).float(), even)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [128, 36])
+def test_cuda_prefill_quantize_write_bit_equal_to_cpu_plain(cuda, hd):
+    """The kernel divides as the plain version does on the CPU, where
+    every fp32 division is IEEE (on the card, PyTorch divides by the
+    scalar 127 as a multiply by its reciprocal): int8 rows and scales
+    bit-equal."""
+    L, B, S, maxS, Hkv, layer = 2, 3, 29, 32, 4, 1
+    k, v = _rand(cuda, B, S, Hkv, hd), _rand(cuda, B, S, Hkv, hd, scale=3.0)
+    cache = _noise_cache(cuda, L, B, maxS, Hkv, hd)
+    cpu = decode_attention.prefill_quantize_write_plain(
+        k.cpu(), v.cpu(), *(c.cpu() for c in cache), layer)
+    got = decode_attention.prefill_quantize_write(k, v, *cache, layer)
+    for g, c in zip(got, cpu):
+        assert torch.equal(g.cpu(), c)
+
+
+@pytest.mark.cuda
+def test_cuda_kv_quant_division_gives_ieee_codes_on_every_bf16_pair(cuda):
+    codes, _, seen = decode_attention.kv_quant_division_check()
+    n = 0x7F7F  # positive finite bf16 abs-max patterns
+    assert seen == n * (n + 3)  # x patterns 0..amax, two signs, for each
+    assert codes == 0
 
 
 @pytest.mark.cuda

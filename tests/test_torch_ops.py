@@ -72,6 +72,21 @@ def test_fused_rotary_matches_jax_interpret():
     _close(rope.fused_rotary(_t(x), _t(cos), _t(sin), hd), ref)
 
 
+def test_fused_rotary_hd128_bf16_matches_jax_interpret():
+    """The main path's head width with bf16 rows, as the serving prefill
+    feeds it: both sides rotate in fp32 and round once to bf16, so they
+    agree within one bf16 ulp of each value (2^-8 relative)."""
+    rng = np.random.default_rng(3)
+    R, hd, H = 24, 128, 4
+    x = jnp.asarray(rng.standard_normal((R, H * hd)).astype(np.float32), jnp.bfloat16)
+    cos, sin = jrope.rope_cos_sin(jnp.arange(R) % 11 + 300, hd)
+    ref = jrope.fused_rotary(x, cos, sin, hd, interpret=True)
+    got = rope.fused_rotary(_t(x.astype(jnp.float32)).to(torch.bfloat16), _t(cos), _t(sin), hd)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref.astype(jnp.float32)),
+                               rtol=2.0**-8, atol=0)
+
+
 @pytest.mark.parametrize("causal,q_offset,hd,S,len1", [
     pytest.param(True, 0, 128, 128, 77, id="True-0"),
     pytest.param(False, 0, 128, 128, 77, id="False-0"),

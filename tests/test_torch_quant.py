@@ -225,6 +225,39 @@ def test_prefill_quantize_write_matches_jax_interpret():
         np.testing.assert_array_equal(g.numpy()[[0, 2]], before[[0, 2]])
 
 
+def tie_rows(rng, B, S, Hkv, hd):
+    """[B, S, Hkv, hd] rows on which x / scale falls exactly on k + 0.5: each
+    (row, head) holds one +-amax with amax = 127 * 2^-4, so its scale is
+    2^-4 exactly, and every other value is (k + 0.5) * 2^-4 for an integer
+    k in [-127, 126], exact in bf16. Rounding half to even must take the
+    even neighbour of each."""
+    x = (rng.integers(-127, 127, size=(B, S, Hkv, hd)) + 0.5) * 2.0**-4
+    peak = rng.integers(0, hd, size=(B, S, Hkv))
+    sign = rng.choice([-1.0, 1.0], size=(B, S, Hkv))
+    np.put_along_axis(x, peak[..., None], (sign * 127 * 2.0**-4)[..., None], axis=-1)
+    return x.astype(np.float32)
+
+
+def test_prefill_quantize_write_rounds_ties_to_even_like_jax_interpret():
+    rng = np.random.default_rng(9)
+    L, B, S, maxS, Hkv, hd, layer = 2, 2, 8, 12, 3, 16, 1
+    k, v = tie_rows(rng, B, S, Hkv, hd), tie_rows(rng, B, S, Hkv, hd)
+    cache = _empty_cache(rng, L, B, maxS, Hkv, hd)
+    ref = jdec.prefill_quantize_write(
+        jnp.asarray(k), jnp.asarray(v), *(jnp.asarray(c) for c in cache),
+        jnp.asarray(layer, jnp.int32), interpret=True,
+    )
+    tc = [_t(c) for c in cache]
+    got = decode_attention.prefill_quantize_write(_t(k), _t(v), *tc, layer)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    for x, q, s in ((k, got[0], got[2]), (v, got[1], got[3])):
+        np.testing.assert_array_equal(s.numpy()[layer, :, :S], np.full((B, S, Hkv), 2.0**-4, np.float32))
+        even = np.round(x * 16.0)  # numpy rounds half to even
+        assert (np.abs(x * 16.0 - np.trunc(x * 16.0)) == 0.5).mean() > 0.9  # mostly ties
+        np.testing.assert_array_equal(q.numpy()[layer, :, :S].reshape(B, S, Hkv, hd), even)
+
+
 @pytest.mark.parametrize("H,Hkv", [(4, 4), (4, 2)])
 def test_decode_attention_fused_write_matches_jax_interpret(H, Hkv):
     """MHA and GQA, ragged write positions (one at 0: no history)."""

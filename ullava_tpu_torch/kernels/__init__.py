@@ -346,6 +346,18 @@ def kernel_attrs(source: str, symbol: str, *form: int) -> Dict[str, int]:
     return dict(zip(("registers", "smem_bytes", "spill_bytes", "blocks_per_sm"), out))
 
 
+def run_check(source: str, symbol: str, *ptrs: int) -> None:
+    """Call the C entry `symbol` of `source` that takes device pointers and
+    the stream and launches a check (no kernel of a path): not counted."""
+    lib = _library(source, None)
+    fn = getattr(lib, symbol)
+    fn.argtypes = (P,) * (len(ptrs) + 1)
+    fn.restype = I
+    err = fn(*ptrs, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol}: CUDA error {err}: {lib.ullava_error_string(err).decode()}")
+
+
 @contextlib.contextmanager
 def mutant(source: str, define: str):
     """Within the block, launches of `source`'s kernels run the copy built

@@ -39,4 +39,17 @@ inline int func_attrs(Kernel* kernel, int threads, size_t smem, int* out) {
   out[3] = blocks;
   return 0;
 }
+
+// The current device's SM count, read once: what a grid that walks its
+// rows in a loop is sized by.
+inline int sm_count() {
+  static int n = 0;
+  if (n <= 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n <= 0)
+      n = 132;  // an H100 SXM
+  }
+  return n;
+}
 }  // namespace ullava

@@ -95,6 +95,17 @@ def prefill_quantize_write(
     return cache_k, cache_v, k_scale, v_scale
 
 
+def kv_quant_division_check() -> Tuple[int, int, int]:
+    """On the card: the division of `kernels/csrc/kv_quant_write.cu` (from
+    one reciprocal a head) against IEEE division over every bf16 x and
+    bf16 abs-max with |x| <= amax, both signs. Returns (pairs whose int8
+    codes differ, pairs whose quotients' bits differ, pairs seen)."""
+    counts = torch.zeros(3, dtype=torch.int64, device="cuda")
+    kernels.run_check("kv_quant_write.cu", "ullava_kv_quant_division_check", counts.data_ptr())
+    codes, quotients, seen = counts.tolist()
+    return codes, quotients, seen
+
+
 def decode_attention_int8_xla(
     q: torch.Tensor,  # [B, 1, H, hd]
     cache_k: torch.Tensor,
