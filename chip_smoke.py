@@ -13,7 +13,12 @@ Phases, each fatal on any error:
                stage-1 step's shapes (the training path's four: flash
                forward with lse, flash backward dkv and dq, RMSNorm
                backward), at a B=4 ViT-H encode's shapes (the
-               weight-only forms of K10, K13 and K12), at the all-int8
+               weight-only forms of K10, K13 and K12; K10 and K12 on the
+               wgmma + TMA bf16 x int8-weight core, with their SASS
+               counts, registers, stages, times at the stage-2 encode's
+               class rows and `torch.matmul` on the pre-widened weight,
+               and the widening checked bit for bit over all 256 int8
+               codes), at the all-int8
                serve's (the int8 score forms of K3, K11 and K14, K2 at
                CLIP's head_dim 64) and at a B=4 packed encode's (the
                packed window and global kernels; the per-(window, head)
@@ -137,6 +142,7 @@ by leaf beside the witnesses of `ullava_tpu_torch/microbench/stage2_grads.py`.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -2063,11 +2069,63 @@ def all_int8_kernel_phases(gen, results: dict) -> None:
 # The stage-2 batch: B=4 images, so the SAM encode of one stage-2 step has
 # 16384 global-block tokens and 64 full, 32 edge and 4 corner windows.
 B_STAGE2, S_STAGE2 = 4, 512
-# The deliberate bug that the weight-only gates must catch: each source
-# that holds the shared GEMM core rebuilt with the int8 weight widened as
-# unsigned bytes.
-WQ_MUTANTS = {src: (src, "ULLAVA_MUTANT_WQ_UNSIGNED") for src in ("ln_linear_wq.cu", "mlp_block_wq.cu")}
+# The deliberate bugs that the weight-only gates must catch, each built
+# into a copy of both weight-only sources: the int8 weight widened as
+# unsigned bytes (in both GEMM cores), and in the wgmma + TMA core
+# (`bf16_wq_gemm_sm90.cuh`, K10 and K12) the widening's bias constant one
+# code off and the transposed epilogue's scale indexed by token.
+WQ_SOURCES = ("ln_linear_wq.cu", "mlp_block_wq.cu")
+WQ_MUTANTS = {src: (src, "ULLAVA_MUTANT_WQ_UNSIGNED") for src in WQ_SOURCES}
+WQ_WIDEN_MUTANTS = {src: (src, "ULLAVA_MUTANT_WQ_BIAS_OFF_BY_ONE") for src in WQ_SOURCES}
+WQ_EPILOGUE_MUTANTS = {src: (src, "ULLAVA_MUTANT_WQ_SCALE_BY_TOKEN") for src in WQ_SOURCES}
 WQ_NAMES = ("fused_ln_linear_wq", "fused_ln_linear_dual_wq", "fused_mlp_block_wq")
+# The GEMM kernels of the wgmma + TMA core by their namespace (K10's and
+# K12's), and the entries that read their registers and shared bytes.
+WQ_SM90_GEMM = "wq_sm90"
+K10_WQ_ATTRS = ("ln_linear_wq.cu", "ullava_fused_ln_linear_wq_attrs")
+K12_WQ_ATTRS = ("mlp_block_wq.cu", "ullava_fused_mlp_block_wq_attrs")
+# The rows of a stage-2 encode's (B=4) classes: full windows (64 x 196),
+# the merged right and bottom pair (32 x 112), the corners (4 x 64), the
+# global blocks.
+STAGE2_CLASS_ROWS = (12544, 3584, 256, 16384)
+
+
+def wq_exact_widening(gen, define=None) -> dict:
+    """Both weight-only sources' GEMM (`define` None: as built; else the
+    copy built with that mutant) on x = the identity [256, 256] against an
+    int8 weight that holds every one of the 256 codes in every column (code
+    (k + 3 n) mod 256 - 128 at [k, n]), power-of-two channel scales and
+    small bf16 biases: y[m, n] must be bf16(code[m, n] * s[n] + b[n]) bit
+    for bit, a product of one live term that is exact in fp32. K10 through
+    `fused_linear`, K12 through its fc2 stage alone (h the identity, x zero).
+    {source: share of outputs bit-equal}."""
+    import torch
+
+    from ullava_tpu_torch import kernels
+    from ullava_tpu_torch.ops import mlp_kernel, quant
+
+    n, dev, bf = 256, "cuda", torch.bfloat16
+    k = torch.arange(n, device=dev)
+    codes = ((k[:, None] + 3 * k[None, :]) % 256 - 128).to(torch.int8)  # [K, N]
+    wq = quant.column_major(codes)
+    ws = torch.exp2(-torch.randint(4, 12, (n,), generator=gen, device=dev).float())
+    bias = (torch.randn(n, generator=gen, device=dev) * 0.25).to(bf)
+    eye = torch.eye(n, device=dev, dtype=bf)
+    ref = (codes.float() * ws + bias.float()).to(bf)
+    ones, zeros = torch.ones(n, device=dev, dtype=bf), torch.zeros(n, device=dev, dtype=bf)
+    out = {}
+    for src in WQ_SOURCES:
+        with kernels.mutant(src, define) if define else contextlib.nullcontext():
+            if src == "ln_linear_wq.cu":
+                got = mlp_kernel._ln_linear_wq_cuda(eye, None, None, wq, ws, bias, 0.0, None)[0]
+            else:
+                x0 = torch.zeros((n, n), device=dev, dtype=bf)
+                got = mlp_kernel._mlp_block_wq_cuda(
+                    x0, ones, zeros, wq, ws, bias, wq, ws, bias, 1e-6, stages=4,
+                    scratch=(torch.empty_like(x0), eye))[0]
+        torch.cuda.synchronize()
+        out[src] = (got.view(torch.int16) == ref.view(torch.int16)).float().mean().item()
+    return out
 
 
 def weight_only_kernel_phases(gen, results: dict) -> None:
@@ -2083,10 +2141,19 @@ def weight_only_kernel_phases(gen, results: dict) -> None:
     orders. Each gate must reject mutated runs: the weight scale applied
     per tensor, the LN bias, the residual, fc1's bias or the second bias
     dropped, `rows2` ignored, and the kernel source rebuilt with the int8
-    weight widened as unsigned bytes (`WQ_MUTANTS`). Bounds: the bf16 peak
-    for the products, HBM for the int8 weights and the activations. The
-    library chain: `F.layer_norm`, `w_q.to(bf16)`, `torch.matmul`, then
-    scale and bias."""
+    weight widened as unsigned bytes (`WQ_MUTANTS`); K10's and K12's also
+    with the wgmma + TMA core's transposed epilogue scaling by token
+    (`WQ_EPILOGUE_MUTANTS`), and its widening's bias constant one code off
+    (`WQ_WIDEN_MUTANTS`: K12, K10's proj form, whose inputs have a mean
+    that the shifted codes meet; the LN'd rows have almost none). First
+    the exact-widening check (`wq_exact_widening`), which every widening
+    mutant must fail. Bounds: the bf16 peak for the products, HBM for the
+    int8 weights and the activations. The library chain: `F.layer_norm`,
+    `w_q.to(bf16)`, `torch.matmul`, then scale and bias; `bf16_gemm_ms` is
+    `torch.matmul` alone on the weight widened once outside the timer (the
+    product alone, a yardstick the port never calls). K10's and K12's
+    lines carry their SASS counts, registers, TFLOP/s, stage times and
+    times at the stage-2 encode's class rows."""
     import torch
     import torch.nn.functional as F
 
@@ -2115,6 +2182,21 @@ def weight_only_kernel_phases(gen, results: dict) -> None:
     def lin_chain(xn, wq, ws, bias):  # the library yardstick's product, scale and bias
         return torch.matmul(xn, wq.to(bf)).float() * ws + bias.float()
 
+    # The widening on all 256 codes, bit for bit, as built and in each
+    # widening mutant (which must not be bit-equal). Its own generator: the
+    # phases after it draw from `gen` what they drew before it existed.
+    egen = torch.Generator(device=dev).manual_seed(18)
+    exact = wq_exact_widening(egen)
+    must("weight-only exact widening", all(v == 1.0 for v in exact.values()), exact)
+    exact_mutants = {}
+    for bug, table in (("weight_widened_unsigned", WQ_MUTANTS),
+                       ("widen_bias_off_by_one", WQ_WIDEN_MUTANTS)):
+        shares = wq_exact_widening(egen, table["ln_linear_wq.cu"][1])
+        for src, share in shares.items():
+            exact_mutants[f"{bug} {src}"] = must_not(
+                "weight-only exact widening", f"{bug} {src}", share == 1.0, share)
+    log(f"[kernel] weight-only exact widening {json.dumps(exact)} mutants {json.dumps(exact_mutants)}")
+
     x = randn(T, C, scale=2.0, shift=0.3)
     g, b = randn(C, scale=0.1, shift=1.0), randn(C, scale=0.1)
 
@@ -2139,8 +2221,12 @@ def weight_only_kernel_phases(gen, results: dict) -> None:
                 x, lg, torch.zeros_like(lb), wq, ws, bias, eps, res)[0]
         else:
             mutants["residual_dropped"] = mlp_kernel._ln_linear_wq_cuda(*args, None)[0]
-        with kernels.mutant(*WQ_MUTANTS["ln_linear_wq.cu"]):
-            mutants["weight_widened_unsigned"] = mlp_kernel._ln_linear_wq_cuda(*args, res)[0]
+        tables = {"weight_widened_unsigned": WQ_MUTANTS, "scale_by_token": WQ_EPILOGUE_MUTANTS}
+        if not ln:
+            tables["widen_bias_off_by_one"] = WQ_WIDEN_MUTANTS
+        for bug, table in tables.items():
+            with kernels.mutant(*table["ln_linear_wq.cu"]):
+                mutants[bug] = mlp_kernel._ln_linear_wq_cuda(*args, res)[0]
         gate(f"fused_ln_linear_wq {form}", info, mutants, ref)
         del mutants
 
@@ -2150,20 +2236,39 @@ def weight_only_kernel_phases(gen, results: dict) -> None:
             return (y if res is None else y + res.float()).to(bf)
 
         in_out = nbytes(x, wq, ws, bias, got) + (nbytes(g, b) if ln else nbytes(res))
+        flops = 2.0 * T * C * N
         line = kernel_line(
             "fused_ln_linear_wq", (got.float() - ref.float()).abs().max().item(), info,
             lambda a=args, r=res: mlp_kernel._ln_linear_wq_cuda(*a, r),
             lambda a=args, r=res: mlp_kernel._ln_linear_parts_plain(*a, False, r),
-            library, in_out, 2.0 * T * C * N, iters=10)
+            library, in_out, flops, iters=10)
         if ln:
             line["stage_ms"] = stage_ms(lambda bits, a=args, sc=xn: mlp_kernel._ln_linear_wq_cuda(
                 *a, None, stages=bits, scratch=sc), {"row_pass": 1, "gemm": 2})
-        line["shape"] = [T, C, N]
+        else:  # no row pass: the function is the product
+            line["stage_ms"] = {"gemm": line["ms"]}
+        w_bf = wq.to(bf)  # widened once, outside the timer
+        line.update(
+            shape=[T, C, N], tflops=flops / line["ms"] / 1e9,
+            gemm_tflops=flops / line["stage_ms"]["gemm"] / 1e9,
+            bf16_peak_share=flops / line["stage_ms"]["gemm"] / 1e9 / (BF16_FLOPS_PER_S / 1e12),
+            bf16_gemm_ms=time_ms(lambda a=(xn if ln else x), w=w_bf: torch.matmul(a, w), 10),
+            class_rows_ms={str(n): time_ms(lambda n=n, a=args, r=res: mlp_kernel._ln_linear_wq_cuda(
+                x[:n], *a[1:], None if r is None else r[:n]), 10) for n in STAGE2_CLASS_ROWS})
         forms[form] = line
-        del ref, got, xn, res
+        del ref, got, xn, res, w_bf
     results["fused_ln_linear_wq"] = {**forms["ln_qkv"], "proj_residual_form": {
         k: v for k, v in forms["proj_residual"].items()
         if k not in ("name", "route", "source", "replaces")}}
+    results["fused_ln_linear_wq"].update(
+        exact_widening_share=exact, exact_widening_mutant_share=exact_mutants,
+        sass=sass_counts("ln_linear_wq.cu", WQ_SM90_GEMM, ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")),
+        kernel=kernels.kernel_attrs(*K10_WQ_ATTRS))
+    wq_sass(results["fused_ln_linear_wq"]["sass"], "fused_ln_linear_wq")
+    log(f"[kernel] fused_ln_linear_wq stages {json.dumps({k: v['stage_ms'] for k, v in forms.items()})} "
+        f"classes {json.dumps({k: v['class_rows_ms'] for k, v in forms.items()})} "
+        f"sass {json.dumps(results['fused_ln_linear_wq']['sass'])} "
+        f"kernel {json.dumps(results['fused_ln_linear_wq']['kernel'])}")
     torch.cuda.empty_cache()
 
     # K13: LN1 + qkv + the composite bias columns of each class tensor.
@@ -2229,8 +2334,11 @@ def weight_only_kernel_phases(gen, results: dict) -> None:
         "fc1_bias_dropped": mlp_kernel._mlp_block_wq_cuda(
             x, g, b, w1, s1, torch.zeros_like(b1), w2, s2, b2, eps)[0],
     }
-    with kernels.mutant(*WQ_MUTANTS["mlp_block_wq.cu"]):
-        mutants["weight_widened_unsigned"] = mlp_kernel._mlp_block_wq_cuda(*args)[0]
+    for bug, table in (("weight_widened_unsigned", WQ_MUTANTS),
+                       ("widen_bias_off_by_one", WQ_WIDEN_MUTANTS),
+                       ("scale_by_token", WQ_EPILOGUE_MUTANTS)):
+        with kernels.mutant(*table["mlp_block_wq.cu"]):
+            mutants[bug] = mlp_kernel._mlp_block_wq_cuda(*args)[0]
     gate("fused_mlp_block_wq", info, mutants, ref)
     del mutants, xn_ref, h_ref
 
@@ -2239,17 +2347,40 @@ def weight_only_kernel_phases(gen, results: dict) -> None:
         h_ = F.gelu(lin_chain(xn_, w1, s1, b1)).to(bf)
         return (lin_chain(h_, w2, s2, b2) + x.float()).to(bf)
 
-    results["fused_mlp_block_wq"] = kernel_line(
+    flops = 4.0 * T * C * Fw
+    line = results["fused_mlp_block_wq"] = kernel_line(
         "fused_mlp_block_wq", (got.float() - ref.float()).abs().max().item(), info,
         lambda: mlp_kernel._mlp_block_wq_cuda(*args),
         lambda: mlp_kernel._mlp_block_parts_plain(*args, 1024, False), library_mlp,
-        nbytes(x, g, b, w1, s1, b1, w2, s2, b2, got), 4.0 * T * C * Fw, iters=10)
-    results["fused_mlp_block_wq"]["stage_ms"] = stage_ms(
+        nbytes(x, g, b, w1, s1, b1, w2, s2, b2, got), flops, iters=10)
+    line["stage_ms"] = stage_ms(
         lambda bits: mlp_kernel._mlp_block_wq_cuda(*args, stages=bits, scratch=(xn, h)),
         {"row_pass": 1, "fc1": 2, "fc2": 4})
-    results["fused_mlp_block_wq"]["shape"] = [T, C, Fw]
-    del ref, got, xn, h, x, w1, w2
+    w1_bf, w2_bf = w1.to(bf), w2.to(bf)  # widened once, outside the timer
+    line.update(
+        shape=[T, C, Fw], tflops=flops / line["ms"] / 1e9,
+        fc_tflops={fc: flops / 2 / line["stage_ms"][fc] / 1e9 for fc in ("fc1", "fc2")},
+        bf16_gemm_ms={"fc1": time_ms(lambda: torch.matmul(xn, w1_bf), 10),
+                      "fc2": time_ms(lambda: torch.matmul(h, w2_bf), 10)},
+        class_rows_ms={str(n): time_ms(lambda n=n: mlp_kernel._mlp_block_wq_cuda(
+            x[:n], *args[1:]), 10) for n in STAGE2_CLASS_ROWS},
+        sass=sass_counts("mlp_block_wq.cu", WQ_SM90_GEMM, ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")),
+        kernel={fc: kernels.kernel_attrs(*K12_WQ_ATTRS, i) for i, fc in ((1, "fc1"), (2, "fc2"))})
+    wq_sass(line["sass"], "fused_mlp_block_wq")
+    log(f"[kernel] fused_mlp_block_wq stages {json.dumps(line['stage_ms'])} "
+        f"classes {json.dumps(line['class_rows_ms'])} bf16_gemm {json.dumps(line['bf16_gemm_ms'])} "
+        f"sass {json.dumps(line['sass'])} kernel {json.dumps(line['kernel'])}")
+    del ref, got, xn, h, x, w1, w2, w1_bf, w2_bf
     torch.cuda.empty_cache()
+
+
+def wq_sass(counts, name) -> None:
+    """The wgmma + TMA core's kernels must issue wgmma (`HGMMA`) and TMA
+    loads, and no mma.sync (`HMMA`); unread where the toolkit has no
+    cuobjdump."""
+    if counts != "not measured":
+        must(f"{name} SASS", counts["HGMMA"] > 0 and counts["UTMALDG"] > 0 and counts["HMMA"] == 0,
+             counts)
 
 
 # The training shapes: B=4 sequences of 1024 tokens, LLaMA-7B's 32 heads
@@ -3282,7 +3413,9 @@ def weight_only_encode_phase(cfg, params, images_sam) -> dict:
 # without a LayerNorm (the proj form's; no other kernel takes it); K9 in
 # both of its forms, the row staged in shared memory and the few-row one;
 # the flash forward, K15 in training and K2 in serving; the flash
-# backward's pre-pass, fused pass (K16) and dq finish (K17)).
+# backward's pre-pass, fused pass (K16) and dq finish (K17); the
+# weight-only kernels: the wgmma + TMA core's GEMMs (K10's and K12's), the
+# mma.sync core's (K13's), and their bf16 LayerNorm row pass).
 PROFILE_WATCH = {"rope": "rope_kernel", "kv_quant_write": "kv_quant_write_kernel",
                  "decode_attention_int8_fused_write": "fused_write_kernel",
                  "fused_ln_linear_dual_gemm": "DualLinearEpi",
@@ -3293,7 +3426,10 @@ PROFILE_WATCH = {"rope": "rope_kernel", "kv_quant_write": "kv_quant_write_kernel
                  "flash_fwd_sm90_kernel": "flash_fwd_sm90_kernel",
                  "flash_attention_bwd_delta": "bwd::delta_kernel",
                  "flash_attention_bwd_dkv": "bwd::flash_bwd_kernel",
-                 "flash_attention_bwd_dq": "bwd::dq_finish_kernel"}
+                 "flash_attention_bwd_dq": "bwd::dq_finish_kernel",
+                 "wq_gemm_sm90": "wq_sm90::gemm_kernel",
+                 "wq_gemm_mma_sync": "wq::gemm_kernel",
+                 "wq_ln_rows": "ln_rows_bf16_kernel"}
 
 
 def _dev_us(e):
@@ -3751,7 +3887,8 @@ def main() -> int:
         *QUAD_MAX_MUTANTS.values(), RECT_PAD_MUTANT, *K2_MUTANTS.values(),
         *K12_MUTANTS.values(), *K13_MUTANTS.values(), *K8_MUTANTS.values(),
         *BWD_MUTANTS.values(), *K9_MUTANTS.values(), *K10_MUTANTS.values(),
-        *K1_MUTANTS.values(), *K7_MUTANTS.values()])
+        *K1_MUTANTS.values(), *K7_MUTANTS.values(), *WQ_WIDEN_MUTANTS.values(),
+        *WQ_EPILOGUE_MUTANTS.values()])
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "sources": sorted(built)}), flush=True)
 

@@ -1,9 +1,10 @@
 """On the card: the weight-only (`w8a8=False`) CUDA forms of
-`fused_ln_linear` / `fused_linear` (K10), `fused_ln_linear_dual` (K13) and
-`fused_mlp_block` (K12), on their shared bf16 x int8-weight GEMM core,
-against the plain PyTorch versions in bf16. Every test here needs an
-NVIDIA GPU and skips without one. The file imports torch only, so it runs
-on a machine that has no JAX:
+`fused_ln_linear` / `fused_linear` (K10) and `fused_mlp_block` (K12), on
+the wgmma + TMA bf16 x int8-weight core, and of `fused_ln_linear_dual`
+(K13), on the mma.sync one, against the plain PyTorch versions in bf16;
+the widening bit for bit over all 256 codes; the cores' deliberate bugs.
+Every test here needs an NVIDIA GPU and skips without one. The file
+imports torch only, so it runs on a machine that has no JAX:
 
     python -m pytest tests/test_torch_cuda_weight_only.py -q
 
@@ -78,7 +79,26 @@ def test_fused_ln_linear_dual_weight_only_matches_plain(cuda, N, T, rows2):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [1024, 300])
+@pytest.mark.parametrize("rows", [12544, 3584, 256])
+@pytest.mark.parametrize("N", [3840, 1280])
+@pytest.mark.parametrize("ln", [True, False], ids=["ln", "no_ln_residual"])
+def test_fused_ln_linear_weight_only_at_stage2_classes(cuda, rows, N, ln):
+    """The row counts of a B=4 ViT-H encode's window classes (full, merged
+    edge pair, corners), C 1280 into qkv and proj widths."""
+    C = 1280
+    x = _rand(cuda, rows, C, scale=2.0, shift=0.3)
+    wq, ws = _weight(cuda, C, N)
+    bias = _rand(cuda, N, scale=0.5)
+    g, b = (_rand(cuda, C, scale=0.1, shift=1.0), _rand(cuda, C, scale=0.1)) if ln else (None, None)
+    res = None if ln else _rand(cuda, rows, N)
+    got = mlp_kernel.fused_ln_linear(x, g, b, wq, ws, bias, 1e-6, w8a8=False, residual=res)
+    ref = mlp_kernel.fused_ln_linear_plain(x, g, b, wq, ws, bias, 1e-6, w8a8=False, residual=res)
+    torch.cuda.synchronize()
+    assert _row_rel_err(got, ref) <= _TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1024, 300, 3584, 16384])
 def test_fused_mlp_block_weight_only_matches_plain(cuda, T):
     C, F = 1280, 5120
     x = _rand(cuda, T, C, scale=2.0, shift=0.3)
@@ -105,6 +125,82 @@ def test_weight_widened_as_unsigned_fails_the_gate(cuda):
         bad = mlp_kernel.fused_linear(x, wq, ws, bias, w8a8=False)
     torch.cuda.synchronize()
     assert _row_rel_err(bad, ref) > _TOL
+
+
+def _exact_widening(gen, source, define=None):
+    """`source`'s product on x = the identity [256, 256] against a weight
+    that holds all 256 int8 codes in every column (code (k + 3 n) mod 256 -
+    128 at [k, n]), power-of-two channel scales and small biases: the share
+    of outputs equal to bf16(code * s + b) bit for bit (one live term, exact
+    in fp32). K10 through `fused_linear`, K12 through its fc2 stage alone
+    (h the identity, x zero)."""
+    n = 256
+    k = torch.arange(n, device="cuda")
+    codes = ((k[:, None] + 3 * k[None, :]) % 256 - 128).to(torch.int8)
+    wq = quant.column_major(codes)
+    ws = torch.exp2(-torch.randint(4, 12, (n,), generator=gen, device="cuda").float())
+    bias = _rand(gen, n, scale=0.25)
+    eye = torch.eye(n, device="cuda", dtype=torch.bfloat16)
+    ref = (codes.float() * ws + bias.float()).to(torch.bfloat16)
+
+    def run():
+        if source == "ln_linear_wq.cu":
+            return mlp_kernel.fused_linear(eye, wq, ws, bias, w8a8=False)
+        x0 = torch.zeros_like(eye)
+        ones = torch.ones(n, device="cuda", dtype=torch.bfloat16)
+        return mlp_kernel._mlp_block_wq_cuda(
+            x0, ones, torch.zeros_like(ones), wq, ws, bias, wq, ws, bias, 1e-6, stages=4,
+            scratch=(torch.empty_like(x0), eye))[0]
+
+    if define is None:
+        got = run()
+    else:
+        kernels.build_all(mutants=[(source, define)])
+        with kernels.mutant(source, define):
+            got = run()
+    torch.cuda.synchronize()
+    return (got.view(torch.int16) == ref.view(torch.int16)).float().mean().item()
+
+
+_SOURCES = ["ln_linear_wq.cu", "mlp_block_wq.cu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", _SOURCES)
+def test_widening_is_exact_on_all_256_codes(cuda, source):
+    assert _exact_widening(cuda, source) == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", _SOURCES)
+@pytest.mark.parametrize("define", ["ULLAVA_MUTANT_WQ_UNSIGNED", "ULLAVA_MUTANT_WQ_BIAS_OFF_BY_ONE"])
+def test_widening_mutants_fail_the_exact_check(cuda, source, define):
+    assert _exact_widening(cuda, source, define) < 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("define", ["ULLAVA_MUTANT_WQ_BIAS_OFF_BY_ONE", "ULLAVA_MUTANT_WQ_SCALE_BY_TOKEN"])
+def test_wgmma_core_mutants_fail_the_gates(cuda, define):
+    """The wgmma + TMA core built with its widening's bias constant one code
+    off, or its transposed epilogue's scale indexed by token, must fail the
+    row gate: K10's proj + residual form and K12."""
+    C, F, T = 1280, 5120, 512
+    x = _rand(cuda, T, C, scale=2.0, shift=0.3)
+    wq, ws = _weight(cuda, C, C)
+    bias, res = _rand(cuda, C, scale=0.5), _rand(cuda, T, C)
+    ref = mlp_kernel.fused_ln_linear_plain(x, None, None, wq, ws, bias, 0.0, w8a8=False, residual=res)
+    g, b = _rand(cuda, C, scale=0.1, shift=1.0), _rand(cuda, C, scale=0.1)
+    (w1, s1), (w2, s2) = _weight(cuda, C, F), _weight(cuda, F, C)
+    b1, b2 = _rand(cuda, F, scale=0.5), _rand(cuda, C, scale=0.5)
+    margs = (x, g, b, w1, s1, b1, w2, s2, b2, 1e-6)
+    mref = mlp_kernel.fused_mlp_block_plain(*margs, w8a8=False)
+    kernels.build_all(mutants=[(src, define) for src in _SOURCES])
+    with kernels.mutant("ln_linear_wq.cu", define):
+        bad = mlp_kernel.fused_linear(x, wq, ws, bias, residual=res, w8a8=False)
+    with kernels.mutant("mlp_block_wq.cu", define):
+        mbad = mlp_kernel.fused_mlp_block(*margs, w8a8=False)
+    torch.cuda.synchronize()
+    assert _row_rel_err(bad, ref) > _TOL and _row_rel_err(mbad, mref) > _TOL
 
 
 @pytest.mark.cuda

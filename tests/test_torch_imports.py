@@ -71,7 +71,7 @@ def test_port_imports_no_jax_and_entry_points_need_cuda():
     for new in ("ops.quant", "ops.mlp_kernel", "ops.decode_attention", "ops.sam_attention",
                 "models.clip_vit", "kernels", "train", "training.optim", "training.train_step",
                 "training.checkpoint", "training.trainer", "models.loss",
-                "microbench.mlp_variants", "microbench.stage2_grads"):
+                "microbench.mlp_variants", "microbench.stage2_grads", "microbench.stage2_ab"):
         assert f"ullava_tpu_torch.{new}" in mods
     res = subprocess.run(
         [sys.executable, "-c", _PROBE, json.dumps(mods)],
@@ -106,6 +106,31 @@ def test_card_test_files_import_torch_only(name):
         elif isinstance(node, ast.ImportFrom):
             roots.add((node.module or "").split(".")[0])
     assert roots <= {"pytest", "torch", "ullava_tpu_torch", "dataclasses", "math"}, roots
+
+
+_AB_ROOTS = {"__future__", "argparse", "dataclasses", "importlib", "json", "subprocess", "sys",
+             "pathlib", "torch", "ullava_tpu_torch"}
+
+
+@pytest.mark.parametrize("name", ["flash_bwd_ab", "serve_ab", "stream_ab", "stage2_ab"])
+def test_ab_microbenchmarks_import_torch_only_and_need_a_card(name):
+    """The parent-against-change microbenchmarks import torch, the port and
+    the standard library only (chip_smoke.py by path, at run time), and
+    refuse to run without a card."""
+    path = REPO / "ullava_tpu_torch" / "microbench" / f"{name}.py"
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            roots.add((node.module or "").split(".")[0])
+    assert roots <= _AB_ROOTS, roots
+    res = subprocess.run(
+        [sys.executable, str(path)], cwd=REPO, capture_output=True, text=True, timeout=120,
+        env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO), "CUDA_VISIBLE_DEVICES": ""},
+    )
+    assert res.returncode != 0 and "needs a card" in res.stderr, (res.returncode, res.stderr[-500:])
+    assert res.stdout.strip() == ""
 
 
 def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):

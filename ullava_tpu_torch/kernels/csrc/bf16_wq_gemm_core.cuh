@@ -1,7 +1,9 @@
-// One bf16 x int8-weight -> fp32 tensor-core GEMM core shared by the
-// weight-only (w8a8=False) forms of the fused SAM kernels
-// (ln_linear_wq.cu, mlp_block_wq.cu), beside int8_gemm_core.cuh, whose
-// tile shape, Tile map and epilogue protocol it keeps.
+// A bf16 x int8-weight -> fp32 tensor-core GEMM core on mma.sync, beside
+// int8_gemm_core.cuh, whose tile shape, Tile map and epilogue protocol it
+// keeps. It now runs only the weight-only fused_ln_linear_dual (K13,
+// ln_linear_wq.cu); the weight-only K10 and K12 run on the wgmma + TMA
+// core, bf16_wq_gemm_sm90.cuh. This header also holds the bf16 LayerNorm
+// row pass that all three weight-only kernels run first.
 //
 //   acc[m, n] = sum_k A[m, k] * float(B[k, n])
 // A is row-major bf16 [M, K] (row stride lda elements). B is an int8
@@ -34,8 +36,6 @@
 // ULLAVA_MUTANT_WQ_UNSIGNED builds a deliberate bug (the int8 weight
 // widened as unsigned bytes) that only `chip_smoke.py` compiles, to show
 // that the weight-only kernels' gates catch it.
-//
-// Not yet: wgmma, TMA, a persistent tile scheduler.
 #pragma once
 
 #include "int8_gemm_core.cuh"
@@ -205,18 +205,16 @@ int launch_gemm(const bf16* A, int lda, int M, const int8_t* Bt, int ldb, int N,
   return static_cast<int>(cudaGetLastError());
 }
 
-// y = acc * w_scale[col] + bias[col] (+ residual[row, col]), in that order
-// in fp32, one rounding to bf16: the TPU kernel's weight-only epilogue.
-// `Bias` is bf16 (the qkv / proj / fc2 biases) or float (the composite
-// bias weights'). With rows2 < T, of every T rows only the leading rows2
-// are stored, packed to [M / T, rows2, N] (the second output of
-// fused_ln_linear_dual).
+// y = acc * w_scale[col] + bias[col], in that order in fp32, one rounding
+// to bf16: the TPU kernel's weight-only epilogue. `Bias` is bf16 (the qkv
+// bias) or float (the composite bias weights'). With rows2 < T, of every
+// T rows only the leading rows2 are stored, packed to [M / T, rows2, N]
+// (the second output of fused_ln_linear_dual).
 template <class Bias>
 struct LinearEpi {
   static constexpr int kMinBlocks = 2;
   const float* ws;        // [N] per-output-channel weight scale
   const Bias* bias;       // [N]
-  const bf16* residual;   // [M, N] or nullptr
   bf16* out;
   int T, rows2;           // T = rows2 = M: every row, [M, N]
 
@@ -241,13 +239,8 @@ struct LinearEpi {
         for (int half = 0; half < 2; ++half) {
           const int row = t.row(mi, half);
           if (row >= t.M || row % T >= rows2) continue;
-          float y0 = acc[mi][ni][half * 2] * w.x + b.x;
-          float y1 = acc[mi][ni][half * 2 + 1] * w.y + b.y;
-          if (residual != nullptr) {
-            const float2 r = load_bf16x2(residual + static_cast<size_t>(row) * t.N + col);
-            y0 += r.x;
-            y1 += r.y;
-          }
+          const float y0 = acc[mi][ni][half * 2] * w.x + b.x;
+          const float y1 = acc[mi][ni][half * 2 + 1] * w.y + b.y;
           const size_t orow = static_cast<size_t>(row / T) * rows2 + row % T;
           store_bf16x2(out + orow * t.N + col, y0, y1);
         }

@@ -14,18 +14,28 @@
 //
 // Design: two launches. (1) With a LayerNorm, a row pass (one warp per
 // row, bf16_wq_gemm_core.cuh) writes the normalised rows as bf16 to
-// scratch; without one the product reads x itself. (2) The bf16 x int8
-// GEMM core, whose epilogue applies the per-column scale after the
-// product, as the TPU kernel does, then the bias and the residual.
+// scratch; without one the product reads x itself. (2) One launch of the
+// wgmma + TMA bf16 x int8-weight core (bf16_wq_gemm_sm90.cuh): the weight
+// rows widened to bf16 in registers as wgmma's A operand, the rows of x
+// from shared memory as its B, the output tile transposed; its epilogue
+// applies the per-channel scale after the product, as the TPU kernel
+// does, then the bias and the residual (read by TMA under the products),
+// and stores the tile token-major by TMA.
 //
 // fused_ln_linear_dual, weight-only: the same row pass once, then the
-// GEMM core twice on the shared bf16 rows, once per weight; the second
-// epilogue takes the f32 bias and keeps the leading `rows2` rows of every
-// T (GEMM row r -> output row (r / T) * rows2 + r % T).
+// mma.sync GEMM core (bf16_wq_gemm_core.cuh) twice on the shared bf16
+// rows, once per weight; the second epilogue takes the f32 bias and keeps
+// the leading `rows2` rows of every T (GEMM row r -> output row (r / T) *
+// rows2 + r % T).
 //
 // Replaces: ullava_tpu/ops/mlp_kernel.py:622 fused_ln_linear_dual with
 // w8a8=False (_ln_linear2_kernel, :576, branch :606-615).
+//
+// The deliberate bugs of both cores (ULLAVA_MUTANT_WQ_*, in their
+// headers) compile into copies of this source that only chip_smoke.py
+// builds.
 #include "bf16_wq_gemm_core.cuh"
+#include "bf16_wq_gemm_sm90.cuh"
 
 // x [rows, K] bf16; ln_s, ln_b [K] bf16 or both null (no LayerNorm); wq
 // int8 [N][K] (K contiguous per output column); w_scale [N] f32; bias [N]
@@ -46,14 +56,18 @@ ULLAVA_EXPORT int ullava_fused_ln_linear_wq(const void* x, const void* ln_s, con
                                             static_cast<bf16*>(xn), rows, K, eps, st);
     if (err != 0) return err;
   }
-  if (stages & 2) {
-    wq::LinearEpi<bf16> epi{static_cast<const float*>(w_scale), static_cast<const bf16*>(bias),
-                            static_cast<const bf16*>(residual), static_cast<bf16*>(out), rows,
-                            rows};
-    return wq::launch_gemm(static_cast<const bf16*>(ln ? xn : x), K, rows,
-                           static_cast<const int8_t*>(wq), K, N, K, epi, st);
-  }
+  if (stages & 2)
+    return wq_sm90::launch_gemm<false>(
+        static_cast<const bf16*>(ln ? xn : x), K, rows, static_cast<const int8_t*>(wq), K, N, K,
+        static_cast<const float*>(w_scale), static_cast<const bf16*>(bias),
+        static_cast<const bf16*>(residual), static_cast<bf16*>(out), st);
   return 0;
+}
+
+// {registers, shared bytes, spilled bytes, blocks an SM} of the product's
+// kernel (the wgmma + TMA core with the linear epilogue).
+ULLAVA_EXPORT int ullava_fused_ln_linear_wq_attrs(int* out) {
+  return ullava::wq_sm90::attrs<false>(out);
 }
 
 // fused_ln_linear_dual, weight-only. x [rows, K] bf16 with rows = windows
@@ -79,14 +93,14 @@ ULLAVA_EXPORT int ullava_fused_ln_linear_dual_wq(
   const bf16* a = static_cast<const bf16*>(xn);
   if (stages & 2) {
     wq::LinearEpi<bf16> epi{static_cast<const float*>(w_scale), static_cast<const bf16*>(bias),
-                            nullptr, static_cast<bf16*>(out), rows, rows};
+                            static_cast<bf16*>(out), rows, rows};
     const int err = wq::launch_gemm(a, K, rows, static_cast<const int8_t*>(wq), K, N, K, epi, st);
     if (err != 0) return err;
   }
   if (stages & 4) {
     wq::LinearEpi<float> epi{static_cast<const float*>(w2_scale),
-                             static_cast<const float*>(bias2), nullptr,
-                             static_cast<bf16*>(out2), T, rows2};
+                             static_cast<const float*>(bias2), static_cast<bf16*>(out2), T,
+                             rows2};
     return wq::launch_gemm(a, K, rows, static_cast<const int8_t*>(w2q), K, N2, K, epi, st);
   }
   return 0;

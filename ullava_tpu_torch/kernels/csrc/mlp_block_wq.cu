@@ -4,7 +4,7 @@
 // polynomial erf, and h rounded to bf16 before fc2.
 //
 // Replaces: ullava_tpu/ops/mlp_kernel.py:157 fused_mlp_block with
-// w8a8=False (_kernel, :77, branches :122-127 and :143-148: per F-chunk
+// w8a8=False (_kernel, :77, branches :122-128 and :143-148: per F-chunk
 // h = gelu(dot(xn, w1) * s1 + b1), acc += dot(bf16(h), w2) * s2; then
 // acc + b2 + x, one rounding).
 //
@@ -16,48 +16,20 @@
 // fp32 accumulator next to the operand tiles, so h crosses HBM once, as
 // the bf16 values that fc2 takes anyway (the TPU kernel's h.astype(bf16)).
 //   1. row pass: LayerNorm in fp32, rounded to bf16 (bf16_wq_gemm_core.cuh);
-//   2. fc1 on the bf16 x int8 core; the epilogue computes
-//      h = gelu(acc * s1 + b1) in registers and stores it as bf16;
-//   3. fc2 on the same core over all of F at once, epilogue
-//      acc * s2 + b2 + x. The TPU kernel multiplies each F-chunk's
+//   2. fc1 on the wgmma + TMA bf16 x int8-weight core
+//      (bf16_wq_gemm_sm90.cuh: W1t [F, C] widened in registers as wgmma's
+//      A, the LN'd rows from shared memory as its B); the epilogue computes
+//      h = gelu(acc * s1 + b1) per channel and stores it as bf16, token-major;
+//   3. fc2 on the same core with A = W2t [C, F] and B = h [rows, F], K = F,
+//      over all of F at once, epilogue acc * s2 + b2 + x (x read by TMA
+//      under the products). The TPU kernel multiplies each F-chunk's
 //      product by s2 before summing the chunks; s2 is one value per output
-//      column, so the sum over chunks times s2 is the same up to fp32
+//      channel, so the sum over chunks times s2 is the same up to fp32
 //      rounding, and the kernel takes it once.
+// The deliberate bugs of the core (ULLAVA_MUTANT_WQ_*, in its header)
+// compile into copies of this source that only chip_smoke.py builds.
 #include "bf16_wq_gemm_core.cuh"
-#include "gelu_poly.cuh"
-
-namespace ullava {
-namespace wq {
-
-struct Fc1Epi {
-  static constexpr int kMinBlocks = 2;
-  const float* s1;  // [F]
-  const bf16* b1;   // [F]
-  bf16* h;          // [M, F]
-
-  __device__ __forceinline__ void finish(const Acc& acc, const Tile& t) const {
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni) {
-      const int col = t.col(ni);
-      if (col >= t.N) continue;
-      const float2 w = *reinterpret_cast<const float2*>(s1 + col);
-      const float2 b = load_bf16x2(b1 + col);
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int row = t.row(mi, half);
-          if (row >= t.M) continue;
-          store_bf16x2(h + static_cast<size_t>(row) * t.N + col,
-                       i8::gelu_poly(acc[mi][ni][half * 2] * w.x + b.x),
-                       i8::gelu_poly(acc[mi][ni][half * 2 + 1] * w.y + b.y));
-        }
-    }
-  }
-};
-
-}  // namespace wq
-}  // namespace ullava
+#include "bf16_wq_gemm_sm90.cuh"
 
 // x, out [rows, C] bf16; ln_s, ln_b, b2 [C] bf16; w1q int8 [F][C] (C
 // contiguous), s1 [F] f32, b1 [F] bf16; w2q int8 [C][F] (F contiguous),
@@ -78,17 +50,23 @@ ULLAVA_EXPORT int ullava_fused_mlp_block_wq(const void* x, const void* ln_s, con
     if (err != 0) return err;
   }
   if (stages & 2) {
-    wq::Fc1Epi epi{static_cast<const float*>(s1), static_cast<const bf16*>(b1),
-                   static_cast<bf16*>(h)};
-    const int err = wq::launch_gemm(static_cast<const bf16*>(xn), C, rows,
-                                    static_cast<const int8_t*>(w1q), C, F, C, epi, st);
+    const int err = wq_sm90::launch_gemm<true>(
+        static_cast<const bf16*>(xn), C, rows, static_cast<const int8_t*>(w1q), C, F, C,
+        static_cast<const float*>(s1), static_cast<const bf16*>(b1), nullptr,
+        static_cast<bf16*>(h), st);
     if (err != 0) return err;
   }
-  if (stages & 4) {
-    wq::LinearEpi<bf16> epi{static_cast<const float*>(s2), static_cast<const bf16*>(b2),
-                            static_cast<const bf16*>(x), static_cast<bf16*>(out), rows, rows};
-    return wq::launch_gemm(static_cast<const bf16*>(h), F, rows,
-                           static_cast<const int8_t*>(w2q), F, C, F, epi, st);
-  }
+  if (stages & 4)
+    return wq_sm90::launch_gemm<false>(
+        static_cast<const bf16*>(h), F, rows, static_cast<const int8_t*>(w2q), F, C, F,
+        static_cast<const float*>(s2), static_cast<const bf16*>(b2),
+        static_cast<const bf16*>(x), static_cast<bf16*>(out), st);
   return 0;
+}
+
+// {registers, shared bytes, spilled bytes, blocks an SM} of the fc1 (`fc`
+// 1) or fc2 (2) kernel.
+ULLAVA_EXPORT int ullava_fused_mlp_block_wq_attrs(int fc, int* out) {
+  using namespace ullava::wq_sm90;
+  return fc == 1 ? attrs<true>(out) : attrs<false>(out);
 }

@@ -1,13 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the wgmma + TMA kernels: the
 // flash forward (K15 and K2, flash_fwd_sm90.cuh), the flash backward (K16,
 // flash_attention_bwd.cu), the SAM global attention core (K11, K20,
-// global_sm90.cuh) and the int8 GEMM core (K12, int8_gemm_sm90.cuh).
+// global_sm90.cuh), the int8 GEMM core (K12, int8_gemm_sm90.cuh) and the
+// bf16 x int8-weight GEMM core (K10, K12 weight-only, bf16_wq_gemm_sm90.cuh).
 //
 //   - mbarrier helpers (init, expect-tx, arrive, parity wait);
 //   - a 4-D TMA tile load completing on an mbarrier's transaction count,
-//     and a 4-D TMA reduce-add from shared memory into global memory
-//     (bulk groups, with the proxy fence that orders the threads' shared
-//     stores before it);
+//     a 4-D TMA store and a 4-D TMA reduce-add from shared memory into
+//     global memory (bulk groups, with the proxy fence that orders the
+//     threads' shared stores before them);
 //   - the wgmma descriptor of a 128-byte-swizzled tile whose 8-row groups
 //     lie 1024 bytes apart (K-major operands of 128-byte rows: 64 bf16 or
 //     128 int8 codes; the transposed V operand: 8 keys of 64 bf16);
@@ -81,6 +82,17 @@ __device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map, uint32_t 
                                                int c1, int c2, int c3) {
   asm volatile(
       "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// Writes the 4-D box of `map` at coordinates (c0, c1, c2, c3) from shared
+// memory at `src`; parts of the box outside the tensor are dropped.
+// Completes as a bulk group (bulk_commit, bulk_wait*).
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
       " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
