@@ -13,12 +13,12 @@ Phases, each fatal on any error:
                stage-1 step's shapes (the training path's four: flash
                forward with lse, flash backward dkv and dq, RMSNorm
                backward), at a B=4 ViT-H encode's shapes (the
-               weight-only forms of K10, K13 and K12; K10 and K12 on the
-               wgmma + TMA bf16 x int8-weight core, with their SASS
-               counts, registers, stages, times at the stage-2 encode's
-               class rows and `torch.matmul` on the pre-widened weight,
-               and the widening checked bit for bit over all 256 int8
-               codes), at the all-int8
+               weight-only forms of K10, K13 and K12, all on the wgmma +
+               TMA bf16 x int8-weight core (K13 both weights in one
+               launch), with their SASS counts, registers, stages, K10's
+               and K12's times at the stage-2 encode's class rows and
+               `torch.matmul` on the pre-widened weight, and the widening
+               checked bit for bit over all 256 int8 codes), at the all-int8
                serve's (the int8 score forms of K3, K11 and K14, K2 at
                CLIP's head_dim 64) and at a B=4 packed encode's (the
                packed window and global kernels; the per-(window, head)
@@ -31,10 +31,11 @@ Phases, each fatal on any error:
                kernel must fail the same gate (for the training path's
                four, the weight-only, the int8 score forms, K3 and K14 on
                the whole-window core (each also with its registers,
-               shared bytes and blocks an SM), the two
-               global attention kernels on the wgmma + TMA core (K11 in
-               its four forms, K20, each beside K4 on the old core and
-               with its SASS counts), K2 on the wgmma + TMA flash forward
+               shared bytes and blocks an SM), the three
+               global attention kernels on the wgmma + TMA core (K4 in
+               both exponential forms, K11 in its four, K20, each with
+               its SASS counts; K4 also with its registers), K2 on the
+               wgmma + TMA flash forward
                at both head dims, K10, K12 and K13 (both products in one
                launch) on the wgmma + TMA int8 GEMM core (each with its
                SASS counts and registers; K2 also at B=16, K10, K12 and
@@ -496,40 +497,88 @@ def kernel_phases(gen) -> dict:
     results["fused_window_attention_grid"]["kernel"] = kernels.kernel_attrs(*WINDOW_ATTRS["grid"], 0)
     del y5, A, Bm, wmask, y, zero, quad_max_dropped
 
-    # K4: one ViT-H global block at B=4: 64 (image, head) pairs over 4096.
-    # The bias terms come from `decomposed_bias_terms` as in the encoder:
-    # unscaled q against rel_pos tables of std 0.25 (std about 2.2).
-    N, S, W = B * Hs, 4096, 64
-    q, k, v = (randn(N, S, hds) for _ in range(3))
-    rel_h, rel_w = (randn(2 * W - 1, hds, scale=0.25) for _ in range(2))
-    a, bb = (t.reshape(N, S, W).to(bf) for t in sam_attention.decomposed_bias_terms(
-        q.reshape(B, Hs, W, W, hds), rel_h, rel_w, W))
-    zero = torch.zeros_like(a)
-    run = lambda: sam_attention.fused_global_attention(q, k, v, a, bb, W, sc)  # noqa: E731
-    gmask = (a.float()[:, :, :, None] + bb.float()[:, :, None, :]).reshape(N, S, S).to(bf)
-    record("fused_global_attention", run(),
-           sam_attention.fused_global_attention_plain(q, k, v, a, bb, W, sc),
-           {"bias_dropped": sam_attention.fused_global_attention(q, k, v, zero, zero, W, sc),
-            "bias_swapped": sam_attention.fused_global_attention(q, k, v, bb, a, W, sc)},
-           1e-2, run,
-           lambda: sam_attention.fused_global_attention_plain(q, k, v, a, bb, W, sc),
-           lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=gmask, scale=sc),
-           nbytes(q, k, v, a, bb) + nbytes(q), 4.0 * N * S * S * hds, iters=5)
-    del gmask
-    # K4's serving form (bf16 exponentials), which a global block outside
-    # the lane-sliced route takes under `mlp_w8a8`: its rounding depends on
-    # the running maximum, so on the key tiling, hence the 2e-2.
-    run16 = lambda a_=a, b_=bb: sam_attention.fused_global_attention(  # noqa: E731
-        q, k, v, a_, b_, W, sc, exp_bf16=True)
-    ref16 = sam_attention.fused_global_attention_plain(q, k, v, a, bb, W, sc, exp_bf16=True)
-    err16, bad16 = row_rel_err(run16(), ref16), row_rel_err(run16(bb, a), ref16)
-    if not err16 <= 2e-2 or not bad16 > 2e-2:
-        raise AssertionError(f"fused_global_attention exp_bf16: {err16}, bias swapped {bad16}")
-    results["fused_global_attention"]["exp_bf16_form"] = {
-        "row_rel_err": err16, "tol": 2e-2, "mutant_row_rel_err": {"bias_swapped": bad16},
-        "ms": time_ms(run16, 5)}
+    # K4: one ViT-H global block at B=4: 64 (image, head) pairs over 4096,
+    # on the global core (`k4_line`).
+    results["fused_global_attention"] = k4_line(gen, B * Hs, hds)
     torch.cuda.empty_cache()
     return results
+
+
+# The deliberate bugs of K4 on the global core, each built into a copy of
+# its source: the A term of a 128-key tile's first grid row used for both
+# halves (the core's), and the raw bias terms read without their 1/scale
+# pre-scale.
+K4_MUTANTS = {
+    "a_term_of_first_grid_row": ("sam_global_attention.cu", "ULLAVA_MUTANT_GLOBAL_A_ONE_ROW"),
+    "bias_not_prescaled": ("sam_global_attention.cu", "ULLAVA_MUTANT_GLOBAL_BIAS_RAW"),
+}
+K4_ATTRS = ("sam_global_attention.cu", "ullava_fused_global_attention_attrs")
+
+
+def k4_line(gen, N, hd, W=64, iters=5) -> dict:
+    """K4 (`fused_global_attention`) on N (image, head) pairs over the
+    64 x 64 grid, in both exponential forms: each against its plain
+    version (row rel 1e-2 with fp32 exponentials; 2e-2 with bf16 ones,
+    whose rounding follows the running maximum, so the key tiling), with
+    the bias dropped and swapped and both `K4_MUTANTS` copies failing the
+    same gate; its time, plain time, bound, SDPA + mask, TFLOP/s, SASS
+    counts (`HGMMA`, `UTMALDG`, no `HMMA`) and registers. The bias terms
+    come from `decomposed_bias_terms` as in the encoder: unscaled q against
+    rel_pos tables of std 0.25 (std about 2.2)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ullava_tpu_torch import kernels
+    from ullava_tpu_torch.ops import sam_attention
+
+    bf, S = torch.bfloat16, W * W
+    sc = hd**-0.5
+    q, k, v = (torch.randn((N, S, hd), generator=gen, device="cuda").to(bf) for _ in range(3))
+    rel_h, rel_w = ((torch.randn((2 * W - 1, hd), generator=gen, device="cuda") * 0.25).to(bf)
+                    for _ in range(2))
+    a, bb = (t.reshape(N, S, W).to(bf) for t in sam_attention.decomposed_bias_terms(
+        q.reshape(1, N, W, W, hd), rel_h, rel_w, W))
+    zero = torch.zeros_like(a)
+    flops = 4.0 * N * S * S * hd
+    forms = {}
+    for form, exp_bf16, tol in (("exp_fp32", False, 1e-2), ("exp_bf16", True, 2e-2)):
+        run = lambda a_=a, b_=bb, e=exp_bf16: sam_attention.fused_global_attention(  # noqa: E731
+            q, k, v, a_, b_, W, sc, exp_bf16=e)
+        ref = sam_attention.fused_global_attention_plain(q, k, v, a, bb, W, sc, exp_bf16=exp_bf16)
+        got = run()
+        err = row_rel_err(got, ref)
+        must(f"fused_global_attention {form}", err <= tol, err)
+        caught = {"bias_dropped": row_rel_err(run(zero, zero), ref),
+                  "bias_swapped": row_rel_err(run(bb, a), ref)}
+        for bug, src_define in K4_MUTANTS.items():
+            with kernels.mutant(*src_define):
+                caught[bug] = row_rel_err(run(), ref)
+        for m, e in caught.items():
+            must_not(f"fused_global_attention {form}", m, e <= tol, e)
+        forms[form] = {"row_rel_err": err, "tol": tol, "mutant_row_rel_err": caught,
+                       "max_abs_err": (got.float() - ref.float()).abs().max().item(),
+                       "ms": time_ms(run, iters),
+                       "kernel": kernels.kernel_attrs(*K4_ATTRS, int(exp_bf16))}
+        forms[form]["tflops"] = flops / forms[form]["ms"] / 1e9
+        del got, ref
+    gmask = (a.float()[:, :, :, None] + bb.float()[:, :, None, :]).reshape(N, S, S).to(bf)
+    fp32 = forms["exp_fp32"]
+    line = kernel_line(
+        "fused_global_attention", fp32.pop("max_abs_err"),
+        {k_: fp32[k_] for k_ in ("row_rel_err", "tol", "mutant_row_rel_err")},
+        lambda: sam_attention.fused_global_attention(q, k, v, a, bb, W, sc),
+        lambda: sam_attention.fused_global_attention_plain(q, k, v, a, bb, W, sc),
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=gmask, scale=sc),
+        nbytes(q, k, v, a, bb) + nbytes(q), flops, iters=iters)
+    del gmask
+    counts = sass_counts("sam_global_attention.cu", "global_sm90_kernel")
+    if counts != "not measured":
+        must("fused_global_attention SASS",
+             counts["HGMMA"] > 0 and counts["UTMALDG"] > 0 and counts["HMMA"] == 0, counts)
+    forms["exp_bf16"].pop("max_abs_err")
+    line.update(shape=[N, S, hd], tflops=flops / line["ms"] / 1e9, kernel=fp32["kernel"],
+                sass=counts, exp_bf16_form=forms["exp_bf16"])
+    return line
 
 
 def global_sdpa_inputs(y, a, bb):
@@ -550,17 +599,6 @@ def global_sdpa_inputs(y, a, bb):
         mask[i] = ((am[:, :, :, None] + bm[:, :, None, :]).reshape(H, S, S) * hd**-0.5).to(
             torch.bfloat16)
     return y5, mask
-
-
-def k4_witness_ms(qkv, a, bb, W, scale, exp_bf16, iters=5) -> float:
-    """K4 (`fused_global_attention`, on the `mma.sync` core of
-    `flash_core.cuh`) on q, k, v [3, N, S, hd] and raw bias terms
-    [N, S, W]: the old core's time in the same run, beside the global
-    core's (K11 and K20 ran on that core before they moved to the global one)."""
-    from ullava_tpu_torch.ops import sam_attention
-
-    return time_ms(lambda: sam_attention.fused_global_attention(
-        qkv[0], qkv[1], qkv[2], a, bb, W, scale, exp_bf16=exp_bf16), iters)
 
 
 def global_core_sass(source) -> dict:
@@ -1317,16 +1355,9 @@ def sam_int8_kernel_phases(gen) -> dict:
     line["exp_fp32_form"] = att["exp_fp32"]
     line["shape"] = [B_INT8, S, 3 * H * hd]
     line["sass"] = global_core_sass("sam_global_attention_y.cu")
-    # The old core on the same q, k, v, its raw terms the pre-scaled ones
-    # times the scale (the same function).
-    qkv = y5.reshape(3, B_INT8 * H, S, hd)
-    a4, b4 = ((t.float() * sc).to(bf).permute(0, 2, 1, 3).reshape(B_INT8 * H, S, W).contiguous()
-              for t in (a, bb))
-    line["old_core_k4_ms"] = k4_witness_ms(qkv, a4, b4, W, sc, True)
-    line["exp_fp32_form"]["old_core_k4_ms"] = k4_witness_ms(qkv, a4, b4, W, sc, False)
     results["fused_global_attention_y"] = line
     log(f"[kernel] fused_global_attention_y exp_fp32 {json.dumps(att['exp_fp32'])}")
-    del y5, mask, y, a, bb, qkv, a4, b4
+    del y5, mask, y, a, bb
     torch.cuda.empty_cache()
     return results
 
@@ -1996,12 +2027,8 @@ def all_int8_kernel_phases(gen, results: dict) -> None:
     line["exp_fp32_form"] = att["exp_fp32"]
     line["shape"] = [B_INT8, S, F1]
     line["sass"] = global_core_sass(src)
-    qkv = y5.reshape(3, B_INT8 * H, S, hd)
-    a4, b4 = ((t.float() * sc).to(bf).permute(0, 2, 1, 3).reshape(B_INT8 * H, S, Wg).contiguous()
-              for t in (a, bb))
-    line["old_core_k4_ms"] = k4_witness_ms(qkv, a4, b4, Wg, sc, True)
     results[name] = line
-    del y5, mask, y, a, bb, qkv, a4, b4
+    del y5, mask, y, a, bb
     torch.cuda.empty_cache()
 
     # K14: the right and bottom classes in one dual-geometry launch, and
@@ -2070,20 +2097,26 @@ def all_int8_kernel_phases(gen, results: dict) -> None:
 # 16384 global-block tokens and 64 full, 32 edge and 4 corner windows.
 B_STAGE2, S_STAGE2 = 4, 512
 # The deliberate bugs that the weight-only gates must catch, each built
-# into a copy of both weight-only sources: the int8 weight widened as
-# unsigned bytes (in both GEMM cores), and in the wgmma + TMA core
-# (`bf16_wq_gemm_sm90.cuh`, K10 and K12) the widening's bias constant one
-# code off and the transposed epilogue's scale indexed by token.
+# into a copy of both weight-only sources (`bf16_wq_gemm_sm90.cuh`, the core
+# of K10, K12 and K13): the int8 weight widened as unsigned bytes, the
+# widening's bias constant one code off and the transposed epilogue's scale
+# indexed by token; and in K13's source alone W2's row-mapped tiles stored
+# with the window of the tile's first row only.
 WQ_SOURCES = ("ln_linear_wq.cu", "mlp_block_wq.cu")
 WQ_MUTANTS = {src: (src, "ULLAVA_MUTANT_WQ_UNSIGNED") for src in WQ_SOURCES}
 WQ_WIDEN_MUTANTS = {src: (src, "ULLAVA_MUTANT_WQ_BIAS_OFF_BY_ONE") for src in WQ_SOURCES}
 WQ_EPILOGUE_MUTANTS = {src: (src, "ULLAVA_MUTANT_WQ_SCALE_BY_TOKEN") for src in WQ_SOURCES}
+WQ_DUAL_MUTANT = ("ln_linear_wq.cu", "ULLAVA_MUTANT_WQ_DUAL_FIRST_WINDOW")
 WQ_NAMES = ("fused_ln_linear_wq", "fused_ln_linear_dual_wq", "fused_mlp_block_wq")
-# The GEMM kernels of the wgmma + TMA core by their namespace (K10's and
-# K12's), and the entries that read their registers and shared bytes.
+# The GEMM kernels of the wgmma + TMA core by their namespace (K12's two
+# forms) or form (K10's `LinearForm` and K13's `DualForm`, which share
+# ln_linear_wq.cu's library), and the entries that read their registers
+# and shared bytes.
 WQ_SM90_GEMM = "wq_sm90"
+K10_WQ_FORM, K13_WQ_FORM = "LinearForm", "DualForm"
 K10_WQ_ATTRS = ("ln_linear_wq.cu", "ullava_fused_ln_linear_wq_attrs")
 K12_WQ_ATTRS = ("mlp_block_wq.cu", "ullava_fused_mlp_block_wq_attrs")
+K13_WQ_ATTRS = ("ln_linear_wq.cu", "ullava_fused_ln_linear_dual_wq_attrs")
 # The rows of a stage-2 encode's (B=4) classes: full windows (64 x 196),
 # the merged right and bottom pair (32 x 112), the corners (4 x 64), the
 # global blocks.
@@ -2133,7 +2166,7 @@ def weight_only_kernel_phases(gen, results: dict) -> None:
     their plain versions at the shapes of one B=4 ViT-H encode: 16384
     global-block rows, C 1280, F 5120; K13 on the full (64 windows stored
     as 200 rows, 196 with bias terms), edge-pair (32 x 112) and corner (4 x
-    64) classes.
+    64) classes. All three run on the wgmma + TMA bf16 x int8-weight core.
 
     Gate: bf16 outputs (and the LN'd bf16 rows, and K12's bf16 GELU
     output) by `row_rel_err` within 1e-2, one bf16 ulp of a row's largest
@@ -2141,19 +2174,23 @@ def weight_only_kernel_phases(gen, results: dict) -> None:
     orders. Each gate must reject mutated runs: the weight scale applied
     per tensor, the LN bias, the residual, fc1's bias or the second bias
     dropped, `rows2` ignored, and the kernel source rebuilt with the int8
-    weight widened as unsigned bytes (`WQ_MUTANTS`); K10's and K12's also
-    with the wgmma + TMA core's transposed epilogue scaling by token
-    (`WQ_EPILOGUE_MUTANTS`), and its widening's bias constant one code off
-    (`WQ_WIDEN_MUTANTS`: K12, K10's proj form, whose inputs have a mean
-    that the shifted codes meet; the LN'd rows have almost none). First
-    the exact-widening check (`wq_exact_widening`), which every widening
-    mutant must fail. Bounds: the bf16 peak for the products, HBM for the
-    int8 weights and the activations. The library chain: `F.layer_norm`,
-    `w_q.to(bf16)`, `torch.matmul`, then scale and bias; `bf16_gemm_ms` is
-    `torch.matmul` alone on the weight widened once outside the timer (the
-    product alone, a yardstick the port never calls). K10's and K12's
-    lines carry their SASS counts, registers, TFLOP/s, stage times and
-    times at the stage-2 encode's class rows."""
+    weight widened as unsigned bytes (`WQ_MUTANTS`), with the core's
+    transposed epilogue scaling by token (`WQ_EPILOGUE_MUTANTS`), and with
+    its widening's bias constant one code off (`WQ_WIDEN_MUTANTS`: K12,
+    K10's proj form and K13's bias terms, whose inputs have a mean that
+    the shifted codes meet; K10's LN'd rows have almost none, so K13's LN
+    bias is given a mean of 0.5); K13's bias terms also with W2's
+    row-mapped tiles stored at the window of the tile's first row only
+    (`WQ_DUAL_MUTANT`). First the exact-widening check
+    (`wq_exact_widening`), which every widening mutant must fail. Bounds:
+    the bf16 peak for the products, HBM for the int8 weights and the
+    activations. The library chain: `F.layer_norm`, `w_q.to(bf16)`,
+    `torch.matmul`, then scale and bias; `bf16_gemm_ms` is `torch.matmul`
+    alone on the weight widened once outside the timer (the product alone,
+    a yardstick the port never calls). The lines carry their SASS counts,
+    registers, TFLOP/s and stage times; K10's and K12's also times at the
+    stage-2 encode's class rows; K13's the kernels of one call by the
+    profiler (one row pass and one GEMM launch)."""
     import torch
     import torch.nn.functional as F
 
@@ -2262,7 +2299,7 @@ def weight_only_kernel_phases(gen, results: dict) -> None:
         if k not in ("name", "route", "source", "replaces")}}
     results["fused_ln_linear_wq"].update(
         exact_widening_share=exact, exact_widening_mutant_share=exact_mutants,
-        sass=sass_counts("ln_linear_wq.cu", WQ_SM90_GEMM, ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")),
+        sass=sass_counts("ln_linear_wq.cu", K10_WQ_FORM, ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")),
         kernel=kernels.kernel_attrs(*K10_WQ_ATTRS))
     wq_sass(results["fused_ln_linear_wq"]["sass"], "fused_ln_linear_wq")
     log(f"[kernel] fused_ln_linear_wq stages {json.dumps({k: v['stage_ms'] for k, v in forms.items()})} "
@@ -2271,16 +2308,26 @@ def weight_only_kernel_phases(gen, results: dict) -> None:
         f"kernel {json.dumps(results['fused_ln_linear_wq']['kernel'])}")
     torch.cuda.empty_cache()
 
-    # K13: LN1 + qkv + the composite bias columns of each class tensor.
+    # K13: LN1 + qkv + the composite bias columns of each class tensor,
+    # both products in one launch. Its LN bias has a mean of 0.5, so that
+    # the LN'd rows do too and the widening mutant one code off shows.
     (wq, ws), (w2, s2) = weight(C, F1), weight(C, F2)
     bias, bias2 = randn(F1, scale=0.5), randn(F2, scale=0.5, dtype=torch.float32)
-    wargs = (g, b, wq, ws, bias, w2, s2, bias2, eps)
+    b13 = (b.float() + 0.5).to(bf)
+    wargs = (g, b13, wq, ws, bias, w2, s2, bias2, eps)
     forms = {}
     for form, N, Tw, rows2 in (("full", B_STAGE2 * 16, 200, 196), ("edge_pair", B_STAGE2 * 8, 112, 112),
                                ("corner", B_STAGE2, 64, 64)):
         xw = randn(N, Tw, C, scale=2.0, shift=0.3)
         ry, rp = mlp_kernel._ln_linear_dual_parts_plain(xw, *wargs, False, rows2)[:2]
-        y, p, xn = mlp_kernel._ln_linear_dual_wq_cuda(xw, *wargs, rows2)
+        run = lambda xw=xw, r=rows2, out=None: mlp_kernel._ln_linear_dual_wq_cuda(  # noqa: E731
+            xw, *wargs, r, out=out)
+        # The gated runs write into outputs filled with 1e4 first, so that a
+        # row the kernel leaves unwritten fails, whatever the allocator
+        # hands out (a freed block of the plain version's can hold its rows).
+        poisoned = lambda: tuple(  # noqa: E731
+            torch.full(t.shape, 1e4, dtype=bf, device=dev) for t in (ry, rp))
+        y, p, xn = run(out=poisoned())
         torch.cuda.synchronize()
         info = {"row_rel_err": row_rel_err(y, ry), "bias_terms_row_rel_err": row_rel_err(p, rp)}
         mutants = {"bias2_dropped": mlp_kernel._ln_linear_dual_wq_cuda(
@@ -2288,34 +2335,63 @@ def weight_only_kernel_phases(gen, results: dict) -> None:
         if rows2 != Tw:
             untrimmed = mlp_kernel._ln_linear_dual_wq_cuda(xw, *wargs, Tw)[1]
             mutants["rows2_ignored"] = untrimmed.reshape(-1, F2)[:N * rows2].reshape(N, rows2, F2)
-        with kernels.mutant(*WQ_MUTANTS["ln_linear_wq.cu"]):
-            mutants["weight_widened_unsigned"] = mlp_kernel._ln_linear_dual_wq_cuda(xw, *wargs, rows2)[1]
+        qkv_mutants = {}
+        for bug, src_define in (("weight_widened_unsigned", WQ_MUTANTS["ln_linear_wq.cu"]),
+                                ("widen_bias_off_by_one", WQ_WIDEN_MUTANTS["ln_linear_wq.cu"]),
+                                ("scale_by_token", WQ_EPILOGUE_MUTANTS["ln_linear_wq.cu"]),
+                                ("bias_terms_first_window_only", WQ_DUAL_MUTANT)):
+            with kernels.mutant(*src_define):
+                my, mutants[bug] = run(out=poisoned())[:2]
+            if bug in ("weight_widened_unsigned", "scale_by_token"):
+                qkv_mutants[bug] = my
         gate(f"fused_ln_linear_dual_wq {form}", info, mutants, rp)
-        del mutants
+        # The qkv columns through the same copies: the core's bugs reach y too.
+        info["qkv_mutant_row_rel_err"] = {
+            m: must_not(f"fused_ln_linear_dual_wq {form} qkv", m, row_rel_err(out, ry) <= tol,
+                        row_rel_err(out, ry))
+            for m, out in qkv_mutants.items()}
+        del mutants, qkv_mutants, my
 
         def library(xw=xw, rows2=rows2):
-            xn_ = F.layer_norm(xw, (C,), g, b, eps)
+            xn_ = F.layer_norm(xw, (C,), g, b13, eps)
             return (lin_chain(xn_, wq, ws, bias).to(bf),
                     (torch.matmul(xn_, w2.to(bf)).float() * s2 + bias2).to(bf)[:, :rows2])
 
+        flops = 2.0 * C * (N * Tw * F1 + N * rows2 * F2)
         line = kernel_line(
             "fused_ln_linear_dual_wq",
             max((y.float() - ry.float()).abs().max().item(), (p.float() - rp.float()).abs().max().item()),
-            info, lambda xw=xw, r=rows2: mlp_kernel._ln_linear_dual_wq_cuda(xw, *wargs, r),
+            info, run,
             lambda xw=xw, r=rows2: mlp_kernel._ln_linear_dual_parts_plain(xw, *wargs, False, r),
-            library, nbytes(xw, g, b, wq, ws, bias, w2, s2, bias2, y, p),
-            2.0 * C * (N * Tw * F1 + N * rows2 * F2), iters=10)
+            library, nbytes(xw, g, b13, wq, ws, bias, w2, s2, bias2, y, p), flops, iters=10)
         line["stage_ms"] = stage_ms(
             lambda bits, xw=xw, r=rows2, sc=xn: mlp_kernel._ln_linear_dual_wq_cuda(
                 xw, *wargs, r, stages=bits, scratch=sc),
-            {"row_pass": 1, "gemm_qkv": 2, "gemm_bias_terms": 4})
-        line["shape"] = [N, Tw, C, F1, F2, rows2]
+            {"row_pass": 1, "gemm_qkv": 2, "gemm_bias_terms": 4, "gemm": 6})
+        line.update(shape=[N, Tw, C, F1, F2, rows2], tflops=flops / line["ms"] / 1e9,
+                    gemm_tflops=flops / line["stage_ms"]["gemm"] / 1e9,
+                    kernels_a_call=kernels_of_a_call(run))
+        # Two kernels, the row pass and K13's GEMM, at most one launch of each
+        # a call (the profiler can drop a few records of a short window).
+        calls = line["kernels_a_call"]
+        if calls != "not measured":
+            must(f"fused_ln_linear_dual_wq {form}: one row pass and one GEMM launch a call",
+                 len(calls) == 2 and max(calls.values()) <= 1
+                 and any(K13_WQ_FORM in k for k in calls)
+                 and any("ln_rows_bf16_kernel" in k for k in calls), calls)
         forms[form] = line
         del xw, y, p, xn, ry, rp
     results["fused_ln_linear_dual_wq"] = {**forms["full"], **{
         f"{name}_form": {k: v for k, v in forms[name].items()
                          if k not in ("name", "route", "source", "replaces")}
         for name in ("edge_pair", "corner")}}
+    results["fused_ln_linear_dual_wq"].update(
+        sass=sass_counts("ln_linear_wq.cu", K13_WQ_FORM, ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")),
+        kernel=kernels.kernel_attrs(*K13_WQ_ATTRS))
+    wq_sass(results["fused_ln_linear_dual_wq"]["sass"], "fused_ln_linear_dual_wq")
+    log(f"[kernel] fused_ln_linear_dual_wq stages {json.dumps({k: v['stage_ms'] for k, v in forms.items()})} "
+        f"sass {json.dumps(results['fused_ln_linear_dual_wq']['sass'])} "
+        f"kernel {json.dumps(results['fused_ln_linear_dual_wq']['kernel'])}")
     torch.cuda.empty_cache()
 
     # K12: one global block's MLP.
@@ -2780,11 +2856,6 @@ def packed_kernel_phases(gen, results: dict) -> None:
             line["kernel"] = kernels.kernel_attrs(*WINDOW_ATTRS["packed"])
         else:
             line["sass"] = global_core_sass("sam_packed_attention.cu")
-            # The old core on the 80 real lanes of the same q, k, v.
-            qkv = y5[..., :hd].reshape(3, N * H, S, hd).contiguous()
-            line["old_core_k4_ms"] = k4_witness_ms(
-                qkv, a.reshape(N * H, S, Wn), bb.reshape(N * H, S, Wn), Wn, sc, False)
-            del qkv
         results[name] = line
         del y, a, bb, got, ref, y5, mask
         torch.cuda.empty_cache()
@@ -3364,7 +3435,8 @@ def weight_only_encode_phase(cfg, params, images_sam) -> dict:
     after (`WQ_ENCODE_LAUNCHES`); the embeddings finite, of their shape, and
     within 5e-2 of their largest value of the stage-2 step's encode (no
     composite weights: the standalone bias terms, in bf16). Three timed
-    encodes of each."""
+    encodes of each, then one with composite weights under the profiler
+    (its busy seconds and watched kernels: K13's GEMM)."""
     import torch
 
     from ullava_tpu_torch import kernels
@@ -3394,11 +3466,14 @@ def weight_only_encode_phase(cfg, params, images_sam) -> dict:
         raise AssertionError(f"weight_only_encode: shape {tuple(emb.shape)}, rel err {err}")
     runs = [timed(with_bw)[1] for _ in range(3)]
     runs_plain = [timed(enc)[1] for _ in range(3)]
+    prof = profile_serve(lambda: (None, timed(with_bw)[1]))
     line = {"phase": "weight_only_encode", "batch": B_STAGE2, "mlp_w8a8": False,
             "composite_bias_weights": True, "bias_weights_s": bias_weights_s,
             "first_encode_s": first_s, "encode_s": sorted(runs)[1], "encode_runs_s": runs,
             "encode_without_composite_s": sorted(runs_plain)[1],
-            "rel_err_vs_without_composite": err, "launches": launches}
+            "rel_err_vs_without_composite": err, "launches": launches,
+            "profiled_encode_wall_s": prof["wall_s"], "device_busy_s": prof["device_busy_s"],
+            "watched_device_ms_calls": prof["watched_device_ms_calls"]}
     print(json.dumps(line), flush=True)
     del with_bw, emb, ref
     return line
@@ -3413,9 +3488,10 @@ def weight_only_encode_phase(cfg, params, images_sam) -> dict:
 # without a LayerNorm (the proj form's; no other kernel takes it); K9 in
 # both of its forms, the row staged in shared memory and the few-row one;
 # the flash forward, K15 in training and K2 in serving; the flash
-# backward's pre-pass, fused pass (K16) and dq finish (K17); the
-# weight-only kernels: the wgmma + TMA core's GEMMs (K10's and K12's), the
-# mma.sync core's (K13's), and their bf16 LayerNorm row pass).
+# backward's pre-pass, fused pass (K16) and dq finish (K17); K4 on the
+# global core (its problem type's name); the weight-only kernels: the
+# wgmma + TMA core's GEMMs (K10's, K12's and K13's), K13's alone (its
+# epilogue form's name), and their bf16 LayerNorm row pass).
 PROFILE_WATCH = {"rope": "rope_kernel", "kv_quant_write": "kv_quant_write_kernel",
                  "decode_attention_int8_fused_write": "fused_write_kernel",
                  "fused_ln_linear_dual_gemm": "DualLinearEpi",
@@ -3427,8 +3503,9 @@ PROFILE_WATCH = {"rope": "rope_kernel", "kv_quant_write": "kv_quant_write_kernel
                  "flash_attention_bwd_delta": "bwd::delta_kernel",
                  "flash_attention_bwd_dkv": "bwd::flash_bwd_kernel",
                  "flash_attention_bwd_dq": "bwd::dq_finish_kernel",
+                 "fused_global_attention": "HeadMajorGlobal",
                  "wq_gemm_sm90": "wq_sm90::gemm_kernel",
-                 "wq_gemm_mma_sync": "wq::gemm_kernel",
+                 "fused_ln_linear_dual_wq_gemm": "DualForm>",
                  "wq_ln_rows": "ln_rows_bf16_kernel"}
 
 
@@ -3453,6 +3530,24 @@ def device_ms_a_call(fn, part: str, calls: int = 50) -> float:
     events = [e for e in prof.key_averages() if part in e.key]
     n = sum(e.count for e in events)
     return sum(_dev_us(e) for e in events) / 1e3 / n if n else "not measured"
+
+
+def kernels_of_a_call(fn, calls: int = 20):
+    """{kernel name: launches a call} of `fn`, by the profiler over `calls`
+    back-to-back calls; "not measured" where the profiler saw no kernel
+    (a short window after many profiled ones can come back empty)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    seen = {e.key: e.count / calls for e in prof.key_averages()
+            if "CUDA" in str(getattr(e, "device_type", "")) and _dev_us(e) > 0}
+    return seen or "not measured"
 
 
 def profile_serve(run) -> dict:
@@ -3888,7 +3983,7 @@ def main() -> int:
         *K12_MUTANTS.values(), *K13_MUTANTS.values(), *K8_MUTANTS.values(),
         *BWD_MUTANTS.values(), *K9_MUTANTS.values(), *K10_MUTANTS.values(),
         *K1_MUTANTS.values(), *K7_MUTANTS.values(), *WQ_WIDEN_MUTANTS.values(),
-        *WQ_EPILOGUE_MUTANTS.values()])
+        *WQ_EPILOGUE_MUTANTS.values(), WQ_DUAL_MUTANT, *K4_MUTANTS.values()])
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "sources": sorted(built)}), flush=True)
 

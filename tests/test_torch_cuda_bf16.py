@@ -1,5 +1,6 @@
 """On the card: the four CUDA kernels of the bf16 serving path (rotary,
-causal flash prefill, SAM window and global attention) against their plain
+causal flash prefill, SAM window and global attention, the last on the
+wgmma + TMA global core in both exponential forms) against their plain
 PyTorch versions, in bf16. Every test here needs an NVIDIA GPU and skips
 without one. The file imports torch only, so it runs on a machine that has
 no JAX:
@@ -119,6 +120,41 @@ def test_cuda_sam_attention_matches_plain(cuda):
     ref = sam_attention.fused_global_attention_plain(q, k, v, a, b, 64, sc)
     assert _row_rel_err(got, ref) <= _TOL
     assert _row_rel_err(sam_attention.fused_global_attention(q, k, v, b, a, 64, sc), ref) > _TOL
+
+
+def _global_inputs(gen, N):
+    q, k, v = (_rand(gen, N, 4096, 80) for _ in range(3))
+    rel_h, rel_w = (_rand(gen, 127, 80, scale=0.25) for _ in range(2))
+    a, b = (t.reshape(N, 4096, 64).to(torch.bfloat16) for t in sam_attention.decomposed_bias_terms(
+        q.reshape(1, N, 64, 64, 80), rel_h, rel_w, 64))
+    return q, k, v, a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exp_bf16,tol", [(False, 1e-2), (True, 2e-2)], ids=["exp_fp32", "exp_bf16"])
+@pytest.mark.parametrize("N", [18, 64])
+def test_cuda_global_attention_on_the_global_core(cuda, N, exp_bf16, tol):
+    """K4 on the wgmma + TMA global core in both exponential forms: N = 18
+    leaves the last group of 16 (image, head) pairs a tail of 2; 64 is the
+    B=4 serve's. Bias dropped or swapped, and the copies built with the raw
+    terms not pre-scaled and with a tile's first grid row's A term for both
+    halves, fail the same gate."""
+    from ullava_tpu_torch import kernels
+
+    sc = 80**-0.5
+    q, k, v, a, b = _global_inputs(cuda, N)
+    run = lambda a_=a, b_=b: sam_attention.fused_global_attention(  # noqa: E731
+        q, k, v, a_, b_, 64, sc, exp_bf16=exp_bf16)
+    ref = sam_attention.fused_global_attention_plain(q, k, v, a, b, 64, sc, exp_bf16=exp_bf16)
+    assert _row_rel_err(run(), ref) <= tol
+    assert _row_rel_err(run(b, a), ref) > tol
+    assert _row_rel_err(run(torch.zeros_like(a), torch.zeros_like(b)), ref) > tol
+    for define in ("ULLAVA_MUTANT_GLOBAL_BIAS_RAW", "ULLAVA_MUTANT_GLOBAL_A_ONE_ROW"):
+        kernels.build_all(mutants=[("sam_global_attention.cu", define)])
+        with kernels.mutant("sam_global_attention.cu", define):
+            bad = run()
+        torch.cuda.synchronize()
+        assert _row_rel_err(bad, ref) > tol, define
 
 
 @pytest.mark.cuda

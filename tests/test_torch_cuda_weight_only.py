@@ -1,7 +1,7 @@
 """On the card: the weight-only (`w8a8=False`) CUDA forms of
-`fused_ln_linear` / `fused_linear` (K10) and `fused_mlp_block` (K12), on
-the wgmma + TMA bf16 x int8-weight core, and of `fused_ln_linear_dual`
-(K13), on the mma.sync one, against the plain PyTorch versions in bf16;
+`fused_ln_linear` / `fused_linear` (K10), `fused_mlp_block` (K12) and
+`fused_ln_linear_dual` (K13, both weights in one launch), all on the wgmma
++ TMA bf16 x int8-weight core, against the plain PyTorch versions in bf16;
 the widening bit for bit over all 256 codes; the cores' deliberate bugs.
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports torch only, so it runs on a machine that has no JAX:
@@ -39,6 +39,12 @@ def _weight(gen, K, N):
     return leaf["q"], leaf["scale"]
 
 
+def _poisoned(*like):
+    """Outputs of the shapes of `like`, filled with 1e4: a row that a
+    kernel leaves unwritten fails a gate, whatever the allocator hands out."""
+    return tuple(torch.full(t.shape, 1e4, dtype=t.dtype, device=t.device) for t in like)
+
+
 def _row_rel_err(got, ref):
     got, ref = got.float().flatten(0, -2), ref.float().flatten(0, -2)
     return ((got - ref).abs().amax(-1) / ref.abs().amax(-1).clamp_min(1e-30)).max().item()
@@ -63,9 +69,13 @@ def test_fused_ln_linear_weight_only_matches_plain(cuda, rows, K, N, ln):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,T,rows2", [(16, 200, 196), (8, 112, 112), (3, 64, 64)])
-def test_fused_ln_linear_dual_weight_only_matches_plain(cuda, N, T, rows2):
-    C, F1, F2 = 1280, 3840, 864
+@pytest.mark.parametrize("N,T,rows2,C,F1,F2", [
+    (16, 200, 196, 1280, 3840, 864), (8, 112, 112, 1280, 3840, 864), (3, 64, 64, 1280, 3840, 864),
+    (64, 200, 196, 1280, 3840, 864), (32, 112, 112, 1280, 3840, 864), (4, 64, 64, 1280, 3840, 864),
+    # The CPU tests' class geometries: tiles that cross windows, N * T not
+    # a multiple of 256, F2 not a multiple of 128.
+    (5, 64, 64, 128, 384, 104), (3, 112, 112, 128, 384, 104), (3, 200, 196, 128, 384, 104)])
+def test_fused_ln_linear_dual_weight_only_matches_plain(cuda, N, T, rows2, C, F1, F2):
     x = _rand(cuda, N, T, C, scale=2.0, shift=0.3)
     g, b = _rand(cuda, C, scale=0.1, shift=1.0), _rand(cuda, C, scale=0.1)
     (wq, ws), (w2, s2) = _weight(cuda, C, F1), _weight(cuda, C, F2)
@@ -73,9 +83,13 @@ def test_fused_ln_linear_dual_weight_only_matches_plain(cuda, N, T, rows2):
     args = (g, b, wq, ws, bias, w2, s2, bias2, 1e-6)
     y, p = mlp_kernel.fused_ln_linear_dual(x, *args, w8a8=False, rows2=rows2)
     ry, rp = mlp_kernel.fused_ln_linear_dual_plain(x, *args, w8a8=False, rows2=rows2)
+    # Into outputs filled with 1e4 first: every row must be written.
+    out = _poisoned(ry, rp)
+    mlp_kernel._ln_linear_dual_wq_cuda(x, *args, rows2, out=out)
     torch.cuda.synchronize()
     assert p.shape == (N, rows2, F2)
     assert _row_rel_err(y, ry) <= _TOL and _row_rel_err(p, rp) <= _TOL
+    assert _row_rel_err(out[0], ry) <= _TOL and _row_rel_err(out[1], rp) <= _TOL
 
 
 @pytest.mark.cuda
@@ -201,6 +215,30 @@ def test_wgmma_core_mutants_fail_the_gates(cuda, define):
         mbad = mlp_kernel.fused_mlp_block(*margs, w8a8=False)
     torch.cuda.synchronize()
     assert _row_rel_err(bad, ref) > _TOL and _row_rel_err(mbad, mref) > _TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("define", ["ULLAVA_MUTANT_WQ_DUAL_FIRST_WINDOW", "ULLAVA_MUTANT_WQ_SCALE_BY_TOKEN",
+                                    "ULLAVA_MUTANT_WQ_BIAS_OFF_BY_ONE"])
+@pytest.mark.parametrize("N,T,rows2", [(16, 200, 196), (8, 112, 112)])
+def test_dual_mutants_fail_the_bias_term_gate(cuda, define, N, T, rows2):
+    """K13's bias terms through copies of its source with W2's row-mapped
+    tiles stored at the tile's first window only, the scale indexed by
+    token, and the widening one code off (the LN bias given a mean of 0.5,
+    so the LN'd rows have one that the shifted codes meet)."""
+    C, F1, F2 = 1280, 3840, 864
+    x = _rand(cuda, N, T, C, scale=2.0, shift=0.3)
+    g, b = _rand(cuda, C, scale=0.1, shift=1.0), _rand(cuda, C, scale=0.1, shift=0.5)
+    (wq, ws), (w2, s2) = _weight(cuda, C, F1), _weight(cuda, C, F2)
+    bias, bias2 = _rand(cuda, F1, scale=0.5), _rand(cuda, F2, scale=0.5, dtype=torch.float32)
+    args = (g, b, wq, ws, bias, w2, s2, bias2, 1e-6)
+    rp = mlp_kernel.fused_ln_linear_dual_plain(x, *args, w8a8=False, rows2=rows2)[1]
+    kernels.build_all(mutants=[("ln_linear_wq.cu", define)])
+    out = _poisoned(torch.empty((N, T, F1), device="cuda", dtype=torch.bfloat16), rp)
+    with kernels.mutant("ln_linear_wq.cu", define):
+        bad = mlp_kernel._ln_linear_dual_wq_cuda(x, *args, rows2, out=out)[1]
+    torch.cuda.synchronize()
+    assert _row_rel_err(bad, rp) > _TOL
 
 
 @pytest.mark.cuda

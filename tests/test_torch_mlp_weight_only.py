@@ -81,12 +81,17 @@ def test_weight_only_fused_ln_linear_in_bf16_matches_jax(form):
     assert _row_rel_err(got, ref) <= _TOL
 
 
-@pytest.mark.parametrize("rows2", [49, 45], ids=["all_rows", "trimmed"])
-def test_weight_only_fused_ln_linear_dual_in_bf16_matches_jax(rows2):
+@pytest.mark.parametrize(
+    "N,T,rows2", [(2, 49, 49), (2, 49, 45), (5, 64, 64), (3, 112, 112), (3, 200, 196)],
+    ids=["all_rows", "trimmed", "corner_5x64", "edge_3x112", "full_3x200"])
+def test_weight_only_fused_ln_linear_dual_in_bf16_matches_jax(N, T, rows2):
     """K13 weight-only: LN1+qkv and the composite bias columns (f32 bias)
-    from one bf16 LN'd row; the second output keeps `rows2` rows."""
+    from one bf16 LN'd row; the second output keeps `rows2` rows. The last
+    three cases take the encode's class geometries, where a 256-row token
+    tile of the CUDA kernel crosses windows and N * T is not a multiple of
+    256; F2 = 104 is not a multiple of its 128-channel tiles."""
     rng = np.random.default_rng(22)
-    N, T, C, F1, F2 = 2, 49, 128, 384, 104
+    C, F1, F2 = 128, 384, 104
     x, tx = _bf16(rng, (N, T, C), 2.0, 0.3)
     (g, tg), (b, tb) = _bf16(rng, (C,), 0.1, 1.0), _bf16(rng, (C,), 0.1)
     (jw, js), (tw, ts) = _weight(rng, C, F1)

@@ -35,7 +35,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 # -fno-gnu-unique: a static local of an inline or template function (the
-# "attribute set" flag of `launch_flash`) is otherwise an STB_GNU_UNIQUE
+# "attribute set" flag of a core's `configure`) is otherwise an STB_GNU_UNIQUE
 # symbol, which the dynamic linker shares between every library that
 # defines it, even with RTLD_LOCAL; a mutant copy of a source would then
 # skip its own cudaFuncSetAttribute.

@@ -1,6 +1,7 @@
 // A bf16 x int8-weight -> fp32 GEMM core for Hopper (sm_90a) on wgmma and
 // TMA: the products of the weight-only (w8a8=False) forms of fused_ln_linear
-// / fused_linear (K10, ln_linear_wq.cu) and fused_mlp_block (K12, fc1 and
+// / fused_linear (K10, ln_linear_wq.cu), fused_ln_linear_dual (K13, both
+// weights in one launch, ln_linear_wq.cu) and fused_mlp_block (K12, fc1 and
 // fc2, mlp_block_wq.cu).
 //
 //   y[m, n] = epilogue(sum_k x[m, k] * float(W[k, n]), n)
@@ -50,6 +51,17 @@
 //     shared memory at the block's start, under the products, and each
 //     thread reads its pairs with ldmatrix.trans just before it overwrites
 //     them.
+//   - Two weights, one launch (DualForm, K13): a second weight map (Bt2
+//     [N2, K]) adds ceil(N2 / 128) channel tiles after W's ceil(N / 128),
+//     as the int8 core's `launch_gemm2` does, so one grid reads the LN'd
+//     rows for both. W2's tiles take their own scale and an fp32 bias, and
+//     store row-mapped: GEMM row r goes to row r % T of window r / T of the
+//     [M / T, rows2, N2] output, and rows with r % T >= rows2 are dropped.
+//     No TMA box expresses that map (a TMA store of the whole tile a
+//     window, into a 3-D view at a negative row coordinate, stopped the
+//     card with an illegal instruction), so W2's tiles leave the shared
+//     tile by 16-byte stores, 8 threads a 128-byte token row, each row to
+//     its window's place; W's tiles keep the TMA store.
 //
 // Deliberate bugs, each compiled only into a copy of a source that
 // includes this header (`chip_smoke.py` builds them to show that the gates
@@ -58,9 +70,12 @@
 //   ULLAVA_MUTANT_WQ_BIAS_OFF_BY_ONE   the widening's bias constant one code
 //                                      off (every code 1 or 2 too small);
 //   ULLAVA_MUTANT_WQ_SCALE_BY_TOKEN    the transposed epilogue's scale indexed
-//                                      by token, not by channel.
+//                                      by token, not by channel;
+//   ULLAVA_MUTANT_WQ_DUAL_FIRST_WINDOW W2's tiles stored with the window of
+//                                      the tile's first row only.
 // Not yet: a persistent tile loop, a 2-CTA cluster that multicasts the x
-// tile, 128-token tiles for short inputs.
+// tile, 128-token tiles for short inputs (K13's corner class, 256 rows,
+// runs 37 blocks on 132 SMs).
 #pragma once
 
 #include "gelu_poly.cuh"
@@ -167,14 +182,41 @@ __device__ __forceinline__ void widen_stage(uint32_t (&f)[4][4], const unsigned 
   }
 }
 
-// With kGelu, h = gelu(acc * s + b) (fc1 of fused_mlp_block); else y =
-// acc * s + b (+ residual). s is fp32 [N], b bf16 [N], both per channel.
-template <bool kGelu>
+// The epilogue forms, the kernel's template argument (their names tell the
+// kernels apart in a profile): y = acc * s + b (+ residual) (LinearForm);
+// h = gelu(acc * s + b) (GeluForm, fc1 of fused_mlp_block); and the dual
+// LN1 + qkv of the windows (DualForm), whose grid holds W's channel tiles
+// and then W2's, W2's with its own scale and an fp32 bias, each tile of
+// W2's stored row-mapped: GEMM row r to row r % T of window r / T of a
+// [M / T, rows2, N2] output, rows with r % T >= rows2 dropped.
+struct LinearForm {
+  static constexpr bool kGelu = false, kDual = false;
+};
+struct GeluForm {
+  static constexpr bool kGelu = true, kDual = false;
+};
+struct DualForm {
+  static constexpr bool kGelu = false, kDual = true;
+};
+
+// What the kernel reads besides its tensor maps. s is fp32 [N], b bf16
+// [N], both per channel; DualForm's W2 tiles take s2 [N2] and b2 fp32
+// [N2] and write out2. n1 = ceil(N / BN) channel tiles read W, the rest W2.
+struct Args {
+  const float* ws;
+  const bf16* bias;
+  const float* ws2;
+  const float* bias2;
+  bf16* out2;  // DualForm: [M / T, rows2, N2]
+  int M, N, N2, K, n1, T, rows2, has_res;
+};
+
+template <class Form>
 __global__ void __launch_bounds__(kThreads, 1)
     gemm_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+                const __grid_constant__ CUtensorMap tm_w2,
                 const __grid_constant__ CUtensorMap tm_out,
-                const __grid_constant__ CUtensorMap tm_res, const float* __restrict__ ws,
-                const bf16* __restrict__ bias, int M, int N, int K, int has_res) {
+                const __grid_constant__ CUtensorMap tm_res, const Args a) {
   using namespace sm90;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -185,8 +227,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto full = [&](int s) { return base + kBarOff + 8 * s; };
   auto empty = [&](int s) { return base + kBarOff + 8 * (kStages + s); };
   const uint32_t bar_res = base + kBarOff + 16 * kStages;
-  const int KT = (K + BK - 1) / BK;
-  const int ch0 = blockIdx.x * BN, tok0 = blockIdx.y * BT;
+  const int KT = (a.K + BK - 1) / BK;
+  const bool part = Form::kDual && static_cast<int>(blockIdx.x) >= a.n1;  // a tile of W2's
+  const int ch0 = (blockIdx.x - (part ? a.n1 : 0)) * BN, tok0 = blockIdx.y * BT;
+  const int N = part ? a.N2 : a.N;
+  const bool has_res = !Form::kDual && a.has_res;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -204,6 +249,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // gives its registers back and ends.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 0) {
+      const CUtensorMap* tw = part ? &tm_w2 : &tm_w;
       if (has_res) {
         mbar_expect_tx(bar_res, 2 * kOutHalf);
         tma_load(sOut, &tm_res, bar_res, ch0, tok0, 0, 0);
@@ -214,7 +260,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (kt >= kStages) mbar_wait(empty(s), ((kt / kStages) - 1) & 1);
         mbar_expect_tx(full(s), kStage);
         tma_load(sX(s), &tm_x, full(s), kt * BK, tok0, 0, 0);
-        tma_load(sW(s), &tm_w, full(s), kt * BK, ch0, 0, 0);
+        tma_load(sW(s), tw, full(s), kt * BK, ch0, 0, 0);
       }
     }
     return;
@@ -227,12 +273,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int g = lane / 4, tq = lane % 4;
   const int row = cw * 64 + warp * 16 + g;  // the first of the two, in the block's 128
+  const float* ws = part ? a.ws2 : a.ws;
   float sc[2], bi[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int ch = ch0 + row + 8 * r;
     sc[r] = ch < N ? ws[ch] : 0.f;
-    bi[r] = ch < N ? __bfloat162float(bias[ch]) : 0.f;
+    bi[r] = ch >= N ? 0.f : part ? a.bias2[ch] : __bfloat162float(a.bias[ch]);
   }
 
   float acc[128];
@@ -292,11 +339,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 #else
         const float s = sc[r];
 #endif
-        const float a = acc[4 * j + 2 * r + e] * s + bi[r];
-        if constexpr (kGelu) {
-          y[e] = i8::gelu_poly(a);
+        const float z = acc[4 * j + 2 * r + e] * s + bi[r];
+        if constexpr (Form::kGelu) {
+          y[e] = i8::gelu_poly(z);
         } else {
-          y[e] = a;
+          y[e] = z;
         }
       }
       if (has_res) {
@@ -310,10 +357,31 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   fence_proxy_async();
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
-  if (threadIdx.x % 128 == 0 && ch0 + 64 * cw < N) {
-    tma_store(&tm_out, half, ch0 + 64 * cw, tok0, 0, 0);
-    bulk_commit();
-    bulk_wait_read<0>();
+  if (!part) {
+    if (threadIdx.x % 128 == 0 && ch0 + 64 * cw < N) {
+      tma_store(&tm_out, half, ch0 + 64 * cw, tok0, 0, 0);
+      bulk_commit();
+      bulk_wait_read<0>();
+    }
+  } else {
+    // W2's tiles, row-mapped: the warpgroup's 128 threads copy its half
+    // out in 16-byte pieces (8 threads a 128-byte token row), GEMM row r to
+    // row (r / T) * rows2 + r % T of out2; rows with r % T >= rows2 or past
+    // M, and channels past N2, are dropped.
+    const unsigned char* tile = smem + (half - base);
+    const int c = threadIdx.x % 8, ch = ch0 + 64 * cw + 8 * c;
+    for (int t = (threadIdx.x % 128) / 8; t < BT; t += 16) {
+      const int tok = tok0 + t;
+#ifdef ULLAVA_MUTANT_WQ_DUAL_FIRST_WINDOW
+      const int w = tok0 / a.T;  // every row stored with the tile's first window
+#else
+      const int w = tok / a.T;
+#endif
+      const int r = tok - w * a.T;
+      if (tok < a.M && r < a.rows2 && ch < N)
+        *reinterpret_cast<uint4*>(a.out2 + (static_cast<size_t>(w) * a.rows2 + r) * N + ch) =
+            *reinterpret_cast<const uint4*>(tile + t * 128 + 16 * (c ^ (t % 8)));
+    }
   }
 }
 
@@ -330,13 +398,13 @@ inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr
   return sm90::encode_map(map, type, ptr, dims, strides, box, swizzle);
 }
 
-template <bool kGelu>
+template <class Form>
 int configure() {
   static bool configured = false;
   if (!configured) {
     if (sm90::encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
     const cudaError_t err = cudaFuncSetAttribute(
-        gemm_kernel<kGelu>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gemm_kernel<Form>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kSmemBytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
@@ -345,37 +413,75 @@ int configure() {
 }
 
 // The kernel's registers, shared bytes, spills and blocks an SM.
-template <bool kGelu>
+template <class Form>
 int attrs(int* out) {
-  if (const int err = configure<kGelu>()) return err;
-  return func_attrs(gemm_kernel<kGelu>, kThreads, kSmemBytes, out);
+  if (const int err = configure<Form>()) return err;
+  return func_attrs(gemm_kernel<Form>, kThreads, kSmemBytes, out);
+}
+
+// x [M, K] (row stride lda) and the weight W (Bt [N, K], row stride ldb)
+// as tensor maps.
+inline bool make_operand_maps(CUtensorMap* tm_x, CUtensorMap* tm_w, const bf16* x, int lda, int M,
+                              int K, const int8_t* Bt, int ldb, int N) {
+  return make_map(tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, lda * 2, BK, BT,
+                  CU_TENSOR_MAP_SWIZZLE_128B) &&
+         (N == 0 || make_map(tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, Bt, K, N, ldb, BK, BN,
+                             CU_TENSOR_MAP_SWIZZLE_64B));
+}
+
+// out [M, N] bf16 in 64-channel x 256-token boxes.
+inline bool make_out_map(CUtensorMap* map, const bf16* out, int M, int N) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, out, N, M, N * 2, 64, BT,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // out [M, N] bf16 = epilogue(x [M, K] (row stride lda) @ Bt^T) with the
 // per-channel scale ws [N] and bias [N], residual [M, N] or nullptr (not
-// with kGelu), on `stream`, one block a 128-channel x 256-token tile.
+// with GeluForm), on `stream`, one block a 128-channel x 256-token tile.
 // Returns a CUDA error code.
-template <bool kGelu>
+template <class Form>
 int launch_gemm(const bf16* x, int lda, int M, const int8_t* Bt, int ldb, int N, int K,
                 const float* ws, const bf16* bias, const bf16* residual, bf16* out,
                 cudaStream_t stream) {
-  if (const int err = configure<kGelu>()) return err;
+  static_assert(!Form::kDual, "launch_dual");
+  if (const int err = configure<Form>()) return err;
   if (M == 0 || N == 0) return 0;
   CUtensorMap tm_x{}, tm_w{}, tm_out{}, tm_res{};
-  if (!make_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, lda * 2, BK, BT,
-                CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !make_map(&tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, Bt, K, N, ldb, BK, BN,
-                CU_TENSOR_MAP_SWIZZLE_64B) ||
-      !make_map(&tm_out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, out, N, M, N * 2, 64, BT,
-                CU_TENSOR_MAP_SWIZZLE_128B) ||
-      (residual != nullptr &&
-       !make_map(&tm_res, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, residual, N, M, N * 2, 64, BT,
-                 CU_TENSOR_MAP_SWIZZLE_128B)))
+  if (!make_operand_maps(&tm_x, &tm_w, x, lda, M, K, Bt, ldb, N) ||
+      !make_out_map(&tm_out, out, M, N) ||
+      (residual != nullptr && !make_out_map(&tm_res, residual, M, N)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((N + BN - 1) / BN, (M + BT - 1) / BT);
-  gemm_kernel<kGelu><<<grid, kThreads, kSmemBytes, stream>>>(
-      tm_x, tm_w, tm_out, residual != nullptr ? tm_res : tm_out, ws, bias, M, N, K,
-      residual != nullptr);
+  const Args a{ws, bias, nullptr, nullptr, nullptr, M, N, 0, K, (N + BN - 1) / BN, 1, 0,
+               residual != nullptr};
+  const dim3 grid(a.n1, (M + BT - 1) / BT);
+  gemm_kernel<Form><<<grid, kThreads, kSmemBytes, stream>>>(
+      tm_x, tm_w, tm_w, tm_out, residual != nullptr ? tm_res : tm_out, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dual product on x [M, K] (row stride K), M = windows * T, in one
+// launch: out [M, N] bf16 = x @ Bt^T * ws + bias (bf16), and out2
+// [M / T, rows2, N2] bf16 = the leading rows2 rows of every T of x @ Bt2^T
+// * ws2 + bias2 (fp32). N or N2 may be 0 (that product left out). A
+// template, as launch_gemm is, so that only a source that launches it
+// compiles its kernel.
+template <class Form>
+int launch_dual(const bf16* x, int M, int K, const int8_t* Bt, int N, const float* ws,
+                const bf16* bias, bf16* out, const int8_t* Bt2, int N2, const float* ws2,
+                const float* bias2, bf16* out2, int T, int rows2, cudaStream_t stream) {
+  static_assert(Form::kDual, "launch_gemm");
+  if (const int err = configure<Form>()) return err;
+  const int n1 = (N + BN - 1) / BN, n2 = (N2 + BN - 1) / BN;
+  if (M == 0 || n1 + n2 == 0) return 0;
+  CUtensorMap tm_x{}, tm_w{}, tm_w2{}, tm_out{};
+  if (!make_operand_maps(&tm_x, &tm_w, x, K, M, K, Bt, K, N) ||
+      (N > 0 && !make_out_map(&tm_out, out, M, N)) ||
+      (N2 > 0 && !make_map(&tm_w2, CU_TENSOR_MAP_DATA_TYPE_UINT8, Bt2, K, N2, K, BK, BN,
+                           CU_TENSOR_MAP_SWIZZLE_64B)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{ws, bias, ws2, bias2, out2, M, N, N2, K, n1, T, rows2, 0};
+  const dim3 grid(n1 + n2, (M + BT - 1) / BT);
+  gemm_kernel<Form><<<grid, kThreads, kSmemBytes, stream>>>(tm_x, tm_w, tm_w2, tm_out, tm_out, a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,7 @@
 // The SAM global-block attention core for Hopper (sm_90a) on wgmma and
 // TMA: attention of each (image, head) over all S = 4096 tokens of the
 // 64 x 64 grid with the decomposed rel-pos bias, online softmax, acc / l
-// at the end. Two kernels run on it:
+// at the end. Three kernels run on it:
 //   - K11 fused_global_attention_y (sam_global_attention_y.cu): hd 80,
 //     q/k/v read in place from the LN+qkv output [B, S, 3 * H * 80], the
 //     bias terms pre-scaled by 1/scale, [B, S, H, 64], added before the
@@ -9,8 +9,13 @@
 //   - K20 fused_global_attention_packed (sam_packed_attention.cu): hd 128
 //     (80 real lanes padded, all 128 contracted), q/k/v the 128-lane blocks
 //     (part * H + h) * 128 of [B, S, 3 * H * 128], the raw bias terms
-//     [B, H, S, 64] added after the scale; fp32 exponentials.
-// Both write o [B, S, H * HD] (head h at columns h * HD).
+//     [B, H, S, 64] added after the scale; fp32 exponentials;
+//   - K4 fused_global_attention (sam_global_attention.cu): hd 80, q, k and
+//     v three head-major tensors [N, S, 80] (launched with B = N, H = 1),
+//     the raw bias terms [N, S, 64] pre-scaled by 1/scale and rounded to
+//     bf16 in the core (kBiasRaw), added before the scale; fp32 or bf16
+//     exponentials.
+// All write o [B, S, H * HD] (head h at columns h * HD).
 //
 // Bound on the card: operations. K11 at B=16 does 1.37e12 FLOP of
 // products (1.39 ms at the bf16 peak) against about 1.2 GB of HBM traffic;
@@ -24,7 +29,8 @@
 //     within a group, so that a group's K and V (1.3 MB a pair at hd 80,
 //     2 MB at hd 128) stay in L2 while its 512 tiles run. One block an SM.
 //   - TMA over 4-D views: q/k/v as {d, part * H + h, row, image} (row
-//     stride 3 * H * HD * 2 bytes, head stride HD * 2), read as two
+//     stride 3 * H * HD * 2 bytes, head stride HD * 2; K4's three tensors
+//     as three views {d, 1, row, image}, row stride 160 bytes), read as two
 //     64-column boxes with the 128-byte swizzle that wgmma reads. At hd 80
 //     the second box holds columns 64-79 and TMA fills 80-127 with zeros,
 //     so both kernels share K15's tile layout and descriptors: Q K^T runs
@@ -41,6 +47,8 @@
 //     same for every key tile: those B terms stay in registers (8 bf16
 //     pairs a row), and A[s][t / 64] takes two values a row per 128-key
 //     tile, read from the table. Nothing is contracted for the bias.
+//     Raw terms (K4) are pre-scaled at those two reads: bf16(x * (1 /
+//     scale)), as the TPU wrapper does on the XLA side.
 //   - Scores in base-2 units with scale * log2(e) folded in and exp2; with
 //     EXPBF16 (the TPU kernel's serving form) s - m is rounded to bf16,
 //     exponentiated, the probability rounded to bf16 and l sums the
@@ -71,6 +79,8 @@
 //                                         pre-scaled by 1/scale);
 //   ULLAVA_MUTANT_GLOBAL_A_ONE_ROW        the A term of a tile's first grid
 //                                         row, A[s][2j], used for both halves;
+//   ULLAVA_MUTANT_GLOBAL_BIAS_RAW         raw bias terms (kBiasRaw) read
+//                                         without the 1/scale pre-scale;
 // it builds deliberate bugs that only `chip_smoke.py` builds, to show that
 // the gates catch them.
 #pragma once
@@ -139,7 +149,8 @@ struct Params {
   const float* scales;  // DOTS_I8: [2, B, H, S], q's then k's
   const float* abss;    // DOTS_I8: [B, H, S], the [A | B] rows' scales
   int B, H;
-  float sl2;  // scale * log2(e); scale with EXPBF16
+  float sl2;        // scale * log2(e); scale with EXPBF16
+  float inv_scale;  // 1 / scale: the pre-scale of raw bias terms (P::kBiasRaw)
 };
 
 // Item w: (image, head) pairs in groups of kGroup, query tiles outer
@@ -182,11 +193,43 @@ __device__ __forceinline__ uint32_t table_word(uint32_t table, int row, int byte
   return v;
 }
 
-// P: the problem type. P::kHD (80 or 128), P::kBiasAfterScale, and the
-// TMA coordinates of the query tile's bias rows and of head h's k block.
+// The bias-term layout of K11 and K4 (K4 with H = 1): [B, S, H, 64] bf16
+// as the view {j, h, s, b}, a query tile's rows of one head a box.
+struct BiasBSHW {
+  __device__ static void bias_coord(int b, int h, int q0, int (&c)[4]) {
+    c[0] = 0;
+    c[1] = h;
+    c[2] = q0;
+    c[3] = b;
+  }
+  static bool make_bias_map(CUtensorMap* map, const void* t, int B, int H) {
+    const cuuint64_t dims[4] = {kW, static_cast<cuuint64_t>(H), kS, static_cast<cuuint64_t>(B)};
+    const cuuint64_t row = 128ull * H;
+    const cuuint64_t strides[3] = {128, row, row * kS};
+    const cuuint32_t box[4] = {64, 1, 128, 1};
+    return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, t, dims, strides, box,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+};
+
+// bf16(x * inv) of both halves of a bf16 pair, each rounded once.
+__device__ __forceinline__ uint32_t prescale_pair(uint32_t v, float inv) {
+#ifdef ULLAVA_MUTANT_GLOBAL_BIAS_RAW
+  return v;
+#else
+  return pack_bf16(bf_lo(v) * inv, bf_hi(v) * inv);
+#endif
+}
+
+// P: the problem type. P::kHD (80 or 128), P::kBiasAfterScale,
+// P::kBiasRaw (the bias terms arrive raw: pre-scale them by 1/scale), the
+// TMA coordinates of the query tile's bias rows and the head coordinates
+// of head h's k and v blocks in their views.
 template <class P, bool EXPBF16, bool DOTS>
 __global__ void __launch_bounds__(kThreads, 1)
-    global_sm90_kernel(const __grid_constant__ CUtensorMap tm_y,
+    global_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
                        const __grid_constant__ CUtensorMap tm_a,
                        const __grid_constant__ CUtensorMap tm_b,
                        const __grid_constant__ CUtensorMap tm_codes,
@@ -197,6 +240,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   static_assert(HD == 80 || HD == 128, "hd 80 (K11) or 128 (K20)");
   static_assert(!(AFTER && (DOTS || EXPBF16)), "the after-scale form is K20's: bf16, fp32 exp");
   static_assert(!DOTS || HD == 80, "the int8 score form is K11's");
+  static_assert(!(P::kBiasRaw && (AFTER || DOTS)), "raw terms are K4's: before the scale, bf16");
   using L = Layout<DOTS>;
 
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -239,12 +283,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       if constexpr (DOTS) {
         tma_load(sQ, &tm_codes, bar_q, 0, it.q0, it.h, it.b);
       } else {
-        tma_load(sQ, &tm_y, bar_q, 0, it.h, it.q0, it.b);
-        tma_load(sQ + kHalf, &tm_y, bar_q, 64, it.h, it.q0, it.b);
+        tma_load(sQ, &tm_q, bar_q, 0, it.h, it.q0, it.b);
+        tma_load(sQ + kHalf, &tm_q, bar_q, 64, it.h, it.q0, it.b);
       }
       tma_load(sA, &tm_a, bar_q, bc[0], bc[1], bc[2], bc[3]);
       tma_load(sB, &tm_b, bar_q, bc[0], bc[1], bc[2], bc[3]);
-      const int kh = P::k_head(it.h, H);
+      const int kh = P::k_head(it.h, H), vh = P::v_head(it.h, H);
       for (int j = 0; j < kTiles; ++j) {
         const int s = j % kStages, k0 = j * kN;
         if (j >= kStages) mbar_wait(empty_k(s), ((j / kStages) - 1) & 1);
@@ -254,13 +298,13 @@ __global__ void __launch_bounds__(kThreads, 1)
           tma_load(sKs(s), &tm_scales, full_k(s), k0, it.h, p.B + it.b, 0);
         } else {
           mbar_expect_tx(full_k(s), kTile);
-          tma_load(sK(s), &tm_y, full_k(s), 0, kh, k0, it.b);
-          tma_load(sK(s) + kHalf, &tm_y, full_k(s), 64, kh, k0, it.b);
+          tma_load(sK(s), &tm_k, full_k(s), 0, kh, k0, it.b);
+          tma_load(sK(s) + kHalf, &tm_k, full_k(s), 64, kh, k0, it.b);
         }
         if (j >= kStages) mbar_wait(empty_v(s), ((j / kStages) - 1) & 1);
         mbar_expect_tx(full_v(s), kTile);
-        tma_load(sV(s), &tm_y, full_v(s), 0, 2 * H + it.h, k0, it.b);
-        tma_load(sV(s) + kHalf, &tm_y, full_v(s), 64, 2 * H + it.h, k0, it.b);
+        tma_load(sV(s), &tm_v, full_v(s), 0, vh, k0, it.b);
+        tma_load(sV(s) + kHalf, &tm_v, full_v(s), 64, vh, k0, it.b);
       }
     }
     return;
@@ -292,7 +336,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
   for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) bt[r][c] = table_word(sB, lr[r], 16 * c + 4 * tq);
+    for (int c = 0; c < 8; ++c) {
+      bt[r][c] = table_word(sB, lr[r], 16 * c + 4 * tq);
+      if constexpr (P::kBiasRaw) bt[r][c] = prescale_pair(bt[r][c], p.inv_scale);
+    }
   if constexpr (DOTS) {
     const size_t row0 = static_cast<size_t>(it.b * H + it.h) * kS + it.q0;
 #pragma unroll
@@ -336,7 +383,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     float a_lo[2], a_hi[2];  // A[s][2 j], A[s][2 j + 1]: key grid rows of the tile's halves
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const uint32_t a2 = table_word(sA, lr[r], 4 * j);
+      uint32_t a2 = table_word(sA, lr[r], 4 * j);
+      if constexpr (P::kBiasRaw) a2 = prescale_pair(a2, p.inv_scale);
       a_lo[r] = bf_lo(a2);
 #ifdef ULLAVA_MUTANT_GLOBAL_A_ONE_ROW
       a_hi[r] = a_lo[r];
@@ -498,37 +546,60 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// The view {d, part * H + h, row, image} of y [B, S, 3 * H * HD] bf16, in
-// 64-column, 128-row boxes with the 128-byte swizzle.
+// The view {d, head, row, image} of t [B, S, heads * HD] bf16, in
+// 64-column, 128-row boxes with the 128-byte swizzle: y [B, S, 3 * H * HD]
+// with heads = 3 H (q, k, v blocks part * H + h), or one of K4's [N, S, HD]
+// with heads = 1.
 template <int HD>
-inline bool make_qkv_map(CUtensorMap* map, const void* y, int B, int H) {
-  const cuuint64_t row = 3ull * H * HD * sizeof(bf16);
-  const cuuint64_t dims[4] = {HD, 3ull * H, kS, static_cast<cuuint64_t>(B)};
+inline bool make_qkv_map(CUtensorMap* map, const void* t, int B, int heads) {
+  const cuuint64_t row = static_cast<cuuint64_t>(heads) * HD * sizeof(bf16);
+  const cuuint64_t dims[4] = {HD, static_cast<cuuint64_t>(heads), kS, static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {HD * sizeof(bf16), row, row * kS};
   const cuuint32_t box[4] = {64, 1, 128, 1};
-  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, y, dims, strides, box,
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, t, dims, strides, box,
                     CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-// Launches one block per (image, head, 128-row query tile). `codes` and
-// `scales` are the DOTS_I8 pre-pass's outputs (unused otherwise).
 template <class P, bool EXPBF16, bool DOTS>
-int launch_global(const void* y, const void* a, const void* b, const void* codes,
-                  const void* scales, const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = Layout<DOTS>::kSmem;
+int configure() {
   static bool configured = false;
   if (!configured) {
     if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
     const cudaError_t err = cudaFuncSetAttribute(global_sm90_kernel<P, EXPBF16, DOTS>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(smem));
+                                                 static_cast<int>(Layout<DOTS>::kSmem));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
+  return 0;
+}
+
+// The kernel's registers, shared bytes, spills and blocks an SM.
+template <class P, bool EXPBF16, bool DOTS>
+int attrs(int* out) {
+  if (const int err = configure<P, EXPBF16, DOTS>()) return err;
+  return func_attrs(global_sm90_kernel<P, EXPBF16, DOTS>, kThreads, Layout<DOTS>::kSmem, out);
+}
+
+// Launches one block per (image, head, 128-row query tile). q, k and v are
+// one qkv output [B, S, 3 * H * HD] passed three times (P::kQkvHeads 3:
+// one map serves all three), or three [B, S, HD] tensors (1, with H = 1).
+// `codes` and `scales` are the DOTS_I8 pre-pass's outputs (unused
+// otherwise).
+template <class P, bool EXPBF16, bool DOTS>
+int launch_global(const void* q, const void* k, const void* v, const void* a, const void* b,
+                  const void* codes, const void* scales, const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = Layout<DOTS>::kSmem;
+  if (const int err = configure<P, EXPBF16, DOTS>()) return err;
   if (p.B == 0 || p.H == 0) return 0;
-  CUtensorMap tm_y{}, tm_a{}, tm_b{}, tm_codes{}, tm_scales{};
-  bool ok = make_qkv_map<P::kHD>(&tm_y, y, p.B, p.H) && P::make_bias_map(&tm_a, a, p.B, p.H) &&
-            P::make_bias_map(&tm_b, b, p.B, p.H);
+  CUtensorMap tm_q{}, tm_k{}, tm_v{}, tm_a{}, tm_b{}, tm_codes{}, tm_scales{};
+  const int heads = P::kQkvHeads * p.H;
+  bool ok = make_qkv_map<P::kHD>(&tm_q, q, p.B, heads) &&
+            (k == q || make_qkv_map<P::kHD>(&tm_k, k, p.B, heads)) &&
+            (v == q || make_qkv_map<P::kHD>(&tm_v, v, p.B, heads)) &&
+            P::make_bias_map(&tm_a, a, p.B, p.H) && P::make_bias_map(&tm_b, b, p.B, p.H);
+  if (k == q) tm_k = tm_q;
+  if (v == q) tm_v = tm_q;
   if constexpr (DOTS) {
     // codes [2, B, H, S, 128] int8 as {byte, row, head, 2B}; scales
     // [2, B, H, S] fp32 as {row, head, 2B, 1}.
@@ -547,7 +618,7 @@ int launch_global(const void* y, const void* a, const void* b, const void* codes
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   global_sm90_kernel<P, EXPBF16, DOTS><<<p.B * p.H * kMt, kThreads, smem, stream>>>(
-      tm_y, tm_a, tm_b, tm_codes, tm_scales, p);
+      tm_q, tm_k, tm_v, tm_a, tm_b, tm_codes, tm_scales, p);
   return static_cast<int>(cudaGetLastError());
 }
 

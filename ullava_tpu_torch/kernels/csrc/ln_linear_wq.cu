@@ -13,28 +13,32 @@
 // 0.17 GB of input and output (0.05 ms): operations bound it.
 //
 // Design: two launches. (1) With a LayerNorm, a row pass (one warp per
-// row, bf16_wq_gemm_core.cuh) writes the normalised rows as bf16 to
-// scratch; without one the product reads x itself. (2) One launch of the
-// wgmma + TMA bf16 x int8-weight core (bf16_wq_gemm_sm90.cuh): the weight
-// rows widened to bf16 in registers as wgmma's A operand, the rows of x
-// from shared memory as its B, the output tile transposed; its epilogue
+// row, ln_rows_bf16.cuh) writes the normalised rows as bf16 to scratch;
+// without one the product reads x itself. (2) One launch of the wgmma +
+// TMA bf16 x int8-weight core (bf16_wq_gemm_sm90.cuh): the weight rows
+// widened to bf16 in registers as wgmma's A operand, the rows of x from
+// shared memory as its B, the output tile transposed; its epilogue
 // applies the per-channel scale after the product, as the TPU kernel
 // does, then the bias and the residual (read by TMA under the products),
 // and stores the tile token-major by TMA.
 //
-// fused_ln_linear_dual, weight-only: the same row pass once, then the
-// mma.sync GEMM core (bf16_wq_gemm_core.cuh) twice on the shared bf16
-// rows, once per weight; the second epilogue takes the f32 bias and keeps
-// the leading `rows2` rows of every T (GEMM row r -> output row (r / T) *
-// rows2 + r % T).
+// fused_ln_linear_dual, weight-only: the same row pass once, then one
+// launch of the same core over both weights (its DualForm): W's channel
+// tiles, then W2's, all reading the shared bf16 rows; W2's epilogue takes
+// the f32 bias and keeps the leading `rows2` rows of every T (GEMM row r
+// -> output row (r / T) * rows2 + r % T), each token row copied out of
+// the shared output tile to its window's place by 16-byte stores.
+//
+// Bound on the card: the dual LN1+qkv of a B=4 encode's full windows is
+// 2 x 1280 x (12800 x 3840 + 12544 x 864) = 1.5e11 bf16 flops (0.155 ms
+// at 989 TFLOP/s) against 0.16 GB of input and output: operations.
 //
 // Replaces: ullava_tpu/ops/mlp_kernel.py:622 fused_ln_linear_dual with
 // w8a8=False (_ln_linear2_kernel, :576, branch :606-615).
 //
-// The deliberate bugs of both cores (ULLAVA_MUTANT_WQ_*, in their
-// headers) compile into copies of this source that only chip_smoke.py
-// builds.
-#include "bf16_wq_gemm_core.cuh"
+// The deliberate bugs of the core (ULLAVA_MUTANT_WQ_*, in its header)
+// compile into copies of this source that only chip_smoke.py builds.
+#include "ln_rows_bf16.cuh"
 #include "bf16_wq_gemm_sm90.cuh"
 
 // x [rows, K] bf16; ln_s, ln_b [K] bf16 or both null (no LayerNorm); wq
@@ -57,7 +61,7 @@ ULLAVA_EXPORT int ullava_fused_ln_linear_wq(const void* x, const void* ln_s, con
     if (err != 0) return err;
   }
   if (stages & 2)
-    return wq_sm90::launch_gemm<false>(
+    return wq_sm90::launch_gemm<wq_sm90::LinearForm>(
         static_cast<const bf16*>(ln ? xn : x), K, rows, static_cast<const int8_t*>(wq), K, N, K,
         static_cast<const float*>(w_scale), static_cast<const bf16*>(bias),
         static_cast<const bf16*>(residual), static_cast<bf16*>(out), st);
@@ -67,15 +71,15 @@ ULLAVA_EXPORT int ullava_fused_ln_linear_wq(const void* x, const void* ln_s, con
 // {registers, shared bytes, spilled bytes, blocks an SM} of the product's
 // kernel (the wgmma + TMA core with the linear epilogue).
 ULLAVA_EXPORT int ullava_fused_ln_linear_wq_attrs(int* out) {
-  return ullava::wq_sm90::attrs<false>(out);
+  return ullava::wq_sm90::attrs<ullava::wq_sm90::LinearForm>(out);
 }
 
 // fused_ln_linear_dual, weight-only. x [rows, K] bf16 with rows = windows
 // * T; ln_s, ln_b [K] bf16; wq [N][K] and w2q [N2][K] int8; w_scale [N],
 // w2_scale [N2] f32; bias [N] bf16; bias2 [N2] f32; out [rows, N] bf16;
 // out2 [rows / T, rows2, N2] bf16; scratch xn [rows, K] bf16. `stages`:
-// bit 0 runs the row pass, bit 1 the first product, bit 2 the second (7 =
-// the function).
+// bit 0 runs the row pass, bit 1 W's channel tiles, bit 2 W2's (7 = the
+// function: both in one launch).
 ULLAVA_EXPORT int ullava_fused_ln_linear_dual_wq(
     const void* x, const void* ln_s, const void* ln_b, const void* wq, const void* w_scale,
     const void* bias, const void* w2q, const void* w2_scale, const void* bias2, void* out,
@@ -90,18 +94,18 @@ ULLAVA_EXPORT int ullava_fused_ln_linear_dual_wq(
                                             static_cast<bf16*>(xn), rows, K, eps, st);
     if (err != 0) return err;
   }
-  const bf16* a = static_cast<const bf16*>(xn);
-  if (stages & 2) {
-    wq::LinearEpi<bf16> epi{static_cast<const float*>(w_scale), static_cast<const bf16*>(bias),
-                            static_cast<bf16*>(out), rows, rows};
-    const int err = wq::launch_gemm(a, K, rows, static_cast<const int8_t*>(wq), K, N, K, epi, st);
-    if (err != 0) return err;
-  }
-  if (stages & 4) {
-    wq::LinearEpi<float> epi{static_cast<const float*>(w2_scale),
-                             static_cast<const float*>(bias2), static_cast<bf16*>(out2), T,
-                             rows2};
-    return wq::launch_gemm(a, K, rows, static_cast<const int8_t*>(w2q), K, N2, K, epi, st);
-  }
+  if (stages & 6)
+    return wq_sm90::launch_dual<wq_sm90::DualForm>(
+        static_cast<const bf16*>(xn), rows, K, static_cast<const int8_t*>(wq),
+        (stages & 2) ? N : 0, static_cast<const float*>(w_scale), static_cast<const bf16*>(bias),
+        static_cast<bf16*>(out), static_cast<const int8_t*>(w2q), (stages & 4) ? N2 : 0,
+        static_cast<const float*>(w2_scale), static_cast<const float*>(bias2),
+        static_cast<bf16*>(out2), T, rows2, st);
   return 0;
+}
+
+// {registers, shared bytes, spilled bytes, blocks an SM} of the dual
+// product's kernel (the core's DualForm).
+ULLAVA_EXPORT int ullava_fused_ln_linear_dual_wq_attrs(int* out) {
+  return ullava::wq_sm90::attrs<ullava::wq_sm90::DualForm>(out);
 }

@@ -15,7 +15,7 @@
 // Design: three launches. An SM cannot hold a row tile's [rows, 1280]
 // fp32 accumulator next to the operand tiles, so h crosses HBM once, as
 // the bf16 values that fc2 takes anyway (the TPU kernel's h.astype(bf16)).
-//   1. row pass: LayerNorm in fp32, rounded to bf16 (bf16_wq_gemm_core.cuh);
+//   1. row pass: LayerNorm in fp32, rounded to bf16 (ln_rows_bf16.cuh);
 //   2. fc1 on the wgmma + TMA bf16 x int8-weight core
 //      (bf16_wq_gemm_sm90.cuh: W1t [F, C] widened in registers as wgmma's
 //      A, the LN'd rows from shared memory as its B); the epilogue computes
@@ -28,7 +28,7 @@
 //      rounding, and the kernel takes it once.
 // The deliberate bugs of the core (ULLAVA_MUTANT_WQ_*, in its header)
 // compile into copies of this source that only chip_smoke.py builds.
-#include "bf16_wq_gemm_core.cuh"
+#include "ln_rows_bf16.cuh"
 #include "bf16_wq_gemm_sm90.cuh"
 
 // x, out [rows, C] bf16; ln_s, ln_b, b2 [C] bf16; w1q int8 [F][C] (C
@@ -50,14 +50,14 @@ ULLAVA_EXPORT int ullava_fused_mlp_block_wq(const void* x, const void* ln_s, con
     if (err != 0) return err;
   }
   if (stages & 2) {
-    const int err = wq_sm90::launch_gemm<true>(
+    const int err = wq_sm90::launch_gemm<wq_sm90::GeluForm>(
         static_cast<const bf16*>(xn), C, rows, static_cast<const int8_t*>(w1q), C, F, C,
         static_cast<const float*>(s1), static_cast<const bf16*>(b1), nullptr,
         static_cast<bf16*>(h), st);
     if (err != 0) return err;
   }
   if (stages & 4)
-    return wq_sm90::launch_gemm<false>(
+    return wq_sm90::launch_gemm<wq_sm90::LinearForm>(
         static_cast<const bf16*>(h), F, rows, static_cast<const int8_t*>(w2q), F, C, F,
         static_cast<const float*>(s2), static_cast<const bf16*>(b2),
         static_cast<const bf16*>(x), static_cast<bf16*>(out), st);
@@ -68,5 +68,5 @@ ULLAVA_EXPORT int ullava_fused_mlp_block_wq(const void* x, const void* ln_s, con
 // 1) or fc2 (2) kernel.
 ULLAVA_EXPORT int ullava_fused_mlp_block_wq_attrs(int fc, int* out) {
   using namespace ullava::wq_sm90;
-  return fc == 1 ? attrs<true>(out) : attrs<false>(out);
+  return fc == 1 ? attrs<GeluForm>(out) : attrs<LinearForm>(out);
 }

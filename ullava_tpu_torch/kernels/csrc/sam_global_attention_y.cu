@@ -40,27 +40,15 @@ namespace ullava {
 
 constexpr int kGlobYHD = 80;
 
-// K11's layout for the global core: the bias terms [B, S, H, 64] as the
-// view {j, h, s, b}.
-struct GlobalY {
+// K11's layout for the global core: q, k, v the head blocks of y, the
+// bias terms [B, S, H, 64] as the view {j, h, s, b}.
+struct GlobalY : glob::BiasBSHW {
   static constexpr int kHD = kGlobYHD;
   static constexpr bool kBiasAfterScale = false;
-  __device__ static void bias_coord(int b, int h, int q0, int (&c)[4]) {
-    c[0] = 0;
-    c[1] = h;
-    c[2] = q0;
-    c[3] = b;
-  }
+  static constexpr bool kBiasRaw = false;
+  static constexpr int kQkvHeads = 3;
   __device__ static int k_head(int h, int H) { return H + h; }
-  static bool make_bias_map(CUtensorMap* map, const void* t, int B, int H) {
-    const cuuint64_t dims[4] = {glob::kW, static_cast<cuuint64_t>(H), glob::kS,
-                                static_cast<cuuint64_t>(B)};
-    const cuuint64_t row = 128ull * H;
-    const cuuint64_t strides[3] = {128, row, row * glob::kS};
-    const cuuint32_t box[4] = {64, 1, 128, 1};
-    return sm90::encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, t, dims, strides, box,
-                            CU_TENSOR_MAP_SWIZZLE_128B);
-  }
+  __device__ static int v_head(int h, int H) { return 2 * H + h; }
 };
 
 // The dots_i8 pre-pass. Group gid (8 threads) of B * S * H * 3 takes row
@@ -146,10 +134,10 @@ int launch_global_y(const void* y, const void* a, const void* b, const void* cod
                     int exp_bf16, void* stream) {
   const glob::Params p{static_cast<bf16*>(o), static_cast<const float*>(scales),
                        static_cast<const float*>(abss), B, H,
-                       exp_bf16 ? scale : scale * glob::kLog2e};
+                       exp_bf16 ? scale : scale * glob::kLog2e, 1.f / scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return exp_bf16 ? glob::launch_global<GlobalY, true, DOTS>(y, a, b, codes, scales, p, st)
-                  : glob::launch_global<GlobalY, false, DOTS>(y, a, b, codes, scales, p, st);
+  return exp_bf16 ? glob::launch_global<GlobalY, true, DOTS>(y, y, y, a, b, codes, scales, p, st)
+                  : glob::launch_global<GlobalY, false, DOTS>(y, y, y, a, b, codes, scales, p, st);
 }
 
 }  // namespace ullava

@@ -104,6 +104,8 @@ int launch_window_packed(const void* y, const void* a, const void* b, void* o, i
 struct PackedGlobal {
   static constexpr int kHD = kPackHP;
   static constexpr bool kBiasAfterScale = true;
+  static constexpr bool kBiasRaw = false;
+  static constexpr int kQkvHeads = 3;
   __device__ static void bias_coord(int b, int h, int q0, int (&c)[4]) {
     c[0] = 0;
     c[1] = q0;
@@ -117,6 +119,7 @@ struct PackedGlobal {
     return H + h;
 #endif
   }
+  __device__ static int v_head(int h, int H) { return 2 * H + h; }
   static bool make_bias_map(CUtensorMap* map, const void* t, int B, int H) {
     const cuuint64_t dims[4] = {glob::kW, glob::kS, static_cast<cuuint64_t>(H),
                                 static_cast<cuuint64_t>(B)};
@@ -141,8 +144,9 @@ ULLAVA_EXPORT int ullava_fused_global_attention_packed(const void* y, const void
                                                        const void* b, void* o, int B, int H,
                                                        float scale, void* stream) {
   using namespace ullava;
-  const glob::Params p{static_cast<bf16*>(o), nullptr, nullptr, B, H, scale * glob::kLog2e};
-  return glob::launch_global<PackedGlobal, false, false>(y, a, b, nullptr, nullptr, p,
+  const glob::Params p{static_cast<bf16*>(o), nullptr, nullptr, B, H, scale * glob::kLog2e,
+                       1.f / scale};
+  return glob::launch_global<PackedGlobal, false, false>(y, y, y, a, b, nullptr, nullptr, p,
                                                          static_cast<cudaStream_t>(stream));
 }
 

@@ -2,12 +2,12 @@
 // TPU's window kernels do (`p = exp(s - m); p = p / sum(p)`, then
 // `p.astype(bf16)` for P V): the per-(window, head) kernel
 // (`ullava_tpu/ops/sam_attention.py:63-65`; the packed window kernel has
-// its own, window_whole.cuh). The online core (flash_core.cuh) rounds the unnormalized P
+// its own, window_whole.cuh). An online-softmax core rounds the unnormalized P
 // against a running maximum instead, which can put an output two bf16
 // steps away from the TPU order's; here the rounding points are the TPU
 // kernel's, so only fp32 summation order differs.
 //
-// Design: the core's block shape, fragments and helpers (one block per
+// Design: flash_core.cuh's block shape, fragments and helpers (one block per
 // (instance, 64-row q tile), four warps of 16 rows, mma.sync.m16n8k16,
 // cp.async double buffering), over a window of at most four 64-key tiles
 // (196 keys for 14 x 14), in two loops:
@@ -20,7 +20,7 @@
 //      back, takes p = exp(s - m) / l with the final m and l (an IEEE
 //      division), rounds p to bf16 and runs O += P V; O is written as it
 //      is, with no final division.
-// Loads and products are those of the online core; the price is one more
+// Loads and products are flash_core.cuh's; the price is one more
 // pass of barriers and 64 KB of shared memory (two blocks an SM at
 // hd 128 or 80). The bias is added before the scale.
 #pragma once

@@ -18,7 +18,7 @@ Each has its plain PyTorch version beside it, taken for CPU tensors. With
 `w8a8=False` (weight-only) the three SAM functions keep the LN'd row in
 bf16 and widen the int8 weight to bf16 inside the kernel
 (`kernels/csrc/ln_linear_wq.cu`, `mlp_block_wq.cu` on
-`bf16_wq_gemm_core.cuh`). A weight `q` is `[in, out]` stored column-major
+`bf16_wq_gemm_sm90.cuh`). A weight `q` is `[in, out]` stored column-major
 (`quant.column_major`), as every int8 leaf of the port is; the CUDA
 wrappers check that and raise, they do not copy. The 3-D (whole windows
 per program) form of `fused_mlp_block` has no caller and is not carried
@@ -384,17 +384,24 @@ def _ln_linear_dual_cuda(x3, ln_scale, ln_bias, w_q, w_scale, bias, w2_q, w2_sca
 
 
 def _ln_linear_dual_wq_cuda(x3, ln_scale, ln_bias, w_q, w_scale, bias, w2_q, w2_scale, bias2,
-                            eps, rows2, stages=7, scratch=None):
+                            eps, rows2, stages=7, scratch=None, out=None):
     """The weight-only CUDA `fused_ln_linear_dual` on [N, T, C]: (y, P,
-    the LN'd bf16 rows). `stages` selects the row pass (1), the first
-    product (2) and the second (4) so that each can be timed alone on the
-    `scratch` of an earlier full call."""
+    the LN'd bf16 rows). `stages` selects the row pass (1), W's columns
+    (2) and W2's (4), both in one launch, so that each can be timed alone
+    on the `scratch` of an earlier full call. `out` = (y, P) to write in
+    place of new tensors (a gate fills them first, so that a row the
+    kernel leaves unwritten shows)."""
     N, T, C = x3.shape
     F, F2 = _check_ln_linear_dual(x3, ln_scale, ln_bias, w_q, w_scale, bias, w2_q, w2_scale,
                                   bias2, rows2)
     dev, bf = x3.device, torch.bfloat16
-    y = torch.empty((N, T, F), dtype=bf, device=dev)
-    p = torch.empty((N, rows2, F2), dtype=bf, device=dev)
+    if out is None:
+        y = torch.empty((N, T, F), dtype=bf, device=dev)
+        p = torch.empty((N, rows2, F2), dtype=bf, device=dev)
+    else:
+        y, p = out
+        kernels.check_cuda_tensor("fused_ln_linear_dual out", y, bf, (N, T, F))
+        kernels.check_cuda_tensor("fused_ln_linear_dual out2", p, bf, (N, rows2, F2))
     xn = scratch if scratch is not None else torch.empty_like(x3)
     kernels.launch(
         "fused_ln_linear_dual_wq", x3.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),

@@ -304,8 +304,9 @@ def fused_global_attention(
 ) -> torch.Tensor:
     """Online-softmax global attention with the decomposed bias;
     `exp_bf16` takes the exponentials in bf16 (the serving form). CUDA
-    kernel `kernels/csrc/sam_global_attention.cu` (W 64, hd 80, bf16) for
-    CUDA tensors, the plain version for CPU ones."""
+    kernel `kernels/csrc/sam_global_attention.cu` on the wgmma + TMA global
+    core (W 64, hd 80, bf16) for CUDA tensors, the plain version for CPU
+    ones."""
     N, S, hd = q.shape
     W = window
     if S != W * W or k.shape != q.shape or v.shape != q.shape:
