@@ -50,13 +50,16 @@ Phases, each fatal on any error:
                and K7 (also against its plain version run on the CPU, and
                its division against IEEE division over every bf16 pair),
                also a copy of the source rebuilt with a deliberate bug);
-     mlp_v2  - the chunk-pipelined W8A8 MLP (`fused_mlp_block_v2`)
-               against its plain version at the int8 SAM encoder's shape,
-               at 1000 rows and at the MLP microbenchmark's shape, its
-               share of bf16 outputs bit-equal to `fused_mlp_block`'s,
-               three mutant copies of its source that must fail the gate,
-               then its main path: `microbench.mlp_variants.main()` once,
-               with exact launch counts per variant;
+     mlp_v2  - the chunk-pipelined W8A8 MLP (`fused_mlp_block_v2`, on
+               wgmma + TMA with its int8 GELU output exchanged in the
+               cluster's shared memory) against its plain version at the
+               int8 SAM encoder's shape, at 1000 rows and at the MLP
+               microbenchmark's shape, each at f_chunk 512 and 1024, its
+               bf16 outputs bit-equal to `fused_mlp_block`'s, four mutant
+               copies of its source that must fail the gate, its SASS
+               counts and registers, then its main path:
+               `microbench.mlp_variants.main()` once, with exact launch
+               counts per variant;
   3. serve   - builds the full-width bf16 RES model (LLaMA-7B, CLIP
                ViT-L/14, SAM ViT-H) from a seeded generator on the card,
                serves B=4 requests (320-token prompts: 256 image tokens + 64
@@ -1403,12 +1406,17 @@ def library_mlp(x, g, b, w1, s1, b1, w2, s2, b2, eps, f_chunk):
 
 
 # The deliberate bugs the gate of the chunk-pipelined MLP (K23) must catch,
-# each built into a copy of its source under the define.
+# each built into a copy of its source under the define: a block's chunk
+# scale from its own partial row abs-max (without the cluster's), fc2
+# folding a chunk by the previous chunk's hs, fc1's bias dropped, and a
+# block's h slice written into each peer at that peer's column offset.
 V2_MUTANTS = {
-    "one_amax_per_row": ("mlp_block_v2_int8.cu", "ULLAVA_MUTANT_V2_ROW_AMAX"),
-    "fc2_reads_next_buffer": ("mlp_block_v2_int8.cu", "ULLAVA_MUTANT_V2_WRONG_BUFFER"),
+    "block_amax_only": ("mlp_block_v2_int8.cu", "ULLAVA_MUTANT_V2_BLOCK_AMAX"),
+    "fc2_previous_chunk_scale": ("mlp_block_v2_int8.cu", "ULLAVA_MUTANT_V2_PREV_SCALE"),
     "fc1_bias_dropped": ("mlp_block_v2_int8.cu", "ULLAVA_MUTANT_V2_NO_FC1_BIAS"),
+    "slice_at_peer_offset": ("mlp_block_v2_int8.cu", "ULLAVA_MUTANT_V2_PEER_OFFSET"),
 }
+V2_ATTRS = ("mlp_block_v2_int8.cu", "ullava_fused_mlp_block_v2_int8_attrs")
 MICROBENCH_T = 150528  # `tools/microbench/mlp_variants.py`'s rows: half a B=48 interior tile
 
 
@@ -1419,18 +1427,45 @@ def bit_equal_share(a, b) -> float:
     return (a.view(torch.int16) == b.view(torch.int16)).float().mean().item()
 
 
+def k12_phase_inputs(gen, T: int, C: int = 1280, Fw: int = 5120, eps: float = 1e-6) -> tuple:
+    """The inputs of the W8A8 MLP's phase at T rows (`fused_mlp_block`'s
+    arguments): fc1's int8 columns growing by chunk of 1024, x off-centre."""
+    import torch
+
+    from ullava_tpu_torch.ops import quant
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale + shift).to(
+            torch.bfloat16)
+
+    def weight(K, N, col_gain=None):
+        w = torch.randn((K, N), generator=gen, device="cuda") * 0.05
+        leaf = quant.quantize_int8(w if col_gain is None else w * col_gain)
+        return leaf["q"], leaf["scale"]
+
+    gain = (1 + torch.arange(Fw, device="cuda") // 1024).float()
+    w1, s1 = weight(C, Fw, col_gain=gain)
+    w2, s2 = weight(Fw, C)
+    x = randn(T, C, scale=2.0, shift=0.3)
+    g, b = randn(C, scale=0.1, shift=1.0), randn(C, scale=0.1)
+    b1, b2 = randn(Fw, scale=0.5), randn(C, scale=0.5)
+    return (x, g, b, w1, s1, b1, w2, s2, b2, eps)
+
+
 def mlp_v2_phase(gen, results: dict) -> dict:
     """The chunk-pipelined W8A8 MLP (`fused_mlp_block_v2`, K23), whose one
     caller is the MLP microbenchmark.
 
     1. At K12's phase shape and inputs (one B=16 ViT-H encode's 65536 rows,
        fc1's columns growing by chunk) and at 1000 rows (the last 64-row
-       tile ragged): K23 against its plain version with K12's gate,
-       `row_rel_err` within 1e-2, at f_chunk 1024 and 512, and the share of
-       its bf16 outputs bit-equal to K12's at the same f_chunk (expected
-       1.0: the same roundings in the same order; reported, not gated). The
-       three mutants (`V2_MUTANTS`) must fail the gate. K23's time and
-       K12's, and K23's stages alone.
+       row tile ragged): K23 against its plain version with K12's gate,
+       `row_rel_err` within 1e-2, at f_chunk 1024 and 512, and its bf16
+       outputs bit-equal to K12's at the same f_chunk (share 1.0 required:
+       the same roundings in the same order). The four mutants
+       (`V2_MUTANTS`) must fail the gate at both f_chunks (the h exchange
+       is a bulk copy at 1024 and 16-byte stores at 512). K23's time and K12's, K23's
+       stages alone, its registers, shared bytes and blocks an SM at both
+       f_chunks, and its SASS counts (`IGMMA`, `UTMALDG` > 0, `IMMA` 0).
     2. At the microbenchmark's shape and inputs ([150528, 1280] x 5120):
        the same gate and bit-equal share, and the `kernels` line row: ms
        (after the L2-evicting write), the bound at the int8 peak, the plain
@@ -1444,19 +1479,10 @@ def mlp_v2_phase(gen, results: dict) -> dict:
 
     from ullava_tpu_torch import kernels
     from ullava_tpu_torch.microbench import mlp_variants
-    from ullava_tpu_torch.ops import mlp_kernel, quant
+    from ullava_tpu_torch.ops import mlp_kernel
 
-    dev, bf = "cuda", torch.bfloat16
-    tol, eps = 1e-2, 1e-6
+    dev, tol = "cuda", 1e-2
     T, C, Fw = B_INT8 * 4096, 1280, 5120
-
-    def randn(*shape, scale=1.0, shift=0.0):
-        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(bf)
-
-    def weight(K, N, col_gain=None):
-        w = torch.randn((K, N), generator=gen, device=dev) * 0.05
-        leaf = quant.quantize_int8(w if col_gain is None else w * col_gain)
-        return leaf["q"], leaf["scale"]
 
     def hold(where, args, f_chunk):
         """K23 against its plain version and K12: (info, out, plain out)."""
@@ -1470,36 +1496,39 @@ def mlp_v2_phase(gen, results: dict) -> dict:
                 "bit_equal_share_vs_k12": bit_equal_share(got, k12),
                 "k12_row_rel_err": row_rel_err(k12, ref)}
         must(f"fused_mlp_block_v2 {where} f_chunk {f_chunk}",
-             err <= tol and bool(torch.isfinite(got.float()).all()), info)
+             err <= tol and bool(torch.isfinite(got.float()).all())
+             and info["bit_equal_share_vs_k12"] == 1.0, info)
         return info, got, ref
 
-    gain = (1 + torch.arange(Fw, device=dev) // 1024).float()
-    w1, s1 = weight(C, Fw, col_gain=gain)
-    w2, s2 = weight(Fw, C)
-    x = randn(T, C, scale=2.0, shift=0.3)
-    g, b = randn(C, scale=0.1, shift=1.0), randn(C, scale=0.1)
-    b1, b2 = randn(Fw, scale=0.5), randn(C, scale=0.5)
-    args = (x, g, b, w1, s1, b1, w2, s2, b2, eps)
-    phase = {"f512": hold("K12 shape", args, 512)[0],
-             "ragged_1000_rows": hold("1000 rows", (x[:1000].contiguous(), *args[1:]), 1024)[0]}
-    info, got, ref = hold("K12 shape", args, 1024)
+    args = k12_phase_inputs(gen, T, C, Fw)
+    ragged = (args[0][:1000].contiguous(), *args[1:])
+    phase = {"ragged_1000_rows": hold("1000 rows", ragged, 1024)[0],
+             "ragged_1000_rows_f512": hold("1000 rows", ragged, 512)[0]}
+    del ragged
+    refs = {}
+    phase["f512"], _, refs[512] = hold("K12 shape", args, 512)
+    info, got, refs[1024] = hold("K12 shape", args, 1024)
     phase["f1024"] = info
     mutants = {}
     for m, (src, define) in V2_MUTANTS.items():
         with kernels.mutant(src, define):
-            out = mlp_kernel._mlp_block_v2_cuda(*args, 1024)[0]
-        torch.cuda.synchronize()
-        mutants[m] = must_not("fused_mlp_block_v2", m, row_rel_err(out, ref) <= tol,
-                              row_rel_err(out, ref))
+            for f_chunk, ref in refs.items():
+                out = mlp_kernel._mlp_block_v2_cuda(*args, f_chunk)[0]
+                torch.cuda.synchronize()
+                err = row_rel_err(out, ref)
+                mutants[f"{m}_f{f_chunk}"] = must_not(
+                    "fused_mlp_block_v2", f"{m} f_chunk {f_chunk}", err <= tol, err)
     xq, xs = mlp_kernel._mlp_block_v2_cuda(*args, 1024)[1:]
     phase["ms"] = time_ms(lambda: mlp_kernel._mlp_block_v2_cuda(*args, 1024), 10)
     phase["k12_ms"] = time_ms(lambda: mlp_kernel._mlp_block_cuda(*args, 1024), 10)
     phase["stage_ms"] = stage_ms(
         lambda bits: mlp_kernel._mlp_block_v2_cuda(*args, 1024, stages=bits, scratch=(xq, xs)),
         {"row_pass": 1, "fc1": 2, "fc2": 4, "fc1_fc2": 6})
+    phase["f512_ms"] = time_ms(lambda: mlp_kernel._mlp_block_v2_cuda(*args, 512), 10)
+    phase["k12_f512_ms"] = time_ms(lambda: mlp_kernel._mlp_block_cuda(*args, 512), 10)
     phase["shape"] = [T, C, Fw]
     log(f"[kernel] fused_mlp_block_v2 at K12's shape {json.dumps(phase)}")
-    del x, w1, w2, args, got, ref, out, xq, xs
+    del args, got, refs, ref, out, xq, xs
     torch.cuda.empty_cache()
 
     # The microbenchmark's shape and inputs.
@@ -1526,6 +1555,12 @@ def mlp_v2_phase(gen, results: dict) -> dict:
         lambda: library_mlp(*margs, 1024),
         nbytes(*margs[:-1], got), 4.0 * Tm * C * Fw, iters=10, flops_per_s=INT8_OPS_PER_S)
     line["shape"] = [Tm, C, Fw]
+    line["f512_ms"] = time_ms(lambda: mlp_kernel._mlp_block_v2_cuda(*margs, 512), 10)
+    line["kernel"] = {f"f{fc}": kernels.kernel_attrs(*V2_ATTRS, fc) for fc in (1024, 512)}
+    line["sass"] = sass_counts("mlp_block_v2_int8.cu", "mlp_v2_kernel", ("IGMMA", "UTMALDG", "IMMA"))
+    if line["sass"] != "not measured":
+        must("fused_mlp_block_v2 SASS", line["sass"]["IGMMA"] > 0 and line["sass"]["UTMALDG"] > 0
+             and line["sass"]["IMMA"] == 0, line["sass"])
     results["fused_mlp_block_v2"] = line
     log(f"[kernel] fused_mlp_block_v2 stages {json.dumps(minfo['stage_ms'])}; "
         f"K12 {json.dumps(minfo['k12_stage_ms'])}")
@@ -2471,6 +2506,10 @@ TRAIN_MUTANTS = {
     "flash_attention_bwd_dq": ("flash_attention_bwd.cu", "ULLAVA_MUTANT_DQ_NO_SCALE"),
     "rms_norm_bwd": ("rms_norm_bwd.cu", "ULLAVA_MUTANT_NO_C"),
 }
+# K18's second bug, in its fused two-value reduction: the slot's last warp's
+# partial pair left out.
+K18_MUTANTS = {"warp_left_out": ("rms_norm_bwd.cu", "ULLAVA_MUTANT_RMS_BWD_WARP_OUT")}
+K18_ATTRS = ("rms_norm_bwd.cu", "ullava_rms_norm_bwd_attrs")
 # K15's second bug, in its masking: a masked tile's causal bound one key late.
 K15_MASK_MUTANT = ("flash_fwd_sm90.cu", "ULLAVA_MUTANT_CAUSAL_SHIFT")
 # The fused backward's own hazards (besides delta and scale dropped, in
@@ -2707,10 +2746,12 @@ def train_kernel_phases(gen, results: dict) -> None:
     dx2, dw = norms.rms_norm_bwd(x, w, dy, 1e-6, need_dw=True)
     err, err_dw = row_rel_err(dx, dx_ref), row_rel_err(dw[None], dw_ref[None])
     must("rms_norm_bwd", err <= tol and err_dw <= tol and torch.equal(dx, dx2), (err, err_dw))
-    src, define = TRAIN_MUTANTS["rms_norm_bwd"]
-    with kernels.mutant(src, define):
-        bad = row_rel_err(norms.rms_norm_bwd(x, w, dy, 1e-6, need_dw=False)[0], dx_ref)
-    must_not("rms_norm_bwd", define, bad <= tol, bad)
+    bad = {}
+    for m, (src, define) in {"c_term_dropped": TRAIN_MUTANTS["rms_norm_bwd"],
+                             **K18_MUTANTS}.items():
+        with kernels.mutant(src, define):
+            bad[m] = row_rel_err(norms.rms_norm_bwd(x, w, dy, 1e-6, need_dw=False)[0], dx_ref)
+        must_not("rms_norm_bwd", define, bad[m] <= tol, bad[m])
     xr, wr = x.detach().clone().requires_grad_(True), w.detach().clone().requires_grad_(True)
     y = F.rms_norm(xr, (D,), wr, 1e-6)
     dw_form = {
@@ -2719,11 +2760,12 @@ def train_kernel_phases(gen, results: dict) -> None:
         "plain_ms": time_ms(lambda: norms.rms_norm_bwd_plain(x, w, dy, 1e-6), 5, warmup=1),
         "library_ms": time_ms(lambda: torch.autograd.grad(y, (xr, wr), dy, retain_graph=True), 20),
         "bound_ms": bound_ms(nbytes(x, w, dy, dx, dw), 13.0 * x.numel(), FP32_FLOPS_PER_S)[0],
+        "kernel": kernels.kernel_attrs(*K18_ATTRS, D, 1),
     }
     results["rms_norm_bwd"] = kernel_line(
         "rms_norm_bwd", (dx.float() - dx_ref.float()).abs().max().item(),
-        {"row_rel_err": err, "tol": tol, "mutant_row_rel_err": {"c_term_dropped": bad},
-         "dw_form": dw_form},
+        {"row_rel_err": err, "tol": tol, "mutant_row_rel_err": bad, "dw_form": dw_form,
+         "kernel": kernels.kernel_attrs(*K18_ATTRS, D, 0)},
         lambda: norms.rms_norm_bwd(x, w, dy, 1e-6, need_dw=False),
         lambda: norms.rms_norm_bwd_plain(x, w, dy, 1e-6, need_dw=False),
         lambda: torch.autograd.grad(y, xr, dy, retain_graph=True),
@@ -3491,7 +3533,8 @@ def weight_only_encode_phase(cfg, params, images_sam) -> dict:
 # backward's pre-pass, fused pass (K16) and dq finish (K17); K4 on the
 # global core (its problem type's name); the weight-only kernels: the
 # wgmma + TMA core's GEMMs (K10's, K12's and K13's), K13's alone (its
-# epilogue form's name), and their bf16 LayerNorm row pass).
+# epilogue form's name), and their bf16 LayerNorm row pass; K18's main
+# kernel, not its dw reduce).
 PROFILE_WATCH = {"rope": "rope_kernel", "kv_quant_write": "kv_quant_write_kernel",
                  "decode_attention_int8_fused_write": "fused_write_kernel",
                  "fused_ln_linear_dual_gemm": "DualLinearEpi",
@@ -3506,7 +3549,7 @@ PROFILE_WATCH = {"rope": "rope_kernel", "kv_quant_write": "kv_quant_write_kernel
                  "fused_global_attention": "HeadMajorGlobal",
                  "wq_gemm_sm90": "wq_sm90::gemm_kernel",
                  "fused_ln_linear_dual_wq_gemm": "DualForm>",
-                 "wq_ln_rows": "ln_rows_bf16_kernel"}
+                 "wq_ln_rows": "ln_rows_bf16_kernel", "rms_norm_bwd": "rms_bwd_kernel"}
 
 
 def _dev_us(e):
@@ -3983,7 +4026,8 @@ def main() -> int:
         *K12_MUTANTS.values(), *K13_MUTANTS.values(), *K8_MUTANTS.values(),
         *BWD_MUTANTS.values(), *K9_MUTANTS.values(), *K10_MUTANTS.values(),
         *K1_MUTANTS.values(), *K7_MUTANTS.values(), *WQ_WIDEN_MUTANTS.values(),
-        *WQ_EPILOGUE_MUTANTS.values(), WQ_DUAL_MUTANT, *K4_MUTANTS.values()])
+        *WQ_EPILOGUE_MUTANTS.values(), WQ_DUAL_MUTANT, *K4_MUTANTS.values(),
+        *K18_MUTANTS.values()])
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "sources": sorted(built)}), flush=True)
 

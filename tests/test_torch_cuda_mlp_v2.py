@@ -10,8 +10,10 @@ Gate: the output within 1e-2 of each row's largest value (one bf16 ulp
 there, plus what a flipped int8 step moves), as for `fused_mlp_block`; and
 bit-equal to `fused_mlp_block`'s kernel at the same f_chunk, whose
 roundings it repeats in the same order. T = 1024 + 64 is the shape of
-`fused_mlp_block`'s card test (no multiple of its 128-row tile); 1024 + 40
-is no multiple of this kernel's 64-row tile, whose rows past T are masked.
+`fused_mlp_block`'s card test (no multiple of the 128-row tile of either
+kernel); 1024 + 40, 1000 and 1 leave the last cluster's rows ragged (TMA
+reads its rows past T as zeros, and they are not stored); 4096 + 128
+fills 33 clusters, more than the card runs at once.
 """
 
 import pytest
@@ -54,7 +56,7 @@ def _mlp_args(gen, T, C, F):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [1024 + 64, 1024 + 40])
+@pytest.mark.parametrize("T", [1024 + 64, 1024 + 40, 1000, 1, 4096 + 128])
 @pytest.mark.parametrize("f_chunk", [512, 1024])
 def test_cuda_fused_mlp_block_v2_matches_plain(cuda, f_chunk, T):
     args = _mlp_args(cuda, T, 1280, 5120)

@@ -204,8 +204,12 @@ def test_cuda_flash_bwd_matches_plain(cuda, causal, lens):
         assert not got[1][b, n:].any() and not got[2][b, n:].any()
 
 
+# Row widths of each register layout the kernel takes (1, 2, 4 and 8
+# vectors a thread; 4104 and 1032 leave the last vectors of a row to some
+# threads only), row counts below, at and far above the rows in flight.
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,D", [(300, 4096), (64, 128)])
+@pytest.mark.parametrize("rows,D", [(300, 4096), (64, 128), (1, 4096), (4096, 4096),
+                                    (1000, 8192), (5, 4104), (333, 1032), (7, 2048)])
 def test_cuda_rms_norm_bwd_matches_plain(cuda, rows, D):
     x = _rand(cuda, rows, D, scale=2.0)
     dy = (0.5 * x.float() + torch.randn(rows, D, generator=cuda, device="cuda")).to(torch.bfloat16)
@@ -218,6 +222,15 @@ def test_cuda_rms_norm_bwd_matches_plain(cuda, rows, D):
     assert _row_rel_err(dw[None], dw_ref[None]) <= _TOL
     # Deterministic: the dw partials are summed in a fixed order.
     assert torch.equal(norms.rms_norm_bwd(x, w, dy, 1e-6, need_dw=True)[1], dw)
+
+
+@pytest.mark.cuda
+def test_cuda_rms_norm_bwd_refuses_rows_wider_than_its_registers(cuda):
+    D = norms.MAX_BWD_ROW_WIDTH + 8
+    x = _rand(cuda, 4, D)
+    w = torch.ones(D, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="exceeds"):
+        norms.rms_norm_bwd(x, w, x, 1e-6, need_dw=False)
 
 
 @pytest.mark.cuda

@@ -112,7 +112,8 @@ _AB_ROOTS = {"__future__", "argparse", "dataclasses", "importlib", "json", "subp
              "pathlib", "torch", "ullava_tpu_torch"}
 
 
-@pytest.mark.parametrize("name", ["flash_bwd_ab", "serve_ab", "stream_ab", "stage2_ab"])
+@pytest.mark.parametrize("name", ["flash_bwd_ab", "serve_ab", "stream_ab", "stage2_ab",
+                                  "mlp_v2_ab"])
 def test_ab_microbenchmarks_import_torch_only_and_need_a_card(name):
     """The parent-against-change microbenchmarks import torch, the port and
     the standard library only (chip_smoke.py by path, at run time), and

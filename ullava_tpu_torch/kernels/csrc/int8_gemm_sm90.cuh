@@ -1,6 +1,6 @@
 // An int8 x int8 -> int32 GEMM core for Hopper (sm_90a) on wgmma and TMA,
-// with its epilogue a functor, as int8_gemm_core.cuh (the mma.sync core)
-// is for the chunk-pipelined MLP (K23). The fused W8A8 MLP (K12,
+// with its epilogue a functor, and the cluster helpers that the
+// chunk-pipelined MLP (K23, mlp_block_v2_int8.cu) shares. The fused W8A8 MLP (K12,
 // mlp_block_int8.cu) runs both of its products on it, the dual LN1 + qkv
 // of the resident window blocks (K13, ln_linear_int8.cu) its two in one
 // launch, and the fused LN + linear and proj + residual (K10,

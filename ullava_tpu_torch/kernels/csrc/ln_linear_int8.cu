@@ -14,7 +14,7 @@
 //
 // Design: two launches, because a 1024-row tile with its accumulator does
 // not fit an SM's shared memory. (1) A row pass (one warp per row,
-// int8_gemm_core.cuh, shared with K12 and K13) does the LayerNorm in fp32
+// ln_quant_rows.cuh, shared with K12, K13 and K23) does the LayerNorm in fp32
 // and writes int8 rows and one fp32 scale per row to scratch: 1 byte per
 // element leaves and re-enters HBM, a sixth of the kernel's own traffic.
 // (2) One launch of the wgmma + TMA int8 core (int8_gemm_sm90.cuh), one
@@ -62,7 +62,7 @@
 //                                      scale, not W2's;
 //   ULLAVA_MUTANT_LINEAR_RESIDUAL_ROW  fused_linear's prefetched residual
 //                                      taken from the thread's other row.
-#include "int8_gemm_core.cuh"
+#include "ln_quant_rows.cuh"
 #include "int8_gemm_sm90.cuh"
 
 namespace ullava {

@@ -5,7 +5,7 @@
 // GEMM to read by TMA.
 #pragma once
 
-#include "int8_gemm_core.cuh"
+#include "ln_quant_rows.cuh"
 
 namespace ullava {
 namespace wq {

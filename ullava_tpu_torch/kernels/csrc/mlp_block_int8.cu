@@ -15,7 +15,7 @@
 // [rows, 1280] fp32 accumulator next to the operand tiles at a row count
 // that keeps the tensor cores busy, so the intermediate crosses HBM once,
 // as int8 (1 byte per element, a quarter of its fp32 size).
-//   1. row pass: LayerNorm + per-row int8 quantization (int8_gemm_core.cuh);
+//   1. row pass: LayerNorm + per-row int8 quantization (ln_quant_rows.cuh);
 //   2. fc1 on the wgmma + TMA int8 core (int8_gemm_sm90.cuh). Its epilogue
 //      computes h = gelu(acc * (xs * s1) + b1) in fp32, in the accumulator
 //      registers. A chunk's abs-max of a row spans f_chunk / 128
@@ -44,7 +44,7 @@
 //   ULLAVA_MUTANT_MLP_NEXT_CHUNK_SCALE fc2 scales a chunk's sums by the
 //                                      next chunk's hs.
 #include "gelu_poly.cuh"
-#include "int8_gemm_core.cuh"
+#include "ln_quant_rows.cuh"
 #include "int8_gemm_sm90.cuh"
 
 namespace ullava {

@@ -4,7 +4,8 @@
 // the LN'd row quantized once, fc1 int8 x int8, the polynomial-erf GELU,
 // its output re-quantized per row and per chunk of f_chunk columns, fc2
 // int8 x int8 with each chunk's int32 sums rescaled by hs * s2 into an fp32
-// sum in chunk order, then + b2 + x and one bf16 rounding.
+// sum in chunk order, then + b2 + x and one bf16 rounding. int32 sums are
+// exact in any order, and every fp32 operation is K12's, in K12's order.
 //
 // Replaces: ullava_tpu/ops/mlp_kernel.py:314 fused_mlp_block_v2 (a Pallas
 // kernel whose grid step k issues the fc1 product of chunk k into a parity
@@ -19,450 +20,648 @@
 //
 // Design: two launches.
 //  1. the row pass of K12: LayerNorm + per-row int8 quantization
-//     (int8_gemm_core.cuh), xq [T, C] int8 and xs [T] f32;
-//  2. one kernel for the rest. A thread block cluster of 8 blocks owns 64
-//     rows. Block r computes columns [r, r + 1) * f_chunk / 8 of every
-//     chunk's fc1 and output columns [r, r + 1) * C / 8 of fc2: no work is
-//     repeated, and the [64, C] fp32 accumulator is split 8 ways (40
-//     registers a thread at C = 1280). Step s of n_chunks + 1:
-//       a. fc1 of chunk s (mma.sync int8, int32 sums in registers);
-//       b. the re-quantization of chunk s - 1: the chunk's row abs-max is
-//          the max of the 8 blocks' partial maxima, read through
-//          distributed shared memory; the GELU values held in registers
-//          since step s - 1 are quantized into this block's int8 slice,
-//          hbuf[(s - 1) % 2];
-//       c. the GELU of chunk s and this block's partial row abs-max of it,
-//          into amax[s % 2];
-//       d. one cluster barrier;
-//       e. fc2 of chunk s - 1: the 8 slices of hbuf[(s - 1) % 2] are copied
-//          from the cluster into this block's shared memory (sH), and the
-//          int32 sums of the chunk are rescaled into the fp32 accumulator.
-//     After the last step: + b2 + x and one bf16 rounding.
-//   The GELU intermediate lives in registers and shared memory only.
-//   Hazards, each covered by the one cluster barrier a step:
-//     - hbuf[b] is written at step s (b) and read by the peers at step s
-//       (e): the barrier of step s lies between;
-//     - hbuf[b] is written again at step s + 2 (b), after the barrier of
-//       step s + 1, which every peer reaches only after its step-s reads;
-//     - amax[b] is written at step s (c), read at step s + 1 (b) and
-//       written again at step s + 2 (c), after the barrier of step s + 1.
-//   A last cluster barrier keeps each block's shared memory alive until
-//   its peers have copied the last chunk.
+//     (ln_quant_rows.cuh), xq [T, C] int8 and xs [T] f32;
+//  2. one kernel on wgmma + TMA (sm90.cuh) for the rest. A thread block
+//     cluster of 8 blocks owns 128 rows. Each block is a producer warpgroup
+//     (one thread issues every TMA copy; setmaxnreg leaves it 24 registers)
+//     and two consumer warpgroups of 64 rows each (240 registers). Block r
+//     owns fc1 columns [r, r + 1) x f_chunk / 8 of every chunk (N1 = 128 at
+//     f_chunk 1024, 64 at 512) and fc2 output columns [r, r + 1) x 160: no
+//     work is repeated, and each cluster of 128 rows reads each weight
+//     once (15.4 GB from L2 at the microbenchmark's shape).
+//     For chunk s:
+//       a. fc1: a 128-byte k-block of xq's 128 rows and of the block's W1t
+//          rows by TMA (both K-major, as 8-bit wgmma takes them, 128-byte
+//          swizzle); the x rows are multicast: block r loads rows [16 r,
+//          16 r + 16) into all 8 blocks' stages, so the cluster reads x
+//          from L2 once, not 8 times. wgmma.m64nN1k32.s32.s8.s8, int32
+//          sums in registers;
+//       b. in the accumulator registers: h = gelu(acc * (xs * s1) + b1)
+//          (K12's expression) and the block's partial row abs-max of it
+//          (the quad that holds a row holds all N1 of the block's
+//          columns); the maxima go to shared memory, and every consumer
+//          warp arrives on `bar_amax` of all 8 blocks;
+//       c. after its own `bar_amax` phase, each thread reads its two rows'
+//          8 partial maxima through distributed shared memory (a quad
+//          splits the 8 peers), amax = max(m, 1e-12), quantizes h by
+//          127 / amax (a true division, then the product, rounded half to
+//          even: K12's), and stores its int8 pairs into its own block's h
+//          buffer at the block's columns;
+//       d. the block's slice [128, N1] goes into the same place of the 7
+//          peers' h buffers. At f_chunk 1024 it is exactly box r of the
+//          chunk, 16 KB in one piece: one thread copies it to each peer by
+//          cp.async.bulk (shared::cta to shared::cluster), completing on the
+//          peer's `bar_h` as a transaction count. At 512 every thread
+//          stores 16-byte pieces (st.shared::cluster), fences them against
+//          the async proxy and every consumer warp arrives on `bar_h` of
+//          all 8 blocks;
+//       e. after its own `bar_h` phase: fc2 with A = the chunk's
+//          [128, f_chunk] int8 h from the block's own shared memory and
+//          B = the W2t slice [160, 128] by TMA, wgmma.m64n160k32 (80 int32
+//          registers a thread), then acc2 += acc * (hs * s2) into 80 fp32
+//          registers, in chunk order.
+//     After the last chunk: + b2 + x, one bf16 rounding, the store. The
+//     GELU intermediate lives in registers and shared memory only.
+//   Barriers: a warp's arrival on another block's barrier that publishes
+//   data is one fence.acq_rel.cluster by lane 0 and then plain arrivals,
+//   one a block, waited on with acquire at cluster scope. A ring stage's x
+//   part is written by all 8 blocks, so a stage is reused once every
+//   block's consumers are done with it: the consumer warps release it on
+//   their own block's `consumed`, and the block's producer, when it comes
+//   to reuse the stage, forwards that to all 8 blocks' `empty` and waits
+//   for all 8 forwards on its own. (Lane-parallel remote arrivals, lane p
+//   to block p, stopped the card with an illegal instruction in every
+//   variant tried; one lane arriving in each block in turn does not. The
+//   cause is open: ULLAVA_EXPERIMENT_V2_LANE_ARRIVE builds that form.)
+//   Each consumer waits for a k-block's
+//   products before it releases the stage (faster than keeping one
+//   k-block in flight with 3 stages).
+//   The h buffer holds one chunk in the layout wgmma reads A from: f_chunk
+//   / 128 boxes of [128 rows][128 bytes] with the 128-byte swizzle, so a
+//   16-byte piece of a row keeps its 16 bytes together. One buffer, with
+//   the two cluster barriers as its ordering (a second does not fit at
+//   f_chunk 1024: 128 KB of h plus a 96 KB ring):
+//     - a block writes chunk s + 1 into a peer's buffer (d) only after
+//       `bar_amax` of s + 1, which the peer's warps reach only after their
+//       fc2 of chunk s has read the buffer (wgmma waited);
+//     - the partial maxima of s + 1 (b) are written after `bar_h` of s,
+//       which the peers reach only after their reads of chunk s's (c) (the
+//       bulk copies into a block are issued after its peers' reads);
+//     - a barrier's phase s + 1 gets its first arrival only after the
+//       block that owns it passed phase s;
+//     - a bulk copy's source slice is rewritten at chunk s + 1 only after
+//       `bar_amax` of s + 1, which every peer reaches after it received
+//       the copy.
+//   A block's last remote access to a peer precedes something the peer
+//   waits for, except the bulk copies' reads of the sender's own slice: at
+//   f_chunk 1024 one more round of `bar_amax` ends the kernel. One cluster
+//   barrier at the start makes every block's barriers initialised before a
+//   peer arrives on them.
+//   Budgets: f_chunk 1024: ring 3 x 32 KB (an fc1 k-block: 16 KB of x and
+//   16 KB of W1; an fc2 k-block: 20 KB of W2), h 128 KB, 231,000 bytes in
+//   all; f_chunk 512: ring 6 x 24 KB, h 64 KB, 214,688 bytes. One block an
+//   SM; fc1 of chunk s + 1 does not overlap the epilogue and fc2 of chunk
+//   s (the registers would be 64 + 80 + 80 a thread); the producer's ring
+//   runs ahead across both, so the next products' operands load while the
+//   epilogue runs.
 //
-// `stages`: bit 0 the row pass, bit 1 fc1 with the GELU and the
-// re-quantization (a-c), bit 2 fc2 and the output (e), so each can be timed
-// alone (6 = the main kernel, 7 = the function).
+// `stages`: bit 0 the row pass, bit 1 fc1 with the GELU, the
+// re-quantization and the exchange (a-d), bit 2 fc2 and the output (e), so
+// each can be timed alone (6 = the main kernel, 7 = the function).
 //
 // Deliberate bugs for the correctness gate (chip_smoke.py), each built
 // only into a copy of this source under its define:
-//   ULLAVA_MUTANT_V2_ROW_AMAX    one abs-max per whole row (a first pass of
-//                                fc1 and the GELU over every chunk);
-//   ULLAVA_MUTANT_V2_WRONG_BUFFER fc2 of chunk s - 1 reads hbuf[s % 2],
-//                                the buffer the next chunk is written to;
-//   ULLAVA_MUTANT_V2_NO_FC1_BIAS fc1's bias dropped.
-//
-// Not yet: wgmma, TMA multicast of the weight tiles, warp specialisation.
-// The 8 warps of a block run the steps in lockstep, so the tensor-core
-// work of a and e and the FMA work of b and c do not overlap inside an SM.
-#include <cooperative_groups.h>
-
+//   ULLAVA_MUTANT_V2_BLOCK_AMAX   a block quantizes by its own partial row
+//                                 abs-max, without the cluster's;
+//   ULLAVA_MUTANT_V2_PREV_SCALE   fc2 folds chunk s with chunk s - 1's hs;
+//   ULLAVA_MUTANT_V2_NO_FC1_BIAS  fc1's bias dropped;
+//   ULLAVA_MUTANT_V2_PEER_OFFSET  a block's slice is written into each peer
+//                                 at that peer's column offset.
 #include "gelu_poly.cuh"
-#include "int8_gemm_core.cuh"
-
-namespace cg = cooperative_groups;
+#include "int8_gemm_sm90.cuh"
+#include "ln_quant_rows.cuh"
 
 namespace ullava {
-namespace i8 {
 namespace v2 {
 
-constexpr int CL = 8;      // blocks a cluster
-constexpr int ROWS = 64;   // rows a cluster
-constexpr int NTHR = 256;  // 8 warps
-constexpr int LDK = LDS;   // operand ring row stride in bytes (BK + 16)
+using i8_sm90::cluster_rank;
+using i8_sm90::cluster_sync;
+using i8_sm90::consumer_sync;
+using i8_sm90::ld_peer;
+using i8_sm90::load_bf16x2;
+using i8_sm90::store_bf16x2;
 
-// SN: fc1 columns a block (f_chunk / 8); NC2: fc2 output columns a block
-// (C / 8).
-template <int SN, int NC2>
-struct Layout {
-  // fc1: warps 2 (M) x 4 (N), a warp tile of 32 x SN / 4.
-  static constexpr int MI1 = 2, WN1 = SN / 4, NI1 = WN1 / 8;
-  // fc2: warps 4 (M) x 2 (N), a warp tile of 16 x NC2 / 2.
-  static constexpr int WN2 = NC2 / 2, NI2 = WN2 / 8;
-  static constexpr int FC = SN * CL;   // f_chunk
-  static constexpr int LDQ = SN + 16;  // hbuf row stride
-  static constexpr int LDH = FC + 16;  // sH row stride
-  static constexpr int O_RING2 = STAGES * (ROWS + SN) * LDK;
-  static constexpr int O_SH = O_RING2 + STAGES * NC2 * LDK;
-  static constexpr int O_HBUF = O_SH + ROWS * LDH;
-  static constexpr int HBUF = ROWS * LDQ;
-  static constexpr int O_F32 = O_HBUF + 2 * HBUF;
-  // floats: part [4][64], amax [2][64], qs, hs, xs, rowpart [64] each
-  static constexpr int BYTES = O_F32 + 10 * ROWS * 4;
-  static_assert(NI1 % 2 == 0 && NI2 % 2 == 0, "ldmatrix.x4 loads two n8 tiles");
-  static_assert(BYTES <= 232448, "shared memory of one block");
+constexpr int CL = 8;          // blocks a cluster
+constexpr int BM = 128;        // rows a cluster: two consumer warpgroups of 64
+constexpr int kC = 1280;       // SAM ViT-H's width
+constexpr int N2 = kC / CL;    // fc2 output columns a block
+constexpr int kBox = 128;      // bytes of K a TMA box and a k-block
+constexpr int KT1 = kC / kBox;  // fc1 k-blocks a chunk
+constexpr int kThreads = 384;
+constexpr uint32_t kBoxBytes = BM * kBox;  // one [128 rows][128 bytes] box
+constexpr int kXRows = BM / CL;  // x rows a block multicasts
+
+template <int FC>
+struct Cfg {
+  static constexpr int N1 = FC / CL;     // fc1 columns a block a chunk
+  static constexpr int KT2 = FC / kBox;  // fc2 k-blocks a chunk
+  static constexpr uint32_t kTileW1 = N1 * kBox;
+  static constexpr uint32_t kTileW2 = N2 * kBox;
+  static constexpr uint32_t kFc1Bytes = kBoxBytes + kTileW1;
+  static constexpr uint32_t kStage = kFc1Bytes > kTileW2 ? kFc1Bytes : kTileW2;
+  static constexpr int kStages = FC == 1024 ? 3 : 6;
+  static constexpr uint32_t kHOff = kStages * kStage;
+  static constexpr uint32_t kAmaxOff = kHOff + FC * BM;
+  static constexpr uint32_t kBarOff = kAmaxOff + BM * 4;
+  static constexpr size_t kBytes = 1024 + kBarOff + 8 * (3 * kStages + 2);  // 1 KB to align
+  static_assert(kStage % 1024 == 0 && kHOff % 1024 == 0, "swizzled tiles sit on 1024 bytes");
+  static_assert(kBytes <= 232448, "shared memory of one block");
 };
 
-// Starts copying rows [row0, row0 + nrows) x bytes [k0, k0 + BK) of a
-// row-major int8 matrix (row stride ld) into a [nrows][LDK] tile; rows at
-// or past `valid` are zero-filled.
-__device__ __forceinline__ void load_rows_async(int8_t* dst, const int8_t* src, int ld, int row0,
-                                                int nrows, int valid, int k0, int tid) {
-  constexpr int VPR = BK / 16;
-  for (int i = tid; i < nrows * VPR; i += NTHR) {
-    const int r = i / VPR, c = (i % VPR) * 16;
-    const bool ok = row0 + r < valid;
-    const int8_t* g = ok ? src + static_cast<size_t>(row0 + r) * ld + k0 + c : src;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_u32(dst + r * LDK + c)),
-                 "l"(g), "r"(ok ? 16 : 0));
-  }
+#define ULLAVA_RR8(d, i)                                                                      \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), "+r"(d[i + 5]), \
+      "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// d[32] (+)= A (64 x 32 int8, shared) * B (64 x 32, shared, K-major), s32
+// sums; overwritten where `accumulate` is 0.
+__device__ __forceinline__ void wgmma_n64(uint32_t (&d)[32], uint64_t da, uint64_t db,
+                                          int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p;\n"
+      "}\n"
+      : ULLAVA_RR8(d, 0), ULLAVA_RR8(d, 8), ULLAVA_RR8(d, 16), ULLAVA_RR8(d, 24)
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
-template <int SN, int NC2>
-struct Block {
-  using L = Layout<SN, NC2>;
-  static constexpr int C = NC2 * CL;
+// The same at N 160: d[80].
+__device__ __forceinline__ void wgmma_n160(uint32_t (&d)[80], uint64_t da, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "
+      "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
+      "%55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, "
+      "%73, %74, %75, %76, %77, %78, %79}, %80, %81, p;\n"
+      "}\n"
+      : ULLAVA_RR8(d, 0), ULLAVA_RR8(d, 8), ULLAVA_RR8(d, 16), ULLAVA_RR8(d, 24),
+        ULLAVA_RR8(d, 32), ULLAVA_RR8(d, 40), ULLAVA_RR8(d, 48), ULLAVA_RR8(d, 56),
+        ULLAVA_RR8(d, 64), ULLAVA_RR8(d, 72)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 
-  const int8_t* xq;  // [M, C]
-  const int8_t* w1;  // [F][C]
-  const float* s1;   // [F]
-  const bf16* b1;    // [F]
-  const int8_t* w2;  // [C][F]
-  const float* s2;   // [C]
-  const bf16* b2;    // [C]
-  const bf16* x;     // [M, C]
-  bf16* out;         // [M, C]
-  int M, F;
+#undef ULLAVA_RR8
 
-  unsigned char* smem;
-  int tid, lane, warp, g, tq, row0, rank;
+// fc1's product at the block's width N1 (128: the core's m64n128k32).
+__device__ __forceinline__ void wgmma_fc1(uint32_t (&d)[64], uint64_t da, uint64_t db,
+                                          int accumulate) {
+  sm90::wgmma_s8(d, da, db, accumulate);
+}
+__device__ __forceinline__ void wgmma_fc1(uint32_t (&d)[32], uint64_t da, uint64_t db,
+                                          int accumulate) {
+  wgmma_n64(d, da, db, accumulate);
+}
 
-  __device__ __forceinline__ int8_t* ring1() const { return reinterpret_cast<int8_t*>(smem); }
-  __device__ __forceinline__ int8_t* ring2() const {
-    return reinterpret_cast<int8_t*>(smem + L::O_RING2);
-  }
-  __device__ __forceinline__ int8_t* sH() const {
-    return reinterpret_cast<int8_t*>(smem + L::O_SH);
-  }
-  __device__ __forceinline__ int8_t* hbuf(int b) const {
-    return reinterpret_cast<int8_t*>(smem + L::O_HBUF + b * L::HBUF);
-  }
-  __device__ __forceinline__ float* f32() const {
-    return reinterpret_cast<float*>(smem + L::O_F32);
-  }
-  __device__ __forceinline__ float* s_part() const { return f32(); }  // [4][ROWS]
-  __device__ __forceinline__ float* s_amax(int b) const { return f32() + (4 + b) * ROWS; }
-  __device__ __forceinline__ float* s_qs() const { return f32() + 6 * ROWS; }
-  __device__ __forceinline__ float* s_hs() const { return f32() + 7 * ROWS; }
-  __device__ __forceinline__ float* s_xs() const { return f32() + 8 * ROWS; }
-  __device__ __forceinline__ float* s_rowpart() const { return f32() + 9 * ROWS; }
+// Arrives (the default release at CTA scope) on the barrier at this
+// block's shared address `bar` in the block of `rank`: enough where the
+// arrival only says that this block's reads of a ring stage are done.
+__device__ __forceinline__ void arrive_peer_cta(uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(bar),
+      "r"(rank)
+      : "memory");
+}
 
-  // fc1 warp position and the local row of accumulator row (mi, half).
-  __device__ __forceinline__ int wm1() const { return warp / 4; }
-  __device__ __forceinline__ int wn1() const { return warp % 4; }
-  __device__ __forceinline__ int lrow1(int mi, int half) const {
-    return wm1() * 32 + mi * 16 + g + half * 8;
+// Arrives on `bar` in every block of the cluster, once for the calling
+// warp, releasing the warp's earlier writes at cluster scope: lane 0 fences
+// once (fence.acq_rel.cluster, after `__syncwarp` has ordered the other
+// lanes' writes before it) and then arrives in each block in turn.
+// Built with -DULLAVA_EXPERIMENT_V2_LANE_ARRIVE, lane p arrives in block p
+// after lane 0's fence instead: that form stopped the card with an
+// illegal instruction (PERF.md, open questions); it is kept to isolate
+// why, and no build of the port takes it.
+__device__ __forceinline__ void arrive_all(uint32_t bar, int lane) {
+  __syncwarp();
+#ifdef ULLAVA_EXPERIMENT_V2_LANE_ARRIVE
+  if (lane == 0) asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+  __syncwarp();
+  if (lane < 8) arrive_peer_cta(bar, static_cast<uint32_t>(lane));
+#else
+  if (lane == 0) {
+    asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+    for (uint32_t p = 0; p < 8; ++p) arrive_peer_cta(bar, p);
   }
-  __device__ __forceinline__ int lcol1(int ni) const { return wn1() * L::WN1 + ni * 8 + tq * 2; }
+#endif
+  __syncwarp();
+}
 
-  // a: the int32 fc1 sums of this block's SN columns of chunk c.
-  __device__ __forceinline__ void fc1(int (&acc)[L::MI1][L::NI1][4], int c) const {
-    int8_t* sA = ring1();                     // [STAGES][ROWS][LDK]
-    int8_t* sB = sA + STAGES * ROWS * LDK;    // [STAGES][SN][LDK]
-    const int n0 = c * L::FC + rank * SN;
-    constexpr int KT = C / BK;
-    __syncthreads();  // every warp is done with the ring's last use
-    auto load = [&](int kt, int st) {
-      load_rows_async(sA + st * ROWS * LDK, xq, C, row0, ROWS, M, kt * BK, tid);
-      load_rows_async(sB + st * SN * LDK, w1, C, n0, SN, F, kt * BK, tid);
-    };
-#pragma unroll
-    for (int st = 0; st < STAGES - 1; ++st) {
-      load(st, st);
-      cp_async_commit();
+// Waits (acquire, cluster scope) until the phase of parity `parity` of the
+// barrier has completed.
+__device__ __forceinline__ void wait_cluster(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// Stores 16 bytes at this block's shared address `addr` in the block of
+// `rank`.
+__device__ __forceinline__ void st_peer(uint32_t addr, uint32_t rank, uint4 v) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "st.shared::cluster.v4.u32 [remote], {%2, %3, %4, %5};\n"
+      "}\n" ::"r"(addr),
+      "r"(rank), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+      : "memory");
+}
+
+// One 2-D box of `map` at (c0, c1) into shared address `dst` of every
+// block in `mask`, completing on the barrier at the same address in each.
+__device__ __forceinline__ void tma_load_multicast(uint32_t dst, const CUtensorMap* map,
+                                                   uint32_t bar, int c0, int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4, %5, %6}], [%2], %7;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(0), "r"(0), "h"(mask)
+      : "memory");
+}
+
+// Copies `bytes` from this block's shared address `src` to shared address
+// `dst` of the block of `rank`, completing on that block's barrier at
+// `bar` (a transaction count).
+__device__ __forceinline__ void bulk_to_peer(uint32_t dst, uint32_t src, uint32_t bytes,
+                                             uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 rdst, rbar;\n"
+      "mapa.shared::cluster.u32 rdst, %0, %4;\n"
+      "mapa.shared::cluster.u32 rbar, %3, %4;\n"
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [rdst], [%1], %2, [rbar];\n"
+      "}\n" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(bar), "r"(rank)
+      : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async_all() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+
+// Byte offset of (row, column) of the chunk in the h buffer: box col / 128,
+// the 128-byte swizzle (16-byte piece index ^ row % 8).
+__device__ __forceinline__ uint32_t h_off(int row, int col) {
+  return (col / kBox) * kBoxBytes + row * kBox + ((((col % kBox) / 16) ^ (row % 8)) * 16) +
+         col % 16;
+}
+
+template <int FC>
+__global__ void __launch_bounds__(kThreads, 1)
+    mlp_v2_kernel(const __grid_constant__ CUtensorMap tm_x,
+                  const __grid_constant__ CUtensorMap tm_w1,
+                  const __grid_constant__ CUtensorMap tm_w2, const float* __restrict__ xs,
+                  const float* __restrict__ s1, const bf16* __restrict__ b1,
+                  const float* __restrict__ s2, const bf16* __restrict__ b2,
+                  const bf16* __restrict__ x, bf16* __restrict__ out, int M, int F, int stages) {
+  using namespace sm90;
+  using K = Cfg<FC>;
+  constexpr int N1 = K::N1;
+  constexpr bool kBulk = N1 == kBox;  // a block's slice is one whole box
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // 1024-aligned for the swizzle
+  unsigned char* gbase = smem_raw + (base - raw);
+  auto stage = [&](int s) { return base + s * K::kStage; };
+  auto full = [&](int s) { return base + K::kBarOff + 8 * s; };
+  auto empty = [&](int s) { return base + K::kBarOff + 8 * (K::kStages + s); };
+  auto consumed = [&](int s) { return base + K::kBarOff + 8 * (2 * K::kStages + s); };
+  const uint32_t bar_amax = base + K::kBarOff + 24 * K::kStages;
+  const uint32_t bar_h = bar_amax + 8;
+  const uint32_t hbuf = base + K::kHOff;
+  unsigned char* gh = gbase + K::kHOff;
+  float* s_amax = reinterpret_cast<float*>(gbase + K::kAmaxOff);
+  const uint32_t rank = cluster_rank();
+  const int row0 = (blockIdx.x / CL) * BM;
+  const int n = F / FC;
+  const bool do_fc1 = stages & 2, do_fc2 = stages & 4;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < K::kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(consumed(s), 8);  // this block's consumer warps
+      mbar_init(empty(s), CL);    // every block's producer
     }
-#pragma unroll
-    for (int mi = 0; mi < L::MI1; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < L::NI1; ++ni)
-        acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0;
-    const int a_off = (wm1() * 32 + (lane & 15)) * LDK + (lane >> 4) * 16;
-    const int b_off =
-        (wn1() * L::WN1 + (lane & 7) + ((lane >> 4) << 3)) * LDK + ((lane >> 3) & 1) * 16;
-    for (int kt = 0; kt < KT; ++kt) {
-      cp_async_wait_group<STAGES - 2>();
-      __syncthreads();
-      if (kt + STAGES - 1 < KT) load(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
-      cp_async_commit();
-      const int8_t* tA = sA + (kt % STAGES) * ROWS * LDK + a_off;
-      const int8_t* tB = sB + (kt % STAGES) * SN * LDK + b_off;
-#pragma unroll
-      for (int kk = 0; kk < BK / 32; ++kk) {
-        uint32_t af[L::MI1][4], bfr[L::NI1 / 2][4];
-#pragma unroll
-        for (int mi = 0; mi < L::MI1; ++mi) ldmatrix_x4(af[mi], tA + mi * 16 * LDK + kk * 32);
-#pragma unroll
-        for (int np = 0; np < L::NI1 / 2; ++np) ldmatrix_x4(bfr[np], tB + np * 16 * LDK + kk * 32);
-#pragma unroll
-        for (int mi = 0; mi < L::MI1; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < L::NI1; ++ni)
-            mma_s8(acc[mi][ni], af[mi], bfr[ni / 2][(ni & 1) * 2], bfr[ni / 2][(ni & 1) * 2 + 1]);
+    mbar_init(bar_amax, 8 * CL);  // every consumer warp of the cluster
+    mbar_init(bar_h, kBulk ? 1 : 8 * CL);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer: one thread walks the ring through every chunk's fc1 and
+    // fc2 k-blocks in the order the consumers take them.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int it = 0;
+      // A stage is reused once every block's consumers are done with it
+      // (each block's x rows reach every block's stage): this block's
+      // producer forwards its consumers' release to every block's
+      // `empty`, then waits for all 8 blocks' forwards on its own.
+      auto next = [&](uint32_t bytes) {
+        const int s = it % K::kStages;
+        if (it >= K::kStages) {
+          const uint32_t phase = ((it / K::kStages) - 1) & 1;
+          mbar_wait(consumed(s), phase);
+          for (uint32_t p = 0; p < CL; ++p) arrive_peer_cta(empty(s), p);
+          mbar_wait(empty(s), phase);
+        }
+        mbar_expect_tx(full(s), bytes);
+        ++it;
+        return s;
+      };
+      for (int c = 0; c < n; ++c) {
+        if (do_fc1)
+          for (int kt = 0; kt < KT1; ++kt) {
+            const int s = next(K::kFc1Bytes);
+            // This block's 16 of the 128 x rows, into every block's stage.
+            tma_load_multicast(stage(s) + rank * kXRows * kBox, &tm_x, full(s), kt * kBox,
+                               row0 + static_cast<int>(rank) * kXRows, 0xff);
+            tma_load(stage(s) + kBoxBytes, &tm_w1, full(s), kt * kBox,
+                     c * FC + static_cast<int>(rank) * N1, 0, 0);
+          }
+        if (do_fc2)
+          for (int kt = 0; kt < K::KT2; ++kt) {
+            const int s = next(K::kTileW2);
+            tma_load(stage(s), &tm_w2, full(s), c * FC + kt * kBox, static_cast<int>(rank) * N2,
+                     0, 0);
+          }
       }
     }
+    return;
   }
 
-  // c: h = gelu(acc * (xs * s1) + b1), K12's expression, and this thread's
-  // row abs-maxima of it folded into rmax.
-  __device__ __forceinline__ void gelu(const int (&acc)[L::MI1][L::NI1][4], int c,
-                                       float (&h)[L::MI1][L::NI1][4],
-                                       float (&rmax)[L::MI1][2]) const {
-    float xr[L::MI1][2];
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int cw = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4, ct = threadIdx.x - 128;
+  const int wrow = cw * 64 + warp * 16 + g;  // local row of half 0; half 1 is 8 below
+  float xr[2];
 #pragma unroll
-    for (int mi = 0; mi < L::MI1; ++mi)
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + wrow + 8 * r;
+    xr[r] = row < M ? xs[row] : 0.f;
+  }
+  float f[80];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) xr[mi][half] = s_xs()[lrow1(mi, half)];
-    const int n0 = c * L::FC + rank * SN;
+  for (int i = 0; i < 80; ++i) f[i] = 0.f;
+  float hs[2] = {1.f, 1.f};
+#ifdef ULLAVA_MUTANT_V2_PREV_SCALE
+  float hs_prev[2] = {1.f, 1.f};
+#endif
+  int it = 0;
+
+  // The ring as the consumers walk it: `acquire` waits for k-block `it`'s
+  // stage; `release`, once its products are issued, waits for them and
+  // tells this block's producer that the stage is free.
+  auto acquire = [&]() {
+    const int s = it % K::kStages;
+    mbar_wait(full(s), (it / K::kStages) & 1);
+    wgmma_fence();
+    return s;
+  };
+  auto release = [&](int s) {
+    wgmma_commit();
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(consumed(s));
+    ++it;
+  };
+
+  for (int c = 0; c < n; ++c) {
+    if (do_fc1) {
+      // a: fc1 of the block's N1 columns of chunk c.
+      uint32_t acc[N1 / 2];
 #pragma unroll
-    for (int ni = 0; ni < L::NI1; ++ni) {
-      const int col = n0 + lcol1(ni);
-      const float2 w = *reinterpret_cast<const float2*>(s1 + col);
+      for (int i = 0; i < N1 / 2; ++i) acc[i] = 0;
+      for (int kt = 0; kt < KT1; ++kt) {
+        const int s = acquire();
+        const uint32_t a = stage(s) + cw * 64 * kBox, b = stage(s) + kBoxBytes;
+        wgmma_fc1(acc, desc_sw128(a), desc_sw128(b), kt != 0);
+#pragma unroll
+        for (int kk = 1; kk < kBox / 32; ++kk)
+          wgmma_fc1(acc, desc_sw128(a + 32 * kk), desc_sw128(b + 32 * kk), 1);
+        release(s);
+      }
+      reg_fence(acc);
+
+      // b: the GELU in the accumulator registers, the partial row maxima.
+      const int colb = c * FC + static_cast<int>(rank) * N1;
+      float rmax[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < N1 / 8; ++j) {
+        const int col = colb + 8 * j + 2 * tq;
+        const float2 w = *reinterpret_cast<const float2*>(s1 + col);
 #ifdef ULLAVA_MUTANT_V2_NO_FC1_BIAS
-      const float2 b = make_float2(0.f, 0.f);
+        const float2 bb = make_float2(0.f, 0.f);
 #else
-      const float2 b = load_bf16x2(b1 + col);
+        const float2 bb = load_bf16x2(b1 + col);
 #endif
 #pragma unroll
-      for (int mi = 0; mi < L::MI1; ++mi)
-#pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float v = gelu_poly(static_cast<float>(acc[mi][ni][e]) *
-                                        (xr[mi][e >> 1] * ((e & 1) ? w.y : w.x)) +
-                                    ((e & 1) ? b.y : b.x));
-          h[mi][ni][e] = v;
-          rmax[mi][e >> 1] = fmaxf(rmax[mi][e >> 1], fabsf(v));
+          const int i = 4 * j + e, r = e >> 1;
+          const float v = i8::gelu_poly(static_cast<float>(static_cast<int>(acc[i])) *
+                                            (xr[r] * ((e & 1) ? w.y : w.x)) +
+                                        ((e & 1) ? bb.y : bb.x));
+          acc[i] = __float_as_uint(v);
+          rmax[r] = fmaxf(rmax[r], fabsf(v));
         }
-    }
-  }
-
-  // This block's row abs-maxima over its SN columns: reduced over the
-  // quad, then over the 4 column warps into dst[ROWS].
-  __device__ __forceinline__ void reduce_rows(const float (&rmax)[L::MI1][2], float* dst) const {
-#pragma unroll
-    for (int mi = 0; mi < L::MI1; ++mi)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float m = rmax[mi][half];
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-        if (tq == 0) s_part()[wn1() * ROWS + lrow1(mi, half)] = m;
       }
-    __syncthreads();
-    if (tid < ROWS) {
-      float m = s_part()[tid];
 #pragma unroll
-      for (int w = 1; w < 4; ++w) m = fmaxf(m, s_part()[w * ROWS + tid]);
-      dst[tid] = m;
-    }
-  }
+      for (int r = 0; r < 2; ++r) {
+        const float m = quad_max(rmax[r]);
+        if (tq == 0) s_amax[wrow + 8 * r] = m;
+      }
+      arrive_all(bar_amax, lane);
+      wait_cluster(bar_amax, c & 1);
 
-  // b: the chunk's scales from the cluster's partial maxima in amax[b],
-  // and h quantized into hbuf[b].
-  __device__ __forceinline__ void requant(const float (&h)[L::MI1][L::NI1][4], int b,
-                                          cg::cluster_group& cluster) const {
-    __syncthreads();  // the last chunk's fc2 has read s_hs (no fc1 between at the last step)
-    if (tid < ROWS) {
-      float m = 0.f;
+      // c: the chunk's scales from the cluster's maxima; h quantized into
+      // the block's columns of its own h buffer.
+      float qs[2];
 #pragma unroll
-      for (int r = 0; r < CL; ++r) m = fmaxf(m, cluster.map_shared_rank(s_amax(b), r)[tid]);
-      const float amax = fmaxf(m, 1e-12f);
-      s_qs()[tid] = 127.0f / amax;
-      s_hs()[tid] = amax * (1.0f / 127.0f);
-    }
-    __syncthreads();
-    int8_t* q = hbuf(b);
+      for (int r = 0; r < 2; ++r) {
+        const float* mine = s_amax + wrow + 8 * r;
+#ifdef ULLAVA_MUTANT_V2_BLOCK_AMAX
+        const float m = *mine;
+#else
+        const float m = quad_max(fmaxf(ld_peer(mine, tq), ld_peer(mine, tq + 4)));
+#endif
+        const float amax = fmaxf(m, 1e-12f);
+        qs[r] = 127.0f / amax;
+#ifdef ULLAVA_MUTANT_V2_PREV_SCALE
+        hs_prev[r] = c > 0 ? hs[r] : amax * (1.0f / 127.0f);
+#endif
+        hs[r] = amax * (1.0f / 127.0f);
+      }
 #pragma unroll
-    for (int mi = 0; mi < L::MI1; ++mi)
+      for (int r = 0; r < 2; ++r) {
+        const int lr = wrow + 8 * r;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int lr = lrow1(mi, half);
-        const float qs = s_qs()[lr];
-#pragma unroll
-        for (int ni = 0; ni < L::NI1; ++ni) {
-          const int q0 = __float2int_rn(h[mi][ni][half * 2] * qs);
-          const int q1 = __float2int_rn(h[mi][ni][half * 2 + 1] * qs);
-          *reinterpret_cast<uint16_t*>(q + lr * L::LDQ + lcol1(ni)) =
+        for (int j = 0; j < N1 / 8; ++j) {
+          const int q0 = __float2int_rn(__uint_as_float(acc[4 * j + 2 * r]) * qs[r]);
+          const int q1 = __float2int_rn(__uint_as_float(acc[4 * j + 2 * r + 1]) * qs[r]);
+          const int col = static_cast<int>(rank) * N1 + 8 * j + 2 * tq;
+          *reinterpret_cast<uint16_t*>(gh + h_off(lr, col)) =
               static_cast<uint16_t>((q0 & 0xff) | ((q1 & 0xff) << 8));
         }
       }
-  }
-
-  // e: fc2 of chunk c on the cluster's hbuf[b], rescaled into f.
-  __device__ __forceinline__ void fc2(float (&f)[L::NI2][4], int c, int b,
-                                      cg::cluster_group& cluster) const {
-    int8_t* sB = ring2();  // [STAGES][NC2][LDK]
-    int8_t* h = sH();      // [ROWS][LDH]
-    const int k0 = c * L::FC, n0 = rank * NC2;
-    constexpr int KT = L::FC / BK;
-    __syncthreads();  // every warp is done with the ring and sH of the last chunk
-    auto load = [&](int kt, int st) {
-      load_rows_async(sB + st * NC2 * LDK, w2, F, n0, NC2, C, k0 + kt * BK, tid);
-    };
-#pragma unroll
-    for (int st = 0; st < STAGES - 1; ++st) {
-      load(st, st);
-      cp_async_commit();
-    }
-    // The chunk's [ROWS, FC] int8 rows: SN columns from each block.
-    constexpr int VPR = L::FC / 16, VPS = SN / 16;
-    for (int i = tid; i < ROWS * VPR; i += NTHR) {
-      const int r = i / VPR, v = i % VPR;
-      const int8_t* src = cluster.map_shared_rank(hbuf(b), v / VPS) + r * L::LDQ + (v % VPS) * 16;
-      *reinterpret_cast<uint4*>(h + r * L::LDH + v * 16) = *reinterpret_cast<const uint4*>(src);
-    }
-    const int wm2 = warp / 2, wn2 = warp % 2;
-    int acc[L::NI2][4];
-#pragma unroll
-    for (int ni = 0; ni < L::NI2; ++ni) acc[ni][0] = acc[ni][1] = acc[ni][2] = acc[ni][3] = 0;
-    const int a_off = (wm2 * 16 + (lane & 15)) * L::LDH + (lane >> 4) * 16;
-    const int b_off =
-        (wn2 * L::WN2 + (lane & 7) + ((lane >> 4) << 3)) * LDK + ((lane >> 3) & 1) * 16;
-    for (int kt = 0; kt < KT; ++kt) {
-      cp_async_wait_group<STAGES - 2>();
-      __syncthreads();  // also makes sH visible at kt = 0
-      if (kt + STAGES - 1 < KT) load(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
-      cp_async_commit();
-      const int8_t* tA = h + a_off + kt * BK;
-      const int8_t* tB = sB + (kt % STAGES) * NC2 * LDK + b_off;
-#pragma unroll
-      for (int kk = 0; kk < BK / 32; ++kk) {
-        uint32_t af[4], bfr[L::NI2 / 2][4];
-        ldmatrix_x4(af, tA + kk * 32);
-#pragma unroll
-        for (int np = 0; np < L::NI2 / 2; ++np) ldmatrix_x4(bfr[np], tB + np * 16 * LDK + kk * 32);
-#pragma unroll
-        for (int ni = 0; ni < L::NI2; ++ni)
-          mma_s8(acc[ni], af, bfr[ni / 2][(ni & 1) * 2], bfr[ni / 2][(ni & 1) * 2 + 1]);
-      }
-    }
-    // acc2 += acc * (hs * s2): K12's fc2 rescale.
-    float hr[2];
-#pragma unroll
-    for (int half = 0; half < 2; ++half) hr[half] = s_hs()[wm2 * 16 + g + half * 8];
-#pragma unroll
-    for (int ni = 0; ni < L::NI2; ++ni) {
-      const int col = n0 + wn2 * L::WN2 + ni * 8 + tq * 2;
-      const float2 w = *reinterpret_cast<const float2*>(s2 + col);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        f[ni][e] += static_cast<float>(acc[ni][e]) * (hr[e >> 1] * ((e & 1) ? w.y : w.x));
-    }
-  }
-
-  // out = f + b2 + x, rounded once; rows past M are not stored.
-  __device__ __forceinline__ void store(const float (&f)[L::NI2][4]) const {
-    const int wm2 = warp / 2, wn2 = warp % 2;
-#pragma unroll
-    for (int ni = 0; ni < L::NI2; ++ni) {
-      const int col = rank * NC2 + wn2 * L::WN2 + ni * 8 + tq * 2;
-      const float2 b = load_bf16x2(b2 + col);
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = row0 + wm2 * 16 + g + half * 8;
-        if (row >= M) continue;
-        const size_t at = static_cast<size_t>(row) * C + col;
-        const float2 r = load_bf16x2(x + at);
-        store_bf16x2(out + at, f[ni][half * 2] + b.x + r.x, f[ni][half * 2 + 1] + b.y + r.y);
-      }
-    }
-  }
-};
-
-template <int SN, int NC2>
-__global__ void __launch_bounds__(NTHR, 1)
-    mlp_v2_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
-                  const int8_t* __restrict__ w1, const float* __restrict__ s1,
-                  const bf16* __restrict__ b1, const int8_t* __restrict__ w2,
-                  const float* __restrict__ s2, const bf16* __restrict__ b2,
-                  const bf16* __restrict__ x, bf16* __restrict__ out, int M, int F, int stages) {
-  using L = Layout<SN, NC2>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  Block<SN, NC2> blk{xq, w1, s1, b1, w2, s2, b2, x, out, M, F};
-  blk.smem = smem;
-  blk.tid = threadIdx.x;
-  blk.lane = threadIdx.x % 32;
-  blk.warp = threadIdx.x / 32;
-  blk.g = blk.lane / 4;
-  blk.tq = blk.lane % 4;
-  blk.row0 = (blockIdx.x / CL) * ROWS;
-  blk.rank = static_cast<int>(cluster.block_rank());
-  const bool do_fc1 = stages & 2, do_fc2 = stages & 4;
-  const int n = F / L::FC;
-
-  if (blk.tid < ROWS) {
-    const int row = blk.row0 + blk.tid;
-    blk.s_xs()[blk.tid] = row < M ? xs[row] : 0.f;
-  }  // published by fc1's first barrier
-
-  int acc1[L::MI1][L::NI1][4];
-  float h[L::MI1][L::NI1][4];
-  float f[L::NI2][4];
-#pragma unroll
-  for (int ni = 0; ni < L::NI2; ++ni) f[ni][0] = f[ni][1] = f[ni][2] = f[ni][3] = 0.f;
-
-#ifdef ULLAVA_MUTANT_V2_ROW_AMAX
-  if (do_fc1) {
-    float rmax[L::MI1][2] = {};
-    for (int c = 0; c < n; ++c) {
-      blk.fc1(acc1, c);
-      blk.gelu(acc1, c, h, rmax);
-    }
-    blk.reduce_rows(rmax, blk.s_rowpart());
-  }
-#endif
-
-  for (int s = 0; s <= n; ++s) {
-    if (do_fc1) {
-      if (s < n) blk.fc1(acc1, s);                         // a
-      if (s > 0) blk.requant(h, (s - 1) % 2, cluster);     // b
-      if (s < n) {                                         // c
-        float rmax[L::MI1][2] = {};
-        blk.gelu(acc1, s, h, rmax);
-        blk.reduce_rows(rmax, blk.s_amax(s % 2));
-#ifdef ULLAVA_MUTANT_V2_ROW_AMAX
-        if (blk.tid < ROWS) blk.s_amax(s % 2)[blk.tid] = blk.s_rowpart()[blk.tid];
-#endif
-      }
-    }
-    cluster.sync();                                        // d
-#ifdef ULLAVA_MUTANT_V2_WRONG_BUFFER
-    if (do_fc2 && s > 0) blk.fc2(f, s - 1, s % 2, cluster);
+      if constexpr (kBulk) {
+        // d: the slice is box `rank` of the chunk, 16 KB in one piece: one
+        // thread copies it into the 7 peers by the async proxy, each copy
+        // completing on the peer's `bar_h`, and arms its own `bar_h` for
+        // the 7 copies it receives.
+        fence_proxy_async_all();  // the slice's generic stores before the async proxy reads them
+        consumer_sync();
+        if (ct == 0) {
+#pragma unroll 1
+          for (uint32_t p = 1; p < CL; ++p) {
+            const uint32_t peer = (rank + p) % CL;
+#ifdef ULLAVA_MUTANT_V2_PEER_OFFSET
+            const uint32_t dst = hbuf + peer * kBoxBytes;
 #else
-    if (do_fc2 && s > 0) blk.fc2(f, s - 1, (s - 1) % 2, cluster);  // e
+            const uint32_t dst = hbuf + rank * kBoxBytes;
 #endif
+            bulk_to_peer(dst, hbuf + rank * kBoxBytes, kBoxBytes, bar_h, peer);
+          }
+          mbar_expect_tx(bar_h, (CL - 1) * kBoxBytes);
+        }
+        mbar_wait(bar_h, c & 1);
+      } else {
+        consumer_sync();
+        // d: the block's slice into the 7 peers' h buffers, 16 bytes a store.
+        constexpr int kPieces = N1 / 16;
+#pragma unroll
+        for (int k = 0; k < BM * kPieces / 256; ++k) {
+          const int u = ct + 256 * k;
+          const int row = u / kPieces, col = static_cast<int>(rank) * N1 + (u % kPieces) * 16;
+          const uint32_t off = h_off(row, col);
+          const uint4 v = *reinterpret_cast<const uint4*>(gh + off);
+#pragma unroll
+          for (uint32_t p = 1; p < CL; ++p) {
+            const uint32_t peer = (rank + p) % CL;
+#ifdef ULLAVA_MUTANT_V2_PEER_OFFSET
+            st_peer(hbuf + h_off(row, static_cast<int>(peer) * N1 + (u % kPieces) * 16), peer, v);
+#else
+            st_peer(hbuf + off, peer, v);
+#endif
+          }
+        }
+        fence_proxy_async_all();  // these generic stores before the peers' products read them
+        arrive_all(bar_h, lane);
+        wait_cluster(bar_h, c & 1);
+        fence_proxy_async_all();
+      }
+    }
+
+    if (do_fc2) {
+      // e: fc2 of chunk c from the h buffer, folded into f.
+      uint32_t acc[80];
+#pragma unroll
+      for (int i = 0; i < 80; ++i) acc[i] = 0;
+      for (int kt = 0; kt < K::KT2; ++kt) {
+        const int s = acquire();
+        const uint32_t a = hbuf + kt * kBoxBytes + cw * 64 * kBox, b = stage(s);
+        wgmma_n160(acc, desc_sw128(a), desc_sw128(b), kt != 0);
+#pragma unroll
+        for (int kk = 1; kk < kBox / 32; ++kk)
+          wgmma_n160(acc, desc_sw128(a + 32 * kk), desc_sw128(b + 32 * kk), 1);
+        release(s);
+      }
+      reg_fence(acc);
+#ifdef ULLAVA_MUTANT_V2_PREV_SCALE
+      const float hr[2] = {hs_prev[0], hs_prev[1]};
+#else
+      const float hr[2] = {hs[0], hs[1]};
+#endif
+#pragma unroll
+      for (int j = 0; j < N2 / 8; ++j) {
+        const float2 w =
+            *reinterpret_cast<const float2*>(s2 + static_cast<int>(rank) * N2 + 8 * j + 2 * tq);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          f[i] += static_cast<float>(static_cast<int>(acc[i])) *
+                  (hr[e >> 1] * ((e & 1) ? w.y : w.x));
+        }
+      }
+    }
   }
-  if (do_fc2) blk.store(f);
-  cluster.sync();  // the peers have copied this block's last slice
+  if (do_fc2) {
+    // out = f + b2 + x, rounded once; rows past M are not stored.
+#pragma unroll
+    for (int j = 0; j < N2 / 8; ++j) {
+      const int col = static_cast<int>(rank) * N2 + 8 * j + 2 * tq;
+      const float2 bb = load_bf16x2(b2 + col);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + wrow + 8 * r;
+        if (row >= M) continue;
+        const size_t at = static_cast<size_t>(row) * kC + col;
+        const float2 res = load_bf16x2(x + at);
+        store_bf16x2(out + at, f[4 * j + 2 * r] + bb.x + res.x,
+                     f[4 * j + 2 * r + 1] + bb.y + res.y);
+      }
+    }
+  }
+  if constexpr (kBulk) {
+    // The block's copies of its last slice read its shared memory until
+    // they complete: one more round of `bar_amax` (every block past its
+    // last `bar_h`, so every copy done) before any block ends.
+    if (do_fc1) {
+      arrive_all(bar_amax, lane);
+      wait_cluster(bar_amax, n & 1);
+    }
+  }
 }
 
-template <int SN, int NC2>
-int launch_v2(const int8_t* xq, const float* xs, const int8_t* w1, const float* s1, const bf16* b1,
-              const int8_t* w2, const float* s2, const bf16* b2, const bf16* x, bf16* out, int M,
-              int F, int stages, cudaStream_t stream) {
-  using L = Layout<SN, NC2>;
+// The 2-D view of a row-major int8 [rows, K] matrix (row stride `ld`
+// bytes), read in boxes of `box_rows` rows x 128 bytes with the 128-byte
+// swizzle; rows past the view come in as zeros.
+inline bool make_map(CUtensorMap* map, const void* ptr, int rows, int K, int ld, int box_rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(rows), 1, 1};
+  const cuuint64_t stride = static_cast<cuuint64_t>(ld);
+  const cuuint64_t strides[3] = {stride, stride * rows, stride * rows};
+  const cuuint32_t box[4] = {kBox, static_cast<cuuint32_t>(box_rows), 1, 1};
+  return sm90::encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, ptr, dims, strides, box,
+                          CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <int FC>
+int configure() {
   static bool configured = false;
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        mlp_v2_kernel<SN, NC2>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (sm90::encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
+    const cudaError_t err =
+        cudaFuncSetAttribute(mlp_v2_kernel<FC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(Cfg<FC>::kBytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
+  return 0;
+}
+
+template <int FC>
+int launch(const int8_t* xq, const float* xs, const int8_t* w1, const float* s1, const bf16* b1,
+           const int8_t* w2, const float* s2, const bf16* b2, const bf16* x, bf16* out, int M,
+           int F, int stages, cudaStream_t stream) {
+  if (const int err = configure<FC>()) return err;
   if (M == 0) return 0;
+  CUtensorMap tm_x{}, tm_w1{}, tm_w2{};
+  if (!make_map(&tm_x, xq, M, kC, kC, kXRows) || !make_map(&tm_w1, w1, F, kC, kC, Cfg<FC>::N1) ||
+      !make_map(&tm_w2, w2, kC, F, F, N2))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CL * ((M + ROWS - 1) / ROWS));
-  cfg.blockDim = dim3(NTHR);
-  cfg.dynamicSmemBytes = L::BYTES;
+  cfg.gridDim = dim3(CL * ((M + BM - 1) / BM));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = Cfg<FC>::kBytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -471,14 +670,19 @@ int launch_v2(const int8_t* xq, const float* xs, const int8_t* w1, const float* 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, mlp_v2_kernel<SN, NC2>, xq, xs, w1, s1, b1, w2,
-                                             s2, b2, x, out, M, F, stages);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, mlp_v2_kernel<FC>, tm_x, tm_w1, tm_w2, xs, s1,
+                                             b1, s2, b2, x, out, M, F, stages);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int FC>
+int attrs(int* out) {
+  if (const int err = configure<FC>()) return err;
+  return func_attrs(mlp_v2_kernel<FC>, kThreads, Cfg<FC>::kBytes, out);
+}
+
 }  // namespace v2
-}  // namespace i8
 }  // namespace ullava
 
 // x, out [rows, C] bf16; ln_s, ln_b, b2 [C] bf16; w1q int8 [F][C] (C
@@ -494,8 +698,7 @@ ULLAVA_EXPORT int ullava_fused_mlp_block_v2_int8(const void* x, const void* ln_s
                                                  void* stream) {
   using namespace ullava;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  constexpr int kC = 1280, kNC2 = kC / i8::v2::CL;
-  if (C != kC || f_chunk <= 0 || F % f_chunk) return static_cast<int>(cudaErrorInvalidValue);
+  if (C != v2::kC || f_chunk <= 0 || F % f_chunk) return static_cast<int>(cudaErrorInvalidValue);
   if (stages & 1) {
     const int err = i8::launch_ln_quant_rows(
         static_cast<const bf16*>(x), static_cast<const bf16*>(ln_s),
@@ -513,10 +716,19 @@ ULLAVA_EXPORT int ullava_fused_mlp_block_v2_int8(const void* x, const void* ln_s
   };
   switch (f_chunk) {
     case 512:
-      return args(i8::v2::launch_v2<64, kNC2>);
+      return args(v2::launch<512>);
     case 1024:
-      return args(i8::v2::launch_v2<128, kNC2>);
+      return args(v2::launch<1024>);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// {registers, shared bytes, spilled bytes, blocks an SM} of the main
+// kernel at `f_chunk` (512 or 1024).
+ULLAVA_EXPORT int ullava_fused_mlp_block_v2_int8_attrs(int f_chunk, int* out) {
+  using namespace ullava;
+  if (f_chunk == 512) return v2::attrs<512>(out);
+  if (f_chunk == 1024) return v2::attrs<1024>(out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

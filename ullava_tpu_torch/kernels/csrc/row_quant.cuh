@@ -1,7 +1,8 @@
 // Helpers of the one-block-per-row kernels (rms_quant.cu,
 // silu_mul_quant.cu): 16-byte bf16 vector access, block reductions (also
 // used by decode_attention_int8.cu) and the int8 row store (both also used
-// by the row pass of int8_gemm_core.cuh).
+// by the row pass of ln_quant_rows.cuh, and the vector access by
+// rms_norm_bwd.cu).
 //
 // A row of n floats is staged in dynamic shared memory, followed by 32
 // floats of reduction scratch (`row_smem_bytes`). Thread t owns the

@@ -9,10 +9,12 @@
 - `fused_mlp_block`: `x + fc2(gelu(fc1(LN(x))))` of a SAM block with both
   products in int8, the polynomial-erf GELU and the GELU output
   re-quantized per row and per `f_chunk` columns.
-- `fused_mlp_block_v2`: the same function (W8A8 only) as one kernel that
-  issues fc1 of chunk k before the re-quantization and fc2 of chunk k - 1
-  and keeps each chunk's int8 GELU output on chip; its one caller is the
-  MLP microbenchmark (`microbench/mlp_variants.py`).
+- `fused_mlp_block_v2`: the same function (W8A8 only) as one kernel after
+  the row pass: a cluster of 8 blocks owns 128 rows, each block a slice of
+  every chunk's fc1 columns and of fc2's output columns, and each chunk's
+  int8 GELU output is exchanged between the blocks' shared memory and
+  never stored; its one caller is the MLP microbenchmark
+  (`microbench/mlp_variants.py`).
 
 Each has its plain PyTorch version beside it, taken for CPU tensors. With
 `w8a8=False` (weight-only) the three SAM functions keep the LN'd row in
@@ -620,7 +622,7 @@ def fused_mlp_block(
 # ---------------------------------------------------------------------------
 
 V2_F_CHUNKS = (512, 1024)  # f_chunk / 8 fc1 columns a block of the kernel's 8-block cluster
-V2_WIDTH = 1280  # C: SAM ViT-H, the encoder the port builds; C / 8 fc2 columns a block
+V2_WIDTH = 1280  # C: SAM ViT-H, the encoder the port builds; C / 8 = 160 fc2 columns a block
 
 
 def fused_mlp_block_v2_plain(
@@ -672,12 +674,12 @@ def fused_mlp_block_v2(
     eps: float,
     f_chunk: int = 0,
 ) -> torch.Tensor:
-    """`fused_mlp_block(w8a8=True)` with fc1 of chunk k issued before the
-    re-quantization and fc2 of chunk k - 1, the int8 GELU output of a
-    chunk kept on chip: the same function and, at the same `f_chunk` (0:
-    1024 when it divides F, else 512), the same bf16 output. CUDA kernel
-    `kernels/csrc/mlp_block_v2_int8.cu` (bf16; f_chunk 512 or 1024, C 1280)
-    for CUDA tensors; the plain version for CPU tensors."""
+    """`fused_mlp_block(w8a8=True)` with the int8 GELU output of a chunk
+    kept on chip: the same function and, at the same `f_chunk` (0: 1024
+    when it divides F, else 512), the same bf16 output. CUDA kernel
+    `kernels/csrc/mlp_block_v2_int8.cu` (bf16, any row count; f_chunk 512
+    or 1024, C 1280) for CUDA tensors; the plain version for CPU
+    tensors."""
     if x.ndim != 2:
         raise ValueError(f"fused_mlp_block_v2 takes [T, C] tokens, got {tuple(x.shape)}")
     F = w1_q.shape[1]

@@ -88,11 +88,33 @@ def rms_norm_bwd_plain(
     return dx, dw
 
 
-# The backward kernel stages x and dy of a row as fp32 in 48 KB.
-MAX_BWD_ROW_WIDTH = (48 * 1024 - 128) // 8
-# Rows per block of the backward kernel when it also forms dw: each block
-# writes one fp32 partial row, which a second pass sums in a fixed order.
-BWD_DW_ROWS_PER_BLOCK = 8
+# The backward kernel holds a row's x and dy in the registers of 128
+# threads, at most 8 vectors of 8 each (`kernels/csrc/rms_norm_bwd.cu`).
+MAX_BWD_ROW_WIDTH = 8 * 8 * 128
+# Partial dw rows of the backward kernel a streaming multiprocessor: one a
+# block, summed by a second pass in a fixed order.
+BWD_DW_BLOCKS_PER_SM = 1
+
+
+def _rms_norm_bwd_cuda(x, weight, dy, eps, need_dw):
+    rows, D = _check_row_kernel("rms_norm_bwd", x, weight)
+    if D > MAX_BWD_ROW_WIDTH:
+        raise ValueError(f"rms_norm_bwd: row width {D} exceeds {MAX_BWD_ROW_WIDTH}")
+    kernels.check_cuda_tensor("rms_norm_bwd dy", dy, torch.bfloat16, x.shape)
+    dx = torch.empty_like(x)
+    dw = partial = None
+    max_blocks = 0
+    if need_dw:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        max_blocks = max(1, min(rows, BWD_DW_BLOCKS_PER_SM * sms))
+        dw = torch.empty_like(weight)
+        partial = torch.empty((max_blocks, D), dtype=torch.float32, device=x.device)
+    kernels.launch(
+        "rms_norm_bwd", x.data_ptr(), weight.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+        None if partial is None else partial.data_ptr(), None if dw is None else dw.data_ptr(),
+        rows, D, max_blocks, float(eps),
+    )
+    return dx, dw
 
 
 def rms_norm_bwd(
@@ -101,28 +123,13 @@ def rms_norm_bwd(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(dx, dw) of `rms_norm(x, weight)` for the output gradient `dy`; dw
     is None unless `need_dw`. CUDA kernel `kernels/csrc/rms_norm_bwd.cu`
-    (bf16) for CUDA tensors, the plain version for CPU tensors."""
+    (bf16, rows up to `MAX_BWD_ROW_WIDTH` wide) for CUDA tensors, the plain
+    version for CPU tensors."""
     if dy.shape != x.shape:
         raise ValueError(f"dy {tuple(dy.shape)} must match x {tuple(x.shape)}")
     if x.device.type == "cpu":
         return rms_norm_bwd_plain(x, weight, dy, eps, need_dw)
-    rows, D = _check_row_kernel("rms_norm_bwd", x, weight)
-    if D > MAX_BWD_ROW_WIDTH:
-        raise ValueError(f"rms_norm_bwd: row width {D} exceeds {MAX_BWD_ROW_WIDTH}")
-    kernels.check_cuda_tensor("rms_norm_bwd dy", dy, torch.bfloat16, x.shape)
-    dx = torch.empty_like(x)
-    dw = partial = None
-    rpb = 1
-    if need_dw:
-        rpb = BWD_DW_ROWS_PER_BLOCK
-        dw = torch.empty_like(weight)
-        partial = torch.empty(((rows + rpb - 1) // rpb, D), dtype=torch.float32, device=x.device)
-    kernels.launch(
-        "rms_norm_bwd", x.data_ptr(), weight.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-        None if partial is None else partial.data_ptr(), None if dw is None else dw.data_ptr(),
-        rows, D, rpb, float(eps),
-    )
-    return dx, dw
+    return _rms_norm_bwd_cuda(x, weight, dy, eps, need_dw)
 
 
 class _RMSNorm(torch.autograd.Function):
