@@ -55,7 +55,8 @@ def silu_mul_quant_plain(gate: torch.Tensor, up: torch.Tensor) -> Tuple[torch.Te
     gf, uf = gate.float(), up.float()
     h = gf * torch.sigmoid(gf) * uf
     amax = h.abs().amax(-1, keepdim=True).clamp_min(1e-12)
-    return torch.round(h * (127.0 / amax)).to(torch.int8), amax
+    # A true division, as `_row_quant`'s.
+    return torch.round(h * (torch.full_like(amax, 127.0) / amax)).to(torch.int8), amax
 
 
 def silu_mul_quant(

@@ -174,7 +174,8 @@ def rms_norm_residual_quant_plain(
     r = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
     n = xf * r * weight.float()
     amax = n.abs().amax(-1, keepdim=True).clamp_min(1e-12)
-    q = torch.round(n * (127.0 / amax)).to(torch.int8)
+    # A true division: `127.0 / amax` on a tensor is reciprocal-then-multiply.
+    q = torch.round(n * (torch.full_like(amax, 127.0) / amax)).to(torch.int8)
     return h, q, amax.reshape(-1, 1)
 
 

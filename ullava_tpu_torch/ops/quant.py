@@ -118,7 +118,8 @@ def apply_linear_a8(x: torch.Tensor, w: QuantLeaf) -> torch.Tensor:
     lead = x.shape[:-1]
     xf = x.reshape(-1, x.shape[-1]).float()
     amax = xf.abs().amax(-1, keepdim=True).clamp_min(1e-12)
-    xq = torch.round(xf * (127.0 / amax)).to(torch.int8)
+    # A true division: `127.0 / amax` on a tensor is reciprocal-then-multiply.
+    xq = torch.round(xf * (torch.full_like(amax, 127.0) / amax)).to(torch.int8)
     y = apply_linear_a8_prequant(xq, amax, w, x.dtype)
     return y.reshape(*lead, y.shape[-1])
 
