@@ -22,8 +22,10 @@ Phases, each fatal on any error:
                serve's (the int8 score forms of K3, K11 and K14, K2 at
                CLIP's head_dim 64) and at a B=4 packed encode's (the
                packed window and global kernels; the per-(window, head)
-               window kernel and the decode attention that does not
-               write, which no path calls), holds the kernel to the
+               window kernel, beside K3 on the same windows, and the
+               decode attention that does not write, also over a long
+               cache split over a cluster of blocks, which no path
+               calls), holds the kernel to the
                plain version within a stated tolerance, and times the
                kernel, the plain version and, where one exists, a single
                PyTorch library call computing the same function (L2
@@ -43,7 +45,7 @@ Phases, each fatal on any error:
                product), K9 in both of its forms by row count (with the
                timer's floor), K8
                (the median
-               and spread of five batches beside K22's old design, also
+               and spread of five batches beside K22's, also
                over a 2048-row cache at B=16 and at B=4, where it splits a
                sample's rows over blocks), the packed and the two
                uncalled kernels, K1 (also at the int8 serves' 5120 rows)
@@ -795,7 +797,7 @@ def k8_long_cache_line(gen, Bk: int, label: str) -> dict:
     line = {"shape": [1, Bk, S, H * hd], "write_pos": [int(wp.min()), int(wp.max())],
             "slice_bytes": nbytes(*cache), **info, "mutant_row_rel_err": caught,
             "splits": splits, **k8.spread(), "bound_ms": b_ms, "bound_by": b_by,
-            "old_design_k22": k8.k22_spread()}
+            "k22": k8.k22_spread()}
     line["other_splits_ms"] = {str(n): k8.spread(n)["ms"] for n in (1, 2, 4) if n != splits}
     del k8, cache
     torch.cuda.empty_cache()
@@ -1034,13 +1036,13 @@ def int8_kernel_phases(gen) -> dict:
         lambda: decode_attention.decode_attention_int8_fused_write_plain(
             q, kq, ks, vq, vs, *cache, wp, layer, scale=sc),
         None, k8.bytes(), 4.0 * hist * H * hd, flops_per_s=FP32_FLOPS_PER_S)
-    # The median and spread of five batches of timed launches, K8 and the
-    # old design (K22's read kernel, which attends the same rows once K8
-    # has written row write_pos) in turns on the same cache.
+    # The median and spread of five batches of timed launches, K8 and K22
+    # (the read kernel, which attends the same rows once K8 has written
+    # row write_pos) in turns on the same cache.
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     line.update(k8.spread(), splits=decode_attention.fused_write_splits(B_INT8, H, maxS, sms),
                 splits_2_ms=k8.spread(splits=2)["ms"],
-                old_design_k22=k8.k22_spread(), shape=[L, B_INT8, maxS, H * hd],
+                k22=k8.k22_spread(), shape=[L, B_INT8, maxS, H * hd],
                 kernel=kernels.kernel_attrs(*K8_ATTRS, 0))
     # Mutants, run through the kernel on the same (now disposable) cache.
     # New row left out of the softmax: write_pos - 1 with the cached row
@@ -1421,10 +1423,11 @@ MICROBENCH_T = 150528  # `tools/microbench/mlp_variants.py`'s rows: half a B=48 
 
 
 def bit_equal_share(a, b) -> float:
-    """Share of the bf16 values of `a` and `b` whose bits agree."""
+    """Share of the bf16 values of `a` and `b` whose bits agree (counted
+    exactly: an fp32 mean of over 2^24 ones need not be 1)."""
     import torch
 
-    return (a.view(torch.int16) == b.view(torch.int16)).float().mean().item()
+    return (a.view(torch.int16) == b.view(torch.int16)).sum().item() / a.numel()
 
 
 def k12_phase_inputs(gen, T: int, C: int = 1280, Fw: int = 5120, eps: float = 1e-6) -> tuple:
@@ -1606,7 +1609,8 @@ RECT_PAD_MUTANT = ("sam_rect_attention.cu", "ULLAVA_MUTANT_RECT_PAD_OUT_OF_SUM")
 # bytes, spills and blocks an SM (`kernels.kernel_attrs`).
 WINDOW_ATTRS = {"grid": ("sam_window_attention.cu", "ullava_window_attention_grid_attrs"),
                 "rect": ("sam_rect_attention.cu", "ullava_window_attention_rect_attrs"),
-                "packed": ("sam_packed_attention.cu", "ullava_window_attention_packed_attrs")}
+                "packed": ("sam_packed_attention.cu", "ullava_window_attention_packed_attrs"),
+                "head_major": ("sam_window_attention.cu", "ullava_fused_window_attention_attrs")}
 
 
 def rect_attrs(dots_i8: bool, geoms) -> dict:
@@ -2783,9 +2787,11 @@ PACKED_MUTANTS = {
     "k_one_head_over": ("sam_packed_attention.cu", "ULLAVA_MUTANT_PACKED_HEAD_OFFSET"),
     "a_term_one_grid_row": ("sam_packed_attention.cu", "ULLAVA_MUTANT_GLOBAL_A_ONE_ROW"),
     "quad_max_dropped": ("sam_packed_attention.cu", "ULLAVA_MUTANT_WINDOW_NO_QUAD_MAX"),
-    "bias_not_prescaled": ("sam_global_attention.cu", "ULLAVA_MUTANT_WINDOW_BIAS_RAW"),
+    "bias_not_prescaled": ("sam_window_attention.cu", "ULLAVA_MUTANT_WINDOW_BIAS_RAW"),
     "kv_lens_ignored": ("decode_attention_int8.cu", "ULLAVA_MUTANT_DECODE_NO_KV_LENS"),
+    "peer_l_dropped": ("decode_attention_int8.cu", "ULLAVA_MUTANT_DECODE_PEER_L_DROPPED"),
 }
+K22_ATTRS = ("decode_attention_int8.cu", "ullava_decode_attention_int8_attrs")
 PACKED_NAMES = ("fused_window_attention_packed", "fused_global_attention_packed")
 # Kernels that no path of either package calls: each line reports its
 # launches in every serve (all 0) and says so.
@@ -2812,32 +2818,28 @@ def packed_kernel_phases(gen, results: dict) -> None:
     versions: the packed window kernel at one window block of a B=4
     packed serve ([100, 196, 6144]: 16 heads of 80 lanes padded to 128, pad lanes zero
     as the packed weights make them), the packed global kernel at one
-    global block ([4, 4096, 6144]), the per-(window, head) window kernel at
-    the same windows in the head-major layout ([1600, 196, 80]), and the
-    decode attention that does not write at K8's cache ([32, 16, 352,
-    4096] int8, ragged kv_lens, rep 1), with GQA (rep 4) at a small shape.
+    global block ([4, 4096, 6144]), the per-(window, head) window kernel
+    (`k21_line`) and the decode attention that does not write
+    (`k22_line`).
 
     Gates: `row_rel_err` within 1e-2 (one bf16 ulp of a row's largest
-    value); the two window forms normalize P before its bf16 rounding, as
-    their TPU kernels and the plain versions do (K19 in `window_whole.cuh`,
-    the per-(window, head) kernel in `window_norm_first.cuh`).
-    Each gate must reject the source rebuilt with a
+    value); the window forms normalize P before its bf16 rounding, as
+    their TPU kernels and the plain versions do (K19 and K21 on
+    `window_whole.cuh`). Each gate must reject the source rebuilt with a
     deliberate bug (`PACKED_MUTANTS`; the global form's A term of a
     128-key tile's first grid row for both halves too) and a mutated
     input (bias terms swapped; for the decode kernel the key and value
-    scales swapped). The packed global kernel's line gives K4's time on
-    the same q, k, v (the old core) and the global core's SASS counts.
-    Bounds: the packed kernels' products over all 128 lanes (the function
-    contracts them; the 80 real lanes' bound is reported beside), the
-    window kernel's and the decode kernel's bytes (the decode kernel's
-    over the kv_lens[b] rows this run reads, at the fp32 rate). The
-    library yardsticks: SDPA with the bias as a materialised bf16 mask;
-    the decode kernel has none."""
+    scales swapped). The packed global kernel's line gives the global
+    core's SASS counts. Bounds: the packed kernels' products over all 128
+    lanes (the function contracts them; the 80 real lanes' bound is
+    reported beside), the window kernel's and the decode kernel's bytes.
+    The library yardsticks: SDPA with the bias as a materialised bf16
+    mask; the decode kernel has none."""
     import torch
     import torch.nn.functional as F
 
     from ullava_tpu_torch import kernels
-    from ullava_tpu_torch.ops import decode_attention, sam_attention
+    from ullava_tpu_torch.ops import sam_attention
 
     dev, bf, tol = "cuda", torch.bfloat16, 1e-2
     H, hd, hp, W = SAM_H, SAM_HD, SAM_HP, SAM_W
@@ -2902,8 +2904,34 @@ def packed_kernel_phases(gen, results: dict) -> None:
         del y, a, bb, got, ref, y5, mask
         torch.cuda.empty_cache()
 
-    # K21: the block layout's windows of one B=4 window block, head-major.
-    name, N, S = "fused_window_attention", B * 25 * H, W * W
+    results["fused_window_attention"] = k21_line(gen, gate, mutated)
+    results["decode_attention_int8"] = k22_line(gen, gate, mutated)
+    torch.cuda.empty_cache()
+
+
+def k21_line(gen, gate, mutated) -> dict:
+    """K21 at the block layout's windows of one B=4 window block,
+    head-major ([1600, 196, 80]), on the whole-window core: its gate, the
+    mutants, time, bound, plain version and SDPA + mask; beside it K3 on
+    the same windows (q, k, v packed as K3's y, the bias terms pre-scaled
+    by the kernel's own fp32 1/scale and reversed, as K3 takes them), its
+    time and the share of bf16 outputs equal to K21's (the same core and
+    arithmetic), and K21's registers and SASS counts."""
+    import torch
+    import torch.nn.functional as F
+
+    from ullava_tpu_torch import kernels
+    from ullava_tpu_torch.ops import sam_attention
+
+    dev, bf = "cuda", torch.bfloat16
+    H, hd, W = SAM_H, SAM_HD, SAM_W
+    sc = hd**-0.5
+    name, Nw, S = "fused_window_attention", B * 25, W * W
+    N = Nw * H
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
     q, k, v = (randn(N, S, hd) for _ in range(3))
     a, bb = (randn(N, S, W, scale=2.0) for _ in range(2))
     run = lambda a_=a, b_=bb: sam_attention.fused_window_attention(q, k, v, a_, b_, W, sc)  # noqa: E731
@@ -2913,52 +2941,109 @@ def packed_kernel_phases(gen, results: dict) -> None:
     inv = 1.0 / sc
     a_s, b_s = ((t.float() * inv).to(bf).float() for t in (a, bb))
     mask = ((a_s[:, :, :, None] + b_s[:, :, None, :]).reshape(N, S, S) * sc).to(bf)
-    results[name] = kernel_line(
+    line = kernel_line(
         name, (got.float() - ref.float()).abs().max().item(), info, run, plain,
         lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=sc),
         nbytes(q, k, v, a, bb, got), 4.0 * N * S * S * hd)
-    results[name]["shape"] = [N, S, hd]
-    del q, k, v, a, bb, got, ref, a_s, b_s, mask
+    del a_s, b_s, mask
+    # The witness: K3 on the same windows.
+    y = torch.stack((q, k, v)).reshape(3, Nw, H, S, hd).permute(1, 3, 0, 2, 4).reshape(
+        Nw, S, 3 * H * hd).contiguous()
+    inv32 = (torch.ones((), dtype=torch.float32) / torch.tensor(sc, dtype=torch.float32)).item()
+    a3, b3 = ((t.float() * inv32).to(bf).reshape(Nw, H, S, W).flip(-1).permute(0, 2, 1, 3)
+              .reshape(Nw, S, H * W).contiguous() for t in (a, bb))
+    k3 = lambda: sam_attention.fused_window_attention_grid(y, a3, b3, H, hd, W, sc)  # noqa: E731
+    merged = got.reshape(Nw, H, S, hd).permute(0, 2, 1, 3).reshape(Nw, S, H * hd)
+    o3 = k3()
+    torch.cuda.synchronize()
+    line["k3_same_windows"] = {
+        "ms": time_ms(k3, 20), "row_rel_err_to_k21": row_rel_err(o3, merged),
+        "bit_equal_share_to_k21": bit_equal_share(o3, merged.contiguous())}
+    line.update(shape=[N, S, hd], kernel=kernels.kernel_attrs(*WINDOW_ATTRS["head_major"], 0),
+                sass=sass_counts("sam_window_attention.cu", "WindowHeadMajor"))
+    del q, k, v, a, bb, got, ref, y, a3, b3, o3, merged
     torch.cuda.empty_cache()
+    return line
 
-    # K22: one layer of K8's stacked cache, rows past kv_lens filled with
-    # data the mask must hide; then GQA (32 heads on 8 kv heads) small.
-    name, L, maxS, Hl, hdl, layer = "decode_attention_int8", 32, PROMPT + NEW_TOKENS, 32, 128, 5
+
+def k22_line(gen, gate, mutated) -> dict:
+    """K22 at one layer of K8's stacked cache ([32, 16, 352, 4096] int8,
+    ragged kv_lens, rep 1: 512 blocks, no split), rows past kv_lens filled
+    with data the mask must hide; GQA (32 heads on 8 kv heads) small; and
+    a long cache with few blocks ([1, 32, 2048, 128], kv_len in 1900-2047),
+    where the wrapper splits each (sample, head)'s rows over a cluster of
+    blocks, timed beside one block a (sample, head); then a uniform row
+    (kv_lens 0) beside a long one at the same split shape. Each form's
+    gate, the cache untouched, every mutant (the cluster merge's at the
+    split shape) failing it. Time: the median and spread of five batches,
+    as K8's line; bound: the bytes of the rows this run's kv_lens make
+    the kernel read, at the fp32 rate."""
+    import torch
+
+    from ullava_tpu_torch import kernels
+    from ullava_tpu_torch.ops import decode_attention
+
+    dev = "cuda"
+    name, hdl = "decode_attention_int8", 128
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = {}
-    for form, Bd, Hq, Hkv, S_, lens in (
-            ("rep1", B_INT8, Hl, Hl, maxS, [maxS - (7 * i) % 64 for i in range(B_INT8)]),
-            ("gqa_rep4", 4, Hl, 8, 64, [64, 9, 1, 40])):
-        Ld = L if form == "rep1" else 2
-        cache_k, cache_v = (torch.randint(-127, 128, (Ld, Bd, S_, Hkv * hdl), generator=gen,
-                                          device=dev, dtype=torch.int8) for _ in range(2))
-        k_scale, v_scale = (torch.rand((Ld, Bd, S_, Hkv), generator=gen, device=dev) * 0.02 + 1e-3
-                            for _ in range(2))
-        q = randn(Bd, 1, Hq, hdl)
+    for form, L, Bd, Hq, Hkv, S_, lens in (
+            ("rep1", 32, B_INT8, 32, 32, PROMPT + NEW_TOKENS,
+             [PROMPT + NEW_TOKENS - (7 * i) % 64 for i in range(B_INT8)]),
+            ("gqa_rep4", 2, 4, 32, 8, 64, [64, 9, 1, 40]),
+            ("split", 2, 1, 32, 32, 2048, None),
+            ("split_uniform", 2, 2, 32, 32, 2048, [0, 2011])):
+        cache = [torch.randint(-127, 128, (L, Bd, S_, Hkv * hdl), generator=gen, device=dev,
+                               dtype=torch.int8) for _ in range(2)]
+        cache += [torch.rand((L, Bd, S_, Hkv), generator=gen, device=dev) * 0.02 + 1e-3
+                  for _ in range(2)]
+        q = (torch.randn((Bd, 1, Hq, hdl), generator=gen, device=dev)).to(torch.bfloat16)
+        if lens is None:
+            lens = [1900 + int(torch.randint(0, 148, (1,), generator=gen, device=dev))]
         kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
-        lay = layer if form == "rep1" else 1
-        run = lambda ks=k_scale, vs=v_scale, q=q, c=(cache_k, cache_v), kl=kv_lens, l_=lay: (  # noqa: E731
-            decode_attention.decode_attention_int8(q, *c, ks, vs, kl, l_, scale=hdl**-0.5))
-        plain = lambda q=q, c=(cache_k, cache_v, k_scale, v_scale), kl=kv_lens, l_=lay: (  # noqa: E731
+        lay = 5 if form == "rep1" else 1
+        run = lambda splits=None, ks=cache[2], vs=cache[3], q=q, c=cache[:2], kl=kv_lens, l_=lay: (  # noqa: E731
+            decode_attention._decode_read_cuda(q, *c, ks, vs, kl, l_, hdl**-0.5, splits))
+        plain = lambda q=q, c=cache, kl=kv_lens, l_=lay: (  # noqa: E731
             decode_attention.decode_attention_int8_plain(q, *c, kl, l_, scale=hdl**-0.5))
-        before = [t.clone() for t in (cache_k, cache_v, k_scale, v_scale)]
-        got, ref = run(), plain()
-        info = gate(f"{name} {form}", got, ref, {**mutated(run, "kv_lens_ignored"),
-                                                 "scales_swapped": run(v_scale, k_scale)})
-        info["cache_untouched"] = all(torch.equal(x, y_) for x, y_ in zip(
-            before, (cache_k, cache_v, k_scale, v_scale)))
+        before = [t.clone() for t in cache]
+        got = decode_attention.decode_attention_int8(q, *cache, kv_lens, lay, scale=hdl**-0.5)
+        ref = plain()
+        bugs = ("kv_lens_ignored",) + (("peer_l_dropped",) if form == "split" else ())
+        info = gate(f"{name} {form}", got, ref, {**mutated(run, *bugs),
+                                                 "scales_swapped": run(ks=cache[3], vs=cache[2])})
+        info["splits"] = splits = decode_attention.decode_read_splits(Bd, Hq, S_, hdl, sms)
+        if splits > 1:  # the same rows with one block a (sample, head)
+            info["one_block_row_rel_err"] = err = row_rel_err(run(1), ref)
+            must(f"{name} {form} one block", err <= info["tol"], err)
+        info["cache_untouched"] = all(torch.equal(x, y_) for x, y_ in zip(before, cache))
         must(name, info["cache_untouched"], "the cache changed")
-        cases[form] = (info, got, ref, run, plain, q, kv_lens, Hkv)
-    info, got, ref, run, plain, q, kv_lens, Hkv = cases["rep1"]
-    rows = float(kv_lens.sum())  # the rows this run's kv_lens make the kernel read
-    io = rows * (2 * Hkv * hdl + 2 * 4 * Hkv) + 2 * nbytes(q) + nbytes(kv_lens)
+        info.update(shape=[L, Bd, S_, Hkv * hdl], kv_lens=lens)
+        rows = float(kv_lens.clamp(0, S_).sum()) + S_ * int((kv_lens <= 0).sum())
+        # The rows this run's kv_lens make the kernel read: K and V of each
+        # live row and their scales (a uniform row: V and its scales only).
+        io = (float(kv_lens.clamp(0, S_).sum()) * (2 * Hkv * hdl + 2 * 4 * Hkv)
+              + S_ * int((kv_lens <= 0).sum()) * (Hkv * hdl + 4 * Hkv)
+              + 2 * nbytes(q) + nbytes(kv_lens))
+        cases[form] = (info, got, ref, run, plain, io, 4.0 * rows * Hq * hdl)
+        del before, cache
+    info, got, ref, run, plain, io, flops = cases.pop("rep1")
     line = kernel_line(name, (got.float() - ref.float()).abs().max().item(), info, run, plain,
-                       None, io, 4.0 * rows * Hl * hdl, flops_per_s=FP32_FLOPS_PER_S)
+                       None, io, flops, flops_per_s=FP32_FLOPS_PER_S)
     line.update(spread_ms(run))  # the median of five batches, as K8's line
-    line["gqa_rep4_form"] = cases["gqa_rep4"][0]
-    line["shape"] = [L, B_INT8, maxS, Hl * hdl]
-    results[name] = line
-    del cases, info, got, ref, run, plain, cache_k, cache_v, k_scale, v_scale, before
+    line["kernel"] = kernels.kernel_attrs(*K22_ATTRS, decode_attention.read_rows(
+        PROMPT + NEW_TOKENS, hdl, 1))
+    for form, (info, got, ref, run, plain, io, flops) in cases.items():
+        line[f"{form}_form"] = info
+        if form == "split":
+            b_ms, b_by = bound_ms(io, flops, FP32_FLOPS_PER_S)
+            info.update({"bound_ms": b_ms, "bound_by": b_by, "cluster": spread_ms(run),
+                         "one_block": spread_ms(lambda: run(1)),
+                         "kernel": kernels.kernel_attrs(*K22_ATTRS, decode_attention.read_rows(
+                             2048, hdl, info["splits"]))})
+    del cases
     torch.cuda.empty_cache()
+    return line
 
 
 def full_config():

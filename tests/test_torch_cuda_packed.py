@@ -1,10 +1,12 @@
 """On the card: the CUDA kernels of the SAM packed attention layout and the
 two kernels no path calls, against their plain PyTorch versions in bf16:
 the packed window kernel (hp 128, W 14), the packed global kernel (hp 128,
-W 64), the per-(window, head) window kernel (hd 80, W 14) and the decode
-attention over the int8 cache that writes nothing (LLaMA-7B's head width,
-ragged kv_lens, and GQA); then a small packed encoder against the same
-weights unpacked. Every test here needs an NVIDIA GPU and skips without
+W 64), the per-(window, head) window kernel (hd 80, W 14; also at one
+ViT-H B=4 window block and against the grid window kernel on the same
+windows) and the decode attention over the int8 cache that writes nothing
+(LLaMA-7B's head width, ragged kv_lens, GQA, and a long cache split over
+a cluster of blocks, with a uniform row); then a small packed encoder
+against the same weights unpacked. Every test here needs an NVIDIA GPU and skips without
 one. The file imports torch only, so it runs on a machine that has no JAX:
 
     python -m pytest tests/test_torch_cuda_packed.py -q
@@ -77,8 +79,9 @@ def test_cuda_packed_attention_matches_plain(cuda, W, N):
 
 
 @pytest.mark.cuda
-def test_cuda_window_attention_matches_plain(cuda):
-    N, W = 64, 14
+@pytest.mark.parametrize("N", [64, 1600], ids=["n64", "vit_h_block"])
+def test_cuda_window_attention_matches_plain(cuda, N):
+    W = 14
     S = W * W
     q, k, v = (_rand(cuda, N, S, _HD) for _ in range(3))
     a, b = (_rand(cuda, N, S, W, scale=2.0) for _ in range(2))
@@ -86,14 +89,48 @@ def test_cuda_window_attention_matches_plain(cuda):
     ref = sam_attention.fused_window_attention_plain(q, k, v, a, b, W, _HD**-0.5)
     assert _row_rel_err(got, ref) <= _TOL
     assert _row_rel_err(sam_attention.fused_window_attention(q, k, v, b, a, W, _HD**-0.5), ref) > _TOL
+    # The raw terms count only pre-scaled by 1/scale.
+    pre = (a.float() * _HD**0.5).to(torch.bfloat16), (b.float() * _HD**0.5).to(torch.bfloat16)
+    assert _row_rel_err(sam_attention.fused_window_attention(q, k, v, a * 0, b * 0, W, _HD**-0.5),
+                        ref) > _TOL
+    assert _row_rel_err(sam_attention.fused_window_attention(q, k, v, *pre, W, _HD**-0.5), ref) > _TOL
+
+
+@pytest.mark.cuda
+def test_cuda_window_attention_equals_grid_kernel(cuda):
+    """The per-(window, head) kernel and the grid window kernel run one core
+    and one arithmetic: at one ViT-H B=4 window block (100 windows, 16
+    heads) their outputs are bit-equal, the grid kernel given the same
+    q, k, v as its y and the terms pre-scaled by the kernel's fp32 1/scale
+    in its reversed column order."""
+    Nw, W = 100, 14
+    S, sc = W * W, _HD**-0.5
+    q, k, v = (_rand(cuda, Nw * _H, S, _HD) for _ in range(3))
+    a, b = (_rand(cuda, Nw * _H, S, W, scale=2.0) for _ in range(2))
+    got = sam_attention.fused_window_attention(q, k, v, a, b, W, sc)
+    y = torch.stack((q, k, v)).reshape(3, Nw, _H, S, _HD).permute(1, 3, 0, 2, 4).reshape(
+        Nw, S, 3 * _H * _HD).contiguous()
+    inv = (torch.ones(()) / torch.tensor(sc, dtype=torch.float32)).item()
+    a3, b3 = ((t.float() * inv).to(torch.bfloat16).reshape(Nw, _H, S, W).flip(-1)
+              .permute(0, 2, 1, 3).reshape(Nw, S, _H * W).contiguous() for t in (a, b))
+    grid = sam_attention.fused_window_attention_grid(y, a3, b3, _H, _HD, W, sc)
+    merged = got.reshape(Nw, _H, S, _HD).permute(0, 2, 1, 3).reshape(Nw, S, _H * _HD)
+    assert torch.equal(grid, merged)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,Hkv,maxS,lens", [
     (32, 32, 352, [352, 300, 1, 129]),
     (8, 2, 64, [64, 5, 33, 0]),
-], ids=["llama7b", "gqa"])
+    (32, 32, 2048, [1977]),
+    (32, 32, 2048, [0, 2011]),
+], ids=["llama7b", "gqa", "split", "split_uniform"])
 def test_cuda_decode_attention_int8_matches_plain(cuda, H, Hkv, maxS, lens):
+    """Every form against the plain version; over 2048 rows (B x H = 32 or
+    64 blocks, where the wrapper splits a (sample, head)'s rows over a
+    cluster of blocks) also the cluster of 8 and one block a (sample,
+    head), forced. A kv_lens of 0 is a uniform average over all maxS
+    positions."""
     L, B, hd = 2, len(lens), 128
     q = _rand(cuda, B, 1, H, hd)
     cache_k, cache_v = (torch.randint(-127, 128, (L, B, maxS, Hkv * hd), generator=cuda,
@@ -106,11 +143,17 @@ def test_cuda_decode_attention_int8_matches_plain(cuda, H, Hkv, maxS, lens):
     got = decode_attention.decode_attention_int8(*args, scale=hd**-0.5)
     ref = decode_attention.decode_attention_int8_plain(*args, scale=hd**-0.5)
     assert _row_rel_err(got, ref) <= _TOL
+    if maxS == 2048:  # a cluster of 8 blocks a (sample, head), and one block
+        for splits in (8, 1):
+            forced = decode_attention._decode_read_cuda(*args, hd**-0.5, splits=splits)
+            assert _row_rel_err(forced, ref) <= _TOL
     for before, after in zip(snapshot, (cache_k, cache_v, k_scale, v_scale)):
         assert torch.equal(before, after)  # the cache is only read
     full = torch.full_like(kv_lens, maxS)
     assert _row_rel_err(decode_attention.decode_attention_int8(
         q, cache_k, cache_v, k_scale, v_scale, full, 1, scale=hd**-0.5), ref) > _TOL
+    assert _row_rel_err(decode_attention.decode_attention_int8(
+        q, cache_k, cache_v, v_scale, k_scale, kv_lens, 1, scale=hd**-0.5), ref) > _TOL
 
 
 @pytest.mark.cuda

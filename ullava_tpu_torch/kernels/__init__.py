@@ -218,13 +218,13 @@ KERNELS: Dict[str, KernelSpec] = {
             "ullava_tpu/ops/sam_attention.py:920",
         ),
         KernelSpec(
-            "fused_window_attention", "sam_global_attention.cu",
+            "fused_window_attention", "sam_window_attention.cu",
             "ullava_fused_window_attention", (P, P, P, P, P, P, I, F, P),
             "ullava_tpu/ops/sam_attention.py:70",
         ),
         KernelSpec(
             "decode_attention_int8", "decode_attention_int8.cu", "ullava_decode_attention_int8",
-            (P, P, P, P, P, P, P, I, I, I, I, I, I, F, P),
+            (P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P),
             "ullava_tpu/ops/decode_attention.py:143",
         ),
         # The chunk-pipelined W8A8 MLP, whose only caller is the MLP

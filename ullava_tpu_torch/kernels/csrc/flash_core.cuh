@@ -1,29 +1,19 @@
-// The mma.sync attention building blocks (loads, tensor-core products and
-// quad reductions of the m16n8k16 accumulator layout) that K21's
-// normalize-first window kernel (window_norm_first.cuh) and the
-// whole-window core (window_whole.cuh: K3, K14, K19) are made of. The
+// The mma.sync attention building blocks (tensor-core products, ldmatrix
+// loads and quad reductions of the m16n8k16 accumulator layout) that the
+// whole-window core (window_whole.cuh: K3, K14, K19, K21) is made of. The
 // online-softmax kernel that once ran on them (K4's) moved to the wgmma +
 // TMA global core (global_sm90.cuh); the LLaMA prefill and CLIP forward
 // (K2) runs on the wgmma + TMA forward of flash_fwd_sm90.cuh.
 //
-// A block of these kernels owns kBQ = 64 query rows: four warps, 16 rows
-// each, whose Q rows, scores and output accumulators stay in registers in
-// the accumulator layout of mma.sync.m16n8k16 (bf16 in, fp32 accumulate),
-// so the softmax statistics of a row live in the four threads of a quad
-// and need two shuffles a reduction. K and V rows stream into shared
-// memory with 16-byte cp.async copies (rows past the key count
-// zero-filled; rows padded by 16 bytes so ldmatrix reads are free of bank
-// conflicts).
+// A warp's Q rows, scores and output accumulators stay in registers in the
+// accumulator layout of mma.sync.m16n8k16 (bf16 in, fp32 accumulate), so
+// the softmax statistics of a row live in the four threads of a quad and
+// need two shuffles a reduction.
 #pragma once
 
 #include "common.cuh"
 
 namespace ullava {
-
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -64,23 +54,6 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Starts copying 64 rows of HD bf16 into shared memory (row stride
-// HD + 8) with cp.async; `row(r)` returns the source row or nullptr for a
-// zero row (a 0-byte copy from `valid`, which zero-fills).
-template <int HD, class RowFn>
-__device__ __forceinline__ void load_tile_async(bf16* dst, RowFn row, const bf16* valid,
-                                                int tid) {
-  constexpr int VPR = HD / 8;  // 16-byte vectors per row
-  for (int i = tid; i < 64 * VPR; i += kThreads) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    const bf16* src = row(r);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_addr(dst + r * (HD + 8) + c)),
-                 "l"(src != nullptr ? src + c : valid), "r"(src != nullptr ? 16 : 0));
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
 }
 
 template <int N>

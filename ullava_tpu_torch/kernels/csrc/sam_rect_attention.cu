@@ -63,6 +63,7 @@ struct WindowRect {
   int pad_k_head;     // elements between two heads' pad_k tables: P * (hd + 2W)
   static constexpr bool kBiasAfterScale = false;
   static constexpr bool kPadKeys = true;
+  static constexpr bool kBiasRaw = false;
 
   __device__ int half(int inst) const { return inst / H >= n_first ? 1 : 0; }
   __device__ size_t row(int inst, int s) const {

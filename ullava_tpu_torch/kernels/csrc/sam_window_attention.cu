@@ -1,12 +1,17 @@
 // fused_window_attention_grid: SAM ViT window attention (14 x 14 windows,
 // hd 80) read straight from the raw qkv projection output, with the
-// decomposed rel-pos bias, writing the head-merged output.
+// decomposed rel-pos bias, writing the head-merged output; and
+// fused_window_attention, the same function per (window, head) pair in
+// the head-major layout.
 //
 // Replaces: ullava_tpu/ops/sam_attention.py:181 fused_window_attention_grid
 // (Pallas, kernel _grid_kernel :113; bias folded into the qk dot as
 // one-hot-augmented q/k), in both of its forms: bf16 scores
 // (`ullava_fused_window_attention_grid`) and the int8 score form `dots_i8`
-// (`ullava_fused_window_attention_grid_i8`, kernel branch :146-161).
+// (`ullava_fused_window_attention_grid_i8`, kernel branch :146-161); and
+// :70 fused_window_attention (`ullava_fused_window_attention`, kernel
+// _kernel :29: n_block (window, head) pairs a program, the same one-hot
+// fold, an exact softmax normalized before the bf16 P V).
 //
 // Bound on the card: at ViT-H B=4 (N = 100 windows, S = 196, H = 16) a
 // layer reads y (150 MB) and the two bias-term tensors (18 MB) and
@@ -36,10 +41,24 @@
 // row (finite, dropped by the caller), so no later kernel reads memory
 // that was never written.
 //
+// The head-major form (WindowHeadMajor): q, k and v are three [N, 196, 80]
+// tensors, so an instance's rows are contiguous 160-byte rows, and the
+// bias terms arrive raw, [N, 196, 14], in natural column order (A indexed
+// by t / 14, B by t % 14). The core scales each term by 1/scale and rounds
+// it to bf16 where it reads it, the TPU wrapper's `(bias * inv).astype(
+// q.dtype)` (:88-90), so the arithmetic is K3's point for point. Its
+// bound: at one ViT-H B=4 window block (N = 1600 pairs) it reads q, k, v
+// (150 MB) and the terms (17.6 MB) and writes 50 MB, ~65 us of HBM time
+// against 19.7 GFLOP (~20 us): bytes.
+//
 // The dots_i8 form: K quantized per row to int8 once per (window, head),
 // q and the bias-term row [A | B] per row by each warp, qk on the int8
 // tensor cores (hd 80 zero-padded to 96: three m16n8k32 steps), the
 // one-hot expansion of the TPU kernel as the sum of two codes, P V in bf16.
+//
+// Compiled with ULLAVA_MUTANT_WINDOW_BIAS_RAW the head-major form reads its
+// bias terms without the 1/scale pre-scale: a deliberate bug that only
+// `chip_smoke.py` builds, to show that the gate catches it.
 #include "window_whole.cuh"
 
 namespace ullava {
@@ -57,6 +76,7 @@ struct WindowGrid {
   float scale;
   static constexpr bool kBiasAfterScale = false;
   static constexpr bool kPadKeys = false;
+  static constexpr bool kBiasRaw = false;
 
   __device__ size_t row(int inst, int s) const {
     return static_cast<size_t>(inst / H) * Sq + s;
@@ -76,6 +96,40 @@ struct WindowGrid {
   // The W terms of row s (term 0: A, 1: Bb), reversed columns.
   __device__ const bf16* bias_row(int inst, int s, int term) const {
     return (term ? bb : a) + row(inst, s) * (H * kWin) + (inst % H) * kWin;
+  }
+};
+
+// K21: q, k, v, o [N, 196, 80]; the raw bias terms [N, 196, 14].
+struct WindowHeadMajor {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const bf16* a;
+  const bf16* bb;
+  bf16* o;
+  int Sq;
+  float scale;
+  float inv_scale;
+  static constexpr bool kBiasAfterScale = false;
+  static constexpr bool kPadKeys = false;
+  static constexpr bool kBiasRaw = true;
+
+  __device__ size_t row(int inst, int s) const { return static_cast<size_t>(inst) * Sq + s; }
+  __device__ const bf16* q_row(int inst, int s) const { return q + row(inst, s) * kWinHD; }
+  __device__ const bf16* k_row(int inst, int t) const { return k + row(inst, t) * kWinHD; }
+  __device__ const bf16* v_row(int inst, int t) const { return v + row(inst, t) * kWinHD; }
+  __device__ bf16* o_row(int inst, int s) const { return o + row(inst, s) * kWinHD; }
+  // The W terms of row s (term 0: A, 1: Bb), natural columns, raw.
+  __device__ const bf16* bias_row(int inst, int s, int term) const {
+    return (term ? bb : a) + row(inst, s) * kWin;
+  }
+  // A raw term as the TPU wrapper pre-scales it: times 1/scale, to bf16.
+  __device__ float prescaled(float x) const {
+#ifdef ULLAVA_MUTANT_WINDOW_BIAS_RAW
+    return x;
+#else
+    return __bfloat162float(__float2bfloat16_rn(x * inv_scale));
+#endif
   }
 };
 
@@ -114,4 +168,26 @@ ULLAVA_EXPORT int ullava_window_attention_grid_attrs(int i8, int* out) {
   using namespace ullava;
   return i8 ? window_whole_attrs<kWinHD, kWin, WindowGrid, WholeWindow, WholeWindow, true>(out)
             : window_whole_attrs<kWinHD, kWin, WindowGrid, WholeWindow, WholeWindow, false>(out);
+}
+
+// q, k, v, o: [N, 196, 80] bf16 (N = windows x heads); a, b: [N, 196, 14]
+// bf16 raw, natural column order (pre-scaled by 1/scale and rounded to
+// bf16 in the kernel).
+ULLAVA_EXPORT int ullava_fused_window_attention(const void* q, const void* k, const void* v,
+                                                const void* a, const void* b, void* o, int N,
+                                                float scale, void* stream) {
+  using namespace ullava;
+  const WindowHeadMajor p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                          static_cast<const bf16*>(v), static_cast<const bf16*>(a),
+                          static_cast<const bf16*>(b), static_cast<bf16*>(o),
+                          kWin * kWin, scale, 1.0f / scale};
+  return launch_window_whole<kWinHD, kWin, WindowHeadMajor>(p, N,
+                                                            static_cast<cudaStream_t>(stream));
+}
+
+// {registers a thread, shared bytes a block, spilled bytes a thread,
+// blocks an SM} of the head-major form's kernel (`form` unused).
+ULLAVA_EXPORT int ullava_fused_window_attention_attrs(int, int* out) {
+  using namespace ullava;
+  return window_whole_attrs<kWinHD, kWin, WindowHeadMajor>(out);
 }

@@ -13,7 +13,12 @@
 //   - K14, the boundary-window kernel (`_rect_kernel` :261-350): HD 80,
 //     only the T = R x C real tokens of a logical WB x WB window are rows
 //     and keys (the geometry G, a template parameter); the pad positions
-//     are not keys of any product (P::kPadKeys, below).
+//     are not keys of any product (P::kPadKeys, below);
+//   - K21, the per-(window, head) window kernel (`_kernel` :29-67): K3's
+//     function on head-major [N, 196, 80] q, k and v, its bias terms raw
+//     in natural column order (P::kBiasRaw): each term is scaled by
+//     1/scale and rounded to bf16 where a thread reads it, as the TPU
+//     wrapper pre-scales them (:88-90).
 // K3 and K14 also take the int8 score form (I8, `dots_i8`).
 //
 // Design (windows of at most kWwKeys = 208 keys: 196 for 14 x 14, padded
@@ -294,7 +299,16 @@ __device__ __forceinline__ void ww_window_body(const P& p, unsigned char* smem_r
   static_assert(WB % 2 == 0, "bias rows of whole 4-byte words");
   static_assert(NK <= kWwKeys && (T + 15) / 16 >= kWwWarps, "every warp has a tile");
   static_assert(!I8 || KD8 * 32 <= RB, "an int8 row fits in its bf16 row");
+  static_assert(!P::kBiasRaw || (!I8 && !P::kPadKeys), "raw bias terms: K21's form only");
   constexpr float kLog2e = 1.4426950408889634f;
+  // Bias term `col` of a staged row: reversed and pre-scaled (K3, K14), or
+  // natural and raw, pre-scaled here (K21).
+  auto bias_term = [&](const bf16* t, int col) {
+    if constexpr (P::kBiasRaw)
+      return p.prescaled(__bfloat162float(t[col]));
+    else
+      return __bfloat162float(t[WB - 1 - col]);
+  };
 
   unsigned char* sK = smem_raw;
   unsigned char* sV = sK + L::kKV;
@@ -373,7 +387,7 @@ __device__ __forceinline__ void ww_window_body(const P& p, unsigned char* smem_r
     }
     prefetch(rt + kWwWarps, b ^ 1);
     unsigned char* sQ = wbuf + b * L::kBuf;
-    const bf16* sRaw = reinterpret_cast<const bf16*>(sQ + 16 * RB);  // [2][16][WB], reversed
+    const bf16* sRaw = reinterpret_cast<const bf16*>(sQ + 16 * RB);  // [2][16][WB] as stored
 
     // q . pad_k of rows row0, row1 from the bf16 q: a quarter of the lanes
     // a thread, summed over the quad.
@@ -469,7 +483,8 @@ __device__ __forceinline__ void ww_window_body(const P& p, unsigned char* smem_r
     // Bias, scale, key mask, the row max over the quad, as K19 below but
     // over a rectangle of C columns: 8 j = C qj + rj at compile time, the
     // A index qj + (rj + c >= C), the B index (8 j + c) % C repeating with
-    // j % kPer. Tables are in the TPU's reversed column order.
+    // j % kPer. K3's and K14's tables are in the TPU's reversed column
+    // order, K21's in natural order.
     int c0;
     asm volatile("mov.b32 %0, %1;\n" : "=r"(c0) : "r"(2 * tq));
     float at[2][R + 1], bt[2][kPer][2];
@@ -478,13 +493,12 @@ __device__ __forceinline__ void ww_window_body(const P& p, unsigned char* smem_r
       const bf16* ta = tab + (g + 8 * r) * WB;
       const bf16* tb = tab + (16 + g + 8 * r) * WB;
 #pragma unroll
-      for (int a = 0; a < R; ++a) at[r][a] = __bfloat162float(ta[WB - 1 - a]);
+      for (int a = 0; a < R; ++a) at[r][a] = bias_term(ta, a);
       at[r][R] = 0.f;  // the index of a masked key past the last row
 #pragma unroll
       for (int jj = 0; jj < kPer; ++jj) {
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
-          bt[r][jj][e] = __bfloat162float(tb[WB - 1 - (8 * jj + c0 + e) % C]);
+        for (int e = 0; e < 2; ++e) bt[r][jj][e] = bias_term(tb, (8 * jj + c0 + e) % C);
       }
     }
     float mx[2][4];

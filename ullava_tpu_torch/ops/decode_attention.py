@@ -185,13 +185,54 @@ def decode_attention_int8(
     if q.device.type == "cpu":
         return decode_attention_int8_plain(
             q, cache_k, cache_v, k_scale, v_scale, kv_lens, layer_idx, scale=scale)
+    return _decode_read_cuda(q, cache_k, cache_v, k_scale, v_scale, kv_lens, layer_idx, scale)
+
+
+# The read kernel's blocks a (sample, head) form one thread block cluster:
+# at most the portable 8. Each parks 8 bytes a row of its share of the
+# cache in shared memory, at most 200 KB.
+_READ_MAX_SPLITS, _READ_ROW_BYTES, _READ_SMEM_MAX = 8, 8, 200 * 1024
+_READ_LOADS = 4  # row loads a lane issues at once (`dec::kLoads`)
+
+
+def read_rows(maxS: int, hd: int, splits: int) -> int:
+    """The rows a block of the read kernel parks for a cache of maxS rows
+    split `splits` ways: whole warp tiles of (32 / (hd / 16)) * 4 rows."""
+    tile = 32 // (hd // 16) * _READ_LOADS
+    per = -(-maxS // splits)
+    return -(-per // tile) * tile
+
+
+def decode_read_splits(B: int, H: int, maxS: int, hd: int, sms: int) -> int:
+    """How many blocks (one cluster) share a (sample, head)'s rows in the
+    read kernel: as `fused_write_splits` chooses, at most 8, and at least
+    what the rows a block can park need."""
+    splits = min(fused_write_splits(B, H, maxS, sms), _READ_MAX_SPLITS)
+    while splits < _READ_MAX_SPLITS and read_rows(maxS, hd, splits) * _READ_ROW_BYTES > _READ_SMEM_MAX:
+        splits += 1
+    return splits
+
+
+def _decode_read_cuda(q, cache_k, cache_v, k_scale, v_scale, kv_lens, layer_idx: int,
+                      scale: float, splits: Optional[int] = None) -> torch.Tensor:
+    """The CUDA `decode_attention_int8`. `splits` sets how many blocks share
+    a (sample, head)'s rows (None: `decode_read_splits`; the function does
+    not depend on it), so that a test or a measurement can run each form."""
+    B, _, H, hd = q.shape
+    Hkv = k_scale.shape[-1]
     name = "decode_attention_int8"
     lanes = hd // 16  # lanes of a warp that share one cache row
     if hd % 16 or lanes & (lanes - 1) or lanes > 32:
         raise ValueError(f"{name}: head_dim {hd} must be 16 * 2^n, at most 512")
     _, maxS = _check_cache(name, cache_k, cache_v, k_scale, v_scale, B, Hkv, hd)
-    if (maxS + 4 * hd + 32) * 4 > 48 * 1024:
-        raise ValueError(f"{name}: cache length {maxS} exceeds shared memory")
+    if splits is None:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        splits = decode_read_splits(B, H, maxS, hd, sms)
+    if not 1 <= splits <= _READ_MAX_SPLITS:
+        raise ValueError(f"{name}: splits {splits} must lie in 1..{_READ_MAX_SPLITS}")
+    if read_rows(maxS, hd, splits) * _READ_ROW_BYTES > _READ_SMEM_MAX:
+        raise ValueError(f"{name}: cache length {maxS} exceeds the shared memory of "
+                         f"{splits} blocks a (sample, head)")
     kernels.check_cuda_tensor(f"{name} q", q, torch.bfloat16)
     lens = kv_lens.to(torch.int32).contiguous()
     kernels.check_cuda_tensor(f"{name} kv_lens", lens, torch.int32, (B,))
@@ -199,7 +240,7 @@ def decode_attention_int8(
     kernels.launch(
         name, q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), lens.data_ptr(), out.data_ptr(), B, H, Hkv, hd, maxS,
-        int(layer_idx), float(scale),
+        int(layer_idx), float(scale), int(splits),
     )
     return out
 

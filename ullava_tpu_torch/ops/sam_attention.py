@@ -510,8 +510,9 @@ def fused_window_attention(
     """Window attention per (window, head) pair in the head-major layout,
     with the decomposed bias. `n_block` is the TPU kernel's pairs a
     program: accepted and ignored. CUDA kernel
-    `kernels/csrc/sam_global_attention.cu` (its window entry: W 14, hd 80,
-    bf16) for CUDA tensors, the plain version for CPU ones."""
+    `kernels/csrc/sam_window_attention.cu` (its head-major entry on the
+    whole-window core: W 14, hd 80, bf16) for CUDA tensors, the plain
+    version for CPU ones."""
     N, S, hd = q.shape
     W = window
     if S != W * W or k.shape != q.shape or v.shape != q.shape:
