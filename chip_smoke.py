@@ -122,7 +122,21 @@ Phases, each fatal on any error:
                adapters and heads moved); then one resident encode of its
                SAM encoder with composite bias weights and `mlp_w8a8` off,
                the path of K13's weight-only form, with exact counts;
- 10. check   - runs small models (bf16, its SAM encoder also packed, then
+ 10. inference - writes a full-width checkpoint set into a temporary
+               directory (LLaMA at Vicuna-7B's widths cut to 4 layers and
+               CLIP ViT-L/14 as bf16 safetensors, SAM ViT-H with Meta's key
+               names as an fp32 `.pth`), loads and converts it (one linear of
+               each tower held to its transposed source exactly), then runs
+               `inference_ullava.run_once` with `quantize: int8`,
+               `kv_cache: int8` on a seeded 480 x 640 image with the toy
+               tokenizer, temperature 0.2, top-p 0.9 and 32 new tokens:
+               finite outputs, three masks at 480 x 640 and three boxes,
+               exact launch counts; then the sampler on the card against
+               the CPU nucleus (support and a chi-square test over 4096
+               draws a row); prints the write, load, convert, build and run
+               seconds and the peak memory beside the card's name and power
+               limit, and deletes the directory;
+ 11. check   - runs small models (bf16, its SAM encoder also packed, then
                int8 LLM, also on a one-sample 12-token prompt, then an int8 SAM
                encoder in the block and in the resident layout, the latter
                also with int8 scores beside a W8A8 flash CLIP tower, then
@@ -133,7 +147,7 @@ Phases, each fatal on any error:
                holds the card's outputs to the CPU reference, and the
                resident encoder's to the block layout's; then
                `train.train_stage1` end to end with checkpoints and resume;
- 11. summary - prints the serve and training numbers again, the card's
+ 12. summary - prints the serve and training numbers again, the card's
                name and power limit, one JSON line with every kernel's
                numbers, and last the device line.
 
@@ -141,7 +155,7 @@ Exits non-zero with no result when CUDA is unavailable.
 
     python3 chip_smoke.py --check-draws SEED ...
 
-runs only the training checks of phase 10 on the draws of the given seeds
+runs only the training checks of phase 11 on the draws of the given seeds
 (each its own generator), then reads each draw's stage-2 steps again leaf
 by leaf beside the witnesses of `ullava_tpu_torch/microbench/stage2_grads.py`.
 """
@@ -3158,7 +3172,7 @@ def serve_phase(phase: str, cfg, params, n_req: int, expect: dict):
     from ullava_tpu_torch.serve import collate, serve
 
     reqs = requests(cfg, n_req, PROMPT, np.random.default_rng(0))
-    gc = generate.GenerateConfig(max_new_tokens=NEW_TOKENS)
+    gc = generate.GenerateConfig(max_new_tokens=NEW_TOKENS, temperature=0.0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -4061,6 +4075,649 @@ def check_stage2(gen, errs: dict) -> None:
         raise AssertionError(f"the small stage-2 step launched {ran}")
 
 
+# ---------------------------------------------------------------------------
+# The inference phase: checkpoint files -> build -> run_once.
+# ---------------------------------------------------------------------------
+INFERENCE_LLAMA_LAYERS = 4  # the depth cut; Vicuna-7B has 32
+INFERENCE_NEW_TOKENS = 32
+# Residual lanes of the written LLaMA that no layer writes: lane 5 holds
+# 30.0 in the embedding of every id below TOY_IDS (the toy tokenizer's
+# vocabulary) but [SEG], lane 9 in [SEG]'s, and lm_head reads lane 5 as
+# [SEG] and lane 9 as [LOC]. So decoding answers [SEG] and [LOC] in turn
+# and the masks and boxes are decoded. Ids from TOY_IDS on keep both
+# lanes 0: the sampling gate's prompts draw from there, where the logits
+# are the random model's. A fresh toy tokenizer gives [SEG] and [LOC]
+# ids 10 and 11 once the build has added the 6 multimodal and the 4
+# stage-2 tokens to its 4 specials.
+SEG_LANE, LOC_LANE, LANE_VALUE, TOY_IDS, SEG_ID, LOC_ID = 5, 9, 30.0, 64, 10, 11
+# The rows that one image (B=1) gives the weight-only K10 in the SAM
+# encode: the 16 full windows' 3136, the merged right and bottom classes'
+# 896 (8 windows of 14 x 8), the corner's 64 (less than one M tile), and a
+# global block's 4096 (K12's only row count there: no window class reaches
+# the fused MLP's 512-row gate).
+INFERENCE_CLASS_ROWS = (3136, 896, 64, 4096)
+# The greedy comparison's new tokens: [SEG] and [LOC] four times each, so
+# every one of the three masks and boxes is read out.
+INFERENCE_CHECK_TOKENS = 8
+# A deliberate bug in the kernel sources that the inference path runs;
+# the greedy comparison of the card with the CPU must fail on each copy.
+# K2's and K11's (`K2_MUTANTS`, `GLOBAL_Y_MUTANTS`) move that comparison
+# by less than its tolerance (the random model's attention is close to
+# uniform), so `inference_kernel_gates` catches them at the path's shapes.
+INFERENCE_MUTANTS = {
+    "fused_rotary partner_sign": K1_MUTANTS["partner_sign"],
+    "prefill_quantize_write half_lanes_amax": K7_MUTANTS["half_lanes_amax"],
+    "decode_attention_int8_fused_write split_last_tile_left_out":
+        K8_MUTANTS["split_last_tile_left_out"],
+    "rms_norm_fwd warp_partial_left_out": K9_MUTANTS["warp_partial_left_out"],
+    "fused_window_attention_grid quad_max_dropped":
+        QUAD_MAX_MUTANTS["sam_window_attention.cu"],
+    "fused_window_attention_rect pad_out_of_sum": RECT_PAD_MUTANT,
+    "fused_ln_linear_wq weight_widened_unsigned": WQ_MUTANTS["ln_linear_wq.cu"],
+    "fused_mlp_block_wq weight_widened_unsigned": WQ_MUTANTS["mlp_block_wq.cu"],
+}
+
+
+def _vicuna_config():
+    return {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+            "vocab_size": 32000, "hidden_size": 4096, "intermediate_size": 11008,
+            "num_hidden_layers": INFERENCE_LLAMA_LAYERS, "num_attention_heads": 32,
+            "num_key_value_heads": 32, "max_position_embeddings": 2048, "rms_norm_eps": 1e-6,
+            "rope_theta": 10000.0, "hidden_act": "silu", "torch_dtype": "bfloat16"}
+
+
+def _clip_l14_config():
+    return {"architectures": ["CLIPVisionModel"], "model_type": "clip_vision_model",
+            "hidden_size": 1024, "intermediate_size": 4096, "num_hidden_layers": 24,
+            "num_attention_heads": 16, "image_size": 224, "patch_size": 14,
+            "layer_norm_eps": 1e-5, "projection_dim": 768, "torch_dtype": "bfloat16"}
+
+
+def _llama_specs(c):
+    """(name, shape, init) of an HF LlamaForCausalLM state dict."""
+    D, F_, V = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
+    out = [("model.embed_tokens.weight", (V, D), "normal")]
+    for i in range(c["num_hidden_layers"]):
+        b = f"model.layers.{i}."
+        out += [(b + "input_layernorm.weight", (D,), "ones"),
+                *[(b + f"self_attn.{n}_proj.weight", (D, D), "normal") for n in "qkvo"],
+                (b + "post_attention_layernorm.weight", (D,), "ones"),
+                (b + "mlp.gate_proj.weight", (F_, D), "normal"),
+                (b + "mlp.up_proj.weight", (F_, D), "normal"),
+                (b + "mlp.down_proj.weight", (D, F_), "normal")]
+    return out + [("model.norm.weight", (D,), "ones"), ("lm_head.weight", (V, D), "normal")]
+
+
+def _clip_specs(c):
+    """(name, shape, init) of an HF CLIPVisionModel state dict."""
+    D, F_, p = c["hidden_size"], c["intermediate_size"], c["patch_size"]
+    v = "vision_model."
+    out = [(v + "embeddings.class_embedding", (D,), "normal"),
+           (v + "embeddings.patch_embedding.weight", (D, 3, p, p), "normal"),
+           (v + "embeddings.position_embedding.weight", ((c["image_size"] // p) ** 2 + 1, D),
+            "normal"),
+           (v + "pre_layrnorm.weight", (D,), "ones"), (v + "pre_layrnorm.bias", (D,), "zeros")]
+    for i in range(c["num_hidden_layers"]):
+        b = f"{v}encoder.layers.{i}."
+        for n in ("layer_norm1", "layer_norm2"):
+            out += [(b + n + ".weight", (D,), "ones"), (b + n + ".bias", (D,), "zeros")]
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            out += [(b + f"self_attn.{n}.weight", (D, D), "normal"),
+                    (b + f"self_attn.{n}.bias", (D,), "zeros")]
+        out += [(b + "mlp.fc1.weight", (F_, D), "normal"), (b + "mlp.fc1.bias", (F_,), "zeros"),
+                (b + "mlp.fc2.weight", (D, F_), "normal"), (b + "mlp.fc2.bias", (D,), "zeros")]
+    return out + [(v + "post_layernorm.weight", (D,), "ones"),
+                  (v + "post_layernorm.bias", (D,), "zeros")]
+
+
+def _sam_vit_h_meta_specs():
+    """(name, shape, init) of Meta's `sam_vit_h` state dict: every key the
+    released file has, at ViT-H widths (embed 1280, 32 blocks, 16 heads,
+    global blocks 7, 15, 23, 31; prompt and decoder width 256)."""
+    C, depth, g, hd, O = 1280, 32, 64, 80, 256
+    out = [("image_encoder.pos_embed", (1, g, g, C), "normal"),
+           ("image_encoder.patch_embed.proj.weight", (C, 3, 16, 16), "normal"),
+           ("image_encoder.patch_embed.proj.bias", (C,), "zeros")]
+    for i in range(depth):
+        b = f"image_encoder.blocks.{i}."
+        rel = 2 * (g if i in (7, 15, 23, 31) else 14) - 1
+        out += [(b + "norm1.weight", (C,), "ones"), (b + "norm1.bias", (C,), "zeros"),
+                (b + "attn.qkv.weight", (3 * C, C), "normal"), (b + "attn.qkv.bias", (3 * C,), "zeros"),
+                (b + "attn.proj.weight", (C, C), "normal"), (b + "attn.proj.bias", (C,), "zeros"),
+                (b + "attn.rel_pos_h", (rel, hd), "normal"), (b + "attn.rel_pos_w", (rel, hd), "normal"),
+                (b + "norm2.weight", (C,), "ones"), (b + "norm2.bias", (C,), "zeros"),
+                (b + "mlp.lin1.weight", (4 * C, C), "normal"), (b + "mlp.lin1.bias", (4 * C,), "zeros"),
+                (b + "mlp.lin2.weight", (C, 4 * C), "normal"), (b + "mlp.lin2.bias", (C,), "zeros")]
+    out += [("image_encoder.neck.0.weight", (O, C, 1, 1), "normal"),
+            ("image_encoder.neck.1.weight", (O,), "ones"), ("image_encoder.neck.1.bias", (O,), "zeros"),
+            ("image_encoder.neck.2.weight", (O, O, 3, 3), "normal"),
+            ("image_encoder.neck.3.weight", (O,), "ones"), ("image_encoder.neck.3.bias", (O,), "zeros")]
+    pe, md = "prompt_encoder.", "prompt_encoder.mask_downscaling."
+    out += [(pe + "pe_layer.positional_encoding_gaussian_matrix", (2, O // 2), "gaussian"),
+            *[(pe + f"point_embeddings.{i}.weight", (1, O), "normal") for i in range(4)],
+            (pe + "not_a_point_embed.weight", (1, O), "normal"),
+            (md + "0.weight", (4, 1, 2, 2), "normal"), (md + "0.bias", (4,), "zeros"),
+            (md + "1.weight", (4,), "ones"), (md + "1.bias", (4,), "zeros"),
+            (md + "3.weight", (16, 4, 2, 2), "normal"), (md + "3.bias", (16,), "zeros"),
+            (md + "4.weight", (16,), "ones"), (md + "4.bias", (16,), "zeros"),
+            (md + "6.weight", (O, 16, 1, 1), "normal"), (md + "6.bias", (O,), "zeros"),
+            (pe + "no_mask_embed.weight", (1, O), "normal")]
+
+    def lin(name, i, o):
+        return [(name + ".weight", (o, i), "normal"), (name + ".bias", (o,), "zeros")]
+
+    def ln(name, n=O):
+        return [(name + ".weight", (n,), "ones"), (name + ".bias", (n,), "zeros")]
+
+    def attn(name, inner):
+        return (lin(name + ".q_proj", O, inner) + lin(name + ".k_proj", O, inner)
+                + lin(name + ".v_proj", O, inner) + lin(name + ".out_proj", inner, O))
+
+    tr, dd = "mask_decoder.transformer.", "mask_decoder."
+    for i in range(2):
+        b = f"{tr}layers.{i}."
+        out += (attn(b + "self_attn", O) + ln(b + "norm1")
+                + attn(b + "cross_attn_token_to_image", O // 2) + ln(b + "norm2")
+                + lin(b + "mlp.lin1", O, 2048) + lin(b + "mlp.lin2", 2048, O) + ln(b + "norm3")
+                + ln(b + "norm4") + attn(b + "cross_attn_image_to_token", O // 2))
+    out += attn(tr + "final_attn_token_to_image", O // 2) + ln(tr + "norm_final_attn")
+    out += [(dd + "iou_token.weight", (1, O), "normal"), (dd + "mask_tokens.weight", (4, O), "normal"),
+            (dd + "output_upscaling.0.weight", (O, O // 4, 2, 2), "normal"),
+            (dd + "output_upscaling.0.bias", (O // 4,), "zeros"), *ln(dd + "output_upscaling.1", O // 4),
+            (dd + "output_upscaling.3.weight", (O // 4, O // 8, 2, 2), "normal"),
+            (dd + "output_upscaling.3.bias", (O // 8,), "zeros")]
+    for i in range(4):
+        b = f"{dd}output_hypernetworks_mlps.{i}.layers."
+        out += lin(b + "0", O, O) + lin(b + "1", O, O) + lin(b + "2", O, O // 8)
+    b = dd + "iou_prediction_head.layers."
+    return out + lin(b + "0", O, O) + lin(b + "1", O, O) + lin(b + "2", O, 4)
+
+
+def _draw(spec, dtype, gen):
+    """One tensor of a written checkpoint, drawn on the card: std 0.02
+    normal weights (the random-Fourier matrix std 1), norm scales 1,
+    biases 0; returned on the host."""
+    import torch
+
+    name, shape, init = spec
+    if init == "ones":
+        return torch.ones(shape, dtype=dtype)
+    if init == "zeros":
+        return torch.zeros(shape, dtype=dtype)
+    std = 1.0 if init == "gaussian" else 0.02
+    return (torch.randn(shape, generator=gen, device="cuda") * std).to(dtype).cpu()
+
+
+def _seg_loc_lanes(name, t):
+    """The lanes of `SEG_LANE` / `LOC_LANE` in one LLaMA tensor (see there)."""
+    if name == "model.embed_tokens.weight":
+        t[:, [SEG_LANE, LOC_LANE]] = 0
+        t[:TOY_IDS, SEG_LANE] = LANE_VALUE
+        t[SEG_ID, SEG_LANE], t[SEG_ID, LOC_LANE] = 0, LANE_VALUE
+    elif name == "lm_head.weight":  # [V, D]
+        t[:, [SEG_LANE, LOC_LANE]] = 0
+        t[SEG_ID, SEG_LANE], t[LOC_ID, LOC_LANE] = 5.0, 5.0
+    elif name.endswith(("o_proj.weight", "down_proj.weight")):
+        t[[SEG_LANE, LOC_LANE]] = 0  # [out, in]: no layer writes the lanes
+    return t
+
+
+def write_safetensors(path, specs, dtype, gen, edit=lambda name, t: t) -> None:
+    """A `.safetensors` file written tensor by tensor (an 8-byte
+    little-endian header length, the JSON header, the raw bytes)."""
+    import struct
+
+    import torch
+
+    header, off = {}, 0
+    for name, shape, _ in specs:
+        n = dtype.itemsize
+        for s in shape:
+            n *= s
+        header[name] = {"dtype": {torch.bfloat16: "BF16", torch.float32: "F32"}[dtype],
+                        "shape": list(shape), "data_offsets": [off, off + n]}
+        off += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for spec in specs:
+            t = edit(spec[0], _draw(spec, dtype, gen)).contiguous()
+            f.write(memoryview(t.view(torch.uint8).numpy()))
+
+
+def write_inference_checkpoints(root, gen) -> dict:
+    """The checkpoint set of the inference phase under `root`: `llm/`
+    (Vicuna-7B's widths cut to `INFERENCE_LLAMA_LAYERS` layers, bf16
+    safetensors), `clip/` (ViT-L/14-224, 24 layers, bf16 safetensors) and
+    `sam_vit_h.pth` (Meta's key names, ViT-H, fp32 as released)."""
+    import os
+
+    import torch
+
+    os.makedirs(os.path.join(root, "llm"))
+    os.makedirs(os.path.join(root, "clip"))
+    llm_cfg, clip_cfg = _vicuna_config(), _clip_l14_config()
+    for d, c in (("llm", llm_cfg), ("clip", clip_cfg)):
+        with open(os.path.join(root, d, "config.json"), "w") as f:
+            json.dump(c, f)
+    write_safetensors(os.path.join(root, "llm", "model.safetensors"), _llama_specs(llm_cfg),
+                      torch.bfloat16, gen, _seg_loc_lanes)
+    write_safetensors(os.path.join(root, "clip", "model.safetensors"), _clip_specs(clip_cfg),
+                      torch.bfloat16, gen)
+    sam_path = os.path.join(root, "sam_vit_h.pth")
+    torch.save({s[0]: _draw(s, torch.float32, gen) for s in _sam_vit_h_meta_specs()}, sam_path)
+    return {"llm_path": os.path.join(root, "llm"), "vision_encoder": os.path.join(root, "clip"),
+            "sam_path": sam_path}
+
+
+def check_converters(paths) -> dict:
+    """Load each written file and convert it on the card (timed apart),
+    then hold one converted linear of each tower to its source tensor,
+    transposed, exactly (the SAM source cast to the build's bf16)."""
+    import torch
+
+    from ullava_tpu_torch.models.sam import build as sam_build
+    from ullava_tpu_torch.models.sam.convert import convert_sam
+    from ullava_tpu_torch.models.weights import (convert_clip_vision, convert_llama,
+                                                 load_state_dict)
+
+    t0 = time.perf_counter()
+    sds = {k: load_state_dict(p) for k, p in paths.items()}
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    llm = convert_llama(sds["llm_path"], INFERENCE_LLAMA_LAYERS, torch.bfloat16, device="cuda")
+    clip = convert_clip_vision(sds["vision_encoder"], 24, torch.bfloat16, device="cuda")
+    sam = convert_sam(sds["sam_path"], sam_build.sam_vit_h(torch.bfloat16), device="cuda")
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    pairs = {
+        "llama_layer3_q_proj": (llm["layers"][3]["q_proj"],
+                                sds["llm_path"]["model.layers.3.self_attn.q_proj.weight"]),
+        "clip_layer23_fc1": (clip["layers"][23]["fc1"],
+                             sds["vision_encoder"]["vision_model.encoder.layers.23.mlp.fc1.weight"]),
+        "sam_block31_qkv": (sam["image_encoder"]["global_blocks"][3]["qkv"],
+                            sds["sam_path"]["image_encoder.blocks.31.attn.qkv.weight"]),
+    }
+    for name, (got, src) in pairs.items():
+        must(f"convert {name}", torch.equal(got.cpu(), src.to(torch.bfloat16).t()),
+             "the converted leaf is not the transposed source")
+    return {"load_s": load_s, "convert_s": convert_s, "leaves_checked": sorted(pairs),
+            "file_gb": {k: sum(t.numel() * t.element_size() for t in sd.values()) / 1e9
+                        for k, sd in sds.items()}}
+
+
+@contextlib.contextmanager
+def recording(module, name, sink):
+    """Route `module.name` through a wrapper that keeps its last result and
+    host wall time in `sink` for the `with` block."""
+    orig = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        sink[name] = orig(*args, **kwargs)
+        sink[name + "_s"] = time.perf_counter() - t0
+        return sink[name]
+
+    setattr(module, name, wrapper)
+    try:
+        yield sink
+    finally:
+        setattr(module, name, orig)
+
+
+def inference_kernel_gates(gen, prompt_len: int) -> dict:
+    """Kernels at the shapes that one image (B=1) gives them on the
+    inference path, each against its plain version by `row_rel_err`
+    within 1e-2: K2 on the prompt's `prompt_len` tokens (32 heads of 128,
+    causal), and the SAM encoder's: the weight-only K10 in both forms (LN1 +
+    qkv; proj + residual) at `INFERENCE_CLASS_ROWS`, the weight-only K12
+    at 4096 rows, K3 on the 16 full windows (196 rows, no pad rows), K14
+    on the merged right and bottom windows (4 + 4) and on the corner,
+    and K11 on one global block (fp32 exponentials: `mlp_w8a8` is off).
+    Each gate must reject copies of its source built with a deliberate
+    bug (K10 and K12: `WQ_MUTANTS`, `WQ_EPILOGUE_MUTANTS`, and for the
+    proj form and K12 `WQ_WIDEN_MUTANTS`; K3 and K14 `QUAD_MAX_MUTANTS`,
+    K14 also `RECT_PAD_MUTANT`; K11 `GLOBAL_Y_MUTANTS`; K2 its causal mask
+    one key late: its other mutant, the kv_len edge tile masked at its
+    end, leaves a prompt that fills its rows unchanged)."""
+    import torch
+
+    from ullava_tpu_torch import kernels
+    from ullava_tpu_torch.ops import attention, mlp_kernel, quant, sam_attention
+
+    dev, bf, tol, eps = "cuda", torch.bfloat16, 1e-2, 1e-6
+    C, H, hd, W = SAM_C, SAM_H, SAM_HD, SAM_W
+    sc = hd**-0.5
+    kw = dict(num_heads=H, head_dim=hd, scale=sc)
+    out = {"tol": tol}
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(bf)
+
+    def weight(K, N):
+        leaf = quant.quantize_int8(torch.randn((K, N), generator=gen, device=dev) * 0.05)
+        return leaf["q"], leaf["scale"]
+
+    def gate(name, run, ref, mutants):
+        err = row_rel_err(run(), ref)
+        must(name, err <= tol, err)
+        caught = {}
+        for bug, src_define in mutants.items():
+            with kernels.mutant(*src_define):
+                e = row_rel_err(run(), ref)
+            caught[bug] = must_not(name, bug, e <= tol, e)
+        out[name] = {"row_rel_err": err, "mutant_row_rel_err": caught}
+
+    def wq(src, widen):
+        return {"weight_widened_unsigned": WQ_MUTANTS[src],
+                "scale_by_token": WQ_EPILOGUE_MUTANTS[src],
+                **({"widen_bias_off_by_one": WQ_WIDEN_MUTANTS[src]} if widen else {})}
+
+    q, k, v = (randn(1, prompt_len, 32, 128) for _ in range(3))
+    lens = torch.tensor([prompt_len], device=dev, dtype=torch.int32)
+    gate(f"flash_attention_fwd_bsh 1 x {prompt_len}",
+         lambda: attention.flash_attention_fwd_bsh(q, k, v, lens, causal=True, scale=128**-0.5),
+         attention.flash_attention_fwd_bsh_plain(q, k, v, lens, causal=True, scale=128**-0.5),
+         {"causal_mask_shifted": K2_MUTANTS["causal_mask_shifted"]})
+    del q, k, v
+
+    x = randn(max(INFERENCE_CLASS_ROWS), C, scale=2.0, shift=0.3)
+    g, b = randn(C, scale=0.1, shift=1.0), randn(C, scale=0.1)
+    for form, N, ln in (("ln_qkv", 3 * C, True), ("proj_residual", C, False)):
+        w, s = weight(C, N)
+        bias = randn(N, scale=0.5)
+        res = None if ln else randn(x.shape[0], N)
+        lg, lb = (g, b) if ln else (None, None)
+        for T in INFERENCE_CLASS_ROWS:
+            r = None if res is None else res[:T]
+            gate(f"fused_ln_linear_wq {form} {T}",
+                 lambda T=T, r=r: mlp_kernel.fused_ln_linear(
+                     x[:T], lg, lb, w, s, bias, eps, w8a8=False, residual=r),
+                 mlp_kernel._ln_linear_parts_plain(x[:T], lg, lb, w, s, bias, eps, False, r)[0],
+                 wq("ln_linear_wq.cu", not ln))
+        del res
+
+    (w1, s1), (w2, s2) = weight(C, 4 * C), weight(4 * C, C)
+    b1, b2 = randn(4 * C, scale=0.5), randn(C, scale=0.5)
+    args = (x[:4096], g, b, w1, s1, b1, w2, s2, b2, eps)
+    gate("fused_mlp_block_wq 4096", lambda: mlp_kernel.fused_mlp_block(*args, w8a8=False),
+         mlp_kernel._mlp_block_parts_plain(*args, 1024, False)[0], wq("mlp_block_wq.cu", True))
+    del x, w1, w2, args
+
+    y = randn(16, W * W, 3 * C)
+    a, bb = (randn(16, W * W, H * W, scale=2.0 / sc) for _ in range(2))
+    gate("fused_window_attention_grid 16 x 196",
+         lambda: sam_attention.fused_window_attention_grid(y, a, bb, **kw, window=W),
+         sam_attention.fused_window_attention_grid_plain(y, a, bb, H, hd, W, sc),
+         {"quad_max_dropped": QUAD_MAX_MUTANTS["sam_window_attention.cu"]})
+
+    qkv_bias = randn(3 * C, scale=0.5)
+    for form, geoms, per in (("edge_pair", [(14, 8), (8, 14)], 4), ("corner", [(8, 8)], 1)):
+        y, a, bb, tables = rect_case(gen, geoms, per, qkv_bias)[:4]
+        geometry = tuple(geoms) if len(geoms) == 2 else geoms[0]
+        gate(f"fused_window_attention_rect {form} {y.shape[0]} x {y.shape[1]}",
+             lambda y=y, a=a, bb=bb, t=tables, g_=geometry: sam_attention.fused_window_attention_rect(
+                 y, a, bb, *t, **kw, window=W, geometry=g_),
+             sam_attention.fused_window_attention_rect_plain(y, a, bb, *tables, H, hd, W, sc),
+             {"pad_out_of_sum": RECT_PAD_MUTANT,
+              "quad_max_dropped": QUAD_MAX_MUTANTS["sam_rect_attention.cu"]})
+
+    G = 64
+    y = randn(1, G * G, 3 * C)
+    a, bb = (randn(1, G * G, H, G, scale=2.0 / sc) for _ in range(2))
+    gate("fused_global_attention_y 1 x 4096",
+         lambda: sam_attention.fused_global_attention_y(y, a, bb, **kw, window=G),
+         sam_attention.fused_global_attention_y_plain(y, a, bb, **kw, window=G),
+         GLOBAL_Y_MUTANTS)
+    del y, a, bb
+    torch.cuda.empty_cache()
+    return out
+
+
+def fp32_config(u_cfg):
+    """`u_cfg` with every tower computing in fp32 (the CPU reference)."""
+    import torch
+
+    r = dataclasses.replace
+    f32 = torch.float32
+    core = r(u_cfg.core, llm=r(u_cfg.core.llm, dtype=f32), vision=r(u_cfg.core.vision, dtype=f32))
+    return r(u_cfg, core=core, sam=r(u_cfg.sam, vision=r(u_cfg.sam.vision, dtype=f32)))
+
+
+def greedy_readout(params, u_cfg, inputs) -> dict:
+    """Greedy `generate` and `ullava.evaluate` (`INFERENCE_CHECK_TOKENS`
+    new tokens) on `inputs`, on the device the tensors lie on. Returns on
+    the host: the tokens, the last layer's hidden rows that produced each
+    [SEG] and [LOC] without the two lanes that `_seg_loc_lanes` fixes, and
+    the valid masks (low-res), boxes and IoU predictions."""
+    import torch
+
+    from ullava_tpu_torch.models import generate, ullava
+
+    gc = generate.GenerateConfig(max_new_tokens=INFERENCE_CHECK_TOKENS, temperature=0.0)
+    with torch.no_grad():
+        g = generate.generate(params["core"], u_cfg.core, gc, input_ids=inputs["input_ids"],
+                              prompt_lens=inputs["prompt_lens"], images=inputs["images"])
+        out = ullava.evaluate(params, u_cfg, gc, **inputs)
+    lanes = torch.ones(g["hidden_last"].shape[-1], dtype=torch.bool, device=g["hidden_last"].device)
+    lanes[[SEG_LANE, LOC_LANE]] = False
+    got = {"sequences": out["sequences"][0].cpu()}
+    for name, idx, n in (("seg", u_cfg.seg_token_idx, u_cfg.max_masks),
+                         ("loc", u_cfg.loc_token_idx, u_cfg.max_boxes)):
+        h, ok = generate.readout_token_hidden(g["sequences"], g["hidden_last"], g["lengths"], idx, n)
+        got[name + "_hidden"] = h[ok][:, lanes].float().cpu()
+    n_seg, n_loc = int(out["seg_valid"][0].sum()), int(out["loc_valid"][0].sum())
+    got["low_res_masks"] = out["low_res_masks"][0, :n_seg].float().cpu()
+    got["iou_pred"] = out["iou_pred"][0, :n_seg].float().cpu()
+    got["pred_boxes"] = out["pred_boxes"][0, :n_loc].float().cpu()
+    return got
+
+
+def readout_errs(got, ref) -> dict:
+    """max|got - ref| / max|ref| of each readout (inf where the tokens or
+    the shapes differ)."""
+    import torch
+
+    if got["sequences"].shape != ref["sequences"].shape or not torch.equal(
+            got["sequences"], ref["sequences"]):
+        return {"sequences": float("inf")}
+    return {k: ((got[k] - ref[k]).abs().max() / ref[k].abs().max()).item()
+            if got[k].shape == ref[k].shape and got[k].numel() else float("inf")
+            for k in ref if k != "sequences"}
+
+
+def reference_gate(u_cfg, params, inputs) -> dict:
+    """The built model on the card against the port's plain path in fp32 on
+    the CPU, from the same weights and inputs (`greedy_readout`): the same
+    tokens, and the [SEG] / [LOC] hidden rows, masks, boxes and IoU each
+    within 5e-2 of its largest value (bf16 activations on the card, as
+    `check_phase` holds them, over 4 LLaMA layers, 24 CLIP and 32 SAM
+    blocks). Then one greedy run on the card per copy of a kernel source
+    built with a deliberate bug (`INFERENCE_MUTANTS`): each must fail."""
+    from ullava_tpu_torch import kernels
+    from ullava_tpu_torch.microbench.stage2_grads import cpu_copy
+
+    tol = 5e-2
+    got = greedy_readout(params, u_cfg, inputs)
+    t0 = time.perf_counter()
+    ref = greedy_readout(cpu_copy(params), fp32_config(u_cfg), {k: v.cpu() for k, v in inputs.items()})
+    cpu_s = time.perf_counter() - t0
+    must("inference readout", got["low_res_masks"].shape[0] == 3 and got["pred_boxes"].shape[0] == 3,
+         {k: tuple(v.shape) for k, v in got.items()})
+    errs = readout_errs(got, ref)
+    must("inference card against the CPU", all(e <= tol for e in errs.values()), errs)
+    caught = {}
+    for bug, src_define in INFERENCE_MUTANTS.items():
+        with kernels.mutant(*src_define):
+            m = readout_errs(greedy_readout(params, u_cfg, inputs), ref)
+        caught[bug] = must_not("inference card against the CPU", bug,
+                               all(e <= tol for e in m.values()), m)
+    return {"rel_err": errs, "tol": tol, "cpu_reference_s": cpu_s, "mutant_rel_err": caught}
+
+
+def inference_launches(steps: int) -> dict:
+    """Launches of one `run_once` on the built model: the LLaMA's prefill
+    (rotary on q and k, the flash forward and the int8 cache write per
+    layer, and its 2 L + 1 RMSNorms) and `steps` decode steps (2 L + 1
+    RMSNorms and one write-and-attend per layer; weight-only int8
+    linears, no W8A8 kernel), and one SAM ViT-H encode with int8 weights
+    (weight-only) in the resident layout without composite bias weights,
+    as the stage-2 step's (`STAGE2_LAUNCHES`) at one image."""
+    L = INFERENCE_LLAMA_LAYERS
+    return {**{k: 0 for k in BF16_LAUNCHES}, "fused_rotary": 2 * L, "flash_attention_fwd_bsh": L,
+            "prefill_quantize_write": L, "rms_norm_fwd": (2 * L + 1) * (1 + steps),
+            "decode_attention_int8_fused_write": L * steps,
+            "fused_window_attention_grid": 28, "fused_window_attention_rect": 28 * 2,
+            "fused_global_attention_y": 4, "fused_ln_linear_wq": 28 * 6 + 4 * 2,
+            "fused_mlp_block_wq": 4}
+
+
+def sampling_gate(cfg, params, rows: int = 4, draws: int = 4096) -> dict:
+    """Sampling on the card: the last-step logits of `rows` prompts (ids
+    from `TOY_IDS` on, so the random model's own logits), then `draws`
+    draws of each row at temperature 0.2, top-p 0.9 from a seeded CUDA
+    generator. Every id drawn lies in the nucleus that the plain function
+    computes on the CPU from the same logits, and the counts pass a
+    chi-square test against the nucleus probabilities (bins under 5
+    expected draws merged; all rows' statistics summed) at p >= 1e-3."""
+    import numpy as np
+    import torch
+
+    from ullava_tpu_torch.models import generate, llama
+
+    gc = generate.GenerateConfig(temperature=0.2, top_p=0.9)
+    ids = torch.as_tensor(np.random.default_rng(3).integers(TOY_IDS, 32000, size=(rows, 64)),
+                          device="cuda")
+    with torch.no_grad():
+        logits = llama.forward(params["core"]["llm"], cfg.core.llm, input_ids=ids)["logits"]
+    logits = logits[:, -1].float()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    stat, df, per_row = 0.0, 0, []
+    for r in range(rows):
+        nucleus = generate.nucleus_logits(logits[r:r + 1].cpu(), gc)[0].double()
+        support = torch.isfinite(nucleus)
+        drawn = generate.sample_token(logits[r:r + 1].expand(draws, -1), gc, gen).long().cpu()
+        must("sampling support", bool(support[drawn].all()),
+             f"row {r}: ids drawn outside the CPU nucleus {sorted(set(drawn.tolist()))}")
+        expected = draws * nucleus.softmax(-1)[support]
+        counts = torch.bincount(drawn, minlength=nucleus.numel())[support].double()
+        big = expected >= 5
+        e = torch.cat([expected[big], expected[~big].sum().reshape(1)])
+        o = torch.cat([counts[big], counts[~big].sum().reshape(1)])
+        keep = e > 0
+        e, o = e[keep], o[keep]
+        chi2 = float(((o - e) ** 2 / e).sum())
+        stat, df = stat + chi2, df + e.numel() - 1
+        per_row.append({"nucleus": int(support.sum()), "chi2": chi2, "bins": int(e.numel()),
+                        "top_share": float(counts.max() / draws)})
+    must("sampling chi-square has bins to test", df >= 1, per_row)
+    p = float(torch.special.gammaincc(torch.tensor(df / 2, dtype=torch.float64),
+                                      torch.tensor(stat / 2, dtype=torch.float64)))
+    must("sampling chi-square", p >= 1e-3, {"p": p, "chi2": stat, "df": df, "rows": per_row})
+    return {"p": p, "chi2": stat, "df": df, "draws_per_row": draws, "rows": per_row,
+            "temperature": gc.temperature, "top_p": gc.top_p}
+
+
+def inference_phase(gen, card: str) -> dict:
+    """The inference entry point end to end at full width: write the
+    checkpoint set (`write_inference_checkpoints`) into a temporary
+    directory, load and convert it (`check_converters`), then
+    `inference_ullava.run_once` with `quantize: int8`, `kv_cache:
+    int8`, `conv_type: conv_sep2` on a seeded 480 x 640 uint8 image with
+    the toy tokenizer, temperature 0.2, top-p 0.9, a seeded CUDA generator
+    and 32 new tokens: it builds through `build_ullava` (its result and
+    time kept by `recording`) and answers. The launch counts are set to 0
+    just before `run_once` and read just after; every kernel must have
+    been launched exactly as `inference_launches` says. Then the kernels
+    at the shapes of this path (`inference_kernel_gates`), the built model
+    on `run_once`'s own inputs (`prepare_query`) on the card against the
+    CPU's plain path (`reference_gate`), and `sampling_gate`. Gates:
+    finite outputs, three masks of the image's own 480 x 640 shape and
+    three boxes, the exact counts, the kernels, the comparison with the
+    CPU, the sampler. The directory is deleted at the end."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ullava_tpu_torch import inference_ullava, kernels
+    from ullava_tpu_torch.config import Config
+    from ullava_tpu_torch.models import build
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from toy_tokenizer import ToyLlamaTokenizer
+
+    root = tempfile.mkdtemp(prefix="ullava_inference_")
+    try:
+        t0 = time.perf_counter()
+        paths = write_inference_checkpoints(root, gen)
+        write_s = time.perf_counter() - t0
+        conv_line = check_converters(paths)
+        torch.cuda.empty_cache()
+
+        cfg = Config(cfg_dict={
+            "model": {"arch": "ullava", "conv_type": "conv_sep2", "quantize": "int8",
+                      "kv_cache": "int8", **paths},
+            "task": {"type": "image_text_evaluate"}, "processor": {}, "training": {}})
+        image = np.random.default_rng(0).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+        query = "Segment the dog ."
+        tok = ToyLlamaTokenizer(model_max_length=2048)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        seen = {}
+        with recording(build, "build_ullava", seen):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = inference_ullava.run_once(
+                cfg, image, query, temperature=0.2, top_p=0.9,
+                max_new_tokens=INFERENCE_NEW_TOKENS, tokenizer=tok,
+                generator=torch.Generator(device="cuda").manual_seed(7))
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        u_cfg, params = seen["build_ullava"]
+        build_s = seen["build_ullava_s"]
+        must("inference config", u_cfg.core.llm.kv_quant and u_cfg.core.llm.num_layers == 4
+             and u_cfg.sam.vision.embed_dim == 1280 and u_cfg.core.vision.num_layers == 24,
+             u_cfg)
+        must("tokenizer ids", len(tok) <= TOY_IDS and u_cfg.seg_token_idx == SEG_ID
+             and u_cfg.loc_token_idx == LOC_ID, (len(tok), u_cfg.seg_token_idx))
+        steps = len(res["text"].split())
+        must("text", res["text"].split() == ["[SEG]", "[LOC]"] * (steps // 2)
+             and steps == INFERENCE_NEW_TOKENS, res["text"])
+        must("masks", len(res["masks"]) == 3 and all(m.shape == (480, 640) and m.dtype == np.uint8
+                                                     for m in res["masks"]),
+             [m.shape for m in res["masks"]])
+        must("boxes", len(res["boxes"]) == 3 and np.isfinite(np.asarray(res["boxes"])).all(),
+             res["boxes"])
+        _check_launches("inference", launches, inference_launches(steps))
+        inputs, _, _ = inference_ullava.prepare_query(u_cfg, tok, image, query, "conv_sep2", "cuda")
+        prompt_len = int(inputs["prompt_lens"][0])
+        kernel_gates = inference_kernel_gates(gen, prompt_len)
+        reference = reference_gate(u_cfg, params, inputs)
+        sampling = sampling_gate(u_cfg, params)
+        del params, seen, inputs
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    line = {"phase": "inference", "card": card, "llama_layers": INFERENCE_LLAMA_LAYERS,
+            "depth_cut": "LLaMA num_hidden_layers 32 -> 4; CLIP 24 and SAM 32 blocks whole",
+            "write_s": write_s, **conv_line, "build_s": build_s, "run_s": run_s,
+            "answer_s": run_s - build_s, "prompt_tokens": prompt_len, "peak_mem_gb": peak_gb,
+            "new_tokens": steps, "masks": [list(m.shape) for m in res["masks"]],
+            "mask_pixels": [int(m.sum()) for m in res["masks"]],
+            "boxes": [[float(v) for v in box] for box in res["boxes"]],
+            "kernel_gates": kernel_gates, "reference": reference,
+            "sampling": sampling, "launches": launches}
+    print(json.dumps(line), flush=True)
+    return line
+
+
 def check_draws(seeds) -> int:
     """The training checks (`check_stage1`, `check_stage2`) on other draws:
     each seed's own generator in place of the run's shared one. Prints
@@ -4090,6 +4747,13 @@ def check_draws(seeds) -> int:
         gen.set_state(drawn)
         stage2_grads.read_draw(gen, seed)
     return 1 if bad else 0
+
+
+def card_name_and_power_limit() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def main() -> int:
@@ -4218,6 +4882,10 @@ def main() -> int:
     # Stage 2 on fresh weights, then the weight-only encode with composite
     # bias weights on its encoder.
     stage2_line, wq_encode_line = stage2_train_phase(gen)
+    smi = card_name_and_power_limit()
+    # The inference entry point from checkpoint files, on its own generator
+    # so that the check phase draws what it drew before it existed.
+    inference_line = inference_phase(torch.Generator(device="cuda").manual_seed(22), smi)
 
     # Each kernel's count on the main path that it was written for: the
     # bf16 serve for the bf16 path's four, the int8 serve for the int8
@@ -4252,6 +4920,7 @@ def main() -> int:
         r["launches_stage2_step"] = stage2_line["launches"][name]
         r["launches_weight_only_encode"] = wq_encode_line["launches"][name]
         r["launches_mlp_microbench"] = mlp_microbench["launches"][name]
+        r["launches_inference"] = inference_line["launches"][name]
     for r in results.values():
         print(json.dumps({"phase": "kernel", **{k: v for k, v in r.items()
                                                 if k not in ("route", "source", "replaces")}}),
@@ -4273,15 +4942,11 @@ def main() -> int:
                           "watched_device_ms_calls": prof["watched_device_ms_calls"],
                           "top_device_ms_calls": [[name[:60], ms, prof["top_device_calls"][name]]
                                                   for name, ms in top]}), flush=True)
-    for line in (train_line, stage2_line, wq_encode_line):
+    for line in (train_line, stage2_line, wq_encode_line, inference_line):
         print(json.dumps({**{k: v for k, v in line.items()
-                             if k not in ("launches", "top_device_calls")},
+                             if k not in ("launches", "top_device_calls", "sampling", "boxes",
+                                          "kernel_gates")},
                           "phase": line["phase"] + "_summary"}), flush=True)
-
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of `ullava_tpu_torch` and
 `chip_smoke` pulls in neither `jax` nor the JAX package, entry points
-called without a device refuse to run on a machine without CUDA, and
-`chip_smoke.py` fails without a card."""
+called without a device (the model build and both inference CLIs among
+them) refuse to run on a machine without CUDA, and `chip_smoke.py` fails
+without a card."""
 
 import ast
 import json
@@ -29,13 +30,19 @@ leaked = sorted(m for m in sys.modules
 raised = {}
 if not torch.cuda.is_available():
     from ullava_tpu_torch import train
+    from ullava_tpu_torch.config import Config
+    from ullava_tpu_torch.inference_ullava import run_once
+    from ullava_tpu_torch.inference_ullava_core import CoreChat
     from ullava_tpu_torch.microbench import mlp_variants
+    from ullava_tpu_torch.models import build
     from ullava_tpu_torch.models import llama, ullava, ullava_core
     from ullava_tpu_torch.models.sam import image_encoder
     from ullava_tpu_torch.serve import serve
     cfg = ullava.UllavaConfig.tiny()
     int8 = llama.LlamaConfig.tiny(a8_prefill=True, kv_quant=True)
     sam8 = image_encoder.SamVisionConfig.tiny(mlp_w8a8=True)
+    cli_cfg = Config(cfg_dict={"model": {"arch": "ullava"}, "task": {}, "processor": {},
+                               "training": {}})
     for name, call in (
         ("ullava.init_params", lambda: ullava.init_params(cfg)),
         ("image_encoder.init_params int8", lambda: image_encoder.init_params(sam8)),
@@ -48,6 +55,9 @@ if not torch.cuda.is_available():
         ("train.build_stage2", lambda: train.build_stage2(cfg, None)),
         ("train.train_stage2", lambda: train.train_stage2(cfg, None, [], {})),
         ("mlp_variants.main", lambda: mlp_variants.main()),
+        ("build.build_ullava", lambda: build.build_ullava({}, None)),
+        ("run_once", lambda: run_once(cli_cfg, None, "Segment it .", tokenizer=object())),
+        ("CoreChat", lambda: CoreChat(cli_cfg, tokenizer=object())),
     ):
         try:
             call()
@@ -71,7 +81,11 @@ def test_port_imports_no_jax_and_entry_points_need_cuda():
     for new in ("ops.quant", "ops.mlp_kernel", "ops.decode_attention", "ops.sam_attention",
                 "models.clip_vit", "kernels", "train", "training.optim", "training.train_step",
                 "training.checkpoint", "training.trainer", "models.loss",
-                "microbench.mlp_variants", "microbench.stage2_grads", "microbench.stage2_ab"):
+                "microbench.mlp_variants", "microbench.stage2_grads", "microbench.stage2_ab",
+                "models.build", "models.weights", "models.tools", "models.sam.convert",
+                "ops.image_ops", "config", "registry", "conversation", "tokenization",
+                "data.processors.clip_processor", "data.tools.mask_toolbox",
+                "inference_ullava", "inference_ullava_core"):
         assert f"ullava_tpu_torch.{new}" in mods
     res = subprocess.run(
         [sys.executable, "-c", _PROBE, json.dumps(mods)],
@@ -88,7 +102,7 @@ def test_port_imports_no_jax_and_entry_points_need_cuda():
         "ullava.init_params", "image_encoder.init_params int8", "llama.init_kv_cache",
         "llama.init_kv_cache int8", "serve", "train.make_batch", "train.train_stage1",
         "train.make_stage2_batch", "train.build_stage2", "train.train_stage2",
-        "mlp_variants.main"}
+        "mlp_variants.main", "build.build_ullava", "run_once", "CoreChat"}
 
 
 @pytest.mark.parametrize("name", ["test_torch_cuda_bf16.py", "test_torch_cuda_int8.py",

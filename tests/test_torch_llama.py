@@ -121,12 +121,12 @@ def _generate_greedy(attn_impl):
     images = rng.standard_normal((2, 28, 28, 3)).astype(np.float32)
 
     tids, tlens, timgs = (torch.as_tensor(a) for a in (ids, lens, images))
-    first = generate.generate(params, cfg, generate.GenerateConfig(max_new_tokens=8),
+    first = generate.generate(params, cfg, generate.GenerateConfig(max_new_tokens=8, temperature=0.0),
                               input_ids=tids, prompt_lens=tlens, images=timgs)
     # Stop sample 0 at its third generated token (a per-sample stop).
     stop = int(first["sequences"][0, lens[0] + 2])
     jgc = jgen.GenerateConfig(max_new_tokens=8, temperature=0.0, stop_token_ids=(stop,))
-    gc = generate.GenerateConfig(max_new_tokens=8, stop_token_ids=(stop,))
+    gc = generate.GenerateConfig(max_new_tokens=8, temperature=0.0, stop_token_ids=(stop,))
     jout = jgen.generate(
         jparams, jcfg, jgc,
         input_ids=jnp.asarray(ids), prompt_lens=jnp.asarray(lens), images=jnp.asarray(images),
@@ -247,11 +247,11 @@ def test_int8_generate_matches_jax_greedy():
     ids = _prompts(cfg, rng, lens)
     images = rng.standard_normal((2, 28, 28, 3)).astype(np.float32)
     tids, tlens, timgs = (torch.as_tensor(a) for a in (ids, lens, images))
-    first = generate.generate(params, cfg, generate.GenerateConfig(max_new_tokens=8),
+    first = generate.generate(params, cfg, generate.GenerateConfig(max_new_tokens=8, temperature=0.0),
                               input_ids=tids, prompt_lens=tlens, images=timgs)
     stop = int(first["sequences"][0, lens[0] + 2])
     jgc = jgen.GenerateConfig(max_new_tokens=8, temperature=0.0, stop_token_ids=(stop,))
-    gc = generate.GenerateConfig(max_new_tokens=8, stop_token_ids=(stop,))
+    gc = generate.GenerateConfig(max_new_tokens=8, temperature=0.0, stop_token_ids=(stop,))
     jout = jgen.generate(
         jparams, jcfg, jgc,
         input_ids=jnp.asarray(ids), prompt_lens=jnp.asarray(lens), images=jnp.asarray(images),

@@ -312,7 +312,7 @@ def test_serve_with_packed_sam_encoder_matches_jax_evaluate():
     params = params_from_jax(jparams, device="cpu")
     batch = _batch(cfg, np.random.default_rng(5), [12, 10])
     tbatch = {k: torch.as_tensor(v) for k, v in batch.items()}
-    gc = generate.GenerateConfig(max_new_tokens=6)
+    gc = generate.GenerateConfig(max_new_tokens=6, temperature=0.0)
     first = ullava.evaluate(params, cfg, gc, **tbatch)
     seg = int(first["sequences"][0, 14])  # a token the model generates: the [SEG] path is live
     cfg = dataclasses.replace(cfg, seg_token_idx=seg)

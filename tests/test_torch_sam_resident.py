@@ -451,7 +451,7 @@ def test_evaluate_with_the_resident_int8_encoder_matches_jax():
 
     batch = res_batch(cfg, np.random.default_rng(10), [12, 10])
     tbatch = {k: torch.as_tensor(v) for k, v in batch.items()}
-    gc = generate.GenerateConfig(max_new_tokens=6)
+    gc = generate.GenerateConfig(max_new_tokens=6, temperature=0.0)
     first = ullava.evaluate(params, cfg, gc, **tbatch)
     seg = int(first["sequences"][0, 14])
     cfg = dataclasses.replace(cfg, seg_token_idx=seg)

@@ -51,7 +51,7 @@ def _evaluate_and_serve(attn_impl):
     params = params_from_jax(jparams, device="cpu")
     batch = _batch(cfg, np.random.default_rng(0), [12, 10])
     tbatch = {k: torch.as_tensor(v) for k, v in batch.items()}
-    gc = generate.GenerateConfig(max_new_tokens=6)
+    gc = generate.GenerateConfig(max_new_tokens=6, temperature=0.0)
 
     # Read out a token the model does generate, so the [SEG] path is live.
     first = ullava.evaluate(params, cfg, gc, **tbatch)
@@ -114,7 +114,7 @@ def test_int8_llm_evaluate_matches_jax():
 
     batch = _batch(cfg, np.random.default_rng(4), [12, 10])
     tbatch = {k: torch.as_tensor(v) for k, v in batch.items()}
-    gc = generate.GenerateConfig(max_new_tokens=6)
+    gc = generate.GenerateConfig(max_new_tokens=6, temperature=0.0)
     first = ullava.evaluate(params, cfg, gc, **tbatch)
     seg = int(first["sequences"][0, 14])
     cfg = dataclasses.replace(cfg, seg_token_idx=seg)

@@ -1,7 +1,46 @@
-"""Constants the serving path needs (the port keeps its own copy of the
+"""Token strings and global constants (the port keeps its own copy of the
 JAX package's `constants.py`, which it does not import)."""
 
 IGNORE_INDEX = -100
+
+# Special tokens.
+DEFAULT_PAD_TOKEN = "[PAD]"
+DEFAULT_BOS_TOKEN = "<s>"
+DEFAULT_EOS_TOKEN = "</s>"
+DEFAULT_UNK_TOKEN = "<unk>"
+
+DEFAULT_IMAGE_TOKEN = "<image>"
+DEFAULT_IMAGE_PATCH_TOKEN = "<image_patch>"
+DEFAULT_IMG_START_TOKEN = "<img_beg>"
+DEFAULT_IMG_END_TOKEN = "</img_end>"
+
+DEFAULT_VIDEO_TOKEN = "<video>"
+DEFAULT_VIDEO_PATCH_TOKEN = "<video_patch>"
+DEFAULT_VID_START_TOKEN = "<vid_beg>"
+DEFAULT_VID_END_TOKEN = "</vid_end>"
+
+DEFAULT_SEG_TOKEN = "[SEG]"
+DEFAULT_LOC_TOKEN = "[LOC]"
+DEFAULT_TAG_START = "[tag]"
+DEFAULT_TAG_END = "[/tag]"
+
+# The six multimodal tokens added in stage 1 (the order fixes their ids).
+MM_TOKENS = (
+    DEFAULT_IMAGE_PATCH_TOKEN,
+    DEFAULT_IMG_START_TOKEN,
+    DEFAULT_IMG_END_TOKEN,
+    DEFAULT_VIDEO_PATCH_TOKEN,
+    DEFAULT_VID_START_TOKEN,
+    DEFAULT_VID_END_TOKEN,
+)
+
+# Tokens added in stage 2.
+STAGE2_TOKENS = (
+    DEFAULT_SEG_TOKEN,
+    DEFAULT_LOC_TOKEN,
+    DEFAULT_TAG_START,
+    DEFAULT_TAG_END,
+)
 
 # Default token ids in the released 7B vocabulary.
 DEFAULT_SEG_TOKEN_IDX = 32007

@@ -1,15 +1,17 @@
-"""Greedy decoding with a KV cache, per-sample stop and hidden readout
+"""Decoding with a KV cache, per-sample stop and hidden readout
 (counterpart of `ullava_tpu/models/generate.py`).
 
 - the JAX `lax.while_loop` becomes a Python loop that stops after
   `max_new_tokens` steps or when every sample has emitted a stop token;
+- greedy or temperature / top-p sampling (`do_sample` iff temperature >
+  0); the randomness comes from an explicit `torch.Generator` in place of
+  JAX's `rng` key, so the two packages draw different tokens from the
+  same distribution;
 - right-padded ragged prompts decode natively: each sample writes its
   next token at its own `lens[b]` cache slot;
 - last-layer hidden states are captured for every position, aligned so
   `hidden_last[b, j]` produced `sequences[b, j+1]` (the [SEG]/[LOC]
   readout contract).
-
-Only greedy decoding is ported; sampling (temperature, top-p) waits.
 """
 
 from __future__ import annotations
@@ -26,18 +28,58 @@ from ullava_tpu_torch.ops.quant import apply_linear
 @dataclasses.dataclass(frozen=True)
 class GenerateConfig:
     max_new_tokens: int = 32
+    temperature: float = 0.2
+    top_p: Optional[float] = None
     stop_token_ids: Tuple[int, ...] = ()  # usually (eos_id,) + keyword ids
+    # Declared as in the JAX package, which never reads it: hidden states
+    # are captured either way.
+    capture_hidden: bool = True
     # Real vocabulary size when the embedding/lm_head tables are padded:
     # logits at ids >= vocab_size can never be emitted.
     vocab_size: Optional[int] = None
 
+    @property
+    def do_sample(self) -> bool:
+        return self.temperature > 0
 
-def sample_token(logits: torch.Tensor, gen: GenerateConfig) -> torch.Tensor:
-    """[B, V] logits -> [B] int32 token ids (greedy)."""
+
+def nucleus_logits(logits: torch.Tensor, gen: GenerateConfig) -> torch.Tensor:
+    """The logits `sample_token` draws from: pad ids masked to -inf, then
+    (when sampling) divided by the temperature, then every token outside
+    the top-p nucleus masked to -inf. A token stays while the probability
+    before it in descending order is at most `top_p` (so at least one
+    stays), and every token tied with the smallest kept logit stays."""
     if gen.vocab_size is not None and gen.vocab_size < logits.shape[-1]:
         pad = torch.arange(logits.shape[-1], device=logits.device) >= gen.vocab_size
         logits = logits.masked_fill(pad[None, :], float("-inf"))
-    return logits.argmax(-1).to(torch.int32)
+    if not gen.do_sample:
+        return logits
+    logits = logits / gen.temperature
+    if gen.top_p is not None and gen.top_p < 1.0:
+        sorted_logits = logits.sort(dim=-1, descending=True).values
+        sorted_probs = sorted_logits.softmax(dim=-1)
+        cumulative = sorted_probs.cumsum(dim=-1)
+        cutoff_mask = (cumulative - sorted_probs) > gen.top_p
+        cutoff_logit = sorted_logits.masked_fill(cutoff_mask, float("inf")).amin(
+            dim=-1, keepdim=True)
+        logits = logits.masked_fill(logits < cutoff_logit, float("-inf"))
+    return logits
+
+
+def sample_token(
+    logits: torch.Tensor, gen: GenerateConfig, generator: Optional[torch.Generator] = None
+) -> torch.Tensor:
+    """[B, V] logits -> [B] int32 token ids: the argmax at temperature 0,
+    else one categorical draw per row from `nucleus_logits`, taken from
+    `generator` (a fresh one seeded 0 on the logits' device when None, as
+    the JAX package defaults to `PRNGKey(0)`)."""
+    logits = nucleus_logits(logits, gen)
+    if not gen.do_sample:
+        return logits.argmax(-1).to(torch.int32)
+    if generator is None:
+        generator = torch.Generator(device=logits.device).manual_seed(0)
+    probs = logits.float().softmax(dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
 
 
 @torch.no_grad()
@@ -49,13 +91,17 @@ def generate(
     input_ids: torch.Tensor,  # [B, S] right-padded prompts
     prompt_lens: torch.Tensor,  # [B] true prompt lengths
     images: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
 ) -> Dict[str, torch.Tensor]:
     """Returns sequences [B, S+new] (prompt + generated, right-padded with
-    0), lengths [B], hidden_last [B, S+new, D]."""
+    0), lengths [B], hidden_last [B, S+new, D]. Sampling draws every step
+    from `generator` (seeded 0 when None)."""
     B, S = input_ids.shape
     total = S + gen.max_new_tokens
     dev = input_ids.device
     stops = torch.tensor(gen.stop_token_ids or (-1,), dtype=torch.int32, device=dev)
+    if gen.do_sample and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
 
     cache = llama.init_kv_cache(cfg.llm, B, total, device=dev)
     embeds = ullava_core.embed_multimodal(params, cfg, input_ids, images)
@@ -68,7 +114,7 @@ def generate(
     # Logits only at each sample's last prompt position.
     h_last = pre["hidden_states"][b_idx, lens.long() - 1]
     tok = sample_token(
-        apply_linear(h_last.to(cfg.llm.dtype), params["llm"]["lm_head"]).float(), gen
+        apply_linear(h_last.to(cfg.llm.dtype), params["llm"]["lm_head"]).float(), gen, generator
     )
 
     seq = torch.zeros((B, total), dtype=torch.int32, device=dev)
@@ -94,7 +140,7 @@ def generate(
         )
         h_step = out["hidden_states"][:, 0]
         hidden[b_idx, pos] = torch.where(write[:, None], h_step, hidden[b_idx, pos])
-        tok = sample_token(out["logits"][:, 0], gen)
+        tok = sample_token(out["logits"][:, 0], gen, generator)
         lens = new_lens
     return {"sequences": seq, "lengths": lens, "hidden_last": hidden}
 

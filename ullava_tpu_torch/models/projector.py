@@ -21,10 +21,13 @@ def init_mlp(gen, dims: Sequence[int], dtype, device) -> Params:
 
 
 def apply_mlp(params: Params, x: torch.Tensor, activation=F.relu) -> torch.Tensor:
+    """Linears in the promoted dtype of the input and the weights, as JAX
+    promotes (an fp32 input through bf16 weights computes in fp32)."""
     n = len(params)
     for i in range(n):
         p = params[f"fc{i}"]
-        x = x @ p["w"] + p["b"]
+        dt = torch.promote_types(torch.promote_types(x.dtype, p["w"].dtype), p["b"].dtype)
+        x = x.to(dt) @ p["w"].to(dt) + p["b"].to(dt)
         if i < n - 1:
             x = activation(x)
     return x

@@ -1,4 +1,4 @@
-"""SAM composition and post-processing (counterpart of
+"""SAM composition, pre- and post-processing (counterpart of
 `ullava_tpu/models/sam/build.py`).
 
 `jax.image.resize(..., "bilinear")` samples at half-pixel centres and
@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ullava_tpu_torch import resolve_device
+from ullava_tpu_torch.constants import SAM_MEAN, SAM_STD
 from ullava_tpu_torch.models.sam import image_encoder, mask_decoder, prompt_encoder
 
 Params = Dict[str, Any]
@@ -63,6 +64,18 @@ def init_sam_params(
         "prompt_encoder": prompt_encoder.init_params(cfg.prompt, gen, device),
         "mask_decoder": mask_decoder.init_params(cfg.decoder, gen, device),
     }
+
+
+def preprocess(pixel_values: torch.Tensor, img_size: int = 1024) -> torch.Tensor:
+    """[B, H, W, 3] uint8/float RGB -> SAM-normalized fp32, zero-padded at
+    the bottom and right to [B, img_size, img_size, 3]. H, W must be <=
+    img_size (the host resizes the longest side first)."""
+    x = pixel_values.float()
+    mean = torch.tensor(SAM_MEAN, dtype=torch.float32, device=x.device)
+    std = torch.tensor(SAM_STD, dtype=torch.float32, device=x.device)
+    x = (x - mean) / std
+    _, H, W, _ = x.shape
+    return F.pad(x, (0, 0, 0, img_size - W, 0, img_size - H))
 
 
 def _resize(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:

@@ -9,7 +9,7 @@ prompt encoder and mask decoder (differentiable), the masks upscaled to
 the `mask_loss_frame` and the weighted sum of CE, mask BCE + dice and box
 L1 + GIoU losses over the valid slots and pixels (`models/loss.py`).
 
-`evaluate` generates greedily, reads the hidden states that produced each
+`evaluate` generates (greedy or sampled, as its `GenerateConfig` says), reads the hidden states that produced each
 [SEG]/[LOC] token (up to `max_masks`/`max_boxes` per sample, with
 validity masks), projects them, encodes the SAM image and decodes one
 low-res mask per [SEG] slot.
@@ -241,12 +241,14 @@ def evaluate(
     prompt_lens: torch.Tensor,  # [B]
     images: torch.Tensor,  # [B, 224, 224, 3] CLIP input
     images_sam: torch.Tensor,  # [B, 1024, 1024, 3] SAM input (normalized, padded)
+    generator: Optional[torch.Generator] = None,
 ) -> Dict[str, Any]:
     """Generation + [SEG]/[LOC] decode. Returns low-res masks; callers
-    post-process to original sizes on the host."""
+    post-process to original sizes on the host. A sampling `gen_cfg`
+    draws from `generator` (the JAX `rng`)."""
     gen_out = gen_mod.generate(
         params["core"], cfg.core, gen_cfg,
-        input_ids=input_ids, prompt_lens=prompt_lens, images=images,
+        input_ids=input_ids, prompt_lens=prompt_lens, images=images, generator=generator,
     )
     seqs, hidden, lengths = gen_out["sequences"], gen_out["hidden_last"], gen_out["lengths"]
 

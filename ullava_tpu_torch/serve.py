@@ -1,7 +1,7 @@
-"""Serving entry point of the port: batch a few RES requests and run
-`ullava.evaluate` on them (counterpart of the RES serve of `bench.py` and
-`inference_ullava.py`; the tokenizer-driven CLI waits for the tokenizer and
-checkpoints).
+"""Serving entry point of the port: batch a few preprocessed RES requests
+and run `ullava.evaluate` on them, greedy by default (counterpart of the
+RES serve of `bench.py`; the tokenizer-driven CLI from checkpoint files is
+`inference_ullava.py`).
 
 A request is a dict with
   input_ids  - the prompt's token ids (sequence of ints), including the
@@ -44,7 +44,7 @@ def serve(
     model: Tuple[ullava.UllavaConfig, Dict[str, Any]],
     requests: Sequence[Dict[str, Any]],
     device=None,
-    gen: GenerateConfig = GenerateConfig(max_new_tokens=32),
+    gen: GenerateConfig = GenerateConfig(max_new_tokens=32, temperature=0.0),
 ) -> Dict[str, Any]:
     """Serve one batch of requests. Returns the generated sequences (one
     list of ids per request, prompt included), the low-res masks

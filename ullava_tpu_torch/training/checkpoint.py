@@ -82,29 +82,33 @@ def latest_checkpoint(output_dir: str) -> Optional[str]:
 
 
 @torch.no_grad()
-def _copy_into(target: Any, saved: Any) -> Any:
+def _copy_into(target: Any, saved: Any, saved_shapes: bool = False) -> Any:
     if isinstance(target, dict):
         if set(target) != set(saved):
             raise ValueError(f"checkpoint keys {sorted(saved)} != {sorted(target)}")
-        return {k: _copy_into(target[k], saved[k]) for k in target}
+        return {k: _copy_into(target[k], saved[k], saved_shapes) for k in target}
     if isinstance(target, (list, tuple)):
         if len(target) != len(saved):
             raise ValueError(f"checkpoint list of {len(saved)} != {len(target)}")
-        return [_copy_into(t, s) for t, s in zip(target, saved)]
+        return [_copy_into(t, s, saved_shapes) for t, s in zip(target, saved)]
     if isinstance(target, torch.Tensor):
-        if target.shape != saved.shape or target.dtype != saved.dtype:
+        if target.dtype != saved.dtype or (target.shape != saved.shape and not saved_shapes):
             raise ValueError(f"checkpoint leaf {saved.dtype} {tuple(saved.shape)} != "
                              f"{target.dtype} {tuple(target.shape)}")
+        if target.shape != saved.shape:
+            return saved.to(target.device)
         return target.copy_(saved)
     return saved
 
 
-def restore_checkpoint(path: str, target: Any) -> Any:
+def restore_checkpoint(path: str, target: Any, saved_shapes: bool = False) -> Any:
     """Restore into the structure of `target` (a TrainState or a params
-    tree): its tensors are overwritten in place and returned."""
+    tree): its tensors are overwritten in place and returned. With
+    `saved_shapes`, a saved leaf of another shape than its target's comes
+    back at its saved shape (as orbax restores), on the target's device."""
     saved = torch.load(os.path.join(os.path.abspath(path), _FILE), map_location="cpu",
                        weights_only=True)
     if isinstance(target, TrainState):
-        tree = _copy_into(_fields(target), saved["train_state"])
+        tree = _copy_into(_fields(target), saved["train_state"], saved_shapes)
         return TrainState(**tree)
-    return _copy_into(target, saved)
+    return _copy_into(target, saved, saved_shapes)
