@@ -135,8 +135,24 @@ Phases, each fatal on any error:
                the CPU nucleus (support and a chi-square test over 4096
                draws a row); prints the write, load, convert, build and run
                seconds and the peak memory beside the card's name and power
-               limit, and deletes the directory;
- 11. check   - runs small models (bf16, its SAM encoder also packed, then
+               limit, and keeps the directory for the next phase;
+ 11. train_clis - the training and eval CLIs from files: writes 8 RES
+               images of 480 x 640 as PNG (every scanline filter), COCO
+               polygons, a 4-item val set, a one-question SEG.json and an
+               8-item chat set, asserts the native host library loaded, then
+               runs `train_ullava` from a YAML (int8 towers, LoRA r=8, B=2,
+               one epoch of 4 steps, the epoch eval, `save_steps: 2`), again
+               with two epochs (it resumes at step 4), `eval_ullava` on the
+               last checkpoint and `train_ullava_core` (B=2, 4 steps), all on
+               the previous phase's checkpoint files: exact launches of a
+               stage-2 step, a stage-1 step and an eval batch, the first
+               stage-2 loss bit-equal to `train.make_stage2_step` run
+               directly and the third within 1e-3, frozen leaves unchanged
+               and trained ones moved, the resume and the eval gates, then
+               the kernels at the CLIs' B=2 and B=8 shapes against their
+               plain versions, with their mutants; deletes both
+               directories;
+ 12. check   - runs small models (bf16, its SAM encoder also packed, then
                int8 LLM, also on a one-sample 12-token prompt, then an int8 SAM
                encoder in the block and in the resident layout, the latter
                also with int8 scores beside a W8A8 flash CLIP tower, then
@@ -147,7 +163,7 @@ Phases, each fatal on any error:
                holds the card's outputs to the CPU reference, and the
                resident encoder's to the block layout's; then
                `train.train_stage1` end to end with checkpoints and resume;
- 12. summary - prints the serve and training numbers again, the card's
+ 13. summary - prints the serve and training numbers again, the card's
                name and power limit, one JSON line with every kernel's
                numbers, and last the device line.
 
@@ -155,7 +171,7 @@ Exits non-zero with no result when CUDA is unavailable.
 
     python3 chip_smoke.py --check-draws SEED ...
 
-runs only the training checks of phase 11 on the draws of the given seeds
+runs only the training checks of phase 12 on the draws of the given seeds
 (each its own generator), then reads each draw's stage-2 steps again leaf
 by leaf beside the witnesses of `ullava_tpu_torch/microbench/stage2_grads.py`.
 """
@@ -165,8 +181,10 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -4367,38 +4385,11 @@ def recording(module, name, sink):
         setattr(module, name, orig)
 
 
-def inference_kernel_gates(gen, prompt_len: int) -> dict:
-    """Kernels at the shapes that one image (B=1) gives them on the
-    inference path, each against its plain version by `row_rel_err`
-    within 1e-2: K2 on the prompt's `prompt_len` tokens (32 heads of 128,
-    causal), and the SAM encoder's: the weight-only K10 in both forms (LN1 +
-    qkv; proj + residual) at `INFERENCE_CLASS_ROWS`, the weight-only K12
-    at 4096 rows, K3 on the 16 full windows (196 rows, no pad rows), K14
-    on the merged right and bottom windows (4 + 4) and on the corner,
-    and K11 on one global block (fp32 exponentials: `mlp_w8a8` is off).
-    Each gate must reject copies of its source built with a deliberate
-    bug (K10 and K12: `WQ_MUTANTS`, `WQ_EPILOGUE_MUTANTS`, and for the
-    proj form and K12 `WQ_WIDEN_MUTANTS`; K3 and K14 `QUAD_MAX_MUTANTS`,
-    K14 also `RECT_PAD_MUTANT`; K11 `GLOBAL_Y_MUTANTS`; K2 its causal mask
-    one key late: its other mutant, the kv_len edge tile masked at its
-    end, leaves a prompt that fills its rows unchanged)."""
-    import torch
-
+def _kernel_gate(out: dict, tol: float):
+    """`gate(name, run, ref, mutants)`: `run()` within `tol` of `ref` by
+    `row_rel_err`, and outside it under each of `mutants` (bug: (source,
+    define)); the readings go into `out[name]`."""
     from ullava_tpu_torch import kernels
-    from ullava_tpu_torch.ops import attention, mlp_kernel, quant, sam_attention
-
-    dev, bf, tol, eps = "cuda", torch.bfloat16, 1e-2, 1e-6
-    C, H, hd, W = SAM_C, SAM_H, SAM_HD, SAM_W
-    sc = hd**-0.5
-    kw = dict(num_heads=H, head_dim=hd, scale=sc)
-    out = {"tol": tol}
-
-    def randn(*shape, scale=1.0, shift=0.0):
-        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(bf)
-
-    def weight(K, N):
-        leaf = quant.quantize_int8(torch.randn((K, N), generator=gen, device=dev) * 0.05)
-        return leaf["q"], leaf["scale"]
 
     def gate(name, run, ref, mutants):
         err = row_rel_err(run(), ref)
@@ -4410,69 +4401,130 @@ def inference_kernel_gates(gen, prompt_len: int) -> dict:
             caught[bug] = must_not(name, bug, e <= tol, e)
         out[name] = {"row_rel_err": err, "mutant_row_rel_err": caught}
 
-    def wq(src, widen):
-        return {"weight_widened_unsigned": WQ_MUTANTS[src],
-                "scale_by_token": WQ_EPILOGUE_MUTANTS[src],
-                **({"widen_bias_off_by_one": WQ_WIDEN_MUTANTS[src]} if widen else {})}
+    return gate
 
-    q, k, v = (randn(1, prompt_len, 32, 128) for _ in range(3))
-    lens = torch.tensor([prompt_len], device=dev, dtype=torch.int32)
-    gate(f"flash_attention_fwd_bsh 1 x {prompt_len}",
-         lambda: attention.flash_attention_fwd_bsh(q, k, v, lens, causal=True, scale=128**-0.5),
-         attention.flash_attention_fwd_bsh_plain(q, k, v, lens, causal=True, scale=128**-0.5),
-         {"causal_mask_shifted": K2_MUTANTS["causal_mask_shifted"]})
-    del q, k, v
 
-    x = randn(max(INFERENCE_CLASS_ROWS), C, scale=2.0, shift=0.3)
+def _wq_mutants(src, widen):
+    return {"weight_widened_unsigned": WQ_MUTANTS[src],
+            "scale_by_token": WQ_EPILOGUE_MUTANTS[src],
+            **({"widen_bias_off_by_one": WQ_WIDEN_MUTANTS[src]} if widen else {})}
+
+
+def sam_encode_gates(gen, gate, class_rows, mlp_rows, images) -> None:
+    """The kernels of a weight-only ViT-H encode (resident layout, no
+    composite weights) at the shapes it gives them, each by `gate`: K10 in
+    both forms (LN1 + qkv; proj + residual) at each of `class_rows`, K12 at
+    each of `mlp_rows`, and for each batch of `images` K3 on its full
+    windows (16 an image), K14 on its merged right and bottom windows (4 +
+    4 an image) and on its corners, K11 on its global blocks (fp32
+    exponentials: `mlp_w8a8` is off)."""
+    import torch
+
+    from ullava_tpu_torch.ops import mlp_kernel, quant, sam_attention
+
+    dev, bf, eps = "cuda", torch.bfloat16, 1e-6
+    C, H, hd, W = SAM_C, SAM_H, SAM_HD, SAM_W
+    sc = hd**-0.5
+    kw = dict(num_heads=H, head_dim=hd, scale=sc)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(bf)
+
+    def weight(K, N):
+        leaf = quant.quantize_int8(torch.randn((K, N), generator=gen, device=dev) * 0.05)
+        return leaf["q"], leaf["scale"]
+
+    x = randn(max(class_rows + mlp_rows), C, scale=2.0, shift=0.3)
     g, b = randn(C, scale=0.1, shift=1.0), randn(C, scale=0.1)
     for form, N, ln in (("ln_qkv", 3 * C, True), ("proj_residual", C, False)):
         w, s = weight(C, N)
         bias = randn(N, scale=0.5)
         res = None if ln else randn(x.shape[0], N)
         lg, lb = (g, b) if ln else (None, None)
-        for T in INFERENCE_CLASS_ROWS:
+        for T in class_rows:
             r = None if res is None else res[:T]
             gate(f"fused_ln_linear_wq {form} {T}",
                  lambda T=T, r=r: mlp_kernel.fused_ln_linear(
                      x[:T], lg, lb, w, s, bias, eps, w8a8=False, residual=r),
                  mlp_kernel._ln_linear_parts_plain(x[:T], lg, lb, w, s, bias, eps, False, r)[0],
-                 wq("ln_linear_wq.cu", not ln))
+                 _wq_mutants("ln_linear_wq.cu", not ln))
         del res
 
     (w1, s1), (w2, s2) = weight(C, 4 * C), weight(4 * C, C)
     b1, b2 = randn(4 * C, scale=0.5), randn(C, scale=0.5)
-    args = (x[:4096], g, b, w1, s1, b1, w2, s2, b2, eps)
-    gate("fused_mlp_block_wq 4096", lambda: mlp_kernel.fused_mlp_block(*args, w8a8=False),
-         mlp_kernel._mlp_block_parts_plain(*args, 1024, False)[0], wq("mlp_block_wq.cu", True))
+    for T in mlp_rows:
+        args = (x[:T], g, b, w1, s1, b1, w2, s2, b2, eps)
+        gate(f"fused_mlp_block_wq {T}", lambda a=args: mlp_kernel.fused_mlp_block(*a, w8a8=False),
+             mlp_kernel._mlp_block_parts_plain(*args, 1024, False)[0],
+             _wq_mutants("mlp_block_wq.cu", True))
     del x, w1, w2, args
 
-    y = randn(16, W * W, 3 * C)
-    a, bb = (randn(16, W * W, H * W, scale=2.0 / sc) for _ in range(2))
-    gate("fused_window_attention_grid 16 x 196",
-         lambda: sam_attention.fused_window_attention_grid(y, a, bb, **kw, window=W),
-         sam_attention.fused_window_attention_grid_plain(y, a, bb, H, hd, W, sc),
-         {"quad_max_dropped": QUAD_MAX_MUTANTS["sam_window_attention.cu"]})
+    for B in images:
+        y = randn(16 * B, W * W, 3 * C)
+        a, bb = (randn(16 * B, W * W, H * W, scale=2.0 / sc) for _ in range(2))
+        gate(f"fused_window_attention_grid {16 * B} x 196",
+             lambda y=y, a=a, bb=bb: sam_attention.fused_window_attention_grid(
+                 y, a, bb, **kw, window=W),
+             sam_attention.fused_window_attention_grid_plain(y, a, bb, H, hd, W, sc),
+             {"quad_max_dropped": QUAD_MAX_MUTANTS["sam_window_attention.cu"]})
 
     qkv_bias = randn(3 * C, scale=0.5)
     for form, geoms, per in (("edge_pair", [(14, 8), (8, 14)], 4), ("corner", [(8, 8)], 1)):
-        y, a, bb, tables = rect_case(gen, geoms, per, qkv_bias)[:4]
-        geometry = tuple(geoms) if len(geoms) == 2 else geoms[0]
-        gate(f"fused_window_attention_rect {form} {y.shape[0]} x {y.shape[1]}",
-             lambda y=y, a=a, bb=bb, t=tables, g_=geometry: sam_attention.fused_window_attention_rect(
-                 y, a, bb, *t, **kw, window=W, geometry=g_),
-             sam_attention.fused_window_attention_rect_plain(y, a, bb, *tables, H, hd, W, sc),
-             {"pad_out_of_sum": RECT_PAD_MUTANT,
-              "quad_max_dropped": QUAD_MAX_MUTANTS["sam_rect_attention.cu"]})
+        for B in images:
+            y, a, bb, tables = rect_case(gen, geoms, per * B, qkv_bias)[:4]
+            geometry = tuple(geoms) if len(geoms) == 2 else geoms[0]
+            gate(f"fused_window_attention_rect {form} {y.shape[0]} x {y.shape[1]}",
+                 lambda y=y, a=a, bb=bb, t=tables, g_=geometry:
+                     sam_attention.fused_window_attention_rect(
+                         y, a, bb, *t, **kw, window=W, geometry=g_),
+                 sam_attention.fused_window_attention_rect_plain(y, a, bb, *tables, H, hd, W, sc),
+                 {"pad_out_of_sum": RECT_PAD_MUTANT,
+                  "quad_max_dropped": QUAD_MAX_MUTANTS["sam_rect_attention.cu"]})
 
     G = 64
-    y = randn(1, G * G, 3 * C)
-    a, bb = (randn(1, G * G, H, G, scale=2.0 / sc) for _ in range(2))
-    gate("fused_global_attention_y 1 x 4096",
-         lambda: sam_attention.fused_global_attention_y(y, a, bb, **kw, window=G),
-         sam_attention.fused_global_attention_y_plain(y, a, bb, **kw, window=G),
-         GLOBAL_Y_MUTANTS)
+    for B in images:
+        y = randn(B, G * G, 3 * C)
+        a, bb = (randn(B, G * G, H, G, scale=2.0 / sc) for _ in range(2))
+        gate(f"fused_global_attention_y {B} x 4096",
+             lambda y=y, a=a, bb=bb: sam_attention.fused_global_attention_y(
+                 y, a, bb, **kw, window=G),
+             sam_attention.fused_global_attention_y_plain(y, a, bb, **kw, window=G),
+             GLOBAL_Y_MUTANTS)
     del y, a, bb
     torch.cuda.empty_cache()
+
+
+def inference_kernel_gates(gen, prompt_len: int) -> dict:
+    """Kernels at the shapes that one image (B=1) gives them on the
+    inference path, each against its plain version by `row_rel_err`
+    within 1e-2: K2 on the prompt's `prompt_len` tokens (32 heads of 128,
+    causal), and the SAM encoder's (`sam_encode_gates`): the weight-only
+    K10 in both forms at `INFERENCE_CLASS_ROWS`, the weight-only K12 at
+    4096 rows, K3 on the 16 full windows (196 rows, no pad rows), K14 on
+    the merged right and bottom windows (4 + 4) and on the corner, and K11
+    on one global block. Each gate must reject copies of its source built
+    with a deliberate bug (K10 and K12: `WQ_MUTANTS`, `WQ_EPILOGUE_MUTANTS`,
+    and for the proj form and K12 `WQ_WIDEN_MUTANTS`; K3 and K14
+    `QUAD_MAX_MUTANTS`, K14 also `RECT_PAD_MUTANT`; K11 `GLOBAL_Y_MUTANTS`;
+    K2 its causal mask one key late: its other mutant, the kv_len edge
+    tile masked at its end, leaves a prompt that fills its rows
+    unchanged)."""
+    import torch
+
+    from ullava_tpu_torch.ops import attention
+
+    tol = 1e-2
+    out = {"tol": tol}
+    gate = _kernel_gate(out, tol)
+    q, k, v = ((torch.randn((1, prompt_len, 32, 128), generator=gen, device="cuda"))
+               .to(torch.bfloat16) for _ in range(3))
+    lens = torch.tensor([prompt_len], device="cuda", dtype=torch.int32)
+    gate(f"flash_attention_fwd_bsh 1 x {prompt_len}",
+         lambda: attention.flash_attention_fwd_bsh(q, k, v, lens, causal=True, scale=128**-0.5),
+         attention.flash_attention_fwd_bsh_plain(q, k, v, lens, causal=True, scale=128**-0.5),
+         {"causal_mask_shifted": K2_MUTANTS["causal_mask_shifted"]})
+    del q, k, v
+    sam_encode_gates(gen, gate, INFERENCE_CLASS_ROWS, (4096,), (1,))
     return out
 
 
@@ -4620,7 +4672,7 @@ def sampling_gate(cfg, params, rows: int = 4, draws: int = 4096) -> dict:
             "temperature": gc.temperature, "top_p": gc.top_p}
 
 
-def inference_phase(gen, card: str) -> dict:
+def inference_phase(gen, card: str, root: str) -> dict:
     """The inference entry point end to end at full width: write the
     checkpoint set (`write_inference_checkpoints`) into a temporary
     directory, load and convert it (`check_converters`), then
@@ -4636,10 +4688,9 @@ def inference_phase(gen, card: str) -> dict:
     CPU's plain path (`reference_gate`), and `sampling_gate`. Gates:
     finite outputs, three masks of the image's own 480 x 640 shape and
     three boxes, the exact counts, the kernels, the comparison with the
-    CPU, the sampler. The directory is deleted at the end."""
+    CPU, the sampler. `root` is the caller's directory: the files stay
+    there for `train_clis_phase` (the line's `checkpoint_paths`)."""
     import os
-    import shutil
-    import tempfile
 
     import numpy as np
     import torch
@@ -4651,61 +4702,58 @@ def inference_phase(gen, card: str) -> dict:
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
     from toy_tokenizer import ToyLlamaTokenizer
 
-    root = tempfile.mkdtemp(prefix="ullava_inference_")
-    try:
-        t0 = time.perf_counter()
-        paths = write_inference_checkpoints(root, gen)
-        write_s = time.perf_counter() - t0
-        conv_line = check_converters(paths)
-        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths = write_inference_checkpoints(root, gen)
+    write_s = time.perf_counter() - t0
+    conv_line = check_converters(paths)
+    torch.cuda.empty_cache()
 
-        cfg = Config(cfg_dict={
-            "model": {"arch": "ullava", "conv_type": "conv_sep2", "quantize": "int8",
-                      "kv_cache": "int8", **paths},
-            "task": {"type": "image_text_evaluate"}, "processor": {}, "training": {}})
-        image = np.random.default_rng(0).integers(0, 256, (480, 640, 3), dtype=np.uint8)
-        query = "Segment the dog ."
-        tok = ToyLlamaTokenizer(model_max_length=2048)
+    cfg = Config(cfg_dict={
+        "model": {"arch": "ullava", "conv_type": "conv_sep2", "quantize": "int8",
+                  "kv_cache": "int8", **paths},
+        "task": {"type": "image_text_evaluate"}, "processor": {}, "training": {}})
+    image = np.random.default_rng(0).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    query = "Segment the dog ."
+    tok = ToyLlamaTokenizer(model_max_length=2048)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seen = {}
+    with recording(build, "build_ullava", seen):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = inference_ullava.run_once(
+            cfg, image, query, temperature=0.2, top_p=0.9,
+            max_new_tokens=INFERENCE_NEW_TOKENS, tokenizer=tok,
+            generator=torch.Generator(device="cuda").manual_seed(7))
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        seen = {}
-        with recording(build, "build_ullava", seen):
-            kernels.reset_launch_counts()
-            t0 = time.perf_counter()
-            res = inference_ullava.run_once(
-                cfg, image, query, temperature=0.2, top_p=0.9,
-                max_new_tokens=INFERENCE_NEW_TOKENS, tokenizer=tok,
-                generator=torch.Generator(device="cuda").manual_seed(7))
-            torch.cuda.synchronize()
-            run_s = time.perf_counter() - t0
-            launches = kernels.launch_counts()
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        u_cfg, params = seen["build_ullava"]
-        build_s = seen["build_ullava_s"]
-        must("inference config", u_cfg.core.llm.kv_quant and u_cfg.core.llm.num_layers == 4
-             and u_cfg.sam.vision.embed_dim == 1280 and u_cfg.core.vision.num_layers == 24,
-             u_cfg)
-        must("tokenizer ids", len(tok) <= TOY_IDS and u_cfg.seg_token_idx == SEG_ID
-             and u_cfg.loc_token_idx == LOC_ID, (len(tok), u_cfg.seg_token_idx))
-        steps = len(res["text"].split())
-        must("text", res["text"].split() == ["[SEG]", "[LOC]"] * (steps // 2)
-             and steps == INFERENCE_NEW_TOKENS, res["text"])
-        must("masks", len(res["masks"]) == 3 and all(m.shape == (480, 640) and m.dtype == np.uint8
-                                                     for m in res["masks"]),
-             [m.shape for m in res["masks"]])
-        must("boxes", len(res["boxes"]) == 3 and np.isfinite(np.asarray(res["boxes"])).all(),
-             res["boxes"])
-        _check_launches("inference", launches, inference_launches(steps))
-        inputs, _, _ = inference_ullava.prepare_query(u_cfg, tok, image, query, "conv_sep2", "cuda")
-        prompt_len = int(inputs["prompt_lens"][0])
-        kernel_gates = inference_kernel_gates(gen, prompt_len)
-        reference = reference_gate(u_cfg, params, inputs)
-        sampling = sampling_gate(u_cfg, params)
-        del params, seen, inputs
-        torch.cuda.empty_cache()
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    line = {"phase": "inference", "card": card, "llama_layers": INFERENCE_LLAMA_LAYERS,
+        run_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    u_cfg, params = seen["build_ullava"]
+    build_s = seen["build_ullava_s"]
+    must("inference config", u_cfg.core.llm.kv_quant and u_cfg.core.llm.num_layers == 4
+         and u_cfg.sam.vision.embed_dim == 1280 and u_cfg.core.vision.num_layers == 24,
+         u_cfg)
+    must("tokenizer ids", len(tok) <= TOY_IDS and u_cfg.seg_token_idx == SEG_ID
+         and u_cfg.loc_token_idx == LOC_ID, (len(tok), u_cfg.seg_token_idx))
+    steps = len(res["text"].split())
+    must("text", res["text"].split() == ["[SEG]", "[LOC]"] * (steps // 2)
+         and steps == INFERENCE_NEW_TOKENS, res["text"])
+    must("masks", len(res["masks"]) == 3 and all(m.shape == (480, 640) and m.dtype == np.uint8
+                                                 for m in res["masks"]),
+         [m.shape for m in res["masks"]])
+    must("boxes", len(res["boxes"]) == 3 and np.isfinite(np.asarray(res["boxes"])).all(),
+         res["boxes"])
+    _check_launches("inference", launches, inference_launches(steps))
+    inputs, _, _ = inference_ullava.prepare_query(u_cfg, tok, image, query, "conv_sep2", "cuda")
+    prompt_len = int(inputs["prompt_lens"][0])
+    kernel_gates = inference_kernel_gates(gen, prompt_len)
+    reference = reference_gate(u_cfg, params, inputs)
+    sampling = sampling_gate(u_cfg, params)
+    del params, seen, inputs
+    torch.cuda.empty_cache()
+    line = {"phase": "inference", "card": card, "checkpoint_paths": paths,
+            "llama_layers": INFERENCE_LLAMA_LAYERS,
             "depth_cut": "LLaMA num_hidden_layers 32 -> 4; CLIP 24 and SAM 32 blocks whole",
             "write_s": write_s, **conv_line, "build_s": build_s, "run_s": run_s,
             "answer_s": run_s - build_s, "prompt_tokens": prompt_len, "peak_mem_gb": peak_gb,
@@ -4714,6 +4762,548 @@ def inference_phase(gen, card: str) -> dict:
             "boxes": [[float(v) for v in box] for box in res["boxes"]],
             "kernel_gates": kernel_gates, "reference": reference,
             "sampling": sampling, "launches": launches}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+# ---------------------------------------------------------------------------
+# train_clis: the training and eval CLIs from annotation files and images
+# ---------------------------------------------------------------------------
+
+TRAIN_CLIS_B = 2  # per_device_train_batch_size of both training CLIs
+TRAIN_CLIS_HW = (480, 640)
+TRAIN_CLIS_ITEMS = 8  # RES and chat items: 4 steps an epoch at B=2
+TRAIN_CLIS_VAL_ITEMS = 4  # one eval batch: the harness pads it to its 8
+
+
+def png_bytes(pixels, colour: int = 2, palette=None) -> bytes:
+    """A PNG of uint8 `pixels` ([H, W] or [H, W, C]) at bit depth 8 in
+    colour type `colour`, row y filtered with scanline filter y % 5, so
+    that a reader meets all five (zlib and struct only)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    a = np.asarray(pixels, np.uint8)
+    a = a[..., None] if a.ndim == 2 else a
+    h, w, c = a.shape
+    rows = a.reshape(h, w * c).astype(np.int16)
+    out = np.empty((h, w * c + 1), np.uint8)
+    up = np.zeros(w * c, np.int16)
+    for y in range(h):
+        r = rows[y]
+        left = np.concatenate([np.zeros(c, np.int16), r[:-c]])
+        upleft = np.concatenate([np.zeros(c, np.int16), up[:-c]])
+        f = y % 5
+        if f == 4:  # Paeth: p - left = up - upleft, and so on
+            pa, pb, pc = np.abs(up - upleft), np.abs(left - upleft), np.abs(left + up - 2 * upleft)
+            pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+        else:
+            pred = (0, left, up, (left + up) >> 1)[f]
+        out[y, 0] = f
+        out[y, 1:] = (r - pred) & 0xFF
+        up = r
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    png = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
+    if palette is not None:
+        png += chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    return png + chunk(b"IDAT", zlib.compress(out.tobytes(), 6)) + chunk(b"IEND", b"")
+
+
+def write_train_clis_data(root, rng) -> dict:
+    """The phase's files under `root`: 8 RES images of 480 x 640 (PNG),
+    `res_train.jsonl` (COCO polygons of one or two parts, 1-3 sentences an
+    item), `res_val.jsonl` (4 items, 2-3 sentences), a one-question
+    `SEG.json`, and a LLaVA chat set of 8 items (`chat.json`) on its own
+    PNG images."""
+    import os
+
+    import numpy as np
+
+    H, W = TRAIN_CLIS_HW
+    images = os.path.join(root, "images")
+    os.makedirs(images)
+
+    def image(name):
+        with open(os.path.join(images, name), "wb") as f:
+            f.write(png_bytes(rng.integers(0, 256, (H, W, 3), dtype=np.uint8)))
+
+    def res_item(i, n_sentences):
+        x0, y0 = int(rng.integers(20, 200)), int(rng.integers(20, 150))
+        w, h = int(rng.integers(100, 300)), int(rng.integers(80, 250))
+        parts = [[x0, y0, x0 + w, y0 + 10, x0 + w - 15, y0 + h, x0 + 5, y0 + h - 20]]
+        if i % 2:  # a second part: the mask is the union
+            parts.append([x0 + w + 20, y0, x0 + w + 80, y0, x0 + w + 80, y0 + 60, x0 + w + 20, y0 + 60])
+        xs = [v for p in parts for v in p[0::2]]
+        ys = [v for p in parts for v in p[1::2]]
+        name = f"res{i}.png"
+        image(name)
+        cat = ("Dog", "Cup", "Chair", "Kite")[i % 4]
+        return {"image_path": name, "segmentation": parts, "category": cat,
+                "bbox": [min(xs), min(ys), max(xs) - min(xs), max(ys) - min(ys)],
+                "height": H, "width": W,
+                "sentences": [f"the {cat.lower()} number {i}", f"object {i} on the left",
+                              f"thing {i}"][:n_sentences]}
+
+    paths = {"images": images}
+    for split, first, n, sentences in (
+            ("res_train", 0, TRAIN_CLIS_ITEMS, lambda i: 1 + i % 3),
+            ("res_val", 100, TRAIN_CLIS_VAL_ITEMS, lambda i: 2 + i % 2)):
+        items = [res_item(first + i, sentences(i)) for i in range(n)]
+        paths[split] = os.path.join(root, f"{split}.jsonl")
+        with open(paths[split], "w") as f:
+            f.writelines(json.dumps(item) + "\n" for item in items)
+    paths["seg"] = os.path.join(root, "SEG.json")
+    with open(paths["seg"], "w") as f:
+        json.dump(["<image> Where is the <class> in this picture ?"], f)
+    chat = []
+    for i in range(TRAIN_CLIS_ITEMS):
+        image(f"chat{i}.png")
+        chat.append({"image": f"chat{i}.png", "conversations": [
+            {"from": "human", "value": "<image>\nDescribe the picture ."},
+            {"from": "gpt", "value": f"A picture of noise , number {i} ."}]})
+    paths["chat"] = os.path.join(root, "chat.json")
+    with open(paths["chat"], "w") as f:
+        json.dump(chat, f)
+    return paths
+
+
+def train_clis_configs(paths, data, out) -> dict:
+    """The YAML configs of the phase (as dicts): stage 2 as
+    `configs/train/ullava_lora.yaml` with `quantize: int8_towers` on the RES
+    set with its val set, one epoch or two; eval on run 2's last
+    checkpoint; stage 1 (pretraining) on the chat set."""
+    import os
+
+    def res(anno):
+        return {"data_type": "image", "image_token_len": 256, "vis_processor": "clip_image",
+                "build_info": {"anno_dir": anno, "image_dir": data["images"],
+                               "template_root": data["seg"]}}
+
+    training = {"learning_rate": 2e-4, "lr_scheduler_type": "linear", "warmup_ratio": 0.03,
+                "weight_decay": 0.0, "model_max_length": 512,
+                "per_device_train_batch_size": TRAIN_CLIS_B, "logging_steps": 1,
+                "save_total_limit": 1, "seed": 42, "dataloader_num_workers": 2}
+    processor = {"clip_image": {"image_size": 224, "aspect_ratio": "pad"}}
+    stage2 = {
+        "model": {"arch": "ullava", "conv_type": "conv_sep2", "projector_type": "mlp",
+                  "vision_hidden_layer": -2, "projector_from_scratch": False,
+                  "quantize": "int8_towers", "lora_r": 8, "lora_alpha": 16, **paths},
+        "task": {"type": "image_text_pretrain", "collator_type": "grounding_collator"},
+        "processor": processor,
+        "dataset": {"refcoco": res(data["res_train"])},
+        "eval_dataset": {"refcoco_val": res(data["res_val"])},
+        "training": {**training, "output_dir": out["stage2"], "num_train_epochs": 1,
+                     "evaluation_strategy": "epoch", "save_steps": 2},
+    }
+    run2 = json.loads(json.dumps(stage2))
+    run2["training"]["num_train_epochs"] = 2
+    evaluate = json.loads(json.dumps(stage2))
+    evaluate["model"]["pretrained_ullava"] = os.path.join(out["stage2"], "checkpoint-8")
+    evaluate["training"]["output_dir"] = out["eval"]
+    stage1 = {
+        "model": {"arch": "ullava_core", "conv_type": "conv_simple", "projector_type": "mlp",
+                  "vision_hidden_layer": -2, "projector_from_scratch": True,
+                  "llm_path": paths["llm_path"], "vision_encoder": paths["vision_encoder"]},
+        "task": {"type": "image_text_pretrain", "collator_type": "image_video_collator"},
+        "processor": processor,
+        "dataset": {"llava_cc3m": {
+            "data_type": "image", "image_token_len": 256, "vis_processor": "clip_image",
+            "build_info": {"anno_dir": data["chat"], "image_dir": data["images"]}}},
+        "training": {**training, "output_dir": out["stage1"], "learning_rate": 2e-3,
+                     "num_train_epochs": 1, "save_steps": 100},
+    }
+    return {"stage2_run1": stage2, "stage2_run2": run2, "eval": evaluate, "stage1": stage1}
+
+
+def _llm_train_launches() -> dict:
+    """One LLaMA forward and backward under remat at
+    `INFERENCE_LLAMA_LAYERS` layers, as `TRAIN_LAUNCHES` counts them at
+    32: K15 and two K9 a layer in the step and again in the recompute,
+    the final norm's K9 once; the flash backward's three kernels a layer,
+    two K18 a layer and one for the final norm."""
+    L = INFERENCE_LLAMA_LAYERS
+    return {"flash_attention_fwd_lse": 2 * L, **{k: L for k in FLASH_BWD_NAMES},
+            "rms_norm_bwd": 2 * L + 1, "rms_norm_fwd": 4 * L + 1}
+
+
+def _sam_wq_launches(mlp_classes: int) -> dict:
+    """One weight-only ViT-H encode in the resident layout without
+    composite weights (`STAGE2_LAUNCHES`'s): `mlp_classes` of each window
+    block's three classes reach the fused MLP's gate (rows % 512 == 0)."""
+    return {"fused_window_attention_grid": 28, "fused_window_attention_rect": 28 * 2,
+            "fused_global_attention_y": 4, "fused_ln_linear_wq": 28 * 6 + 4 * 2,
+            "fused_mlp_block_wq": 28 * mlp_classes + 4}
+
+
+def train_clis_launches() -> dict:
+    """Launches of one stage-2 step of `train_ullava` (B=2): the LLM as in
+    `_llm_train_launches`, one encode whose classes hold 6272 (32 full
+    windows of 196 rows), 1792 (16 of 112) and 128 rows (2 corners), none
+    a multiple of 512, so the fused MLP runs in the 4 global blocks only;
+    of one stage-1 step of `train_ullava_core` (B=2): the LLM alone; of
+    one eval batch (the harness's 8, no gradient): K2 and two K9 a layer
+    and the final norm's, one encode whose classes hold 25088, 7168 and
+    512 rows, all three past the MLP's gate."""
+    zero = {k: 0 for k in BF16_LAUNCHES}
+    L = INFERENCE_LLAMA_LAYERS
+    return {"stage2_step": {**zero, **_llm_train_launches(), **_sam_wq_launches(0)},
+            "stage1_step": {**zero, **_llm_train_launches()},
+            "eval_batch": {**zero, "flash_attention_fwd_bsh": L, "rms_norm_fwd": 2 * L + 1,
+                           **_sam_wq_launches(3)}}
+
+
+# The eval batch: the harness's 8, the val set's 4 items padded with the
+# last. The row counts of the SAM encode's classes at the stage-2 step's
+# B=2 and at the eval batch's B=8 (`INFERENCE_CLASS_ROWS` an image), and
+# those that reach the fused MLP's 512-row gate.
+TRAIN_CLIS_EVAL_B = 8
+TRAIN_CLIS_CLASS_ROWS = tuple(r * b for b in (TRAIN_CLIS_B, TRAIN_CLIS_EVAL_B)
+                              for r in INFERENCE_CLASS_ROWS)
+TRAIN_CLIS_MLP_ROWS = tuple(r for r in TRAIN_CLIS_CLASS_ROWS if r % 512 == 0)
+
+
+def train_clis_kernel_gates(gen, eval_lens, eval_seq: int) -> dict:
+    """Kernels at the shapes the training and eval CLIs give them, each
+    against its plain version by `row_rel_err` within 1e-2 and each
+    rejecting its source's mutant copies, as `inference_kernel_gates`:
+    K2 on the eval batch (`TRAIN_CLIS_EVAL_B` rows of `eval_seq` tokens,
+    its ragged `eval_lens`, 32 heads of 128, causal), with both of its
+    mutants where a row's kv_len ends inside a 64-key tile before the
+    sequence's end (else the causal one alone); and `sam_encode_gates`
+    with the weight-only K10 at `TRAIN_CLIS_CLASS_ROWS`, the weight-only
+    K12 at `TRAIN_CLIS_MLP_ROWS`, and K3, K14 and K11 on the windows and
+    global blocks of 2 and of 8 images."""
+    import torch
+
+    from ullava_tpu_torch.ops import attention
+
+    tol = 1e-2
+    out = {"tol": tol}
+    gate = _kernel_gate(out, tol)
+    lens = torch.as_tensor(eval_lens, dtype=torch.int32, device="cuda")
+    q, k, v = ((torch.randn((len(eval_lens), eval_seq, 32, 128), generator=gen, device="cuda"))
+               .to(torch.bfloat16) for _ in range(3))
+    edge = any(0 < int(n) < eval_seq and int(n) % 64 for n in eval_lens)
+    gate(f"flash_attention_fwd_bsh {len(eval_lens)} x {eval_seq}",
+         lambda: attention.flash_attention_fwd_bsh(q, k, v, lens, causal=True, scale=128**-0.5),
+         attention.flash_attention_fwd_bsh_plain(q, k, v, lens, causal=True, scale=128**-0.5),
+         K2_MUTANTS if edge else {"causal_mask_shifted": K2_MUTANTS["causal_mask_shifted"]})
+    out["flash_attention_fwd_bsh kv_lens"] = [int(n) for n in eval_lens]
+    del q, k, v
+    sam_encode_gates(gen, gate, TRAIN_CLIS_CLASS_ROWS, TRAIN_CLIS_MLP_ROWS,
+                     (TRAIN_CLIS_B, TRAIN_CLIS_EVAL_B))
+    return out
+
+
+def _batch_fingerprint(batch) -> dict:
+    return {k: _fingerprint(v) for k, v in sorted(batch.items()) if hasattr(v, "element_size")}
+
+
+def _leaf_fingerprints(params) -> list:
+    """(path, fingerprint) of every leaf of `params` in tree order (None
+    for a leaf that is not a tensor)."""
+    from ullava_tpu_torch.training import optim
+
+    return [(n, _fingerprint(t) if hasattr(t, "element_size") else None)
+            for n, t in optim.named_leaves(params)]
+
+
+def frozen_and_moved(name, before, params, patterns) -> dict:
+    """Gate: against the fingerprints `before`, every leaf that `patterns`
+    freeze is bit-unchanged and every leaf they train has moved, but for
+    the mask decoder's (its unused mask tokens and hypernetworks and its
+    attention key biases get no gradient; their moved count is read)."""
+    from ullava_tpu_torch.training import optim
+
+    after = _leaf_fingerprints(params)
+    labels = [lab for _, lab in optim.named_leaves(optim.trainable_labels(params, patterns))]
+    rows = list(zip(before, after, labels, strict=True))
+    changed = [n for (n, a), (_, b), lab in rows if lab == "freeze" and a != b]
+    moved = [(n, a != b) for (n, a), (_, b), lab in rows if lab == "train"]
+    stuck = [n for n, m in moved if not m and not n.startswith("sam/mask_decoder")]
+    must(name, not changed and not stuck, {"frozen changed": changed, "not moved": stuck})
+    decoder = [m for n, m in moved if n.startswith("sam/mask_decoder")]
+    return {"frozen_unchanged": sum(lab == "freeze" for lab in labels),
+            "trained_moved": sum(m for _, m in moved),
+            "mask_decoder_moved": [sum(decoder), len(decoder)]}
+
+
+def cli_recorder():
+    """A `TrainerCallback` that keeps what the phase reads of one training
+    CLI call: the step its loop starts at and its leaves' fingerprints
+    there, each epoch it asks its loader for (epoch, first batch), each
+    step (wall, loss, launches, batch fingerprint; the first three
+    batches kept) and each eval (results, launches, wall)."""
+    import torch
+
+    from ullava_tpu_torch import kernels
+    from ullava_tpu_torch.training.trainer import TrainerCallback
+
+    class Recorder(TrainerCallback):
+        def __init__(self):
+            self.start_step = self.fingerprints = None
+            self.epochs, self.steps, self.evals, self.batches = [], [], [], []
+
+        def on_train_begin(self, state):
+            self.start_step = state.step
+            self.fingerprints = _leaf_fingerprints(state.params)
+
+        def on_epoch_begin(self, epoch, start_batch):
+            self.epochs.append((epoch, start_batch))
+
+        def _begin(self):
+            torch.cuda.synchronize()
+            self._before, self._t0 = kernels.launch_counts(), time.perf_counter()
+
+        def _end(self):
+            torch.cuda.synchronize()
+            s, after = time.perf_counter() - self._t0, kernels.launch_counts()
+            return s, {k: after[k] - self._before[k] for k in after}
+
+        def on_step_begin(self, state, batch):
+            self._begin()
+
+        def on_step_end(self, state, batch, metrics):
+            s, launches = self._end()
+            self.steps.append({"s": s, "loss": metrics["loss"].detach().clone(),
+                               "launches": launches, "fingerprint": _batch_fingerprint(batch)})
+            if len(self.batches) < 3:
+                self.batches.append(batch)
+
+        def on_evaluate_begin(self):
+            self._begin()
+
+        def on_evaluate_end(self, results):
+            s, launches = self._end()
+            self.evals.append({"results": results, "s": s, "launches": launches})
+
+    return Recorder()
+
+
+def train_clis_phase(paths, card: str, device: str = "cuda") -> dict:
+    """The training and eval CLIs end to end at full width from files:
+    the `inference` phase's checkpoint set (`paths`: LLaMA at Vicuna-7B's
+    widths, 4 of 32 layers; CLIP ViT-L/14; SAM ViT-H) and the data of
+    `write_train_clis_data` (numpy seed 23), each CLI called as a user
+    calls it from Python with YAML files the phase writes and the toy
+    tokenizer: `train_ullava` (`quantize: int8_towers`, LoRA r=8, B=2, one
+    epoch of 4 steps, the per-epoch eval on the val set, `save_steps: 2`),
+    `train_ullava` again with two epochs (it resumes at step 4 and takes 4
+    more), `eval_ullava` on that run's last checkpoint, `train_ullava_core`
+    (pretraining, B=2, 4 steps). The training CLIs are read through a `TrainerCallback`
+    (`cli_recorder`), the builds' walls through `recording`. The native
+    host library must be loaded before the first fetch. Gates: the
+    launches of the first stage-2 step, the first stage-1 step, each of
+    the trainer's evals and the whole `eval_ullava` call (its build
+    launches nothing) exactly as `train_clis_launches` says; after run 1's
+    four steps every leaf `STAGE2_LORA` freezes bit-unchanged and every
+    leaf it trains moved (`frozen_and_moved`); the first stage-2 step's
+    loss bit-equal to `train.make_stage2_step` run directly on the
+    loader's first batch from a second build of the same files, the
+    second and third within 1e-3 relative (the schedule's first lr is 0,
+    so the third is the first loss that reads an update: of the
+    policy's leaves, by AdamW), and the same freeze gate after the three
+    direct steps; the resumed run starting at step 4, asking its loader
+    for epoch 1 from batch 0 only, taking 4 steps, its first batch
+    bit-equal (by fingerprint) to batch 4 of a straight run;
+    `eval_ullava`'s metrics equal to the trainer's last per-epoch eval;
+    every loss finite; then `train_clis_kernel_gates` (torch seed 23) at
+    the path's shapes. The launch counts are set to 0 before the first
+    CLI call and read after the last; the direct steps' and the gates'
+    launches (comparisons) come after. `device` other than "cuda" is for
+    rehearsals off the card, without the kernel gates."""
+    import math
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ullava_tpu_torch import eval_ullava, kernels, train, train_ullava, train_ullava_core
+    from ullava_tpu_torch.config import Config
+    from ullava_tpu_torch.constants import MM_TOKENS, STAGE2_TOKENS
+    from ullava_tpu_torch.data.collators import GroundingCollator
+    from ullava_tpu_torch.data.loader import DataLoader
+    from ullava_tpu_torch.data.tools import native
+    from ullava_tpu_torch.evaluation import harness
+    from ullava_tpu_torch.models import build
+    from ullava_tpu_torch.tasks import setup_task
+    from ullava_tpu_torch.training import optim, train_step
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from toy_tokenizer import ToyLlamaTokenizer
+
+    t_phase = time.perf_counter()
+    expect = train_clis_launches()
+    root = tempfile.mkdtemp(prefix="ullava_train_clis_")
+    try:
+        t0 = time.perf_counter()
+        data = write_train_clis_data(root, np.random.default_rng(23))
+        write_s = time.perf_counter() - t0
+        out = {k: os.path.join(root, k) for k in ("stage2", "eval", "stage1")}
+        cfg_paths = {}
+        for name, cfg in train_clis_configs(paths, data, out).items():
+            cfg_paths[name] = os.path.join(root, f"{name}.yaml")
+            with open(cfg_paths[name], "w") as f:
+                f.write(json.dumps(cfg, indent=1))  # JSON is YAML
+        must("native host library", native.available(), "libullava_native did not load")
+
+        # The tokenizer as the builds leave it, then every text of both RES
+        # sets once, so that the loader's two threads add no word.
+        tok = ToyLlamaTokenizer(model_max_length=2048)
+        tok.add_tokens(MM_TOKENS)
+        tok.add_tokens(STAGE2_TOKENS)
+        cfg1 = Config(cfg_paths["stage2_run1"])
+        model_cfg1 = cfg1.assign_config()[0]
+        train_ds = setup_task(cfg1.task_cfg).build_datasets(
+            cfg1.dataset_cfg, tok, cfg1.processor_cfg, "conv_sep2")
+        val_sets = harness.build_eval_datasets(cfg1.eval_dataset_cfg, tok, cfg1.processor_cfg,
+                                               "conv_sep2")
+        for ds in (train_ds, *val_sets.values()):
+            for i in range(len(ds)):
+                ds[i]
+
+        kernels.reset_launch_counts()
+        runs = {}
+        for name, call, cfg in (
+                ("stage2_run1", train_ullava.train, cfg_paths["stage2_run1"]),
+                ("stage2_run2", train_ullava.train, cfg_paths["stage2_run2"]),
+                ("eval", eval_ullava.evaluate, cfg_paths["eval"]),
+                ("stage1", train_ullava_core.train, cfg_paths["stage1"])):
+            rec = None if name == "eval" else cli_recorder()
+            build_name = "build_ullava_core" if name == "stage1" else "build_ullava"
+            sink: dict = {}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before, t0 = kernels.launch_counts(), time.perf_counter()
+            with recording(build, build_name, sink):
+                res = call(Config(cfg), tokenizer=tok, device=device,
+                           **({} if rec is None else {"callbacks": [rec]}))
+            torch.cuda.synchronize()
+            after = kernels.launch_counts()
+            runs[name] = {"rec": rec, "s": time.perf_counter() - t0,
+                          "build_s": sink[build_name + "_s"],
+                          "launches": {k: after[k] - before[k] for k in after},
+                          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                          # a trained state's step (the state itself is freed)
+                          "result": getattr(res, "step", res)}
+            if name == "stage2_run1":
+                runs[name]["u_cfg"] = sink["build_ullava"][0]
+                runs[name]["freeze"] = frozen_and_moved(
+                    "train_clis run 1's leaves", rec.fingerprints, res.params, optim.STAGE2_LORA)
+            del res, sink
+            torch.cuda.empty_cache()
+        launches = kernels.launch_counts()
+
+        r1, r2, s1 = (runs[n]["rec"] for n in ("stage2_run1", "stage2_run2", "stage1"))
+        _check_launches("train_clis stage-2 step", r1.steps[0]["launches"], expect["stage2_step"])
+        _check_launches("train_clis stage-1 step", s1.steps[0]["launches"], expect["stage1_step"])
+        for e in [*r1.evals, *r2.evals, {"launches": runs["eval"]["launches"]}]:
+            _check_launches("train_clis eval batch", e["launches"], expect["eval_batch"])
+        losses = {n: [s["loss"].item() for s in runs[n]["rec"].steps]
+                  for n in ("stage2_run1", "stage2_run2", "stage1")}
+        must("train_clis steps", [len(v) for v in losses.values()] == [4, 4, 4]
+             and runs["stage2_run2"]["result"] == 8, losses)
+        must("train_clis losses finite", all(math.isfinite(x) for v in losses.values() for x in v),
+             losses)
+
+        # Resume: run 2 starts at step 4, asks for epoch 1 from batch 0 only
+        # and takes its 4 steps; its first batch is batch 4 of a straight
+        # run (the loader alone over epoch 0 and into epoch 1).
+        u_cfg1 = runs["stage2_run1"]["u_cfg"]
+        collator = setup_task(cfg1.task_cfg).build_collator(
+            tok.pad_token_id, model_max_length=512, max_masks=u_cfg1.max_masks,
+            mask_frame=u_cfg1.mask_loss_frame)
+        straight = DataLoader(train_ds, TRAIN_CLIS_B, collator, num_workers=2, seed=42,
+                              device=device)
+        fetch_s, t0 = [], time.perf_counter()
+        for batch in straight:
+            torch.cuda.synchronize()
+            fetch_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+        straight.set_epoch(1)
+        batch4 = next(iter(straight))
+        must("train_clis resume", r2.start_step == 4 and r2.epochs == [(1, 0)]
+             and r2.steps[0]["fingerprint"] == _batch_fingerprint(batch4),
+             {"start_step": r2.start_step, "epochs": r2.epochs})
+
+        # Eval: eval_ullava on checkpoint-8 gives the trainer's last eval.
+        must("train_clis eval", len(r1.evals) == 1 and len(r2.evals) == 1
+             and runs["eval"]["result"] == r2.evals[-1]["results"],
+             {"cli": runs["eval"]["result"], "trainer": r2.evals[-1]["results"]})
+        metrics = runs["eval"]["result"]["refcoco_val"]
+        must("train_clis eval metrics", metrics["n_masks"] > 0 and metrics["n_boxes"] > 0
+             and all(math.isfinite(metrics[k]) for k in ("ciou", "giou", "prec@0.5")), metrics)
+
+        # The first steps: the CLI's wiring against train.make_stage2_step
+        # run directly on the loader's first three batches from a second
+        # build of the same files (the launches of this comparison are not
+        # counted). The first lr is 0: the third loss reads the second
+        # step's update.
+        u_cfg, params = build.build_ullava(model_cfg1, tok, device=device)
+        built = _leaf_fingerprints(params)
+        schedule = optim.make_lr_schedule(2e-4, 4, warmup_ratio=0.03, schedule="linear")
+        tx = optim.make_optimizer(schedule, weight_decay=0.0)
+        state, labels = train_step.make_train_state(params, tx, optim.STAGE2_LORA)
+        step = train.make_stage2_step(u_cfg, tx, labels)
+        direct = []
+        for batch in r1.batches:
+            state, m = step(state, batch)
+            direct.append(m["loss"].detach())
+        first_equal = torch.equal(direct[0], r1.steps[0]["loss"])
+        later_rel = [abs(d.item() - c) / abs(c) for d, c in zip(direct[1:], losses["stage2_run1"][1:])]
+        must("train_clis first steps", first_equal and len(later_rel) == 2
+             and max(later_rel) <= 1e-3,
+             {"direct": [d.item() for d in direct], "cli": losses["stage2_run1"][:3]})
+        direct_freeze = frozen_and_moved("train_clis direct steps' leaves", built, state.params,
+                                         optim.STAGE2_LORA)
+        del params, state, step, direct
+        torch.cuda.empty_cache()
+
+        # The kernels at this path's shapes against their plain versions,
+        # K2 on the eval batch's own kv_lens.
+        gates_s, kernel_gates = 0.0, None
+        if device == "cuda":
+            val = next(iter(val_sets.values()))
+            samples = [val[i] for i in range(len(val))]
+            samples += [samples[-1]] * (TRAIN_CLIS_EVAL_B - len(samples))
+            eval_batch = GroundingCollator(tok.pad_token_id, model_max_length=512, max_masks=10,
+                                           mask_frame=u_cfg1.mask_loss_frame)(samples)
+            t0 = time.perf_counter()
+            kernel_gates = train_clis_kernel_gates(
+                torch.Generator(device="cuda").manual_seed(23), eval_batch["attn_lens"].tolist(),
+                eval_batch["input_ids"].shape[1])
+            gates_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    def steps_s(rec):
+        return [s["s"] for s in rec.steps]
+
+    line = {"phase": "train_clis", "card": card, "llama_layers": INFERENCE_LLAMA_LAYERS,
+            "seconds": time.perf_counter() - t_phase, "write_data_s": write_s,
+            "run_s": {n: r["s"] for n, r in runs.items()},
+            "build_s": {n: r["build_s"] for n, r in runs.items()},
+            "peak_mem_gb": {n: r["peak_mem_gb"] for n, r in runs.items()},
+            "step_s": {n: steps_s(runs[n]["rec"]) for n in ("stage2_run1", "stage2_run2", "stage1")},
+            "fetch_collate_s_a_batch": fetch_s,
+            "eval_s": [e["s"] for e in r1.evals + r2.evals],
+            "losses": losses, "eval": metrics,
+            "first_steps": {"bit_equal": first_equal, "second_third_rel": later_rel},
+            "freeze": {"cli_run1": runs["stage2_run1"]["freeze"], "direct": direct_freeze},
+            "resume": {"start_step": r2.start_step, "epochs": r2.epochs},
+            "launches_stage2_step": {k: v for k, v in r1.steps[0]["launches"].items() if v},
+            "launches_stage1_step": {k: v for k, v in s1.steps[0]["launches"].items() if v},
+            "launches_eval_batch": {k: v for k, v in r1.evals[0]["launches"].items() if v},
+            "kernel_gates_s": gates_s, "kernel_gates": kernel_gates,
+            "launches": launches}
     print(json.dumps(line), flush=True)
     return line
 
@@ -4884,8 +5474,16 @@ def main() -> int:
     stage2_line, wq_encode_line = stage2_train_phase(gen)
     smi = card_name_and_power_limit()
     # The inference entry point from checkpoint files, on its own generator
-    # so that the check phase draws what it drew before it existed.
-    inference_line = inference_phase(torch.Generator(device="cuda").manual_seed(22), smi)
+    # so that the check phase draws what it drew before it existed; then
+    # the training and eval CLIs from the same files (data from numpy's
+    # seed 23, the model's new leaves from the build's own generator).
+    ckpt_root = tempfile.mkdtemp(prefix="ullava_inference_")
+    try:
+        inference_line = inference_phase(torch.Generator(device="cuda").manual_seed(22), smi,
+                                         ckpt_root)
+        train_clis_line = train_clis_phase(inference_line["checkpoint_paths"], smi)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
 
     # Each kernel's count on the main path that it was written for: the
     # bf16 serve for the bf16 path's four, the int8 serve for the int8
@@ -4921,6 +5519,7 @@ def main() -> int:
         r["launches_weight_only_encode"] = wq_encode_line["launches"][name]
         r["launches_mlp_microbench"] = mlp_microbench["launches"][name]
         r["launches_inference"] = inference_line["launches"][name]
+        r["launches_train_clis"] = train_clis_line["launches"][name]
     for r in results.values():
         print(json.dumps({"phase": "kernel", **{k: v for k, v in r.items()
                                                 if k not in ("route", "source", "replaces")}}),
@@ -4942,10 +5541,10 @@ def main() -> int:
                           "watched_device_ms_calls": prof["watched_device_ms_calls"],
                           "top_device_ms_calls": [[name[:60], ms, prof["top_device_calls"][name]]
                                                   for name, ms in top]}), flush=True)
-    for line in (train_line, stage2_line, wq_encode_line, inference_line):
+    for line in (train_line, stage2_line, wq_encode_line, inference_line, train_clis_line):
         print(json.dumps({**{k: v for k, v in line.items()
                              if k not in ("launches", "top_device_calls", "sampling", "boxes",
-                                          "kernel_gates")},
+                                          "kernel_gates", "checkpoint_paths", "losses")},
                           "phase": line["phase"] + "_summary"}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": list(results.values())}), flush=True)

@@ -14,6 +14,9 @@
 `pretrained_core` / `pretrained_ullava` name a checkpoint directory in the
 port's own layout (`checkpoint-*/state.pt`, `training/checkpoint.py`),
 not an orbax one: a JAX checkpoint is carried over through `bridge.py`.
+A bare params tree is restored where the JAX build restores it; a
+checkpoint the trainer wrote (a TrainState) is copied over the finished
+build, so that `eval_ullava` and a later stage read training output.
 Every loader takes a missing path as random init from `generator` (tiny
 configs, for tests and dry runs). Parameters are made on `device` (the
 card when None).
@@ -109,15 +112,39 @@ def _clip_cfg_from_hf(path: str, dtype) -> clip_vit.CLIPVisionConfig:
     )
 
 
-def _restore(path: Optional[str], params: Dict[str, Any]) -> Dict[str, Any]:
-    """Overwrite `params` from a checkpoint of the port's layout, if any. A
-    leaf comes back at its saved shape, as orbax restores the JAX build's:
-    a table that `pad_vocab_multiple` widened after the save comes back at
-    its saved width and is padded again."""
-    if path and os.path.isdir(path):
-        from ullava_tpu_torch.training.checkpoint import restore_checkpoint
+def _saved(path: Optional[str]) -> Tuple[Any, Any]:
+    """(saved params tree, saved trained params) of a checkpoint directory
+    of the port's layout: a bare params tree is the first, a TrainState the
+    trainer wrote the second; (None, None) without a checkpoint."""
+    if not (path and os.path.isdir(path)):
+        return None, None
+    from ullava_tpu_torch.training.checkpoint import load_saved, trained_params
 
-        params = restore_checkpoint(path, params, saved_shapes=True)
+    saved = load_saved(path)
+    trained = trained_params(saved)
+    return (None, trained) if trained is not None else (saved, None)
+
+
+def _restore(saved, params: Dict[str, Any]) -> Dict[str, Any]:
+    """Overwrite `params` from a saved params tree, if any. A leaf comes
+    back at its saved shape, as orbax restores the JAX build's: a table
+    that `pad_vocab_multiple` widened after the save comes back at its
+    saved width and is padded again."""
+    if saved is not None:
+        from ullava_tpu_torch.training.checkpoint import restore_saved
+
+        params = restore_saved(saved, params, saved_shapes=True)
+    return params
+
+
+def _restore_trained(trained, params: Dict[str, Any]) -> Dict[str, Any]:
+    """A training checkpoint holds the tree as the trainer had it (int8
+    towers, adapters, padded tables): it is copied over the finished
+    build, leaf for leaf. (The JAX build restores bare params trees only.)"""
+    if trained is not None:
+        from ullava_tpu_torch.training.checkpoint import restore_saved
+
+        params = restore_saved(trained, params)
     return params
 
 
@@ -185,8 +212,10 @@ def build_ullava_core(
         dtype=dtype, device=device,
     )
     params = {"llm": llm_params, "vision": vis_params, "projector": proj_params}
-    params = _restore(model_cfg.get("pretrained_core"), params)
+    saved, trained = _saved(model_cfg.get("pretrained_core"))
+    params = _restore(saved, params)
     params["llm"] = _pad_vocab(model_cfg, params["llm"])
+    params = _restore_trained(None if trained is None else trained["core"], params)
     return cfg, params
 
 
@@ -237,7 +266,8 @@ def build_ullava(
         "det_projector": projector.init_text_head(gen, D, out_dim, device=device),
         "det_decoder": projector.init_box_decoder(gen, out_dim, device=device),
     }
-    params = _restore(model_cfg.get("pretrained_ullava"), params)
+    saved, trained = _saved(model_cfg.get("pretrained_ullava"))
+    params = _restore(saved, params)
 
     # model.quantize: 'int8' quantizes the SAM image encoder, CLIP and the
     # LLM; 'int8_towers' only the two frozen encoders. Both run
@@ -260,7 +290,7 @@ def build_ullava(
         params["core"]["llm"] = llama.add_lora(params["core"]["llm"], cfg.core.llm, gen, r=lora_r)
 
     params["core"]["llm"] = _pad_vocab(model_cfg, params["core"]["llm"])
-    return cfg, params
+    return cfg, _restore_trained(trained, params)
 
 
 # Registered arch names: the YAML `model.arch` vocabulary.

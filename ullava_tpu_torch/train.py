@@ -1,8 +1,9 @@
-"""Training entry points of the port: stage 1 and stage 2 (counterparts
-of what `train_ullava_core.py:66-92` and `train_ullava.py:82-86` wire once
-a model and a loader exist, and of `bench.py`'s synthetic batches,
-`bench.py:139-159` and `:863-882`; the dataset- and tokenizer-driven CLIs
-wait for those files).
+"""Training on synthetic batches: stage 1 and stage 2 (counterparts of
+what `train_ullava_core.py:66-92` and `train_ullava.py:82-86` wire once a
+model and a loader exist, and of `bench.py`'s synthetic batches,
+`bench.py:139-159` and `:863-882`). The YAML-, dataset- and
+tokenizer-driven CLIs are `train_ullava_core.py`, `train_ullava.py` and
+`eval_ullava.py` in this package.
 
     from ullava_tpu_torch import train
     batch = train.make_batch(cfg, batch=4, seq=1024, device="cuda")

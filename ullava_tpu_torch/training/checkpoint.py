@@ -101,14 +101,31 @@ def _copy_into(target: Any, saved: Any, saved_shapes: bool = False) -> Any:
     return saved
 
 
+def load_saved(path: str) -> Any:
+    """The tree saved in checkpoint directory `path` (tensors on the CPU)."""
+    return torch.load(os.path.join(os.path.abspath(path), _FILE), map_location="cpu",
+                      weights_only=True)
+
+
+def trained_params(saved: Any) -> Optional[Any]:
+    """The params of a saved TrainState (what the trainer writes), or None
+    for a saved bare params tree."""
+    if isinstance(saved, dict) and set(saved) == {"train_state"}:
+        return saved["train_state"]["params"]
+    return None
+
+
+def restore_saved(saved: Any, target: Any, saved_shapes: bool = False) -> Any:
+    """`restore_checkpoint` from a tree `load_saved` returned."""
+    if isinstance(target, TrainState):
+        tree = _copy_into(_fields(target), saved["train_state"], saved_shapes)
+        return TrainState(**tree)
+    return _copy_into(target, saved, saved_shapes)
+
+
 def restore_checkpoint(path: str, target: Any, saved_shapes: bool = False) -> Any:
     """Restore into the structure of `target` (a TrainState or a params
     tree): its tensors are overwritten in place and returned. With
     `saved_shapes`, a saved leaf of another shape than its target's comes
     back at its saved shape (as orbax restores), on the target's device."""
-    saved = torch.load(os.path.join(os.path.abspath(path), _FILE), map_location="cpu",
-                       weights_only=True)
-    if isinstance(target, TrainState):
-        tree = _copy_into(_fields(target), saved["train_state"], saved_shapes)
-        return TrainState(**tree)
-    return _copy_into(target, saved, saved_shapes)
+    return restore_saved(load_saved(path), target, saved_shapes)

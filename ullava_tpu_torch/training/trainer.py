@@ -4,18 +4,43 @@
 Epoch loop, per-step logging (loss, lr, grad norm, samples/s),
 `save_steps` cadence with `save_total_limit` rotation, resume from the
 latest `checkpoint-*`, a per-epoch evaluation hook and a final save.
+`callbacks` see the loop's events (`TrainerCallback`).
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence
 
 from ullava_tpu_torch.training import checkpoint as ckpt
 from ullava_tpu_torch.training.train_step import TrainState
 
 logger = logging.getLogger(__name__)
+
+
+class TrainerCallback:
+    """The events of `Trainer.train`, each a no-op here: a subclass
+    overrides those it reads (to record or time steps and evals)."""
+
+    def on_train_begin(self, state: TrainState) -> None:
+        """After the resume, before the first step."""
+
+    def on_epoch_begin(self, epoch: int, start_batch: int) -> None:
+        """Before an epoch's first batch is asked for (`start_batch` is
+        where a resumed epoch starts)."""
+
+    def on_step_begin(self, state: TrainState, batch) -> None:
+        pass
+
+    def on_step_end(self, state: TrainState, batch, metrics) -> None:
+        pass
+
+    def on_evaluate_begin(self) -> None:
+        pass
+
+    def on_evaluate_end(self, results) -> None:
+        pass
 
 
 class Trainer:
@@ -29,6 +54,7 @@ class Trainer:
         lr_schedule: Optional[Callable] = None,
         eval_fn: Optional[Callable] = None,  # params -> dict of metrics
         output_dir: Optional[str] = None,
+        callbacks: Sequence[TrainerCallback] = (),
     ):
         self.state = state
         self.step_fn = step_fn
@@ -37,6 +63,11 @@ class Trainer:
         self.lr_schedule = lr_schedule
         self.eval_fn = eval_fn
         self.output_dir = output_dir or training_cfg.get("output_dir", "./output")
+        self.callbacks = tuple(callbacks)
+
+    def _fire(self, event: str, *args) -> None:
+        for cb in self.callbacks:
+            getattr(cb, event)(*args)
 
     def _get(self, key, default):
         return self.cfg.get(key, default)
@@ -55,6 +86,7 @@ class Trainer:
                 logger.info("resuming from %s", latest)
                 self.state = ckpt.restore_checkpoint(latest, self.state)
                 start_step = int(self.state.step)
+        self._fire("on_train_begin", self.state)
 
         steps_per_epoch = len(self.loader)
         # Resume fast-forward by index arithmetic: whole epochs before the
@@ -67,6 +99,7 @@ class Trainer:
             self.loader.set_epoch(epoch)
             start_batch = start_step - global_step if global_step < start_step else 0
             global_step += start_batch
+            self._fire("on_epoch_begin", epoch, start_batch)
             if hasattr(self.loader, "iter_from"):
                 epoch_iter = self.loader.iter_from(start_batch)
             else:  # plain iterables: skip by draining
@@ -74,7 +107,9 @@ class Trainer:
                 for _ in range(start_batch):
                     next(epoch_iter)
             for batch in epoch_iter:
+                self._fire("on_step_begin", self.state, batch)
                 self.state, metrics = self.step_fn(self.state, batch)
+                self._fire("on_step_end", self.state, batch, metrics)
                 global_step += 1
 
                 if global_step % logging_steps == 0:
@@ -92,7 +127,9 @@ class Trainer:
                 if save_steps and global_step % save_steps == 0:
                     ckpt.save_checkpoint(self.output_dir, global_step, self.state, save_total_limit)
             if eval_each_epoch and self.eval_fn is not None:
+                self._fire("on_evaluate_begin")
                 results = self.eval_fn(self.state.params)
+                self._fire("on_evaluate_end", results)
                 logger.info("epoch %d eval: %s", epoch, results)
 
         ckpt.save_checkpoint(self.output_dir, global_step, self.state, save_total_limit)
