@@ -152,7 +152,25 @@ Phases, each fatal on any error:
                the kernels at the CLIs' B=2 and B=8 shapes against their
                plain versions, with their mutants; deletes both
                directories;
- 12. check   - runs small models (bf16, its SAM encoder also packed, then
+ 12. sam_predictor - the public SAM surface at full width on the card:
+               writes Meta-named ViT-L and ViT-B checkpoints (fp32 `.pth`),
+               converts them and, for ViT-L in bf16, ViT-L with int8 towers
+               and composite bias weights (`mlp_w8a8`) and ViT-B in bf16,
+               builds `SamPredictor`: `set_image` on one 480 x 640 image
+               with exact launch counts (the hd 64 forms of K3, K14 and K4,
+               or K3, K14, K11 with K10, K12, K13 at ViT-L's widths) and
+               the embedding against the port's plain path on the card,
+               `predict` with one point, two points and a box, and a box
+               alone for one mask, each against the CPU from the same
+               embedding, `SamAutomaticMaskGenerator.generate` at 16 points
+               a side (its kept set equal to the CPU's) and the decoder
+               exported with `export_sam_decoder`, loaded and run with a
+               mask input (against `make_decoder_fn`); each step's time on
+               a line of its own; then the hd 64 forms and the W8A8 kernels
+               at ViT-L's and ViT-B's B=1 shapes against their plain
+               versions, with their mutants, and the hd 64 forms' kernel
+               lines;
+ 13. check   - runs small models (bf16, its SAM encoder also packed, then
                int8 LLM, also on a one-sample 12-token prompt, then an int8 SAM
                encoder in the block and in the resident layout, the latter
                also with int8 scores beside a W8A8 flash CLIP tower, then
@@ -163,15 +181,16 @@ Phases, each fatal on any error:
                holds the card's outputs to the CPU reference, and the
                resident encoder's to the block layout's; then
                `train.train_stage1` end to end with checkpoints and resume;
- 13. summary - prints the serve and training numbers again, the card's
-               name and power limit, one JSON line with every kernel's
-               numbers, and last the device line.
+ 14. summary - prints the serve and training numbers again, the wall
+               seconds of each phase (`timeline`), the card's name and
+               power limit, one JSON line with every kernel's numbers, and
+               last the device line.
 
 Exits non-zero with no result when CUDA is unavailable.
 
     python3 chip_smoke.py --check-draws SEED ...
 
-runs only the training checks of phase 12 on the draws of the given seeds
+runs only the training checks of phase 13 on the draws of the given seeds
 (each its own generator), then reads each draw's stage-2 steps again leaf
 by leaf beside the witnesses of `ullava_tpu_torch/microbench/stage2_grads.py`.
 """
@@ -1653,15 +1672,16 @@ def rect_attrs(dots_i8: bool, geoms) -> dict:
     return kernels.kernel_attrs(*WINDOW_ATTRS["rect"], int(dots_i8), *first, *second)
 
 
-def window_sdpa_inputs(y, a, bb, keys, key_ok):
-    """The library yardstick of the ViT-H window kernels: head-major q of y
-    [N, Sq, 3C] and the k, v of `keys` [N, Sk, 3C] with the reversed-column
-    bias terms materialised as a [N, H, Sq, Sk] bf16 mask over the W x W
-    logical key positions (-inf where `key_ok` [Sk] is False)."""
+def window_sdpa_inputs(y, a, bb, keys, key_ok, dims=(SAM_C, SAM_H, SAM_HD, SAM_W)):
+    """The library yardstick of the window kernels (ViT-H's widths unless
+    `dims` = (C, H, hd, W) says otherwise): head-major q of y [N, Sq, 3C]
+    and the k, v of `keys` [N, Sk, 3C] with the reversed-column bias terms
+    materialised as a [N, H, Sq, Sk] bf16 mask over the W x W logical key
+    positions (-inf where `key_ok` [Sk] is False)."""
     import torch
     import torch.nn.functional as F
 
-    C, H, hd, W = SAM_C, SAM_H, SAM_HD, SAM_W
+    C, H, hd, W = dims
     N, Sq, _ = y.shape
     q = y[:, :, :C].reshape(N, Sq, H, hd).transpose(1, 2).contiguous()
     k, v = (keys[:, :, i * C:(i + 1) * C].reshape(N, -1, H, hd).transpose(1, 2).contiguous()
@@ -1676,19 +1696,21 @@ def window_sdpa_inputs(y, a, bb, keys, key_ok):
 def window_sdpa(q, k, v, mask):
     import torch.nn.functional as F
 
-    o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=SAM_HD**-0.5)
-    return o.transpose(1, 2).reshape(q.shape[0], q.shape[2], SAM_C)
+    N, H, Sq, hd = q.shape
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=hd**-0.5)
+    return o.transpose(1, 2).reshape(N, Sq, H * hd)
 
 
-def rect_case(gen, geoms, per, qkv_bias):
-    """`per` boundary windows of each geometry of `geoms` (ViT-H widths):
-    y, the bias terms, the encoder's own tables, the zero-padded windows
-    the tables stand for ([N, W*W, 3C]) and which logical keys are real."""
+def rect_case(gen, geoms, per, qkv_bias, dims=(SAM_C, SAM_H, SAM_HD, SAM_W)):
+    """`per` boundary windows of each geometry of `geoms` (ViT-H widths
+    unless `dims` = (C, H, hd, W) says otherwise): y, the bias terms, the
+    encoder's own tables, the zero-padded windows the tables stand for
+    ([N, W*W, 3C]) and which logical keys are real."""
     import torch
 
     from ullava_tpu_torch.models.sam import image_encoder
 
-    C, H, hd, W = SAM_C, SAM_H, SAM_HD, SAM_W
+    C, H, hd, W = dims
     F1, bf = 3 * C, torch.bfloat16
 
     def randn(*shape, scale=1.0):
@@ -3131,10 +3153,14 @@ SAM_LAUNCHES = {"fused_window_attention_grid": 28, "fused_global_attention": 4,
 # The training path's kernels launch in no serve, the all-int8 serve's
 # forms and the packed kernels in no other serve, the two uncalled kernels
 # and the chunk-pipelined MLP (whose path is the microbenchmark) in none.
+# The hd 64 forms (ViT-L's and ViT-B's heads): only the sam_predictor
+# phase reaches them.
+SAM_HD64_NAMES = ("fused_window_attention_grid_hd64", "fused_window_attention_rect_hd64",
+                  "fused_global_attention_hd64", "fused_global_attention_y_hd64")
 IDLE_IN_SERVING = {"flash_attention_fwd_lse": 0, "flash_attention_bwd_delta": 0,
                    "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0, "rms_norm_bwd": 0, **{k: 0 for k in WQ_NAMES},
                    **{k: 0 for k in I8_NAMES}, **{k: 0 for k in PACKED_NAMES + UNCALLED_NAMES},
-                   "fused_mlp_block_v2": 0}
+                   "fused_mlp_block_v2": 0, **{k: 0 for k in SAM_HD64_NAMES}}
 BF16_LAUNCHES = {"fused_rotary": 64, "flash_attention_fwd_bsh": 32, **SAM_LAUNCHES,
                  "rms_norm_fwd": 65 * (1 + NEW_TOKENS),
                  "rms_norm_residual_quant": 0, "silu_mul_quant": 0,
@@ -3189,6 +3215,7 @@ def serve_phase(phase: str, cfg, params, n_req: int, expect: dict):
     from ullava_tpu_torch.models.sam import build as sam_build
     from ullava_tpu_torch.serve import collate, serve
 
+    t_phase = time.perf_counter()
     reqs = requests(cfg, n_req, PROMPT, np.random.default_rng(0))
     gc = generate.GenerateConfig(max_new_tokens=NEW_TOKENS, temperature=0.0)
     torch.cuda.synchronize()
@@ -3251,13 +3278,17 @@ def serve_phase(phase: str, cfg, params, n_req: int, expect: dict):
                               positions=(lens + i)[:, None], kv_lens=lens + i + 1,
                               kv_cache=cache, write_pos=(lens + i).long())
 
+        t_prof = time.perf_counter()
         step_profile = profile_serve(lambda: timed(decode_steps))
+        profiling_s = time.perf_counter() - t_prof
         _, steps_s = timed(decode_steps)
         emb, sam_s = timed(lambda: ullava.get_visual_embs(params, cfg, batch["images_sam"]))
         seg = torch.zeros((n_req, 1, 256), device="cuda")
         _, dec_s = timed(lambda: sam_build.forward_masks(params["sam"], cfg.sam, emb, seg))
+    t_prof = time.perf_counter()
     profile_line = {**profile_serve(lambda: timed(lambda: serve((cfg, params), reqs, "cuda", gc))),
                     "phase": f"{phase}_profile"}
+    profiling_s += time.perf_counter() - t_prof
     busy = step_profile["device_busy_s"]
     line = {
         "phase": phase, "batch": n_req, "prompt_tokens": PROMPT, "new_tokens": NEW_TOKENS,
@@ -3271,6 +3302,9 @@ def serve_phase(phase: str, cfg, params, n_req: int, expect: dict):
                                       list(step_profile["top_device_ms"].items())[:6]},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "generated": [len(s) - PROMPT for s in seqs], "launches": launches,
+        # The phase's wall, and the part of it under or after the profiler
+        # (its two profiled runs and the processing of their events).
+        "phase_s": time.perf_counter() - t_phase, "profiling_s": profiling_s,
     }
     print(json.dumps(line), flush=True)
     print(json.dumps(profile_line), flush=True)
@@ -3713,10 +3747,13 @@ def kernels_of_a_call(fn, calls: int = 20):
 def profile_serve(run) -> dict:
     """One serve under torch.profiler: device kernel time by name and the
     device's busy share of the wall time (the profiler's own overhead
-    lengthens the wall time, so the idle share is an upper bound)."""
+    lengthens the wall time, so the idle share is an upper bound). The
+    device activity alone is recorded: the host's op events add nothing to
+    these numbers, and on an H100 host they took about 30 s to process
+    after a whole serve's profile, with the same busy time either way."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, wall_s = run()
 
     # Device-side entries only (kernels, copies): an aten op's entry
@@ -4188,17 +4225,25 @@ def _clip_specs(c):
                   (v + "post_layernorm.bias", (D,), "zeros")]
 
 
-def _sam_vit_h_meta_specs():
-    """(name, shape, init) of Meta's `sam_vit_h` state dict: every key the
-    released file has, at ViT-H widths (embed 1280, 32 blocks, 16 heads,
-    global blocks 7, 15, 23, 31; prompt and decoder width 256)."""
-    C, depth, g, hd, O = 1280, 32, 64, 80, 256
+# (embed, depth, heads, global blocks) of Meta's three SAM image encoders
+# (`build_sam.py`; the port's `models/sam/build.py`).
+SAM_SIZES = {"vit_h": (1280, 32, 16, (7, 15, 23, 31)), "vit_l": (1024, 24, 16, (5, 11, 17, 23)),
+             "vit_b": (768, 12, 12, (2, 5, 8, 11))}
+
+
+def sam_meta_specs(C, depth, heads, global_idx):
+    """(name, shape, init) of Meta's SAM state dict (`sam_vit_h_4b8939.pth`
+    and its ViT-L and ViT-B siblings): every key the released files have,
+    for an image encoder of width C, `depth` blocks of `heads` heads and
+    the global blocks `global_idx` on the 64 x 64 grid (`SAM_SIZES` gives
+    the released three); prompt and decoder width 256."""
+    g, hd, O = 64, C // heads, 256
     out = [("image_encoder.pos_embed", (1, g, g, C), "normal"),
            ("image_encoder.patch_embed.proj.weight", (C, 3, 16, 16), "normal"),
            ("image_encoder.patch_embed.proj.bias", (C,), "zeros")]
     for i in range(depth):
         b = f"image_encoder.blocks.{i}."
-        rel = 2 * (g if i in (7, 15, 23, 31) else 14) - 1
+        rel = 2 * (g if i in global_idx else 14) - 1
         out += [(b + "norm1.weight", (C,), "ones"), (b + "norm1.bias", (C,), "zeros"),
                 (b + "attn.qkv.weight", (3 * C, C), "normal"), (b + "attn.qkv.bias", (3 * C,), "zeros"),
                 (b + "attn.proj.weight", (C, C), "normal"), (b + "attn.proj.bias", (C,), "zeros"),
@@ -4325,7 +4370,8 @@ def write_inference_checkpoints(root, gen) -> dict:
     write_safetensors(os.path.join(root, "clip", "model.safetensors"), _clip_specs(clip_cfg),
                       torch.bfloat16, gen)
     sam_path = os.path.join(root, "sam_vit_h.pth")
-    torch.save({s[0]: _draw(s, torch.float32, gen) for s in _sam_vit_h_meta_specs()}, sam_path)
+    torch.save({s[0]: _draw(s, torch.float32, gen) for s in sam_meta_specs(*SAM_SIZES["vit_h"])},
+               sam_path)
     return {"llm_path": os.path.join(root, "llm"), "vision_encoder": os.path.join(root, "clip"),
             "sam_path": sam_path}
 
@@ -5308,6 +5354,486 @@ def train_clis_phase(paths, card: str, device: str = "cuda") -> dict:
     return line
 
 
+# ---------------------------------------------------------------------------
+# The sam_predictor phase: the public SAM surface (`SamPredictor`, the
+# automatic mask generator, the decoder export) at ViT-L and ViT-B widths,
+# whose 64-lane heads take the hd 64 forms of K3, K14, K4 and K11.
+# ---------------------------------------------------------------------------
+SAM_PRED_HW = (480, 640)
+SAM_PRED_POINTS_PER_SIDE = 16  # 256 points decoded in one batch
+SAM_PRED_KEEP = 32  # candidates above the generator gate's IoU threshold
+# (name, size, int8 towers): ViT-L bf16 (the JAX predictor's defaults),
+# ViT-L with int8 towers and composite bias weights (`mlp_w8a8`), ViT-B bf16.
+SAM_PRED_PATHS = (("vit_l_bf16", "vit_l", False), ("vit_l_int8", "vit_l", True),
+                  ("vit_b_bf16", "vit_b", False))
+# The prompts of each path's `predict` calls, in the 480 x 640 image's pixels.
+SAM_PRED_PROMPTS = {
+    "one_point": dict(point_coords=[[320.0, 240.0]], point_labels=[1]),
+    "two_points_and_box": dict(point_coords=[[300.0, 200.0], [120.0, 90.0]],
+                               point_labels=[1, 0], box=[80.0, 60.0, 500.0, 400.0]),
+    "box_single": dict(box=[200.0, 100.0, 600.0, 450.0], multimask_output=False),
+}
+
+
+def sam_predictor_launches(depth: int, n_global: int, int8: bool) -> dict:
+    """Every kernel's launches in one B=1 encode of a 64 x 64 grid in the
+    resident layout (16 full windows, 4 right, 4 bottom, 1 corner). bf16:
+    a window block launches K3 on the full class and K14 on each other
+    class, a global block K4. int8 towers with composite bias weights: a
+    window block takes K13 and K10's proj form on the full class, the
+    merged edge pair and the corner, K3 on the full windows stored as 200
+    rows and K14 on the pair and the corner; a global block K10 twice (LN1
+    + qkv, proj), K11 and K12 (4096 rows; no window class reaches the
+    fused MLP's 512-row gate at B=1: 3200, 896 and 64 rows)."""
+    from ullava_tpu_torch import kernels
+
+    nw = depth - n_global
+    if int8:
+        own = {"fused_ln_linear_dual": 3 * nw, "fused_window_attention_grid_hd64": nw,
+               "fused_window_attention_rect_hd64": 2 * nw, "fused_ln_linear": 3 * nw + 2 * n_global,
+               "fused_global_attention_y_hd64": n_global, "fused_mlp_block": n_global}
+    else:
+        own = {"fused_window_attention_grid_hd64": nw, "fused_window_attention_rect_hd64": 3 * nw,
+               "fused_global_attention_hd64": n_global}
+    return {k: own.get(k, 0) for k in kernels.KERNELS}
+
+
+def sam_hd64_kernel_gates(gen, results: dict) -> dict:
+    """The hd 64 forms against their plain versions at the shapes of one
+    ViT-L and one ViT-B image (B=1), each by `row_rel_err` within 1e-2
+    (the bf16-exponential K11 2e-2) and failing under each mutant copy of
+    its source: K3 on 16 full windows of 196 rows (bf16) and of 200 rows
+    (int8 towers: the pad rows finite), K14 on the right, bottom and corner
+    classes one at a time (bf16) and on the merged edge pair and the corner
+    (int8 towers), K4 on the 16 or 12 (image, head) pairs with fp32
+    exponentials, K11 on ViT-L's 16 heads with bf16 ones; and, at ViT-L's
+    widths (C 1024, F 4096), the W8A8 K13 on the full class (rows2 196),
+    the pair and the corner, K10's proj form on the same rows and its LN1 +
+    qkv form and K12 on a global block's 4096 rows. Adds the four hd 64
+    forms' lines (timed at ViT-L bf16's shapes; K11 at the int8 path's) to
+    `results`; returns the gate readings."""
+    import torch
+    import torch.nn.functional as F
+
+    from ullava_tpu_torch import kernels
+    from ullava_tpu_torch.ops import mlp_kernel, quant, sam_attention
+
+    dev, bf, eps, W, G = "cuda", torch.bfloat16, 1e-6, 14, 64
+    tol, hd = 1e-2, 64
+    sc = hd**-0.5
+    out = {"tol": tol}
+    gate = _kernel_gate(out, tol)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(bf)
+
+    quad = {"quad_max_dropped": QUAD_MAX_MUTANTS["sam_window_attention.cu"]}
+    rect_bugs = {"pad_out_of_sum": RECT_PAD_MUTANT,
+                 "quad_max_dropped": QUAD_MAX_MUTANTS["sam_rect_attention.cu"]}
+    for size, H in (("vit_l", 16), ("vit_b", 12)):
+        C = H * hd
+        kw = dict(num_heads=H, head_dim=hd, window=W, scale=sc)
+        for rows in ((196, 200) if size == "vit_l" else (196,)):
+            y = randn(16, rows, 3 * C)
+            a, bb = (randn(16, rows, H * W, scale=2.0 / sc) for _ in range(2))
+            a[:, 196:], bb[:, 196:] = 0, 0
+            run = lambda y=y, a=a, bb=bb, r=rows: sam_attention.fused_window_attention_grid(  # noqa: E731
+                y, a, bb, **kw, total_rows=0 if r == 196 else r)
+            ref = sam_attention.fused_window_attention_grid_plain(y, a, bb, H, hd, W, sc)
+            gate(f"{size} fused_window_attention_grid_hd64 16 x {rows}",
+                 lambda run=run: run()[:, :196], ref[:, :196], quad)
+            must(f"{size} K3 hd64 pad rows finite", bool(torch.isfinite(run()).all()), rows)
+            if size == "vit_l" and rows == 196:
+                lib = window_sdpa_inputs(y, a, bb, y, torch.ones(196, dtype=torch.bool, device=dev),
+                                         (C, H, hd, W))
+                got = run()
+                line = kernel_line(
+                    "fused_window_attention_grid_hd64", (got.float() - ref.float()).abs().max().item(),
+                    {"row_rel_err":
+                     out[f"{size} fused_window_attention_grid_hd64 16 x {rows}"]["row_rel_err"],
+                     "tol": tol}, run,
+                    lambda: sam_attention.fused_window_attention_grid_plain(y, a, bb, H, hd, W, sc),
+                    lambda l=lib: window_sdpa(*l), nbytes(y, a, bb, got), 4.0 * 16 * H * 196 * 196 * hd)
+                line.update(shape=[16, 196, 3 * C], kernel=kernels.kernel_attrs(
+                    "sam_window_attention.cu", "ullava_window_attention_grid_hd64_attrs", 0))
+                results["fused_window_attention_grid_hd64"] = line
+                del lib, got
+            del y, a, bb, ref
+        qkv_bias = randn(3 * C, scale=0.5)
+        rect_forms = ((("right", [(14, 8)], 4), ("bottom", [(8, 14)], 4), ("corner", [(8, 8)], 1))
+                      + ((("edge_pair", [(14, 8), (8, 14)], 4),) if size == "vit_l" else ()))
+        for form, geoms, per in rect_forms:
+            y, a, bb, tables, padded, is_real = rect_case(gen, geoms, per, qkv_bias, (C, H, hd, W))
+            geometry = tuple(geoms) if len(geoms) == 2 else geoms[0]
+            run = lambda y=y, a=a, bb=bb, t=tables, g_=geometry: (  # noqa: E731
+                sam_attention.fused_window_attention_rect(y, a, bb, *t, **kw, geometry=g_))
+            ref = sam_attention.fused_window_attention_rect_plain(y, a, bb, *tables, H, hd, W, sc)
+            name = f"{size} fused_window_attention_rect_hd64 {form}"
+            gate(name, run, ref, rect_bugs)
+            if size == "vit_l" and form in ("right", "corner"):
+                lib = window_sdpa_inputs(y, a, bb, padded, torch.ones(W * W, dtype=torch.bool,
+                                                                      device=dev), (C, H, hd, W))
+                got = run()
+                N, T = y.shape[:2]
+                line = kernel_line(
+                    "fused_window_attention_rect_hd64", (got.float() - ref.float()).abs().max().item(),
+                    {"row_rel_err": out[name]["row_rel_err"], "tol": tol}, run,
+                    lambda y=y, a=a, bb=bb, t=tables: sam_attention.fused_window_attention_rect_plain(
+                        y, a, bb, *t, H, hd, W, sc),
+                    lambda l=lib: window_sdpa(*l), nbytes(y, a, bb, *tables, got),
+                    4.0 * N * H * T * W * W * hd)
+                line.update(shape=[N, T, 3 * C], kernel=kernels.kernel_attrs(
+                    "sam_rect_attention.cu", "ullava_window_attention_rect_hd64_attrs",
+                    *geoms[0], *geoms[-1]))
+                if form == "right":
+                    results["fused_window_attention_rect_hd64"] = line
+                else:
+                    results["fused_window_attention_rect_hd64"]["corner_form"] = {
+                        k: v for k, v in line.items() if k not in ("name", "route", "source", "replaces")}
+                del lib, got
+            del y, a, bb, tables, padded, ref
+
+        # K4 on the global block's H (image, head) pairs, fp32 exponentials.
+        S = G * G
+        q, k, v = (randn(H, S, hd) for _ in range(3))
+        rel_h, rel_w = (randn(2 * G - 1, hd, scale=0.25) for _ in range(2))
+        a, bb = (t.reshape(H, S, G).to(bf) for t in sam_attention.decomposed_bias_terms(
+            q.reshape(1, H, G, G, hd), rel_h, rel_w, G))
+        run = lambda: sam_attention.fused_global_attention(q, k, v, a, bb, G, sc)  # noqa: E731
+        ref = sam_attention.fused_global_attention_plain(q, k, v, a, bb, G, sc)
+        gate(f"{size} fused_global_attention_hd64 {H} x 4096", run, ref, K4_MUTANTS)
+        if size == "vit_l":
+            gmask = (a.float()[:, :, :, None] + bb.float()[:, :, None, :]).reshape(H, S, S).to(bf)
+            got = run()
+            flops = 4.0 * H * S * S * hd
+            line = kernel_line(
+                "fused_global_attention_hd64", (got.float() - ref.float()).abs().max().item(),
+                {"row_rel_err": out[f"{size} fused_global_attention_hd64 {H} x 4096"]["row_rel_err"],
+                 "tol": tol},
+                run, lambda: sam_attention.fused_global_attention_plain(q, k, v, a, bb, G, sc),
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=gmask, scale=sc),
+                nbytes(q, k, v, a, bb, got), flops, iters=10)
+            line.update(shape=[H, S, hd], tflops=flops / line["ms"] / 1e9,
+                        kernel=kernels.kernel_attrs("sam_global_attention.cu",
+                                                    "ullava_fused_global_attention_hd64_attrs", 0))
+            results["fused_global_attention_hd64"] = line
+            del gmask, got
+        del q, k, v, a, bb, ref
+        torch.cuda.empty_cache()
+
+    # K11 on ViT-L's 16 heads with bf16 exponentials (the int8 towers' form).
+    H, C, S = 16, 1024, G * G
+    y = randn(1, S, 3 * C)
+    a, bb = (randn(1, S, H, G, scale=2.0 / sc) for _ in range(2))
+    kw = dict(num_heads=H, head_dim=hd, window=G, scale=sc, exp_bf16=True)
+    run = lambda: sam_attention.fused_global_attention_y(y, a, bb, head_group=16, **kw)  # noqa: E731
+    ref = sam_attention.fused_global_attention_y_plain(y, a, bb, **kw)
+    out_y = {}
+    _kernel_gate(out_y, 2e-2)("vit_l fused_global_attention_y_hd64 1 x 4096 exp_bf16", run, ref,
+                              GLOBAL_Y_MUTANTS)
+    out.update(out_y)
+    y5, mask = global_sdpa_inputs(y, a, bb)
+    got = run()
+    flops = 4.0 * H * S * S * hd
+    line = kernel_line(
+        "fused_global_attention_y_hd64", (got.float() - ref.float()).abs().max().item(),
+        {"row_rel_err": out_y["vit_l fused_global_attention_y_hd64 1 x 4096 exp_bf16"]["row_rel_err"],
+         "tol": 2e-2}, run,
+        lambda: sam_attention.fused_global_attention_y_plain(y, a, bb, **kw),
+        lambda: F.scaled_dot_product_attention(y5[0], y5[1], y5[2], attn_mask=mask, scale=sc),
+        nbytes(y, a, bb, got), flops, iters=10)
+    line.update(shape=[1, S, 3 * C], tflops=flops / line["ms"] / 1e9,
+                kernel=kernels.kernel_attrs("sam_global_attention_y.cu",
+                                            "ullava_fused_global_attention_y_hd64_attrs", 1))
+    results["fused_global_attention_y_hd64"] = line
+    del y, a, bb, ref, y5, mask, got
+    torch.cuda.empty_cache()
+
+    # K10, K12 and K13 (W8A8) at ViT-L's widths.
+    C, F_, F2 = 1024, 4096, 2 * 16 * (2 * W - 1)
+
+    def weight(K, N):
+        leaf = quant.quantize_int8(torch.randn((K, N), generator=gen, device=dev) * 0.05)
+        return leaf["q"], leaf["scale"]
+
+    g_, b_ = randn(C, scale=0.1, shift=1.0), randn(C, scale=0.1)
+    wq, ws = weight(C, 3 * C)
+    w2, s2 = weight(C, F2)
+    bias, bias2 = randn(3 * C, scale=0.5), torch.randn(F2, generator=gen, device=dev) * 0.5
+    for cls, N, T, rows2 in (("full", 16, 200, 196), ("edge_pair", 8, 112, 112), ("corner", 1, 64, 64)):
+        x = randn(N, T, C, scale=2.0, shift=0.3)
+        args = (x, g_, b_, wq, ws, bias, w2, s2, bias2, eps)
+        ry, rp = mlp_kernel._ln_linear_dual_parts_plain(*args, True, rows2)[:2]
+        run = lambda a_=args, r2=0 if rows2 == T else rows2: (  # noqa: E731
+            mlp_kernel.fused_ln_linear_dual(*a_, w8a8=True, rows2=r2))
+        gate(f"fused_ln_linear_dual y {cls} {N} x {T}", lambda run=run: run()[0], ry, {})
+        gate(f"fused_ln_linear_dual bias terms {cls} {N} x {T}", lambda run=run: run()[1], rp,
+             K13_MUTANTS)
+    wp, sp = weight(C, C)
+    bp = randn(C, scale=0.5)
+    for rows in (3200, 896, 64, 4096):
+        x, res = randn(rows, C, scale=2.0, shift=0.3), randn(rows, C)
+        gate(f"fused_linear proj {rows}",
+             lambda x=x, r=res: mlp_kernel.fused_linear(x, wp, sp, bp, residual=r, w8a8=True),
+             mlp_kernel._ln_linear_parts_plain(x, None, None, wp, sp, bp, 0.0, True, res)[0],
+             K10_MUTANTS)
+    x = randn(4096, C, scale=2.0, shift=0.3)
+    gate("fused_ln_linear ln_qkv 4096",
+         lambda: mlp_kernel.fused_ln_linear(x, g_, b_, wq, ws, bias, eps, w8a8=True),
+         mlp_kernel._ln_linear_parts_plain(x, g_, b_, wq, ws, bias, eps, True, None)[0], {})
+    (w1, s1), (w2, s2) = weight(C, F_), weight(F_, C)
+    b1, b2 = randn(F_, scale=0.5), randn(C, scale=0.5)
+    args = (x, g_, b_, w1, s1, b1, w2, s2, b2, eps)
+    gate("fused_mlp_block 4096", lambda: mlp_kernel.fused_mlp_block(*args, w8a8=True),
+         mlp_kernel._mlp_block_parts_plain(*args, mlp_kernel.default_f_chunk(F_), True)[0],
+         K12_MUTANTS)
+    del x, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def write_sam_checkpoint(root, size: str, gen) -> str:
+    """Meta's `sam_<size>` state dict at full width (`sam_meta_specs`,
+    `SAM_SIZES`), drawn on the card (`_draw`), saved as an fp32 `.pth`."""
+    import os
+
+    import torch
+
+    path = os.path.join(root, f"sam_{size}.pth")
+    torch.save({s[0]: _draw(s, torch.float32, gen) for s in sam_meta_specs(*SAM_SIZES[size])},
+               path)
+    return path
+
+
+def _iou_threshold(iou, keep: int) -> tuple:
+    """A threshold halfway in the widest gap of the sorted IoU predictions
+    between ranks keep / 2 and 2 keep, so that the card's and the CPU's
+    fp32 sums land on the same side of it: (threshold, gap)."""
+    s = sorted(iou, reverse=True)
+    lo, hi = max(1, keep // 2), min(len(s) - 1, 2 * keep)
+    i = max(range(lo, hi), key=lambda j: s[j - 1] - s[j])
+    return (s[i - 1] + s[i]) / 2, s[i - 1] - s[i]
+
+
+def sam_predictor_phase(gen, card: str, root: str) -> dict:
+    """The SAM public surface at full width on the card (`SAM_PRED_PATHS`):
+    Meta-named ViT-L and ViT-B checkpoints written to `root` from `gen`,
+    converted on the card; for each path `SamPredictor.set_image` on one
+    480 x 640 uint8 image with exact launch counts (`sam_predictor_launches`,
+    counts zeroed just before) and the embedding held within 5e-2 by
+    `row_rel_err` to the port's plain path on the card (the wrappers swapped
+    for their plain versions, no kernel launched), then `predict` with each
+    of `SAM_PRED_PROMPTS`, its IoU predictions and low-res logits held to the
+    same prompt encoding, decoding and host post-processing on the CPU from
+    the same embedding (1e-3 of the largest logit, IoU 1e-3 absolute; the
+    masks' pixel agreement recorded), `SamAutomaticMaskGenerator.generate`
+    at 16 points a side (256 points decoded in one batch) and, for the two
+    checkpoints' bf16 paths (the int8 path shares ViT-L's prompt encoder
+    and decoder), the generator's kept set equal to the CPU's from the same
+    embedding at an IoU threshold placed in a gap of the candidates' scores
+    (their areas and RLEs recorded), and the decoder exported with
+    `export_sam_decoder`, loaded and run with a mask input and
+    `has_mask_input` 1 and 0 (within 1e-5 of the largest logit of
+    `make_decoder_fn` on the same inputs). Each step's time goes out on a
+    line of its own; then `sam_hd64_kernel_gates`."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from ullava_tpu_torch import kernels
+    from ullava_tpu_torch.data.tools import rle as rle_codec
+    from ullava_tpu_torch.microbench import stage2_grads
+    from ullava_tpu_torch.models import weights
+    from ullava_tpu_torch.models.sam import automatic, build, export, image_encoder, predictor
+    from ullava_tpu_torch.models.sam.convert import convert_sam
+    from ullava_tpu_torch.ops import quant
+
+    t_phase = time.perf_counter()
+    tol, dec_tol, exp_tol = 5e-2, 1e-3, 1e-5
+    image = np.random.default_rng(24).integers(0, 256, (*SAM_PRED_HW, 3), dtype=np.uint8)
+
+    def step(path, name, seconds, **kw):
+        print(json.dumps({"phase": "sam_predictor_step", "path": path, "step": name, "s": seconds,
+                          **kw, "card": card}), flush=True)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    files, converted, write_s, convert_s = {}, {}, {}, {}
+    for size in ("vit_l", "vit_b"):
+        files[size], write_s[size] = timed(lambda s_=size: write_sam_checkpoint(root, s_, gen))
+        sd = weights.load_state_dict(files[size])
+        converted[size], convert_s[size] = timed(lambda s_=size, sd=sd: convert_sam(
+            sd, getattr(build, f"sam_{s_}")(torch.bfloat16), device="cuda"))
+        del sd
+        step(size, "write_checkpoint", write_s[size])
+        step(size, "convert", convert_s[size])
+
+    paths, launches_total = {}, {k: 0 for k in kernels.KERNELS}
+    for path, size, int8 in SAM_PRED_PATHS:
+        cfg = getattr(build, f"sam_{size}")(torch.bfloat16)
+        params = dict(converted[size])
+        if int8:
+            enc = quant.quantize_tree(params["image_encoder"], ("qkv", "proj", "fc1", "fc2"))
+            params["image_encoder"] = image_encoder.precompute_window_bias_weights(enc, cfg.vision)
+            cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, mlp_w8a8=True))
+        v = cfg.vision
+        pred = predictor.SamPredictor(params, cfg, device="cuda")
+        pred.set_image(image)  # first call: host buffers, the kernels' attributes
+        kernels.reset_launch_counts()
+        _, set_s = timed(lambda: pred.set_image(image))
+        launches = kernels.launch_counts()
+        expect = sam_predictor_launches(v.depth, v.num_groups, int8)
+        must(f"{path} launches", launches == expect,
+             {k: (launches[k], expect[k]) for k in launches if launches[k] != expect[k]})
+        for k_, n in launches.items():
+            launches_total[k_] += n
+        step(path, "set_image", set_s)
+        emb = pred._embedding
+        pre = torch.as_tensor(pred.seg_tool.preprocess(pred.seg_tool.apply_image(image))[None],
+                              device="cuda")
+        with stage2_grads.plain_on_card("all"):
+            before = kernels.launch_counts()
+            plain = image_encoder.encode(params["image_encoder"], v, pre)
+            torch.cuda.synchronize()
+            ran = {k_: n - before[k_] for k_, n in kernels.launch_counts().items() if n != before[k_]}
+        must(f"{path} plain witness launched nothing", not ran, ran)
+        enc_err = row_rel_err(emb, plain)
+        must(f"{path} encoder against the plain path", enc_err <= tol, enc_err)
+        del plain, pre
+
+        # Prompt encoding, decoding and host post-processing: card and CPU
+        # from the same embedding.
+        cpu_params = {k_: stage2_grads.cpu_copy(params[k_])
+                      for k_ in ("prompt_encoder", "mask_decoder")}
+        cpu = predictor.SamPredictor(cpu_params, cfg, device="cpu")
+        cpu._embedding, cpu.original_size, cpu.input_size = (
+            emb.cpu(), pred.original_size, pred.input_size)
+        pred.predict(**SAM_PRED_PROMPTS["one_point"])  # first call
+        predicts = {}
+        for name, prompt in SAM_PRED_PROMPTS.items():
+            kw = {k_: (np.asarray(v_) if isinstance(v_, list) else v_) for k_, v_ in prompt.items()}
+            (m, i, lo), pred_s = timed(lambda kw=kw: pred.predict(**kw))
+            cm, ci, clo = cpu.predict(**kw)
+            logit_err = float(np.abs(lo - clo).max() / max(np.abs(clo).max(), 1e-30))
+            iou_err = float(np.abs(i - ci).max())
+            agree = float((m == cm).mean())
+            must(f"{path} predict {name}", logit_err <= dec_tol and iou_err <= dec_tol,
+                 (logit_err, iou_err))
+            must(f"{path} predict {name} shapes", m.shape == (len(i), *SAM_PRED_HW), m.shape)
+            predicts[name] = {"s": pred_s, "masks": len(i), "low_res_rel_err": logit_err,
+                              "iou_abs_err": iou_err, "mask_pixel_agreement": agree,
+                              "iou": i.tolist()}
+            step(path, f"predict {name}", pred_s, masks=len(i))
+        one_point_low = torch.as_tensor(pred.predict(**{
+            k_: np.asarray(v_) for k_, v_ in SAM_PRED_PROMPTS["one_point"].items()})[2][:1])
+
+        # The automatic generator: one batch of 256 points; its kept set
+        # against the CPU's from the same embedding.
+        gkw = dict(points_per_side=SAM_PRED_POINTS_PER_SIDE, stability_score_thresh=-1.0)
+        probe = automatic.SamAutomaticMaskGenerator(params, cfg, device="cuda", **gkw)
+        pts = probe.grid * np.array([pred.input_size[1], pred.input_size[0]])
+        _, ious = probe._decode_all(emb, torch.as_tensor(pts, dtype=torch.float32, device="cuda"),
+                                    torch.ones(len(pts), dtype=torch.int32, device="cuda"))
+        thresh, gap = _iou_threshold(ious.float().flatten().tolist(), SAM_PRED_KEEP)
+        # The card's and the CPU's fp32 IoU predictions agree within 1e-5.
+        must(f"{path} generator threshold gap", gap > 1e-4, gap)
+        gen_card = automatic.SamAutomaticMaskGenerator(params, cfg, device="cuda",
+                                                       pred_iou_thresh=thresh, **gkw)
+        gen_card.generate(image)  # first call
+        records, gen_s = timed(lambda: gen_card.generate(image))
+        step(path, "generate", gen_s, kept=len(records), points=len(pts))
+        paths[path] = {
+            "size": size, "int8_towers": int8, "set_image_s": set_s, "encoder_row_rel_err": enc_err,
+            "encoder_tol": tol, "launches": {k_: n for k_, n in launches.items() if n},
+            "predict": predicts, "decode_tol": dec_tol,
+            "generate": {"s": gen_s, "points": len(pts), "kept": len(records),
+                         "iou_thresh": thresh, "iou_gap": gap}}
+        if int8:
+            # The int8 towers change the encoder only: the prompt encoder and
+            # the decoder are the bf16 path's, held to the CPU and exported there.
+            del pred, cpu, probe, gen_card, params, emb
+            torch.cuda.empty_cache()
+            continue
+        args = (emb, pred.input_size, pred.original_size)
+        card_kept = gen_card._generate_from(*args)
+        gen_cpu = automatic.SamAutomaticMaskGenerator(cpu_params, cfg, device="cpu",
+                                                      pred_iou_thresh=thresh, **gkw)
+        cpu_kept, cpu_gen_s = timed(lambda: gen_cpu._generate_from(emb.cpu(), *args[1:]))
+        # The kept set: the same candidates (their points, in NMS order) on
+        # both sides. A mask's pixels at its edge may differ (logits within
+        # fp32 noise of 0), so areas and RLEs are recorded, not gated.
+        card_pts = [r["point_coords"] for r in card_kept]
+        cpu_pts = [r["point_coords"] for r in cpu_kept]
+        must(f"{path} generate kept set", card_pts == cpu_pts and len(card_kept) > 0,
+             {"card": card_pts, "cpu": cpu_pts})
+        must(f"{path} generate from the same image",
+             [r["point_coords"] for r in records] == card_pts, len(records))
+        iou_gen_err = max(abs(a["predicted_iou"] - b["predicted_iou"])
+                          for a, b in zip(card_kept, cpu_kept))
+        must(f"{path} generate predicted IoU", iou_gen_err <= dec_tol, iou_gen_err)
+        rle_equal = sum(a["segmentation"] == b["segmentation"]
+                        for a, b in zip(card_kept, cpu_kept)) / len(card_kept)
+        agree = min(float((rle_codec.decode(a["segmentation"]) == rle_codec.decode(
+            b["segmentation"])).mean()) for a, b in zip(card_kept, cpu_kept))
+        area_rel = max(abs(a["area"] - b["area"]) / max(b["area"], 1)
+                       for a, b in zip(card_kept, cpu_kept))
+
+        # The decoder export: two points, a mask input, has_mask 1 and 0.
+        dec = {k_: params[k_] for k_ in ("prompt_encoder", "mask_decoder")}
+        blob, export_s = timed(lambda: export.export_sam_decoder(dec, cfg, num_points=2))
+        fn, load_s = timed(lambda: export.load_sam_decoder(blob))
+        direct = export.make_decoder_fn(dec, cfg)
+        g = cfg.prompt.image_embedding_size
+        coords = torch.as_tensor(pred._scale_coords(np.asarray(
+            SAM_PRED_PROMPTS["two_points_and_box"]["point_coords"]))[None], device="cuda")
+        labels = torch.tensor([[1, 0]], dtype=torch.int32, device="cuda")
+        mask_in = one_point_low.reshape(1, 4 * g, 4 * g, 1).to("cuda")
+        exported = {}
+        for has in (1.0, 0.0):
+            ins = (emb.float(), coords, labels, mask_in, torch.full((1,), has, device="cuda"))
+            (em, ei, el), call_s = timed(lambda ins=ins: fn(*ins))
+            dm, di, dl = direct(*ins)
+            err = ((el - dl).abs().max() / dl.abs().max()).item()
+            must(f"{path} export has_mask={has:g}", err <= exp_tol and em.shape == dm.shape
+                 and (ei - di).abs().max().item() <= exp_tol, err)
+            exported[f"has_mask_{has:g}"] = {"low_res_rel_err": err, "call_s": call_s,
+                                             "iou": ei.flatten().tolist(),
+                                             "masks_shape": list(em.shape)}
+        must(f"{path} export mask input counts",
+             exported["has_mask_1"]["iou"] != exported["has_mask_0"]["iou"], exported)
+        step(path, "export", export_s, bytes=len(blob), load_s=load_s)
+
+        paths[path]["generate"].update(
+            cpu_s=cpu_gen_s, rle_equal_share=rle_equal, min_mask_pixel_agreement=agree,
+            max_area_rel_diff=area_rel, predicted_iou_abs_err=iou_gen_err)
+        paths[path]["export"] = {"s": export_s, "load_s": load_s, "bytes": len(blob),
+                                 "tol": exp_tol, **exported}
+        del pred, cpu, probe, gen_card, gen_cpu, fn, direct, params, emb
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    results: dict = {}
+    gates = sam_hd64_kernel_gates(gen, results)
+    gates_s = time.perf_counter() - t0
+    for name in SAM_HD64_NAMES:
+        step("kernels", name, results[name]["ms"] / 1e3, ms=results[name]["ms"],
+             bound_ms=results[name]["bound_ms"], library_ms=results[name]["library_ms"])
+    line = {"phase": "sam_predictor", "card": card, "seconds": time.perf_counter() - t_phase,
+            "image": list(SAM_PRED_HW), "write_s": write_s, "convert_s": convert_s,
+            "file_gb": {k: os.path.getsize(f) / 1e9 for k, f in files.items()},
+            "paths": paths, "kernel_gates_s": gates_s, "kernel_gates": gates,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches_total, "kernel_lines": results}
+    print(json.dumps({k: v for k, v in line.items() if k != "kernel_lines"}), flush=True)
+    return line
+
+
 def check_draws(seeds) -> int:
     """The training checks (`check_stage1`, `check_stage2`) on other draws:
     each seed's own generator in place of the run's shared one. Prints
@@ -5357,6 +5883,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    timeline, t_mark = {}, [time.perf_counter()]
+
+    def mark(name):  # the wall seconds of each phase, for the timeline line
+        now = time.perf_counter()
+        timeline[name] = now - t_mark[0]
+        t_mark[0] = now
+
     t0 = time.perf_counter()
     built = kernels.build_all(verbose=True, mutants=[
         *TRAIN_MUTANTS.values(), K15_MASK_MUTANT, *WQ_MUTANTS.values(), *I8_MUTANTS.values(),
@@ -5369,6 +5902,7 @@ def main() -> int:
         *K18_MUTANTS.values()])
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "sources": sorted(built)}), flush=True)
+    mark("build")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16_results = kernel_phases(gen)
@@ -5385,6 +5919,7 @@ def main() -> int:
     weight_only_kernel_phases(gen, results)
     all_int8_kernel_phases(gen, results)
     packed_kernel_phases(gen, results)
+    mark("kernels")
 
     from ullava_tpu_torch.models import ullava
     from ullava_tpu_torch.models.sam import image_encoder
@@ -5465,6 +6000,7 @@ def main() -> int:
     all_int8_line["clip_knobs_s"] = clip_knob_split(cfg_i8, params)
     del params
     torch.cuda.empty_cache()
+    mark("serves")
 
     # The training path, on fresh stage-1 weights once the serving model
     # is freed.
@@ -5472,6 +6008,7 @@ def main() -> int:
     # Stage 2 on fresh weights, then the weight-only encode with composite
     # bias weights on its encoder.
     stage2_line, wq_encode_line = stage2_train_phase(gen)
+    mark("training")
     smi = card_name_and_power_limit()
     # The inference entry point from checkpoint files, on its own generator
     # so that the check phase draws what it drew before it existed; then
@@ -5481,9 +6018,21 @@ def main() -> int:
     try:
         inference_line = inference_phase(torch.Generator(device="cuda").manual_seed(22), smi,
                                          ckpt_root)
+        mark("inference")
         train_clis_line = train_clis_phase(inference_line["checkpoint_paths"], smi)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
+    mark("train_clis")
+    # The SAM public surface at ViT-L and ViT-B (the hd 64 kernel forms),
+    # on its own generator so that the check phase draws as before.
+    sam_root = tempfile.mkdtemp(prefix="ullava_sam_")
+    try:
+        sam_pred_line = sam_predictor_phase(torch.Generator(device="cuda").manual_seed(24), smi,
+                                            sam_root)
+    finally:
+        shutil.rmtree(sam_root, ignore_errors=True)
+    results.update(sam_pred_line.pop("kernel_lines"))
+    mark("sam_predictor")
 
     # Each kernel's count on the main path that it was written for: the
     # bf16 serve for the bf16 path's four, the int8 serve for the int8
@@ -5494,9 +6043,11 @@ def main() -> int:
     # the all-int8 serve for its four forms, the packed serve for the two
     # packed kernels, the MLP microbenchmark for the chunk-pipelined MLP;
     # the two kernels that no path calls report the bf16 serve's count, 0,
-    # as they do every serve's.
+    # as they do every serve's; the hd 64 forms the sam_predictor phase's
+    # three encodes.
     for name, r in results.items():
         own = (mlp_microbench if name == "fused_mlp_block_v2" else
+               sam_pred_line if name in SAM_HD64_NAMES else
                serve_line if name in bf16_results or name in UNCALLED_NAMES else
                packed_line if name in PACKED_NAMES else
                int8_line if name in int8_results else
@@ -5520,11 +6071,13 @@ def main() -> int:
         r["launches_mlp_microbench"] = mlp_microbench["launches"][name]
         r["launches_inference"] = inference_line["launches"][name]
         r["launches_train_clis"] = train_clis_line["launches"][name]
+        r["launches_sam_predictor"] = sam_pred_line["launches"][name]
     for r in results.values():
         print(json.dumps({"phase": "kernel", **{k: v for k, v in r.items()
                                                 if k not in ("route", "source", "replaces")}}),
               flush=True)
     check_phase(gen)
+    mark("check")
     # The serve and profile numbers again, short, next to the result.
     for line, prof in ((serve_line, profile_line), (packed_line, packed_profile),
                        (int8_line, int8_profile),
@@ -5541,11 +6094,13 @@ def main() -> int:
                           "watched_device_ms_calls": prof["watched_device_ms_calls"],
                           "top_device_ms_calls": [[name[:60], ms, prof["top_device_calls"][name]]
                                                   for name, ms in top]}), flush=True)
-    for line in (train_line, stage2_line, wq_encode_line, inference_line, train_clis_line):
+    for line in (train_line, stage2_line, wq_encode_line, inference_line, train_clis_line,
+                 sam_pred_line):
         print(json.dumps({**{k: v for k, v in line.items()
                              if k not in ("launches", "top_device_calls", "sampling", "boxes",
-                                          "kernel_gates", "checkpoint_paths", "losses")},
+                                          "kernel_gates", "checkpoint_paths", "losses", "paths")},
                           "phase": line["phase"] + "_summary"}), flush=True)
+    print(json.dumps({"phase": "timeline", "seconds": timeline}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

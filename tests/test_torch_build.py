@@ -40,18 +40,11 @@ def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-# The port's prompt encoder takes text prompts only: of the JAX encoder's
-# leaves it has these two (the point, box and mask prompts wait).
-PROMPT_LEAVES = ("pe_gaussian", "no_mask")
 
 
 def port_tree(jax_params):
-    """`bridge` of a JAX stage-2 (or stage-1) tree, in the port's leaves."""
-    tree = params_from_jax(_np(jax_params), device="cpu")
-    if "sam" in tree:
-        pe = tree["sam"]["prompt_encoder"]
-        tree["sam"]["prompt_encoder"] = {k: pe[k] for k in PROMPT_LEAVES}
-    return tree
+    """`bridge` of a JAX stage-2 (or stage-1) tree: every leaf."""
+    return params_from_jax(_np(jax_params), device="cpu")
 
 
 def _name(v):
@@ -63,18 +56,10 @@ def _name(v):
         return v
 
 
-# JAX config fields of features the port has not taken yet (SAM without
-# rel-pos, the mask-prompt encoder): Queue 1 item 7.
-NOT_PORTED = {"use_rel_pos", "mask_in_chans", "layer_norm_eps"}
-
-
 def assert_configs_equal(got, ref, path="cfg"):
-    """Every field the JAX config has, the port's has with the same value,
-    but the fields of features it has not taken yet."""
+    """Every field the JAX config has, the port's has with the same value."""
     for f in dataclasses.fields(ref):
-        if not hasattr(got, f.name):
-            assert f.name in NOT_PORTED, f"{path}.{f.name}"
-            continue
+        assert hasattr(got, f.name), f"{path}.{f.name}"
         r, g = getattr(ref, f.name), getattr(got, f.name)
         if dataclasses.is_dataclass(r):
             assert_configs_equal(g, r, f"{path}.{f.name}")

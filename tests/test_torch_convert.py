@@ -161,12 +161,9 @@ def test_convert_sam_exact(hf_sam_state_dict, naming, tmp_path):
     ref = params_from_jax(_np(jconvert.convert_sam(sd_np, JSamConfig.tiny(), jnp.float32)),
                           device="cpu")
     got = convert.convert_sam(sd, sam_build.SamConfig.tiny(), torch.float32, device="cpu")
-    # The port's prompt encoder keeps its text-prompt leaves only.
-    assert set(ref["prompt_encoder"]) - set(got["prompt_encoder"]) == {
-        "point_embeddings", "not_a_point", "mask_conv1", "mask_conv1_bias", "mask_ln1_scale",
-        "mask_ln1_bias", "mask_conv2", "mask_conv2_bias", "mask_ln2_scale", "mask_ln2_bias",
-        "mask_conv3", "mask_conv3_bias"}
-    ref["prompt_encoder"] = {k: ref["prompt_encoder"][k] for k in got["prompt_encoder"]}
+    # Every prompt-encoder leaf, the point, box and mask prompts' too.
+    assert {"point_embeddings", "not_a_point", "mask_conv1", "mask_conv3_bias"} <= set(
+        got["prompt_encoder"])
     _assert_tree_equal(got, ref)
     # Every leaf of the port's SAM is read from the checkpoint.
     init = sam_build.init_sam_params(sam_build.SamConfig.tiny(), device="cpu")

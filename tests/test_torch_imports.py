@@ -38,7 +38,7 @@ if not torch.cuda.is_available():
     from ullava_tpu_torch.microbench import mlp_variants
     from ullava_tpu_torch.models import build
     from ullava_tpu_torch.models import llama, ullava, ullava_core
-    from ullava_tpu_torch.models.sam import image_encoder
+    from ullava_tpu_torch.models.sam import automatic, build as sam_build, image_encoder, predictor
     from ullava_tpu_torch.serve import serve
     cfg = ullava.UllavaConfig.tiny()
     int8 = llama.LlamaConfig.tiny(a8_prefill=True, kv_quant=True)
@@ -63,6 +63,10 @@ if not torch.cuda.is_available():
         ("train_ullava.train", lambda: train_ullava.train(cli_cfg, tokenizer=object())),
         ("train_ullava_core.train", lambda: train_ullava_core.train(cli_cfg, tokenizer=object())),
         ("eval_ullava.evaluate", lambda: eval_ullava.evaluate(cli_cfg, tokenizer=object())),
+        ("SamPredictor", lambda: predictor.SamPredictor(None, sam_build.sam_vit_l())),
+        ("SamAutomaticMaskGenerator",
+         lambda: automatic.SamAutomaticMaskGenerator(None, sam_build.sam_vit_b())),
+        ("sam_build.init_sam_params", lambda: sam_build.init_sam_params(sam_build.sam_vit_b())),
     ):
         try:
             call()
@@ -100,7 +104,8 @@ def test_port_imports_no_jax_and_entry_points_need_cuda():
                 "data.builders.template_type_builder", "data.loader", "tasks",
                 "tasks.base_task", "tasks.image_text_pretrain", "tasks.image_text_evaluate",
                 "evaluation", "evaluation.tools", "evaluation.harness",
-                "train_ullava", "train_ullava_core", "eval_ullava"):
+                "train_ullava", "train_ullava_core", "eval_ullava", "models.sam.predictor",
+                "models.sam.automatic", "models.sam.export", "models.sam.prompt_encoder"):
         assert f"ullava_tpu_torch.{new}" in mods
     res = subprocess.run(
         [sys.executable, "-c", _PROBE, json.dumps(mods)],
@@ -118,7 +123,8 @@ def test_port_imports_no_jax_and_entry_points_need_cuda():
         "llama.init_kv_cache int8", "serve", "train.make_batch", "train.train_stage1",
         "train.make_stage2_batch", "train.build_stage2", "train.train_stage2",
         "mlp_variants.main", "build.build_ullava", "run_once", "CoreChat",
-        "train_ullava.train", "train_ullava_core.train", "eval_ullava.evaluate"}
+        "train_ullava.train", "train_ullava_core.train", "eval_ullava.evaluate", "SamPredictor",
+        "SamAutomaticMaskGenerator", "sam_build.init_sam_params"}
 
 
 def _code_strings(tree):
@@ -204,7 +210,7 @@ def test_port_reads_no_file_of_the_jax_package(tmp_path):
                                   "test_torch_cuda_sam_int8.py", "test_torch_cuda_sam_resident.py",
                                   "test_torch_cuda_train.py", "test_torch_cuda_weight_only.py",
                                   "test_torch_cuda_dots_i8.py", "test_torch_cuda_packed.py",
-                                  "test_torch_cuda_mlp_v2.py"])
+                                  "test_torch_cuda_mlp_v2.py", "test_torch_cuda_sam_hd64.py"])
 def test_card_test_files_import_torch_only(name):
     """The tests that run on the card must run on a machine without JAX."""
     tree = ast.parse((REPO / "tests" / name).read_text())

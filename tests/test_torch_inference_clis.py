@@ -59,12 +59,8 @@ def _np(tree):
 
 
 def _port_layout(tree):
-    """`bridge` of a JAX tree, with the port's text-prompt encoder leaves."""
-    tree = params_from_jax(tree, device="cpu")
-    if "sam" in tree:
-        pe = tree["sam"]["prompt_encoder"]
-        tree["sam"]["prompt_encoder"] = {k: pe[k] for k in ("pe_gaussian", "no_mask")}
-    return tree
+    """`bridge` of a JAX tree: every leaf."""
+    return params_from_jax(tree, device="cpu")
 
 
 def _seg_loc_in_turn(params, seg, loc):

@@ -53,7 +53,6 @@ from ullava_tpu_torch.training import checkpoint, optim
 from ullava_tpu_torch.training import trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PROMPT_LEAVES = ("pe_gaussian", "no_mask")  # the port's prompt encoder: text prompts
 H, W = 28, 64  # short side = CLIP's 28, long side = the tiny SAM's 64
 
 
@@ -100,8 +99,6 @@ def files(tmp_path_factory):
     params = _np(params)
     jckpt.save_checkpoint(str(root / "jax"), 1, params)
     tree = params_from_jax(params, device="cpu")
-    pe = tree["sam"]["prompt_encoder"]
-    tree["sam"]["prompt_encoder"] = {k: pe[k] for k in PROMPT_LEAVES}
     checkpoint.save_checkpoint(str(root / "port"), 1, tree)
     # The stage-1 tree: the core of the same build.
     jckpt.save_checkpoint(str(root / "jax_core"), 1, params["core"])

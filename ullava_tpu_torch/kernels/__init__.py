@@ -227,6 +227,29 @@ KERNELS: Dict[str, KernelSpec] = {
             (P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P),
             "ullava_tpu/ops/decode_attention.py:143",
         ),
+        # The hd 64 forms (ViT-L's and ViT-B's heads) of K3, K14 and K4 and
+        # K11's, bf16 scores, on the cores of their hd 80 forms.
+        KernelSpec(
+            "fused_window_attention_grid_hd64", "sam_window_attention.cu",
+            "ullava_fused_window_attention_grid_hd64", (P, P, P, P, I, I, I, F, P),
+            "ullava_tpu/ops/sam_attention.py:181",
+        ),
+        KernelSpec(
+            "fused_window_attention_rect_hd64", "sam_rect_attention.cu",
+            "ullava_fused_window_attention_rect_hd64",
+            (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P),
+            "ullava_tpu/ops/sam_attention.py:354",
+        ),
+        KernelSpec(
+            "fused_global_attention_hd64", "sam_global_attention.cu",
+            "ullava_fused_global_attention_hd64", (P, P, P, P, P, P, I, F, I, P),
+            "ullava_tpu/ops/sam_attention.py:490",
+        ),
+        KernelSpec(
+            "fused_global_attention_y_hd64", "sam_global_attention_y.cu",
+            "ullava_fused_global_attention_y_hd64", (P, P, P, P, I, I, F, I, P),
+            "ullava_tpu/ops/sam_attention.py:652",
+        ),
         # The chunk-pipelined W8A8 MLP, whose only caller is the MLP
         # microbenchmark (`microbench/mlp_variants.py`).
         KernelSpec(

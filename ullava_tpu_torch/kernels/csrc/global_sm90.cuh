@@ -2,19 +2,20 @@
 // TMA: attention of each (image, head) over all S = 4096 tokens of the
 // 64 x 64 grid with the decomposed rel-pos bias, online softmax, acc / l
 // at the end. Three kernels run on it:
-//   - K11 fused_global_attention_y (sam_global_attention_y.cu): hd 80,
-//     q/k/v read in place from the LN+qkv output [B, S, 3 * H * 80], the
+//   - K11 fused_global_attention_y (sam_global_attention_y.cu): hd 80
+//     (ViT-H; and hd 64, ViT-L's head, with bf16 scores), q/k/v read in
+//     place from the LN+qkv output [B, S, 3 * H * 80], the
 //     bias terms pre-scaled by 1/scale, [B, S, H, 64], added before the
 //     scale; bf16 or int8 scores (DOTS_I8), fp32 or bf16 exponentials;
 //   - K20 fused_global_attention_packed (sam_packed_attention.cu): hd 128
 //     (80 real lanes padded, all 128 contracted), q/k/v the 128-lane blocks
 //     (part * H + h) * 128 of [B, S, 3 * H * 128], the raw bias terms
 //     [B, H, S, 64] added after the scale; fp32 exponentials;
-//   - K4 fused_global_attention (sam_global_attention.cu): hd 80, q, k and
-//     v three head-major tensors [N, S, 80] (launched with B = N, H = 1),
-//     the raw bias terms [N, S, 64] pre-scaled by 1/scale and rounded to
-//     bf16 in the core (kBiasRaw), added before the scale; fp32 or bf16
-//     exponentials.
+//   - K4 fused_global_attention (sam_global_attention.cu): hd 80 (and hd
+//     64: ViT-L and ViT-B), q, k and v three head-major tensors [N, S, HD]
+//     (launched with B = N, H = 1), the raw bias terms [N, S, 64]
+//     pre-scaled by 1/scale and rounded to bf16 in the core (kBiasRaw),
+//     added before the scale; fp32 or bf16 exponentials.
 // All write o [B, S, H * HD] (head h at columns h * HD).
 //
 // Bound on the card: operations. K11 at B=16 does 1.37e12 FLOP of
@@ -36,6 +37,9 @@
 //     so both kernels share K15's tile layout and descriptors: Q K^T runs
 //     HD / 16 k-steps of wgmma.m64n128k16 (5 at hd 80), and O += P V runs
 //     m64n64k16 on the first 64 columns and m64n(HD - 64)k16 on the rest.
+//     At hd 64 one box holds the whole head: no second box is loaded (a
+//     tile's copies expect 16 KB), Q K^T takes 4 k-steps and P V the
+//     m64n64k16 products alone.
 //     The 32 KB tiles leave room for two stages: K and V have rings of
 //     their own with separate full and empty barriers, a K stage freed
 //     once its scores are read and a V stage once its product is done, so
@@ -235,9 +239,11 @@ __global__ void __launch_bounds__(kThreads, 1)
                        const __grid_constant__ CUtensorMap tm_codes,
                        const __grid_constant__ CUtensorMap tm_scales, const Params p) {
   constexpr int HD = P::kHD;
-  constexpr int NH = HD - 64;  // output columns of the second half: 16 or 64
+  constexpr int NH = HD - 64;  // output columns of the second half: 0, 16 or 64
+  // Bytes of a bf16 Q, K or V tile: at hd 64 one 64-column box holds a row.
+  constexpr uint32_t kTileBytes = NH > 0 ? kTile : kHalf;
   constexpr bool AFTER = P::kBiasAfterScale;
-  static_assert(HD == 80 || HD == 128, "hd 80 (K11) or 128 (K20)");
+  static_assert(HD == 64 || HD == 80 || HD == 128, "hd 64 or 80 (K4, K11) or 128 (K20)");
   static_assert(!(AFTER && (DOTS || EXPBF16)), "the after-scale form is K20's: bf16, fp32 exp");
   static_assert(!DOTS || HD == 80, "the int8 score form is K11's");
   static_assert(!(P::kBiasRaw && (AFTER || DOTS)), "raw terms are K4's: before the scale, bf16");
@@ -279,12 +285,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x == 0) {
       int bc[4];
       P::bias_coord(it.b, it.h, it.q0, bc);
-      mbar_expect_tx(bar_q, L::kQ + 2 * kTable);
+      mbar_expect_tx(bar_q, (DOTS ? L::kQ : kTileBytes) + 2 * kTable);
       if constexpr (DOTS) {
         tma_load(sQ, &tm_codes, bar_q, 0, it.q0, it.h, it.b);
       } else {
         tma_load(sQ, &tm_q, bar_q, 0, it.h, it.q0, it.b);
-        tma_load(sQ + kHalf, &tm_q, bar_q, 64, it.h, it.q0, it.b);
+        if constexpr (NH > 0) tma_load(sQ + kHalf, &tm_q, bar_q, 64, it.h, it.q0, it.b);
       }
       tma_load(sA, &tm_a, bar_q, bc[0], bc[1], bc[2], bc[3]);
       tma_load(sB, &tm_b, bar_q, bc[0], bc[1], bc[2], bc[3]);
@@ -297,14 +303,14 @@ __global__ void __launch_bounds__(kThreads, 1)
           tma_load(sK(s), &tm_codes, full_k(s), 0, k0, it.h, p.B + it.b);
           tma_load(sKs(s), &tm_scales, full_k(s), k0, it.h, p.B + it.b, 0);
         } else {
-          mbar_expect_tx(full_k(s), kTile);
+          mbar_expect_tx(full_k(s), kTileBytes);
           tma_load(sK(s), &tm_k, full_k(s), 0, kh, k0, it.b);
-          tma_load(sK(s) + kHalf, &tm_k, full_k(s), 64, kh, k0, it.b);
+          if constexpr (NH > 0) tma_load(sK(s) + kHalf, &tm_k, full_k(s), 64, kh, k0, it.b);
         }
         if (j >= kStages) mbar_wait(empty_v(s), ((j / kStages) - 1) & 1);
-        mbar_expect_tx(full_v(s), kTile);
+        mbar_expect_tx(full_v(s), kTileBytes);
         tma_load(sV(s), &tm_v, full_v(s), 0, vh, k0, it.b);
-        tma_load(sV(s) + kHalf, &tm_v, full_v(s), 64, vh, k0, it.b);
+        if constexpr (NH > 0) tma_load(sV(s) + kHalf, &tm_v, full_v(s), 64, vh, k0, it.b);
       }
     }
     return;
@@ -316,7 +322,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
   const int g = lane / 4, tq = lane % 4;  // row in the 8-row group, thread in quad
   const int lr[2] = {cw * 64 + warp * 16 + g, cw * 64 + warp * 16 + g + 8};  // tile rows
-  float o_lo[32], o_hi[NH / 2];  // output columns 0-63 and 64 .. HD - 1
+  float o_lo[32], o_hi[NH > 0 ? NH / 2 : 1];  // output columns 0-63 and 64 .. HD - 1
 #pragma unroll
   for (int i = 0; i < 32; ++i) o_lo[i] = 0.f;
 #pragma unroll
@@ -371,7 +377,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_pv(o_lo, pa + 4 * kk, desc_sw128(sV(s) + kk * 2048));
       if constexpr (NH == 64)
         wgmma_pv(o_hi, pa + 4 * kk, desc_sw128(sV(s) + kHalf + kk * 2048));
-      else
+      else if constexpr (NH == 16)
         wgmma_pv16(o_hi, pa + 4 * kk, desc_sw128(sV(s) + kHalf + kk * 2048));
     }
     wgmma_commit();
@@ -469,7 +475,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
   auto fence_o = [&] {
     reg_fence(o_lo);
-    reg_fence(o_hi);
+    if constexpr (NH > 0) reg_fence(o_hi);
   };
   auto fence_s = [&] {
     if constexpr (DOTS)

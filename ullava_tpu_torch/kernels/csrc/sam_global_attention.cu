@@ -1,5 +1,6 @@
 // fused_global_attention: SAM ViT global-block attention over the 64 x 64
-// grid (S = 4096, hd 80) with the decomposed rel-pos bias, online softmax.
+// grid (S = 4096, hd 80 for ViT-H, hd 64 for ViT-L and ViT-B) with the
+// decomposed rel-pos bias, online softmax.
 //
 // Replaces: ullava_tpu/ops/sam_attention.py:490 fused_global_attention
 // (Pallas, transpose-staged [B*H, S, hd] layout, tiled flash).
@@ -17,8 +18,13 @@
 // query tile, the A term twice a row a key tile), then adds A[s][t / 64] +
 // B[s][t % 64] to q.k before the scale. With `exp_bf16` the exponent
 // argument and the probabilities are rounded to bf16, as in the TPU
-// kernel's serving form. The core's output [B, S, H * 80] is K4's
-// [N, S, 80].
+// kernel's serving form. The core's output [B, S, H * HD] is K4's
+// [N, S, HD].
+//
+// The hd 64 form (`ullava_fused_global_attention_hd64`): the same core at
+// HD = 64, one 64-column TMA box a row and 4 k-steps of wgmma.m64n128k16.
+// Its bound at one ViT-L B=1 global block (N = 16): 16*4096*4096*64*4 =
+// 68.7 GFLOP, ~69 us at the bf16 peak, against ~42 MB (~13 us): operations.
 //
 // Compiled with ULLAVA_MUTANT_GLOBAL_BIAS_RAW (global_sm90.cuh) the kernel
 // reads the bias terms without the 1/scale pre-scale: a deliberate bug
@@ -31,10 +37,11 @@ namespace ullava {
 constexpr int kGlobHD = 80;
 
 // K4's layout for the global core (B = N instances, H = 1): q, k, v each
-// [N, S, 80] as the view {d, 1, s, n}, the raw bias terms [N, S, 64] as
+// [N, S, HD] as the view {d, 1, s, n}, the raw bias terms [N, S, 64] as
 // K11's view {j, h, s, n} with H = 1, added before the scale.
+template <int HD>
 struct HeadMajorGlobal : glob::BiasBSHW {
-  static constexpr int kHD = kGlobHD;
+  static constexpr int kHD = HD;
   static constexpr bool kBiasAfterScale = false;
   static constexpr bool kBiasRaw = true;
   static constexpr int kQkvHeads = 1;
@@ -42,13 +49,13 @@ struct HeadMajorGlobal : glob::BiasBSHW {
   __device__ static int v_head(int h, int) { return h; }
 };
 
-template <bool EXPBF16>
+template <int HD, bool EXPBF16>
 int launch_global_head_major(const void* q, const void* k, const void* v, const void* a,
                              const void* b, void* o, int N, float scale, cudaStream_t st) {
   const glob::Params p{static_cast<bf16*>(o), nullptr, nullptr, N, 1,
                        EXPBF16 ? scale : scale * glob::kLog2e, 1.0f / scale};
-  return glob::launch_global<HeadMajorGlobal, EXPBF16, false>(q, k, v, a, b, nullptr, nullptr,
-                                                              p, st);
+  return glob::launch_global<HeadMajorGlobal<HD>, EXPBF16, false>(q, k, v, a, b, nullptr,
+                                                                  nullptr, p, st);
 }
 
 }  // namespace ullava
@@ -61,14 +68,33 @@ ULLAVA_EXPORT int ullava_fused_global_attention(const void* q, const void* k,
                                                 float scale, int exp_bf16, void* stream) {
   using namespace ullava;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return exp_bf16 ? launch_global_head_major<true>(q, k, v, a, b, o, N, scale, st)
-                  : launch_global_head_major<false>(q, k, v, a, b, o, N, scale, st);
+  return exp_bf16 ? launch_global_head_major<kGlobHD, true>(q, k, v, a, b, o, N, scale, st)
+                  : launch_global_head_major<kGlobHD, false>(q, k, v, a, b, o, N, scale, st);
+}
+
+// The hd 64 form (ViT-L and ViT-B): q, k, v, o [N, 4096, 64] bf16; a, b
+// as above.
+ULLAVA_EXPORT int ullava_fused_global_attention_hd64(const void* q, const void* k,
+                                                     const void* v, const void* a,
+                                                     const void* b, void* o, int N,
+                                                     float scale, int exp_bf16, void* stream) {
+  using namespace ullava;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return exp_bf16 ? launch_global_head_major<64, true>(q, k, v, a, b, o, N, scale, st)
+                  : launch_global_head_major<64, false>(q, k, v, a, b, o, N, scale, st);
 }
 
 // {registers a thread, shared bytes a block, spilled bytes a thread,
 // blocks an SM} of the global form's kernel (`exp_bf16` 0 or 1).
 ULLAVA_EXPORT int ullava_fused_global_attention_attrs(int exp_bf16, int* out) {
   using namespace ullava;
-  return exp_bf16 ? glob::attrs<HeadMajorGlobal, true, false>(out)
-                  : glob::attrs<HeadMajorGlobal, false, false>(out);
+  return exp_bf16 ? glob::attrs<HeadMajorGlobal<kGlobHD>, true, false>(out)
+                  : glob::attrs<HeadMajorGlobal<kGlobHD>, false, false>(out);
+}
+
+// The same of the hd 64 form's kernel.
+ULLAVA_EXPORT int ullava_fused_global_attention_hd64_attrs(int exp_bf16, int* out) {
+  using namespace ullava;
+  return exp_bf16 ? glob::attrs<HeadMajorGlobal<64>, true, false>(out)
+                  : glob::attrs<HeadMajorGlobal<64>, false, false>(out);
 }

@@ -1,5 +1,5 @@
 // fused_global_attention_y: SAM ViT global-block attention over the
-// 64 x 64 grid (S = 4096, hd 80) that reads q, k and v in place from the
+// 64 x 64 grid (S = 4096, hd 80 for ViT-H, hd 64 for ViT-L) that reads q, k and v in place from the
 // raw [B, S, 3C] qkv projection output and writes the head-merged
 // [B, S, C] activations, with the decomposed rel-pos bias and an online
 // softmax.
@@ -25,6 +25,13 @@
 // argument and the probabilities are rounded to bf16 as in the TPU
 // kernel's serving form.
 //
+// The hd 64 form (`ullava_fused_global_attention_y_hd64`, bf16 scores):
+// ViT-L's int8-tower global blocks. The TPU kernel reads a slab of 16
+// heads at hd 64 (two heads a 128-lane block of y); here each block reads
+// its head's 64 lanes by TMA as one box, so no slab exists: the core at
+// HD = 64, 4 k-steps of wgmma.m64n128k16. Bound at one ViT-L B=1 block
+// (16 heads): 68.7 GFLOP, ~69 us at the bf16 peak: operations.
+//
 // The dots_i8 form quantizes per row once per layer, not once per query
 // tile: the pre-pass (one group of 8 threads a row) writes q's and k's
 // int8 codes in 128-byte rows (hd 80, zero past it) [2, B, H, S, 128] and
@@ -42,8 +49,9 @@ constexpr int kGlobYHD = 80;
 
 // K11's layout for the global core: q, k, v the head blocks of y, the
 // bias terms [B, S, H, 64] as the view {j, h, s, b}.
+template <int HD>
 struct GlobalY : glob::BiasBSHW {
-  static constexpr int kHD = kGlobYHD;
+  static constexpr int kHD = HD;
   static constexpr bool kBiasAfterScale = false;
   static constexpr bool kBiasRaw = false;
   static constexpr int kQkvHeads = 3;
@@ -128,7 +136,7 @@ __global__ void __launch_bounds__(256) global_y_quant_i8_kernel(
   }
 }
 
-template <bool DOTS>
+template <int HD, bool DOTS>
 int launch_global_y(const void* y, const void* a, const void* b, const void* codes,
                     const void* scales, const void* abss, void* o, int B, int H, float scale,
                     int exp_bf16, void* stream) {
@@ -136,8 +144,9 @@ int launch_global_y(const void* y, const void* a, const void* b, const void* cod
                        static_cast<const float*>(abss), B, H,
                        exp_bf16 ? scale : scale * glob::kLog2e, 1.f / scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return exp_bf16 ? glob::launch_global<GlobalY, true, DOTS>(y, y, y, a, b, codes, scales, p, st)
-                  : glob::launch_global<GlobalY, false, DOTS>(y, y, y, a, b, codes, scales, p, st);
+  return exp_bf16
+             ? glob::launch_global<GlobalY<HD>, true, DOTS>(y, y, y, a, b, codes, scales, p, st)
+             : glob::launch_global<GlobalY<HD>, false, DOTS>(y, y, y, a, b, codes, scales, p, st);
 }
 
 }  // namespace ullava
@@ -146,8 +155,25 @@ int launch_global_y(const void* y, const void* a, const void* b, const void* cod
 ULLAVA_EXPORT int ullava_fused_global_attention_y(const void* y, const void* a, const void* b,
                                                   void* o, int B, int H, float scale,
                                                   int exp_bf16, void* stream) {
-  return ullava::launch_global_y<false>(y, a, b, nullptr, nullptr, nullptr, o, B, H, scale,
-                                        exp_bf16, stream);
+  return ullava::launch_global_y<ullava::kGlobYHD, false>(y, a, b, nullptr, nullptr, nullptr, o,
+                                                          B, H, scale, exp_bf16, stream);
+}
+
+// The hd 64 form (ViT-L), bf16 scores: y [B, 4096, 3 * H * 64], a, b
+// [B, 4096, H, 64], o [B, 4096, H * 64], bf16.
+ULLAVA_EXPORT int ullava_fused_global_attention_y_hd64(const void* y, const void* a,
+                                                       const void* b, void* o, int B, int H,
+                                                       float scale, int exp_bf16, void* stream) {
+  return ullava::launch_global_y<64, false>(y, a, b, nullptr, nullptr, nullptr, o, B, H, scale,
+                                            exp_bf16, stream);
+}
+
+// {registers a thread, shared bytes a block, spilled bytes a thread,
+// blocks an SM} of the hd 64 form's kernel (`exp_bf16` 0 or 1).
+ULLAVA_EXPORT int ullava_fused_global_attention_y_hd64_attrs(int exp_bf16, int* out) {
+  using namespace ullava;
+  return exp_bf16 ? glob::attrs<GlobalY<64>, true, false>(out)
+                  : glob::attrs<GlobalY<64>, false, false>(out);
 }
 
 // The dots_i8 pre-pass. y, a, b as above; codes [2, B, H, 4096, 128] int8
@@ -175,6 +201,6 @@ ULLAVA_EXPORT int ullava_fused_global_attention_y_i8(const void* y, const void* 
                                                      const void* bc, const void* abss, void* o,
                                                      int B, int H, float scale, int exp_bf16,
                                                      void* stream) {
-  return ullava::launch_global_y<true>(y, ac, bc, codes, scales, abss, o, B, H, scale,
-                                       exp_bf16, stream);
+  return ullava::launch_global_y<ullava::kGlobYHD, true>(y, ac, bc, codes, scales, abss, o, B,
+                                                         H, scale, exp_bf16, stream);
 }

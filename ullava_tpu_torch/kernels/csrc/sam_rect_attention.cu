@@ -1,7 +1,8 @@
 // fused_window_attention_rect: attention of the SAM encoder's boundary
-// windows in the resident layout. A boundary window is stored as the
-// T = rows x cols real tokens of a logical 14 x 14 window (right edge
-// 14 x 8, bottom edge 8 x 14, corner 8 x 8 for ViT-H); its other
+// windows in the resident layout (hd 80, and hd 64 in bf16). A boundary
+// window is stored as the T = rows x cols real tokens of a logical
+// 14 x 14 window (right edge 14 x 8, bottom edge 8 x 14, corner 8 x 8 for
+// ViT-H, ViT-L and ViT-B: a grid of 64); its other
 // positions are the zero pad of the reference, which pads after LN1, so a
 // pad token's key and value are exactly the k and v sections of the qkv
 // bias, the same for every pad position of a head.
@@ -40,6 +41,14 @@
 // (window, head), q and the bias row [A | B] per row by each warp), the pad
 // keys keep the TPU kernel's unquantized score against the constant table.
 //
+// The hd 64 form (`ullava_fused_window_attention_rect_hd64`, bf16 scores):
+// ViT-L's and ViT-B's boundary windows, whose grid of 64 tokens leaves the
+// same 14 x 8, 8 x 14 and 8 x 8 rectangles. The core runs it with HD = 64
+// (128-byte swizzled K and V rows, 4 k-steps of Q K^T); the pad tables
+// are [halves, H, P, 64 + 28]. Bound at one ViT-L B=1 block (the merged
+// edges, N = 8, T = 112, H = 16): 6.9 MB in and out, ~2 us, against
+// 0.2 GFLOP: bytes.
+//
 // Dual geometry: the right and bottom classes share one launch; windows
 // [0, n_first) take (rows0, cols0) and half 0 of the stacked tables, the
 // rest (rows1, cols1) and half 1. A single-geometry call has n_first = N.
@@ -50,6 +59,7 @@ namespace ullava {
 constexpr int kRectHD = 80;
 constexpr int kRectWin = 14;
 
+template <int HD>
 struct WindowRect {
   const bf16* y;      // [N, T, 3C]
   const bf16* a;      // [N, T, H*W]
@@ -70,12 +80,12 @@ struct WindowRect {
     return static_cast<size_t>(inst / H) * Sq + s;
   }
   __device__ const bf16* q_row(int inst, int s) const {
-    return y + row(inst, s) * (3 * H * kRectHD) + (inst % H) * kRectHD;
+    return y + row(inst, s) * (3 * H * HD) + (inst % H) * HD;
   }
-  __device__ const bf16* k_row(int inst, int j) const { return q_row(inst, j) + H * kRectHD; }
-  __device__ const bf16* v_row(int inst, int j) const { return q_row(inst, j) + 2 * H * kRectHD; }
+  __device__ const bf16* k_row(int inst, int j) const { return q_row(inst, j) + H * HD; }
+  __device__ const bf16* v_row(int inst, int j) const { return q_row(inst, j) + 2 * H * HD; }
   __device__ bf16* o_row(int inst, int s) const {
-    return o + row(inst, s) * (H * kRectHD) + (inst % H) * kRectHD;
+    return o + row(inst, s) * (H * HD) + (inst % H) * HD;
   }
   // The W terms of row s (term 0: A, 1: Bb), reversed columns.
   __device__ const bf16* bias_row(int inst, int s, int term) const {
@@ -85,7 +95,7 @@ struct WindowRect {
     return pad_k + static_cast<size_t>(half(inst) * H + inst % H) * pad_k_head;
   }
   __device__ const bf16* pad_v_row(int inst) const {
-    return pad_v + (half(inst) * H + inst % H) * kRectHD;
+    return pad_v + (half(inst) * H + inst % H) * HD;
   }
 };
 
@@ -108,16 +118,16 @@ int with_geometry(int rows0, int cols0, int rows1, int cols1, F f) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <bool I8>
+template <int HD, bool I8>
 int launch_rect(const void* y, const void* a, const void* b, const void* pad_k,
                 const void* pad_v, void* o, int N, int H, int T, int P, int n_first, int rows0,
                 int cols0, int rows1, int cols1, float scale, void* stream) {
-  const WindowRect p{static_cast<const bf16*>(y),     static_cast<const bf16*>(a),
-                     static_cast<const bf16*>(b),     static_cast<const bf16*>(pad_k),
-                     static_cast<const bf16*>(pad_v), static_cast<bf16*>(o),
-                     T, H, scale, n_first, P * (kRectHD + 2 * kRectWin)};
+  const WindowRect<HD> p{static_cast<const bf16*>(y),     static_cast<const bf16*>(a),
+                         static_cast<const bf16*>(b),     static_cast<const bf16*>(pad_k),
+                         static_cast<const bf16*>(pad_v), static_cast<bf16*>(o),
+                         T, H, scale, n_first, P * (HD + 2 * kRectWin)};
   return with_geometry(rows0, cols0, rows1, cols1, [&](auto g0, auto g1) {
-    return launch_window_whole<kRectHD, kRectWin, WindowRect, decltype(g0), decltype(g1), I8>(
+    return launch_window_whole<HD, kRectWin, WindowRect<HD>, decltype(g0), decltype(g1), I8>(
         p, N * H, static_cast<cudaStream_t>(stream));
   });
 }
@@ -133,8 +143,9 @@ ULLAVA_EXPORT int ullava_fused_window_attention_rect(const void* y, const void* 
                                                      int n_first, int rows0, int cols0,
                                                      int rows1, int cols1, float scale,
                                                      void* stream) {
-  return ullava::launch_rect<false>(y, a, b, pad_k, pad_v, o, N, H, T, P, n_first, rows0, cols0,
-                                    rows1, cols1, scale, stream);
+  return ullava::launch_rect<ullava::kRectHD, false>(y, a, b, pad_k, pad_v, o, N, H, T, P,
+                                                     n_first, rows0, cols0, rows1, cols1,
+                                                     scale, stream);
 }
 
 // The dots_i8 form: int8 scores over the real keys, the pad keys' scores
@@ -145,8 +156,9 @@ ULLAVA_EXPORT int ullava_fused_window_attention_rect_i8(const void* y, const voi
                                                         int T, int P, int n_first, int rows0,
                                                         int cols0, int rows1, int cols1,
                                                         float scale, void* stream) {
-  return ullava::launch_rect<true>(y, a, b, pad_k, pad_v, o, N, H, T, P, n_first, rows0, cols0,
-                                   rows1, cols1, scale, stream);
+  return ullava::launch_rect<ullava::kRectHD, true>(y, a, b, pad_k, pad_v, o, N, H, T, P,
+                                                    n_first, rows0, cols0, rows1, cols1,
+                                                    scale, stream);
 }
 
 // {registers a thread, shared bytes a block, spilled bytes a thread,
@@ -157,7 +169,32 @@ ULLAVA_EXPORT int ullava_window_attention_rect_attrs(int i8, int rows0, int cols
   return with_geometry(rows0, cols0, rows1, cols1, [&](auto g0, auto g1) {
     using G0 = decltype(g0);
     using G1 = decltype(g1);
-    return i8 ? window_whole_attrs<kRectHD, kRectWin, WindowRect, G0, G1, true>(out)
-              : window_whole_attrs<kRectHD, kRectWin, WindowRect, G0, G1, false>(out);
+    return i8 ? window_whole_attrs<kRectHD, kRectWin, WindowRect<kRectHD>, G0, G1, true>(out)
+              : window_whole_attrs<kRectHD, kRectWin, WindowRect<kRectHD>, G0, G1, false>(out);
+  });
+}
+
+// The hd 64 form (ViT-L and ViT-B), bf16 scores. y: [N, T, 3*H*64] bf16;
+// a, b: [N, T, H*14] bf16; pad_k: [halves, H, P, 92] bf16; pad_v:
+// [halves, H, 64] bf16; o: [N, T, H*64] bf16. T = rows * cols for both
+// geometries, T + P = 196.
+ULLAVA_EXPORT int ullava_fused_window_attention_rect_hd64(const void* y, const void* a,
+                                                          const void* b, const void* pad_k,
+                                                          const void* pad_v, void* o, int N,
+                                                          int H, int T, int P, int n_first,
+                                                          int rows0, int cols0, int rows1,
+                                                          int cols1, float scale, void* stream) {
+  return ullava::launch_rect<64, false>(y, a, b, pad_k, pad_v, o, N, H, T, P, n_first, rows0,
+                                        cols0, rows1, cols1, scale, stream);
+}
+
+// {registers a thread, shared bytes a block, spilled bytes a thread,
+// blocks an SM} of the hd 64 form's kernel at one geometry pair.
+ULLAVA_EXPORT int ullava_window_attention_rect_hd64_attrs(int rows0, int cols0, int rows1,
+                                                          int cols1, int* out) {
+  using namespace ullava;
+  return with_geometry(rows0, cols0, rows1, cols1, [&](auto g0, auto g1) {
+    return window_whole_attrs<64, kRectWin, WindowRect<64>, decltype(g0), decltype(g1), false>(
+        out);
   });
 }

@@ -1,5 +1,5 @@
 // fused_window_attention_grid: SAM ViT window attention (14 x 14 windows,
-// hd 80) read straight from the raw qkv projection output, with the
+// hd 80, and hd 64 in bf16) read straight from the raw qkv projection output, with the
 // decomposed rel-pos bias, writing the head-merged output; and
 // fused_window_attention, the same function per (window, head) pair in
 // the head-major layout.
@@ -51,6 +51,16 @@
 // (150 MB) and the terms (17.6 MB) and writes 50 MB, ~65 us of HBM time
 // against 19.7 GFLOP (~20 us): bytes.
 //
+// The hd 64 form (`ullava_fused_window_attention_grid_hd64`, bf16 scores):
+// ViT-L's and ViT-B's window blocks (1024 / 16 and 768 / 12 lanes a head),
+// which reach the same TPU kernel with head_dim 64. The core runs it with
+// HD = 64: a K or V row is 8 sixteen-byte chunks, so rows are 128 bytes
+// with the chunks XOR-swizzled by the row's low three bits (window_whole.cuh),
+// Q K^T takes 4 k-steps of mma.sync.m16n8k16 instead of 5 and a thread
+// holds 16 Q and 32 O registers. Its bound at one ViT-L B=1 window block
+// (N = 16 full windows, H = 16): y 19.3 MB, the terms 2.8 MB, o 6.4 MB,
+// ~8.5 us of HBM time, against 2.5 GFLOP (~2.5 us): bytes.
+//
 // The dots_i8 form: K quantized per row to int8 once per (window, head),
 // q and the bias-term row [A | B] per row by each warp, qk on the int8
 // tensor cores (hd 80 zero-padded to 96: three m16n8k32 steps), the
@@ -67,6 +77,7 @@ constexpr int kWinHD = 80;
 constexpr int kWin = 14;
 using WholeWindow = WwRect<kWin, kWin>;
 
+template <int HD>
 struct WindowGrid {
   const bf16* y;   // [N, S, 3C]
   const bf16* a;   // [N, S, H*W]
@@ -82,16 +93,16 @@ struct WindowGrid {
     return static_cast<size_t>(inst / H) * Sq + s;
   }
   __device__ const bf16* q_row(int inst, int s) const {
-    return y + row(inst, s) * (3 * H * kWinHD) + (inst % H) * kWinHD;
+    return y + row(inst, s) * (3 * H * HD) + (inst % H) * HD;
   }
   __device__ const bf16* k_row(int inst, int t) const {
-    return q_row(inst, t) + H * kWinHD;
+    return q_row(inst, t) + H * HD;
   }
   __device__ const bf16* v_row(int inst, int t) const {
-    return q_row(inst, t) + 2 * H * kWinHD;
+    return q_row(inst, t) + 2 * H * HD;
   }
   __device__ bf16* o_row(int inst, int s) const {
-    return o + row(inst, s) * (H * kWinHD) + (inst % H) * kWinHD;
+    return o + row(inst, s) * (H * HD) + (inst % H) * HD;
   }
   // The W terms of row s (term 0: A, 1: Bb), reversed columns.
   __device__ const bf16* bias_row(int inst, int s, int term) const {
@@ -133,12 +144,12 @@ struct WindowHeadMajor {
   }
 };
 
-template <bool I8>
+template <int HD, bool I8>
 int launch_grid(const void* y, const void* a, const void* b, void* o, int N, int H,
                 int total_rows, float scale, void* stream) {
-  WindowGrid p{static_cast<const bf16*>(y), static_cast<const bf16*>(a),
-               static_cast<const bf16*>(b), static_cast<bf16*>(o), total_rows, H, scale};
-  return launch_window_whole<kWinHD, kWin, WindowGrid, WholeWindow, WholeWindow, I8>(
+  WindowGrid<HD> p{static_cast<const bf16*>(y), static_cast<const bf16*>(a),
+                   static_cast<const bf16*>(b), static_cast<bf16*>(o), total_rows, H, scale};
+  return launch_window_whole<HD, kWin, WindowGrid<HD>, WholeWindow, WholeWindow, I8>(
       p, N * H, static_cast<cudaStream_t>(stream));
 }
 
@@ -150,7 +161,8 @@ ULLAVA_EXPORT int ullava_fused_window_attention_grid(const void* y, const void* 
                                                      const void* b, void* o, int N,
                                                      int H, int total_rows, float scale,
                                                      void* stream) {
-  return ullava::launch_grid<false>(y, a, b, o, N, H, total_rows, scale, stream);
+  return ullava::launch_grid<ullava::kWinHD, false>(y, a, b, o, N, H, total_rows, scale,
+                                                     stream);
 }
 
 // The dots_i8 form: int8 scores (q, k and the bias terms quantized per
@@ -159,15 +171,35 @@ ULLAVA_EXPORT int ullava_fused_window_attention_grid_i8(const void* y, const voi
                                                         const void* b, void* o, int N, int H,
                                                         int total_rows, float scale,
                                                         void* stream) {
-  return ullava::launch_grid<true>(y, a, b, o, N, H, total_rows, scale, stream);
+  return ullava::launch_grid<ullava::kWinHD, true>(y, a, b, o, N, H, total_rows, scale,
+                                                    stream);
 }
 
 // {registers a thread, shared bytes a block, spilled bytes a thread,
 // blocks an SM} of the bf16 (i8 = 0) or int8 score form's kernel.
 ULLAVA_EXPORT int ullava_window_attention_grid_attrs(int i8, int* out) {
   using namespace ullava;
-  return i8 ? window_whole_attrs<kWinHD, kWin, WindowGrid, WholeWindow, WholeWindow, true>(out)
-            : window_whole_attrs<kWinHD, kWin, WindowGrid, WholeWindow, WholeWindow, false>(out);
+  return i8 ? window_whole_attrs<kWinHD, kWin, WindowGrid<kWinHD>, WholeWindow, WholeWindow, true>(
+                 out)
+            : window_whole_attrs<kWinHD, kWin, WindowGrid<kWinHD>, WholeWindow, WholeWindow, false>(
+                 out);
+}
+
+// The hd 64 form (ViT-L and ViT-B: 1024 / 16 and 768 / 12), bf16 scores.
+// y: [N, S, 3*H*64] bf16; a, b: [N, S, H*14] bf16; o: [N, S, H*64] bf16,
+// S = total_rows in [196, 208].
+ULLAVA_EXPORT int ullava_fused_window_attention_grid_hd64(const void* y, const void* a,
+                                                          const void* b, void* o, int N, int H,
+                                                          int total_rows, float scale,
+                                                          void* stream) {
+  return ullava::launch_grid<64, false>(y, a, b, o, N, H, total_rows, scale, stream);
+}
+
+// {registers a thread, shared bytes a block, spilled bytes a thread,
+// blocks an SM} of the hd 64 form's kernel (`form` unused).
+ULLAVA_EXPORT int ullava_window_attention_grid_hd64_attrs(int, int* out) {
+  using namespace ullava;
+  return window_whole_attrs<64, kWin, WindowGrid<64>, WholeWindow, WholeWindow, false>(out);
 }
 
 // q, k, v, o: [N, 196, 80] bf16 (N = windows x heads); a, b: [N, 196, 14]

@@ -7,12 +7,14 @@
 //   - K19, the packed window kernel (`_packed_window_kernel`,
 //     ullava_tpu/ops/sam_attention.py:791-822): HD 128, the raw bias terms
 //     added after the scale (P::kBiasAfterScale);
-//   - K3, the grid window kernel (`_grid_kernel` :113-178): HD 80, bias
-//     terms pre-scaled by 1/scale and added before it, a window stored as
-//     Sq = 196 or `total_rows` = 200 rows of which the first 196 are keys;
-//   - K14, the boundary-window kernel (`_rect_kernel` :261-350): HD 80,
-//     only the T = R x C real tokens of a logical WB x WB window are rows
-//     and keys (the geometry G, a template parameter); the pad positions
+//   - K3, the grid window kernel (`_grid_kernel` :113-178): HD 80 (ViT-H;
+//     and HD 64, ViT-L's and ViT-B's head, in bf16), bias terms pre-scaled
+//     by 1/scale and added before it, a window stored as Sq = 196 or
+//     `total_rows` = 200 rows of which the first 196 are keys;
+//   - K14, the boundary-window kernel (`_rect_kernel` :261-350): HD 80
+//     (and HD 64 in bf16), only the T = R x C real tokens of a logical
+//     WB x WB window are rows and keys (the geometry G, a template
+//     parameter); the pad positions
 //     are not keys of any product (P::kPadKeys, below);
 //   - K21, the per-(window, head) window kernel (`_kernel` :29-67): K3's
 //     function on head-major [N, 196, 80] q, k and v, its bias terms raw
@@ -25,10 +27,11 @@
 // to 13 chunks of 16):
 //   - K and V of the instance are copied into shared memory once, with
 //     16-byte cp.async copies, K and V in two groups so that Q K^T starts
-//     while V lands; rows past the keys are zero-filled. At HD 128 rows are
-//     256 bytes with the 16-byte chunks XOR-swizzled by the row's low three
-//     bits; at HD 80 (10 chunks, for which that XOR is no permutation) rows
-//     are padded to 176 bytes, 11 chunks, so 8 consecutive rows start in 8
+//     while V lands; rows past the keys are zero-filled. At HD 128 (and HD
+//     64) rows are 256 (128) bytes with the 16-byte chunks XOR-swizzled by
+//     the row's low three bits; at HD 80 (10 chunks, for which that XOR is
+//     no permutation) rows are padded to 176 bytes, 11 chunks, so 8
+//     consecutive rows start in 8
 //     distinct 16-byte bank groups. Either way the ldmatrix reads of 8 rows
 //     hit 32 distinct banks. K19: 104 KB plus a 896-byte bias table a warp,
 //     two blocks an SM.
@@ -37,7 +40,9 @@
 //     Four warps give each thread 255 registers at HD 128, which the score
 //     row (104 fp32 a thread: 26 accumulator tiles of mma.sync.m16n8k16)
 //     and Q's fragments (32) need; eight would leave 128 and spill. At HD
-//     80 a thread holds 20 Q and 40 O registers instead of 32 and 64. Each
+//     80 a thread holds 20 Q and 40 O registers instead of 32 and 64, at
+//     HD 64 16 and 32 (chip_smoke.py reads each instance's registers,
+//     spills and blocks an SM with cudaFuncGetAttributes). Each
 //     warp runs S = Q K^T, adds the bias terms, scales, masks the pad keys,
 //     takes the row max and sum over its quad (two shuffles each), and
 //     rounds p = exp(s - m) / l to bf16 straight into the A fragments of

@@ -167,7 +167,8 @@ def _plain_patches(scope: str):
                   (E, "fused_ln_linear_dual", M.fused_ln_linear_dual_plain),
                   (E, "fused_mlp_block", mlp), (E, "fused_window_attention_grid", grid),
                   (E, "fused_window_attention_rect", rect),
-                  (E, "fused_global_attention_y", global_y)]
+                  (E, "fused_global_attention_y", global_y),
+                  (E, "fused_global_attention", S.fused_global_attention_plain)]
 
 
 @contextlib.contextmanager

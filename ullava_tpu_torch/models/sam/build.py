@@ -54,6 +54,26 @@ def sam_vit_h(dtype=torch.bfloat16) -> SamConfig:
     )
 
 
+def sam_vit_l(dtype=torch.bfloat16) -> SamConfig:
+    """ViT-L: embed 1024, depth 24, heads 16 (head_dim 64), global [5, 11, 17, 23]."""
+    return SamConfig(
+        vision=image_encoder.SamVisionConfig(
+            embed_dim=1024, depth=24, num_heads=16,
+            global_attn_indexes=(5, 11, 17, 23), dtype=dtype,
+        )
+    )
+
+
+def sam_vit_b(dtype=torch.bfloat16) -> SamConfig:
+    """ViT-B: embed 768, depth 12, heads 12 (head_dim 64), global [2, 5, 8, 11]."""
+    return SamConfig(
+        vision=image_encoder.SamVisionConfig(
+            embed_dim=768, depth=12, num_heads=12,
+            global_attn_indexes=(2, 5, 8, 11), dtype=dtype,
+        )
+    )
+
+
 def init_sam_params(
     cfg: SamConfig, generator: Optional[torch.Generator] = None, device=None
 ) -> Params:

@@ -1,18 +1,17 @@
 """SAM checkpoint conversion -> the port's SAM parameters (counterpart of
 `ullava_tpu/models/sam/convert.py`).
 
-Accepts the original Meta naming (`sam_vit_h_4b8939.pth`) or the HF
-`SamModel` naming: HF keys are first normalized to the Meta vocabulary,
-then converted once, straight into the port's layout (one dict per
-encoder block in `window_blocks` / `global_blocks`, as `bridge.py` gives
-a JAX tree).
+Accepts the original Meta naming (`sam_vit_h_4b8939.pth`,
+`sam_vit_l_0b3195.pth`, `sam_vit_b_01ec64.pth`) or the HF `SamModel`
+naming: HF keys are first normalized to the Meta vocabulary, then
+converted once, straight into the port's layout (one dict per encoder
+block in `window_blocks` / `global_blocks`, as `bridge.py` gives a JAX
+tree). Depth, width and the global blocks' indexes come from the
+`SamConfig` passed in (`build.sam_vit_h`, `sam_vit_l`, `sam_vit_b`).
 
-Read: every image encoder leaf; the prompt encoder's random-Fourier
-matrix (`pe_layer.positional_encoding_gaussian_matrix`) and
-`no_mask_embed`; every mask decoder leaf. Skipped, because the port's
-prompt encoder takes text prompts only: `point_embeddings.*`,
-`not_a_point_embed` and `mask_downscaling.*` (the point, box and mask
-prompts).
+Every leaf is read: the image encoder's, the prompt encoder's
+(random-Fourier matrix, the four point embeddings, `not_a_point_embed`,
+`no_mask_embed` and `mask_downscaling.*`) and the mask decoder's.
 """
 
 from __future__ import annotations
@@ -170,10 +169,25 @@ def convert_sam(
         "neck_ln2_bias": e("image_encoder.neck.3.bias"),
     }
 
-    # ---- prompt encoder (text prompts) --------------------------------------
+    # ---- prompt encoder -----------------------------------------------------
+    pe, md = "prompt_encoder.", "prompt_encoder.mask_downscaling."
     prompt_encoder = {
-        "pe_gaussian": f32("prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"),
-        "no_mask": f32("prompt_encoder.no_mask_embed.weight")[0],
+        "pe_gaussian": f32(pe + "pe_layer.positional_encoding_gaussian_matrix"),
+        "point_embeddings": torch.stack(
+            [f32(pe + f"point_embeddings.{i}.weight")[0] for i in range(4)]),
+        "not_a_point": f32(pe + "not_a_point_embed.weight")[0],
+        "no_mask": f32(pe + "no_mask_embed.weight")[0],
+        # Conv2d weight [out, in, kh, kw] -> [kh, kw, in, out]
+        "mask_conv1": conv(md + "0.weight", torch.float32, (2, 3, 1, 0)),
+        "mask_conv1_bias": f32(md + "0.bias"),
+        "mask_ln1_scale": f32(md + "1.weight"),
+        "mask_ln1_bias": f32(md + "1.bias"),
+        "mask_conv2": conv(md + "3.weight", torch.float32, (2, 3, 1, 0)),
+        "mask_conv2_bias": f32(md + "3.bias"),
+        "mask_ln2_scale": f32(md + "4.weight"),
+        "mask_ln2_bias": f32(md + "4.bias"),
+        "mask_conv3": conv(md + "6.weight", torch.float32, (2, 3, 1, 0)),
+        "mask_conv3_bias": f32(md + "6.bias"),
     }
 
     # ---- mask decoder -------------------------------------------------------

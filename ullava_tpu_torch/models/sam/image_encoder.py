@@ -43,6 +43,9 @@ there is no plain route), takes the routes the JAX package takes off the
 TPU (`_use_pallas` false): no fused int8 global route and no fused MLP,
 whose arithmetic differs, and the block window layout; the attention
 wrappers' plain versions are the JAX XLA attention's function.
+`use_rel_pos=False` takes the JAX package's XLA routes on every device:
+plain attention with no bias (`attention_xla`) in every block, the
+block layout, and no fused int8 global route or fused MLP.
 
 `pack_sam_attention` repacks qkv/proj head-major with each head padded to
 `head_pad` lanes (128 on the card); such weights are detected by shape
@@ -68,6 +71,7 @@ import torch.nn.functional as F
 
 from ullava_tpu_torch import resolve_device
 from ullava_tpu_torch.models import normal
+from ullava_tpu_torch.ops.attention import attention_xla
 from ullava_tpu_torch.ops.mlp_kernel import (
     fused_linear,
     fused_ln_linear,
@@ -107,6 +111,10 @@ class SamVisionConfig:
     out_chans: int = 256
     window_size: int = 14
     global_attn_indexes: Tuple[int, ...] = (7, 15, 23, 31)
+    # The decomposed relative position bias. Off: every block takes plain
+    # attention with no bias (the JAX package's XLA attention), the block
+    # layout and the plain MLP, on CPU and CUDA tensors alike.
+    use_rel_pos: bool = True
     layer_norm_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16
     # Run the fused kernels' products int8 x int8 with per-row dynamic
@@ -136,6 +144,8 @@ class SamVisionConfig:
             raise ValueError(f"unknown attn_kernel {self.attn_kernel!r}")
         if self.attn_kernel == "xla" and self.window_layout == "resident":
             raise ValueError('attn_kernel="xla" takes the block layout')
+        if not self.use_rel_pos and self.window_layout == "resident":
+            raise ValueError("use_rel_pos=False takes the block layout")
 
     @property
     def head_dim(self) -> int:
@@ -273,8 +283,9 @@ def pack_sam_attention(enc: Params, cfg: SamVisionConfig, head_pad: int = 128) -
 
 def _fused_routes(cfg: SamVisionConfig) -> bool:
     """The JAX `_use_pallas`: the fused int8 global route, the fused MLP
-    and the resident layout, unless `attn_kernel="xla"`."""
-    return cfg.attn_kernel != "xla"
+    and the resident layout, unless `attn_kernel="xla"` or
+    `use_rel_pos=False`."""
+    return cfg.attn_kernel != "xla" and cfg.use_rel_pos
 
 
 def _is_packed(p: Params, cfg: SamVisionConfig) -> bool:
@@ -423,7 +434,11 @@ def _attn(x: torch.Tensor, p: Params, cfg: SamVisionConfig, size: int) -> torch.
     C, H, hd = cfg.embed_dim, cfg.num_heads, cfg.head_dim
     S = size * size
     y = _lin(cfg, x.reshape(B, S, C), p["qkv"]) + p["qkv_bias"]  # [B, S, 3C]
-    if size <= 16:
+    if not cfg.use_rel_pos:
+        qkv = y.reshape(B, S, 3, H, hd)
+        out = attention_xla(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], scale=hd**-0.5)
+        out = out.reshape(B, S, C)
+    elif size <= 16:
         A, Bb = _bias_terms_grid(y, p["rel_pos_h"], p["rel_pos_w"], cfg, size)
         out = fused_window_attention_grid(
             y, A, Bb, num_heads=H, head_dim=hd, window=size, scale=hd**-0.5,

@@ -166,8 +166,11 @@ def decode_masks(
     sparse_prompt: torch.Tensor,  # [B, Ns, D]
     dense_prompt: torch.Tensor,  # [B, g, g, D]
     multimask_output: bool = False,
+    return_all: bool = False,  # every mask token (the decoder export's selection)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (low_res_masks [B, M, 4g, 4g], iou_pred [B, M])."""
+    """Returns (low_res_masks [B, M, 4g, 4g], iou_pred [B, M]): token 0's
+    mask, the multimask tokens' with `multimask_output`, or all of them
+    with `return_all`."""
     B = sparse_prompt.shape[0]
     D = cfg.embed_dim
     g = image_embeddings.shape[1]
@@ -195,5 +198,7 @@ def decode_masks(
     )  # [B, M, D//8]
     masks = torch.einsum("bmc,bhwc->bmhw", hyper, x)
     iou_pred = apply_mlp(params["iou_head"], iou_token_out)
+    if return_all:
+        return masks, iou_pred
     sl = slice(1, None) if multimask_output else slice(0, 1)
     return masks[:, sl], iou_pred[:, sl]

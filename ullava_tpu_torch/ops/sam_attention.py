@@ -68,6 +68,21 @@ def _check_window_kernel_shape(hd: int, W: int) -> None:
         raise ValueError(f"the CUDA window kernels are built for hd 80, W 14; got {hd}, {W}")
 
 
+def _window_kernel(base: str, hd: int, W: int, dots_i8: bool) -> str:
+    """The CUDA entry of window kernel `base` (K3 or K14) for a head dim:
+    ViT-H's 80 in both score forms, ViT-L's and ViT-B's 64 with bf16
+    scores (`<base>_hd64`). Any other form raises ValueError."""
+    if W != 14 or hd not in (64, 80):
+        raise ValueError(f"the CUDA {base} kernel is built for W 14 and hd 80 or 64; "
+                         f"got hd {hd}, W {W}")
+    if hd == 64:
+        if dots_i8:
+            raise ValueError(f"the dots_i8 form of the CUDA {base} kernel is built for hd 80 "
+                             "only; hd 64 (ViT-L, ViT-B) takes bf16 scores")
+        return base + "_hd64"
+    return base + "_i8" if dots_i8 else base
+
+
 # The most rows a window can have in the CUDA window kernel (13 tiles of 16).
 _WINDOW_MAX_ROWS = 208
 # The (rows, cols) rectangles the CUDA boundary-window kernel is built for
@@ -95,8 +110,9 @@ def fused_window_attention_grid(
     are left out as keys, and as queries they give finite rows that the
     caller drops. `dots_i8` takes the int8 score form. CUDA kernel
     `kernels/csrc/sam_window_attention.cu` (W 14, hd 80, at most 208 rows a
-    window, bf16; its `_i8` entry for `dots_i8`) for CUDA tensors, the plain
-    version for CPU ones."""
+    window, bf16; its `_i8` entry for `dots_i8`; its `_hd64` entry for hd
+    64, bf16 scores only) for CUDA tensors, the plain version for CPU
+    ones."""
     N, S, width = y.shape
     H, hd, W = num_heads, head_dim, window
     if S != (total_rows or W * W) or S < W * W or width != 3 * H * hd:
@@ -107,7 +123,7 @@ def fused_window_attention_grid(
         raise ValueError(f"bias terms must be [{N}, {S}, {H * W}]")
     if y.device.type == "cpu":
         return fused_window_attention_grid_plain(y, bias_a, bias_b, H, hd, W, scale, dots_i8)
-    _check_window_kernel_shape(hd, W)
+    entry = _window_kernel("fused_window_attention_grid", hd, W, dots_i8)
     if S > _WINDOW_MAX_ROWS:
         raise ValueError(f"the CUDA window kernel holds at most {_WINDOW_MAX_ROWS} rows, got {S}")
     kernels.check_cuda_tensor("window y", y, torch.bfloat16)
@@ -115,8 +131,7 @@ def fused_window_attention_grid(
     kernels.check_cuda_tensor("window bias_b", bias_b, torch.bfloat16)
     out = torch.empty((N, S, H * hd), dtype=y.dtype, device=y.device)
     kernels.launch(
-        "fused_window_attention_grid_i8" if dots_i8 else "fused_window_attention_grid",
-        y.data_ptr(), bias_a.data_ptr(),
+        entry, y.data_ptr(), bias_a.data_ptr(),
         bias_b.data_ptr(), out.data_ptr(), N, H, S, float(scale),
     )
     return out
@@ -202,10 +217,11 @@ def fused_window_attention_rect(
     `geometry` is (rows, cols), or one such pair per half: what the
     tables say, handed over so that the card's wrapper need not read it
     back from device memory. CUDA kernel `kernels/csrc/sam_rect_attention.cu`
-    (W 14, hd 80, bf16; its `_i8` entry for `dots_i8`) for CUDA tensors,
-    which needs `geometry`, one of ViT-H's boundary classes (14 x 8, 8 x 14,
-    8 x 8) or the two edges as a pair; the plain version for CPU ones, which
-    checks it against `oh`."""
+    (W 14, hd 80, bf16; its `_i8` entry for `dots_i8`; its `_hd64` entry
+    for hd 64, bf16 scores only) for CUDA tensors, which needs `geometry`,
+    one of the boundary classes of a 64-token grid (14 x 8, 8 x 14, 8 x 8)
+    or the two edges as a pair; the plain version for CPU ones, which checks
+    it against `oh`."""
     N, T, width = y.shape
     H, hd, W = num_heads, head_dim, window
     halves = oh.shape[0] if oh.ndim == 3 else 0
@@ -237,7 +253,7 @@ def fused_window_attention_rect(
         )
     if geometry is None:
         raise ValueError("fused_window_attention_rect on the card needs `geometry`")
-    _check_window_kernel_shape(hd, W)
+    entry = _window_kernel("fused_window_attention_rect", hd, W, dots_i8)
     if halves not in (0, 2):
         raise ValueError(f"the CUDA boundary-window kernel takes one or two geometries, got {halves}")
     built = _RECT_DUAL_GEOMETRIES if halves else tuple((g,) for g in _RECT_GEOMETRIES)
@@ -251,8 +267,7 @@ def fused_window_attention_rect(
     first, second = geoms[0], geoms[-1]
     out = torch.empty((N, T, H * hd), dtype=y.dtype, device=y.device)
     kernels.launch(
-        "fused_window_attention_rect_i8" if dots_i8 else "fused_window_attention_rect",
-        y.data_ptr(), bias_a.data_ptr(), bias_b.data_ptr(),
+        entry, y.data_ptr(), bias_a.data_ptr(), bias_b.data_ptr(),
         pad_k.data_ptr(), pad_v.data_ptr(), out.data_ptr(), N, H, T, P,
         N // halves if halves else N, first[0], first[1], second[0], second[1], float(scale),
     )
@@ -305,8 +320,8 @@ def fused_global_attention(
     """Online-softmax global attention with the decomposed bias;
     `exp_bf16` takes the exponentials in bf16 (the serving form). CUDA
     kernel `kernels/csrc/sam_global_attention.cu` on the wgmma + TMA global
-    core (W 64, hd 80, bf16) for CUDA tensors, the plain version for CPU
-    ones."""
+    core (W 64, hd 80 or, its `_hd64` entry, 64; bf16) for CUDA tensors,
+    the plain version for CPU ones."""
     N, S, hd = q.shape
     W = window
     if S != W * W or k.shape != q.shape or v.shape != q.shape:
@@ -315,14 +330,15 @@ def fused_global_attention(
         raise ValueError(f"bias terms must be [{N}, {S}, {W}]")
     if q.device.type == "cpu":
         return fused_global_attention_plain(q, k, v, bias_a, bias_b, W, scale, exp_bf16)
-    if (hd, W) != (80, 64):
-        raise ValueError(f"the CUDA global kernel is built for hd 80, W 64; got {hd}, {W}")
+    if W != 64 or hd not in (64, 80):
+        raise ValueError(f"the CUDA global kernel is built for hd 80 or 64, W 64; got {hd}, {W}")
     for name, t in (("q", q), ("k", k), ("v", v), ("bias_a", bias_a), ("bias_b", bias_b)):
         kernels.check_cuda_tensor(f"global {name}", t, torch.bfloat16)
     out = torch.empty_like(q)
     kernels.launch(
-        "fused_global_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        bias_a.data_ptr(), bias_b.data_ptr(), out.data_ptr(), N, float(scale), int(exp_bf16),
+        "fused_global_attention_hd64" if hd == 64 else "fused_global_attention", q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), bias_a.data_ptr(), bias_b.data_ptr(), out.data_ptr(), N,
+        float(scale), int(exp_bf16),
     )
     return out
 
@@ -399,7 +415,7 @@ def global_y_quant_i8(y, bias_a, bias_b, num_heads: int, head_dim: int):
     if y.device.type == "cpu":
         return global_y_quant_i8_plain(y, bias_a, bias_b, H, hd)
     if (hd, S, bias_a.shape[-1]) != (80, 4096, 64):
-        raise ValueError(f"the CUDA global kernel is built for hd 80, W 64; got {hd}, S {S}")
+        raise ValueError(f"the CUDA dots_i8 pre-pass is built for hd 80, W 64; got hd {hd}, S {S}")
     for name, t in (("y", y), ("bias_a", bias_a), ("bias_b", bias_b)):
         kernels.check_cuda_tensor(f"global_y {name}", t, torch.bfloat16)
     codes = torch.empty((2, B, H, S, 128), dtype=torch.int8, device=y.device)
@@ -432,7 +448,8 @@ def fused_global_attention_y(
     and ignored. CUDA kernel `kernels/csrc/sam_global_attention_y.cu`
     (W 64, hd 80, bf16, on the wgmma + TMA core `global_sm90.cuh`; for
     `dots_i8` its pre-pass, which quantizes every row once, then its `_i8`
-    entry) for CUDA tensors, the plain version for CPU ones."""
+    entry; its `_hd64` entry for ViT-L's hd 64 with 16 heads a block,
+    bf16 scores) for CUDA tensors, the plain version for CPU ones."""
     B, S, width = y.shape
     H, hd, W = num_heads, head_dim, window
     if S != W * W or width != 3 * H * hd:
@@ -443,14 +460,20 @@ def fused_global_attention_y(
         return fused_global_attention_y_plain(
             y, bias_a, bias_b, H, hd, W, scale, exp_bf16=exp_bf16, dots_i8=dots_i8
         )
-    if (hd, W) != (80, 64):
-        raise ValueError(f"the CUDA global kernel is built for hd 80, W 64; got {hd}, {W}")
+    if W != 64 or hd not in (64, 80):
+        raise ValueError(f"the CUDA global kernel is built for hd 80 or 64, W 64; got {hd}, {W}")
+    if hd == 64 and (dots_i8 or H % 16):
+        raise ValueError(
+            "the CUDA fused_global_attention_y kernel at hd 64 is built for bf16 scores and a head "
+            f"group of 16 (ViT-L); got dots_i8={dots_i8}, {H} heads (ViT-B's 12 heads give a "
+            "head group of 4)")
     for name, t in (("y", y), ("bias_a", bias_a), ("bias_b", bias_b)):
         kernels.check_cuda_tensor(f"global_y {name}", t, torch.bfloat16)
     out = torch.empty((B, S, H * hd), dtype=y.dtype, device=y.device)
     if not dots_i8:
         kernels.launch(
-            "fused_global_attention_y", y.data_ptr(), bias_a.data_ptr(), bias_b.data_ptr(),
+            "fused_global_attention_y_hd64" if hd == 64 else "fused_global_attention_y",
+            y.data_ptr(), bias_a.data_ptr(), bias_b.data_ptr(),
             out.data_ptr(), B, H, float(scale), int(exp_bf16),
         )
         return out
