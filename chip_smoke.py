@@ -3153,10 +3153,13 @@ SAM_LAUNCHES = {"fused_window_attention_grid": 28, "fused_global_attention": 4,
 # The training path's kernels launch in no serve, the all-int8 serve's
 # forms and the packed kernels in no other serve, the two uncalled kernels
 # and the chunk-pipelined MLP (whose path is the microbenchmark) in none.
-# The hd 64 forms (ViT-L's and ViT-B's heads): only the sam_predictor
-# phase reaches them.
+# The hd 64 forms (ViT-L's and ViT-B's heads), bf16 scores and the
+# `dots_i8` forms with K11's pre-pass: only the sam_predictor phase
+# reaches them.
 SAM_HD64_NAMES = ("fused_window_attention_grid_hd64", "fused_window_attention_rect_hd64",
-                  "fused_global_attention_hd64", "fused_global_attention_y_hd64")
+                  "fused_global_attention_hd64", "fused_global_attention_y_hd64",
+                  "fused_window_attention_grid_i8_hd64", "fused_window_attention_rect_i8_hd64",
+                  "global_attention_y_quant_i8_hd64", "fused_global_attention_y_i8_hd64")
 IDLE_IN_SERVING = {"flash_attention_fwd_lse": 0, "flash_attention_bwd_delta": 0,
                    "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0, "rms_norm_bwd": 0, **{k: 0 for k in WQ_NAMES},
                    **{k: 0 for k in I8_NAMES}, **{k: 0 for k in PACKED_NAMES + UNCALLED_NAMES},
@@ -4432,12 +4435,13 @@ def recording(module, name, sink):
 
 
 def _kernel_gate(out: dict, tol: float):
-    """`gate(name, run, ref, mutants)`: `run()` within `tol` of `ref` by
-    `row_rel_err`, and outside it under each of `mutants` (bug: (source,
-    define)); the readings go into `out[name]`."""
+    """`gate(name, run, ref, mutants, inputs=None)`: `run()` within `tol`
+    of `ref` by `row_rel_err`, and outside it under each of `mutants` (bug:
+    (source, define)) and of `inputs` (bug: a run on mutated inputs); the
+    readings go into `out[name]` and come back with the limit."""
     from ullava_tpu_torch import kernels
 
-    def gate(name, run, ref, mutants):
+    def gate(name, run, ref, mutants, inputs=None):
         err = row_rel_err(run(), ref)
         must(name, err <= tol, err)
         caught = {}
@@ -4445,7 +4449,11 @@ def _kernel_gate(out: dict, tol: float):
             with kernels.mutant(*src_define):
                 e = row_rel_err(run(), ref)
             caught[bug] = must_not(name, bug, e <= tol, e)
+        for bug, bad in (inputs or {}).items():
+            e = row_rel_err(bad(), ref)
+            caught[bug] = must_not(name, bug, e <= tol, e)
         out[name] = {"row_rel_err": err, "mutant_row_rel_err": caught}
+        return {**out[name], "tol": tol}
 
     return gate
 
@@ -5362,10 +5370,18 @@ def train_clis_phase(paths, card: str, device: str = "cuda") -> dict:
 SAM_PRED_HW = (480, 640)
 SAM_PRED_POINTS_PER_SIDE = 16  # 256 points decoded in one batch
 SAM_PRED_KEEP = 32  # candidates above the generator gate's IoU threshold
-# (name, size, int8 towers): ViT-L bf16 (the JAX predictor's defaults),
-# ViT-L with int8 towers and composite bias weights (`mlp_w8a8`), ViT-B bf16.
-SAM_PRED_PATHS = (("vit_l_bf16", "vit_l", False), ("vit_l_int8", "vit_l", True),
-                  ("vit_b_bf16", "vit_b", False))
+# (name, size, weights): ViT-L bf16 (the JAX predictor's defaults), ViT-L
+# with int8 towers and composite bias weights (`mlp_w8a8`), ViT-B bf16, and
+# ViT-B's int8 towers, both sizes' int8 towers with int8 scores
+# (`attn_dots_i8`) and both sizes' bf16 weights packed to 128 lanes a head
+# (`pack_sam_attention`).
+SAM_PRED_PATHS = (("vit_l_bf16", "vit_l", "bf16"), ("vit_l_int8", "vit_l", "int8"),
+                  ("vit_b_bf16", "vit_b", "bf16"), ("vit_b_int8", "vit_b", "int8"),
+                  ("vit_l_int8_i8", "vit_l", "int8_i8"), ("vit_b_int8_i8", "vit_b", "int8_i8"),
+                  ("vit_l_packed", "vit_l", "packed"), ("vit_b_packed", "vit_b", "packed"))
+# The paths that take the whole surface (every prompt, the generator and,
+# in bf16, the export); the others encode and answer one prompt.
+SAM_PRED_SURFACE = ("vit_l_bf16", "vit_l_int8", "vit_b_bf16")
 # The prompts of each path's `predict` calls, in the 480 x 640 image's pixels.
 SAM_PRED_PROMPTS = {
     "one_point": dict(point_coords=[[320.0, 240.0]], point_labels=[1]),
@@ -5375,30 +5391,38 @@ SAM_PRED_PROMPTS = {
 }
 
 
-def sam_predictor_launches(depth: int, n_global: int, int8: bool) -> dict:
-    """Every kernel's launches in one B=1 encode of a 64 x 64 grid in the
-    resident layout (16 full windows, 4 right, 4 bottom, 1 corner). bf16:
-    a window block launches K3 on the full class and K14 on each other
-    class, a global block K4. int8 towers with composite bias weights: a
-    window block takes K13 and K10's proj form on the full class, the
-    merged edge pair and the corner, K3 on the full windows stored as 200
-    rows and K14 on the pair and the corner; a global block K10 twice (LN1
-    + qkv, proj), K11 and K12 (4096 rows; no window class reaches the
-    fused MLP's 512-row gate at B=1: 3200, 896 and 64 rows)."""
+def sam_predictor_launches(depth: int, n_global: int, weights: str) -> dict:
+    """Every kernel's launches in one B=1 encode of a 64 x 64 grid.
+    `weights` "bf16", the resident layout (16 full windows, 4 right, 4
+    bottom, 1 corner): a window block launches K3 on the full class and K14
+    on each other class, a global block K4. "int8", int8 towers with
+    composite bias weights: a window block takes K13 and K10's proj form on
+    the full class, the merged edge pair and the corner, K3 on the full
+    windows stored as 200 rows and K14 on the pair and the corner; a global
+    block K10 twice (LN1 + qkv, proj), K11 and K12 (4096 rows; no window
+    class reaches the fused MLP's 512-row gate at B=1: 3200, 896 and 64
+    rows). "int8_i8" (`attn_dots_i8`): the same with the `dots_i8` forms of
+    K3, K14 and K11, K11's pre-pass before each K11. "packed", the block
+    layout: K19 once a window block (25 windows), K20 once a global block."""
     from ullava_tpu_torch import kernels
 
     nw = depth - n_global
-    if int8:
-        own = {"fused_ln_linear_dual": 3 * nw, "fused_window_attention_grid_hd64": nw,
-               "fused_window_attention_rect_hd64": 2 * nw, "fused_ln_linear": 3 * nw + 2 * n_global,
-               "fused_global_attention_y_hd64": n_global, "fused_mlp_block": n_global}
+    if weights in ("int8", "int8_i8"):
+        i8 = "_i8" if weights == "int8_i8" else ""
+        own = {"fused_ln_linear_dual": 3 * nw, f"fused_window_attention_grid{i8}_hd64": nw,
+               f"fused_window_attention_rect{i8}_hd64": 2 * nw,
+               "fused_ln_linear": 3 * nw + 2 * n_global,
+               f"fused_global_attention_y{i8}_hd64": n_global, "fused_mlp_block": n_global,
+               **({"global_attention_y_quant_i8_hd64": n_global} if i8 else {})}
+    elif weights == "packed":
+        own = {"fused_window_attention_packed": nw, "fused_global_attention_packed": n_global}
     else:
         own = {"fused_window_attention_grid_hd64": nw, "fused_window_attention_rect_hd64": 3 * nw,
                "fused_global_attention_hd64": n_global}
     return {k: own.get(k, 0) for k in kernels.KERNELS}
 
 
-def sam_hd64_kernel_gates(gen, results: dict) -> dict:
+def sam_hd64_kernel_gates(gen, results: dict, forms: dict) -> dict:
     """The hd 64 forms against their plain versions at the shapes of one
     ViT-L and one ViT-B image (B=1), each by `row_rel_err` within 1e-2
     (the bf16-exponential K11 2e-2) and failing under each mutant copy of
@@ -5409,23 +5433,24 @@ def sam_hd64_kernel_gates(gen, results: dict) -> dict:
     exponentials, K11 on ViT-L's 16 heads with bf16 ones; and, at ViT-L's
     widths (C 1024, F 4096), the W8A8 K13 on the full class (rows2 196),
     the pair and the corner, K10's proj form on the same rows and its LN1 +
-    qkv form and K12 on a global block's 4096 rows. Adds the four hd 64
-    forms' lines (timed at ViT-L bf16's shapes; K11 at the int8 path's) to
-    `results`; returns the gate readings."""
+    qkv form and K12 on a global block's 4096 rows (`sam_w8a8_width_gates`,
+    timed into `forms`). Adds the four hd 64 forms' lines (timed at ViT-L
+    bf16's shapes; K11 at the int8 path's) to `results`; returns the gate
+    readings."""
     import torch
     import torch.nn.functional as F
 
     from ullava_tpu_torch import kernels
-    from ullava_tpu_torch.ops import mlp_kernel, quant, sam_attention
+    from ullava_tpu_torch.ops import sam_attention
 
-    dev, bf, eps, W, G = "cuda", torch.bfloat16, 1e-6, 14, 64
+    dev, bf, W, G = "cuda", torch.bfloat16, 14, 64
     tol, hd = 1e-2, 64
     sc = hd**-0.5
     out = {"tol": tol}
     gate = _kernel_gate(out, tol)
 
-    def randn(*shape, scale=1.0, shift=0.0):
-        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(bf)
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
 
     quad = {"quad_max_dropped": QUAD_MAX_MUTANTS["sam_window_attention.cu"]}
     rect_bugs = {"pad_out_of_sum": RECT_PAD_MUTANT,
@@ -5483,7 +5508,7 @@ def sam_hd64_kernel_gates(gen, results: dict) -> dict:
                     lambda l=lib: window_sdpa(*l), nbytes(y, a, bb, *tables, got),
                     4.0 * N * H * T * W * W * hd)
                 line.update(shape=[N, T, 3 * C], kernel=kernels.kernel_attrs(
-                    "sam_rect_attention.cu", "ullava_window_attention_rect_hd64_attrs",
+                    "sam_rect_attention.cu", "ullava_window_attention_rect_hd64_attrs", 0,
                     *geoms[0], *geoms[-1]))
                 if form == "right":
                     results["fused_window_attention_rect_hd64"] = line
@@ -5549,46 +5574,329 @@ def sam_hd64_kernel_gates(gen, results: dict) -> dict:
     del y, a, bb, ref, y5, mask, got
     torch.cuda.empty_cache()
 
-    # K10, K12 and K13 (W8A8) at ViT-L's widths.
-    C, F_, F2 = 1024, 4096, 2 * 16 * (2 * W - 1)
+    sam_w8a8_width_gates(gen, gate, "vit_l", 1024, 4096, 16, forms)
+    return out
+
+
+def sam_w8a8_width_gates(gen, gate, size: str, C: int, F_: int, H: int, forms: dict) -> None:
+    """The W8A8 K13, K10 and K12 at one SAM width (`size`: C, F_, H heads)
+    against their plain versions at a B=1 encode's shapes, through `gate`
+    (`_kernel_gate`), each failing under its source's mutant copies: K13
+    on the full class (16 windows stored as 200 rows, rows2 196), the
+    merged edge pair (8 x 112) and the corner (1 x 64) with the composite
+    bias weight's 2 x H x 27 columns (ViT-B's 648 = 5 x 128 + 8); K10's
+    proj form on those classes' rows and a global block's 4096, its LN1 +
+    qkv form and K12 on the 4096. The full class's K13, K10's LN1 + qkv
+    and K12 are timed into `forms[kernel][f"{size}_c{C}_form"]`."""
+    import torch
+    import torch.nn.functional as F
+
+    from ullava_tpu_torch.ops import mlp_kernel, quant
+
+    dev, bf, eps, W = "cuda", torch.bfloat16, 1e-6, 14
+    F2, key = 2 * H * (2 * W - 1), f"{size}_c{C}_form"
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(bf)
 
     def weight(K, N):
         leaf = quant.quantize_int8(torch.randn((K, N), generator=gen, device=dev) * 0.05)
         return leaf["q"], leaf["scale"]
 
+    def int8_rows(x, g_, b_):
+        xf = F.layer_norm(x, (C,), g_, b_, eps).float().reshape(-1, C)
+        amax = xf.abs().amax(-1, keepdim=True).clamp_min(1e-12)
+        return torch.round(xf * (127.0 / amax)).to(torch.int8), amax * (1.0 / 127.0)
+
+    def timed(name, info, run, plain, library, io, ops, shape):
+        got, ref = run(), plain()
+        pairs = zip(got, ref) if isinstance(got, tuple) else ((got, ref),)
+        line = kernel_line(name, max((g_.float() - r_.float()).abs().max().item() for g_, r_ in pairs),
+                           info, run, plain, library, io, ops, iters=10, flops_per_s=INT8_OPS_PER_S)
+        forms.setdefault(name, {})[key] = {
+            **{k: v for k, v in line.items() if k not in ("name", "route", "source", "replaces")},
+            "shape": shape}
+
     g_, b_ = randn(C, scale=0.1, shift=1.0), randn(C, scale=0.1)
     wq, ws = weight(C, 3 * C)
     w2, s2 = weight(C, F2)
     bias, bias2 = randn(3 * C, scale=0.5), torch.randn(F2, generator=gen, device=dev) * 0.5
+    wargs = (g_, b_, wq, ws, bias, w2, s2, bias2, eps)
     for cls, N, T, rows2 in (("full", 16, 200, 196), ("edge_pair", 8, 112, 112), ("corner", 1, 64, 64)):
         x = randn(N, T, C, scale=2.0, shift=0.3)
-        args = (x, g_, b_, wq, ws, bias, w2, s2, bias2, eps)
-        ry, rp = mlp_kernel._ln_linear_dual_parts_plain(*args, True, rows2)[:2]
-        run = lambda a_=args, r2=0 if rows2 == T else rows2: (  # noqa: E731
-            mlp_kernel.fused_ln_linear_dual(*a_, w8a8=True, rows2=r2))
-        gate(f"fused_ln_linear_dual y {cls} {N} x {T}", lambda run=run: run()[0], ry, {})
-        gate(f"fused_ln_linear_dual bias terms {cls} {N} x {T}", lambda run=run: run()[1], rp,
-             K13_MUTANTS)
+        plain = lambda x=x, r2=rows2: mlp_kernel._ln_linear_dual_parts_plain(  # noqa: E731
+            x, *wargs, True, r2)[:2]
+        ry, rp = plain()
+        run = lambda x=x, r2=0 if rows2 == T else rows2: mlp_kernel.fused_ln_linear_dual(  # noqa: E731
+            x, *wargs, w8a8=True, rows2=r2)
+        gate(f"{size} fused_ln_linear_dual y {cls} {N} x {T}", lambda run=run: run()[0], ry, {})
+        info = gate(f"{size} fused_ln_linear_dual bias terms {cls} {N} x {T} x {F2}",
+                    lambda run=run: run()[1], rp, K13_MUTANTS)
+        if cls == "full":
+            def library(x=x, N=N, T=T, rows2=rows2):
+                xq_, xs_ = int8_rows(x, g_, b_)
+                y_ = (torch._int_mm(xq_, wq).float() * (xs_ * ws) + bias.float()).to(bf)
+                p_ = (torch._int_mm(xq_, w2).float() * (xs_ * s2) + bias2).to(bf)
+                return y_.reshape(N, T, 3 * C), p_.reshape(N, T, F2)[:, :rows2]
+
+            timed("fused_ln_linear_dual", info, run, plain, library,
+                  nbytes(x, g_, b_, wq, ws, bias, w2, s2, bias2, ry, rp),
+                  2.0 * C * (N * T * 3 * C + N * rows2 * F2), [N, T, C, 3 * C, F2, rows2])
+        del x, ry, rp
     wp, sp = weight(C, C)
     bp = randn(C, scale=0.5)
     for rows in (3200, 896, 64, 4096):
         x, res = randn(rows, C, scale=2.0, shift=0.3), randn(rows, C)
-        gate(f"fused_linear proj {rows}",
+        gate(f"{size} fused_linear proj {rows}",
              lambda x=x, r=res: mlp_kernel.fused_linear(x, wp, sp, bp, residual=r, w8a8=True),
              mlp_kernel._ln_linear_parts_plain(x, None, None, wp, sp, bp, 0.0, True, res)[0],
              K10_MUTANTS)
     x = randn(4096, C, scale=2.0, shift=0.3)
-    gate("fused_ln_linear ln_qkv 4096",
-         lambda: mlp_kernel.fused_ln_linear(x, g_, b_, wq, ws, bias, eps, w8a8=True),
-         mlp_kernel._ln_linear_parts_plain(x, g_, b_, wq, ws, bias, eps, True, None)[0], {})
+    run = lambda: mlp_kernel.fused_ln_linear(x, g_, b_, wq, ws, bias, eps, w8a8=True)  # noqa: E731
+    plain = lambda: mlp_kernel._ln_linear_parts_plain(x, g_, b_, wq, ws, bias, eps, True, None)[0]  # noqa: E731
+    info = gate(f"{size} fused_ln_linear ln_qkv 4096", run, plain(), {})
+
+    def library_qkv():
+        xq_, xs_ = int8_rows(x, g_, b_)
+        return (torch._int_mm(xq_, wq).float() * (xs_ * ws) + bias.float()).to(bf)
+
+    timed("fused_ln_linear", info, run, plain, library_qkv,
+          nbytes(x, g_, b_, wq, ws, bias) + 4096 * 3 * C * 2, 2.0 * 4096 * C * 3 * C,
+          [4096, C, 3 * C])
     (w1, s1), (w2, s2) = weight(C, F_), weight(F_, C)
     b1, b2 = randn(F_, scale=0.5), randn(C, scale=0.5)
     args = (x, g_, b_, w1, s1, b1, w2, s2, b2, eps)
-    gate("fused_mlp_block 4096", lambda: mlp_kernel.fused_mlp_block(*args, w8a8=True),
-         mlp_kernel._mlp_block_parts_plain(*args, mlp_kernel.default_f_chunk(F_), True)[0],
-         K12_MUTANTS)
+    fc = mlp_kernel.default_f_chunk(F_)
+    run = lambda: mlp_kernel.fused_mlp_block(*args, w8a8=True)  # noqa: E731
+    plain = lambda: mlp_kernel._mlp_block_parts_plain(*args, fc, True)[0]  # noqa: E731
+    info = gate(f"{size} fused_mlp_block 4096", run, plain(), K12_MUTANTS)
+    timed("fused_mlp_block", info, run, plain, lambda: library_mlp(*args, fc),
+          nbytes(x, g_, b_, w1, s1, b1, w2, s2, b2, x), 4.0 * 4096 * C * F_, [4096, C, F_])
     del x, args
     torch.cuda.empty_cache()
+
+
+def sam_hd64_i8_kernel_gates(gen, results: dict, forms: dict) -> dict:
+    """The SAM kernel forms of the `sam_predictor` phase's int8-score,
+    ViT-B int8 and packed paths against their plain versions at those
+    paths' B=1 shapes, each by `row_rel_err` within the limit of its hd 80
+    form (1e-2; 2e-2 with bf16 exponentials; the pre-pass bit for bit) and
+    failing under each mutant copy of its source and the input mutants: at
+    ViT-L (16 heads) and ViT-B (12) each, K3's `dots_i8` form on 16 full
+    windows of 196 and of 200 rows, K14's on the merged edge pair and the
+    corner, K11's pre-pass and its `dots_i8` form in both exponential
+    forms, K11's bf16-score form at 12 heads, K19 on the 25 padded windows
+    and K20 on the global grid at hp 128 over 64 real lanes; the W8A8 K10,
+    K12, K13 at ViT-B's widths (`sam_w8a8_width_gates`: C 768, F 3072, K13's
+    648 bias-term columns). Adds the four new kernels' lines to `results`
+    (timed at both sizes) and the other forms' timed lines to `forms`
+    ({kernel: {form: line}}); returns the gate readings."""
+    import torch
+    import torch.nn.functional as F
+
+    from ullava_tpu_torch import kernels
+    from ullava_tpu_torch.ops import sam_attention
+
+    dev, bf, W, G, hd = "cuda", torch.bfloat16, 14, 64, 64
+    sc, real, S = hd**-0.5, W * W, G * G
+    out: dict = {}
+    gate, gate_exp = _kernel_gate(out, 1e-2), _kernel_gate(out, 2e-2)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    def max_abs(got, ref, rows=slice(None)):
+        return (got[:, rows].float() - ref[:, rows].float()).abs().max().item()
+
+    def form_of(line):
+        return {k: v for k, v in line.items() if k not in ("name", "route", "source", "replaces")}
+
+    quad = {"quad_max_dropped": QUAD_MAX_MUTANTS["sam_window_attention.cu"]}
+    win_bugs = {"one_key_scale_a_tile": I8_MUTANTS["sam_window_attention.cu"], **quad}
+    rect_bugs = {"one_key_scale_a_tile": I8_MUTANTS["sam_rect_attention.cu"],
+                 "pad_out_of_sum": RECT_PAD_MUTANT,
+                 "quad_max_dropped": QUAD_MAX_MUTANTS["sam_rect_attention.cu"]}
+    glob_bugs = {"one_key_scale_a_tile": I8_MUTANTS["sam_global_attention_y.cu"],
+                 **GLOBAL_Y_MUTANTS}
+    lines: dict = {}
+    for size, H in (("vit_l", 16), ("vit_b", 12)):
+        C = H * hd
+        kw = dict(num_heads=H, head_dim=hd, window=W, scale=sc)
+
+        # K3, int8 scores: 16 full windows of 196 rows and as the resident
+        # layout stores them beside composite weights (200, pad rows zero
+        # in the bias terms as `_assemble_bias_terms` makes them).
+        name = "fused_window_attention_grid_i8_hd64"
+        for rows in (196, 200):
+            y = randn(16, rows, 3 * C)
+            a, bb = (randn(16, rows, H * W, scale=2.0 / sc) for _ in range(2))
+            a[:, real:], bb[:, real:] = 0, 0
+            tr = 0 if rows == real else rows
+            run = lambda y=y, a=a, bb=bb, tr=tr: sam_attention.fused_window_attention_grid(  # noqa: E731
+                y, a, bb, **kw, total_rows=tr, dots_i8=True)
+            plain = lambda y=y, a=a, bb=bb: sam_attention.fused_window_attention_grid_plain(  # noqa: E731
+                y, a, bb, H, hd, W, sc, dots_i8=True)
+            ref = plain()
+            info = gate(f"{size} {name} 16 x {rows}", lambda run=run: run()[:, :real],
+                        ref[:, :real], win_bugs,
+                        {"bias_swapped": lambda run=run, a=a, bb=bb: run(a=bb, bb=a)[:, :real]})
+            got = run()
+            must(f"{size} {name} pad rows finite", bool(torch.isfinite(got).all()), rows)
+            if rows == 200:  # the paths' form
+                lib = window_sdpa_inputs(y, a, bb, y, torch.arange(rows, device=dev) < real,
+                                         (C, H, hd, W))
+                io, flops = nbytes(y, a, bb, got), 4.0 * 16 * H * rows * real * hd
+                line = kernel_line(name, max_abs(got, ref, slice(0, real)), info, run, plain,
+                                   lambda l=lib: window_sdpa(*l), io, flops,
+                                   bound=bound_i8_ms(io, flops))
+                line.update(shape=[16, rows, 3 * C], kernel=kernels.kernel_attrs(
+                    "sam_window_attention.cu", "ullava_window_attention_grid_hd64_attrs", 1))
+                lines[(name, size)] = line
+                del lib
+            del y, a, bb, got, ref
+
+        # K14, int8 scores: the merged edge pair and the corner.
+        name = "fused_window_attention_rect_i8_hd64"
+        qkv_bias = randn(3 * C, scale=0.5)
+        for form, geoms, per in (("edge_pair", [(14, 8), (8, 14)], 4), ("corner", [(8, 8)], 1)):
+            y, a, bb, tables, padded, _ = rect_case(gen, geoms, per, qkv_bias, (C, H, hd, W))
+            geometry = tuple(geoms) if len(geoms) == 2 else geoms[0]
+            run = lambda y=y, a=a, bb=bb, t=tables, g_=geometry: (  # noqa: E731
+                sam_attention.fused_window_attention_rect(y, a, bb, *t, **kw, dots_i8=True,
+                                                          geometry=g_))
+            plain = lambda y=y, a=a, bb=bb, t=tables: sam_attention.fused_window_attention_rect_plain(  # noqa: E731
+                y, a, bb, *t, H, hd, W, sc, dots_i8=True)
+            ref = plain()
+            info = gate(f"{size} {name} {form}", run, ref, rect_bugs, {
+                "pad_v_dropped": lambda run=run, t=tables: run(t=(*t[:2], torch.zeros_like(t[2])))})
+            got = run()
+            lib = window_sdpa_inputs(y, a, bb, padded, torch.ones(real, dtype=torch.bool,
+                                                                  device=dev), (C, H, hd, W))
+            N, T = y.shape[:2]
+            io, flops = nbytes(y, a, bb, *tables, got), 4.0 * N * H * T * real * hd
+            line = kernel_line(name, max_abs(got, ref), info, run, plain,
+                               lambda l=lib: window_sdpa(*l), io, flops,
+                               bound=bound_i8_ms(io, flops))
+            line.update(shape=[N, T, 3 * C], kernel=kernels.kernel_attrs(
+                "sam_rect_attention.cu", "ullava_window_attention_rect_hd64_attrs", 1,
+                *geoms[0], *geoms[-1]))
+            lines[(name, size, form)] = line
+            del y, a, bb, tables, padded, got, ref, lib
+
+        # K11's pre-pass and its int8 and bf16 score forms on one global
+        # block (B=1), both exponential forms.
+        y = randn(1, S, 3 * C)
+        a, bb = (randn(1, S, H, G, scale=2.0 / sc) for _ in range(2))
+        gkw = dict(num_heads=H, head_dim=hd, window=G, scale=sc)
+        pre_name = "global_attention_y_quant_i8_hd64"
+        pre = sam_attention.global_y_quant_i8(y, a, bb, H, hd)
+        pre_ref = sam_attention.global_y_quant_i8_plain(y, a, bb, H, hd)
+        exact = [bool(torch.equal(g_, r_)) for g_, r_ in zip(pre, pre_ref)]
+        must(f"{size} {pre_name}", all(exact), exact)
+        swapped = sam_attention.global_y_quant_i8(y, bb, a, H, hd)
+        caught = not (torch.equal(swapped[2], pre_ref[2]) and torch.equal(swapped[3], pre_ref[3]))
+        must_not(f"{size} {pre_name}", "bias_swapped", not caught, caught)
+        out[f"{size} {pre_name}"] = {"bit_equal": exact, "mutant_bit_equal": {"bias_swapped": not caught}}
+        pre_io = nbytes(y) * 2 // 3 + nbytes(a, bb, *pre)
+        line = kernel_line(
+            pre_name, max(float((g_.float() - r_.float()).abs().max()) for g_, r_ in zip(pre, pre_ref)),
+            out[f"{size} {pre_name}"], lambda: sam_attention.global_y_quant_i8(y, a, bb, H, hd),
+            lambda: sam_attention.global_y_quant_i8_plain(y, a, bb, H, hd), None, pre_io, 0.0,
+            iters=10)
+        line["shape"] = [1, S, 3 * C]
+        lines[(pre_name, size)] = line
+        del pre, pre_ref, swapped
+        y5, mask = global_sdpa_inputs(y, a, bb)
+        flops = 4.0 * H * S * S * hd
+        for dots_i8 in (True, False):
+            name = "fused_global_attention_y" + ("_i8" if dots_i8 else "") + "_hd64"
+            if not dots_i8 and size == "vit_l":
+                continue  # 16 heads in bf16: `sam_hd64_kernel_gates` times it
+            for exp_bf16 in (True, False):
+                run = lambda a_=a, b_=bb, e=exp_bf16, d=dots_i8: sam_attention.fused_global_attention_y(  # noqa: E731
+                    y, a_, b_, **gkw, head_group=16 if H == 16 else 4, exp_bf16=e, dots_i8=d)
+                plain = lambda e=exp_bf16, d=dots_i8: sam_attention.fused_global_attention_y_plain(  # noqa: E731
+                    y, a, bb, **gkw, exp_bf16=e, dots_i8=d)
+                ref = plain()
+                exp = "exp_bf16" if exp_bf16 else "exp_fp32"
+                bugs = glob_bugs if dots_i8 else GLOBAL_Y_MUTANTS
+                info = (gate_exp if exp_bf16 else gate)(
+                    f"{size} {name} {H} heads {exp}", run, ref, bugs,
+                    {"bias_swapped": lambda run=run: run(a_=bb, b_=a)})
+                got = run()
+                io = nbytes(y, a, bb) + nbytes(y) // 3
+                line = kernel_line(
+                    name, max_abs(got, ref), info, run, plain,
+                    lambda: F.scaled_dot_product_attention(y5[0], y5[1], y5[2], attn_mask=mask,
+                                                           scale=sc),
+                    io, flops, iters=10, bound=bound_i8_ms(io, flops) if dots_i8 else None)
+                line.update(shape=[1, S, 3 * C], tflops=flops / line["ms"] / 1e9,
+                            kernel=kernels.kernel_attrs(
+                                "sam_global_attention_y.cu",
+                                f"ullava_fused_global_attention_y{'_i8' if dots_i8 else ''}_hd64_attrs",
+                                int(exp_bf16)))
+                if dots_i8:
+                    line["pre_pass_ms"] = lines[(pre_name, size)]["ms"]
+                lines[(name, size, exp)] = line
+                del got, ref
+        del y, a, bb, y5, mask
+
+        # K19 and K20 at hp 128 over 64 real lanes, the pad lanes zero as
+        # `pack_sam_attention` makes them.
+        for name, N, Wn in (("fused_window_attention_packed", 25, W),
+                            ("fused_global_attention_packed", 1, G)):
+            Sn = Wn * Wn
+            y = torch.zeros((N, Sn, 3, H, SAM_HP), dtype=bf, device=dev)
+            y[..., :hd] = randn(N, Sn, 3, H, hd)
+            y = y.reshape(N, Sn, 3 * H * SAM_HP)
+            a, bb = (randn(N, H, Sn, Wn, scale=2.0) for _ in range(2))
+            fn, plain_fn = getattr(sam_attention, name), getattr(sam_attention, f"{name}_plain")
+            run = lambda a_=a, b_=bb, y=y, fn=fn, Wn=Wn: fn(y, a_, b_, H, SAM_HP, Wn, sc)  # noqa: E731
+            plain = lambda y=y, a=a, bb=bb, f=plain_fn, Wn=Wn: f(y, a, bb, H, SAM_HP, Wn, sc)  # noqa: E731
+            ref = plain()
+            bugs = {b_: PACKED_MUTANTS[b_] for b_ in ("bias_read_prescaled", "k_one_head_over") + (
+                ("quad_max_dropped",) if Wn == W else ("a_term_one_grid_row",))}
+            info = gate(f"{size} {name} hd64", run, ref, bugs,
+                        {"bias_swapped": lambda run=run, a=a, bb=bb: run(a_=bb, b_=a)})
+            got = run()
+            info["pad_lanes_zero"] = bool(torch.all(got.reshape(N, Sn, H, SAM_HP)[..., hd:] == 0))
+            must(f"{size} {name} hd64", info["pad_lanes_zero"], "pad lanes of the output are not zero")
+            y5, mask = packed_sdpa_inputs(y, a, bb, H, SAM_HP)
+            flops, io = 4.0 * N * H * Sn * Sn * SAM_HP, nbytes(y, a, bb, got)
+            line = kernel_line(
+                name, max_abs(got, ref), info, run, plain,
+                lambda y5=y5, m=mask: F.scaled_dot_product_attention(y5[0], y5[1], y5[2],
+                                                                     attn_mask=m, scale=sc),
+                io, flops, iters=10)
+            line.update(bound_ms_real_lanes=bound_ms(io, flops * hd / SAM_HP)[0],
+                        shape=[N, Sn, 3 * H * SAM_HP], heads=H, head_dim=hd)
+            forms.setdefault(name, {})[f"hd64_{size}_form"] = form_of(line)
+            del y, a, bb, got, ref, y5, mask
+        torch.cuda.empty_cache()
+
+    # The four new kernels' lines: ViT-L's form, ViT-B's beside it.
+    for name, key in (("fused_window_attention_grid_i8_hd64", ()),
+                      ("fused_window_attention_rect_i8_hd64", ("edge_pair",)),
+                      ("global_attention_y_quant_i8_hd64", ()),
+                      ("fused_global_attention_y_i8_hd64", ("exp_bf16",))):
+        line = dict(lines[(name, "vit_l", *key)])
+        line["vit_b_form"] = form_of(lines[(name, "vit_b", *key)])
+        if name == "fused_window_attention_rect_i8_hd64":
+            line["corner_form"] = form_of(lines[(name, "vit_l", "corner")])
+            line["vit_b_form"]["corner_form"] = form_of(lines[(name, "vit_b", "corner")])
+        if name == "fused_global_attention_y_i8_hd64":
+            line["exp_fp32_form"] = form_of(lines[(name, "vit_l", "exp_fp32")])
+            line["vit_b_form"]["exp_fp32_form"] = form_of(lines[(name, "vit_b", "exp_fp32")])
+        results[name] = line
+    forms["fused_global_attention_y_hd64"] = {
+        "vit_b_12_heads_form": {**form_of(lines[("fused_global_attention_y_hd64", "vit_b",
+                                                  "exp_bf16")]),
+                                "exp_fp32_form": form_of(lines[("fused_global_attention_y_hd64",
+                                                                "vit_b", "exp_fp32")])}}
+    del lines
+    torch.cuda.empty_cache()
+
+    sam_w8a8_width_gates(gen, gate, "vit_b", 768, 3072, 12, forms)
     return out
 
 
@@ -5623,7 +5931,8 @@ def sam_predictor_phase(gen, card: str, root: str) -> dict:
     counts zeroed just before) and the embedding held within 5e-2 by
     `row_rel_err` to the port's plain path on the card (the wrappers swapped
     for their plain versions, no kernel launched), then `predict` with each
-    of `SAM_PRED_PROMPTS`, its IoU predictions and low-res logits held to the
+    of `SAM_PRED_PROMPTS` (the paths outside `SAM_PRED_SURFACE`: two points
+    and a box, and no generator), its IoU predictions and low-res logits held to the
     same prompt encoding, decoding and host post-processing on the CPU from
     the same embedding (1e-3 of the largest logit, IoU 1e-3 absolute; the
     masks' pixel agreement recorded), `SamAutomaticMaskGenerator.generate`
@@ -5635,7 +5944,8 @@ def sam_predictor_phase(gen, card: str, root: str) -> dict:
     `export_sam_decoder`, loaded and run with a mask input and
     `has_mask_input` 1 and 0 (within 1e-5 of the largest logit of
     `make_decoder_fn` on the same inputs). Each step's time goes out on a
-    line of its own; then `sam_hd64_kernel_gates`."""
+    line of its own; then `sam_hd64_kernel_gates` and
+    `sam_hd64_i8_kernel_gates`."""
     import os
 
     import numpy as np
@@ -5674,21 +5984,28 @@ def sam_predictor_phase(gen, card: str, root: str) -> dict:
         step(size, "write_checkpoint", write_s[size])
         step(size, "convert", convert_s[size])
 
-    paths, launches_total = {}, {k: 0 for k in kernels.KERNELS}
-    for path, size, int8 in SAM_PRED_PATHS:
+    paths, launches_total, int8_encoders = {}, {k: 0 for k in kernels.KERNELS}, {}
+    for path, size, weights_ in SAM_PRED_PATHS:
         cfg = getattr(build, f"sam_{size}")(torch.bfloat16)
         params = dict(converted[size])
-        if int8:
-            enc = quant.quantize_tree(params["image_encoder"], ("qkv", "proj", "fc1", "fc2"))
-            params["image_encoder"] = image_encoder.precompute_window_bias_weights(enc, cfg.vision)
-            cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, mlp_w8a8=True))
+        if weights_ in ("int8", "int8_i8"):
+            if size not in int8_encoders:  # both score forms serve the same weights
+                enc = quant.quantize_tree(params["image_encoder"], ("qkv", "proj", "fc1", "fc2"))
+                int8_encoders[size] = image_encoder.precompute_window_bias_weights(enc, cfg.vision)
+                del enc
+            params["image_encoder"] = int8_encoders[size]
+            cfg = dataclasses.replace(cfg, vision=dataclasses.replace(
+                cfg.vision, mlp_w8a8=True, attn_dots_i8=weights_ == "int8_i8"))
+        elif weights_ == "packed":
+            params["image_encoder"] = image_encoder.pack_sam_attention(params["image_encoder"],
+                                                                      cfg.vision)
         v = cfg.vision
         pred = predictor.SamPredictor(params, cfg, device="cuda")
         pred.set_image(image)  # first call: host buffers, the kernels' attributes
         kernels.reset_launch_counts()
         _, set_s = timed(lambda: pred.set_image(image))
         launches = kernels.launch_counts()
-        expect = sam_predictor_launches(v.depth, v.num_groups, int8)
+        expect = sam_predictor_launches(v.depth, v.num_groups, weights_)
         must(f"{path} launches", launches == expect,
              {k: (launches[k], expect[k]) for k in launches if launches[k] != expect[k]})
         for k_, n in launches.items():
@@ -5716,7 +6033,10 @@ def sam_predictor_phase(gen, card: str, root: str) -> dict:
             emb.cpu(), pred.original_size, pred.input_size)
         pred.predict(**SAM_PRED_PROMPTS["one_point"])  # first call
         predicts = {}
+        surface = path in SAM_PRED_SURFACE
         for name, prompt in SAM_PRED_PROMPTS.items():
+            if not surface and name != "two_points_and_box":
+                continue
             kw = {k_: (np.asarray(v_) if isinstance(v_, list) else v_) for k_, v_ in prompt.items()}
             (m, i, lo), pred_s = timed(lambda kw=kw: pred.predict(**kw))
             cm, ci, clo = cpu.predict(**kw)
@@ -5730,6 +6050,15 @@ def sam_predictor_phase(gen, card: str, root: str) -> dict:
                               "iou_abs_err": iou_err, "mask_pixel_agreement": agree,
                               "iou": i.tolist()}
             step(path, f"predict {name}", pred_s, masks=len(i))
+        paths[path] = {
+            "size": size, "weights": weights_, "set_image_s": set_s,
+            "encoder_row_rel_err": enc_err, "encoder_tol": tol,
+            "launches": {k_: n for k_, n in launches.items() if n}, "predict": predicts,
+            "decode_tol": dec_tol}
+        if not surface:
+            del pred, cpu, params, emb
+            torch.cuda.empty_cache()
+            continue
         one_point_low = torch.as_tensor(pred.predict(**{
             k_: np.asarray(v_) for k_, v_ in SAM_PRED_PROMPTS["one_point"].items()})[2][:1])
 
@@ -5748,13 +6077,9 @@ def sam_predictor_phase(gen, card: str, root: str) -> dict:
         gen_card.generate(image)  # first call
         records, gen_s = timed(lambda: gen_card.generate(image))
         step(path, "generate", gen_s, kept=len(records), points=len(pts))
-        paths[path] = {
-            "size": size, "int8_towers": int8, "set_image_s": set_s, "encoder_row_rel_err": enc_err,
-            "encoder_tol": tol, "launches": {k_: n for k_, n in launches.items() if n},
-            "predict": predicts, "decode_tol": dec_tol,
-            "generate": {"s": gen_s, "points": len(pts), "kept": len(records),
-                         "iou_thresh": thresh, "iou_gap": gap}}
-        if int8:
+        paths[path]["generate"] = {"s": gen_s, "points": len(pts), "kept": len(records),
+                                   "iou_thresh": thresh, "iou_gap": gap}
+        if weights_ == "int8":
             # The int8 towers change the encoder only: the prompt encoder and
             # the decoder are the bf16 path's, held to the CPU and exported there.
             del pred, cpu, probe, gen_card, params, emb
@@ -5817,9 +6142,12 @@ def sam_predictor_phase(gen, card: str, root: str) -> dict:
         del pred, cpu, probe, gen_card, gen_cpu, fn, direct, params, emb
         torch.cuda.empty_cache()
 
+    del int8_encoders
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    results: dict = {}
-    gates = sam_hd64_kernel_gates(gen, results)
+    results, forms = {}, {}
+    gates = sam_hd64_kernel_gates(gen, results, forms)
+    gates.update(sam_hd64_i8_kernel_gates(gen, results, forms))
     gates_s = time.perf_counter() - t0
     for name in SAM_HD64_NAMES:
         step("kernels", name, results[name]["ms"] / 1e3, ms=results[name]["ms"],
@@ -5829,8 +6157,9 @@ def sam_predictor_phase(gen, card: str, root: str) -> dict:
             "file_gb": {k: os.path.getsize(f) / 1e9 for k, f in files.items()},
             "paths": paths, "kernel_gates_s": gates_s, "kernel_gates": gates,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "launches": launches_total, "kernel_lines": results}
-    print(json.dumps({k: v for k, v in line.items() if k != "kernel_lines"}), flush=True)
+            "launches": launches_total, "kernel_lines": results, "form_lines": forms}
+    print(json.dumps({k: v for k, v in line.items() if k not in ("kernel_lines", "form_lines")}),
+          flush=True)
     return line
 
 
@@ -6032,6 +6361,10 @@ def main() -> int:
     finally:
         shutil.rmtree(sam_root, ignore_errors=True)
     results.update(sam_pred_line.pop("kernel_lines"))
+    # The forms of earlier kernels that the phase adds (ViT-B's widths, the
+    # packed kernels at hd 64) ride in those kernels' lines.
+    for name, extra in sam_pred_line.pop("form_lines").items():
+        results[name].update(extra)
     mark("sam_predictor")
 
     # Each kernel's count on the main path that it was written for: the

@@ -1,18 +1,23 @@
 """On the card: the hd 64 forms (ViT-L's and ViT-B's heads) of the SAM
 attention kernels against their plain PyTorch versions, in bf16, at the
-shapes of one ViT-L image: the window kernel on 16 full windows (196 rows,
-and 200 as the resident layout stores them beside composite bias
-weights), the boundary-window kernel on the merged edges and the corner,
-the global kernel in both exponential forms, and the lane-sliced global
-kernel at 16 heads. The forms that are not built raise ValueError. Every
-test here needs an NVIDIA GPU and skips without one. The file imports
-torch only, so it runs on a machine that has no JAX:
+shapes of one ViT-L or ViT-B image: the window kernel on 16 full windows
+(196 rows, and 200 as the resident layout stores them beside composite
+bias weights), the boundary-window kernel on the merged edges and the
+corner, each in both score forms (`dots_i8`); the global kernel in both
+exponential forms; the lane-sliced global kernel at 16 and 12 heads in
+both score and exponential forms, with its int8 pre-pass bit for bit;
+the packed kernels at hp 128 over 64 real lanes. The forms that no SAM
+configuration reaches raise ValueError naming themselves. Every test here
+needs an NVIDIA GPU and skips without one. The file imports torch only,
+so it runs on a machine that has no JAX:
 
     python -m pytest tests/test_torch_cuda_sam_hd64.py -q
 
 Gate: bf16 outputs within 1e-2 of each row's largest value (one bf16 ulp
 there); the bf16-exponential forms of the global kernels 2e-2, since
-their rounding follows the running maximum and so the key tiling.
+their rounding follows the running maximum and so the key tiling. The
+int8 score forms take the limits of their hd 80 forms
+(`test_torch_cuda_dots_i8.py`): 1e-2, and 2e-2 with bf16 exponentials.
 """
 
 import pytest
@@ -53,23 +58,25 @@ def _launched(name, fn):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dots_i8", [False, True], ids=["bf16_scores", "dots_i8"])
 @pytest.mark.parametrize("rows", [196, 200])
-def test_cuda_window_grid_hd64_matches_plain(cuda, rows):
+def test_cuda_window_grid_hd64_matches_plain(cuda, rows, dots_i8):
     y = _rand(cuda, 16, rows, 3 * _H * _HD)
     a, bb = (_rand(cuda, 16, rows, _H * _W, scale=2.0 / _SC) for _ in range(2))
-    got = _launched("fused_window_attention_grid_hd64",
+    got = _launched("fused_window_attention_grid" + ("_i8" if dots_i8 else "") + "_hd64",
                     lambda: sam_attention.fused_window_attention_grid(
-                        y, a, bb, **_KW, total_rows=rows if rows != 196 else 0))
-    ref = sam_attention.fused_window_attention_grid_plain(y, a, bb, _H, _HD, _W, _SC)
+                        y, a, bb, **_KW, total_rows=rows if rows != 196 else 0, dots_i8=dots_i8))
+    ref = sam_attention.fused_window_attention_grid_plain(y, a, bb, _H, _HD, _W, _SC, dots_i8)
     assert got.shape == (16, rows, _H * _HD)
     assert _row_rel_err(got[:, :196], ref[:, :196]) <= _TOL
     assert torch.isfinite(got.float()).all()
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dots_i8", [False, True], ids=["bf16_scores", "dots_i8"])
 @pytest.mark.parametrize("geoms", [[(14, 8), (8, 14)], [(14, 8)], [(8, 14)], [(8, 8)]],
                          ids=["edge_pair", "right", "bottom", "corner"])
-def test_cuda_window_rect_hd64_matches_plain(cuda, geoms):
+def test_cuda_window_rect_hd64_matches_plain(cuda, geoms, dots_i8):
     per = 4
     qkv_bias = _rand(cuda, 3 * _H * _HD, scale=0.5)
     ohs = [image_encoder._rect_onehot(r, c, _W, torch.bfloat16, "cuda") for r, c in geoms]
@@ -85,10 +92,11 @@ def test_cuda_window_rect_hd64_matches_plain(cuda, geoms):
     N = per * len(geoms)
     y = _rand(cuda, N, T, 3 * _H * _HD)
     a, bb = (_rand(cuda, N, T, _H * _W, scale=2.0 / _SC) for _ in range(2))
-    got = _launched("fused_window_attention_rect_hd64",
+    got = _launched("fused_window_attention_rect" + ("_i8" if dots_i8 else "") + "_hd64",
                     lambda: sam_attention.fused_window_attention_rect(
-                        y, a, bb, *tables, **_KW, geometry=geometry))
-    ref = sam_attention.fused_window_attention_rect_plain(y, a, bb, *tables, _H, _HD, _W, _SC)
+                        y, a, bb, *tables, **_KW, dots_i8=dots_i8, geometry=geometry))
+    ref = sam_attention.fused_window_attention_rect_plain(y, a, bb, *tables, _H, _HD, _W, _SC,
+                                                          dots_i8)
     assert _row_rel_err(got, ref) <= _TOL
 
 
@@ -107,33 +115,80 @@ def test_cuda_global_hd64_matches_plain(cuda, exp_bf16, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dots_i8", [False, True], ids=["bf16_scores", "dots_i8"])
 @pytest.mark.parametrize("exp_bf16,tol", [(False, 1e-2), (True, 2e-2)])
-def test_cuda_global_y_hd64_matches_plain(cuda, exp_bf16, tol):
+@pytest.mark.parametrize("H,hg", [(16, 16), (12, 4)], ids=["vit_l", "vit_b"])
+def test_cuda_global_y_hd64_matches_plain(cuda, H, hg, exp_bf16, tol, dots_i8):
     S = _G * _G
-    y = _rand(cuda, 1, S, 3 * _H * _HD)
-    a, bb = (_rand(cuda, 1, S, _H, _G, scale=2.0 / _SC) for _ in range(2))
-    kw = dict(num_heads=_H, head_dim=_HD, window=_G, scale=_SC, exp_bf16=exp_bf16)
-    got = _launched("fused_global_attention_y_hd64",
-                    lambda: sam_attention.fused_global_attention_y(y, a, bb, head_group=16, **kw))
+    y = _rand(cuda, 1, S, 3 * H * _HD)
+    a, bb = (_rand(cuda, 1, S, H, _G, scale=2.0 / _SC) for _ in range(2))
+    kw = dict(num_heads=H, head_dim=_HD, window=_G, scale=_SC, exp_bf16=exp_bf16,
+              dots_i8=dots_i8)
+    name = "fused_global_attention_y" + ("_i8" if dots_i8 else "") + "_hd64"
+    got = _launched(name, lambda: sam_attention.fused_global_attention_y(
+        y, a, bb, head_group=hg, **kw))
     ref = sam_attention.fused_global_attention_y_plain(y, a, bb, **kw)
     assert _row_rel_err(got, ref) <= tol
 
 
 @pytest.mark.cuda
-def test_cuda_hd64_forms_not_built_raise(cuda):
-    y = _rand(cuda, 2, 196, 3 * _H * _HD)
-    a = _rand(cuda, 2, 196, _H * _W)
-    with pytest.raises(ValueError, match="dots_i8"):
-        sam_attention.fused_window_attention_grid(y, a, a, **_KW, dots_i8=True)
-    with pytest.raises(ValueError, match="hd 80 or 64"):
+@pytest.mark.parametrize("H", [16, 12], ids=["vit_l", "vit_b"])
+def test_cuda_global_y_quant_i8_hd64_bit_equal_to_plain(cuda, H):
+    S = _G * _G
+    y = _rand(cuda, 1, S, 3 * H * _HD)
+    a, bb = (_rand(cuda, 1, S, H, _G, scale=2.0 / _SC) for _ in range(2))
+    a[0, 0, 0] = 0.0  # an all-zero [A | B] half: the rest of the row sets the scale
+    got = _launched("global_attention_y_quant_i8_hd64",
+                    lambda: sam_attention.global_y_quant_i8(y, a, bb, H, _HD))
+    ref = sam_attention.global_y_quant_i8_plain(y, a, bb, H, _HD)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    assert not got[0][..., _HD:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [16, 12], ids=["vit_l", "vit_b"])
+@pytest.mark.parametrize("name,N,Wn", [("fused_window_attention_packed", 25, _W),
+                                       ("fused_global_attention_packed", 1, _G)],
+                         ids=["window", "global"])
+def test_cuda_packed_hd64_matches_plain(cuda, H, name, N, Wn):
+    """K19 and K20 at hp 128 over ViT-L's and ViT-B's 64 real lanes (pad
+    lanes zero as the packed weights make them), the scale from hd 64."""
+    hp, S = 128, Wn * Wn
+    y = torch.zeros((N, S, 3, H, hp), dtype=torch.bfloat16, device="cuda")
+    y[..., :_HD] = _rand(cuda, N, S, 3, H, _HD)
+    y = y.reshape(N, S, 3 * H * hp)
+    a, bb = (_rand(cuda, N, H, S, Wn, scale=2.0) for _ in range(2))
+    got = _launched(name, lambda: getattr(sam_attention, name)(y, a, bb, H, hp, Wn, _SC))
+    ref = getattr(sam_attention, f"{name}_plain")(y, a, bb, H, hp, Wn, _SC)
+    assert _row_rel_err(got, ref) <= _TOL
+    assert torch.all(got.reshape(N, S, H, hp)[..., _HD:] == 0)
+
+
+@pytest.mark.cuda
+def test_cuda_sam_forms_no_configuration_reaches_raise(cuda):
+    """Window kernels at a window other than 14 and a head dim outside
+    {64, 80}, and packed int8 qkv/proj at a global block of the fused int8
+    route: ValueError, each naming the form."""
+    with pytest.raises(ValueError, match="W 14 and hd 80 or 64; got hd 96"):
         sam_attention.fused_window_attention_grid(
             _rand(cuda, 2, 196, 3 * 8 * 96), _rand(cuda, 2, 196, 8 * _W),
             _rand(cuda, 2, 196, 8 * _W), num_heads=8, head_dim=96, window=_W, scale=96**-0.5)
-    H12 = 12
-    yb = _rand(cuda, 1, _G * _G, 3 * H12 * _HD)
-    ab = _rand(cuda, 1, _G * _G, H12, _G)
-    with pytest.raises(ValueError, match="head group"):
-        sam_attention.fused_global_attention_y(yb, ab, ab, num_heads=H12, head_dim=_HD,
-                                               window=_G, scale=_SC, head_group=4)
-    with pytest.raises(ValueError, match="dots_i8 pre-pass"):
-        sam_attention.global_y_quant_i8(yb, ab, ab, H12, _HD)
+    W16 = 16
+    with pytest.raises(ValueError, match="W 14 and hd 80 or 64; got hd 64, W 16"):
+        sam_attention.fused_window_attention_grid(
+            _rand(cuda, 2, W16 * W16, 3 * _H * _HD), _rand(cuda, 2, W16 * W16, _H * W16),
+            _rand(cuda, 2, W16 * W16, _H * W16), **{**_KW, "window": W16}, dots_i8=True)
+    with pytest.raises(ValueError, match="dots_i8 pre-pass is built for hd 80 or 64"):
+        yb = _rand(cuda, 1, _G * _G, 3 * 4 * 32)
+        ab = _rand(cuda, 1, _G * _G, 4, _G)
+        sam_attention.global_y_quant_i8(yb, ab, ab, 4, 32)
+    cfg = image_encoder.SamVisionConfig(img_size=1024, patch_size=16, embed_dim=128, depth=1,
+                                        num_heads=2, out_chans=16, window_size=14,
+                                        global_attn_indexes=(0,))
+    blk = {"qkv": {"q": torch.zeros((128, 3 * 2 * 128), dtype=torch.int8, device="cuda"),
+                   "scale": torch.ones(3 * 2 * 128, device="cuda")},
+           "proj": {"q": torch.zeros((2 * 128, 128), dtype=torch.int8, device="cuda"),
+                    "scale": torch.ones(128, device="cuda")}}
+    with pytest.raises(ValueError, match="packed int8 qkv/proj weights at a global block"):
+        image_encoder._block(torch.zeros((1, 64, 64, 128), dtype=torch.bfloat16, device="cuda"),
+                             blk, cfg, window=False)

@@ -250,6 +250,29 @@ KERNELS: Dict[str, KernelSpec] = {
             "ullava_fused_global_attention_y_hd64", (P, P, P, P, I, I, F, I, P),
             "ullava_tpu/ops/sam_attention.py:652",
         ),
+        # The int8 score forms (`dots_i8`) at hd 64 of K3, K14 and K11 with
+        # its pre-pass, on the cores of their hd 80 forms.
+        KernelSpec(
+            "fused_window_attention_grid_i8_hd64", "sam_window_attention.cu",
+            "ullava_fused_window_attention_grid_i8_hd64", (P, P, P, P, I, I, I, F, P),
+            "ullava_tpu/ops/sam_attention.py:181",
+        ),
+        KernelSpec(
+            "fused_window_attention_rect_i8_hd64", "sam_rect_attention.cu",
+            "ullava_fused_window_attention_rect_i8_hd64",
+            (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P),
+            "ullava_tpu/ops/sam_attention.py:354",
+        ),
+        KernelSpec(
+            "global_attention_y_quant_i8_hd64", "sam_global_attention_y.cu",
+            "ullava_global_attention_y_quant_i8_hd64", (P, P, P, P, P, P, P, P, I, I, P),
+            "ullava_tpu/ops/sam_attention.py:552",
+        ),
+        KernelSpec(
+            "fused_global_attention_y_i8_hd64", "sam_global_attention_y.cu",
+            "ullava_fused_global_attention_y_i8_hd64", (P, P, P, P, P, P, P, I, I, F, I, P),
+            "ullava_tpu/ops/sam_attention.py:652",
+        ),
         # The chunk-pipelined W8A8 MLP, whose only caller is the MLP
         # microbenchmark (`microbench/mlp_variants.py`).
         KernelSpec(

@@ -3,7 +3,7 @@
 // 64 x 64 grid with the decomposed rel-pos bias, online softmax, acc / l
 // at the end. Three kernels run on it:
 //   - K11 fused_global_attention_y (sam_global_attention_y.cu): hd 80
-//     (ViT-H; and hd 64, ViT-L's head, with bf16 scores), q/k/v read in
+//     (ViT-H; and hd 64, ViT-L's and ViT-B's head), q/k/v read in
 //     place from the LN+qkv output [B, S, 3 * H * 80], the
 //     bias terms pre-scaled by 1/scale, [B, S, H, 64], added before the
 //     scale; bf16 or int8 scores (DOTS_I8), fp32 or bf16 exponentials;
@@ -66,10 +66,11 @@
 //     to issue their products (FA3's ping-pong on two named barriers).
 //   - DOTS_I8 (K11's int8 score form): a pre-pass (sam_global_attention_y.cu)
 //     quantizes each row once per layer: q and k codes in 128-byte rows
-//     (hd 80, zero past it), their fp32 scales, the codes of each row's
-//     [A | B] (in bf16, exact) and its scale. The core loads Q's and each
-//     K tile's codes by TMA (16 KB tiles, the same swizzle) with the key
-//     scales, runs Q K^T as three wgmma.m64n128k32 s8 steps into s32 sums,
+//     (hd 80 or 64, zero past it), their fp32 scales, the codes of each
+//     row's [A | B] (in bf16, exact) and its scale. The core loads Q's and
+//     each K tile's codes by TMA (16 KB tiles, the same swizzle) with the
+//     key scales, runs Q K^T as ceil(hd / 32) wgmma.m64n128k32 s8 steps
+//     (three at hd 80, two at hd 64) into s32 sums,
 //     and forms float(acc) * (qs * ks) + float(ca + cb) * abss, in that
 //     order, before the scale. P V stays bf16.
 // No row is ever fully masked (no mask): the core assumes a finite row
@@ -245,7 +246,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr bool AFTER = P::kBiasAfterScale;
   static_assert(HD == 64 || HD == 80 || HD == 128, "hd 64 or 80 (K4, K11) or 128 (K20)");
   static_assert(!(AFTER && (DOTS || EXPBF16)), "the after-scale form is K20's: bf16, fp32 exp");
-  static_assert(!DOTS || HD == 80, "the int8 score form is K11's");
+  static_assert(!DOTS || HD == 64 || HD == 80, "the int8 score form is K11's");
   static_assert(!(P::kBiasRaw && (AFTER || DOTS)), "raw terms are K4's: before the scale, bf16");
   using L = Layout<DOTS>;
 
@@ -360,7 +361,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if constexpr (DOTS) {
       wgmma_qk_s8_first(si, desc_sw128(q_wg), desc_sw128(sK(s)));
 #pragma unroll
-      for (int kk = 1; kk < 3; ++kk)
+      for (int kk = 1; kk < (HD + 31) / 32; ++kk)
         wgmma_qk_s8(si, desc_sw128(q_wg + kk * 32), desc_sw128(sK(s) + kk * 32));
     } else {
       wgmma_qk_first(sc, desc_sw128(q_wg), desc_sw128(sK(s)));

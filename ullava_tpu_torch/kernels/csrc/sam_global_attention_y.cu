@@ -1,5 +1,5 @@
 // fused_global_attention_y: SAM ViT global-block attention over the
-// 64 x 64 grid (S = 4096, hd 80 for ViT-H, hd 64 for ViT-L) that reads q, k and v in place from the
+// 64 x 64 grid (S = 4096, hd 80 for ViT-H, hd 64 for ViT-L and ViT-B) that reads q, k and v in place from the
 // raw [B, S, 3C] qkv projection output and writes the head-merged
 // [B, S, C] activations, with the decomposed rel-pos bias and an online
 // softmax.
@@ -26,15 +26,25 @@
 // kernel's serving form.
 //
 // The hd 64 form (`ullava_fused_global_attention_y_hd64`, bf16 scores):
-// ViT-L's int8-tower global blocks. The TPU kernel reads a slab of 16
-// heads at hd 64 (two heads a 128-lane block of y); here each block reads
-// its head's 64 lanes by TMA as one box, so no slab exists: the core at
-// HD = 64, 4 k-steps of wgmma.m64n128k16. Bound at one ViT-L B=1 block
-// (16 heads): 68.7 GFLOP, ~69 us at the bf16 peak: operations.
+// ViT-L's and ViT-B's int8-tower global blocks. The TPU kernel reads a
+// slab of heads at hd 64 (16 for ViT-L, 4 for ViT-B's 12: two heads a
+// 128-lane block of y); here each block reads its head's 64 lanes by TMA
+// as one box, so no slab exists and H is any count (the bias view's head
+// stride is 128 bytes at every H): the core at HD = 64, 4 k-steps of
+// wgmma.m64n128k16. Bound at one ViT-L B=1 block (16 heads): 68.7 GFLOP,
+// ~69 us at the bf16 peak; ViT-B's 12 heads 51.5 GFLOP, ~52 us:
+// operations.
+//
+// Its int8 score form at hd 64 (`ullava_global_attention_y_quant_i8_hd64`,
+// then `ullava_fused_global_attention_y_i8_hd64`): the pre-pass writes the
+// same [2, B, H, S, 128] code rows with 64 codes and 64 zero bytes, so the
+// core's TMA box and swizzle are those of hd 80 and its Q K^T is two k32
+// steps (the rows' bytes 0-63). Bound at one ViT-L B=1 block: 34 GFLOP of
+// int8 qk (~17 us) and 34 GFLOP of bf16 P V (~35 us): operations.
 //
 // The dots_i8 form quantizes per row once per layer, not once per query
 // tile: the pre-pass (one group of 8 threads a row) writes q's and k's
-// int8 codes in 128-byte rows (hd 80, zero past it) [2, B, H, S, 128] and
+// int8 codes in 128-byte rows (hd 80 or 64, zero past it) [2, B, H, S, 128] and
 // their scales [2, B, H, S], and each row's [A | B] codes [B, S, H, 64]
 // twice (bf16, exact small integers, in the bias terms' own layout) with
 // its scale [B, H, S], in the arithmetic of row_quant (`_rq_rows`): abs-max
@@ -61,14 +71,16 @@ struct GlobalY : glob::BiasBSHW {
 
 // The dots_i8 pre-pass. Group gid (8 threads) of B * S * H * 3 takes row
 // kind = gid % 3 (q, k, or [A | B]) of (b, s, h) = gid / 3. For q and k
-// thread t < 5 owns elements 16 t .. 16 t + 15 of the 80 and writes their
-// codes as one 16-byte store; threads 5-7 write the zero pad. For [A | B]
-// threads 0-3 own A's 64 terms and 4-7 B's, 16 each.
+// thread t < HD / 16 owns elements 16 t .. 16 t + 15 of the HD and writes
+// their codes as one 16-byte store; the other threads write the zero pad.
+// For [A | B] threads 0-3 own A's 64 terms and 4-7 B's, 16 each.
+template <int HD>
 __global__ void __launch_bounds__(256) global_y_quant_i8_kernel(
     const bf16* __restrict__ y, const bf16* __restrict__ a, const bf16* __restrict__ bb,
     int8_t* __restrict__ codes, float* __restrict__ scales, bf16* __restrict__ ac,
     bf16* __restrict__ bc, float* __restrict__ abss, int B, int H) {
-  constexpr int S = glob::kS, HD = kGlobYHD, W = glob::kW;
+  constexpr int S = glob::kS, W = glob::kW;
+  static_assert(HD % 16 == 0 && HD <= 128, "whole 16-byte code chunks in a 128-byte row");
   const long gid = (static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x) / 8;
   const int t = threadIdx.x % 8;
   const long rows = static_cast<long>(B) * S * H;
@@ -82,7 +94,7 @@ __global__ void __launch_bounds__(256) global_y_quant_i8_kernel(
   float x[16];
   const bf16* src = nullptr;
   if (kind < 2) {
-    if (t < 5) src = y + (bs * 3 + kind) * (H * HD) + h * HD + 16 * t;
+    if (t < HD / 16) src = y + (bs * 3 + kind) * (H * HD) + h * HD + 16 * t;
   } else {
     src = (t < 4 ? a : bb) + bsh * W + 16 * (t % 4);
   }
@@ -149,6 +161,20 @@ int launch_global_y(const void* y, const void* a, const void* b, const void* cod
              : glob::launch_global<GlobalY<HD>, false, DOTS>(y, y, y, a, b, codes, scales, p, st);
 }
 
+// The dots_i8 pre-pass at hd HD (`codes` zero past it).
+template <int HD>
+int launch_quant_i8(const void* y, const void* a, const void* b, void* codes, void* scales,
+                    void* ac, void* bc, void* abss, int B, int H, void* stream) {
+  const long groups = 3l * B * glob::kS * H;
+  if (groups == 0) return 0;
+  const int blocks = static_cast<int>((groups * 8 + 255) / 256);
+  global_y_quant_i8_kernel<HD><<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(y), static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+      static_cast<int8_t*>(codes), static_cast<float*>(scales), static_cast<bf16*>(ac),
+      static_cast<bf16*>(bc), static_cast<float*>(abss), B, H);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace ullava
 
 // y [B, 4096, 3 * H * 80], a, b [B, 4096, H, 64], o [B, 4096, H * 80], bf16.
@@ -159,7 +185,7 @@ ULLAVA_EXPORT int ullava_fused_global_attention_y(const void* y, const void* a, 
                                                           B, H, scale, exp_bf16, stream);
 }
 
-// The hd 64 form (ViT-L), bf16 scores: y [B, 4096, 3 * H * 64], a, b
+// The hd 64 form (ViT-L, ViT-B), bf16 scores: y [B, 4096, 3 * H * 64], a, b
 // [B, 4096, H, 64], o [B, 4096, H * 64], bf16.
 ULLAVA_EXPORT int ullava_fused_global_attention_y_hd64(const void* y, const void* a,
                                                        const void* b, void* o, int B, int H,
@@ -183,15 +209,8 @@ ULLAVA_EXPORT int ullava_global_attention_y_quant_i8(const void* y, const void* 
                                                      const void* b, void* codes, void* scales,
                                                      void* ac, void* bc, void* abss, int B,
                                                      int H, void* stream) {
-  using namespace ullava;
-  const long groups = 3l * B * glob::kS * H;
-  if (groups == 0) return 0;
-  const int blocks = static_cast<int>((groups * 8 + 255) / 256);
-  global_y_quant_i8_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(y), static_cast<const bf16*>(a), static_cast<const bf16*>(b),
-      static_cast<int8_t*>(codes), static_cast<float*>(scales), static_cast<bf16*>(ac),
-      static_cast<bf16*>(bc), static_cast<float*>(abss), B, H);
-  return static_cast<int>(cudaGetLastError());
+  return ullava::launch_quant_i8<ullava::kGlobYHD>(y, a, b, codes, scales, ac, bc, abss, B, H,
+                                                   stream);
 }
 
 // The dots_i8 form on the pre-pass's outputs: int8 scores (q, k and the
@@ -203,4 +222,32 @@ ULLAVA_EXPORT int ullava_fused_global_attention_y_i8(const void* y, const void* 
                                                      void* stream) {
   return ullava::launch_global_y<ullava::kGlobYHD, true>(y, ac, bc, codes, scales, abss, o, B,
                                                          H, scale, exp_bf16, stream);
+}
+
+// The hd 64 pre-pass (ViT-L, ViT-B): y [B, 4096, 3 * H * 64]; the outputs
+// as the hd 80 pre-pass's, each code row 64 codes and 64 zero bytes.
+ULLAVA_EXPORT int ullava_global_attention_y_quant_i8_hd64(const void* y, const void* a,
+                                                          const void* b, void* codes,
+                                                          void* scales, void* ac, void* bc,
+                                                          void* abss, int B, int H,
+                                                          void* stream) {
+  return ullava::launch_quant_i8<64>(y, a, b, codes, scales, ac, bc, abss, B, H, stream);
+}
+
+// The hd 64 dots_i8 form on the hd 64 pre-pass's outputs; o [B, 4096, H * 64].
+ULLAVA_EXPORT int ullava_fused_global_attention_y_i8_hd64(const void* y, const void* codes,
+                                                          const void* scales, const void* ac,
+                                                          const void* bc, const void* abss,
+                                                          void* o, int B, int H, float scale,
+                                                          int exp_bf16, void* stream) {
+  return ullava::launch_global_y<64, true>(y, ac, bc, codes, scales, abss, o, B, H, scale,
+                                           exp_bf16, stream);
+}
+
+// {registers a thread, shared bytes a block, spilled bytes a thread,
+// blocks an SM} of the hd 64 dots_i8 form's kernel (`exp_bf16` 0 or 1).
+ULLAVA_EXPORT int ullava_fused_global_attention_y_i8_hd64_attrs(int exp_bf16, int* out) {
+  using namespace ullava;
+  return exp_bf16 ? glob::attrs<GlobalY<64>, true, true>(out)
+                  : glob::attrs<GlobalY<64>, false, true>(out);
 }

@@ -1,5 +1,5 @@
 // fused_window_attention_rect: attention of the SAM encoder's boundary
-// windows in the resident layout (hd 80, and hd 64 in bf16). A boundary
+// windows in the resident layout (hd 80, and hd 64). A boundary
 // window is stored as the T = rows x cols real tokens of a logical
 // 14 x 14 window (right edge 14 x 8, bottom edge 8 x 14, corner 8 x 8 for
 // ViT-H, ViT-L and ViT-B: a grid of 64); its other
@@ -48,6 +48,13 @@
 // are [halves, H, P, 64 + 28]. Bound at one ViT-L B=1 block (the merged
 // edges, N = 8, T = 112, H = 16): 6.9 MB in and out, ~2 us, against
 // 0.2 GFLOP: bytes.
+//
+// Its int8 score form at hd 64 (`ullava_fused_window_attention_rect_i8_hd64`):
+// ViT-L's and ViT-B's boundary windows with `attn_dots_i8` (the merged
+// edges and the corner). The real keys' codes stay in K's swizzled
+// 128-byte rows (window_whole.cuh), two m16n8k32 steps; the pad tables
+// [halves, H, P, 92] keep 16-byte rows of heads (P * 92 is a multiple of
+// 8 at P = 84 and 132). Bound as the bf16 form's: bytes.
 //
 // Dual geometry: the right and bottom classes share one launch; windows
 // [0, n_first) take (rows0, cols0) and half 0 of the stacked tables, the
@@ -188,13 +195,28 @@ ULLAVA_EXPORT int ullava_fused_window_attention_rect_hd64(const void* y, const v
                                         cols0, rows1, cols1, scale, stream);
 }
 
+// The hd 64 form's int8 scores (`dots_i8`). Arguments as above.
+ULLAVA_EXPORT int ullava_fused_window_attention_rect_i8_hd64(const void* y, const void* a,
+                                                             const void* b, const void* pad_k,
+                                                             const void* pad_v, void* o, int N,
+                                                             int H, int T, int P, int n_first,
+                                                             int rows0, int cols0, int rows1,
+                                                             int cols1, float scale,
+                                                             void* stream) {
+  return ullava::launch_rect<64, true>(y, a, b, pad_k, pad_v, o, N, H, T, P, n_first, rows0,
+                                       cols0, rows1, cols1, scale, stream);
+}
+
 // {registers a thread, shared bytes a block, spilled bytes a thread,
-// blocks an SM} of the hd 64 form's kernel at one geometry pair.
-ULLAVA_EXPORT int ullava_window_attention_rect_hd64_attrs(int rows0, int cols0, int rows1,
-                                                          int cols1, int* out) {
+// blocks an SM} of the hd 64 form's kernel (bf16 or int8 scores, i8) at
+// one geometry pair.
+ULLAVA_EXPORT int ullava_window_attention_rect_hd64_attrs(int i8, int rows0, int cols0,
+                                                          int rows1, int cols1, int* out) {
   using namespace ullava;
   return with_geometry(rows0, cols0, rows1, cols1, [&](auto g0, auto g1) {
-    return window_whole_attrs<64, kRectWin, WindowRect<64>, decltype(g0), decltype(g1), false>(
-        out);
+    using G0 = decltype(g0);
+    using G1 = decltype(g1);
+    return i8 ? window_whole_attrs<64, kRectWin, WindowRect<64>, G0, G1, true>(out)
+              : window_whole_attrs<64, kRectWin, WindowRect<64>, G0, G1, false>(out);
   });
 }

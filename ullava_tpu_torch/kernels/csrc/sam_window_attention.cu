@@ -1,5 +1,5 @@
 // fused_window_attention_grid: SAM ViT window attention (14 x 14 windows,
-// hd 80, and hd 64 in bf16) read straight from the raw qkv projection output, with the
+// hd 80, and hd 64) read straight from the raw qkv projection output, with the
 // decomposed rel-pos bias, writing the head-merged output; and
 // fused_window_attention, the same function per (window, head) pair in
 // the head-major layout.
@@ -65,6 +65,14 @@
 // q and the bias-term row [A | B] per row by each warp, qk on the int8
 // tensor cores (hd 80 zero-padded to 96: three m16n8k32 steps), the
 // one-hot expansion of the TPU kernel as the sum of two codes, P V in bf16.
+//
+// Its hd 64 form (`ullava_fused_window_attention_grid_i8_hd64`): ViT-L's
+// and ViT-B's window blocks with `attn_dots_i8`, 196 rows a window or the
+// resident layout's 200. Q K^T is two m16n8k32 steps; K's codes stay in
+// the swizzled 128-byte rows of its bf16 copy (window_whole.cuh). Bound at
+// one ViT-L B=1 block in the padded layout (N = 16, S = 200, H = 16):
+// y 19.7 MB, the terms 2.9 MB, o 6.6 MB, ~8.7 us of HBM time against
+// ~0.6 us of int8 qk and ~1.3 us of bf16 P V: bytes.
 //
 // Compiled with ULLAVA_MUTANT_WINDOW_BIAS_RAW the head-major form reads its
 // bias terms without the 1/scale pre-scale: a deliberate bug that only
@@ -195,11 +203,20 @@ ULLAVA_EXPORT int ullava_fused_window_attention_grid_hd64(const void* y, const v
   return ullava::launch_grid<64, false>(y, a, b, o, N, H, total_rows, scale, stream);
 }
 
+// The hd 64 form's int8 scores (`dots_i8`). Arguments as above.
+ULLAVA_EXPORT int ullava_fused_window_attention_grid_i8_hd64(const void* y, const void* a,
+                                                             const void* b, void* o, int N,
+                                                             int H, int total_rows, float scale,
+                                                             void* stream) {
+  return ullava::launch_grid<64, true>(y, a, b, o, N, H, total_rows, scale, stream);
+}
+
 // {registers a thread, shared bytes a block, spilled bytes a thread,
-// blocks an SM} of the hd 64 form's kernel (`form` unused).
-ULLAVA_EXPORT int ullava_window_attention_grid_hd64_attrs(int, int* out) {
+// blocks an SM} of the hd 64 form's kernel, bf16 (i8 = 0) or int8 scores.
+ULLAVA_EXPORT int ullava_window_attention_grid_hd64_attrs(int i8, int* out) {
   using namespace ullava;
-  return window_whole_attrs<64, kWin, WindowGrid<64>, WholeWindow, WholeWindow, false>(out);
+  return i8 ? window_whole_attrs<64, kWin, WindowGrid<64>, WholeWindow, WholeWindow, true>(out)
+            : window_whole_attrs<64, kWin, WindowGrid<64>, WholeWindow, WholeWindow, false>(out);
 }
 
 // q, k, v, o: [N, 196, 80] bf16 (N = windows x heads); a, b: [N, 196, 14]

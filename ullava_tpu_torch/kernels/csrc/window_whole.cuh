@@ -8,11 +8,11 @@
 //     ullava_tpu/ops/sam_attention.py:791-822): HD 128, the raw bias terms
 //     added after the scale (P::kBiasAfterScale);
 //   - K3, the grid window kernel (`_grid_kernel` :113-178): HD 80 (ViT-H;
-//     and HD 64, ViT-L's and ViT-B's head, in bf16), bias terms pre-scaled
+//     and HD 64, ViT-L's and ViT-B's head), bias terms pre-scaled
 //     by 1/scale and added before it, a window stored as Sq = 196 or
 //     `total_rows` = 200 rows of which the first 196 are keys;
 //   - K14, the boundary-window kernel (`_rect_kernel` :261-350): HD 80
-//     (and HD 64 in bf16), only the T = R x C real tokens of a logical
+//     (and HD 64), only the T = R x C real tokens of a logical
 //     WB x WB window are rows and keys (the geometry G, a template
 //     parameter); the pad positions
 //     are not keys of any product (P::kPadKeys, below);
@@ -21,7 +21,7 @@
 //     in natural column order (P::kBiasRaw): each term is scaled by
 //     1/scale and rounded to bf16 where a thread reads it, as the TPU
 //     wrapper pre-scales them (:88-90).
-// K3 and K14 also take the int8 score form (I8, `dots_i8`).
+// K3 and K14 also take the int8 score form (I8, `dots_i8`) at both HDs.
 //
 // Design (windows of at most kWwKeys = 208 keys: 196 for 14 x 14, padded
 // to 13 chunks of 16):
@@ -64,9 +64,12 @@
 //     no pad row is loaded and no pad key goes through an MMA (84 of 196
 //     logical keys of an edge window, 132 of a corner one).
 //   - I8 (`dots_i8`): the block quantizes its K rows once, in place, to
-//     int8 codes (hd zero-padded to 96 bytes: three k-steps of
-//     mma.sync.m16n8k32) with each row's scale beside them; each warp
-//     quantizes its tile's Q rows (in place) and [A | B] rows. Codes and
+//     int8 codes (hd 80 zero-padded to 96 bytes: three k-steps of
+//     mma.sync.m16n8k32; hd 64 two) with each row's scale beside them; each
+//     warp quantizes its tile's Q rows (in place) and [A | B] rows. A
+//     swizzled K row (HD 64) keeps the swizzle: its 16-byte code chunk c
+//     lands where bf16 chunk c was, so the codes' ldmatrix reads of 8 rows
+//     hit distinct banks as the bf16 ones do. Codes and
 //     scales are `_row_quant`'s bit for bit: abs-max floored at 1e-12,
 //     127 / amax as an IEEE division, round half to even, scale amax *
 //     (1 / 127). s = (float(qk) * (qs * ks) + float(ca + cb) * abss) *
@@ -229,18 +232,21 @@ __device__ __forceinline__ float ww_row_amax(float amax) {
 
 // `_row_quant` of one bf16 row of HD in place, half hf of it by this lane
 // and the other half by lane ^ 1: the row becomes its int8 codes, bytes
-// [HD, 32 * ceil(HD / 32)) zero, and the row's scale is returned. A half is
-// read whole before any code is written (the partner's codes land on this
-// half only after the shuffle, which waits for these reads).
+// [HD, 32 * ceil(HD / 32)) zero, and the row's scale is returned. The
+// row's 16-byte chunk c lies at chunk c ^ swz (swz = 0: in order); the
+// codes keep that placement. A half is read whole before any code is
+// written (the partner's codes land on this half only after the shuffle,
+// which waits for these reads).
 template <int HD>
-__device__ __forceinline__ float ww_quantize_half_row(unsigned char* row, int hf) {
+__device__ __forceinline__ float ww_quantize_half_row(unsigned char* row, int hf, int swz = 0) {
   constexpr int HALF = HD / 2, KB = (HD + 31) / 32 * 32;
   static_assert(HALF % 8 == 0, "half a row of whole 16-byte chunks");
+  auto at = [&](int byte) { return row + ((((byte >> 4) ^ swz) << 4) | (byte & 15)); };
   float v[HALF];
   float amax = 0.f;
 #pragma unroll
   for (int c = 0; c < HALF / 8; ++c) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(row + hf * HALF * 2 + c * 16);
+    const uint4 raw = *reinterpret_cast<const uint4*>(at(hf * HALF * 2 + c * 16));
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -258,11 +264,11 @@ __device__ __forceinline__ float ww_quantize_half_row(unsigned char* row, int hf
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       w |= (static_cast<uint32_t>(__float2int_rn(__fmul_rn(v[c + i], inv))) & 0xffu) << (8 * i);
-    *reinterpret_cast<uint32_t*>(row + hf * HALF + c) = w;
+    *reinterpret_cast<uint32_t*>(at(hf * HALF + c)) = w;
   }
   if (hf == 1) {
 #pragma unroll
-    for (int b = HD; b < KB; b += 4) *reinterpret_cast<uint32_t*>(row + b) = 0u;
+    for (int b = HD; b < KB; b += 4) *reinterpret_cast<uint32_t*>(at(b)) = 0u;
   }
   return __fmul_rn(amax, 1.f / 127.f);
 }
@@ -381,7 +387,8 @@ __device__ __forceinline__ void ww_window_body(const P& p, unsigned char* smem_r
       if constexpr (I8) {  // K's codes in place, once for the block
         for (int i = tid; i < NK * 2; i += kWwThreads) {
           const int r = i >> 1, hf = i & 1;
-          const float ks = ww_quantize_half_row<HD>(sK + ww_offset<HD>(r, 0), hf);
+          const float ks = ww_quantize_half_row<HD>(sK + r * RB, hf,
+                                                    ww_swizzled<HD>() ? (r & 7) : 0);
           if (hf == 0) sKs[r] = ks;
         }
         __syncthreads();
@@ -463,8 +470,8 @@ __device__ __forceinline__ void ww_window_body(const P& p, unsigned char* smem_r
         for (int np = 0; np < NC; ++np) {  // 16 keys: two m16n8k32 products
           uint32_t bq[4];
           const int r = np * 16 + (lane & 7) + ((lane >> 4) << 3);
-          ldmatrix_x4(bq, reinterpret_cast<const bf16*>(sK + r * RB + kk * 32 +
-                                                        ((lane >> 3) & 1) * 16));
+          ldmatrix_x4(bq, reinterpret_cast<const bf16*>(
+                              sK + ww_offset<HD>(r, 2 * kk + ((lane >> 3) & 1))));
           mma_s8(si[2 * np], qf8[kk], bq[0], bq[1]);
           mma_s8(si[2 * np + 1], qf8[kk], bq[2], bq[3]);
         }

@@ -168,7 +168,9 @@ def _plain_patches(scope: str):
                   (E, "fused_mlp_block", mlp), (E, "fused_window_attention_grid", grid),
                   (E, "fused_window_attention_rect", rect),
                   (E, "fused_global_attention_y", global_y),
-                  (E, "fused_global_attention", S.fused_global_attention_plain)]
+                  (E, "fused_global_attention", S.fused_global_attention_plain),
+                  (E, "fused_window_attention_packed", S.fused_window_attention_packed_plain),
+                  (E, "fused_global_attention_packed", S.fused_global_attention_packed_plain)]
 
 
 @contextlib.contextmanager

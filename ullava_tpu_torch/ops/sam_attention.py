@@ -69,18 +69,14 @@ def _check_window_kernel_shape(hd: int, W: int) -> None:
 
 
 def _window_kernel(base: str, hd: int, W: int, dots_i8: bool) -> str:
-    """The CUDA entry of window kernel `base` (K3 or K14) for a head dim:
-    ViT-H's 80 in both score forms, ViT-L's and ViT-B's 64 with bf16
-    scores (`<base>_hd64`). Any other form raises ValueError."""
+    """The CUDA entry of window kernel `base` (K3 or K14) for a head dim,
+    in both score forms: ViT-H's 80 (`<base>`, `<base>_i8`), ViT-L's and
+    ViT-B's 64 (`<base>_hd64`, `<base>_i8_hd64`). Any other form raises
+    ValueError: no SAM configuration reaches it."""
     if W != 14 or hd not in (64, 80):
         raise ValueError(f"the CUDA {base} kernel is built for W 14 and hd 80 or 64; "
                          f"got hd {hd}, W {W}")
-    if hd == 64:
-        if dots_i8:
-            raise ValueError(f"the dots_i8 form of the CUDA {base} kernel is built for hd 80 "
-                             "only; hd 64 (ViT-L, ViT-B) takes bf16 scores")
-        return base + "_hd64"
-    return base + "_i8" if dots_i8 else base
+    return base + ("_i8" if dots_i8 else "") + ("_hd64" if hd == 64 else "")
 
 
 # The most rows a window can have in the CUDA window kernel (13 tiles of 16).
@@ -109,10 +105,9 @@ def fused_window_attention_grid(
     layout) every window is stored as S = `total_rows` rows: the tail rows
     are left out as keys, and as queries they give finite rows that the
     caller drops. `dots_i8` takes the int8 score form. CUDA kernel
-    `kernels/csrc/sam_window_attention.cu` (W 14, hd 80, at most 208 rows a
-    window, bf16; its `_i8` entry for `dots_i8`; its `_hd64` entry for hd
-    64, bf16 scores only) for CUDA tensors, the plain version for CPU
-    ones."""
+    `kernels/csrc/sam_window_attention.cu` (W 14, hd 80 or 64, at most 208
+    rows a window, bf16; its `_i8` entries for `dots_i8`, its `_hd64`
+    entries for hd 64) for CUDA tensors, the plain version for CPU ones."""
     N, S, width = y.shape
     H, hd, W = num_heads, head_dim, window
     if S != (total_rows or W * W) or S < W * W or width != 3 * H * hd:
@@ -217,8 +212,8 @@ def fused_window_attention_rect(
     `geometry` is (rows, cols), or one such pair per half: what the
     tables say, handed over so that the card's wrapper need not read it
     back from device memory. CUDA kernel `kernels/csrc/sam_rect_attention.cu`
-    (W 14, hd 80, bf16; its `_i8` entry for `dots_i8`; its `_hd64` entry
-    for hd 64, bf16 scores only) for CUDA tensors, which needs `geometry`,
+    (W 14, hd 80 or 64, bf16; its `_i8` entries for `dots_i8`, its `_hd64`
+    entries for hd 64) for CUDA tensors, which needs `geometry`,
     one of the boundary classes of a 64-token grid (14 x 8, 8 x 14, 8 x 8)
     or the two edges as a pair; the plain version for CPU ones, which checks
     it against `oh`."""
@@ -405,8 +400,8 @@ def global_y_quant_i8(y, bias_a, bias_b, num_heads: int, head_dim: int):
     """The `dots_i8` pre-pass of `fused_global_attention_y` (arguments as
     there; outputs as `global_y_quant_i8_plain`'s): every row quantized
     once per layer. CUDA kernel `kernels/csrc/sam_global_attention_y.cu`
-    (its pre-pass entry: W 64, hd 80, bf16) for CUDA tensors, the plain
-    version for CPU ones."""
+    (its pre-pass entries: W 64, hd 80 or, `_hd64`, 64; bf16) for CUDA
+    tensors, the plain version for CPU ones."""
     B, S, width = y.shape
     H, hd = num_heads, head_dim
     if width != 3 * H * hd or bias_a.shape != (B, S, H, bias_a.shape[-1]) or (
@@ -414,8 +409,9 @@ def global_y_quant_i8(y, bias_a, bias_b, num_heads: int, head_dim: int):
         raise ValueError(f"y {tuple(y.shape)} / bias {tuple(bias_a.shape)} do not match H={H}")
     if y.device.type == "cpu":
         return global_y_quant_i8_plain(y, bias_a, bias_b, H, hd)
-    if (hd, S, bias_a.shape[-1]) != (80, 4096, 64):
-        raise ValueError(f"the CUDA dots_i8 pre-pass is built for hd 80, W 64; got hd {hd}, S {S}")
+    if hd not in (64, 80) or (S, bias_a.shape[-1]) != (4096, 64):
+        raise ValueError(
+            f"the CUDA dots_i8 pre-pass is built for hd 80 or 64, W 64; got hd {hd}, S {S}")
     for name, t in (("y", y), ("bias_a", bias_a), ("bias_b", bias_b)):
         kernels.check_cuda_tensor(f"global_y {name}", t, torch.bfloat16)
     codes = torch.empty((2, B, H, S, 128), dtype=torch.int8, device=y.device)
@@ -423,7 +419,8 @@ def global_y_quant_i8(y, bias_a, bias_b, num_heads: int, head_dim: int):
     ac, bc = torch.empty_like(bias_a), torch.empty_like(bias_b)
     abss = torch.empty((B, H, S), dtype=torch.float32, device=y.device)
     kernels.launch(
-        "global_attention_y_quant_i8", y.data_ptr(), bias_a.data_ptr(), bias_b.data_ptr(),
+        "global_attention_y_quant_i8" + ("_hd64" if hd == 64 else ""), y.data_ptr(),
+        bias_a.data_ptr(), bias_b.data_ptr(),
         codes.data_ptr(), scales.data_ptr(), ac.data_ptr(), bc.data_ptr(), abss.data_ptr(), B, H,
     )
     return codes, scales, ac, bc, abss
@@ -445,11 +442,12 @@ def fused_global_attention_y(
     fused LN+qkv output (head h of a section at columns `h * head_dim`)
     and returns the head-merged [B, S, C] pre-projection activations.
     `head_group` is a lane-alignment matter of the TPU kernel: accepted
-    and ignored. CUDA kernel `kernels/csrc/sam_global_attention_y.cu`
-    (W 64, hd 80, bf16, on the wgmma + TMA core `global_sm90.cuh`; for
-    `dots_i8` its pre-pass, which quantizes every row once, then its `_i8`
-    entry; its `_hd64` entry for ViT-L's hd 64 with 16 heads a block,
-    bf16 scores) for CUDA tensors, the plain version for CPU ones."""
+    and ignored (a block reads one head's lanes, so any head count runs).
+    CUDA kernel `kernels/csrc/sam_global_attention_y.cu` (W 64, hd 80 or,
+    its `_hd64` entries, 64, bf16, on the wgmma + TMA core
+    `global_sm90.cuh`; for `dots_i8` its pre-pass, which quantizes every
+    row once, then its `_i8` entry) for CUDA tensors, the plain version for
+    CPU ones."""
     B, S, width = y.shape
     H, hd, W = num_heads, head_dim, window
     if S != W * W or width != 3 * H * hd:
@@ -462,24 +460,19 @@ def fused_global_attention_y(
         )
     if W != 64 or hd not in (64, 80):
         raise ValueError(f"the CUDA global kernel is built for hd 80 or 64, W 64; got {hd}, {W}")
-    if hd == 64 and (dots_i8 or H % 16):
-        raise ValueError(
-            "the CUDA fused_global_attention_y kernel at hd 64 is built for bf16 scores and a head "
-            f"group of 16 (ViT-L); got dots_i8={dots_i8}, {H} heads (ViT-B's 12 heads give a "
-            "head group of 4)")
     for name, t in (("y", y), ("bias_a", bias_a), ("bias_b", bias_b)):
         kernels.check_cuda_tensor(f"global_y {name}", t, torch.bfloat16)
     out = torch.empty((B, S, H * hd), dtype=y.dtype, device=y.device)
+    hd64 = "_hd64" if hd == 64 else ""
     if not dots_i8:
         kernels.launch(
-            "fused_global_attention_y_hd64" if hd == 64 else "fused_global_attention_y",
-            y.data_ptr(), bias_a.data_ptr(), bias_b.data_ptr(),
-            out.data_ptr(), B, H, float(scale), int(exp_bf16),
+            "fused_global_attention_y" + hd64, y.data_ptr(), bias_a.data_ptr(),
+            bias_b.data_ptr(), out.data_ptr(), B, H, float(scale), int(exp_bf16),
         )
         return out
     codes, scales, ac, bc, abss = global_y_quant_i8(y, bias_a, bias_b, H, hd)
     kernels.launch(
-        "fused_global_attention_y_i8", y.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+        "fused_global_attention_y_i8" + hd64, y.data_ptr(), codes.data_ptr(), scales.data_ptr(),
         ac.data_ptr(), bc.data_ptr(), abss.data_ptr(), out.data_ptr(), B, H, float(scale),
         int(exp_bf16),
     )
@@ -642,7 +635,8 @@ def fused_window_attention_packed(
     """Window attention on the packed head-major layout; returns the
     [N, S, H*hp] head-major output, pad lanes included. `n_block` is TPU
     tiling: accepted and ignored. CUDA kernel
-    `kernels/csrc/sam_packed_attention.cu` (hp 128, W 14, bf16) for CUDA
+    `kernels/csrc/sam_packed_attention.cu` (hp 128 over any real head dim
+    up to it: ViT-H's 80, ViT-L's and ViT-B's 64; W 14, bf16) for CUDA
     tensors, the plain version for CPU ones."""
     return _packed_attention("fused_window_attention_packed", y, bias_a, bias_b, num_heads,
                              head_pad, window, scale, fused_window_attention_packed_plain, 14)
@@ -662,8 +656,8 @@ def fused_global_attention_packed(
     """Global attention on the packed head-major layout, online softmax
     with fp32 exponentials; returns [B, S, H*hp]. `block_q` and `block_k`
     are TPU tiling: accepted and ignored. CUDA kernel
-    `kernels/csrc/sam_packed_attention.cu` (hp 128, W 64, bf16, on the
-    wgmma + TMA core `global_sm90.cuh`) for CUDA tensors, the plain
-    version for CPU ones."""
+    `kernels/csrc/sam_packed_attention.cu` (hp 128 over any real head dim
+    up to it, W 64, bf16, on the wgmma + TMA core `global_sm90.cuh`) for
+    CUDA tensors, the plain version for CPU ones."""
     return _packed_attention("fused_global_attention_packed", y, bias_a, bias_b, num_heads,
                              head_pad, window, scale, fused_global_attention_packed_plain, 64)
