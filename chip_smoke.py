@@ -3374,6 +3374,10 @@ def _fingerprint(t):
     """An exact checksum of a tensor's bits (any one changed value moves it)."""
     import torch
 
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):  # a sharded leaf: its whole value
+        t = t.full_tensor()
     bits = t.detach().view({1: torch.int8, 2: torch.int16, 4: torch.int32}[t.element_size()])
     return int(bits.sum(dtype=torch.int64)), int((bits.long() * bits.long()).sum())
 
@@ -3459,8 +3463,245 @@ def stage1_train_phase(gen) -> dict:
         "launches": launches,
     }
     print(json.dumps(line), flush=True)
-    del state, step, params, batch, leaves, trained, frozen, train_before
+    del step, leaves, trained, frozen, train_before
+    line["parallel"] = parallel_stage1(cfg, state, batch, training_cfg)
+    del state, params, batch
     torch.cuda.empty_cache()
+    return line
+
+
+# ---------------------------------------------------------------------------
+# The parallel phase: the sharded paths (`parallel/`) at world size 1, an
+# NCCL group of this process alone and a (1, 1, 1) cuda mesh, on the models
+# the stage-1, stage-2 and int8 serve phases build.
+# ---------------------------------------------------------------------------
+# grad_rel_err of "dots" against "full": the flash backward's gate, or twice "full"'s own spread
+# between two runs where that is larger (K17's dq and the embedding's bf16 scatter-add backward
+# are order-dependent).
+PARALLEL_GRAD_TOL = 1e-2
+PARALLEL_STAGE2_TOL = 5e-2  # check_stage2's gate on a loss's relative error
+
+
+def parallel_mesh():
+    """The (dp, fsdp, tp) = (1, 1, 1) mesh on the card: an NCCL group of
+    one rank, joined on first use (the phase fails where it cannot be)."""
+    from ullava_tpu_torch.parallel import MeshConfig, make_mesh
+
+    return make_mesh(MeshConfig(), "cuda")
+
+
+def _snapshot(state, labels):
+    """Clones of the trainable leaves and the moments (local tensors),
+    and a function that writes them and the step count back."""
+    import torch
+
+    from ullava_tpu_torch.training import optim
+
+    def tensors(st):
+        return ([t.to_local() if hasattr(t, "to_local") else t
+                 for t in optim.partition_params(st.params, labels)]
+                + [t.to_local() if hasattr(t, "to_local") else t
+                   for k in ("mu", "nu") for t in st.opt_state[k]])
+
+    saved = [t.detach().clone() for t in tensors(state)]
+    count = state.opt_state["count"]
+
+    @torch.no_grad()
+    def restore(st):
+        for t, v in zip(tensors(st), saved, strict=True):
+            t.copy_(v)
+        st.opt_state = {**st.opt_state, "count": count}
+        return st
+
+    return restore
+
+
+def parallel_stage1(cfg, state, batch, training_cfg) -> dict:
+    """Stage 1 on the sharded path (`shard_train_state`, `jit_step`) from
+    the stage-1 phase's state, once under remat_policy "full" and once
+    under "dots", each from the same snapshot of the trainable leaves and
+    moments: the gradients (`trainable_grads` in the step's data-parallel
+    extent; under "full" twice, for its own run-to-run spread), then one
+    step with the launch counts set to 0 just before it and read just
+    after (`TRAIN_LAUNCHES` under both: the ctypes kernels recompute, only
+    matmul outputs are kept), its wall time and peak memory. Gates:
+    bit-equal losses, every trainable leaf's gradient within
+    `PARALLEL_GRAD_TOL` or twice the "full" spread (grad_rel_err), the
+    step losses bit-equal."""
+    import torch
+
+    from ullava_tpu_torch import kernels, train
+    from ullava_tpu_torch.models import ullava_core
+    from ullava_tpu_torch.parallel import collectives, sharding
+    from ullava_tpu_torch.training import optim
+    from ullava_tpu_torch.training.train_step import (
+        TrainState,
+        jit_step,
+        make_stage1_step,
+        shard_train_state,
+        trainable_grads,
+    )
+
+    t0 = time.perf_counter()
+    mesh = parallel_mesh()
+    _, tx = train._schedule_and_optimizer(training_cfg, 2e-3, 7)
+    labels = optim.trainable_labels(state.params, optim.STAGE1_PRETRAIN)
+    restore = _snapshot(state, labels)
+    sstate = shard_train_state(state, mesh, tx, labels)
+    runs, grads = {}, {}
+    for policy in ("full", "full_again", "dots"):
+        c = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm,
+                                                             remat_policy=policy.split("_")[0]))
+
+        def loss_fn(params, b):
+            return ullava_core.forward(params["core"], c, input_ids=b["input_ids"],
+                                       labels=b["labels"], attn_lens=b["attn_lens"],
+                                       images=b["images"])["loss"], {}
+
+        sstate = restore(sstate)
+        with collectives.data_parallel(mesh):
+            local = sharding.local_batch(sharding.shard_batch(batch, mesh))
+            loss, _, g = trainable_grads(loss_fn, sstate.params, labels, local)
+        grads[policy] = [x.to_local().detach() for x in g]
+        if policy == "full_again":
+            del g, loss
+            continue
+        step = jit_step(make_stage1_step(c, tx, labels))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        sstate, m = step(TrainState(sstate.step, sstate.params, sstate.opt_state), batch)
+        step_loss = m["loss"].item()
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t
+        launches = kernels.launch_counts()
+        _check_launches(f"parallel stage1 {policy}", launches, TRAIN_LAUNCHES)
+        runs[policy] = {"loss": loss.detach().clone(), "step_loss": step_loss, "step_s": step_s,
+                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "grad_norm": m["grad_norm"].float().item()}
+        del g, loss, m
+    restore(sstate)
+    def rel(name):
+        return [grad_rel_err(d.reshape(-1, d.shape[-1]), f.reshape(-1, f.shape[-1]))
+                for d, f in zip(grads[name], grads["full"], strict=True)]
+
+    errs, spread = rel("dots"), rel("full_again")
+    tol = max(PARALLEL_GRAD_TOL, 2 * max(spread))
+    full, dots = runs["full"], runs["dots"]
+    line = {"part": "stage1", "mesh": [1, 1, 1], "batch": B_TRAIN, "seq": S_TRAIN,
+            "loss_bit_equal": torch.equal(full["loss"], dots["loss"]),
+            "step_loss_bit_equal": full["step_loss"] == dots["step_loss"],
+            "grad_rel_err": errs, "full_spread_grad_rel_err": spread, "grad_tol": tol,
+            "trainable_leaves": len(errs),
+            **{f"{p}_{k}": v for p, r in runs.items() for k, v in r.items() if k != "loss"},
+            "launches_equal_train_launches": True, "s": time.perf_counter() - t0}
+    must("parallel stage1", line["loss_bit_equal"] and line["step_loss_bit_equal"]
+         and max(errs) <= tol, line)
+    return line
+
+
+def parallel_stage2(cfg, state, batch, training_cfg) -> dict:
+    """Stage 2: one `jit_step(shard_train_state(...))` step against one
+    unsharded step, both from the same snapshot of the stage-2 phase's
+    trainable leaves and moments; the sharded step's launches are
+    `STAGE2_LAUNCHES`, its loss and aux losses within check_stage2's gate
+    of the unsharded step's."""
+    import torch
+
+    from ullava_tpu_torch import kernels, train
+    from ullava_tpu_torch.training import optim
+    from ullava_tpu_torch.training.train_step import (
+        STAGE2_AUX,
+        TrainState,
+        jit_step,
+        make_stage2_step,
+        shard_train_state,
+    )
+
+    t0 = time.perf_counter()
+    mesh = parallel_mesh()
+    _, tx = train._schedule_and_optimizer(training_cfg, 2e-4, 5)
+    labels = optim.trainable_labels(state.params, optim.STAGE2_LORA)
+    restore = _snapshot(state, labels)
+    keys = ("loss", "grad_norm", *STAGE2_AUX)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    st, m = make_stage2_step(cfg, tx, labels)(
+        TrainState(state.step, state.params, dict(state.opt_state)), batch)
+    single = {k: m[k].float().item() for k in keys}
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t
+    sstate = shard_train_state(restore(st), mesh, tx, labels)
+    step = jit_step(make_stage2_step(cfg, tx, labels))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    sstate, m = step(sstate, batch)
+    sharded = {k: m[k].float().item() for k in keys}
+    _check_launches("parallel stage2", kernels.launch_counts(), STAGE2_LAUNCHES)
+    torch.cuda.synchronize()
+    t = time.perf_counter()  # a second sharded step from the snapshot, warm
+    sstate, m = step(restore(sstate), batch)
+    again = {k: m[k].float().item() for k in keys}
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    restore(sstate)
+    errs = {k: abs(sharded[k] - single[k]) / abs(single[k]) for k in keys}
+    line = {"part": "stage2", "mesh": [1, 1, 1], "batch": B_STAGE2, "seq": S_STAGE2,
+            "sharded": sharded, "single": single, "rel_err": errs, "tol": PARALLEL_STAGE2_TOL,
+            "sharded_again_loss_equal": again["loss"] == sharded["loss"],
+            "single_step_s": single_s, "sharded_step_s": step_s,
+            "launches_equal_stage2_launches": True,
+            "s": time.perf_counter() - t0}
+    must("parallel stage2", max(errs.values()) <= PARALLEL_STAGE2_TOL, line)
+    return line
+
+
+def parallel_serve(cfg, params) -> dict:
+    """`make_generate_fn` over the int8 serve's params sharded on the mesh
+    (tp = 1): the int8 serve's B=16 requests, greedy; its tokens and
+    lengths equal `serve`'s, its launches those of the unsharded
+    generate, exactly."""
+    import numpy as np
+    import torch
+
+    from ullava_tpu_torch import kernels
+    from ullava_tpu_torch.models import generate
+    from ullava_tpu_torch.parallel import shard_params
+    from ullava_tpu_torch.serve import collate, serve
+
+    t0 = time.perf_counter()
+    reqs = requests(cfg, B_INT8, PROMPT, np.random.default_rng(0))
+    gc = generate.GenerateConfig(max_new_tokens=NEW_TOKENS, temperature=0.0)
+    served = serve((cfg, params), reqs, "cuda", gc)["sequences"]
+    batch = collate(reqs, "cuda")
+    args = (batch["input_ids"], batch["prompt_lens"], batch["images"])
+    core = params["core"]
+    sharded = shard_params(core, parallel_mesh())
+    fn = generate.make_generate_fn(cfg.core, gc)
+    out = {}
+    for name, run in (("plain", lambda: generate.generate(
+            core, cfg.core, gc, input_ids=args[0], prompt_lens=args[1], images=args[2])),
+                      ("sharded", lambda: fn(sharded, *args))):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        out[name] = (res, time.perf_counter() - t, kernels.launch_counts())
+    got, gen_s, launches = out["sharded"]
+    seqs = [got["sequences"][i, :n].tolist() for i, n in enumerate(got["lengths"].tolist())]
+    line = {"part": "serve", "mesh": [1, 1, 1], "batch": B_INT8, "new_tokens": NEW_TOKENS,
+            "tokens_equal_serve": seqs == served,
+            "launches_equal_plain_generate": launches == out["plain"][2],
+            "generate_s": out["plain"][1], "sharded_generate_s": gen_s,
+            "launches": {k: v for k, v in launches.items() if v},
+            "s": time.perf_counter() - t0}
+    llm = ("fused_rotary", "flash_attention_fwd_bsh", "rms_norm_residual_quant",
+           "silu_mul_quant", "prefill_quantize_write", "decode_attention_int8_fused_write",
+           "rms_norm_fwd")
+    must("parallel serve", line["tokens_equal_serve"] and line["launches_equal_plain_generate"]
+         and all(launches[k] > 0 for k in llm), line)
     return line
 
 
@@ -3615,7 +3856,10 @@ def stage2_train_phase(gen) -> tuple:
         "launches": launches,
     }
     print(json.dumps(line), flush=True)
-    del state, step, leaves, trained, frozen, train_before
+    del step, leaves, trained, frozen, train_before
+    line["parallel"] = parallel_stage2(cfg, state, batch,
+                                       {"learning_rate": 2e-4, "lr_scheduler_type": "constant"})
+    del state
     torch.cuda.empty_cache()
     encode_line = weight_only_encode_phase(cfg, params, batch["images_sam"])
     del params, batch
@@ -6289,6 +6533,7 @@ def main() -> int:
     llm8 = dataclasses.replace(cfg.core.llm, a8_prefill=True, kv_quant=True, fused_norm_quant=True)
     cfg8 = dataclasses.replace(cfg, core=dataclasses.replace(cfg.core, llm=llm8))
     int8_line, int8_profile = serve_phase("int8_serve", cfg8, params, B_INT8, INT8_LAUNCHES)
+    parallel_serve_line = parallel_serve(cfg8, params)
 
     # The fully int8 model: the SAM image encoder and CLIP quantized as
     # well, the encoder served with int8 activations in its fused kernels.
@@ -6338,6 +6583,11 @@ def main() -> int:
     # bias weights on its encoder.
     stage2_line, wq_encode_line = stage2_train_phase(gen)
     mark("training")
+    parallel_line = {"phase": "parallel", "card": card_name_and_power_limit(),
+                     "parts": [train_line["parallel"], stage2_line["parallel"],
+                               parallel_serve_line]}
+    parallel_line["s"] = sum(p["s"] for p in parallel_line["parts"])
+    print(json.dumps(parallel_line), flush=True)
     smi = card_name_and_power_limit()
     # The inference entry point from checkpoint files, on its own generator
     # so that the check phase draws what it drew before it existed; then
@@ -6427,6 +6677,7 @@ def main() -> int:
                           "watched_device_ms_calls": prof["watched_device_ms_calls"],
                           "top_device_ms_calls": [[name[:60], ms, prof["top_device_calls"][name]]
                                                   for name, ms in top]}), flush=True)
+    print(json.dumps({**parallel_line, "phase": "parallel_summary"}), flush=True)
     for line in (train_line, stage2_line, wq_encode_line, inference_line, train_clis_line,
                  sam_pred_line):
         print(json.dumps({**{k: v for k, v in line.items()

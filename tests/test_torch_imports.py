@@ -105,7 +105,9 @@ def test_port_imports_no_jax_and_entry_points_need_cuda():
                 "tasks.base_task", "tasks.image_text_pretrain", "tasks.image_text_evaluate",
                 "evaluation", "evaluation.tools", "evaluation.harness",
                 "train_ullava", "train_ullava_core", "eval_ullava", "models.sam.predictor",
-                "models.sam.automatic", "models.sam.export", "models.sam.prompt_encoder"):
+                "models.sam.automatic", "models.sam.export", "models.sam.prompt_encoder",
+                "parallel", "parallel.mesh", "parallel.sharding", "parallel.collectives",
+                "parallel.dryrun", "utils", "utils.tools", "utils.profiling"):
         assert f"ullava_tpu_torch.{new}" in mods
     res = subprocess.run(
         [sys.executable, "-c", _PROBE, json.dumps(mods)],

@@ -412,7 +412,8 @@ def test_trainer_loop_and_resume(tmp_path, caplog):
 def test_train_stage1_entry_point(tmp_path):
     """`train.train_stage1` on the CPU: the synthetic batch of `make_batch`,
     the freeze policy from `projector_from_scratch` (CLIP and the LLM stay
-    as they were), a falling loss, and no remat policy but 'full'."""
+    as they were), a falling loss, and the remat policies: 'dots' gives
+    'full''s hidden states, any other raises ValueError."""
     cfg = ullava_core.UllavaCoreConfig.tiny(
         llm=llama.LlamaConfig.tiny(vocab_size=160, remat=True))
     params = ullava_core.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
@@ -424,7 +425,12 @@ def test_train_stage1_entry_point(tmp_path):
     assert state.step == 3 and ckpt.list_checkpoints(str(tmp_path)) == [3]
     now = [t for _, t in optim.named_leaves({"v": params["vision"], "l": params["llm"]["layers"]})]
     assert all(torch.equal(a, b) for a, b in zip(frozen, now))
-    with pytest.raises(NotImplementedError):
-        dots = dataclasses.replace(cfg.llm, remat_policy="dots")
-        llama.forward(params["llm"], dots, input_ids=batch["input_ids"],
+    hidden = {policy: llama.forward(
+        params["llm"], dataclasses.replace(cfg.llm, remat_policy=policy),
+        input_ids=batch["input_ids"], compute_logits=False)["hidden_states"]
+        for policy in ("full", "dots")}
+    assert torch.equal(hidden["full"], hidden["dots"])
+    with pytest.raises(ValueError):
+        other = dataclasses.replace(cfg.llm, remat_policy="offload")
+        llama.forward(params["llm"], other, input_ids=batch["input_ids"],
                       compute_logits=False)["hidden_states"].sum()

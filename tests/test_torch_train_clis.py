@@ -49,6 +49,7 @@ from ullava_tpu_torch.bridge import params_from_jax
 from ullava_tpu_torch.config import Config
 from ullava_tpu_torch.models import build
 from ullava_tpu_torch.models import llama
+from ullava_tpu_torch.parallel.sharding import unshard
 from ullava_tpu_torch.training import checkpoint, optim
 from ullava_tpu_torch.training import trainer
 
@@ -282,12 +283,14 @@ def test_train_ullava_core_matches_jax(files, same_start, tmp_path):
     j, p = same_start["jax"], same_start["port"]
     np.testing.assert_allclose(p["loss"], j["loss"], rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(p["grad_norm"], j["grad_norm"], rtol=1e-5, atol=1e-5)
-    # The trainer's checkpoint as `pretrained_core`: the trained params.
+    # The trainer's checkpoint as `pretrained_core`: the trained params
+    # (the CLI's state is sharded over its mesh of one rank).
     _, params = build.build_ullava_core(
         {**cfg("", "")["model"], "pretrained_core": str(tmp_path / "p" / "checkpoint-3")},
         _tokenizer(), device="cpu")
     for (name, t), (_, ref) in zip(optim.named_leaves(params),
-                                   optim.named_leaves(state.params["core"]), strict=True):
+                                   optim.named_leaves(unshard(state.params["core"])),
+                                   strict=True):
         assert torch.equal(t, ref), name
 
 

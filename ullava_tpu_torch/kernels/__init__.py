@@ -426,8 +426,26 @@ def launch_counts() -> Dict[str, int]:
     return {name: spec.launches for name, spec in KERNELS.items()}
 
 
+def _refuse_dtensor(name: str, t) -> None:
+    # A DTensor has no storage of its own (its data_ptr() is 0): a kernel
+    # takes the local tensor that `parallel.sharding.local_weight` gives.
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        raise TypeError(f"{name}: a DTensor reached a kernel; pass its local tensor")
+
+
+def ptr(t: torch.Tensor) -> int:
+    """The device pointer a wrapper hands its kernel; a DTensor raises
+    TypeError."""
+    _refuse_dtensor("kernel operand", t)
+    return t.data_ptr()
+
+
 def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None) -> None:
-    """Validate a kernel operand: device, dtype, contiguity, 16-byte alignment."""
+    """Validate a kernel operand: no DTensor, device, dtype, contiguity,
+    16-byte alignment."""
+    _refuse_dtensor(name, t)
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:

@@ -12,6 +12,14 @@
 - last-layer hidden states are captured for every position, aligned so
   `hidden_last[b, j]` produced `sequences[b, j+1]` (the [SEG]/[LOC]
   readout contract).
+
+With `DTensor` parameters (`parallel/`) the decoder runs tensor-parallel
+(`models/llama.py`) and `lm_head` is vocab-parallel: the greedy token
+comes from each rank's best (value, id) over its V / tp columns, combined
+from `[tp, B]` gathers; a sampled token from the logits gathered over tp.
+A decode step then issues the tp all-reduces and those combines, and no
+parameter-sized gather. `make_generate_fn` also splits the batch over the
+data ranks and gathers the results.
 """
 
 from __future__ import annotations
@@ -23,6 +31,16 @@ import torch
 
 from ullava_tpu_torch.models import llama, ullava_core
 from ullava_tpu_torch.ops.quant import apply_linear
+from ullava_tpu_torch.parallel.collectives import (
+    TPGroup,
+    all_data_done,
+    all_gather_tp,
+    gather_data,
+    gather_from_tp,
+    tp_group,
+)
+from ullava_tpu_torch.parallel.mesh import data_rank
+from ullava_tpu_torch.parallel.sharding import local_weight, mesh_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +100,23 @@ def sample_token(
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
 
 
+def _tp_token(logits: torch.Tensor, gen: GenerateConfig, generator, tp: TPGroup) -> torch.Tensor:
+    """`sample_token` over vocab-parallel logits [B, V / tp] (this rank's
+    columns). Greedy: each rank's first best column, then the best over
+    ranks (the lowest rank among equal values, so the first best id, as an
+    argmax over the whole row); sampling draws from the gathered row."""
+    if gen.do_sample:
+        return sample_token(gather_from_tp(logits, tp), gen, generator)
+    V = logits.shape[-1]
+    if gen.vocab_size is not None:
+        col = tp.rank * V + torch.arange(V, device=logits.device)
+        logits = logits.masked_fill((col >= gen.vocab_size)[None, :], float("-inf"))
+    idx = logits.argmax(-1)
+    vals = all_gather_tp(logits.gather(-1, idx[:, None])[:, 0], tp)  # [tp, B]
+    ids = all_gather_tp(idx + tp.rank * V, tp)
+    return ids.gather(0, vals.argmax(0)[None])[0].to(torch.int32)
+
+
 @torch.no_grad()
 def generate(
     params: Dict,
@@ -103,19 +138,31 @@ def generate(
     if gen.do_sample and generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
 
-    cache = llama.init_kv_cache(cfg.llm, B, total, device=dev)
+    llm = params["llm"]
+    tp = tp_group(llm["embed_tokens"])
+    mesh = None if tp is None else mesh_of(llm["embed_tokens"])
+    if tp is not None and mesh.size(mesh.mesh_dim_names.index("fsdp")) == 1:
+        # Nothing to gather: take the decoder's local tensors once, not at
+        # every step.
+        llm = llama.local_params(llm)
+    lm_head = llm["lm_head"] if tp is None else local_weight(llm["lm_head"], dim=-1)
+
+    def next_token(logits):
+        if tp is None:
+            return sample_token(logits, gen, generator)
+        return _tp_token(logits, gen, generator, tp)
+
+    cache = llama.init_kv_cache(cfg.llm, B, total, device=dev, tp=1 if tp is None else tp.size)
     embeds = ullava_core.embed_multimodal(params, cfg, input_ids, images)
     pre = llama.forward(
-        params["llm"], cfg.llm, inputs_embeds=embeds, kv_lens=prompt_lens,
-        kv_cache=cache, compute_logits=False,
+        llm, cfg.llm, inputs_embeds=embeds, kv_lens=prompt_lens,
+        kv_cache=cache, compute_logits=False, tp=tp,
     )
     b_idx = torch.arange(B, device=dev)
     lens = prompt_lens.to(torch.int32)
     # Logits only at each sample's last prompt position.
     h_last = pre["hidden_states"][b_idx, lens.long() - 1]
-    tok = sample_token(
-        apply_linear(h_last.to(cfg.llm.dtype), params["llm"]["lm_head"]).float(), gen, generator
-    )
+    tok = next_token(apply_linear(h_last.to(cfg.llm.dtype), lm_head).float())
 
     seq = torch.zeros((B, total), dtype=torch.int32, device=dev)
     seq[:, :S] = input_ids.to(torch.int32)
@@ -126,7 +173,7 @@ def generate(
     done = torch.zeros(B, dtype=torch.bool, device=dev)
 
     for _ in range(gen.max_new_tokens):
-        if bool(done.all()):
+        if all_data_done(done, mesh) if mesh is not None else bool(done.all()):
             break
         write = ~done & (lens < total)
         pos = lens.clamp(max=total - 1).long()
@@ -134,15 +181,44 @@ def generate(
         done = done | (tok[:, None] == stops[None, :]).any(-1)
         new_lens = torch.where(write, lens + 1, lens)
         out = llama.forward(
-            params["llm"], cfg.llm, input_ids=tok[:, None].long(),
+            llm, cfg.llm, input_ids=tok[:, None].long(),
             positions=lens[:, None], kv_lens=new_lens, kv_cache=cache,
-            write_pos=lens.long(),
+            write_pos=lens.long(), compute_logits=tp is None, tp=tp,
         )
         h_step = out["hidden_states"][:, 0]
         hidden[b_idx, pos] = torch.where(write[:, None], h_step, hidden[b_idx, pos])
-        tok = sample_token(out["logits"][:, 0], gen, generator)
+        if tp is None:
+            tok = sample_token(out["logits"][:, 0], gen, generator)
+        else:
+            tok = next_token(apply_linear(out["hidden_states"], lm_head).float()[:, 0])
         lens = new_lens
     return {"sequences": seq, "lengths": lens, "hidden_last": hidden}
+
+
+def make_generate_fn(cfg: ullava_core.UllavaCoreConfig, gen: GenerateConfig):
+    """The generate closure for serving (the JAX package jit-compiles it):
+    fn(params, input_ids, prompt_lens, images=None, generator=None). Over
+    `DTensor` parameters of a (dp, fsdp, tp) mesh, every rank passes the
+    whole batch; each data rank decodes its part (when the batch divides
+    by dp * fsdp) with the decoder tensor-parallel, and every rank gets
+    the whole result back."""
+
+    def fn(params, input_ids, prompt_lens, images=None, generator=None):
+        mesh = mesh_of(params["llm"]["embed_tokens"])
+        B = input_ids.shape[0]
+        r, n = (0, 1) if mesh is None else data_rank(mesh)
+        split = n > 1 and B % n == 0
+        if split:
+            part = slice(r * B // n, (r + 1) * B // n)
+            input_ids, prompt_lens = input_ids[part], prompt_lens[part]
+            images = None if images is None else images[part]
+        out = generate(params, cfg, gen, input_ids=input_ids, prompt_lens=prompt_lens,
+                       images=images, generator=generator)
+        if split:
+            out = {k: gather_data(v, mesh) for k, v in out.items()}
+        return out
+
+    return fn
 
 
 def readout_token_hidden(

@@ -30,7 +30,29 @@ preset sets it, and so in decode steps), attention through the
 flash Function (K15 forward, K16 + K17 backward) and both norms through
 the RMSNorm Function (K9 forward, K18 backward); with `remat` each layer
 runs under `torch.utils.checkpoint`, so the backward recomputes it from
-its input (the JAX `jax.checkpoint` of the layer scan body).
+its input (the JAX `jax.checkpoint` of the layer scan body). With
+`remat_policy="dots"` the recompute keeps the outputs of the matmuls that
+have no batch dims (`aten.mm`, `aten.addmm`, `aten._int_mm`: every
+linear reaches the dispatcher as one of them) and recomputes the rest (the JAX policy
+`dots_with_no_batch_dims_saveable`), through
+`torch.utils.checkpoint.create_selective_checkpoint_contexts`. The
+ctypes kernels (K15, K9, K18) are invisible to the dispatcher, so they
+recompute under either policy, as a Pallas output is no dot in JAX.
+
+Tensor parallelism (parameters that are `DTensor`s of a (dp, fsdp, tp)
+mesh, `parallel/`): each layer takes its weights' local tensors (fsdp
+shards gathered just before use, again in a remat recompute); q/k/v and
+gate/up are column-parallel (H/tp heads and F/tp columns go to the
+kernels, the KV cache holds the local heads), o/down row-parallel with
+one all-reduce each, the embedding vocab-parallel (a masked lookup, then
+an all-reduce); `lm_head` is gathered for the logits and the streamed CE,
+and vocab-parallel in `generate`. The W8A8 forms need whole rows (the
+per-row int8 scale spans the full width: K5, K6, `apply_linear_a8`), so
+under tp > 1 a W8A8 o/down projection gathers its input over tp and runs
+on its whole (replicated int8) weight, as XLA runs a Pallas call it cannot
+partition on gathered operands; the column-parallel W8A8 products see
+whole rows already. Row-parallel sums reorder fp additions against one
+device.
 
 LoRA: a layer holding `{name}_lora_a` [in, r] and `{name}_lora_b` [r, out]
 adds `lora_scale * (x @ A) @ B` to that projection; such a layer never
@@ -72,6 +94,14 @@ from ullava_tpu_torch.ops.quant import (
     is_quantized,
 )
 from ullava_tpu_torch.ops.rope import apply_rotary, fused_rotary, rope_cos_sin
+from ullava_tpu_torch.parallel.collectives import (
+    TPGroup,
+    copy_to_tp,
+    gather_from_tp,
+    reduce_from_tp,
+    tp_group,
+)
+from ullava_tpu_torch.parallel.sharding import local_weight
 
 Params = Dict[str, Any]
 
@@ -88,9 +118,9 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
-    # Training: recompute each layer in the backward from its input. Only
-    # 'full' (save nothing inside the layer) is ported; 'dots' (keep the
-    # matmul outputs) raises.
+    # Training: recompute each layer in the backward from its input:
+    # 'full' saves nothing inside the layer, 'dots' keeps the outputs of
+    # the matmuls without batch dims.
     remat: bool = True
     remat_policy: str = "full"
     # Attention of prefill and training: 'flash' (the kernels), 'xla' (the
@@ -162,27 +192,30 @@ def init_params(
 
 
 def init_kv_cache(
-    cfg: LlamaConfig, batch: int, max_len: int, device=None
+    cfg: LlamaConfig, batch: int, max_len: int, device=None, tp: int = 1
 ) -> Dict[str, torch.Tensor]:
+    """The cache of `max_len` positions; under tensor parallelism (`tp`
+    ranks) it holds this rank's Hkv / tp heads."""
     # The cache holds every position a sequence reaches; rotary past the
     # model's trained positions is refused here, before any work.
     if max_len > cfg.max_position_embeddings:
         raise ValueError(f"a cache of {max_len} positions exceeds "
                          f"max_position_embeddings={cfg.max_position_embeddings}")
     device = resolve_device(device)
+    Hkv = cfg.num_kv_heads // tp
     if cfg.kv_quant:
         # Heads merged on the minor dim, the layout both cache kernels
         # address; the length rounds up to a multiple of 8 as the JAX
         # cache's does, so the two have the same shape.
         rows = (cfg.num_layers, batch, (max_len + 7) // 8 * 8)
-        merged = rows + (cfg.num_kv_heads * cfg.head_dim,)
+        merged = rows + (Hkv * cfg.head_dim,)
         return {
             "k": torch.zeros(merged, dtype=torch.int8, device=device),
             "v": torch.zeros(merged, dtype=torch.int8, device=device),
-            "k_scale": torch.zeros(rows + (cfg.num_kv_heads,), dtype=torch.float32, device=device),
-            "v_scale": torch.zeros(rows + (cfg.num_kv_heads,), dtype=torch.float32, device=device),
+            "k_scale": torch.zeros(rows + (Hkv,), dtype=torch.float32, device=device),
+            "v_scale": torch.zeros(rows + (Hkv,), dtype=torch.float32, device=device),
         }
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    shape = (cfg.num_layers, batch, max_len, Hkv, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
         "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -201,20 +234,35 @@ def _layer(
     write_pos: Optional[torch.Tensor],  # [B] per-sample write index (S == 1)
     causal: bool,
     pending: Optional[torch.Tensor] = None,  # deferred MLP residual (fused-norm prefill)
+    tp: Optional[TPGroup] = None,  # tensor parallelism: `p` holds DTensors or local_params
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One decoder layer. Returns (h, pending): with `pending` given, the
     MLP output comes back as the next `pending` and is not yet added."""
     B, S, D = h.shape
-    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    n_tp = 1 if tp is None else tp.size
+    H, Hkv, hd = cfg.num_heads // n_tp, cfg.num_kv_heads // n_tp, cfg.head_dim
     fused = pending is not None
+    if tp is not None:
+        p = _tp_layer_params(p)
 
-    def lin(xin, w):
+    def a8(xin, w):
         # W8A8 for serving only: under autograd its int8 rounding would
         # cut the gradient to the input (the module docstring).
         grad = torch.is_grad_enabled() and xin.requires_grad
-        if cfg.a8_prefill and S > 1 and is_quantized(w) and not grad:
-            return apply_linear_a8(xin, w)
-        return apply_linear(xin, w)
+        return cfg.a8_prefill and S > 1 and is_quantized(w) and not grad
+
+    def lin(xin, w):
+        return apply_linear_a8(xin, w) if a8(xin, w) else apply_linear(xin, w)
+
+    def row_lin(xin, w):
+        # Row-parallel: this rank's input columns times its weight rows,
+        # summed over tp; a W8A8 product at tp > 1 gathers its input and
+        # runs the whole weight instead (the module docstring).
+        if tp is None:
+            return lin(xin, w)
+        if tp.size > 1 and a8(xin, w):
+            return lin(gather_from_tp(xin, tp), w)
+        return reduce_from_tp(lin(xin, _tp_rows(w, xin.shape[-1], tp)), tp)
 
     if fused:
         # The previous layer's MLP residual add, the norm and the int8
@@ -226,6 +274,8 @@ def _layer(
             return apply_linear_a8_prequant(xq, xs, p[name], cfg.dtype).reshape(B, S, heads, hd)
     else:
         x = rms_norm(h, p["input_norm"], cfg.rms_norm_eps)
+        if tp is not None:
+            x = copy_to_tp(x, tp)
 
         def proj(name, heads):
             y = lin(x, p[name])
@@ -275,7 +325,7 @@ def _layer(
             cache["v"][layer_idx, :, :S] = v
         attn = attention(q, k, v, causal=causal, kv_lens=kv_lens, impl=cfg.attn_impl)
 
-    o = lin(attn.reshape(B, S, H * hd), p["o_proj"])
+    o = row_lin(attn.reshape(B, S, H * hd), p["o_proj"])
     if fused:
         h, xq, xs = rms_norm_residual_quant(h, o, p["post_norm"], cfg.rms_norm_eps)
         xq = xq.reshape(B * S, D)
@@ -284,18 +334,55 @@ def _layer(
     else:
         h = h + o
         x = rms_norm(h, p["post_norm"], cfg.rms_norm_eps)
+        if tp is not None:
+            x = copy_to_tp(x, tp)
         g, u = lin(x, p["gate_proj"]), lin(x, p["up_proj"])
     if cfg.a8_prefill and S > 1 and cache is not None and is_quantized(p["down_proj"]):
         # Fused silu * up + per-row int8 quantize feeding the W8A8 down
-        # projection (serving only, as in the JAX package).
+        # projection (serving only, as in the JAX package); its row scale
+        # spans all F columns, so tp > 1 gathers them first.
+        if tp is not None and tp.size > 1:
+            g, u = gather_from_tp(g, tp), gather_from_tp(u, tp)
         F_ = g.shape[-1]
         gq, gs = silu_mul_quant(g.reshape(B * S, F_), u.reshape(B * S, F_))
         y = apply_linear_a8_prequant(gq, gs, p["down_proj"], cfg.dtype).reshape(B, S, D)
     else:
-        y = lin(F.silu(g) * u, p["down_proj"]).reshape(B, S, D)
+        y = row_lin(F.silu(g) * u, p["down_proj"]).reshape(B, S, D)
     if fused:
         return h, y  # the next layer's fused norm adds y
     return h + y, None
+
+
+_COLUMN = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj")
+_ROW = ("o_proj", "down_proj")
+
+
+def _tp_layer_params(p: Params) -> Params:
+    """One layer's local tensors under tensor parallelism: the
+    column-parallel weights' (and LoRA B's) tp columns, the row-parallel
+    bf16 weights' tp rows, int8 row weights whole (sliced at use unless a
+    W8A8 product takes them whole), LoRA A whole inside the column-parallel
+    region, the norms whole."""
+    out = {}
+    for k, w in p.items():
+        if k in _COLUMN or k.endswith("_lora_b"):
+            out[k] = local_weight(w, dim=-1)
+        elif k in _ROW and not is_quantized(w):
+            out[k] = local_weight(w, dim=-2)
+        else:
+            out[k] = local_weight(w, inside=k.endswith("_lora_a"))
+    return out
+
+
+def _tp_rows(w, n: int, tp: TPGroup):
+    """This rank's `n` input rows of a row-parallel weight (already them
+    when it is a local shard of n rows)."""
+    if not is_quantized(w):
+        return w
+    q = w["q"]
+    if q.shape[-2] == n:
+        return w
+    return {"q": q.narrow(-2, tp.rank * n, n), "scale": w["scale"]}
 
 
 def _use_fused_norm_quant(cfg: LlamaConfig, layer: Params, S: int) -> bool:
@@ -309,12 +396,53 @@ def _use_fused_norm_quant(cfg: LlamaConfig, layer: Params, S: int) -> bool:
     )
 
 
-def _remat_layer(cfg, h, lp, cos, sin, kv_lens, causal):
-    return _layer(cfg, h, lp, cos, sin, kv_lens, None, 0, None, causal)[0]
+def _remat_layer(cfg, h, lp, cos, sin, kv_lens, causal, tp):
+    return _layer(cfg, h, lp, cos, sin, kv_lens, None, 0, None, causal, tp=tp)[0]
 
 
-def embed(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
-    return params["embed_tokens"][input_ids]
+# The matmuls without batch dims, whose outputs the 'dots' policy keeps
+# (`x @ w` and `F.linear` reach the dispatcher as mm or addmm); bmm is left
+# out.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten._int_mm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return torch.utils.checkpoint.create_selective_checkpoint_contexts(_dots_policy)
+
+
+def embed(params: Params, input_ids: torch.Tensor, tp: Optional[TPGroup] = None) -> torch.Tensor:
+    """Token embeddings; vocab-parallel under tensor parallelism: each rank
+    looks up the ids in its V / tp rows (zeros elsewhere), then one
+    all-reduce over tp. `tp` is the DTensor table's group unless given
+    (with `local_params`' tensors)."""
+    w = params["embed_tokens"]
+    tp = tp or tp_group(w)
+    if tp is None:
+        return w[input_ids]
+    w = local_weight(w, dim=0)
+    rows = w.shape[0]
+    rel = input_ids - tp.rank * rows
+    inside = (rel >= 0) & (rel < rows)
+    found = w[rel.clamp(0, rows - 1)]
+    return reduce_from_tp(torch.where(inside[..., None], found, torch.zeros_like(found)), tp)
+
+
+def local_params(params: Params) -> Params:
+    """This rank's tensors of a DTensor decoder tree, for many calls
+    without a gradient (the decode loop): each layer's as `_layer` takes
+    them, the embedding's V / tp rows, the norm whole and `lm_head`'s V /
+    tp columns. Run `forward` on them with `tp=` the tree's group."""
+    return {"embed_tokens": local_weight(params["embed_tokens"], dim=0),
+            "layers": [_tp_layer_params(lp) for lp in params["layers"]],
+            "norm": local_weight(params["norm"]),
+            "lm_head": local_weight(params["lm_head"], dim=-1)}
 
 
 def forward(
@@ -329,12 +457,14 @@ def forward(
     write_pos: Optional[torch.Tensor] = None,  # [B] cache write index (S == 1)
     causal: bool = True,
     compute_logits: bool = True,
+    tp: Optional[TPGroup] = None,  # with `local_params`' tensors: their tp group
 ) -> Dict[str, Any]:
     """Run the decoder stack. Returns {"hidden_states": [B,S,D] post-norm,
     "logits": [B,S,V] fp32 or None, "kv_cache": the cache (updated in
     place) or None}."""
+    tp = tp or tp_group(params["embed_tokens"])
     if inputs_embeds is None:
-        inputs_embeds = embed(params, input_ids)
+        inputs_embeds = embed(params, input_ids, tp)
     h = inputs_embeds.to(cfg.dtype)
     B, S, _ = h.shape
     if positions is None:
@@ -347,18 +477,22 @@ def forward(
     if kv_cache is not None and _use_fused_norm_quant(cfg, layers[0], S):
         pend = torch.zeros_like(h)
     remat = kv_cache is None and cfg.remat and torch.is_grad_enabled()
-    if remat and cfg.remat_policy != "full":
-        raise NotImplementedError(f"remat_policy {cfg.remat_policy!r}: only 'full' is ported")
+    if cfg.remat_policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: 'full' or 'dots'")
+    ctx = {"context_fn": _dots_context} if cfg.remat_policy == "dots" else {}
     for i, lp in enumerate(layers):
         if remat:
             h = torch.utils.checkpoint.checkpoint(
-                _remat_layer, cfg, h, lp, cos, sin, kv_lens, causal, use_reentrant=False)
+                _remat_layer, cfg, h, lp, cos, sin, kv_lens, causal, tp,
+                use_reentrant=False, **ctx)
             continue
-        h, pend = _layer(cfg, h, lp, cos, sin, kv_lens, kv_cache, i, write_pos, causal, pend)
+        h, pend = _layer(cfg, h, lp, cos, sin, kv_lens, kv_cache, i, write_pos, causal, pend,
+                         tp=tp)
     if pend is not None:
         h = h + pend
-    h = rms_norm(h, params["norm"], cfg.rms_norm_eps)
-    logits = apply_linear(h, params["lm_head"]).float() if compute_logits else None
+    h = rms_norm(h, local_weight(params["norm"]), cfg.rms_norm_eps)
+    logits = (apply_linear(h, local_weight(params["lm_head"])).float()
+              if compute_logits else None)
     return {"hidden_states": h, "logits": logits, "kv_cache": kv_cache}
 
 

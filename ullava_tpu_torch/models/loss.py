@@ -11,7 +11,9 @@ by the total box count again; the mask losses are not (the reference
 multiplies their per-sample term by its mask count first). The dice keeps
 the reference's `scale=1000` on numerator and denominator, and the GIoU
 loss leaves degenerate predicted boxes out of its sum while they still
-count in the denominators. Everything is computed in fp32.
+count in the denominators. Everything is computed in fp32. The batch-wide
+counts (valid masks, valid boxes) are global: inside a sharded training
+step `parallel.collectives.global_sum` adds them over the data ranks.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from ullava_tpu_torch.parallel.collectives import global_sum
 
 
 def box_area(boxes: torch.Tensor) -> torch.Tensor:
@@ -49,7 +53,7 @@ def generalized_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Ten
 
 def _masked_mean_over_masks(per_mask: torch.Tensor, mask_valid: torch.Tensor) -> torch.Tensor:
     per_mask = torch.where(mask_valid, per_mask, torch.zeros_like(per_mask))
-    return per_mask.sum() / (mask_valid.sum() + 1e-8)
+    return per_mask.sum() / (global_sum(mask_valid.sum()) + 1e-8)
 
 
 def dice_loss(
@@ -99,7 +103,7 @@ def bbox_l1_loss(
     l1 = (pred_boxes.float() - gt_boxes.float()).abs()
     l1 = torch.where(box_valid[..., None], l1, torch.zeros_like(l1))
     per_sample = l1.sum((-2, -1)) / (box_valid.sum(-1) + 1e-8)
-    return per_sample.sum() / (box_valid.sum() + 1e-8)
+    return per_sample.sum() / (global_sum(box_valid.sum()) + 1e-8)
 
 
 def bbox_giou_loss(
@@ -114,4 +118,4 @@ def bbox_giou_loss(
     giou = generalized_box_iou(pred_boxes.float(), gt_boxes.float())
     per_box = torch.where(ok, 1.0 - giou, torch.zeros_like(giou))
     per_sample = per_box.sum(-1) / (box_valid.sum(-1) + 1e-8)
-    return per_sample.sum() / (box_valid.sum() + 1e-8)
+    return per_sample.sum() / (global_sum(box_valid.sum()) + 1e-8)

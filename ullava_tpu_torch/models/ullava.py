@@ -9,6 +9,9 @@ prompt encoder and mask decoder (differentiable), the masks upscaled to
 the `mask_loss_frame` and the weighted sum of CE, mask BCE + dice and box
 L1 + GIoU losses over the valid slots and pixels (`models/loss.py`).
 
+With `DTensor` parameters (`parallel/`) the LLM runs tensor-parallel
+and every other part on its whole weights (`parallel.sharding.whole`).
+
 `evaluate` generates (greedy or sampled, as its `GenerateConfig` says), reads the hidden states that produced each
 [SEG]/[LOC] token (up to `max_masks`/`max_boxes` per sample, with
 validity masks), projects them, encodes the SAM image and decodes one
@@ -30,6 +33,7 @@ from ullava_tpu_torch.models import projector, ullava_core
 from ullava_tpu_torch.models.sam import build as sam_build
 from ullava_tpu_torch.models.sam import image_encoder as sam_image_encoder
 from ullava_tpu_torch.ops import quant
+from ullava_tpu_torch.parallel.sharding import whole
 
 Params = Dict[str, Any]
 
@@ -121,7 +125,17 @@ def precompute_window_bias_weights(params: Params, cfg: UllavaConfig) -> Params:
 def get_visual_embs(params: Params, cfg: UllavaConfig, images_sam: torch.Tensor) -> torch.Tensor:
     """SAM image embeddings [B, g, g, 256]; `encode` runs under `no_grad`,
     so the frozen encoder passes no gradient (the JAX `stop_gradient`)."""
-    return sam_image_encoder.encode(params["sam"]["image_encoder"], cfg.sam.vision, images_sam)
+    return sam_image_encoder.encode(whole(params["sam"]["image_encoder"]), cfg.sam.vision,
+                                    images_sam)
+
+
+def _heads(params: Params) -> Params:
+    """The heads after the LLM (the [SEG]/[LOC] projections, the box
+    decoder, SAM's prompt encoder and mask decoder), whole on this rank."""
+    return whole({"seg_projector": params["seg_projector"],
+                  "det_projector": params["det_projector"],
+                  "det_decoder": params["det_decoder"],
+                  "sam": {k: v for k, v in params["sam"].items() if k != "image_encoder"}})
 
 
 def _token_readout(
@@ -175,17 +189,18 @@ def forward(
         input_ids=input_ids, labels=labels, images=images, attn_lens=attn_lens,
     )
     hidden = core_out["hidden_states"]
+    heads = _heads(params)
 
     seg_h, seg_valid = _token_readout(input_ids, hidden, attn_lens, cfg.seg_token_idx,
                                       cfg.max_masks)
     loc_h, loc_valid = _token_readout(input_ids, hidden, attn_lens, cfg.loc_token_idx,
                                       cfg.max_boxes)
-    seg_embeds = projector.apply_text_head(params["seg_projector"], seg_h.float())
-    loc_embeds = projector.apply_text_head(params["det_projector"], loc_h.float())
-    pred_boxes = projector.apply_box_decoder(params["det_decoder"], loc_embeds)
+    seg_embeds = projector.apply_text_head(heads["seg_projector"], seg_h.float())
+    loc_embeds = projector.apply_text_head(heads["det_projector"], loc_h.float())
+    pred_boxes = projector.apply_box_decoder(heads["det_decoder"], loc_embeds)
 
     low_res_masks, iou_pred = sam_build.forward_masks(
-        params["sam"], cfg.sam, image_embeddings, seg_embeds, multimask_output=False
+        heads["sam"], cfg.sam, image_embeddings, seg_embeds, multimask_output=False
     )  # [B, M, 4g, 4g]
     pred_masks = sam_build.upscale_masks_to_frame(low_res_masks, F)
 
@@ -258,13 +273,14 @@ def evaluate(
     loc_h, loc_valid = gen_mod.readout_token_hidden(
         seqs, hidden, lengths, cfg.loc_token_idx, cfg.max_boxes
     )
-    seg_embeds = projector.apply_text_head(params["seg_projector"], seg_h.float())
-    loc_embeds = projector.apply_text_head(params["det_projector"], loc_h.float())
-    pred_boxes = projector.apply_box_decoder(params["det_decoder"], loc_embeds)
+    heads = _heads(params)
+    seg_embeds = projector.apply_text_head(heads["seg_projector"], seg_h.float())
+    loc_embeds = projector.apply_text_head(heads["det_projector"], loc_h.float())
+    pred_boxes = projector.apply_box_decoder(heads["det_decoder"], loc_embeds)
 
     image_embeddings = get_visual_embs(params, cfg, images_sam)
     low_res_masks, iou_pred = sam_build.forward_masks(
-        params["sam"], cfg.sam, image_embeddings, seg_embeds, multimask_output=False
+        heads["sam"], cfg.sam, image_embeddings, seg_embeds, multimask_output=False
     )
     return {
         "sequences": seqs,

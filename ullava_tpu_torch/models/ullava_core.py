@@ -13,7 +13,13 @@ for stage-1 training (counterpart of `ullava_tpu/models/ullava_core.py`).
   tokens' embedding rows train; text-only rows keep their gradients.
 - `forward` with `labels`: the decoder and the shifted next-token CE with
   IGNORE_INDEX masking, either streamed over the vocabulary
-  (`chunked_cross_entropy`, `fused_ce`) or from full logits.
+  (`chunked_cross_entropy`, `fused_ce`) or from full logits. Both divide
+  by the global count of valid targets (`parallel.collectives.global_sum`:
+  summed over the data ranks inside a sharded training step).
+
+With `DTensor` parameters (`parallel/`) CLIP and the projector run on
+their whole weights (`parallel.sharding.whole`), and the streamed CE on
+the whole `lm_head`.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ from ullava_tpu_torch import resolve_device
 from ullava_tpu_torch.constants import IGNORE_INDEX
 from ullava_tpu_torch.models import clip_vit, llama, projector
 from ullava_tpu_torch.ops.quant import dequantize, is_quantized
+from ullava_tpu_torch.parallel.collectives import global_sum
+from ullava_tpu_torch.parallel.sharding import whole
 
 Params = Dict[str, Any]
 
@@ -86,7 +94,7 @@ def encode_image(params: Params, cfg: UllavaCoreConfig, images: torch.Tensor) ->
     layer (no gradient reaches the tower)."""
     with torch.no_grad():
         out = clip_vit.forward(
-            params["vision"], cfg.vision, images, hidden_layer=cfg.vision_hidden_layer
+            whole(params["vision"]), cfg.vision, images, hidden_layer=cfg.vision_hidden_layer
         )
     return out["patch_features"]
 
@@ -138,15 +146,12 @@ def embed_multimodal(
     """Token embeddings with the image and video features spliced in."""
     embeds = llama.embed(params["llm"], input_ids).to(cfg.llm.dtype)
     detach = cfg.projector_from_scratch
+    proj = whole(params["projector"]) if images is not None or videos is not None else None
     if images is not None:
-        feats = projector.apply_vision_projector(
-            params["projector"], encode_image(params, cfg, images)
-        )
+        feats = projector.apply_vision_projector(proj, encode_image(params, cfg, images))
         embeds = splice_mm_features(embeds, input_ids, feats, cfg.img_start_id, detach)
     if videos is not None:
-        feats = projector.apply_vision_projector(
-            params["projector"], encode_video(params, cfg, videos)
-        )
+        feats = projector.apply_vision_projector(proj, encode_video(params, cfg, videos))
         embeds = splice_mm_features(embeds, input_ids, feats, cfg.vid_start_id, detach)
     return embeds
 
@@ -197,7 +202,7 @@ def chunked_cross_entropy(
             _ce_chunk, h, W[:, i * C:(i + 1) * C], m, s, tgt, safe, i * C, V,
             use_reentrant=False)
     token_loss = torch.where(valid, m + torch.log(s) - tgt, torch.zeros_like(m))
-    return token_loss.sum() / valid.sum().clamp_min(1)
+    return token_loss.sum() / global_sum(valid.sum()).clamp_min(1)
 
 
 def cross_entropy_loss(
@@ -212,7 +217,7 @@ def cross_entropy_loss(
     logp = torch.log_softmax(shift_logits, dim=-1)
     token_loss = -torch.gather(logp, -1, safe[..., None])[..., 0]
     token_loss = torch.where(valid, token_loss, torch.zeros_like(token_loss))
-    return token_loss.sum() / valid.sum().clamp_min(1)
+    return token_loss.sum() / global_sum(valid.sum()).clamp_min(1)
 
 
 def forward(
@@ -243,7 +248,7 @@ def forward(
     if training:
         if use_fused:
             out["loss"] = chunked_cross_entropy(
-                out["hidden_states"], params["llm"]["lm_head"], labels)
+                out["hidden_states"], whole(params["llm"]["lm_head"]), labels)
         else:
             out["loss"] = cross_entropy_loss(out["logits"], labels)
     return out

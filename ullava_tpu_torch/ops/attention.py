@@ -138,8 +138,8 @@ def flash_attention_fwd_bsh(
     out = torch.empty_like(q)
     kernels.launch(
         "flash_attention_fwd_bsh_hd64" if hd == 64 else "flash_attention_fwd_bsh",
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        kv_lens.data_ptr(), out.data_ptr(), B, Sq, Sk, H, Hkv, int(causal),
+        kernels.ptr(q), kernels.ptr(k), kernels.ptr(v),
+        kernels.ptr(kv_lens), kernels.ptr(out), B, Sq, Sk, H, Hkv, int(causal),
         int(q_offset), float(scale),
     )
     return out
@@ -182,8 +182,8 @@ def flash_attention_fwd(
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     kernels.launch(
-        "flash_attention_fwd_lse", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        kv_lens.data_ptr(), out.data_ptr(), lse.data_ptr(), B, Sq, Sk, H, Hkv,
+        "flash_attention_fwd_lse", kernels.ptr(q), kernels.ptr(k), kernels.ptr(v),
+        kernels.ptr(kv_lens), kernels.ptr(out), kernels.ptr(lse), B, Sq, Sk, H, Hkv,
         int(causal), int(q_offset), float(scale),
     )
     return out, lse
@@ -270,13 +270,13 @@ def _flash_bwd_cuda(q, k, v, out, do, lse, kv_lens, causal, scale, q_offset):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dq_acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    kernels.launch("flash_attention_bwd_delta", do.data_ptr(), out.data_ptr(), delta.data_ptr(),
-                   dq_acc.data_ptr(), Sq, H, B * Sq * H)
-    kernels.launch("flash_attention_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                   do.data_ptr(), lse.data_ptr(), delta.data_ptr(), kv_lens.data_ptr(),
-                   dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H,
+    kernels.launch("flash_attention_bwd_delta", kernels.ptr(do), kernels.ptr(out), kernels.ptr(delta),
+                   kernels.ptr(dq_acc), Sq, H, B * Sq * H)
+    kernels.launch("flash_attention_bwd_dkv", kernels.ptr(q), kernels.ptr(k), kernels.ptr(v),
+                   kernels.ptr(do), kernels.ptr(lse), kernels.ptr(delta), kernels.ptr(kv_lens),
+                   kernels.ptr(dq_acc), kernels.ptr(dk), kernels.ptr(dv), B, Sq, Sk, H,
                    int(causal), int(q_offset), float(scale))
-    kernels.launch("flash_attention_bwd_dq", dq_acc.data_ptr(), dq.data_ptr(), dq.numel() // 8)
+    kernels.launch("flash_attention_bwd_dq", kernels.ptr(dq_acc), kernels.ptr(dq), dq.numel() // 8)
     return dq, dk, dv
 
 

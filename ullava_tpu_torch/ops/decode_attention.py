@@ -88,8 +88,8 @@ def prefill_quantize_write(
     kernels.check_cuda_tensor("prefill_quantize_write v", v, torch.bfloat16)
     _, maxS = _check_cache("prefill_quantize_write", cache_k, cache_v, k_scale, v_scale, B, Hkv, hd)
     kernels.launch(
-        "prefill_quantize_write", k.data_ptr(), v.data_ptr(), cache_k.data_ptr(),
-        cache_v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), B, S, Hkv, hd, maxS,
+        "prefill_quantize_write", kernels.ptr(k), kernels.ptr(v), kernels.ptr(cache_k),
+        kernels.ptr(cache_v), kernels.ptr(k_scale), kernels.ptr(v_scale), B, S, Hkv, hd, maxS,
         int(layer_idx),
     )
     return cache_k, cache_v, k_scale, v_scale
@@ -101,7 +101,7 @@ def kv_quant_division_check() -> Tuple[int, int, int]:
     bf16 abs-max with |x| <= amax, both signs. Returns (pairs whose int8
     codes differ, pairs whose quotients' bits differ, pairs seen)."""
     counts = torch.zeros(3, dtype=torch.int64, device="cuda")
-    kernels.run_check("kv_quant_write.cu", "ullava_kv_quant_division_check", counts.data_ptr())
+    kernels.run_check("kv_quant_write.cu", "ullava_kv_quant_division_check", kernels.ptr(counts))
     codes, quotients, seen = counts.tolist()
     return codes, quotients, seen
 
@@ -238,8 +238,8 @@ def _decode_read_cuda(q, cache_k, cache_v, k_scale, v_scale, kv_lens, layer_idx:
     kernels.check_cuda_tensor(f"{name} kv_lens", lens, torch.int32, (B,))
     out = torch.empty_like(q)
     kernels.launch(
-        name, q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), k_scale.data_ptr(),
-        v_scale.data_ptr(), lens.data_ptr(), out.data_ptr(), B, H, Hkv, hd, maxS,
+        name, kernels.ptr(q), kernels.ptr(cache_k), kernels.ptr(cache_v), kernels.ptr(k_scale),
+        kernels.ptr(v_scale), kernels.ptr(lens), kernels.ptr(out), B, H, Hkv, hd, maxS,
         int(layer_idx), float(scale), int(splits),
     )
     return out
@@ -311,10 +311,10 @@ def _fused_write_cuda(q, kq_new, ks_new, vq_new, vs_new, cache_k, cache_v, k_sca
         part = torch.empty((B, H, splits, 2 + hd), dtype=torch.float32, device=q.device)
         counter = torch.zeros((B, H), dtype=torch.int32, device=q.device)
     kernels.launch(
-        name, q.data_ptr(), kq_new.data_ptr(), ks_new.data_ptr(), vq_new.data_ptr(),
-        vs_new.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), k_scale.data_ptr(),
-        v_scale.data_ptr(), wp.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), None if counter is None else counter.data_ptr(),
+        name, kernels.ptr(q), kernels.ptr(kq_new), kernels.ptr(ks_new), kernels.ptr(vq_new),
+        kernels.ptr(vs_new), kernels.ptr(cache_k), kernels.ptr(cache_v), kernels.ptr(k_scale),
+        kernels.ptr(v_scale), kernels.ptr(wp), kernels.ptr(out),
+        None if part is None else kernels.ptr(part), None if counter is None else kernels.ptr(counter),
         B, H, Hkv, hd, maxS, int(layer_idx), float(scale), int(splits),
     )
     return out

@@ -81,7 +81,7 @@ def silu_mul_quant(
     q = torch.empty((rows, F), dtype=torch.int8, device=gate.device)
     amax = torch.empty((rows, 1), dtype=torch.float32, device=gate.device)
     kernels.launch(
-        "silu_mul_quant", gate.data_ptr(), up.data_ptr(), q.data_ptr(), amax.data_ptr(), rows, F
+        "silu_mul_quant", kernels.ptr(gate), kernels.ptr(up), kernels.ptr(q), kernels.ptr(amax), rows, F
     )
     return q, amax
 
@@ -123,7 +123,7 @@ def _check_weight(name: str, w_q: torch.Tensor, K: int) -> int:
     if w_q.dtype != torch.int8 or w_q.ndim != 2 or w_q.shape[0] != K:
         raise ValueError(f"{name}: expected an int8 [{K}, N] weight, got {w_q.dtype} {tuple(w_q.shape)}")
     if w_q.device.type == "cuda":
-        if w_q.stride() != (1, K) or w_q.data_ptr() % 16:
+        if w_q.stride() != (1, K) or kernels.ptr(w_q) % 16:
             raise ValueError(
                 f"{name}: the int8 weight must be stored column-major "
                 f"(quant.column_major), got strides {w_q.stride()}"
@@ -210,12 +210,12 @@ def _ln_linear_cuda(x2, ln_scale, ln_bias, w_q, w_scale, bias, eps, res2, stages
         torch.empty((rows, 1), dtype=torch.float32, device=dev),
     )
     kernels.launch(
-        "fused_ln_linear", x2.data_ptr(),
-        None if ln_scale is None else ln_scale.data_ptr(),
-        None if ln_scale is None else ln_bias.data_ptr(),
-        w_q.data_ptr(), w_scale.data_ptr(), bias.data_ptr(),
-        None if res2 is None else res2.data_ptr(), out.data_ptr(),
-        xq.data_ptr(), xs.data_ptr(), rows, C, N, float(eps), stages,
+        "fused_ln_linear", kernels.ptr(x2),
+        None if ln_scale is None else kernels.ptr(ln_scale),
+        None if ln_scale is None else kernels.ptr(ln_bias),
+        kernels.ptr(w_q), kernels.ptr(w_scale), kernels.ptr(bias),
+        None if res2 is None else kernels.ptr(res2), kernels.ptr(out),
+        kernels.ptr(xq), kernels.ptr(xs), rows, C, N, float(eps), stages,
     )
     return out, xq, xs
 
@@ -234,11 +234,11 @@ def _ln_linear_wq_cuda(x2, ln_scale, ln_bias, w_q, w_scale, bias, eps, res2, sta
     if ln:
         xn = scratch if scratch is not None else torch.empty_like(x2)
     kernels.launch(
-        "fused_ln_linear_wq", x2.data_ptr(),
-        ln_scale.data_ptr() if ln else None, ln_bias.data_ptr() if ln else None,
-        w_q.data_ptr(), w_scale.data_ptr(), bias.data_ptr(),
-        None if res2 is None else res2.data_ptr(), out.data_ptr(),
-        None if xn is None else xn.data_ptr(), rows, C, N, float(eps), stages,
+        "fused_ln_linear_wq", kernels.ptr(x2),
+        kernels.ptr(ln_scale) if ln else None, kernels.ptr(ln_bias) if ln else None,
+        kernels.ptr(w_q), kernels.ptr(w_scale), kernels.ptr(bias),
+        None if res2 is None else kernels.ptr(res2), kernels.ptr(out),
+        None if xn is None else kernels.ptr(xn), rows, C, N, float(eps), stages,
     )
     return out, xn
 
@@ -377,10 +377,10 @@ def _ln_linear_dual_cuda(x3, ln_scale, ln_bias, w_q, w_scale, bias, w2_q, w2_sca
         torch.empty((rows, 1), dtype=torch.float32, device=dev),
     )
     kernels.launch(
-        "fused_ln_linear_dual", x3.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-        w_q.data_ptr(), w_scale.data_ptr(), bias.data_ptr(),
-        w2_q.data_ptr(), w2_scale.data_ptr(), bias2.data_ptr(),
-        y.data_ptr(), p.data_ptr(), xq.data_ptr(), xs.data_ptr(),
+        "fused_ln_linear_dual", kernels.ptr(x3), kernels.ptr(ln_scale), kernels.ptr(ln_bias),
+        kernels.ptr(w_q), kernels.ptr(w_scale), kernels.ptr(bias),
+        kernels.ptr(w2_q), kernels.ptr(w2_scale), kernels.ptr(bias2),
+        kernels.ptr(y), kernels.ptr(p), kernels.ptr(xq), kernels.ptr(xs),
         rows, C, F, F2, T, rows2, float(eps), stages,
     )
     return y, p, xq, xs
@@ -407,10 +407,10 @@ def _ln_linear_dual_wq_cuda(x3, ln_scale, ln_bias, w_q, w_scale, bias, w2_q, w2_
         kernels.check_cuda_tensor("fused_ln_linear_dual out2", p, bf, (N, rows2, F2))
     xn = scratch if scratch is not None else torch.empty_like(x3)
     kernels.launch(
-        "fused_ln_linear_dual_wq", x3.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-        w_q.data_ptr(), w_scale.data_ptr(), bias.data_ptr(),
-        w2_q.data_ptr(), w2_scale.data_ptr(), bias2.data_ptr(),
-        y.data_ptr(), p.data_ptr(), xn.data_ptr(), N * T, C, F, F2, T, rows2, float(eps), stages,
+        "fused_ln_linear_dual_wq", kernels.ptr(x3), kernels.ptr(ln_scale), kernels.ptr(ln_bias),
+        kernels.ptr(w_q), kernels.ptr(w_scale), kernels.ptr(bias),
+        kernels.ptr(w2_q), kernels.ptr(w2_scale), kernels.ptr(bias2),
+        kernels.ptr(y), kernels.ptr(p), kernels.ptr(xn), N * T, C, F, F2, T, rows2, float(eps), stages,
     )
     return y, p, xn
 
@@ -549,10 +549,10 @@ def _mlp_block_cuda(x, ln_scale, ln_bias, w1_q, w1_scale, b1, w2_q, w2_scale, b2
         torch.empty((T, F // f_chunk), dtype=torch.float32, device=dev),
     )
     kernels.launch(
-        "fused_mlp_block", x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-        w1_q.data_ptr(), w1_scale.data_ptr(), b1.data_ptr(),
-        w2_q.data_ptr(), w2_scale.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        xq.data_ptr(), xs.data_ptr(), hq.data_ptr(), hs.data_ptr(),
+        "fused_mlp_block", kernels.ptr(x), kernels.ptr(ln_scale), kernels.ptr(ln_bias),
+        kernels.ptr(w1_q), kernels.ptr(w1_scale), kernels.ptr(b1),
+        kernels.ptr(w2_q), kernels.ptr(w2_scale), kernels.ptr(b2), kernels.ptr(out),
+        kernels.ptr(xq), kernels.ptr(xs), kernels.ptr(hq), kernels.ptr(hs),
         T, C, F, f_chunk, float(eps), stages,
     )
     return out, xq, xs, hq, hs
@@ -572,10 +572,10 @@ def _mlp_block_wq_cuda(x, ln_scale, ln_bias, w1_q, w1_scale, b1, w2_q, w2_scale,
     xn, h = scratch or (torch.empty_like(x),
                         torch.empty((T, F), dtype=torch.bfloat16, device=x.device))
     kernels.launch(
-        "fused_mlp_block_wq", x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-        w1_q.data_ptr(), w1_scale.data_ptr(), b1.data_ptr(),
-        w2_q.data_ptr(), w2_scale.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        xn.data_ptr(), h.data_ptr(), T, C, F, float(eps), stages,
+        "fused_mlp_block_wq", kernels.ptr(x), kernels.ptr(ln_scale), kernels.ptr(ln_bias),
+        kernels.ptr(w1_q), kernels.ptr(w1_scale), kernels.ptr(b1),
+        kernels.ptr(w2_q), kernels.ptr(w2_scale), kernels.ptr(b2), kernels.ptr(out),
+        kernels.ptr(xn), kernels.ptr(h), T, C, F, float(eps), stages,
     )
     return out, xn, h
 
@@ -654,10 +654,10 @@ def _mlp_block_v2_cuda(x, ln_scale, ln_bias, w1_q, w1_scale, b1, w2_q, w2_scale,
         torch.empty((T, 1), dtype=torch.float32, device=x.device),
     )
     kernels.launch(
-        "fused_mlp_block_v2", x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-        w1_q.data_ptr(), w1_scale.data_ptr(), b1.data_ptr(),
-        w2_q.data_ptr(), w2_scale.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        xq.data_ptr(), xs.data_ptr(), T, C, F, f_chunk, float(eps), stages,
+        "fused_mlp_block_v2", kernels.ptr(x), kernels.ptr(ln_scale), kernels.ptr(ln_bias),
+        kernels.ptr(w1_q), kernels.ptr(w1_scale), kernels.ptr(b1),
+        kernels.ptr(w2_q), kernels.ptr(w2_scale), kernels.ptr(b2), kernels.ptr(out),
+        kernels.ptr(xq), kernels.ptr(xs), T, C, F, f_chunk, float(eps), stages,
     )
     return out, xq, xs
 

@@ -58,7 +58,7 @@ def _rms_norm_fwd_cuda(x: torch.Tensor, weight: torch.Tensor, eps: float,
     rows, D = _check_row_kernel("rms_norm", x, weight)
     out = torch.empty_like(x)
     kernels.launch(
-        "rms_norm_fwd", x.data_ptr(), weight.data_ptr(), out.data_ptr(), rows, D, float(eps),
+        "rms_norm_fwd", kernels.ptr(x), kernels.ptr(weight), kernels.ptr(out), rows, D, float(eps),
         int(few_rows),
     )
     return out
@@ -110,8 +110,8 @@ def _rms_norm_bwd_cuda(x, weight, dy, eps, need_dw):
         dw = torch.empty_like(weight)
         partial = torch.empty((max_blocks, D), dtype=torch.float32, device=x.device)
     kernels.launch(
-        "rms_norm_bwd", x.data_ptr(), weight.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-        None if partial is None else partial.data_ptr(), None if dw is None else dw.data_ptr(),
+        "rms_norm_bwd", kernels.ptr(x), kernels.ptr(weight), kernels.ptr(dy), kernels.ptr(dx),
+        None if partial is None else kernels.ptr(partial), None if dw is None else kernels.ptr(dw),
         rows, D, max_blocks, float(eps),
     )
     return dx, dw
@@ -190,9 +190,9 @@ def _rms_quant(x, res, weight, eps):
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     amax = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
     kernels.launch(
-        "rms_norm_residual_quant", x.data_ptr(), None if res is None else res.data_ptr(),
-        weight.data_ptr(), None if h is None else h.data_ptr(), q.data_ptr(),
-        amax.data_ptr(), rows, D, float(eps),
+        "rms_norm_residual_quant", kernels.ptr(x), None if res is None else kernels.ptr(res),
+        kernels.ptr(weight), None if h is None else kernels.ptr(h), kernels.ptr(q),
+        kernels.ptr(amax), rows, D, float(eps),
     )
     return h, q, amax
 

@@ -82,7 +82,7 @@ def fused_rotary(
     kernels.check_cuda_tensor("fused_rotary sin", sin, torch.float32)
     out = torch.empty_like(x)
     kernels.launch(
-        "fused_rotary", x.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-        out.data_ptr(), R, width, head_dim,
+        "fused_rotary", kernels.ptr(x), kernels.ptr(cos), kernels.ptr(sin),
+        kernels.ptr(out), R, width, head_dim,
     )
     return out

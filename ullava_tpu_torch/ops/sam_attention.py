@@ -126,8 +126,8 @@ def fused_window_attention_grid(
     kernels.check_cuda_tensor("window bias_b", bias_b, torch.bfloat16)
     out = torch.empty((N, S, H * hd), dtype=y.dtype, device=y.device)
     kernels.launch(
-        entry, y.data_ptr(), bias_a.data_ptr(),
-        bias_b.data_ptr(), out.data_ptr(), N, H, S, float(scale),
+        entry, kernels.ptr(y), kernels.ptr(bias_a),
+        kernels.ptr(bias_b), kernels.ptr(out), N, H, S, float(scale),
     )
     return out
 
@@ -262,8 +262,8 @@ def fused_window_attention_rect(
     first, second = geoms[0], geoms[-1]
     out = torch.empty((N, T, H * hd), dtype=y.dtype, device=y.device)
     kernels.launch(
-        entry, y.data_ptr(), bias_a.data_ptr(), bias_b.data_ptr(),
-        pad_k.data_ptr(), pad_v.data_ptr(), out.data_ptr(), N, H, T, P,
+        entry, kernels.ptr(y), kernels.ptr(bias_a), kernels.ptr(bias_b),
+        kernels.ptr(pad_k), kernels.ptr(pad_v), kernels.ptr(out), N, H, T, P,
         N // halves if halves else N, first[0], first[1], second[0], second[1], float(scale),
     )
     return out
@@ -331,8 +331,8 @@ def fused_global_attention(
         kernels.check_cuda_tensor(f"global {name}", t, torch.bfloat16)
     out = torch.empty_like(q)
     kernels.launch(
-        "fused_global_attention_hd64" if hd == 64 else "fused_global_attention", q.data_ptr(),
-        k.data_ptr(), v.data_ptr(), bias_a.data_ptr(), bias_b.data_ptr(), out.data_ptr(), N,
+        "fused_global_attention_hd64" if hd == 64 else "fused_global_attention", kernels.ptr(q),
+        kernels.ptr(k), kernels.ptr(v), kernels.ptr(bias_a), kernels.ptr(bias_b), kernels.ptr(out), N,
         float(scale), int(exp_bf16),
     )
     return out
@@ -419,9 +419,9 @@ def global_y_quant_i8(y, bias_a, bias_b, num_heads: int, head_dim: int):
     ac, bc = torch.empty_like(bias_a), torch.empty_like(bias_b)
     abss = torch.empty((B, H, S), dtype=torch.float32, device=y.device)
     kernels.launch(
-        "global_attention_y_quant_i8" + ("_hd64" if hd == 64 else ""), y.data_ptr(),
-        bias_a.data_ptr(), bias_b.data_ptr(),
-        codes.data_ptr(), scales.data_ptr(), ac.data_ptr(), bc.data_ptr(), abss.data_ptr(), B, H,
+        "global_attention_y_quant_i8" + ("_hd64" if hd == 64 else ""), kernels.ptr(y),
+        kernels.ptr(bias_a), kernels.ptr(bias_b),
+        kernels.ptr(codes), kernels.ptr(scales), kernels.ptr(ac), kernels.ptr(bc), kernels.ptr(abss), B, H,
     )
     return codes, scales, ac, bc, abss
 
@@ -466,14 +466,14 @@ def fused_global_attention_y(
     hd64 = "_hd64" if hd == 64 else ""
     if not dots_i8:
         kernels.launch(
-            "fused_global_attention_y" + hd64, y.data_ptr(), bias_a.data_ptr(),
-            bias_b.data_ptr(), out.data_ptr(), B, H, float(scale), int(exp_bf16),
+            "fused_global_attention_y" + hd64, kernels.ptr(y), kernels.ptr(bias_a),
+            kernels.ptr(bias_b), kernels.ptr(out), B, H, float(scale), int(exp_bf16),
         )
         return out
     codes, scales, ac, bc, abss = global_y_quant_i8(y, bias_a, bias_b, H, hd)
     kernels.launch(
-        "fused_global_attention_y_i8" + hd64, y.data_ptr(), codes.data_ptr(), scales.data_ptr(),
-        ac.data_ptr(), bc.data_ptr(), abss.data_ptr(), out.data_ptr(), B, H, float(scale),
+        "fused_global_attention_y_i8" + hd64, kernels.ptr(y), kernels.ptr(codes), kernels.ptr(scales),
+        kernels.ptr(ac), kernels.ptr(bc), kernels.ptr(abss), kernels.ptr(out), B, H, float(scale),
         int(exp_bf16),
     )
     return out
@@ -542,8 +542,8 @@ def fused_window_attention(
         kernels.check_cuda_tensor(f"window {name}", t, torch.bfloat16)
     out = torch.empty_like(q)
     kernels.launch(
-        "fused_window_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        bias_a.data_ptr(), bias_b.data_ptr(), out.data_ptr(), N, float(scale),
+        "fused_window_attention", kernels.ptr(q), kernels.ptr(k), kernels.ptr(v),
+        kernels.ptr(bias_a), kernels.ptr(bias_b), kernels.ptr(out), N, float(scale),
     )
     return out
 
@@ -617,7 +617,7 @@ def _packed_attention(name, y, bias_a, bias_b, num_heads, head_pad, window, scal
     for label, t in (("y", y), ("bias_a", bias_a), ("bias_b", bias_b)):
         kernels.check_cuda_tensor(f"{name} {label}", t, torch.bfloat16)
     out = torch.empty((N, S, H * hp), dtype=y.dtype, device=y.device)
-    kernels.launch(name, y.data_ptr(), bias_a.data_ptr(), bias_b.data_ptr(), out.data_ptr(),
+    kernels.launch(name, kernels.ptr(y), kernels.ptr(bias_a), kernels.ptr(bias_b), kernels.ptr(out),
                    N, H, float(scale))
     return out
 

@@ -9,8 +9,11 @@ prompt encoders and the IoU head frozen; the LLM or its LoRA adapters with
 the input embeddings and lm_head, the [SEG]/[LOC] heads and the mask
 decoder train), and runs the stage-2 step in the trainer with the
 per-epoch cIoU / gIoU eval and resume, on the card unless `--device` (or
-`device=`) says otherwise, on one device (the per-device batch is the
-batch). From Python, `callbacks=` go to the trainer (`TrainerCallback`).
+`device=`) says otherwise, over the (dp, fsdp, tp) mesh of the YAML's
+`fsdp` and `tp` keys (dp takes the rest of the world; torchrun's ranks
+join from its environment, a lone process is a world of one); the batch
+is the per-device batch times dp * fsdp. From Python, `callbacks=` go to
+the trainer (`TrainerCallback`).
 """
 
 from __future__ import annotations
@@ -26,14 +29,24 @@ def train(cfg, tokenizer=None, device=None, callbacks=()):
     from ullava_tpu_torch.data.loader import DataLoader
     from ullava_tpu_torch.models import build as model_build
     from ullava_tpu_torch.tasks import setup_task
+    from ullava_tpu_torch.parallel import MeshConfig, make_mesh
     from ullava_tpu_torch.training import optim
-    from ullava_tpu_torch.training.train_step import make_stage2_step, make_train_state
+    from ullava_tpu_torch.training.train_step import (
+        jit_step,
+        make_stage2_step,
+        make_train_state,
+        shard_train_state,
+    )
     from ullava_tpu_torch.training.trainer import Trainer
 
     device = resolve_device(device)
     model_cfg, dataset_cfg, eval_dataset_cfg, training_cfg, task_cfg, processor_cfg = (
         cfg.assign_config()
     )
+    mesh = make_mesh(MeshConfig(
+        fsdp=int(training_cfg.get("fsdp", 1)), tp=int(training_cfg.get("tp", 1)),
+    ), device.type)
+    n_data = mesh.size(0) * mesh.size(1)
 
     model_max_length = int(training_cfg.get("model_max_length", 512))
     if tokenizer is None:
@@ -52,7 +65,8 @@ def train(cfg, tokenizer=None, device=None, callbacks=()):
     )
 
     loader = DataLoader(
-        dataset, batch_size=int(training_cfg.get("per_device_train_batch_size", 2)),
+        dataset,
+        batch_size=int(training_cfg.get("per_device_train_batch_size", 2)) * n_data,
         collate_fn=collator,
         num_workers=int(training_cfg.get("dataloader_num_workers", 8)),
         seed=int(training_cfg.get("seed", 42)), device=device,
@@ -70,7 +84,8 @@ def train(cfg, tokenizer=None, device=None, callbacks=()):
     use_lora = int(model_cfg.get("lora_r", -1)) > 0
     patterns = optim.STAGE2_LORA if use_lora else optim.STAGE2
     state, labels = make_train_state(params, tx, patterns)
-    step = make_stage2_step(u_cfg, tx, labels)
+    state = shard_train_state(state, mesh, tx, labels)
+    step = jit_step(make_stage2_step(u_cfg, tx, labels))
 
     eval_fn = None
     if eval_dataset_cfg:
@@ -83,7 +98,7 @@ def train(cfg, tokenizer=None, device=None, callbacks=()):
 
     trainer = Trainer(state=state, step_fn=step, train_loader=loader,
                       training_cfg=training_cfg, lr_schedule=schedule, eval_fn=eval_fn,
-                      callbacks=callbacks)
+                      callbacks=callbacks, mesh=mesh)
     final_state = trainer.train(resume=True)
     logger.info("training complete at step %d", int(final_state.step))
     return final_state

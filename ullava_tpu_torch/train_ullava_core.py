@@ -5,8 +5,12 @@ root `train_ullava_core.py`).
 
 YAML -> Config -> tokenizer -> the model from its checkpoints -> the task's
 datasets and collator -> the loader -> the stage-1 step in the trainer,
-on the card unless `--device` (or `device=`) says otherwise, on one
-device (the per-device batch is the batch). The freeze policy: pretraining
+on the card unless `--device` (or `device=`) says otherwise, over the
+(dp, fsdp, tp) mesh that the YAML's `fsdp` and `tp` keys ask for (dp takes
+the rest of the world; `parallel.make_mesh`), the batch being the
+per-device batch times dp * fsdp. Launched by torchrun, each rank joins
+the process group from its environment; alone it is a world of one, where
+`fsdp: 2` raises as in the JAX CLI. The freeze policy: pretraining
 (`projector_from_scratch: true`) trains the projector and the input
 embeddings, finetuning the LLM and the projector; CLIP is always frozen.
 From Python, `callbacks=` go to the trainer (`TrainerCallback`).
@@ -25,12 +29,22 @@ def train(cfg, tokenizer=None, device=None, callbacks=()):
     from ullava_tpu_torch.data.loader import DataLoader
     from ullava_tpu_torch.models import build as model_build
     from ullava_tpu_torch.tasks import setup_task
+    from ullava_tpu_torch.parallel import MeshConfig, make_mesh
     from ullava_tpu_torch.training import optim
-    from ullava_tpu_torch.training.train_step import make_stage1_step, make_train_state
+    from ullava_tpu_torch.training.train_step import (
+        jit_step,
+        make_stage1_step,
+        make_train_state,
+        shard_train_state,
+    )
     from ullava_tpu_torch.training.trainer import Trainer
 
     device = resolve_device(device)
     model_cfg, dataset_cfg, _, training_cfg, task_cfg, processor_cfg = cfg.assign_config()
+    mesh = make_mesh(MeshConfig(
+        fsdp=int(training_cfg.get("fsdp", 1)), tp=int(training_cfg.get("tp", 1)),
+    ), device.type)
+    n_data = mesh.size(0) * mesh.size(1)
 
     model_max_length = int(training_cfg.get("model_max_length", 1024))
     if tokenizer is None:
@@ -45,7 +59,8 @@ def train(cfg, tokenizer=None, device=None, callbacks=()):
     collator = task.build_collator(tokenizer.pad_token_id, model_max_length=model_max_length)
 
     loader = DataLoader(
-        dataset, batch_size=int(training_cfg.get("per_device_train_batch_size", 8)),
+        dataset,
+        batch_size=int(training_cfg.get("per_device_train_batch_size", 8)) * n_data,
         collate_fn=collator,
         num_workers=int(training_cfg.get("dataloader_num_workers", 8)),
         seed=int(training_cfg.get("seed", 42)), device=device,
@@ -64,10 +79,12 @@ def train(cfg, tokenizer=None, device=None, callbacks=()):
         optim.STAGE1_PRETRAIN if core_cfg.projector_from_scratch else optim.STAGE1_FINETUNE
     )
     state, labels = make_train_state(params, tx, patterns)
-    step = make_stage1_step(core_cfg, tx, labels)
+    state = shard_train_state(state, mesh, tx, labels)
+    step = jit_step(make_stage1_step(core_cfg, tx, labels))
 
     trainer = Trainer(state=state, step_fn=step, train_loader=loader,
-                      training_cfg=training_cfg, lr_schedule=schedule, callbacks=callbacks)
+                      training_cfg=training_cfg, lr_schedule=schedule, callbacks=callbacks,
+                      mesh=mesh)
     final_state = trainer.train(resume=True)
     logger.info("training complete at step %d", int(final_state.step))
     return final_state

@@ -7,7 +7,8 @@ checkpoint holds one file, `state.pt`: the tree of a `TrainState` (step,
 params, optimizer state) or of bare params, with tensors moved to the
 CPU. `restore_checkpoint` copies the saved values into the tensors of a
 target of the same structure, so they keep their device, dtype and
-`requires_grad`.
+`requires_grad`. A sharded state (`DTensor` leaves) is gathered whole
+for the file, which rank 0 writes, and restored into each rank's shards.
 """
 
 from __future__ import annotations
@@ -19,7 +20,10 @@ import shutil
 from typing import Any, List, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from ullava_tpu_torch.parallel.sharding import place
 from ullava_tpu_torch.training.train_step import TrainState
 
 _FILE = "state.pt"
@@ -41,9 +45,15 @@ def _to_cpu(tree: Any) -> Any:
         return {k: _to_cpu(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_to_cpu(v) for v in tree]
+    if isinstance(tree, DTensor):
+        return tree.detach().full_tensor().cpu()
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu()
     return tree
+
+
+def _multi_rank() -> bool:
+    return dist.is_initialized() and dist.get_world_size() > 1
 
 
 def save_checkpoint(
@@ -51,12 +61,16 @@ def save_checkpoint(
 ) -> str:
     """Save a TrainState or a params tree to checkpoint-{step}."""
     path = _ckpt_path(output_dir, step)
-    if os.path.exists(path):
-        shutil.rmtree(path)
-    os.makedirs(path)
-    torch.save(_to_cpu(state), os.path.join(path, _FILE))
-    if save_total_limit:
-        rotate_checkpoints(output_dir, save_total_limit)
+    tree = _to_cpu(state)  # every rank: gathering a sharded leaf is collective
+    if not _multi_rank() or dist.get_rank() == 0:
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.makedirs(path)
+        torch.save(tree, os.path.join(path, _FILE))
+        if save_total_limit:
+            rotate_checkpoints(output_dir, save_total_limit)
+    if _multi_rank():
+        dist.barrier()
     return path
 
 
@@ -97,6 +111,10 @@ def _copy_into(target: Any, saved: Any, saved_shapes: bool = False) -> Any:
                              f"{target.dtype} {tuple(target.shape)}")
         if target.shape != saved.shape:
             return saved.to(target.device)
+        if isinstance(target, DTensor):
+            shards = place(saved.to(target.device), target.device_mesh, target.placements)
+            target.to_local().copy_(shards.to_local())
+            return target
         return target.copy_(saved)
     return saved
 

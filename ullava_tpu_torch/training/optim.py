@@ -18,6 +18,9 @@ moments in the parameter's dtype and bias corrections, the same schedule
 step (the update count before this update), every op in the leaf's dtype
 with the constants rounded to it (bit for bit with optax on bf16 leaves).
 It updates the parameters IN PLACE (the JAX version returns new arrays).
+On `DTensor` parameters (`parallel/`) each rank updates its own shards
+with the moments placed as their parameter; `global_norm`, and so the
+clip, sums the squares over every shard.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ import re
 from typing import Any, Callable, Dict, Iterator, List, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 
 # Trainable-path regexes of each stage.
 STAGE1_PRETRAIN = (
@@ -117,6 +122,17 @@ def partition_params(params: Any, labels: Any) -> List[torch.Tensor]:
     return train
 
 
+def merge_params(train: Any, frozen: Any) -> Any:
+    """The tree of `train` with its None leaves taken from `frozen` (the
+    JAX `merge_params` over the two halves `partition_params` gives
+    there; here the trainable leaves live in the tree itself)."""
+    if isinstance(train, dict):
+        return {k: merge_params(v, frozen[k]) for k, v in train.items()}
+    if isinstance(train, (list, tuple)):
+        return [merge_params(a, b) for a, b in zip(train, frozen)]
+    return frozen if train is None else train
+
+
 def make_lr_schedule(
     learning_rate: float,
     total_steps: int,
@@ -148,12 +164,24 @@ def make_lr_schedule(
     return lr
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """optax's `global_norm`: each leaf's sum of squares in its dtype
-    (squares in the leaf's dtype, summed in fp32), summed over leaves."""
+    (squares in the leaf's dtype, summed in fp32), summed over leaves. A
+    DTensor leaf sums its shards' fp32 sums over the mesh axes it is
+    sharded on."""
     total = None
     for t in tensors:
-        sq = (t * t).float().sum().to(t.dtype)
+        loc = _local(t)
+        sq = (loc * loc).float().sum()
+        if isinstance(t, DTensor):
+            for i, p in enumerate(t.placements):
+                if isinstance(p, Shard):
+                    dist.all_reduce(sq, group=t.device_mesh.get_group(i))
+        sq = sq.to(t.dtype)
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -184,9 +212,9 @@ class AdamW:
     def update(self, grads: Sequence[torch.Tensor], state: Dict[str, Any],
                params: Sequence[torch.Tensor]) -> Dict[str, Any]:
         """Apply one update to `params` in place; returns the new state."""
-        grads = list(grads)
+        g_norm = global_norm(grads) if self.grad_clip else None
+        grads, params = [_local(g) for g in grads], [_local(p) for p in params]
         if self.grad_clip:
-            g_norm = global_norm(grads)
             keep = g_norm < self.grad_clip
             grads = [torch.where(keep, g, g / g_norm.to(g.dtype) * self.grad_clip) for g in grads]
         count = state["count"] + 1
@@ -195,7 +223,7 @@ class AdamW:
         bc2 = 1 - torch.tensor(self.b2, dtype=f32) ** count
         step = torch.tensor(-self.lr(state["count"]), dtype=f32)
         consts = {}
-        for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
+        for p, g, mu, nu in zip(params, grads, map(_local, state["mu"]), map(_local, state["nu"])):
             # Every op in the leaf's dtype, each constant a tensor of that
             # dtype, as JAX rounds optax's Python scalars to the leaf's
             # dtype (in bf16, b2 = 0.999 is 1.0 and b1 is 0.8984375).

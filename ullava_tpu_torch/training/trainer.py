@@ -1,5 +1,6 @@
 """Training loop: the HF-Trainer-equivalent loop (counterpart of
-`ullava_tpu/training/trainer.py`, without the mesh).
+`ullava_tpu/training/trainer.py`). With `mesh=` each batch is sharded
+over (dp, fsdp) before the step (`parallel.sharding.shard_batch`).
 
 Epoch loop, per-step logging (loss, lr, grad norm, samples/s),
 `save_steps` cadence with `save_total_limit` rotation, resume from the
@@ -13,6 +14,7 @@ import logging
 import time
 from typing import Any, Callable, Dict, Optional, Sequence
 
+from ullava_tpu_torch.parallel.sharding import shard_batch
 from ullava_tpu_torch.training import checkpoint as ckpt
 from ullava_tpu_torch.training.train_step import TrainState
 
@@ -55,7 +57,9 @@ class Trainer:
         eval_fn: Optional[Callable] = None,  # params -> dict of metrics
         output_dir: Optional[str] = None,
         callbacks: Sequence[TrainerCallback] = (),
+        mesh=None,  # a (dp, fsdp, tp) DeviceMesh of a sharded state
     ):
+        self.mesh = mesh
         self.state = state
         self.step_fn = step_fn
         self.loader = train_loader
@@ -108,7 +112,8 @@ class Trainer:
                     next(epoch_iter)
             for batch in epoch_iter:
                 self._fire("on_step_begin", self.state, batch)
-                self.state, metrics = self.step_fn(self.state, batch)
+                step_batch = batch if self.mesh is None else shard_batch(batch, self.mesh)
+                self.state, metrics = self.step_fn(self.state, step_batch)
                 self._fire("on_step_end", self.state, batch, metrics)
                 global_step += 1
 
