@@ -81,6 +81,15 @@ Phases, each fatal on any error:
                norm + quantize and the int8 KV cache, with the same checks
                and timings; every kernel of the int8 LLM path must be
                launched exactly as often as its layers and steps say;
+     video_serve - on the same int8-LLM model, B=16 GIFs written by the
+               phase, read through `video_eval`'s pipeline (8 frames, 224
+               center crop), greedy `generate(videos=)` for 32 tokens (128
+               CLIP frames, 8 + 256 video tokens a prompt): exact launches,
+               `make_generate_fn`'s tokens equal, the first position's
+               logits against the plain versions on the card, the host's
+               decode + crop seconds apart; then one profiled call whose
+               Chrome trace `tools/trace_summary` reads (trace_summary:
+               its total against the profiler's busy sum);
   5. sam_int8_serve - quantizes the SAM image encoder and CLIP as well
                (`quantize_towers`) and serves B=16 requests with the int8
                SAM encoder in the block window layout (`mlp_w8a8`): every
@@ -110,6 +119,13 @@ Phases, each fatal on any error:
                on one B=4, S=1024 batch: one warm step with exact launch
                counts, five timed steps (falling loss, frozen weights
                bit-unchanged, every trainable leaf moved), one profiled;
+     video_stage1_step - on those weights, one B=4 batch of 2 GIF rows
+               and 2 image rows from files the phase writes, through the
+               `tgif` and `llava_cc3m` builders, `image_video_collator` and
+               the loader: one warm step with exact launches, three timed
+               (finite losses, the projector moved, frozen leaves
+               bit-unchanged), the first loss against the plain versions
+               on the card;
   9. stage2_train - frees that model, builds the full-width stage-2 model
                (`train.build_stage2`: CLIP and the SAM image encoder int8
                weight-only and frozen, LLaMA-7B in bf16 with LoRA r=8 on
@@ -136,14 +152,21 @@ Phases, each fatal on any error:
                draws a row); prints the write, load, convert, build and run
                seconds and the peak memory beside the card's name and power
                limit, and keeps the directory for the next phase;
+     chat    - `webui.gradio_chat.Chat` over those files: `seg` at
+               temperature 0 on both preprocess routes, exact launches,
+               against `run_once` at temperature 0; then xla_route: one
+               SAM encode with `attn_kernel="xla"` on the card's tensors
+               (no kernel launched) against the kernels' route;
  11. train_clis - the training and eval CLIs from files: writes 8 RES
                images of 480 x 640 as PNG (every scanline filter), COCO
                polygons, a 4-item val set, a one-question SEG.json and an
-               8-item chat set, asserts the native host library loaded, then
+               8-item chat set and a 4-item TGIF set (GIFs), asserts the
+               native host library loaded, then
                runs `train_ullava` from a YAML (int8 towers, LoRA r=8, B=2,
                one epoch of 4 steps, the epoch eval, `save_steps: 2`), again
                with two epochs (it resumes at step 4), `eval_ullava` on the
-               last checkpoint and `train_ullava_core` (B=2, 4 steps), all on
+               last checkpoint and `train_ullava_core` on the chat and
+               TGIF sets (B=2, 6 steps), all on
                the previous phase's checkpoint files: exact launches of a
                stage-2 step, a stage-1 step and an eval batch, the first
                stage-2 loss bit-equal to `train.make_stage2_step` run
@@ -3465,6 +3488,9 @@ def stage1_train_phase(gen) -> dict:
     print(json.dumps(line), flush=True)
     del step, leaves, trained, frozen, train_before
     line["parallel"] = parallel_stage1(cfg, state, batch, training_cfg)
+    # Last: the video step trains the core's leaves in place.
+    line["video_stage1_step"] = video_stage1_phase(cfg, state.params["core"], training_cfg,
+                                                   card_name_and_power_limit())
     del state, params, batch
     torch.cuda.empty_cache()
     return line
@@ -3991,17 +4017,20 @@ def kernels_of_a_call(fn, calls: int = 20):
     return seen or "not measured"
 
 
-def profile_serve(run) -> dict:
+def profile_serve(run, trace_path=None) -> dict:
     """One serve under torch.profiler: device kernel time by name and the
     device's busy share of the wall time (the profiler's own overhead
     lengthens the wall time, so the idle share is an upper bound). The
     device activity alone is recorded: the host's op events add nothing to
     these numbers, and on an H100 host they took about 30 s to process
-    after a whole serve's profile, with the same busy time either way."""
+    after a whole serve's profile, with the same busy time either way.
+    With `trace_path`, the profile's Chrome trace is written there."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, wall_s = run()
+    if trace_path is not None:
+        prof.export_chrome_trace(trace_path)
 
     # Device-side entries only (kernels, copies): an aten op's entry
     # repeats the time of the kernels it launched.
@@ -5072,6 +5101,7 @@ TRAIN_CLIS_B = 2  # per_device_train_batch_size of both training CLIs
 TRAIN_CLIS_HW = (480, 640)
 TRAIN_CLIS_ITEMS = 8  # RES and chat items: 4 steps an epoch at B=2
 TRAIN_CLIS_VAL_ITEMS = 4  # one eval batch: the harness pads it to its 8
+TRAIN_CLIS_GIFS = 4  # tgif items of the stage-1 set: 6 steps an epoch at B=2 with the chat set's 8
 
 
 def png_bytes(pixels, colour: int = 2, palette=None) -> bytes:
@@ -5117,8 +5147,9 @@ def write_train_clis_data(root, rng) -> dict:
     """The phase's files under `root`: 8 RES images of 480 x 640 (PNG),
     `res_train.jsonl` (COCO polygons of one or two parts, 1-3 sentences an
     item), `res_val.jsonl` (4 items, 2-3 sentences), a one-question
-    `SEG.json`, and a LLaVA chat set of 8 items (`chat.json`) on its own
-    PNG images."""
+    `SEG.json`, a LLaVA chat set of 8 items (`chat.json`) on its own
+    PNG images, and a TGIF set of 4 items (`tgif.json`) on GIFs of
+    `write_gifs`, in the chat set's words."""
     import os
 
     import numpy as np
@@ -5168,6 +5199,14 @@ def write_train_clis_data(root, rng) -> dict:
     paths["chat"] = os.path.join(root, "chat.json")
     with open(paths["chat"], "w") as f:
         json.dump(chat, f)
+    gifs = write_gifs(images, [f"clip{i}.gif" for i in range(TRAIN_CLIS_GIFS)], rng)
+    tgif = [{"gif": os.path.basename(g), "conversations": [
+        {"from": "human", "value": "Describe the picture ."},
+        {"from": "gpt", "value": f"A picture of noise , number {i} ."}]}
+        for i, g in enumerate(gifs)]
+    paths["tgif"] = os.path.join(root, "tgif.json")
+    with open(paths["tgif"], "w") as f:
+        json.dump(tgif, f)
     return paths
 
 
@@ -5175,7 +5214,8 @@ def train_clis_configs(paths, data, out) -> dict:
     """The YAML configs of the phase (as dicts): stage 2 as
     `configs/train/ullava_lora.yaml` with `quantize: int8_towers` on the RES
     set with its val set, one epoch or two; eval on run 2's last
-    checkpoint; stage 1 (pretraining) on the chat set."""
+    checkpoint; stage 1 (pretraining) on the chat set and the TGIF set,
+    whose entries are `configs/train/ullava_core.yaml`'s."""
     import os
 
     def res(anno):
@@ -5209,10 +5249,14 @@ def train_clis_configs(paths, data, out) -> dict:
                   "vision_hidden_layer": -2, "projector_from_scratch": True,
                   "llm_path": paths["llm_path"], "vision_encoder": paths["vision_encoder"]},
         "task": {"type": "image_text_pretrain", "collator_type": "image_video_collator"},
-        "processor": processor,
+        "processor": {**processor, "gif_train": {"n_frm": VIDEO_N_FRM, "image_size": 224}},
         "dataset": {"llava_cc3m": {
             "data_type": "image", "image_token_len": 256, "vis_processor": "clip_image",
-            "build_info": {"anno_dir": data["chat"], "image_dir": data["images"]}}},
+            "build_info": {"anno_dir": data["chat"], "image_dir": data["images"]}},
+            "tgif": {
+                "data_type": "gif", "image_token_len": 256, "vis_processor": "gif_train",
+                "build_info": {"anno_dir": data["tgif"], "image_dir": data["images"],
+                               "portion": 1.0}}},
         "training": {**training, "output_dir": out["stage1"], "learning_rate": 2e-3,
                      "num_train_epochs": 1, "save_steps": 100},
     }
@@ -5394,7 +5438,8 @@ def train_clis_phase(paths, card: str, device: str = "cuda") -> dict:
     epoch of 4 steps, the per-epoch eval on the val set, `save_steps: 2`),
     `train_ullava` again with two epochs (it resumes at step 4 and takes 4
     more), `eval_ullava` on that run's last checkpoint, `train_ullava_core`
-    (pretraining, B=2, 4 steps). The training CLIs are read through a `TrainerCallback`
+    (pretraining on the chat and TGIF sets, B=2, 6 steps). The training
+    CLIs are read through a `TrainerCallback`
     (`cli_recorder`), the builds' walls through `recording`. The native
     host library must be loaded before the first fetch. Gates: the
     launches of the first stage-2 step, the first stage-1 step, each of
@@ -5507,7 +5552,7 @@ def train_clis_phase(paths, card: str, device: str = "cuda") -> dict:
             _check_launches("train_clis eval batch", e["launches"], expect["eval_batch"])
         losses = {n: [s["loss"].item() for s in runs[n]["rec"].steps]
                   for n in ("stage2_run1", "stage2_run2", "stage1")}
-        must("train_clis steps", [len(v) for v in losses.values()] == [4, 4, 4]
+        must("train_clis steps", [len(v) for v in losses.values()] == [4, 4, 6]
              and runs["stage2_run2"]["result"] == 8, losses)
         must("train_clis losses finite", all(math.isfinite(x) for v in losses.values() for x in v),
              losses)
@@ -6407,6 +6452,619 @@ def sam_predictor_phase(gen, card: str, root: str) -> dict:
     return line
 
 
+# ---------------------------------------------------------------------------
+# The video path, the web chat, the SAM encoder's "xla" route and the trace
+# summary tool: GIFs the phases write go through the video processors into
+# `generate(videos=)` (inside the serves) and into the stage-1 step (inside
+# the stage-1 phase); `Chat` and the "xla" encode run on the inference
+# phase's checkpoint files; `tools/trace_summary` reads the video serve's
+# profile.
+# ---------------------------------------------------------------------------
+VIDEO_B = 16  # GIFs of the video serve
+VIDEO_N_FRM = 8  # frames a clip: the temporal tokens, and B x T CLIP frames
+VIDEO_GIF_FRAMES, VIDEO_GIF_HW = 12, (240, 320)
+# stage1_config's video markers; the video serve's config takes the same.
+VIDEO_START, VIDEO_END = 32004, 32005
+# Launches of one `generate(videos=)` on the int8 LLM: the int8 serve's
+# LLM kernels (the prefill and NEW_TOKENS decode steps), no SAM kernel
+# (generation alone), and no CLIP kernel (the tower's plain attention).
+VIDEO_SERVE_LAUNCHES = {**INT8_LAUNCHES, **{k: 0 for k in SAM_LAUNCHES}}
+# The spliced embeddings (CLIP over B x T frames, the pooling, the
+# projector, the splice) against fp32: row-relative, the SAM encoder's gate.
+VIDEO_EMBED_TOL = 5e-2
+# The first position's logits, the card's kernels against their plain
+# versions at full depth, a check of gross faults only: row-relative
+# max(5e-2, twice the model's own spread under one bf16 ulp of its input
+# embeddings), the plain route on embeddings moved by one ulp in random
+# places. At 32 random layers with W8A8 prefill that spread is 0.39 and the
+# kernels' error 0.25 on text prompts (`microbench/logits_depth.py`): an
+# int8 activation that rounds one step apart moves the next layer's
+# output, and random weights carry the move on through the depth. Each
+# kernel is held tightly by its own gate at this path's shapes.
+VIDEO_LOGITS_TOL = 5e-2
+VIDEO_PROFILE_TOKENS = 8  # new tokens of the profiled call whose trace is summarized
+TRACE_TOTAL_TOL = 0.01  # the summary's total against the profiler's busy sum
+
+
+def write_gifs(root, names, rng) -> list:
+    """GIFs of `VIDEO_GIF_FRAMES` noise frames of `VIDEO_GIF_HW` under
+    `root`, written by Pillow from palette frames (no quantization pass),
+    each file with a palette of its own."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    paths = []
+    for name in names:
+        palette = rng.integers(0, 256, 768, dtype=np.uint8).tobytes()
+        frames = []
+        for _ in range(VIDEO_GIF_FRAMES):
+            im = Image.fromarray(rng.integers(0, 256, VIDEO_GIF_HW, dtype=np.uint8), "P")
+            im.putpalette(palette)
+            frames.append(im)
+        paths.append(os.path.join(root, name))
+        frames[0].save(paths[-1], save_all=True, append_images=frames[1:], duration=100, loop=0)
+    return paths
+
+
+def video_serve_phase(cfg, params, card: str) -> tuple:
+    """Video captioning at full width on the int8 serve's model (Vicuna-7B,
+    32 layers, W8A8 prefill, int8 KV cache; CLIP ViT-L/14 at 224): B=16
+    GIFs the phase writes (Pillow), read by `video_eval`'s pipeline with
+    the GIF reader (uniform sampling of 8 frames, shortest side to 224,
+    center crop, CLIP normalization; its host seconds apart), 320-token
+    prompts whose video span holds 8 temporal and 256 spatial tokens,
+    greedy `generate(videos=)` for 32 new tokens: 128 CLIP frames. The
+    launch counts are set to 0 just before the first call and read just
+    after (exactly `VIDEO_SERVE_LAUNCHES`). Gates: the prompts are the
+    sequences' prefixes and every token in the vocabulary; the splice
+    reached the model (the answer without videos differs);
+    `make_generate_fn` gives the same tokens; the spliced embeddings equal
+    the same function's in fp32 on the card outside the video span and lie
+    within `VIDEO_EMBED_TOL` (row-relative) inside it; the first generated
+    position's logits within `VIDEO_LOGITS_TOL`, or twice the model's
+    one-ulp spread where larger (the limit applied is printed), of the same
+    call with every kernel swapped for its plain version on the card
+    (`stage2_grads.plain_on_card("int8_llm")`, which launches nothing).
+    Then one profiled call of `VIDEO_PROFILE_TOKENS` new tokens, whose
+    Chrome trace `tools/trace_summary` reads: its device self-time total
+    within `TRACE_TOTAL_TOL` of the profiler's busy sum.
+    Returns (the video serve line, the trace summary line)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from ullava_tpu_torch import kernels
+    from ullava_tpu_torch.microbench import stage2_grads
+    from ullava_tpu_torch.data.processors import video_processor
+    from ullava_tpu_torch.models import generate, llama, ullava_core
+    from ullava_tpu_torch.ops.quant import apply_linear
+    from ullava_tpu_torch.tools import trace_summary
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(cfg, core=dataclasses.replace(
+        cfg.core, vid_start_id=VIDEO_START, vid_end_id=VIDEO_END))
+    core = params["core"]
+    T, P = VIDEO_N_FRM, cfg.core.vision.num_patches
+    root = tempfile.mkdtemp(prefix="ullava_video_serve_")
+    try:
+        rng = np.random.default_rng(27)
+        t0 = time.perf_counter()
+        paths = write_gifs(root, [f"clip{i}.gif" for i in range(VIDEO_B)], rng)
+        write_s = time.perf_counter() - t0
+        proc = video_processor.VideoEvalProcessor(image_size=224, n_frm=T)
+        proc.media_loader = video_processor.load_gif_frames  # video_eval's pipeline on GIFs
+        t0 = time.perf_counter()
+        clips = np.stack([proc(p) for p in paths])
+        host_s = time.perf_counter() - t0
+        must("video clips", clips.shape == (VIDEO_B, T, 224, 224, 3)
+             and clips.dtype == np.float32 and np.isfinite(clips).all(), clips.shape)
+
+        ids = rng.integers(5, 1000, size=(VIDEO_B, PROMPT))
+        ids[:, 1], ids[:, 2:2 + T + P], ids[:, 2 + T + P] = VIDEO_START, 3, VIDEO_END
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        input_ids = torch.as_tensor(ids, device="cuda")
+        lens = torch.full((VIDEO_B,), PROMPT, dtype=torch.int32, device="cuda")
+        videos = torch.from_numpy(clips).pin_memory().to("cuda", non_blocking=True)
+        torch.cuda.synchronize()
+        h2d_s = time.perf_counter() - t0
+        gc = generate.GenerateConfig(max_new_tokens=NEW_TOKENS, temperature=0.0)
+
+        def run(videos=videos, gen_cfg=gc):
+            return generate.generate(core, cfg.core, gen_cfg, input_ids=input_ids,
+                                     prompt_lens=lens, videos=videos)
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            return r, time.perf_counter() - t
+
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        out, first_s = timed(run)
+        launches = kernels.launch_counts()
+        _check_launches("video_serve", launches, VIDEO_SERVE_LAUNCHES)
+        seqs = out["sequences"].cpu()
+        must("video_serve sequences", tuple(seqs.shape) == (VIDEO_B, PROMPT + NEW_TOKENS)
+             and torch.equal(seqs[:, :PROMPT], torch.as_tensor(ids).to(seqs.dtype))
+             and int(seqs.min()) >= 0 and int(seqs.max()) < cfg.core.llm.vocab_size
+             and bool((out["lengths"] == PROMPT + NEW_TOKENS).all()),
+             {"shape": tuple(seqs.shape), "lengths": out["lengths"].tolist()})
+        by_fn = generate.make_generate_fn(cfg.core, gc)(core, input_ids, lens, videos=videos)
+        must("video_serve make_generate_fn", torch.equal(by_fn["sequences"], out["sequences"]),
+             "the serving closure's tokens differ from generate's")
+        no_video = run(videos=None, gen_cfg=dataclasses.replace(gc, max_new_tokens=1))
+        must("video_serve splice", not torch.equal(no_video["hidden_last"][:, :PROMPT],
+                                                   out["hidden_last"][:, :PROMPT]),
+             "the prompt's hidden states without the videos are those with them")
+        del by_fn, no_video
+
+        # What the LLM is fed: the spliced embeddings against the same
+        # function in fp32 on the card from the same weights. This model's
+        # CLIP runs no kernel, and neither route launches one.
+        span = torch.zeros(PROMPT, dtype=torch.bool)
+        span[2:2 + T + P] = True
+        f32 = torch.float32
+        cfg32 = dataclasses.replace(
+            cfg.core, llm=dataclasses.replace(cfg.core.llm, dtype=f32),
+            vision=dataclasses.replace(cfg.core.vision, dtype=f32))
+        core32 = stage2_grads.cpu_copy({"vision": core["vision"], "projector": core["projector"],
+                                        "llm": {"embed_tokens": core["llm"]["embed_tokens"]}},
+                                       device="cuda")
+        with torch.no_grad():
+            emb, emb_launched = stage2_grads._launched(
+                lambda: ullava_core.embed_multimodal(core, cfg.core, input_ids, None, videos))
+            emb32, emb32_launched = stage2_grads._launched(
+                lambda: ullava_core.embed_multimodal(core32, cfg32, input_ids, None, videos))
+        embed_err = row_rel_err(emb[:, span], emb32[:, span])
+        must("video_serve embeddings launch nothing", not emb_launched and not emb32_launched,
+             (emb_launched, emb32_launched))
+        must("video_serve spliced embeddings against fp32",
+             torch.equal(emb[:, ~span].float(), emb32[:, ~span]) and embed_err <= VIDEO_EMBED_TOL,
+             {"video_rows_row_rel_err": embed_err})
+        del core32, emb, emb32
+
+        # The first generated position: logits of the last prompt row.
+        rows = torch.arange(VIDEO_B, device="cuda")
+
+        def first_logits(o):
+            h = o["hidden_last"][rows, lens.long() - 1].to(cfg.core.llm.dtype)
+            return apply_linear(h, core["llm"]["lm_head"]).float()
+
+        def prefill_logits(bump):
+            # generate's prefill on the video embeddings, each moved by one
+            # bf16 ulp where `bump` is 1.
+            emb = ullava_core.embed_multimodal(core, cfg.core, input_ids, None, videos)
+            emb = (emb.float() * (1 + bump * 2.0**-8)).to(emb.dtype)
+            cache = llama.init_kv_cache(cfg.core.llm, VIDEO_B, PROMPT + 1, device="cuda")
+            pre = llama.forward(core["llm"], cfg.core.llm, inputs_embeds=emb, kv_lens=lens,
+                                kv_cache=cache, compute_logits=False)
+            return first_logits({"hidden_last": pre["hidden_states"]})
+
+        with stage2_grads.plain_on_card("int8_llm"), torch.no_grad():
+            plain, plain_launched = stage2_grads._launched(
+                lambda: run(gen_cfg=dataclasses.replace(gc, max_new_tokens=1)))
+            bump = torch.randint(0, 2, (VIDEO_B, PROMPT, cfg.core.llm.hidden_size),
+                                 generator=torch.Generator(device="cuda").manual_seed(27),
+                                 device="cuda").float()
+            floor_ref, floor_launched = stage2_grads._launched(lambda: prefill_logits(0 * bump))
+            floor_bumped, _ = stage2_grads._launched(lambda: prefill_logits(bump))
+        must("video_serve plain route", not plain_launched and not floor_launched,
+             (plain_launched, floor_launched))
+        ref_logits, plain_logits = first_logits(out), first_logits(plain)
+        logits_err = row_rel_err(ref_logits, plain_logits)
+        ulp_spread = row_rel_err(floor_bumped, floor_ref)
+        logits_limit = max(VIDEO_LOGITS_TOL, 2 * ulp_spread)
+        argmax_equal = float((ref_logits.argmax(-1) == plain_logits.argmax(-1)).float().mean())
+        must("video_serve plain prefill", torch.equal(floor_ref, plain_logits),
+             "the floor's unmoved prefill is not generate's")
+        must("video_serve first logits", logits_err <= logits_limit,
+             {"row_rel_err": logits_err, "one_ulp_spread": ulp_spread, "limit": logits_limit})
+        del plain, bump, floor_ref, floor_bumped
+
+        runs = [timed(run)[1] for _ in range(3)]
+        generate_s = sorted(runs)[1]
+        with torch.no_grad():
+            _, embed_s = timed(lambda: ullava_core.embed_multimodal(
+                core, cfg.core, input_ids, None, videos))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        t_trace = time.perf_counter()
+        trace = os.path.join(root, "video_serve_trace.json")
+        prof = profile_serve(lambda: timed(lambda: run(gen_cfg=dataclasses.replace(
+            gc, max_new_tokens=VIDEO_PROFILE_TOKENS))), trace_path=trace)
+        profile_s = time.perf_counter() - t_trace
+        t0 = time.perf_counter()
+        summary = trace_summary.summarize(trace, n=8)
+        summary_s = time.perf_counter() - t0
+        trace_mb = os.path.getsize(trace) / 1e6
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    busy = prof["device_busy_s"]
+    must("video_serve profile", isinstance(busy, float) and busy > 0, busy)
+    trace_err = abs(summary["total_ms"] - busy * 1e3) / (busy * 1e3)
+    must("trace_summary total", trace_err <= TRACE_TOTAL_TOL,
+         {"summary_ms": summary["total_ms"], "profiler_busy_ms": busy * 1e3})
+    line = {
+        "phase": "video_serve", "card": card, "batch": VIDEO_B, "frames": T,
+        "clip_frames": VIDEO_B * T, "video_tokens": T + P, "prompt_tokens": PROMPT,
+        "new_tokens": NEW_TOKENS, "gif_frames_hw": [VIDEO_GIF_FRAMES, *VIDEO_GIF_HW],
+        "write_gifs_s": write_s, "host_decode_crop_s": host_s, "h2d_s": h2d_s,
+        "first_generate_s": first_s, "generate_s": generate_s, "generate_runs_s": runs,
+        "videos_per_s": VIDEO_B / generate_s, "clip_projector_splice_s": embed_s,
+        "embeddings_row_rel_err": embed_err, "embeddings_tol": VIDEO_EMBED_TOL,
+        "first_logits_row_rel_err": logits_err, "first_logits_limit": logits_limit,
+        "first_logits_one_ulp_spread": ulp_spread, "first_argmax_equal": argmax_equal,
+        "make_generate_fn_tokens_equal": True, "peak_mem_gb": peak_gb,
+        "profiled_new_tokens": VIDEO_PROFILE_TOKENS,
+        "device_busy_s": busy, "profiled_wall_s": prof["wall_s"],
+        "device_idle_share": prof["device_idle_share"],
+        "top_device_ms": dict(list(prof["top_device_ms"].items())[:8]),
+        "seconds": time.perf_counter() - t_phase, "launches": launches,
+    }
+    trace_line = {"phase": "trace_summary", "card": card, "trace_mb": trace_mb,
+                  "profile_s": profile_s, "summary_s": summary_s,
+                  "total_ms": summary["total_ms"], "profiler_busy_ms": busy * 1e3,
+                  "rel_diff": trace_err, "tol": TRACE_TOTAL_TOL,
+                  "seconds": profile_s + summary_s}
+    print(json.dumps(line), flush=True)
+    print(json.dumps(trace_line), flush=True)
+    # The tool's own top lines, as it prints them.
+    for key, ms, count in summary["ops"]:
+        print(f"{ms:9.2f} ms x{count:5d}  {key[:120]}", flush=True)
+    return line, trace_line
+
+
+def write_video_stage1_data(root, rng) -> dict:
+    """The video stage-1 step's files under `root`: 2 chat PNGs of 480 x
+    640 with `chat.json`, and 2 GIFs (`write_gifs`) with `tgif.json`."""
+    import os
+
+    import numpy as np
+
+    images = os.path.join(root, "images")
+    os.makedirs(images)
+    chat, tgif = [], []
+    for i in range(2):
+        with open(os.path.join(images, f"chat{i}.png"), "wb") as f:
+            f.write(png_bytes(rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)))
+        chat.append({"image": f"chat{i}.png", "conversations": [
+            {"from": "human", "value": "<image>\nDescribe the picture ."},
+            {"from": "gpt", "value": f"A picture of noise , number {i} ."}]})
+        tgif.append({"gif": f"clip{i}.gif", "conversations": [
+            {"from": "human", "value": "What happens in the clip ?"},
+            {"from": "gpt", "value": f"Noise moves , clip {i} ."}]})
+    write_gifs(root, [t["gif"] for t in tgif], rng)
+    paths = {"images": images, "gifs": root}
+    for name, items in (("chat", chat), ("tgif", tgif)):
+        paths[name] = os.path.join(root, f"{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(items, f)
+    return paths
+
+
+def video_stage1_configs(data) -> tuple:
+    """(dataset, processor) configs of the step: `configs/train/
+    ullava_core.yaml`'s `llava_cc3m` and `tgif` entries and processors,
+    pointed at the phase's files."""
+    dataset = {
+        "llava_cc3m": {"data_type": "image", "image_token_len": 256,
+                       "vis_processor": "clip_image",
+                       "build_info": {"anno_dir": data["chat"], "image_dir": data["images"],
+                                      "portion": 1.0}},
+        "tgif": {"data_type": "gif", "image_token_len": 256, "vis_processor": "gif_train",
+                 "build_info": {"anno_dir": data["tgif"], "image_dir": data["gifs"],
+                                "portion": 1.0}},
+    }
+    processor = {"clip_image": {"image_size": 224},
+                 "gif_train": {"n_frm": VIDEO_N_FRM, "image_size": 224}}
+    return dataset, processor
+
+
+def video_stage1_phase(cfg, core_params, training_cfg, card: str) -> dict:
+    """A stage-1 step on a batch of GIF and image rows at full width, on
+    the stage-1 phase's weights: one B=4 batch (2 GIF rows, 2 image rows)
+    from files the phase writes, through the `tgif` and `llava_cc3m`
+    builders, `image_video_collator` and the loader (to the card as the
+    training CLIs send batches), the toy tokenizer, whose marker ids the
+    model's config takes. Each row's missing medium is zeros, and a row
+    without its marker is not spliced: B x T = 32 CLIP frames and 4 images
+    are encoded. A fresh optimizer state (the pretraining policy, the
+    phase's schedule over 4 steps): one warm step with the launch counts
+    set to 0 just before it and read just after (exactly `TRAIN_LAUNCHES`),
+    then three timed steps. Gates: S <= 1024; finite losses and gradient
+    norms; the projector moved; every frozen leaf bit-unchanged; the first
+    loss within 5e-2 (relative) of the same batch's loss with the kernels
+    swapped for their plain versions on the card (which launches nothing)."""
+    import math
+    import os
+    import random
+
+    import numpy as np
+    import torch
+
+    from ullava_tpu_torch import kernels, train
+    from ullava_tpu_torch.config import ConfigNode
+    from ullava_tpu_torch.constants import MM_TOKENS
+    from ullava_tpu_torch.data.loader import DataLoader
+    from ullava_tpu_torch.microbench.stage2_grads import _launched, plain_on_card
+    from ullava_tpu_torch.models import ullava_core
+    from ullava_tpu_torch.tasks import setup_task
+    from ullava_tpu_torch.training import optim
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from toy_tokenizer import ToyLlamaTokenizer
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ullava_video_stage1_")
+    try:
+        data = write_video_stage1_data(root, np.random.default_rng(28))
+        tok = ToyLlamaTokenizer(model_max_length=2048)
+        tok.add_tokens(MM_TOKENS)
+        marker = tok.convert_tokens_to_ids
+        cfg = dataclasses.replace(
+            cfg, img_start_id=marker("<img_beg>"), img_end_id=marker("</img_end>"),
+            vid_start_id=marker("<vid_beg>"), vid_end_id=marker("</vid_end>"))
+        dataset_cfg, processor_cfg = video_stage1_configs(data)
+        task = setup_task(ConfigNode({"type": "image_text_pretrain",
+                                      "collator_type": "image_video_collator"}))
+        dataset = task.build_datasets(ConfigNode(dataset_cfg), tok, ConfigNode(processor_cfg),
+                                      "conv_simple")
+        collator = task.build_collator(tok.pad_token_id, model_max_length=1024)
+        random.seed(27)  # the crop windows and the headtail frames
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = next(iter(DataLoader(dataset, 4, collator, num_workers=2, seed=42,
+                                     device="cuda")))
+        torch.cuda.synchronize()
+        fetch_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    S = batch["input_ids"].shape[1]
+    has_video = (batch["input_ids"] == cfg.vid_start_id).any(1)
+    has_image = (batch["input_ids"] == cfg.img_start_id).any(1)
+    must("video stage-1 batch", S <= 1024 and tuple(batch["videos"].shape[1:]) == (
+        VIDEO_N_FRM, 224, 224, 3) and int(has_video.sum()) == 2 and int(has_image.sum()) == 2
+         and not bool((has_video & has_image).any())
+         and float(batch["videos"][~has_video].abs().max()) == 0.0
+         and float(batch["images"][~has_image].abs().max()) == 0.0,
+         {"S": S, "video_rows": has_video.tolist(), "image_rows": has_image.tolist()})
+
+    with torch.no_grad(), plain_on_card("llm"):
+        plain_loss, plain_launched = _launched(lambda: ullava_core.forward(
+            core_params, cfg, input_ids=batch["input_ids"], labels=batch["labels"],
+            attn_lens=batch["attn_lens"], images=batch["images"],
+            videos=batch["videos"])["loss"].item())
+    must("video stage-1 plain route", not plain_launched, plain_launched)
+
+    state, step, _ = train.build_stage1(cfg, core_params, training_cfg, total_steps=4)
+    leaves = list(optim.named_leaves(state.params))
+    frozen = [(n, t) for n, t in leaves if not t.requires_grad]
+    frozen_before = [(n, _fingerprint(t)) for n, t in frozen]
+    proj_before = [t.detach().clone() for n, t in leaves if "projector" in n]
+
+    def timed_step():
+        nonlocal state
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        loss, gnorm = m["loss"].item(), m["grad_norm"].float().item()
+        return (loss, gnorm), time.perf_counter() - t
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    (loss0, gnorm0), first_s = timed_step()
+    launches = kernels.launch_counts()
+    _check_launches("video_stage1_step", launches, TRAIN_LAUNCHES)
+    runs = [timed_step() for _ in range(3)]
+    losses = [loss0] + [r[0][0] for r in runs]
+    gnorms = [gnorm0] + [r[0][1] for r in runs]
+    must("video stage-1 losses", all(math.isfinite(x) for x in losses + gnorms)
+         and min(gnorms) > 0, {"losses": losses, "grad_norms": gnorms})
+    plain_rel = abs(loss0 - plain_loss) / abs(plain_loss)
+    must("video stage-1 first loss against the plain path", plain_rel <= 5e-2,
+         {"kernels": loss0, "plain": plain_loss})
+    proj_after = [t for n, t in optim.named_leaves(state.params) if "projector" in n]
+    moved = [not torch.equal(a, b) for a, b in zip(proj_before, proj_after)]
+    frozen_after = [(n, _fingerprint(t)) for n, t in frozen]
+    must("video stage-1 leaves", moved and all(moved) and frozen_after == frozen_before,
+         {"projector_moved": moved,
+          "frozen_changed": [n for (n, a), (_, b) in zip(frozen_before, frozen_after) if a != b]})
+    line = {"phase": "video_stage1_step", "card": card, "batch": 4, "seq": S,
+            "gif_rows": 2, "image_rows": 2, "clip_frames": 4 * VIDEO_N_FRM, "images": 4,
+            "fetch_collate_s": fetch_s, "first_step_s": first_s,
+            "step_s": sorted(r[1] for r in runs)[1], "step_runs_s": [r[1] for r in runs],
+            "losses": losses, "grad_norms": gnorms, "plain_first_loss": plain_loss,
+            "first_loss_rel_to_plain": plain_rel, "projector_leaves_moved": len(moved),
+            "frozen_leaves_unchanged": len(frozen_before),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "seconds": time.perf_counter() - t_phase, "launches": launches}
+    print(json.dumps(line), flush=True)
+    del state, step, leaves, frozen, proj_before, proj_after, batch
+    torch.cuda.empty_cache()
+    return line
+
+
+CHAT_QUERY = "Segment the dog ."
+# The canvas route's model inputs (`ops/image_ops` on the card) against the
+# same canvas through the same functions on the host: SAM's normalization
+# within 1e-5 (the JAX package's device-against-host bound); CLIP's
+# antialiased bicubic resize, whose card and host kernels sum their taps in
+# other orders, within a hundredth of one uint8 step of its input in
+# normalized units, over CLIP_STD's least (1.5e-4; 1.6e-5 measured on one H100).
+CHAT_SAM_TOL, CHAT_CLIP_TOL = 1e-5, 0.01 / (255 * 0.26130258)
+CHAT_READOUT_TOL = 5e-2  # reference_gate's: each readout against its largest value
+XLA_ROUTE_TOL = 5e-2  # the SAM encoder's gate: row-relative, against the kernels' route
+
+
+def chat_phase(paths, card: str) -> tuple:
+    """`webui.gradio_chat.Chat` over the inference phase's checkpoint files
+    (the same config, image, query and toy tokenizer), answering at
+    temperature 0 for 32 new tokens on both preprocess routes, each call
+    with the launch counts set to 0 just before it and read just after
+    (exactly `inference_launches(32)`). The host route's text, masks and
+    boxes must equal `inference_ullava.run_once`'s at temperature 0. The
+    canvas route (`ops/image_ops` on the card) is held on its own inputs:
+    those inputs against the same canvas preprocessed on the host
+    (`CHAT_SAM_TOL`, `CHAT_CLIP_TOL`); its greedy readouts against the
+    port's plain path in fp32 on the card, every kernel swapped for its
+    plain version, as `reference_gate` holds the host route against it on
+    the CPU (`greedy_readout`, `readout_errs`: the same tokens, each readout
+    within `CHAT_READOUT_TOL`; the masks at the image's size equal wherever
+    the reference's logit lies outside that band); the same answer on that
+    plain path with the same text. Its agreement with run_once (other
+    resizes) is a reading. Then the "xla" route: one encode of the query's
+    SAM input by the chat model's encoder with `attn_kernel="xla"` on the
+    card's tensors, which launches no kernel, within `XLA_ROUTE_TOL` of the
+    kernels' route. Returns (the chat line, the xla route line)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from ullava_tpu_torch import inference_ullava, kernels
+    from ullava_tpu_torch.config import Config
+    from ullava_tpu_torch.microbench import stage2_grads
+    from ullava_tpu_torch.models import build  # noqa: F401  (registers the archs)
+    from ullava_tpu_torch.models.sam import image_encoder
+    from ullava_tpu_torch.models.sam.build import postprocess_masks_host
+    from ullava_tpu_torch.ops import image_ops
+    from ullava_tpu_torch.webui.gradio_chat import Chat
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from toy_tokenizer import ToyLlamaTokenizer
+
+    t_phase = time.perf_counter()
+    cfg = Config(cfg_dict={
+        "model": {"arch": "ullava", "conv_type": "conv_sep2", "quantize": "int8",
+                  "kv_cache": "int8", **paths},
+        "task": {"type": "image_text_evaluate"}, "processor": {}, "training": {}})
+    image = np.random.default_rng(0).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    H, W = image.shape[:2]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chat = Chat(cfg, tokenizer=ToyLlamaTokenizer(model_max_length=2048))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    u_cfg, tok = chat.u_cfg, chat.tokenizer
+    ref = inference_ullava.run_once(cfg, image, CHAT_QUERY, temperature=0.0,
+                                    max_new_tokens=INFERENCE_NEW_TOKENS,
+                                    tokenizer=ToyLlamaTokenizer(model_max_length=2048))
+    torch.cuda.empty_cache()
+
+    def agreement(got, want):
+        boxes = len(got["boxes"]) == len(want["boxes"]) > 0
+        return {"text_equal": got["text"] == want["text"],
+                "mask_agreement": [float((g == r).mean())
+                                   for g, r in zip(got["masks"], want["masks"])],
+                "box_err": float(np.abs(np.subtract(got["boxes"], want["boxes"])).max())
+                / max(H, W) if boxes else float("inf")}
+
+    routes, answers = {}, {}
+    for route, device_preprocess in (("host", False), ("canvas", True)):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = chat.seg(image, CHAT_QUERY, temperature=0.0, max_new_tokens=INFERENCE_NEW_TOKENS,
+                       device_preprocess=device_preprocess)
+        torch.cuda.synchronize()
+        seg_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        steps = len(got["text"].split())
+        _check_launches(f"chat {route}", launches, inference_launches(steps))
+        must(f"chat {route} answer", len(got["masks"]) == 3 and len(got["boxes"]) == 3
+             and all(m.shape == (H, W) for m in got["masks"]), got["text"])
+        answers[route] = got
+        routes[route] = {"seg_s": seg_s, "new_tokens": steps,
+                         "against_run_once": agreement(got, ref), "launches": launches}
+    host = routes["host"]["against_run_once"]
+    must("chat host route equals run_once", host["text_equal"]
+         and min(host["mask_agreement"]) == 1.0 and host["box_err"] == 0.0, host)
+
+    # The canvas route on its own inputs.
+    t0 = time.perf_counter()
+    inputs, _, hw = inference_ullava.prepare_query(u_cfg, tok, image, CHAT_QUERY, "conv_sep2",
+                                                   "cuda", device_preprocess=True)
+    canvas, hw_host = image_ops.make_canvas(image, u_cfg.sam.vision.img_size)
+    clip_host, sam_host = image_ops.preprocess_canvas(
+        torch.as_tensor(canvas[None]), torch.tensor([hw_host], dtype=torch.int32),
+        u_cfg.core.vision.image_size)
+    clip_d = (inputs["images"].cpu() - clip_host).abs()
+    sam_err = float((inputs["images_sam"].cpu() - sam_host).abs().max())
+    pre = {"clip_max": float(clip_d.max()), "clip_mean": float(clip_d.mean()), "sam_max": sam_err}
+    must("chat canvas inputs against the host", tuple(hw) == tuple(hw_host)
+         and pre["clip_max"] <= CHAT_CLIP_TOL and sam_err <= CHAT_SAM_TOL, pre)
+    got = greedy_readout(chat.params, u_cfg, inputs)
+    params32, cfg32 = stage2_grads.cpu_copy(chat.params, device="cuda"), fp32_config(u_cfg)
+    with stage2_grads.plain_on_card("all"):
+        plain, plain_launched = stage2_grads._launched(
+            lambda: greedy_readout(params32, cfg32, inputs))
+        plain_answer, answer_launched = stage2_grads._launched(lambda: inference_ullava.answer(
+            cfg32, params32, tok, image, CHAT_QUERY, temperature=0.0,
+            max_new_tokens=INFERENCE_NEW_TOKENS, device="cuda", device_preprocess=True))
+    del params32
+    must("chat plain route launches nothing", not plain_launched and not answer_launched,
+         (plain_launched, answer_launched))
+    errs = readout_errs(got, plain)
+
+    def post(low_res):
+        return np.stack(postprocess_masks_host(low_res.numpy(), input_size=hw, original_size=(H, W),
+                                               img_size=u_cfg.sam.vision.img_size))
+
+    must("chat canvas masks", got["low_res_masks"].shape == plain["low_res_masks"].shape
+         and got["low_res_masks"].shape[0] > 0, errs)
+    m_got, m_ref = post(got["low_res_masks"]), post(plain["low_res_masks"])
+    sure = np.abs(m_ref) > CHAT_READOUT_TOL * np.abs(m_ref).max()
+    same = (m_got > 0) == (m_ref > 0)
+    canvas_line = {"inputs": pre, "readout_rel_err": errs, "tol": CHAT_READOUT_TOL,
+                   "mask_pixels_outside_band": float(sure.mean()),
+                   "masks_equal_outside_band": bool(same[sure].all()),
+                   "mask_agreement": float(same.mean()),
+                   "plain_answer": agreement(answers["canvas"], plain_answer),
+                   "s": time.perf_counter() - t0}
+    must("chat canvas route against the plain path",
+         all(e <= CHAT_READOUT_TOL for e in errs.values())
+         and canvas_line["masks_equal_outside_band"]
+         and canvas_line["plain_answer"]["text_equal"], canvas_line)
+    routes["canvas"]["plain_path"] = canvas_line
+    del got, plain, plain_answer, m_got, m_ref
+
+    # The SAM encoder's "xla" route on the card's tensors.
+    t_xla = time.perf_counter()
+    inputs, _, _ = inference_ullava.prepare_query(u_cfg, tok, image, CHAT_QUERY, "conv_sep2",
+                                                  "cuda")
+    enc = chat.params["sam"]["image_encoder"]
+    x = inputs["images_sam"]
+    kernel_route = image_encoder.encode(enc, u_cfg.sam.vision, x)
+    xla_cfg = dataclasses.replace(u_cfg.sam.vision, attn_kernel="xla")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, xla_launched = stage2_grads._launched(lambda: image_encoder.encode(enc, xla_cfg, x))
+    xla_s = time.perf_counter() - t0
+    xla_err = row_rel_err(got, kernel_route)
+    must("xla route launches nothing", not xla_launched, xla_launched)
+    must("xla route against the kernels' route", bool(torch.isfinite(got).all())
+         and got.shape == kernel_route.shape and xla_err <= XLA_ROUTE_TOL, xla_err)
+    xla_line = {"phase": "xla_route", "card": card, "encoder": "SAM ViT-H, int8 weights",
+                "batch": 1, "encode_s": xla_s, "row_rel_err": xla_err, "tol": XLA_ROUTE_TOL,
+                "kernel_launches": 0, "seconds": time.perf_counter() - t_xla}
+    del chat, inputs, enc, x, kernel_route, got
+    torch.cuda.empty_cache()
+    chat_line = {"phase": "chat", "card": card, "build_s": build_s,
+                 "seconds": time.perf_counter() - t_phase - xla_line["seconds"],
+                 "run_once_text": ref["text"], "routes": routes,
+                 "launches": routes["host"]["launches"]}
+    print(json.dumps(chat_line), flush=True)
+    print(json.dumps(xla_line), flush=True)
+    return chat_line, xla_line
+
+
 def check_draws(seeds) -> int:
     """The training checks (`check_stage1`, `check_stage2`) on other draws:
     each seed's own generator in place of the run's shared one. Prints
@@ -6534,6 +7192,9 @@ def main() -> int:
     cfg8 = dataclasses.replace(cfg, core=dataclasses.replace(cfg.core, llm=llm8))
     int8_line, int8_profile = serve_phase("int8_serve", cfg8, params, B_INT8, INT8_LAUNCHES)
     parallel_serve_line = parallel_serve(cfg8, params)
+    # Video captioning on the same int8-LLM model; its profile's trace
+    # goes through `tools/trace_summary`.
+    video_line, trace_line = video_serve_phase(cfg8, params, card_name_and_power_limit())
 
     # The fully int8 model: the SAM image encoder and CLIP quantized as
     # well, the encoder served with int8 activations in its fused kernels.
@@ -6579,6 +7240,7 @@ def main() -> int:
     # The training path, on fresh stage-1 weights once the serving model
     # is freed.
     train_line = stage1_train_phase(gen)
+    video_stage1_line = train_line.pop("video_stage1_step")
     # Stage 2 on fresh weights, then the weight-only encode with composite
     # bias weights on its encoder.
     stage2_line, wq_encode_line = stage2_train_phase(gen)
@@ -6598,6 +7260,9 @@ def main() -> int:
         inference_line = inference_phase(torch.Generator(device="cuda").manual_seed(22), smi,
                                          ckpt_root)
         mark("inference")
+        # The web chat and the SAM encoder's "xla" route on the same files.
+        chat_line, xla_line = chat_phase(inference_line["checkpoint_paths"], smi)
+        mark("chat")
         train_clis_line = train_clis_phase(inference_line["checkpoint_paths"], smi)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
@@ -6655,6 +7320,9 @@ def main() -> int:
         r["launches_inference"] = inference_line["launches"][name]
         r["launches_train_clis"] = train_clis_line["launches"][name]
         r["launches_sam_predictor"] = sam_pred_line["launches"][name]
+        r["launches_video_serve"] = video_line["launches"][name]
+        r["launches_video_stage1_step"] = video_stage1_line["launches"][name]
+        r["launches_chat"] = chat_line["launches"][name]
     for r in results.values():
         print(json.dumps({"phase": "kernel", **{k: v for k, v in r.items()
                                                 if k not in ("route", "source", "replaces")}}),
@@ -6679,12 +7347,20 @@ def main() -> int:
                                                   for name, ms in top]}), flush=True)
     print(json.dumps({**parallel_line, "phase": "parallel_summary"}), flush=True)
     for line in (train_line, stage2_line, wq_encode_line, inference_line, train_clis_line,
-                 sam_pred_line):
+                 sam_pred_line, video_line, video_stage1_line, chat_line, xla_line, trace_line):
         print(json.dumps({**{k: v for k, v in line.items()
                              if k not in ("launches", "top_device_calls", "sampling", "boxes",
-                                          "kernel_gates", "checkpoint_paths", "losses", "paths")},
+                                          "kernel_gates", "checkpoint_paths", "losses", "paths",
+                                          "routes")},
                           "phase": line["phase"] + "_summary"}), flush=True)
-    print(json.dumps({"phase": "timeline", "seconds": timeline}), flush=True)
+    # The phases of the video path, the chat and the tools, inside the
+    # timeline's serves, training and chat entries.
+    new_phases = {line["phase"]: line["seconds"] for line in (
+        video_line, trace_line, video_stage1_line, chat_line, xla_line)}
+    print(json.dumps({"phase": "timeline", "seconds": timeline,
+                      "new_phases_s": new_phases,
+                      "new_phases_share": sum(new_phases.values()) / sum(timeline.values())}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,8 @@ every `bench.py` preset sets, held to the JAX package on the CPU:
 - `SamVisionConfig.attn_kernel` (`ullava_tpu/models/sam/image_encoder.py:56`,
   `_use_pallas` :243-254): the configuration of `tests/test_sam.py:392-431`,
   packed int8 weights with `attn_kernel="xla"`, against JAX `encode`, and
-  "xla" refused off the CPU.
+  "xla" through plain attention alone, on any device (no SAM attention
+  wrapper is called).
 """
 
 import dataclasses
@@ -231,11 +232,13 @@ def test_sam_attn_kernel_xla_packed_int8_matches_jax():
     np.testing.assert_allclose(got.numpy(), unpacked.numpy(), atol=1e-5, rtol=0)
 
 
-def test_sam_attn_kernel_modes():
+def test_sam_attn_kernel_modes(monkeypatch):
     """"xla" takes the JAX package's off-TPU routes (the block layout, no
-    fused route) through the same wrappers' plain versions, and only on
-    CPU tensors: on the card there is no plain route, so it raises."""
-    _, cfg = _sam_cfgs("auto")
+    fused route, `attention_xla` with the materialised rel-pos bias) on
+    any device: no SAM attention wrapper is called, so on the card no SAM
+    attention kernel is launched. It agrees with the fused routes' plain
+    versions and with JAX `encode` at "xla" (fp32, sums in other orders)."""
+    jcfg, cfg = _sam_cfgs("auto")
     for bad in ("pallas", "triton"):
         with pytest.raises(ValueError, match="attn_kernel"):
             dataclasses.replace(cfg, attn_kernel=bad)
@@ -243,12 +246,22 @@ def test_sam_attn_kernel_modes():
         dataclasses.replace(cfg, attn_kernel="xla", window_layout="resident")
     xla = dataclasses.replace(cfg, attn_kernel="xla")
     assert not image_encoder._use_resident(xla) and image_encoder._use_resident(cfg)
-    params = params_from_jax(random_params(jie.init_params, _sam_cfgs("auto")[0], 6, std=0.2),
-                             device="cpu")
-    img = torch.from_numpy(np.random.default_rng(6).standard_normal((1, 64, 64, 3)).astype(np.float32))
-    with pytest.raises(ValueError, match="CPU tensors"):
-        image_encoder.encode(params, xla, img.to("meta"))
-    got, ref = (image_encoder.encode(params, c, img) for c in (xla, cfg))
-    block = image_encoder.encode(params, dataclasses.replace(cfg, window_layout="block"), img)
-    assert torch.equal(got, block)  # the block layout through the same plain versions
+    jparams = random_params(jie.init_params, jcfg, 6, std=0.2)
+    params = params_from_jax(jparams, device="cpu")
+    img = np.random.default_rng(6).standard_normal((1, 64, 64, 3)).astype(np.float32)
+    ref, block = (image_encoder.encode(params, c, torch.from_numpy(img))
+                  for c in (cfg, dataclasses.replace(cfg, window_layout="block")))
+
+    def refused(*args, **kw):
+        raise AssertionError("a SAM attention wrapper was called on the xla route")
+
+    for name in ("fused_window_attention_grid", "fused_window_attention_rect",
+                 "fused_global_attention", "fused_global_attention_y",
+                 "fused_window_attention_packed", "fused_global_attention_packed"):
+        monkeypatch.setattr(image_encoder, name, refused)
+    got = image_encoder.encode(params, xla, torch.from_numpy(img))
+    np.testing.assert_allclose(got.numpy(), block.numpy(), atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-4, rtol=1e-4)
+    jref = jie.encode(jax.tree_util.tree_map(jnp.asarray, jparams),
+                      dataclasses.replace(jcfg, attn_kernel="xla"), jnp.asarray(img))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jref), atol=2e-4, rtol=2e-4)

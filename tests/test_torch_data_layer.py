@@ -18,7 +18,7 @@ files the test writes (numpy seeds; PNG and JPEG; no download).
   the native library (the port's nearest resize in place of PIL's).
 - `ConcatDatasetWithShuffle`'s order, the loader's batches, `iter_from`
   without fetching the skipped batches, `device=`, and the `tgif`
-  builder's KeyError.
+  builder's dataset class.
 """
 
 import json
@@ -522,12 +522,24 @@ def test_loader_device_and_failures():
         list(DataLoader(Broken(), **kw))
 
 
-def test_builders_and_the_video_path():
+def test_builders_and_the_video_path(tmp_path):
     jax_names = set(jregistry.list_names("builder"))
     assert set(registry.list_names("builder")) == jax_names
     assert set(registry.list_names("collator")) == set(jregistry.list_names("collator"))
-    with pytest.raises(KeyError, match="video path"):
-        registry.get_builder_class("tgif")(ConfigNode({}), _tokenizer(), "conv_sep2").build()
+    # `tgif` builds a TgifDataset (`tests/test_torch_video.py` holds it to
+    # the JAX line).
+    from ullava_tpu_torch.data.datasets import TgifDataset
+    from ullava_tpu_torch.data.builders.plain_type_builder import PlainBuilder
+
+    builder = registry.get_builder_class("tgif")
+    assert issubclass(builder, PlainBuilder) and builder.dataset_cls is TgifDataset
+    assert jregistry.get_builder_class("tgif").dataset_cls.__name__ == "TgifDataset"
+    (tmp_path / "tgif.json").write_text(json.dumps([{"gif": "a.gif", "conversations": []}]))
+    ds = builder(ConfigNode({"data_type": "gif", "vis_processor": "gif_train",
+                             "build_info": {"anno_dir": str(tmp_path / "tgif.json"),
+                                            "image_dir": str(tmp_path)}}),
+                 _tokenizer(), "conv_simple").build(ConfigNode({"gif_train": {"n_frm": 8}}))
+    assert isinstance(ds, TgifDataset) and len(ds) == 1 and ds.image_token_len == 8 + 256
 
 
 def test_loader_stripes_by_torch_distributed(monkeypatch):

@@ -51,7 +51,7 @@ def test_leaf_names_follow_the_gradients(tiny_stage2):
     assert any("lora_b" in n for n in names) and not any("q_proj/q" in n for n in names)
 
 
-@pytest.mark.parametrize("scope", ["k15", "llm", "all"])
+@pytest.mark.parametrize("scope", ["k15", "llm", "int8_llm", "all"])
 def test_plain_stand_ins_are_the_wrappers_cpu_branches(tiny_stage2, scope):
     """On CPU tensors every wrapper already takes its plain version, so the
     step's gradients under the stand-ins are bit-equal to the wrappers'."""
@@ -77,7 +77,45 @@ def test_plain_stand_ins_are_the_wrappers_cpu_branches(tiny_stage2, scope):
     reached = {"k15": {"flash_attention_fwd"},
                "llm": {"flash_attention_fwd", "flash_attention_bwd", "_rms_norm_fwd",
                        "rms_norm_bwd"}}.get(scope)
+    if scope == "int8_llm":  # the step reaches the training LLM's stand-ins only
+        reached = {"flash_attention_fwd", "flash_attention_bwd", "_rms_norm_fwd", "rms_norm_bwd"}
     if reached is None:  # the tiny encoder reaches these of the SAM stand-ins
         reached = {"flash_attention_fwd", "flash_attention_bwd", "_rms_norm_fwd", "rms_norm_bwd",
                    "fused_ln_linear", "fused_linear", "fused_window_attention_grid"}
     assert reached <= set(calls), calls
+
+
+def test_int8_llm_stand_ins_reach_the_serving_path():
+    """'int8_llm' on a tiny int8 LLM's greedy generation (W8A8 prefill,
+    int8 KV cache): the same tokens and hidden states as the wrappers'
+    CPU branches, and every stand-in of the serving LLM called."""
+    from ullava_tpu_torch.models import generate, llama, ullava_core
+    from ullava_tpu_torch.ops import quant
+
+    cfg = ullava_core.UllavaCoreConfig.tiny(
+        llm=llama.LlamaConfig.tiny(a8_prefill=True, kv_quant=True))
+    params = ullava_core.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+    params["llm"] = quant.quantize_tree(params["llm"], quant.LLAMA_QUANT_KEYS)
+    ids = torch.randint(5, cfg.llm.vocab_size, (2, 24), generator=torch.Generator().manual_seed(4))
+    lens = torch.tensor([24, 17], dtype=torch.int32)
+
+    def run():
+        return generate.generate(params, cfg, generate.GenerateConfig(max_new_tokens=4,
+                                                                      temperature=0.0),
+                                 input_ids=ids, prompt_lens=lens)
+
+    ref = run()
+    calls = collections.Counter()
+    with stage2_grads.plain_on_card("int8_llm"):
+        for mod, name, fn in stage2_grads._plain_patches("int8_llm"):
+            def counted(*a, _fn=fn, _name=name, **k):
+                calls[_name] += 1
+                return _fn(*a, **k)
+
+            setattr(mod, name, counted)
+        got = run()
+    assert torch.equal(got["sequences"], ref["sequences"])
+    assert torch.equal(got["hidden_last"], ref["hidden_last"])
+    assert {"fused_rotary", "rms_norm_residual_quant", "silu_mul_quant", "prefill_quantize_write",
+            "decode_attention_int8_fused_write", "flash_attention_fwd_bsh",
+            "_rms_norm_fwd"} <= set(calls), calls

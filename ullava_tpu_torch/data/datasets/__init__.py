@@ -14,3 +14,4 @@ from ullava_tpu_torch.data.datasets.concat_dataset import (  # noqa: F401
     ConcatDataset,
     ConcatDatasetWithShuffle,
 )
+from ullava_tpu_torch.data.datasets.tgif_dataset import TgifDataset  # noqa: F401

@@ -33,7 +33,8 @@ from ullava_tpu_torch import kernels, train
 from ullava_tpu_torch.models import clip_vit, llama, ullava, ullava_core
 from ullava_tpu_torch.models.sam import build as sam_build
 from ullava_tpu_torch.models.sam import image_encoder
-from ullava_tpu_torch.ops import attention, mlp_kernel, norms, sam_attention
+from ullava_tpu_torch.ops import (attention, decode_attention, mlp_kernel, norms, rope,
+                                  sam_attention)
 from ullava_tpu_torch.training import optim
 from ullava_tpu_torch.training.train_step import stage2_loss, trainable_grads
 
@@ -77,14 +78,15 @@ def build(gen: torch.Generator):
     return cfg, cfg32, params, batch, {k: v.cpu() for k, v in batch.items()}
 
 
-def cpu_copy(tree: Any, fp32: bool = True) -> Any:
-    """A CPU copy of a parameter tree, floating leaves in fp32 (or in
-    their own dtype); int8 weights stay int8."""
+def cpu_copy(tree: Any, fp32: bool = True, device: str = "cpu") -> Any:
+    """A copy of a parameter tree on `device` (the CPU unless given),
+    floating leaves in fp32 (or in their own dtype); int8 weights stay
+    int8."""
     if isinstance(tree, dict):
-        return {k: cpu_copy(v, fp32) for k, v in tree.items()}
+        return {k: cpu_copy(v, fp32, device) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [cpu_copy(v, fp32) for v in tree]
-    t = tree.detach().cpu()
+        return [cpu_copy(v, fp32, device) for v in tree]
+    t = tree.detach().to(device)
     return t.float() if fp32 and t.is_floating_point() else t
 
 
@@ -127,8 +129,11 @@ def step_reading(names, grads, grads32) -> Tuple[Dict, Dict]:
 
 def _plain_patches(scope: str):
     """(module, name, plain stand-in) for the wrappers of `scope` ('k15',
-    'llm' or 'all'), each as the wrapper's own CPU branch calls it."""
+    'llm', 'int8_llm' or 'all'), each as the wrapper's own CPU branch calls
+    it. 'int8_llm' adds the serving LLM's kernels (K1, K5-K8) at their call
+    sites in `models/llama.py`; 'all' adds the SAM encoder's."""
     A, N, M, S, E = attention, norms, mlp_kernel, sam_attention, image_encoder
+    D, L, R = decode_attention, llama, rope
     out = [(A, "flash_attention_fwd", A.flash_attention_fwd_plain)]
     if scope == "k15":
         return out
@@ -137,6 +142,13 @@ def _plain_patches(scope: str):
             (N, "_rms_norm_fwd", N.rms_norm_plain),
             (N, "rms_norm_bwd", N.rms_norm_bwd_plain)]
     if scope == "llm":
+        return out
+    out += [(L, "fused_rotary", R.fused_rotary_plain),
+            (L, "rms_norm_residual_quant", N.rms_norm_residual_quant_plain),
+            (L, "silu_mul_quant", M.silu_mul_quant_plain),
+            (L, "prefill_quantize_write", D.prefill_quantize_write_plain),
+            (L, "decode_attention_int8_fused_write", D.decode_attention_int8_fused_write_plain)]
+    if scope == "int8_llm":
         return out
 
     # Each with its wrapper's parameter names: the encoder passes some by name.
@@ -194,6 +206,9 @@ _SCOPE_KERNELS = {
     "llm": {"flash_attention_fwd_lse", "flash_attention_fwd_bsh", "flash_attention_bwd_delta",
             "flash_attention_bwd_dkv", "flash_attention_bwd_dq", "rms_norm_fwd", "rms_norm_bwd"},
 }
+_SCOPE_KERNELS["int8_llm"] = _SCOPE_KERNELS["llm"] | {
+    "fused_rotary", "rms_norm_residual_quant", "silu_mul_quant", "prefill_quantize_write",
+    "decode_attention_int8_fused_write"}
 
 
 def _launched(fn):

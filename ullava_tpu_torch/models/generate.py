@@ -125,12 +125,14 @@ def generate(
     *,
     input_ids: torch.Tensor,  # [B, S] right-padded prompts
     prompt_lens: torch.Tensor,  # [B] true prompt lengths
-    images: Optional[torch.Tensor] = None,
+    images: Optional[torch.Tensor] = None,  # [B, H, W, 3]
+    videos: Optional[torch.Tensor] = None,  # [B, T, H, W, 3]
     generator: Optional[torch.Generator] = None,
 ) -> Dict[str, torch.Tensor]:
     """Returns sequences [B, S+new] (prompt + generated, right-padded with
-    0), lengths [B], hidden_last [B, S+new, D]. Sampling draws every step
-    from `generator` (seeded 0 when None)."""
+    0), lengths [B], hidden_last [B, S+new, D]. Images and videos are
+    spliced at their prompts' markers. Sampling draws every step from
+    `generator` (seeded 0 when None)."""
     B, S = input_ids.shape
     total = S + gen.max_new_tokens
     dev = input_ids.device
@@ -153,7 +155,7 @@ def generate(
         return _tp_token(logits, gen, generator, tp)
 
     cache = llama.init_kv_cache(cfg.llm, B, total, device=dev, tp=1 if tp is None else tp.size)
-    embeds = ullava_core.embed_multimodal(params, cfg, input_ids, images)
+    embeds = ullava_core.embed_multimodal(params, cfg, input_ids, images, videos)
     pre = llama.forward(
         llm, cfg.llm, inputs_embeds=embeds, kv_lens=prompt_lens,
         kv_cache=cache, compute_logits=False, tp=tp,
@@ -197,13 +199,14 @@ def generate(
 
 def make_generate_fn(cfg: ullava_core.UllavaCoreConfig, gen: GenerateConfig):
     """The generate closure for serving (the JAX package jit-compiles it):
-    fn(params, input_ids, prompt_lens, images=None, generator=None). Over
-    `DTensor` parameters of a (dp, fsdp, tp) mesh, every rank passes the
-    whole batch; each data rank decodes its part (when the batch divides
-    by dp * fsdp) with the decoder tensor-parallel, and every rank gets
-    the whole result back."""
+    fn(params, input_ids, prompt_lens, images=None, videos=None,
+    generator=None). Over `DTensor` parameters of a (dp, fsdp, tp) mesh,
+    every rank passes the whole batch; each data rank decodes its part
+    (when the batch divides by dp * fsdp; its images and videos with it)
+    with the decoder tensor-parallel, and every rank gets the whole result
+    back."""
 
-    def fn(params, input_ids, prompt_lens, images=None, generator=None):
+    def fn(params, input_ids, prompt_lens, images=None, videos=None, generator=None):
         mesh = mesh_of(params["llm"]["embed_tokens"])
         B = input_ids.shape[0]
         r, n = (0, 1) if mesh is None else data_rank(mesh)
@@ -212,8 +215,9 @@ def make_generate_fn(cfg: ullava_core.UllavaCoreConfig, gen: GenerateConfig):
             part = slice(r * B // n, (r + 1) * B // n)
             input_ids, prompt_lens = input_ids[part], prompt_lens[part]
             images = None if images is None else images[part]
+            videos = None if videos is None else videos[part]
         out = generate(params, cfg, gen, input_ids=input_ids, prompt_lens=prompt_lens,
-                       images=images, generator=generator)
+                       images=images, videos=videos, generator=generator)
         if split:
             out = {k: gather_data(v, mesh) for k, v in out.items()}
         return out

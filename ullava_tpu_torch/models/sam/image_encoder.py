@@ -38,11 +38,12 @@ token stream; with the composite bias weights of
 terms beside qkv and the full windows are stored as 200 rows. There is no
 device gate: on CUDA tensors the wrappers launch their kernels, on CPU
 tensors they take their plain versions. `attn_kernel` is the JAX knob:
-"auto" takes every route above; "xla", for CPU tensors only (on the card
-there is no plain route), takes the routes the JAX package takes off the
-TPU (`_use_pallas` false): no fused int8 global route and no fused MLP,
-whose arithmetic differs, and the block window layout; the attention
-wrappers' plain versions are the JAX XLA attention's function.
+"auto" takes every route above; "xla" takes the routes the JAX package
+takes off the TPU (`_use_pallas` false) on any device: plain attention
+(`attention_xla`) with the materialised rel-pos bias in every block, packed
+weights sliced back to their heads, no fused int8 global route and no
+fused MLP, whose arithmetic differs, and the block window layout. It
+launches no SAM attention kernel.
 `use_rel_pos=False` takes the JAX package's XLA routes on every device:
 plain attention with no bias (`attention_xla`) in every block, the
 block layout, and no fused int8 global route or fused MLP.
@@ -133,8 +134,8 @@ class SamVisionConfig:
     # into compact window-major class tensors), or "auto": resident
     # wherever the grid holds a whole window and the fused routes run.
     window_layout: str = "auto"
-    # JAX `attn_kernel`: "auto" (the fused routes) or "xla" (CPU tensors
-    # only: the JAX package's routes off the TPU, see the module doc).
+    # JAX `attn_kernel`: "auto" (the fused routes) or "xla" (the JAX
+    # package's routes off the TPU on any device, see the module doc).
     attn_kernel: str = "auto"
 
     def __post_init__(self) -> None:
@@ -319,9 +320,18 @@ def _attn_packed(x: torch.Tensor, p: Params, cfg: SamVisionConfig, size: int) ->
     y = _lin(cfg, x.reshape(B, S, C), p["qkv"]) + p["qkv_bias"]  # [B, S, 3*H*hp]
     q_grid = y.reshape(B, size, size, 3, H, hp)[:, :, :, 0]
     A, Bb = _bias_terms_packed(q_grid, p["rel_pos_h"], p["rel_pos_w"], size)
-    fused = fused_window_attention_packed if size <= 16 else fused_global_attention_packed
-    out = fused(y, A.to(y.dtype).contiguous(), Bb.to(y.dtype).contiguous(), num_heads=H,
-                head_pad=hp, window=size, scale=hd**-0.5)  # [B, S, H*hp]
+    A, Bb = A.to(y.dtype), Bb.to(y.dtype)
+    if cfg.attn_kernel == "xla":
+        # The JAX package's unpacked route: heads sliced back out, the bias
+        # expanded to [B, H, S, S] (t = a * W + b), the output re-padded.
+        qkv = y.reshape(B, S, 3, H, hp)[..., :hd]
+        bias = (A.float()[..., :, None] + Bb.float()[..., None, :]).reshape(B, H, S, S)
+        out = attention_xla(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], bias=bias, scale=hd**-0.5)
+        out = F.pad(out.reshape(B, S, H, hd), (0, hp - hd)).reshape(B, S, H * hp)
+    else:
+        fused = fused_window_attention_packed if size <= 16 else fused_global_attention_packed
+        out = fused(y, A.contiguous(), Bb.contiguous(), num_heads=H,
+                    head_pad=hp, window=size, scale=hd**-0.5)  # [B, S, H*hp]
     out = _lin(cfg, out, p["proj"]) + p["proj_bias"]
     return out.reshape(B, size, size, C)
 
@@ -434,10 +444,15 @@ def _attn(x: torch.Tensor, p: Params, cfg: SamVisionConfig, size: int) -> torch.
     C, H, hd = cfg.embed_dim, cfg.num_heads, cfg.head_dim
     S = size * size
     y = _lin(cfg, x.reshape(B, S, C), p["qkv"]) + p["qkv_bias"]  # [B, S, 3C]
-    if not cfg.use_rel_pos:
+    if cfg.attn_kernel == "xla" or not cfg.use_rel_pos:
         qkv = y.reshape(B, S, 3, H, hd)
-        out = attention_xla(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], scale=hd**-0.5)
-        out = out.reshape(B, S, C)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        bias = None
+        if cfg.use_rel_pos:
+            # Rel-pos from the UNSCALED q; attention_xla scales q.k only.
+            q_grid = q.transpose(1, 2).reshape(B, H, size, size, hd)
+            bias = rel_pos_bias(q_grid, p["rel_pos_h"], p["rel_pos_w"], size)
+        out = attention_xla(q, k, v, bias=bias, scale=hd**-0.5).reshape(B, S, C)
     elif size <= 16:
         A, Bb = _bias_terms_grid(y, p["rel_pos_h"], p["rel_pos_w"], cfg, size)
         out = fused_window_attention_grid(
@@ -800,8 +815,6 @@ def _use_resident(cfg: SamVisionConfig, wparams: Optional[Params] = None) -> boo
 def encode(params: Params, cfg: SamVisionConfig, pixel_values: torch.Tensor) -> torch.Tensor:
     """[B, img, img, 3] (SAM-normalized, padded) -> [B, grid, grid, out_chans]."""
     cfg.validate_grouping()
-    if cfg.attn_kernel == "xla" and pixel_values.device.type != "cpu":
-        raise ValueError('attn_kernel="xla" takes CPU tensors: the card runs the kernels')
     B = pixel_values.shape[0]
     g, C, P = cfg.grid, cfg.embed_dim, cfg.patch_size
 

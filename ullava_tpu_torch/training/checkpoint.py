@@ -63,14 +63,22 @@ def save_checkpoint(
     path = _ckpt_path(output_dir, step)
     tree = _to_cpu(state)  # every rank: gathering a sharded leaf is collective
     if not _multi_rank() or dist.get_rank() == 0:
-        if os.path.exists(path):
-            shutil.rmtree(path)
-        os.makedirs(path)
-        torch.save(tree, os.path.join(path, _FILE))
+        save_tree(path, tree)
         if save_total_limit:
             rotate_checkpoints(output_dir, save_total_limit)
     if _multi_rank():
         dist.barrier()
+    return path
+
+
+def save_tree(path: str, tree: Any) -> str:
+    """Write `tree` (CPU tensors) as checkpoint directory `path`, replacing
+    what was there: the directory `load_saved` and `pretrained_*` read."""
+    path = os.path.abspath(path)
+    if os.path.exists(path):
+        shutil.rmtree(path)
+    os.makedirs(path)
+    torch.save(tree, os.path.join(path, _FILE))
     return path
 
 
