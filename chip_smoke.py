@@ -223,6 +223,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -1999,6 +2000,22 @@ CLIP_TOKENS, CLIP_PADDED = 257, 264  # CLIP ViT-L/14's sequence, padded to a mul
 # and the copy takes the first row's A term for both.
 GLOBAL_Y_MUTANTS = {
     "a_term_one_grid_row": ("sam_global_attention_y.cu", "ULLAVA_MUTANT_GLOBAL_A_ONE_ROW")}
+# The deliberate bugs of the B=1 schedules of K14 and K11 at hd 64, which
+# only their hd 64 gates take: a warp of K14 reading the next warp's tile's
+# bias rows, K14's closed-form pad sums each thread's own; K11's B terms
+# held as floats read at a column pair's first column, its row sums taken
+# by the ones column of P V on a tile's first 16 keys only (bf16
+# exponentials), the row's q scale left out of its exponent's factor
+# (`dots_i8`).
+RECT_HD64_MUTANTS = {
+    "tile_bias_rows_of_next_warp": ("sam_rect_attention.cu", "ULLAVA_MUTANT_RECT_TILE_BIAS_ROWS"),
+    "pad_sums_without_quad": ("sam_rect_attention.cu", "ULLAVA_MUTANT_RECT_PAD_SUM_NO_QUAD")}
+GLOBAL_Y_HD64_MUTANTS = {
+    "b_terms_pair_first": ("sam_global_attention_y.cu", "ULLAVA_MUTANT_GLOBAL_B1_B_PAIR")}
+GLOBAL_Y_ONES_MUTANTS = {
+    "row_sums_first_k_step": ("sam_global_attention_y.cu", "ULLAVA_MUTANT_GLOBAL_ONES_FIRST_KSTEP")}
+GLOBAL_Y_QS_MUTANTS = {
+    "q_scale_out_of_exponent": ("sam_global_attention_y.cu", "ULLAVA_MUTANT_GLOBAL_B1_QS_UNFOLDED")}
 
 
 def all_int8_kernel_phases(gen, results: dict) -> None:
@@ -4430,11 +4447,18 @@ INFERENCE_CLASS_ROWS = (3136, 896, 64, 4096)
 # The greedy comparison's new tokens: [SEG] and [LOC] four times each, so
 # every one of the three masks and boxes is read out.
 INFERENCE_CHECK_TOKENS = 8
+# The factors on the inference checkpoint's LLaMA q and k weights and on
+# its SAM blocks' rel-pos tables: a random model's attention at std 0.02
+# weights is close to uniform, so a fault that moves a few keys' scores
+# (K2's causal bound one key late, K11's A term of the wrong grid row)
+# would not move the readouts. At these factors the LLaMA scores spread
+# over a few units and the SAM bias terms A and B, which the rel-pos
+# tables set, over a few tenths to a few units; the card against the CPU
+# reads at most 0.038, each of those two mutants at least 0.10.
+INFERENCE_LLM_QK_SCALE = 1.5
+INFERENCE_SAM_REL_POS_SCALE = 20.0
 # A deliberate bug in the kernel sources that the inference path runs;
 # the greedy comparison of the card with the CPU must fail on each copy.
-# K2's and K11's (`K2_MUTANTS`, `GLOBAL_Y_MUTANTS`) move that comparison
-# by less than its tolerance (the random model's attention is close to
-# uniform), so `inference_kernel_gates` catches them at the path's shapes.
 INFERENCE_MUTANTS = {
     "fused_rotary partner_sign": K1_MUTANTS["partner_sign"],
     "prefill_quantize_write half_lanes_amax": K7_MUTANTS["half_lanes_amax"],
@@ -4446,6 +4470,8 @@ INFERENCE_MUTANTS = {
     "fused_window_attention_rect pad_out_of_sum": RECT_PAD_MUTANT,
     "fused_ln_linear_wq weight_widened_unsigned": WQ_MUTANTS["ln_linear_wq.cu"],
     "fused_mlp_block_wq weight_widened_unsigned": WQ_MUTANTS["mlp_block_wq.cu"],
+    "flash_attention_fwd_bsh causal_mask_shifted": K2_MUTANTS["causal_mask_shifted"],
+    "fused_global_attention_y a_term_one_grid_row": GLOBAL_Y_MUTANTS["a_term_one_grid_row"],
 }
 
 
@@ -4626,11 +4652,14 @@ def write_safetensors(path, specs, dtype, gen, edit=lambda name, t: t) -> None:
             f.write(memoryview(t.view(torch.uint8).numpy()))
 
 
-def write_inference_checkpoints(root, gen) -> dict:
+def write_inference_checkpoints(root, gen, peaked: bool = True) -> dict:
     """The checkpoint set of the inference phase under `root`: `llm/`
     (Vicuna-7B's widths cut to `INFERENCE_LLAMA_LAYERS` layers, bf16
     safetensors), `clip/` (ViT-L/14-224, 24 layers, bf16 safetensors) and
-    `sam_vit_h.pth` (Meta's key names, ViT-H, fp32 as released)."""
+    `sam_vit_h.pth` (Meta's key names, ViT-H, fp32 as released); with
+    `peaked`, the LLaMA layers' q and k weights and the SAM blocks' rel-pos
+    tables scaled (`INFERENCE_LLM_QK_SCALE`, `INFERENCE_SAM_REL_POS_SCALE`).
+    The draws are the same either way."""
     import os
 
     import torch
@@ -4641,13 +4670,21 @@ def write_inference_checkpoints(root, gen) -> dict:
     for d, c in (("llm", llm_cfg), ("clip", clip_cfg)):
         with open(os.path.join(root, d, "config.json"), "w") as f:
             json.dump(c, f)
+    def llm_edit(name, t):
+        if peaked and name.endswith(("self_attn.q_proj.weight", "self_attn.k_proj.weight")):
+            t = t * INFERENCE_LLM_QK_SCALE
+        return _seg_loc_lanes(name, t)
+
     write_safetensors(os.path.join(root, "llm", "model.safetensors"), _llama_specs(llm_cfg),
-                      torch.bfloat16, gen, _seg_loc_lanes)
+                      torch.bfloat16, gen, llm_edit)
     write_safetensors(os.path.join(root, "clip", "model.safetensors"), _clip_specs(clip_cfg),
                       torch.bfloat16, gen)
     sam_path = os.path.join(root, "sam_vit_h.pth")
-    torch.save({s[0]: _draw(s, torch.float32, gen) for s in sam_meta_specs(*SAM_SIZES["vit_h"])},
-               sam_path)
+    sam = {s[0]: _draw(s, torch.float32, gen) for s in sam_meta_specs(*SAM_SIZES["vit_h"])}
+    for name, t in sam.items():
+        if peaked and name.endswith(("attn.rel_pos_h", "attn.rel_pos_w")):
+            t *= INFERENCE_SAM_REL_POS_SCALE
+    torch.save(sam, sam_path)
     return {"llm_path": os.path.join(root, "llm"), "vision_encoder": os.path.join(root, "clip"),
             "sam_path": sam_path}
 
@@ -5716,10 +5753,11 @@ def sam_hd64_kernel_gates(gen, results: dict, forms: dict) -> dict:
     ViT-L and one ViT-B image (B=1), each by `row_rel_err` within 1e-2
     (the bf16-exponential K11 2e-2) and failing under each mutant copy of
     its source: K3 on 16 full windows of 196 rows (bf16) and of 200 rows
-    (int8 towers: the pad rows finite), K14 on the right, bottom and corner
-    classes one at a time (bf16) and on the merged edge pair and the corner
-    (int8 towers), K4 on the 16 or 12 (image, head) pairs with fp32
-    exponentials, K11 on ViT-L's 16 heads with bf16 ones; and, at ViT-L's
+    (int8 towers: the pad rows finite), K14 (bf16) on the right, bottom and
+    corner classes one at a time and on the merged edge pair, K4 on the 16 or 12 (image, head) pairs with fp32
+    exponentials, K11 on ViT-L's 16 heads with bf16 ones; the mutants of the
+    B=1 schedules of K14 and K11 (`RECT_HD64_MUTANTS`, `GLOBAL_Y_HD64_MUTANTS`,
+    `GLOBAL_Y_ONES_MUTANTS`) beside the cores' own; and, at ViT-L's
     widths (C 1024, F 4096), the W8A8 K13 on the full class (rows2 196),
     the pair and the corner, K10's proj form on the same rows and its LN1 +
     qkv form and K12 on a global block's 4096 rows (`sam_w8a8_width_gates`,
@@ -5743,7 +5781,8 @@ def sam_hd64_kernel_gates(gen, results: dict, forms: dict) -> dict:
 
     quad = {"quad_max_dropped": QUAD_MAX_MUTANTS["sam_window_attention.cu"]}
     rect_bugs = {"pad_out_of_sum": RECT_PAD_MUTANT,
-                 "quad_max_dropped": QUAD_MAX_MUTANTS["sam_rect_attention.cu"]}
+                 "quad_max_dropped": QUAD_MAX_MUTANTS["sam_rect_attention.cu"],
+                 **RECT_HD64_MUTANTS}
     for size, H in (("vit_l", 16), ("vit_b", 12)):
         C = H * hd
         kw = dict(num_heads=H, head_dim=hd, window=W, scale=sc)
@@ -5774,8 +5813,8 @@ def sam_hd64_kernel_gates(gen, results: dict, forms: dict) -> dict:
                 del lib, got
             del y, a, bb, ref
         qkv_bias = randn(3 * C, scale=0.5)
-        rect_forms = ((("right", [(14, 8)], 4), ("bottom", [(8, 14)], 4), ("corner", [(8, 8)], 1))
-                      + ((("edge_pair", [(14, 8), (8, 14)], 4),) if size == "vit_l" else ()))
+        rect_forms = (("right", [(14, 8)], 4), ("bottom", [(8, 14)], 4), ("corner", [(8, 8)], 1),
+                      ("edge_pair", [(14, 8), (8, 14)], 4))
         for form, geoms, per in rect_forms:
             y, a, bb, tables, padded, is_real = rect_case(gen, geoms, per, qkv_bias, (C, H, hd, W))
             geometry = tuple(geoms) if len(geoms) == 2 else geoms[0]
@@ -5844,7 +5883,8 @@ def sam_hd64_kernel_gates(gen, results: dict, forms: dict) -> dict:
     ref = sam_attention.fused_global_attention_y_plain(y, a, bb, **kw)
     out_y = {}
     _kernel_gate(out_y, 2e-2)("vit_l fused_global_attention_y_hd64 1 x 4096 exp_bf16", run, ref,
-                              GLOBAL_Y_MUTANTS)
+                              {**GLOBAL_Y_MUTANTS, **GLOBAL_Y_HD64_MUTANTS,
+                               **GLOBAL_Y_ONES_MUTANTS})
     out.update(out_y)
     y5, mask = global_sdpa_inputs(y, a, bb)
     got = run()
@@ -5972,8 +6012,8 @@ def sam_hd64_i8_kernel_gates(gen, results: dict, forms: dict) -> dict:
     form (1e-2; 2e-2 with bf16 exponentials; the pre-pass bit for bit) and
     failing under each mutant copy of its source and the input mutants: at
     ViT-L (16 heads) and ViT-B (12) each, K3's `dots_i8` form on 16 full
-    windows of 196 and of 200 rows, K14's on the merged edge pair and the
-    corner, K11's pre-pass and its `dots_i8` form in both exponential
+    windows of 196 and of 200 rows, K14's on the merged edge pair, the
+    corner and each edge alone, K11's pre-pass and its `dots_i8` form in both exponential
     forms, K11's bf16-score form at 12 heads, K19 on the 25 padded windows
     and K20 on the global grid at hp 128 over 64 real lanes; the W8A8 K10,
     K12, K13 at ViT-B's widths (`sam_w8a8_width_gates`: C 768, F 3072, K13's
@@ -6004,9 +6044,10 @@ def sam_hd64_i8_kernel_gates(gen, results: dict, forms: dict) -> dict:
     win_bugs = {"one_key_scale_a_tile": I8_MUTANTS["sam_window_attention.cu"], **quad}
     rect_bugs = {"one_key_scale_a_tile": I8_MUTANTS["sam_rect_attention.cu"],
                  "pad_out_of_sum": RECT_PAD_MUTANT,
-                 "quad_max_dropped": QUAD_MAX_MUTANTS["sam_rect_attention.cu"]}
+                 "quad_max_dropped": QUAD_MAX_MUTANTS["sam_rect_attention.cu"],
+                 **RECT_HD64_MUTANTS}
     glob_bugs = {"one_key_scale_a_tile": I8_MUTANTS["sam_global_attention_y.cu"],
-                 **GLOBAL_Y_MUTANTS}
+                 **GLOBAL_Y_MUTANTS, **GLOBAL_Y_QS_MUTANTS}
     lines: dict = {}
     for size, H in (("vit_l", 16), ("vit_b", 12)):
         C = H * hd
@@ -6044,10 +6085,12 @@ def sam_hd64_i8_kernel_gates(gen, results: dict, forms: dict) -> dict:
                 del lib
             del y, a, bb, got, ref
 
-        # K14, int8 scores: the merged edge pair and the corner.
+        # K14, int8 scores: the merged edge pair and the corner (the paths'
+        # forms), and each edge alone.
         name = "fused_window_attention_rect_i8_hd64"
         qkv_bias = randn(3 * C, scale=0.5)
-        for form, geoms, per in (("edge_pair", [(14, 8), (8, 14)], 4), ("corner", [(8, 8)], 1)):
+        for form, geoms, per in (("edge_pair", [(14, 8), (8, 14)], 4), ("corner", [(8, 8)], 1),
+                                 ("right", [(14, 8)], 4), ("bottom", [(8, 14)], 4)):
             y, a, bb, tables, padded, _ = rect_case(gen, geoms, per, qkv_bias, (C, H, hd, W))
             geometry = tuple(geoms) if len(geoms) == 2 else geoms[0]
             run = lambda y=y, a=a, bb=bb, t=tables, g_=geometry: (  # noqa: E731
@@ -6108,7 +6151,8 @@ def sam_hd64_i8_kernel_gates(gen, results: dict, forms: dict) -> dict:
                     y, a, bb, **gkw, exp_bf16=e, dots_i8=d)
                 ref = plain()
                 exp = "exp_bf16" if exp_bf16 else "exp_fp32"
-                bugs = glob_bugs if dots_i8 else GLOBAL_Y_MUTANTS
+                bugs = {**(glob_bugs if dots_i8 else GLOBAL_Y_MUTANTS), **GLOBAL_Y_HD64_MUTANTS,
+                        **(GLOBAL_Y_ONES_MUTANTS if exp_bf16 else {})}
                 info = (gate_exp if exp_bf16 else gate)(
                     f"{size} {name} {H} heads {exp}", run, ref, bugs,
                     {"bias_swapped": lambda run=run: run(a_=bb, b_=a)})
@@ -7130,7 +7174,8 @@ def main() -> int:
         *BWD_MUTANTS.values(), *K9_MUTANTS.values(), *K10_MUTANTS.values(),
         *K1_MUTANTS.values(), *K7_MUTANTS.values(), *WQ_WIDEN_MUTANTS.values(),
         *WQ_EPILOGUE_MUTANTS.values(), WQ_DUAL_MUTANT, *K4_MUTANTS.values(),
-        *K18_MUTANTS.values()])
+        *K18_MUTANTS.values(), *RECT_HD64_MUTANTS.values(), *GLOBAL_Y_HD64_MUTANTS.values(),
+        *GLOBAL_Y_ONES_MUTANTS.values(), *GLOBAL_Y_QS_MUTANTS.values()])
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "sources": sorted(built)}), flush=True)
     mark("build")
@@ -7253,17 +7298,25 @@ def main() -> int:
     smi = card_name_and_power_limit()
     # The inference entry point from checkpoint files, on its own generator
     # so that the check phase draws what it drew before it existed; then
-    # the training and eval CLIs from the same files (data from numpy's
-    # seed 23, the model's new leaves from the build's own generator).
+    # the web chat and the training and eval CLIs (data from numpy's seed
+    # 23, the model's new leaves from the build's own generator) from the
+    # same draws without the inference phase's peaked attention, whose
+    # bf16 readouts their fp32 comparisons were not set for.
     ckpt_root = tempfile.mkdtemp(prefix="ullava_inference_")
     try:
         inference_line = inference_phase(torch.Generator(device="cuda").manual_seed(22), smi,
                                          ckpt_root)
         mark("inference")
-        # The web chat and the SAM encoder's "xla" route on the same files.
-        chat_line, xla_line = chat_phase(inference_line["checkpoint_paths"], smi)
+        for name in ("llm", "clip"):
+            shutil.rmtree(os.path.join(ckpt_root, name))
+        os.remove(os.path.join(ckpt_root, "sam_vit_h.pth"))
+        paths = write_inference_checkpoints(os.path.join(ckpt_root, "plain"),
+                                            torch.Generator(device="cuda").manual_seed(22),
+                                            peaked=False)
+        # The web chat and the SAM encoder's "xla" route on those files.
+        chat_line, xla_line = chat_phase(paths, smi)
         mark("chat")
-        train_clis_line = train_clis_phase(inference_line["checkpoint_paths"], smi)
+        train_clis_line = train_clis_phase(paths, smi)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     mark("train_clis")

@@ -1,0 +1,160 @@
+"""On the card: the B=1 schedules of the hd 64 forms of K14 (the
+boundary-window kernel: one warp a 16-row query tile, the pad keys' sums
+in closed form) and K11 (the lane-sliced global kernel: the scores in q.k
+units with one fma a score, the bf16 exponentials' row sums by the ones
+column of P V, the `dots_i8` codes held as bf16 with the row's q scale in
+the exponent's factor) against their plain PyTorch versions at ViT-L's 16
+heads and ViT-B's 12, every boundary geometry, one window of each class
+up to a batch of 16, one and two images; and each mechanism's deliberate
+bug (`-DULLAVA_MUTANT_*`) caught by the same comparison. Every test here needs an NVIDIA GPU and skips
+without one; the file imports torch only:
+
+    python -m pytest tests/test_torch_cuda_sam_b1.py -q
+
+Gate: `test_torch_cuda_sam_hd64.py`'s: 1e-2 of each row's largest value,
+2e-2 with bf16 exponentials; the pre-pass bit for bit.
+"""
+
+import pytest
+import torch
+
+from ullava_tpu_torch import kernels
+from ullava_tpu_torch.models.sam import image_encoder
+from ullava_tpu_torch.ops import sam_attention
+
+_HD, _W, _G = 64, 14, 64
+_SC = _HD**-0.5
+_GEOMS = {"edge_pair": [(14, 8), (8, 14)], "right": [(14, 8)], "bottom": [(8, 14)],
+          "corner": [(8, 8)]}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.Generator(device="cuda").manual_seed(1)
+
+
+def _rand(gen, *shape, scale=1.0):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+
+def _row_rel_err(got, ref):
+    got, ref = got.float().flatten(0, -2), ref.float().flatten(0, -2)
+    return ((got - ref).abs().amax(-1) / ref.abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def _rect_case(gen, H, geoms, per):
+    """`per` windows of each geometry at H heads of 64: (y, a, b, tables,
+    geometry) as the encoder hands them to the kernel."""
+    qkv_bias = _rand(gen, 3 * H * _HD, scale=0.5)
+    ohs = [image_encoder._rect_onehot(r, c, _W, torch.bfloat16, "cuda") for r, c in geoms]
+    pads = [image_encoder._pad_tables(qkv_bias, r, c, _W, H, _HD, torch.bfloat16)
+            for r, c in geoms]
+    if len(geoms) == 1:
+        tables, geometry = (ohs[0], *pads[0]), geoms[0]
+    else:
+        tables = (torch.stack(ohs), torch.stack([k for k, _ in pads]),
+                  torch.stack([v for _, v in pads]))
+        geometry = tuple(geoms)
+    T, N = geoms[0][0] * geoms[0][1], per * len(geoms)
+    y = _rand(gen, N, T, 3 * H * _HD)
+    a, bb = (_rand(gen, N, T, H * _W, scale=2.0 / _SC) for _ in range(2))
+    return y, a, bb, tables, geometry
+
+
+def _rect(H, dots_i8, y, a, bb, tables, geometry):
+    return sam_attention.fused_window_attention_rect(
+        y, a, bb, *tables, num_heads=H, head_dim=_HD, window=_W, scale=_SC, dots_i8=dots_i8,
+        geometry=geometry)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per", [1, 4, 16])
+@pytest.mark.parametrize("geo", list(_GEOMS))
+@pytest.mark.parametrize("dots_i8", [False, True], ids=["bf16_scores", "dots_i8"])
+@pytest.mark.parametrize("H", [16, 12], ids=["vit_l", "vit_b"])
+def test_cuda_rect_hd64_b1_matches_plain(cuda, H, dots_i8, geo, per):
+    y, a, bb, tables, geometry = _rect_case(cuda, H, _GEOMS[geo], per)
+    name = "fused_window_attention_rect" + ("_i8" if dots_i8 else "") + "_hd64"
+    before = kernels.launch_counts()[name]
+    got = _rect(H, dots_i8, y, a, bb, tables, geometry)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 1
+    ref = sam_attention.fused_window_attention_rect_plain(y, a, bb, *tables, H, _HD, _W, _SC,
+                                                          dots_i8)
+    assert _row_rel_err(got, ref) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geo", ["edge_pair", "corner"])
+def test_cuda_rect_hd64_b1_attrs(cuda, geo):
+    """One warp a 16-row tile: 7 for the edges' 112 rows, 4 for the
+    corner's 64; two blocks an SM, the register limit that gives (the
+    `dots_i8` edges spill 8 bytes a thread under it, and ran slower at one
+    block an SM with 159 registers)."""
+    geoms = _GEOMS[geo]
+    for i8 in (0, 1):
+        attrs = kernels.kernel_attrs("sam_rect_attention.cu",
+                                     "ullava_window_attention_rect_hd64_attrs", i8, *geoms[0],
+                                     *geoms[-1])
+        assert attrs["spill_bytes"] <= 8 and attrs["blocks_per_sm"] >= 2, attrs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("dots_i8", [False, True], ids=["bf16_scores", "dots_i8"])
+@pytest.mark.parametrize("exp_bf16,tol", [(False, 1e-2), (True, 2e-2)])
+@pytest.mark.parametrize("H", [16, 12], ids=["vit_l", "vit_b"])
+def test_cuda_global_y_hd64_b1_matches_plain(cuda, H, exp_bf16, tol, dots_i8, B):
+    S = _G * _G
+    y = _rand(cuda, B, S, 3 * H * _HD)
+    a, bb = (_rand(cuda, B, S, H, _G, scale=2.0 / _SC) for _ in range(2))
+    kw = dict(num_heads=H, head_dim=_HD, window=_G, scale=_SC, exp_bf16=exp_bf16,
+              dots_i8=dots_i8)
+    got = sam_attention.fused_global_attention_y(y, a, bb, **kw)
+    ref = sam_attention.fused_global_attention_y_plain(y, a, bb, **kw)
+    assert _row_rel_err(got, ref) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [16, 12], ids=["vit_l", "vit_b"])
+def test_cuda_global_y_quant_i8_hd64_bf16_codes(cuda, H):
+    S = _G * _G
+    y = _rand(cuda, 2, S, 3 * H * _HD)
+    a, bb = (_rand(cuda, 2, S, H, _G, scale=2.0 / _SC) for _ in range(2))
+    got = sam_attention.global_y_quant_i8(y, a, bb, H, _HD)
+    assert got[0].shape == (2, 2, H, S, _HD) and got[0].dtype == torch.bfloat16
+    ref = sam_attention.global_y_quant_i8_plain(y, a, bb, H, _HD)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+_RECT_BUGS = ["ULLAVA_MUTANT_RECT_TILE_BIAS_ROWS", "ULLAVA_MUTANT_RECT_PAD_SUM_NO_QUAD"]
+_GLOBAL_BUGS = [("ULLAVA_MUTANT_GLOBAL_B1_B_PAIR", False), ("ULLAVA_MUTANT_GLOBAL_ONES_FIRST_KSTEP", False),
+                ("ULLAVA_MUTANT_GLOBAL_B1_QS_UNFOLDED", True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("define", _RECT_BUGS)
+@pytest.mark.parametrize("geo", ["edge_pair", "corner"])
+def test_cuda_rect_hd64_b1_mutants_caught(cuda, geo, define):
+    y, a, bb, tables, geometry = _rect_case(cuda, 16, _GEOMS[geo], 4)
+    for dots_i8 in (False, True):
+        ref = sam_attention.fused_window_attention_rect_plain(y, a, bb, *tables, 16, _HD, _W,
+                                                              _SC, dots_i8)
+        with kernels.mutant("sam_rect_attention.cu", define):
+            got = _rect(16, dots_i8, y, a, bb, tables, geometry)
+        assert _row_rel_err(got, ref) > 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("define,dots_i8", _GLOBAL_BUGS)
+def test_cuda_global_y_hd64_b1_mutants_caught(cuda, define, dots_i8):
+    S, H = _G * _G, 16
+    y = _rand(cuda, 1, S, 3 * H * _HD)
+    a, bb = (_rand(cuda, 1, S, H, _G, scale=2.0 / _SC) for _ in range(2))
+    kw = dict(num_heads=H, head_dim=_HD, window=_G, scale=_SC, exp_bf16=True, dots_i8=dots_i8)
+    ref = sam_attention.fused_global_attention_y_plain(y, a, bb, **kw)
+    with kernels.mutant("sam_global_attention_y.cu", define):
+        got = sam_attention.fused_global_attention_y(y, a, bb, **kw)
+    assert _row_rel_err(got, ref) > 2e-2

@@ -89,7 +89,7 @@ def _window_inputs(rng, N, S, H):
 def test_global_y_quant_i8_hd64_bit_equal_to_jax_rq_rows(H, dtype):
     """K11's pre-pass at hd 64: each head's q and k rows and each row's
     [A | B] against `_rq_rows` (`ullava_tpu/ops/sam_attention.py:552`):
-    codes, scales, the zero bytes past hd 64 of each 128-byte code row."""
+    codes and scales; a code row at hd 64 is its 64 codes, in bf16."""
     rng = np.random.default_rng(30)
     B, S, g = 2, 64, 8
     y = rng.standard_normal((B, S, 3 * H * HD)).astype(np.float32)
@@ -100,11 +100,12 @@ def test_global_y_quant_i8_hd64_bit_equal_to_jax_rq_rows(H, dtype):
     jy, ja, jb = (jnp.asarray(t, jdt) for t in (y, a, b))
     ty, ta, tb = (torch.from_numpy(np.array(t.astype(jnp.float32))).to(tdt) for t in (jy, ja, jb))
     codes, scales, ac, bc, abss = sam_attention.global_y_quant_i8_plain(ty, ta, tb, H, HD)
-    assert codes.shape == (2, B, H, S, 128) and codes.dtype == torch.int8
+    assert codes.shape == (2, B, H, S, HD) and codes.dtype == torch.bfloat16
     for sec in range(2):
         for h in range(H):
             q, s = jsam._rq_rows(jy[:, :, (sec * H + h) * HD:(sec * H + h + 1) * HD])
-            np.testing.assert_array_equal(codes[sec, :, h, :, :HD].numpy(), np.asarray(q))
+            np.testing.assert_array_equal(codes[sec, :, h, :, :HD].float().numpy(),
+                                          np.asarray(q, np.float32))
             np.testing.assert_array_equal(scales[sec, :, h].numpy(), np.asarray(s)[..., 0])
     assert not codes[..., HD:].any()
     q, s = jsam._rq_rows(jnp.concatenate([ja, jb], axis=-1))

@@ -66,13 +66,34 @@
 //     to issue their products (FA3's ping-pong on two named barriers).
 //   - DOTS_I8 (K11's int8 score form): a pre-pass (sam_global_attention_y.cu)
 //     quantizes each row once per layer: q and k codes in 128-byte rows
-//     (hd 80 or 64, zero past it), their fp32 scales, the codes of each
-//     row's [A | B] (in bf16, exact) and its scale. The core loads Q's and
-//     each K tile's codes by TMA (16 KB tiles, the same swizzle) with the
-//     key scales, runs Q K^T as ceil(hd / 32) wgmma.m64n128k32 s8 steps
-//     (three at hd 80, two at hd 64) into s32 sums,
+//     (int8, zero past hd 80; at hd 64 the 64 codes in bf16), their fp32
+//     scales, the codes of each row's [A | B] (in bf16, exact) and its
+//     scale. The core loads Q's and each K tile's codes by TMA (16 KB
+//     tiles, the same swizzle) with the key scales, runs Q K^T at hd 80 as
+//     three wgmma.m64n128k32 s8 steps into s32 sums,
 //     and forms float(acc) * (qs * ks) + float(ca + cb) * abss, in that
-//     order, before the scale. P V stays bf16.
+//     order, before the scale (B1: below). P V stays bf16.
+//   - B1 (K11 at hd 64: ViT-L's and ViT-B's global blocks, one image a
+//     `SamPredictor` encode, 512 or 384 blocks): a tile's products shrink
+//     to 4 k-steps of Q K^T and P V on m64n64 alone, while the exponentials
+//     and bias adds a score stay those of hd 80, so the softmax, not the
+//     tensor cores, sets the pace. The scores stay in q.k units
+//     (x = s + A + B, two adds) and take the row max there; p = exp2(x * c
+//     - m * c) is one fma and an ex2 a score (c = scale * log2(e)), with
+//     EXPBF16 d = bf16(x * scale - m * scale) and p = bf16(exp(d)), whose
+//     row sums l come from the tensor cores: P V takes an m64n8k16 product
+//     against a tile of ones beside its m64n64k16 ones. DOTS_I8 holds its
+//     codes as bf16 (CODES16: the pre-pass writes them so), so Q K^T runs
+//     as the bf16 form's and its fp32 sums are the exact integer sums: no
+//     conversion of an s32 sum, which cost two operations a score, while
+//     the int8 products did not shorten this loop. Its scores are kept in
+//     units of q.k / qs, x = acc * ks + (ca + cb) * abss / qs (one fma and
+//     one add), the row's qs riding the exponent's factor: as many
+//     operations a score as the bf16 form. Weighed and left out: more K/V
+//     stages (four gained nothing), dropping the ping-pong (both warp-
+//     groups' softmaxes then meet on the same schedulers: slower), bf16
+//     rounding by integer operations in place of the packed conversion
+//     (slower), and 64-byte int8 code rows (moot with bf16 codes).
 // No row is ever fully masked (no mask): the core assumes a finite row
 // max after the first tile, S = 4096 and W = 64.
 //
@@ -86,6 +107,12 @@
 //                                         row, A[s][2j], used for both halves;
 //   ULLAVA_MUTANT_GLOBAL_BIAS_RAW         raw bias terms (kBiasRaw) read
 //                                         without the 1/scale pre-scale;
+//   ULLAVA_MUTANT_GLOBAL_B1_B_PAIR        B1: a column pair's second score
+//                                         takes the pair's first B term;
+//   ULLAVA_MUTANT_GLOBAL_ONES_FIRST_KSTEP B1 with EXPBF16: the row sums
+//                                         take a tile's first 16 keys only;
+//   ULLAVA_MUTANT_GLOBAL_B1_QS_UNFOLDED   B1 with DOTS_I8: the exponent's
+//                                         factor without the row's qs;
 // it builds deliberate bugs that only `chip_smoke.py` builds, to show that
 // the gates catch them.
 #pragma once
@@ -102,6 +129,7 @@ using sm90::mbar_arrive;
 using sm90::mbar_wait;
 using sm90::tma_load;
 using sm90::desc_sw128;
+using sm90::desc_plain;
 using sm90::wgmma_fence;
 using sm90::wgmma_commit;
 using sm90::wgmma_wait;
@@ -112,6 +140,7 @@ using sm90::wgmma_qk_s8_first;
 using sm90::wgmma_qk_s8;
 using sm90::wgmma_pv;
 using sm90::wgmma_pv16;
+using sm90::wgmma_pv8;
 using sm90::quad_max;
 using sm90::quad_sum;
 using sm90::pack_bf16;
@@ -129,14 +158,15 @@ constexpr int kThreads = 384;     // producer warpgroup + two consumer warpgroup
 constexpr int kGroup = 16;        // (image, head) pairs a group of the block order
 constexpr uint32_t kHalf = 128 * 128;  // bytes of one 64-column half of a 128-row bf16 tile
 constexpr uint32_t kTile = 2 * kHalf;  // a bf16 tile: 32 KB
-constexpr uint32_t kCodes = 128 * 128;  // 128 rows of 128 int8 codes: 16 KB
+constexpr uint32_t kCodes = 128 * 128;  // 128 rows of 128 int8 codes (hd 64: of 64 bf16 codes)
+constexpr uint32_t kOnes = 256;         // an n8 x k16 bf16 tile of ones
 constexpr uint32_t kTable = 128 * 128;  // [128 rows][64] bf16 bias terms: 16 KB
 constexpr uint32_t kScales = kN * 4;    // a K tile's fp32 scales
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory, from a 1024-aligned base: Q | K ring | V ring | A | B |
-// key scales (DOTS_I8) | mbarriers.
-template <bool DOTS>
+// key scales (DOTS_I8) | ones (ONES) | mbarriers.
+template <bool DOTS, bool ONES = false>
 struct Layout {
   static constexpr uint32_t kQ = DOTS ? kCodes : kTile;
   static constexpr uint32_t kK = DOTS ? kCodes : kTile;
@@ -145,9 +175,19 @@ struct Layout {
   static constexpr uint32_t a_off = v_off + kStages * kTile;
   static constexpr uint32_t b_off = a_off + kTable;
   static constexpr uint32_t ks_off = b_off + kTable;
-  static constexpr uint32_t bar_off = ks_off + (DOTS ? kStages * kScales : 0);
+  static constexpr uint32_t ones_off = ks_off + (DOTS ? kStages * kScales : 0);
+  static constexpr uint32_t bar_off = ones_off + (ONES ? kOnes : 0);
   static constexpr size_t kSmem = 1024 + bar_off + 8 * (1 + 4 * kStages);
 };
+
+// K11 at hd 64 (P's bias terms pre-scaled, before the scale): the B=1
+// schedule of the header's last design item.
+template <class P>
+__host__ __device__ constexpr bool b1_form() {
+  return P::kHD == 64 && !P::kBiasAfterScale && !P::kBiasRaw;
+}
+template <class P, bool EXPBF16, bool DOTS>
+using LayoutOf = Layout<DOTS, b1_form<P>() && EXPBF16>;
 
 struct Params {
   bf16* o;              // [B, S, H, HD]
@@ -248,7 +288,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   static_assert(!(AFTER && (DOTS || EXPBF16)), "the after-scale form is K20's: bf16, fp32 exp");
   static_assert(!DOTS || HD == 64 || HD == 80, "the int8 score form is K11's");
   static_assert(!(P::kBiasRaw && (AFTER || DOTS)), "raw terms are K4's: before the scale, bf16");
-  using L = Layout<DOTS>;
+  constexpr bool B1 = b1_form<P>();
+  constexpr bool ONES = B1 && EXPBF16;  // l summed by the tensor cores
+  // B1's DOTS_I8 codes are bf16 (exact small integers): Q K^T runs on the
+  // bf16 tensor cores and its fp32 sums are the int8 product's, exactly.
+  constexpr bool CODES16 = DOTS && B1;
+  using L = LayoutOf<P, EXPBF16, DOTS>;
 
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle's alignment
@@ -256,6 +301,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto sK = [&](int s) { return base + L::k_off + L::kK * s; };
   auto sV = [&](int s) { return base + L::v_off + kTile * s; };
   const uint32_t sA = base + L::a_off, sB = base + L::b_off;
+  const uint32_t sOnes = base + L::ones_off;
   auto sKs = [&](int s) { return base + L::ks_off + kScales * s; };
   const uint32_t bar_q = base + L::bar_off;
   auto full_k = [&](int s) { return bar_q + 8 * (1 + s); };
@@ -266,6 +312,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const Work it = work_item(p.B, p.H, blockIdx.x);
   const int H = p.H;
 
+  if constexpr (ONES) {  // bf16 1.0 pairs, for the wgmma that sums P's rows
+    if (threadIdx.x < kOnes / 4)
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(sOnes + 4 * threadIdx.x), "r"(0x3f803f80u)
+                   : "memory");
+    sm90::fence_proxy_async();
+  }
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
     for (int s = 0; s < kStages; ++s) {
@@ -330,23 +382,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 0; i < NH / 2; ++i) o_hi[i] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};
+  float l_acc[4] = {0.f, 0.f, 0.f, 0.f};  // ONES: P's row sums, rows g and g + 8
   float sc[64];       // this tile's scores, then its probabilities
-  uint32_t si[DOTS ? 64 : 1];  // DOTS_I8: this tile's int8 products
+  uint32_t si[DOTS && !CODES16 ? 64 : 1];  // DOTS_I8: this tile's int8 products
   uint32_t pa[32];    // the previous tile's P, the register A operand of its P V
   float alpha[2];
   float qs[2] = {0.f, 0.f}, abss[2] = {0.f, 0.f};  // DOTS_I8: the rows' scales
 
   mbar_wait(bar_q, 0);
-  // The B terms this thread's columns meet, the same in every key tile:
-  // row lr[r], columns 8 c + 2 tq (+1) for c = 0..7, as bf16 pairs.
-  uint32_t bt[2][8];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      bt[r][c] = table_word(sB, lr[r], 16 * c + 4 * tq);
-      if constexpr (P::kBiasRaw) bt[r][c] = prescale_pair(bt[r][c], p.inv_scale);
-    }
   if constexpr (DOTS) {
     const size_t row0 = static_cast<size_t>(it.b * H + it.h) * kS + it.q0;
 #pragma unroll
@@ -355,10 +398,38 @@ __global__ void __launch_bounds__(kThreads, 1)
       abss[r] = p.abss[row0 + lr[r]];
     }
   }
+  // The B terms this thread's columns meet, the same in every key tile:
+  // row lr[r], columns 8 c + 2 tq (+1) for c = 0..7, as bf16 pairs; B1:
+  // as floats (DOTS_I8: the codes times abss / qs), column 2 c + e.
+  // B1 with DOTS_I8: the rows' exponent factors (scale times qs; with
+  // EXPBF16 in natural units) and abss / qs, which scales the bias codes.
+  float es[2] = {p.sl2, p.sl2}, rq[2] = {1.f, 1.f};
+#pragma unroll
+  for (int r = 0; r < 2 && DOTS; ++r) {
+#ifdef ULLAVA_MUTANT_GLOBAL_B1_QS_UNFOLDED
+    es[r] = p.sl2;
+#else
+    es[r] = qs[r] * p.sl2;
+#endif
+    rq[r] = __fdiv_rn(abss[r], qs[r]);
+  }
+  uint32_t bt[2][8];
+  float bq[B1 ? 2 : 1][B1 ? 16 : 1];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      bt[r][c] = table_word(sB, lr[r], 16 * c + 4 * tq);
+      if constexpr (P::kBiasRaw) bt[r][c] = prescale_pair(bt[r][c], p.inv_scale);
+      if constexpr (B1) {
+        bq[r][2 * c] = DOTS ? bf_lo(bt[r][c]) * rq[r] : bf_lo(bt[r][c]);
+        bq[r][2 * c + 1] = DOTS ? bf_hi(bt[r][c]) * rq[r] : bf_hi(bt[r][c]);
+      }
+    }
 
   const uint32_t q_wg = sQ + cw * 64 * 128;  // this warpgroup's 64 rows of Q (each half)
   auto qk = [&](int s) {  // S = Q K^T of stage s, issued (not waited for)
-    if constexpr (DOTS) {
+    if constexpr (DOTS && !CODES16) {
       wgmma_qk_s8_first(si, desc_sw128(q_wg), desc_sw128(sK(s)));
 #pragma unroll
       for (int kk = 1; kk < (HD + 31) / 32; ++kk)
@@ -376,6 +447,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int kk = 0; kk < kN / 16; ++kk) {
       wgmma_pv(o_lo, pa + 4 * kk, desc_sw128(sV(s) + kk * 2048));
+#ifdef ULLAVA_MUTANT_GLOBAL_ONES_FIRST_KSTEP
+      if (ONES && kk == 0) wgmma_pv8(l_acc, pa + 4 * kk, desc_plain(sOnes));
+#else
+      if constexpr (ONES) wgmma_pv8(l_acc, pa + 4 * kk, desc_plain(sOnes));
+#endif
       if constexpr (NH == 64)
         wgmma_pv(o_hi, pa + 4 * kk, desc_sw128(sV(s) + kHalf + kk * 2048));
       else if constexpr (NH == 16)
@@ -400,7 +476,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #endif
     }
     const float* ks = nullptr;
-    if constexpr (DOTS) {
+    if constexpr (DOTS && !CODES16) {
       ks = reinterpret_cast<const float*>(smem_raw + (sKs(s) - smem_u32(smem_raw)));
 #pragma unroll
       for (int i = 0; i < 64; ++i) sc[i] = small_int_to_float(si[i]);
@@ -461,6 +537,78 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   };
+  // B1: the scores in q.k units, x = s + A + B, and their row max m; then
+  // p = exp2(x * c - m * c) with c = scale * log2(e), one fma a score, or
+  // with EXPBF16 d = bf16(x * scale - m * scale), p = bf16(exp(d)), whose
+  // row sums the ones column of P V takes (ONES). DOTS_I8 keeps x in units
+  // of q.k / qs, so the row's q scale rides the exponent's factor: x =
+  // acc * ks + (ca + cb) * abss / qs, one fma on the exact integer sum acc
+  // (CODES16) and the key's scale.
+  auto softmax_b1 = [&](int j, int s) {
+    float a_lo[2], a_hi[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const uint32_t a2 = table_word(sA, lr[r], 4 * j);
+      a_lo[r] = DOTS ? bf_lo(a2) * rq[r] : bf_lo(a2);
+#ifdef ULLAVA_MUTANT_GLOBAL_A_ONE_ROW
+      a_hi[r] = a_lo[r];
+#else
+      a_hi[r] = DOTS ? bf_hi(a2) * rq[r] : bf_hi(a2);
+#endif
+    }
+    const float* ks = nullptr;
+    if constexpr (DOTS) ks = reinterpret_cast<const float*>(smem_raw + (sKs(s) - smem_u32(smem_raw)));
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int r = (i >> 1) & 1, c = i >> 2, e = i & 1;
+#ifdef ULLAVA_MUTANT_GLOBAL_B1_B_PAIR
+      const float bias = (c < 8 ? a_lo[r] : a_hi[r]) + bq[r][2 * (c & 7)];  // a pair's first B
+#else
+      const float bias = (c < 8 ? a_lo[r] : a_hi[r]) + bq[r][2 * (c & 7) + e];
+#endif
+      float x;
+      if constexpr (DOTS) {
+#ifdef ULLAVA_MUTANT_I8_TILE_SCALE
+        const float k_scale = ks[0];
+#else
+        const float k_scale = ks[8 * c + 2 * tq + e];
+#endif
+        x = __fmaf_rn(sc[i], k_scale, bias);
+      } else {
+        x = sc[i] + bias;
+      }
+      sc[i] = x;
+      mx[r] = fmaxf(mx[r], x);
+    }
+    float nm[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
+      const float e = DOTS ? es[r] : p.sl2;
+      alpha[r] = exp2_ftz((m_run[r] - m_new) * (EXPBF16 ? e * kLog2e : e));
+      m_run[r] = m_new;
+      l_run[r] *= alpha[r];
+      nm[r] = -m_new * e;
+    }
+    if constexpr (EXPBF16) {
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        const int r = (i >> 1) & 1;
+        const float e = DOTS ? es[r] : p.sl2;
+        const uint32_t d2 = pack_bf16(__fmaf_rn(sc[i], e, nm[r]), __fmaf_rn(sc[i + 1], e, nm[r]));
+        sc[i] = __uint_as_float(
+            pack_bf16(exp2_ftz(bf_lo(d2) * kLog2e), exp2_ftz(bf_hi(d2) * kLog2e)));
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int r = (i >> 1) & 1;
+        sc[i] = exp2_ftz(__fmaf_rn(sc[i], DOTS ? es[r] : p.sl2, nm[r]));
+        l_run[r] += sc[i];
+      }
+    }
+  };
   // P as the register A operand: for keys 16 kk .. + 15, the accumulator
   // pairs 8 kk .. 8 kk + 7 in order (rows g, g + 8; columns 2 tq, + 8).
   auto to_pa = [&] {
@@ -471,15 +619,26 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto rescale = [&] {
 #pragma unroll
     for (int i = 0; i < 32; ++i) o_lo[i] *= alpha[(i >> 1) & 1];
+    if constexpr (ONES) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) l_acc[i] *= alpha[i >> 1];
+    }
 #pragma unroll
     for (int i = 0; i < NH / 2; ++i) o_hi[i] *= alpha[(i >> 1) & 1];
   };
   auto fence_o = [&] {
     reg_fence(o_lo);
     if constexpr (NH > 0) reg_fence(o_hi);
+    if constexpr (ONES) reg_fence(l_acc);
+  };
+  auto softmax_any = [&](int j, int s) {
+    if constexpr (B1)
+      softmax_b1(j, s);
+    else
+      softmax(j, s);
   };
   auto fence_s = [&] {
-    if constexpr (DOTS)
+    if constexpr (DOTS && !CODES16)
       reg_fence(si);
     else
       reg_fence(sc);
@@ -501,7 +660,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   turn_end(false);
   wgmma_wait<0>();
   fence_s();
-  softmax(0, 0);
+  softmax_any(0, 0);
   if (lane == 0) mbar_arrive(empty_k(0));
   to_pa();
   for (int j = 1; j < kTiles; ++j) {
@@ -517,7 +676,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     turn_end(false);
     wgmma_wait<1>();  // Q K^T of tile j is done
     fence_s();
-    softmax(j, s);
+    softmax_any(j, s);
     if (lane == 0) mbar_arrive(empty_k(s));
     wgmma_wait<0>();  // P V of tile j - 1 is done
     fence_o();
@@ -540,7 +699,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // o = acc / l, head-merged: o[b, row, h, :].
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const float inv = 1.f / quad_sum(l_run[r]);
+    const float inv = 1.f / (ONES ? l_acc[2 * r] : quad_sum(l_run[r]));
     bf16* out = p.o + ((static_cast<size_t>(it.b) * kS + it.q0 + lr[r]) * H + it.h) * HD + 2 * tq;
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -574,7 +733,7 @@ int configure() {
     if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
     const cudaError_t err = cudaFuncSetAttribute(global_sm90_kernel<P, EXPBF16, DOTS>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(Layout<DOTS>::kSmem));
+                                                 static_cast<int>(LayoutOf<P, EXPBF16, DOTS>::kSmem));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
@@ -585,7 +744,8 @@ int configure() {
 template <class P, bool EXPBF16, bool DOTS>
 int attrs(int* out) {
   if (const int err = configure<P, EXPBF16, DOTS>()) return err;
-  return func_attrs(global_sm90_kernel<P, EXPBF16, DOTS>, kThreads, Layout<DOTS>::kSmem, out);
+  return func_attrs(global_sm90_kernel<P, EXPBF16, DOTS>, kThreads,
+                    LayoutOf<P, EXPBF16, DOTS>::kSmem, out);
 }
 
 // Launches one block per (image, head, 128-row query tile). q, k and v are
@@ -596,7 +756,7 @@ int attrs(int* out) {
 template <class P, bool EXPBF16, bool DOTS>
 int launch_global(const void* q, const void* k, const void* v, const void* a, const void* b,
                   const void* codes, const void* scales, const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = Layout<DOTS>::kSmem;
+  constexpr size_t smem = LayoutOf<P, EXPBF16, DOTS>::kSmem;
   if (const int err = configure<P, EXPBF16, DOTS>()) return err;
   if (p.B == 0 || p.H == 0) return 0;
   CUtensorMap tm_q{}, tm_k{}, tm_v{}, tm_a{}, tm_b{}, tm_codes{}, tm_scales{};
@@ -608,18 +768,21 @@ int launch_global(const void* q, const void* k, const void* v, const void* a, co
   if (k == q) tm_k = tm_q;
   if (v == q) tm_v = tm_q;
   if constexpr (DOTS) {
-    // codes [2, B, H, S, 128] int8 as {byte, row, head, 2B}; scales
-    // [2, B, H, S] fp32 as {row, head, 2B, 1}.
+    // codes [2, B, H, S, 128] int8 as {byte, row, head, 2B} (hd 64, B1:
+    // [2, B, H, S, 64] bf16 as {lane, row, head, 2B}; 128-byte rows either
+    // way); scales [2, B, H, S] fp32 as {row, head, 2B, 1}.
+    constexpr bool codes16 = b1_form<P>();
     const cuuint64_t nb = 2ull * p.B;
-    const cuuint64_t cd[4] = {128, kS, static_cast<cuuint64_t>(p.H), nb};
+    const cuuint64_t cd[4] = {codes16 ? 64u : 128u, kS, static_cast<cuuint64_t>(p.H), nb};
     const cuuint64_t cs[3] = {128, 128ull * kS, 128ull * kS * p.H};
-    const cuuint32_t cbox[4] = {128, 128, 1, 1};
+    const cuuint32_t cbox[4] = {codes16 ? 64u : 128u, 128, 1, 1};
     const cuuint64_t sd[4] = {kS, static_cast<cuuint64_t>(p.H), nb, 1};
     const cuuint64_t ss[3] = {4ull * kS, 4ull * kS * p.H, 4ull * kS * p.H * nb};
     const cuuint32_t sbox[4] = {kN, 1, 1, 1};
     ok = ok &&
-         encode_map(&tm_codes, CU_TENSOR_MAP_DATA_TYPE_UINT8, codes, cd, cs, cbox,
-                    CU_TENSOR_MAP_SWIZZLE_128B) &&
+         encode_map(&tm_codes,
+                    codes16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                    codes, cd, cs, cbox, CU_TENSOR_MAP_SWIZZLE_128B) &&
          encode_map(&tm_scales, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scales, sd, ss, sbox,
                     CU_TENSOR_MAP_SWIZZLE_NONE);
   }

@@ -36,16 +36,21 @@
 // operations.
 //
 // Its int8 score form at hd 64 (`ullava_global_attention_y_quant_i8_hd64`,
-// then `ullava_fused_global_attention_y_i8_hd64`): the pre-pass writes the
-// same [2, B, H, S, 128] code rows with 64 codes and 64 zero bytes, so the
-// core's TMA box and swizzle are those of hd 80 and its Q K^T is two k32
-// steps (the rows' bytes 0-63). Bound at one ViT-L B=1 block: 34 GFLOP of
-// int8 qk (~17 us) and 34 GFLOP of bf16 P V (~35 us): operations.
+// then `ullava_fused_global_attention_y_i8_hd64`): the pre-pass writes
+// [2, B, H, S, 64] code rows in bf16 (exact small integers), which the
+// core reads as it reads bf16 q and k (one 128-byte TMA box a row) and
+// multiplies on the bf16 tensor cores: the fp32 sums of products of
+// integers below 128 over 64 lanes are the int8 product's, exactly. Bound
+// at one ViT-L B=1 block: 34 GFLOP of int8 qk (~17 us) and 34 GFLOP of
+// bf16 P V (~35 us): operations. Both hd 64 forms run the core's B1
+// schedule (global_sm90.cuh). The pre-pass stays a launch of its own: K's
+// codes serve all 32 query tiles of a head, so quantizing them in the core
+// would repeat it 32 times.
 //
 // The dots_i8 form quantizes per row once per layer, not once per query
 // tile: the pre-pass (one group of 8 threads a row) writes q's and k's
-// int8 codes in 128-byte rows (hd 80 or 64, zero past it) [2, B, H, S, 128] and
-// their scales [2, B, H, S], and each row's [A | B] codes [B, S, H, 64]
+// codes in 128-byte rows (hd 80: int8, zero past it; hd 64: 64 bf16)
+// [2, B, H, S, 128 or 64] and their scales [2, B, H, S], and each row's [A | B] codes [B, S, H, 64]
 // twice (bf16, exact small integers, in the bias terms' own layout) with
 // its scale [B, H, S], in the arithmetic of row_quant (`_rq_rows`): abs-max
 // floored at 1e-12, code = rn(x * (127 / amax)) with an IEEE division,
@@ -72,15 +77,19 @@ struct GlobalY : glob::BiasBSHW {
 // The dots_i8 pre-pass. Group gid (8 threads) of B * S * H * 3 takes row
 // kind = gid % 3 (q, k, or [A | B]) of (b, s, h) = gid / 3. For q and k
 // thread t < HD / 16 owns elements 16 t .. 16 t + 15 of the HD and writes
-// their codes as one 16-byte store; the other threads write the zero pad.
-// For [A | B] threads 0-3 own A's 64 terms and 4-7 B's, 16 each.
+// their codes as one 16-byte store; the other threads write the zero pad
+// of the 128-byte row. At hd 64 the codes are bf16 (exact small integers,
+// 64 a 128-byte row, two 16-byte stores a thread). For [A | B] threads
+// 0-3 own A's 64 terms and 4-7 B's, 16 each.
 template <int HD>
 __global__ void __launch_bounds__(256) global_y_quant_i8_kernel(
     const bf16* __restrict__ y, const bf16* __restrict__ a, const bf16* __restrict__ bb,
-    int8_t* __restrict__ codes, float* __restrict__ scales, bf16* __restrict__ ac,
+    void* __restrict__ codes, float* __restrict__ scales, bf16* __restrict__ ac,
     bf16* __restrict__ bc, float* __restrict__ abss, int B, int H) {
   constexpr int S = glob::kS, W = glob::kW;
-  static_assert(HD % 16 == 0 && HD <= 128, "whole 16-byte code chunks in a 128-byte row");
+  constexpr bool kCodes16 = HD == 64;  // bf16 codes (the core's B1 form)
+  static_assert(HD % 16 == 0 && HD <= 128 && (!kCodes16 || 2 * HD == 128),
+                "whole 16-byte code chunks in a 128-byte row");
   const long gid = (static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x) / 8;
   const int t = threadIdx.x % 8;
   const long rows = static_cast<long>(B) * S * H;
@@ -122,18 +131,32 @@ __global__ void __launch_bounds__(256) global_y_quant_i8_kernel(
   const float scale = __fmul_rn(amax, 1.f / 127.f);
   const size_t row = (static_cast<size_t>(b) * H + h) * S + s;  // (b, h, s)
   if (kind < 2) {
-    uint32_t w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      w[i] = 0u;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int q = __float2int_rn(__fmul_rn(x[4 * i + k], inv));
-        w[i] |= (static_cast<uint32_t>(q) & 0xffu) << (8 * k);
-      }
-    }
     const size_t at = static_cast<size_t>(kind) * B * H * S + row;
-    *reinterpret_cast<uint4*>(codes + at * 128 + 16 * t) = make_uint4(w[0], w[1], w[2], w[3]);
+    if constexpr (kCodes16) {
+      if (t < HD / 16) {
+        uint32_t w[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          w[i] = sm90::pack_bf16(static_cast<float>(__float2int_rn(__fmul_rn(x[2 * i], inv))),
+                                 static_cast<float>(__float2int_rn(__fmul_rn(x[2 * i + 1], inv))));
+        uint4* dst = reinterpret_cast<uint4*>(static_cast<char*>(codes) + at * 128 + 32 * t);
+        dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+        dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+      }
+    } else {
+      uint32_t w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        w[i] = 0u;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int q = __float2int_rn(__fmul_rn(x[4 * i + k], inv));
+          w[i] |= (static_cast<uint32_t>(q) & 0xffu) << (8 * k);
+        }
+      }
+      *reinterpret_cast<uint4*>(static_cast<char*>(codes) + at * 128 + 16 * t) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+    }
     if (t == 0) scales[at] = scale;
   } else {
     uint32_t w[8];
@@ -170,7 +193,7 @@ int launch_quant_i8(const void* y, const void* a, const void* b, void* codes, vo
   const int blocks = static_cast<int>((groups * 8 + 255) / 256);
   global_y_quant_i8_kernel<HD><<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(y), static_cast<const bf16*>(a), static_cast<const bf16*>(b),
-      static_cast<int8_t*>(codes), static_cast<float*>(scales), static_cast<bf16*>(ac),
+      codes, static_cast<float*>(scales), static_cast<bf16*>(ac),
       static_cast<bf16*>(bc), static_cast<float*>(abss), B, H);
   return static_cast<int>(cudaGetLastError());
 }
@@ -225,7 +248,7 @@ ULLAVA_EXPORT int ullava_fused_global_attention_y_i8(const void* y, const void* 
 }
 
 // The hd 64 pre-pass (ViT-L, ViT-B): y [B, 4096, 3 * H * 64]; the outputs
-// as the hd 80 pre-pass's, each code row 64 codes and 64 zero bytes.
+// as the hd 80 pre-pass's but the codes, [2, B, H, 4096, 64] bf16.
 ULLAVA_EXPORT int ullava_global_attention_y_quant_i8_hd64(const void* y, const void* a,
                                                           const void* b, void* codes,
                                                           void* scales, void* ac, void* bc,

@@ -43,11 +43,12 @@
 //
 // The hd 64 form (`ullava_fused_window_attention_rect_hd64`, bf16 scores):
 // ViT-L's and ViT-B's boundary windows, whose grid of 64 tokens leaves the
-// same 14 x 8, 8 x 14 and 8 x 8 rectangles. The core runs it with HD = 64
-// (128-byte swizzled K and V rows, 4 k-steps of Q K^T); the pad tables
-// are [halves, H, P, 64 + 28]. Bound at one ViT-L B=1 block (the merged
-// edges, N = 8, T = 112, H = 16): 6.9 MB in and out, ~2 us, against
-// 0.2 GFLOP: bytes.
+// same 14 x 8, 8 x 14 and 8 x 8 rectangles, at HD = 64 (128-byte swizzled
+// K and V rows, 4 k-steps of Q K^T); the pad tables are [halves, H, P,
+// 64 + 28]. Bound at one ViT-L B=1 block (the merged edges, N = 8, T =
+// 112, H = 16): 6.9 MB in and out, ~2 us, against 0.2 GFLOP: bytes. Its
+// schedule is the core's B=1 one (`rect_split_body`, window_whole.cuh):
+// one warp a query tile, the pad keys' sums in closed form.
 //
 // Its int8 score form at hd 64 (`ullava_fused_window_attention_rect_i8_hd64`):
 // ViT-L's and ViT-B's boundary windows with `attn_dots_i8` (the merged
@@ -134,8 +135,13 @@ int launch_rect(const void* y, const void* a, const void* b, const void* pad_k,
                          static_cast<const bf16*>(pad_v), static_cast<bf16*>(o),
                          T, H, scale, n_first, P * (HD + 2 * kRectWin)};
   return with_geometry(rows0, cols0, rows1, cols1, [&](auto g0, auto g1) {
-    return launch_window_whole<HD, kRectWin, WindowRect<HD>, decltype(g0), decltype(g1), I8>(
-        p, N * H, static_cast<cudaStream_t>(stream));
+    using G0 = decltype(g0);
+    using G1 = decltype(g1);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if constexpr (HD == 64)
+      return launch_rect_split<HD, kRectWin, WindowRect<HD>, G0, G1, I8>(p, N * H, st);
+    else
+      return launch_window_whole<HD, kRectWin, WindowRect<HD>, G0, G1, I8>(p, N * H, st);
   });
 }
 
@@ -216,7 +222,7 @@ ULLAVA_EXPORT int ullava_window_attention_rect_hd64_attrs(int i8, int rows0, int
   return with_geometry(rows0, cols0, rows1, cols1, [&](auto g0, auto g1) {
     using G0 = decltype(g0);
     using G1 = decltype(g1);
-    return i8 ? window_whole_attrs<64, kRectWin, WindowRect<64>, G0, G1, true>(out)
-              : window_whole_attrs<64, kRectWin, WindowRect<64>, G0, G1, false>(out);
+    return i8 ? rect_split_attrs<64, kRectWin, WindowRect<64>, G0, G1, true>(out)
+              : rect_split_attrs<64, kRectWin, WindowRect<64>, G0, G1, false>(out);
   });
 }

@@ -11,12 +11,14 @@
 //     threads' shared stores before them);
 //   - the wgmma descriptor of a 128-byte-swizzled tile whose 8-row groups
 //     lie 1024 bytes apart (K-major operands of 128-byte rows: 64 bf16 or
-//     128 int8 codes; the transposed V operand: 8 keys of 64 bf16);
+//     128 int8 codes; the transposed V operand: 8 keys of 64 bf16), and of
+//     an unswizzled one;
 //   - the wgmma products the kernels issue: S = Q K^T in bf16
 //     (m64n128k16; its first step with write-only registers) and in int8
 //     (m64n128k32, s32 sums), O += P V with P
 //     from registers (m64n64k16 and m64n16k16, V through the transpose
-//     flag), with fence, commit and wait; the m64n64k16 products of the
+//     flag; m64n8k16 against an unswizzled tile), with fence, commit and
+//     wait; the m64n64k16 products of the
 //     flash backward with both operands in shared memory, either one
 //     through its transpose flag;
 //   - quad reductions of the accumulator layout and bf16 packing;
@@ -123,6 +125,13 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
 }
 
+// The descriptor of an unswizzled K-major tile of 16-byte core matrices
+// (8 rows x 16 bytes), 128 bytes apart along K and 256 along the rows: an
+// n8 x k16 bf16 operand in the first 256 bytes at `addr`.
+__device__ __forceinline__ uint64_t desc_plain(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32);
+}
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -272,6 +281,18 @@ __device__ __forceinline__ void wgmma_pv16(float (&d)[8], const uint32_t* a, uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[4] += A (64 x 16 from registers) * B (16 x 8, shared, K-major).
+__device__ __forceinline__ void wgmma_pv8(float (&d)[4], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 #define ULLAVA_D32                                                                   \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"

@@ -75,13 +75,42 @@
 //     (1 / 127). s = (float(qk) * (qs * ks) + float(ca + cb) * abss) *
 //     scale; K14's pads keep the unquantized score; P V stays bf16.
 //
+// K14 at hd 64 (ViT-L's and ViT-B's boundary windows, both score forms)
+// runs a schedule of its own, `rect_split_body`, for the B=1 encode of
+// `SamPredictor`: there the merged edge pair is 8 windows x 16 heads = 128
+// blocks and the corner 16, one block an SM at most, so the body above,
+// whose four warps walk the 7 query tiles in turn behind a serial
+// prologue, ran one 4-warp block's latency (about 40 us against a 2.6 us
+// bound). Weighed and chosen:
+//   - one block per (window, head) of NC warps, one 16-row query tile
+//     each (7 for the edges' 112 rows, 4 for the corner's 64): every
+//     tile's chain runs at once, and the block's K and V copies and, in
+//     `dots_i8`, K's quantization (one half row a thread, one pass) are
+//     spread over all its threads. Splitting a (window, head) over
+//     several blocks or a cluster would copy K and V (and quantize K)
+//     once a block, or pass its codes through DSMEM, for a prologue that
+//     NC warps already share;
+//   - the pad keys' sums in closed form: pad (a, b) scores (q . pad_k +
+//     A[a] + B[b]) * scale over two rectangles (rows [R, WB) by every
+//     column, rows [0, R) by columns [C, WB)), so a region's largest score
+//     is its largest A plus its largest B and its sum of exp2(x - m)
+//     factors into sum_a exp2((A[a] - max A) sl2) * sum_b exp2((B[b] -
+//     max B) sl2): 28 exponentials a row, spread over the quad, in place
+//     of two passes over the 84 (edge) or 132 (corner) pads;
+//   - the pair and the corner stay two launches: their T differ (112, 64),
+//     so one launch would take a second set of pointers and tables; at B=1
+//     that is one launch of a few us a window block.
+//
 // Compiled with ULLAVA_MUTANT_WINDOW_NO_QUAD_MAX each thread normalises its
 // scores by its own partial row max instead of the quad's; with
 // ULLAVA_MUTANT_I8_TILE_SCALE the int8 forms dequantize every key of a
 // 16-key chunk with the chunk's first key's scale; with
 // ULLAVA_MUTANT_RECT_PAD_OUT_OF_SUM K14's pad scores enter the row max but
-// not the row sum. Deliberate bugs that only `chip_smoke.py` builds, to show
-// that the gates catch them.
+// not the row sum; K14's hd 64 schedule with ULLAVA_MUTANT_RECT_TILE_BIAS_ROWS
+// has each warp read the next warp's tile's bias rows, with
+// ULLAVA_MUTANT_RECT_PAD_SUM_NO_QUAD each thread's closed-form pad sums
+// left unreduced over the quad. Deliberate bugs that only `chip_smoke.py`
+// builds, to show that the gates catch them.
 #pragma once
 
 #include <type_traits>
@@ -805,6 +834,389 @@ __global__ void __launch_bounds__(kWwThreads, P::kBiasAfterScale ? 2 : ww_min_bl
       }
     }
   }
+}
+
+// K14 at hd 64 (ViT-L's and ViT-B's boundary windows, both score forms):
+// the B=1 schedule of the header's note. The smem layout: K and V (NK
+// rows each), the int8 K scales, the pad tables, then per warp its 16 Q
+// rows, its 2 x 16 raw bias rows and (I8) their codes.
+template <int HD, int WB, class G, bool I8>
+struct RsLayout {
+  static constexpr int RB = ww_row_bytes<HD>();
+  static constexpr int NK = G::NC * 16;
+  static constexpr int kKV = NK * RB;
+  static constexpr int kScales = I8 ? NK * 4 : 0;
+  static constexpr int kPad = 2 * HD * 2;
+  static constexpr int kBias = 2 * 16 * WB * 2;
+  static constexpr int kWarp = 16 * RB + kBias * (I8 ? 2 : 1);
+  static constexpr int kBytes = 2 * kKV + kScales + kPad + kWarp * G::NC;
+  static_assert(kBias % 16 == 0 && kScales % 16 == 0 && kPad % 16 == 0, "16-byte sections");
+};
+
+// One block per (window, head), one warp per 16-row query tile (G::NC of
+// them: 7 for the edges' 112 rows, 4 for the corner's 64).
+template <int HD, int WB, class P, class G, bool I8>
+__device__ __forceinline__ void rect_split_body(const P& p, unsigned char* smem_raw) {
+  using L = RsLayout<HD, WB, G, I8>;
+  constexpr int R = G::R, C = G::C, T = G::T, NC = G::NC, NK = L::NK, RB = L::RB;
+  constexpr int NW = NC, NT = NW * 32;
+  constexpr int KD = HD / 16;          // k-steps of the bf16 Q K^T
+  constexpr int KD8 = (HD + 31) / 32;  // k-steps of the int8 Q K^T
+  constexpr int ND = HD / 8;           // 8-wide column tiles of O
+  constexpr int CPR = HD / 8;          // 16-byte chunks of a row
+  constexpr int kPer = C / gcd_int(8, C);
+  constexpr int BW = WB / 2;
+  static_assert(P::kPadKeys && !P::kBiasRaw && ww_swizzled<HD>(), "K14's swizzled form");
+  static_assert(C >= 8 && C <= WB && R <= WB && WB <= 16, "a key's A index moves at most one row in 8 keys");
+  static_assert(!I8 || KD8 * 32 <= RB, "an int8 row fits in its bf16 row");
+  constexpr float kLog2e = 1.4426950408889634f;
+
+  unsigned char* sK = smem_raw;
+  unsigned char* sV = sK + L::kKV;
+  float* sKs = reinterpret_cast<float*>(sV + L::kKV);  // [NK] (I8)
+  bf16* sPad = reinterpret_cast<bf16*>(reinterpret_cast<unsigned char*>(sKs) + L::kScales);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  unsigned char* sQ = reinterpret_cast<unsigned char*>(sPad) + L::kPad + warp * L::kWarp;
+  const bf16* sRaw = reinterpret_cast<const bf16*>(sQ + 16 * RB);  // [2][16][WB] as stored
+  bf16* sCodes = reinterpret_cast<bf16*>(sQ + 16 * RB + L::kBias);  // [2][16][WB] (I8)
+
+  const int inst = blockIdx.x;
+  const int g = lane / 4, tq = lane % 4;
+  const int Sq = p.Sq;
+  const int s0 = warp * 16;
+#ifdef ULLAVA_MUTANT_RECT_TILE_BIAS_ROWS
+  const int sb = ((warp + 1) % NW) * 16;  // the next warp's tile's bias rows
+#else
+  const int sb = s0;
+#endif
+  const int row0 = s0 + g, row1 = row0 + 8;
+  const bf16* valid = p.q_row(inst, 0);
+
+  // Group 0: this warp's Q rows and raw bias rows, the block's K (T real
+  // rows, zero rows to NK) and the pad tables; group 1: V.
+  for (int i = lane; i < 16 * CPR; i += 32) {
+    const int r = i / CPR, c = i % CPR;
+    const bool live = s0 + r < Sq;
+    cp_async16(sQ + r * RB + c * 16, live ? p.q_row(inst, s0 + r) + c * 8 : valid, live);
+  }
+  for (int i = lane; i < 2 * 16 * BW; i += 32) {
+    const int term = i / (16 * BW), r = i / BW % 16, w = i % BW;
+    const bool live = sb + r < Sq;
+    cp_async4(const_cast<bf16*>(sRaw) + (term * 16 + r) * WB + 2 * w,
+              live ? p.bias_row(inst, sb + r, term) + 2 * w : valid, live);
+  }
+  for (int part = 0; part < 2; ++part) {
+    unsigned char* dst = part ? sV : sK;
+    for (int i = tid; i < NK * CPR; i += NT) {
+      const int r = i / CPR, c = i % CPR;
+      const bf16* src = r < T ? (part ? p.v_row(inst, r) : p.k_row(inst, r)) : nullptr;
+      cp_async16(dst + ww_offset<HD>(r, c), src != nullptr ? src + c * 8 : valid, src != nullptr);
+    }
+    if (part == 0 && tid < 2 * CPR) {
+      const bf16* src = tid < CPR ? p.pad_k_row(inst) : p.pad_v_row(inst);
+      cp_async16(sPad + tid * 8, src + (tid % CPR) * 8, true);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  const float sl2 = p.scale * kLog2e;  // scores in base-2 units
+
+  cp_async_wait<1>();
+  __syncthreads();
+  if constexpr (I8) {  // K's codes in place, one half row a thread
+    for (int i = tid; i < NK * 2; i += NT) {
+      const int r = i >> 1, hf = i & 1;
+      const float ks = ww_quantize_half_row<HD>(sK + r * RB, hf, r & 7);
+      if (hf == 0) sKs[r] = ks;
+    }
+  }
+
+  // q . pad_k of rows row0, row1 from the bf16 q (before Q's codes replace it).
+  float qpk[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const __nv_bfloat162* qr =
+        reinterpret_cast<const __nv_bfloat162*>(sQ + (g + 8 * r) * RB) + tq * (HD / 8);
+    const __nv_bfloat162* kr = reinterpret_cast<const __nv_bfloat162*>(sPad) + tq * (HD / 8);
+    float acc = 0.f;
+#pragma unroll
+    for (int d = 0; d < HD / 8; ++d) {
+      const float2 a = __bfloat1622float2(qr[d]), k = __bfloat1622float2(kr[d]);
+      acc = fmaf(a.x, k.x, acc);
+      acc = fmaf(a.y, k.y, acc);
+    }
+    qpk[r] = quad_sum(acc);
+  }
+
+  // Q fragments (I8: the rows' codes, quantized in place first) and the
+  // bias terms: raw pre-scaled bf16, or (I8) each row's [A | B] codes.
+  uint32_t qf[I8 ? 1 : KD][4];
+  uint32_t qf8[I8 ? KD8 : 1][4];
+  float qs[2] = {0.f, 0.f}, abss[2] = {0.f, 0.f};
+  const bf16* tab = sRaw;
+  if constexpr (I8) {
+    const int r = lane >> 1, hf = lane & 1;
+    const float sc = ww_quantize_half_row<HD>(sQ + r * RB, hf);
+    qs[0] = __shfl_sync(0xffffffffu, sc, 2 * g);
+    qs[1] = __shfl_sync(0xffffffffu, sc, 2 * g + 16);
+    const bf16* src = sRaw + (hf * 16 + r) * WB;
+    float v[WB];
+    float amax = 0.f;
+#pragma unroll
+    for (int j = 0; j < WB; ++j) {
+      v[j] = __bfloat162float(src[j]);
+      amax = fmaxf(amax, fabsf(v[j]));
+    }
+    amax = ww_row_amax(amax);
+    const float inv = __fdiv_rn(127.f, amax);
+#pragma unroll
+    for (int j = 0; j < WB; ++j)
+      sCodes[(hf * 16 + r) * WB + j] =
+          __float2bfloat16(static_cast<float>(__float2int_rn(__fmul_rn(v[j], inv))));
+    const float ab = __fmul_rn(amax, 1.f / 127.f);
+    abss[0] = __shfl_sync(0xffffffffu, ab, 2 * g);
+    abss[1] = __shfl_sync(0xffffffffu, ab, 2 * g + 16);
+    __syncthreads();  // K's codes and this warp's Q codes are written
+#pragma unroll
+    for (int kk = 0; kk < KD8; ++kk)
+      ldmatrix_x4(qf8[kk], reinterpret_cast<const bf16*>(sQ + (lane & 15) * RB + kk * 32 +
+                                                         (lane >> 4) * 16));
+    tab = sCodes;
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+      ldmatrix_x4(qf[kk], reinterpret_cast<const bf16*>(sQ + (lane & 15) * RB + kk * 32 +
+                                                        (lane >> 4) * 16));
+  }
+
+  float s[2 * NC][4];
+  if constexpr (I8) {
+    int si[2 * NC][4];
+#pragma unroll
+    for (int j = 0; j < 2 * NC; ++j) si[j][0] = si[j][1] = si[j][2] = si[j][3] = 0;
+#pragma unroll
+    for (int kk = 0; kk < KD8; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NC; ++np) {
+        uint32_t bq[4];
+        const int r = np * 16 + (lane & 7) + ((lane >> 4) << 3);
+        ldmatrix_x4(bq, reinterpret_cast<const bf16*>(
+                            sK + ww_offset<HD>(r, 2 * kk + ((lane >> 3) & 1))));
+        mma_s8(si[2 * np], qf8[kk], bq[0], bq[1]);
+        mma_s8(si[2 * np + 1], qf8[kk], bq[2], bq[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2 * NC; ++j) {
+#ifdef ULLAVA_MUTANT_I8_TILE_SCALE
+      const float2 ks = make_float2(sKs[16 * (j / 2)], sKs[16 * (j / 2)]);
+#else
+      const float2 ks = *reinterpret_cast<const float2*>(sKs + 8 * j + 2 * tq);
+#endif
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = __fmul_rn(static_cast<float>(si[j][e]),
+                            __fmul_rn(qs[e >> 1], (e & 1) ? ks.y : ks.x));
+    }
+  } else {
+    ww_qk_bf16<HD, NC>(s, qf, sK, lane);
+  }
+
+  // Bias, scale, key mask and each thread's partial row max (as the whole
+  // window core's body).
+  int c0;
+  asm volatile("mov.b32 %0, %1;\n" : "=r"(c0) : "r"(2 * tq));
+  float mx[2][4];
+  {
+    float at[2][R + 1], bt[2][kPer][2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bf16* ta = tab + (g + 8 * r) * WB;
+      const bf16* tb = tab + (16 + g + 8 * r) * WB;
+#pragma unroll
+      for (int a = 0; a < R; ++a) at[r][a] = __bfloat162float(ta[WB - 1 - a]);
+      at[r][R] = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < kPer; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) bt[r][jj][e] = __bfloat162float(tb[WB - 1 - (8 * jj + c0 + e) % C]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) mx[i / 4][i % 4] = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 2 * NC; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int c = c0 + (e & 1);
+        float x = -INFINITY;
+        if (8 * j < T) {
+          const int qj = (8 * j) / C, rj = (8 * j) % C;
+          const float bias = (rj + c >= C ? at[r][qj + 1] : at[r][qj]) + bt[r][j % kPer][e & 1];
+          if constexpr (I8)
+            x = __fadd_rn(s[j][e], __fmul_rn(bias, abss[r])) * sl2;
+          else
+            x = (s[j][e] + bias) * sl2;
+          if (8 * j + 7 >= T && 8 * j + c >= T) x = -INFINITY;
+        }
+        s[j][e] = x;
+        mx[r][(j % 2) * 2 + (e & 1)] = fmaxf(mx[r][(j % 2) * 2 + (e & 1)], x);
+      }
+    }
+  }
+
+  // The pad positions, summed in closed form. Pad (a, b) scores (q . pad_k
+  // + A[a] + B[b]) * scale over two rectangles: rows a in [R, WB) by every
+  // column (region 1), rows a < R by columns [C, WB) (region 2). Region k's
+  // largest score is (q . pad_k + max A + max B) * scale over its rows and
+  // columns (exactly: rounding is monotonic), and its sum of exp2(x - m)
+  // is exp2(max_k - m) * sum_a exp2((A[a] - max A) sl2) * sum_b exp2((B[b]
+  // - max B) sl2): 28 terms a row in place of its 84 to 132 pads. A thread
+  // takes a, b = tq + 4 i; the quad reduces.
+  float pmax[2][2], psum[2][2];  // [row][region]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bf16* ta = sRaw + (g + 8 * r) * WB;
+    const bf16* tb = sRaw + (16 + g + 8 * r) * WB;
+    float av[4], bv[4];
+    float a1 = -INFINITY, a2 = -INFINITY, b1 = -INFINITY, b2 = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = tq + 4 * i;
+      av[i] = k < WB ? __bfloat162float(ta[WB - 1 - k]) : -INFINITY;
+      bv[i] = k < WB ? __bfloat162float(tb[WB - 1 - k]) : -INFINITY;
+      if (k >= R) a1 = fmaxf(a1, av[i]); else a2 = fmaxf(a2, av[i]);
+      b1 = fmaxf(b1, bv[i]);
+      if (k >= C) b2 = fmaxf(b2, bv[i]);
+    }
+    a1 = quad_max(a1);
+    a2 = quad_max(a2);
+    b1 = quad_max(b1);
+    b2 = quad_max(b2);
+    pmax[r][0] = R < WB ? (qpk[r] + a1 + b1) * sl2 : -INFINITY;
+    pmax[r][1] = C < WB ? (qpk[r] + a2 + b2) * sl2 : -INFINITY;
+    float ea1 = 0.f, ea2 = 0.f, eb1 = 0.f, eb2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = tq + 4 * i;
+      if (k < WB) {
+        if (k >= R)
+          ea1 += exp2f((av[i] - a1) * sl2);
+        else
+          ea2 += exp2f((av[i] - a2) * sl2);
+        eb1 += exp2f((bv[i] - b1) * sl2);
+        if (k >= C) eb2 += exp2f((bv[i] - b2) * sl2);
+      }
+    }
+#ifdef ULLAVA_MUTANT_RECT_PAD_SUM_NO_QUAD
+    // each thread's own sums
+#else
+    ea1 = quad_sum(ea1);
+    ea2 = quad_sum(ea2);
+    eb1 = quad_sum(eb1);
+    eb2 = quad_sum(eb2);
+#endif
+    psum[r][0] = ea1 * eb1;
+    psum[r][1] = ea2 * eb2;
+  }
+
+  float m[2], l[2], pad[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mt = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+#ifdef ULLAVA_MUTANT_WINDOW_NO_QUAD_MAX
+    m[r] = fmaxf(mt, fmaxf(pmax[r][0], pmax[r][1]));
+#else
+    m[r] = fmaxf(quad_max(mt), fmaxf(pmax[r][0], pmax[r][1]));
+#endif
+    float sum = 0.f;  // exp2(s - m) replaces s
+#pragma unroll
+    for (int j = 0; j < 2 * NC; ++j) {
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e) {
+        s[j][e] = exp2f(s[j][e] - m[r]);
+        sum += s[j][e];
+      }
+    }
+    const float ps = exp2f(pmax[r][0] - m[r]) * psum[r][0] + exp2f(pmax[r][1] - m[r]) * psum[r][1];
+#ifdef ULLAVA_MUTANT_RECT_PAD_OUT_OF_SUM
+    l[r] = quad_sum(sum);
+#else
+    l[r] = quad_sum(sum) + ps;
+#endif
+    pad[r] = __fdiv_rn(ps, l[r]);  // the pad mass
+  }
+  uint32_t pa[NC][4];
+  ww_probs<NC>(s, l, pa);
+  cp_async_wait<0>();  // V has landed
+  __syncthreads();
+
+  float o[ND][4];
+  ww_pv<HD, NC, T>(o, pa, sV, lane);
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int d = n * 8 + tq * 2;
+    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sPad + HD + d));
+    o[n][0] = fmaf(pad[0], v.x, o[n][0]);
+    o[n][1] = fmaf(pad[0], v.y, o[n][1]);
+    o[n][2] = fmaf(pad[1], v.x, o[n][2]);
+    o[n][3] = fmaf(pad[1], v.y, o[n][3]);
+    if (row0 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(p.o_row(inst, row0) + d) =
+          __floats2bfloat162_rn(o[n][0], o[n][1]);
+    if (row1 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(p.o_row(inst, row1) + d) =
+          __floats2bfloat162_rn(o[n][2], o[n][3]);
+  }
+}
+
+// Two blocks an SM: the register limit that sets (the `dots_i8` edges
+// spill 8 bytes a thread) ran faster than one block an SM at 159 registers.
+template <int HD, int WB, class P, class G0, class G1, bool I8>
+__global__ void __launch_bounds__(G0::NC * 32, 2) rect_split_kernel(const P p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  static_assert(G0::NC == G1::NC, "both geometries of a launch share its layout");
+  if constexpr (std::is_same<G0, G1>::value) {
+    rect_split_body<HD, WB, P, G0, I8>(p, smem_raw);
+  } else {  // a dual-geometry launch: windows [0, n_first) take G0
+    if (static_cast<int>(blockIdx.x) / p.H < p.n_first)
+      rect_split_body<HD, WB, P, G0, I8>(p, smem_raw);
+    else
+      rect_split_body<HD, WB, P, G1, I8>(p, smem_raw);
+  }
+}
+
+template <int HD, int WB, class P, class G0, class G1, bool I8>
+int rect_split_configure() {
+  constexpr int smem = RsLayout<HD, WB, G0, I8>::kBytes;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(rect_split_kernel<HD, WB, P, G0, G1, I8>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  return 0;
+}
+
+// Launches one block of G0::NC warps per (window, head) on `stream`; Sq
+// must be the rectangle's T.
+template <int HD, int WB, class P, class G0, class G1, bool I8>
+int launch_rect_split(const P& p, int num_inst, cudaStream_t stream) {
+  if (const int err = rect_split_configure<HD, WB, P, G0, G1, I8>()) return err;
+  if (G1::T != G0::T || p.Sq != G0::T) return static_cast<int>(cudaErrorInvalidValue);
+  if (num_inst == 0) return 0;
+  rect_split_kernel<HD, WB, P, G0, G1, I8>
+      <<<num_inst, G0::NC * 32, RsLayout<HD, WB, G0, I8>::kBytes, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD, int WB, class P, class G0, class G1, bool I8>
+int rect_split_attrs(int* out) {
+  if (const int err = rect_split_configure<HD, WB, P, G0, G1, I8>()) return err;
+  return func_attrs(rect_split_kernel<HD, WB, P, G0, G1, I8>, G0::NC * 32,
+                    RsLayout<HD, WB, G0, I8>::kBytes, out);
 }
 
 template <int HD, int WB, class P, class G0, class G1, bool I8>

@@ -372,19 +372,29 @@ def fused_global_attention_y_plain(
     return out
 
 
+def _code_rows(head_dim: int):
+    """(width, dtype) of a q or k code row of the `dots_i8` pre-pass: 128
+    int8 bytes, zero past head_dim; at head_dim 64, 64 codes in bf16 (small
+    integers, exact), which the CUDA kernel multiplies on the bf16 tensor
+    cores."""
+    return (64, torch.bfloat16) if head_dim == 64 else (128, torch.int8)
+
+
 def global_y_quant_i8_plain(y, bias_a, bias_b, num_heads: int, head_dim: int):
     """Plain version of the `dots_i8` pre-pass of `fused_global_attention_y`:
     every q row, k row and row of bias terms [A | B] quantized to int8 once
     (`_row_quant`, the TPU kernel's `_rq_rows`). Returns the q and k codes
-    in 128-byte rows, zero past head_dim, [2, B, H, S, 128] int8 (q's then
-    k's); their scales [2, B, H, S] fp32; the [A | B] codes as y.dtype
-    (small integers, exact), A's and B's each [B, S, H, W] like the terms;
-    and the [A | B] rows' scales [B, H, S] fp32."""
+    in `_code_rows(head_dim)`'s rows, zero past head_dim, [2, B, H, S, 128]
+    int8 or [2, B, H, S, 64] bf16 (q's then k's); their scales [2, B, H, S]
+    fp32; the [A | B] codes as y.dtype (small integers, exact), A's and B's
+    each [B, S, H, W] like the terms; and the [A | B] rows' scales [B, H, S]
+    fp32."""
     B, S, _ = y.shape
     H, hd = num_heads, head_dim
     W = bias_a.shape[-1]
     y5 = y.reshape(B, S, 3, H, hd)
-    codes = torch.zeros((2, B, H, S, 128), dtype=torch.int8, device=y.device)
+    width, dtype = _code_rows(hd)
+    codes = torch.zeros((2, B, H, S, width), dtype=dtype, device=y.device)
     scales = torch.empty((2, B, H, S), dtype=torch.float32, device=y.device)
     for sec in range(2):
         c, sc = _row_quant(y5[:, :, sec].transpose(1, 2))  # [B, H, S, hd], [B, H, S, 1]
@@ -414,7 +424,8 @@ def global_y_quant_i8(y, bias_a, bias_b, num_heads: int, head_dim: int):
             f"the CUDA dots_i8 pre-pass is built for hd 80 or 64, W 64; got hd {hd}, S {S}")
     for name, t in (("y", y), ("bias_a", bias_a), ("bias_b", bias_b)):
         kernels.check_cuda_tensor(f"global_y {name}", t, torch.bfloat16)
-    codes = torch.empty((2, B, H, S, 128), dtype=torch.int8, device=y.device)
+    width, dtype = _code_rows(hd)
+    codes = torch.empty((2, B, H, S, width), dtype=dtype, device=y.device)
     scales = torch.empty((2, B, H, S), dtype=torch.float32, device=y.device)
     ac, bc = torch.empty_like(bias_a), torch.empty_like(bias_b)
     abss = torch.empty((B, H, S), dtype=torch.float32, device=y.device)
