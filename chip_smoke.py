@@ -245,13 +245,23 @@ def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
+# Cycles of the device's sleep before each timed call: about 0.1 ms, longer
+# than a wrapper's host time, so that the start event, the call and the end
+# event are all queued when the device reaches them.
+QUEUE_AHEAD_CYCLES = 200_000
+
+
 def time_ms(fn, iters: int, warmup: int = 2, read_flush: bool = False) -> float:
     """Mean device time of `fn` over `iters` calls, each timed alone with
     CUDA events after a 256 MB write that evicts the 50 MB L2, so that
     its inputs come from HBM as on the main path. The write leaves the L2
     full of dirty lines, whose write-back then shares HBM with the timed
     call; `read_flush` evicts by a 256 MB read instead, which leaves clean
-    lines (what a decode step's kernels find after its weight reads)."""
+    lines (what a decode step's kernels find after its weight reads).
+    The device sleeps between the eviction and the start event
+    (`QUEUE_AHEAD_CYCLES`), so that a call whose wrapper takes longer on
+    the host than the eviction on the device is timed without the host's
+    share: the time is the device's alone."""
     import torch
 
     for _ in range(warmup):
@@ -264,6 +274,7 @@ def time_ms(fn, iters: int, warmup: int = 2, read_flush: bool = False) -> float:
             flush.amax()
         else:
             flush.zero_()
+        torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
         start.record()
         fn()
         end.record()
@@ -2885,6 +2896,13 @@ PACKED_MUTANTS = {
     "kv_lens_ignored": ("decode_attention_int8.cu", "ULLAVA_MUTANT_DECODE_NO_KV_LENS"),
     "peer_l_dropped": ("decode_attention_int8.cu", "ULLAVA_MUTANT_DECODE_PEER_L_DROPPED"),
 }
+# The deliberate bugs of K19 on its real lanes: the output's pad lanes left
+# as the allocator handed them over (gated on an output block that was just
+# filled with NaN, `_after_nan_fill`), k read from lane 128 - hd / 2 of its
+# block, across the 128-lane boundary.
+PACKED_LANE_MUTANTS = {
+    "pad_lanes_unwritten": ("sam_packed_attention.cu", "ULLAVA_MUTANT_PACKED_PAD_LANES_UNWRITTEN"),
+    "k_across_lane_block": ("sam_packed_attention.cu", "ULLAVA_MUTANT_PACKED_K_ACROSS_BLOCK")}
 K22_ATTRS = ("decode_attention_int8.cu", "ullava_decode_attention_int8_attrs")
 PACKED_NAMES = ("fused_window_attention_packed", "fused_global_attention_packed")
 # Kernels that no path of either package calls: each line reports its
@@ -2893,18 +2911,63 @@ UNCALLED_NAMES = ("fused_window_attention", "decode_attention_int8")
 SAM_HP = 128  # the packed layout's lanes a head
 
 
-def packed_sdpa_inputs(y, a, bb, H, hp):
+def packed_sdpa_inputs(y, a, bb, H, hp, hd=None):
     """The library yardstick of the packed kernels: head-major q, k, v over
-    the same padded lanes and the raw bias terms materialised as a
-    [N, H, S, S] bf16 mask, added after the scale as the kernels do."""
+    the same padded lanes (the first `hd` of each block where given: the
+    real ones) and the raw bias terms materialised as a [N, H, S, S] bf16
+    mask, added after the scale as the kernels do."""
     import torch
 
     N, S, _ = y.shape
     W = a.shape[-1]
-    y5 = y.reshape(N, S, 3, H, hp).permute(2, 0, 3, 1, 4).contiguous()
+    y5 = y.reshape(N, S, 3, H, hp)[..., :hd or hp].permute(2, 0, 3, 1, 4).contiguous()
     t = torch.arange(S, device=y.device)
     mask = (a.float()[..., t // W] + bb.float()[..., t % W]).to(torch.bfloat16)
     return y5, mask
+
+
+def _after_nan_fill(run, shape):
+    """`run()` right after a bf16 block of `shape` was filled with NaN and
+    freed, so that the caching allocator hands that block to the kernel's
+    output (checked): lanes a kernel leaves unwritten read NaN."""
+    import torch
+
+    junk = torch.full(shape, float("nan"), dtype=torch.bfloat16, device="cuda")
+    ptr = junk.data_ptr()
+    del junk
+    out = run()
+    must("after_nan_fill", out.data_ptr() == ptr, "the output took another block")
+    return out
+
+
+def packed_window_line(name, run, plain, y, a, bb, got, ref, info, H, hd, hp, iters):
+    """K19's timed line: its bound over the bytes it moves (the real lanes
+    of q, k and v, the bias terms, the whole output, pad lanes written)
+    beside the old bound over all 128 lanes; SDPA + mask over the real
+    lanes (`library_ms`) and over the 128 (`library_ms_128_lanes`)."""
+    import torch.nn.functional as F
+
+    from ullava_tpu_torch import kernels
+
+    N, S, _ = y.shape
+    sc = hd**-0.5
+    flops = 4.0 * N * H * S * S * hd
+    io = nbytes(y) * hd // hp + nbytes(a, bb, got)
+    y5, mask = packed_sdpa_inputs(y, a, bb, H, hp, hd)
+    line = kernel_line(
+        name, (got.float() - ref.float()).abs().max().item(), info, run, plain,
+        lambda: F.scaled_dot_product_attention(y5[0], y5[1], y5[2], attn_mask=mask, scale=sc),
+        io, flops, iters=iters)
+    del y5
+    y5, mask = packed_sdpa_inputs(y, a, bb, H, hp)
+    line["library_ms_128_lanes"] = time_ms(
+        lambda: F.scaled_dot_product_attention(y5[0], y5[1], y5[2], attn_mask=mask, scale=sc),
+        iters)
+    line["bound_ms_128_lanes"] = bound_ms(nbytes(y, a, bb, got), flops * hp / hd)[0]
+    line.update(shape=[N, S, 3 * H * hp], heads=H, head_dim=hd,
+                tflops_real_lanes=flops / line["ms"] / 1e9,
+                kernel=kernels.kernel_attrs(*WINDOW_ATTRS["packed"], hd))
+    return line
 
 
 def packed_kernel_phases(gen, results: dict) -> None:
@@ -2921,14 +2984,17 @@ def packed_kernel_phases(gen, results: dict) -> None:
     their TPU kernels and the plain versions do (K19 and K21 on
     `window_whole.cuh`). Each gate must reject the source rebuilt with a
     deliberate bug (`PACKED_MUTANTS`; the global form's A term of a
-    128-key tile's first grid row for both halves too) and a mutated
-    input (bias terms swapped; for the decode kernel the key and value
-    scales swapped). The packed global kernel's line gives the global
-    core's SASS counts. Bounds: the packed kernels' products over all 128
-    lanes (the function contracts them; the 80 real lanes' bound is
-    reported beside), the window kernel's and the decode kernel's bytes.
-    The library yardsticks: SDPA with the bias as a materialised bf16
-    mask; the decode kernel has none."""
+    128-key tile's first grid row for both halves too; K19's
+    `PACKED_LANE_MUTANTS`, run on an output block just filled with NaN)
+    and a mutated input (bias terms swapped; for the decode kernel the key
+    and value scales swapped). The packed global kernel's line gives the
+    global core's SASS counts. Bounds: K19 the bytes it moves over the 80
+    real lanes it contracts (`packed_window_line`, the 128-lane bound
+    beside), K20 its products over all 128 lanes (the function contracts
+    them; the 80 real lanes' bound is reported beside), the window
+    kernel's and the decode kernel's bytes. The library yardsticks: SDPA
+    with the bias as a materialised bf16 mask (K19's over the real lanes,
+    the 128 beside); the decode kernel has none."""
     import torch
     import torch.nn.functional as F
 
@@ -2953,49 +3019,56 @@ def packed_kernel_phases(gen, results: dict) -> None:
     def mutated(run, *bugs):
         out = {}
         for bug in bugs:
-            with kernels.mutant(*PACKED_MUTANTS[bug]):
+            with kernels.mutant(*{**PACKED_MUTANTS, **PACKED_LANE_MUTANTS}[bug]):
                 out[bug] = run()
         torch.cuda.synchronize()
         return out
 
     # K19 and K20: a packed y with zero pad lanes, raw bias terms of the
-    # encoder's size (q . rel_pos with an unscaled q: a few units).
+    # encoder's size (q . rel_pos with an unscaled q: a few units). K19
+    # contracts the real lanes (`head_dim`); its gated runs write into a
+    # block just filled with NaN, so that pad lanes left unwritten show.
     for name, N, Wn, iters in (("fused_window_attention_packed", B * 25, W, 20),
                                ("fused_global_attention_packed", B, 64, 5)):
         S = Wn * Wn
+        window = name == "fused_window_attention_packed"
+        lanes = {"head_dim": hd} if window else {}
         y = torch.zeros((N, S, 3, H, hp), dtype=bf, device=dev)
         y[..., :hd] = randn(N, S, 3, H, hd)
         y = y.reshape(N, S, 3 * H * hp)
         a, bb = (randn(N, H, S, Wn, scale=2.0) for _ in range(2))
         fn = getattr(sam_attention, name)
         plain_fn = getattr(sam_attention, f"{name}_plain")
-        run = lambda a_=a, b_=bb, y=y, fn=fn, Wn=Wn: fn(y, a_, b_, H, hp, Wn, sc)  # noqa: E731
-        plain = lambda y=y, a=a, bb=bb, f=plain_fn, Wn=Wn: f(y, a, bb, H, hp, Wn, sc)  # noqa: E731
-        got, ref = run(), plain()
+        run = lambda a_=a, b_=bb, y=y, fn=fn, Wn=Wn, kw=lanes: fn(  # noqa: E731
+            y, a_, b_, H, hp, Wn, sc, **kw)
+        plain = lambda y=y, a=a, bb=bb, f=plain_fn, Wn=Wn, kw=lanes: f(  # noqa: E731
+            y, a, bb, H, hp, Wn, sc, **kw)
+        gated = (lambda run=run, shape=(N, S, H * hp): _after_nan_fill(run, shape)) if window else run
+        got, ref = gated(), plain()
         bugs = ("bias_read_prescaled", "k_one_head_over") + (
-            ("quad_max_dropped",) if name == "fused_window_attention_packed" else
-            ("a_term_one_grid_row",))
-        info = gate(name, got, ref, {**mutated(run, *bugs), "bias_swapped": run(bb, a)})
+            ("quad_max_dropped", *PACKED_LANE_MUTANTS) if window else ("a_term_one_grid_row",))
+        info = gate(name, got, ref, {**mutated(gated, *bugs), "bias_swapped": run(bb, a)})
         info["pad_lanes_zero"] = bool(torch.all(got.reshape(N, S, H, hp)[..., hd:] == 0))
         must(name, info["pad_lanes_zero"], "pad lanes of the output are not zero")
-        y5, mask = packed_sdpa_inputs(y, a, bb, H, hp)
-        flops = 4.0 * N * H * S * S * hp
-        io = nbytes(y, a, bb, got)
-        line = kernel_line(
-            name, (got.float() - ref.float()).abs().max().item(), info, run, plain,
-            lambda y5=y5, m=mask: F.scaled_dot_product_attention(y5[0], y5[1], y5[2],
-                                                                 attn_mask=m, scale=sc),
-            io, flops, iters=iters)
-        line["bound_ms_real_lanes"] = bound_ms(io, flops * hd / hp)[0]
-        line["shape"] = [N, S, 3 * H * hp]
-        line["tflops_128_lanes"] = flops / line["ms"] / 1e9
-        if name == "fused_window_attention_packed":
+        if window:
+            line = packed_window_line(name, run, plain, y, a, bb, got, ref, info, H, hd, hp, iters)
             line["sass"] = sass_counts("sam_packed_attention.cu", "window_whole_kernel")
-            line["kernel"] = kernels.kernel_attrs(*WINDOW_ATTRS["packed"])
         else:
+            y5, mask = packed_sdpa_inputs(y, a, bb, H, hp)
+            flops = 4.0 * N * H * S * S * hp
+            io = nbytes(y, a, bb, got)
+            line = kernel_line(
+                name, (got.float() - ref.float()).abs().max().item(), info, run, plain,
+                lambda y5=y5, m=mask: F.scaled_dot_product_attention(y5[0], y5[1], y5[2],
+                                                                     attn_mask=m, scale=sc),
+                io, flops, iters=iters)
+            line["bound_ms_real_lanes"] = bound_ms(io, flops * hd / hp)[0]
+            line["shape"] = [N, S, 3 * H * hp]
+            line["tflops_128_lanes"] = flops / line["ms"] / 1e9
             line["sass"] = global_core_sass("sam_packed_attention.cu")
+            del y5, mask
         results[name] = line
-        del y, a, bb, got, ref, y5, mask
+        del y, a, bb, got, ref
         torch.cuda.empty_cache()
 
     results["fused_window_attention"] = k21_line(gen, gate, mutated)
@@ -5762,8 +5835,8 @@ def sam_hd64_kernel_gates(gen, results: dict, forms: dict) -> dict:
     the pair and the corner, K10's proj form on the same rows and its LN1 +
     qkv form and K12 on a global block's 4096 rows (`sam_w8a8_width_gates`,
     timed into `forms`). Adds the four hd 64 forms' lines (timed at ViT-L
-    bf16's shapes; K11 at the int8 path's) to `results`; returns the gate
-    readings."""
+    bf16's shapes, K3 also at ViT-B's, `vit_b_form`; K11 at the int8
+    path's) to `results`; returns the gate readings."""
     import torch
     import torch.nn.functional as F
 
@@ -5779,7 +5852,7 @@ def sam_hd64_kernel_gates(gen, results: dict, forms: dict) -> dict:
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
 
-    quad = {"quad_max_dropped": QUAD_MAX_MUTANTS["sam_window_attention.cu"]}
+    win_bugs = {"quad_max_dropped": QUAD_MAX_MUTANTS["sam_window_attention.cu"]}
     rect_bugs = {"pad_out_of_sum": RECT_PAD_MUTANT,
                  "quad_max_dropped": QUAD_MAX_MUTANTS["sam_rect_attention.cu"],
                  **RECT_HD64_MUTANTS}
@@ -5794,9 +5867,9 @@ def sam_hd64_kernel_gates(gen, results: dict, forms: dict) -> dict:
                 y, a, bb, **kw, total_rows=0 if r == 196 else r)
             ref = sam_attention.fused_window_attention_grid_plain(y, a, bb, H, hd, W, sc)
             gate(f"{size} fused_window_attention_grid_hd64 16 x {rows}",
-                 lambda run=run: run()[:, :196], ref[:, :196], quad)
+                 lambda run=run: run()[:, :196], ref[:, :196], win_bugs)
             must(f"{size} K3 hd64 pad rows finite", bool(torch.isfinite(run()).all()), rows)
-            if size == "vit_l" and rows == 196:
+            if rows == 196:  # ViT-L's line, ViT-B's timed beside it
                 lib = window_sdpa_inputs(y, a, bb, y, torch.ones(196, dtype=torch.bool, device=dev),
                                          (C, H, hd, W))
                 got = run()
@@ -5809,7 +5882,12 @@ def sam_hd64_kernel_gates(gen, results: dict, forms: dict) -> dict:
                     lambda l=lib: window_sdpa(*l), nbytes(y, a, bb, got), 4.0 * 16 * H * 196 * 196 * hd)
                 line.update(shape=[16, 196, 3 * C], kernel=kernels.kernel_attrs(
                     "sam_window_attention.cu", "ullava_window_attention_grid_hd64_attrs", 0))
-                results["fused_window_attention_grid_hd64"] = line
+                if size == "vit_l":
+                    results["fused_window_attention_grid_hd64"] = line
+                else:
+                    results["fused_window_attention_grid_hd64"]["vit_b_form"] = {
+                        k: v for k, v in line.items()
+                        if k not in ("name", "route", "source", "replaces")}
                 del lib, got
             del y, a, bb, ref
         qkv_bias = randn(3 * C, scale=0.5)
@@ -6015,7 +6093,9 @@ def sam_hd64_i8_kernel_gates(gen, results: dict, forms: dict) -> dict:
     windows of 196 and of 200 rows, K14's on the merged edge pair, the
     corner and each edge alone, K11's pre-pass and its `dots_i8` form in both exponential
     forms, K11's bf16-score form at 12 heads, K19 on the 25 padded windows
-    and K20 on the global grid at hp 128 over 64 real lanes; the W8A8 K10,
+    over its 64 real lanes (`head_dim`; its gated runs on an output block
+    just filled with NaN, with `PACKED_LANE_MUTANTS`) and K20 on the global
+    grid at hp 128 over 64 real lanes; the W8A8 K10,
     K12, K13 at ViT-B's widths (`sam_w8a8_width_gates`: C 768, F 3072, K13's
     648 bias-term columns). Adds the four new kernels' lines to `results`
     (timed at both sizes) and the other forms' timed lines to `forms`
@@ -6040,8 +6120,8 @@ def sam_hd64_i8_kernel_gates(gen, results: dict, forms: dict) -> dict:
     def form_of(line):
         return {k: v for k, v in line.items() if k not in ("name", "route", "source", "replaces")}
 
-    quad = {"quad_max_dropped": QUAD_MAX_MUTANTS["sam_window_attention.cu"]}
-    win_bugs = {"one_key_scale_a_tile": I8_MUTANTS["sam_window_attention.cu"], **quad}
+    win_bugs = {"one_key_scale_a_tile": I8_MUTANTS["sam_window_attention.cu"],
+                "quad_max_dropped": QUAD_MAX_MUTANTS["sam_window_attention.cu"]}
     rect_bugs = {"one_key_scale_a_tile": I8_MUTANTS["sam_rect_attention.cu"],
                  "pad_out_of_sum": RECT_PAD_MUTANT,
                  "quad_max_dropped": QUAD_MAX_MUTANTS["sam_rect_attention.cu"],
@@ -6175,36 +6255,50 @@ def sam_hd64_i8_kernel_gates(gen, results: dict, forms: dict) -> dict:
         del y, a, bb, y5, mask
 
         # K19 and K20 at hp 128 over 64 real lanes, the pad lanes zero as
-        # `pack_sam_attention` makes them.
+        # `pack_sam_attention` makes them; K19 contracts the 64 (`head_dim`)
+        # on the B=1 schedule, its gated runs on a block just filled with NaN.
         for name, N, Wn in (("fused_window_attention_packed", 25, W),
                             ("fused_global_attention_packed", 1, G)):
             Sn = Wn * Wn
+            window = Wn == W
+            lanes = {"head_dim": hd} if window else {}
             y = torch.zeros((N, Sn, 3, H, SAM_HP), dtype=bf, device=dev)
             y[..., :hd] = randn(N, Sn, 3, H, hd)
             y = y.reshape(N, Sn, 3 * H * SAM_HP)
             a, bb = (randn(N, H, Sn, Wn, scale=2.0) for _ in range(2))
             fn, plain_fn = getattr(sam_attention, name), getattr(sam_attention, f"{name}_plain")
-            run = lambda a_=a, b_=bb, y=y, fn=fn, Wn=Wn: fn(y, a_, b_, H, SAM_HP, Wn, sc)  # noqa: E731
-            plain = lambda y=y, a=a, bb=bb, f=plain_fn, Wn=Wn: f(y, a, bb, H, SAM_HP, Wn, sc)  # noqa: E731
+            run = lambda a_=a, b_=bb, y=y, fn=fn, Wn=Wn, kw=lanes: fn(  # noqa: E731
+                y, a_, b_, H, SAM_HP, Wn, sc, **kw)
+            plain = lambda y=y, a=a, bb=bb, f=plain_fn, Wn=Wn, kw=lanes: f(  # noqa: E731
+                y, a, bb, H, SAM_HP, Wn, sc, **kw)
+            gated = ((lambda run=run, shape=(N, Sn, H * SAM_HP): _after_nan_fill(run, shape))
+                     if window else run)
             ref = plain()
             bugs = {b_: PACKED_MUTANTS[b_] for b_ in ("bias_read_prescaled", "k_one_head_over") + (
-                ("quad_max_dropped",) if Wn == W else ("a_term_one_grid_row",))}
-            info = gate(f"{size} {name} hd64", run, ref, bugs,
+                ("quad_max_dropped",) if window else ("a_term_one_grid_row",))}
+            if window:
+                bugs.update(PACKED_LANE_MUTANTS)
+            info = gate(f"{size} {name} hd64", gated, ref, bugs,
                         {"bias_swapped": lambda run=run, a=a, bb=bb: run(a_=bb, b_=a)})
-            got = run()
+            got = gated()
             info["pad_lanes_zero"] = bool(torch.all(got.reshape(N, Sn, H, SAM_HP)[..., hd:] == 0))
             must(f"{size} {name} hd64", info["pad_lanes_zero"], "pad lanes of the output are not zero")
-            y5, mask = packed_sdpa_inputs(y, a, bb, H, SAM_HP)
-            flops, io = 4.0 * N * H * Sn * Sn * SAM_HP, nbytes(y, a, bb, got)
-            line = kernel_line(
-                name, max_abs(got, ref), info, run, plain,
-                lambda y5=y5, m=mask: F.scaled_dot_product_attention(y5[0], y5[1], y5[2],
-                                                                     attn_mask=m, scale=sc),
-                io, flops, iters=10)
-            line.update(bound_ms_real_lanes=bound_ms(io, flops * hd / SAM_HP)[0],
-                        shape=[N, Sn, 3 * H * SAM_HP], heads=H, head_dim=hd)
+            if window:
+                line = packed_window_line(name, run, plain, y, a, bb, got, ref, info, H, hd,
+                                          SAM_HP, 10)
+            else:
+                y5, mask = packed_sdpa_inputs(y, a, bb, H, SAM_HP)
+                flops, io = 4.0 * N * H * Sn * Sn * SAM_HP, nbytes(y, a, bb, got)
+                line = kernel_line(
+                    name, max_abs(got, ref), info, run, plain,
+                    lambda y5=y5, m=mask: F.scaled_dot_product_attention(y5[0], y5[1], y5[2],
+                                                                         attn_mask=m, scale=sc),
+                    io, flops, iters=10)
+                line.update(bound_ms_real_lanes=bound_ms(io, flops * hd / SAM_HP)[0],
+                            shape=[N, Sn, 3 * H * SAM_HP], heads=H, head_dim=hd)
+                del y5, mask
             forms.setdefault(name, {})[f"hd64_{size}_form"] = form_of(line)
-            del y, a, bb, got, ref, y5, mask
+            del y, a, bb, got, ref
         torch.cuda.empty_cache()
 
     # The four new kernels' lines: ViT-L's form, ViT-B's beside it.
@@ -7175,7 +7269,8 @@ def main() -> int:
         *K1_MUTANTS.values(), *K7_MUTANTS.values(), *WQ_WIDEN_MUTANTS.values(),
         *WQ_EPILOGUE_MUTANTS.values(), WQ_DUAL_MUTANT, *K4_MUTANTS.values(),
         *K18_MUTANTS.values(), *RECT_HD64_MUTANTS.values(), *GLOBAL_Y_HD64_MUTANTS.values(),
-        *GLOBAL_Y_ONES_MUTANTS.values(), *GLOBAL_Y_QS_MUTANTS.values()])
+        *GLOBAL_Y_ONES_MUTANTS.values(), *GLOBAL_Y_QS_MUTANTS.values(),
+        *PACKED_LANE_MUTANTS.values()])
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "sources": sorted(built)}), flush=True)
     mark("build")

@@ -1,6 +1,8 @@
 """On the card: the CUDA kernels of the SAM packed attention layout and the
 two kernels no path calls, against their plain PyTorch versions in bf16:
-the packed window kernel (hp 128, W 14), the packed global kernel (hp 128,
+the packed window kernel (hp 128, W 14, over its 80 or 64 real lanes: the
+pad lanes of its output zero on a block just filled with NaN, its
+attributes, its deliberate bugs caught), the packed global kernel (hp 128,
 W 64), the per-(window, head) window kernel (hd 80, W 14; also at one
 ViT-H B=4 window block and against the grid window kernel on the same
 windows) and the decode attention over the int8 cache that writes nothing
@@ -48,12 +50,23 @@ def _row_rel_err(got, ref):
     return ((got - ref).abs().amax(-1) / ref.abs().amax(-1).clamp_min(1e-30)).max().item()
 
 
-def _packed_y(gen, N, W):
-    """A packed qkv projection output: 80 real lanes of each 128, the pad
+def _packed_y(gen, N, W, H=_H, hd=_HD):
+    """A packed qkv projection output: hd real lanes of each 128, the pad
     lanes zero as `pack_sam_attention`'s weights make them."""
-    y = torch.zeros((N, W * W, 3, _H, _HP), dtype=torch.bfloat16, device="cuda")
-    y[..., :_HD] = _rand(gen, N, W * W, 3, _H, _HD)
-    return y.reshape(N, W * W, 3 * _H * _HP)
+    y = torch.zeros((N, W * W, 3, H, _HP), dtype=torch.bfloat16, device="cuda")
+    y[..., :hd] = _rand(gen, N, W * W, 3, H, hd)
+    return y.reshape(N, W * W, 3 * H * _HP)
+
+
+def _after_nan_fill(run, shape):
+    """`run()` on an output block the caching allocator hands back right
+    after it was filled with NaN (asserted)."""
+    junk = torch.full(shape, float("nan"), dtype=torch.bfloat16, device="cuda")
+    ptr = junk.data_ptr()
+    del junk
+    out = run()
+    assert out.data_ptr() == ptr
+    return out
 
 
 @pytest.mark.cuda
@@ -63,6 +76,8 @@ def test_cuda_packed_attention_matches_plain(cuda, W, N):
     y = _packed_y(cuda, N, W)
     a, b = (_rand(cuda, N, _H, W * W, W, scale=2.0) for _ in range(2))
     kw = dict(num_heads=_H, head_pad=_HP, window=W, scale=_HD**-0.5)
+    if W == 14:  # the window kernel over its real lanes
+        kw["head_dim"] = _HD
     fn, plain = ((sam_attention.fused_window_attention_packed,
                   sam_attention.fused_window_attention_packed_plain) if W == 14 else
                  (sam_attention.fused_global_attention_packed,
@@ -76,6 +91,68 @@ def test_cuda_packed_attention_matches_plain(cuda, W, N):
     assert _row_rel_err(got, ref) <= _TOL
     assert torch.all(got.reshape(N, W * W, _H, _HP)[..., _HD:] == 0)
     assert _row_rel_err(fn(y, b, a, **kw), ref) > _TOL  # the bias terms count
+
+
+_PACKED_SRC = "sam_packed_attention.cu"
+# K19's deliberate bugs: its real lanes' two and the window core's.
+_PACKED_BUGS = ["ULLAVA_MUTANT_PACKED_PAD_LANES_UNWRITTEN", "ULLAVA_MUTANT_PACKED_K_ACROSS_BLOCK",
+                "ULLAVA_MUTANT_PACKED_BIAS_PRESCALED", "ULLAVA_MUTANT_PACKED_HEAD_OFFSET",
+                "ULLAVA_MUTANT_WINDOW_NO_QUAD_MAX"]
+
+
+def _packed_window_case(gen, N, H, hd):
+    y = _packed_y(gen, N, 14, H, hd)
+    a, b = (_rand(gen, N, H, 196, 14, scale=2.0) for _ in range(2))
+    run = lambda: sam_attention.fused_window_attention_packed(  # noqa: E731
+        y, a, b, H, _HP, 14, hd**-0.5, head_dim=hd)
+    ref = sam_attention.fused_window_attention_packed_plain(y, a, b, H, _HP, 14, hd**-0.5,
+                                                            head_dim=hd)
+    return run, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,hd,N", [(16, 64, 25), (12, 64, 25), (16, 64, 3), (12, 64, 1),
+                                    (16, 80, 100), (16, 80, 7)],
+                         ids=["vit_l", "vit_b", "vit_l_n3", "vit_b_n1", "vit_h_b4", "vit_h_n7"])
+def test_cuda_packed_window_real_lanes_matches_plain(cuda, H, hd, N):
+    """K19 over its real lanes against its plain version (which equals the
+    all-lanes one on these zero pad lanes), into an output block just
+    filled with NaN: the pad lanes come out exactly zero."""
+    run, ref = _packed_window_case(cuda, N, H, hd)
+    got = _after_nan_fill(run, (N, 196, H * _HP))
+    torch.cuda.synchronize()
+    assert _row_rel_err(got, ref) <= _TOL
+    assert torch.all(got.reshape(N, 196, H, _HP)[..., hd:] == 0)
+
+
+@pytest.mark.cuda
+def test_cuda_packed_window_refuses_other_head_dims(cuda):
+    y = _packed_y(cuda, 1, 14)
+    a, b = (_rand(cuda, 1, _H, 196, 14) for _ in range(2))
+    for hd in (128, 96, 32):  # no instance: refused, never the plain version
+        with pytest.raises(ValueError, match="head_dim"):
+            sam_attention.fused_window_attention_packed(y, a, b, _H, _HP, 14, 0.1, head_dim=hd)
+    with pytest.raises(ValueError, match="head_dim"):
+        sam_attention.fused_window_attention_packed(y, a, b, _H, _HP, 14, 0.1)
+
+
+@pytest.mark.cuda
+def test_cuda_packed_window_attrs(cuda):
+    """K3's 4-warp schedule at both head widths: two blocks an SM, spills
+    no more than the old 128-lane kernel's 24 bytes."""
+    for hd in (64, 80):
+        attrs = kernels.kernel_attrs(_PACKED_SRC, "ullava_window_attention_packed_attrs", hd)
+        assert attrs["blocks_per_sm"] >= 2 and attrs["spill_bytes"] <= 24, (hd, attrs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("define", _PACKED_BUGS)
+@pytest.mark.parametrize("hd", [64, 80], ids=["hd64", "hd80"])
+def test_cuda_packed_window_mutants_caught(cuda, hd, define):
+    run, ref = _packed_window_case(cuda, 25 if hd == 64 else 100, 16, hd)
+    with kernels.mutant(_PACKED_SRC, define):
+        got = _after_nan_fill(run, tuple(ref.shape))
+    assert not _row_rel_err(got, ref) <= _TOL
 
 
 @pytest.mark.cuda

@@ -1,4 +1,6 @@
-"""On the card: the B=1 schedules of the hd 64 forms of K14 (the
+"""On the card: the hd 64 forms of K3 (the grid window kernel, both
+score forms at 196 and 200 rows a window, its probabilities by
+ex2.approx and one multiply), and the B=1 schedules of K14 (the
 boundary-window kernel: one warp a 16-row query tile, the pad keys' sums
 in closed form) and K11 (the lane-sliced global kernel: the scores in q.k
 units with one fma a score, the bf16 exponentials' row sums by the ones
@@ -127,6 +129,63 @@ def test_cuda_global_y_quant_i8_hd64_bf16_codes(cuda, H):
     assert got[0].shape == (2, 2, H, S, _HD) and got[0].dtype == torch.bfloat16
     ref = sam_attention.global_y_quant_i8_plain(y, a, bb, H, _HD)
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [16, 32, 17, 1], ids=["one_image", "two_images", "odd_17", "one"])
+@pytest.mark.parametrize("rows", [196, 200])
+@pytest.mark.parametrize("dots_i8", [False, True], ids=["bf16_scores", "dots_i8"])
+@pytest.mark.parametrize("H", [16, 12], ids=["vit_l", "vit_b"])
+def test_cuda_grid_hd64_b1_matches_plain(cuda, H, dots_i8, rows, N):
+    """N windows of `rows` (200: the resident layout's pad rows, zero bias
+    terms as `_assemble_bias_terms` makes them; finite, dropped by the
+    caller) against the plain version over the 196 real rows."""
+    y, a, bb = _grid_case(cuda, H, N, rows)
+    name = "fused_window_attention_grid" + ("_i8" if dots_i8 else "") + "_hd64"
+    before = kernels.launch_counts()[name]
+    got = _grid(H, dots_i8, y, a, bb)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 1
+    ref = sam_attention.fused_window_attention_grid_plain(y, a, bb, H, _HD, _W, _SC, dots_i8)
+    assert _row_rel_err(got[:, :196], ref[:, :196]) <= 1e-2
+    assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.cuda
+def test_cuda_grid_hd64_b1_attrs(cuda):
+    """4 warps a (window, head), two blocks an SM, at most 8 bytes spilled
+    a thread."""
+    for i8 in (0, 1):
+        attrs = kernels.kernel_attrs("sam_window_attention.cu",
+                                     "ullava_window_attention_grid_hd64_attrs", i8)
+        assert attrs["blocks_per_sm"] >= 2 and attrs["spill_bytes"] <= 8, attrs
+
+
+def _grid_case(gen, H, N, rows):
+    y = _rand(gen, N, rows, 3 * H * _HD)
+    a, bb = (_rand(gen, N, rows, H * _W, scale=2.0 / _SC) for _ in range(2))
+    a[:, 196:], bb[:, 196:] = 0, 0
+    return y, a, bb
+
+
+def _grid(H, dots_i8, y, a, bb):
+    rows = y.shape[1]
+    return sam_attention.fused_window_attention_grid(
+        y, a, bb, H, _HD, _W, _SC, total_rows=0 if rows == 196 else rows, dots_i8=dots_i8)
+
+
+_GRID_BUGS = ["ULLAVA_MUTANT_WINDOW_NO_QUAD_MAX", "ULLAVA_MUTANT_I8_TILE_SCALE"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dots_i8,define", [(False, _GRID_BUGS[0])] +
+                         [(True, d) for d in _GRID_BUGS])
+def test_cuda_grid_hd64_b1_mutants_caught(cuda, dots_i8, define):
+    y, a, bb = _grid_case(cuda, 16, 16, 200 if dots_i8 else 196)
+    ref = sam_attention.fused_window_attention_grid_plain(y, a, bb, 16, _HD, _W, _SC, dots_i8)
+    with kernels.mutant("sam_window_attention.cu", define):
+        got = _grid(16, dots_i8, y, a, bb)
+    assert _row_rel_err(got[:, :196], ref[:, :196]) > 1e-2
 
 
 _RECT_BUGS = ["ULLAVA_MUTANT_RECT_TILE_BIAS_ROWS", "ULLAVA_MUTANT_RECT_PAD_SUM_NO_QUAD"]

@@ -152,13 +152,16 @@ def test_cuda_global_y_quant_i8_hd64_bit_equal_to_plain(cuda, H):
                          ids=["window", "global"])
 def test_cuda_packed_hd64_matches_plain(cuda, H, name, N, Wn):
     """K19 and K20 at hp 128 over ViT-L's and ViT-B's 64 real lanes (pad
-    lanes zero as the packed weights make them), the scale from hd 64."""
+    lanes zero as the packed weights make them), the scale from hd 64;
+    K19 told its real lanes (`head_dim`), against the plain version over
+    all 128."""
     hp, S = 128, Wn * Wn
     y = torch.zeros((N, S, 3, H, hp), dtype=torch.bfloat16, device="cuda")
     y[..., :_HD] = _rand(cuda, N, S, 3, H, _HD)
     y = y.reshape(N, S, 3 * H * hp)
     a, bb = (_rand(cuda, N, H, S, Wn, scale=2.0) for _ in range(2))
-    got = _launched(name, lambda: getattr(sam_attention, name)(y, a, bb, H, hp, Wn, _SC))
+    lanes = {"head_dim": _HD} if name == "fused_window_attention_packed" else {}
+    got = _launched(name, lambda: getattr(sam_attention, name)(y, a, bb, H, hp, Wn, _SC, **lanes))
     ref = getattr(sam_attention, f"{name}_plain")(y, a, bb, H, hp, Wn, _SC)
     assert _row_rel_err(got, ref) <= _TOL
     assert torch.all(got.reshape(N, S, H, hp)[..., _HD:] == 0)

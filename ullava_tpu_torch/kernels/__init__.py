@@ -209,7 +209,7 @@ KERNELS: Dict[str, KernelSpec] = {
         # window kernel and the decode attention that does not write.
         KernelSpec(
             "fused_window_attention_packed", "sam_packed_attention.cu",
-            "ullava_fused_window_attention_packed", (P, P, P, P, I, I, F, P),
+            "ullava_fused_window_attention_packed", (P, P, P, P, I, I, I, F, P),
             "ullava_tpu/ops/sam_attention.py:826",
         ),
         KernelSpec(

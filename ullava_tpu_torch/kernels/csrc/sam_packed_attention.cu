@@ -11,54 +11,66 @@
 // fused_global_attention_packed (kernel _packed_global_kernel :867).
 //
 // Bound on the card, at a ViT-H encode at B=4 (H = 16, hp = 128):
-//   - a window block (N = 100 windows, S = 196) reads y (241 MB) and the
-//     two bias tensors (17.6 MB) and writes 80 MB: ~0.10 ms of HBM time,
-//     against 31.5 GFLOP of products over the 128 lanes (~0.03 ms): bytes
-//     bound it;
+//   - a window block (N = 100 windows, S = 196) reads the 80 real lanes of
+//     q, k and v (151 MB of y's 241) and the two bias tensors (17.6 MB)
+//     and writes 80 MB (pad lanes included): ~0.074 ms of HBM time, against
+//     19.7 GFLOP of products over the real lanes (~0.02 ms): bytes bound it;
 //   - a global block (B = 4, S = 4096) does 550 GFLOP of products over the
 //     128 lanes (~0.56 ms; 0.35 ms over the 80 real lanes) against ~0.3 GB
-//     of traffic (~0.09 ms): operations bound it. The kernel contracts all
-//     128 lanes; the pad lanes are zero only by the weights' construction.
+//     of traffic (~0.09 ms): operations bound it. The global form contracts
+//     all 128 lanes; the pad lanes are zero only by the weights'
+//     construction.
 //
-// Design: K19 (the window form) reads q/k/v rows in place at stride
-// 3*H*hp through one accessor over the layout, at HD = 128 (instance =
-// window times head), and writes the output at stride H*hp, so no head
-// split or merge copy exists. The bias terms arrive raw, [N, H, S, W]
-// (head-second, as the packed kernels block on them), and are added after
-// the scale: s = q.k * scale + A[s][t / W] + Bb[s][t % W], fp32
-// exponentials, as in both TPU kernels. Each form rounds P where its TPU
-// kernel does: the window form normalizes P before rounding it to bf16 for
-// P V (:818-822) and runs on window_whole.cuh (one block per (window,
-// head) over all 196 query rows, every score row whole in registers, K
-// and V loaded once); the global form (K20) is online (m, l, acc; acc / l
-// at the end) and runs on the wgmma + TMA global core (global_sm90.cuh),
-// one block per (image, head, 128-row q tile), its q/k/v the 128-lane
-// blocks of the view {d, part * H + h, row, image} and its bias rows the
-// view {j, s, h, image}.
+// Design: K19 (the window form) is a problem type of window_whole.cuh's
+// body (one block per (window, head) over all 196 query rows, every score
+// row whole in registers, K and V loaded once, the next tile's Q and bias
+// rows prefetched with cp.async), instantiated at the real head width HD
+// (`head_dim`: 64 for ViT-L and ViT-B, 80 for ViT-H), 4 warps a (window,
+// head) as K3. The packed layout's pad lanes are zero by construction
+// (ullava_tpu/ops/sam_attention.py:785-787), so the kernel reads only the
+// HD real lanes of each q/k/v 128-lane block, in place at stride 3*H*hp,
+// and writes the output's real lanes at stride H*hp and its
+// hp - HD pad lanes as zeros: the same function on every input the packed
+// layout produces, with no head split or merge copy. The bias terms arrive
+// raw, [N, H, S, W] (head-second, as the packed kernels block on them), in
+// natural column order, and are added after the scale: s = q.k * scale +
+// A[s][t / W] + Bb[s][t % W], fp32 exponentials, as in both TPU kernels.
+// Each form rounds P where its TPU kernel does: the window form normalizes
+// P before rounding it to bf16 for P V (:818-822); the global form (K20) is
+// online (m, l, acc; acc / l at the end) and runs on the wgmma + TMA
+// global core (global_sm90.cuh), one block per (image, head, 128-row q
+// tile), its q/k/v the 128-lane blocks of the view {d, part * H + h, row,
+// image} and its bias rows the view {j, s, h, image}.
 //
 // Compiled with ULLAVA_MUTANT_PACKED_BIAS_PRESCALED both forms add the
-// bias before the scale (as if it arrived pre-scaled by 1/scale), and with
-// ULLAVA_MUTANT_PACKED_HEAD_OFFSET both read k one head over: deliberate
-// bugs that only `chip_smoke.py` builds, to show that the gates catch them
-// (window_whole.cuh holds the window form's own third one, the global
-// core the A-term one).
+// bias before the scale (as if it arrived pre-scaled by 1/scale), with
+// ULLAVA_MUTANT_PACKED_HEAD_OFFSET both read k one head over, and with
+// ULLAVA_MUTANT_PACKED_K_ACROSS_BLOCK the window form reads its k rows
+// from lane 128 - HD / 2 of the block, across its 128-lane boundary:
+// deliberate bugs that only `chip_smoke.py` and the card tests build, to
+// show that the gates catch them (window_whole.cuh holds the window form's
+// others, the global core the A-term one).
 #include "global_sm90.cuh"
 #include "window_whole.cuh"
 
 namespace ullava {
 
 constexpr int kPackHP = 128;
+constexpr int kPackWin = 14;
 
-template <int W>
+// K19's layout at HD real lanes of each 128-lane block.
+template <int HD>
 struct PackedAttn {
   const bf16* y;   // [N, S, 3*H*hp]
   const bf16* a;   // [N, H, S, W] raw
   const bf16* bb;  // [N, H, S, W] raw
   bf16* o;         // [N, S, H*hp]
-  int Sq, Sk, H;
-  int q_offset;
-  bool causal;
+  int Sq, H;
   float scale;
+  static constexpr bool kBiasAfterScale = true;
+  static constexpr bool kPadKeys = false;
+  static constexpr bool kBiasRaw = false;
+  static constexpr int kOutLanes = kPackHP;
 
   // inst = n * H + h
   __device__ size_t row(int inst, int s) const {
@@ -70,9 +82,11 @@ struct PackedAttn {
   __device__ const bf16* k_row(int inst, int t) const {
 #ifdef ULLAVA_MUTANT_PACKED_HEAD_OFFSET
     return y + row(inst, t) * (3 * H * kPackHP) + (H + (inst + 1) % H) * kPackHP;
-#else
-    return q_row(inst, t) + H * kPackHP;
 #endif
+#ifdef ULLAVA_MUTANT_PACKED_K_ACROSS_BLOCK
+    return q_row(inst, t) + H * kPackHP + (kPackHP - HD / 2);  // lanes 128 - HD / 2 on
+#endif
+    return q_row(inst, t) + H * kPackHP;
   }
   __device__ const bf16* v_row(int inst, int t) const {
     return q_row(inst, t) + 2 * H * kPackHP;
@@ -80,23 +94,19 @@ struct PackedAttn {
   __device__ bf16* o_row(int inst, int s) const {
     return o + row(inst, s) * (H * kPackHP) + (inst % H) * kPackHP;
   }
-  __device__ int key_limit(int) const { return Sk; }
-  __device__ float bias_a(int inst, int s, int j) const {
-    return __bfloat162float(a[(static_cast<size_t>(inst) * Sq + s) * W + j]);
+  // The W raw terms of row s (term 0: A, 1: Bb), natural columns.
+  __device__ const bf16* bias_row(int inst, int s, int term) const {
+    return (term ? bb : a) + (static_cast<size_t>(inst) * Sq + s) * kPackWin;
   }
-  __device__ float bias_b(int inst, int s, int j) const {
-    return __bfloat162float(bb[(static_cast<size_t>(inst) * Sq + s) * W + j]);
-  }
-  static constexpr bool kBiasAfterScale = true;
 };
 
+template <int HD>
 int launch_window_packed(const void* y, const void* a, const void* b, void* o, int N, int H,
                          float scale, void* stream) {
-  constexpr int W = 14;
-  PackedAttn<W> p{static_cast<const bf16*>(y), static_cast<const bf16*>(a),
-                  static_cast<const bf16*>(b), static_cast<bf16*>(o),
-                  W * W, W * W, H, 0, false, scale};
-  return launch_window_whole<kPackHP, W>(p, N * H, static_cast<cudaStream_t>(stream));
+  const PackedAttn<HD> p{static_cast<const bf16*>(y), static_cast<const bf16*>(a),
+                         static_cast<const bf16*>(b), static_cast<bf16*>(o),
+                         kPackWin * kPackWin, H, scale};
+  return launch_window_whole<HD, kPackWin>(p, N * H, static_cast<cudaStream_t>(stream));
 }
 
 // K20's layout for the global core: the raw bias terms [B, H, S, 64] as the
@@ -132,11 +142,18 @@ struct PackedGlobal {
 
 }  // namespace ullava
 
-// y: [N, 196, 3*H*128] bf16; a, b: [N, H, 196, 14] bf16; o: [N, 196, H*128].
+// y: [N, 196, 3*H*128] bf16; a, b: [N, H, 196, 14] bf16; o: [N, 196, H*128];
+// head_dim 64 or 80, the real lanes of each 128-lane block (any other is
+// refused with cudaErrorInvalidValue).
 ULLAVA_EXPORT int ullava_fused_window_attention_packed(const void* y, const void* a,
                                                        const void* b, void* o, int N, int H,
-                                                       float scale, void* stream) {
-  return ullava::launch_window_packed(y, a, b, o, N, H, scale, stream);
+                                                       int head_dim, float scale, void* stream) {
+  using namespace ullava;
+  if (head_dim == 64)
+    return launch_window_packed<64>(y, a, b, o, N, H, scale, stream);
+  if (head_dim == 80)
+    return launch_window_packed<80>(y, a, b, o, N, H, scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // y: [B, 4096, 3*H*128] bf16; a, b: [B, H, 4096, 64] bf16; o: [B, 4096, H*128].
@@ -151,7 +168,10 @@ ULLAVA_EXPORT int ullava_fused_global_attention_packed(const void* y, const void
 }
 
 // {registers a thread, shared bytes a block, spilled bytes a thread,
-// blocks an SM} of the window form's kernel (K19).
-ULLAVA_EXPORT int ullava_window_attention_packed_attrs(int* out) {
-  return ullava::window_whole_attrs<ullava::kPackHP, 14, ullava::PackedAttn<14>>(out);
+// blocks an SM} of the window form's kernel (K19) at head_dim 64 or 80.
+ULLAVA_EXPORT int ullava_window_attention_packed_attrs(int head_dim, int* out) {
+  using namespace ullava;
+  if (head_dim == 64) return window_whole_attrs<64, kPackWin, PackedAttn<64>>(out);
+  if (head_dim == 80) return window_whole_attrs<80, kPackWin, PackedAttn<80>>(out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

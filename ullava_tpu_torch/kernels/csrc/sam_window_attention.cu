@@ -57,9 +57,11 @@
 // HD = 64: a K or V row is 8 sixteen-byte chunks, so rows are 128 bytes
 // with the chunks XOR-swizzled by the row's low three bits (window_whole.cuh),
 // Q K^T takes 4 k-steps of mma.sync.m16n8k16 instead of 5 and a thread
-// holds 16 Q and 32 O registers. Its bound at one ViT-L B=1 window block
-// (N = 16 full windows, H = 16): y 19.3 MB, the terms 2.8 MB, o 6.4 MB,
-// ~8.5 us of HBM time, against 2.5 GFLOP (~2.5 us): bytes.
+// holds 16 Q and 32 O registers, 4 warps a (window, head) as at hd 80
+// (window_whole.cuh's header says why not a warp a query tile), with the
+// hd 64 forms' exponential and quotient. Its bound at one ViT-L B=1 window
+// block (N = 16 full windows, H = 16): y 19.3 MB, the terms 2.8 MB, o
+// 6.4 MB, ~8.5 us of HBM time, against 2.5 GFLOP (~2.5 us): bytes.
 //
 // The dots_i8 form: K quantized per row to int8 once per (window, head),
 // q and the bias-term row [A | B] per row by each warp, qk on the int8

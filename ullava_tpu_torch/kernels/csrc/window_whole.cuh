@@ -3,19 +3,28 @@
 // in registers, so the softmax normalises P before rounding it to bf16
 // exactly where the TPU kernels do (p = exp(s - m) / sum(p), p.astype(bf16),
 // P V summed in fp32 with no final division) with no scores parked in
-// shared memory and no second pass over the keys. Three kernels run on it:
-//   - K19, the packed window kernel (`_packed_window_kernel`,
-//     ullava_tpu/ops/sam_attention.py:791-822): HD 128, the raw bias terms
-//     added after the scale (P::kBiasAfterScale);
-//   - K3, the grid window kernel (`_grid_kernel` :113-178): HD 80 (ViT-H;
-//     and HD 64, ViT-L's and ViT-B's head), bias terms pre-scaled
-//     by 1/scale and added before it, a window stored as Sq = 196 or
-//     `total_rows` = 200 rows of which the first 196 are keys;
+// shared memory and no second pass over the keys. Four kernels run on it,
+// each a problem type P (the accessors of its layout and its score form):
+//   - K3, the grid window kernel (`_grid_kernel`,
+//     ullava_tpu/ops/sam_attention.py:113-178): HD 80 (ViT-H; and HD 64,
+//     ViT-L's and ViT-B's head), bias terms pre-scaled by 1/scale and
+//     added before it, a window stored as Sq = 196 or `total_rows` = 200
+//     rows of which the first 196 are keys;
 //   - K14, the boundary-window kernel (`_rect_kernel` :261-350): HD 80
 //     (and HD 64), only the T = R x C real tokens of a logical
 //     WB x WB window are rows and keys (the geometry G, a template
-//     parameter); the pad positions
-//     are not keys of any product (P::kPadKeys, below);
+//     parameter); the pad positions are not keys of any product
+//     (P::kPadKeys, below);
+//   - K19, the packed window kernel (`_packed_window_kernel` :791-822):
+//     K3's function over whole windows with the raw bias terms in natural
+//     column order added after the scale (P::kBiasAfterScale: s = q.k *
+//     scale + A + B), on the packed layout's 128-lane head blocks. Its pad
+//     lanes are zero by construction (:785-787), so it is instantiated at
+//     the real head width (HD 64 or 80): it loads and contracts only those
+//     lanes of each block and writes the output's P::kOutLanes - HD pad
+//     lanes as zeros itself. A problem type of the body rather than a
+//     branch of its own: one core to keep, and K3's cp.async prefetch of
+//     the Q and bias rows in place of plain loads a tile;
 //   - K21, the per-(window, head) window kernel (`_kernel` :29-67): K3's
 //     function on head-major [N, 196, 80] q, k and v, its bias terms raw
 //     in natural column order (P::kBiasRaw): each term is scaled by
@@ -26,34 +35,30 @@
 // Design (windows of at most kWwKeys = 208 keys: 196 for 14 x 14, padded
 // to 13 chunks of 16):
 //   - K and V of the instance are copied into shared memory once, with
-//     16-byte cp.async copies, K and V in two groups so that Q K^T starts
-//     while V lands; rows past the keys are zero-filled. At HD 128 (and HD
-//     64) rows are 256 (128) bytes with the 16-byte chunks XOR-swizzled by
-//     the row's low three bits; at HD 80 (10 chunks, for which that XOR is
-//     no permutation) rows are padded to 176 bytes, 11 chunks, so 8
-//     consecutive rows start in 8
-//     distinct 16-byte bank groups. Either way the ldmatrix reads of 8 rows
-//     hit 32 distinct banks. K19: 104 KB plus a 896-byte bias table a warp,
-//     two blocks an SM.
+//     16-byte cp.async copies by all the block's threads, K and V in two
+//     groups so that Q K^T starts while V lands; rows past the keys are
+//     zero-filled. At HD 64 rows are 128 bytes with the 16-byte chunks
+//     XOR-swizzled by the row's low three bits; at HD 80 (10 chunks, for
+//     which that XOR is no permutation) rows are padded to 176 bytes, 11
+//     chunks, so 8 consecutive rows start in 8 distinct 16-byte bank
+//     groups. Either way the ldmatrix reads of 8 rows hit 32 distinct
+//     banks.
 //   - The window's rows form tiles of 16 (13 for 196-208 rows, the last
-//     partly live) over kWwWarps = 4 warps: warp w takes tiles w, w + 4, ...
-//     Four warps give each thread 255 registers at HD 128, which the score
-//     row (104 fp32 a thread: 26 accumulator tiles of mma.sync.m16n8k16)
-//     and Q's fragments (32) need; eight would leave 128 and spill. At HD
-//     80 a thread holds 20 Q and 40 O registers instead of 32 and 64, at
-//     HD 64 16 and 32 (chip_smoke.py reads each instance's registers,
-//     spills and blocks an SM with cudaFuncGetAttributes). Each
-//     warp runs S = Q K^T, adds the bias terms, scales, masks the pad keys,
-//     takes the row max and sum over its quad (two shuffles each), and
-//     rounds p = exp(s - m) / l to bf16 straight into the A fragments of
-//     O = P V. O goes out as bf16 with no final division.
+//     partly live) over kWwWarps = 4 warps: warp w takes tiles w, w + 4,
+//     ... and prefetches its next tile's Q rows and raw bias rows into a
+//     second buffer with cp.async while one is computed. Four warps give
+//     each thread 255 registers for the score row (104 fp32: 26 accumulator
+//     tiles of mma.sync.m16n8k16), its two rows' bias terms (58 floats) and
+//     20 (HD 80) or 16 (HD 64) Q and 40 or 32 O registers. Each warp runs S
+//     = Q K^T, adds the bias terms, scales, masks the pad keys, takes the
+//     row max and sum over its quad (two shuffles each), and rounds p =
+//     exp(s - m) / l to bf16 straight into the A fragments of O = P V. O
+//     goes out as bf16 with no final division.
 //   - The bias terms A[s][a] and B[s][b] of key (a, b) (t / C, t % C for
 //     compact key t of a rectangle of C columns) are read by each thread
 //     into registers once a tile: its rows' A terms (key t's by a
 //     compile-time index and a select) and the kPer x 2 B terms that
-//     t % C cycles through. K19 stages its tile's terms with plain loads;
-//     K3 and K14 prefetch the next tile's Q rows and raw bias rows into a
-//     second per-warp buffer with cp.async while the tile is computed.
+//     t % C cycles through.
 //   - K14 (P::kPadKeys): a pad position (a, b) outside the R x C rectangle
 //     has key pad_k[h][0:HD] and value pad_v[h], the same for every pad of
 //     the head, so its score is (q . pad_k + A[a] + B[b]) * scale with one
@@ -75,31 +80,20 @@
 //     (1 / 127). s = (float(qk) * (qs * ks) + float(ca + cb) * abss) *
 //     scale; K14's pads keep the unquantized score; P V stays bf16.
 //
-// K14 at hd 64 (ViT-L's and ViT-B's boundary windows, both score forms)
-// runs a schedule of its own, `rect_split_body`, for the B=1 encode of
-// `SamPredictor`: there the merged edge pair is 8 windows x 16 heads = 128
-// blocks and the corner 16, one block an SM at most, so the body above,
-// whose four warps walk the 7 query tiles in turn behind a serial
-// prologue, ran one 4-warp block's latency (about 40 us against a 2.6 us
-// bound). Weighed and chosen:
-//   - one block per (window, head) of NC warps, one 16-row query tile
-//     each (7 for the edges' 112 rows, 4 for the corner's 64): every
-//     tile's chain runs at once, and the block's K and V copies and, in
-//     `dots_i8`, K's quantization (one half row a thread, one pass) are
-//     spread over all its threads. Splitting a (window, head) over
-//     several blocks or a cluster would copy K and V (and quantize K)
-//     once a block, or pass its codes through DSMEM, for a prologue that
-//     NC warps already share;
-//   - the pad keys' sums in closed form: pad (a, b) scores (q . pad_k +
-//     A[a] + B[b]) * scale over two rectangles (rows [R, WB) by every
-//     column, rows [0, R) by columns [C, WB)), so a region's largest score
-//     is its largest A plus its largest B and its sum of exp2(x - m)
-//     factors into sum_a exp2((A[a] - max A) sl2) * sum_b exp2((B[b] -
-//     max B) sl2): 28 exponentials a row, spread over the quad, in place
-//     of two passes over the 84 (edge) or 132 (corner) pads;
-//   - the pair and the corner stay two launches: their T differ (112, 64),
-//     so one launch would take a second set of pointers and tables; at B=1
-//     that is one launch of a few us a window block.
+// The hd 64 whole windows (K3 in both score forms, K19) at B=1, the
+// `SamPredictor` encode of ViT-L and ViT-B: one ViT-L image is 16 windows
+// x 16 heads = 256 blocks, under one wave of two blocks an SM, each warp
+// four tiles deep (192 blocks for ViT-B, 400 and 300 for K19's 25 padded
+// windows). They keep the 4-warp schedule: a warp a query tile (13 warps,
+// one block an SM) leaves 128 registers a thread, since four of the
+// warps share one sub-partition's 16,384, under the score row's 104 plus
+// the rest, and spilled; 6 and 8 warps and a (window, head) split over two
+// blocks of 7 and 6 tiles were no faster (PERF.md, PR 29): the time is the
+// SM's work, not the waves'. What moved them is work a score, and only
+// they take it (kHd64 in the body): ex2.approx.ftz in place of exp2f's
+// denormal handling and p = e * (1 / l) in place of the exact quotient
+// (ww_probs). The hd 80 forms (K3, K14, K19 and K21 at ViT-H) keep exp2f
+// and the exact quotient.
 //
 // Compiled with ULLAVA_MUTANT_WINDOW_NO_QUAD_MAX each thread normalises its
 // scores by its own partial row max instead of the quad's; with
@@ -109,8 +103,11 @@
 // not the row sum; K14's hd 64 schedule with ULLAVA_MUTANT_RECT_TILE_BIAS_ROWS
 // has each warp read the next warp's tile's bias rows, with
 // ULLAVA_MUTANT_RECT_PAD_SUM_NO_QUAD each thread's closed-form pad sums
-// left unreduced over the quad. Deliberate bugs that only `chip_smoke.py`
-// builds, to show that the gates catch them.
+// left unreduced over the quad; K19 with ULLAVA_MUTANT_PACKED_BIAS_PRESCALED
+// adds the bias before the scale, with
+// ULLAVA_MUTANT_PACKED_PAD_LANES_UNWRITTEN leaves the output's pad lanes
+// as it found them. Deliberate bugs that only `chip_smoke.py` and the card
+// tests build, to show that the gates catch them.
 #pragma once
 
 #include <type_traits>
@@ -120,9 +117,8 @@
 namespace ullava {
 
 constexpr int kWwKeys = 208;  // keys a window can hold (13 chunks of 16)
-constexpr int kWwWarps = 4;
+constexpr int kWwWarps = 4;  // warps a (window, head)
 constexpr int kWwThreads = kWwWarps * 32;
-constexpr int kWwRowTiles = kWwKeys / 16;
 
 // The real R x C rectangle of a logical window (R = C = WB: a whole one).
 template <int R_, int C_>
@@ -131,10 +127,16 @@ struct WwRect {
   static constexpr int NC = (T + 15) / 16;  // 16-key chunks
 };
 
-template <int HD, int WB>
-constexpr size_t window_whole_smem_bytes() {
-  return sizeof(bf16) * (2 * kWwKeys * HD + kWwWarps * 2 * 16 * WB);
-}
+// P::kOutLanes, the lanes of an output row where a problem type has more
+// than HD (K19's 128-lane head blocks); 0 where it has none.
+template <class P, class = void>
+struct WwOutLanes {
+  static constexpr int value = 0;
+};
+template <class P>
+struct WwOutLanes<P, std::void_t<decltype(P::kOutLanes)>> {
+  static constexpr int value = P::kOutLanes;
+};
 
 __host__ __device__ constexpr int gcd_int(int a, int b) { return b == 0 ? a : gcd_int(b, a % b); }
 
@@ -183,6 +185,16 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool live)
                "r"(live ? 4 : 0));
 }
 
+// 2^x by the special-function unit alone (denormal results flushed to
+// zero: probabilities under 2^-126, which vanish beside the row's largest,
+// 1): exp2f's denormal handling costs three more operations a score. The
+// exponential of the hd 64 whole windows only (see the header).
+__device__ __forceinline__ float ww_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // S = Q K^T over NC chunks of 16 keys, bf16 Q fragments against K rows.
 template <int HD, int NC>
 __device__ __forceinline__ void ww_qk_bf16(float (&s)[2 * NC][4], const uint32_t (&qf)[HD / 16][4],
@@ -203,14 +215,19 @@ __device__ __forceinline__ void ww_qk_bf16(float (&s)[2 * NC][4], const uint32_t
   }
 }
 
-// p = exp(s - m) / l rounded to bf16, as the A fragments of 16-key chunks.
-// The quotient is the IEEE one, taken as q = a * (1 / l) and one
-// correction q + (a - q l) / l with fma (Markstein: exact for a correctly
-// rounded reciprocal and a normal quotient), three operations in place of
-// the general division's subroutine.
-template <int NC>
+// p = exp(s - m) / l rounded to bf16, as the A fragments of 16-key chunks:
+// P normalized before its rounding, where the TPU kernels round it. The
+// quotient is the IEEE one, taken as q = a * (1 / l) and one correction
+// q + (a - q l) / l with fma (Markstein: exact for a correctly rounded
+// reciprocal and a normal quotient), three operations in place of the
+// general division's subroutine. With ONE_ULP (the hd 64 whole windows)
+// it is a * (1 / l) alone, within an ulp of the IEEE one: it moves a bf16
+// rounding of p only where the quotient lies within an ulp of a rounding
+// boundary.
+template <int NC, bool ONE_ULP>
 __device__ __forceinline__ void ww_probs(const float (&s)[2 * NC][4], const float (&l)[2],
                                          uint32_t (&pa)[NC][4]) {
+  // (l is a sum of exponentials of at least one zero exponent: l >= 1.)
   const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
@@ -222,7 +239,7 @@ __device__ __forceinline__ void ww_probs(const float (&s)[2 * NC][4], const floa
         const int r = e >> 1;
         const float a = s[2 * c + h2][e];
         const float q = __fmul_rn(a, rl[r]);
-        pv[h2][e] = __fmaf_rn(__fmaf_rn(-q, l[r], a), rl[r], q);
+        pv[h2][e] = ONE_ULP ? q : __fmaf_rn(__fmaf_rn(-q, l[r], a), rl[r], q);
       }
     }
     pa[c][0] = pack_bf16(pv[0][0], pv[0][1]);
@@ -307,9 +324,9 @@ __host__ __device__ constexpr int ww_min_blocks() {
   return G::NC > 8 ? 2 : 3;
 }
 
-// The shared-memory layout of K3's and K14's blocks: K and V (NK rows
-// each), the int8 K scales, the pad tables, then per warp two buffers of
-// [16 Q rows | 2 x 16 raw bias rows of WB] and the bias codes (I8).
+// The shared-memory layout of the body's blocks: K and V (NK rows each),
+// the int8 K scales, the pad tables, then per warp two buffers of [16 Q
+// rows | 2 x 16 raw bias rows of WB] and the bias codes (I8).
 template <int HD, int WB, class P, class G, bool I8>
 struct WwLayout {
   static constexpr int RB = ww_row_bytes<HD>();
@@ -324,7 +341,8 @@ struct WwLayout {
   static_assert(kBias % 16 == 0 && kScales % 16 == 0 && kPad % 16 == 0, "16-byte sections");
 };
 
-// K3's and K14's block over geometry G (see the header).
+// The block of K3, K14 (HD 80), K19 and K21 over geometry G (see the
+// header).
 template <int HD, int WB, class P, class G, bool I8>
 __device__ __forceinline__ void ww_window_body(const P& p, unsigned char* smem_raw) {
   using L = WwLayout<HD, WB, P, G, I8>;
@@ -335,17 +353,25 @@ __device__ __forceinline__ void ww_window_body(const P& p, unsigned char* smem_r
   constexpr int CPR = HD / 8;          // 16-byte chunks of a row
   constexpr int kPer = C / gcd_int(8, C);  // (8 j) % C repeats with j % kPer
   constexpr int BW = WB / 2;           // 4-byte words of a bias row
+  constexpr int kOutPad = WwOutLanes<P>::value > HD ? WwOutLanes<P>::value - HD : 0;
   static_assert(C >= 8 && C <= WB && R <= WB, "a key's A index moves at most one row in 8 keys");
   static_assert(WB % 2 == 0, "bias rows of whole 4-byte words");
   static_assert(NK <= kWwKeys && (T + 15) / 16 >= kWwWarps, "every warp has a tile");
   static_assert(!I8 || KD8 * 32 <= RB, "an int8 row fits in its bf16 row");
   static_assert(!P::kBiasRaw || (!I8 && !P::kPadKeys), "raw bias terms: K21's form only");
+  static_assert(!P::kBiasAfterScale || (!I8 && !P::kPadKeys && !P::kBiasRaw),
+                "the after-scale form: K19's bf16 scores over whole windows");
+  static_assert(kOutPad % 8 == 0, "pad lanes of whole 16-byte chunks");
+  constexpr bool kHd64 = HD == 64;  // ex2.approx.ftz and p = e * (1 / l): see the header
   constexpr float kLog2e = 1.4426950408889634f;
-  // Bias term `col` of a staged row: reversed and pre-scaled (K3, K14), or
-  // natural and raw, pre-scaled here (K21).
+  // Bias term `col` of a staged row: reversed and pre-scaled (K3, K14),
+  // natural and raw, pre-scaled here (K21), or natural and raw, added after
+  // the scale (K19).
   auto bias_term = [&](const bf16* t, int col) {
     if constexpr (P::kBiasRaw)
       return p.prescaled(__bfloat162float(t[col]));
+    else if constexpr (P::kBiasAfterScale)
+      return __bfloat162float(t[col]);
     else
       return __bfloat162float(t[WB - 1 - col]);
   };
@@ -521,11 +547,18 @@ __device__ __forceinline__ void ww_window_body(const P& p, unsigned char* smem_r
       ww_qk_bf16<HD, NC>(s, qf, sK, lane);
     }
 
-    // Bias, scale, key mask, the row max over the quad, as K19 below but
-    // over a rectangle of C columns: 8 j = C qj + rj at compile time, the
-    // A index qj + (rj + c >= C), the B index (8 j + c) % C repeating with
-    // j % kPer. K3's and K14's tables are in the TPU's reversed column
-    // order, K21's in natural order.
+    // Bias, scale, key mask and four partial row maxima a row (exact: short
+    // dependency chains) over a rectangle of C columns: key t = 8 j + c (c =
+    // c0 + e % 2) has A's index t / C = qj + (rj + c >= C), with 8 j = C qj
+    // + rj known at compile time, and B's index t % C, which repeats with j
+    // % kPer. So a thread keeps its two rows' A terms and the kPer x 2 B
+    // terms its keys meet in registers, read once a tile from the staged
+    // rows; `c0` is an opaque copy of 2 tq taken in each tile, so that the
+    // compiler recomputes their indices there rather than holding them
+    // across tiles. A score is summed in the plain versions' order, (s + A
+    // + B) * scale (K3, K14, K21; I8: s + (ca + cb) * abss) or s * scale + A
+    // + B (K19), in base-2 units: folding the scale into the terms (one fma
+    // a score) moved the int8 forms' errors over their gate.
     int c0;
     asm volatile("mov.b32 %0, %1;\n" : "=r"(c0) : "r"(2 * tq));
     float at[2][R + 1], bt[2][kPer][2];
@@ -555,10 +588,17 @@ __device__ __forceinline__ void ww_window_body(const P& p, unsigned char* smem_r
         if (8 * j < T) {
           const int qj = (8 * j) / C, rj = (8 * j) % C;
           const float bias = (rj + c >= C ? at[r][qj + 1] : at[r][qj]) + bt[r][j % kPer][e & 1];
-          if constexpr (I8)
+          if constexpr (I8) {
             x = __fadd_rn(s[j][e], __fmul_rn(bias, abss[r])) * sl2;  // bias: ca + cb, exact
-          else
+          } else if constexpr (P::kBiasAfterScale) {
+#ifdef ULLAVA_MUTANT_PACKED_BIAS_PRESCALED
+            x = (s[j][e] + bias) * sl2;  // the bias read as if pre-scaled by 1/scale
+#else
+            x = s[j][e] * sl2 + bias * kLog2e;
+#endif
+          } else {
             x = (s[j][e] + bias) * sl2;
+          }
           if (8 * j + 7 >= T && 8 * j + c >= T) x = -INFINITY;
         }
         s[j][e] = x;
@@ -605,7 +645,7 @@ __device__ __forceinline__ void ww_window_body(const P& p, unsigned char* smem_r
       for (int j = 0; j < 2 * NC; ++j) {
 #pragma unroll
         for (int e = 2 * r; e < 2 * r + 2; ++e) {
-          s[j][e] = exp2f(s[j][e] - m[r]);
+          s[j][e] = kHd64 ? ww_exp2(s[j][e] - m[r]) : exp2f(s[j][e] - m[r]);
           sum[r] += s[j][e];
         }
       }
@@ -625,7 +665,7 @@ __device__ __forceinline__ void ww_window_body(const P& p, unsigned char* smem_r
       }
     }
     uint32_t pa[NC][4];
-    ww_probs<NC>(s, l, pa);
+    ww_probs<NC, kHd64>(s, l, pa);
     if (it == 0) {  // V has landed
       cp_async_wait<1>();
       __syncthreads();
@@ -651,188 +691,35 @@ __device__ __forceinline__ void ww_window_body(const P& p, unsigned char* smem_r
         *reinterpret_cast<__nv_bfloat162*>(p.o_row(inst, row1) + d) =
             __floats2bfloat162_rn(o[n][2], o[n][3]);
     }
+#ifdef ULLAVA_MUTANT_PACKED_PAD_LANES_UNWRITTEN
+    constexpr bool kZeroPad = false;  // the pad lanes left as they were
+#else
+    constexpr bool kZeroPad = kOutPad > 0;
+#endif
+    if constexpr (kZeroPad) {  // the output's pad lanes (K19): zeros, 16 bytes a store
+      constexpr int PC = kOutPad / 8;
+      for (int i = lane; i < 16 * PC; i += 32) {
+        const int r = i / PC, c = i % PC;
+        if (s0 + r < Sq)
+          *reinterpret_cast<uint4*>(p.o_row(inst, s0 + r) + HD + c * 8) = make_uint4(0, 0, 0, 0);
+      }
+    }
     __syncwarp();  // buffer b is refilled at tile it + 1
   }
 }
 
 template <int HD, int WB, class P, class G0, class G1, bool I8>
-__global__ void __launch_bounds__(kWwThreads, P::kBiasAfterScale ? 2 : ww_min_blocks<G0>())
+__global__ void __launch_bounds__(kWwThreads, ww_min_blocks<G0>())
     window_whole_kernel(const P p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  if constexpr (!P::kBiasAfterScale) {
-    static_assert(G0::NC == G1::NC, "both geometries of a launch share its layout");
-    if constexpr (std::is_same<G0, G1>::value) {
+  static_assert(G0::NC == G1::NC, "both geometries of a launch share its layout");
+  if constexpr (std::is_same<G0, G1>::value) {
+    ww_window_body<HD, WB, P, G0, I8>(p, smem_raw);
+  } else {  // a dual-geometry launch: windows [0, n_first) take G0
+    if (static_cast<int>(blockIdx.x) / p.H < p.n_first)
       ww_window_body<HD, WB, P, G0, I8>(p, smem_raw);
-    } else {  // a dual-geometry launch: windows [0, n_first) take G0
-      if (static_cast<int>(blockIdx.x) / p.H < p.n_first)
-        ww_window_body<HD, WB, P, G0, I8>(p, smem_raw);
-      else
-        ww_window_body<HD, WB, P, G1, I8>(p, smem_raw);
-    }
-    return;
-  } else {
-    // K19: the packed form, whole windows of WB x WB, the bias added after
-    // the scale. Q and the bias terms are read from global memory a tile.
-    static_assert(WB > 0 && WB * WB <= kWwKeys, "a window of at most 208 keys");
-    static_assert(!I8 && std::is_same<G0, WwRect<WB, WB>>::value, "the packed form: whole windows");
-    constexpr int KD = HD / 16;     // k-steps of Q K^T
-    constexpr int ND = HD / 8;      // 8-wide column tiles of O
-    constexpr int NC = kWwKeys / 16;  // 16-key chunks of a score row
-    constexpr int CPR = HD / 8;     // 16-byte chunks a row
-    constexpr int kKeys = WB * WB;  // a whole window: every query row sees every key
-    constexpr int kPer = WB / gcd_int(8, WB);  // (8 j) % WB repeats with j % kPer
-    constexpr float kLog2e = 1.4426950408889634f;
-
-    unsigned char* sK = smem_raw;                              // [kWwKeys][HD] bf16, swizzled
-    unsigned char* sV = sK + kWwKeys * HD * 2;                 // [kWwKeys][HD] bf16, swizzled
-    const int tid = threadIdx.x;
-    const int warp = tid / 32, lane = tid % 32;
-    bf16* sBA = reinterpret_cast<bf16*>(sV + kWwKeys * HD * 2) + warp * 2 * 16 * WB;  // [16][WB]
-    bf16* sBB = sBA + 16 * WB;                                                       // [16][WB]
-
-    const int inst = blockIdx.x;
-    const int g = lane / 4, tq = lane % 4;  // row in the 8-row group, thread in quad
-    constexpr int Sq = kKeys;  // query rows of a window
-
-    // K, then V: every row of the instance once; zero rows past kKeys.
-    const bf16* valid = p.q_row(inst, 0);
-    for (int part = 0; part < 2; ++part) {
-      unsigned char* dst = part ? sV : sK;
-      for (int i = tid; i < kWwKeys * CPR; i += kWwThreads) {
-        const int r = i / CPR, c = i % CPR;
-        const bf16* src = r < kKeys ? (part ? p.v_row(inst, r) : p.k_row(inst, r)) : nullptr;
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                         smem_addr(dst + ww_offset<HD>(r, c))),
-                     "l"(src != nullptr ? src + c * 8 : valid), "r"(src != nullptr ? 16 : 0));
-      }
-      asm volatile("cp.async.commit_group;\n" ::);
-    }
-    const float sl2 = p.scale * kLog2e;  // scores in base-2 units
-
-    for (int it = 0, rt = warp; rt < kWwRowTiles; ++it, rt += kWwWarps) {
-      const int s0 = rt * 16;
-      const int row0 = s0 + g, row1 = row0 + 8;
-      // Q fragments straight from global memory (rows past Sq read as 0).
-      uint32_t qf[KD][4];
-      {
-        const uint32_t* q0p =
-            reinterpret_cast<const uint32_t*>(p.q_row(inst, row0 < Sq ? row0 : 0) + 2 * tq);
-        const uint32_t* q1p =
-            reinterpret_cast<const uint32_t*>(p.q_row(inst, row1 < Sq ? row1 : 0) + 2 * tq);
-#pragma unroll
-        for (int kk = 0; kk < KD; ++kk) {
-          qf[kk][0] = row0 < Sq ? q0p[kk * 8] : 0u;
-          qf[kk][1] = row1 < Sq ? q1p[kk * 8] : 0u;
-          qf[kk][2] = row0 < Sq ? q0p[kk * 8 + 4] : 0u;
-          qf[kk][3] = row1 < Sq ? q1p[kk * 8 + 4] : 0u;
-        }
-      }
-      // The tile's bias rows into the warp's table (zeros past Sq).
-      __syncwarp();
-      for (int i = lane; i < 16 * WB; i += 32) {
-        const int r = i / WB, j = i % WB;
-        const bool live = s0 + r < Sq;
-        sBA[i] = __float2bfloat16(live ? p.bias_a(inst, s0 + r, j) : 0.f);
-        sBB[i] = __float2bfloat16(live ? p.bias_b(inst, s0 + r, j) : 0.f);
-      }
-      if (it == 0) {  // K has landed
-        cp_async_wait<1>();
-        __syncthreads();
-      }
-      __syncwarp();  // the bias table is written
-
-      float s[2 * NC][4];
-      ww_qk_bf16<HD, NC>(s, qf, sK, lane);
-
-      // Bias, scale, key mask, the row max over the quad. Key t = 8 j + c
-      // (c = 2 tq + e % 2) has A's index t / WB = qj + w, w = (rj + c >= WB),
-      // with 8 j = WB qj + rj known at compile time, and B's index t % WB,
-      // which repeats with j % kPer. So a thread keeps its two rows' A terms
-      // (at) and the kPer x 2 B terms its keys meet (bt) in registers, read
-      // once a tile from the warp's table; `c0` is an opaque copy of 2 tq
-      // taken in each tile, so that the compiler recomputes their indices
-      // there rather than holding them across tiles.
-      int c0;
-      asm volatile("mov.b32 %0, %1;\n" : "=r"(c0) : "r"(2 * tq));
-      float at[2][WB + 1], bt[2][kPer][2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const bf16* ta = sBA + (g + 8 * r) * WB;
-        const bf16* tb = sBB + (g + 8 * r) * WB;
-#pragma unroll
-        for (int a = 0; a < WB; ++a) at[r][a] = __bfloat162float(ta[a]);
-        at[r][WB] = 0.f;  // the index of a pad key past the last row
-#pragma unroll
-        for (int jj = 0; jj < kPer; ++jj) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) bt[r][jj][e] = __bfloat162float(tb[(8 * jj + c0 + e) % WB]);
-        }
-      }
-      float mx[2][4];  // four partial maxima a row (exact): short dependency chains
-#pragma unroll
-      for (int i = 0; i < 8; ++i) mx[i / 4][i % 4] = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 2 * NC; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          const int c = c0 + (e & 1);
-          float x = -INFINITY;  // the pad keys past kKeys
-          if (8 * j < kKeys) {
-            const int qj = (8 * j) / WB, rj = (8 * j) % WB;
-            const float bias = (rj + c >= WB ? at[r][qj + 1] : at[r][qj]) + bt[r][j % kPer][e & 1];
-#ifdef ULLAVA_MUTANT_PACKED_BIAS_PRESCALED
-            x = (s[j][e] + bias) * sl2;  // the bias read as if pre-scaled by 1/scale
-#else
-            x = s[j][e] * sl2 + bias * kLog2e;
-#endif
-            if (8 * j + 7 >= kKeys && 8 * j + c >= kKeys) x = -INFINITY;
-          }
-          s[j][e] = x;
-          mx[r][(j % 2) * 2 + (e & 1)] = fmaxf(mx[r][(j % 2) * 2 + (e & 1)], x);
-        }
-      }
-      // Every row has live keys (kKeys > 0), so m is finite and l >= 1.
-      float m[2], l[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float mt = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
-#ifdef ULLAVA_MUTANT_WINDOW_NO_QUAD_MAX
-        m[r] = mt;
-#else
-        m[r] = quad_max(mt);
-#endif
-        float sum = 0.f;  // exp2(s - m) replaces s
-#pragma unroll
-        for (int j = 0; j < 2 * NC; ++j) {
-#pragma unroll
-          for (int e = 2 * r; e < 2 * r + 2; ++e) {
-            s[j][e] = exp2f(s[j][e] - m[r]);
-            sum += s[j][e];
-          }
-        }
-        l[r] = quad_sum(sum);
-      }
-      uint32_t pa[NC][4];
-      ww_probs<NC>(s, l, pa);
-      if (it == 0) {  // V has landed
-        cp_async_wait<0>();
-        __syncthreads();
-      }
-
-      float o[ND][4];
-      ww_pv<HD, NC, kKeys>(o, pa, sV, lane);
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const int d = n * 8 + tq * 2;
-        if (row0 < Sq)
-          *reinterpret_cast<__nv_bfloat162*>(p.o_row(inst, row0) + d) =
-              __floats2bfloat162_rn(o[n][0], o[n][1]);
-        if (row1 < Sq)
-          *reinterpret_cast<__nv_bfloat162*>(p.o_row(inst, row1) + d) =
-              __floats2bfloat162_rn(o[n][2], o[n][3]);
-      }
-    }
+    else
+      ww_window_body<HD, WB, P, G1, I8>(p, smem_raw);
   }
 }
 
@@ -1148,7 +1035,7 @@ __device__ __forceinline__ void rect_split_body(const P& p, unsigned char* smem_
     pad[r] = __fdiv_rn(ps, l[r]);  // the pad mass
   }
   uint32_t pa[NC][4];
-  ww_probs<NC>(s, l, pa);
+  ww_probs<NC, false>(s, l, pa);
   cp_async_wait<0>();  // V has landed
   __syncthreads();
 
@@ -1219,23 +1106,14 @@ int rect_split_attrs(int* out) {
                     RsLayout<HD, WB, G0, I8>::kBytes, out);
 }
 
-template <int HD, int WB, class P, class G0, class G1, bool I8>
-constexpr size_t window_whole_total_smem() {
-  if constexpr (P::kBiasAfterScale)
-    return window_whole_smem_bytes<HD, WB>();
-  else
-    return WwLayout<HD, WB, P, G0, I8>::kBytes;
-}
-
 // Sets the kernel's shared-memory attributes once (per instantiation).
 template <int HD, int WB, class P, class G0, class G1, bool I8>
 int window_whole_configure() {
-  constexpr size_t smem = window_whole_total_smem<HD, WB, P, G0, G1, I8>();
+  constexpr int smem = WwLayout<HD, WB, P, G0, I8>::kBytes;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(window_whole_kernel<HD, WB, P, G0, G1, I8>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(window_whole_kernel<HD, WB, P, G0, G1, I8>,
                                  cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -1246,22 +1124,19 @@ int window_whole_configure() {
   return 0;
 }
 
-// Launches one block per instance on `stream`. K19 takes whole windows of
-// WB x WB queries and keys only; K3 (whole windows) Sq rows from T to the
-// NK the layout holds; K14 (kPadKeys) exactly its T rows.
+// Launches one block of kWwWarps warps per instance on `stream`. K3 (whole
+// windows) takes Sq rows from T to the NK the layout holds; K14
+// (kPadKeys) and K19 (kBiasAfterScale) exactly their T rows.
 template <int HD, int WB, class P, class G0 = WwRect<WB, WB>, class G1 = G0, bool I8 = false>
 int launch_window_whole(const P& p, int num_inst, cudaStream_t stream) {
   if (const int err = window_whole_configure<HD, WB, P, G0, G1, I8>()) return err;
-  if constexpr (P::kBiasAfterScale) {
-    if (p.Sk != WB * WB || p.Sq != WB * WB) return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    constexpr int T = G0::T;
-    if (G1::T != T || (P::kPadKeys ? p.Sq != T : p.Sq < T || p.Sq > G0::NC * 16))
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  constexpr int T = G0::T;
+  if (G1::T != T || (P::kPadKeys || P::kBiasAfterScale ? p.Sq != T
+                                                       : p.Sq < T || p.Sq > G0::NC * 16))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (num_inst == 0 || p.Sq == 0) return 0;
   window_whole_kernel<HD, WB, P, G0, G1, I8>
-      <<<num_inst, kWwThreads, window_whole_total_smem<HD, WB, P, G0, G1, I8>(), stream>>>(p);
+      <<<num_inst, kWwThreads, WwLayout<HD, WB, P, G0, I8>::kBytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1272,7 +1147,7 @@ template <int HD, int WB, class P, class G0 = WwRect<WB, WB>, class G1 = G0, boo
 int window_whole_attrs(int* out) {
   if (const int err = window_whole_configure<HD, WB, P, G0, G1, I8>()) return err;
   return func_attrs(window_whole_kernel<HD, WB, P, G0, G1, I8>, kWwThreads,
-                    window_whole_total_smem<HD, WB, P, G0, G1, I8>(), out);
+                    WwLayout<HD, WB, P, G0, I8>::kBytes, out);
 }
 
 }  // namespace ullava

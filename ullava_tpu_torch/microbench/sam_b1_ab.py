@@ -1,8 +1,10 @@
-"""The B=1 SAM attention forms of ViT-L and ViT-B (K14 and K11 at hd 64,
-bf16 and `dots_i8` scores, K11's pre-pass included) beside their hd 80
-twins at ViT-H's serving shapes, for one checkout of the port, and one
-`SamPredictor.set_image` at ViT-L (bf16, int8 towers, int8 towers with
-`attn_dots_i8`) split into the host's resize + normalize and the encode.
+"""The B=1 SAM attention forms of ViT-L and ViT-B (K3, K14 and K11 at hd
+64, bf16 and `dots_i8` scores, K11's pre-pass included; K19, the packed
+window kernel, over 64 real lanes of 128) beside their hd 80 twins at
+ViT-H's serving shapes (K19's at the packed B=4 serve's window block),
+for one checkout of the port, and one `SamPredictor.set_image` at ViT-L
+(bf16, int8 towers, int8 towers with `attn_dots_i8`) split into the
+host's resize + normalize and the encode.
 
     python ullava_tpu_torch/microbench/sam_b1_ab.py [--root DIR] [--no-set-image]
 
@@ -14,11 +16,18 @@ parent in one call to compare two versions on one card.
 
 One `sam_b1_form` line a form: `ms` the median of five batches of 20
 launches each after an L2 eviction, with the batches' least and largest
-(`chip_smoke.spread_ms`); the same for SDPA with the bias as a mask at the
-same shape (`sdpa_ms`); the kernel against its plain version
-(`row_rel_err`, beside the limit `chip_smoke.py` gates it with). Before
-them one `sam_b1_sass` line: the instruction counts of the hd 64 kernels
-in the built libraries' SASS (`chip_smoke.sass_counts`). Then one
+(`chip_smoke.spread_ms`, each launch queued behind a short device sleep
+so that the wrapper's host time, which can exceed these kernels' own,
+stays out of it); the same for SDPA with the bias as a mask at the same
+shape (`sdpa_ms`; for K19 over the real lanes, and over all 128
+`sdpa_128_lanes_ms`); the kernel against its plain version
+(`row_rel_err`, beside the limit `chip_smoke.py` gates it with); and
+`out_sha1`, a digest of the kernel's output bits, equal in two checkouts
+whose kernels compute the same bits on these inputs. A
+checkout whose K19 wrapper has no `head_dim` (before it contracted the
+real lanes alone) runs it over all 128. Before them one `sam_b1_sass`
+line: the instruction counts of the hd 64 kernels in the built
+libraries' SASS (`chip_smoke.sass_counts`). Then one
 `sam_b1_set_image` line a weight form (median of five calls of each part,
 synchronized), the card's name and power limit. It needs a card.
 """
@@ -27,7 +36,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import importlib.util
+import inspect
 import json
 import subprocess
 import sys
@@ -39,7 +50,8 @@ HERE = Path(__file__).resolve().parents[2]
 
 
 def forms(cs, gen):
-    """(name, run, plain, sdpa, tol) of every form this script times."""
+    """(name, run, plain, sdpa, tol) of every form this script times;
+    `sdpa` is the library yardstick, or {key: yardstick}."""
     import torch
     import torch.nn.functional as F
 
@@ -51,6 +63,51 @@ def forms(cs, gen):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).to(bf)
 
     out = []
+    # K3: 16 full windows (one image) of each size at hd 64 in both score
+    # forms, 196 rows and the resident layout's 200; ViT-H's serving forms
+    # at B=16 (256 windows of 200 rows).
+    for size, H, hd, N in (("vit_l", 16, 64, 16), ("vit_b", 12, 64, 16), ("vit_h", 16, 80, 256)):
+        C, sc = H * hd, hd**-0.5
+        for rows in ((196, 200) if hd == 64 else (200,)):
+            y = randn(N, rows, 3 * C)
+            a, bb = (randn(N, rows, H * W, scale=2.0 / sc) for _ in range(2))
+            a[:, 196:], bb[:, 196:] = 0, 0
+            lib = cs.window_sdpa_inputs(y, a, bb, y, torch.arange(rows, device="cuda") < 196,
+                                        (C, H, hd, W))
+            for i8 in (False, True):
+                kw = dict(num_heads=H, head_dim=hd, window=W, scale=sc, dots_i8=i8)
+                out.append((
+                    f"fused_window_attention_grid{'_i8' if i8 else ''}{'_hd64' if hd == 64 else ''}"
+                    f" {size} {N} x {rows}",
+                    lambda y=y, a=a, bb=bb, kw=kw, r=rows: sam_attention.fused_window_attention_grid(
+                        y, a, bb, **kw, total_rows=0 if r == 196 else r)[:, :196],
+                    lambda y=y, a=a, bb=bb, kw=kw: sam_attention.fused_window_attention_grid_plain(
+                        y, a, bb, kw["num_heads"], kw["head_dim"], W, kw["scale"],
+                        kw["dots_i8"])[:, :196],
+                    lambda l=lib: cs.window_sdpa(*l), 1e-2))
+    # K19: ViT-L's and ViT-B's 25 padded windows (one image, block layout)
+    # at 64 real lanes of 128; ViT-H's window block of the packed B=4 serve.
+    packed = sam_attention.fused_window_attention_packed
+    real_lanes = "head_dim" in inspect.signature(packed).parameters
+    for size, H, hd, N in (("vit_l", 16, 64, 25), ("vit_b", 12, 64, 25), ("vit_h", 16, 80, 100)):
+        sc = hd**-0.5
+        y = torch.zeros((N, W * W, 3, H, cs.SAM_HP), dtype=bf, device="cuda")
+        y[..., :hd] = randn(N, W * W, 3, H, hd)
+        y = y.reshape(N, W * W, 3 * H * cs.SAM_HP)
+        a, bb = (randn(N, H, W * W, W, scale=2.0) for _ in range(2))
+        lanes = {"head_dim": hd} if real_lanes else {}
+        sdpa = {}
+        for key, n in (("sdpa_ms", hd), ("sdpa_128_lanes_ms", cs.SAM_HP)):
+            y5, mask = cs.packed_sdpa_inputs(y, a, bb, H, cs.SAM_HP, n)
+            sdpa[key] = lambda y5=y5, m=mask, sc=sc: F.scaled_dot_product_attention(
+                y5[0], y5[1], y5[2], attn_mask=m, scale=sc)
+        out.append((
+            f"fused_window_attention_packed {size} hd{hd} [{N}, 196, {3 * H * cs.SAM_HP}]",
+            lambda y=y, a=a, bb=bb, H=H, sc=sc, kw=lanes: packed(y, a, bb, H, cs.SAM_HP, W, sc,
+                                                                 **kw),
+            lambda y=y, a=a, bb=bb, H=H, sc=sc: sam_attention.fused_window_attention_packed_plain(
+                y, a, bb, H, cs.SAM_HP, W, sc),
+            sdpa, 1e-2))
     # K14: every geometry of each size at hd 64 (B=1: 4 windows of each edge,
     # one corner), both score forms; ViT-H's merged pair and corner at B=16.
     sizes = (("vit_l", 16, 64), ("vit_b", 12, 64), ("vit_h", 16, 80))
@@ -111,6 +168,16 @@ def forms(cs, gen):
                         y, a, bb, H, hd),
                     None, None, 0.0))
     return out
+
+
+def digest(out) -> str:
+    """sha1 of the bits of a tensor or a nested tuple of tensors."""
+    import torch
+
+    h = hashlib.sha1()
+    for t in torch.utils._pytree.tree_leaves(out):
+        h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def set_image_lines(cs, gen, card: str) -> list:
@@ -192,6 +259,8 @@ def main(argv=None) -> int:
     ops = ("HGMMA", "IGMMA", "UTMALDG", "MUFU", "HMMA", "IMMA")
     print(json.dumps({"phase": "sam_b1_sass", "root": args.root, **{
         name: cs.sass_counts(src, fn, ops) for name, src, fn in (
+            ("k3_hd64", "sam_window_attention.cu", "window_whole_kernelILi64E"),
+            ("k19", "sam_packed_attention.cu", "window_whole_kernel"),
             ("k14_hd64", "sam_rect_attention.cu", "ILi64ELi14E"),
             ("k11_hd64", "sam_global_attention_y.cu", "GlobalYILi64E"),
             ("k11_hd64_pre_pass", "sam_global_attention_y.cu", "global_y_quant_i8_kernelILi64E"))}}),
@@ -201,9 +270,10 @@ def main(argv=None) -> int:
         line = {"phase": "sam_b1_form", "form": name, "root": args.root}
         if plain is not None:
             line.update(row_rel_err=cs.row_rel_err(run(), plain()), tol=tol)
+        line["out_sha1"] = digest(run())
         line.update(cs.spread_ms(run))
-        if sdpa is not None:
-            line["sdpa_ms"] = cs.spread_ms(sdpa)
+        for key, fn in ({"sdpa_ms": sdpa} if callable(sdpa) else sdpa or {}).items():
+            line[key] = cs.spread_ms(fn)
         line["card"] = card
         print(json.dumps(line), flush=True)
         torch.cuda.empty_cache()

@@ -329,9 +329,12 @@ def _attn_packed(x: torch.Tensor, p: Params, cfg: SamVisionConfig, size: int) ->
         out = attention_xla(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], bias=bias, scale=hd**-0.5)
         out = F.pad(out.reshape(B, S, H, hd), (0, hp - hd)).reshape(B, S, H * hp)
     else:
-        fused = fused_window_attention_packed if size <= 16 else fused_global_attention_packed
-        out = fused(y, A.contiguous(), Bb.contiguous(), num_heads=H,
-                    head_pad=hp, window=size, scale=hd**-0.5)  # [B, S, H*hp]
+        kw = dict(num_heads=H, head_pad=hp, window=size, scale=hd**-0.5)
+        A, Bb = A.contiguous(), Bb.contiguous()
+        if size <= 16:  # [B, S, H*hp]; the window kernel contracts the hd real lanes
+            out = fused_window_attention_packed(y, A, Bb, **kw, head_dim=hd)
+        else:
+            out = fused_global_attention_packed(y, A, Bb, **kw)
     out = _lin(cfg, out, p["proj"]) + p["proj_bias"]
     return out.reshape(B, size, size, C)
 

@@ -15,7 +15,10 @@ window kernel (`fused_window_attention`) takes them raw like the global
 kernel. The packed kernels (`fused_window_attention_packed`,
 `fused_global_attention_packed`) read q/k/v as the 128-lane blocks of a
 head-major padded projection output and take the terms raw, [N, H, S, W],
-added after the scale: s = q.k * scale + A + Bb.
+added after the scale: s = q.k * scale + A + Bb. The packed window kernel
+contracts the `head_dim` real lanes of each block and writes zeros to the
+rest (the packed layout's pad lanes are zero, so the result is that of
+all the lanes).
 """
 
 from __future__ import annotations
@@ -568,26 +571,29 @@ def _packed_qkv(y, num_heads: int, head_pad: int, c0: int, c1: int):
 
 
 def fused_window_attention_packed_plain(
-    y, bias_a, bias_b, num_heads: int, head_pad: int, window: int, scale: float
+    y, bias_a, bias_b, num_heads: int, head_pad: int, window: int, scale: float,
+    head_dim: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain version of `fused_window_attention_packed`, in the TPU
     kernel's arithmetic: s = q.k * scale + A[t // W] + Bb[t % W] in fp32,
     an exact softmax whose weights are normalized before they are rounded
-    to y's dtype for the value product."""
+    to y's dtype for the value product. Only the first `head_dim` lanes of
+    each block (all `head_pad` by default) are contracted and written; the
+    rest of the output is zero."""
     N, S, _ = y.shape
     H, hp, W = num_heads, head_pad, window
+    hd = hp if head_dim is None else head_dim
     t = torch.arange(S, device=y.device)
-    out = torch.empty((N, S, H * hp), dtype=y.dtype, device=y.device)
+    out = torch.zeros((N, S, H, hp), dtype=y.dtype, device=y.device)
     chunk = max(1, (1 << 26) // (H * S * S))  # bound the [n, H, S, S] fp32 scores
     for c0 in range(0, N, chunk):
         c1 = min(N, c0 + chunk)
-        q, k, v = _packed_qkv(y, H, hp, c0, c1)
+        q, k, v = (x[..., :hd] for x in _packed_qkv(y, H, hp, c0, c1))
         A, Bb = bias_a[c0:c1].float(), bias_b[c0:c1].float()
         s = torch.einsum("nhsd,nhtd->nhst", q, k) * scale + A[..., t // W] + Bb[..., t % W]
         p = torch.softmax(s, dim=-1).to(y.dtype).float()
-        o = torch.einsum("nhst,nhtd->nshd", p, v)
-        out[c0:c1] = o.reshape(c1 - c0, S, H * hp).to(y.dtype)
-    return out
+        out[c0:c1, ..., :hd] = torch.einsum("nhst,nhtd->nshd", p, v).to(y.dtype)
+    return out.reshape(N, S, H * hp)
 
 
 def fused_global_attention_packed_plain(
@@ -612,16 +618,24 @@ def fused_global_attention_packed_plain(
     return out
 
 
+# The real head widths the CUDA packed window kernel has instances for
+# (ViT-L's and ViT-B's 64, ViT-H's 80).
+_PACKED_WINDOW_HEAD_DIMS = (64, 80)
+
+
 def _packed_attention(name, y, bias_a, bias_b, num_heads, head_pad, window, scale, plain,
-                      cuda_window):
+                      cuda_window, head_dim=None):
+    """Checks, then the plain version on the CPU or kernel `name` on the
+    card; `head_dim` (the window form only) is passed on where given."""
     N, S, width = y.shape
     H, hp, W = num_heads, head_pad, window
     if S != W * W or width != 3 * H * hp:
         raise ValueError(f"y {tuple(y.shape)} does not match H={H} hp={hp} W={W}")
     if bias_a.shape != (N, H, S, W) or bias_b.shape != (N, H, S, W):
         raise ValueError(f"bias terms must be [{N}, {H}, {S}, {W}]")
+    lanes = () if head_dim is None else (head_dim,)
     if y.device.type == "cpu":
-        return plain(y, bias_a, bias_b, H, hp, W, scale)
+        return plain(y, bias_a, bias_b, H, hp, W, scale, *lanes)
     if (hp, W) != (128, cuda_window):
         raise ValueError(f"the CUDA {name} kernel is built for hp 128, W {cuda_window}; "
                          f"got {hp}, {W}")
@@ -629,7 +643,7 @@ def _packed_attention(name, y, bias_a, bias_b, num_heads, head_pad, window, scal
         kernels.check_cuda_tensor(f"{name} {label}", t, torch.bfloat16)
     out = torch.empty((N, S, H * hp), dtype=y.dtype, device=y.device)
     kernels.launch(name, kernels.ptr(y), kernels.ptr(bias_a), kernels.ptr(bias_b), kernels.ptr(out),
-                   N, H, float(scale))
+                   N, H, *lanes, float(scale))
     return out
 
 
@@ -642,15 +656,27 @@ def fused_window_attention_packed(
     window: int,
     scale: float,
     n_block: int = 8,
+    head_dim: Optional[int] = None,
 ) -> torch.Tensor:
     """Window attention on the packed head-major layout; returns the
-    [N, S, H*hp] head-major output, pad lanes included. `n_block` is TPU
-    tiling: accepted and ignored. CUDA kernel
-    `kernels/csrc/sam_packed_attention.cu` (hp 128 over any real head dim
-    up to it: ViT-H's 80, ViT-L's and ViT-B's 64; W 14, bf16) for CUDA
-    tensors, the plain version for CPU ones."""
+    [N, S, H*hp] head-major output, pad lanes included. `head_dim` is the
+    real lanes of each block, which alone are contracted; the output's
+    other lanes are written as zeros. It defaults to `head_pad` (every
+    lane, the JAX function as it is); on the packed layout's zero pad lanes
+    both give the same result. `n_block` is TPU tiling: accepted and
+    ignored. CUDA kernel `kernels/csrc/sam_packed_attention.cu` (hp 128,
+    head_dim 64 or 80: ViT-L's and ViT-B's, ViT-H's; W 14, bf16) for CUDA
+    tensors, which raises ValueError for any other head_dim; the plain
+    version for CPU ones."""
+    hd = head_pad if head_dim is None else head_dim
+    if not 0 < hd <= head_pad:
+        raise ValueError(f"head_dim {hd} must be in [1, head_pad {head_pad}]")
+    if y.device.type != "cpu" and hd not in _PACKED_WINDOW_HEAD_DIMS:
+        raise ValueError(f"the CUDA fused_window_attention_packed kernel is built for head_dim "
+                         f"{_PACKED_WINDOW_HEAD_DIMS}; got {hd}")
     return _packed_attention("fused_window_attention_packed", y, bias_a, bias_b, num_heads,
-                             head_pad, window, scale, fused_window_attention_packed_plain, 14)
+                             head_pad, window, scale, fused_window_attention_packed_plain, 14,
+                             head_dim=hd)
 
 
 def fused_global_attention_packed(
