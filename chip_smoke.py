@@ -604,6 +604,16 @@ K4_MUTANTS = {
     "bias_not_prescaled": ("sam_global_attention.cu", "ULLAVA_MUTANT_GLOBAL_BIAS_RAW"),
 }
 K4_ATTRS = ("sam_global_attention.cu", "ullava_fused_global_attention_attrs")
+# The deliberate bugs of K4 at hd 64 on the core's three-warpgroup B1
+# schedule (K20's: `K20_B1_MUTANTS`): a column pair's second score taking
+# the pair's first B term, the last, 64-row query tile's rows stored at the
+# previous tile's offset (gated on an output block just filled with NaN),
+# and with bf16 exponentials the row sums of a tile's first 16 keys.
+K4_B1_MUTANTS = {
+    "b_terms_pair_first": ("sam_global_attention.cu", "ULLAVA_MUTANT_GLOBAL_B1_B_PAIR"),
+    "tail_rows_shifted": ("sam_global_attention.cu", "ULLAVA_MUTANT_GLOBAL_TAIL_ROWS_SHIFTED")}
+K4_ONES_MUTANTS = {
+    "row_sums_first_k_step": ("sam_global_attention.cu", "ULLAVA_MUTANT_GLOBAL_ONES_FIRST_KSTEP")}
 
 
 def k4_line(gen, N, hd, W=64, iters=5) -> dict:
@@ -2896,13 +2906,22 @@ PACKED_MUTANTS = {
     "kv_lens_ignored": ("decode_attention_int8.cu", "ULLAVA_MUTANT_DECODE_NO_KV_LENS"),
     "peer_l_dropped": ("decode_attention_int8.cu", "ULLAVA_MUTANT_DECODE_PEER_L_DROPPED"),
 }
-# The deliberate bugs of K19 on its real lanes: the output's pad lanes left
-# as the allocator handed them over (gated on an output block that was just
-# filled with NaN, `_after_nan_fill`), k read from lane 128 - hd / 2 of its
-# block, across the 128-lane boundary.
+# The deliberate bugs of K19 and K20 on their real lanes: the output's pad
+# lanes left as the allocator handed them over (gated on an output block
+# that was just filled with NaN, `_after_nan_fill`), k read from lane
+# 128 - hd / 2 of its block, across the 128-lane boundary.
 PACKED_LANE_MUTANTS = {
     "pad_lanes_unwritten": ("sam_packed_attention.cu", "ULLAVA_MUTANT_PACKED_PAD_LANES_UNWRITTEN"),
     "k_across_lane_block": ("sam_packed_attention.cu", "ULLAVA_MUTANT_PACKED_K_ACROSS_BLOCK")}
+# The deliberate bugs of the hd 64 global forms on the core's three-
+# warpgroup B1 schedule, in K20's source (K4's: `K4_B1_MUTANTS`): a column
+# pair's second score taking the pair's first B term, and the last, 64-row
+# query tile's rows stored at the previous tile's offset (gated on an
+# output block just filled with NaN).
+K20_B1_MUTANTS = {
+    "b_terms_pair_first": ("sam_packed_attention.cu", "ULLAVA_MUTANT_GLOBAL_B1_B_PAIR"),
+    "tail_rows_shifted": ("sam_packed_attention.cu", "ULLAVA_MUTANT_GLOBAL_TAIL_ROWS_SHIFTED")}
+K20_ATTRS = ("sam_packed_attention.cu", "ullava_global_attention_packed_attrs")
 K22_ATTRS = ("decode_attention_int8.cu", "ullava_decode_attention_int8_attrs")
 PACKED_NAMES = ("fused_window_attention_packed", "fused_global_attention_packed")
 # Kernels that no path of either package calls: each line reports its
@@ -2940,11 +2959,13 @@ def _after_nan_fill(run, shape):
     return out
 
 
-def packed_window_line(name, run, plain, y, a, bb, got, ref, info, H, hd, hp, iters):
-    """K19's timed line: its bound over the bytes it moves (the real lanes
-    of q, k and v, the bias terms, the whole output, pad lanes written)
-    beside the old bound over all 128 lanes; SDPA + mask over the real
-    lanes (`library_ms`) and over the 128 (`library_ms_128_lanes`)."""
+def packed_line(name, run, plain, y, a, bb, got, ref, info, H, hd, hp, iters, attrs):
+    """K19's or K20's timed line: its bound over the real lanes (K19 the
+    bytes it moves: the real lanes of q, k and v, the bias terms, the whole
+    output, pad lanes written; K20 its products over the real lanes) beside
+    the bound over all 128 lanes; SDPA + mask over the real lanes
+    (`library_ms`) and over the 128 (`library_ms_128_lanes`); the kernel's
+    attributes through `attrs` (its (source, entry))."""
     import torch.nn.functional as F
 
     from ullava_tpu_torch import kernels
@@ -2966,7 +2987,7 @@ def packed_window_line(name, run, plain, y, a, bb, got, ref, info, H, hd, hp, it
     line["bound_ms_128_lanes"] = bound_ms(nbytes(y, a, bb, got), flops * hp / hd)[0]
     line.update(shape=[N, S, 3 * H * hp], heads=H, head_dim=hd,
                 tflops_real_lanes=flops / line["ms"] / 1e9,
-                kernel=kernels.kernel_attrs(*WINDOW_ATTRS["packed"], hd))
+                kernel=kernels.kernel_attrs(*attrs, hd))
     return line
 
 
@@ -2985,16 +3006,15 @@ def packed_kernel_phases(gen, results: dict) -> None:
     `window_whole.cuh`). Each gate must reject the source rebuilt with a
     deliberate bug (`PACKED_MUTANTS`; the global form's A term of a
     128-key tile's first grid row for both halves too; K19's
-    `PACKED_LANE_MUTANTS`, run on an output block just filled with NaN)
-    and a mutated input (bias terms swapped; for the decode kernel the key
-    and value scales swapped). The packed global kernel's line gives the
-    global core's SASS counts. Bounds: K19 the bytes it moves over the 80
-    real lanes it contracts (`packed_window_line`, the 128-lane bound
-    beside), K20 its products over all 128 lanes (the function contracts
-    them; the 80 real lanes' bound is reported beside), the window
+    `PACKED_LANE_MUTANTS`, K19's and K20's, run on an output block just
+    filled with NaN) and a mutated input (bias terms swapped; for the
+    decode kernel the key and value scales swapped). The packed global
+    kernel's line gives the global core's SASS counts. Bounds: K19 the
+    bytes it moves over the 80 real lanes it contracts, K20 its products
+    over them (`packed_line`, the 128-lane bounds beside), the window
     kernel's and the decode kernel's bytes. The library yardsticks: SDPA
-    with the bias as a materialised bf16 mask (K19's over the real lanes,
-    the 128 beside); the decode kernel has none."""
+    with the bias as a materialised bf16 mask (K19's and K20's over the
+    real lanes, the 128 beside); the decode kernel has none."""
     import torch
     import torch.nn.functional as F
 
@@ -3025,48 +3045,36 @@ def packed_kernel_phases(gen, results: dict) -> None:
         return out
 
     # K19 and K20: a packed y with zero pad lanes, raw bias terms of the
-    # encoder's size (q . rel_pos with an unscaled q: a few units). K19
-    # contracts the real lanes (`head_dim`); its gated runs write into a
+    # encoder's size (q . rel_pos with an unscaled q: a few units). Both
+    # contract the real lanes (`head_dim`); their gated runs write into a
     # block just filled with NaN, so that pad lanes left unwritten show.
     for name, N, Wn, iters in (("fused_window_attention_packed", B * 25, W, 20),
                                ("fused_global_attention_packed", B, 64, 5)):
         S = Wn * Wn
         window = name == "fused_window_attention_packed"
-        lanes = {"head_dim": hd} if window else {}
         y = torch.zeros((N, S, 3, H, hp), dtype=bf, device=dev)
         y[..., :hd] = randn(N, S, 3, H, hd)
         y = y.reshape(N, S, 3 * H * hp)
         a, bb = (randn(N, H, S, Wn, scale=2.0) for _ in range(2))
         fn = getattr(sam_attention, name)
         plain_fn = getattr(sam_attention, f"{name}_plain")
-        run = lambda a_=a, b_=bb, y=y, fn=fn, Wn=Wn, kw=lanes: fn(  # noqa: E731
-            y, a_, b_, H, hp, Wn, sc, **kw)
-        plain = lambda y=y, a=a, bb=bb, f=plain_fn, Wn=Wn, kw=lanes: f(  # noqa: E731
-            y, a, bb, H, hp, Wn, sc, **kw)
-        gated = (lambda run=run, shape=(N, S, H * hp): _after_nan_fill(run, shape)) if window else run
+        run = lambda a_=a, b_=bb, y=y, fn=fn, Wn=Wn: fn(  # noqa: E731
+            y, a_, b_, H, hp, Wn, sc, head_dim=hd)
+        plain = lambda y=y, a=a, bb=bb, f=plain_fn, Wn=Wn: f(  # noqa: E731
+            y, a, bb, H, hp, Wn, sc, head_dim=hd)
+        gated = lambda run=run, shape=(N, S, H * hp): _after_nan_fill(run, shape)  # noqa: E731
         got, ref = gated(), plain()
-        bugs = ("bias_read_prescaled", "k_one_head_over") + (
-            ("quad_max_dropped", *PACKED_LANE_MUTANTS) if window else ("a_term_one_grid_row",))
+        bugs = ("bias_read_prescaled", "k_one_head_over", *PACKED_LANE_MUTANTS) + (
+            ("quad_max_dropped",) if window else ("a_term_one_grid_row",))
         info = gate(name, got, ref, {**mutated(gated, *bugs), "bias_swapped": run(bb, a)})
         info["pad_lanes_zero"] = bool(torch.all(got.reshape(N, S, H, hp)[..., hd:] == 0))
         must(name, info["pad_lanes_zero"], "pad lanes of the output are not zero")
+        line = packed_line(name, run, plain, y, a, bb, got, ref, info, H, hd, hp, iters,
+                           WINDOW_ATTRS["packed"] if window else K20_ATTRS)
         if window:
-            line = packed_window_line(name, run, plain, y, a, bb, got, ref, info, H, hd, hp, iters)
             line["sass"] = sass_counts("sam_packed_attention.cu", "window_whole_kernel")
         else:
-            y5, mask = packed_sdpa_inputs(y, a, bb, H, hp)
-            flops = 4.0 * N * H * S * S * hp
-            io = nbytes(y, a, bb, got)
-            line = kernel_line(
-                name, (got.float() - ref.float()).abs().max().item(), info, run, plain,
-                lambda y5=y5, m=mask: F.scaled_dot_product_attention(y5[0], y5[1], y5[2],
-                                                                     attn_mask=m, scale=sc),
-                io, flops, iters=iters)
-            line["bound_ms_real_lanes"] = bound_ms(io, flops * hd / hp)[0]
-            line["shape"] = [N, S, 3 * H * hp]
-            line["tflops_128_lanes"] = flops / line["ms"] / 1e9
             line["sass"] = global_core_sass("sam_packed_attention.cu")
-            del y5, mask
         results[name] = line
         del y, a, bb, got, ref
         torch.cuda.empty_cache()
@@ -5827,10 +5835,12 @@ def sam_hd64_kernel_gates(gen, results: dict, forms: dict) -> dict:
     (the bf16-exponential K11 2e-2) and failing under each mutant copy of
     its source: K3 on 16 full windows of 196 rows (bf16) and of 200 rows
     (int8 towers: the pad rows finite), K14 (bf16) on the right, bottom and
-    corner classes one at a time and on the merged edge pair, K4 on the 16 or 12 (image, head) pairs with fp32
-    exponentials, K11 on ViT-L's 16 heads with bf16 ones; the mutants of the
-    B=1 schedules of K14 and K11 (`RECT_HD64_MUTANTS`, `GLOBAL_Y_HD64_MUTANTS`,
-    `GLOBAL_Y_ONES_MUTANTS`) beside the cores' own; and, at ViT-L's
+    corner classes one at a time and on the merged edge pair, K4 on the 16 or 12 (image, head) pairs in
+    both exponential forms (2e-2 with bf16 ones) into an output block just
+    filled with NaN, K11 on ViT-L's 16 heads with bf16 ones; the mutants of the
+    B=1 schedules of K14, K11 and K4 (`RECT_HD64_MUTANTS`, `GLOBAL_Y_HD64_MUTANTS`,
+    `GLOBAL_Y_ONES_MUTANTS`, `K4_B1_MUTANTS`, `K4_ONES_MUTANTS`) beside the
+    cores' own; and, at ViT-L's
     widths (C 1024, F 4096), the W8A8 K13 on the full class (rows2 196),
     the pair and the corner, K10's proj form on the same rows and its LN1 +
     qkv form and K12 on a global block's 4096 rows (`sam_w8a8_width_gates`,
@@ -5930,9 +5940,17 @@ def sam_hd64_kernel_gates(gen, results: dict, forms: dict) -> dict:
         rel_h, rel_w = (randn(2 * G - 1, hd, scale=0.25) for _ in range(2))
         a, bb = (t.reshape(H, S, G).to(bf) for t in sam_attention.decomposed_bias_terms(
             q.reshape(1, H, G, G, hd), rel_h, rel_w, G))
-        run = lambda: sam_attention.fused_global_attention(q, k, v, a, bb, G, sc)  # noqa: E731
+        run = lambda e=False: sam_attention.fused_global_attention(  # noqa: E731
+            q, k, v, a, bb, G, sc, exp_bf16=e)
+        gated = lambda e=False: _after_nan_fill(lambda: run(e), (H, S, hd))  # noqa: E731
         ref = sam_attention.fused_global_attention_plain(q, k, v, a, bb, G, sc)
-        gate(f"{size} fused_global_attention_hd64 {H} x 4096", run, ref, K4_MUTANTS)
+        gate(f"{size} fused_global_attention_hd64 {H} x 4096", gated, ref,
+             {**K4_MUTANTS, **K4_B1_MUTANTS})
+        ref16 = sam_attention.fused_global_attention_plain(q, k, v, a, bb, G, sc, exp_bf16=True)
+        _kernel_gate(out, 2e-2)(f"{size} fused_global_attention_hd64 exp_bf16 {H} x 4096",
+                                lambda: gated(True), ref16,
+                                {**K4_MUTANTS, **K4_B1_MUTANTS, **K4_ONES_MUTANTS})
+        del ref16
         if size == "vit_l":
             gmask = (a.float()[:, :, :, None] + bb.float()[:, :, None, :]).reshape(H, S, S).to(bf)
             got = run()
@@ -6093,9 +6111,9 @@ def sam_hd64_i8_kernel_gates(gen, results: dict, forms: dict) -> dict:
     windows of 196 and of 200 rows, K14's on the merged edge pair, the
     corner and each edge alone, K11's pre-pass and its `dots_i8` form in both exponential
     forms, K11's bf16-score form at 12 heads, K19 on the 25 padded windows
-    over its 64 real lanes (`head_dim`; its gated runs on an output block
-    just filled with NaN, with `PACKED_LANE_MUTANTS`) and K20 on the global
-    grid at hp 128 over 64 real lanes; the W8A8 K10,
+    and K20 on the global grid, both at hp 128 over their 64 real lanes
+    (`head_dim`; their gated runs on an output block just filled with NaN,
+    with `PACKED_LANE_MUTANTS`, K20 also with `K20_B1_MUTANTS`); the W8A8 K10,
     K12, K13 at ViT-B's widths (`sam_w8a8_width_gates`: C 768, F 3072, K13's
     648 bias-term columns). Adds the four new kernels' lines to `results`
     (timed at both sizes) and the other forms' timed lines to `forms`
@@ -6255,48 +6273,36 @@ def sam_hd64_i8_kernel_gates(gen, results: dict, forms: dict) -> dict:
         del y, a, bb, y5, mask
 
         # K19 and K20 at hp 128 over 64 real lanes, the pad lanes zero as
-        # `pack_sam_attention` makes them; K19 contracts the 64 (`head_dim`)
-        # on the B=1 schedule, its gated runs on a block just filled with NaN.
+        # `pack_sam_attention` makes them; both contract the 64
+        # (`head_dim`) on their B=1 schedules, their gated runs on a block
+        # just filled with NaN (K20 also with the B1 schedule's mutants).
         for name, N, Wn in (("fused_window_attention_packed", 25, W),
                             ("fused_global_attention_packed", 1, G)):
             Sn = Wn * Wn
             window = Wn == W
-            lanes = {"head_dim": hd} if window else {}
             y = torch.zeros((N, Sn, 3, H, SAM_HP), dtype=bf, device=dev)
             y[..., :hd] = randn(N, Sn, 3, H, hd)
             y = y.reshape(N, Sn, 3 * H * SAM_HP)
             a, bb = (randn(N, H, Sn, Wn, scale=2.0) for _ in range(2))
             fn, plain_fn = getattr(sam_attention, name), getattr(sam_attention, f"{name}_plain")
-            run = lambda a_=a, b_=bb, y=y, fn=fn, Wn=Wn, kw=lanes: fn(  # noqa: E731
-                y, a_, b_, H, SAM_HP, Wn, sc, **kw)
-            plain = lambda y=y, a=a, bb=bb, f=plain_fn, Wn=Wn, kw=lanes: f(  # noqa: E731
-                y, a, bb, H, SAM_HP, Wn, sc, **kw)
-            gated = ((lambda run=run, shape=(N, Sn, H * SAM_HP): _after_nan_fill(run, shape))
-                     if window else run)
+            run = lambda a_=a, b_=bb, y=y, fn=fn, Wn=Wn: fn(  # noqa: E731
+                y, a_, b_, H, SAM_HP, Wn, sc, head_dim=hd)
+            plain = lambda y=y, a=a, bb=bb, f=plain_fn, Wn=Wn: f(  # noqa: E731
+                y, a, bb, H, SAM_HP, Wn, sc, head_dim=hd)
+            gated = lambda run=run, shape=(N, Sn, H * SAM_HP): _after_nan_fill(run, shape)  # noqa: E731
             ref = plain()
             bugs = {b_: PACKED_MUTANTS[b_] for b_ in ("bias_read_prescaled", "k_one_head_over") + (
                 ("quad_max_dropped",) if window else ("a_term_one_grid_row",))}
-            if window:
-                bugs.update(PACKED_LANE_MUTANTS)
+            bugs.update(PACKED_LANE_MUTANTS)
+            if not window:
+                bugs.update(K20_B1_MUTANTS)
             info = gate(f"{size} {name} hd64", gated, ref, bugs,
                         {"bias_swapped": lambda run=run, a=a, bb=bb: run(a_=bb, b_=a)})
             got = gated()
             info["pad_lanes_zero"] = bool(torch.all(got.reshape(N, Sn, H, SAM_HP)[..., hd:] == 0))
             must(f"{size} {name} hd64", info["pad_lanes_zero"], "pad lanes of the output are not zero")
-            if window:
-                line = packed_window_line(name, run, plain, y, a, bb, got, ref, info, H, hd,
-                                          SAM_HP, 10)
-            else:
-                y5, mask = packed_sdpa_inputs(y, a, bb, H, SAM_HP)
-                flops, io = 4.0 * N * H * Sn * Sn * SAM_HP, nbytes(y, a, bb, got)
-                line = kernel_line(
-                    name, max_abs(got, ref), info, run, plain,
-                    lambda y5=y5, m=mask: F.scaled_dot_product_attention(y5[0], y5[1], y5[2],
-                                                                         attn_mask=m, scale=sc),
-                    io, flops, iters=10)
-                line.update(bound_ms_real_lanes=bound_ms(io, flops * hd / SAM_HP)[0],
-                            shape=[N, Sn, 3 * H * SAM_HP], heads=H, head_dim=hd)
-                del y5, mask
+            line = packed_line(name, run, plain, y, a, bb, got, ref, info, H, hd, SAM_HP, 10,
+                               WINDOW_ATTRS["packed"] if window else K20_ATTRS)
             forms.setdefault(name, {})[f"hd64_{size}_form"] = form_of(line)
             del y, a, bb, got, ref
         torch.cuda.empty_cache()
@@ -7270,7 +7276,8 @@ def main() -> int:
         *WQ_EPILOGUE_MUTANTS.values(), WQ_DUAL_MUTANT, *K4_MUTANTS.values(),
         *K18_MUTANTS.values(), *RECT_HD64_MUTANTS.values(), *GLOBAL_Y_HD64_MUTANTS.values(),
         *GLOBAL_Y_ONES_MUTANTS.values(), *GLOBAL_Y_QS_MUTANTS.values(),
-        *PACKED_LANE_MUTANTS.values()])
+        *PACKED_LANE_MUTANTS.values(), *K4_B1_MUTANTS.values(), *K4_ONES_MUTANTS.values(),
+        *K20_B1_MUTANTS.values()])
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "sources": sorted(built)}), flush=True)
     mark("build")

@@ -1,15 +1,17 @@
 """On the card: the CUDA kernels of the SAM packed attention layout and the
 two kernels no path calls, against their plain PyTorch versions in bf16:
-the packed window kernel (hp 128, W 14, over its 80 or 64 real lanes: the
-pad lanes of its output zero on a block just filled with NaN, its
-attributes, its deliberate bugs caught), the packed global kernel (hp 128,
-W 64), the per-(window, head) window kernel (hd 80, W 14; also at one
+the packed window kernel (hp 128, W 14) and the packed global kernel (hp
+128, W 64), each over its 80 or 64 real lanes (the pad lanes of its
+output zero on a block just filled with NaN, its attributes, its
+deliberate bugs caught), the per-(window, head) window kernel (hd 80, W 14; also at one
 ViT-H B=4 window block and against the grid window kernel on the same
 windows) and the decode attention over the int8 cache that writes nothing
 (LLaMA-7B's head width, ragged kv_lens, GQA, and a long cache split over
 a cluster of blocks, with a uniform row); then a small packed encoder
 against the same weights unpacked. Every test here needs an NVIDIA GPU and skips without
-one. The file imports torch only, so it runs on a machine that has no JAX:
+one, and has a time limit (`_LIMIT_S`): a kernel that hangs, as a wrong
+barrier order does, ends the run with every thread's traceback. The file
+imports torch only, so it runs on a machine that has no JAX:
 
     python -m pytest tests/test_torch_cuda_packed.py -q
 
@@ -22,6 +24,8 @@ scale).
 """
 
 import dataclasses
+import faulthandler
+import sys
 
 import pytest
 import torch
@@ -32,6 +36,17 @@ from ullava_tpu_torch.ops import decode_attention, sam_attention
 
 _TOL = 1e-2
 _H, _HD, _HP = 16, 80, 128
+
+
+# Seconds a test may take, its kernels' first build included.
+_LIMIT_S = 300
+
+
+@pytest.fixture(autouse=True)
+def _time_limit():
+    faulthandler.dump_traceback_later(_LIMIT_S, exit=True, file=sys.__stderr__)
+    yield
+    faulthandler.cancel_dump_traceback_later()
 
 
 @pytest.fixture
@@ -75,9 +90,7 @@ def _after_nan_fill(run, shape):
 def test_cuda_packed_attention_matches_plain(cuda, W, N):
     y = _packed_y(cuda, N, W)
     a, b = (_rand(cuda, N, _H, W * W, W, scale=2.0) for _ in range(2))
-    kw = dict(num_heads=_H, head_pad=_HP, window=W, scale=_HD**-0.5)
-    if W == 14:  # the window kernel over its real lanes
-        kw["head_dim"] = _HD
+    kw = dict(num_heads=_H, head_pad=_HP, window=W, scale=_HD**-0.5, head_dim=_HD)
     fn, plain = ((sam_attention.fused_window_attention_packed,
                   sam_attention.fused_window_attention_packed_plain) if W == 14 else
                  (sam_attention.fused_global_attention_packed,
@@ -98,6 +111,22 @@ _PACKED_SRC = "sam_packed_attention.cu"
 _PACKED_BUGS = ["ULLAVA_MUTANT_PACKED_PAD_LANES_UNWRITTEN", "ULLAVA_MUTANT_PACKED_K_ACROSS_BLOCK",
                 "ULLAVA_MUTANT_PACKED_BIAS_PRESCALED", "ULLAVA_MUTANT_PACKED_HEAD_OFFSET",
                 "ULLAVA_MUTANT_WINDOW_NO_QUAD_MAX"]
+# K20's: the real lanes' two, the after-scale form's, the global core's A
+# term; at hd 64 the three-warpgroup B1 schedule's B pair and short last
+# query tile.
+_GLOBAL_BUGS = ["ULLAVA_MUTANT_PACKED_PAD_LANES_UNWRITTEN", "ULLAVA_MUTANT_PACKED_K_ACROSS_BLOCK",
+                "ULLAVA_MUTANT_PACKED_BIAS_PRESCALED", "ULLAVA_MUTANT_PACKED_HEAD_OFFSET",
+                "ULLAVA_MUTANT_GLOBAL_A_ONE_ROW"]
+_GLOBAL_HD64_BUGS = ["ULLAVA_MUTANT_GLOBAL_B1_B_PAIR", "ULLAVA_MUTANT_GLOBAL_TAIL_ROWS_SHIFTED"]
+
+
+@pytest.fixture(scope="module")
+def packed_mutants():
+    """Every mutant copy of the packed source this file gates, built at
+    once (one nvcc each, in parallel)."""
+    if torch.cuda.is_available():
+        kernels.build_all(mutants=[(_PACKED_SRC, d) for d in
+                                   {*_PACKED_BUGS, *_GLOBAL_BUGS, *_GLOBAL_HD64_BUGS}])
 
 
 def _packed_window_case(gen, N, H, hd):
@@ -148,8 +177,68 @@ def test_cuda_packed_window_attrs(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("define", _PACKED_BUGS)
 @pytest.mark.parametrize("hd", [64, 80], ids=["hd64", "hd80"])
-def test_cuda_packed_window_mutants_caught(cuda, hd, define):
+def test_cuda_packed_window_mutants_caught(cuda, packed_mutants, hd, define):
     run, ref = _packed_window_case(cuda, 25 if hd == 64 else 100, 16, hd)
+    with kernels.mutant(_PACKED_SRC, define):
+        got = _after_nan_fill(run, tuple(ref.shape))
+    assert not _row_rel_err(got, ref) <= _TOL
+
+
+def _packed_global_case(gen, B, H, hd):
+    y = _packed_y(gen, B, 64, H, hd)
+    a, b = (_rand(gen, B, H, 4096, 64, scale=2.0) for _ in range(2))
+    run = lambda: sam_attention.fused_global_attention_packed(  # noqa: E731
+        y, a, b, H, _HP, 64, hd**-0.5, head_dim=hd)
+    ref = sam_attention.fused_global_attention_packed_plain(y, a, b, H, _HP, 64, hd**-0.5,
+                                                            head_dim=hd)
+    return run, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,hd,B", [(16, 64, 1), (12, 64, 1), (16, 64, 2), (3, 64, 1),
+                                    (16, 80, 4), (16, 80, 1)],
+                         ids=["vit_l", "vit_b", "vit_l_b2", "h3", "vit_h_b4", "vit_h_b1"])
+def test_cuda_packed_global_real_lanes_matches_plain(cuda, H, hd, B):
+    """K20 over its real lanes (the three-warpgroup B1 schedule at hd 64,
+    whose 22nd query tile of an (image, head) holds 64 rows; the
+    two-warpgroup one at hd 80) against its plain version, into an output
+    block just filled with NaN: one launch, the pad lanes exactly zero."""
+    run, ref = _packed_global_case(cuda, B, H, hd)
+    before = kernels.launch_counts()["fused_global_attention_packed"]
+    got = _after_nan_fill(run, (B, 4096, H * _HP))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_global_attention_packed"] == before + 1
+    assert _row_rel_err(got, ref) <= _TOL
+    assert torch.all(got.reshape(B, 4096, H, _HP)[..., hd:] == 0)
+
+
+@pytest.mark.cuda
+def test_cuda_packed_global_refuses_other_head_dims(cuda):
+    """No HD 128 instance: every lane (the default), and any width but 64
+    and 80, is refused, never the plain version."""
+    y = _packed_y(cuda, 1, 64)
+    a, b = (_rand(cuda, 1, _H, 4096, 64) for _ in range(2))
+    for hd in (128, 96, 32):
+        with pytest.raises(ValueError, match="head_dim"):
+            sam_attention.fused_global_attention_packed(y, a, b, _H, _HP, 64, 0.1, head_dim=hd)
+    with pytest.raises(ValueError, match="head_dim"):
+        sam_attention.fused_global_attention_packed(y, a, b, _H, _HP, 64, 0.1)
+
+
+@pytest.mark.cuda
+def test_cuda_packed_global_attrs(cuda):
+    """One block an SM, nothing spilled: three consumer warpgroups at
+    hd 64 (512 threads), two at hd 80 (384)."""
+    for hd in (64, 80):
+        attrs = kernels.kernel_attrs(_PACKED_SRC, "ullava_global_attention_packed_attrs", hd)
+        assert attrs["blocks_per_sm"] == 1 and attrs["spill_bytes"] == 0, (hd, attrs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,define", [(64, d) for d in _GLOBAL_BUGS + _GLOBAL_HD64_BUGS] +
+                         [(80, d) for d in _GLOBAL_BUGS])
+def test_cuda_packed_global_mutants_caught(cuda, packed_mutants, hd, define):
+    run, ref = _packed_global_case(cuda, 1, 16, hd)
     with kernels.mutant(_PACKED_SRC, define):
         got = _after_nan_fill(run, tuple(ref.shape))
     assert not _row_rel_err(got, ref) <= _TOL

@@ -5,11 +5,18 @@ boundary-window kernel: one warp a 16-row query tile, the pad keys' sums
 in closed form) and K11 (the lane-sliced global kernel: the scores in q.k
 units with one fma a score, the bf16 exponentials' row sums by the ones
 column of P V, the `dots_i8` codes held as bf16 with the row's q scale in
-the exponent's factor) against their plain PyTorch versions at ViT-L's 16
-heads and ViT-B's 12, every boundary geometry, one window of each class
-up to a batch of 16, one and two images; and each mechanism's deliberate
-bug (`-DULLAVA_MUTANT_*`) caught by the same comparison. Every test here needs an NVIDIA GPU and skips
-without one; the file imports torch only:
+the exponent's factor) and K4 (the head-major global kernel at hd 64, on
+the same arithmetic with three consumer warpgroups on 192-row query
+tiles, the last one of an (image, head) 64 rows) against their plain
+PyTorch versions at ViT-L's 16 heads and ViT-B's 12, every boundary
+geometry, one window of each class up to a batch of 16, one and two
+images; each mechanism's deliberate bug (`-DULLAVA_MUTANT_*`) caught by
+the same comparison; and the launches of `SamPredictor.set_image` at
+ViT-L's and ViT-B's widths (four blocks) in bf16 and packed, exactly as
+its blocks say. Every test here needs an NVIDIA GPU and skips without
+one, and has a time limit (`_LIMIT_S`): a kernel that hangs, as a wrong
+barrier order does, ends the run with every thread's traceback. The file
+imports torch only:
 
     python -m pytest tests/test_torch_cuda_sam_b1.py -q
 
@@ -17,17 +24,33 @@ Gate: `test_torch_cuda_sam_hd64.py`'s: 1e-2 of each row's largest value,
 2e-2 with bf16 exponentials; the pre-pass bit for bit.
 """
 
+import dataclasses
+import faulthandler
+import sys
+
+import numpy as np
 import pytest
 import torch
 
 from ullava_tpu_torch import kernels
-from ullava_tpu_torch.models.sam import image_encoder
+from ullava_tpu_torch.models.sam import build, image_encoder, predictor
 from ullava_tpu_torch.ops import sam_attention
 
 _HD, _W, _G = 64, 14, 64
 _SC = _HD**-0.5
 _GEOMS = {"edge_pair": [(14, 8), (8, 14)], "right": [(14, 8)], "bottom": [(8, 14)],
           "corner": [(8, 8)]}
+
+
+# Seconds a test may take, its kernels' first build included.
+_LIMIT_S = 300
+
+
+@pytest.fixture(autouse=True)
+def _time_limit():
+    faulthandler.dump_traceback_later(_LIMIT_S, exit=True, file=sys.__stderr__)
+    yield
+    faulthandler.cancel_dump_traceback_later()
 
 
 @pytest.fixture
@@ -217,3 +240,107 @@ def test_cuda_global_y_hd64_b1_mutants_caught(cuda, define, dots_i8):
     with kernels.mutant("sam_global_attention_y.cu", define):
         got = sam_attention.fused_global_attention_y(y, a, bb, **kw)
     assert _row_rel_err(got, ref) > 2e-2
+
+
+def _after_nan_fill(run, shape):
+    """`run()` on an output block the caching allocator hands back right
+    after it was filled with NaN (asserted): rows a kernel leaves unwritten
+    read NaN."""
+    junk = torch.full(shape, float("nan"), dtype=torch.bfloat16, device="cuda")
+    ptr = junk.data_ptr()
+    del junk
+    out = run()
+    assert out.data_ptr() == ptr
+    return out
+
+
+def _k4_case(gen, N):
+    """K4's inputs at N (image, head) pairs of hd 64: the bias terms from
+    `decomposed_bias_terms` of the unscaled q, as the encoder makes them."""
+    S = _G * _G
+    q, k, v = (_rand(gen, N, S, _HD) for _ in range(3))
+    rel_h, rel_w = (_rand(gen, 2 * _G - 1, _HD, scale=0.25) for _ in range(2))
+    a, bb = (t.reshape(N, S, _G).to(torch.bfloat16) for t in sam_attention.decomposed_bias_terms(
+        q.reshape(1, N, _G, _G, _HD), rel_h, rel_w, _G))
+    return q, k, v, a, bb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [16, 12, 32, 1], ids=["vit_l", "vit_b", "two_images", "one"])
+@pytest.mark.parametrize("exp_bf16,tol", [(False, 1e-2), (True, 2e-2)])
+def test_cuda_global_hd64_b1_matches_plain(cuda, exp_bf16, tol, N):
+    """K4 at hd 64 on the three-warpgroup schedule, into an output block
+    just filled with NaN: every row written, one launch."""
+    q, k, v, a, bb = _k4_case(cuda, N)
+    before = kernels.launch_counts()["fused_global_attention_hd64"]
+    got = _after_nan_fill(lambda: sam_attention.fused_global_attention(
+        q, k, v, a, bb, _G, _SC, exp_bf16=exp_bf16), tuple(q.shape))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_global_attention_hd64"] == before + 1
+    ref = sam_attention.fused_global_attention_plain(q, k, v, a, bb, _G, _SC, exp_bf16=exp_bf16)
+    assert _row_rel_err(got, ref) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_global_hd64_b1_attrs(cuda):
+    """512 threads (three consumer warpgroups), one block an SM, nothing
+    spilled, in both exponential forms."""
+    for e in (0, 1):
+        attrs = kernels.kernel_attrs("sam_global_attention.cu",
+                                     "ullava_fused_global_attention_hd64_attrs", e)
+        assert attrs["blocks_per_sm"] == 1 and attrs["spill_bytes"] == 0, (e, attrs)
+
+
+_K4_BUGS = [(d, e) for d in ("ULLAVA_MUTANT_GLOBAL_B1_B_PAIR",
+                             "ULLAVA_MUTANT_GLOBAL_TAIL_ROWS_SHIFTED",
+                             "ULLAVA_MUTANT_GLOBAL_A_ONE_ROW", "ULLAVA_MUTANT_GLOBAL_BIAS_RAW")
+            for e in (False, True)] + [("ULLAVA_MUTANT_GLOBAL_ONES_FIRST_KSTEP", True)]
+
+
+@pytest.fixture(scope="module")
+def k4_mutants():
+    """Every mutant copy of K4's source this file gates, built at once."""
+    if torch.cuda.is_available():
+        kernels.build_all(mutants=[("sam_global_attention.cu", d) for d in {d for d, _ in _K4_BUGS}])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("define,exp_bf16", _K4_BUGS)
+def test_cuda_global_hd64_b1_mutants_caught(cuda, k4_mutants, define, exp_bf16):
+    q, k, v, a, bb = _k4_case(cuda, 16)
+    ref = sam_attention.fused_global_attention_plain(q, k, v, a, bb, _G, _SC, exp_bf16=exp_bf16)
+    with kernels.mutant("sam_global_attention.cu", define):
+        got = _after_nan_fill(lambda: sam_attention.fused_global_attention(
+            q, k, v, a, bb, _G, _SC, exp_bf16=exp_bf16), tuple(q.shape))
+    assert not _row_rel_err(got, ref) <= (2e-2 if exp_bf16 else 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["bf16", "packed"])
+@pytest.mark.parametrize("size", ["vit_l", "vit_b"])
+def test_cuda_predictor_launches_exact(cuda, size, weights):
+    """`set_image` on a 480 x 640 image at full width, cut to two groups of
+    a window and a global block: the bf16 weights (the resident layout)
+    launch K3 once and K14 three times a window block and K4 once a global
+    block; packed weights K19 once a window block and K20 once a global
+    block; nothing else. The embedding is finite."""
+    cfg = getattr(build, f"sam_{size}")(torch.bfloat16)
+    cfg = dataclasses.replace(cfg, vision=dataclasses.replace(
+        cfg.vision, depth=4, global_attn_indexes=(1, 3)))
+    params = build.init_sam_params(cfg, cuda, "cuda")
+    if weights == "packed":
+        params["image_encoder"] = image_encoder.pack_sam_attention(params["image_encoder"],
+                                                                  cfg.vision)
+    pred = predictor.SamPredictor(params, cfg, device="cuda")
+    image = np.random.default_rng(30).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    pred.set_image(image)  # first call: builds, attributes
+    before = kernels.launch_counts()
+    pred.set_image(image)
+    torch.cuda.synchronize()
+    ran = {k: n - before[k] for k, n in kernels.launch_counts().items() if n != before[k]}
+    if weights == "packed":
+        assert ran == {"fused_window_attention_packed": 2, "fused_global_attention_packed": 2}
+    else:
+        assert ran == {"fused_window_attention_grid_hd64": 2, "fused_window_attention_rect_hd64": 6,
+                       "fused_global_attention_hd64": 2}
+    assert bool(torch.isfinite(pred._embedding).all())

@@ -8,8 +8,10 @@ exponential forms; the lane-sliced global kernel at 16 and 12 heads in
 both score and exponential forms, with its int8 pre-pass bit for bit;
 the packed kernels at hp 128 over 64 real lanes. The forms that no SAM
 configuration reaches raise ValueError naming themselves. Every test here
-needs an NVIDIA GPU and skips without one. The file imports torch only,
-so it runs on a machine that has no JAX:
+needs an NVIDIA GPU and skips without one, and has a time limit
+(`_LIMIT_S`): a kernel that hangs ends the run with every thread's
+traceback. The file imports torch only, so it runs on a machine that has
+no JAX:
 
     python -m pytest tests/test_torch_cuda_sam_hd64.py -q
 
@@ -19,6 +21,9 @@ their rounding follows the running maximum and so the key tiling. The
 int8 score forms take the limits of their hd 80 forms
 (`test_torch_cuda_dots_i8.py`): 1e-2, and 2e-2 with bf16 exponentials.
 """
+
+import faulthandler
+import sys
 
 import pytest
 import torch
@@ -31,6 +36,17 @@ _TOL = 1e-2
 _H, _HD, _W, _G = 16, 64, 14, 64
 _SC = _HD**-0.5
 _KW = dict(num_heads=_H, head_dim=_HD, window=_W, scale=_SC)
+
+
+# Seconds a test may take, its kernels' first build included.
+_LIMIT_S = 300
+
+
+@pytest.fixture(autouse=True)
+def _time_limit():
+    faulthandler.dump_traceback_later(_LIMIT_S, exit=True, file=sys.__stderr__)
+    yield
+    faulthandler.cancel_dump_traceback_later()
 
 
 @pytest.fixture
@@ -153,15 +169,15 @@ def test_cuda_global_y_quant_i8_hd64_bit_equal_to_plain(cuda, H):
 def test_cuda_packed_hd64_matches_plain(cuda, H, name, N, Wn):
     """K19 and K20 at hp 128 over ViT-L's and ViT-B's 64 real lanes (pad
     lanes zero as the packed weights make them), the scale from hd 64;
-    K19 told its real lanes (`head_dim`), against the plain version over
-    all 128."""
+    both told their real lanes (`head_dim`), against the plain version
+    over all 128."""
     hp, S = 128, Wn * Wn
     y = torch.zeros((N, S, 3, H, hp), dtype=torch.bfloat16, device="cuda")
     y[..., :_HD] = _rand(cuda, N, S, 3, H, _HD)
     y = y.reshape(N, S, 3 * H * hp)
     a, bb = (_rand(cuda, N, H, S, Wn, scale=2.0) for _ in range(2))
-    lanes = {"head_dim": _HD} if name == "fused_window_attention_packed" else {}
-    got = _launched(name, lambda: getattr(sam_attention, name)(y, a, bb, H, hp, Wn, _SC, **lanes))
+    got = _launched(name, lambda: getattr(sam_attention, name)(y, a, bb, H, hp, Wn, _SC,
+                                                               head_dim=_HD))
     ref = getattr(sam_attention, f"{name}_plain")(y, a, bb, H, hp, Wn, _SC)
     assert _row_rel_err(got, ref) <= _TOL
     assert torch.all(got.reshape(N, S, H, hp)[..., _HD:] == 0)

@@ -214,7 +214,9 @@ def test_port_reads_no_file_of_the_jax_package(tmp_path):
                                   "test_torch_cuda_dots_i8.py", "test_torch_cuda_packed.py",
                                   "test_torch_cuda_mlp_v2.py", "test_torch_cuda_sam_hd64.py"])
 def test_card_test_files_import_torch_only(name):
-    """The tests that run on the card must run on a machine without JAX."""
+    """The tests that run on the card must run on a machine without JAX:
+    torch, the port and the standard library modules they use (`faulthandler`
+    and `sys` give a test its time limit)."""
     tree = ast.parse((REPO / "tests" / name).read_text())
     roots = set()
     for node in ast.walk(tree):
@@ -222,7 +224,8 @@ def test_card_test_files_import_torch_only(name):
             roots.update(a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             roots.add((node.module or "").split(".")[0])
-    assert roots <= {"pytest", "torch", "ullava_tpu_torch", "dataclasses", "math"}, roots
+    assert roots <= {"pytest", "torch", "ullava_tpu_torch", "dataclasses", "math", "faulthandler",
+                     "sys"}, roots
 
 
 _AB_ROOTS = {"__future__", "argparse", "dataclasses", "importlib", "json", "subprocess", "sys",

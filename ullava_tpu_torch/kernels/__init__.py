@@ -214,7 +214,7 @@ KERNELS: Dict[str, KernelSpec] = {
         ),
         KernelSpec(
             "fused_global_attention_packed", "sam_packed_attention.cu",
-            "ullava_fused_global_attention_packed", (P, P, P, P, I, I, F, P),
+            "ullava_fused_global_attention_packed", (P, P, P, P, I, I, I, F, P),
             "ullava_tpu/ops/sam_attention.py:920",
         ),
         KernelSpec(

@@ -22,14 +22,18 @@
 // [N, S, HD].
 //
 // The hd 64 form (`ullava_fused_global_attention_hd64`): the same core at
-// HD = 64, one 64-column TMA box a row and 4 k-steps of wgmma.m64n128k16.
+// HD = 64, one 64-column TMA box a row and 4 k-steps of wgmma.m64n128k16,
+// on the core's B1 arithmetic (the raw terms pre-scaled once, in place in
+// their tables; p = exp2 of one fma a score) and its three-warpgroup
+// schedule (192-row query tiles, 22 an instance, the last one 64 rows).
 // Its bound at one ViT-L B=1 global block (N = 16): 16*4096*4096*64*4 =
 // 68.7 GFLOP, ~69 us at the bf16 peak, against ~42 MB (~13 us): operations.
 //
 // Compiled with ULLAVA_MUTANT_GLOBAL_BIAS_RAW (global_sm90.cuh) the kernel
 // reads the bias terms without the 1/scale pre-scale: a deliberate bug
 // that only `chip_smoke.py` builds, to show that the gate catches it; so
-// does the core's ULLAVA_MUTANT_GLOBAL_A_ONE_ROW.
+// do the core's ULLAVA_MUTANT_GLOBAL_A_ONE_ROW and, at hd 64, its B1 and
+// tail-tile ones.
 #include "global_sm90.cuh"
 
 namespace ullava {

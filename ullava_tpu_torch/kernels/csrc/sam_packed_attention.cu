@@ -15,11 +15,10 @@
 //     q, k and v (151 MB of y's 241) and the two bias tensors (17.6 MB)
 //     and writes 80 MB (pad lanes included): ~0.074 ms of HBM time, against
 //     19.7 GFLOP of products over the real lanes (~0.02 ms): bytes bound it;
-//   - a global block (B = 4, S = 4096) does 550 GFLOP of products over the
-//     128 lanes (~0.56 ms; 0.35 ms over the 80 real lanes) against ~0.3 GB
-//     of traffic (~0.09 ms): operations bound it. The global form contracts
-//     all 128 lanes; the pad lanes are zero only by the weights'
-//     construction.
+//   - a global block (B = 4, S = 4096) does 344 GFLOP of products over the
+//     80 real lanes (~0.35 ms) against ~0.2 GB of traffic (~0.06 ms):
+//     operations bound it; at one ViT-L image (B = 1, 16 heads of 64 real
+//     lanes) 68.7 GFLOP, ~0.069 ms.
 //
 // Design: K19 (the window form) is a problem type of window_whole.cuh's
 // body (one block per (window, head) over all 196 query rows, every score
@@ -38,18 +37,22 @@
 // Each form rounds P where its TPU kernel does: the window form normalizes
 // P before rounding it to bf16 for P V (:818-822); the global form (K20) is
 // online (m, l, acc; acc / l at the end) and runs on the wgmma + TMA
-// global core (global_sm90.cuh), one block per (image, head, 128-row q
-// tile), its q/k/v the 128-lane blocks of the view {d, part * H + h, row,
-// image} and its bias rows the view {j, s, h, image}.
+// global core (global_sm90.cuh) as the problem type PackedGlobal<HD>: its
+// q/k/v the HD real lanes of the 128-lane blocks of the view {d, part * H +
+// h, row, image} (head stride 256 bytes; at hd 80 TMA fills lanes 80-127
+// of the second box with zeros), its bias rows the view {j, s, h, image},
+// its output's pad lanes zeros from 16-byte stores of the core's epilogue.
+// At hd 64 it runs the core's three-warpgroup B1 schedule (192-row query
+// tiles), at hd 80 the two-warpgroup one.
 //
 // Compiled with ULLAVA_MUTANT_PACKED_BIAS_PRESCALED both forms add the
 // bias before the scale (as if it arrived pre-scaled by 1/scale), with
 // ULLAVA_MUTANT_PACKED_HEAD_OFFSET both read k one head over, and with
-// ULLAVA_MUTANT_PACKED_K_ACROSS_BLOCK the window form reads its k rows
-// from lane 128 - HD / 2 of the block, across its 128-lane boundary:
-// deliberate bugs that only `chip_smoke.py` and the card tests build, to
-// show that the gates catch them (window_whole.cuh holds the window form's
-// others, the global core the A-term one).
+// ULLAVA_MUTANT_PACKED_K_ACROSS_BLOCK both read their k rows from lane
+// 128 - HD / 2 of the block, across its 128-lane boundary: deliberate bugs
+// that only `chip_smoke.py` and the card tests build, to show that the
+// gates catch them (window_whole.cuh and global_sm90.cuh hold the others:
+// pad lanes left unwritten, the A term, the B1 and tail-tile bugs).
 #include "global_sm90.cuh"
 #include "window_whole.cuh"
 
@@ -109,10 +112,14 @@ int launch_window_packed(const void* y, const void* a, const void* b, void* o, i
   return launch_window_whole<HD, kPackWin>(p, N * H, static_cast<cudaStream_t>(stream));
 }
 
-// K20's layout for the global core: the raw bias terms [B, H, S, 64] as the
-// view {j, s, h, b}, added after the scale.
+// K20's layout for the global core: the HD real lanes of each 128-lane
+// q/k/v block (the view's head stride 256 bytes), the raw bias terms
+// [B, H, S, 64] as the view {j, s, h, b}, added after the scale; the
+// output's head blocks 128 lanes wide, its pad lanes written as zeros.
+template <int HD>
 struct PackedGlobal {
-  static constexpr int kHD = kPackHP;
+  static constexpr int kHD = HD;
+  static constexpr int kLanes = kPackHP;
   static constexpr bool kBiasAfterScale = true;
   static constexpr bool kBiasRaw = false;
   static constexpr int kQkvHeads = 3;
@@ -130,15 +137,28 @@ struct PackedGlobal {
 #endif
   }
   __device__ static int v_head(int h, int H) { return 2 * H + h; }
-  static bool make_bias_map(CUtensorMap* map, const void* t, int B, int H) {
+  static bool make_bias_map(CUtensorMap* map, const void* t, int B, int H, int rows) {
     const cuuint64_t dims[4] = {glob::kW, glob::kS, static_cast<cuuint64_t>(H),
                                 static_cast<cuuint64_t>(B)};
     const cuuint64_t strides[3] = {128, 128ull * glob::kS, 128ull * glob::kS * H};
-    const cuuint32_t box[4] = {64, 128, 1, 1};
+    const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
     return sm90::encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, t, dims, strides, box,
                             CU_TENSOR_MAP_SWIZZLE_128B);
   }
 };
+
+template <int HD>
+int launch_global_packed(const void* y, const void* a, const void* b, void* o, int B, int H,
+                         float scale, void* stream) {
+  const glob::Params p{static_cast<bf16*>(o), nullptr, nullptr, B, H, scale * glob::kLog2e,
+                       1.f / scale};
+  const bf16* k = static_cast<const bf16*>(y);
+#ifdef ULLAVA_MUTANT_PACKED_K_ACROSS_BLOCK
+  k += kPackHP - HD / 2;  // k's view from lane 128 - HD / 2 of each block on
+#endif
+  return glob::launch_global<PackedGlobal<HD>, false, false>(
+      y, k, y, a, b, nullptr, nullptr, p, static_cast<cudaStream_t>(stream));
+}
 
 }  // namespace ullava
 
@@ -156,15 +176,26 @@ ULLAVA_EXPORT int ullava_fused_window_attention_packed(const void* y, const void
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// y: [B, 4096, 3*H*128] bf16; a, b: [B, H, 4096, 64] bf16; o: [B, 4096, H*128].
+// y: [B, 4096, 3*H*128] bf16; a, b: [B, H, 4096, 64] bf16; o: [B, 4096, H*128];
+// head_dim 64 or 80, the real lanes of each 128-lane block, which alone
+// are loaded and contracted (any other is refused with
+// cudaErrorInvalidValue).
 ULLAVA_EXPORT int ullava_fused_global_attention_packed(const void* y, const void* a,
                                                        const void* b, void* o, int B, int H,
-                                                       float scale, void* stream) {
+                                                       int head_dim, float scale, void* stream) {
   using namespace ullava;
-  const glob::Params p{static_cast<bf16*>(o), nullptr, nullptr, B, H, scale * glob::kLog2e,
-                       1.f / scale};
-  return glob::launch_global<PackedGlobal, false, false>(y, y, y, a, b, nullptr, nullptr, p,
-                                                         static_cast<cudaStream_t>(stream));
+  if (head_dim == 64) return launch_global_packed<64>(y, a, b, o, B, H, scale, stream);
+  if (head_dim == 80) return launch_global_packed<80>(y, a, b, o, B, H, scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// {registers a thread, shared bytes a block, spilled bytes a thread,
+// blocks an SM} of the global form's kernel (K20) at head_dim 64 or 80.
+ULLAVA_EXPORT int ullava_global_attention_packed_attrs(int head_dim, int* out) {
+  using namespace ullava;
+  if (head_dim == 64) return glob::attrs<PackedGlobal<64>, false, false>(out);
+  if (head_dim == 80) return glob::attrs<PackedGlobal<80>, false, false>(out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // {registers a thread, shared bytes a block, spilled bytes a thread,

@@ -1,12 +1,15 @@
 """The B=1 SAM attention forms of ViT-L and ViT-B (K3, K14 and K11 at hd
-64, bf16 and `dots_i8` scores, K11's pre-pass included; K19, the packed
-window kernel, over 64 real lanes of 128) beside their hd 80 twins at
-ViT-H's serving shapes (K19's at the packed B=4 serve's window block),
-for one checkout of the port, and one `SamPredictor.set_image` at ViT-L
-(bf16, int8 towers, int8 towers with `attn_dots_i8`) split into the
-host's resize + normalize and the encode.
+64, bf16 and `dots_i8` scores, K11's pre-pass included; K4, the
+head-major global kernel, at hd 64 in both exponential forms; K19 and
+K20, the packed window and global kernels, over 64 real lanes of 128)
+beside their hd 80 twins at ViT-H's serving shapes (K19's and K20's at
+the packed B=4 serve's window and global blocks, K4's at the bf16 B=4
+serve's 64 (image, head) pairs), for one checkout of the port, and one
+`SamPredictor.set_image` at ViT-L (bf16, int8 towers, int8 towers with
+`attn_dots_i8`) split into the host's resize + normalize and the encode.
 
     python ullava_tpu_torch/microbench/sam_b1_ab.py [--root DIR] [--no-set-image]
+        [--only SUBSTRING ...]
 
 `--root` imports `ullava_tpu_torch` from DIR instead of this checkout (the
 parent commit unpacked beside it, say); the inputs and helpers come from
@@ -19,15 +22,16 @@ launches each after an L2 eviction, with the batches' least and largest
 (`chip_smoke.spread_ms`, each launch queued behind a short device sleep
 so that the wrapper's host time, which can exceed these kernels' own,
 stays out of it); the same for SDPA with the bias as a mask at the same
-shape (`sdpa_ms`; for K19 over the real lanes, and over all 128
+shape (`sdpa_ms`; for K19 and K20 over the real lanes, and over all 128
 `sdpa_128_lanes_ms`); the kernel against its plain version
 (`row_rel_err`, beside the limit `chip_smoke.py` gates it with); and
 `out_sha1`, a digest of the kernel's output bits, equal in two checkouts
-whose kernels compute the same bits on these inputs. A
-checkout whose K19 wrapper has no `head_dim` (before it contracted the
-real lanes alone) runs it over all 128. Before them one `sam_b1_sass`
-line: the instruction counts of the hd 64 kernels in the built
-libraries' SASS (`chip_smoke.sass_counts`). Then one
+whose kernels compute the same bits on these inputs. A checkout whose
+K19 or K20 wrapper has no `head_dim` (before it contracted the real lanes
+alone) runs it over all 128. `--only` keeps the forms whose name holds
+one of the substrings. Before them one `sam_b1_sass` line: the
+instruction counts of the hd 64 kernels (and K20's hd 80 one) in the
+built libraries' SASS (`chip_smoke.sass_counts`). Then one
 `sam_b1_set_image` line a weight form (median of five calls of each part,
 synchronized), the card's name and power limit. It needs a card.
 """
@@ -167,6 +171,53 @@ def forms(cs, gen):
                     lambda y=y, a=a, bb=bb, H=H, hd=hd: sam_attention.global_y_quant_i8(
                         y, a, bb, H, hd),
                     None, None, 0.0))
+    # K4: one global block of ViT-L and ViT-B (16 and 12 (image, head)
+    # pairs of hd 64), ViT-H's at B=4 (64 pairs of hd 80); the bias terms
+    # from `decomposed_bias_terms` of the unscaled q, as the encoder makes
+    # them.
+    S = G * G
+    for size, N, hd in (("vit_l", 16, 64), ("vit_b", 12, 64), ("vit_h", 64, 80)):
+        sc = hd**-0.5
+        q, k, v = (randn(N, S, hd) for _ in range(3))
+        rel_h, rel_w = (randn(2 * G - 1, hd, scale=0.25) for _ in range(2))
+        a, bb = (t.reshape(N, S, G).to(bf) for t in sam_attention.decomposed_bias_terms(
+            q.reshape(1, N, G, G, hd), rel_h, rel_w, G))
+        gmask = (a.float()[:, :, :, None] + bb.float()[:, :, None, :]).reshape(N, S, S).to(bf)
+        for exp_bf16 in (False, True):
+            args = (q, k, v, a, bb, G, sc)
+            out.append((
+                f"fused_global_attention{'_hd64' if hd == 64 else ''} {size} {N} x 4096 "
+                f"{'exp_bf16' if exp_bf16 else 'exp_fp32'}",
+                lambda args=args, e=exp_bf16: sam_attention.fused_global_attention(
+                    *args, exp_bf16=e),
+                lambda args=args, e=exp_bf16: sam_attention.fused_global_attention_plain(
+                    *args, exp_bf16=e),
+                lambda q=q, k=k, v=v, m=gmask, sc=sc: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=m, scale=sc),
+                2e-2 if exp_bf16 else 1e-2))
+    # K20: one packed global block of ViT-L and ViT-B (B=1, 64 real lanes
+    # of 128) and the packed ViT-H B=4 serve's (80 of 128).
+    packed_g = sam_attention.fused_global_attention_packed
+    g_lanes = "head_dim" in inspect.signature(packed_g).parameters
+    for size, H, hd, Bn in (("vit_l", 16, 64, 1), ("vit_b", 12, 64, 1), ("vit_h", 16, 80, 4)):
+        sc = hd**-0.5
+        y = torch.zeros((Bn, S, 3, H, cs.SAM_HP), dtype=bf, device="cuda")
+        y[..., :hd] = randn(Bn, S, 3, H, hd)
+        y = y.reshape(Bn, S, 3 * H * cs.SAM_HP)
+        a, bb = (randn(Bn, H, S, G, scale=2.0) for _ in range(2))
+        lanes = {"head_dim": hd} if g_lanes else {}
+        sdpa = {}
+        for key, n in (("sdpa_ms", hd), ("sdpa_128_lanes_ms", cs.SAM_HP)):
+            y5, mask = cs.packed_sdpa_inputs(y, a, bb, H, cs.SAM_HP, n)
+            sdpa[key] = lambda y5=y5, m=mask, sc=sc: F.scaled_dot_product_attention(
+                y5[0], y5[1], y5[2], attn_mask=m, scale=sc)
+        out.append((
+            f"fused_global_attention_packed {size} hd{hd} [{Bn}, 4096, {3 * H * cs.SAM_HP}]",
+            lambda y=y, a=a, bb=bb, H=H, sc=sc, kw=lanes: packed_g(y, a, bb, H, cs.SAM_HP, G, sc,
+                                                                   **kw),
+            lambda y=y, a=a, bb=bb, H=H, sc=sc: sam_attention.fused_global_attention_packed_plain(
+                y, a, bb, H, cs.SAM_HP, G, sc),
+            sdpa, 1e-2))
     return out
 
 
@@ -241,6 +292,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--no-set-image", action="store_true")
+    ap.add_argument("--only", nargs="*", default=None)
     args = ap.parse_args(argv)
     sys.path.insert(0, args.root)
     import torch
@@ -263,10 +315,16 @@ def main(argv=None) -> int:
             ("k19", "sam_packed_attention.cu", "window_whole_kernel"),
             ("k14_hd64", "sam_rect_attention.cu", "ILi64ELi14E"),
             ("k11_hd64", "sam_global_attention_y.cu", "GlobalYILi64E"),
-            ("k11_hd64_pre_pass", "sam_global_attention_y.cu", "global_y_quant_i8_kernelILi64E"))}}),
+            ("k11_hd64_pre_pass", "sam_global_attention_y.cu", "global_y_quant_i8_kernelILi64E"),
+            ("k4_hd64", "sam_global_attention.cu", "HeadMajorGlobalILi64E"),
+            ("k20_hd64", "sam_packed_attention.cu", "PackedGlobalILi64E"),
+            ("k20_hd80", "sam_packed_attention.cu", "PackedGlobalILi80E"),
+            ("k20", "sam_packed_attention.cu", "PackedGlobal"))}}),
           flush=True)
     gen = torch.Generator(device="cuda").manual_seed(28)
     for name, run, plain, sdpa, tol in forms(cs, gen):
+        if args.only is not None and not any(o in name for o in args.only):
+            continue
         line = {"phase": "sam_b1_form", "form": name, "root": args.root}
         if plain is not None:
             line.update(row_rel_err=cs.row_rel_err(run(), plain()), tol=tol)

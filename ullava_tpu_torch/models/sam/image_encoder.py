@@ -331,10 +331,9 @@ def _attn_packed(x: torch.Tensor, p: Params, cfg: SamVisionConfig, size: int) ->
     else:
         kw = dict(num_heads=H, head_pad=hp, window=size, scale=hd**-0.5)
         A, Bb = A.contiguous(), Bb.contiguous()
-        if size <= 16:  # [B, S, H*hp]; the window kernel contracts the hd real lanes
-            out = fused_window_attention_packed(y, A, Bb, **kw, head_dim=hd)
-        else:
-            out = fused_global_attention_packed(y, A, Bb, **kw)
+        # [B, S, H*hp]; both kernels contract the hd real lanes
+        attn = fused_window_attention_packed if size <= 16 else fused_global_attention_packed
+        out = attn(y, A, Bb, **kw, head_dim=hd)
     out = _lin(cfg, out, p["proj"]) + p["proj_bias"]
     return out.reshape(B, size, size, C)
 

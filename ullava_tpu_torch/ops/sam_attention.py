@@ -15,8 +15,8 @@ window kernel (`fused_window_attention`) takes them raw like the global
 kernel. The packed kernels (`fused_window_attention_packed`,
 `fused_global_attention_packed`) read q/k/v as the 128-lane blocks of a
 head-major padded projection output and take the terms raw, [N, H, S, W],
-added after the scale: s = q.k * scale + A + Bb. The packed window kernel
-contracts the `head_dim` real lanes of each block and writes zeros to the
+added after the scale: s = q.k * scale + A + Bb. Both packed kernels
+contract the `head_dim` real lanes of each block and write zeros to the
 rest (the packed layout's pad lanes are zero, so the result is that of
 all the lanes).
 """
@@ -597,45 +597,56 @@ def fused_window_attention_packed_plain(
 
 
 def fused_global_attention_packed_plain(
-    y, bias_a, bias_b, num_heads: int, head_pad: int, window: int, scale: float
+    y, bias_a, bias_b, num_heads: int, head_pad: int, window: int, scale: float,
+    head_dim: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain version of `fused_global_attention_packed`: the scores of the
     window form, one softmax over all S keys with fp32 exponentials, the
     unnormalized weights rounded to y's dtype for the value product and
     the fp32 sum dividing after it (`_softmax_weights`), as the TPU
-    kernel's online softmax ends."""
+    kernel's online softmax ends. Only the first `head_dim` lanes of each
+    block (all `head_pad` by default) are contracted and written; the rest
+    of the output is zero."""
     B, S, _ = y.shape
     H, hp, W = num_heads, head_pad, window
+    hd = hp if head_dim is None else head_dim
     t = torch.arange(S, device=y.device)
-    out = torch.empty((B, S, H * hp), dtype=y.dtype, device=y.device)
+    out = torch.zeros((B, S, H, hp), dtype=y.dtype, device=y.device)
     for b in range(B):
-        q, k, v = (x[0] for x in _packed_qkv(y, H, hp, b, b + 1))
+        q, k, v = (x[0, ..., :hd] for x in _packed_qkv(y, H, hp, b, b + 1))
         for h in range(H):
             A, Bb = bias_a[b, h].float(), bias_b[b, h].float()
             s = (q[h] @ k[h].T) * scale + A[:, t // W] + Bb[:, t % W]
             p, l = _softmax_weights(s, False, y.dtype)
-            out[b, :, h * hp:(h + 1) * hp] = ((p @ v[h]) / l).to(y.dtype)
-    return out
+            out[b, :, h, :hd] = ((p @ v[h]) / l).to(y.dtype)
+    return out.reshape(B, S, H * hp)
 
 
-# The real head widths the CUDA packed window kernel has instances for
-# (ViT-L's and ViT-B's 64, ViT-H's 80).
-_PACKED_WINDOW_HEAD_DIMS = (64, 80)
+# The real head widths the CUDA packed kernels have instances for (ViT-L's
+# and ViT-B's 64, ViT-H's 80).
+_PACKED_HEAD_DIMS = (64, 80)
 
 
 def _packed_attention(name, y, bias_a, bias_b, num_heads, head_pad, window, scale, plain,
                       cuda_window, head_dim=None):
     """Checks, then the plain version on the CPU or kernel `name` on the
-    card; `head_dim` (the window form only) is passed on where given."""
+    card over the `head_dim` real lanes of each block (all `head_pad` by
+    default: on the card a ValueError, as is any width without an
+    instance)."""
     N, S, width = y.shape
     H, hp, W = num_heads, head_pad, window
+    hd = hp if head_dim is None else head_dim
+    if not 0 < hd <= hp:
+        raise ValueError(f"head_dim {hd} must be in [1, head_pad {hp}]")
     if S != W * W or width != 3 * H * hp:
         raise ValueError(f"y {tuple(y.shape)} does not match H={H} hp={hp} W={W}")
     if bias_a.shape != (N, H, S, W) or bias_b.shape != (N, H, S, W):
         raise ValueError(f"bias terms must be [{N}, {H}, {S}, {W}]")
-    lanes = () if head_dim is None else (head_dim,)
     if y.device.type == "cpu":
-        return plain(y, bias_a, bias_b, H, hp, W, scale, *lanes)
+        return plain(y, bias_a, bias_b, H, hp, W, scale, hd)
+    if hd not in _PACKED_HEAD_DIMS:
+        raise ValueError(f"the CUDA {name} kernel is built for head_dim {_PACKED_HEAD_DIMS}; "
+                         f"got {hd}")
     if (hp, W) != (128, cuda_window):
         raise ValueError(f"the CUDA {name} kernel is built for hp 128, W {cuda_window}; "
                          f"got {hp}, {W}")
@@ -643,7 +654,7 @@ def _packed_attention(name, y, bias_a, bias_b, num_heads, head_pad, window, scal
         kernels.check_cuda_tensor(f"{name} {label}", t, torch.bfloat16)
     out = torch.empty((N, S, H * hp), dtype=y.dtype, device=y.device)
     kernels.launch(name, kernels.ptr(y), kernels.ptr(bias_a), kernels.ptr(bias_b), kernels.ptr(out),
-                   N, H, *lanes, float(scale))
+                   N, H, hd, float(scale))
     return out
 
 
@@ -668,15 +679,9 @@ def fused_window_attention_packed(
     head_dim 64 or 80: ViT-L's and ViT-B's, ViT-H's; W 14, bf16) for CUDA
     tensors, which raises ValueError for any other head_dim; the plain
     version for CPU ones."""
-    hd = head_pad if head_dim is None else head_dim
-    if not 0 < hd <= head_pad:
-        raise ValueError(f"head_dim {hd} must be in [1, head_pad {head_pad}]")
-    if y.device.type != "cpu" and hd not in _PACKED_WINDOW_HEAD_DIMS:
-        raise ValueError(f"the CUDA fused_window_attention_packed kernel is built for head_dim "
-                         f"{_PACKED_WINDOW_HEAD_DIMS}; got {hd}")
     return _packed_attention("fused_window_attention_packed", y, bias_a, bias_b, num_heads,
                              head_pad, window, scale, fused_window_attention_packed_plain, 14,
-                             head_dim=hd)
+                             head_dim=head_dim)
 
 
 def fused_global_attention_packed(
@@ -689,12 +694,19 @@ def fused_global_attention_packed(
     scale: float,
     block_q: int = 1024,
     block_k: int = 1024,
+    head_dim: Optional[int] = None,
 ) -> torch.Tensor:
     """Global attention on the packed head-major layout, online softmax
-    with fp32 exponentials; returns [B, S, H*hp]. `block_q` and `block_k`
-    are TPU tiling: accepted and ignored. CUDA kernel
-    `kernels/csrc/sam_packed_attention.cu` (hp 128 over any real head dim
-    up to it, W 64, bf16, on the wgmma + TMA core `global_sm90.cuh`) for
-    CUDA tensors, the plain version for CPU ones."""
+    with fp32 exponentials; returns [B, S, H*hp], pad lanes included.
+    `head_dim` is the real lanes of each block, which alone are
+    contracted; the output's other lanes are written as zeros. It defaults
+    to `head_pad` (every lane, the JAX function as it is); on the packed
+    layout's zero pad lanes both give the same result. `block_q` and
+    `block_k` are TPU tiling: accepted and ignored. CUDA kernel
+    `kernels/csrc/sam_packed_attention.cu` (hp 128, head_dim 64 or 80, W
+    64, bf16, on the wgmma + TMA core `global_sm90.cuh`) for CUDA tensors,
+    which raises ValueError for any other head_dim; the plain version for
+    CPU ones."""
     return _packed_attention("fused_global_attention_packed", y, bias_a, bias_b, num_heads,
-                             head_pad, window, scale, fused_global_attention_packed_plain, 64)
+                             head_pad, window, scale, fused_global_attention_packed_plain, 64,
+                             head_dim=head_dim)
